@@ -3,8 +3,9 @@
 The JAX package ``bdd_tpu`` stays the reference; this package mirrors its
 module names so every port module has an obvious counterpart:
 
-  bdd_tpu_torch.solver.layout          — geometry/state types and host builders
-                                          (bdd_tpu.solver.uniform, native.make_uniform_host)
+  bdd_tpu_torch.solver.layout          — byte geometry, flat buffers, launch plan, host
+                                          builders (bdd_tpu.solver.uniform,
+                                          native.make_uniform_host)
   bdd_tpu_torch.solver.uniform         — sweep twins, delta exchange, iteration
   bdd_tpu_torch.solver.sweep_kernels   — CUDA sweep kernel wrappers
                                           (bdd_tpu.solver.pallas_uniform)
@@ -12,8 +13,12 @@ module names so every port module has an obvious counterpart:
   bdd_tpu_torch.solver.rounding_device — on-device incremental rounding
   bdd_tpu_torch.api                    — BddSolver for the native main path + CLI
 
-JAX-free modules of ``bdd_tpu`` (ilp, bdd, frontends, native, solver.run,
-solver.rounding, utils) are shared, not copied. Nothing here imports JAX.
+The port stands alone: it imports neither JAX nor any module of ``bdd_tpu``.
+What it needs of the JAX-free modules there it keeps as copies of its own,
+under the same relative names: ``native`` with ``csrc/bdd_host.cpp`` (the C++
+host library), ``solver.run``, ``solver.rounding``, ``utils.logging``,
+``utils.problems``, ``ilp`` (model and LP parser) and
+``frontends.graph_matching``. Only the tests import both packages.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,10 +1,11 @@
-"""Build and load the CUDA sweep kernels (csrc/uniform_sweep.cu).
+"""Build and load the port's two native libraries.
 
-nvcc compiles the source into a shared library with a plain C interface,
-bound with ctypes (no PyTorch headers, so a build takes seconds). The library
-lands in ``bdd_tpu_torch/build/`` under a name keyed by a hash of the source
-and the flags, and is built at first use. A failed build raises; nothing
-falls back.
+``csrc/uniform_sweep.cu`` (the CUDA sweep kernels) is compiled by nvcc and
+``csrc/bdd_host.cpp`` (host preprocessing and the OpenMP CPU solver) by g++,
+each into a shared library with a plain C interface, bound with ctypes (no
+PyTorch headers, so a build takes seconds). A library lands in
+``bdd_tpu_torch/build/`` under a name keyed by a hash of its source and flags,
+and is built at first use. A failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -14,10 +15,12 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import List, Optional
+import threading
+from typing import Callable, Dict, List, Optional
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_PKG, "csrc", "uniform_sweep.cu")
+HOST_SOURCE = os.path.join(_PKG, "csrc", "bdd_host.cpp")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 # No --use_fast_math: it breaks isinf/isnan, which the ±inf forcing contract
@@ -28,8 +31,10 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+HOST_FLAGS = ["-O2", "-std=c++17", "-fopenmp", "-shared", "-fPIC"]
 
 _LIB: Optional[ctypes.CDLL] = None
+_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -45,31 +50,45 @@ def nvcc_path() -> str:
     return path
 
 
-def nvcc_command(nvcc: str, out: str) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", out, SOURCE]
+def _gxx_path() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found on PATH")
+    return path
+
+
+def nvcc_command(nvcc: str, out: str, extra: Optional[List[str]] = None) -> List[str]:
+    return [nvcc, *NVCC_FLAGS, *(extra or []), "-o", out, SOURCE]
+
+
+def _library_path(stem: str, source: str, flags: List[str]) -> str:
+    with open(source, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(flags).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest[:16]}.so")
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"libuniform_sweep-{digest[:16]}.so")
+    return _library_path("uniform_sweep", SOURCE, NVCC_FLAGS)
 
 
-def build() -> str:
-    """Compile the library unless this source+flags version exists."""
-    out = library_path()
+def host_library_path() -> str:
+    return _library_path("bddhost", HOST_SOURCE, HOST_FLAGS)
+
+
+def _compile(out: str, command: Callable[[str], List[str]]) -> str:
+    """Run ``command(tmp)`` unless ``out`` exists, then rename into place."""
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(
-            nvcc_command(nvcc_path(), tmp), capture_output=True, text=True
-        )
+        cmd = command(tmp)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+                f"{os.path.basename(cmd[0])} failed ({proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, out)  # atomic: concurrent builders see whole files
     finally:
@@ -78,25 +97,61 @@ def build() -> str:
     return out
 
 
+def build() -> str:
+    """Compile the kernel library unless this source+flags version exists."""
+    return _compile(library_path(), lambda tmp: nvcc_command(nvcc_path(), tmp))
+
+
+def build_host() -> str:
+    """Compile the host library unless this source+flags version exists."""
+    return _compile(
+        host_library_path(),
+        lambda tmp: [_gxx_path(), *HOST_FLAGS, "-o", tmp, HOST_SOURCE],
+    )
+
+
+def build_all() -> Dict[str, str]:
+    """Both libraries, the two compilers started together."""
+    out: Dict[str, object] = {}
+
+    def run(name: str, fn: Callable[[], str]) -> None:
+        try:
+            out[name] = fn()
+        except BaseException as exc:  # re-raised below, in the caller's thread
+            out[name] = exc
+
+    threads = [
+        threading.Thread(target=run, args=("kernels", build)),
+        threading.Thread(target=run, args=("host", build_host)),
+    ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for v in out.values():
+        if isinstance(v, BaseException):
+            raise v
+    return {k: str(v) for k, v in out.items()}
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    # (P, H, B, node_valid, lo_kind, lo_slot, hi_kind, hi_slot, layer_valid,
-    #  [root,] lo, hi, cfr|cft, din_lo, din_hi, alpha, omega_arr, omega,
-    #  out_lo, out_hi, out_mm, out_cfr|out_cft, stream)
-    fwd = [i, i, i] + [vp] * 7 + [vp] * 7 + [d] + [vp] * 5
-    bwd = [i, i, i] + [vp] * 6 + [vp] * 7 + [d] + [vp] * 5
+    # (table, nr_buckets, nr_blocks, tile, pmax, smem_bytes, arcs, lo, hi,
+    #  din_lo, din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi,
+    #  out_mm, frontier out, stream)
+    sig = [vp, i, i, i, i, i] + [vp] * 7 + [d] + [vp] * 6
     for suffix in ("f32", "f64"):
-        f = getattr(lib, f"uniform_forward_{suffix}")
-        f.argtypes, f.restype = fwd, i
-        b = getattr(lib, f"uniform_backward_{suffix}")
-        b.argtypes, b.restype = bwd, i
+        for name in ("uniform_forward", "uniform_backward"):
+            f = getattr(lib, f"{name}_{suffix}")
+            f.argtypes, f.restype = sig, i
 
 
 def load() -> ctypes.CDLL:
     """The kernel library, built at first use in this process."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(build())
-        _declare(lib)
-        _LIB = lib
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build())
+            _declare(lib)
+            _LIB = lib
     return _LIB

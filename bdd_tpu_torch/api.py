@@ -18,9 +18,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from bdd_tpu.native import NativeHost, NativeUnsupported
-from bdd_tpu.solver.run import run_solver
-from bdd_tpu.utils.logging import bdd_log
+from bdd_tpu_torch.native import NativeHost, NativeUnsupported
+from bdd_tpu_torch.solver.run import run_solver
+from bdd_tpu_torch.utils.logging import bdd_log
 from bdd_tpu_torch.solver.layout import from_native_host, resolve_device
 from bdd_tpu_torch.solver.rounding_device import Draws, incremental_mm_rounding_device
 from bdd_tpu_torch.solver.uniform_wrapper import UniformSolver

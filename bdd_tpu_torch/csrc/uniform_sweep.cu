@@ -3,32 +3,57 @@
 // Replace the Pallas TPU kernels of bdd_tpu/solver/pallas_uniform.py:
 //   uniform_forward  <- _forward_kernel  (pallas_uniform.py:112-180)
 //   uniform_backward <- _backward_kernel (pallas_uniform.py:183-246)
-// Each runs one bucket's whole half-sweep over its H hops: min-marginals,
-// MMA cost update, and the frontier (forward cfr) or costs-to-terminal
-// (backward cft). Semantics are those of the XLA scan in
+// One launch runs the whole half-sweep of EVERY bucket of a solve: per hop
+// the min-marginals, the MMA cost update, and the frontier (forward cfr) or
+// costs-to-terminal (backward cft). Semantics are those of the XLA scan in
 // bdd_tpu/solver/uniform.py:1181-1373 and of the torch twins in
 // bdd_tpu_torch/solver/uniform.py, with real IEEE infinities (not the Pallas
 // BIG=1e30 stand-in).
 //
-// Design. BDD columns are independent within a half-sweep and the hop loop
-// is serial, so one thread owns one column b and loops over h inside the
-// kernel (forward 0..H-1, backward H-1..0). The P-slot frontier lives in
-// registers (template on P, fully unrolled; the one-hot child selects and
-// the scatter-min of the relaxation become P*P compare-selects, so no
-// dynamically indexed register array spills to local memory for small P).
-// All arrays are [H, P, B] / [H, B] with b minor: a warp's loads and stores
-// are coalesced.
+// Bound: bytes (device memory). Per (hop, column) the kernel reads one geometry record of
+// max(4, 2P) bytes, P frontier values and five (six with a per-layer omega)
+// cost values, and writes 3 + P values; a few dozen compares and adds. The
+// least time is those bytes over the card's memory rate.
 //
-// Bound. Memory: per (h, b) the kernel reads P bytes of node_valid, 4P int32
-// words of arc kinds and slots, P floats of cft/cfr and 6 floats plus 2 mask
-// bytes of per-layer data, and writes 3 + P floats; a handful of compares
-// and adds per byte. The bytes are the cost; the later levers are narrower
-// geometry (int8 kinds/slots) and fusing buckets into one launch.
+// Design, and what each point is for.
+//  * Columns are independent and the hop loop is a serial recurrence, so one
+//    thread owns one column and keeps its P-slot frontier in registers
+//    (template on P, fully unrolled compare-selects, no indexed registers).
+//  * The addresses of all later hops are known at entry; only the arithmetic
+//    is serial. So the loads run ahead of the hop loop: every thread copies
+//    the inputs of its own column's next S hops into a ring of S + 1 slots
+//    in shared memory (one cell a column and slot) with cp.async (4, 8 or 16
+//    bytes a copy) and waits with cp.async.wait_group only for the hop it is
+//    about to compute. A thread reads back only what it copied itself, so
+//    the ring needs no block barrier, a ragged last tile is just a thread
+//    that leaves, and every copy is naturally aligned (a value, or a record
+//    of 4, 8 or 16k bytes). The extra slot is the one the arithmetic is
+//    still reading. Outputs go straight to device memory. Backward walks the
+//    hops from H-1 down; the forward ring carries cft of hop h+1 in the slot
+//    of hop h. Pointers into device memory run along, one hop a step, and
+//    every offset inside a cell is a compile-time constant: what is left of
+//    a hop is its arithmetic, one dependent chain, which is what a warp
+//    alone on its scheduler is then held by (warm, about half the byte
+//    bound at 13,696 columns; wider layouts with more warps come closer).
+//  * A block is a tile of 32 or 64 columns, one thread each, sized by the
+//    caller from the total column count. Depth of prefetch, not thread
+//    count, carries the memory latency of narrow buckets.
+//  * A table in device memory (P, H, B, first block, offsets into the flat
+//    buffers, stages) lets one grid cover all buckets; a block looks up its
+//    bucket and switches on P into the templated body. Kernels are
+//    instantiated for a largest P of 2, 8 and 32, so that narrow solves are
+//    not held to the register count of the widest body.
+//  * Geometry comes as bytes: per (hop, column) a record [lo arc of slot
+//    0..P-1, hi arc of slot 0..P-1, padding to 4]; an arc byte is kind (2
+//    bits) | slot << 2 (5 bits) | flag << 7. The flag of a lo byte is
+//    node_valid; of record byte P layer_valid; of record byte P+1 root.
+//    solver/layout.py writes this form and the twins decode the same bytes.
 //
 // Build: nvcc without --use_fast_math (isinf/isnan must hold) and with
 // -fmad=false (no FMA contraction), so results match the twin bit for bit.
 // Each launch runs on the caller's stream; the C entry points return
-// cudaGetLastError() (or -1 for an uninstantiated P).
+// cudaGetLastError(), -1 for a largest P with no instantiation, or -2 for a
+// tile that is not 32 or 64 columns.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,7 +64,38 @@ namespace {
 constexpr int ARC_INTERNAL = 0;
 constexpr int ARC_TOP = 1;
 constexpr int ARC_BOT = 2;
-constexpr int THREADS = 128;
+constexpr int MAX_TILE = 64;
+constexpr int MAX_STAGES = 8;
+constexpr int LAYER_ROWS = 6;  // lo hi din_lo din_hi alpha omega
+
+// one row of the bucket table (int64 [nr_buckets, 8], solver/layout.py)
+struct Bucket {
+  long long P, H, B;
+  long long first_block;  // first block of the grid that works on it
+  long long row_off;      // elements, into the [H, B] buffers
+  long long node_off;     // elements, into the [H, P, B] buffers
+  long long arc_off;      // bytes, into the geometry records
+  long long stages;       // hops in flight, 1..MAX_STAGES
+};
+
+template <typename T>
+struct Args {
+  const Bucket* __restrict__ table;
+  int nr_buckets;
+  const uint8_t* __restrict__ arcs;  // records [H, B, max(4, 2P)] per bucket
+  const T* __restrict__ lo;          // [H, B] per bucket, flat
+  const T* __restrict__ hi;
+  const T* __restrict__ din_lo;
+  const T* __restrict__ din_hi;
+  const T* __restrict__ alpha;
+  const T* __restrict__ omega_arr;  // [H, B] or null: scalar omega
+  T omega;
+  const T* __restrict__ frontier;  // [H, P, B]: cft (forward) / cfr (backward)
+  T* __restrict__ out_lo;
+  T* __restrict__ out_hi;
+  T* __restrict__ out_mm;
+  T* __restrict__ out_frontier;  // [H, P, B]: cfr (forward) / cft (backward)
+};
 
 template <typename T>
 __device__ __forceinline__ T inf_v() {
@@ -57,13 +113,19 @@ __device__ __forceinline__ T max_v(T a, T b) {
   return (a != a || a > b) ? a : b;
 }
 
-// cft of the child along one arc: TOP -> 0, BOT -> inf, else cn[slot]
-template <typename T, int P>
-__device__ __forceinline__ T child_cft(int kind, int slot, const T (&cn)[P]) {
-  T g = T(0);
-#pragma unroll
-  for (int k = 0; k < P; ++k) g = (slot == k) ? cn[k] : g;
-  return kind == ARC_TOP ? T(0) : (kind == ARC_BOT ? inf_v<T>() : g);
+// float has both as one instruction (NaN-propagating min / max, sm_80 on)
+template <>
+__device__ __forceinline__ float min_v<float>(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+template <>
+__device__ __forceinline__ float max_v<float>(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 // MMA update of one layer (uniform.py:1181-1205). Forcing deltas (±inf din)
@@ -89,224 +151,341 @@ __device__ __forceinline__ void hop_cost_update(T lo, T hi, T m0, T m1, T omega,
   def_mm = lval ? dm : T(0);
 }
 
-struct Geom {
-  const uint8_t* __restrict__ node_valid;  // [H, P, B]
-  const int32_t* __restrict__ lo_kind;     // [H, P, B]
-  const int32_t* __restrict__ lo_slot;
-  const int32_t* __restrict__ hi_kind;
-  const int32_t* __restrict__ hi_slot;
-  const uint8_t* __restrict__ layer_valid;  // [H, B]
-  const uint8_t* __restrict__ root;         // [H, B] (forward only)
-};
+// ---------------------------------------------------------------- cp.async
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+                 : "memory");
+  else if constexpr (BYTES == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
+                 : "memory");
+}
 
-template <typename T>
-struct Costs {
-  const T* __restrict__ lo;  // [H, B]
-  const T* __restrict__ hi;
-  const T* __restrict__ frontier;  // [H, P, B]: cft (forward) / cfr (backward)
-  const T* __restrict__ din_lo;    // [H, B]
-  const T* __restrict__ din_hi;
-  const T* __restrict__ alpha;
-  const T* __restrict__ omega_arr;  // [H, B] or null: scalar omega
-  T omega;
-  T* __restrict__ out_lo;  // [H, B]
-  T* __restrict__ out_hi;
-  T* __restrict__ out_mm;
-  T* __restrict__ out_frontier;  // [H, P, B]: cfr (forward) / cft (backward)
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` of this thread's newest groups are in flight
+__device__ __forceinline__ void cp_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    case 7: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 8;\n" ::: "memory"); break;
+  }
+}
+
+// ------------------------------------------------------------ ring layout
+// A slot holds one hop of the block's tile, one cell of W bytes a column:
+//   [geometry record, G bytes][padding to a value][LAYER_ROWS + P values]
+// All offsets inside a cell are compile-time constants, so the hop loop
+// spends no instruction on shared-memory addresses. W is padded to an odd
+// count of 4-byte (8-byte) units where its alignment allows, so that a warp's
+// cells fall into distinct banks. solver/layout.py computes the same W.
+template <int P>
+struct Record {
+  static constexpr int G = 2 * P < 4 ? 4 : 2 * P;  // bytes
+  static constexpr int WORDS = G / 4;
+  static constexpr int CHUNKS = G / 16;  // 0 for G of 4 and 8
 };
 
 template <typename T, int P>
-__global__ void __launch_bounds__(THREADS)
-    forward_kernel(int H, int B, Geom g, Costs<T> c) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const T inf = inf_v<T>();
-  const size_t PB = (size_t)P * B;
-  T cfr[P];
+struct Cell {
+  static constexpr int G = Record<P>::G;
+  static constexpr int SZ = (int)sizeof(T);
+  static constexpr int VALUES = (G + SZ - 1) / SZ * SZ;  // offset of the values
+  static constexpr int ALIGN = G >= 16 ? 16 : ((G == 8 || SZ == 8) ? 8 : 4);
+  static constexpr int RAW = (VALUES + (LAYER_ROWS + P) * SZ + ALIGN - 1) / ALIGN * ALIGN;
+  static constexpr int W =
+      (ALIGN < 16 && (RAW / ALIGN) % 2 == 0) ? RAW + ALIGN : RAW;
+
+  __device__ static __forceinline__ const T& value(const unsigned char* cell, int r) {
+    return *(const T*)(cell + VALUES + r * SZ);
+  }
+  __device__ static __forceinline__ void* value_at(unsigned char* cell, int r) {
+    return cell + VALUES + r * SZ;
+  }
+  // the record as words in registers
+  __device__ static __forceinline__ void load_record(const unsigned char* cell,
+                                                     uint32_t (&w)[Record<P>::WORDS]) {
+    if constexpr (G == 4) {
+      w[0] = *(const uint32_t*)cell;
+    } else if constexpr (G == 8) {
+      const uint2 v = *(const uint2*)cell;
+      w[0] = v.x;
+      w[1] = v.y;
+    } else {
 #pragma unroll
-  for (int p = 0; p < P; ++p) cfr[p] = inf;
-  for (int h = 0; h < H; ++h) {
-    const size_t row = (size_t)h * B + b;
-    const size_t node = (size_t)h * PB + b;  // + p * B
-    if (g.root[row]) {  // root restart (also the hop-0 init)
-#pragma unroll
-      for (int p = 0; p < P; ++p) cfr[p] = p == 0 ? T(0) : inf;
-    }
-    T cn[P];
-#pragma unroll
-    for (int k = 0; k < P; ++k)
-      cn[k] = h + 1 < H ? c.frontier[node + PB + (size_t)k * B] : inf;
-    bool nv[P];
-    int lk[P], ls[P], hk[P], hs[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const size_t i = node + (size_t)p * B;
-      nv[p] = g.node_valid[i] != 0;
-      lk[p] = g.lo_kind[i];
-      ls[p] = g.lo_slot[i];
-      hk[p] = g.hi_kind[i];
-      hs[p] = g.hi_slot[i];
-    }
-    const T lo = c.lo[row], hi = c.hi[row];
-    T m0 = inf, m1 = inf;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const T tl = child_cft<T, P>(lk[p], ls[p], cn);
-      const T th = child_cft<T, P>(hk[p], hs[p], cn);
-      m0 = min_v(m0, nv[p] ? cfr[p] + lo + tl : inf);
-      m1 = min_v(m1, nv[p] ? cfr[p] + hi + th : inf);
-    }
-    const T om = c.omega_arr ? c.omega_arr[row] : c.omega;
-    T nl, nh, mm;
-    hop_cost_update(lo, hi, m0, m1, om, c.alpha[row], c.din_lo[row],
-                    c.din_hi[row], g.layer_valid[row] != 0, nl, nh, mm);
-    c.out_lo[row] = nl;
-    c.out_hi[row] = nh;
-    c.out_mm[row] = mm;
-#pragma unroll
-    for (int p = 0; p < P; ++p) c.out_frontier[node + (size_t)p * B] = cfr[p];
-    // relax the frontier to h+1: nxt[k] = min over valid p with an
-    // internal arc into k of cfr[p] + cost of that arc
-    T nxt[P];
-#pragma unroll
-    for (int k = 0; k < P; ++k) nxt[k] = inf;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const T vl = nv[p] && lk[p] == ARC_INTERNAL ? cfr[p] + nl : inf;
-      const T vh = nv[p] && hk[p] == ARC_INTERNAL ? cfr[p] + nh : inf;
-#pragma unroll
-      for (int k = 0; k < P; ++k) {
-        if (ls[p] == k) nxt[k] = min_v(nxt[k], vl);
-        if (hs[p] == k) nxt[k] = min_v(nxt[k], vh);
+      for (int j = 0; j < Record<P>::CHUNKS; ++j) {
+        const uint4 v = *(const uint4*)(cell + 16 * j);
+        w[4 * j] = v.x;
+        w[4 * j + 1] = v.y;
+        w[4 * j + 2] = v.z;
+        w[4 * j + 3] = v.w;
       }
     }
-#pragma unroll
-    for (int k = 0; k < P; ++k) cfr[k] = nxt[k];
   }
+};
+
+template <int WORDS>
+__device__ __forceinline__ int record_byte(const uint32_t (&w)[WORDS], int i) {
+  return (int)((w[i >> 2] >> ((i & 3) * 8)) & 0xffu);
 }
 
-template <typename T, int P>
-__global__ void __launch_bounds__(THREADS)
-    backward_kernel(int H, int B, Geom g, Costs<T> c) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+// ------------------------------------------------------------------ bodies
+template <typename T, int P, bool FORWARD>
+__device__ __forceinline__ void sweep_column(const Args<T>& a, const Bucket& bk,
+                                             unsigned char* smem, int tile_index) {
+  using C = Cell<T, P>;
+  constexpr int G = C::G, SZ = C::SZ;
+  const int tile = (int)blockDim.x, t = (int)threadIdx.x;  // one thread a column of the tile
+  const int H = (int)bk.H, B = (int)bk.B;
+  const int b = tile_index * tile + t;
+  // no barrier below: a thread reads only its own copies
   if (b >= B) return;
   const T inf = inf_v<T>();
-  const size_t PB = (size_t)P * B;
-  T cn[P];  // cft of hop h+1
+  const int S = min((int)bk.stages, MAX_STAGES), NS = S + 1;
+  const int slot_stride = tile * C::W;
+  unsigned char* const ring = smem + t * C::W;  // this column's cell of slot 0
+
+  // Step i works on hop h(i): forward i, backward H-1-i. Running pointers,
+  // moved by one hop a step: g_* at the next hop to copy, o_* at the hop
+  // being computed. The frontier rows riding with a step are those of hop
+  // h+1 (forward; none with the last hop) or of hop h (backward).
+  const ptrdiff_t step = FORWARD ? (ptrdiff_t)B : -(ptrdiff_t)B;
+  const size_t first = (size_t)(FORWARD ? 0 : H - 1) * B + b;
+  const size_t row0 = (size_t)bk.row_off + first;
+  const uint8_t* g_rec = a.arcs + bk.arc_off + first * G;
+  const T* g_lo = a.lo + row0;
+  const T* g_hi = a.hi + row0;
+  const T* g_dl = a.din_lo + row0;
+  const T* g_dh = a.din_hi + row0;
+  const T* g_al = a.alpha + row0;
+  const T* g_om = a.omega_arr ? a.omega_arr + row0 : nullptr;
+  const T* g_fr = a.frontier + bk.node_off + (size_t)(FORWARD ? 1 : H - 1) * P * B + b;
+  T* o_lo = a.out_lo + row0;
+  T* o_hi = a.out_hi + row0;
+  T* o_mm = a.out_mm + row0;
+  T* o_fr = a.out_frontier + bk.node_off + first * P - (size_t)b * (P - 1);
+
+  auto start_copies = [&](int i, unsigned char* cell) {  // called for i = 0, 1, 2, ...
+    if constexpr (G == 4) {
+      cp_async<4>(cell, g_rec);
+    } else if constexpr (G == 8) {
+      cp_async<8>(cell, g_rec);
+    } else {
 #pragma unroll
-  for (int k = 0; k < P; ++k) cn[k] = inf;
-  for (int h = H - 1; h >= 0; --h) {
-    const size_t row = (size_t)h * B + b;
-    const size_t node = (size_t)h * PB + b;
-    const T lo = c.lo[row], hi = c.hi[row];
-    bool nv[P];
-    T tl[P], th[P];
-    T m0 = inf, m1 = inf;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const size_t i = node + (size_t)p * B;
-      nv[p] = g.node_valid[i] != 0;
-      tl[p] = child_cft<T, P>(g.lo_kind[i], g.lo_slot[i], cn);
-      th[p] = child_cft<T, P>(g.hi_kind[i], g.hi_slot[i], cn);
-      const T cf = c.frontier[i];
-      m0 = min_v(m0, nv[p] ? cf + lo + tl[p] : inf);
-      m1 = min_v(m1, nv[p] ? cf + hi + th[p] : inf);
+      for (int j = 0; j < Record<P>::CHUNKS; ++j) cp_async<16>(cell + 16 * j, g_rec + 16 * j);
     }
-    const T om = c.omega_arr ? c.omega_arr[row] : c.omega;
+    cp_async<SZ>(C::value_at(cell, 0), g_lo);
+    cp_async<SZ>(C::value_at(cell, 1), g_hi);
+    cp_async<SZ>(C::value_at(cell, 2), g_dl);
+    cp_async<SZ>(C::value_at(cell, 3), g_dh);
+    cp_async<SZ>(C::value_at(cell, 4), g_al);
+    if (g_om) {
+      cp_async<SZ>(C::value_at(cell, 5), g_om);
+      g_om += step;
+    }
+    if (!FORWARD || i + 1 < H) {
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        cp_async<SZ>(C::value_at(cell, LAYER_ROWS + p), g_fr + (size_t)p * B);
+    }
+    g_rec += step * G;
+    g_lo += step;
+    g_hi += step;
+    g_dl += step;
+    g_dh += step;
+    g_al += step;
+    g_fr += step * P;
+  };
+  for (int s = 0; s < S; ++s) {
+    if (s < H) start_copies(s, ring + s * slot_stride);
+    cp_commit();  // one group a step, empty or not, so the count stays even
+  }
+
+  T fr[P];  // forward: cfr of this hop; backward: cft of hop h+1
+#pragma unroll
+  for (int p = 0; p < P; ++p) fr[p] = inf;
+
+  int s_cur = 0, s_next = S;
+  for (int i = 0; i < H; ++i) {
+    // refill the slot step i-1 read, then wait for step i's own group:
+    // S + i + 1 groups are committed, group i must be done, S may pend
+    if (i + S < H) start_copies(i + S, ring + s_next * slot_stride);
+    cp_commit();
+    cp_wait(S);
+    const unsigned char* cell = ring + s_cur * slot_stride;
+    s_next = s_cur;
+    s_cur = s_cur + 1 == NS ? 0 : s_cur + 1;
+
+    uint32_t w[Record<P>::WORDS];
+    C::load_record(cell, w);
+    const bool lval = (record_byte(w, P) >> 7) != 0;
+    const T lo = C::value(cell, 0), hi = C::value(cell, 1);
+    const T om = a.omega_arr ? C::value(cell, 5) : a.omega;
     T nl, nh, mm;
-    hop_cost_update(lo, hi, m0, m1, om, c.alpha[row], c.din_lo[row],
-                    c.din_hi[row], g.layer_valid[row] != 0, nl, nh, mm);
-    c.out_lo[row] = nl;
-    c.out_hi[row] = nh;
-    c.out_mm[row] = mm;
+
+    if (FORWARD) {
+      if (record_byte(w, P + 1) >> 7) {  // root restart (also the hop-0 init)
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      cn[p] = nv[p] ? min_v(nl + tl[p], nh + th[p]) : inf;
-      c.out_frontier[node + (size_t)p * B] = cn[p];
+        for (int p = 0; p < P; ++p) fr[p] = p == 0 ? T(0) : inf;
+      }
+      const bool last = i + 1 >= H;
+      T m0 = inf, m1 = inf;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int lb = record_byte(w, p), hb = record_byte(w, P + p);
+        const int lk = lb & 3, ls = (lb >> 2) & 31, hk = hb & 3, hs = (hb >> 2) & 31;
+        // cft of the child: TOP -> 0, BOT -> inf, else cft[h+1][slot]
+        // (inf past the last hop; 0 for a slot outside the bucket, as the
+        // twin's one-hot gather gives)
+        const T gl = last ? inf : (ls < P ? C::value(cell, LAYER_ROWS + ls) : T(0));
+        const T gh = last ? inf : (hs < P ? C::value(cell, LAYER_ROWS + hs) : T(0));
+        const T tl = lk == ARC_TOP ? T(0) : (lk == ARC_BOT ? inf : gl);
+        const T th = hk == ARC_TOP ? T(0) : (hk == ARC_BOT ? inf : gh);
+        const bool nv = (lb >> 7) != 0;
+        m0 = min_v(m0, nv ? fr[p] + lo + tl : inf);
+        m1 = min_v(m1, nv ? fr[p] + hi + th : inf);
+      }
+      hop_cost_update(lo, hi, m0, m1, om, C::value(cell, 4), C::value(cell, 2),
+                      C::value(cell, 3), lval, nl, nh, mm);
+#pragma unroll
+      for (int p = 0; p < P; ++p) o_fr[(size_t)p * B] = fr[p];
+      // relax the frontier to h+1: nxt[k] = min over valid p with an
+      // internal arc into k of cfr[p] + cost of that arc
+      T nxt[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) nxt[k] = inf;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int lb = record_byte(w, p), hb = record_byte(w, P + p);
+        const int lk = lb & 3, ls = (lb >> 2) & 31, hk = hb & 3, hs = (hb >> 2) & 31;
+        const bool nv = (lb >> 7) != 0;
+        const T vl = nv && lk == ARC_INTERNAL ? fr[p] + nl : inf;
+        const T vh = nv && hk == ARC_INTERNAL ? fr[p] + nh : inf;
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          if (ls == k) nxt[k] = min_v(nxt[k], vl);
+          if (hs == k) nxt[k] = min_v(nxt[k], vh);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < P; ++k) fr[k] = nxt[k];
+    } else {
+      bool nv[P];
+      T tl[P], th[P];
+      T m0 = inf, m1 = inf;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int lb = record_byte(w, p), hb = record_byte(w, P + p);
+        const int lk = lb & 3, ls = (lb >> 2) & 31, hk = hb & 3, hs = (hb >> 2) & 31;
+        T gl = T(0), gh = T(0);
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          gl = ls == k ? fr[k] : gl;
+          gh = hs == k ? fr[k] : gh;
+        }
+        tl[p] = lk == ARC_TOP ? T(0) : (lk == ARC_BOT ? inf : gl);
+        th[p] = hk == ARC_TOP ? T(0) : (hk == ARC_BOT ? inf : gh);
+        nv[p] = (lb >> 7) != 0;
+        const T cf = C::value(cell, LAYER_ROWS + p);
+        m0 = min_v(m0, nv[p] ? cf + lo + tl[p] : inf);
+        m1 = min_v(m1, nv[p] ? cf + hi + th[p] : inf);
+      }
+      hop_cost_update(lo, hi, m0, m1, om, C::value(cell, 4), C::value(cell, 2),
+                      C::value(cell, 3), lval, nl, nh, mm);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        fr[p] = nv[p] ? min_v(nl + tl[p], nh + th[p]) : inf;
+        o_fr[(size_t)p * B] = fr[p];
+      }
     }
+    *o_lo = nl;
+    *o_hi = nh;
+    *o_mm = mm;
+    o_lo += step;
+    o_hi += step;
+    o_mm += step;
+    o_fr += step * P;
   }
 }
 
-template <typename T>
-Costs<T> make_costs(const void* lo, const void* hi, const void* frontier,
-                    const void* din_lo, const void* din_hi, const void* alpha,
-                    const void* omega_arr, double omega, void* out_lo,
-                    void* out_hi, void* out_mm, void* out_frontier) {
-  return Costs<T>{(const T*)lo,     (const T*)hi,      (const T*)frontier,
-                  (const T*)din_lo, (const T*)din_hi,  (const T*)alpha,
-                  (const T*)omega_arr, (T)omega,       (T*)out_lo,
-                  (T*)out_hi,       (T*)out_mm,        (T*)out_frontier};
-}
-
-template <typename T, bool FORWARD, int P>
-int launch(int H, int B, const Geom& g, const Costs<T>& c, cudaStream_t s) {
-  if (H == 0 || B == 0) return 0;
-  const int blocks = (B + THREADS - 1) / THREADS;
-  if (FORWARD)
-    forward_kernel<T, P><<<blocks, THREADS, 0, s>>>(H, B, g, c);
-  else
-    backward_kernel<T, P><<<blocks, THREADS, 0, s>>>(H, B, g, c);
-  return (int)cudaGetLastError();
+// `launch` admits only a pmax of SUPPORTED P and the caller's table holds no
+// P above it (solver/sweep_kernels.py checks every row), so each block finds
+// its case below.
+template <typename T, bool FORWARD, int PMAX>
+__global__ void __launch_bounds__(MAX_TILE) sweep_kernel(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int k = 0;
+  while (k + 1 < a.nr_buckets && (long long)blockIdx.x >= a.table[k + 1].first_block) ++k;
+  const Bucket bk = a.table[k];
+  const int tile_index = (int)((long long)blockIdx.x - bk.first_block);
+  switch ((int)bk.P) {
+    case 1: sweep_column<T, 1, FORWARD>(a, bk, smem, tile_index); break;
+    case 2: sweep_column<T, 2, FORWARD>(a, bk, smem, tile_index); break;
+    case 4: if constexpr (PMAX >= 4) sweep_column<T, 4, FORWARD>(a, bk, smem, tile_index); break;
+    case 8: if constexpr (PMAX >= 8) sweep_column<T, 8, FORWARD>(a, bk, smem, tile_index); break;
+    case 16: if constexpr (PMAX >= 16) sweep_column<T, 16, FORWARD>(a, bk, smem, tile_index); break;
+    case 32: if constexpr (PMAX >= 32) sweep_column<T, 32, FORWARD>(a, bk, smem, tile_index); break;
+    default: break;
+  }
 }
 
 template <typename T, bool FORWARD>
-int dispatch(int P, int H, int B, const Geom& g, const Costs<T>& c,
-             void* stream) {
+int launch(const void* table, int nr_buckets, int nr_blocks, int tile, int pmax,
+           int smem_bytes, const void* arcs, const void* lo, const void* hi,
+           const void* din_lo, const void* din_hi, const void* alpha,
+           const void* omega_arr, double omega, const void* frontier, void* out_lo,
+           void* out_hi, void* out_mm, void* out_frontier, void* stream) {
+  if (nr_blocks == 0) return 0;
+  if (tile != 32 && tile != MAX_TILE) return -2;
+  if (pmax < 1 || pmax > 32 || (pmax & (pmax - 1))) return -1;  // 1, 2, 4, ..., 32
+  const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
+                  (const T*)lo,         (const T*)hi,       (const T*)din_lo,
+                  (const T*)din_hi,     (const T*)alpha,    (const T*)omega_arr,
+                  (T)omega,             (const T*)frontier, (T*)out_lo,
+                  (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (P) {
-    case 1: return launch<T, FORWARD, 1>(H, B, g, c, s);
-    case 2: return launch<T, FORWARD, 2>(H, B, g, c, s);
-    case 4: return launch<T, FORWARD, 4>(H, B, g, c, s);
-    case 8: return launch<T, FORWARD, 8>(H, B, g, c, s);
-    case 16: return launch<T, FORWARD, 16>(H, B, g, c, s);
-    case 32: return launch<T, FORWARD, 32>(H, B, g, c, s);
-    default: return -1;
-  }
+  if (pmax <= 2)
+    sweep_kernel<T, FORWARD, 2><<<nr_blocks, tile, smem_bytes, s>>>(a);
+  else if (pmax <= 8)
+    sweep_kernel<T, FORWARD, 8><<<nr_blocks, tile, smem_bytes, s>>>(a);
+  else
+    sweep_kernel<T, FORWARD, 32><<<nr_blocks, tile, smem_bytes, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define FORWARD_ENTRY(NAME, T)                                                \
-  extern "C" int NAME(int P, int H, int B, const void* node_valid,           \
-                      const void* lo_kind, const void* lo_slot,               \
-                      const void* hi_kind, const void* hi_slot,               \
-                      const void* layer_valid, const void* root,              \
-                      const void* lo, const void* hi, const void* cft,        \
-                      const void* din_lo, const void* din_hi,                 \
-                      const void* alpha, const void* omega_arr, double omega, \
-                      void* out_lo, void* out_hi, void* out_mm,               \
-                      void* out_cfr, void* stream) {                          \
-    const Geom g{(const uint8_t*)node_valid, (const int32_t*)lo_kind,         \
-                 (const int32_t*)lo_slot,    (const int32_t*)hi_kind,         \
-                 (const int32_t*)hi_slot,    (const uint8_t*)layer_valid,     \
-                 (const uint8_t*)root};                                       \
-    const Costs<T> c = make_costs<T>(lo, hi, cft, din_lo, din_hi, alpha,      \
-                                     omega_arr, omega, out_lo, out_hi,        \
-                                     out_mm, out_cfr);                        \
-    return dispatch<T, true>(P, H, B, g, c, stream);                          \
+// (table, nr_buckets, nr_blocks, tile, pmax, smem_bytes, arcs, lo, hi, din_lo,
+//  din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi, out_mm,
+//  frontier out, stream); the buffers are flat over the buckets of the table
+#define SWEEP_ENTRY(NAME, T, FORWARD)                                           \
+  extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks,         \
+                      int tile, int pmax, int smem_bytes, const void* arcs,     \
+                      const void* lo, const void* hi, const void* din_lo,       \
+                      const void* din_hi, const void* alpha,                    \
+                      const void* omega_arr, double omega,                      \
+                      const void* frontier, void* out_lo, void* out_hi,         \
+                      void* out_mm, void* out_frontier, void* stream) {         \
+    return launch<T, FORWARD>(table, nr_buckets, nr_blocks, tile, pmax,         \
+                              smem_bytes, arcs, lo, hi, din_lo, din_hi, alpha,  \
+                              omega_arr, omega, frontier, out_lo, out_hi,       \
+                              out_mm, out_frontier, stream);                    \
   }
 
-#define BACKWARD_ENTRY(NAME, T)                                               \
-  extern "C" int NAME(int P, int H, int B, const void* node_valid,           \
-                      const void* lo_kind, const void* lo_slot,               \
-                      const void* hi_kind, const void* hi_slot,               \
-                      const void* layer_valid, const void* lo,                \
-                      const void* hi, const void* cfr, const void* din_lo,    \
-                      const void* din_hi, const void* alpha,                  \
-                      const void* omega_arr, double omega, void* out_lo,      \
-                      void* out_hi, void* out_mm, void* out_cft,              \
-                      void* stream) {                                         \
-    const Geom g{(const uint8_t*)node_valid, (const int32_t*)lo_kind,         \
-                 (const int32_t*)lo_slot,    (const int32_t*)hi_kind,         \
-                 (const int32_t*)hi_slot,    (const uint8_t*)layer_valid,     \
-                 nullptr};                                                    \
-    const Costs<T> c = make_costs<T>(lo, hi, cfr, din_lo, din_hi, alpha,      \
-                                     omega_arr, omega, out_lo, out_hi,        \
-                                     out_mm, out_cft);                        \
-    return dispatch<T, false>(P, H, B, g, c, stream);                         \
-  }
-
-FORWARD_ENTRY(uniform_forward_f32, float)
-FORWARD_ENTRY(uniform_forward_f64, double)
-BACKWARD_ENTRY(uniform_backward_f32, float)
-BACKWARD_ENTRY(uniform_backward_f64, double)
+SWEEP_ENTRY(uniform_forward_f32, float, true)
+SWEEP_ENTRY(uniform_forward_f64, double, true)
+SWEEP_ENTRY(uniform_backward_f32, float, false)
+SWEEP_ENTRY(uniform_backward_f64, double, false)

@@ -6,13 +6,17 @@ Counterparts of ``BucketGeom``, ``UniformGeom``, ``UniformState`` and
 packing ``pack_uniform_host`` (uniform.py:863-1075).
 
 All building runs on the host in numpy. Tensors move to the device once, at
-build time, in the dtypes the sweep kernels read: bool masks, int32 arc kinds
-and slots, int64 variable ids (torch's index dtype), and the float dtype of
-the solve. Nothing is cast again per iteration.
+build time, in the form the sweep kernels read: the arc geometry as one byte
+per arc (:func:`encode_arcs`), one flat buffer over all buckets for every
+per-layer quantity (the flat slot order of ``UniformGeom.sizes``), a table of
+the buckets for the one launch per half-sweep (:class:`LaunchPlan`), int64
+variable ids (torch's index dtype), and the float dtype of the solve. Nothing
+is cast, concatenated or validated again per iteration.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import heapq
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -33,47 +37,123 @@ _LAYER_KEYS = ("layer_valid", "layer_var", "alpha", "layer_bdd")
 
 
 def resolve_device(device) -> torch.device:
-    """``torch.device`` for ``device``; raises when CUDA is asked for and
-    there is none (no silent fallback to the CPU)."""
+    """``torch.device`` for ``device``, with the card's index filled in (so
+    it compares equal to its tensors' device); raises when CUDA is asked for
+    and there is none (no silent fallback to the CPU)."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is False"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but torch.cuda.is_available() is False"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+# Byte geometry. Per (hop, column) one record of record_bytes(P) bytes:
+# [lo arc of slot 0..P-1, hi arc of slot 0..P-1, zero padding up to 4 bytes].
+# An arc byte is kind | slot << 2 | flag << 7 (kind in 2 bits, slot in 5, so
+# P <= 32). The flag of a lo byte is node_valid of its slot; the flag of
+# record byte P (the first hi byte) is layer_valid, and of record byte P + 1
+# (the second hi byte; a padding byte when P = 1) the root row.
+MAX_P = 32
+_SLOT_MASK = 31
+
+
+def record_bytes(P: int) -> int:
+    return max(4, 2 * P)
+
+
+def encode_arcs(node_valid, lo_kind, lo_slot, hi_kind, hi_slot, layer_valid, roots) -> np.ndarray:
+    """uint8 records [H, B, record_bytes(P)] of the [H, P, B] arc arrays and
+    the [H, B] layer masks; raises on values the byte form cannot hold."""
+    H, P, B = np.shape(node_valid)
+    if P > MAX_P:
+        raise ValueError(f"bucket width P={P} exceeds the byte geometry's {MAX_P} slots")
+    rec = np.zeros((H, B, record_bytes(P)), dtype=np.uint8)
+    for off, kind, slot in ((0, lo_kind, lo_slot), (P, hi_kind, hi_slot)):
+        kind, slot = np.asarray(kind), np.asarray(slot)
+        if kind.size and (kind.min() < 0 or kind.max() > ARC_BOT
+                          or slot.min() < 0 or slot.max() > _SLOT_MASK):
+            raise ValueError("arc kind outside 0..2 or slot outside 0..31")
+        rec[:, :, off:off + P] = (kind | (slot << 2)).astype(np.uint8).transpose(0, 2, 1)
+    rec[:, :, :P] |= np.asarray(node_valid, dtype=np.uint8).transpose(0, 2, 1) << 7
+    rec[:, :, P] |= np.asarray(layer_valid, dtype=np.uint8) << 7
+    rec[:, :, P + 1] |= np.asarray(roots, dtype=np.uint8) << 7
+    return rec
 
 
 @dataclasses.dataclass(frozen=True)
 class BucketGeom:
     """Static geometry of one (width P, depth H) bucket of B columns.
 
-    ``root_mask`` (column packing): rows where a new BDD's root (slot 0)
-    starts; None for the one-BDD-per-column layout. ``roots`` is
-    :func:`root_rows` precomputed: the rows where the forward frontier
-    restarts and where the lower bound reads root costs."""
+    ``arcs`` holds the byte records (:func:`encode_arcs`), the only stored
+    form of the arc geometry and layer masks; kernel and twins read these
+    bytes. The [H, P, B] / [H, B] properties below decode them with shifts
+    and masks on every access (tests and one-off host code; the twins decode
+    once per call through :meth:`decode`). ``arcs`` and ``alpha`` are views
+    into the flat buffers of the owning ``UniformGeom``.
 
-    node_valid: torch.Tensor  # bool [H, P, B]
-    lo_kind: torch.Tensor  # int32 [H, P, B]
-    lo_slot: torch.Tensor  # int32 [H, P, B]
-    hi_kind: torch.Tensor  # int32 [H, P, B]
-    hi_slot: torch.Tensor  # int32 [H, P, B]
-    layer_valid: torch.Tensor  # bool [H, B]
+    ``packed`` (column packing): columns hold several BDDs, and ``roots``
+    marks the rows where a new BDD's root (slot 0) starts, where the forward
+    frontier restarts and the lower bound reads root costs. Unpacked, the
+    roots are the valid layers of row 0."""
+
+    P: int
+    arcs: torch.Tensor  # uint8 [H, B, record_bytes(P)]
     layer_var: torch.Tensor  # int64 [H, B] (pad -> V sentinel)
     alpha: torch.Tensor  # float [H, B]
-    roots: torch.Tensor  # bool [H, B]
-    root_mask: Optional[torch.Tensor] = None  # bool [H, B]
+    packed: bool = False
 
     @property
     def H(self) -> int:
-        return self.node_valid.shape[0]
-
-    @property
-    def P(self) -> int:
-        return self.node_valid.shape[1]
+        return self.arcs.shape[0]
 
     @property
     def B(self) -> int:
-        return self.node_valid.shape[2]
+        return self.arcs.shape[1]
+
+    def decode(self):
+        """(node_valid bool, lo_kind, lo_slot, hi_kind, hi_slot uint8), each
+        [H, P, B], from the byte records."""
+        P = self.P
+        lo = self.arcs[:, :, :P].transpose(1, 2)
+        hi = self.arcs[:, :, P:2 * P].transpose(1, 2)
+        return lo >= 128, lo & 3, (lo >> 2) & _SLOT_MASK, hi & 3, (hi >> 2) & _SLOT_MASK
+
+    @property
+    def node_valid(self) -> torch.Tensor:  # bool [H, P, B]
+        return self.decode()[0]
+
+    @property
+    def lo_kind(self) -> torch.Tensor:  # int32 [H, P, B]
+        return self.decode()[1].to(torch.int32)
+
+    @property
+    def lo_slot(self) -> torch.Tensor:
+        return self.decode()[2].to(torch.int32)
+
+    @property
+    def hi_kind(self) -> torch.Tensor:
+        return self.decode()[3].to(torch.int32)
+
+    @property
+    def hi_slot(self) -> torch.Tensor:
+        return self.decode()[4].to(torch.int32)
+
+    @property
+    def layer_valid(self) -> torch.Tensor:  # bool [H, B]
+        return self.arcs[:, :, self.P] >= 128
+
+    @property
+    def roots(self) -> torch.Tensor:  # bool [H, B]
+        return self.arcs[:, :, self.P + 1] >= 128
+
+    @property
+    def root_mask(self) -> Optional[torch.Tensor]:
+        """The packed layout's segment starts; None for one BDD per column."""
+        return self.roots if self.packed else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,12 +161,107 @@ class ExchangeIndex:
     """Per-variable slot grouping for the delta consensus, built once on the
     host: a segment reduction over ``order`` (valid slots sorted by variable,
     stable) with ``lengths`` per variable, and a gather back through ``ids``.
-    Deterministic on every device: no atomics."""
+    Deterministic on every device: no atomics. ``lengths`` is checked here,
+    once, so the reductions run unchecked and never wait for the host."""
 
     ids: torch.Tensor  # int64 [E] variable per flat slot, V at invalid slots
     order: torch.Tensor  # int64 [Ev] valid flat slots sorted by variable
     lengths: torch.Tensor  # int64 [V] valid slots per variable
     valid: torch.Tensor  # bool [E] layer_valid, flat
+    segments: torch.Tensor  # int64 [V + 1]: lengths and an empty segment for V
+
+
+# ------------------------------------------------------------- launch plan
+# Columns a block works on (one thread each: whole warps), by the launch's
+# total column count.
+TILE_SMALL, TILE_LARGE = 32, 64
+TILE_SWITCH = 32768  # total columns above which a block takes the large tile
+MAX_STAGES = 8  # hops a thread keeps in flight
+STAGE_COLUMNS = 110_000  # columns x stages to aim for: ~2.3 MB on the wire
+MIN_STAGES = 3
+SMEM_BUDGET = 48 * 1024  # static limit of dynamic shared memory a block
+LAYER_ROWS = 6  # lo hi din_lo din_hi alpha omega
+TABLE_COLUMNS = 8  # P H B first_block row_off node_off arc_off stages
+ARC_ALIGN = 16  # bytes; bucket offsets into the records keep 16-byte copies aligned
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """What one launch of a sweep kernel over a list of buckets needs beside
+    the buffers: the bucket table on the device and the grid's numbers."""
+
+    table: torch.Tensor  # int64 [nr_buckets, TABLE_COLUMNS]
+    nr_buckets: int
+    nr_blocks: int
+    tile: int
+    pmax: int
+    smem_bytes: int
+    shapes: Tuple[Tuple[int, int, int], ...]  # (P, H, B) per bucket
+    arc_offsets: Tuple[int, ...]  # bytes into the records, per bucket
+    E: int  # sum H * B
+    N: int  # sum H * P * B
+    arc_bytes: int
+
+
+def cell_bytes(P: int, itemsize: int) -> int:
+    """Shared memory of one column in one ring slot: the record, padding up
+    to a value, LAYER_ROWS + P values; rounded to its alignment and then to
+    an odd count of 4- or 8-byte units (distinct banks across a warp). The
+    kernel computes the same number (``Cell<T, P>::W``)."""
+    G = record_bytes(P)
+    values = -(-G // itemsize) * itemsize
+    align = 16 if G >= 16 else (8 if G == 8 or itemsize == 8 else 4)
+    raw = -(-(values + (LAYER_ROWS + P) * itemsize) // align) * align
+    return raw + align if align < 16 and (raw // align) % 2 == 0 else raw
+
+
+def slot_bytes(P: int, itemsize: int, tile: int) -> int:
+    """Shared memory of one ring slot (one hop of a tile)."""
+    return tile * cell_bytes(P, itemsize)
+
+
+def _offsets(shapes):
+    rows, nodes, arcs = [], [], []
+    e = n = a = 0
+    for P, H, B in shapes:
+        rows.append(e)
+        nodes.append(n)
+        arcs.append(a)
+        e += H * B
+        n += H * P * B
+        a = _pad_to(a + H * B * record_bytes(P), ARC_ALIGN)
+    return tuple(rows), tuple(nodes), tuple(arcs), e, n, a
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int]) -> LaunchPlan:
+    cols = sum(B for _, _, B in shapes)
+    tile = TILE_SMALL if cols <= TILE_SWITCH else TILE_LARGE
+    want = stages or min(MAX_STAGES, max(MIN_STAGES, -(-STAGE_COLUMNS // max(cols, 1))))
+    rows, nodes, arcs, E, N, arc_bytes = _offsets(shapes)
+    table = np.zeros((len(shapes), TABLE_COLUMNS), dtype=np.int64)
+    block = smem = 0
+    for k, (P, H, B) in enumerate(shapes):
+        per_slot = slot_bytes(P, itemsize, tile)
+        S = max(1, min(want, SMEM_BUDGET // per_slot - 1))  # S + 1 slots in the ring
+        smem = max(smem, (S + 1) * per_slot)
+        table[k] = (P, H, B, block, rows[k], nodes[k], arcs[k], S)
+        block += -(-B // tile) if H > 0 else 0
+    return LaunchPlan(
+        table=torch.from_numpy(table).to(device), nr_buckets=len(shapes), nr_blocks=block,
+        tile=tile, pmax=max((P for P, _, _ in shapes), default=1), smem_bytes=smem,
+        shapes=shapes, arc_offsets=arcs, E=E, N=N, arc_bytes=arc_bytes,
+    )
+
+
+def launch_plan(shapes, dtype: torch.dtype, device,
+                stages: Optional[int] = None) -> LaunchPlan:
+    """The plan of one launch over buckets of ``shapes`` ((P, H, B) each)
+    whose buffers lie flat, bucket after bucket. Built once per distinct
+    argument list (cached); ``stages`` overrides the prefetch depth."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return _launch_plan(tuple(tuple(int(x) for x in s) for s in shapes), itemsize,
+                        str(torch.device(device)), stages)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +271,9 @@ class UniformGeom:
     exchange: ExchangeIndex
     dtype: torch.dtype
     device: torch.device
+    arcs: torch.Tensor  # uint8 [plan.arc_bytes]: every bucket's records
+    alpha: torch.Tensor  # float [E]
+    plan: LaunchPlan  # one launch over all buckets
 
     @property
     def V(self) -> int:
@@ -106,13 +284,50 @@ class UniformGeom:
         """H * B per bucket: the bucket blocks of the flat slot order."""
         return tuple(g.H * g.B for g in self.buckets)
 
+    def per_bucket(self, flat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """[H, B] views of a flat [E] tensor, one per bucket."""
+        return tuple(
+            x.view(g.H, g.B) for g, x in zip(self.buckets, flat.split(self.sizes))
+        )
+
+    def per_bucket_nodes(self, flat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """[H, P, B] views of a flat [N] frontier tensor, one per bucket."""
+        sizes = [g.H * g.P * g.B for g in self.buckets]
+        return tuple(
+            x.view(g.H, g.P, g.B) for g, x in zip(self.buckets, flat.split(sizes))
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class UniformState:
+    """Costs, deferred marginals and costs-to-terminal: four flat tensors
+    over all buckets (``flat``: lo, hi, def_mm [E] and cft [N]), which the
+    iteration and the exchange read and write, and per-bucket views of them.
+    Built by :func:`state_from_flat` or :func:`state_from_buckets`."""
+
     lo: Tuple[torch.Tensor, ...]  # per bucket [H, B]
     hi: Tuple[torch.Tensor, ...]
     def_mm: Tuple[torch.Tensor, ...]
     cft: Tuple[torch.Tensor, ...]  # per bucket [H, P, B]
+    flat: Tuple[torch.Tensor, ...]
+
+
+def state_from_flat(geom: UniformGeom, lo, hi, def_mm, cft) -> UniformState:
+    """A state over flat tensors (lo, hi, def_mm [E]; cft [N])."""
+    return UniformState(
+        geom.per_bucket(lo), geom.per_bucket(hi), geom.per_bucket(def_mm),
+        geom.per_bucket_nodes(cft), (lo, hi, def_mm, cft),
+    )
+
+
+def flatten(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-bucket tensors laid flat, bucket after bucket (one concatenation)."""
+    return torch.cat([x.reshape(-1) for x in xs]) if xs else torch.zeros(0)
+
+
+def state_from_buckets(geom: UniformGeom, lo, hi, def_mm, cft) -> UniformState:
+    """A state from per-bucket tensors (one concatenation each)."""
+    return state_from_flat(geom, flatten(lo), flatten(hi), flatten(def_mm), flatten(cft))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,6 +503,19 @@ def _pack_buckets(buckets: Sequence[dict], nr_vars: int) -> List[dict]:
     return out
 
 
+def check_lengths(lengths: np.ndarray, nr_slots: int) -> None:
+    """The contract ``torch.segment_reduce`` would check on every call: no
+    negative length, and the lengths cover exactly the gathered slots."""
+    lengths = np.asarray(lengths)
+    if lengths.size and lengths.min() < 0:
+        raise ValueError("exchange index: negative segment length")
+    if int(lengths.sum()) != nr_slots:
+        raise ValueError(
+            f"exchange index: segment lengths sum to {int(lengths.sum())}, "
+            f"but {nr_slots} valid slots are gathered"
+        )
+
+
 def _exchange_index(buckets: Sequence[dict], V: int, device) -> ExchangeIndex:
     ids = np.concatenate([b["layer_var"].ravel() for b in buckets]).astype(np.int64)
     valid = np.concatenate([b["layer_valid"].ravel() for b in buckets]).astype(bool)
@@ -295,12 +523,14 @@ def _exchange_index(buckets: Sequence[dict], V: int, device) -> ExchangeIndex:
     real = np.nonzero(valid)[0]
     order = real[np.argsort(ids[real], kind="stable")]
     lengths = np.bincount(ids[real], minlength=V)[:V]
+    check_lengths(lengths, order.size)
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
+    segments = t(np.append(lengths, 0).astype(np.int64))
     return ExchangeIndex(
-        ids=t(ids), order=t(order), lengths=t(lengths.astype(np.int64)), valid=t(valid)
+        ids=t(ids), order=t(order), lengths=segments[:V], valid=t(valid), segments=segments
     )
 
 
@@ -318,20 +548,26 @@ def _build_host(
     def t(x, dt):
         return torch.from_numpy(np.array(x, dtype=dt)).to(device)  # owned copy
 
+    shapes = [b["node_valid"].shape for b in buckets]
+    plan = launch_plan([(P, H, B) for H, P, B in shapes], dtype, device)
+    arcs_np = np.zeros(plan.arc_bytes, dtype=np.uint8)
+    for b, off in zip(buckets, plan.arc_offsets):
+        lv = np.asarray(b["layer_valid"], bool)
+        rec = encode_arcs(*(b[k] for k in _NODE_KEYS), lv, root_rows(lv, b["root_mask"]))
+        arcs_np[off:off + rec.size] = rec.ravel()
+    arcs = torch.from_numpy(arcs_np).to(device)
+    alpha_np = [np.asarray(b["alpha"], np.float64).ravel() for b in buckets]
+    alpha = t(np.concatenate(alpha_np) if alpha_np else np.zeros(0), np.float64).to(dtype)
     geoms = []
-    for b in buckets:
-        rm = b["root_mask"]
+    for b, (H, P, B), off, a in zip(buckets, shapes, plan.arc_offsets, alpha.split(
+            [H * B for H, _, B in shapes])):
+        G = record_bytes(P)
         geoms.append(BucketGeom(
-            node_valid=t(b["node_valid"], bool),
-            lo_kind=t(b["lo_kind"], np.int32),
-            lo_slot=t(b["lo_slot"], np.int32),
-            hi_kind=t(b["hi_kind"], np.int32),
-            hi_slot=t(b["hi_slot"], np.int32),
-            layer_valid=t(b["layer_valid"], bool),
+            P=P,
+            arcs=arcs[off:off + H * B * G].view(H, B, G),
             layer_var=t(b["layer_var"], np.int64),
-            alpha=t(b["alpha"], np.float64).to(dtype),
-            roots=t(root_rows(np.asarray(b["layer_valid"], bool), rm), bool),
-            root_mask=None if rm is None else t(rm, bool),
+            alpha=a.view(H, B),
+            packed=b["root_mask"] is not None,
         ))
     geom = UniformGeom(
         buckets=tuple(geoms),
@@ -339,6 +575,9 @@ def _build_host(
         exchange=_exchange_index(buckets, nr_vars, device),
         dtype=dtype,
         device=device,
+        arcs=arcs,
+        alpha=alpha,
+        plan=plan,
     )
     return UniformHost(
         geom=geom,
@@ -374,8 +613,8 @@ def _host_buckets(host: UniformHost) -> List[dict]:
 
 # ----------------------------------------------------------------- builders
 def from_native_host(nh, dtype=torch.float32, device="cuda", pack=None) -> UniformHost:
-    """Solver-ready host from a ``bdd_tpu.native.NativeHost`` — the JAX-free
-    counterpart of ``NativeHost.make_uniform_host``. ``pack`` defaults to
+    """Solver-ready host from a ``bdd_tpu_torch.native.NativeHost``, the
+    counterpart of bdd_tpu's ``NativeHost.make_uniform_host``. ``pack`` defaults to
     column packing for float32 only, as in the JAX package."""
     buckets, counts = _native_buckets(nh)
     if pack is None:
@@ -438,4 +677,5 @@ def from_jax_arrays(host, state=None, dtype=torch.float64, device="cpu"):
     def t(xs):
         return tuple(torch.from_numpy(np.array(x)).to(dev, dtype) for x in xs)
 
-    return port, UniformState(t(state.lo), t(state.hi), t(state.def_mm), t(state.cft))
+    return port, state_from_buckets(
+        port.geom, t(state.lo), t(state.hi), t(state.def_mm), t(state.cft))

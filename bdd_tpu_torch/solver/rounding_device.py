@@ -17,9 +17,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from bdd_tpu.solver.rounding import compute_initial_delta, objective_tilt
-from bdd_tpu.solver.run import run_solver
-from bdd_tpu.utils.logging import bdd_log
+from bdd_tpu_torch.solver.rounding import compute_initial_delta, objective_tilt
+from bdd_tpu_torch.solver.run import run_solver
+from bdd_tpu_torch.utils.logging import bdd_log
 from bdd_tpu_torch.solver import uniform as uf
 
 _EPS = 1e-6

@@ -1,12 +1,22 @@
 """CUDA sweep kernels of the uniform backend (counterpart of
 bdd_tpu/solver/pallas_uniform.py).
 
-``bucket_forward_iteration_cuda`` / ``bucket_backward_iteration_cuda`` keep
-the signature of the Pallas wrappers. On CUDA tensors they launch the
-hand-written kernels of ``csrc/uniform_sweep.cu`` (one thread per BDD column,
-the hop loop inside the kernel; see the note there) or raise. On CPU tensors
-they run the plain torch twins of ``uniform.py``. Every instantiated P runs
-the kernel, for any H and in float32 and float64; there is no fallback.
+Two levels of wrapper over the two kernels of ``csrc/uniform_sweep.cu``
+(``uniform_forward``, ``uniform_backward``; see the design note there):
+
+* ``forward_iteration_cuda`` / ``backward_iteration_cuda`` take a whole
+  ``UniformGeom`` and flat tensors and run the half-sweep of every bucket in
+  ONE launch. The iteration uses these. Shapes and types were fixed when the
+  layout was built, so a call checks only what it is handed, allocates the
+  four outputs and makes one ctypes call.
+* ``bucket_forward_iteration_cuda`` / ``bucket_backward_iteration_cuda`` keep
+  the signature of the Pallas wrappers: one bucket, [H, B] tensors, optional
+  per-layer ``alpha`` and ``omega``. They launch the same kernels over a table
+  of one bucket, with every argument validated.
+
+On CUDA tensors a wrapper launches its kernel or raises. On CPU tensors it
+runs the plain torch twins of ``uniform.py``. Every instantiated P runs the
+kernel, for any H and in float32 and float64; there is no fallback.
 
 ``LAUNCHES`` counts kernel launches per kernel; the twins never count.
 """
@@ -18,10 +28,11 @@ import torch
 
 from bdd_tpu_torch import _build
 from bdd_tpu_torch.solver import uniform as uf
-from bdd_tpu_torch.solver.layout import BucketGeom
+from bdd_tpu_torch.solver.layout import BucketGeom, LaunchPlan, UniformGeom, launch_plan
 
 SUPPORTED_P = (1, 2, 4, 8, 16, 32)
 LAUNCHES = {"uniform_forward": 0, "uniform_backward": 0}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def reset_launch_counts() -> None:
@@ -30,52 +41,10 @@ def reset_launch_counts() -> None:
 
 
 def _suffix(dtype: torch.dtype) -> str:
-    if dtype == torch.float32:
-        return "f32"
-    if dtype == torch.float64:
-        return "f64"
-    raise TypeError(f"sweep kernels take float32 or float64, got {dtype}")
-
-
-def _args(g: BucketGeom, lo, hi, frontier, omega, din_lo, din_hi, alpha, forward: bool):
-    """Validated kernel arguments and fresh outputs (torch.empty)."""
-    H, P, B = g.H, g.P, g.B
-    if P not in SUPPORTED_P:
-        raise ValueError(
-            f"no sweep kernel for bucket shape (P={P}, H={H}, B={B}); "
-            f"instantiated P: {SUPPORTED_P}"
-        )
-    suffix = _suffix(lo.dtype)
-    alpha = g.alpha if alpha is None else alpha
-    alpha = torch.as_tensor(alpha, dtype=lo.dtype, device=lo.device).expand(H, B).contiguous()
-    if isinstance(omega, torch.Tensor) and omega.dim() > 0:
-        omega_arr = omega.to(lo.dtype).expand(H, B).contiguous()
-        omega_val = 0.0
-    else:
-        omega_arr = None
-        omega_val = float(omega)
-    costs = [("lo", lo), ("hi", hi), ("frontier", frontier), ("din_lo", din_lo),
-             ("din_hi", din_hi), ("alpha", alpha)]
-    _check_all(costs, [(H, B), (H, B), (H, P, B), (H, B), (H, B), (H, B)])
-    geom = [g.node_valid, g.lo_kind, g.lo_slot, g.hi_kind, g.hi_slot, g.layer_valid]
-    if forward:
-        geom.append(g.roots)
-    for t in geom:
-        if t.device != lo.device or t.dtype not in (torch.bool, torch.int32):
-            raise ValueError(
-                f"bucket geometry {t.dtype} on {t.device}; costs on {lo.device}"
-            )
-    outs = (torch.empty_like(lo), torch.empty_like(lo), torch.empty_like(lo),
-            torch.empty_like(frontier))
-    ptrs = (
-        [P, H, B]
-        + [t.data_ptr() for t in geom]
-        + [t.data_ptr() for _, t in costs]
-        + [None if omega_arr is None else omega_arr.data_ptr(), omega_val]
-        + [o.data_ptr() for o in outs]
-        + [torch.cuda.current_stream(lo.device).cuda_stream]
-    )
-    return suffix, ptrs, outs, (alpha, omega_arr)
+    try:
+        return _SUFFIX[dtype]
+    except KeyError:
+        raise TypeError(f"sweep kernels take float32 or float64, got {dtype}") from None
 
 
 def _check_all(named, shapes) -> None:
@@ -89,29 +58,123 @@ def _check_all(named, shapes) -> None:
             raise ValueError(f"{name} is not contiguous")
 
 
-def prepare_launch(kernel: str, g: BucketGeom, lo, hi, frontier, omega, din_lo, din_hi,
-                   alpha=None):
-    """Validate one launch of ``kernel`` ("uniform_forward"/"uniform_backward")
-    and allocate its outputs. Returns (launch, outs): ``launch()`` queues the
-    kernel on the current stream and raises on a launch error; it does not
-    count (timing and comparisons call it directly)."""
-    if lo.device.type != "cuda":
-        raise ValueError(f"{kernel}: tensors on {lo.device}; the kernel needs CUDA")
-    din_lo, din_hi = din_lo.to(lo.dtype), din_hi.to(lo.dtype)
-    suffix, args, outs, keep = _args(
-        g, lo, hi, frontier, omega, din_lo, din_hi, alpha, kernel == "uniform_forward"
-    )
+def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha, omega,
+              frontier, outs):
+    """A closure that queues ``kernel`` on the current stream and raises on a
+    launch error. It holds its tensors alive and does not count."""
+    suffix = _suffix(lo.dtype)
+    if isinstance(omega, torch.Tensor) and omega.dim() > 0:
+        omega_arr, omega_val = omega, 0.0
+    else:
+        omega_arr, omega_val = None, float(omega)
     fn = getattr(_build.load(), f"{kernel}_{suffix}")
+    args = (
+        plan.table.data_ptr(), plan.nr_buckets, plan.nr_blocks, plan.tile, plan.pmax,
+        plan.smem_bytes, arcs.data_ptr(), lo.data_ptr(), hi.data_ptr(), din_lo.data_ptr(),
+        din_hi.data_ptr(), alpha.data_ptr(),
+        None if omega_arr is None else omega_arr.data_ptr(), omega_val,
+        frontier.data_ptr(), *(o.data_ptr() for o in outs),
+        torch.cuda.current_stream(lo.device).cuda_stream,
+    )
+    keep = (plan, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, frontier, outs)
 
     def launch() -> None:
         rc = fn(*args)
         if rc != 0:
             raise RuntimeError(
-                f"{kernel}_{suffix} launch failed (code {rc}) at (P={g.P}, H={g.H}, B={g.B})"
+                f"{kernel}_{suffix} launch failed (code {rc}) over buckets {plan.shapes}"
             )
 
-    launch.keep = (din_lo, din_hi, keep)  # inputs stay alive with the launcher
-    return launch, outs
+    launch.keep = keep
+    return launch
+
+
+def _fresh_outputs(lo, frontier):
+    return (torch.empty_like(lo), torch.empty_like(lo), torch.empty_like(lo),
+            torch.empty_like(frontier))
+
+
+# ------------------------------------------------------- all buckets, fused
+def prepare_fused_launch(kernel: str, geom: UniformGeom, lo, hi, frontier, omega,
+                         din_lo, din_hi, plan: LaunchPlan = None):
+    """Check one launch of ``kernel`` over all buckets of ``geom`` on flat
+    tensors and allocate its outputs. Returns (launch, outs); ``launch()``
+    does not count (timing and comparisons call it directly). ``plan``
+    replaces ``geom.plan`` (another prefetch depth over the same buckets)."""
+    plan = plan or geom.plan
+    if plan.pmax not in SUPPORTED_P or any(P not in SUPPORTED_P for P, _, _ in plan.shapes):
+        raise ValueError(f"no sweep kernel for bucket shapes {plan.shapes}; "
+                         f"instantiated P: {SUPPORTED_P}")
+    E, N = plan.E, plan.N
+    if isinstance(omega, torch.Tensor) and omega.dim() > 0:
+        omega = omega.to(lo.dtype).expand(E).contiguous()
+    for name, t, n in (("lo", lo, E), ("hi", hi, E), ("din_lo", din_lo, E),
+                       ("din_hi", din_hi, E), ("frontier", frontier, N)):
+        if (t.dtype != geom.dtype or t.device != geom.device or t.dim() != 1
+                or t.shape[0] != n or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}; expected a contiguous "
+                f"{geom.dtype} [{n}] on {geom.device}"
+            )
+    outs = _fresh_outputs(lo, frontier)
+    return _launcher(kernel, plan, geom.arcs, lo, hi, din_lo, din_hi, geom.alpha, omega,
+                     frontier, outs), outs
+
+
+def _fused(kernel: str, twin, geom: UniformGeom, lo, hi, frontier, omega, din_lo, din_hi):
+    if lo.device.type == "cpu":
+        return uf.sweep_per_bucket(twin, geom, lo, hi, frontier, omega, din_lo, din_hi)
+    launch, outs = prepare_fused_launch(kernel, geom, lo, hi, frontier, omega, din_lo, din_hi)
+    launch()
+    LAUNCHES[kernel] += 1
+    return outs
+
+
+def forward_iteration_cuda(geom: UniformGeom, lo, hi, cft, omega, din_lo, din_hi):
+    """Forward half-sweep of every bucket on flat tensors (lo, hi, din_* [E];
+    cft [N]) -> (lo, hi, def_mm [E], cfr [N]), freshly allocated."""
+    return _fused("uniform_forward", uf.bucket_forward_iteration, geom, lo, hi, cft, omega,
+                  din_lo, din_hi)
+
+
+def backward_iteration_cuda(geom: UniformGeom, lo, hi, cfr, omega, din_lo, din_hi):
+    """Backward half-sweep of every bucket on flat tensors -> (lo, hi, def_mm
+    [E], cft [N]), freshly allocated."""
+    return _fused("uniform_backward", uf.bucket_backward_iteration, geom, lo, hi, cfr, omega,
+                  din_lo, din_hi)
+
+
+# ---------------------------------------------------------------- one bucket
+def prepare_launch(kernel: str, g: BucketGeom, lo, hi, frontier, omega, din_lo, din_hi,
+                   alpha=None):
+    """Validate one launch of ``kernel`` ("uniform_forward"/"uniform_backward")
+    on one bucket and allocate its outputs. Returns (launch, outs);
+    ``launch()`` does not count."""
+    if lo.device.type != "cuda":
+        raise ValueError(f"{kernel}: tensors on {lo.device}; the kernel needs CUDA")
+    H, P, B = g.H, g.P, g.B
+    if P not in SUPPORTED_P:
+        raise ValueError(
+            f"no sweep kernel for bucket shape (P={P}, H={H}, B={B}); "
+            f"instantiated P: {SUPPORTED_P}"
+        )
+    _suffix(lo.dtype)
+    din_lo, din_hi = din_lo.to(lo.dtype), din_hi.to(lo.dtype)
+    alpha = g.alpha if alpha is None else alpha
+    alpha = torch.as_tensor(alpha, dtype=lo.dtype, device=lo.device).expand(H, B).contiguous()
+    if isinstance(omega, torch.Tensor) and omega.dim() > 0:
+        omega = omega.to(lo.dtype).expand(H, B).contiguous()
+    costs = [("lo", lo), ("hi", hi), ("frontier", frontier), ("din_lo", din_lo),
+             ("din_hi", din_hi), ("alpha", alpha)]
+    _check_all(costs, [(H, B), (H, B), (H, P, B), (H, B), (H, B), (H, B)])
+    if g.arcs.device != lo.device or g.arcs.dtype != torch.uint8 or not g.arcs.is_contiguous():
+        raise ValueError(f"bucket geometry {g.arcs.dtype} on {g.arcs.device}; costs on {lo.device}")
+    if g.arcs.data_ptr() % 16:
+        raise ValueError("bucket geometry records are not 16-byte aligned")
+    plan = launch_plan([(P, H, B)], lo.dtype, lo.device)
+    outs = _fresh_outputs(lo, frontier)
+    return _launcher(kernel, plan, g.arcs, lo, hi, din_lo, din_hi, alpha, omega, frontier,
+                     outs), outs
 
 
 def _launch(kernel: str, g: BucketGeom, lo, hi, frontier, omega, din_lo, din_hi, alpha):

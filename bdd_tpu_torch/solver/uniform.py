@@ -3,16 +3,24 @@
 Port of bdd_tpu/solver/uniform.py:1078-1095 and 1140-1799 to torch ops. The
 bucket sweeps here are the plain PyTorch versions ("twins") of the two CUDA
 sweep kernels in ``sweep_kernels``: the CPU runs them, and the card checks the
-kernels against them. Real IEEE infinities throughout, as in the XLA scan of
-the JAX package (not the BIG=1e30 stand-in of its Pallas kernels).
+kernels against them. They decode the same geometry bytes the kernels read
+(``BucketGeom.decode``). Real IEEE infinities throughout, as in the XLA scan
+of the JAX package (not the BIG=1e30 stand-in of its Pallas kernels).
+
+The iteration keeps every per-layer quantity in one flat tensor over all
+buckets (``UniformState.flat``), so a half-sweep is one kernel launch and the
+exchange reads and writes flat tensors with no concatenation or split; the
+per-bucket form of the state is views of the flat one.
 
 The delta consensus is one deterministic formulation for every dtype and
 device: a segment sum over the slots grouped by variable (order fixed once on
 the host, ``layout.ExchangeIndex``) and a gather back. It matches the JAX
-segment path, the float64 default there; no float atomics.
+segment path, the float64 default there; no float atomics, and no wait for
+the host (the segment lengths are checked once, when the layout is built).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,6 +34,9 @@ from bdd_tpu_torch.solver.layout import (
     UniformGeom,
     UniformHost,
     UniformState,
+    flatten,
+    state_from_buckets,
+    state_from_flat,
 )
 
 INF = float("inf")
@@ -90,13 +101,14 @@ def _layer_param(x, like: torch.Tensor) -> torch.Tensor:
 def bucket_backward_run(g: BucketGeom, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """Costs-to-terminal cft [H, P, B] of (lo, hi) (uniform.py:1208)."""
     P = g.P
+    nvalid, lo_k, lo_s, hi_k, hi_s = g.decode()
     cft = torch.empty((g.H, P, g.B), dtype=lo.dtype, device=lo.device)
     cft_next = torch.full((P, g.B), INF, dtype=lo.dtype, device=lo.device)
     for h in range(g.H - 1, -1, -1):
-        t_lo = _child_cft(g.lo_kind[h], g.lo_slot[h], cft_next, P)
-        t_hi = _child_cft(g.hi_kind[h], g.hi_slot[h], cft_next, P)
+        t_lo = _child_cft(lo_k[h], lo_s[h], cft_next, P)
+        t_hi = _child_cft(hi_k[h], hi_s[h], cft_next, P)
         cft_next = torch.where(
-            g.node_valid[h], torch.minimum(lo[h][None] + t_lo, hi[h][None] + t_hi), INF
+            nvalid[h], torch.minimum(lo[h][None] + t_lo, hi[h][None] + t_hi), INF
         )
         cft[h] = cft_next
     return cft
@@ -105,15 +117,17 @@ def bucket_backward_run(g: BucketGeom, lo: torch.Tensor, hi: torch.Tensor) -> to
 def bucket_forward_run(g: BucketGeom, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """Costs-from-root cfr [H, P, B] of (lo, hi) (uniform.py:1226)."""
     P = g.P
+    nvalid, lo_k, lo_s, hi_k, hi_s = g.decode()
+    roots = g.roots
     cfr = torch.empty((g.H, P, g.B), dtype=lo.dtype, device=lo.device)
-    row = torch.where(g.node_valid[0], 0.0, INF).to(lo.dtype)
+    row = torch.where(nvalid[0], 0.0, INF).to(lo.dtype)
     for h in range(g.H):
-        if g.root_mask is not None:
-            row = _restart_cfr(row, g.roots[h], P)
+        if g.packed:
+            row = _restart_cfr(row, roots[h], P)
         cfr[h] = row
         row = torch.minimum(
-            _relax_next(row + lo[h][None], g.lo_kind[h], g.lo_slot[h], g.node_valid[h], P),
-            _relax_next(row + hi[h][None], g.hi_kind[h], g.hi_slot[h], g.node_valid[h], P),
+            _relax_next(row + lo[h][None], lo_k[h], lo_s[h], nvalid[h], P),
+            _relax_next(row + hi[h][None], hi_k[h], hi_s[h], nvalid[h], P),
         )
     return cfr
 
@@ -134,10 +148,11 @@ def bucket_min_marginals(
     if cft is None:
         cft = bucket_backward_run(g, lo, hi)
     cft_next = _shift_up(cft)
-    t_lo = _child_cft(g.lo_kind, g.lo_slot, cft_next, P)
-    t_hi = _child_cft(g.hi_kind, g.hi_slot, cft_next, P)
-    lo_path = torch.where(g.node_valid, cfr + lo[:, None, :] + t_lo, INF)
-    hi_path = torch.where(g.node_valid, cfr + hi[:, None, :] + t_hi, INF)
+    nvalid, lo_k, lo_s, hi_k, hi_s = g.decode()
+    t_lo = _child_cft(lo_k, lo_s, cft_next, P)
+    t_hi = _child_cft(hi_k, hi_s, cft_next, P)
+    lo_path = torch.where(nvalid, cfr + lo[:, None, :] + t_lo, INF)
+    hi_path = torch.where(nvalid, cfr + hi[:, None, :] + t_hi, INF)
     return lo_path.amin(dim=1), hi_path.amin(dim=1)
 
 
@@ -154,18 +169,20 @@ def bucket_forward_iteration(g: BucketGeom, lo, hi, cft, omega, din_lo, din_hi, 
     cft_next = _shift_up(cft)
     new_lo, new_hi, new_mm = torch.empty_like(lo), torch.empty_like(lo), torch.empty_like(lo)
     cfr = torch.empty_like(cft)
-    row = torch.where(g.node_valid[0], 0.0, INF).to(lo.dtype)
+    nv_all, lk_all, ls_all, hk_all, hs_all = g.decode()
+    roots, layer_valid = g.roots, g.layer_valid
+    row = torch.where(nv_all[0], 0.0, INF).to(lo.dtype)
     for h in range(g.H):
-        nvalid = g.node_valid[h]
-        lo_k, lo_s, hi_k, hi_s = g.lo_kind[h], g.lo_slot[h], g.hi_kind[h], g.hi_slot[h]
-        if g.root_mask is not None:
-            row = _restart_cfr(row, g.roots[h], P)
+        nvalid = nv_all[h]
+        lo_k, lo_s, hi_k, hi_s = lk_all[h], ls_all[h], hk_all[h], hs_all[h]
+        if g.packed:
+            row = _restart_cfr(row, roots[h], P)
         t_lo = _child_cft(lo_k, lo_s, cft_next[h], P)
         t_hi = _child_cft(hi_k, hi_s, cft_next[h], P)
         m0 = torch.where(nvalid, row + lo[h][None] + t_lo, INF).amin(dim=0)
         m1 = torch.where(nvalid, row + hi[h][None] + t_hi, INF).amin(dim=0)
         nl, nh, mm = _hop_cost_update(
-            lo[h], hi[h], m0, m1, omega[h], alpha[h], din_lo[h], din_hi[h], g.layer_valid[h]
+            lo[h], hi[h], m0, m1, omega[h], alpha[h], din_lo[h], din_hi[h], layer_valid[h]
         )
         new_lo[h], new_hi[h], new_mm[h], cfr[h] = nl, nh, mm, row
         row = torch.minimum(
@@ -187,14 +204,16 @@ def bucket_backward_iteration(g: BucketGeom, lo, hi, cfr, omega, din_lo, din_hi,
     new_lo, new_hi, new_mm = torch.empty_like(lo), torch.empty_like(lo), torch.empty_like(lo)
     cft = torch.empty_like(cfr)
     cft_next = torch.full((P, g.B), INF, dtype=lo.dtype, device=lo.device)
+    nv_all, lk_all, ls_all, hk_all, hs_all = g.decode()
+    layer_valid = g.layer_valid
     for h in range(g.H - 1, -1, -1):
-        nvalid = g.node_valid[h]
-        t_lo = _child_cft(g.lo_kind[h], g.lo_slot[h], cft_next, P)
-        t_hi = _child_cft(g.hi_kind[h], g.hi_slot[h], cft_next, P)
+        nvalid = nv_all[h]
+        t_lo = _child_cft(lk_all[h], ls_all[h], cft_next, P)
+        t_hi = _child_cft(hk_all[h], hs_all[h], cft_next, P)
         m0 = torch.where(nvalid, cfr[h] + lo[h][None] + t_lo, INF).amin(dim=0)
         m1 = torch.where(nvalid, cfr[h] + hi[h][None] + t_hi, INF).amin(dim=0)
         nl, nh, mm = _hop_cost_update(
-            lo[h], hi[h], m0, m1, omega[h], alpha[h], din_lo[h], din_hi[h], g.layer_valid[h]
+            lo[h], hi[h], m0, m1, omega[h], alpha[h], din_lo[h], din_hi[h], layer_valid[h]
         )
         cft_next = torch.where(nvalid, torch.minimum(nl[None] + t_lo, nh[None] + t_hi), INF)
         new_lo[h], new_hi[h], new_mm[h], cft[h] = nl, nh, mm, cft_next
@@ -205,65 +224,84 @@ TWIN_SWEEPS = (bucket_forward_iteration, bucket_backward_iteration)
 
 
 # --------------------------------------------------------------- global ops
-def _per_bucket(geom: UniformGeom, flat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    return tuple(
-        x.view(g.H, g.B) for g, x in zip(geom.buckets, flat.split(geom.sizes))
-    )
-
-
 def segment_reduce(geom: UniformGeom, flat: torch.Tensor, reduce: str, initial: float) -> torch.Tensor:
     """Per-variable reduction [V, ...] of a flat per-slot tensor [E, ...] over
-    the valid slots; ``initial`` for variables with no slot."""
+    the valid slots; ``initial`` for variables with no slot. ``unsafe=True``:
+    torch would otherwise check ``lengths`` on every call with two copies to
+    the host; ``layout._exchange_index`` checked them when it built them. A
+    segment is still reduced by one sequential loop in slot order."""
     ex = geom.exchange
     return torch.segment_reduce(
-        flat[ex.order], reduce, lengths=ex.lengths, axis=0, initial=initial
+        flat[ex.order], reduce, lengths=ex.lengths, axis=0, unsafe=True, initial=initial
     )
 
 
-def exchange_delta(geom: UniformGeom, def_mm: Sequence[torch.Tensor]):
-    """Delta consensus (uniform.py:1571-1609): per variable, the sums of
-    relu(-mm) and relu(mm) over its layers, gathered back to every slot.
-    Returns per-bucket (din_lo, din_hi) [H, B]; 0 at invalid slots."""
-    mm = torch.cat([m.reshape(-1) for m in def_mm])
-    contrib = torch.stack([torch.clamp_min(-mm, 0.0), torch.clamp_min(mm, 0.0)], dim=1)
-    dsum = segment_reduce(geom, contrib, "sum", 0.0)  # [V, 2]
-    dsum = torch.cat([dsum.t(), dsum.new_zeros((2, 1))], dim=1)  # [2, V+1]
-    din = dsum[:, geom.exchange.ids]  # [2, E]
-    return _per_bucket(geom, din[0]), _per_bucket(geom, din[1])
-
-
-def _kernel_sweeps():
-    from bdd_tpu_torch.solver import sweep_kernels as sk
-
-    return sk.bucket_forward_iteration_cuda, sk.bucket_backward_iteration_cuda
+def exchange_delta_flat(geom: UniformGeom, mm: torch.Tensor):
+    """Delta consensus (uniform.py:1571-1609) on the flat slot order: per
+    variable, the sums of relu(-mm) and relu(mm) over its layers, gathered
+    back to every slot. ``mm`` [E] -> (din_lo, din_hi) [E]; 0 at invalid
+    slots. Every gather is one-dimensional (a gather of [E, 2] float64 rows
+    runs several times slower on the card); the reduction takes the two
+    columns as one [Ev, 2] tensor, which torch reduces with one sequential
+    loop per variable and column (one-dimensional data would go to a tree
+    reduction that sums in another order, and slower)."""
+    ex = geom.exchange
+    m = mm[ex.order]
+    contrib = torch.stack([-m, m], dim=1).clamp_min_(0.0)
+    # [V + 1, 2]: the last segment is empty, the sentinel variable V of
+    # invalid slots, and comes out as the initial 0
+    dsum = torch.segment_reduce(
+        contrib, "sum", lengths=ex.segments, axis=0, unsafe=True, initial=0.0
+    )
+    return dsum[:, 0][ex.ids], dsum[:, 1][ex.ids]
 
 
 Sweeps = Tuple[Callable, Callable]
 
 
+def sweep_per_bucket(sweep: Callable, geom: UniformGeom, lo, hi, frontier, omega,
+                     din_lo, din_hi) -> Tuple[torch.Tensor, ...]:
+    """A half-sweep on flat tensors through a per-bucket sweep function (a
+    twin, or a one-bucket kernel wrapper): one call per bucket on views, the
+    outputs laid flat again. Same signature from ``geom`` on, and the same
+    result, as the one-launch wrappers of ``sweep_kernels``."""
+    if isinstance(omega, torch.Tensor) and omega.dim() > 0:
+        omegas = geom.per_bucket(omega.expand(geom.plan.E))
+    else:
+        omegas = (omega,) * len(geom.buckets)
+    outs = [
+        sweep(g, l, h, f, om, dl, dh)
+        for g, l, h, f, om, dl, dh in zip(
+            geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi),
+            geom.per_bucket_nodes(frontier), omegas, geom.per_bucket(din_lo),
+            geom.per_bucket(din_hi))
+    ]
+    return tuple(flatten(xs) for xs in zip(*outs))
+
+
 def iteration(
     geom: UniformGeom, state: UniformState, omega=0.5, sweeps: Optional[Sweeps] = None
 ) -> UniformState:
-    """One full dual MMA iteration over all buckets: exchange, forward
-    half-sweeps, exchange, backward half-sweeps. ``sweeps``: (forward,
-    backward) bucket functions; defaults to the CUDA kernel wrappers, which
-    run the twins on CPU tensors."""
-    fwd, bwd = sweeps or _kernel_sweeps()
-    din_lo, din_hi = exchange_delta(geom, state.def_mm)
-    outs = [
-        fwd(g, lo, hi, cft, omega, dl, dh)
-        for g, lo, hi, cft, dl, dh in zip(
-            geom.buckets, state.lo, state.hi, state.cft, din_lo, din_hi
-        )
-    ]
-    lo_l, hi_l, mm_l, cfr_l = (tuple(x) for x in zip(*outs))
-    din_lo, din_hi = exchange_delta(geom, mm_l)
-    outs = [
-        bwd(g, lo, hi, cfr, omega, dl, dh)
-        for g, lo, hi, cfr, dl, dh in zip(geom.buckets, lo_l, hi_l, cfr_l, din_lo, din_hi)
-    ]
-    lo_l, hi_l, mm_l, cft_l = (tuple(x) for x in zip(*outs))
-    return UniformState(lo_l, hi_l, mm_l, cft_l)
+    """One full dual MMA iteration over all buckets on the flat state:
+    exchange, forward half-sweep, exchange, backward half-sweep. By default
+    each half-sweep is one call of the fused kernel wrappers (one launch on
+    the card; the twins bucket by bucket on CPU tensors). ``sweeps``:
+    (forward, backward) per-bucket functions to run bucket by bucket
+    instead."""
+    if not geom.buckets:
+        return state
+    if sweeps is None:
+        from bdd_tpu_torch.solver import sweep_kernels as sk
+
+        fwd, bwd = sk.forward_iteration_cuda, sk.backward_iteration_cuda
+    else:
+        fwd, bwd = (functools.partial(sweep_per_bucket, s) for s in sweeps)
+    lo, hi, mm, cft = state.flat
+    din_lo, din_hi = exchange_delta_flat(geom, mm)
+    lo, hi, mm, cfr = fwd(geom, lo, hi, cft, omega, din_lo, din_hi)
+    din_lo, din_hi = exchange_delta_flat(geom, mm)
+    lo, hi, mm, cft = bwd(geom, lo, hi, cfr, omega, din_lo, din_hi)
+    return state_from_flat(geom, lo, hi, mm, cft)
 
 
 def iterations(
@@ -292,7 +330,7 @@ def init_uniform_state(host: UniformHost, objective) -> UniformState:
         hi_l.append(hi)
         mm_l.append(torch.zeros_like(lo))
         cft_l.append(bucket_backward_run(g, lo, hi))
-    return UniformState(tuple(lo_l), tuple(hi_l), tuple(mm_l), tuple(cft_l))
+    return state_from_buckets(geom, lo_l, hi_l, mm_l, cft_l)
 
 
 def lower_bound_from_cft(geom: UniformGeom, cft: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -306,7 +344,7 @@ def lower_bound_from_cft(geom: UniformGeom, cft: Sequence[torch.Tensor]) -> torc
 
 def distribute_delta(geom: UniformGeom, state: UniformState) -> UniformState:
     """Fold the deferred marginals into the costs (uniform.py:1707)."""
-    din_lo, din_hi = exchange_delta(geom, state.def_mm)
+    din_lo, din_hi = (geom.per_bucket(d) for d in exchange_delta_flat(geom, state.flat[2]))
     lo_l, hi_l, mm_l, cft_l = [], [], [], []
     for g, lo, hi, dl, dh in zip(geom.buckets, state.lo, state.hi, din_lo, din_hi):
         nl = torch.where(g.layer_valid, lo + g.alpha * dl, 0.0)
@@ -315,7 +353,7 @@ def distribute_delta(geom: UniformGeom, state: UniformState) -> UniformState:
         hi_l.append(nh)
         mm_l.append(torch.zeros_like(lo))
         cft_l.append(bucket_backward_run(g, nl, nh))
-    return UniformState(tuple(lo_l), tuple(hi_l), tuple(mm_l), tuple(cft_l))
+    return state_from_buckets(geom, lo_l, hi_l, mm_l, cft_l)
 
 
 def lower_bound(geom: UniformGeom, state: UniformState) -> torch.Tensor:
@@ -345,4 +383,4 @@ def update_costs_per_var(
         lo_l.append(nl)
         hi_l.append(nh)
         cft_l.append(bucket_backward_run(g, nl, nh))
-    return UniformState(tuple(lo_l), tuple(hi_l), state.def_mm, tuple(cft_l))
+    return state_from_buckets(geom, lo_l, hi_l, state.def_mm, cft_l)

@@ -1,8 +1,8 @@
 """UniformSolver — object wrapper for the bucketed uniform backend
 (counterpart of bdd_tpu/solver/uniform_wrapper.py).
 
-Duck-compatible with the solvers the shared ``bdd_tpu.solver.run.run_solver``
-and ``bdd_tpu.solver.rounding`` drive: iteration / iteration_block /
+Duck-compatible with the solvers that ``bdd_tpu_torch.solver.run.run_solver``
+and ``bdd_tpu_torch.solver.rounding`` drive: iteration / iteration_block /
 lower_bound / min_marginals / distribute_delta / update_costs and ``.f``.
 """
 from __future__ import annotations
@@ -17,7 +17,7 @@ from bdd_tpu_torch.solver.layout import UniformHost
 
 
 class UniformLayerView:
-    """The layer-indexed view the shared rounding helpers read: numpy arrays
+    """The layer-indexed view the host rounding helpers read: numpy arrays
     over the concatenated per-bucket [H*B] layers."""
 
     def __init__(self, host: UniformHost) -> None:

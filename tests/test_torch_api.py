@@ -23,6 +23,7 @@ from bdd_tpu import api as jax_api
 from bdd_tpu.ilp import parse_lp_string
 from bdd_tpu.utils.problems import grid_mrf
 from bdd_tpu_torch import api
+from bdd_tpu_torch.utils.problems import grid_mrf as port_grid_mrf
 from bdd_tpu_torch.solver import sweep_kernels as sk
 from tests import fixtures
 from tests.test_torch_rounding import jax_draws
@@ -31,7 +32,7 @@ from tests.test_torch_rounding import jax_draws
 @pytest.fixture(autouse=True, scope="module")
 def _cap_torch_threads():
     """Two intra-op threads while this module runs (the suite runs several
-    workers), restored afterwards: the native CPU solver sizes its per-thread
+    workers), restored afterwards: the CPU solver of native/ sizes its per-thread
     scratch by omp_get_max_threads() of the thread that creates it, so a
     count lowered for good would break other modules' solvers that run
     parallel regions from other threads."""
@@ -100,7 +101,7 @@ def test_ilp_object_input_and_variable_order():
     want = jax_api.BddSolver(dict(cfg))
     want.read_ilp(ilp=ilp)
     want = want.solve(verbose=False)
-    s = api.BddSolver(dict(cfg), device="cpu").read_ilp(ilp=grid_mrf(3, 3, 2, seed=5))
+    s = api.BddSolver(dict(cfg), device="cpu").read_ilp(ilp=port_grid_mrf(3, 3, 2, seed=5))
     got = s.solve(verbose=False, draws=jax_draws(0))
     assert s.var_perm is not None
     assert got["lower_bound"] == pytest.approx(want["lower_bound"], abs=1e-8)
@@ -160,17 +161,27 @@ def test_cpu_solve_launches_no_kernel():
 
 
 def test_port_never_imports_jax():
+    """Every module of the port, and chip_smoke (not run), imported in a fresh
+    process: neither JAX nor any module of the JAX package may come along."""
     code = (
-        "import sys, pkgutil, importlib, bdd_tpu_torch\n"
+        "import sys, pkgutil, importlib\n"
+        "before = set(sys.modules)\n"
+        "import bdd_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(bdd_tpu_torch.__path__, 'bdd_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert 'bdd_tpu_torch.api' in mods and 'bdd_tpu_torch.solver.sweep_kernels' in mods\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "import chip_smoke\n"
+        "for name in ('api', 'native', 'solver.run', 'solver.rounding', 'solver.sweep_kernels',\n"
+        "             'utils.logging', 'utils.problems', 'ilp.lp_parser',\n"
+        "             'frontends.graph_matching'):\n"
+        "    assert 'bdd_tpu_torch.' + name in mods, name\n"
+        "bad = sorted(m for m in set(sys.modules) - before\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'bdd_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
     out = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
+        cwd=str(__import__("pathlib").Path(__file__).resolve().parents[1]),
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 8
+    assert int(out.stdout.strip()) >= 17

@@ -1,6 +1,7 @@
 """The CUDA sweep kernels against their torch twins, on the card.
 
-This file imports no JAX, so it also runs on a GPU machine without JAX:
+This file imports no JAX and nothing of bdd_tpu, so it also runs on a GPU
+machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 
@@ -13,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from bdd_tpu.native import NativeHost
-from bdd_tpu.utils.problems import grid_mrf
+from bdd_tpu_torch.native import NativeHost
+from bdd_tpu_torch.utils.problems import grid_mrf
 from bdd_tpu_torch.solver import layout
 from bdd_tpu_torch.solver import sweep_kernels as sk
 from bdd_tpu_torch.solver import uniform as uf
@@ -23,10 +24,10 @@ from bdd_tpu_torch.solver import uniform as uf
 @pytest.fixture(autouse=True, scope="module")
 def _cap_torch_threads():
     """Two intra-op threads while this module runs (the suite runs several
-    workers), restored afterwards: the native CPU solver sizes its per-thread
-    scratch by omp_get_max_threads() of the thread that creates it, so a
-    count lowered for good would break other modules' solvers that run
-    parallel regions from other threads."""
+    workers), restored afterwards: the CPU solver of native/ sizes its
+    per-thread scratch by omp_get_max_threads() of the thread that creates
+    it, so a count lowered for good would break other modules' solvers that
+    run parallel regions from other threads."""
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     yield
@@ -60,7 +61,7 @@ def setup(name, dtype, device, iters=3):
     host = layout.from_native_host(nh, dtype=dtype, device=device)
     st = uf.init_uniform_state(host, nh.objective())
     st = uf.iterations(host.geom, st, iters, 0.5, sweeps=uf.TWIN_SWEEPS)
-    dl, dh = uf.exchange_delta(host.geom, st.def_mm)
+    dl, dh = (host.geom.per_bucket(d) for d in uf.exchange_delta_flat(host.geom, st.flat[2]))
     dl = [d.clone() for d in dl]
     for d, g in zip(dl, host.geom.buckets):  # a forcing delta in every bucket
         idx = torch.nonzero(g.layer_valid)
@@ -150,15 +151,144 @@ def test_iterations_through_kernels_equal_twins(cuda_device, precision):
         uf.lower_bound_with_deferred(host.geom, b))
 
 
-@pytest.mark.cuda
-def test_unsupported_width_raises_on_card(cuda_device):
-    host, st, dl, dh = setup("grid", torch.float32, cuda_device, iters=0)
-    g = host.geom.buckets[0]
-    wide = layout.BucketGeom(**{
-        **{f: getattr(g, f) for f in ("layer_valid", "layer_var", "alpha", "roots", "root_mask")},
-        **{f: getattr(g, f).repeat(1, 33, 1)[:, :64] for f in
-           ("node_valid", "lo_kind", "lo_slot", "hi_kind", "hi_slot")},
-    })
-    cft = st.cft[0].repeat(1, 33, 1)[:, :64].contiguous()
+def test_unsupported_width_raises_on_card():
+    """A width past the byte geometry's 32 slots is refused when the bucket
+    is built, before any launch."""
+    b = random_bucket(64, 2, 8, np.random.RandomState(0))
     with pytest.raises(ValueError, match="P=64"):
-        sk.bucket_forward_iteration_cuda(wide, st.lo[0], st.hi[0], cft, 0.5, dl[0], dh[0])
+        layout._build_host([b], np.ones(4, np.int64), 4, 4, 8, torch.float32, "cpu")
+
+
+# ------------------------------------------------- synthetic bucket shapes
+def random_bucket(P, H, B, rng, packed=True, nr_vars=4):
+    """A bucket of random geometry. Not a BDD: kernel and twin must agree on
+    any bytes the encoding can hold."""
+    lv = rng.rand(H, B) < 0.9
+    node_valid = rng.rand(H, P, B) < 0.8
+    node_valid[0, 1:] = False  # a column starts at a root: slot 0 of row 0
+    roots = rng.rand(H, B) < 0.3
+    roots[0] = node_valid[0, 0]
+    return dict(
+        node_valid=node_valid,
+        lo_kind=rng.randint(0, 3, size=(H, P, B)).astype(np.int32),
+        lo_slot=rng.randint(0, P, size=(H, P, B)).astype(np.int32),
+        hi_kind=rng.randint(0, 3, size=(H, P, B)).astype(np.int32),
+        hi_slot=rng.randint(0, P, size=(H, P, B)).astype(np.int32),
+        layer_valid=lv,
+        layer_var=np.where(lv, rng.randint(0, nr_vars, size=(H, B)), nr_vars).astype(np.int32),
+        # half of the layers at alpha <= 1/3: forcing deltas must stay infinite
+        alpha=np.where(lv, rng.choice([1.0, 0.5, 1 / 3, 0.25, 0.125], size=(H, B)), 0.0),
+        layer_bdd=np.where(lv, 0, -1).astype(np.int64),
+        root_mask=roots if packed else None,
+        bdd_of_col=np.zeros(B, dtype=np.int64),
+        depths=np.full(B, H, dtype=np.int32),
+    )
+
+
+def random_costs(geom, rng, device):
+    """Flat (lo, hi, frontier, din_lo, din_hi) with infinities mixed in."""
+    dt = geom.dtype
+
+    def draw(n, p_inf):
+        x = rng.randn(n)
+        x[rng.rand(n) < p_inf] = np.inf
+        return torch.from_numpy(x).to(device, dt)
+
+    E, N = geom.plan.E, geom.plan.N
+    return draw(E, 0.02), draw(E, 0.02), draw(N, 0.2), draw(E, 0.05), draw(E, 0.05)
+
+
+def synthetic_host(shapes, dtype, device, seed=0, packed=True):
+    rng = np.random.RandomState(seed)
+    buckets = [random_bucket(P, H, B, rng, packed) for P, H, B in shapes]
+    host = layout._build_host(buckets, np.ones(4, np.int64), 4, 4, len(buckets), dtype, device)
+    return host, random_costs(host.geom, rng, device)
+
+
+def twins_bucket_by_bucket(twin, geom, lo, hi, frontier, omega, dl, dh):
+    outs = [
+        twin(g, a, b, f, omega, x, y)
+        for g, a, b, f, x, y in zip(
+            geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi),
+            geom.per_bucket_nodes(frontier), geom.per_bucket(dl), geom.per_bucket(dh))
+    ]
+    return tuple(torch.cat([x.reshape(-1) for x in xs]) for xs in zip(*outs))
+
+
+# ragged B (not a multiple of either tile width), H of 1, 2 and above the
+# ring depth of 8 hops, every P
+SHAPES = [(P, H, B) for P in sk.SUPPORTED_P for H, B in ((1, 37), (2, 64), (11, 45), (9, 72))]
+
+
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_fused_wrappers_on_cpu_equal_twins_per_bucket(precision):
+    dtype = torch.float32 if precision == "float" else torch.float64
+    host, (lo, hi, fr, dl, dh) = synthetic_host(SHAPES[::4], dtype, "cpu")
+    sk.reset_launch_counts()
+    for fused, twin in ((sk.forward_iteration_cuda, uf.bucket_forward_iteration),
+                        (sk.backward_iteration_cuda, uf.bucket_backward_iteration)):
+        out = fused(host.geom, lo, hi, fr, 0.5, dl, dh)
+        assert_identical(out, twins_bucket_by_bucket(twin, host.geom, lo, hi, fr, 0.5, dl, dh))
+    assert sk.LAUNCHES == {"uniform_forward": 0, "uniform_backward": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "P%d-H%d-B%d" % s)
+def test_one_bucket_shapes_equal_twins(cuda_device, shape, precision):
+    dtype = torch.float32 if precision == "float" else torch.float64
+    host, (lo, hi, fr, dl, dh) = synthetic_host([shape], dtype, cuda_device, seed=sum(shape))
+    g = host.geom.buckets[0]
+    args = (g, lo.view(g.H, g.B), hi.view(g.H, g.B), fr.view(g.H, g.P, g.B), 0.5,
+            dl.view(g.H, g.B), dh.view(g.H, g.B))
+    for kernel, twin in ((sk.bucket_forward_iteration_cuda, uf.bucket_forward_iteration),
+                         (sk.bucket_backward_iteration_cuda, uf.bucket_backward_iteration)):
+        out = kernel(*args)
+        torch.cuda.synchronize()
+        assert_identical(out, twin(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("stages", [None, 1, 2, 4, 8])
+def test_fused_launch_over_all_shapes_equals_twins(cuda_device, precision, stages):
+    """One launch over 24 buckets of every width, against the twins bucket by
+    bucket; also at forced prefetch depths."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    host, (lo, hi, fr, dl, dh) = synthetic_host(SHAPES, dtype, cuda_device, seed=7)
+    geom = host.geom
+    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, stages=stages)
+    om = torch.rand(geom.plan.E, dtype=dtype, device=cuda_device)
+    for omega in (0.5, om):
+        for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
+                             ("uniform_backward", uf.bucket_backward_iteration)):
+            launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, omega, dl, dh, plan)
+            launch()
+            torch.cuda.synchronize()
+            om_b = omega if isinstance(omega, float) else None
+            if om_b is None:
+                ref = [
+                    twin(g, a, b, f, o, x, y)
+                    for g, a, b, f, o, x, y in zip(
+                        geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi),
+                        geom.per_bucket_nodes(fr), geom.per_bucket(omega),
+                        geom.per_bucket(dl), geom.per_bucket(dh))
+                ]
+                ref = tuple(torch.cat([x.reshape(-1) for x in xs]) for xs in zip(*ref))
+            else:
+                ref = twins_bucket_by_bucket(twin, geom, lo, hi, fr, om_b, dl, dh)
+            assert_identical(out, ref)
+
+
+@pytest.mark.cuda
+def test_fused_iteration_counts_one_launch_per_half_sweep(cuda_device):
+    nh = NativeHost(wide_lp(), "input")
+    host = layout.from_native_host(nh, dtype=torch.float64, device=cuda_device)
+    assert len(host.geom.buckets) > 1
+    st0 = uf.init_uniform_state(host, nh.objective())
+    sk.reset_launch_counts()
+    a = uf.iterations(host.geom, st0, 4, 0.5)
+    assert sk.LAUNCHES == {"uniform_forward": 4, "uniform_backward": 4}
+    b = uf.iterations(host.geom, st0, 4, 0.5, sweeps=uf.TWIN_SWEEPS)
+    for f in ("lo", "hi", "def_mm", "cft"):
+        assert_identical(getattr(a, f), getattr(b, f))

@@ -18,6 +18,7 @@ import torch
 from bdd_tpu.native import NativeHost
 from bdd_tpu.solver import uniform as uf
 from bdd_tpu.utils.problems import grid_mrf
+from bdd_tpu_torch.native import NativeHost as PortNativeHost
 from bdd_tpu_torch.solver import layout
 from tests import fixtures
 
@@ -25,7 +26,7 @@ from tests import fixtures
 @pytest.fixture(autouse=True, scope="module")
 def _cap_torch_threads():
     """Two intra-op threads while this module runs (the suite runs several
-    workers), restored afterwards: the native CPU solver sizes its per-thread
+    workers), restored afterwards: the CPU solver of native/ sizes its per-thread
     scratch by omp_get_max_threads() of the thread that creates it, so a
     count lowered for good would break other modules' solvers that run
     parallel regions from other threads."""
@@ -77,7 +78,7 @@ def test_from_native_host_matches_make_uniform_host(name, precision):
     jdt, tdt = {"float": (jnp.float32, torch.float32),
                 "double": (jnp.float64, torch.float64)}[precision]
     ref = nh.make_uniform_host(dtype=jdt)
-    port = layout.from_native_host(nh, dtype=tdt, device="cpu")
+    port = layout.from_native_host(PortNativeHost(LPS[name], "bfs"), dtype=tdt, device="cpu")
     assert (port.geom.buckets[0].root_mask is not None) == (precision == "float")
     assert_host_equal(port, ref, tdt)
 
@@ -121,7 +122,7 @@ def test_from_jax_arrays_carries_state():
 
 
 def test_exchange_index_groups_valid_slots_by_variable():
-    nh = NativeHost(LPS["grid"], "bfs")
+    nh = PortNativeHost(LPS["grid"], "bfs")
     host = layout.from_native_host(nh, dtype=torch.float32, device="cpu")
     ex = host.geom.exchange
     ids = ex.ids.numpy()
@@ -134,3 +135,91 @@ def test_exchange_index_groups_valid_slots_by_variable():
     assert (np.diff(ids[order]) >= 0).all()
     np.testing.assert_array_equal(ex.lengths.numpy(), np.bincount(ids[valid], minlength=V))
     np.testing.assert_array_equal(ex.lengths.numpy(), host.geom.num_bdds_per_var.numpy())
+
+
+# ------------------------------------------------------------ byte geometry
+@pytest.mark.parametrize("P", [1, 2, 4, 8, 16, 32])
+def test_byte_geometry_round_trips_for_every_width(P):
+    """Random arc arrays -> byte records -> the decoded int32 / bool arrays."""
+    rng = np.random.RandomState(P)
+    H, B = 5, 11
+    arrays = dict(
+        node_valid=rng.rand(H, P, B) < 0.7,
+        lo_kind=rng.randint(0, 3, size=(H, P, B)).astype(np.int32),
+        lo_slot=rng.randint(0, P, size=(H, P, B)).astype(np.int32),
+        hi_kind=rng.randint(0, 3, size=(H, P, B)).astype(np.int32),
+        hi_slot=rng.randint(0, P, size=(H, P, B)).astype(np.int32),
+    )
+    layer_valid, roots = rng.rand(H, B) < 0.8, rng.rand(H, B) < 0.3
+    rec = layout.encode_arcs(*arrays.values(), layer_valid, roots)
+    assert rec.dtype == np.uint8 and rec.shape == (H, B, max(4, 2 * P))
+    g = layout.BucketGeom(P=P, arcs=torch.from_numpy(rec),
+                          layer_var=torch.zeros((H, B), dtype=torch.int64),
+                          alpha=torch.zeros((H, B)), packed=True)
+    assert (g.H, g.P, g.B) == (H, P, B)
+    for name, want in arrays.items():
+        got = getattr(g, name)
+        assert got.dtype == (torch.bool if name == "node_valid" else torch.int32)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+    np.testing.assert_array_equal(g.layer_valid.numpy(), layer_valid)
+    np.testing.assert_array_equal(g.roots.numpy(), roots)
+    np.testing.assert_array_equal(g.root_mask.numpy(), roots)
+
+
+@pytest.mark.parametrize("what", ["kind", "slot", "width"])
+def test_byte_geometry_refuses_what_it_cannot_hold(what):
+    P = 64 if what == "width" else 2
+    z = np.zeros((1, P, 4), dtype=np.int32)
+    bad = z.copy()
+    bad[0, 0, 0] = {"kind": 3, "slot": 32, "width": 0}[what]
+    args = dict(node_valid=z > 0, lo_kind=z, lo_slot=z, hi_kind=z, hi_slot=z)
+    if what != "width":
+        args["hi_" + what] = bad
+    m = np.zeros((1, 4), dtype=bool)
+    with pytest.raises(ValueError):
+        layout.encode_arcs(*args.values(), m, m)
+
+
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_wide_instance_geometry_matches_jax_for_every_width(precision):
+    """Every kernel width P = 1..32 on one instance: the decoded bytes against
+    the int32 arrays of bdd_tpu, raw (float64) and packed (float32)."""
+    from tests.test_torch_kernels import wide_lp
+
+    nh = NativeHost(wide_lp(), "input")
+    jdt, tdt = {"float": (jnp.float32, torch.float32),
+                "double": (jnp.float64, torch.float64)}[precision]
+    ref = nh.make_uniform_host(dtype=jdt)
+    port = layout.from_native_host(PortNativeHost(wide_lp(), "input"), dtype=tdt, device="cpu")
+    assert sorted({g.P for g in port.geom.buckets}) == [1, 2, 4, 8, 16, 32]
+    assert_host_equal(port, ref, tdt)
+
+
+def test_launch_plan_table_and_flat_views():
+    from tests.test_torch_kernels import wide_lp
+
+    host = layout.from_native_host(PortNativeHost(wide_lp(), "input"), dtype=torch.float64,
+                                   device="cpu")
+    geom, plan = host.geom, host.geom.plan
+    table = plan.table.numpy()
+    assert table.shape == (len(geom.buckets), layout.TABLE_COLUMNS)
+    e = n = blocks = 0
+    for row, g in zip(table, geom.buckets):
+        P, H, B, first, row_off, node_off, arc_off, stages = (int(x) for x in row)
+        assert (P, H, B) == (g.P, g.H, g.B) and first == blocks
+        assert (row_off, node_off) == (e, n) and arc_off % layout.ARC_ALIGN == 0
+        assert g.arcs.data_ptr() == geom.arcs.data_ptr() + arc_off
+        assert g.alpha.data_ptr() == geom.alpha.data_ptr() + e * geom.alpha.element_size()
+        assert 1 <= stages <= layout.MAX_STAGES
+        assert (stages + 1) * layout.slot_bytes(P, 8, plan.tile) <= plan.smem_bytes
+        e, n, blocks = e + H * B, n + H * P * B, blocks + -(-B // plan.tile)
+    assert (plan.E, plan.N, plan.nr_blocks) == (e, n, blocks)
+    assert plan.smem_bytes <= layout.SMEM_BUDGET and plan.pmax == 32
+    assert layout.launch_plan(plan.shapes, torch.float64, "cpu") is plan  # built once
+
+
+@pytest.mark.parametrize("P,itemsize,want", [(1, 4, 36), (2, 4, 36), (2, 8, 72), (4, 4, 56),
+                                             (8, 4, 80), (32, 8, 368)])
+def test_ring_cell_bytes(P, itemsize, want):
+    """The cell sizes the kernel's ``Cell<T, P>::W`` computes."""
+    assert layout.cell_bytes(P, itemsize) == want

@@ -31,7 +31,7 @@ from tests import fixtures
 @pytest.fixture(autouse=True, scope="module")
 def _cap_torch_threads():
     """Two intra-op threads while this module runs (the suite runs several
-    workers), restored afterwards: the native CPU solver sizes its per-thread
+    workers), restored afterwards: the CPU solver of native/ sizes its per-thread
     scratch by omp_get_max_threads() of the thread that creates it, so a
     count lowered for good would break other modules' solvers that run
     parallel regions from other threads."""

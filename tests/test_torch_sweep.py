@@ -26,6 +26,7 @@ from bdd_tpu.solver import pallas_uniform as pu
 from bdd_tpu.solver import uniform as uf
 from bdd_tpu.utils.problems import grid_mrf
 from bdd_tpu_torch import _build
+from bdd_tpu_torch.native import NativeHost as PortNativeHost
 from bdd_tpu_torch.solver import layout
 from bdd_tpu_torch.solver import sweep_kernels as sk
 from bdd_tpu_torch.solver import uniform as tuf
@@ -35,7 +36,7 @@ from tests import fixtures
 @pytest.fixture(autouse=True, scope="module")
 def _cap_torch_threads():
     """Two intra-op threads while this module runs (the suite runs several
-    workers), restored afterwards: the native CPU solver sizes its per-thread
+    workers), restored afterwards: the CPU solver of native/ sizes its per-thread
     scratch by omp_get_max_threads() of the thread that creates it, so a
     count lowered for good would break other modules' solvers that run
     parallel regions from other threads."""
@@ -182,8 +183,9 @@ def test_forcing_survives_alpha_quarter_f32():
     ref = uf.init_uniform_state(host, nh.objective(), dtype=jnp.float32)
     ref = uf.iterations(host.geom, ref, 30, 0.5)
     lb_ref = float(uf.lower_bound_with_deferred(host.geom, ref))
-    port = layout.from_native_host(nh, dtype=torch.float32, device="cpu")
-    st = tuf.init_uniform_state(port, nh.objective())
+    pnh = PortNativeHost(FORCING, "input")
+    port = layout.from_native_host(pnh, dtype=torch.float32, device="cpu")
+    st = tuf.init_uniform_state(port, pnh.objective())
     st = tuf.iterations(port.geom, st, 30, 0.5)
     lb = float(tuf.lower_bound_with_deferred(port.geom, st))
     assert lb == pytest.approx(lb_ref, abs=1e-4)
@@ -215,3 +217,28 @@ def test_nvcc_command_targets_sm90a_without_fast_math():
     assert "-fmad=false" in cmd
     assert cmd[-1] == _build.SOURCE and cmd[-1].endswith("csrc/uniform_sweep.cu")
     assert _build.library_path().startswith(_build.BUILD_DIR)
+
+
+@pytest.mark.parametrize("pack", [False, True], ids=["raw", "packed"])
+def test_half_sweeps_match_jax_f64_every_width(pack):
+    """The twins on decoded bytes at every slot width P = 1..32."""
+    from tests.test_torch_kernels import wide_lp
+
+    host, state, dl, dh, port, ps, tl, th = jax_setup(wide_lp(), jnp.float64, pack, order="input")
+    assert sorted({g.P for g in port.geom.buckets}) == [1, 2, 4, 8, 16, 32]
+    for k, g in enumerate(host.geom.buckets):
+        pg = port.geom.buckets[k]
+        ref_f = uf.bucket_forward_iteration(
+            g, state.lo[k], state.hi[k], state.cft[k], 0.5, dl[k], dh[k]
+        )
+        out_f = tuf.bucket_forward_iteration(pg, ps.lo[k], ps.hi[k], ps.cft[k], 0.5, tl[k], th[k])
+        assert_same(out_f, ref_f, atol=1e-12)
+        ref_b = uf.bucket_backward_iteration(g, ref_f[0], ref_f[1], ref_f[3], 0.5, dl[k], dh[k])
+        out_b = tuf.bucket_backward_iteration(pg, out_f[0], out_f[1], out_f[3], 0.5, tl[k], th[k])
+        assert_same(out_b, ref_b, atol=1e-12)
+
+
+def test_host_library_build_command_and_paths():
+    assert _build.host_library_path().startswith(_build.BUILD_DIR)
+    assert _build.host_library_path() != _build.library_path()
+    assert _build.HOST_SOURCE.endswith("csrc/bdd_host.cpp")

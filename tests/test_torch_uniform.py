@@ -24,6 +24,7 @@ from bdd_tpu.solver import uniform as uf
 from bdd_tpu.solver.rounding import incremental_mm_rounding
 from bdd_tpu.solver.uniform_wrapper import UniformSolver as JaxUniformSolver
 from bdd_tpu.utils.problems import grid_mrf
+from bdd_tpu_torch.native import NativeHost as PortNativeHost
 from bdd_tpu_torch.solver import layout
 from bdd_tpu_torch.solver import uniform as tuf
 from bdd_tpu_torch.solver.uniform_wrapper import UniformSolver
@@ -33,7 +34,7 @@ from tests import fixtures
 @pytest.fixture(autouse=True, scope="module")
 def _cap_torch_threads():
     """Two intra-op threads while this module runs (the suite runs several
-    workers), restored afterwards: the native CPU solver sizes its per-thread
+    workers), restored afterwards: the CPU solver of native/ sizes its per-thread
     scratch by omp_get_max_threads() of the thread that creates it, so a
     count lowered for good would break other modules' solvers that run
     parallel regions from other threads."""
@@ -212,7 +213,8 @@ def test_exchange_delta_matches_jax_segment_path():
     mm[0][0, 0] = np.inf
     mm[0][1, 0] = -np.inf
     jl, jh = uf.exchange_delta(jhost.geom, tuple(jnp.asarray(m) for m in mm))
-    tl, th = tuf.exchange_delta(port.geom, [torch.from_numpy(m) for m in mm])
+    tl, th = (port.geom.per_bucket(d) for d in tuf.exchange_delta_flat(
+        port.geom, layout.flatten([torch.from_numpy(m) for m in mm])))
     for g, a, b, c, d in zip(port.geom.buckets, tl, jl, th, jh):
         m = g.layer_valid.numpy()
         _close(a[m], np.asarray(b)[m])
@@ -250,3 +252,101 @@ def test_state_ops_match_jax_f64():
     for (a0, a1), (b0, b1) in zip(mm, jmm):
         _close(a0, b0)
         _close(a1, b1)
+
+
+# ------------------------------------------------- flat state, one launch
+def _wide_host(precision, pack):
+    from tests.test_torch_kernels import wide_lp
+
+    nh = PortNativeHost(wide_lp(), "input")
+    dtype = torch.float64 if precision == "double" else torch.float32
+    return nh, layout.from_native_host(nh, dtype=dtype, device="cpu", pack=pack)
+
+
+@pytest.mark.parametrize("pack", [False, True], ids=["raw", "packed"])
+@pytest.mark.parametrize("precision", ["double", "float"])
+def test_flat_iteration_equals_per_bucket_iteration_bitwise(precision, pack):
+    """The iteration on flat tensors (one sweep call per half-sweep) against
+    the iteration that calls a sweep per bucket on tensors of its own."""
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+
+    nh, host = _wide_host(precision, pack)
+    geom = host.geom
+    assert len(geom.buckets) >= 3
+    st0 = tuf.init_uniform_state(host, nh.objective())
+    flat = tuf.iterations(geom, st0, 5, 0.5)
+    per_bucket = tuf.iterations(
+        geom, st0, 5, 0.5,
+        sweeps=(sk.bucket_forward_iteration_cuda, sk.bucket_backward_iteration_cuda))
+    assert flat.flat[0].shape == per_bucket.flat[0].shape == (geom.plan.E,)
+    for field in ("lo", "hi", "def_mm", "cft"):
+        for a, b in zip(getattr(flat, field), getattr(per_bucket, field)):
+            assert a.shape == b.shape and torch.equal(a, b), field
+    assert float(tuf.lower_bound_with_deferred(geom, flat)) == float(
+        tuf.lower_bound_with_deferred(geom, per_bucket))
+
+
+def test_flat_state_views_alias_the_flat_tensors():
+    nh, host = _wide_host("double", False)
+    st = tuf.iterations(host.geom, tuf.init_uniform_state(host, nh.objective()), 1, 0.5)
+    lo, hi, mm, cft = st.flat
+    assert lo.numel() == sum(host.geom.sizes) == host.geom.plan.E
+    assert cft.numel() == host.geom.plan.N
+    off = 0
+    for g, view in zip(host.geom.buckets, st.lo):
+        assert view.data_ptr() == lo.data_ptr() + off * lo.element_size()
+        off += g.H * g.B
+    rebuilt = layout.state_from_buckets(host.geom, st.lo, st.hi, st.def_mm, st.cft)
+    for a, b in zip(rebuilt.flat, st.flat):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("precision", ["double", "float"])
+def test_exchange_delta_flat_equals_rows_gathered_and_numpy(precision):
+    """The exchange on flat tensors against the formulation that gathers
+    [E, 2] rows (bit for bit) and a numpy scatter-add (to rounding)."""
+    nh, host = _wide_host(precision, True)
+    geom, ex = host.geom, host.geom.exchange
+    st = tuf.iterations(geom, tuf.init_uniform_state(host, nh.objective()), 3, 0.5)
+    mm = st.flat[2]
+    din_lo, din_hi = tuf.exchange_delta_flat(geom, mm)
+    contrib = torch.stack([torch.clamp_min(-mm, 0.0), torch.clamp_min(mm, 0.0)], dim=1)
+    dsum = torch.segment_reduce(contrib[ex.order], "sum", lengths=ex.lengths, axis=0, initial=0.0)
+    dsum = torch.cat([dsum.t(), dsum.new_zeros((2, 1))], dim=1)[:, ex.ids]
+    assert torch.equal(din_lo, dsum[0]) and torch.equal(din_hi, dsum[1])
+    ids, valid = ex.ids.numpy(), ex.valid.numpy()
+    ref = np.zeros((2, geom.V + 1))
+    np.add.at(ref[0], ids[valid], np.maximum(-mm.numpy()[valid].astype(np.float64), 0.0))
+    np.add.at(ref[1], ids[valid], np.maximum(mm.numpy()[valid].astype(np.float64), 0.0))
+    tol = 1e-12 if precision == "double" else 1e-5
+    np.testing.assert_allclose(din_lo.numpy(), ref[0][ids], atol=tol, rtol=tol)
+    np.testing.assert_allclose(din_hi.numpy(), ref[1][ids], atol=tol, rtol=tol)
+    for g, lo_b, hi_b in zip(geom.buckets, geom.per_bucket(din_lo), geom.per_bucket(din_hi)):
+        assert (lo_b[~g.layer_valid] == 0).all() and (hi_b[~g.layer_valid] == 0).all()
+
+
+@pytest.mark.parametrize("reduce,initial", [("sum", 0.0), ("max", -np.inf), ("min", np.inf)])
+def test_segment_reduce_unchecked_equals_checked(reduce, initial):
+    nh, host = _wide_host("double", False)
+    geom, ex = host.geom, host.geom.exchange
+    x = torch.from_numpy(np.random.RandomState(0).randn(sum(geom.sizes)))
+    checked = torch.segment_reduce(x[ex.order], reduce, lengths=ex.lengths, axis=0,
+                                   unsafe=False, initial=initial)
+    assert torch.equal(tuf.segment_reduce(geom, x, reduce, initial), checked)
+    assert checked.shape == (geom.V,)
+
+
+@pytest.mark.parametrize("lengths,slots", [([2, -1, 3], 4), ([2, 2], 5), ([], 1)])
+def test_bad_segment_lengths_raise_when_the_layout_is_built(lengths, slots):
+    with pytest.raises(ValueError, match="exchange index"):
+        layout.check_lengths(np.asarray(lengths, dtype=np.int64), slots)
+
+
+def test_exchange_index_is_checked_at_build(monkeypatch):
+    """``_exchange_index`` runs the check on what it builds: a layout whose
+    lengths were corrupted on the way never reaches the solver."""
+    nh, _ = _wide_host("double", False)
+    real = np.bincount
+    monkeypatch.setattr(layout.np, "bincount", lambda *a, **k: real(*a, **k) + 1)
+    with pytest.raises(ValueError, match="exchange index"):
+        layout.from_native_host(nh, dtype=torch.float64, device="cpu")
