@@ -138,10 +138,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     # (table, nr_buckets, nr_blocks, tile, pmax, smem_bytes, arcs, lo, hi,
     #  din_lo, din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi,
-    #  out_mm, frontier out, stream)
+    #  out_mm, frontier out, stream); the wide entries read tile as the
+    # warps a block and pmax as the values a shared-memory row
     sig = [vp, i, i, i, i, i] + [vp] * 7 + [d] + [vp] * 6
     for suffix in ("f32", "f64"):
-        for name in ("uniform_forward", "uniform_backward"):
+        for name in ("uniform_forward", "uniform_backward",
+                     "uniform_forward_wide", "uniform_backward_wide"):
             f = getattr(lib, f"{name}_{suffix}")
             f.argtypes, f.restype = sig, i
 

@@ -1,11 +1,27 @@
-"""Top-level solver for the native main path + CLI (counterpart of
-bdd_tpu/api.py: ``_try_native`` + ``solve``, api.py:608-712 and 920-926).
+"""Top-level solver pipeline + CLI (counterpart of bdd_tpu/api.py).
 
-    LP text -> C++ host library (parse, order, BDDs, buckets) -> uniform MMA
-    dual ascent on the device -> on-device incremental rounding.
+JSON-config compatible with the reference schema:
 
-The device is explicit (default ``"cuda"``). Configurations outside this
-path raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+    read ILP -> variable reorder -> normalize -> ILP->BDD -> dual solver ->
+    perturbation rounding.
+
+Two preprocessing pipelines lead to the same bucketed layout on the device:
+
+    native: LP text -> C++ host library (parse, order, BDDs, buckets)
+    python: ILP object -> BddPreprocessor -> BddCollection -> flatten_uniform
+
+The native one is the fast way and is taken whenever the config and the input
+allow it; ``_try_native`` logs which pipeline ran and why. That is a choice
+of preprocessing only: either way the uniform solver lives on ``device``
+(default ``"cuda"``) and sweeps through the CUDA kernels there.
+
+Relaxation solver names:
+    "uniform mma" / "cuda parallel mma" / "jax mma" / "mma" -> bucketed
+        uniform backend on the device
+    "sequential mma", "parallel mma" / "ref mma" -> numpy backends on the host
+Every other name of ``bdd_tpu.api`` raises ``NotImplementedError`` naming the
+ROADMAP.md item that ports it, as do the keys ``"tighten"`` and
+``"smoothing"``.
 """
 from __future__ import annotations
 
@@ -18,22 +34,26 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from bdd_tpu_torch.bdd.preprocessor import BddPreprocessor, InfeasibleError
+from bdd_tpu_torch.ilp.lp_parser import parse_lp_string
 from bdd_tpu_torch.native import NativeHost, NativeUnsupported
-from bdd_tpu_torch.solver.run import run_solver
-from bdd_tpu_torch.utils.logging import bdd_log
+from bdd_tpu_torch.solver.flatten import flatten_collection
 from bdd_tpu_torch.solver.layout import from_native_host, resolve_device
+from bdd_tpu_torch.solver.rounding import incremental_mm_rounding
 from bdd_tpu_torch.solver.rounding_device import Draws, incremental_mm_rounding_device
+from bdd_tpu_torch.solver.run import run_solver
 from bdd_tpu_torch.solver.uniform_wrapper import UniformSolver
+from bdd_tpu_torch.utils.logging import bdd_log
 
 # api.py:31-59 of the JAX package
 DEFAULT_CONFIG = {
     "variable order": "input",  # input|bfs|minimum degree|cuthill
-    "use native preprocessing": True,
+    "use native preprocessing": True,  # C++ host pipeline when applicable
     "normalize constraints": True,
     "precision": "float",  # float|double
     "relaxation solver": "uniform mma",
-    "split chunk size": None,
-    "split implication": False,
+    "split chunk size": None,  # cap BDD depth; int or "auto"
+    "split implication": False,  # redundant cross-chunk implication BDD
     "termination criteria": {
         "maximum iterations": 1000,
         "improvement slope": 1e-9,
@@ -49,20 +69,32 @@ DEFAULT_CONFIG = {
 }
 
 UNIFORM_SOLVERS = ("uniform mma", "cuda parallel mma", "jax mma", "mma")
-_NATIVE_ORDERS = ("input", "bfs", "cuthill", "minimum degree", "mindegree")
+HOST_SOLVERS = ("sequential mma", "parallel mma", "ref mma")
+_ORDERS = ("input", "bfs", "cuthill", "minimum degree", "mindegree")
+_EXPORT_KEYS = ("export lp", "export bdd lp", "export bdd graph", "print statistics",
+                "export difficult core")
 
 # config key -> ROADMAP.md item that ports it
 _NOT_PORTED = {
-    "export lp": "Queue 1 item 7 (the python pipeline and exports)",
-    "export bdd lp": "Queue 1 item 7 (the python pipeline and exports)",
-    "export bdd graph": "Queue 1 item 7 (the python pipeline and exports)",
-    "print statistics": "Queue 1 item 7 (the python pipeline and exports)",
-    "export difficult core": "Queue 1 item 7 (the python pipeline and exports)",
-    "split chunk size": "Queue 1 item 7 (the python pipeline: BDD splitting)",
-    "split bdds": "Queue 1 item 7 (the python pipeline: BDD splitting)",
     "tighten": "Queue 1 item 10 (tightening)",
     "smoothing": "Queue 1 item 11 (smooth solvers)",
-    "inputs": "Queue 1 item 8 (batched solves)",
+}
+# relaxation solver of bdd_tpu.api -> ROADMAP.md item that ports it
+_SOLVERS_NOT_PORTED = {
+    "lbfgs parallel mma": "Queue 1 item 9 (outer loops)",
+    "lbfgs cuda parallel mma": "Queue 1 item 9 (outer loops)",
+    "lbfgs jax mma": "Queue 1 item 9 (outer loops)",
+    "subgradient": "Queue 1 item 9 (outer loops)",
+    "smooth mma": "Queue 1 item 11 (smooth solvers)",
+    "mma smooth": "Queue 1 item 11 (smooth solvers)",
+    "parallel mma smooth": "Queue 1 item 11 (smooth solvers)",
+    "sharded mma": "Queue 1 item 13 (multiple devices)",
+    "lbfgs sharded mma": "Queue 1 item 13 (multiple devices)",
+    "subgradient sharded mma": "Queue 1 item 13 (multiple devices)",
+    "hybrid mma": "Queue 1 item 14 (hybrid CPU + GPU solve)",
+    "multi parallel mma": "Queue 1 item 14 (hybrid CPU + GPU solve)",
+    "hybrid parallel mma": "Queue 1 item 14 (hybrid CPU + GPU solve)",
+    "dense mma": "Queue 1 item 15 (the dense backend)",
 }
 
 
@@ -82,107 +114,457 @@ def _not_ported(what: str, item: str):
     )
 
 
+def _write_ilp(ilp, path: str, what: str) -> None:
+    if path.endswith(".opb"):
+        text = ilp.write_opb()
+    elif path.endswith(".mps"):
+        text = ilp.write_mps()
+    elif path.endswith(".lp"):
+        text = ilp.write_lp()
+    else:
+        raise ValueError(
+            f"Cannot recognize file extension of {path!r} for {what} (.lp/.opb/.mps)")
+    with open(path, "w") as fh:
+        fh.write(text)
+
+
 class BddSolver:
-    """The native main path of ``bdd_tpu.api.BddSolver`` on one device."""
+    """The orchestration class of ``bdd_tpu.api.BddSolver`` on one device."""
 
     def __init__(self, config: Optional[dict] = None, device="cuda", **kwargs) -> None:
         config = _merge(DEFAULT_CONFIG, config or {})
-        self.config = _merge(config, kwargs)
+        config = _merge(config, kwargs)
+        # Reference-spelled BDD-splitting block:
+        #   "split bdds": {"split length": N, "implication bdd": true}
+        # maps onto the "split chunk size"/"split implication" keys; without
+        # a length it means an automatic length.
+        sb = config.get("split bdds")
+        if sb is not None and sb is not False:
+            sb = sb if isinstance(sb, dict) else {}
+            if not config.get("split chunk size"):
+                config["split chunk size"] = sb.get("split length", "auto")
+            if "implication bdd" in sb or "implication" in sb:
+                config["split implication"] = bool(
+                    sb.get("implication bdd", sb.get("implication"))
+                )
+        self.config = config
         self.device = resolve_device(device)
+        self._ilp = None
         self._lp_text: Optional[str] = None
-        self.solver: Optional[UniformSolver] = None
-        self.var_perm = None
+        self._native: Optional[NativeHost] = None
+        self.solver = None
+        self.infeasible = False
+        self.var_perm = None  # old index per new position (None = identity)
         self.dual_stats: dict = {}
         self._check_config()
 
     def _check_config(self) -> None:
         cfg = self.config
         for key, item in _NOT_PORTED.items():
-            value = cfg.get(key)
-            # "split bdds": {} asks for splitting with an automatic length
-            if value or (key == "split bdds" and value not in (None, False)):
+            if cfg.get(key):
                 raise _not_ported(f"config key {key!r}", item)
         name = cfg["relaxation solver"]
-        if name not in UNIFORM_SOLVERS:
-            raise _not_ported(
-                f"relaxation solver {name!r}",
-                "Queue 1 items 7-15 (host solvers, outer loops, smooth, learned, "
-                "multi-device, hybrid, dense)",
-            )
-        if not cfg.get("use native preprocessing", True):
-            raise _not_ported("the python preprocessing pipeline", "Queue 1 item 7")
-        p = cfg["perturbation rounding"]
-        if p is not False:
-            method = p.get("method", cfg.get("rounding method", "incremental"))
-            if method != "incremental":
-                raise _not_ported(f"rounding method {method!r}", "Queue 1 item 7")
+        if name in _SOLVERS_NOT_PORTED:
+            raise _not_ported(f"relaxation solver {name!r}", _SOLVERS_NOT_PORTED[name])
+        if name not in UNIFORM_SOLVERS + HOST_SOLVERS:
+            raise ValueError(f"unknown relaxation solver {name!r}")
+        if cfg["variable order"] not in _ORDERS:
+            raise ValueError(f"unknown variable order {cfg['variable order']!r}")
         if cfg["precision"] not in ("float", "double"):
             raise ValueError(f"unknown precision {cfg['precision']!r}")
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.float64 if self.config["precision"] == "double" else torch.float32
+
+    @property
+    def ilp(self):
+        if self._ilp is None and self._lp_text is not None:
+            self._ilp = parse_lp_string(self._lp_text)
+        return self._ilp
+
+    @ilp.setter
+    def ilp(self, value):
+        self._ilp = value
+
     # ------------------------------------------------------------------ input
     def read_ilp(self, ilp=None, path: Optional[str] = None, lp_string: Optional[str] = None):
-        """LP text, an .lp path, or an ILP object (e.g. from the shared
-        frontends), which is serialized through ``write_lp`` for the native
-        host library as the JAX package does (api.py:630-642)."""
         if ilp is not None:
-            self._lp_text = ilp.write_lp()
+            self._ilp = ilp
         elif lp_string is not None:
-            self._lp_text = lp_string
+            self._lp_text = lp_string  # python parse deferred (native path)
+        elif path is not None:
+            # Specialized problem frontends: the "input type" config key or
+            # the file extension selects the frontend.
+            input_type = str(self.config.get("input type", "")).lower()
+            if input_type in ("uai", "mrf", "uai mrf") or (
+                not input_type and path.endswith(".uai")
+            ):
+                from bdd_tpu_torch.frontends.mrf_uai import parse_uai_file
+
+                self._ilp = parse_uai_file(path).convert_to_ilp()
+            elif input_type in ("graph matching", "gm") or (
+                not input_type and path.endswith(".dd")
+            ):
+                from bdd_tpu_torch.frontends.graph_matching import parse_graph_matching_file
+
+                self._ilp = parse_graph_matching_file(path)
+            elif input_type in ("multi graph matching", "mgm") or (
+                not input_type and path.endswith(".mgm")
+            ):
+                from bdd_tpu_torch.frontends.multi_graph_matching import (
+                    construct_multi_graph_matching_ilp,
+                    parse_mgm_file,
+                )
+
+                self._ilp = construct_multi_graph_matching_ilp(parse_mgm_file(path))
+            elif path.endswith(".opb"):
+                from bdd_tpu_torch.ilp.opb_parser import parse_opb_file
+
+                self._ilp = parse_opb_file(path)
+            elif path.endswith(".mps"):
+                from bdd_tpu_torch.ilp.mps_parser import parse_mps_file
+
+                self._ilp = parse_mps_file(path)
+            else:
+                with open(path) as fh:
+                    self._lp_text = fh.read()
         else:
-            path = path if path is not None else self.config.get("input")
+            path = self.config.get("input")
             if path is None:
                 raise ValueError("no input given")
-            if not path.endswith(".lp"):
-                raise _not_ported(f"input {path!r} (only .lp files)", "Queue 1 item 7")
-            with open(path) as fh:
-                self._lp_text = fh.read()
+            return self.read_ilp(path=path)
+        return self
+
+    @staticmethod
+    def _reorder(ilp, order: str):
+        if order == "bfs":
+            return ilp.reorder_bfs()
+        if order == "cuthill":
+            return ilp.reorder_cuthill_mckee()
+        if order in ("minimum degree", "mindegree"):
+            return ilp.reorder_minimum_degree()
+        if order != "input":
+            raise ValueError(f"unknown variable order {order!r}")
+        return None
+
+    def process_ilp(self):
+        perm = self._reorder(self.ilp, self.config["variable order"])
+        if perm is not None:
+            self.var_perm = perm
+        if self.config["normalize constraints"]:
+            self.ilp.normalize()
+        return self
+
+    def transform_to_bdds(self):
+        self.pre = BddPreprocessor(
+            self.ilp,
+            split_chunk_size=self.config["split chunk size"],
+            split_implication_bdd=self.config["split implication"],
+        )
+        self.flat = flatten_collection(
+            self.pre.collection,
+            self.pre.total_nr_variables(),
+            self.pre.nr_primal_variables,
+        )
+        bdd_log(
+            f"[bdd solver] {self.flat.nr_bdds} BDDs, {self.flat.nr_nodes} nodes, "
+            f"{self.flat.nr_layers} layers, {self.flat.nr_hops} hops, "
+            f"{self.flat.nr_vars} variables"
+        )
+        return self
+
+    # ------------------------------------------------------- export phases
+    # (export_lp after process_ilp; print_statistics / export_bdd_graph /
+    # export_bdd_lp after transform_to_bdds)
+    def export_lp_file(self) -> None:
+        path = self.config.get("export lp")
+        if path:
+            _write_ilp(self.ilp, path, "exporting problem file")
+
+    def print_statistics(self) -> None:
+        """ILP/BDD size statistics."""
+        if not self.config.get("print statistics"):
+            return
+        ilp = self.ilp
+        counts = np.zeros(ilp.nr_variables(), dtype=np.int64)
+        for c in ilp.constraints():
+            for v in c.variables():
+                counts[v] += 1
+        bdd_log(f"[print_statistics] #variables = {ilp.nr_variables()}")
+        bdd_log(f"[print_statistics] #constraints = {ilp.nr_constraints()}")
+        bdd_log(f"[print_statistics] #BDDs = {self.pre.collection.nr_bdds()}")
+        if len(counts):
+            bdd_log("[print_statistics] minimum num. constraints per var = "
+                    f"{int(counts.min())}")
+            bdd_log("[print_statistics] maximum num. constraints per var = "
+                    f"{int(counts.max())}")
+            bdd_log("[print_statistics] mean num. constraints per var = "
+                    f"{float(counts.mean())}")
+
+    def export_bdd_graph(self) -> None:
+        """One graphviz .dot file per BDD, ``<base>_<nr>.dot``."""
+        path = self.config.get("export bdd graph")
+        if not path:
+            return
+        base = path[:-4] if path.endswith(".dot") else path
+        col = self.pre.collection
+        for bdd_nr in range(col.nr_bdds()):
+            with open(f"{base}_{bdd_nr}.dot", "w") as fh:
+                fh.write(col.export_graphviz(bdd_nr))
+
+    def export_bdd_lp_file(self) -> None:
+        path = self.config.get("export bdd lp")
+        if not path:
+            return
+        with open(path, "w") as fh:
+            fh.write(self.pre.collection.write_bdd_lp(self.pre.objective_vector()))
+
+    def construct_solver(self):
+        name = self.config["relaxation solver"]
+        obj = self.pre.objective_vector()
+        np_dtype = np.float64 if self.config["precision"] == "double" else np.float32
+        if name == "sequential mma":
+            from bdd_tpu_torch.solver.sequential import SequentialSolver
+
+            self.solver = SequentialSolver(self.flat, obj, dtype=np_dtype)
+        elif name in ("parallel mma", "ref mma"):
+            from bdd_tpu_torch.solver.ref_solver import RefSolver
+
+            self.solver = RefSolver(self.flat, obj, dtype=np_dtype)
+        elif name in UNIFORM_SOLVERS:
+            self.solver = UniformSolver.from_collection(
+                self.pre.collection,
+                self.pre.total_nr_variables(),
+                obj,
+                nr_primal_vars=self.pre.nr_primal_variables,
+                dtype=self.dtype,
+                device=self.device,
+            )
+        else:  # _check_config admits no other name
+            raise ValueError(f"unknown relaxation solver {name!r}")
         return self
 
     # ------------------------------------------------------------------ solve
-    def _native_host(self) -> NativeHost:
-        order = self.config["variable order"]
-        try:
-            nh = NativeHost(self._lp_text, order if order in _NATIVE_ORDERS else "input")
-        except NativeUnsupported as exc:
-            raise _not_ported(f"this input ({exc})", "Queue 1 item 7") from exc
-        self.var_perm = nh.var_perm()
-        return nh
-
     def solve_dual(self, verbose: bool = True) -> float:
+        from bdd_tpu_torch.utils.logging import device_trace
+
         t = self.config["termination criteria"]
         self.dual_stats = {}
-        return run_solver(
-            self.solver,
-            max_iter=t["maximum iterations"],
-            tolerance=t["minimum improvement"],
-            improvement_slope=t["improvement slope"],
-            time_limit=t["time limit"],
-            verbose=verbose,
-            block_size=self.solver.default_block_size,
-            stats=self.dual_stats,
-        )
+        with device_trace(label="solve_dual"):  # BDD_TPU_TRACE=dir to capture
+            lb = run_solver(
+                self.solver,
+                max_iter=t["maximum iterations"],
+                tolerance=t["minimum improvement"],
+                improvement_slope=t["improvement slope"],
+                time_limit=t["time limit"],
+                verbose=verbose,
+                block_size=getattr(self.solver, "default_block_size", 1),
+                stats=self.dual_stats,
+            )
+        if math.isinf(lb):
+            self.infeasible = True
+        return lb
 
-    def solve(self, verbose: bool = True, draws: Optional[Draws] = None) -> Dict:
-        """Full pipeline; returns the result dict of ``bdd_tpu.api``.
-        ``draws``: optional uniform draws for the rounding (see
-        ``incremental_mm_rounding_device``)."""
-        if self._lp_text is None:
-            self.read_ilp()
-        nh = self._native_host()
+    def _rounding_method(self) -> str:
+        p = self.config["perturbation rounding"]
+        return p.get("method", self.config.get("rounding method", "incremental"))
+
+    def round(self, verbose: bool = True) -> Optional[np.ndarray]:
+        p = self.config["perturbation rounding"]
+        if p is False:  # dual-only run (rounding disabled)
+            return None
+        # "incremental" (reference pipeline default), "wedelin", "biased"
+        # (objective-tilted tie-breaking) or "best" (run all three, keep the
+        # best objective)
+        method = self._rounding_method()
+
+        def _incremental(bias: float = 0.0):
+            sol = incremental_mm_rounding(
+                self.solver,
+                init_delta=p["initial perturbation"],
+                delta_growth_rate=p["perturbation growth rate"],
+                num_itr_lb=p["inner iterations"],
+                num_rounding_itr=p["outer iterations"],
+                verbose=verbose,
+                objective_bias=bias,
+                objective=self.pre.objective_vector() if bias else None,
+            )
+            return None if sol is None else sol[: self.ilp.nr_variables()]
+
+        def _incremental_biased():
+            return _incremental(float(p.get("objective bias", 0.5)))
+
+        def _wedelin():
+            from bdd_tpu_torch.solver.extras import wedelin_rounding
+
+            sol = wedelin_rounding(self.solver, verbose=verbose)
+            return None if sol is None else np.asarray(sol)[: self.ilp.nr_variables()]
+
+        if method == "wedelin":
+            return _wedelin()
+        if method in ("incremental biased", "biased"):
+            return _incremental_biased()
+        if method == "best":
+            # the heuristics perturb the solver costs in place: snapshot the
+            # dual state so each starts from the same converged point
+            snap = getattr(self.solver, "state", None)
+            best_sol, best_obj = None, math.inf
+            for i, fn in enumerate((_incremental, _wedelin, _incremental_biased)):
+                if i and snap is not None:
+                    self.solver.state = snap
+                sol = fn()
+                if sol is None:
+                    continue
+                obj = self.ilp.evaluate([int(v) for v in sol])
+                if obj < best_obj:
+                    best_sol, best_obj = sol, obj
+            return best_sol
+        return _incremental()
+
+    # --------------------------------------------------- solver-level queries
+    def lower_bound(self) -> float:
+        if self.infeasible:
+            return math.inf
+        if hasattr(self.solver, "lower_bound_with_deferred"):
+            return float(self.solver.lower_bound_with_deferred())
+        return float(self.solver.lower_bound())
+
+    def _var_names(self):
+        if self._ilp is not None:
+            return [self.ilp.get_var_name(i) for i in range(self.ilp.nr_variables())]
+        return self._native.var_names()
+
+    def min_marginals(self, original_order: bool = True):
+        """Per-variable stacked min marginals: list over variables of [n_i, 2]
+        arrays (columns m0, m1), one row per BDD containing the variable,
+        permuted back to the input order."""
+        from bdd_tpu_torch.solver.rounding import min_marginals_per_var
+
+        m0, m1 = self.solver.min_marginals()
+        off, m0s, m1s = min_marginals_per_var(self.solver.f, m0, m1)
+        per_var = [
+            np.stack([m0s[off[v]:off[v + 1]], m1s[off[v]:off[v + 1]]], axis=1)
+            for v in range(len(off) - 1)
+        ]
+        if original_order and self.var_perm is not None:
+            n = len(self.var_perm)
+            out = list(per_var)
+            for new, old in enumerate(self.var_perm):
+                out[old] = per_var[new]
+            per_var = out[:n] + per_var[n:]
+        return per_var
+
+    def min_marginals_with_variable_names(self):
+        """(names, mm_lo, mm_hi) flat vectors, one entry per (variable, BDD)
+        layer."""
+        per_var = self.min_marginals(original_order=False)
+        names = self._var_names()
+        out_names, lo, hi = [], [], []
+        for v, name in enumerate(names):
+            for row in per_var[v]:
+                out_names.append(name)
+                lo.append(float(row[0]))
+                hi.append(float(row[1]))
+        return out_names, lo, hi
+
+    def fix_variable(self, var, value) -> None:
+        """Fix a primal variable (by index or name) to 0/1 in the constructed
+        solver."""
+        from bdd_tpu_torch.solver.extras import fix_variable
+
+        if isinstance(var, str):
+            if self._ilp is not None:
+                var = self.ilp.get_var_index(var)
+            else:
+                var = self._native.var_names().index(var)
+        fix_variable(self.solver, int(var), int(value))
+
+    def export_difficult_core(self, path: Optional[str] = None,
+                              threshold: Optional[float] = None):
+        """Fix variables whose min-marginal sums agree by more than
+        ``threshold`` and export the reduced 'difficult core' ILP
+        (.lp/.opb/.mps by extension). Returns the reduced ILPInput."""
+        from bdd_tpu_torch.solver.rounding import MM_ONE, MM_ZERO, MmDecoder
+
+        path = path if path is not None else self.config.get("export difficult core")
+        threshold = threshold if threshold is not None else float(
+            self.config.get("export difficult core th", 1e-6))
+        # fold pending deferred deltas first: classification from
+        # pre-consensus costs fixes the wrong variables
+        if hasattr(self.solver, "distribute_delta"):
+            self.solver.distribute_delta()
+        m0, m1 = self.solver.min_marginals()
+        dec = MmDecoder(self.solver.f, np.asarray(m0), np.asarray(m1))
+        n = self.ilp.nr_variables()
+        one_fix = [v for v in range(n)
+                   if dec.types[v] == MM_ONE and dec.sum1[v] + threshold <= dec.sum0[v]]
+        zero_fix = [v for v in range(n)
+                    if dec.types[v] == MM_ZERO and dec.sum0[v] + threshold <= dec.sum1[v]]
+        reduced = self.ilp.reduce(zero_fix, one_fix)
+        bdd_log(f"[bdd solver] Difficult core has {reduced.nr_variables()} "
+                f"variables and {reduced.nr_constraints()} constraints left")
+        if path:
+            _write_ilp(reduced, path, "difficult core export file")
+        return reduced
+
+    # -------------------------------------------------------- native pipeline
+    def _python_pipeline_reason(self) -> Optional[str]:
+        """Why this config must go through the Python pipeline; None when
+        the native host library can take it."""
+        cfg = self.config
+        if not cfg.get("use native preprocessing", True):
+            return "'use native preprocessing' is off"
+        for k in _EXPORT_KEYS:
+            if cfg.get(k):
+                return f"{k!r} needs the python ILP and BDD collection objects"
+        if cfg["relaxation solver"] not in UNIFORM_SOLVERS:
+            return f"relaxation solver {cfg['relaxation solver']!r} takes the flat BDD arrays"
+        if cfg.get("split chunk size"):
+            return "BDD splitting runs in the python pipeline"
+        p = cfg.get("perturbation rounding")
+        if isinstance(p, dict) and self._rounding_method() != "incremental":
+            return f"rounding method {self._rounding_method()!r} runs in the python pipeline"
+        return None
+
+    def _try_native(self, verbose: bool, draws: Optional[Draws] = None) -> Optional[Dict]:
+        """Native C++ preprocessing fast path (parse + order + BDDs + uniform
+        buckets). Returns a result dict when the native pipeline took the
+        solve, None when the Python pipeline must (config or input the host
+        library does not take); one log line says which and why. Only
+        ``NativeUnsupported`` selects the Python pipeline: any other failure
+        propagates."""
+        reason = self._python_pipeline_reason()
+        nh = None
+        if reason is None:
+            if self._lp_text is None:
+                # frontend-built ILPs (UAI MRF, graph matching, generators):
+                # serialized through write_lp so they too get the host library
+                self._lp_text = self._ilp.write_lp()
+            try:
+                nh = NativeHost(self._lp_text, self.config["variable order"])
+            except NativeUnsupported as exc:
+                reason = f"the native host library does not take this input ({exc})"
+        if nh is None:
+            bdd_log(f"[bdd solver] python preprocessing pipeline: {reason}")
+            return None
+        bdd_log("[bdd solver] native preprocessing pipeline (C++ host library)")
+        self.var_perm = nh.var_perm()  # for min_marginals(original_order)
         if nh.infeasible:
             return {"status": "infeasible", "lower_bound": math.inf}
-        dtype = torch.float64 if self.config["precision"] == "double" else torch.float32
-        host = from_native_host(nh, dtype=dtype, device=self.device)
-        self.solver = UniformSolver(host, nh.objective())
-        lb = self.solve_dual(verbose=verbose)
-        if math.isinf(lb):
+        host = from_native_host(nh, dtype=self.dtype, device=self.device)
+        solver = UniformSolver(host, nh.objective())
+        self.solver = solver
+        self._native = nh
+        self.solve_dual(verbose=verbose)
+        if self.infeasible:
             return {"status": "infeasible", "lower_bound": math.inf}
-        lb = self.solver.lower_bound_with_deferred()
+        lb = solver.lower_bound_with_deferred()
         p = self.config["perturbation rounding"]
         sol = None
         if p is not False:
             sol = incremental_mm_rounding_device(
-                self.solver,
+                solver,
                 init_delta=p["initial perturbation"],
                 delta_growth_rate=p["perturbation growth rate"],
                 num_itr_lb=p["inner iterations"],
@@ -198,9 +580,139 @@ class BddSolver:
             result["objective"] = float(np.dot(nh.objective(), np.asarray(x)) + nh.constant())
         return result
 
+    # ----------------------------------------------------------- batched solve
+    def solve_batch(self, ilps=None, paths=None, verbose: bool = True,
+                    draws: Optional[Draws] = None):
+        """Solve several INDEPENDENT ILPs as one batched device program
+        (serving mode). Instances share the bucketed tensors; the delta
+        exchange never mixes them (disjoint variable spaces). Returns one
+        result dict per ILP, with per-instance lower bounds from the per-BDD
+        decomposition. The solver must be a uniform-mma variant; rounding and
+        termination apply to the joint program."""
+        from bdd_tpu_torch.utils.batching import BatchedInstances
+
+        name = self.config["relaxation solver"]
+        if name not in UNIFORM_SOLVERS:
+            raise ValueError(
+                f"solve_batch requires a uniform-mma relaxation solver, got {name!r}")
+        if ilps is None:
+            ilps = []
+            for path in paths:
+                sub = BddSolver(dict(self.config), device=self.device)
+                sub.read_ilp(path=path)
+                ilps.append(sub.ilp)
+        n = len(ilps)
+        results: list = [None] * n
+        pres, live = [], []
+        for k, ilp in enumerate(ilps):
+            self._reorder(ilp, self.config["variable order"])
+            if self.config["normalize constraints"]:
+                ilp.normalize()
+            try:
+                pres.append(BddPreprocessor(
+                    ilp,
+                    split_chunk_size=self.config["split chunk size"],
+                    split_implication_bdd=self.config["split implication"],
+                ))
+                live.append(k)
+            except InfeasibleError:
+                results[k] = {"status": "infeasible", "lower_bound": math.inf}
+        if not live:
+            return results
+        bat = BatchedInstances([ilps[k] for k in live], pres=pres)
+        solver = UniformSolver.from_collection(
+            bat.collection, bat.nr_vars, bat.objective, dtype=self.dtype, device=self.device)
+        self.solver = solver
+        self.solve_dual(verbose=verbose)
+        # per-instance lower bounds from the per-BDD decomposition (a
+        # joint-infeasible dual shows up as inf in the affected instances'
+        # per-BDD sums below)
+        solver.distribute_delta()
+        per_bdd = solver.lower_bound_per_bdd()
+        bounds = []
+        for i, k in enumerate(live):
+            b0 = bat.bdd_offsets[i]
+            b1 = bat.bdd_offsets[i + 1] if i + 1 < len(live) else bat.collection.nr_bdds()
+            bounds.append(float(np.sum(per_bdd[b0:b1])))
+        p = self.config["perturbation rounding"]
+        sol = None
+        if p is not False:
+            # 'incremental biased' maps to objective-tilted tie-breaks;
+            # 'wedelin'/'best' have no batched device variant: say so
+            method = self._rounding_method()
+            bias = 0.0
+            if method in ("incremental biased", "biased"):
+                bias = float(p.get("objective bias", 0.5))
+            elif method != "incremental":
+                bdd_log(f"[solve_batch] rounding method {method!r} has no "
+                        f"batched device variant; using incremental")
+            sol = incremental_mm_rounding_device(
+                solver,
+                init_delta=p["initial perturbation"],
+                delta_growth_rate=p["perturbation growth rate"],
+                num_itr_lb=p["inner iterations"],
+                num_rounding_itr=p["outer iterations"],
+                verbose=verbose,
+                objective_bias=bias,
+                objective=np.asarray(bat.objective) if bias else None,
+                draws=draws,
+            )
+        for i, k in enumerate(live):
+            ilp = ilps[k]
+            res = {"status": "solved", "lower_bound": bounds[i]}
+            if math.isinf(bounds[i]):
+                res = {"status": "infeasible", "lower_bound": math.inf}
+            elif sol is not None:
+                xs = bat.slice_solution(np.asarray(sol), i)
+                x = [int(v) for v in xs[: ilp.nr_variables()]]
+                if ilp.feasible(x):
+                    res["solution"] = {
+                        ilp.get_var_name(j): x[j] for j in range(ilp.nr_variables())
+                    }
+                    res["objective"] = float(ilp.evaluate(x))
+            results[k] = res
+        return results
+
+    def solve(self, verbose: bool = True, draws: Optional[Draws] = None) -> Dict:
+        """Full pipeline; returns the result dict of ``bdd_tpu.api``.
+        ``draws``: optional uniform draws for the device rounding of the
+        native pipeline (see ``incremental_mm_rounding_device``)."""
+        if self._ilp is None and self._lp_text is None:
+            self.read_ilp()
+        native_result = self._try_native(verbose, draws)
+        if native_result is not None:
+            return native_result
+        self.process_ilp()
+        self.export_lp_file()
+        try:
+            self.transform_to_bdds()
+        except InfeasibleError:
+            return {"status": "infeasible", "lower_bound": math.inf}
+        self.print_statistics()
+        self.export_bdd_graph()
+        self.export_bdd_lp_file()
+        self.construct_solver()
+        lb = self.solve_dual(verbose=verbose)
+        if self.infeasible:
+            return {"status": "infeasible", "lower_bound": math.inf}
+        if hasattr(self.solver, "lower_bound_with_deferred"):
+            lb = self.solver.lower_bound_with_deferred()
+        if self.config.get("export difficult core"):
+            self.export_difficult_core()
+        sol = self.round(verbose=verbose)
+        result = {"status": "solved", "lower_bound": float(lb), **self.dual_stats}
+        if sol is not None:
+            x = [int(v) for v in sol]
+            result["solution"] = {
+                self.ilp.get_var_name(i): x[i] for i in range(self.ilp.nr_variables())
+            }
+            result["objective"] = float(self.ilp.evaluate(x))
+        return result
+
 
 def main(argv=None) -> int:
-    """CLI: ``python -m bdd_tpu_torch.api config.json [--device cuda]``."""
+    """CLI: ``python -m bdd_tpu_torch.api <config.json | problem.lp> [--device
+    cuda]``. A config with an ``"inputs"`` list is solved as one batch."""
     ap = argparse.ArgumentParser(prog="python -m bdd_tpu_torch.api")
     ap.add_argument("input", help="config .json or problem .lp")
     ap.add_argument("--device", default="cuda")
@@ -210,7 +722,10 @@ def main(argv=None) -> int:
             solver = BddSolver(json.load(fh), device=args.device)
     else:
         solver = BddSolver({"input": args.input}, device=args.device)
-    result = solver.solve()
+    if "inputs" in solver.config:  # batched serving mode
+        result = solver.solve_batch(paths=solver.config["inputs"])
+    else:
+        result = solver.solve()
     bdd_log(json.dumps(result, indent=2, default=str))
     return 0
 

@@ -3,7 +3,8 @@
 // Replace the Pallas TPU kernels of bdd_tpu/solver/pallas_uniform.py:
 //   uniform_forward  <- _forward_kernel  (pallas_uniform.py:112-180)
 //   uniform_backward <- _backward_kernel (pallas_uniform.py:183-246)
-// One launch runs the whole half-sweep of EVERY bucket of a solve: per hop
+// One launch runs the whole half-sweep of EVERY bucket of up to 32 slots of
+// a solve, and a second one that of the wider buckets (the last section): per hop
 // the min-marginals, the MMA cost update, and the frontier (forward cfr) or
 // costs-to-terminal (backward cft). Semantics are those of the XLA scan in
 // bdd_tpu/solver/uniform.py:1181-1373 and of the torch twins in
@@ -48,6 +49,9 @@
 //    bits) | slot << 2 (5 bits) | flag << 7. The flag of a lo byte is
 //    node_valid; of record byte P layer_valid; of record byte P+1 root.
 //    solver/layout.py writes this form and the twins decode the same bytes.
+//    Buckets of more than 32 slots carry two bytes an arc and have a body of
+//    their own (the last section): this one holds a column's P frontier
+//    values in registers and does not stretch past P = 32.
 //
 // Build: nvcc without --use_fast_math (isinf/isnan must hold) and with
 // -fmad=false (no FMA contraction), so results match the twin bit for bit.
@@ -466,12 +470,207 @@ int launch(const void* table, int nr_buckets, int nr_blocks, int tile, int pmax,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ wide buckets
+// Buckets wider than 32 slots (two bytes an arc: kind | slot << 2 | flag <<
+// 15) run in a launch of their own, over a table of their own. One WARP owns
+// one column: its lanes stride over the P slots, the column's frontier row
+// lies in the warp's shared memory (the next row beside it), the min over
+// slots is a __shfl_xor_sync butterfly, and the forward relaxation scatters
+// into the next row with a shared-memory atomicMin on an order-preserving
+// unsigned image of the value. A minimum is exact in any order, and every sum
+// is formed as the twins form it, so the results equal the twins' bit for
+// bit (up to the sign of a zero minimum). Frontier rows in device memory are
+// [P, B] with B innermost, so a warp's loads and stores of them are strided;
+// a block takes up to 8 neighbouring columns so that its warps share sectors.
+// Only __syncwarp orders the shared rows: a warp reads and writes its own.
+// A NaN never reaches the relaxation (costs are finite or +inf); unlike
+// min_v the atomic would drop it.
+template <typename T>
+struct Key;
+
+template <>
+struct Key<float> {
+  using U = unsigned int;
+  __device__ static __forceinline__ U enc(float x) {
+    const U b = __float_as_uint(x);
+    return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  }
+  __device__ static __forceinline__ float dec(U k) {
+    return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+  }
+};
+
+template <>
+struct Key<double> {
+  using U = unsigned long long;
+  __device__ static __forceinline__ U enc(double x) {
+    const U b = (U)__double_as_longlong(x);
+    return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
+  }
+  __device__ static __forceinline__ double dec(U k) {
+    return __longlong_as_double((long long)((k >> 63) ? (k & 0x7fffffffffffffffull) : ~k));
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T warp_min(T v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v = min_v(v, __shfl_xor_sync(0xffffffffu, v, d));
+  return v;
+}
+
+constexpr int WIDE_SLOT_MASK = 8191;
+constexpr int WIDE_MAX_WARPS = 8;
+
+template <typename T, bool FORWARD>
+__global__ void __launch_bounds__(32 * WIDE_MAX_WARPS) sweep_wide_kernel(Args<T> a, int row) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using K = Key<T>;
+  using U = typename K::U;
+  const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
+  const int warps = (int)blockDim.x >> 5;
+  int k = 0;
+  while (k + 1 < a.nr_buckets && (long long)blockIdx.x >= a.table[k + 1].first_block) ++k;
+  const Bucket bk = a.table[k];
+  const int P = (int)bk.P, H = (int)bk.H, B = (int)bk.B;
+  const int b = (int)((long long)blockIdx.x - bk.first_block) * warps + warp;
+  if (b >= B) return;  // the whole warp leaves; no block barrier below
+  const T inf = inf_v<T>();
+  T* cur = (T*)smem + (size_t)warp * 2 * row;  // forward: cfr of this hop; backward: cft of hop h+1
+  T* nxt = cur + row;                          // the row being built
+  for (int p = lane; p < P; p += 32) cur[p] = inf;
+  __syncwarp();
+
+  const uint16_t* arcs = (const uint16_t*)(a.arcs + bk.arc_off);
+  const T* fin = a.frontier + bk.node_off + b;
+  T* fout = a.out_frontier + bk.node_off + b;
+  for (int i = 0; i < H; ++i) {
+    const int h = FORWARD ? i : H - 1 - i;
+    const size_t e = (size_t)bk.row_off + (size_t)h * B + b;
+    const uint16_t* rec = arcs + ((size_t)h * B + b) * 2 * P;
+    const bool lval = (rec[P] >> 15) != 0;
+    const T lo = a.lo[e], hi = a.hi[e];
+    const T om = a.omega_arr ? a.omega_arr[e] : a.omega;
+    const T* fin_h = fin + (size_t)h * P * B;
+    T* fout_h = fout + (size_t)h * P * B;
+    T m0 = inf, m1 = inf, nl, nh, mm;
+
+    if (FORWARD) {
+      if (rec[P + 1] >> 15) {  // root restart (also the hop-0 init)
+        for (int p = lane; p < P; p += 32) cur[p] = p == 0 ? T(0) : inf;
+        __syncwarp();
+      }
+      const bool last = h + 1 >= H;
+      const T* cft_next = fin_h + (size_t)P * B;  // cft of hop h+1
+      for (int p = lane; p < P; p += 32) {
+        const int lb = rec[p], hb = rec[P + p];
+        const int lk = lb & 3, ls = (lb >> 2) & WIDE_SLOT_MASK;
+        const int hk = hb & 3, hs = (hb >> 2) & WIDE_SLOT_MASK;
+        // cft of the child: TOP -> 0, BOT -> inf, else cft[h+1][slot] (inf
+        // past the last hop; 0 for a slot outside the bucket, as the twin)
+        T tl = lk == ARC_TOP ? T(0) : inf, th = hk == ARC_TOP ? T(0) : inf;
+        if (lk == ARC_INTERNAL)
+          tl = ls < P ? (last ? inf : cft_next[(size_t)ls * B]) : T(0);
+        if (hk == ARC_INTERNAL)
+          th = hs < P ? (last ? inf : cft_next[(size_t)hs * B]) : T(0);
+        const bool nv = (lb >> 15) != 0;
+        const T f = cur[p];
+        m0 = min_v(m0, nv ? f + lo + tl : inf);
+        m1 = min_v(m1, nv ? f + hi + th : inf);
+      }
+      m0 = warp_min(m0);
+      m1 = warp_min(m1);
+      hop_cost_update(lo, hi, m0, m1, om, a.alpha[e], a.din_lo[e], a.din_hi[e], lval, nl,
+                      nh, mm);
+      U* keys = (U*)nxt;
+      for (int p = lane; p < P; p += 32) {
+        fout_h[(size_t)p * B] = cur[p];
+        keys[p] = K::enc(inf);
+      }
+      __syncwarp();
+      // relax the frontier to h+1: nxt[k] = min over valid p with an
+      // internal arc into k of cfr[p] + cost of that arc
+      for (int p = lane; p < P; p += 32) {
+        const int lb = rec[p], hb = rec[P + p];
+        if (!(lb >> 15)) continue;
+        const int ls = (lb >> 2) & WIDE_SLOT_MASK, hs = (hb >> 2) & WIDE_SLOT_MASK;
+        const T f = cur[p];
+        if ((lb & 3) == ARC_INTERNAL && ls < P) atomicMin(keys + ls, K::enc(f + nl));
+        if ((hb & 3) == ARC_INTERNAL && hs < P) atomicMin(keys + hs, K::enc(f + nh));
+      }
+      __syncwarp();
+      for (int p = lane; p < P; p += 32) cur[p] = K::dec(keys[p]);
+      __syncwarp();
+    } else {
+      for (int p = lane; p < P; p += 32) {
+        const int lb = rec[p], hb = rec[P + p];
+        const int lk = lb & 3, ls = (lb >> 2) & WIDE_SLOT_MASK;
+        const int hk = hb & 3, hs = (hb >> 2) & WIDE_SLOT_MASK;
+        const T gl = ls < P ? cur[ls] : T(0), gh = hs < P ? cur[hs] : T(0);
+        const T tl = lk == ARC_TOP ? T(0) : (lk == ARC_BOT ? inf : gl);
+        const T th = hk == ARC_TOP ? T(0) : (hk == ARC_BOT ? inf : gh);
+        const bool nv = (lb >> 15) != 0;
+        const T cf = fin_h[(size_t)p * B];  // cfr of this hop
+        m0 = min_v(m0, nv ? cf + lo + tl : inf);
+        m1 = min_v(m1, nv ? cf + hi + th : inf);
+      }
+      m0 = warp_min(m0);
+      m1 = warp_min(m1);
+      hop_cost_update(lo, hi, m0, m1, om, a.alpha[e], a.din_lo[e], a.din_hi[e], lval, nl,
+                      nh, mm);
+      for (int p = lane; p < P; p += 32) {
+        const int lb = rec[p], hb = rec[P + p];
+        const int lk = lb & 3, ls = (lb >> 2) & WIDE_SLOT_MASK;
+        const int hk = hb & 3, hs = (hb >> 2) & WIDE_SLOT_MASK;
+        const T gl = ls < P ? cur[ls] : T(0), gh = hs < P ? cur[hs] : T(0);
+        const T tl = lk == ARC_TOP ? T(0) : (lk == ARC_BOT ? inf : gl);
+        const T th = hk == ARC_TOP ? T(0) : (hk == ARC_BOT ? inf : gh);
+        const T v = (lb >> 15) ? min_v(nl + tl, nh + th) : inf;
+        nxt[p] = v;
+        fout_h[(size_t)p * B] = v;
+      }
+      __syncwarp();
+      T* const swap = cur;
+      cur = nxt;
+      nxt = swap;
+    }
+    if (lane == 0) {
+      a.out_lo[e] = nl;
+      a.out_hi[e] = nh;
+      a.out_mm[e] = mm;
+    }
+  }
+}
+
+// as `launch`, over the table of the wide buckets: `warps` columns a block
+// (one warp each), `row` values a shared-memory row (the widest bucket)
+template <typename T, bool FORWARD>
+int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int row,
+                int smem_bytes, const void* arcs, const void* lo, const void* hi,
+                const void* din_lo, const void* din_hi, const void* alpha,
+                const void* omega_arr, double omega, const void* frontier, void* out_lo,
+                void* out_hi, void* out_mm, void* out_frontier, void* stream) {
+  if (nr_blocks == 0) return 0;
+  if (warps < 1 || warps > WIDE_MAX_WARPS) return -2;
+  if (row < 1 || row > WIDE_SLOT_MASK + 1 || smem_bytes < warps * 2 * row * (int)sizeof(T))
+    return -1;
+  const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
+                  (const T*)lo,         (const T*)hi,       (const T*)din_lo,
+                  (const T*)din_hi,     (const T*)alpha,    (const T*)omega_arr,
+                  (T)omega,             (const T*)frontier, (T*)out_lo,
+                  (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
+  sweep_wide_kernel<T, FORWARD><<<nr_blocks, 32 * warps, smem_bytes, (cudaStream_t)stream>>>(
+      a, row);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // (table, nr_buckets, nr_blocks, tile, pmax, smem_bytes, arcs, lo, hi, din_lo,
 //  din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi, out_mm,
 //  frontier out, stream); the buffers are flat over the buckets of the table
-#define SWEEP_ENTRY(NAME, T, FORWARD)                                           \
+// (the wide entries read tile as the warps a block and pmax as the row width)
+#define SWEEP_ENTRY(NAME, LAUNCH, T, FORWARD)                                   \
   extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks,         \
                       int tile, int pmax, int smem_bytes, const void* arcs,     \
                       const void* lo, const void* hi, const void* din_lo,       \
@@ -479,13 +678,17 @@ int launch(const void* table, int nr_buckets, int nr_blocks, int tile, int pmax,
                       const void* omega_arr, double omega,                      \
                       const void* frontier, void* out_lo, void* out_hi,         \
                       void* out_mm, void* out_frontier, void* stream) {         \
-    return launch<T, FORWARD>(table, nr_buckets, nr_blocks, tile, pmax,         \
+    return LAUNCH<T, FORWARD>(table, nr_buckets, nr_blocks, tile, pmax,         \
                               smem_bytes, arcs, lo, hi, din_lo, din_hi, alpha,  \
                               omega_arr, omega, frontier, out_lo, out_hi,       \
                               out_mm, out_frontier, stream);                    \
   }
 
-SWEEP_ENTRY(uniform_forward_f32, float, true)
-SWEEP_ENTRY(uniform_forward_f64, double, true)
-SWEEP_ENTRY(uniform_backward_f32, float, false)
-SWEEP_ENTRY(uniform_backward_f64, double, false)
+SWEEP_ENTRY(uniform_forward_f32, launch, float, true)
+SWEEP_ENTRY(uniform_forward_f64, launch, double, true)
+SWEEP_ENTRY(uniform_backward_f32, launch, float, false)
+SWEEP_ENTRY(uniform_backward_f64, launch, double, false)
+SWEEP_ENTRY(uniform_forward_wide_f32, launch_wide, float, true)
+SWEEP_ENTRY(uniform_forward_wide_f64, launch_wide, double, true)
+SWEEP_ENTRY(uniform_backward_wide_f32, launch_wide, float, false)
+SWEEP_ENTRY(uniform_backward_wide_f64, launch_wide, double, false)

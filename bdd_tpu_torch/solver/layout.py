@@ -6,10 +6,10 @@ Counterparts of ``BucketGeom``, ``UniformGeom``, ``UniformState`` and
 packing ``pack_uniform_host`` (uniform.py:863-1075).
 
 All building runs on the host in numpy. Tensors move to the device once, at
-build time, in the form the sweep kernels read: the arc geometry as one byte
-per arc (:func:`encode_arcs`), one flat buffer over all buckets for every
-per-layer quantity (the flat slot order of ``UniformGeom.sizes``), a table of
-the buckets for the one launch per half-sweep (:class:`LaunchPlan`), int64
+build time, in the form the sweep kernels read: the arc geometry as one or
+two bytes per arc (:func:`encode_arcs`), one flat buffer over all buckets for every
+per-layer quantity (the flat slot order of ``UniformGeom.sizes``), the tables
+of the buckets for the launches of a half-sweep (:class:`LaunchPlan`), int64
 variable ids (torch's index dtype), and the float dtype of the solve. Nothing
 is cast, concatenated or validated again per iteration.
 """
@@ -51,49 +51,64 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-# Byte geometry. Per (hop, column) one record of record_bytes(P) bytes:
+# Arc records. Per (hop, column) one record of record_bytes(P) bytes:
 # [lo arc of slot 0..P-1, hi arc of slot 0..P-1, zero padding up to 4 bytes].
-# An arc byte is kind | slot << 2 | flag << 7 (kind in 2 bits, slot in 5, so
-# P <= 32). The flag of a lo byte is node_valid of its slot; the flag of
-# record byte P (the first hi byte) is layer_valid, and of record byte P + 1
-# (the second hi byte; a padding byte when P = 1) the root row.
-MAX_P = 32
-_SLOT_MASK = 31
+# Narrow buckets (P <= NARROW_P) take one byte an arc: kind | slot << 2 |
+# flag << 7 (kind in 2 bits, slot in 5). Wide buckets (NARROW_P < P <= MAX_P)
+# take two bytes an arc, a little-endian uint16: kind | slot << 2 | flag << 15
+# (slot in 13 bits). The flags sit at the same arcs in either form: on a lo
+# arc node_valid of its slot, on arc P (the first hi arc) layer_valid, and on
+# arc P + 1 (the second hi arc; a padding byte when P = 1) the root row.
+# MAX_P is the widest bucket the wide sweep kernel holds: two rows of P
+# float64 values a column in its block's shared memory.
+NARROW_P = 32
+MAX_P = 2048
+_FLAG_SHIFT = {1: 7, 2: 15}
+_SLOT_MASK = {1: 31, 2: 8191}
+
+
+def arc_bytes(P: int) -> int:
+    """Bytes of one arc in a bucket of width P; ValueError above MAX_P."""
+    if P > MAX_P:
+        raise ValueError(f"bucket width P={P} exceeds the widest arc record's {MAX_P} slots")
+    return 1 if P <= NARROW_P else 2
 
 
 def record_bytes(P: int) -> int:
-    return max(4, 2 * P)
+    return max(4, 2 * P * arc_bytes(P))
 
 
 def encode_arcs(node_valid, lo_kind, lo_slot, hi_kind, hi_slot, layer_valid, roots) -> np.ndarray:
     """uint8 records [H, B, record_bytes(P)] of the [H, P, B] arc arrays and
-    the [H, B] layer masks; raises on values the byte form cannot hold."""
+    the [H, B] layer masks; raises on values the record cannot hold."""
     H, P, B = np.shape(node_valid)
-    if P > MAX_P:
-        raise ValueError(f"bucket width P={P} exceeds the byte geometry's {MAX_P} slots")
-    rec = np.zeros((H, B, record_bytes(P)), dtype=np.uint8)
+    width = arc_bytes(P)
+    word = np.uint8 if width == 1 else np.dtype("<u2")
+    shift, mask = _FLAG_SHIFT[width], _SLOT_MASK[width]
+    rec = np.zeros((H, B, record_bytes(P) // width), dtype=word)
     for off, kind, slot in ((0, lo_kind, lo_slot), (P, hi_kind, hi_slot)):
         kind, slot = np.asarray(kind), np.asarray(slot)
         if kind.size and (kind.min() < 0 or kind.max() > ARC_BOT
-                          or slot.min() < 0 or slot.max() > _SLOT_MASK):
-            raise ValueError("arc kind outside 0..2 or slot outside 0..31")
-        rec[:, :, off:off + P] = (kind | (slot << 2)).astype(np.uint8).transpose(0, 2, 1)
-    rec[:, :, :P] |= np.asarray(node_valid, dtype=np.uint8).transpose(0, 2, 1) << 7
-    rec[:, :, P] |= np.asarray(layer_valid, dtype=np.uint8) << 7
-    rec[:, :, P + 1] |= np.asarray(roots, dtype=np.uint8) << 7
-    return rec
+                          or slot.min() < 0 or slot.max() > mask):
+            raise ValueError(f"arc kind outside 0..2 or slot outside 0..{mask}")
+        rec[:, :, off:off + P] = (kind | (slot << 2)).astype(word).transpose(0, 2, 1)
+    rec[:, :, :P] |= np.asarray(node_valid, dtype=word).transpose(0, 2, 1) << shift
+    rec[:, :, P] |= np.asarray(layer_valid, dtype=word) << shift
+    rec[:, :, P + 1] |= np.asarray(roots, dtype=word) << shift
+    return rec.view(np.uint8)
 
 
 @dataclasses.dataclass(frozen=True)
 class BucketGeom:
     """Static geometry of one (width P, depth H) bucket of B columns.
 
-    ``arcs`` holds the byte records (:func:`encode_arcs`), the only stored
-    form of the arc geometry and layer masks; kernel and twins read these
-    bytes. The [H, P, B] / [H, B] properties below decode them with shifts
-    and masks on every access (tests and one-off host code; the twins decode
-    once per call through :meth:`decode`). ``arcs`` and ``alpha`` are views
-    into the flat buffers of the owning ``UniformGeom``.
+    ``arcs`` holds the arc records (:func:`encode_arcs`; one or two bytes an
+    arc by P), the only stored form of the arc geometry and layer masks;
+    kernels and twins read these bytes. The [H, P, B] / [H, B] properties
+    below decode them with shifts and masks on every access (tests and
+    one-off host code; the twins decode once per call through
+    :meth:`decode`). ``arcs`` and ``alpha`` are views into the flat buffers
+    of the owning ``UniformGeom``.
 
     ``packed`` (column packing): columns hold several BDDs, and ``roots``
     marks the rows where a new BDD's root (slot 0) starts, where the forward
@@ -114,13 +129,24 @@ class BucketGeom:
     def B(self) -> int:
         return self.arcs.shape[1]
 
+    def _words(self):
+        """(arcs [H, B, >= 2P] as integers, flag threshold, slot mask): the
+        bytes themselves for narrow buckets, the uint16 arcs widened to int32
+        for wide ones."""
+        width = arc_bytes(self.P)
+        if width == 1:
+            return self.arcs, 128, _SLOT_MASK[1]
+        return self.arcs.view(torch.int16).to(torch.int32) & 0xFFFF, 32768, _SLOT_MASK[2]
+
     def decode(self):
-        """(node_valid bool, lo_kind, lo_slot, hi_kind, hi_slot uint8), each
-        [H, P, B], from the byte records."""
+        """(node_valid bool, lo_kind, lo_slot, hi_kind, hi_slot; uint8 for
+        narrow buckets, int32 for wide ones), each [H, P, B], from the
+        records."""
         P = self.P
-        lo = self.arcs[:, :, :P].transpose(1, 2)
-        hi = self.arcs[:, :, P:2 * P].transpose(1, 2)
-        return lo >= 128, lo & 3, (lo >> 2) & _SLOT_MASK, hi & 3, (hi >> 2) & _SLOT_MASK
+        w, flag, mask = self._words()
+        lo = w[:, :, :P].transpose(1, 2)
+        hi = w[:, :, P:2 * P].transpose(1, 2)
+        return lo >= flag, lo & 3, (lo >> 2) & mask, hi & 3, (hi >> 2) & mask
 
     @property
     def node_valid(self) -> torch.Tensor:  # bool [H, P, B]
@@ -142,13 +168,17 @@ class BucketGeom:
     def hi_slot(self) -> torch.Tensor:
         return self.decode()[4].to(torch.int32)
 
+    def _flag(self, arc: int) -> torch.Tensor:  # bool [H, B]
+        width = arc_bytes(self.P)
+        return self.arcs[:, :, width * arc + width - 1] >= 128
+
     @property
     def layer_valid(self) -> torch.Tensor:  # bool [H, B]
-        return self.arcs[:, :, self.P] >= 128
+        return self._flag(self.P)
 
     @property
     def roots(self) -> torch.Tensor:  # bool [H, B]
-        return self.arcs[:, :, self.P + 1] >= 128
+        return self._flag(self.P + 1)
 
     @property
     def root_mask(self) -> Optional[torch.Tensor]:
@@ -185,29 +215,41 @@ TABLE_COLUMNS = 8  # P H B first_block row_off node_off arc_off stages
 ARC_ALIGN = 16  # bytes; bucket offsets into the records keep 16-byte copies aligned
 
 
+WIDE_WARPS = 8  # columns (one warp each) a block of the wide kernel takes at most
+
+
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """What one launch of a sweep kernel over a list of buckets needs beside
-    the buffers: the bucket table on the device and the grid's numbers."""
+    """What the launches of a sweep kernel over a list of buckets need beside
+    the buffers: the bucket tables on the device and the grids' numbers. The
+    narrow buckets (P <= NARROW_P) go in one launch, the wide ones in a
+    second, each over its own table; both tables index the same flat
+    buffers."""
 
-    table: torch.Tensor  # int64 [nr_buckets, TABLE_COLUMNS]
+    table: torch.Tensor  # int64 [nr_buckets, TABLE_COLUMNS]: the narrow buckets
     nr_buckets: int
     nr_blocks: int
     tile: int
-    pmax: int
+    pmax: int  # widest narrow bucket
     smem_bytes: int
-    shapes: Tuple[Tuple[int, int, int], ...]  # (P, H, B) per bucket
+    shapes: Tuple[Tuple[int, int, int], ...]  # (P, H, B) per bucket, narrow and wide
     arc_offsets: Tuple[int, ...]  # bytes into the records, per bucket
     E: int  # sum H * B
     N: int  # sum H * P * B
     arc_bytes: int
+    wide_table: torch.Tensor  # int64 [nr_wide, TABLE_COLUMNS]: the wide buckets
+    nr_wide: int
+    wide_blocks: int
+    wide_warps: int  # columns a block: one warp each
+    wide_pmax: int  # widest bucket: values a row of a warp's shared memory
+    wide_smem_bytes: int
 
 
 def cell_bytes(P: int, itemsize: int) -> int:
-    """Shared memory of one column in one ring slot: the record, padding up
-    to a value, LAYER_ROWS + P values; rounded to its alignment and then to
-    an odd count of 4- or 8-byte units (distinct banks across a warp). The
-    kernel computes the same number (``Cell<T, P>::W``)."""
+    """Shared memory of one column of a narrow bucket in one ring slot: the
+    record, padding up to a value, LAYER_ROWS + P values; rounded to its
+    alignment and then to an odd count of 4- or 8-byte units (distinct banks
+    across a warp). The kernel computes the same number (``Cell<T, P>::W``)."""
     G = record_bytes(P)
     values = -(-G // itemsize) * itemsize
     align = 16 if G >= 16 else (8 if G == 8 or itemsize == 8 else 4)
@@ -216,8 +258,16 @@ def cell_bytes(P: int, itemsize: int) -> int:
 
 
 def slot_bytes(P: int, itemsize: int, tile: int) -> int:
-    """Shared memory of one ring slot (one hop of a tile)."""
+    """Shared memory of one ring slot (one hop of a tile) of a narrow bucket."""
     return tile * cell_bytes(P, itemsize)
+
+
+def wide_column_bytes(P: int, itemsize: int) -> int:
+    """Shared memory of one column (one warp) of the wide kernel: the
+    frontier row and the row being built, P values each. No prefetch ring:
+    at these widths a ring of hops would not fit, and a warp's lanes keep
+    P / 32 independent loads in flight each."""
+    return 2 * P * itemsize
 
 
 def _offsets(shapes):
@@ -235,22 +285,37 @@ def _offsets(shapes):
 
 @functools.lru_cache(maxsize=256)
 def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int]) -> LaunchPlan:
-    cols = sum(B for _, _, B in shapes)
+    narrow = [k for k, (P, _, _) in enumerate(shapes) if P <= NARROW_P]
+    wide = [k for k, (P, _, _) in enumerate(shapes) if P > NARROW_P]
+    cols = sum(shapes[k][2] for k in narrow)
     tile = TILE_SMALL if cols <= TILE_SWITCH else TILE_LARGE
     want = stages or min(MAX_STAGES, max(MIN_STAGES, -(-STAGE_COLUMNS // max(cols, 1))))
     rows, nodes, arcs, E, N, arc_bytes = _offsets(shapes)
-    table = np.zeros((len(shapes), TABLE_COLUMNS), dtype=np.int64)
+    table = np.zeros((len(narrow), TABLE_COLUMNS), dtype=np.int64)
     block = smem = 0
-    for k, (P, H, B) in enumerate(shapes):
+    for r, k in enumerate(narrow):
+        P, H, B = shapes[k]
         per_slot = slot_bytes(P, itemsize, tile)
         S = max(1, min(want, SMEM_BUDGET // per_slot - 1))  # S + 1 slots in the ring
         smem = max(smem, (S + 1) * per_slot)
-        table[k] = (P, H, B, block, rows[k], nodes[k], arcs[k], S)
+        table[r] = (P, H, B, block, rows[k], nodes[k], arcs[k], S)
         block += -(-B // tile) if H > 0 else 0
+    wide_pmax = max((shapes[k][0] for k in wide), default=0)
+    per_column = wide_column_bytes(wide_pmax, itemsize)
+    warps = max(1, min(WIDE_WARPS, SMEM_BUDGET // max(per_column, 1)))
+    wide_table = np.zeros((len(wide), TABLE_COLUMNS), dtype=np.int64)
+    wide_block = 0
+    for r, k in enumerate(wide):
+        P, H, B = shapes[k]
+        wide_table[r] = (P, H, B, wide_block, rows[k], nodes[k], arcs[k], 0)
+        wide_block += -(-B // warps) if H > 0 else 0
     return LaunchPlan(
-        table=torch.from_numpy(table).to(device), nr_buckets=len(shapes), nr_blocks=block,
-        tile=tile, pmax=max((P for P, _, _ in shapes), default=1), smem_bytes=smem,
+        table=torch.from_numpy(table).to(device), nr_buckets=len(narrow), nr_blocks=block,
+        tile=tile, pmax=max((shapes[k][0] for k in narrow), default=1), smem_bytes=smem,
         shapes=shapes, arc_offsets=arcs, E=E, N=N, arc_bytes=arc_bytes,
+        wide_table=torch.from_numpy(wide_table).to(device), nr_wide=len(wide),
+        wide_blocks=wide_block, wide_warps=warps, wide_pmax=wide_pmax,
+        wide_smem_bytes=warps * per_column,
     )
 
 
@@ -273,7 +338,7 @@ class UniformGeom:
     device: torch.device
     arcs: torch.Tensor  # uint8 [plan.arc_bytes]: every bucket's records
     alpha: torch.Tensor  # float [E]
-    plan: LaunchPlan  # one launch over all buckets
+    plan: LaunchPlan  # the launches over all buckets
 
     @property
     def V(self) -> int:
@@ -623,6 +688,128 @@ def from_native_host(nh, dtype=torch.float32, device="cuda", pack=None) -> Unifo
         buckets = _pack_buckets(buckets, nh.nr_vars())
     V = nh.nr_vars()
     return _build_host(buckets, counts, V, V, nh.nr_bdds(), dtype, device)
+
+
+def _pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+MERGE_WORK = 8192  # buckets below this H*B work merge into the next depth
+
+
+def _merge_small_buckets(groups: Dict[Tuple[int, int], List]) -> Dict[Tuple[int, int], List]:
+    """Coalesce small same-width depth groups upward: any group with
+    H * members < MERGE_WORK joins the next deeper bucket of the same slot
+    width (uniform.py:57-74 of the JAX package; mirrors merge_small_buckets
+    of the host library)."""
+    out: Dict[Tuple[int, int], List] = {}
+    for P in sorted({k[0] for k in groups}):
+        hs = sorted(h for (p, h) in groups if p == P)
+        carry: List = []
+        for i, h in enumerate(hs):
+            mem = carry + groups[(P, h)]
+            if i + 1 < len(hs) and len(mem) * h < MERGE_WORK:
+                carry = mem
+            else:
+                out[(P, h)] = mem
+                carry = []
+    return out
+
+
+def flatten_uniform(collection, nr_vars: int, nr_primal_vars: Optional[int] = None,
+                    dtype=torch.float32, device="cuda", pack=None,
+                    lane_pad: int = 128) -> UniformHost:
+    """Bucketed uniform layout of a QBDD ``BddCollection``: the Python
+    pipeline's way to the layout that :func:`from_native_host` builds from the
+    host library (uniform.py:699-839 of the JAX package, bucket for bucket:
+    a bucket is keyed by the width rounded up to a power of two and the depth
+    rounded to eighths of one). ``pack`` defaults to column packing for
+    float32 only. ``lane_pad`` pads B as the JAX package does, so both build
+    the same arrays."""
+    from bdd_tpu_torch.bdd.collection import BOT, TOP
+
+    if nr_primal_vars is None:
+        nr_primal_vars = nr_vars
+    info = []  # (bucket_key, bdd_nr, levels, vars, slots, depth)
+    for b in range(collection.nr_bdds()):
+        levels = collection.node_levels(b)
+        depth = max(levels) + 1
+        lvars = collection.level_variables(b)
+        # slot assignment: nodes of (b, h) numbered in node order, root slot 0
+        per_level: Dict[int, int] = {}
+        slots = []
+        for lvl in levels:
+            s = per_level.get(lvl, 0)
+            slots.append(s)
+            per_level[lvl] = s + 1
+        step = max(1, _pow2(depth) // 8)
+        key = (_pow2(max(per_level.values())), _pad_to(depth, step))
+        info.append((key, b, levels, lvars, slots, depth))
+    members_of: Dict[Tuple[int, int], List] = {}
+    for item in info:
+        members_of.setdefault(item[0], []).append(item)
+    members_of = _merge_small_buckets(members_of)
+
+    counts = np.zeros(nr_vars, dtype=np.int32)
+    for (_, _, _, lvars, _, _) in info:
+        for v in lvars:
+            counts[v] += 1
+    counts_safe = np.maximum(counts, 1)
+
+    buckets: List[dict] = []
+    for key in sorted(members_of):
+        members = members_of[key]
+        P, H = key
+        arc_bytes(P)  # a width no record holds is refused before the arrays are made
+        nB = len(members)
+        B = _pad_to(nB, lane_pad if nB >= lane_pad else 8)
+        bk = dict(
+            node_valid=np.zeros((H, P, B), dtype=bool),
+            lo_kind=np.full((H, P, B), ARC_BOT, dtype=np.int32),
+            lo_slot=np.zeros((H, P, B), dtype=np.int32),
+            hi_kind=np.full((H, P, B), ARC_BOT, dtype=np.int32),
+            hi_slot=np.zeros((H, P, B), dtype=np.int32),
+            layer_valid=np.zeros((H, B), dtype=bool),
+            layer_var=np.full((H, B), nr_vars, dtype=np.int32),
+            layer_bdd=np.full((H, B), -1, dtype=np.int64),
+            root_mask=None,
+            bdd_of_col=np.full(B, -1, dtype=np.int64),
+            depths=np.zeros(B, dtype=np.int32),
+        )
+        for col, (_, b, levels, lvars, slots, depth) in enumerate(members):
+            bk["bdd_of_col"][col] = b
+            bk["depths"][col] = depth
+            s0, _ = collection.node_range(b)
+            bk["layer_valid"][:depth, col] = True
+            bk["layer_var"][:depth, col] = lvars[:depth]
+            bk["layer_bdd"][:depth, col] = b
+            for i_local, (lvl, slot) in enumerate(zip(levels, slots)):
+                bk["node_valid"][lvl, slot, col] = True
+                n_abs = s0 + i_local
+                for child, kind_arr, slot_arr in (
+                    (collection.lo[n_abs], bk["lo_kind"], bk["lo_slot"]),
+                    (collection.hi[n_abs], bk["hi_kind"], bk["hi_slot"]),
+                ):
+                    if child == TOP:
+                        kind_arr[lvl, slot, col] = ARC_TOP
+                    elif child == BOT:
+                        kind_arr[lvl, slot, col] = ARC_BOT
+                    else:
+                        kind_arr[lvl, slot, col] = ARC_INTERNAL
+                        slot_arr[lvl, slot, col] = slots[child - s0]
+        m = bk["layer_valid"]
+        bk["alpha"] = np.zeros((H, B))
+        bk["alpha"][m] = 1.0 / counts_safe[bk["layer_var"][m]]
+        buckets.append(bk)
+    if pack is None:
+        pack = dtype == torch.float32
+    if pack and buckets:
+        buckets = _pack_buckets(buckets, nr_vars)
+    return _build_host(buckets, counts, nr_vars, nr_primal_vars, collection.nr_bdds(),
+                       dtype, device)
 
 
 def pack_uniform_host(host: UniformHost) -> UniformHost:

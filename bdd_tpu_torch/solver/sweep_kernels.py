@@ -1,24 +1,29 @@
 """CUDA sweep kernels of the uniform backend (counterpart of
 bdd_tpu/solver/pallas_uniform.py).
 
-Two levels of wrapper over the two kernels of ``csrc/uniform_sweep.cu``
-(``uniform_forward``, ``uniform_backward``; see the design note there):
+Two levels of wrapper over the kernels of ``csrc/uniform_sweep.cu``
+(``uniform_forward``, ``uniform_backward``, each with a body for buckets of
+up to 32 slots and one for wider buckets; see the design notes there):
 
 * ``forward_iteration_cuda`` / ``backward_iteration_cuda`` take a whole
-  ``UniformGeom`` and flat tensors and run the half-sweep of every bucket in
-  ONE launch. The iteration uses these. Shapes and types were fixed when the
-  layout was built, so a call checks only what it is handed, allocates the
-  four outputs and makes one ctypes call.
+  ``UniformGeom`` and flat tensors and run the half-sweep of every bucket: ONE
+  launch over the narrow buckets and a second one over the wide buckets, where
+  the layout has any. The iteration uses these. Shapes and types were fixed
+  when the layout was built, so a call checks only what it is handed,
+  allocates the four outputs and makes one ctypes call per launch.
 * ``bucket_forward_iteration_cuda`` / ``bucket_backward_iteration_cuda`` keep
   the signature of the Pallas wrappers: one bucket, [H, B] tensors, optional
   per-layer ``alpha`` and ``omega``. They launch the same kernels over a table
   of one bucket, with every argument validated.
 
 On CUDA tensors a wrapper launches its kernel or raises. On CPU tensors it
-runs the plain torch twins of ``uniform.py``. Every instantiated P runs the
-kernel, for any H and in float32 and float64; there is no fallback.
+runs the plain torch twins of ``uniform.py``. Every width up to
+``layout.MAX_P`` runs a kernel, for any H and in float32 and float64; there
+is no fallback.
 
-``LAUNCHES`` counts kernel launches per kernel; the twins never count.
+``LAUNCHES`` counts kernel launches per kernel, the wide buckets' included;
+``WIDE_LAUNCHES`` says how many of them were the wide body's. The twins never
+count here (``uniform.TWIN_SWEEP_CALLS`` counts them).
 """
 from __future__ import annotations
 
@@ -28,16 +33,25 @@ import torch
 
 from bdd_tpu_torch import _build
 from bdd_tpu_torch.solver import uniform as uf
-from bdd_tpu_torch.solver.layout import BucketGeom, LaunchPlan, UniformGeom, launch_plan
+from bdd_tpu_torch.solver.layout import (
+    MAX_P,
+    NARROW_P,
+    BucketGeom,
+    LaunchPlan,
+    UniformGeom,
+    launch_plan,
+)
 
-SUPPORTED_P = (1, 2, 4, 8, 16, 32)
+SUPPORTED_P = (1, 2, 4, 8, 16, 32)  # the narrow body's instantiations
 LAUNCHES = {"uniform_forward": 0, "uniform_backward": 0}
+WIDE_LAUNCHES = {"uniform_forward": 0, "uniform_backward": 0}  # of LAUNCHES, the wide ones
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, WIDE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _suffix(dtype: torch.dtype) -> str:
@@ -45,6 +59,17 @@ def _suffix(dtype: torch.dtype) -> str:
         return _SUFFIX[dtype]
     except KeyError:
         raise TypeError(f"sweep kernels take float32 or float64, got {dtype}") from None
+
+
+def _check_widths(shapes) -> None:
+    """Narrow buckets need an instantiation of their width; the wide body takes
+    any width that a launch plan holds (``layout.arc_bytes`` refuses more)."""
+    for P, H, B in shapes:
+        if P <= NARROW_P and P not in SUPPORTED_P:
+            raise ValueError(
+                f"no sweep kernel for bucket shape (P={P}, H={H}, B={B}); instantiated P: "
+                f"{SUPPORTED_P}, and any P from {NARROW_P + 1} to {MAX_P} in the wide body"
+            )
 
 
 def _check_all(named, shapes) -> None:
@@ -60,33 +85,53 @@ def _check_all(named, shapes) -> None:
 
 def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha, omega,
               frontier, outs):
-    """A closure that queues ``kernel`` on the current stream and raises on a
-    launch error. It holds its tensors alive and does not count."""
+    """A closure that queues ``kernel`` on the current stream (the narrow
+    buckets' launch, then the wide buckets', each where the plan has blocks
+    for it) and raises on a launch error. It holds its tensors alive and does
+    not count; ``launch.narrow`` / ``launch.wide`` say how many launches (0 or
+    1 each) a call makes."""
     suffix = _suffix(lo.dtype)
     if isinstance(omega, torch.Tensor) and omega.dim() > 0:
         omega_arr, omega_val = omega, 0.0
     else:
         omega_arr, omega_val = None, float(omega)
-    fn = getattr(_build.load(), f"{kernel}_{suffix}")
-    args = (
-        plan.table.data_ptr(), plan.nr_buckets, plan.nr_blocks, plan.tile, plan.pmax,
-        plan.smem_bytes, arcs.data_ptr(), lo.data_ptr(), hi.data_ptr(), din_lo.data_ptr(),
+    lib = _build.load()
+    buffers = (
+        arcs.data_ptr(), lo.data_ptr(), hi.data_ptr(), din_lo.data_ptr(),
         din_hi.data_ptr(), alpha.data_ptr(),
         None if omega_arr is None else omega_arr.data_ptr(), omega_val,
         frontier.data_ptr(), *(o.data_ptr() for o in outs),
         torch.cuda.current_stream(lo.device).cuda_stream,
     )
+    calls = []
+    if plan.nr_blocks:
+        calls.append((f"{kernel}_{suffix}", (
+            plan.table.data_ptr(), plan.nr_buckets, plan.nr_blocks, plan.tile, plan.pmax,
+            plan.smem_bytes, *buffers)))
+    if plan.wide_blocks:
+        calls.append((f"{kernel}_wide_{suffix}", (
+            plan.wide_table.data_ptr(), plan.nr_wide, plan.wide_blocks, plan.wide_warps,
+            plan.wide_pmax, plan.wide_smem_bytes, *buffers)))
+    calls = [(name, getattr(lib, name), args) for name, args in calls]
     keep = (plan, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, frontier, outs)
 
     def launch() -> None:
-        rc = fn(*args)
-        if rc != 0:
-            raise RuntimeError(
-                f"{kernel}_{suffix} launch failed (code {rc}) over buckets {plan.shapes}"
-            )
+        for name, fn, args in calls:
+            rc = fn(*args)
+            if rc != 0:
+                raise RuntimeError(
+                    f"{name} launch failed (code {rc}) over buckets {plan.shapes}"
+                )
 
     launch.keep = keep
+    launch.narrow = int(bool(plan.nr_blocks))
+    launch.wide = int(bool(plan.wide_blocks))
     return launch
+
+
+def _count(kernel: str, launch) -> None:
+    LAUNCHES[kernel] += launch.narrow + launch.wide
+    WIDE_LAUNCHES[kernel] += launch.wide
 
 
 def _fresh_outputs(lo, frontier):
@@ -102,9 +147,7 @@ def prepare_fused_launch(kernel: str, geom: UniformGeom, lo, hi, frontier, omega
     does not count (timing and comparisons call it directly). ``plan``
     replaces ``geom.plan`` (another prefetch depth over the same buckets)."""
     plan = plan or geom.plan
-    if plan.pmax not in SUPPORTED_P or any(P not in SUPPORTED_P for P, _, _ in plan.shapes):
-        raise ValueError(f"no sweep kernel for bucket shapes {plan.shapes}; "
-                         f"instantiated P: {SUPPORTED_P}")
+    _check_widths(plan.shapes)
     E, N = plan.E, plan.N
     if isinstance(omega, torch.Tensor) and omega.dim() > 0:
         omega = omega.to(lo.dtype).expand(E).contiguous()
@@ -126,7 +169,7 @@ def _fused(kernel: str, twin, geom: UniformGeom, lo, hi, frontier, omega, din_lo
         return uf.sweep_per_bucket(twin, geom, lo, hi, frontier, omega, din_lo, din_hi)
     launch, outs = prepare_fused_launch(kernel, geom, lo, hi, frontier, omega, din_lo, din_hi)
     launch()
-    LAUNCHES[kernel] += 1
+    _count(kernel, launch)
     return outs
 
 
@@ -153,11 +196,7 @@ def prepare_launch(kernel: str, g: BucketGeom, lo, hi, frontier, omega, din_lo, 
     if lo.device.type != "cuda":
         raise ValueError(f"{kernel}: tensors on {lo.device}; the kernel needs CUDA")
     H, P, B = g.H, g.P, g.B
-    if P not in SUPPORTED_P:
-        raise ValueError(
-            f"no sweep kernel for bucket shape (P={P}, H={H}, B={B}); "
-            f"instantiated P: {SUPPORTED_P}"
-        )
+    _check_widths([(P, H, B)])
     _suffix(lo.dtype)
     din_lo, din_hi = din_lo.to(lo.dtype), din_hi.to(lo.dtype)
     alpha = g.alpha if alpha is None else alpha
@@ -180,7 +219,7 @@ def prepare_launch(kernel: str, g: BucketGeom, lo, hi, frontier, omega, din_lo, 
 def _launch(kernel: str, g: BucketGeom, lo, hi, frontier, omega, din_lo, din_hi, alpha):
     launch, outs = prepare_launch(kernel, g, lo, hi, frontier, omega, din_lo, din_hi, alpha)
     launch()
-    LAUNCHES[kernel] += 1
+    _count(kernel, launch)
     return outs
 
 

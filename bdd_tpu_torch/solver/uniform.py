@@ -30,6 +30,7 @@ from bdd_tpu_torch.solver.layout import (
     ARC_BOT,
     ARC_INTERNAL,
     ARC_TOP,
+    NARROW_P,
     BucketGeom,
     UniformGeom,
     UniformHost,
@@ -54,16 +55,28 @@ def _restart_cfr(cfr: torch.Tensor, root_row: torch.Tensor, P: int) -> torch.Ten
 
 def _child_cft(kind: torch.Tensor, slot: torch.Tensor, cft_next: torch.Tensor, P: int) -> torch.Tensor:
     """cft of the child along one arc type, [..., P, B]: a one-hot gather over
-    the slot axis (slot values < P), TOP -> 0, BOT -> INF."""
-    iota = torch.arange(P, dtype=slot.dtype, device=slot.device).view(P, 1, 1)
-    onehot = slot.unsqueeze(-3) == iota  # [..., P(k), P(p), B]
-    gathered = torch.where(onehot, cft_next.unsqueeze(-2), 0.0).sum(-3)
+    the slot axis (0 for a slot >= P), TOP -> 0, BOT -> INF. Wide buckets
+    gather by index instead (the same values; the one-hot is quadratic in P)."""
+    if P > NARROW_P:
+        idx = slot.long()
+        gathered = torch.gather(cft_next, -2, idx.clamp_max(P - 1))
+        gathered = torch.where(idx < P, gathered, 0.0)
+    else:
+        iota = torch.arange(P, dtype=slot.dtype, device=slot.device).view(P, 1, 1)
+        onehot = slot.unsqueeze(-3) == iota  # [..., P(k), P(p), B]
+        gathered = torch.where(onehot, cft_next.unsqueeze(-2), 0.0).sum(-3)
     return torch.where(kind == ARC_TOP, 0.0, torch.where(kind == ARC_BOT, INF, gathered))
 
 
 def _relax_next(vals, kind, slot, valid, P: int) -> torch.Tensor:
     """Frontier relaxation: next_cfr[k, b] = min over source slots p with an
-    internal arc into k (scatter-min as a masked min-reduction)."""
+    internal arc into k (scatter-min as a masked min-reduction; wide
+    buckets scatter by index, the same minimum without the [P, P, B] mask)."""
+    if P > NARROW_P:
+        idx = slot.long()
+        src = torch.where((kind == ARC_INTERNAL) & valid & (idx < P), vals, INF)
+        out = torch.full_like(vals, INF)
+        return out.scatter_reduce_(0, idx.clamp_max(P - 1), src, "amin", include_self=True)
     iota = torch.arange(P, dtype=slot.dtype, device=slot.device).view(P, 1, 1)
     mask = (slot[None] == iota) & (kind[None] == ARC_INTERNAL) & valid[None]
     return torch.where(mask, vals[None], INF).amin(dim=1)  # [P(k), B]
@@ -156,11 +169,17 @@ def bucket_min_marginals(
     return lo_path.amin(dim=1), hi_path.amin(dim=1)
 
 
+# calls of the twin half-sweeps, per direction: what shows that a solve on
+# the card went through the kernels and not through these
+TWIN_SWEEP_CALLS = {"forward": 0, "backward": 0}
+
+
 def bucket_forward_iteration(g: BucketGeom, lo, hi, cft, omega, din_lo, din_hi, alpha=None):
     """One forward half-sweep of a bucket (uniform.py:1281-1332): the plain
     version of the ``uniform_forward`` CUDA kernel. din_*: [H, B] gathered
     deltas; ``alpha``/``omega``: scalars or [H, B]; alpha defaults to the
     isotropic 1/#bdds-per-var weights. Returns (lo, hi, def_mm, cfr)."""
+    TWIN_SWEEP_CALLS["forward"] += 1
     alpha = _layer_param(g.alpha if alpha is None else alpha, lo)
     omega = _layer_param(omega, lo)
     din_lo = din_lo.to(lo.dtype)
@@ -196,6 +215,7 @@ def bucket_backward_iteration(g: BucketGeom, lo, hi, cfr, omega, din_lo, din_hi,
     """One backward half-sweep of a bucket (uniform.py:1335-1373): the plain
     version of the ``uniform_backward`` CUDA kernel. Reads the forward cfr;
     returns (lo, hi, def_mm, cft)."""
+    TWIN_SWEEP_CALLS["backward"] += 1
     alpha = _layer_param(g.alpha if alpha is None else alpha, lo)
     omega = _layer_param(omega, lo)
     din_lo = din_lo.to(lo.dtype)

@@ -7,13 +7,13 @@ lower_bound / min_marginals / distribute_delta / update_costs and ``.f``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from bdd_tpu_torch.solver import uniform as uf
-from bdd_tpu_torch.solver.layout import UniformHost
+from bdd_tpu_torch.solver.layout import UniformHost, flatten_uniform, state_from_buckets
 
 
 class UniformLayerView:
@@ -47,6 +47,16 @@ class UniformSolver:
         self.omega = omega
         self.f = UniformLayerView(host)
 
+    @classmethod
+    def from_collection(cls, collection, nr_vars: int, objective,
+                        nr_primal_vars: Optional[int] = None, dtype=torch.float32,
+                        device="cuda", omega: float = 0.5) -> "UniformSolver":
+        """The Python pipeline's constructor: flatten a ``BddCollection`` into
+        the bucketed layout on ``device`` (the JAX package's
+        ``UniformSolver(collection, ...)``)."""
+        host = flatten_uniform(collection, nr_vars, nr_primal_vars, dtype=dtype, device=device)
+        return cls(host, objective, omega)
+
     # ------------------------------------------------------------------- dual
     def iteration(self) -> None:
         self.state = uf.iteration(self.geom, self.state, self.omega)
@@ -60,6 +70,17 @@ class UniformSolver:
     def lower_bound_with_deferred(self) -> float:
         return float(uf.lower_bound_with_deferred(self.geom, self.state))
 
+    def lower_bound_per_bdd(self) -> np.ndarray:
+        """float64 [nr_bdds]: each BDD's root cost (uniform_wrapper.py:115)."""
+        out = np.zeros(self.host.nr_bdds)
+        for g, cft, lbdd in zip(self.geom.buckets, self.state.cft, self.host.layer_bdd):
+            roots = g.roots.cpu().numpy()
+            vals = cft[:, 0, :].cpu().numpy()
+            bdds = np.asarray(lbdd)
+            m = roots & (bdds >= 0)
+            out[bdds[m]] = vals[m]
+        return out
+
     # -------------------------------------------------------------- marginals
     def min_marginals(self) -> Tuple[np.ndarray, np.ndarray]:
         """Concatenated per-bucket [H*B] min marginals (UniformLayerView
@@ -72,6 +93,25 @@ class UniformSolver:
     # ------------------------------------------------------------------ costs
     def distribute_delta(self) -> None:
         self.state = uf.distribute_delta(self.geom, self.state)
+
+    def update_layer_costs(self, lo_delta, hi_delta) -> None:
+        """Per-layer cost deltas in ``UniformLayerView`` (concatenated [H*B])
+        indexing, with a fresh backward run (uniform_wrapper.py:140-185)."""
+        geom = self.geom
+
+        def flat(x):
+            return torch.as_tensor(np.asarray(x, np.float64), device=self.device).to(self.dtype)
+
+        lo_l, hi_l, cft_l = [], [], []
+        for g, lo, hi, dl, dh in zip(geom.buckets, self.state.lo, self.state.hi,
+                                     geom.per_bucket(flat(lo_delta)),
+                                     geom.per_bucket(flat(hi_delta))):
+            nl = torch.where(g.layer_valid, lo + dl, 0.0)
+            nh = torch.where(g.layer_valid, hi + dh, 0.0)
+            lo_l.append(nl)
+            hi_l.append(nh)
+            cft_l.append(uf.bucket_backward_run(g, nl, nh))
+        self.state = state_from_buckets(geom, lo_l, hi_l, self.state.def_mm, cft_l)
 
     def update_costs(self, lo_per_var, hi_per_var) -> None:
         def per_var(x):

@@ -21,7 +21,15 @@ from collections import defaultdict
 from typing import Optional
 
 _log_file = None
+_console = None  # None: sys.stdout as it is when a line is written
 _verbosity = 1
+
+
+def set_console(stream) -> None:
+    """Send the console half of the log to ``stream`` (None: sys.stdout). The
+    server does so with sys.stderr: its stdout carries only results."""
+    global _console
+    _console = stream
 
 
 def set_log_file(path: Optional[str]) -> None:
@@ -40,7 +48,7 @@ def set_verbosity(level: int) -> None:
 
 def bdd_log(msg: str, level: int = 1) -> None:
     if _verbosity >= level:
-        sys.stdout.write(msg + "\n")
+        (_console or sys.stdout).write(msg + "\n")
     # the file sink deliberately records EVERYTHING (a silenced console run
     # still leaves a complete trace), matching the reference's joint
     # console+file bdd_log stream (include/bdd_logging.h:8-33)

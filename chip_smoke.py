@@ -28,7 +28,26 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   5. times on the card: iterations/s through the kernels, through the twins,
      and of the native C++ baseline; a torch.profiler trace of one iteration
      block per precision: device busy share, and the number of host syncs
-     between the block's first and last launch, which must be 0.
+     between the block's first and last launch, which must be 0;
+  6. wide buckets: 2,000 knapsack rows of 40 variables over 20,000 variables
+     (coefficients 1..20, right-hand side half the row sum), whose BDDs are
+     wider than 32 slots and run through the warp-a-column body of the
+     kernels (a launch of its own per half-sweep): kernel vs twin on every
+     bucket and fused, float32 and float64, times beside the byte bound, and
+     a 200-iteration dual solve per precision held to the native C++ solver,
+     with the launches counted and the twins' call counter unmoved;
+  7. Python pipeline (BddPreprocessor -> flatten_uniform) on grid12: float64
+     bound against the native pipeline's (rel 1e-7), default float32 with the
+     host rounding, and one solve each with BDD splitting, wedelin and best;
+  8. batched solve: ``solve_batch`` over 64 and 256 independent-set
+     instances, 100 iterations, rounding off and on; per-instance bounds
+     against the instances solved alone, every solution checked against its
+     own ILP, one launch per kernel and iteration;
+  9. server: ``bdd_tpu_torch.serve.serve`` in process over JSONL lines (two
+     grid12 requests, a gm50k file whose bound must equal phase 3's to the
+     last bit, a batch request, a line that is no JSON, a missing file,
+     shutdown), and the same server as a fresh process for its cold and warm
+     request times.
 
 Imports nothing of JAX and nothing of bdd_tpu (checked at the end): the port
 carries its own host library, ILP model, frontends and generators.
@@ -48,6 +67,9 @@ LB_REL = {"float": 1e-3, "double": 1e-7}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 L2_FLUSH_BYTES = 256 << 20  # several times the 50 MB L2
 KERNELS = ("uniform_forward", "uniform_backward")
+WIDE = "_wide"  # suffix of the wide-bucket body's entries in errs, times and the kernels line
+KNAPSACK_ITERS = 200
+BATCH_ITERS = 100
 SYNC_EVENTS = ("aten::_local_scalar_dense", "aten::item", "cudaStreamSynchronize",
                "cudaDeviceSynchronize", "cudaEventSynchronize")
 
@@ -140,9 +162,10 @@ def share(bound_ms: float, ms: float) -> str:
     return f"{100 * bound_ms / ms:.1f}% of bound"
 
 
-def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=()):
+def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=(), suffix=""):
     """Phase 2 for one host: every bucket alone, then all buckets fused;
-    ``depths``: prefetch depths to time the fused launches at as well."""
+    ``depths``: prefetch depths to time the fused launches at as well;
+    ``suffix``: WIDE when every bucket of the host runs the wide body."""
     import torch
     from bdd_tpu_torch.solver import layout
     from bdd_tpu_torch.solver import sweep_kernels as sk
@@ -164,12 +187,14 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=()):
         out = sk.bucket_forward_iteration_cuda(*args)
         ref = uf.bucket_forward_iteration(*args)
         torch.cuda.synchronize()
-        errs["uniform_forward"] = max(errs["uniform_forward"], compare(out, ref, TOL[dt]))
+        errs["uniform_forward" + suffix] = max(errs["uniform_forward" + suffix],
+                                               compare(out, ref, TOL[dt]))
         bargs = (g, ref[0], ref[1], ref[3], 0.5, dl[k], dh[k])
         out_b = sk.bucket_backward_iteration_cuda(*bargs)
         ref_b = uf.bucket_backward_iteration(*bargs)
         torch.cuda.synchronize()
-        errs["uniform_backward"] = max(errs["uniform_backward"], compare(out_b, ref_b, TOL[dt]))
+        errs["uniform_backward" + suffix] = max(errs["uniform_backward" + suffix],
+                                                compare(out_b, ref_b, TOL[dt]))
         refs_f.append(ref)
         refs_b.append(ref_b)
         # device time of the kernel alone (pre-validated launches) vs the twin
@@ -211,9 +236,10 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=()):
         before = dict(sk.LAUNCHES)
         out = wrapper(*args)
         torch.cuda.synchronize()
-        errs[name] = max(errs[name], compare(out, ref, TOL[dt]))
+        errs[name + suffix] = max(errs[name + suffix], compare(out, ref, TOL[dt]))
         rose = {k: sk.LAUNCHES[k] - before[k] for k in KERNELS}
-        if rose != {k: int(k == name) for k in KERNELS}:
+        per_call = int(geom.plan.nr_blocks > 0) + int(geom.plan.wide_blocks > 0)
+        if rose != {k: per_call * int(k == name) for k in KERNELS}:
             fail(f"{label} {dt}: one fused {name} call counted launches {rose}")
     # the timing loops launch directly: checked once, no allocation, no count
     launch_f, _ = sk.prepare_fused_launch("uniform_forward", *args_f)
@@ -228,9 +254,11 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=()):
         e.update(ms=cuda_ms(launch, 200), cold_ms=cuda_ms(launch, 20, flush), bytes=nbytes,
                  bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
         print(
-            f"[fused] {label} {dt} {name}: one launch over {plan.nr_buckets} bucket(s), "
+            f"[fused] {label} {dt} {name}: one launch over {plan.nr_buckets} narrow bucket(s), "
             f"{plan.nr_blocks} blocks of {plan.tile}, stages "
-            f"{[int(s) for s in plan.table[:, 7].tolist()]}, {plan.smem_bytes} B shared: match; "
+            f"{[int(s) for s in plan.table[:, 7].tolist()]}, {plan.smem_bytes} B shared; one "
+            f"over {plan.nr_wide} wide bucket(s), {plan.wide_blocks} blocks of "
+            f"{plan.wide_warps} warps, {plan.wide_smem_bytes} B shared: match; "
             f"warm {e['ms']:.4f} ms ({share(e['bound_ms'], e['ms'])}), "
             f"cold {e['cold_ms']:.4f} ms ({share(e['bound_ms'], e['cold_ms'])}), "
             f"bound {e['bound_ms']:.4f} ms = {nbytes} B at 3.35 TB/s; per-bucket launches "
@@ -325,6 +353,287 @@ def profile_block(label, host, objective, card, n=25):
     return sum(syncs.values())
 
 
+def knapsack_lp(seed: int = 0, nr_vars: int = 20_000, nr_rows: int = 2_000,
+                row_len: int = 40) -> str:
+    """Covering knapsack rows with mixed integer coefficients: each row takes
+    ``row_len`` variables with coefficients in 1..20 and asks for at least
+    half of the row sum; positive costs. The rows are cut from random
+    permutations of the variables, so every variable lies in the same number
+    of rows and none is left to a one-node BDD. A row's BDD is some 200 nodes
+    wide, far past the 32 slots of the narrow arc record."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    if nr_vars % row_len or (nr_rows * row_len) % nr_vars:
+        raise ValueError("rows must tile whole permutations of the variables")
+    cost = rng.randint(1, 100, size=nr_vars)
+    lines = ["Minimize", " + ".join(f"{c} x{i}" for i, c in enumerate(cost)), "Subject To"]
+    members = np.concatenate([rng.permutation(nr_vars)
+                              for _ in range(nr_rows * row_len // nr_vars)])
+    for r, var in enumerate(members.reshape(nr_rows, row_len)):
+        coef = rng.randint(1, 21, size=row_len)
+        lines.append(f"r{r}: " + " + ".join(f"{a} x{v}" for a, v in zip(coef, var))
+                     + f" >= {int(coef.sum()) // 2}")
+    lines.append("End")
+    return "\n".join(lines)
+
+
+DUAL_ONLY = {"perturbation rounding": False}
+
+
+def fixed_iterations(n: int) -> dict:
+    return {"termination criteria": {"maximum iterations": n, "minimum improvement": 0.0,
+                                     "improvement slope": 0.0}}
+
+
+def checked_solution(ilp, res, what: str):
+    """The solution of a result dict as a list, checked against its own ILP:
+    feasible, objective as reported and not below the bound."""
+    if res.get("status") != "solved" or "solution" not in res:
+        fail(f"{what}: no solution in {str(res)[:200]}")
+    x = [res["solution"][ilp.get_var_name(i)] for i in range(ilp.nr_variables())]
+    if not ilp.feasible(x):
+        fail(f"{what}: the rounded solution is infeasible")
+    obj, lb = ilp.evaluate(x), res["lower_bound"]
+    if abs(obj - res["objective"]) > 1e-6 * max(1.0, abs(obj)) or obj < lb - 1e-5 * abs(lb) - 1e-6:
+        fail(f"{what}: objective {obj} vs reported {res['objective']}, lb {lb}")
+    return x
+
+
+def phase_wide(card, errs, times, flush):
+    """Phase 6: buckets wider than 32 slots through the kernels."""
+    import torch
+    from bdd_tpu_torch.api import BddSolver
+    from bdd_tpu_torch.native import NativeHost
+    from bdd_tpu_torch.solver import layout
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver import uniform as uf
+
+    t0 = time.perf_counter()
+    lp = knapsack_lp()
+    nh = NativeHost(lp, "input")
+    build_s = time.perf_counter() - t0
+    print(f"[wide] knapsack: {nh.nr_bdds()} BDDs, {nh.nr_vars()} variables, "
+          f"{nh.nr_buckets()} raw buckets, built by the host library in {build_s:.2f} s "
+          f"{card}", flush=True)
+    if build_s > 60:
+        fail(f"the host library took {build_s:.1f} s for the knapsack instance")
+    for dtype in (torch.float32, torch.float64):
+        host = layout.from_native_host(nh, dtype, "cuda")
+        widths = sorted({g.P for g in host.geom.buckets})
+        if not widths or widths[0] <= layout.NARROW_P:
+            fail(f"the knapsack instance has buckets of widths {widths}; expected only wide ones")
+        kernel_vs_twin("knapsack", host, nh.objective(), card, errs, times, flush, suffix=WIDE)
+        del host
+    cs = nh.cpu_solver()
+    t0 = time.perf_counter()
+    cs.iterations(KNAPSACK_ITERS, 0.5)
+    native_s = time.perf_counter() - t0
+    lb_native = cs.lower_bound_with_deferred()
+    launches = {}
+    for name, prec in (("float32", "float"), ("float64", "double")):
+        sk.reset_launch_counts()
+        twins_before = dict(uf.TWIN_SWEEP_CALLS)
+        cfg = {"precision": prec, **DUAL_ONLY, **fixed_iterations(KNAPSACK_ITERS)}
+        res = BddSolver(cfg, device="cuda").read_ilp(lp_string=lp).solve(verbose=False)
+        rel = abs(res["lower_bound"] - lb_native) / abs(lb_native)
+        all_l, wide_l = dict(sk.LAUNCHES), dict(sk.WIDE_LAUNCHES)
+        print(f"[wide] knapsack {name}: lb {res['lower_bound']!r} after {res['iterations']} "
+              f"iterations vs the native C++ solver {lb_native!r}: rel diff {rel:.3e} (limit "
+              f"{LB_REL[prec]}), solve {res['solve_time']} s (native {native_s:.2f} s); "
+              f"launches {all_l}, of them wide {wide_l}; twin sweeps called "
+              f"{ {k: uf.TWIN_SWEEP_CALLS[k] - twins_before[k] for k in twins_before} } {card}",
+              flush=True)
+        if res["status"] != "solved" or res["iterations"] != KNAPSACK_ITERS or not rel <= LB_REL[prec]:
+            fail(f"knapsack {name} bound off the native solver")
+        # the design: every bucket is wide, so a half-sweep is ONE launch, the
+        # wide table's; no narrow launch and no twin on the card
+        want = {k: KNAPSACK_ITERS for k in KERNELS}
+        if all_l != want or wide_l != want:
+            fail(f"knapsack {name}: launches {all_l}, wide {wide_l}; expected {want} each")
+        if uf.TWIN_SWEEP_CALLS != twins_before:
+            fail(f"knapsack {name}: a twin sweep ran during the solve on the card")
+        launches[name] = wide_l
+    return launches["float32"]
+
+
+def phase_python_pipeline(card):
+    """Phase 7: BddPreprocessor -> flatten_uniform -> kernels, on grid12."""
+    from bdd_tpu_torch.api import BddSolver
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.utils.problems import grid_mrf
+
+    python = {"use native preprocessing": False}
+    bounds = {}
+    for label, extra in (("native", {}), ("python", python)):
+        t0 = time.perf_counter()
+        res = BddSolver({"precision": "double", **DUAL_ONLY, **extra}, device="cuda").read_ilp(
+            ilp=grid_mrf(12, 12, 4, seed=0)).solve(verbose=False)
+        bounds[label] = res["lower_bound"]
+        print(f"[python] grid12 float64 dual, {label} pipeline: lb {res['lower_bound']!r}, "
+              f"{res['iterations']} iterations, {time.perf_counter() - t0:.2f} s wall {card}",
+              flush=True)
+    rel = abs(bounds["python"] - bounds["native"]) / abs(bounds["native"])
+    if not rel <= 1e-7:
+        fail(f"grid12 float64: python pipeline {bounds['python']!r} vs native "
+             f"{bounds['native']!r} (rel {rel:.3e} > 1e-7)")
+    for label, extra in (
+        ("default float32 with rounding", {}),
+        ("split chunk size 8", {"split chunk size": 8}),
+        ("wedelin", {"rounding method": "wedelin"}),
+        ("best", {"rounding method": "best"}),
+    ):
+        ilp = grid_mrf(12, 12, 4, seed=0)
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        s = BddSolver({**python, **extra}, device="cuda").read_ilp(ilp=ilp)
+        res = s.solve(verbose=False)
+        wall = time.perf_counter() - t0
+        checked_solution(ilp, res, f"python pipeline, {label}")
+        if min(sk.LAUNCHES.values()) < res["iterations"]:
+            fail(f"python pipeline, {label}: launches {sk.LAUNCHES} for {res['iterations']} "
+                 f"dual iterations")
+        print(f"[python] grid12 {label}: lb {res['lower_bound']!r}, objective "
+              f"{res['objective']!r}, {res['iterations']} dual iterations, buckets "
+              f"{[(g.P, g.H, g.B) for g in s.solver.geom.buckets]}, {wall:.2f} s wall {card}",
+              flush=True)
+
+
+def phase_batch(card):
+    """Phase 8: solve_batch over independent-set instances."""
+    from bdd_tpu_torch.api import BddSolver
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.utils.problems import independent_set
+
+    def instances(K):
+        return [independent_set(100, edge_prob=0.08, seed=s) for s in range(K)]
+
+    base = fixed_iterations(BATCH_ITERS)
+    alone, alone_wall, alone_solve = [], 0.0, 0.0
+    for ilp in instances(8):
+        t0 = time.perf_counter()
+        res = BddSolver({**base, **DUAL_ONLY}, device="cuda").read_ilp(ilp=ilp).solve(
+            verbose=False)
+        alone_wall += time.perf_counter() - t0
+        alone_solve += res["solve_time"]
+        alone.append(res["lower_bound"])
+    print(f"[batch] one by one, 8 instances, {BATCH_ITERS} iterations each, rounding off: "
+          f"{alone_wall:.2f} s wall ({8 * BATCH_ITERS / alone_wall:.1f} instance-iterations/s), "
+          f"of it dual solve {alone_solve:.2f} s ({8 * BATCH_ITERS / alone_solve:.1f}) {card}",
+          flush=True)
+    for K in (64, 256):
+        for rounding in (False, True):
+            ilps = instances(K)
+            cfg = dict(base) if rounding else {**base, **DUAL_ONLY}
+            s = BddSolver(cfg, device="cuda")
+            sk.reset_launch_counts()
+            t0 = time.perf_counter()
+            results = s.solve_batch(ilps=ilps, verbose=False)
+            wall = time.perf_counter() - t0
+            solve_s = s.dual_stats["solve_time"]
+            if s.dual_stats["iterations"] != BATCH_ITERS:
+                fail(f"batch of {K}: {s.dual_stats['iterations']} iterations")
+            if len(results) != K or any(r["status"] != "solved" for r in results):
+                fail(f"batch of {K}: {[r['status'] for r in results if r['status'] != 'solved'][:4]}")
+            for k in range(4):
+                got, want = results[k]["lower_bound"], alone[k]
+                if abs(got - want) > 2e-5 * abs(want) + 2e-4:
+                    fail(f"batch of {K}, instance {k}: bound {got!r} vs alone {want!r}")
+            shape = [(g.P, g.H, g.B) for g in s.solver.geom.buckets]
+            if not rounding:
+                if sk.LAUNCHES != {k: BATCH_ITERS for k in KERNELS}:
+                    fail(f"batch of {K}: launches {sk.LAUNCHES}; expected {BATCH_ITERS} each")
+                print(f"[batch] K={K} rounding off: {s.solver.host.nr_bdds} BDDs in buckets "
+                      f"{shape}; {wall:.2f} s wall, build {wall - solve_s:.2f} s, dual solve "
+                      f"{solve_s:.3f} s = {K * BATCH_ITERS / solve_s:.1f} instance-iterations/s "
+                      f"({K * BATCH_ITERS / wall:.1f} with the build); launches "
+                      f"{dict(sk.LAUNCHES)}; bounds of 4 instances equal those solved alone "
+                      f"{card}", flush=True)
+            else:
+                for k, (ilp, r) in enumerate(zip(ilps, results)):
+                    checked_solution(ilp, r, f"batch of {K}, instance {k}")
+                print(f"[batch] K={K} rounding on: {wall:.2f} s wall, dual solve {solve_s:.3f} s; "
+                      f"all {K} solutions feasible for their own ILP; launches "
+                      f"{dict(sk.LAUNCHES)} {card}", flush=True)
+
+
+def phase_serve(card, gm_lp, gm_bound):
+    """Phase 9: the JSONL server, in process and as a process of its own."""
+    import io
+    import tempfile
+
+    from bdd_tpu_torch.serve import serve
+    from bdd_tpu_torch.utils.problems import grid_mrf, independent_set
+
+    grid_cfg = {"relaxation solver": "uniform mma", "variable order": "bfs",
+                "termination criteria": {"maximum iterations": 1000}}
+    with tempfile.TemporaryDirectory() as td:
+        def write(name, text):
+            path = os.path.join(td, name)
+            with open(path, "w") as fh:
+                fh.write(text)
+            return path
+
+        grids = [write(f"g{seed}.lp", grid_mrf(12, 12, 4, seed=seed).write_lp()) for seed in (0, 7)]
+        gm = write("gm50k.lp", gm_lp)
+        mis = [write(f"mis{s}.lp", independent_set(100, edge_prob=0.08, seed=s).write_lp())
+               for s in range(8)]
+        requests = [
+            json.dumps({**grid_cfg, "input": grids[0]}),
+            json.dumps({**grid_cfg, "input": grids[1]}),
+            json.dumps({"input": gm, "variable order": "bfs", **DUAL_ONLY,
+                        **fixed_iterations(GM_ITERS)}),
+            json.dumps({"inputs": mis, **fixed_iterations(BATCH_ITERS)}),
+            "this is not json",
+            json.dumps({"input": os.path.join(td, "missing.lp")}),
+            json.dumps({"shutdown": True}),
+            json.dumps({**grid_cfg, "input": grids[0]}),  # after shutdown: not served
+        ]
+        out = io.StringIO()
+        served = serve(requests, out, device="cuda")
+        lines = [json.loads(line) for line in out.getvalue().splitlines()]
+        if served != 6 or len(lines) != 7:
+            fail(f"server: served {served} requests and wrote {len(lines)} lines; expected 6, 7")
+        g0, g7, gmr, batch, bad_json, missing, bye = lines
+        for what, r in (("grid12 seed 0", g0), ("grid12 seed 7", g7), ("gm50k", gmr)):
+            if not isinstance(r, dict) or r.get("status") != "solved":
+                fail(f"server: good request {what} answered {str(r)[:300]}")
+        if "solution" not in g0 or "solution" not in g7:
+            fail("server: a grid12 request came back without a solution")
+        if gmr["lower_bound"] != gm_bound:
+            fail(f"server: gm50k bound {gmr['lower_bound']!r} vs the direct solve {gm_bound!r}")
+        if (not isinstance(batch, list) or len(batch) != 8
+                or any(r.get("status") != "solved" or "solution" not in r for r in batch)):
+            fail(f"server: batch request answered {str(batch)[:300]}")
+        if bad_json.get("status") != "error" or "bad json" not in bad_json.get("message", ""):
+            fail(f"server: the line that is no JSON answered {bad_json}")
+        if missing.get("status") != "error" or bye != {"status": "bye"}:
+            fail(f"server: missing file answered {missing}, shutdown {bye}")
+        print(f"[serve] in process (warm from the phases before): grid12 seed 0 {g0['wall_s']} s, "
+              f"seed 7 {g7['wall_s']} s (lb {g7['lower_bound']!r}, objective {g7['objective']!r}); "
+              f"gm50k {GM_ITERS} iterations {gmr['wall_s']} s, lb {gmr['lower_bound']!r} equal "
+              f"to the direct solve's; batch of 8: all solved; bad JSON and missing file "
+              f"answered 'error'; 'bye' ended the loop {card}", flush=True)
+        # the same server as a process of its own: its first request pays the
+        # CUDA context and the load of both libraries (built above), its second
+        # finds them warm
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "bdd_tpu_torch.serve", "--device", "cuda"],
+            input="\n".join(requests[:2] + requests[6:7]) + "\n", capture_output=True,
+            text=True, timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        total = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"server process exited {proc.returncode}: {proc.stderr[-500:]}")
+        cold, warm, bye = (json.loads(line) for line in proc.stdout.splitlines())
+        if cold.get("status") != "solved" or warm.get("status") != "solved" or bye != {"status": "bye"}:
+            fail(f"server process answered {proc.stdout[:500]}")
+        print(f"[serve] own process: grid12 seed 0 cold {cold['wall_s']} s, seed 7 warm "
+              f"{warm['wall_s']} s, process start to exit {total:.2f} s {card}", flush=True)
+
+
+
 def main() -> None:
     # the native C++ baseline's OpenMP pool reads these when first loaded
     for k, v in (("OMP_NUM_THREADS", str(os.cpu_count() or 4)), ("OMP_WAIT_POLICY", "active")):
@@ -362,7 +671,7 @@ def main() -> None:
     nh = NativeHost(gm_lp, "bfs")
     print(f"[gm50k] {nh.nr_bdds()} BDDs, {nh.nr_vars()} variables, {nh.nr_buckets()} raw "
           f"buckets, built in {time.perf_counter() - t0:.2f} s {card}", flush=True)
-    errs = {name: 0.0 for name in KERNELS}
+    errs = {name + suffix: 0.0 for name in KERNELS for suffix in ("", WIDE)}
     times = {}
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     gm_f32 = layout.from_native_host(nh, torch.float32, "cuda")
@@ -374,8 +683,8 @@ def main() -> None:
     grid_nh = NativeHost(grid_mrf(12, 12, 4, seed=0).write_lp(), "bfs")
     kernel_vs_twin("grid12", layout.from_native_host(grid_nh, torch.float32, "cuda"),
                    grid_nh.objective(), card, errs, times, flush)
-    del flush
-    print(f"[kernel] all buckets and all fused launches match, max |diff| {errs}", flush=True)
+    print(f"[kernel] all narrow buckets and all fused launches match, max |diff| {errs}",
+          flush=True)
 
     # ------------------------------------------------ 3. main path at size
     sk.reset_launch_counts()
@@ -459,6 +768,13 @@ def main() -> None:
     if syncs:
         fail(f"{syncs} host syncs inside an iteration block; expected 0")
 
+    # ------------------------------------------------- 6-9. the later slices
+    wide_launches = phase_wide(card, errs, times, flush)
+    del flush
+    phase_python_pipeline(card)
+    phase_batch(card)
+    phase_serve(card, gm_lp, f32a["lower_bound"])
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "bdd_tpu"))
     if foreign:
@@ -467,15 +783,19 @@ def main() -> None:
     src = "bdd_tpu_torch/csrc/uniform_sweep.cu"
     replaces = {"uniform_forward": "bdd_tpu/solver/pallas_uniform.py:112",
                 "uniform_backward": "bdd_tpu/solver/pallas_uniform.py:183"}
-    main_shape = times[("gm50k", "float32")]
+    # the narrow body at gm50k float32 (launches of phase 3's solve), the wide
+    # body at the knapsack instance in float32 (launches of phase 6's solve)
+    rows = [(name, "", times[("gm50k", "float32")][name], launches[name]) for name in KERNELS]
+    rows += [(name, WIDE, times[("knapsack", "float32")][name], wide_launches[name])
+             for name in KERNELS]
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": replaces[name],
-         "launches": launches[name], "launches_per_iteration": per_iteration[name],
-         "max_abs_err": errs[name], "ms": main_shape[name]["ms"],
-         "cold_ms": main_shape[name]["cold_ms"], "plain_ms": main_shape[name]["plain_ms"],
-         "bound_ms": main_shape[name]["bound_ms"], "bound_by": "bytes",
-         "bytes": main_shape[name]["bytes"], "library_ms": None}
-        for name in KERNELS
+        {"name": name + suffix, "route": "cuda", "source": src, "replaces": replaces[name],
+         "launches": count, "launches_per_iteration": per_iteration[name],
+         "max_abs_err": errs[name + suffix], "ms": shape["ms"],
+         "cold_ms": shape["cold_ms"], "plain_ms": shape["plain_ms"],
+         "bound_ms": shape["bound_ms"], "bound_by": "bytes",
+         "bytes": shape["bytes"], "library_ms": None}
+        for name, suffix, shape, count in rows
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -152,10 +152,10 @@ def test_iterations_through_kernels_equal_twins(cuda_device, precision):
 
 
 def test_unsupported_width_raises_on_card():
-    """A width past the byte geometry's 32 slots is refused when the bucket
+    """A width past the widest arc record's slots is refused when the bucket
     is built, before any launch."""
-    b = random_bucket(64, 2, 8, np.random.RandomState(0))
-    with pytest.raises(ValueError, match="P=64"):
+    b = random_bucket(2 * layout.MAX_P, 2, 8, np.random.RandomState(0))
+    with pytest.raises(ValueError, match=f"P={2 * layout.MAX_P} exceeds .* {layout.MAX_P} slots"):
         layout._build_host([b], np.ones(4, np.int64), 4, 4, 8, torch.float32, "cpu")
 
 
@@ -218,6 +218,11 @@ def twins_bucket_by_bucket(twin, geom, lo, hi, frontier, omega, dl, dh):
 # ragged B (not a multiple of either tile width), H of 1, 2 and above the
 # ring depth of 8 hops, every P
 SHAPES = [(P, H, B) for P in sk.SUPPORTED_P for H, B in ((1, 37), (2, 64), (11, 45), (9, 72))]
+# wide buckets (two bytes an arc, the warp-a-column body): a width that is no
+# power of two, ragged B against the 8 columns a block, the widest P
+WIDE_SHAPES = [(64, 1, 37), (48, 7, 9), (128, 11, 13), (256, 5, 8), (512, 2, 3),
+               (layout.MAX_P, 3, 2)]
+SHAPES += WIDE_SHAPES
 
 
 @pytest.mark.parametrize("precision", ["float", "double"])
@@ -252,8 +257,9 @@ def test_one_bucket_shapes_equal_twins(cuda_device, shape, precision):
 @pytest.mark.parametrize("precision", ["float", "double"])
 @pytest.mark.parametrize("stages", [None, 1, 2, 4, 8])
 def test_fused_launch_over_all_shapes_equals_twins(cuda_device, precision, stages):
-    """One launch over 24 buckets of every width, against the twins bucket by
-    bucket; also at forced prefetch depths."""
+    """One launch over the 24 narrow buckets of every width and one over the
+    wide buckets, against the twins bucket by bucket; also at forced prefetch
+    depths."""
     dtype = torch.float32 if precision == "float" else torch.float64
     host, (lo, hi, fr, dl, dh) = synthetic_host(SHAPES, dtype, cuda_device, seed=7)
     geom = host.geom
@@ -292,3 +298,43 @@ def test_fused_iteration_counts_one_launch_per_half_sweep(cuda_device):
     b = uf.iterations(host.geom, st0, 4, 0.5, sweeps=uf.TWIN_SWEEPS)
     for f in ("lo", "hi", "def_mm", "cft"):
         assert_identical(getattr(a, f), getattr(b, f))
+
+
+def test_plan_splits_narrow_and_wide_buckets():
+    shapes = [(2, 3, 40), (128, 5, 8), (4, 2, 9), (256, 3, 7)]
+    host, _ = synthetic_host(shapes, torch.float64, "cpu")
+    plan = host.geom.plan
+    assert plan.shapes == tuple(shapes)
+    assert [tuple(r[:3]) for r in plan.table.tolist()] == [shapes[0], shapes[2]]
+    assert [tuple(r[:3]) for r in plan.wide_table.tolist()] == [shapes[1], shapes[3]]
+    assert (plan.nr_buckets, plan.nr_wide, plan.pmax, plan.wide_pmax) == (2, 2, 4, 256)
+    # offsets run over all buckets in order, whichever table a bucket is in
+    rows = sorted(plan.table.tolist() + plan.wide_table.tolist(), key=lambda r: r[4])
+    e = n = 0
+    for (P, H, B), r in zip(shapes, rows):
+        assert (r[4], r[5]) == (e, n) and r[6] % layout.ARC_ALIGN == 0
+        e, n = e + H * B, n + H * P * B
+    assert plan.wide_warps == layout.WIDE_WARPS and plan.wide_blocks == 2
+    assert plan.wide_smem_bytes == plan.wide_warps * layout.wide_column_bytes(256, 8)
+    widest = layout.launch_plan([(layout.MAX_P, 2, 8)], torch.float64, "cpu")
+    assert widest.wide_warps >= 1 and widest.wide_smem_bytes <= layout.SMEM_BUDGET
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_mixed_layout_counts_a_narrow_and_a_wide_launch(cuda_device, precision):
+    dtype = torch.float32 if precision == "float" else torch.float64
+    shapes = [(2, 9, 70), (128, 5, 9), (8, 4, 33), (64, 12, 5)]
+    host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=3)
+    sk.reset_launch_counts()
+    calls = dict(uf.TWIN_SWEEP_CALLS)
+    out_f = sk.forward_iteration_cuda(host.geom, lo, hi, fr, 0.5, dl, dh)
+    out_b = sk.backward_iteration_cuda(host.geom, lo, hi, fr, 0.5, dl, dh)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == {"uniform_forward": 2, "uniform_backward": 2}
+    assert sk.WIDE_LAUNCHES == {"uniform_forward": 1, "uniform_backward": 1}
+    assert uf.TWIN_SWEEP_CALLS == calls  # no twin ran on the card
+    assert_identical(out_f, twins_bucket_by_bucket(
+        uf.bucket_forward_iteration, host.geom, lo, hi, fr, 0.5, dl, dh))
+    assert_identical(out_b, twins_bucket_by_bucket(
+        uf.bucket_backward_iteration, host.geom, lo, hi, fr, 0.5, dl, dh))

@@ -168,7 +168,7 @@ def test_byte_geometry_round_trips_for_every_width(P):
 
 @pytest.mark.parametrize("what", ["kind", "slot", "width"])
 def test_byte_geometry_refuses_what_it_cannot_hold(what):
-    P = 64 if what == "width" else 2
+    P = 2 * layout.MAX_P if what == "width" else 2  # up to MAX_P the two-byte record holds
     z = np.zeros((1, P, 4), dtype=np.int32)
     bad = z.copy()
     bad[0, 0, 0] = {"kind": 3, "slot": 32, "width": 0}[what]
@@ -176,7 +176,7 @@ def test_byte_geometry_refuses_what_it_cannot_hold(what):
     if what != "width":
         args["hi_" + what] = bad
     m = np.zeros((1, 4), dtype=bool)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match=str(layout.MAX_P) if what == "width" else "arc kind"):
         layout.encode_arcs(*args.values(), m, m)
 
 

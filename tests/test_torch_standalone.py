@@ -35,6 +35,53 @@ from tests import fixtures
 
 ROOT = Path(__file__).resolve().parents[1]
 
+# modules of the port that are the JAX package's JAX-free modules under the
+# same relative name, with only their import lines renamed (solver/run.py,
+# utils/problems.py, utils/logging.py and native.py are copies with edits of
+# their own and are held to the originals by what they compute, below)
+COPIED = [
+    "bdd/__init__.py", "bdd/collection.py", "bdd/manager.py", "bdd/lineq.py",
+    "bdd/preprocessor.py", "ilp/__init__.py", "ilp/__main__.py", "ilp/model.py",
+    "ilp/lp_parser.py", "ilp/mps_parser.py", "ilp/opb_parser.py", "frontends/__init__.py",
+    "frontends/graph_matching.py", "frontends/mrf_uai.py",
+    "frontends/multi_graph_matching.py", "solver/flatten.py", "solver/ref_solver.py",
+    "solver/sequential.py", "solver/rounding.py", "utils/batching.py",
+]
+
+
+def _is_import_line(line: str) -> bool:
+    return line.lstrip().startswith(("from bdd_tpu", "import bdd_tpu"))
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_differs_only_in_import_lines(rel):
+    ours = (ROOT / "bdd_tpu_torch" / rel).read_text().splitlines()
+    theirs = (ROOT / "bdd_tpu" / rel).read_text().splitlines()
+    assert len(ours) == len(theirs)
+    for n, (a, b) in enumerate(zip(ours, theirs), 1):
+        if a != b:
+            assert _is_import_line(a) and _is_import_line(b), f"{rel}:{n}: {a!r} vs {b!r}"
+            assert "bdd_tpu_torch." in a and "bdd_tpu_torch" not in b
+            # the same module under the port's name; PACK_* live in the port's layout
+            assert a.replace("bdd_tpu_torch.", "bdd_tpu.") == b or "PACK_H_CAP" in a
+
+
+def test_importing_the_whole_port_pulls_in_no_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "import bdd_tpu_torch\n"
+        "for m in pkgutil.walk_packages(bdd_tpu_torch.__path__, 'bdd_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'bdd_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(sorted(m for m in sys.modules if m.startswith('bdd_tpu_torch')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-2000:]
+    for mod in ("serve", "api", "bdd.preprocessor", "solver.extras", "utils.batching"):
+        assert f"'bdd_tpu_torch.{mod}'" in out.stdout
+
 GENERATORS = {
     "grid_mrf": lambda m: m.grid_mrf(5, 4, 3, seed=2),
     "grid_mrf_big": lambda m: m.grid_mrf(7, 7, 4, seed=5),
