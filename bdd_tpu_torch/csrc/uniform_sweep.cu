@@ -353,7 +353,7 @@ __device__ __forceinline__ void sweep_column(const Args<T>& a, const Bucket& bk,
         const int lk = lb & 3, ls = (lb >> 2) & 31, hk = hb & 3, hs = (hb >> 2) & 31;
         // cft of the child: TOP -> 0, BOT -> inf, else cft[h+1][slot]
         // (inf past the last hop; 0 for a slot outside the bucket, as the
-        // twin's one-hot gather gives)
+        // twin's gather gives)
         const T gl = last ? inf : (ls < P ? C::value(cell, LAYER_ROWS + ls) : T(0));
         const T gh = last ? inf : (hs < P ? C::value(cell, LAYER_ROWS + hs) : T(0));
         const T tl = lk == ARC_TOP ? T(0) : (lk == ARC_BOT ? inf : gl);
@@ -479,12 +479,15 @@ int launch(const void* table, int nr_buckets, int nr_blocks, int tile, int pmax,
 // into the next row with a shared-memory atomicMin on an order-preserving
 // unsigned image of the value. A minimum is exact in any order, and every sum
 // is formed as the twins form it, so the results equal the twins' bit for
-// bit (up to the sign of a zero minimum). Frontier rows in device memory are
+// bit. Frontier rows in device memory are
 // [P, B] with B innermost, so a warp's loads and stores of them are strided;
 // a block takes up to 8 neighbouring columns so that its warps share sectors.
 // Only __syncwarp orders the shared rows: a warp reads and writes its own.
-// A NaN never reaches the relaxation (costs are finite or +inf); unlike
-// min_v the atomic would drop it.
+// The key of a NaN is 0, below every number's, and 0 decodes to a NaN: the
+// atomic min propagates a NaN as min_v and the twins' scatter-min do. The
+// key orders -0.0 below +0.0, which no order of arrivals can show: a frontier
+// starts from +0.0 and +inf, and a sum is -0.0 only if both its terms are, so
+// no -0.0 arrives here.
 template <typename T>
 struct Key;
 
@@ -493,6 +496,7 @@ struct Key<float> {
   using U = unsigned int;
   __device__ static __forceinline__ U enc(float x) {
     const U b = __float_as_uint(x);
+    if (x != x) return 0u;
     return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
   }
   __device__ static __forceinline__ float dec(U k) {
@@ -505,6 +509,7 @@ struct Key<double> {
   using U = unsigned long long;
   __device__ static __forceinline__ U enc(double x) {
     const U b = (U)__double_as_longlong(x);
+    if (x != x) return 0ull;
     return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
   }
   __device__ static __forceinline__ double dec(U k) {

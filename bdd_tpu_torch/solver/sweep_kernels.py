@@ -21,9 +21,10 @@ runs the plain torch twins of ``uniform.py``. Every width up to
 ``layout.MAX_P`` runs a kernel, for any H and in float32 and float64; there
 is no fallback.
 
-``LAUNCHES`` counts kernel launches per kernel, the wide buckets' included;
-``WIDE_LAUNCHES`` says how many of them were the wide body's. The twins never
-count here (``uniform.TWIN_SWEEP_CALLS`` counts them).
+``LAUNCHES`` counts kernel launches, one key per kernel and body
+(``uniform_forward`` is the narrow body's launch, ``uniform_forward_wide`` the
+wide body's). The twins never count here (``uniform.TWIN_SWEEP_CALLS`` counts
+them).
 """
 from __future__ import annotations
 
@@ -43,15 +44,15 @@ from bdd_tpu_torch.solver.layout import (
 )
 
 SUPPORTED_P = (1, 2, 4, 8, 16, 32)  # the narrow body's instantiations
-LAUNCHES = {"uniform_forward": 0, "uniform_backward": 0}
-WIDE_LAUNCHES = {"uniform_forward": 0, "uniform_backward": 0}  # of LAUNCHES, the wide ones
+KERNELS = ("uniform_forward", "uniform_backward")
+WIDE = "_wide"  # suffix of the wide body's entries and of its key in LAUNCHES
+LAUNCHES = {kernel + body: 0 for kernel in KERNELS for body in ("", WIDE)}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, WIDE_LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _suffix(dtype: torch.dtype) -> str:
@@ -88,8 +89,8 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
     """A closure that queues ``kernel`` on the current stream (the narrow
     buckets' launch, then the wide buckets', each where the plan has blocks
     for it) and raises on a launch error. It holds its tensors alive and does
-    not count; ``launch.narrow`` / ``launch.wide`` say how many launches (0 or
-    1 each) a call makes."""
+    not count; ``launch.counts`` names the key of ``LAUNCHES`` of every launch
+    a call makes."""
     suffix = _suffix(lo.dtype)
     if isinstance(omega, torch.Tensor) and omega.dim() > 0:
         omega_arr, omega_val = omega, 0.0
@@ -105,14 +106,14 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
     )
     calls = []
     if plan.nr_blocks:
-        calls.append((f"{kernel}_{suffix}", (
+        calls.append((kernel, (
             plan.table.data_ptr(), plan.nr_buckets, plan.nr_blocks, plan.tile, plan.pmax,
             plan.smem_bytes, *buffers)))
     if plan.wide_blocks:
-        calls.append((f"{kernel}_wide_{suffix}", (
+        calls.append((kernel + WIDE, (
             plan.wide_table.data_ptr(), plan.nr_wide, plan.wide_blocks, plan.wide_warps,
             plan.wide_pmax, plan.wide_smem_bytes, *buffers)))
-    calls = [(name, getattr(lib, name), args) for name, args in calls]
+    calls = [(name, getattr(lib, f"{name}_{suffix}"), args) for name, args in calls]
     keep = (plan, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, frontier, outs)
 
     def launch() -> None:
@@ -120,18 +121,18 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
             rc = fn(*args)
             if rc != 0:
                 raise RuntimeError(
-                    f"{name} launch failed (code {rc}) over buckets {plan.shapes}"
+                    f"{name}_{suffix} launch failed (code {rc}) over buckets {plan.shapes}"
                 )
 
     launch.keep = keep
-    launch.narrow = int(bool(plan.nr_blocks))
-    launch.wide = int(bool(plan.wide_blocks))
+    launch.counts = tuple(name for name, _, _ in calls)
     return launch
 
 
-def _count(kernel: str, launch) -> None:
-    LAUNCHES[kernel] += launch.narrow + launch.wide
-    WIDE_LAUNCHES[kernel] += launch.wide
+def _launch_counted(launch) -> None:
+    launch()
+    for name in launch.counts:
+        LAUNCHES[name] += 1
 
 
 def _fresh_outputs(lo, frontier):
@@ -168,8 +169,7 @@ def _fused(kernel: str, twin, geom: UniformGeom, lo, hi, frontier, omega, din_lo
     if lo.device.type == "cpu":
         return uf.sweep_per_bucket(twin, geom, lo, hi, frontier, omega, din_lo, din_hi)
     launch, outs = prepare_fused_launch(kernel, geom, lo, hi, frontier, omega, din_lo, din_hi)
-    launch()
-    _count(kernel, launch)
+    _launch_counted(launch)
     return outs
 
 
@@ -218,8 +218,7 @@ def prepare_launch(kernel: str, g: BucketGeom, lo, hi, frontier, omega, din_lo, 
 
 def _launch(kernel: str, g: BucketGeom, lo, hi, frontier, omega, din_lo, din_hi, alpha):
     launch, outs = prepare_launch(kernel, g, lo, hi, frontier, omega, din_lo, din_hi, alpha)
-    launch()
-    _count(kernel, launch)
+    _launch_counted(launch)
     return outs
 
 

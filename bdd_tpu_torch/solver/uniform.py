@@ -30,7 +30,6 @@ from bdd_tpu_torch.solver.layout import (
     ARC_BOT,
     ARC_INTERNAL,
     ARC_TOP,
-    NARROW_P,
     BucketGeom,
     UniformGeom,
     UniformHost,
@@ -54,32 +53,24 @@ def _restart_cfr(cfr: torch.Tensor, root_row: torch.Tensor, P: int) -> torch.Ten
 
 
 def _child_cft(kind: torch.Tensor, slot: torch.Tensor, cft_next: torch.Tensor, P: int) -> torch.Tensor:
-    """cft of the child along one arc type, [..., P, B]: a one-hot gather over
-    the slot axis (0 for a slot >= P), TOP -> 0, BOT -> INF. Wide buckets
-    gather by index instead (the same values; the one-hot is quadratic in P)."""
-    if P > NARROW_P:
-        idx = slot.long()
-        gathered = torch.gather(cft_next, -2, idx.clamp_max(P - 1))
-        gathered = torch.where(idx < P, gathered, 0.0)
-    else:
-        iota = torch.arange(P, dtype=slot.dtype, device=slot.device).view(P, 1, 1)
-        onehot = slot.unsqueeze(-3) == iota  # [..., P(k), P(p), B]
-        gathered = torch.where(onehot, cft_next.unsqueeze(-2), 0.0).sum(-3)
+    """cft of the child along one arc type, [..., P, B]: cft_next gathered at
+    the arc's slot (0 for a slot >= P), TOP -> 0, BOT -> INF."""
+    idx = slot.long()
+    gathered = torch.gather(cft_next, -2, idx.clamp_max(P - 1))
+    gathered = torch.where(idx < P, gathered, 0.0)
     return torch.where(kind == ARC_TOP, 0.0, torch.where(kind == ARC_BOT, INF, gathered))
 
 
 def _relax_next(vals, kind, slot, valid, P: int) -> torch.Tensor:
-    """Frontier relaxation: next_cfr[k, b] = min over source slots p with an
-    internal arc into k (scatter-min as a masked min-reduction; wide
-    buckets scatter by index, the same minimum without the [P, P, B] mask)."""
-    if P > NARROW_P:
-        idx = slot.long()
-        src = torch.where((kind == ARC_INTERNAL) & valid & (idx < P), vals, INF)
-        out = torch.full_like(vals, INF)
-        return out.scatter_reduce_(0, idx.clamp_max(P - 1), src, "amin", include_self=True)
-    iota = torch.arange(P, dtype=slot.dtype, device=slot.device).view(P, 1, 1)
-    mask = (slot[None] == iota) & (kind[None] == ARC_INTERNAL) & valid[None]
-    return torch.where(mask, vals[None], INF).amin(dim=1)  # [P(k), B]
+    """Frontier relaxation: next_cfr[k, b] = min over the valid source slots p
+    with an internal arc into k of vals[p, b]; INF where no arc arrives. A
+    scatter-min by slot: exact in any order, and a NaN among the arrivals
+    stays a NaN. No arrival is -0.0: a frontier starts from +0.0 and INF, and
+    a sum is -0.0 only if both its terms are."""
+    idx = slot.long()
+    src = torch.where((kind == ARC_INTERNAL) & valid & (idx < P), vals, INF)
+    out = torch.full_like(vals, INF)
+    return out.scatter_reduce_(0, idx.clamp_max(P - 1), src, "amin", include_self=True)
 
 
 def _hop_cost_update(lo_row, hi_row, m0, m1, omega_row, alpha_row, din_lo, din_hi, lvalid):

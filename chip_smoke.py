@@ -46,13 +46,18 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   9. server: ``bdd_tpu_torch.serve.serve`` in process over JSONL lines (two
      grid12 requests, a gm50k file whose bound must equal phase 3's to the
      last bit, a batch request, a line that is no JSON, a missing file,
-     shutdown), and the same server as a fresh process for its cold and warm
-     request times.
+     shutdown), the launches of every request counted, and the same server
+     as a fresh process for its cold and warm request times.
+Phases 7-9 hold the kernels to the twins as phase 2 does (bit-equal, timed
+beside the byte bound) on the layouts their own paths built (flatten_uniform's
+grid12, plain and split; the batches of 64 and 256; the server's batch) from
+the state their solves left, and check that no twin sweep ran in any solve.
 
 Imports nothing of JAX and nothing of bdd_tpu (checked at the end): the port
 carries its own host library, ILP model, frontends and generators.
-Prints the card line, one JSON line of per-kernel results, and as the last
-line {"ok": true, "device": {...}}.
+Prints the card line, one JSON line of per-kernel results (a row per kernel,
+body and path: gm50k, knapsack, python grid12, batch64, batch256, the server's
+batch), and as the last line {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -77,6 +82,12 @@ SYNC_EVENTS = ("aten::_local_scalar_dense", "aten::item", "cudaStreamSynchronize
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def launch_counts(narrow: int = 0, wide: int = 0) -> dict:
+    """``sweep_kernels.LAUNCHES`` after ``narrow`` launches of either kernel's
+    narrow body and ``wide`` launches of either kernel's wide body."""
+    return {k + body: n for k in KERNELS for body, n in (("", narrow), (WIDE, wide))}
 
 
 def gm50k_lp() -> str:
@@ -162,10 +173,13 @@ def share(bound_ms: float, ms: float) -> str:
     return f"{100 * bound_ms / ms:.1f}% of bound"
 
 
-def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=(), suffix=""):
+def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=(), suffix="",
+                   state=None):
     """Phase 2 for one host: every bucket alone, then all buckets fused;
     ``depths``: prefetch depths to time the fused launches at as well;
-    ``suffix``: WIDE when every bucket of the host runs the wide body."""
+    ``suffix``: WIDE when every bucket of the host runs the wide body;
+    ``state``: the state to sweep from (a solver's, after its solve) instead
+    of five iterations from ``objective``."""
     import torch
     from bdd_tpu_torch.solver import layout
     from bdd_tpu_torch.solver import sweep_kernels as sk
@@ -174,8 +188,9 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=(), 
     geom = host.geom
     dt = str(geom.dtype).replace("torch.", "")
     itemsize = torch.empty((), dtype=geom.dtype).element_size()
-    st = uf.init_uniform_state(host, objective)
-    st = uf.iterations(geom, st, 5)
+    if state is None:
+        state = uf.iterations(geom, uf.init_uniform_state(host, objective), 5)
+    st = state
     lo, hi, mm, cft = st.flat
     dl_flat, dh_flat = uf.exchange_delta_flat(geom, mm)
     dl, dh = geom.per_bucket(dl_flat), geom.per_bucket(dh_flat)
@@ -220,8 +235,8 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=(), 
             f"{fb} B) vs twin {t['uniform_forward'][1]:.4f} ms, "
             f"bwd {t['uniform_backward'][0]:.4f} ms (bound {1e3 * bb / HBM_BYTES_PER_S:.4f} ms, "
             f"{bb} B) vs twin {t['uniform_backward'][1]:.4f} ms; "
-            f"launches fwd {sk.LAUNCHES['uniform_forward'] - before['uniform_forward']} "
-            f"bwd {sk.LAUNCHES['uniform_backward'] - before['uniform_backward']} {card}",
+            f"launches { {k: n - before[k] for k, n in sk.LAUNCHES.items() if n != before[k]} } "
+            f"{card}",
             flush=True,
         )
     # ---- one fused launch over all buckets against the twins bucket by bucket
@@ -237,10 +252,11 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=(), 
         out = wrapper(*args)
         torch.cuda.synchronize()
         errs[name + suffix] = max(errs[name + suffix], compare(out, ref, TOL[dt]))
-        rose = {k: sk.LAUNCHES[k] - before[k] for k in KERNELS}
-        per_call = int(geom.plan.nr_blocks > 0) + int(geom.plan.wide_blocks > 0)
-        if rose != {k: per_call * int(k == name) for k in KERNELS}:
-            fail(f"{label} {dt}: one fused {name} call counted launches {rose}")
+        rose = {k: n - before[k] for k, n in sk.LAUNCHES.items()}
+        want = {**launch_counts(), name: int(geom.plan.nr_blocks > 0),
+                name + WIDE: int(geom.plan.wide_blocks > 0)}
+        if rose != want:
+            fail(f"{label} {dt}: one fused {name} call counted launches {rose}, not {want}")
     # the timing loops launch directly: checked once, no allocation, no count
     launch_f, _ = sk.prepare_fused_launch("uniform_forward", *args_f)
     launch_b, _ = sk.prepare_fused_launch("uniform_backward", *args_b)
@@ -437,42 +453,59 @@ def phase_wide(card, errs, times, flush):
         cfg = {"precision": prec, **DUAL_ONLY, **fixed_iterations(KNAPSACK_ITERS)}
         res = BddSolver(cfg, device="cuda").read_ilp(lp_string=lp).solve(verbose=False)
         rel = abs(res["lower_bound"] - lb_native) / abs(lb_native)
-        all_l, wide_l = dict(sk.LAUNCHES), dict(sk.WIDE_LAUNCHES)
+        counted = dict(sk.LAUNCHES)
         print(f"[wide] knapsack {name}: lb {res['lower_bound']!r} after {res['iterations']} "
               f"iterations vs the native C++ solver {lb_native!r}: rel diff {rel:.3e} (limit "
               f"{LB_REL[prec]}), solve {res['solve_time']} s (native {native_s:.2f} s); "
-              f"launches {all_l}, of them wide {wide_l}; twin sweeps called "
+              f"launches {counted}; twin sweeps called "
               f"{ {k: uf.TWIN_SWEEP_CALLS[k] - twins_before[k] for k in twins_before} } {card}",
               flush=True)
         if res["status"] != "solved" or res["iterations"] != KNAPSACK_ITERS or not rel <= LB_REL[prec]:
             fail(f"knapsack {name} bound off the native solver")
         # the design: every bucket is wide, so a half-sweep is ONE launch, the
         # wide table's; no narrow launch and no twin on the card
-        want = {k: KNAPSACK_ITERS for k in KERNELS}
-        if all_l != want or wide_l != want:
-            fail(f"knapsack {name}: launches {all_l}, wide {wide_l}; expected {want} each")
+        if counted != launch_counts(wide=KNAPSACK_ITERS):
+            fail(f"knapsack {name}: launches {counted}; expected "
+                 f"{launch_counts(wide=KNAPSACK_ITERS)}")
         if uf.TWIN_SWEEP_CALLS != twins_before:
             fail(f"knapsack {name}: a twin sweep ran during the solve on the card")
-        launches[name] = wide_l
+        launches[name] = {"at": "knapsack", "dt": name, "suffix": WIDE, "launches": counted,
+                          "iterations": res["iterations"]}
     return launches["float32"]
 
 
-def phase_python_pipeline(card):
+def phase_python_pipeline(card, errs, times, flush):
     """Phase 7: BddPreprocessor -> flatten_uniform -> kernels, on grid12."""
     from bdd_tpu_torch.api import BddSolver
     from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver import uniform as uf
     from bdd_tpu_torch.utils.problems import grid_mrf
 
     python = {"use native preprocessing": False}
     bounds = {}
     for label, extra in (("native", {}), ("python", python)):
+        sk.reset_launch_counts()
+        twins_before = dict(uf.TWIN_SWEEP_CALLS)
         t0 = time.perf_counter()
-        res = BddSolver({"precision": "double", **DUAL_ONLY, **extra}, device="cuda").read_ilp(
-            ilp=grid_mrf(12, 12, 4, seed=0)).solve(verbose=False)
+        s = BddSolver({"precision": "double", **DUAL_ONLY, **extra}, device="cuda").read_ilp(
+            ilp=grid_mrf(12, 12, 4, seed=0))
+        res = s.solve(verbose=False)
         bounds[label] = res["lower_bound"]
+        counted = dict(sk.LAUNCHES)
         print(f"[python] grid12 float64 dual, {label} pipeline: lb {res['lower_bound']!r}, "
-              f"{res['iterations']} iterations, {time.perf_counter() - t0:.2f} s wall {card}",
-              flush=True)
+              f"{res['iterations']} iterations, launches {counted}, "
+              f"{time.perf_counter() - t0:.2f} s wall {card}", flush=True)
+        if counted != launch_counts(narrow=res["iterations"]):
+            fail(f"grid12 float64, {label} pipeline: launches {counted} for "
+                 f"{res['iterations']} iterations")
+        if uf.TWIN_SWEEP_CALLS != twins_before:
+            fail(f"grid12 float64, {label} pipeline: a twin sweep ran during the solve")
+    path = {"at": "python grid12", "dt": "float64", "suffix": "", "launches": counted,
+            "iterations": res["iterations"]}
+    # the kernels against the twins on the layout flatten_uniform built, from
+    # the state the solve left
+    kernel_vs_twin(path["at"], s.solver.host, None, card, errs, times, flush,
+                   state=s.solver.state)
     rel = abs(bounds["python"] - bounds["native"]) / abs(bounds["native"])
     if not rel <= 1e-7:
         fail(f"grid12 float64: python pipeline {bounds['python']!r} vs native "
@@ -485,24 +518,32 @@ def phase_python_pipeline(card):
     ):
         ilp = grid_mrf(12, 12, 4, seed=0)
         sk.reset_launch_counts()
+        twins_before = dict(uf.TWIN_SWEEP_CALLS)
         t0 = time.perf_counter()
         s = BddSolver({**python, **extra}, device="cuda").read_ilp(ilp=ilp)
         res = s.solve(verbose=False)
         wall = time.perf_counter() - t0
         checked_solution(ilp, res, f"python pipeline, {label}")
-        if min(sk.LAUNCHES.values()) < res["iterations"]:
-            fail(f"python pipeline, {label}: launches {sk.LAUNCHES} for {res['iterations']} "
-                 f"dual iterations")
+        counted = dict(sk.LAUNCHES)
+        if (min(counted[k] for k in KERNELS) < res["iterations"]
+                or uf.TWIN_SWEEP_CALLS != twins_before):
+            fail(f"python pipeline, {label}: launches {counted} for {res['iterations']} "
+                 f"dual iterations, twin sweeps {uf.TWIN_SWEEP_CALLS} from {twins_before}")
         print(f"[python] grid12 {label}: lb {res['lower_bound']!r}, objective "
-              f"{res['objective']!r}, {res['iterations']} dual iterations, buckets "
-              f"{[(g.P, g.H, g.B) for g in s.solver.geom.buckets]}, {wall:.2f} s wall {card}",
-              flush=True)
+              f"{res['objective']!r}, {res['iterations']} dual iterations, launches {counted}, "
+              f"buckets {[(g.P, g.H, g.B) for g in s.solver.geom.buckets]}, {wall:.2f} s wall "
+              f"{card}", flush=True)
+        if "split" in label:  # the split layout: other bucket shapes than above
+            kernel_vs_twin("python grid12 split", s.solver.host, None, card, errs, times, flush,
+                           state=s.solver.state)
+    return path
 
 
-def phase_batch(card):
+def phase_batch(card, errs, times, flush):
     """Phase 8: solve_batch over independent-set instances."""
     from bdd_tpu_torch.api import BddSolver
     from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver import uniform as uf
     from bdd_tpu_torch.utils.problems import independent_set
 
     def instances(K):
@@ -521,12 +562,14 @@ def phase_batch(card):
           f"{alone_wall:.2f} s wall ({8 * BATCH_ITERS / alone_wall:.1f} instance-iterations/s), "
           f"of it dual solve {alone_solve:.2f} s ({8 * BATCH_ITERS / alone_solve:.1f}) {card}",
           flush=True)
+    paths = []
     for K in (64, 256):
         for rounding in (False, True):
             ilps = instances(K)
             cfg = dict(base) if rounding else {**base, **DUAL_ONLY}
             s = BddSolver(cfg, device="cuda")
             sk.reset_launch_counts()
+            twins_before = dict(uf.TWIN_SWEEP_CALLS)
             t0 = time.perf_counter()
             results = s.solve_batch(ilps=ilps, verbose=False)
             wall = time.perf_counter() - t0
@@ -540,29 +583,41 @@ def phase_batch(card):
                 if abs(got - want) > 2e-5 * abs(want) + 2e-4:
                     fail(f"batch of {K}, instance {k}: bound {got!r} vs alone {want!r}")
             shape = [(g.P, g.H, g.B) for g in s.solver.geom.buckets]
+            if uf.TWIN_SWEEP_CALLS != twins_before:
+                fail(f"batch of {K}: a twin sweep ran during the batched solve")
             if not rounding:
-                if sk.LAUNCHES != {k: BATCH_ITERS for k in KERNELS}:
-                    fail(f"batch of {K}: launches {sk.LAUNCHES}; expected {BATCH_ITERS} each")
+                if sk.LAUNCHES != launch_counts(narrow=BATCH_ITERS):
+                    fail(f"batch of {K}: launches {sk.LAUNCHES}; expected "
+                         f"{launch_counts(narrow=BATCH_ITERS)}")
+                paths.append({"at": f"batch{K}", "dt": "float32", "suffix": "",
+                              "launches": dict(sk.LAUNCHES), "iterations": BATCH_ITERS})
                 print(f"[batch] K={K} rounding off: {s.solver.host.nr_bdds} BDDs in buckets "
                       f"{shape}; {wall:.2f} s wall, build {wall - solve_s:.2f} s, dual solve "
                       f"{solve_s:.3f} s = {K * BATCH_ITERS / solve_s:.1f} instance-iterations/s "
                       f"({K * BATCH_ITERS / wall:.1f} with the build); launches "
                       f"{dict(sk.LAUNCHES)}; bounds of 4 instances equal those solved alone "
                       f"{card}", flush=True)
+                # the kernels against the twins on the batch's own layout and state
+                kernel_vs_twin(f"batch{K}", s.solver.host, None, card, errs, times, flush,
+                               state=s.solver.state)
             else:
                 for k, (ilp, r) in enumerate(zip(ilps, results)):
                     checked_solution(ilp, r, f"batch of {K}, instance {k}")
                 print(f"[batch] K={K} rounding on: {wall:.2f} s wall, dual solve {solve_s:.3f} s; "
                       f"all {K} solutions feasible for their own ILP; launches "
                       f"{dict(sk.LAUNCHES)} {card}", flush=True)
+    return paths
 
 
-def phase_serve(card, gm_lp, gm_bound):
+def phase_serve(card, gm_lp, gm_bound, errs, times, flush):
     """Phase 9: the JSONL server, in process and as a process of its own."""
     import io
     import tempfile
 
+    from bdd_tpu_torch.api import BddSolver
     from bdd_tpu_torch.serve import serve
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver import uniform as uf
     from bdd_tpu_torch.utils.problems import grid_mrf, independent_set
 
     grid_cfg = {"relaxation solver": "uniform mma", "variable order": "bfs",
@@ -589,12 +644,27 @@ def phase_serve(card, gm_lp, gm_bound):
             json.dumps({"shutdown": True}),
             json.dumps({**grid_cfg, "input": grids[0]}),  # after shutdown: not served
         ]
+        # the server pulls a line when the request before it is answered, so
+        # the counters read at each pull bracket every request
+        marks = []
+
+        def pulled():
+            for line in requests:
+                marks.append((dict(sk.LAUNCHES), dict(uf.TWIN_SWEEP_CALLS)))
+                yield line
+
         out = io.StringIO()
-        served = serve(requests, out, device="cuda")
+        sk.reset_launch_counts()
+        served = serve(pulled(), out, device="cuda")
         lines = [json.loads(line) for line in out.getvalue().splitlines()]
-        if served != 6 or len(lines) != 7:
-            fail(f"server: served {served} requests and wrote {len(lines)} lines; expected 6, 7")
+        if served != 6 or len(lines) != 7 or len(marks) != 7:
+            fail(f"server: served {served} requests, wrote {len(lines)} lines and pulled "
+                 f"{len(marks)}; expected 6, 7, 7")
         g0, g7, gmr, batch, bad_json, missing, bye = lines
+        counted = [{k: after[0][k] - before[0][k] for k in before[0]}
+                   for before, after in zip(marks, marks[1:])]
+        if marks[-1][1] != marks[0][1]:
+            fail(f"server: twin sweeps ran on the card: {marks[0][1]} -> {marks[-1][1]}")
         for what, r in (("grid12 seed 0", g0), ("grid12 seed 7", g7), ("gm50k", gmr)):
             if not isinstance(r, dict) or r.get("status") != "solved":
                 fail(f"server: good request {what} answered {str(r)[:300]}")
@@ -602,6 +672,17 @@ def phase_serve(card, gm_lp, gm_bound):
             fail("server: a grid12 request came back without a solution")
         if gmr["lower_bound"] != gm_bound:
             fail(f"server: gm50k bound {gmr['lower_bound']!r} vs the direct solve {gm_bound!r}")
+        if counted[2] != launch_counts(narrow=GM_ITERS):
+            fail(f"server: the gm50k request launched {counted[2]}; expected "
+                 f"{launch_counts(narrow=GM_ITERS)}")
+        for what, r, c in (("grid12 seed 0", g0, counted[0]), ("grid12 seed 7", g7, counted[1])):
+            if min(c[k] for k in KERNELS) < r["iterations"] or c != launch_counts(c[KERNELS[0]]):
+                fail(f"server: {what} launched {c} for {r['iterations']} dual iterations")
+        if (min(counted[3][k] for k in KERNELS) < BATCH_ITERS
+                or any(counted[3][k + WIDE] for k in KERNELS)):
+            fail(f"server: the batch request launched {counted[3]}")
+        if any(any(c.values()) for c in counted[4:]):
+            fail(f"server: the bad requests and shutdown launched {counted[4:]}")
         if (not isinstance(batch, list) or len(batch) != 8
                 or any(r.get("status") != "solved" or "solution" not in r for r in batch)):
             fail(f"server: batch request answered {str(batch)[:300]}")
@@ -613,7 +694,17 @@ def phase_serve(card, gm_lp, gm_bound):
               f"seed 7 {g7['wall_s']} s (lb {g7['lower_bound']!r}, objective {g7['objective']!r}); "
               f"gm50k {GM_ITERS} iterations {gmr['wall_s']} s, lb {gmr['lower_bound']!r} equal "
               f"to the direct solve's; batch of 8: all solved; bad JSON and missing file "
-              f"answered 'error'; 'bye' ended the loop {card}", flush=True)
+              f"answered 'error'; 'bye' ended the loop; launches per request {counted[:4]}, no "
+              f"twin sweep {card}", flush=True)
+        # the layouts the server swept are gm50k's and grid12's of phase 2
+        # (same text, same order, the native host) and the batch request's,
+        # built here as handle_request builds it: kernels against twins on it
+        s = BddSolver(json.loads(requests[3]), device="cuda")
+        s.solve_batch(paths=mis, verbose=False)
+        kernel_vs_twin("serve batch8", s.solver.host, None, card, errs, times, flush,
+                       state=s.solver.state)
+        path = {"at": "serve batch8", "dt": "float32", "suffix": "", "launches": counted[3],
+                "iterations": None}
         # the same server as a process of its own: its first request pays the
         # CUDA context and the load of both libraries (built above), its second
         # finds them warm
@@ -631,7 +722,7 @@ def phase_serve(card, gm_lp, gm_bound):
             fail(f"server process answered {proc.stdout[:500]}")
         print(f"[serve] own process: grid12 seed 0 cold {cold['wall_s']} s, seed 7 warm "
               f"{warm['wall_s']} s, process start to exit {total:.2f} s {card}", flush=True)
-
+    return path
 
 
 def main() -> None:
@@ -691,19 +782,19 @@ def main() -> None:
     f32a = solve_dual(gm_lp, "float")
     launches = dict(sk.LAUNCHES)
     print(f"[main] launches in the float32 gm50k solve: {launches}", flush=True)
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in KERNELS) == 0:
         fail(f"a kernel of the main path was never launched: {launches}")
     f32b = solve_dual(gm_lp, "float")
     sk.reset_launch_counts()
     f64 = solve_dual(gm_lp, "double")
     launches64 = dict(sk.LAUNCHES)
     print(f"[main] launches in the float64 gm50k solve: {launches64}", flush=True)
-    per_iteration = {}
-    for name in KERNELS:
-        a, b = launches[name] / f32a["iterations"], launches64[name] / f64["iterations"]
-        if a != 1 or b != 1:
-            fail(f"{name}: {a} launches per iteration in float32, {b} in float64; expected 1")
-        per_iteration[name] = 1
+    for res, counted in ((f32a, launches), (f64, launches64)):
+        if counted != launch_counts(narrow=res["iterations"]):
+            fail(f"gm50k: launches {counted} in {res['iterations']} iterations; expected one "
+                 f"narrow launch per kernel and iteration")
+    paths = [{"at": "gm50k", "dt": "float32", "suffix": "", "launches": launches,
+              "iterations": f32a["iterations"]}]
     cs = nh.cpu_solver()
     t0 = time.perf_counter()
     cs.iterations(GM_ITERS, 0.5)
@@ -769,11 +860,13 @@ def main() -> None:
         fail(f"{syncs} host syncs inside an iteration block; expected 0")
 
     # ------------------------------------------------- 6-9. the later slices
-    wide_launches = phase_wide(card, errs, times, flush)
+    paths.append(phase_wide(card, errs, times, flush))
+    paths.append(phase_python_pipeline(card, errs, times, flush))
+    paths += phase_batch(card, errs, times, flush)
+    paths.append(phase_serve(card, gm_lp, f32a["lower_bound"], errs, times, flush))
     del flush
-    phase_python_pipeline(card)
-    phase_batch(card)
-    phase_serve(card, gm_lp, f32a["lower_bound"])
+    print(f"[kernel] every bucket and fused launch of phases 2 and 6-9 matches its twin, "
+          f"max |diff| {errs}", flush=True)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "bdd_tpu"))
@@ -783,20 +876,24 @@ def main() -> None:
     src = "bdd_tpu_torch/csrc/uniform_sweep.cu"
     replaces = {"uniform_forward": "bdd_tpu/solver/pallas_uniform.py:112",
                 "uniform_backward": "bdd_tpu/solver/pallas_uniform.py:183"}
-    # the narrow body at gm50k float32 (launches of phase 3's solve), the wide
-    # body at the knapsack instance in float32 (launches of phase 6's solve)
-    rows = [(name, "", times[("gm50k", "float32")][name], launches[name]) for name in KERNELS]
-    rows += [(name, WIDE, times[("knapsack", "float32")][name], wide_launches[name])
-             for name in KERNELS]
-    print(json.dumps({"kernels": [
-        {"name": name + suffix, "route": "cuda", "source": src, "replaces": replaces[name],
-         "launches": count, "launches_per_iteration": per_iteration[name],
-         "max_abs_err": errs[name + suffix], "ms": shape["ms"],
-         "cold_ms": shape["cold_ms"], "plain_ms": shape["plain_ms"],
-         "bound_ms": shape["bound_ms"], "bound_by": "bytes",
-         "bytes": shape["bytes"], "library_ms": None}
-        for name, suffix, shape, count in rows
-    ]}), flush=True)
+    # one row per kernel, body and path: the launches are those of the path's
+    # own run, the times and bytes those of its layout, max_abs_err the
+    # largest over every comparison of that body
+    rows = []
+    for path in paths:
+        for name in KERNELS:
+            e = times[(path["at"], path["dt"])][name]
+            count = path["launches"][name + path["suffix"]]
+            if count == 0:
+                fail(f"{name + path['suffix']} was never launched on the path {path['at']}")
+            rows.append({
+                "name": name + path["suffix"], "at": f"{path['at']} {path['dt']}",
+                "route": "cuda", "source": src, "replaces": replaces[name], "launches": count,
+                "launches_per_iteration": path["iterations"] and count / path["iterations"],
+                "max_abs_err": errs[name + path["suffix"]], "ms": e["ms"],
+                "cold_ms": e["cold_ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                "bound_by": "bytes", "bytes": e["bytes"], "library_ms": None})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -182,7 +182,7 @@ def test_cpu_solve_launches_no_kernel():
     api.BddSolver({"precision": "float"}, device="cpu").read_ilp(
         lp_string=fixtures.MATCHING_3x3
     ).solve(verbose=False)
-    assert sk.LAUNCHES == {"uniform_forward": 0, "uniform_backward": 0}
+    assert not any(sk.LAUNCHES.values())
 
 
 def test_port_never_imports_jax():

@@ -61,7 +61,7 @@ def test_solve_batch_serving():
     for k in (0, 1):
         assert res[k]["status"] == "solved"
         assert res[k]["lower_bound"] <= opts[k] + 1e-4  # weak duality
-    assert sk.LAUNCHES == {"uniform_forward": 0, "uniform_backward": 0}  # CPU: the twins
+    assert not any(sk.LAUNCHES.values())  # CPU: the twins
 
 
 def test_solve_batch_rounds_feasible():

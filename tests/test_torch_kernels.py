@@ -70,11 +70,27 @@ def setup(name, dtype, device, iters=3):
     return host, st, dl, dh
 
 
+def launches(narrow=0, wide=0):
+    """``sk.LAUNCHES`` after ``narrow`` / ``wide`` launches of either kernel."""
+    return {k + body: n for k in sk.KERNELS for body, n in (("", narrow), (sk.WIDE, wide))}
+
+
 def assert_identical(out, ref):
     for x, y in zip(out, ref):
         assert x.dtype == y.dtype and x.shape == y.shape
         assert torch.equal(torch.isfinite(x), torch.isfinite(y))
         assert torch.equal(torch.nan_to_num(x), torch.nan_to_num(y))
+
+
+def assert_same_bits(out, ref):
+    """As ``assert_identical`` and also the sign of every zero: the same NaN
+    pattern, and the same bit pattern everywhere else."""
+    for x, y in zip(out, ref):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        nan = torch.isnan(x)
+        assert torch.equal(nan, torch.isnan(y))
+        bits = torch.int32 if x.dtype == torch.float32 else torch.int64
+        assert torch.equal(x.view(bits)[~nan], y.view(bits)[~nan])
 
 
 def test_wide_instance_covers_every_kernel_width():
@@ -93,7 +109,7 @@ def test_wrappers_on_cpu_run_the_twins(name):
         bargs = (g, fwd[0], fwd[1], fwd[3], 0.5, dl[k], dh[k])
         assert_identical(sk.bucket_backward_iteration_cuda(*bargs),
                          uf.bucket_backward_iteration(*bargs))
-    assert sk.LAUNCHES == {"uniform_forward": 0, "uniform_backward": 0}
+    assert not any(sk.LAUNCHES.values())
 
 
 @pytest.fixture
@@ -121,7 +137,7 @@ def test_half_sweeps_equal_twins(cuda_device, name, precision):
         torch.cuda.synchronize()
         assert_identical(bwd, uf.bucket_backward_iteration(*bargs))
     n = len(host.geom.buckets)
-    assert sk.LAUNCHES == {"uniform_forward": n, "uniform_backward": n}
+    assert sk.LAUNCHES == launches(narrow=n)
 
 
 @pytest.mark.cuda
@@ -234,7 +250,7 @@ def test_fused_wrappers_on_cpu_equal_twins_per_bucket(precision):
                         (sk.backward_iteration_cuda, uf.bucket_backward_iteration)):
         out = fused(host.geom, lo, hi, fr, 0.5, dl, dh)
         assert_identical(out, twins_bucket_by_bucket(twin, host.geom, lo, hi, fr, 0.5, dl, dh))
-    assert sk.LAUNCHES == {"uniform_forward": 0, "uniform_backward": 0}
+    assert not any(sk.LAUNCHES.values())
 
 
 @pytest.mark.cuda
@@ -294,7 +310,7 @@ def test_fused_iteration_counts_one_launch_per_half_sweep(cuda_device):
     st0 = uf.init_uniform_state(host, nh.objective())
     sk.reset_launch_counts()
     a = uf.iterations(host.geom, st0, 4, 0.5)
-    assert sk.LAUNCHES == {"uniform_forward": 4, "uniform_backward": 4}
+    assert sk.LAUNCHES == launches(narrow=4)
     b = uf.iterations(host.geom, st0, 4, 0.5, sweeps=uf.TWIN_SWEEPS)
     for f in ("lo", "hi", "def_mm", "cft"):
         assert_identical(getattr(a, f), getattr(b, f))
@@ -331,10 +347,46 @@ def test_mixed_layout_counts_a_narrow_and_a_wide_launch(cuda_device, precision):
     out_f = sk.forward_iteration_cuda(host.geom, lo, hi, fr, 0.5, dl, dh)
     out_b = sk.backward_iteration_cuda(host.geom, lo, hi, fr, 0.5, dl, dh)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == {"uniform_forward": 2, "uniform_backward": 2}
-    assert sk.WIDE_LAUNCHES == {"uniform_forward": 1, "uniform_backward": 1}
+    assert sk.LAUNCHES == launches(narrow=1, wide=1)
     assert uf.TWIN_SWEEP_CALLS == calls  # no twin ran on the card
     assert_identical(out_f, twins_bucket_by_bucket(
         uf.bucket_forward_iteration, host.geom, lo, hi, fr, 0.5, dl, dh))
     assert_identical(out_b, twins_bucket_by_bucket(
         uf.bucket_backward_iteration, host.geom, lo, hi, fr, 0.5, dl, dh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("zero_costs", [False, True], ids=["random", "ties-at-zero"])
+@pytest.mark.parametrize("shape", [(8, 7, 40), (64, 7, 9), (256, 5, 8)],
+                         ids=lambda s: "P%d-H%d-B%d" % s)
+def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_costs, precision):
+    """Outside what a solve produces: -inf deltas (inf - inf, so NaN costs
+    reach the frontier relaxation, whose minimum must keep them) and -0.0
+    among the costs and deltas; with ``zero_costs`` every finite cost and
+    frontier value is a zero, so every minimum is a tie of zeros. Kernel and
+    twin must agree on the NaN pattern and, elsewhere, on every bit."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    host, costs = synthetic_host([shape], dtype, cuda_device, seed=sum(shape))
+    rng = np.random.RandomState(1)
+    lo, hi, fr, dl, dh = (x.clone() for x in costs)
+    for x in (lo, hi, dl, dh):
+        if zero_costs:
+            x[torch.isfinite(x)] = 0.0
+        x[torch.from_numpy(rng.rand(len(x)) < 0.3).to(cuda_device)] = -0.0
+    if zero_costs:
+        fr[torch.isfinite(fr)] = 0.0
+    for x in (dl, dh):
+        x[torch.from_numpy(rng.rand(len(x)) < 0.1).to(cuda_device)] = -float("inf")
+    g = host.geom.buckets[0]
+    args = (g, lo.view(g.H, g.B), hi.view(g.H, g.B), fr.view(g.H, g.P, g.B), 0.5,
+            dl.view(g.H, g.B), dh.view(g.H, g.B))
+    seen_nan = False
+    for kernel, twin in ((sk.bucket_forward_iteration_cuda, uf.bucket_forward_iteration),
+                         (sk.bucket_backward_iteration_cuda, uf.bucket_backward_iteration)):
+        out = kernel(*args)
+        torch.cuda.synchronize()
+        ref = twin(*args)
+        assert_same_bits(out, ref)
+        seen_nan = seen_nan or bool(torch.isnan(ref[3]).any())
+    assert seen_nan  # the case is what it says: a NaN went through a frontier

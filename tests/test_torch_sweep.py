@@ -206,7 +206,7 @@ def test_wrappers_run_twins_on_cpu_without_launching():
     ref_b = tuf.bucket_backward_iteration(g, out[0], out[1], out[3], 0.5, tl[0], th[0])
     for a, b in zip(out_b, ref_b):
         assert torch.equal(a, b)
-    assert sk.LAUNCHES == {"uniform_forward": 0, "uniform_backward": 0}
+    assert not any(sk.LAUNCHES.values())
 
 
 def test_nvcc_command_targets_sm90a_without_fast_math():

@@ -4,7 +4,7 @@
 width rounded up to a power of two and the XLA scan sweeps any P. The port
 stores such buckets with a two-byte arc record and sweeps them with the wide
 body of its kernels (on the card) or the twins (here), which gather and
-scatter by index instead of by one-hot masks.
+scatter by index at every width, not by the JAX package's one-hot masks.
 
 - float64, atol 1e-12: the twins against the XLA bucket functions of
   ``bdd_tpu.solver.uniform`` (never Pallas: it takes P <= 8), packed and
@@ -168,18 +168,67 @@ def test_widest_bucket_builds_and_sweeps_and_wider_is_refused():
         layout.launch_plan([(2 * P, 1, 8)], torch.float32, "cpu")
 
 
-def test_wide_twins_equal_the_one_hot_formulation(monkeypatch):
-    """The index gather / scatter of the wide twins gives what the narrow
-    twins' one-hot masks give on the same bucket (bit for bit)."""
+def _one_hot_child_cft(kind, slot, cft_next, P):
+    """``tuf._child_cft`` as a one-hot mask over the slot axis, [P, P, B]."""
+    iota = torch.arange(P, dtype=slot.dtype).view(P, 1, 1)
+    gathered = torch.where(slot.unsqueeze(-3) == iota, cft_next.unsqueeze(-2), 0.0).sum(-3)
+    return torch.where(kind == layout.ARC_TOP, 0.0,
+                       torch.where(kind == layout.ARC_BOT, tuf.INF, gathered))
+
+
+def _one_hot_relax_next(vals, kind, slot, valid, P):
+    """``tuf._relax_next`` as a masked min-reduction over [P, P, B]."""
+    iota = torch.arange(P, dtype=slot.dtype).view(P, 1, 1)
+    mask = (slot[None] == iota) & (kind[None] == layout.ARC_INTERNAL) & valid[None]
+    return torch.where(mask, vals[None], tuf.INF).amin(dim=1)
+
+
+@pytest.mark.parametrize("P", [4, 64])
+def test_wide_twins_equal_the_one_hot_formulation(monkeypatch, P):
+    """The index gather / scatter of the twins gives what the one-hot masks
+    of the JAX package's formulation give on the same bucket (bit for bit),
+    below and above the narrow record's 32 slots."""
     from tests.test_torch_kernels import assert_identical
 
-    host, (lo, hi, fr, dl, dh) = synthetic_host([(64, 6, 9)], torch.float64, "cpu", seed=5)
+    host, (lo, hi, fr, dl, dh) = synthetic_host([(P, 6, 9)], torch.float64, "cpu", seed=5)
     g = host.geom.buckets[0]
-    args = (g, lo.view(6, 9), hi.view(6, 9), fr.view(6, 64, 9), 0.5, dl.view(6, 9), dh.view(6, 9))
-    by_index = (tuf.bucket_forward_iteration(*args), tuf.bucket_backward_iteration(*args),
-                (tuf.bucket_forward_run(g, args[1], args[2]),))
-    monkeypatch.setattr(tuf, "NARROW_P", 4096)  # send the same bucket down the one-hot path
-    one_hot = (tuf.bucket_forward_iteration(*args), tuf.bucket_backward_iteration(*args),
-               (tuf.bucket_forward_run(g, args[1], args[2]),))
-    for a, b in zip(by_index, one_hot):
+    args = (g, lo.view(6, 9), hi.view(6, 9), fr.view(6, P, 9), 0.5, dl.view(6, 9), dh.view(6, 9))
+
+    def run():
+        return (tuf.bucket_forward_iteration(*args), tuf.bucket_backward_iteration(*args),
+                (tuf.bucket_forward_run(g, args[1], args[2]),),
+                tuf.bucket_min_marginals(g, args[1], args[2]))
+
+    by_index = run()
+    monkeypatch.setattr(tuf, "_child_cft", _one_hot_child_cft)
+    monkeypatch.setattr(tuf, "_relax_next", _one_hot_relax_next)
+    for a, b in zip(by_index, run()):
         assert_identical(a, b)
+
+
+def test_relaxation_propagates_nan_and_meets_no_negative_zero():
+    """What the wide kernel's atomic min is held to. A NaN among the arrivals
+    at a slot stays a NaN (as ``torch.minimum``). And the sign of a zero
+    minimum cannot depend on the order of the arrivals, because no arrival is
+    -0.0: with -0.0 costs, deltas and cft everywhere, every zero of the
+    forward frontier still comes out as +0.0."""
+    P = 64
+    vals = torch.zeros((P, 3), dtype=torch.float64)
+    vals[5, 1] = float("nan")
+    kind = torch.full((P, 3), layout.ARC_INTERNAL, dtype=torch.int32)
+    slot = torch.full((P, 3), 7, dtype=torch.int32)
+    nxt = tuf._relax_next(vals, kind, slot, torch.ones((P, 3), dtype=torch.bool), P)
+    assert torch.isnan(nxt[7, 1]) and nxt[7, 0] == 0 and nxt[7, 2] == 0
+    assert torch.isinf(nxt[:7]).all() and torch.isinf(nxt[8:]).all()
+
+    host, (lo, hi, fr, dl, dh) = synthetic_host([(P, 6, 9)], torch.float64, "cpu", seed=11)
+    g = host.geom.buckets[0]
+    zeros = [torch.where(torch.isfinite(x), -0.0, x) for x in (lo, hi, fr, dl, dh)]
+    lo, hi, fr, dl, dh = zeros
+    assert torch.signbit(lo[torch.isfinite(lo)]).all()
+    out = tuf.bucket_forward_iteration(g, lo.view(6, 9), hi.view(6, 9), fr.view(6, P, 9), 0.5,
+                                       dl.view(6, 9), dh.view(6, 9))
+    cfr = out[3]
+    assert (cfr == 0).any()
+    assert not torch.signbit(cfr[cfr == 0]).any()
+    assert not torch.isnan(cfr).any()
