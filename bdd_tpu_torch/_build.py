@@ -142,8 +142,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     # warps a block and pmax as the values a shared-memory row
     sig = [vp, i, i, i, i, i] + [vp] * 7 + [d] + [vp] * 6
     for suffix in ("f32", "f64"):
-        for name in ("uniform_forward", "uniform_backward",
-                     "uniform_forward_wide", "uniform_backward_wide"):
+        for name in ("uniform_forward", "uniform_backward", "uniform_backward_run",
+                     "uniform_forward_wide", "uniform_backward_wide",
+                     "uniform_backward_run_wide"):
             f = getattr(lib, f"{name}_{suffix}")
             f.argtypes, f.restype = sig, i
 

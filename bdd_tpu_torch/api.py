@@ -18,6 +18,9 @@ of preprocessing only: either way the uniform solver lives on ``device``
 Relaxation solver names:
     "uniform mma" / "cuda parallel mma" / "jax mma" / "mma" -> bucketed
         uniform backend on the device
+    "lbfgs parallel mma" / "lbfgs cuda parallel mma" / "lbfgs jax mma" ->
+        L-BFGS outer loop over the uniform backend (config block "lbfgs")
+    "subgradient" -> adaptive subgradient ascent over the uniform backend
     "sequential mma", "parallel mma" / "ref mma" -> numpy backends on the host
 Every other name of ``bdd_tpu.api`` raises ``NotImplementedError`` naming the
 ROADMAP.md item that ports it, as do the keys ``"tighten"`` and
@@ -69,6 +72,8 @@ DEFAULT_CONFIG = {
 }
 
 UNIFORM_SOLVERS = ("uniform mma", "cuda parallel mma", "jax mma", "mma")
+LBFGS_SOLVERS = ("lbfgs parallel mma", "lbfgs cuda parallel mma", "lbfgs jax mma")
+OUTER_SOLVERS = LBFGS_SOLVERS + ("subgradient",)  # outer loops over the uniform backend
 HOST_SOLVERS = ("sequential mma", "parallel mma", "ref mma")
 _ORDERS = ("input", "bfs", "cuthill", "minimum degree", "mindegree")
 _EXPORT_KEYS = ("export lp", "export bdd lp", "export bdd graph", "print statistics",
@@ -81,10 +86,6 @@ _NOT_PORTED = {
 }
 # relaxation solver of bdd_tpu.api -> ROADMAP.md item that ports it
 _SOLVERS_NOT_PORTED = {
-    "lbfgs parallel mma": "Queue 1 item 9 (outer loops)",
-    "lbfgs cuda parallel mma": "Queue 1 item 9 (outer loops)",
-    "lbfgs jax mma": "Queue 1 item 9 (outer loops)",
-    "subgradient": "Queue 1 item 9 (outer loops)",
     "smooth mma": "Queue 1 item 11 (smooth solvers)",
     "mma smooth": "Queue 1 item 11 (smooth solvers)",
     "parallel mma smooth": "Queue 1 item 11 (smooth solvers)",
@@ -106,6 +107,18 @@ def _merge(base: dict, override: dict) -> dict:
         else:
             out[k] = v
     return out
+
+
+def _lbfgs_kwargs(config: dict) -> dict:
+    """Accept the reference's spaced JSON keys of the "lbfgs" block."""
+    rename = {
+        "history size": "history_size",
+        "initial step size": "init_step_size",
+        "required relative lb increase": "required_relative_lb_increase",
+        "step size decrease factor": "step_size_decrease_factor",
+        "step size increase factor": "step_size_increase_factor",
+    }
+    return {rename.get(k, k): v for k, v in config.get("lbfgs", {}).items()}
 
 
 def _not_ported(what: str, item: str):
@@ -166,7 +179,7 @@ class BddSolver:
         name = cfg["relaxation solver"]
         if name in _SOLVERS_NOT_PORTED:
             raise _not_ported(f"relaxation solver {name!r}", _SOLVERS_NOT_PORTED[name])
-        if name not in UNIFORM_SOLVERS + HOST_SOLVERS:
+        if name not in UNIFORM_SOLVERS + OUTER_SOLVERS + HOST_SOLVERS:
             raise ValueError(f"unknown relaxation solver {name!r}")
         if cfg["variable order"] not in _ORDERS:
             raise ValueError(f"unknown variable order {cfg['variable order']!r}")
@@ -332,8 +345,8 @@ class BddSolver:
             from bdd_tpu_torch.solver.ref_solver import RefSolver
 
             self.solver = RefSolver(self.flat, obj, dtype=np_dtype)
-        elif name in UNIFORM_SOLVERS:
-            self.solver = UniformSolver.from_collection(
+        elif name in UNIFORM_SOLVERS + OUTER_SOLVERS:
+            base = UniformSolver.from_collection(
                 self.pre.collection,
                 self.pre.total_nr_variables(),
                 obj,
@@ -341,6 +354,15 @@ class BddSolver:
                 dtype=self.dtype,
                 device=self.device,
             )
+            if name in LBFGS_SOLVERS:
+                from bdd_tpu_torch.solver.lbfgs import LbfgsSolver
+
+                base = LbfgsSolver(base, **_lbfgs_kwargs(self.config))
+            elif name == "subgradient":
+                from bdd_tpu_torch.solver.subgradient import SubgradientSolver
+
+                base = SubgradientSolver(base)
+            self.solver = base
         else:  # _check_config admits no other name
             raise ValueError(f"unknown relaxation solver {name!r}")
         return self
@@ -407,12 +429,16 @@ class BddSolver:
             return _incremental_biased()
         if method == "best":
             # the heuristics perturb the solver costs in place: snapshot the
-            # dual state so each starts from the same converged point
-            snap = getattr(self.solver, "state", None)
+            # dual state so each starts from the same converged point (an
+            # outer-loop wrapper like LbfgsSolver holds the state on .base)
+            target = self.solver
+            if not hasattr(target, "state") and hasattr(target, "base"):
+                target = target.base
+            snap = getattr(target, "state", None)
             best_sol, best_obj = None, math.inf
             for i, fn in enumerate((_incremental, _wedelin, _incremental_biased)):
                 if i and snap is not None:
-                    self.solver.state = snap
+                    target.state = snap
                 sol = fn()
                 if sol is None:
                     continue

@@ -6,7 +6,10 @@
 // One launch runs the whole half-sweep of EVERY bucket of up to 32 slots of
 // a solve, and a second one that of the wider buckets (the last section): per hop
 // the min-marginals, the MMA cost update, and the frontier (forward cfr) or
-// costs-to-terminal (backward cft). Semantics are those of the XLA scan in
+// costs-to-terminal (backward cft). uniform_backward_run is the backward body
+// without the cost update: the costs-to-terminal of given costs
+// (bucket_backward_run, bdd_tpu/solver/uniform.py:1208), which the JAX
+// package runs as a scan inside its jitted programs. Semantics are those of the XLA scan in
 // bdd_tpu/solver/uniform.py:1181-1373 and of the torch twins in
 // bdd_tpu_torch/solver/uniform.py, with real IEEE infinities (not the Pallas
 // BIG=1e30 stand-in).
@@ -77,9 +80,9 @@ struct Bucket {
   long long P, H, B;
   long long first_block;  // first block of the grid that works on it
   long long row_off;      // elements, into the [H, B] buffers
-  long long node_off;     // elements, into the [H, P, B] buffers
+  long long node_off;     // elements, into the frontier buffers
   long long arc_off;      // bytes, into the geometry records
-  long long stages;       // hops in flight, 1..MAX_STAGES
+  long long stages;       // hops in flight: 1..MAX_STAGES (narrow), 0..MAX_STAGES (wide)
 };
 
 template <typename T>
@@ -94,11 +97,12 @@ struct Args {
   const T* __restrict__ alpha;
   const T* __restrict__ omega_arr;  // [H, B] or null: scalar omega
   T omega;
-  const T* __restrict__ frontier;  // [H, P, B]: cft (forward) / cfr (backward)
+  // frontiers: [H, P, B] per narrow bucket, [H, B, P] per wide bucket
+  const T* __restrict__ frontier;  // cft (forward) / cfr (backward) / null (run)
   T* __restrict__ out_lo;
   T* __restrict__ out_hi;
   T* __restrict__ out_mm;
-  T* __restrict__ out_frontier;  // [H, P, B]: cfr (forward) / cft (backward)
+  T* __restrict__ out_frontier;  // cfr (forward) / cft (backward, run)
 };
 
 template <typename T>
@@ -247,11 +251,21 @@ __device__ __forceinline__ int record_byte(const uint32_t (&w)[WORDS], int i) {
 }
 
 // ------------------------------------------------------------------ bodies
-template <typename T, int P, bool FORWARD>
+// MODE of a body: the forward half-sweep, the backward half-sweep, or the
+// backward RUN: costs-to-terminal of the given costs with no cost update
+// (bucket_backward_run, bdd_tpu/solver/uniform.py:1208). The run is the
+// backward relaxation with new costs = old costs; it reads the records, lo
+// and hi and writes only the frontier.
+constexpr int MODE_FORWARD = 0;
+constexpr int MODE_BACKWARD = 1;
+constexpr int MODE_BACKWARD_RUN = 2;
+
+template <typename T, int P, int MODE>
 __device__ __forceinline__ void sweep_column(const Args<T>& a, const Bucket& bk,
                                              unsigned char* smem, int tile_index) {
   using C = Cell<T, P>;
   constexpr int G = C::G, SZ = C::SZ;
+  constexpr bool FORWARD = MODE == MODE_FORWARD, RUN = MODE == MODE_BACKWARD_RUN;
   const int tile = (int)blockDim.x, t = (int)threadIdx.x;  // one thread a column of the tile
   const int H = (int)bk.H, B = (int)bk.B;
   const int b = tile_index * tile + t;
@@ -272,14 +286,16 @@ __device__ __forceinline__ void sweep_column(const Args<T>& a, const Bucket& bk,
   const uint8_t* g_rec = a.arcs + bk.arc_off + first * G;
   const T* g_lo = a.lo + row0;
   const T* g_hi = a.hi + row0;
-  const T* g_dl = a.din_lo + row0;
-  const T* g_dh = a.din_hi + row0;
-  const T* g_al = a.alpha + row0;
-  const T* g_om = a.omega_arr ? a.omega_arr + row0 : nullptr;
-  const T* g_fr = a.frontier + bk.node_off + (size_t)(FORWARD ? 1 : H - 1) * P * B + b;
-  T* o_lo = a.out_lo + row0;
-  T* o_hi = a.out_hi + row0;
-  T* o_mm = a.out_mm + row0;
+  // the run has none of these (null pointers): never formed into addresses
+  const T* g_dl = RUN ? nullptr : a.din_lo + row0;
+  const T* g_dh = RUN ? nullptr : a.din_hi + row0;
+  const T* g_al = RUN ? nullptr : a.alpha + row0;
+  const T* g_om = !RUN && a.omega_arr ? a.omega_arr + row0 : nullptr;
+  const T* g_fr =
+      RUN ? nullptr : a.frontier + bk.node_off + (size_t)(FORWARD ? 1 : H - 1) * P * B + b;
+  T* o_lo = RUN ? nullptr : a.out_lo + row0;
+  T* o_hi = RUN ? nullptr : a.out_hi + row0;
+  T* o_mm = RUN ? nullptr : a.out_mm + row0;
   T* o_fr = a.out_frontier + bk.node_off + first * P - (size_t)b * (P - 1);
 
   auto start_copies = [&](int i, unsigned char* cell) {  // called for i = 0, 1, 2, ...
@@ -293,25 +309,27 @@ __device__ __forceinline__ void sweep_column(const Args<T>& a, const Bucket& bk,
     }
     cp_async<SZ>(C::value_at(cell, 0), g_lo);
     cp_async<SZ>(C::value_at(cell, 1), g_hi);
-    cp_async<SZ>(C::value_at(cell, 2), g_dl);
-    cp_async<SZ>(C::value_at(cell, 3), g_dh);
-    cp_async<SZ>(C::value_at(cell, 4), g_al);
-    if (g_om) {
-      cp_async<SZ>(C::value_at(cell, 5), g_om);
-      g_om += step;
-    }
-    if (!FORWARD || i + 1 < H) {
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-        cp_async<SZ>(C::value_at(cell, LAYER_ROWS + p), g_fr + (size_t)p * B);
-    }
     g_rec += step * G;
     g_lo += step;
     g_hi += step;
-    g_dl += step;
-    g_dh += step;
-    g_al += step;
-    g_fr += step * P;
+    if constexpr (!RUN) {
+      cp_async<SZ>(C::value_at(cell, 2), g_dl);
+      cp_async<SZ>(C::value_at(cell, 3), g_dh);
+      cp_async<SZ>(C::value_at(cell, 4), g_al);
+      if (g_om) {
+        cp_async<SZ>(C::value_at(cell, 5), g_om);
+        g_om += step;
+      }
+      if (!FORWARD || i + 1 < H) {
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          cp_async<SZ>(C::value_at(cell, LAYER_ROWS + p), g_fr + (size_t)p * B);
+      }
+      g_dl += step;
+      g_dh += step;
+      g_al += step;
+      g_fr += step * P;
+    }
   };
   for (int s = 0; s < S; ++s) {
     if (s < H) start_copies(s, ring + s * slot_stride);
@@ -337,10 +355,10 @@ __device__ __forceinline__ void sweep_column(const Args<T>& a, const Bucket& bk,
     C::load_record(cell, w);
     const bool lval = (record_byte(w, P) >> 7) != 0;
     const T lo = C::value(cell, 0), hi = C::value(cell, 1);
-    const T om = a.omega_arr ? C::value(cell, 5) : a.omega;
-    T nl, nh, mm;
+    const T om = !RUN && a.omega_arr ? C::value(cell, 5) : a.omega;
+    T nl = lo, nh = hi, mm = T(0);
 
-    if (FORWARD) {
+    if constexpr (FORWARD) {
       if (record_byte(w, P + 1) >> 7) {  // root restart (also the hop-0 init)
 #pragma unroll
         for (int p = 0; p < P; ++p) fr[p] = p == 0 ? T(0) : inf;
@@ -403,24 +421,29 @@ __device__ __forceinline__ void sweep_column(const Args<T>& a, const Bucket& bk,
         tl[p] = lk == ARC_TOP ? T(0) : (lk == ARC_BOT ? inf : gl);
         th[p] = hk == ARC_TOP ? T(0) : (hk == ARC_BOT ? inf : gh);
         nv[p] = (lb >> 7) != 0;
-        const T cf = C::value(cell, LAYER_ROWS + p);
-        m0 = min_v(m0, nv[p] ? cf + lo + tl[p] : inf);
-        m1 = min_v(m1, nv[p] ? cf + hi + th[p] : inf);
+        if constexpr (!RUN) {
+          const T cf = C::value(cell, LAYER_ROWS + p);
+          m0 = min_v(m0, nv[p] ? cf + lo + tl[p] : inf);
+          m1 = min_v(m1, nv[p] ? cf + hi + th[p] : inf);
+        }
       }
-      hop_cost_update(lo, hi, m0, m1, om, C::value(cell, 4), C::value(cell, 2),
-                      C::value(cell, 3), lval, nl, nh, mm);
+      if constexpr (!RUN)
+        hop_cost_update(lo, hi, m0, m1, om, C::value(cell, 4), C::value(cell, 2),
+                        C::value(cell, 3), lval, nl, nh, mm);
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         fr[p] = nv[p] ? min_v(nl + tl[p], nh + th[p]) : inf;
         o_fr[(size_t)p * B] = fr[p];
       }
     }
-    *o_lo = nl;
-    *o_hi = nh;
-    *o_mm = mm;
-    o_lo += step;
-    o_hi += step;
-    o_mm += step;
+    if constexpr (!RUN) {
+      *o_lo = nl;
+      *o_hi = nh;
+      *o_mm = mm;
+      o_lo += step;
+      o_hi += step;
+      o_mm += step;
+    }
     o_fr += step * P;
   }
 }
@@ -428,7 +451,7 @@ __device__ __forceinline__ void sweep_column(const Args<T>& a, const Bucket& bk,
 // `launch` admits only a pmax of SUPPORTED P and the caller's table holds no
 // P above it (solver/sweep_kernels.py checks every row), so each block finds
 // its case below.
-template <typename T, bool FORWARD, int PMAX>
+template <typename T, int MODE, int PMAX>
 __global__ void __launch_bounds__(MAX_TILE) sweep_kernel(Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   int k = 0;
@@ -436,17 +459,17 @@ __global__ void __launch_bounds__(MAX_TILE) sweep_kernel(Args<T> a) {
   const Bucket bk = a.table[k];
   const int tile_index = (int)((long long)blockIdx.x - bk.first_block);
   switch ((int)bk.P) {
-    case 1: sweep_column<T, 1, FORWARD>(a, bk, smem, tile_index); break;
-    case 2: sweep_column<T, 2, FORWARD>(a, bk, smem, tile_index); break;
-    case 4: if constexpr (PMAX >= 4) sweep_column<T, 4, FORWARD>(a, bk, smem, tile_index); break;
-    case 8: if constexpr (PMAX >= 8) sweep_column<T, 8, FORWARD>(a, bk, smem, tile_index); break;
-    case 16: if constexpr (PMAX >= 16) sweep_column<T, 16, FORWARD>(a, bk, smem, tile_index); break;
-    case 32: if constexpr (PMAX >= 32) sweep_column<T, 32, FORWARD>(a, bk, smem, tile_index); break;
+    case 1: sweep_column<T, 1, MODE>(a, bk, smem, tile_index); break;
+    case 2: sweep_column<T, 2, MODE>(a, bk, smem, tile_index); break;
+    case 4: if constexpr (PMAX >= 4) sweep_column<T, 4, MODE>(a, bk, smem, tile_index); break;
+    case 8: if constexpr (PMAX >= 8) sweep_column<T, 8, MODE>(a, bk, smem, tile_index); break;
+    case 16: if constexpr (PMAX >= 16) sweep_column<T, 16, MODE>(a, bk, smem, tile_index); break;
+    case 32: if constexpr (PMAX >= 32) sweep_column<T, 32, MODE>(a, bk, smem, tile_index); break;
     default: break;
   }
 }
 
-template <typename T, bool FORWARD>
+template <typename T, int MODE>
 int launch(const void* table, int nr_buckets, int nr_blocks, int tile, int pmax,
            int smem_bytes, const void* arcs, const void* lo, const void* hi,
            const void* din_lo, const void* din_hi, const void* alpha,
@@ -462,11 +485,11 @@ int launch(const void* table, int nr_buckets, int nr_blocks, int tile, int pmax,
                   (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
   cudaStream_t s = (cudaStream_t)stream;
   if (pmax <= 2)
-    sweep_kernel<T, FORWARD, 2><<<nr_blocks, tile, smem_bytes, s>>>(a);
+    sweep_kernel<T, MODE, 2><<<nr_blocks, tile, smem_bytes, s>>>(a);
   else if (pmax <= 8)
-    sweep_kernel<T, FORWARD, 8><<<nr_blocks, tile, smem_bytes, s>>>(a);
+    sweep_kernel<T, MODE, 8><<<nr_blocks, tile, smem_bytes, s>>>(a);
   else
-    sweep_kernel<T, FORWARD, 32><<<nr_blocks, tile, smem_bytes, s>>>(a);
+    sweep_kernel<T, MODE, 32><<<nr_blocks, tile, smem_bytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -474,15 +497,45 @@ int launch(const void* table, int nr_buckets, int nr_blocks, int tile, int pmax,
 // Buckets wider than 32 slots (two bytes an arc: kind | slot << 2 | flag <<
 // 15) run in a launch of their own, over a table of their own. One WARP owns
 // one column: its lanes stride over the P slots, the column's frontier row
-// lies in the warp's shared memory (the next row beside it), the min over
-// slots is a __shfl_xor_sync butterfly, and the forward relaxation scatters
-// into the next row with a shared-memory atomicMin on an order-preserving
-// unsigned image of the value. A minimum is exact in any order, and every sum
-// is formed as the twins form it, so the results equal the twins' bit for
-// bit. Frontier rows in device memory are
-// [P, B] with B innermost, so a warp's loads and stores of them are strided;
-// a block takes up to 8 neighbouring columns so that its warps share sectors.
-// Only __syncwarp orders the shared rows: a warp reads and writes its own.
+// lies in the warp's shared memory (the row being built beside it), the min
+// over slots is a __shfl_xor_sync butterfly, and the forward relaxation
+// scatters into the next row with a shared-memory atomicMin on an
+// order-preserving unsigned image of the value. A minimum is exact in any
+// order, and every sum is formed as the twins form it, so the results equal
+// the twins' bit for bit. Tensor cores have no part in it: the work is a
+// min-plus relaxation over a sparse arc set that differs in every column.
+//
+// What the body does about the card (it is bound by bytes: about 3 KB a hop
+// and column at P = 256):
+//  * Frontier rows of wide buckets lie in device memory with the SLOT
+//    innermost ([H, B, P]; solver/layout.py gives the [H, P, B] view of
+//    them), so the row of a column and hop is one contiguous run of P values
+//    like its arc record, and a warp moves either with whole 128-byte lines.
+//  * Everything a hop reads from device memory (arc record, the incoming
+//    frontier row, the layer scalars) depends on no earlier hop, so the warp
+//    copies it S hops ahead into a ring of S + 1 slots of its own shared
+//    memory with cp.async (16 bytes a lane where the row is 16-byte aligned,
+//    else a value or an arc pair a lane) and waits with cp.async.wait_group
+//    only for the hop it is about to compute, then __syncwarp (a lane reads
+//    what other lanes copied). The arc record is read from shared memory in
+//    both passes of a hop, once from device memory.
+//  * The forward frontier stays in key form from hop to hop: the pass that
+//    takes the min-marginals decodes it, stores it and sets the next row to
+//    the key of +inf; one __syncwarp; the scatter pass; one __syncwarp. The
+//    backward hop has one __syncwarp.
+//  * Shared memory is dynamic, up to the 227 KB a block may opt into, so the
+//    widest bucket is bounded by the 13 bits of an arc's slot and not by
+//    shared memory (P = 8,192 in float64: one warp a block and no ring). The
+//    launch plan (solver/layout.py) picks the warps of a block from the
+//    number of columns: a layout of fewer columns than 8 a SM spreads over
+//    the SMs, a block of its own for every column if need be.
+//  * Measured at P = 256, H = 40 (chip_smoke.py, phase 6): one hop ahead
+//    (S = 1) is as good as any deeper ring, no ring costs a tenth, and what
+//    is left is the hop's own chain (two passes over P / 32 slots a lane, two
+//    butterflies, the scatter's atomics): about 2 us a forward hop for a warp
+//    alone on its SM, so a layout of few columns takes H times that whatever
+//    it moves, and 2,048 columns (16 warps an SM) take one and a half times
+//    that at 60-80% of the byte bound.
 // The key of a NaN is 0, below every number's, and 0 decodes to a NaN: the
 // atomic min propagates a NaN as min_v and the twins' scatter-min do. The
 // key orders -0.0 below +0.0, which no order of arrivals can show: a frontier
@@ -526,12 +579,34 @@ __device__ __forceinline__ T warp_min(T v) {
 
 constexpr int WIDE_SLOT_MASK = 8191;
 constexpr int WIDE_MAX_WARPS = 8;
+constexpr int WIDE_SCALARS = 8;  // values a ring slot keeps for the layer: lo hi din_lo din_hi alpha omega
+constexpr int MAX_DYNAMIC_SMEM = 232448;  // 227 KB: the most a block may opt into
 
-template <typename T, bool FORWARD>
-__global__ void __launch_bounds__(32 * WIDE_MAX_WARPS) sweep_wide_kernel(Args<T> a, int row) {
+__host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
+
+// the warp copies `bytes` from device to shared memory: 16 bytes a lane where
+// both sides allow, else UNIT bytes a lane (an arc pair, or a value)
+template <int UNIT>
+__device__ __forceinline__ void warp_copy_async(unsigned char* smem, const unsigned char* gmem,
+                                                int bytes, bool vec16, int lane) {
+  if (vec16) {
+    for (int c = lane * 16; c < bytes; c += 32 * 16) cp_async<16>(smem + c, gmem + c);
+  } else {
+    for (int c = lane * UNIT; c < bytes; c += 32 * UNIT) cp_async<UNIT>(smem + c, gmem + c);
+  }
+}
+
+// A warp's shared memory (`warp_bytes`, sized by the plan for the widest
+// bucket): two frontier rows of pad16(P values), then S + 1 ring slots of
+// [arc record, pad16(4P) | incoming frontier row, pad16(P values) |
+//  WIDE_SCALARS values]. solver/layout.py computes the same sizes.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(32 * WIDE_MAX_WARPS) sweep_wide_kernel(Args<T> a, int warp_bytes) {
   extern __shared__ __align__(16) unsigned char smem[];
   using K = Key<T>;
   using U = typename K::U;
+  constexpr bool FORWARD = MODE == MODE_FORWARD, RUN = MODE == MODE_BACKWARD_RUN;
+  constexpr int SZ = (int)sizeof(T);
   const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
   const int warps = (int)blockDim.x >> 5;
   int k = 0;
@@ -541,32 +616,87 @@ __global__ void __launch_bounds__(32 * WIDE_MAX_WARPS) sweep_wide_kernel(Args<T>
   const int b = (int)((long long)blockIdx.x - bk.first_block) * warps + warp;
   if (b >= B) return;  // the whole warp leaves; no block barrier below
   const T inf = inf_v<T>();
-  T* cur = (T*)smem + (size_t)warp * 2 * row;  // forward: cfr of this hop; backward: cft of hop h+1
-  T* nxt = cur + row;                          // the row being built
-  for (int p = lane; p < P; p += 32) cur[p] = inf;
+  const int S = min((int)bk.stages, MAX_STAGES), NS = S + 1;
+  const int row_bytes = pad16(P * SZ), rec_bytes = pad16(4 * P);
+  const int slot_bytes = rec_bytes + row_bytes + WIDE_SCALARS * SZ;
+  unsigned char* const mine = smem + (size_t)warp * warp_bytes;
+  // forward: cfr of this hop as keys, and the keys of the next; backward: cft
+  // of hop h+1, and the row of this hop
+  unsigned char* row_a = mine;
+  unsigned char* row_b = mine + row_bytes;
+  unsigned char* const ring = mine + 2 * row_bytes;
+
+  const unsigned char* g_arcs = a.arcs + bk.arc_off;
+  const T* g_front = RUN ? nullptr : a.frontier + bk.node_off;  // rows [H, B, P]
+  T* g_out = a.out_frontier + bk.node_off;
+  const bool vec_arcs = (4 * P) % 16 == 0 && ((size_t)g_arcs & 15) == 0;
+  const bool vec_front = !RUN && (P * SZ) % 16 == 0 && ((size_t)g_front & 15) == 0;
+
+  // step i works on hop h(i): forward i, backward H-1-i
+  auto start_copies = [&](int i, unsigned char* slot) {
+    const int h = FORWARD ? i : H - 1 - i;
+    const size_t col = (size_t)h * B + b;
+    warp_copy_async<4>(slot, g_arcs + col * 4 * P, 4 * P, vec_arcs, lane);
+    if constexpr (!RUN) {
+      // forward: cft of hop h+1 (none past the last hop); backward: cfr of hop h
+      if (!FORWARD || h + 1 < H)
+        warp_copy_async<SZ>(slot + rec_bytes,
+                            (const unsigned char*)(g_front + (col + (FORWARD ? B : 0)) * P),
+                            P * SZ, vec_front, lane);
+    }
+    T* sc = (T*)(slot + rec_bytes + row_bytes);
+    const size_t e = (size_t)bk.row_off + col;
+    const T* src = nullptr;
+    if (lane == 0) src = a.lo + e;
+    if (lane == 1) src = a.hi + e;
+    if constexpr (!RUN) {
+      if (lane == 2) src = a.din_lo + e;
+      if (lane == 3) src = a.din_hi + e;
+      if (lane == 4) src = a.alpha + e;
+      if (lane == 5 && a.omega_arr) src = a.omega_arr + e;
+    }
+    if (src) cp_async<SZ>(sc + lane, src);
+  };
+  for (int s = 0; s < S; ++s) {
+    if (s < H) start_copies(s, ring + s * slot_bytes);
+    cp_commit();  // one group a step, empty or not, so the count stays even
+  }
+  for (int p = lane; p < P; p += 32) {
+    if constexpr (FORWARD) ((U*)row_a)[p] = K::enc(inf);
+    else ((T*)row_a)[p] = inf;
+  }
   __syncwarp();
 
-  const uint16_t* arcs = (const uint16_t*)(a.arcs + bk.arc_off);
-  const T* fin = a.frontier + bk.node_off + b;
-  T* fout = a.out_frontier + bk.node_off + b;
+  int s_cur = 0, s_next = S;
   for (int i = 0; i < H; ++i) {
     const int h = FORWARD ? i : H - 1 - i;
-    const size_t e = (size_t)bk.row_off + (size_t)h * B + b;
-    const uint16_t* rec = arcs + ((size_t)h * B + b) * 2 * P;
-    const bool lval = (rec[P] >> 15) != 0;
-    const T lo = a.lo[e], hi = a.hi[e];
-    const T om = a.omega_arr ? a.omega_arr[e] : a.omega;
-    const T* fin_h = fin + (size_t)h * P * B;
-    T* fout_h = fout + (size_t)h * P * B;
-    T m0 = inf, m1 = inf, nl, nh, mm;
+    // refill the slot step i-1 read (every lane is past the __syncwarp that
+    // ended it), then wait for step i's own group: S may pend
+    if (i + S < H) start_copies(i + S, ring + s_next * slot_bytes);
+    cp_commit();
+    cp_wait(S);
+    __syncwarp();  // the other lanes' copies of this hop are visible
+    const unsigned char* slot = ring + s_cur * slot_bytes;
+    s_next = s_cur;
+    s_cur = s_cur + 1 == NS ? 0 : s_cur + 1;
 
-    if (FORWARD) {
+    const uint16_t* rec = (const uint16_t*)slot;
+    const T* fr = (const T*)(slot + rec_bytes);  // the incoming frontier row
+    const T* sc = (const T*)(slot + rec_bytes + row_bytes);
+    const size_t e = (size_t)bk.row_off + (size_t)h * B + b;
+    const T lo = sc[0], hi = sc[1];
+    T* fout_h = g_out + ((size_t)h * B + b) * P;
+    T m0 = inf, m1 = inf, nl = lo, nh = hi, mm = T(0);
+
+    if constexpr (FORWARD) {
+      U* cur = (U*)row_a;
+      U* nxt = (U*)row_b;
       if (rec[P + 1] >> 15) {  // root restart (also the hop-0 init)
-        for (int p = lane; p < P; p += 32) cur[p] = p == 0 ? T(0) : inf;
-        __syncwarp();
+        // each lane resets the slots it reads itself below: no barrier
+        for (int p = lane; p < P; p += 32) cur[p] = K::enc(p == 0 ? T(0) : inf);
       }
       const bool last = h + 1 >= H;
-      const T* cft_next = fin_h + (size_t)P * B;  // cft of hop h+1
+      const U key_inf = K::enc(inf);
       for (int p = lane; p < P; p += 32) {
         const int lb = rec[p], hb = rec[P + p];
         const int lk = lb & 3, ls = (lb >> 2) & WIDE_SLOT_MASK;
@@ -574,55 +704,51 @@ __global__ void __launch_bounds__(32 * WIDE_MAX_WARPS) sweep_wide_kernel(Args<T>
         // cft of the child: TOP -> 0, BOT -> inf, else cft[h+1][slot] (inf
         // past the last hop; 0 for a slot outside the bucket, as the twin)
         T tl = lk == ARC_TOP ? T(0) : inf, th = hk == ARC_TOP ? T(0) : inf;
-        if (lk == ARC_INTERNAL)
-          tl = ls < P ? (last ? inf : cft_next[(size_t)ls * B]) : T(0);
-        if (hk == ARC_INTERNAL)
-          th = hs < P ? (last ? inf : cft_next[(size_t)hs * B]) : T(0);
+        if (lk == ARC_INTERNAL) tl = ls < P ? (last ? inf : fr[ls]) : T(0);
+        if (hk == ARC_INTERNAL) th = hs < P ? (last ? inf : fr[hs]) : T(0);
         const bool nv = (lb >> 15) != 0;
-        const T f = cur[p];
+        const T f = K::dec(cur[p]);
         m0 = min_v(m0, nv ? f + lo + tl : inf);
         m1 = min_v(m1, nv ? f + hi + th : inf);
+        fout_h[p] = f;
+        nxt[p] = key_inf;
       }
       m0 = warp_min(m0);
       m1 = warp_min(m1);
-      hop_cost_update(lo, hi, m0, m1, om, a.alpha[e], a.din_lo[e], a.din_hi[e], lval, nl,
-                      nh, mm);
-      U* keys = (U*)nxt;
-      for (int p = lane; p < P; p += 32) {
-        fout_h[(size_t)p * B] = cur[p];
-        keys[p] = K::enc(inf);
-      }
-      __syncwarp();
+      hop_cost_update(lo, hi, m0, m1, a.omega_arr ? sc[5] : a.omega, sc[4], sc[2], sc[3],
+                      (rec[P] >> 15) != 0, nl, nh, mm);
+      __syncwarp();  // the next row is all +inf before any arrival
       // relax the frontier to h+1: nxt[k] = min over valid p with an
       // internal arc into k of cfr[p] + cost of that arc
       for (int p = lane; p < P; p += 32) {
         const int lb = rec[p], hb = rec[P + p];
         if (!(lb >> 15)) continue;
         const int ls = (lb >> 2) & WIDE_SLOT_MASK, hs = (hb >> 2) & WIDE_SLOT_MASK;
-        const T f = cur[p];
-        if ((lb & 3) == ARC_INTERNAL && ls < P) atomicMin(keys + ls, K::enc(f + nl));
-        if ((hb & 3) == ARC_INTERNAL && hs < P) atomicMin(keys + hs, K::enc(f + nh));
+        const T f = K::dec(cur[p]);
+        if ((lb & 3) == ARC_INTERNAL && ls < P) atomicMin(nxt + ls, K::enc(f + nl));
+        if ((hb & 3) == ARC_INTERNAL && hs < P) atomicMin(nxt + hs, K::enc(f + nh));
       }
-      __syncwarp();
-      for (int p = lane; p < P; p += 32) cur[p] = K::dec(keys[p]);
-      __syncwarp();
     } else {
+      const T* cur = (const T*)row_a;
+      T* nxt = (T*)row_b;
+      if constexpr (!RUN) {
       for (int p = lane; p < P; p += 32) {
-        const int lb = rec[p], hb = rec[P + p];
-        const int lk = lb & 3, ls = (lb >> 2) & WIDE_SLOT_MASK;
-        const int hk = hb & 3, hs = (hb >> 2) & WIDE_SLOT_MASK;
-        const T gl = ls < P ? cur[ls] : T(0), gh = hs < P ? cur[hs] : T(0);
-        const T tl = lk == ARC_TOP ? T(0) : (lk == ARC_BOT ? inf : gl);
-        const T th = hk == ARC_TOP ? T(0) : (hk == ARC_BOT ? inf : gh);
-        const bool nv = (lb >> 15) != 0;
-        const T cf = fin_h[(size_t)p * B];  // cfr of this hop
-        m0 = min_v(m0, nv ? cf + lo + tl : inf);
-        m1 = min_v(m1, nv ? cf + hi + th : inf);
+          const int lb = rec[p], hb = rec[P + p];
+          const int lk = lb & 3, ls = (lb >> 2) & WIDE_SLOT_MASK;
+          const int hk = hb & 3, hs = (hb >> 2) & WIDE_SLOT_MASK;
+          const T gl = ls < P ? cur[ls] : T(0), gh = hs < P ? cur[hs] : T(0);
+          const T tl = lk == ARC_TOP ? T(0) : (lk == ARC_BOT ? inf : gl);
+          const T th = hk == ARC_TOP ? T(0) : (hk == ARC_BOT ? inf : gh);
+          const bool nv = (lb >> 15) != 0;
+          const T cf = fr[p];  // cfr of this hop
+          m0 = min_v(m0, nv ? cf + lo + tl : inf);
+          m1 = min_v(m1, nv ? cf + hi + th : inf);
+        }
+        m0 = warp_min(m0);
+        m1 = warp_min(m1);
+        hop_cost_update(lo, hi, m0, m1, a.omega_arr ? sc[5] : a.omega, sc[4], sc[2], sc[3],
+                        (rec[P] >> 15) != 0, nl, nh, mm);
       }
-      m0 = warp_min(m0);
-      m1 = warp_min(m1);
-      hop_cost_update(lo, hi, m0, m1, om, a.alpha[e], a.din_lo[e], a.din_hi[e], lval, nl,
-                      nh, mm);
       for (int p = lane; p < P; p += 32) {
         const int lb = rec[p], hb = rec[P + p];
         const int lk = lb & 3, ls = (lb >> 2) & WIDE_SLOT_MASK;
@@ -632,40 +758,51 @@ __global__ void __launch_bounds__(32 * WIDE_MAX_WARPS) sweep_wide_kernel(Args<T>
         const T th = hk == ARC_TOP ? T(0) : (hk == ARC_BOT ? inf : gh);
         const T v = (lb >> 15) ? min_v(nl + tl, nh + th) : inf;
         nxt[p] = v;
-        fout_h[(size_t)p * B] = v;
+        fout_h[p] = v;
       }
-      __syncwarp();
-      T* const swap = cur;
-      cur = nxt;
-      nxt = swap;
     }
-    if (lane == 0) {
-      a.out_lo[e] = nl;
-      a.out_hi[e] = nh;
-      a.out_mm[e] = mm;
+    __syncwarp();  // the row is built, and the ring slot is free to refill
+    unsigned char* const swap = row_a;
+    row_a = row_b;
+    row_b = swap;
+    if constexpr (!RUN) {
+      if (lane == 0) {
+        a.out_lo[e] = nl;
+        a.out_hi[e] = nh;
+        a.out_mm[e] = mm;
+      }
     }
   }
 }
 
 // as `launch`, over the table of the wide buckets: `warps` columns a block
-// (one warp each), `row` values a shared-memory row (the widest bucket)
-template <typename T, bool FORWARD>
-int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int row,
+// (one warp each), `warp_bytes` of shared memory a warp
+template <typename T, int MODE>
+int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int warp_bytes,
                 int smem_bytes, const void* arcs, const void* lo, const void* hi,
                 const void* din_lo, const void* din_hi, const void* alpha,
                 const void* omega_arr, double omega, const void* frontier, void* out_lo,
                 void* out_hi, void* out_mm, void* out_frontier, void* stream) {
   if (nr_blocks == 0) return 0;
   if (warps < 1 || warps > WIDE_MAX_WARPS) return -2;
-  if (row < 1 || row > WIDE_SLOT_MASK + 1 || smem_bytes < warps * 2 * row * (int)sizeof(T))
+  if (warp_bytes < 1 || warp_bytes % 16 || smem_bytes != warps * warp_bytes ||
+      smem_bytes > MAX_DYNAMIC_SMEM)
     return -1;
+  static bool opted_in = false;  // above 48 KB a kernel must ask, once
+  if (!opted_in) {
+    const cudaError_t rc =
+        cudaFuncSetAttribute(sweep_wide_kernel<T, MODE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_DYNAMIC_SMEM);
+    if (rc != cudaSuccess) return (int)rc;
+    opted_in = true;
+  }
   const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
                   (const T*)lo,         (const T*)hi,       (const T*)din_lo,
                   (const T*)din_hi,     (const T*)alpha,    (const T*)omega_arr,
                   (T)omega,             (const T*)frontier, (T*)out_lo,
                   (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
-  sweep_wide_kernel<T, FORWARD><<<nr_blocks, 32 * warps, smem_bytes, (cudaStream_t)stream>>>(
-      a, row);
+  sweep_wide_kernel<T, MODE><<<nr_blocks, 32 * warps, smem_bytes, (cudaStream_t)stream>>>(
+      a, warp_bytes);
   return (int)cudaGetLastError();
 }
 
@@ -674,8 +811,10 @@ int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int
 // (table, nr_buckets, nr_blocks, tile, pmax, smem_bytes, arcs, lo, hi, din_lo,
 //  din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi, out_mm,
 //  frontier out, stream); the buffers are flat over the buckets of the table
-// (the wide entries read tile as the warps a block and pmax as the row width)
-#define SWEEP_ENTRY(NAME, LAUNCH, T, FORWARD)                                   \
+// (the wide entries read tile as the warps a block and pmax as the bytes of
+// shared memory a warp). The run entries read arcs, lo and hi and write the
+// frontier; their other buffers are null.
+#define SWEEP_ENTRY(NAME, LAUNCH, T, MODE)                                      \
   extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks,         \
                       int tile, int pmax, int smem_bytes, const void* arcs,     \
                       const void* lo, const void* hi, const void* din_lo,       \
@@ -683,17 +822,21 @@ int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int
                       const void* omega_arr, double omega,                      \
                       const void* frontier, void* out_lo, void* out_hi,         \
                       void* out_mm, void* out_frontier, void* stream) {         \
-    return LAUNCH<T, FORWARD>(table, nr_buckets, nr_blocks, tile, pmax,         \
-                              smem_bytes, arcs, lo, hi, din_lo, din_hi, alpha,  \
-                              omega_arr, omega, frontier, out_lo, out_hi,       \
-                              out_mm, out_frontier, stream);                    \
+    return LAUNCH<T, MODE>(table, nr_buckets, nr_blocks, tile, pmax,            \
+                           smem_bytes, arcs, lo, hi, din_lo, din_hi, alpha,     \
+                           omega_arr, omega, frontier, out_lo, out_hi,          \
+                           out_mm, out_frontier, stream);                       \
   }
 
-SWEEP_ENTRY(uniform_forward_f32, launch, float, true)
-SWEEP_ENTRY(uniform_forward_f64, launch, double, true)
-SWEEP_ENTRY(uniform_backward_f32, launch, float, false)
-SWEEP_ENTRY(uniform_backward_f64, launch, double, false)
-SWEEP_ENTRY(uniform_forward_wide_f32, launch_wide, float, true)
-SWEEP_ENTRY(uniform_forward_wide_f64, launch_wide, double, true)
-SWEEP_ENTRY(uniform_backward_wide_f32, launch_wide, float, false)
-SWEEP_ENTRY(uniform_backward_wide_f64, launch_wide, double, false)
+SWEEP_ENTRY(uniform_forward_f32, launch, float, MODE_FORWARD)
+SWEEP_ENTRY(uniform_forward_f64, launch, double, MODE_FORWARD)
+SWEEP_ENTRY(uniform_backward_f32, launch, float, MODE_BACKWARD)
+SWEEP_ENTRY(uniform_backward_f64, launch, double, MODE_BACKWARD)
+SWEEP_ENTRY(uniform_backward_run_f32, launch, float, MODE_BACKWARD_RUN)
+SWEEP_ENTRY(uniform_backward_run_f64, launch, double, MODE_BACKWARD_RUN)
+SWEEP_ENTRY(uniform_forward_wide_f32, launch_wide, float, MODE_FORWARD)
+SWEEP_ENTRY(uniform_forward_wide_f64, launch_wide, double, MODE_FORWARD)
+SWEEP_ENTRY(uniform_backward_wide_f32, launch_wide, float, MODE_BACKWARD)
+SWEEP_ENTRY(uniform_backward_wide_f64, launch_wide, double, MODE_BACKWARD)
+SWEEP_ENTRY(uniform_backward_run_wide_f32, launch_wide, float, MODE_BACKWARD_RUN)
+SWEEP_ENTRY(uniform_backward_run_wide_f64, launch_wide, double, MODE_BACKWARD_RUN)

@@ -59,10 +59,13 @@ def resolve_device(device) -> torch.device:
 # (slot in 13 bits). The flags sit at the same arcs in either form: on a lo
 # arc node_valid of its slot, on arc P (the first hi arc) layer_valid, and on
 # arc P + 1 (the second hi arc; a padding byte when P = 1) the root row.
-# MAX_P is the widest bucket the wide sweep kernel holds: two rows of P
-# float64 values a column in its block's shared memory.
+# MAX_P is the widest bucket a two-byte arc holds: 13 bits of slot. The wide
+# sweep kernel is no narrower: one warp's two rows and one ring slot of P =
+# 8192 float64 values take 229,440 of the 232,448 bytes of shared memory a
+# block may opt into (:func:`wide_warp_bytes`). A wider bucket needs a
+# four-byte arc and a column shared by several warps.
 NARROW_P = 32
-MAX_P = 2048
+MAX_P = 8192
 _FLAG_SHIFT = {1: 7, 2: 15}
 _SLOT_MASK = {1: 31, 2: 8191}
 
@@ -70,7 +73,9 @@ _SLOT_MASK = {1: 31, 2: 8191}
 def arc_bytes(P: int) -> int:
     """Bytes of one arc in a bucket of width P; ValueError above MAX_P."""
     if P > MAX_P:
-        raise ValueError(f"bucket width P={P} exceeds the widest arc record's {MAX_P} slots")
+        raise ValueError(
+            f"bucket width P={P} exceeds the widest arc record's {MAX_P} slots (13 bits of "
+            f"slot in a two-byte arc; one warp's shared memory in the wide sweep kernel)")
     return 1 if P <= NARROW_P else 2
 
 
@@ -101,6 +106,13 @@ def encode_arcs(node_valid, lo_kind, lo_slot, hi_kind, hi_slot, layer_valid, roo
 @dataclasses.dataclass(frozen=True)
 class BucketGeom:
     """Static geometry of one (width P, depth H) bucket of B columns.
+
+    Frontier tensors (cft, cfr) of a bucket are [H, P, B] everywhere in the
+    port. In the flat buffers a narrow bucket stores them so, B innermost; a
+    wide bucket (P > NARROW_P) stores [H, B, P], the slot innermost, so that
+    the row of a column and hop is one contiguous run for the warp that owns
+    the column. ``UniformGeom.per_bucket_nodes`` gives the [H, P, B] view of
+    either and ``UniformGeom.flatten_nodes`` lays per-bucket tensors back.
 
     ``arcs`` holds the arc records (:func:`encode_arcs`; one or two bytes an
     arc by P), the only stored form of the arc geometry and layer masks;
@@ -216,6 +228,10 @@ ARC_ALIGN = 16  # bytes; bucket offsets into the records keep 16-byte copies ali
 
 
 WIDE_WARPS = 8  # columns (one warp each) a block of the wide kernel takes at most
+WIDE_STAGES = 1  # hops a warp of the wide kernel copies ahead
+WIDE_SCALARS = 8  # values a ring slot keeps for the layer (6 used)
+SM_COUNT = 132  # H100 SXM
+MAX_DYNAMIC_SMEM = 227 * 1024  # the most a block may opt into
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,8 +257,9 @@ class LaunchPlan:
     nr_wide: int
     wide_blocks: int
     wide_warps: int  # columns a block: one warp each
-    wide_pmax: int  # widest bucket: values a row of a warp's shared memory
-    wide_smem_bytes: int
+    wide_pmax: int  # widest bucket
+    wide_warp_bytes: int  # shared memory of one warp: two rows and its ring
+    wide_smem_bytes: int  # wide_warps * wide_warp_bytes
 
 
 def cell_bytes(P: int, itemsize: int) -> int:
@@ -262,12 +279,49 @@ def slot_bytes(P: int, itemsize: int, tile: int) -> int:
     return tile * cell_bytes(P, itemsize)
 
 
-def wide_column_bytes(P: int, itemsize: int) -> int:
-    """Shared memory of one column (one warp) of the wide kernel: the
-    frontier row and the row being built, P values each. No prefetch ring:
-    at these widths a ring of hops would not fit, and a warp's lanes keep
-    P / 32 independent loads in flight each."""
-    return 2 * P * itemsize
+def wide_row_bytes(P: int, itemsize: int) -> int:
+    """One frontier row of a wide bucket in shared memory (16-byte padded)."""
+    return _pad_to(P * itemsize, 16)
+
+
+def wide_slot_bytes(P: int, itemsize: int) -> int:
+    """One ring slot of the wide kernel: the arc record of a hop and column,
+    the incoming frontier row, WIDE_SCALARS layer values."""
+    return _pad_to(4 * P, 16) + wide_row_bytes(P, itemsize) + WIDE_SCALARS * itemsize
+
+
+def wide_warp_bytes(P: int, itemsize: int, stages: int) -> int:
+    """Shared memory of one column (one warp) of the wide kernel: the frontier
+    row and the row being built, and a ring of ``stages`` + 1 slots.
+    ``uniform_sweep.cu`` computes the same sizes."""
+    return 2 * wide_row_bytes(P, itemsize) + (stages + 1) * wide_slot_bytes(P, itemsize)
+
+
+def _wide_plan(shapes, itemsize: int, stages: Optional[int], warps: Optional[int]):
+    """(warps a block, stages, bytes a warp) of the wide launch over buckets
+    ``shapes``. A warp copies WIDE_STAGES hops ahead (measured on the card: a
+    deeper ring buys nothing at any column count, a ring of none costs a
+    tenth). Few columns: few warps a block, so that the columns spread over
+    the SMs; many: WIDE_WARPS a block, as many as the widest bucket lets fit.
+    ``stages`` / ``warps`` force either (timing variants); a width whose
+    single warp fits no block even without a ring raises ValueError."""
+    if not shapes:
+        return 1, 0, 0
+    widest = max(P for P, _, _ in shapes)
+    if wide_warp_bytes(widest, itemsize, 0) > MAX_DYNAMIC_SMEM:
+        raise ValueError(
+            f"a bucket of {widest} slots needs {wide_warp_bytes(widest, itemsize, 0)} bytes of "
+            f"shared memory a warp; a block has {MAX_DYNAMIC_SMEM}")
+    if stages is None:
+        stages = WIDE_STAGES
+    while wide_warp_bytes(widest, itemsize, stages) > MAX_DYNAMIC_SMEM:
+        stages -= 1
+    warp_bytes = wide_warp_bytes(widest, itemsize, stages)
+    cols = sum(B for _, H, B in shapes if H > 0)
+    if warps is None:
+        warps = -(-cols // SM_COUNT)
+    warps = max(1, min(warps, WIDE_WARPS, MAX_DYNAMIC_SMEM // warp_bytes))
+    return warps, stages, warp_bytes
 
 
 def _offsets(shapes):
@@ -284,7 +338,8 @@ def _offsets(shapes):
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int]) -> LaunchPlan:
+def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
+                 wide_stages: Optional[int], wide_warps: Optional[int]) -> LaunchPlan:
     narrow = [k for k, (P, _, _) in enumerate(shapes) if P <= NARROW_P]
     wide = [k for k, (P, _, _) in enumerate(shapes) if P > NARROW_P]
     cols = sum(shapes[k][2] for k in narrow)
@@ -301,13 +356,13 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int]) -> L
         table[r] = (P, H, B, block, rows[k], nodes[k], arcs[k], S)
         block += -(-B // tile) if H > 0 else 0
     wide_pmax = max((shapes[k][0] for k in wide), default=0)
-    per_column = wide_column_bytes(wide_pmax, itemsize)
-    warps = max(1, min(WIDE_WARPS, SMEM_BUDGET // max(per_column, 1)))
+    warps, wide_depth, warp_bytes = _wide_plan(
+        [shapes[k] for k in wide], itemsize, wide_stages, wide_warps)
     wide_table = np.zeros((len(wide), TABLE_COLUMNS), dtype=np.int64)
     wide_block = 0
     for r, k in enumerate(wide):
         P, H, B = shapes[k]
-        wide_table[r] = (P, H, B, wide_block, rows[k], nodes[k], arcs[k], 0)
+        wide_table[r] = (P, H, B, wide_block, rows[k], nodes[k], arcs[k], wide_depth)
         wide_block += -(-B // warps) if H > 0 else 0
     return LaunchPlan(
         table=torch.from_numpy(table).to(device), nr_buckets=len(narrow), nr_blocks=block,
@@ -315,18 +370,21 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int]) -> L
         shapes=shapes, arc_offsets=arcs, E=E, N=N, arc_bytes=arc_bytes,
         wide_table=torch.from_numpy(wide_table).to(device), nr_wide=len(wide),
         wide_blocks=wide_block, wide_warps=warps, wide_pmax=wide_pmax,
-        wide_smem_bytes=warps * per_column,
+        wide_warp_bytes=warp_bytes, wide_smem_bytes=warps * warp_bytes,
     )
 
 
-def launch_plan(shapes, dtype: torch.dtype, device,
-                stages: Optional[int] = None) -> LaunchPlan:
+def launch_plan(shapes, dtype: torch.dtype, device, stages: Optional[int] = None,
+                wide_stages: Optional[int] = None,
+                wide_warps: Optional[int] = None) -> LaunchPlan:
     """The plan of one launch over buckets of ``shapes`` ((P, H, B) each)
     whose buffers lie flat, bucket after bucket. Built once per distinct
-    argument list (cached); ``stages`` overrides the prefetch depth."""
+    argument list (cached); ``stages`` overrides the prefetch depth of the
+    narrow buckets, ``wide_stages`` and ``wide_warps`` the depth and the
+    warps a block of the wide ones."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     return _launch_plan(tuple(tuple(int(x) for x in s) for s in shapes), itemsize,
-                        str(torch.device(device)), stages)
+                        str(torch.device(device)), stages, wide_stages, wide_warps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -356,11 +414,20 @@ class UniformGeom:
         )
 
     def per_bucket_nodes(self, flat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """[H, P, B] views of a flat [N] frontier tensor, one per bucket."""
+        """[H, P, B] views of a flat [N] frontier tensor, one per bucket; a
+        wide bucket's is the transposed view of its [H, B, P] storage."""
         sizes = [g.H * g.P * g.B for g in self.buckets]
         return tuple(
-            x.view(g.H, g.P, g.B) for g, x in zip(self.buckets, flat.split(sizes))
+            x.view(g.H, g.P, g.B) if g.P <= NARROW_P else x.view(g.H, g.B, g.P).transpose(1, 2)
+            for g, x in zip(self.buckets, flat.split(sizes))
         )
+
+    def flatten_nodes(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Per-bucket [H, P, B] frontier tensors laid flat in the storage order
+        of :meth:`per_bucket_nodes` (one concatenation)."""
+        return flatten([
+            x if g.P <= NARROW_P else x.transpose(1, 2) for g, x in zip(self.buckets, xs)
+        ])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -392,7 +459,8 @@ def flatten(xs: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def state_from_buckets(geom: UniformGeom, lo, hi, def_mm, cft) -> UniformState:
     """A state from per-bucket tensors (one concatenation each)."""
-    return state_from_flat(geom, flatten(lo), flatten(hi), flatten(def_mm), flatten(cft))
+    return state_from_flat(geom, flatten(lo), flatten(hi), flatten(def_mm),
+                           geom.flatten_nodes(cft))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,15 +16,26 @@ up to 32 slots and one for wider buckets; see the design notes there):
   per-layer ``alpha`` and ``omega``. They launch the same kernels over a table
   of one bucket, with every argument validated.
 
+* ``backward_run_cuda`` / ``bucket_backward_run_cuda`` are the run-only
+  entry of the backward kernel (``uniform_backward_run``): the
+  costs-to-terminal of given costs with no cost update, the port's form of
+  ``bdd_tpu.solver.uniform.bucket_backward_run``. Same bodies, same tables,
+  one launch per body.
+
 On CUDA tensors a wrapper launches its kernel or raises. On CPU tensors it
 runs the plain torch twins of ``uniform.py``. Every width up to
 ``layout.MAX_P`` runs a kernel, for any H and in float32 and float64; there
 is no fallback.
 
+Frontier tensors are [H, P, B] at every one-bucket wrapper and flat in the
+storage order of ``UniformGeom.per_bucket_nodes`` at the fused ones (a wide
+bucket stores [H, B, P]; a one-bucket wrapper that is handed another layout
+of a wide frontier copies it into that one first).
+
 ``LAUNCHES`` counts kernel launches, one key per kernel and body
 (``uniform_forward`` is the narrow body's launch, ``uniform_forward_wide`` the
-wide body's). The twins never count here (``uniform.TWIN_SWEEP_CALLS`` counts
-them).
+wide body's). The twins never count here (``uniform.TWIN_SWEEP_CALLS`` and
+``uniform.PLAIN_RUN_CALLS`` count them).
 """
 from __future__ import annotations
 
@@ -44,9 +55,10 @@ from bdd_tpu_torch.solver.layout import (
 )
 
 SUPPORTED_P = (1, 2, 4, 8, 16, 32)  # the narrow body's instantiations
-KERNELS = ("uniform_forward", "uniform_backward")
+KERNELS = ("uniform_forward", "uniform_backward")  # the half-sweeps
+RUN = "uniform_backward_run"  # the backward kernel's entry without the cost update
 WIDE = "_wide"  # suffix of the wide body's entries and of its key in LAUNCHES
-LAUNCHES = {kernel + body: 0 for kernel in KERNELS for body in ("", WIDE)}
+LAUNCHES = {kernel + body: 0 for kernel in KERNELS + (RUN,) for body in ("", WIDE)}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -97,11 +109,13 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
     else:
         omega_arr, omega_val = None, float(omega)
     lib = _build.load()
+
+    def ptr(t):  # the run entry has no deltas, no incoming frontier, no cost outputs
+        return None if t is None else t.data_ptr()
+
     buffers = (
-        arcs.data_ptr(), lo.data_ptr(), hi.data_ptr(), din_lo.data_ptr(),
-        din_hi.data_ptr(), alpha.data_ptr(),
-        None if omega_arr is None else omega_arr.data_ptr(), omega_val,
-        frontier.data_ptr(), *(o.data_ptr() for o in outs),
+        arcs.data_ptr(), lo.data_ptr(), hi.data_ptr(), ptr(din_lo), ptr(din_hi), ptr(alpha),
+        ptr(omega_arr), omega_val, ptr(frontier), *(ptr(o) for o in outs),
         torch.cuda.current_stream(lo.device).cuda_stream,
     )
     calls = []
@@ -112,7 +126,7 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
     if plan.wide_blocks:
         calls.append((kernel + WIDE, (
             plan.wide_table.data_ptr(), plan.nr_wide, plan.wide_blocks, plan.wide_warps,
-            plan.wide_pmax, plan.wide_smem_bytes, *buffers)))
+            plan.wide_warp_bytes, plan.wide_smem_bytes, *buffers)))
     calls = [(name, getattr(lib, f"{name}_{suffix}"), args) for name, args in calls]
     keep = (plan, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, frontier, outs)
 
@@ -152,14 +166,8 @@ def prepare_fused_launch(kernel: str, geom: UniformGeom, lo, hi, frontier, omega
     E, N = plan.E, plan.N
     if isinstance(omega, torch.Tensor) and omega.dim() > 0:
         omega = omega.to(lo.dtype).expand(E).contiguous()
-    for name, t, n in (("lo", lo, E), ("hi", hi, E), ("din_lo", din_lo, E),
-                       ("din_hi", din_hi, E), ("frontier", frontier, N)):
-        if (t.dtype != geom.dtype or t.device != geom.device or t.dim() != 1
-                or t.shape[0] != n or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}; expected a contiguous "
-                f"{geom.dtype} [{n}] on {geom.device}"
-            )
+    _check_flat(geom, (("lo", lo, E), ("hi", hi, E), ("din_lo", din_lo, E),
+                       ("din_hi", din_hi, E), ("frontier", frontier, N)))
     outs = _fresh_outputs(lo, frontier)
     return _launcher(kernel, plan, geom.arcs, lo, hi, din_lo, din_hi, geom.alpha, omega,
                      frontier, outs), outs
@@ -171,6 +179,42 @@ def _fused(kernel: str, twin, geom: UniformGeom, lo, hi, frontier, omega, din_lo
     launch, outs = prepare_fused_launch(kernel, geom, lo, hi, frontier, omega, din_lo, din_hi)
     _launch_counted(launch)
     return outs
+
+
+def _check_flat(geom: UniformGeom, named) -> None:
+    for name, t, n in named:
+        if (t.dtype != geom.dtype or t.device != geom.device or t.dim() != 1
+                or t.shape[0] != n or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}; expected a contiguous "
+                f"{geom.dtype} [{n}] on {geom.device}"
+            )
+
+
+def prepare_run_launch(geom: UniformGeom, lo, hi, plan: LaunchPlan = None):
+    """Check one launch of the run-only backward entry over all buckets of
+    ``geom`` on flat costs and allocate its output. Returns (launch, cft);
+    ``launch()`` does not count."""
+    plan = plan or geom.plan
+    _check_widths(plan.shapes)
+    _check_flat(geom, (("lo", lo, plan.E), ("hi", hi, plan.E)))
+    cft = torch.empty(plan.N, dtype=lo.dtype, device=lo.device)
+    return _launcher(RUN, plan, geom.arcs, lo, hi, None, None, None, 0.0, None,
+                     (None, None, None, cft)), cft
+
+
+def backward_run_cuda(geom: UniformGeom, lo, hi) -> torch.Tensor:
+    """Costs-to-terminal of the flat costs (lo, hi [E]) of every bucket ->
+    cft [N], freshly allocated: one launch per body on the card, the plain
+    ``uniform.bucket_backward_run`` bucket by bucket on CPU tensors."""
+    if lo.device.type == "cpu":
+        return geom.flatten_nodes([
+            uf.bucket_backward_run(g, l, h)
+            for g, l, h in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))
+        ])
+    launch, cft = prepare_run_launch(geom, lo, hi)
+    _launch_counted(launch)
+    return cft
 
 
 def forward_iteration_cuda(geom: UniformGeom, lo, hi, cft, omega, din_lo, din_hi):
@@ -188,6 +232,24 @@ def backward_iteration_cuda(geom: UniformGeom, lo, hi, cfr, omega, din_lo, din_h
 
 
 # ---------------------------------------------------------------- one bucket
+def _node_storage(P: int, frontier: torch.Tensor) -> torch.Tensor:
+    """The [H, P, B] frontier of one bucket in the layout the kernels read:
+    itself for a narrow bucket, [H, B, P] for a wide one (a copy unless it is
+    the transposed view of such storage already)."""
+    return frontier if P <= NARROW_P else frontier.transpose(1, 2).contiguous()
+
+
+def _node_view(P: int, stored: torch.Tensor) -> torch.Tensor:
+    return stored if P <= NARROW_P else stored.transpose(1, 2)
+
+
+def _check_bucket_geometry(g: BucketGeom, lo) -> None:
+    if g.arcs.device != lo.device or g.arcs.dtype != torch.uint8 or not g.arcs.is_contiguous():
+        raise ValueError(f"bucket geometry {g.arcs.dtype} on {g.arcs.device}; costs on {lo.device}")
+    if g.arcs.data_ptr() % 16:
+        raise ValueError("bucket geometry records are not 16-byte aligned")
+
+
 def prepare_launch(kernel: str, g: BucketGeom, lo, hi, frontier, omega, din_lo, din_hi,
                    alpha=None):
     """Validate one launch of ``kernel`` ("uniform_forward"/"uniform_backward")
@@ -203,17 +265,17 @@ def prepare_launch(kernel: str, g: BucketGeom, lo, hi, frontier, omega, din_lo, 
     alpha = torch.as_tensor(alpha, dtype=lo.dtype, device=lo.device).expand(H, B).contiguous()
     if isinstance(omega, torch.Tensor) and omega.dim() > 0:
         omega = omega.to(lo.dtype).expand(H, B).contiguous()
-    costs = [("lo", lo), ("hi", hi), ("frontier", frontier), ("din_lo", din_lo),
+    if tuple(frontier.shape) != (H, P, B):
+        raise ValueError(f"frontier: shape {tuple(frontier.shape)}, expected {(H, P, B)}")
+    stored = _node_storage(P, frontier)
+    costs = [("lo", lo), ("hi", hi), ("frontier", stored), ("din_lo", din_lo),
              ("din_hi", din_hi), ("alpha", alpha)]
-    _check_all(costs, [(H, B), (H, B), (H, P, B), (H, B), (H, B), (H, B)])
-    if g.arcs.device != lo.device or g.arcs.dtype != torch.uint8 or not g.arcs.is_contiguous():
-        raise ValueError(f"bucket geometry {g.arcs.dtype} on {g.arcs.device}; costs on {lo.device}")
-    if g.arcs.data_ptr() % 16:
-        raise ValueError("bucket geometry records are not 16-byte aligned")
+    _check_all(costs, [(H, B), (H, B), tuple(stored.shape), (H, B), (H, B), (H, B)])
+    _check_bucket_geometry(g, lo)
     plan = launch_plan([(P, H, B)], lo.dtype, lo.device)
-    outs = _fresh_outputs(lo, frontier)
-    return _launcher(kernel, plan, g.arcs, lo, hi, din_lo, din_hi, alpha, omega, frontier,
-                     outs), outs
+    outs = _fresh_outputs(lo, stored)
+    launch = _launcher(kernel, plan, g.arcs, lo, hi, din_lo, din_hi, alpha, omega, stored, outs)
+    return launch, outs[:3] + (_node_view(P, outs[3]),)
 
 
 def _launch(kernel: str, g: BucketGeom, lo, hi, frontier, omega, din_lo, din_hi, alpha):
@@ -238,3 +300,21 @@ def bucket_backward_iteration_cuda(
     if lo.device.type == "cpu":
         return uf.bucket_backward_iteration(g, lo, hi, cfr, omega, din_lo, din_hi, alpha)
     return _launch("uniform_backward", g, lo, hi, cfr, omega, din_lo, din_hi, alpha)
+
+
+def bucket_backward_run_cuda(g: BucketGeom, lo, hi) -> torch.Tensor:
+    """Costs-to-terminal cft [H, P, B] of one bucket's costs (lo, hi): one
+    launch of the run-only backward entry over a table of one bucket."""
+    if lo.device.type == "cpu":
+        return uf.bucket_backward_run(g, lo, hi)
+    H, P, B = g.H, g.P, g.B
+    _check_widths([(P, H, B)])
+    _suffix(lo.dtype)
+    _check_all([("lo", lo), ("hi", hi)], [(H, B), (H, B)])
+    _check_bucket_geometry(g, lo)
+    plan = launch_plan([(P, H, B)], lo.dtype, lo.device)
+    stored = torch.empty((H, P, B) if P <= NARROW_P else (H, B, P), dtype=lo.dtype,
+                         device=lo.device)
+    _launch_counted(_launcher(RUN, plan, g.arcs, lo, hi, None, None, None, 0.0, None,
+                              (None, None, None, stored)))
+    return _node_view(P, stored)

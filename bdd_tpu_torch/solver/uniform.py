@@ -1,11 +1,12 @@
 """Bucketed uniform dual solver: sweep semantics, delta exchange, iteration.
 
-Port of bdd_tpu/solver/uniform.py:1078-1095 and 1140-1799 to torch ops. The
-bucket sweeps here are the plain PyTorch versions ("twins") of the two CUDA
-sweep kernels in ``sweep_kernels``: the CPU runs them, and the card checks the
-kernels against them. They decode the same geometry bytes the kernels read
-(``BucketGeom.decode``). Real IEEE infinities throughout, as in the XLA scan
-of the JAX package (not the BIG=1e30 stand-in of its Pallas kernels).
+Port of bdd_tpu/solver/uniform.py:1078-1095 and 1140-1863 to torch ops. The
+bucket sweeps and the backward run here are the plain PyTorch versions
+("twins") of the CUDA sweep kernels in ``sweep_kernels``: the CPU runs them,
+and the card checks the kernels against them. They decode the same geometry
+bytes the kernels read (``BucketGeom.decode``). Real IEEE infinities
+throughout, as in the XLA scan of the JAX package (not the BIG=1e30 stand-in
+of its Pallas kernels).
 
 The iteration keeps every per-layer quantity in one flat tensor over all
 buckets (``UniformState.flat``), so a half-sweep is one kernel launch and the
@@ -35,7 +36,6 @@ from bdd_tpu_torch.solver.layout import (
     UniformHost,
     UniformState,
     flatten,
-    state_from_buckets,
     state_from_flat,
 )
 
@@ -102,8 +102,17 @@ def _layer_param(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, dtype=like.dtype, device=like.device).expand(like.shape)
 
 
+# calls of the plain backward run on a CUDA tensor: what shows that a solve
+# on the card took its costs-to-terminal from the kernel's run-only entry
+# (``sweep_kernels.backward_run_cuda``) and not from the hop loop below
+PLAIN_RUN_CALLS = {"backward_run_cuda": 0}
+
+
 def bucket_backward_run(g: BucketGeom, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-    """Costs-to-terminal cft [H, P, B] of (lo, hi) (uniform.py:1208)."""
+    """Costs-to-terminal cft [H, P, B] of (lo, hi) (uniform.py:1208): the
+    plain version of the ``uniform_backward_run`` entry of the CUDA kernel."""
+    if lo.is_cuda:
+        PLAIN_RUN_CALLS["backward_run_cuda"] += 1
     P = g.P
     nvalid, lo_k, lo_s, hi_k, hi_s = g.decode()
     cft = torch.empty((g.H, P, g.B), dtype=lo.dtype, device=lo.device)
@@ -150,7 +159,9 @@ def bucket_min_marginals(
     P = g.P
     cfr = bucket_forward_run(g, lo, hi)
     if cft is None:
-        cft = bucket_backward_run(g, lo, hi)
+        from bdd_tpu_torch.solver import sweep_kernels as sk
+
+        cft = sk.bucket_backward_run_cuda(g, lo, hi)  # the plain run on CPU tensors
     cft_next = _shift_up(cft)
     nvalid, lo_k, lo_s, hi_k, hi_s = g.decode()
     t_lo = _child_cft(lo_k, lo_s, cft_next, P)
@@ -287,7 +298,8 @@ def sweep_per_bucket(sweep: Callable, geom: UniformGeom, lo, hi, frontier, omega
             geom.per_bucket_nodes(frontier), omegas, geom.per_bucket(din_lo),
             geom.per_bucket(din_hi))
     ]
-    return tuple(flatten(xs) for xs in zip(*outs))
+    new_lo, new_hi, new_mm, frontiers = zip(*outs)
+    return flatten(new_lo), flatten(new_hi), flatten(new_mm), geom.flatten_nodes(frontiers)
 
 
 def iteration(
@@ -323,25 +335,30 @@ def iterations(
     return state
 
 
+def backward_run(geom: UniformGeom, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Costs-to-terminal cft [N] of flat costs (lo, hi [E]) over all buckets
+    (``bucket_backward_run`` of the JAX package, there a scan inside a jitted
+    program): on the card one launch per body of the backward kernel's
+    run-only entry, on the CPU the plain run bucket by bucket."""
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+
+    return sk.backward_run_cuda(geom, lo, hi)
+
+
 def init_uniform_state(host: UniformHost, objective) -> UniformState:
     """Objective split evenly over each variable's BDDs (hi costs), zero lo
     costs and deferred marginals, clean backward run (uniform.py:1078)."""
     geom = host.geom
     dev, dt = geom.device, geom.dtype
+    ex = geom.exchange
     obj = torch.zeros(geom.V + 1, dtype=torch.float64, device=dev)
     obj[: geom.V] = torch.as_tensor(np.asarray(objective, dtype=np.float64), device=dev)
     counts = torch.ones(geom.V + 1, dtype=torch.float64, device=dev)
     counts[: geom.V] = geom.num_bdds_per_var.clamp_min(1)
-    lo_l, hi_l, mm_l, cft_l = [], [], [], []
-    for g in geom.buckets:
-        share = obj[g.layer_var] / counts[g.layer_var]
-        lo = torch.zeros((g.H, g.B), dtype=dt, device=dev)
-        hi = torch.where(g.layer_valid, share, 0.0).to(dt)
-        lo_l.append(lo)
-        hi_l.append(hi)
-        mm_l.append(torch.zeros_like(lo))
-        cft_l.append(bucket_backward_run(g, lo, hi))
-    return state_from_buckets(geom, lo_l, hi_l, mm_l, cft_l)
+    share = obj[ex.ids] / counts[ex.ids]  # invalid slots: the sentinel V, 0
+    hi = torch.where(ex.valid, share, 0.0).to(dt)
+    lo = torch.zeros_like(hi)
+    return state_from_flat(geom, lo, hi, torch.zeros_like(hi), backward_run(geom, lo, hi))
 
 
 def lower_bound_from_cft(geom: UniformGeom, cft: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -355,16 +372,12 @@ def lower_bound_from_cft(geom: UniformGeom, cft: Sequence[torch.Tensor]) -> torc
 
 def distribute_delta(geom: UniformGeom, state: UniformState) -> UniformState:
     """Fold the deferred marginals into the costs (uniform.py:1707)."""
-    din_lo, din_hi = (geom.per_bucket(d) for d in exchange_delta_flat(geom, state.flat[2]))
-    lo_l, hi_l, mm_l, cft_l = [], [], [], []
-    for g, lo, hi, dl, dh in zip(geom.buckets, state.lo, state.hi, din_lo, din_hi):
-        nl = torch.where(g.layer_valid, lo + g.alpha * dl, 0.0)
-        nh = torch.where(g.layer_valid, hi + g.alpha * dh, 0.0)
-        lo_l.append(nl)
-        hi_l.append(nh)
-        mm_l.append(torch.zeros_like(lo))
-        cft_l.append(bucket_backward_run(g, nl, nh))
-    return state_from_buckets(geom, lo_l, hi_l, mm_l, cft_l)
+    lo, hi, mm, _ = state.flat
+    din_lo, din_hi = exchange_delta_flat(geom, mm)
+    valid = geom.exchange.valid
+    nl = torch.where(valid, lo + geom.alpha * din_lo, 0.0)
+    nh = torch.where(valid, hi + geom.alpha * din_hi, 0.0)
+    return state_from_flat(geom, nl, nh, torch.zeros_like(lo), backward_run(geom, nl, nh))
 
 
 def lower_bound(geom: UniformGeom, state: UniformState) -> torch.Tensor:
@@ -382,16 +395,94 @@ def min_marginals_all(geom: UniformGeom, state: UniformState):
     )
 
 
+def update_costs_flat(geom: UniformGeom, state: UniformState, lo_delta: torch.Tensor,
+                      hi_delta: torch.Tensor) -> UniformState:
+    """Add per-slot cost deltas [E] at the valid slots, refreshing the
+    backward run."""
+    lo, hi, mm, _ = state.flat
+    valid = geom.exchange.valid
+    nl = torch.where(valid, lo + lo_delta, 0.0)
+    nh = torch.where(valid, hi + hi_delta, 0.0)
+    return state_from_flat(geom, nl, nh, mm, backward_run(geom, nl, nh))
+
+
 def update_costs_per_var(
     geom: UniformGeom, state: UniformState, lo_u: torch.Tensor, hi_u: torch.Tensor
 ) -> UniformState:
     """Add per-variable cost deltas [V+1] (sentinel last) split by the
     isotropic weights, refreshing the backward run (uniform.py:1784)."""
-    lo_l, hi_l, cft_l = [], [], []
-    for g, lo, hi in zip(geom.buckets, state.lo, state.hi):
-        nl = torch.where(g.layer_valid, lo + g.alpha * lo_u[g.layer_var], 0.0)
-        nh = torch.where(g.layer_valid, hi + g.alpha * hi_u[g.layer_var], 0.0)
-        lo_l.append(nl)
-        hi_l.append(nh)
-        cft_l.append(bucket_backward_run(g, nl, nh))
-    return state_from_buckets(geom, lo_l, hi_l, state.def_mm, cft_l)
+    ids = geom.exchange.ids
+    return update_costs_flat(geom, state, geom.alpha * lo_u[ids], geom.alpha * hi_u[ids])
+
+
+# --------------------------------------------------- solutions & dual algebra
+# What the outer loops (L-BFGS, subgradient) need. Per-layer vectors are flat
+# [E] tensors over all buckets, as the state is: one torch.dot is an inner
+# product over the whole dual.
+def bdds_solution(geom: UniformGeom, state: UniformState) -> Tuple[torch.Tensor, ...]:
+    """Per-layer 0/1 argmin-path choices, per bucket [H, B] int8
+    (uniform.py:1745): every bucket advances all its BDDs' path pointers one
+    hop a step; ties take the hi arc. The active slot's arcs are gathered by
+    index (the JAX package picks them with a one-hot mask)."""
+    out = []
+    for g, lo, hi, cft in zip(geom.buckets, state.lo, state.hi, state.cft):
+        P = g.P
+        nvalid, lo_k, lo_s, hi_k, hi_s = g.decode()
+        cft_next = _shift_up(cft)
+        active = torch.zeros((1, g.B), dtype=torch.int64, device=lo.device)  # root slot 0
+        sol = torch.empty((g.H, g.B), dtype=torch.int8, device=lo.device)
+        for h in range(g.H):
+            def pick(x):
+                return x.gather(0, active)[0]
+
+            def child(kind, slot):  # cft of the active node's child along one arc
+                k, s_ = pick(kind), pick(slot).long()
+                t = cft_next[h].gather(0, s_.clamp_max(P - 1)[None])[0]
+                t = torch.where(s_ < P, t, 0.0)
+                t = torch.where(k == ARC_TOP, 0.0, torch.where(k == ARC_BOT, INF, t))
+                return k, s_, torch.where(pick(nvalid[h]), t, INF)
+
+            k_lo, s_lo, t_lo = child(lo_k[h], lo_s[h])
+            k_hi, s_hi, t_hi = child(hi_k[h], hi_s[h])
+            take_hi = hi[h] + t_hi <= lo[h] + t_lo
+            kind = torch.where(take_hi, k_hi, k_lo)
+            nxt = torch.where(take_hi, s_hi, s_lo)
+            active = torch.where(kind == ARC_INTERNAL, nxt, 0)[None]
+            sol[h] = take_hi
+        out.append(torch.where(g.layer_valid, sol, 0).to(torch.int8))
+    return tuple(out)
+
+
+def net_solver_costs(geom: UniformGeom, state: UniformState) -> torch.Tensor:
+    """Per-layer net costs x = hi - lo + deferred share, flat [E]
+    (uniform.py:1803)."""
+    lo, hi, mm, _ = state.flat
+    dl, dh = exchange_delta_flat(geom, mm)
+    fl, fh = torch.isfinite(dl), torch.isfinite(dh)
+    # a variable forced BOTH ways (infeasible) has dl = dh = +inf; inf - inf
+    # would put a NaN into the L-BFGS history: the deferred share counts as 0
+    # (the run loop stops on the infinite lower bound)
+    diff = torch.where(fl & fh, dh - dl,
+                       torch.where(fl, INF, torch.where(fh, -INF, 0.0)))
+    return torch.where(geom.exchange.valid, hi - lo + geom.alpha * diff, 0.0)
+
+
+def make_dual_feasible(geom: UniformGeom, g: torch.Tensor) -> torch.Tensor:
+    """Zero-sum projection per primal variable of a flat per-layer vector [E]
+    (uniform.py:1828): the per-variable sums by the deterministic segment
+    reduction of the exchange; the sentinel variable V of invalid slots is
+    the empty last segment, 0."""
+    ex = geom.exchange
+    x = torch.where(ex.valid, g, 0.0)
+    sums = torch.segment_reduce(
+        x[ex.order].unsqueeze(1), "sum", lengths=ex.segments, axis=0, unsafe=True, initial=0.0
+    )[:, 0]
+    return torch.where(ex.valid, g - geom.alpha * sums[ex.ids], 0.0)
+
+
+def gradient_step(geom: UniformGeom, state: UniformState, g: torch.Tensor, step_size) -> UniformState:
+    """hi += step * g for a flat per-layer vector g [E], with a fresh
+    backward run (uniform.py:1856)."""
+    lo, hi, mm, _ = state.flat
+    nh = hi + torch.where(geom.exchange.valid, step_size * g, 0.0)
+    return state_from_flat(geom, lo, nh, mm, backward_run(geom, lo, nh))

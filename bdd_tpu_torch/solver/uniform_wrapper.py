@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from bdd_tpu_torch.solver import uniform as uf
-from bdd_tpu_torch.solver.layout import UniformHost, flatten_uniform, state_from_buckets
+from bdd_tpu_torch.solver.layout import UniformHost, flatten_uniform
 
 
 class UniformLayerView:
@@ -90,6 +90,11 @@ class UniformSolver:
         m1 = torch.cat([b.reshape(-1) for _, b in mm]).cpu().numpy()
         return m0, m1
 
+    def bdds_solution(self) -> Tuple[torch.Tensor, ...]:
+        """Per-bucket [H, B] int8 argmin-path choices (the L-BFGS and
+        subgradient supergradient)."""
+        return uf.bdds_solution(self.geom, self.state)
+
     # ------------------------------------------------------------------ costs
     def distribute_delta(self) -> None:
         self.state = uf.distribute_delta(self.geom, self.state)
@@ -97,21 +102,10 @@ class UniformSolver:
     def update_layer_costs(self, lo_delta, hi_delta) -> None:
         """Per-layer cost deltas in ``UniformLayerView`` (concatenated [H*B])
         indexing, with a fresh backward run (uniform_wrapper.py:140-185)."""
-        geom = self.geom
-
         def flat(x):
             return torch.as_tensor(np.asarray(x, np.float64), device=self.device).to(self.dtype)
 
-        lo_l, hi_l, cft_l = [], [], []
-        for g, lo, hi, dl, dh in zip(geom.buckets, self.state.lo, self.state.hi,
-                                     geom.per_bucket(flat(lo_delta)),
-                                     geom.per_bucket(flat(hi_delta))):
-            nl = torch.where(g.layer_valid, lo + dl, 0.0)
-            nh = torch.where(g.layer_valid, hi + dh, 0.0)
-            lo_l.append(nl)
-            hi_l.append(nh)
-            cft_l.append(uf.bucket_backward_run(g, nl, nh))
-        self.state = state_from_buckets(geom, lo_l, hi_l, self.state.def_mm, cft_l)
+        self.state = uf.update_costs_flat(self.geom, self.state, flat(lo_delta), flat(hi_delta))
 
     def update_costs(self, lo_per_var, hi_per_var) -> None:
         def per_var(x):

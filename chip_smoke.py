@@ -48,6 +48,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      last bit, a batch request, a line that is no JSON, a missing file,
      shutdown), the launches of every request counted, and the same server
      as a fresh process for its cold and warm request times.
+ 10. outer loops: "lbfgs parallel mma" (float64, rounding on, twice) and
+     "subgradient" through ``BddSolver.solve`` on grid12, and L-BFGS on gm50k
+     (float32, rounding off, a fixed number of outer iterations, twice): the
+     L-BFGS bound against plain MMA's after as many iterations (no lower than
+     it less 1e-3 relative), reruns bit-identical, launches per outer
+     iteration by key, ms per outer iteration beside ms per MMA iteration on
+     the same layout, and the hop loops that are still torch ops
+     (``bdds_solution``, ``bucket_forward_run``, ``min_marginals_all``) timed
+     on gm50k.
+Every layout that phases 2 and 6-10 hold the half-sweeps on also holds the
+run-only entry of the backward kernel (``uniform_backward_run``: the
+costs-to-terminal of given costs) to the plain run, bit-equal, timed warm and
+cold beside its byte bound; the knapsack layout also times the wide body at
+forced ring depths and warps a block. No solve, round or outer iteration on
+the card may call a plain sweep or the plain backward run (counters checked).
 Phases 7-9 hold the kernels to the twins as phase 2 does (bit-equal, timed
 beside the byte bound) on the layouts their own paths built (flatten_uniform's
 grid12, plain and split; the batches of 64 and 256; the server's batch) from
@@ -72,9 +87,12 @@ LB_REL = {"float": 1e-3, "double": 1e-7}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 L2_FLUSH_BYTES = 256 << 20  # several times the 50 MB L2
 KERNELS = ("uniform_forward", "uniform_backward")
+RUN = "uniform_backward_run"  # the backward kernel's entry without the cost update
 WIDE = "_wide"  # suffix of the wide-bucket body's entries in errs, times and the kernels line
 KNAPSACK_ITERS = 200
 BATCH_ITERS = 100
+GRID_OUTER_ITERS = 200
+GM_OUTER_ITERS = 100
 SYNC_EVENTS = ("aten::_local_scalar_dense", "aten::item", "cudaStreamSynchronize",
                "cudaDeviceSynchronize", "cudaEventSynchronize")
 
@@ -85,9 +103,24 @@ def fail(msg: str) -> None:
 
 
 def launch_counts(narrow: int = 0, wide: int = 0) -> dict:
-    """``sweep_kernels.LAUNCHES`` after ``narrow`` launches of either kernel's
-    narrow body and ``wide`` launches of either kernel's wide body."""
+    """The half-sweep keys of ``sweep_kernels.LAUNCHES`` after ``narrow``
+    launches of either kernel's narrow body and ``wide`` launches of either
+    kernel's wide body."""
     return {k + body: n for k in KERNELS for body, n in (("", narrow), (WIDE, wide))}
+
+
+def sweeps_of(counts: dict) -> dict:
+    """The half-sweep keys of a copy of ``sweep_kernels.LAUNCHES`` (the run-only
+    entry launches at every state refresh: init, delta folding, cost updates)."""
+    return {k: n for k, n in counts.items() if not k.startswith(RUN)}
+
+
+def plain_calls() -> dict:
+    """Calls of the plain versions so far: the twin half-sweeps, and the plain
+    backward run on a CUDA tensor. A solve on the card must move neither."""
+    from bdd_tpu_torch.solver import uniform as uf
+
+    return {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
 
 
 def gm50k_lp() -> str:
@@ -167,16 +200,49 @@ def launch_bytes(shapes, itemsize: int, forward: bool) -> int:
     return total
 
 
+def run_bytes(shapes, itemsize: int) -> int:
+    """Bytes one launch of the run-only entry must move: per (hop, column) the
+    geometry record, lo and hi in, P frontier values out."""
+    from bdd_tpu_torch.solver.layout import record_bytes
+
+    return sum(H * B * (record_bytes(P) + (2 + P) * itemsize) for P, H, B in shapes)
+
+
 def share(bound_ms: float, ms: float) -> str:
     if ms < bound_ms:
         return "under the device-memory bound: L2 served it"
     return f"{100 * bound_ms / ms:.1f}% of bound"
 
 
-def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=(), suffix="",
+def check_index_on_card(label, geom) -> None:
+    """The exchange index as it lies on the card, before anything gathers
+    through it: every id within [0, V], and ids and valid mask equal to what
+    the buckets' own tensors say (the variable of each slot and the layer
+    flag of its arc record: separate copies to the card), V at invalid
+    slots. Comparisons only, so a bad index is reported here by position and
+    not as a device-side assert of the first gather."""
+    import torch
+
+    ex = geom.exchange
+    if ex.ids.numel() == 0:
+        return
+    var = torch.cat([g.layer_var.reshape(-1) for g in geom.buckets])
+    valid = torch.cat([g.layer_valid.reshape(-1) for g in geom.buckets])
+    want = torch.where(valid, var, torch.full_like(var, geom.V))
+    bad = (ex.ids != want) | (ex.ids < 0) | (ex.ids > geom.V) | (ex.valid != valid)
+    nr_bad = int(bad.sum())
+    if nr_bad:
+        at = torch.nonzero(bad).reshape(-1)[:8]
+        fail(f"{label}: the exchange index on the card is off at {nr_bad} of {bad.numel()} "
+             f"slots (V = {geom.V}); first at {at.tolist()}: ids {ex.ids[at].tolist()}, "
+             f"expected {want[at].tolist()}, valid {ex.valid[at].tolist()} / {valid[at].tolist()}")
+
+
+def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=(), suffix="",
                    state=None):
-    """Phase 2 for one host: every bucket alone, then all buckets fused;
-    ``depths``: prefetch depths to time the fused launches at as well;
+    """Phase 2 for one host: every bucket alone, then all buckets fused, then
+    the run-only entry; ``variants``: keyword sets of ``layout.launch_plan``
+    (forced ring depths, warps a block) to time the fused launches at as well;
     ``suffix``: WIDE when every bucket of the host runs the wide body;
     ``state``: the state to sweep from (a solver's, after its solve) instead
     of five iterations from ``objective``."""
@@ -188,6 +254,7 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=(), 
     geom = host.geom
     dt = str(geom.dtype).replace("torch.", "")
     itemsize = torch.empty((), dtype=geom.dtype).element_size()
+    check_index_on_card(label, geom)
     if state is None:
         state = uf.iterations(geom, uf.init_uniform_state(host, objective), 5)
     st = state
@@ -240,7 +307,11 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=(), 
             flush=True,
         )
     # ---- one fused launch over all buckets against the twins bucket by bucket
-    cat = lambda outs: tuple(torch.cat([x.reshape(-1) for x in xs]) for xs in zip(*outs))
+    def cat(outs):  # as the fused wrappers lay them: the frontier in storage order
+        new_lo, new_hi, new_mm, frontier = zip(*outs)
+        return (layout.flatten(new_lo), layout.flatten(new_hi), layout.flatten(new_mm),
+                geom.flatten_nodes(frontier))
+
     ref_f, ref_b = cat(refs_f), cat(refs_b)
     args_f = (geom, lo, hi, cft, 0.5, dl_flat, dh_flat)
     args_b = (geom, ref_f[0], ref_f[1], ref_f[3], 0.5, dl_flat, dh_flat)
@@ -252,7 +323,7 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=(), 
         out = wrapper(*args)
         torch.cuda.synchronize()
         errs[name + suffix] = max(errs[name + suffix], compare(out, ref, TOL[dt]))
-        rose = {k: n - before[k] for k, n in sk.LAUNCHES.items()}
+        rose = sweeps_of({k: n - before[k] for k, n in sk.LAUNCHES.items()})
         want = {**launch_counts(), name: int(geom.plan.nr_blocks > 0),
                 name + WIDE: int(geom.plan.wide_blocks > 0)}
         if rose != want:
@@ -274,7 +345,8 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=(), 
             f"{plan.nr_blocks} blocks of {plan.tile}, stages "
             f"{[int(s) for s in plan.table[:, 7].tolist()]}, {plan.smem_bytes} B shared; one "
             f"over {plan.nr_wide} wide bucket(s), {plan.wide_blocks} blocks of "
-            f"{plan.wide_warps} warps, {plan.wide_smem_bytes} B shared: match; "
+            f"{plan.wide_warps} warps, stages {[int(s) for s in plan.wide_table[:, 7].tolist()]}, "
+            f"{plan.wide_smem_bytes} B shared: match; "
             f"warm {e['ms']:.4f} ms ({share(e['bound_ms'], e['ms'])}), "
             f"cold {e['cold_ms']:.4f} ms ({share(e['bound_ms'], e['cold_ms'])}), "
             f"bound {e['bound_ms']:.4f} ms = {nbytes} B at 3.35 TB/s; per-bucket launches "
@@ -283,8 +355,8 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=(), 
         )
     print(f"[fused] {label} {dt} forward wrapper call (checks, 4 allocations, 1 launch): "
           f"{wrapper_ms:.4f} ms per call {card}", flush=True)
-    for stages in depths:
-        deep = layout.launch_plan(plan.shapes, geom.dtype, geom.device, stages=stages)
+    for forced in variants:
+        deep = layout.launch_plan(plan.shapes, geom.dtype, geom.device, **forced)
         row = []
         for name, args, fwd in (("uniform_forward", args_f, True),
                                 ("uniform_backward", args_b, False)):
@@ -294,8 +366,55 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, depths=(), 
             compare(out, ref_f if fwd else ref_b, TOL[dt])
             row.append(f"{name} warm {cuda_ms(launch, 200):.4f} ms, cold "
                        f"{cuda_ms(launch, 20, flush):.4f} ms")
-        print(f"[depth] {label} {dt} stages {[int(s) for s in deep.table[:, 7].tolist()]}, "
-              f"{deep.smem_bytes} B shared: match; {'; '.join(row)} {card}", flush=True)
+        print(f"[depth] {label} {dt} {forced}: narrow stages "
+              f"{[int(s) for s in deep.table[:, 7].tolist()]}, {deep.smem_bytes} B shared; wide "
+              f"{deep.wide_warps} warps a block, stages "
+              f"{[int(s) for s in deep.wide_table[:, 7].tolist()]}, {deep.wide_smem_bytes} B "
+              f"shared: match; {'; '.join(row)} {card}", flush=True)
+    run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix)
+
+
+def run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix):
+    """The run-only entry of the backward kernel on the flat costs (lo, hi)
+    against the plain run: every bucket alone and all buckets fused, bit-equal;
+    the fused launch timed warm and cold beside its byte bound."""
+    import torch
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver import uniform as uf
+
+    dt = str(geom.dtype).replace("torch.", "")
+    itemsize = torch.empty((), dtype=geom.dtype).element_size()
+    per_bucket = list(zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi)))
+
+    def plain():
+        return [uf.bucket_backward_run(g, a, b) for g, a, b in per_bucket]
+
+    refs = plain()
+    key = RUN + suffix
+    for (g, a, b), ref in zip(per_bucket, refs):
+        out = sk.bucket_backward_run_cuda(g, a, b)
+        torch.cuda.synchronize()
+        errs[key] = max(errs[key], compare([out], [ref], TOL[dt]))
+    before = dict(sk.LAUNCHES)
+    out = sk.backward_run_cuda(geom, lo, hi)
+    torch.cuda.synchronize()
+    errs[key] = max(errs[key], compare([out], [geom.flatten_nodes(refs)], TOL[dt]))
+    rose = {k: n - before[k] for k, n in sk.LAUNCHES.items() if n != before[k]}
+    want = {k: 1 for k, blocks in ((RUN, geom.plan.nr_blocks), (RUN + WIDE, geom.plan.wide_blocks))
+            if blocks}
+    if rose != want:
+        fail(f"{label} {dt}: one fused run call counted launches {rose}, not {want}")
+    launch, _ = sk.prepare_run_launch(geom, lo, hi)
+    nbytes = run_bytes(geom.plan.shapes, itemsize)
+    e = entry[RUN] = {
+        "ms": cuda_ms(launch, 200), "cold_ms": cuda_ms(launch, 20, flush),
+        "plain_ms": cuda_ms(plain, 2), "bytes": nbytes,
+        "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+    print(f"[run] {label} {dt} {RUN}: one launch per body over {len(geom.buckets)} bucket(s) "
+          f"{[tuple(s) for s in geom.plan.shapes][:8]}: match; warm {e['ms']:.4f} ms "
+          f"({share(e['bound_ms'], e['ms'])}), cold {e['cold_ms']:.4f} ms "
+          f"({share(e['bound_ms'], e['cold_ms'])}), bound {e['bound_ms']:.4f} ms = {nbytes} B at "
+          f"3.35 TB/s; the plain run on the card {e['plain_ms']:.4f} ms {card}", flush=True)
 
 
 def solve_dual(lp, precision):
@@ -439,7 +558,24 @@ def phase_wide(card, errs, times, flush):
         widths = sorted({g.P for g in host.geom.buckets})
         if not widths or widths[0] <= layout.NARROW_P:
             fail(f"the knapsack instance has buckets of widths {widths}; expected only wide ones")
-        kernel_vs_twin("knapsack", host, nh.objective(), card, errs, times, flush, suffix=WIDE)
+        # the wide body as planned (one hop ahead, 8 warps a block), then at
+        # other ring depths (0: every hop waits for its own copies, so what is
+        # left is the coalesced layout alone) and at four warps a block
+        kernel_vs_twin("knapsack", host, nh.objective(), card, errs, times, flush, suffix=WIDE,
+                       variants=({"wide_stages": 0}, {"wide_stages": 2}, {"wide_stages": 4},
+                                 {"wide_warps": 4}))
+        del host
+    # few columns: 40 rows make 40 columns of the same width, fewer than the
+    # card has SMs; the plan gives each column a block of its own. Timed
+    # beside other ring depths and beside 8 warps a block (5 SMs at work).
+    few = NativeHost(knapsack_lp(nr_vars=400, nr_rows=40), "input")
+    for dtype in (torch.float32, torch.float64):
+        host = layout.from_native_host(few, dtype, "cuda")
+        if min(g.P for g in host.geom.buckets) <= layout.NARROW_P:
+            fail("the 40-row knapsack instance has a narrow bucket")
+        kernel_vs_twin("knapsack40", host, few.objective(), card, errs, times, flush,
+                       suffix=WIDE, variants=({"wide_stages": 0}, {"wide_stages": 8},
+                                              {"wide_warps": 8}))
         del host
     cs = nh.cpu_solver()
     t0 = time.perf_counter()
@@ -449,7 +585,7 @@ def phase_wide(card, errs, times, flush):
     launches = {}
     for name, prec in (("float32", "float"), ("float64", "double")):
         sk.reset_launch_counts()
-        twins_before = dict(uf.TWIN_SWEEP_CALLS)
+        twins_before = plain_calls()
         cfg = {"precision": prec, **DUAL_ONLY, **fixed_iterations(KNAPSACK_ITERS)}
         res = BddSolver(cfg, device="cuda").read_ilp(lp_string=lp).solve(verbose=False)
         rel = abs(res["lower_bound"] - lb_native) / abs(lb_native)
@@ -457,18 +593,18 @@ def phase_wide(card, errs, times, flush):
         print(f"[wide] knapsack {name}: lb {res['lower_bound']!r} after {res['iterations']} "
               f"iterations vs the native C++ solver {lb_native!r}: rel diff {rel:.3e} (limit "
               f"{LB_REL[prec]}), solve {res['solve_time']} s (native {native_s:.2f} s); "
-              f"launches {counted}; twin sweeps called "
-              f"{ {k: uf.TWIN_SWEEP_CALLS[k] - twins_before[k] for k in twins_before} } {card}",
+              f"launches {counted}; plain versions called "
+              f"{ {k: plain_calls()[k] - twins_before[k] for k in twins_before} } {card}",
               flush=True)
         if res["status"] != "solved" or res["iterations"] != KNAPSACK_ITERS or not rel <= LB_REL[prec]:
             fail(f"knapsack {name} bound off the native solver")
         # the design: every bucket is wide, so a half-sweep is ONE launch, the
         # wide table's; no narrow launch and no twin on the card
-        if counted != launch_counts(wide=KNAPSACK_ITERS):
+        if sweeps_of(counted) != launch_counts(wide=KNAPSACK_ITERS) or counted[RUN]:
             fail(f"knapsack {name}: launches {counted}; expected "
-                 f"{launch_counts(wide=KNAPSACK_ITERS)}")
-        if uf.TWIN_SWEEP_CALLS != twins_before:
-            fail(f"knapsack {name}: a twin sweep ran during the solve on the card")
+                 f"{launch_counts(wide=KNAPSACK_ITERS)} and no narrow run")
+        if plain_calls() != twins_before:
+            fail(f"knapsack {name}: a plain sweep or run ran during the solve on the card")
         launches[name] = {"at": "knapsack", "dt": name, "suffix": WIDE, "launches": counted,
                           "iterations": res["iterations"]}
     return launches["float32"]
@@ -485,7 +621,7 @@ def phase_python_pipeline(card, errs, times, flush):
     bounds = {}
     for label, extra in (("native", {}), ("python", python)):
         sk.reset_launch_counts()
-        twins_before = dict(uf.TWIN_SWEEP_CALLS)
+        twins_before = plain_calls()
         t0 = time.perf_counter()
         s = BddSolver({"precision": "double", **DUAL_ONLY, **extra}, device="cuda").read_ilp(
             ilp=grid_mrf(12, 12, 4, seed=0))
@@ -495,11 +631,11 @@ def phase_python_pipeline(card, errs, times, flush):
         print(f"[python] grid12 float64 dual, {label} pipeline: lb {res['lower_bound']!r}, "
               f"{res['iterations']} iterations, launches {counted}, "
               f"{time.perf_counter() - t0:.2f} s wall {card}", flush=True)
-        if counted != launch_counts(narrow=res["iterations"]):
+        if sweeps_of(counted) != launch_counts(narrow=res["iterations"]):
             fail(f"grid12 float64, {label} pipeline: launches {counted} for "
                  f"{res['iterations']} iterations")
-        if uf.TWIN_SWEEP_CALLS != twins_before:
-            fail(f"grid12 float64, {label} pipeline: a twin sweep ran during the solve")
+        if plain_calls() != twins_before:
+            fail(f"grid12 float64, {label} pipeline: a plain sweep or run ran during the solve")
     path = {"at": "python grid12", "dt": "float64", "suffix": "", "launches": counted,
             "iterations": res["iterations"]}
     # the kernels against the twins on the layout flatten_uniform built, from
@@ -518,7 +654,7 @@ def phase_python_pipeline(card, errs, times, flush):
     ):
         ilp = grid_mrf(12, 12, 4, seed=0)
         sk.reset_launch_counts()
-        twins_before = dict(uf.TWIN_SWEEP_CALLS)
+        twins_before = plain_calls()
         t0 = time.perf_counter()
         s = BddSolver({**python, **extra}, device="cuda").read_ilp(ilp=ilp)
         res = s.solve(verbose=False)
@@ -526,9 +662,9 @@ def phase_python_pipeline(card, errs, times, flush):
         checked_solution(ilp, res, f"python pipeline, {label}")
         counted = dict(sk.LAUNCHES)
         if (min(counted[k] for k in KERNELS) < res["iterations"]
-                or uf.TWIN_SWEEP_CALLS != twins_before):
+                or plain_calls() != twins_before):
             fail(f"python pipeline, {label}: launches {counted} for {res['iterations']} "
-                 f"dual iterations, twin sweeps {uf.TWIN_SWEEP_CALLS} from {twins_before}")
+                 f"dual iterations, plain versions {plain_calls()} from {twins_before}")
         print(f"[python] grid12 {label}: lb {res['lower_bound']!r}, objective "
               f"{res['objective']!r}, {res['iterations']} dual iterations, launches {counted}, "
               f"buckets {[(g.P, g.H, g.B) for g in s.solver.geom.buckets]}, {wall:.2f} s wall "
@@ -569,7 +705,7 @@ def phase_batch(card, errs, times, flush):
             cfg = dict(base) if rounding else {**base, **DUAL_ONLY}
             s = BddSolver(cfg, device="cuda")
             sk.reset_launch_counts()
-            twins_before = dict(uf.TWIN_SWEEP_CALLS)
+            twins_before = plain_calls()
             t0 = time.perf_counter()
             results = s.solve_batch(ilps=ilps, verbose=False)
             wall = time.perf_counter() - t0
@@ -583,10 +719,10 @@ def phase_batch(card, errs, times, flush):
                 if abs(got - want) > 2e-5 * abs(want) + 2e-4:
                     fail(f"batch of {K}, instance {k}: bound {got!r} vs alone {want!r}")
             shape = [(g.P, g.H, g.B) for g in s.solver.geom.buckets]
-            if uf.TWIN_SWEEP_CALLS != twins_before:
-                fail(f"batch of {K}: a twin sweep ran during the batched solve")
+            if plain_calls() != twins_before:
+                fail(f"batch of {K}: a plain sweep or run ran during the batched solve")
             if not rounding:
-                if sk.LAUNCHES != launch_counts(narrow=BATCH_ITERS):
+                if sweeps_of(sk.LAUNCHES) != launch_counts(narrow=BATCH_ITERS):
                     fail(f"batch of {K}: launches {sk.LAUNCHES}; expected "
                          f"{launch_counts(narrow=BATCH_ITERS)}")
                 paths.append({"at": f"batch{K}", "dt": "float32", "suffix": "",
@@ -650,7 +786,7 @@ def phase_serve(card, gm_lp, gm_bound, errs, times, flush):
 
         def pulled():
             for line in requests:
-                marks.append((dict(sk.LAUNCHES), dict(uf.TWIN_SWEEP_CALLS)))
+                marks.append((dict(sk.LAUNCHES), plain_calls()))
                 yield line
 
         out = io.StringIO()
@@ -664,7 +800,7 @@ def phase_serve(card, gm_lp, gm_bound, errs, times, flush):
         counted = [{k: after[0][k] - before[0][k] for k in before[0]}
                    for before, after in zip(marks, marks[1:])]
         if marks[-1][1] != marks[0][1]:
-            fail(f"server: twin sweeps ran on the card: {marks[0][1]} -> {marks[-1][1]}")
+            fail(f"server: plain sweeps or runs on the card: {marks[0][1]} -> {marks[-1][1]}")
         for what, r in (("grid12 seed 0", g0), ("grid12 seed 7", g7), ("gm50k", gmr)):
             if not isinstance(r, dict) or r.get("status") != "solved":
                 fail(f"server: good request {what} answered {str(r)[:300]}")
@@ -672,11 +808,12 @@ def phase_serve(card, gm_lp, gm_bound, errs, times, flush):
             fail("server: a grid12 request came back without a solution")
         if gmr["lower_bound"] != gm_bound:
             fail(f"server: gm50k bound {gmr['lower_bound']!r} vs the direct solve {gm_bound!r}")
-        if counted[2] != launch_counts(narrow=GM_ITERS):
+        if sweeps_of(counted[2]) != launch_counts(narrow=GM_ITERS):
             fail(f"server: the gm50k request launched {counted[2]}; expected "
                  f"{launch_counts(narrow=GM_ITERS)}")
         for what, r, c in (("grid12 seed 0", g0, counted[0]), ("grid12 seed 7", g7, counted[1])):
-            if min(c[k] for k in KERNELS) < r["iterations"] or c != launch_counts(c[KERNELS[0]]):
+            if (min(c[k] for k in KERNELS) < r["iterations"]
+                    or sweeps_of(c) != launch_counts(c[KERNELS[0]])):
                 fail(f"server: {what} launched {c} for {r['iterations']} dual iterations")
         if (min(counted[3][k] for k in KERNELS) < BATCH_ITERS
                 or any(counted[3][k + WIDE] for k in KERNELS)):
@@ -725,6 +862,158 @@ def phase_serve(card, gm_lp, gm_bound, errs, times, flush):
     return path
 
 
+def phase_outer(card, gm_lp, gm_host, gm_objective, errs, times, flush):
+    """Phase 10: the outer loops (L-BFGS, subgradient) over the kernels."""
+    import torch
+    from bdd_tpu_torch.api import BddSolver
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver import uniform as uf
+    from bdd_tpu_torch.solver.lbfgs import LbfgsSolver
+    from bdd_tpu_torch.solver.subgradient import SubgradientSolver
+    from bdd_tpu_torch.solver.uniform_wrapper import UniformSolver
+    from bdd_tpu_torch.utils.problems import grid_mrf
+
+    def solve(what, cfg, ilp=None, lp=None):
+        """One solve through the user entry point, its launches and wall time;
+        fails if a plain sweep or plain run touched a CUDA tensor."""
+        sk.reset_launch_counts()
+        before = plain_calls()
+        t0 = time.perf_counter()
+        s = BddSolver(cfg, device="cuda").read_ilp(ilp=ilp, lp_string=lp)
+        res = s.solve(verbose=False)
+        wall = time.perf_counter() - t0
+        counted = dict(sk.LAUNCHES)
+        if res.get("status") != "solved" or not math.isfinite(res["lower_bound"]):
+            fail(f"{what}: {str(res)[:200]}")
+        if plain_calls() != before:
+            fail(f"{what}: plain versions ran on the card: {before} -> {plain_calls()}")
+        n = res["iterations"]
+        print(f"[outer] {what}: lb {res['lower_bound']!r} after {n} iterations, solve "
+              f"{res['solve_time']} s = {1e3 * res['solve_time'] / n:.4f} ms per iteration, "
+              f"{wall:.2f} s wall; launches {counted}, per iteration "
+              f"{ {k: round(v / n, 3) for k, v in counted.items() if v} }; no plain sweep, no "
+              f"plain run {card}", flush=True)
+        return s, res, counted
+
+    python = {"use native preprocessing": False}
+    paths = []
+    # ---- grid12, float64: L-BFGS with rounding (twice), subgradient, plain MMA
+    grid = {"precision": "double", **python, **fixed_iterations(GRID_OUTER_ITERS)}
+    lbfgs_cfg = {**grid, "relaxation solver": "lbfgs parallel mma"}
+    ilp = grid_mrf(12, 12, 4, seed=0)
+    s, res, counted = solve("grid12 float64 lbfgs parallel mma, rounding on", lbfgs_cfg, ilp=ilp)
+    if not isinstance(s.solver, LbfgsSolver) or not isinstance(s.solver.base, UniformSolver):
+        fail(f"grid12 lbfgs: the solver is {type(s.solver).__name__}")
+    checked_solution(ilp, res, "grid12 lbfgs")
+    _, again, _ = solve("grid12 float64 lbfgs parallel mma, rerun", lbfgs_cfg,
+                        ilp=grid_mrf(12, 12, 4, seed=0))
+    if (again["lower_bound"], again["objective"]) != (res["lower_bound"], res["objective"]):
+        fail(f"grid12 lbfgs: two runs gave {res['lower_bound']!r}, {res['objective']!r} and "
+             f"{again['lower_bound']!r}, {again['objective']!r}")
+    sd, dual, dual_counted = solve("grid12 float64 lbfgs parallel mma, dual only",
+                                   {**lbfgs_cfg, **DUAL_ONLY}, ilp=grid_mrf(12, 12, 4, seed=0))
+    _, mma, _ = solve("grid12 float64 uniform mma, dual only", {**grid, **DUAL_ONLY},
+                      ilp=grid_mrf(12, 12, 4, seed=0))
+    ss, sub, _ = solve("grid12 float64 subgradient, dual only",
+                       {**grid, **DUAL_ONLY, "relaxation solver": "subgradient"},
+                       ilp=grid_mrf(12, 12, 4, seed=0))
+    _, sub2, _ = solve("grid12 float64 subgradient, rerun",
+                       {**grid, **DUAL_ONLY, "relaxation solver": "subgradient"},
+                       ilp=grid_mrf(12, 12, 4, seed=0))
+    if not isinstance(ss.solver, SubgradientSolver):
+        fail(f"grid12 subgradient: the solver is {type(ss.solver).__name__}")
+    floor = mma["lower_bound"] - 1e-3 * abs(mma["lower_bound"])
+    if dual["iterations"] != mma["iterations"] or not dual["lower_bound"] >= floor:
+        fail(f"grid12 lbfgs bound {dual['lower_bound']!r} after {dual['iterations']} iterations "
+             f"vs plain MMA {mma['lower_bound']!r} after {mma['iterations']}")
+    # subgradient ascent takes no MMA iteration: it is held to the primal
+    # objective and to its own rerun, not to MMA's bound (the CPU tests hold
+    # its trajectory to the JAX package's)
+    if (sub["lower_bound"] != sub2["lower_bound"]
+            or not sub["lower_bound"] <= res["objective"] + 1e-6):
+        fail(f"grid12 subgradient: bound {sub['lower_bound']!r} (rerun {sub2['lower_bound']!r}) "
+             f"from {sub['initial_lower_bound']!r}, objective {res['objective']!r}")
+    print(f"[outer] grid12 float64 after {GRID_OUTER_ITERS} iterations: lbfgs "
+          f"{dual['lower_bound']!r} >= plain MMA {mma['lower_bound']!r} - 1e-3 rel (difference "
+          f"{dual['lower_bound'] - mma['lower_bound']:.3e}); with rounding lb "
+          f"{res['lower_bound']!r}, objective {res['objective']!r}, two runs identical; "
+          f"subgradient {sub['lower_bound']!r} from {sub['initial_lower_bound']!r}, two runs "
+          f"identical; ms per iteration: lbfgs {1e3 * dual['solve_time'] / dual['iterations']:.4f}, "
+          f"MMA {1e3 * mma['solve_time'] / mma['iterations']:.4f}, subgradient "
+          f"{1e3 * sub['solve_time'] / sub['iterations']:.4f} {card}", flush=True)
+    kernel_vs_twin("grid12 lbfgs", sd.solver.base.host, None, card, errs, times, flush,
+                   state=sd.solver.base.state)
+    paths.append({"at": "grid12 lbfgs", "dt": "float64", "suffix": "", "launches": dual_counted,
+                  "iterations": dual["iterations"]})
+    # ---- gm50k, float32: L-BFGS dual only, a fixed number of outer iterations
+    gm = {"variable order": "bfs", **DUAL_ONLY, **python, **fixed_iterations(GM_OUTER_ITERS)}
+    gm_lbfgs = {**gm, "relaxation solver": "lbfgs parallel mma"}
+    s, res, counted = solve("gm50k float32 lbfgs parallel mma", gm_lbfgs, lp=gm_lp)
+    # the rerun and plain MMA on the layout that solve built (the Python
+    # pipeline takes far longer to build gm50k than to solve it), through the
+    # same termination loop
+    from bdd_tpu_torch.solver.run import run_solver
+
+    def rerun(what, wrap):
+        sk.reset_launch_counts()
+        before = plain_calls()
+        solver = wrap(UniformSolver(s.solver.base.host, s.pre.objective_vector()))
+        stats = {}
+        t = gm["termination criteria"]
+        run_solver(solver, max_iter=t["maximum iterations"], tolerance=0.0, improvement_slope=0.0,
+                   time_limit=3600, verbose=False, block_size=solver.default_block_size,
+                   stats=stats)
+        stats["lower_bound"] = float(solver.lower_bound_with_deferred())
+        if plain_calls() != before:
+            fail(f"{what}: plain versions ran on the card: {before} -> {plain_calls()}")
+        print(f"[outer] {what}: lb {stats['lower_bound']!r} after {stats['iterations']} "
+              f"iterations, solve {stats['solve_time']} s; launches {dict(sk.LAUNCHES)} {card}",
+              flush=True)
+        return stats
+
+    again = rerun("gm50k float32 lbfgs, rerun on the same layout", LbfgsSolver)
+    mma = rerun("gm50k float32 plain MMA on the same layout", lambda base: base)
+    if again["lower_bound"] != res["lower_bound"]:
+        fail(f"gm50k lbfgs: two runs gave {res['lower_bound']!r} and {again['lower_bound']!r}")
+    floor = mma["lower_bound"] - 1e-3 * abs(mma["lower_bound"])
+    if res["iterations"] != mma["iterations"] or not res["lower_bound"] >= floor:
+        fail(f"gm50k lbfgs bound {res['lower_bound']!r} after {res['iterations']} iterations vs "
+             f"plain MMA {mma['lower_bound']!r} after {mma['iterations']}")
+    outer = s.solver
+    print(f"[outer] gm50k float32 after {GM_OUTER_ITERS} iterations: lbfgs {res['lower_bound']!r} "
+          f">= plain MMA {mma['lower_bound']!r} - 1e-3 rel (difference "
+          f"{res['lower_bound'] - mma['lower_bound']:.3e}), two runs identical; history "
+          f"{len(outer.history)} of {outer.m}, step size {outer.step_size:.3e}, failed searches "
+          f"{outer.num_unsuccessful}; ms per iteration: lbfgs "
+          f"{1e3 * res['solve_time'] / res['iterations']:.4f}, MMA "
+          f"{1e3 * mma['solve_time'] / mma['iterations']:.4f}; buckets "
+          f"{[(g.P, g.H, g.B) for g in outer.base.geom.buckets]} {card}", flush=True)
+    kernel_vs_twin("gm50k lbfgs", outer.base.host, None, card, errs, times, flush,
+                   state=outer.base.state)
+    paths.append({"at": "gm50k lbfgs", "dt": "float32", "suffix": "", "launches": counted,
+                  "iterations": res["iterations"]})
+    # ---- what an outer iteration is made of, on the native gm50k layout: the
+    # hop loops that are still torch ops beside the run-only entry
+    sol = UniformSolver(gm_host, gm_objective)
+    sol.iteration_block(5)
+    geom, st = sol.geom, sol.state
+    g0 = geom.buckets[0]
+    parts = {
+        "bdds_solution": cuda_ms(lambda: uf.bdds_solution(geom, st), 3),
+        "bucket_forward_run (bucket 0)": cuda_ms(
+            lambda: uf.bucket_forward_run(g0, st.lo[0], st.hi[0]), 3),
+        "min_marginals_all": cuda_ms(lambda: uf.min_marginals_all(geom, st), 3),
+        "backward_run (kernel)": cuda_ms(lambda: uf.backward_run(geom, st.flat[0], st.flat[1]), 50),
+        "net_solver_costs": cuda_ms(lambda: uf.net_solver_costs(geom, st), 20),
+        "make_dual_feasible": cuda_ms(lambda: uf.make_dual_feasible(geom, st.flat[1]), 20),
+        "gradient_step": cuda_ms(lambda: uf.gradient_step(geom, st, st.flat[1], 1e-6), 20),
+        "iteration (MMA)": cuda_ms(lambda: uf.iteration(geom, st), 50),
+    }
+    print(f"[outer] gm50k float32 native layout {[(g.P, g.H, g.B) for g in geom.buckets]}, ms per "
+          f"call on the card: { {k: round(v, 4) for k, v in parts.items()} } {card}", flush=True)
+    return paths
+
+
 def main() -> None:
     # the native C++ baseline's OpenMP pool reads these when first loaded
     for k, v in (("OMP_NUM_THREADS", str(os.cpu_count() or 4)), ("OMP_WAIT_POLICY", "active")):
@@ -762,12 +1051,13 @@ def main() -> None:
     nh = NativeHost(gm_lp, "bfs")
     print(f"[gm50k] {nh.nr_bdds()} BDDs, {nh.nr_vars()} variables, {nh.nr_buckets()} raw "
           f"buckets, built in {time.perf_counter() - t0:.2f} s {card}", flush=True)
-    errs = {name + suffix: 0.0 for name in KERNELS for suffix in ("", WIDE)}
+    errs = {name + suffix: 0.0 for name in KERNELS + (RUN,) for suffix in ("", WIDE)}
     times = {}
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     gm_f32 = layout.from_native_host(nh, torch.float32, "cuda")
     gm_f64 = layout.from_native_host(nh, torch.float64, "cuda")
-    kernel_vs_twin("gm50k", gm_f32, nh.objective(), card, errs, times, flush, depths=(1, 8))
+    kernel_vs_twin("gm50k", gm_f32, nh.objective(), card, errs, times, flush,
+                   variants=({"stages": 1}, {"stages": 8}))
     kernel_vs_twin("gm50k", gm_f64, nh.objective(), card, errs, times, flush)
     kernel_vs_twin("gm50k unpacked", layout.from_native_host(nh, torch.float32, "cuda", pack=False),
                    nh.objective(), card, errs, times, flush)
@@ -790,7 +1080,7 @@ def main() -> None:
     launches64 = dict(sk.LAUNCHES)
     print(f"[main] launches in the float64 gm50k solve: {launches64}", flush=True)
     for res, counted in ((f32a, launches), (f64, launches64)):
-        if counted != launch_counts(narrow=res["iterations"]):
+        if sweeps_of(counted) != launch_counts(narrow=res["iterations"]):
             fail(f"gm50k: launches {counted} in {res['iterations']} iterations; expected one "
                  f"narrow launch per kernel and iteration")
     paths = [{"at": "gm50k", "dt": "float32", "suffix": "", "launches": launches,
@@ -850,6 +1140,8 @@ def main() -> None:
           flush=True)
     for (label, dt), d in sorted(times.items()):
         for name, e in d.items():
+            if name == RUN:  # its own [run] line has it
+                continue
             print(f"[time] {label} {dt} {name}: fused launch warm {e['ms']:.4f} ms, cold "
                   f"{e['cold_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bytes']} B), "
                   f"per-bucket launches summed {e['bucket_ms']:.4f} ms, twins "
@@ -864,9 +1156,10 @@ def main() -> None:
     paths.append(phase_python_pipeline(card, errs, times, flush))
     paths += phase_batch(card, errs, times, flush)
     paths.append(phase_serve(card, gm_lp, f32a["lower_bound"], errs, times, flush))
+    paths += phase_outer(card, gm_lp, gm_f32, nh.objective(), errs, times, flush)
     del flush
-    print(f"[kernel] every bucket and fused launch of phases 2 and 6-9 matches its twin, "
-          f"max |diff| {errs}", flush=True)
+    print(f"[kernel] every bucket and fused launch of phases 2 and 6-10 matches its plain "
+          f"version, max |diff| {errs}", flush=True)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "bdd_tpu"))
@@ -875,13 +1168,16 @@ def main() -> None:
 
     src = "bdd_tpu_torch/csrc/uniform_sweep.cu"
     replaces = {"uniform_forward": "bdd_tpu/solver/pallas_uniform.py:112",
-                "uniform_backward": "bdd_tpu/solver/pallas_uniform.py:183"}
+                "uniform_backward": "bdd_tpu/solver/pallas_uniform.py:183",
+                # an entry of the backward kernel's bodies: the function is the
+                # scan of bdd_tpu/solver/uniform.py:1208
+                RUN: "bdd_tpu/solver/pallas_uniform.py:183"}
     # one row per kernel, body and path: the launches are those of the path's
     # own run, the times and bytes those of its layout, max_abs_err the
     # largest over every comparison of that body
     rows = []
     for path in paths:
-        for name in KERNELS:
+        for name in KERNELS + (RUN,):
             e = times[(path["at"], path["dt"])][name]
             count = path["launches"][name + path["suffix"]]
             if count == 0:

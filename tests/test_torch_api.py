@@ -120,7 +120,7 @@ def test_cli(tmp_path):
 @pytest.mark.parametrize(
     "config,waits",
     [
-        ({"relaxation solver": "lbfgs parallel mma"}, True),
+        ({"relaxation solver": "lbfgs parallel mma"}, None),
         ({"relaxation solver": "hybrid mma"}, True),
         ({"tighten": True}, True),
         ({"split chunk size": 4}, False),
@@ -135,7 +135,16 @@ def test_cli(tmp_path):
 def test_unported_configs_raise(config, waits, tmp_path, monkeypatch):
     """The keys that still wait raise and name their ROADMAP item; the keys
     that the Python pipeline brought solve, with the JAX package's bound
-    (float64, abs 1e-8)."""
+    (float64, abs 1e-8); the outer loops construct (``waits`` None; their
+    solves are held to the JAX package's in tests/test_torch_outer.py)."""
+    if waits is None:
+        from bdd_tpu_torch.solver.lbfgs import LbfgsSolver
+
+        s = api.BddSolver({**config, "lbfgs": {"history size": 3}}, device="cpu")
+        s.read_ilp(lp_string=CASES["grid"]).process_ilp().transform_to_bdds().construct_solver()
+        assert isinstance(s.solver, LbfgsSolver) and s.solver.m == 3
+        assert s._python_pipeline_reason() is not None  # as bdd_tpu: the Python pipeline
+        return
     if waits:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             api.BddSolver(config, device="cpu")
@@ -196,6 +205,7 @@ def test_port_never_imports_jax():
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "for name in ('api', 'serve', 'native', 'solver.run', 'solver.rounding',\n"
+        "             'solver.lbfgs', 'solver.subgradient',\n"
         "             'solver.sweep_kernels', 'solver.extras', 'solver.flatten',\n"
         "             'solver.ref_solver', 'solver.sequential', 'utils.logging',\n"
         "             'utils.problems', 'utils.batching', 'ilp.lp_parser', 'ilp.mps_parser',\n"
@@ -213,4 +223,4 @@ def test_port_never_imports_jax():
         cwd=str(__import__("pathlib").Path(__file__).resolve().parents[1]),
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 33
+    assert int(out.stdout.strip()) >= 35

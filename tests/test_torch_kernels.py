@@ -70,9 +70,11 @@ def setup(name, dtype, device, iters=3):
     return host, st, dl, dh
 
 
-def launches(narrow=0, wide=0):
-    """``sk.LAUNCHES`` after ``narrow`` / ``wide`` launches of either kernel."""
-    return {k + body: n for k in sk.KERNELS for body, n in (("", narrow), (sk.WIDE, wide))}
+def launches(narrow=0, wide=0, run=0, run_wide=0):
+    """``sk.LAUNCHES`` after ``narrow`` / ``wide`` launches of either half-sweep
+    kernel and ``run`` / ``run_wide`` launches of the run-only backward entry."""
+    out = {k + body: n for k in sk.KERNELS for body, n in (("", narrow), (sk.WIDE, wide))}
+    return {**out, sk.RUN: run, sk.RUN + sk.WIDE: run_wide}
 
 
 def assert_identical(out, ref):
@@ -228,16 +230,28 @@ def twins_bucket_by_bucket(twin, geom, lo, hi, frontier, omega, dl, dh):
             geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi),
             geom.per_bucket_nodes(frontier), geom.per_bucket(dl), geom.per_bucket(dh))
     ]
-    return tuple(torch.cat([x.reshape(-1) for x in xs]) for xs in zip(*outs))
+    return flat_outputs(geom, outs)
+
+
+def flat_outputs(geom, outs):
+    """Per-bucket (lo, hi, def_mm, frontier) laid flat as the fused wrappers
+    return them: the frontier in the storage order of the layout."""
+    new_lo, new_hi, new_mm, frontier = zip(*outs)
+    return (layout.flatten(new_lo), layout.flatten(new_hi), layout.flatten(new_mm),
+            geom.flatten_nodes(frontier))
 
 
 # ragged B (not a multiple of either tile width), H of 1, 2 and above the
 # ring depth of 8 hops, every P
 SHAPES = [(P, H, B) for P in sk.SUPPORTED_P for H, B in ((1, 37), (2, 64), (11, 45), (9, 72))]
-# wide buckets (two bytes an arc, the warp-a-column body): a width that is no
-# power of two, ragged B against the 8 columns a block, the widest P
+# wide buckets (two bytes an arc, the warp-a-column body): widths that are no
+# multiple of four (rows that no 16-byte copy takes), B of 1, 7, 8, 9 and
+# 2,048 against the 1 to 8 columns a block, H of 1 and 40 against the ring
+# depths, P = 2,048 and the widest P
 WIDE_SHAPES = [(64, 1, 37), (48, 7, 9), (128, 11, 13), (256, 5, 8), (512, 2, 3),
-               (layout.MAX_P, 3, 2)]
+               (33, 40, 7), (33, 1, 1), (64, 40, 8), (256, 40, 9), (2048, 3, 2),
+               (256, 1, 2048), (64, 40, 2048), (2048, 40, 1), (layout.MAX_P, 3, 2),
+               (layout.MAX_P, 1, 1)]
 SHAPES += WIDE_SHAPES
 
 
@@ -260,13 +274,18 @@ def test_one_bucket_shapes_equal_twins(cuda_device, shape, precision):
     dtype = torch.float32 if precision == "float" else torch.float64
     host, (lo, hi, fr, dl, dh) = synthetic_host([shape], dtype, cuda_device, seed=sum(shape))
     g = host.geom.buckets[0]
-    args = (g, lo.view(g.H, g.B), hi.view(g.H, g.B), fr.view(g.H, g.P, g.B), 0.5,
+    args = (g, lo.view(g.H, g.B), hi.view(g.H, g.B), host.geom.per_bucket_nodes(fr)[0], 0.5,
             dl.view(g.H, g.B), dh.view(g.H, g.B))
     for kernel, twin in ((sk.bucket_forward_iteration_cuda, uf.bucket_forward_iteration),
                          (sk.bucket_backward_iteration_cuda, uf.bucket_backward_iteration)):
         out = kernel(*args)
         torch.cuda.synchronize()
         assert_identical(out, twin(*args))
+    # a wide frontier in another layout than the storage's is copied, not misread
+    if g.P > layout.NARROW_P:
+        other = (args[0], args[1], args[2], args[3].contiguous(), *args[4:])
+        assert_identical(sk.bucket_forward_iteration_cuda(*other),
+                         uf.bucket_forward_iteration(*args))
 
 
 @pytest.mark.cuda
@@ -279,7 +298,8 @@ def test_fused_launch_over_all_shapes_equals_twins(cuda_device, precision, stage
     dtype = torch.float32 if precision == "float" else torch.float64
     host, (lo, hi, fr, dl, dh) = synthetic_host(SHAPES, dtype, cuda_device, seed=7)
     geom = host.geom
-    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, stages=stages)
+    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, stages=stages,
+                              wide_stages=stages)
     om = torch.rand(geom.plan.E, dtype=dtype, device=cuda_device)
     for omega in (0.5, om):
         for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
@@ -296,7 +316,7 @@ def test_fused_launch_over_all_shapes_equals_twins(cuda_device, precision, stage
                         geom.per_bucket_nodes(fr), geom.per_bucket(omega),
                         geom.per_bucket(dl), geom.per_bucket(dh))
                 ]
-                ref = tuple(torch.cat([x.reshape(-1) for x in xs]) for xs in zip(*ref))
+                ref = flat_outputs(geom, ref)
             else:
                 ref = twins_bucket_by_bucket(twin, geom, lo, hi, fr, om_b, dl, dh)
             assert_identical(out, ref)
@@ -330,11 +350,28 @@ def test_plan_splits_narrow_and_wide_buckets():
     for (P, H, B), r in zip(shapes, rows):
         assert (r[4], r[5]) == (e, n) and r[6] % layout.ARC_ALIGN == 0
         e, n = e + H * B, n + H * P * B
-    assert plan.wide_warps == layout.WIDE_WARPS and plan.wide_blocks == 2
-    assert plan.wide_smem_bytes == plan.wide_warps * layout.wide_column_bytes(256, 8)
-    widest = layout.launch_plan([(layout.MAX_P, 2, 8)], torch.float64, "cpu")
-    assert widest.wide_warps >= 1 and widest.wide_smem_bytes <= layout.SMEM_BUDGET
-
+    # 15 columns in all: one warp a block, so that they spread over the SMs
+    assert plan.wide_warps == 1 and plan.wide_blocks == 15
+    assert [r[7] for r in plan.wide_table.tolist()] == [layout.WIDE_STAGES] * 2
+    assert plan.wide_warp_bytes == layout.wide_warp_bytes(256, 8, layout.WIDE_STAGES)
+    assert plan.wide_smem_bytes == plan.wide_warps * plan.wide_warp_bytes
+    # many columns: eight warps a block
+    knap = layout.launch_plan([(256, 40, 2048)], torch.float32, "cpu")
+    assert (knap.wide_warps, knap.wide_blocks) == (layout.WIDE_WARPS, 256)
+    assert knap.wide_smem_bytes == 8 * (2 * 1024 + 2 * (1024 + 1024 + 32))
+    # forced variants, for timing
+    forced = layout.launch_plan([(256, 40, 2048)], torch.float32, "cpu", wide_stages=0,
+                                wide_warps=4)
+    assert (forced.wide_warps, int(forced.wide_table[0, 7])) == (4, 0)
+    assert forced.wide_warp_bytes == layout.wide_warp_bytes(256, 4, 0)
+    deep = layout.launch_plan([(256, 40, 2048)], torch.float32, "cpu", wide_stages=4)
+    assert int(deep.wide_table[0, 7]) == 4 and deep.wide_smem_bytes <= layout.MAX_DYNAMIC_SMEM
+    # the widest bucket fits a block in either precision: one warp, in
+    # float64 without a ring
+    for dtype, depth in ((torch.float32, 1), (torch.float64, 0)):
+        widest = layout.launch_plan([(layout.MAX_P, 2, 8)], dtype, "cpu")
+        assert widest.wide_warps == 1 and widest.wide_smem_bytes <= layout.MAX_DYNAMIC_SMEM
+        assert int(widest.wide_table[0, 7]) == depth
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["float", "double"])
@@ -358,7 +395,8 @@ def test_mixed_layout_counts_a_narrow_and_a_wide_launch(cuda_device, precision):
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["float", "double"])
 @pytest.mark.parametrize("zero_costs", [False, True], ids=["random", "ties-at-zero"])
-@pytest.mark.parametrize("shape", [(8, 7, 40), (64, 7, 9), (256, 5, 8)],
+@pytest.mark.parametrize("shape", [(8, 7, 40), (64, 7, 9), (256, 5, 8), (33, 40, 7),
+                                   (2048, 3, 2)],
                          ids=lambda s: "P%d-H%d-B%d" % s)
 def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_costs, precision):
     """Outside what a solve produces: -inf deltas (inf - inf, so NaN costs
@@ -390,3 +428,82 @@ def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_c
         assert_same_bits(out, ref)
         seen_nan = seen_nan or bool(torch.isnan(ref[3]).any())
     assert seen_nan  # the case is what it says: a NaN went through a frontier
+    # the run-only entry on the same costs: NaN costs reach its relaxation too
+    run = sk.bucket_backward_run_cuda(g, args[1], args[2])
+    torch.cuda.synchronize()
+    assert_same_bits([run], [uf.bucket_backward_run(g, args[1], args[2])])
+
+
+# ------------------------------------------------ the run-only backward entry
+def test_run_wrappers_on_cpu_run_the_plain_version():
+    host, (lo, hi, *_) = synthetic_host(SHAPES[::4], torch.float64, "cpu")
+    geom = host.geom
+    sk.reset_launch_counts()
+    per_bucket = [uf.bucket_backward_run(g, a, b)
+                  for g, a, b in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))]
+    assert_same_bits([sk.backward_run_cuda(geom, lo, hi)], [geom.flatten_nodes(per_bucket)])
+    for g, a, b, ref in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi), per_bucket):
+        assert_same_bits([sk.bucket_backward_run_cuda(g, a, b)], [ref])
+    assert not any(sk.LAUNCHES.values())
+    assert uf.PLAIN_RUN_CALLS["backward_run_cuda"] == 0  # counts CUDA tensors only
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "P%d-H%d-B%d" % s)
+def test_one_bucket_run_equals_plain_run(cuda_device, shape, precision):
+    dtype = torch.float32 if precision == "float" else torch.float64
+    host, (lo, hi, *_) = synthetic_host([shape], dtype, cuda_device, seed=sum(shape))
+    g = host.geom.buckets[0]
+    sk.reset_launch_counts()
+    out = sk.bucket_backward_run_cuda(g, lo.view(g.H, g.B), hi.view(g.H, g.B))
+    torch.cuda.synchronize()
+    wide = shape[0] > layout.NARROW_P
+    assert sk.LAUNCHES == launches(run=int(not wide), run_wide=int(wide))
+    assert_same_bits([out], [uf.bucket_backward_run(g, lo.view(g.H, g.B), hi.view(g.H, g.B))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("stages", [None, 0, 1, 3])
+def test_fused_run_over_all_shapes_equals_plain_run(cuda_device, precision, stages):
+    """One launch of the run-only entry over the narrow buckets and one over
+    the wide ones against the plain run bucket by bucket, also at forced ring
+    depths of the wide body; no plain run on the card through the wrapper."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    host, (lo, hi, *_) = synthetic_host(SHAPES, dtype, cuda_device, seed=7)
+    geom = host.geom
+    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, wide_stages=stages)
+    launch, out = sk.prepare_run_launch(geom, lo, hi, plan)
+    launch()
+    torch.cuda.synchronize()
+    ref = geom.flatten_nodes([
+        uf.bucket_backward_run(g, a, b)
+        for g, a, b in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])
+    assert_same_bits([out], [ref])
+    sk.reset_launch_counts()
+    before = dict(uf.PLAIN_RUN_CALLS)
+    assert_same_bits([sk.backward_run_cuda(geom, lo, hi)], [ref])
+    assert sk.LAUNCHES == launches(run=1, run_wide=1)
+    assert uf.PLAIN_RUN_CALLS == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("warps,stages", [(1, 0), (2, 1), (4, 2), (8, 4), (8, 8)])
+def test_wide_body_variants_equal_twins(cuda_device, precision, warps, stages):
+    """The wide body at forced warps a block and ring depths (what the plan
+    may pick for other column counts), both half-sweeps, against the twins."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    host, (lo, hi, fr, dl, dh) = synthetic_host(WIDE_SHAPES[:10], dtype, cuda_device, seed=11)
+    geom = host.geom
+    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, wide_stages=stages,
+                              wide_warps=warps)
+    assert plan.wide_warps <= warps and max(plan.wide_table[:, 7].tolist()) <= stages
+    assert plan.wide_smem_bytes <= layout.MAX_DYNAMIC_SMEM
+    for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
+                         ("uniform_backward", uf.bucket_backward_iteration)):
+        launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
+        launch()
+        torch.cuda.synchronize()
+        assert_identical(out, twins_bucket_by_bucket(twin, geom, lo, hi, fr, 0.5, dl, dh))

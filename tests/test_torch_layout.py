@@ -121,6 +121,33 @@ def test_from_jax_arrays_carries_state():
             np.testing.assert_array_equal(a.numpy(), b)
 
 
+def test_from_jax_arrays_round_trips_a_wide_frontier():
+    """A wide bucket (P > 32) stores its frontier [H, B, P] in the flat
+    buffer; what ``from_jax_arrays`` carries over reads back through the
+    [H, P, B] view as the JAX arrays, for narrow and wide buckets alike."""
+    from tests.test_torch_wide import MIXED
+
+    nh = NativeHost(MIXED, "input")
+    host = nh.make_uniform_host(dtype=jnp.float64, pack=False)
+    state = uf.init_uniform_state(host, nh.objective(), dtype=jnp.float64)
+    state = uf.iterations(host.geom, state, 2, 0.5)
+    state_np = jax.tree.map(np.asarray, state)
+    port_host, port_state = layout.from_jax_arrays(host, state_np, dtype=torch.float64)
+    geom = port_host.geom
+    widths = [g.P for g in geom.buckets]
+    assert min(widths) <= layout.NARROW_P < max(widths)
+    off = 0
+    for g, view, want in zip(geom.buckets, port_state.cft, state_np.cft):
+        n = g.H * g.P * g.B
+        np.testing.assert_array_equal(view.numpy(), want)
+        stored = want if g.P <= layout.NARROW_P else want.transpose(0, 2, 1)
+        np.testing.assert_array_equal(port_state.flat[3][off:off + n].numpy(), stored.reshape(-1))
+        off += n
+    rebuilt = layout.state_from_buckets(geom, port_state.lo, port_state.hi, port_state.def_mm,
+                                        port_state.cft)
+    assert torch.equal(rebuilt.flat[3], port_state.flat[3])
+
+
 def test_exchange_index_groups_valid_slots_by_variable():
     nh = PortNativeHost(LPS["grid"], "bfs")
     host = layout.from_native_host(nh, dtype=torch.float32, device="cpu")

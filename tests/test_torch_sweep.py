@@ -138,6 +138,32 @@ def test_runs_and_min_marginals_match_jax_f64(name, lp, pack):
             )
 
 
+@pytest.mark.parametrize("name,lp,pack", CASES, ids=[c[0] for c in CASES])
+def test_backward_run_wrappers_on_cpu_match_jax_f64(name, lp, pack):
+    """The run-only entry's wrappers on CPU tensors (the plain run): one call
+    over all buckets on the flat costs, and bucket by bucket, against
+    ``bucket_backward_run`` of the JAX package; the state's own cft is that
+    run of its costs, and every state refresh goes through the wrapper."""
+    host, state, _, _, port, ps, _, _ = jax_setup(lp, jnp.float64, pack)
+    geom = port.geom
+    want = [uf.bucket_backward_run(g, state.lo[k], state.hi[k])
+            for k, g in enumerate(host.geom.buckets)]
+    sk.reset_launch_counts()
+    flat = sk.backward_run_cuda(geom, ps.flat[0], ps.flat[1])
+    assert flat.shape == (geom.plan.N,)
+    assert_same(geom.per_bucket_nodes(flat), want, atol=1e-12)
+    assert_same([sk.bucket_backward_run_cuda(pg, ps.lo[k], ps.hi[k])
+                 for k, pg in enumerate(geom.buckets)], want, atol=1e-12)
+    assert_same(geom.per_bucket_nodes(tuf.backward_run(geom, ps.flat[0], ps.flat[1])), want,
+                atol=1e-12)
+    assert not any(sk.LAUNCHES.values())
+    rng = np.random.RandomState(2)
+    gs = [rng.randn(g.H, g.B) for g in geom.buckets]
+    stepped = tuf.gradient_step(geom, ps, layout.flatten([torch.from_numpy(x) for x in gs]), 0.1)
+    assert_same(stepped.cft, uf.gradient_step(
+        host.geom, state, tuple(jnp.asarray(x) for x in gs), 0.1).cft, atol=1e-12)
+
+
 def test_per_layer_omega_and_alpha_f64():
     """[H, B] omega/alpha arrays (the learned-solver contract) go through."""
     host, state, dl, dh, port, ps, tl, th = jax_setup(GRID, jnp.float64, True)

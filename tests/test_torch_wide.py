@@ -101,6 +101,32 @@ def test_wide_runs_and_min_marginals_match_jax_f64(pack):
                     uf.bucket_min_marginals(g, state.lo[k], state.hi[k]), atol=1e-12)
 
 
+@pytest.mark.parametrize("pack", [False, True], ids=["unpacked", "packed"])
+def test_wide_backward_run_wrapper_and_node_layout_match_jax_f64(pack):
+    """The fused run wrapper on CPU tensors over narrow and wide buckets
+    against the JAX package's run, and the storage of a wide frontier: the
+    slot innermost, behind the same [H, P, B] view."""
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+
+    host, state, _, _, port, ps, _, _ = jax_setup(MIXED, jnp.float64, pack, order="input")
+    geom = port.geom
+    want = [uf.bucket_backward_run(g, state.lo[k], state.hi[k])
+            for k, g in enumerate(host.geom.buckets)]
+    flat = sk.backward_run_cuda(geom, ps.flat[0], ps.flat[1])
+    views = geom.per_bucket_nodes(flat)
+    assert_same(views, want, atol=1e-12)
+    off = 0
+    for g, v, w in zip(geom.buckets, views, want):
+        n = g.H * g.P * g.B
+        assert v.shape == (g.H, g.P, g.B)
+        stored = np.asarray(w) if g.P <= layout.NARROW_P else np.asarray(w).transpose(0, 2, 1)
+        assert v.is_contiguous() == (g.P <= layout.NARROW_P)
+        np.testing.assert_allclose(flat[off:off + n].numpy(), stored.reshape(-1), atol=1e-12)
+        off += n
+    assert torch.equal(geom.flatten_nodes(views), flat)
+    assert torch.equal(geom.flatten_nodes([v.contiguous() for v in views]), flat)
+
+
 def test_wide_iterations_match_jax_f64():
     host, state, _, _, port, ps, _, _ = jax_setup(MIXED, jnp.float64, False, order="input")
     ref = uf.iterations(host.geom, state, 10, 0.5)
