@@ -147,6 +147,15 @@ def _declare(lib: ctypes.CDLL) -> None:
                      "uniform_backward_run_wide"):
             f = getattr(lib, f"{name}_{suffix}")
             f.argtypes, f.restype = sig, i
+    # the huge entries: (table, nr_buckets, nr_blocks, threads, arcs, lo, hi,
+    #  din_lo, din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi,
+    #  out_mm, frontier out, scratch, stream)
+    huge = [vp, i, i, i] + [vp] * 7 + [d] + [vp] * 7
+    for suffix in ("f32", "f64"):
+        for name in ("uniform_forward_huge", "uniform_backward_huge",
+                     "uniform_backward_run_huge"):
+            f = getattr(lib, f"{name}_{suffix}")
+            f.argtypes, f.restype = huge, i
 
 
 def load() -> ctypes.CDLL:

@@ -21,10 +21,14 @@ Relaxation solver names:
     "lbfgs parallel mma" / "lbfgs cuda parallel mma" / "lbfgs jax mma" ->
         L-BFGS outer loop over the uniform backend (config block "lbfgs")
     "subgradient" -> adaptive subgradient ascent over the uniform backend
+    "smooth mma" / "mma smooth" / "parallel mma smooth" -> smoothed dual
+        ascent with temperature annealing (keys "smoothing", "smoothing decay
+        factor", "min smoothing"; a bare "smoothing" key selects it)
     "sequential mma", "parallel mma" / "ref mma" -> numpy backends on the host
 Every other name of ``bdd_tpu.api`` raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it, as do the keys ``"tighten"`` and
-``"smoothing"``.
+ROADMAP.md item that ports it. The key ``"tighten"`` (true, or {"cliques",
+"odd cycles", "eps", "node limit"}) adds the cut-tightening phase after the
+dual solve.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import argparse
 import json
 import math
 import sys
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -74,21 +79,14 @@ DEFAULT_CONFIG = {
 UNIFORM_SOLVERS = ("uniform mma", "cuda parallel mma", "jax mma", "mma")
 LBFGS_SOLVERS = ("lbfgs parallel mma", "lbfgs cuda parallel mma", "lbfgs jax mma")
 OUTER_SOLVERS = LBFGS_SOLVERS + ("subgradient",)  # outer loops over the uniform backend
+SMOOTH_SOLVERS = ("smooth mma", "mma smooth", "parallel mma smooth")
 HOST_SOLVERS = ("sequential mma", "parallel mma", "ref mma")
 _ORDERS = ("input", "bfs", "cuthill", "minimum degree", "mindegree")
 _EXPORT_KEYS = ("export lp", "export bdd lp", "export bdd graph", "print statistics",
                 "export difficult core")
 
-# config key -> ROADMAP.md item that ports it
-_NOT_PORTED = {
-    "tighten": "Queue 1 item 10 (tightening)",
-    "smoothing": "Queue 1 item 11 (smooth solvers)",
-}
 # relaxation solver of bdd_tpu.api -> ROADMAP.md item that ports it
 _SOLVERS_NOT_PORTED = {
-    "smooth mma": "Queue 1 item 11 (smooth solvers)",
-    "mma smooth": "Queue 1 item 11 (smooth solvers)",
-    "parallel mma smooth": "Queue 1 item 11 (smooth solvers)",
     "sharded mma": "Queue 1 item 13 (multiple devices)",
     "lbfgs sharded mma": "Queue 1 item 13 (multiple devices)",
     "subgradient sharded mma": "Queue 1 item 13 (multiple devices)",
@@ -160,6 +158,12 @@ class BddSolver:
                 config["split implication"] = bool(
                     sb.get("implication bdd", sb.get("implication"))
                 )
+        if config.get("smoothing") and "smooth" not in str(config.get("relaxation solver", "")):
+            # a "smoothing" key with a non-smooth solver selects the smoothed
+            # dual ascent (api.py:104-113 of the JAX package)
+            bdd_log("[bdd solver] smoothing requested: switching relaxation "
+                    "solver to 'smooth mma'")
+            config["relaxation solver"] = "smooth mma"
         self.config = config
         self.device = resolve_device(device)
         self._ilp = None
@@ -169,17 +173,15 @@ class BddSolver:
         self.infeasible = False
         self.var_perm = None  # old index per new position (None = identity)
         self.dual_stats: dict = {}
+        self.tighten_stats: dict = {}  # what the tightening phase did and its wall times
         self._check_config()
 
     def _check_config(self) -> None:
         cfg = self.config
-        for key, item in _NOT_PORTED.items():
-            if cfg.get(key):
-                raise _not_ported(f"config key {key!r}", item)
         name = cfg["relaxation solver"]
         if name in _SOLVERS_NOT_PORTED:
             raise _not_ported(f"relaxation solver {name!r}", _SOLVERS_NOT_PORTED[name])
-        if name not in UNIFORM_SOLVERS + OUTER_SOLVERS + HOST_SOLVERS:
+        if name not in UNIFORM_SOLVERS + OUTER_SOLVERS + SMOOTH_SOLVERS + HOST_SOLVERS:
             raise ValueError(f"unknown relaxation solver {name!r}")
         if cfg["variable order"] not in _ORDERS:
             raise ValueError(f"unknown variable order {cfg['variable order']!r}")
@@ -363,6 +365,22 @@ class BddSolver:
 
                 base = SubgradientSolver(base)
             self.solver = base
+        elif name in SMOOTH_SOLVERS:
+            from bdd_tpu_torch.solver.smooth_mma import SmoothSolver
+
+            smoothing = self.config.get("smoothing")
+            self.solver = SmoothSolver.from_collection(
+                self.pre.collection,
+                self.pre.total_nr_variables(),
+                obj,
+                nr_primal_vars=self.pre.nr_primal_variables,
+                dtype=self.dtype,
+                device=self.device,
+                smoothing=(float(smoothing) if isinstance(smoothing, (int, float))
+                           and not isinstance(smoothing, bool) else 0.1),
+                smoothing_decay=float(self.config.get("smoothing decay factor", 0.5)),
+                min_smoothing=float(self.config.get("min smoothing", 1e-3)),
+            )
         else:  # _check_config admits no other name
             raise ValueError(f"unknown relaxation solver {name!r}")
         return self
@@ -546,6 +564,8 @@ class BddSolver:
                 return f"{k!r} needs the python ILP and BDD collection objects"
         if cfg["relaxation solver"] not in UNIFORM_SOLVERS:
             return f"relaxation solver {cfg['relaxation solver']!r} takes the flat BDD arrays"
+        if cfg.get("tighten"):
+            return "the tightening phase melds BDDs of the python collection"
         if cfg.get("split chunk size"):
             return "BDD splitting runs in the python pipeline"
         p = cfg.get("perturbation rounding")
@@ -699,6 +719,93 @@ class BddSolver:
             results[k] = res
         return results
 
+    def _tighten_phase(self, verbose: bool) -> float:
+        """The cut-tightening phase (config key ``"tighten"``: true or
+        {"cliques", "odd cycles", "eps", "node limit"}; api.py:832-918 of the
+        JAX package): meld BDD groups around tight variables (clique and odd
+        cycle facets of the conflict graph by default) and re-solve WARM from
+        the transferred converged duals on the device. Returns the lower
+        bound; the solver from before is kept when the re-solve ends below
+        the bound it started from. ``tighten_stats`` keeps the counts and
+        the wall seconds of each step."""
+        from bdd_tpu_torch.solver.tighten import (
+            conflict_cuts,
+            tight_variables,
+            tighten_collection,
+        )
+
+        t_cfg = self.config["tighten"]
+        if not isinstance(t_cfg, dict):
+            t_cfg = {}
+        s = self.solver
+        if not hasattr(s, "export_layer_costs") and hasattr(s, "base"):
+            s = s.base
+        lb0 = float(s.lower_bound_with_deferred())
+        if not all(hasattr(s, a) for a in ("export_layer_costs", "min_marginals", "f")):
+            bdd_log("[tighten] solver exposes no layer costs — skipped")
+            return lb0
+        stats = self.tighten_stats
+        stats.update(dual_s=self.dual_stats.get("solve_time"),
+                     dual_iterations=self.dual_stats.get("iterations"))
+        t0 = time.perf_counter()
+        s.distribute_delta()
+        m0, m1 = s.min_marginals()
+        tv = tight_variables(s.f, m0, m1, eps=float(t_cfg.get("eps", 1e-4)))
+        costs = s.export_layer_costs()
+        t1 = time.perf_counter()
+        explicit = None
+        if t_cfg.get("cliques", True) or t_cfg.get("odd cycles", True):
+            explicit = conflict_cuts(
+                self.pre.collection,
+                tv,
+                cliques=t_cfg.get("cliques", True),
+                odd_cycles=t_cfg.get("odd cycles", True),
+            ) or None
+        new_col, new_costs, groups = tighten_collection(
+            self.pre.collection,
+            tv,
+            layer_costs=costs,
+            node_limit=int(t_cfg.get("node limit", 200000)),
+            explicit_groups=explicit,
+        )
+        t2 = time.perf_counter()
+        melded = sum(1 for g in groups.values() if len(g) > 1)
+        stats.update(min_marginals_s=t1 - t0, meld_s=t2 - t1, tight_variables=len(tv),
+                     groups_melded=melded, bdds_before=self.pre.collection.nr_bdds(),
+                     bdds_after=new_col.nr_bdds())
+        if melded == 0:
+            bdd_log("[tighten] no groups melded")
+            return lb0
+        bdd_log(
+            f"[tighten] {melded} groups melded "
+            f"({'clique facets' if explicit else 'tight-variable clusters'}),"
+            f" bdds {self.pre.collection.nr_bdds()} -> {new_col.nr_bdds()}"
+        )
+        pre_solver = self.solver
+        self.solver = UniformSolver.from_collection(
+            new_col,
+            self.pre.total_nr_variables(),
+            self.pre.objective_vector(),
+            nr_primal_vars=self.pre.nr_primal_variables,
+            dtype=self.dtype,
+            device=self.device,
+            layer_costs=new_costs,
+        )
+        t3 = time.perf_counter()
+        self.solve_dual(verbose=verbose)
+        lb = float(self.solver.lower_bound_with_deferred())
+        stats.update(rebuild_s=t3 - t2, resolve_s=time.perf_counter() - t3,
+                     warm_lower_bound=self.dual_stats.get("initial_lower_bound"))
+        bdd_log(f"[tighten] lower bound {lb0:.6f} -> {lb:.6f}")
+        self._tighten_bounds = (lb0, lb)
+        if lb < lb0:
+            # the warm re-solve did not recover the pre-tighten bound in
+            # budget: keep the original solver, so that the bound reported is
+            # the one the state that rounding runs on holds
+            self.solver = pre_solver
+            return lb0
+        return lb
+
     def solve(self, verbose: bool = True, draws: Optional[Draws] = None) -> Dict:
         """Full pipeline; returns the result dict of ``bdd_tpu.api``.
         ``draws``: optional uniform draws for the device rounding of the
@@ -723,10 +830,16 @@ class BddSolver:
             return {"status": "infeasible", "lower_bound": math.inf}
         if hasattr(self.solver, "lower_bound_with_deferred"):
             lb = self.solver.lower_bound_with_deferred()
+        if self.config.get("tighten"):
+            lb = self._tighten_phase(verbose)
         if self.config.get("export difficult core"):
             self.export_difficult_core()
         sol = self.round(verbose=verbose)
         result = {"status": "solved", "lower_bound": float(lb), **self.dual_stats}
+        tb = getattr(self, "_tighten_bounds", None)
+        if tb is not None:
+            result["tighten"] = {"pre_lower_bound": float(tb[0]),
+                                 "post_lower_bound": float(tb[1])}
         if sol is not None:
             x = [int(v) for v in sol]
             result["solution"] = {

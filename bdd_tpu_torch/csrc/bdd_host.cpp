@@ -1351,7 +1351,9 @@ struct Context {
             bk.P = key.first;
             bk.H = key.second;
             bk.nB = (int32_t)members.size();
-            int32_t pad = bk.nB >= 128 ? 128 : 8;
+            // TPU lanes (the JAX package's layout), but none for a huge
+            // bucket (P > 8,192): its sweep body runs a block a column
+            int32_t pad = bk.P > 8192 ? 1 : (bk.nB >= 128 ? 128 : 8);
             bk.B = ((bk.nB + pad - 1) / pad) * pad;
             size_t npb = (size_t)bk.H * bk.P * bk.B;
             bk.node_valid.assign(npb, 0);

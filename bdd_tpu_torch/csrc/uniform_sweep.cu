@@ -4,7 +4,8 @@
 //   uniform_forward  <- _forward_kernel  (pallas_uniform.py:112-180)
 //   uniform_backward <- _backward_kernel (pallas_uniform.py:183-246)
 // One launch runs the whole half-sweep of EVERY bucket of up to 32 slots of
-// a solve, and a second one that of the wider buckets (the last section): per hop
+// a solve, a second one that of the buckets of up to 8,192 slots (the wide
+// section) and a third one that of the wider ones (the huge section): per hop
 // the min-marginals, the MMA cost update, and the frontier (forward cfr) or
 // costs-to-terminal (backward cft). uniform_backward_run is the backward body
 // without the cost update: the costs-to-terminal of given costs
@@ -53,14 +54,16 @@
 //    node_valid; of record byte P layer_valid; of record byte P+1 root.
 //    solver/layout.py writes this form and the twins decode the same bytes.
 //    Buckets of more than 32 slots carry two bytes an arc and have a body of
-//    their own (the last section): this one holds a column's P frontier
+//    their own (the wide section), and those of more than 8,192 four bytes
+//    and a third (the huge section): this one holds a column's P frontier
 //    values in registers and does not stretch past P = 32.
 //
 // Build: nvcc without --use_fast_math (isinf/isnan must hold) and with
 // -fmad=false (no FMA contraction), so results match the twin bit for bit.
 // Each launch runs on the caller's stream; the C entry points return
-// cudaGetLastError(), -1 for a largest P with no instantiation, or -2 for a
-// tile that is not 32 or 64 columns.
+// cudaGetLastError(), -1 for a largest P with no instantiation (or a forward
+// huge launch without its scratch rows), or -2 for a tile that is not 32 or
+// 64 columns (a block size the wide or huge body does not take).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -523,9 +526,9 @@ int launch(const void* table, int nr_buckets, int nr_blocks, int tile, int pmax,
 //    takes the min-marginals decodes it, stores it and sets the next row to
 //    the key of +inf; one __syncwarp; the scatter pass; one __syncwarp. The
 //    backward hop has one __syncwarp.
-//  * Shared memory is dynamic, up to the 227 KB a block may opt into, so the
-//    widest bucket is bounded by the 13 bits of an arc's slot and not by
-//    shared memory (P = 8,192 in float64: one warp a block and no ring). The
+//  * Shared memory is dynamic, up to the 227 KB a block may opt into: P =
+//    8,192 in float64 takes one warp a block and no ring, and wider buckets
+//    go to the huge body (the 13 bits of an arc's slot end there too). The
 //    launch plan (solver/layout.py) picks the warps of a block from the
 //    number of columns: a layout of fewer columns than 8 a SM spreads over
 //    the SMs, a block of its own for every column if need be.
@@ -806,6 +809,212 @@ int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ huge buckets
+// Buckets wider than 8,192 slots (four bytes an arc: kind | slot << 2 | flag
+// << 30, bit 31 clear) run in a third launch, over a table of their own: a
+// column's two rows no longer fit a warp's shared memory (the wide body's
+// limit). One BLOCK owns one column and its threads stride over the P slots.
+// The forward frontier rows of a column (this hop's, as keys, and the next
+// one being built) lie in a scratch buffer in device memory, [B, 2, P] per
+// bucket, which each layout allocates once (layout.huge_scratch); the
+// table's last column is the bucket's offset into it. A huge bucket is not
+// padded to 128 columns (layout.lane_pad): a padding column would cost a
+// block its whole sweep. Per forward hop:
+//  1. each thread decodes its slots of the current row (or the root restart),
+//     writes them out as cfr, takes its part of the min-marginals and sets
+//     its slots of the next row to the key of +inf;
+//  2. a block reduction of the min-marginals (a warp butterfly, then the
+//     warps' results through shared memory): one __syncthreads, which also
+//     makes every reset visible;
+//  3. the cost update, computed alike by every thread;
+//  4. the relaxation: a global atomicMin on the wide body's order-preserving
+//     key (Key<T>) per internal arc; a __syncthreads ends the hop.
+// Per backward hop each slot gathers its two children from the row of hop
+// h+1, which this block wrote one hop before as its output (cft): the
+// min-marginals' reduction and one __syncthreads, no atomics (the run: one
+// __syncthreads). Every thread runs every hop to its end, since each phase
+// waits for the whole block. Rows written in this launch are read back with
+// __ldcg (from L2), which the barrier orders. A minimum is exact in any
+// order and every sum is formed as the twins form it, so the results equal
+// the twins' bit for bit, as in the other two bodies.
+//
+// Bound: bytes, as the other bodies; per (hop, column) a record of 8P bytes.
+// This is the simple body: no ring, no TMA; the arc words, the incoming
+// frontier row and the layer scalars are read from device memory where they
+// are used (the scalars by every thread: one line, broadcast). The forward
+// scratch rows are L2-resident for a column's whole run.
+constexpr unsigned HUGE_SLOT_MASK = (1u << 28) - 1;
+constexpr int HUGE_MAX_THREADS = 1024;
+
+__device__ __forceinline__ unsigned huge_flag(uint32_t w) { return (w >> 30) & 1u; }
+
+// min of (m0, m1) over the block, in every thread; `red` is [64] in shared
+// memory, free again once the block has passed its next barrier
+template <typename T>
+__device__ __forceinline__ void block_min2(T& m0, T& m1, T* red) {
+  const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
+  const int warps = (int)blockDim.x >> 5;
+  m0 = warp_min(m0);
+  m1 = warp_min(m1);
+  if (lane == 0) {
+    red[warp] = m0;
+    red[32 + warp] = m1;
+  }
+  __syncthreads();
+  T x = red[0], y = red[32];
+  for (int w = 1; w < warps; ++w) {
+    x = min_v(x, red[w]);
+    y = min_v(y, red[32 + w]);
+  }
+  m0 = x;
+  m1 = y;
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(HUGE_MAX_THREADS) sweep_huge_kernel(Args<T> a,
+                                                                       unsigned char* scratch) {
+  using K = Key<T>;
+  using U = typename K::U;
+  constexpr bool FORWARD = MODE == MODE_FORWARD, RUN = MODE == MODE_BACKWARD_RUN;
+  __shared__ T red[64];
+  int k = 0;
+  while (k + 1 < a.nr_buckets && (long long)blockIdx.x >= a.table[k + 1].first_block) ++k;
+  const Bucket bk = a.table[k];
+  const long long P = bk.P, B = bk.B;
+  const int H = (int)bk.H;
+  const long long b = (long long)blockIdx.x - bk.first_block;  // the column
+  const long long t0 = threadIdx.x, nt = blockDim.x;
+  const T inf = inf_v<T>();
+  const uint32_t* g_arcs = (const uint32_t*)(a.arcs + bk.arc_off);
+  const T* g_front = RUN ? nullptr : a.frontier + bk.node_off;  // rows [H, B, P]
+  T* g_out = a.out_frontier + bk.node_off;
+  // forward: this column's rows in the scratch buffer (the table's last
+  // column is the bucket's offset into it, in values)
+  U* row_a = FORWARD ? (U*)scratch + bk.stages + b * 2 * P : nullptr;
+  U* row_b = FORWARD ? row_a + P : nullptr;
+  if constexpr (FORWARD) {
+    // each thread reads only its own slots of row_a before the first barrier
+    for (long long p = t0; p < P; p += nt) row_a[p] = K::enc(inf);
+  }
+
+  for (int i = 0; i < H; ++i) {
+    const int h = FORWARD ? i : H - 1 - i;
+    const size_t col = (size_t)h * B + b;
+    const uint32_t* rec = g_arcs + col * 2 * P;
+    const size_t e = (size_t)bk.row_off + col;
+    const T lo = a.lo[e], hi = a.hi[e];
+    T* fout_h = g_out + col * P;
+    T m0 = inf, m1 = inf, nl = lo, nh = hi, mm = T(0);
+
+    if constexpr (FORWARD) {
+      const U* cur = row_a;
+      U* nxt = row_b;
+      const bool restart = huge_flag(rec[P + 1]) != 0;  // also the hop-0 init
+      const bool last = h + 1 >= H;
+      const T* fr = last ? nullptr : g_front + (col + B) * P;  // cft of hop h+1
+      const U key_inf = K::enc(inf);
+      for (long long p = t0; p < P; p += nt) {
+        const uint32_t lb = rec[p], hb = rec[P + p];
+        const unsigned lk = lb & 3u, ls = (lb >> 2) & HUGE_SLOT_MASK;
+        const unsigned hk = hb & 3u, hs = (hb >> 2) & HUGE_SLOT_MASK;
+        // cft of the child: TOP -> 0, BOT -> inf, else cft[h+1][slot] (inf
+        // past the last hop; 0 for a slot outside the bucket, as the twin)
+        T tl = lk == ARC_TOP ? T(0) : inf, th = hk == ARC_TOP ? T(0) : inf;
+        if (lk == ARC_INTERNAL) tl = ls < P ? (last ? inf : fr[ls]) : T(0);
+        if (hk == ARC_INTERNAL) th = hs < P ? (last ? inf : fr[hs]) : T(0);
+        const bool nv = huge_flag(lb) != 0;
+        const T f = restart ? (p == 0 ? T(0) : inf) : K::dec(__ldcg(cur + p));
+        m0 = min_v(m0, nv ? f + lo + tl : inf);
+        m1 = min_v(m1, nv ? f + hi + th : inf);
+        fout_h[p] = f;
+        nxt[p] = key_inf;
+      }
+      block_min2(m0, m1, red);  // the barrier: every reset is visible below
+      const T om = a.omega_arr ? a.omega_arr[e] : a.omega;
+      hop_cost_update(lo, hi, m0, m1, om, a.alpha[e], a.din_lo[e], a.din_hi[e],
+                      huge_flag(rec[P]) != 0, nl, nh, mm);
+      // relax the frontier to h+1: nxt[k] = min over valid p with an
+      // internal arc into k of cfr[p] + cost of that arc
+      for (long long p = t0; p < P; p += nt) {
+        const uint32_t lb = rec[p], hb = rec[P + p];
+        if (!huge_flag(lb)) continue;
+        const unsigned ls = (lb >> 2) & HUGE_SLOT_MASK, hs = (hb >> 2) & HUGE_SLOT_MASK;
+        const T f = restart ? (p == 0 ? T(0) : inf) : K::dec(__ldcg(cur + p));
+        if ((lb & 3u) == ARC_INTERNAL && ls < P) atomicMin(nxt + ls, K::enc(f + nl));
+        if ((hb & 3u) == ARC_INTERNAL && hs < P) atomicMin(nxt + hs, K::enc(f + nh));
+      }
+    } else {
+      // cft of hop h+1: this block's output of the hop before (inf past the last hop)
+      const T* cur = h + 1 < H ? g_out + (col + B) * P : nullptr;
+      if constexpr (!RUN) {
+        const T* cfr = g_front + col * P;
+        for (long long p = t0; p < P; p += nt) {
+          const uint32_t lb = rec[p], hb = rec[P + p];
+          const unsigned lk = lb & 3u, ls = (lb >> 2) & HUGE_SLOT_MASK;
+          const unsigned hk = hb & 3u, hs = (hb >> 2) & HUGE_SLOT_MASK;
+          const T gl = ls < P ? (cur ? __ldcg(cur + ls) : inf) : T(0);
+          const T gh = hs < P ? (cur ? __ldcg(cur + hs) : inf) : T(0);
+          const T tl = lk == ARC_TOP ? T(0) : (lk == ARC_BOT ? inf : gl);
+          const T th = hk == ARC_TOP ? T(0) : (hk == ARC_BOT ? inf : gh);
+          const bool nv = huge_flag(lb) != 0;
+          const T cf = cfr[p];  // cfr of this hop
+          m0 = min_v(m0, nv ? cf + lo + tl : inf);
+          m1 = min_v(m1, nv ? cf + hi + th : inf);
+        }
+        block_min2(m0, m1, red);
+        const T om = a.omega_arr ? a.omega_arr[e] : a.omega;
+        hop_cost_update(lo, hi, m0, m1, om, a.alpha[e], a.din_lo[e], a.din_hi[e],
+                        huge_flag(rec[P]) != 0, nl, nh, mm);
+      }
+      for (long long p = t0; p < P; p += nt) {
+        const uint32_t lb = rec[p], hb = rec[P + p];
+        const unsigned lk = lb & 3u, ls = (lb >> 2) & HUGE_SLOT_MASK;
+        const unsigned hk = hb & 3u, hs = (hb >> 2) & HUGE_SLOT_MASK;
+        const T gl = ls < P ? (cur ? __ldcg(cur + ls) : inf) : T(0);
+        const T gh = hs < P ? (cur ? __ldcg(cur + hs) : inf) : T(0);
+        const T tl = lk == ARC_TOP ? T(0) : (lk == ARC_BOT ? inf : gl);
+        const T th = hk == ARC_TOP ? T(0) : (hk == ARC_BOT ? inf : gh);
+        fout_h[p] = huge_flag(lb) ? min_v(nl + tl, nh + th) : inf;
+      }
+    }
+    __syncthreads();  // the row is built before the next hop reads it
+    if constexpr (FORWARD) {
+      U* const swap = row_a;
+      row_a = row_b;
+      row_b = swap;
+    }
+    if constexpr (!RUN) {
+      if (t0 == 0) {
+        a.out_lo[e] = nl;
+        a.out_hi[e] = nh;
+        a.out_mm[e] = mm;
+      }
+    }
+  }
+}
+
+// as `launch`, over the table of the huge buckets: one block of `threads`
+// threads a column; `scratch`: the forward rows (null for the backward
+// entries, which keep none)
+template <typename T, int MODE>
+int launch_huge(const void* table, int nr_buckets, int nr_blocks, int threads,
+                const void* arcs, const void* lo, const void* hi, const void* din_lo,
+                const void* din_hi, const void* alpha, const void* omega_arr, double omega,
+                const void* frontier, void* out_lo, void* out_hi, void* out_mm,
+                void* out_frontier, void* scratch, void* stream) {
+  if (nr_blocks == 0) return 0;
+  if (threads < 32 || threads > HUGE_MAX_THREADS || threads % 32) return -2;
+  if (MODE == MODE_FORWARD && scratch == nullptr) return -1;
+  const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
+                  (const T*)lo,         (const T*)hi,       (const T*)din_lo,
+                  (const T*)din_hi,     (const T*)alpha,    (const T*)omega_arr,
+                  (T)omega,             (const T*)frontier, (T*)out_lo,
+                  (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
+  sweep_huge_kernel<T, MODE><<<nr_blocks, threads, 0, (cudaStream_t)stream>>>(
+      a, (unsigned char*)scratch);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // (table, nr_buckets, nr_blocks, tile, pmax, smem_bytes, arcs, lo, hi, din_lo,
@@ -840,3 +1049,25 @@ SWEEP_ENTRY(uniform_backward_wide_f32, launch_wide, float, MODE_BACKWARD)
 SWEEP_ENTRY(uniform_backward_wide_f64, launch_wide, double, MODE_BACKWARD)
 SWEEP_ENTRY(uniform_backward_run_wide_f32, launch_wide, float, MODE_BACKWARD_RUN)
 SWEEP_ENTRY(uniform_backward_run_wide_f64, launch_wide, double, MODE_BACKWARD_RUN)
+
+// the huge entries: (table, nr_buckets, nr_blocks, threads, arcs, lo, hi,
+// din_lo, din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi,
+// out_mm, frontier out, scratch, stream)
+#define HUGE_ENTRY(NAME, T, MODE)                                                    \
+  extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks, int threads,  \
+                      const void* arcs, const void* lo, const void* hi,              \
+                      const void* din_lo, const void* din_hi, const void* alpha,     \
+                      const void* omega_arr, double omega, const void* frontier,     \
+                      void* out_lo, void* out_hi, void* out_mm, void* out_frontier,  \
+                      void* scratch, void* stream) {                                 \
+    return launch_huge<T, MODE>(table, nr_buckets, nr_blocks, threads, arcs, lo, hi,   \
+                                din_lo, din_hi, alpha, omega_arr, omega, frontier,     \
+                                out_lo, out_hi, out_mm, out_frontier, scratch, stream); \
+  }
+
+HUGE_ENTRY(uniform_forward_huge_f32, float, MODE_FORWARD)
+HUGE_ENTRY(uniform_forward_huge_f64, double, MODE_FORWARD)
+HUGE_ENTRY(uniform_backward_huge_f32, float, MODE_BACKWARD)
+HUGE_ENTRY(uniform_backward_huge_f64, double, MODE_BACKWARD)
+HUGE_ENTRY(uniform_backward_run_huge_f32, float, MODE_BACKWARD_RUN)
+HUGE_ENTRY(uniform_backward_run_huge_f64, double, MODE_BACKWARD_RUN)

@@ -6,8 +6,8 @@ Counterparts of ``BucketGeom``, ``UniformGeom``, ``UniformState`` and
 packing ``pack_uniform_host`` (uniform.py:863-1075).
 
 All building runs on the host in numpy. Tensors move to the device once, at
-build time, in the form the sweep kernels read: the arc geometry as one or
-two bytes per arc (:func:`encode_arcs`), one flat buffer over all buckets for every
+build time, in the form the sweep kernels read: the arc geometry as one, two
+or four bytes per arc (:func:`encode_arcs`), one flat buffer over all buckets for every
 per-layer quantity (the flat slot order of ``UniformGeom.sizes``), the tables
 of the buckets for the launches of a half-sweep (:class:`LaunchPlan`), int64
 variable ids (torch's index dtype), and the float dtype of the solve. Nothing
@@ -54,29 +54,28 @@ def resolve_device(device) -> torch.device:
 # Arc records. Per (hop, column) one record of record_bytes(P) bytes:
 # [lo arc of slot 0..P-1, hi arc of slot 0..P-1, zero padding up to 4 bytes].
 # Narrow buckets (P <= NARROW_P) take one byte an arc: kind | slot << 2 |
-# flag << 7 (kind in 2 bits, slot in 5). Wide buckets (NARROW_P < P <= MAX_P)
+# flag << 7 (kind in 2 bits, slot in 5). Wide buckets (NARROW_P < P <= WIDE_P)
 # take two bytes an arc, a little-endian uint16: kind | slot << 2 | flag << 15
-# (slot in 13 bits). The flags sit at the same arcs in either form: on a lo
-# arc node_valid of its slot, on arc P (the first hi arc) layer_valid, and on
-# arc P + 1 (the second hi arc; a padding byte when P = 1) the root row.
-# MAX_P is the widest bucket a two-byte arc holds: 13 bits of slot. The wide
-# sweep kernel is no narrower: one warp's two rows and one ring slot of P =
-# 8192 float64 values take 229,440 of the 232,448 bytes of shared memory a
-# block may opt into (:func:`wide_warp_bytes`). A wider bucket needs a
-# four-byte arc and a column shared by several warps.
+# (slot in 13 bits). Huge buckets (P > WIDE_P) take four bytes an arc, a
+# little-endian int32: kind | slot << 2 | flag << 30 (slot in 28 bits; bit 31
+# stays clear, so an int32 decode never sees a sign bit). The flags sit at the
+# same arcs in every form: on a lo arc node_valid of its slot, on arc P (the
+# first hi arc) layer_valid, and on arc P + 1 (the second hi arc; a padding
+# byte when P = 1) the root row.
+# WIDE_P is the widest bucket of the wide sweep body: one warp's two rows and
+# one ring slot of P = 8192 float64 values take 229,440 of the 232,448 bytes
+# of shared memory a block may opt into (:func:`wide_warp_bytes`). Wider
+# buckets run the huge body: a block a column, its rows in device memory.
 NARROW_P = 32
-MAX_P = 8192
-_FLAG_SHIFT = {1: 7, 2: 15}
-_SLOT_MASK = {1: 31, 2: 8191}
+WIDE_P = 8192
+_FLAG_SHIFT = {1: 7, 2: 15, 4: 30}
+_SLOT_MASK = {1: 31, 2: 8191, 4: (1 << 28) - 1}
+_WORD = {1: np.uint8, 2: np.dtype("<u2"), 4: np.dtype("<i4")}
 
 
 def arc_bytes(P: int) -> int:
-    """Bytes of one arc in a bucket of width P; ValueError above MAX_P."""
-    if P > MAX_P:
-        raise ValueError(
-            f"bucket width P={P} exceeds the widest arc record's {MAX_P} slots (13 bits of "
-            f"slot in a two-byte arc; one warp's shared memory in the wide sweep kernel)")
-    return 1 if P <= NARROW_P else 2
+    """Bytes of one arc in a bucket of width P."""
+    return 1 if P <= NARROW_P else (2 if P <= WIDE_P else 4)
 
 
 def record_bytes(P: int) -> int:
@@ -88,7 +87,7 @@ def encode_arcs(node_valid, lo_kind, lo_slot, hi_kind, hi_slot, layer_valid, roo
     the [H, B] layer masks; raises on values the record cannot hold."""
     H, P, B = np.shape(node_valid)
     width = arc_bytes(P)
-    word = np.uint8 if width == 1 else np.dtype("<u2")
+    word = _WORD[width]
     shift, mask = _FLAG_SHIFT[width], _SLOT_MASK[width]
     rec = np.zeros((H, B, record_bytes(P) // width), dtype=word)
     for off, kind, slot in ((0, lo_kind, lo_slot), (P, hi_kind, hi_slot)):
@@ -114,8 +113,8 @@ class BucketGeom:
     the column. ``UniformGeom.per_bucket_nodes`` gives the [H, P, B] view of
     either and ``UniformGeom.flatten_nodes`` lays per-bucket tensors back.
 
-    ``arcs`` holds the arc records (:func:`encode_arcs`; one or two bytes an
-    arc by P), the only stored form of the arc geometry and layer masks;
+    ``arcs`` holds the arc records (:func:`encode_arcs`; one, two or four
+    bytes an arc by P), the only stored form of the arc geometry and layer masks;
     kernels and twins read these bytes. The [H, P, B] / [H, B] properties
     below decode them with shifts and masks on every access (tests and
     one-off host code; the twins decode once per call through
@@ -144,15 +143,17 @@ class BucketGeom:
     def _words(self):
         """(arcs [H, B, >= 2P] as integers, flag threshold, slot mask): the
         bytes themselves for narrow buckets, the uint16 arcs widened to int32
-        for wide ones."""
+        for wide ones, the int32 arcs (bit 31 clear) for huge ones."""
         width = arc_bytes(self.P)
         if width == 1:
             return self.arcs, 128, _SLOT_MASK[1]
-        return self.arcs.view(torch.int16).to(torch.int32) & 0xFFFF, 32768, _SLOT_MASK[2]
+        if width == 2:
+            return self.arcs.view(torch.int16).to(torch.int32) & 0xFFFF, 32768, _SLOT_MASK[2]
+        return self.arcs.view(torch.int32), 1 << 30, _SLOT_MASK[4]
 
     def decode(self):
         """(node_valid bool, lo_kind, lo_slot, hi_kind, hi_slot; uint8 for
-        narrow buckets, int32 for wide ones), each [H, P, B], from the
+        narrow buckets, int32 for wider ones), each [H, P, B], from the
         records."""
         P = self.P
         w, flag, mask = self._words()
@@ -181,8 +182,10 @@ class BucketGeom:
         return self.decode()[4].to(torch.int32)
 
     def _flag(self, arc: int) -> torch.Tensor:  # bool [H, B]
+        """The flag of one arc, from its top byte: bit 7 of it in the one- and
+        two-byte forms, bit 6 in the four-byte form (bit 7 there is clear)."""
         width = arc_bytes(self.P)
-        return self.arcs[:, :, width * arc + width - 1] >= 128
+        return self.arcs[:, :, width * arc + width - 1] >= (64 if width == 4 else 128)
 
     @property
     def layer_valid(self) -> torch.Tensor:  # bool [H, B]
@@ -232,15 +235,40 @@ WIDE_STAGES = 1  # hops a warp of the wide kernel copies ahead
 WIDE_SCALARS = 8  # values a ring slot keeps for the layer (6 used)
 SM_COUNT = 132  # H100 SXM
 MAX_DYNAMIC_SMEM = 227 * 1024  # the most a block may opt into
+# threads of a block (a column) of the huge body: at 132 columns of P =
+# 16,384 a block of 1,024 ran both half-sweeps 10-27% faster than one of 512
+# and about twice as fast as one of 256 (chip_smoke.py, phase 6, on an NVIDIA
+# H100 80GB HBM3 at 700 W). Fixed: the kernel takes any multiple of 32 up to
+# 1,024, and only the tests and chip_smoke.py's timing variants set another
+# (``dataclasses.replace`` of a plan).
+HUGE_THREADS = 1024
+
+
+def lane_pad(nr_columns: int, P: int, lanes: int = 128) -> int:
+    """Columns a bucket of ``nr_columns`` BDDs of width P is padded to: a
+    multiple of ``lanes`` from ``lanes`` columns on (the JAX package's TPU
+    lanes, kept so that both packages build the same layouts), else of 8. A
+    huge bucket (P > WIDE_P) is not padded: its body runs a block a column,
+    so a padding column costs a whole block's sweep and buys nothing (and
+    132 columns stay one block an SM). ``csrc/bdd_host.cpp`` pads the same
+    way."""
+    if P > WIDE_P:
+        return nr_columns
+    return _pad_to(nr_columns, lanes if nr_columns >= lanes else 8)
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """What the launches of a sweep kernel over a list of buckets need beside
     the buffers: the bucket tables on the device and the grids' numbers. The
-    narrow buckets (P <= NARROW_P) go in one launch, the wide ones in a
-    second, each over its own table; both tables index the same flat
-    buffers."""
+    narrow buckets (P <= NARROW_P) go in one launch, the wide ones (P <=
+    WIDE_P) in a second, the huge ones in a third, each over its own table;
+    the tables index the same flat buffers. The huge table's last column is
+    the bucket's offset (in values) into the scratch rows of the huge body,
+    the two frontier rows of every huge column ([B, 2, P] per bucket,
+    ``huge_scratch_values`` in all). The plan is cached and shared by every
+    layout of its shapes, so it holds no buffer: each layout allocates its
+    own rows (:func:`huge_scratch`)."""
 
     table: torch.Tensor  # int64 [nr_buckets, TABLE_COLUMNS]: the narrow buckets
     nr_buckets: int
@@ -260,6 +288,11 @@ class LaunchPlan:
     wide_pmax: int  # widest bucket
     wide_warp_bytes: int  # shared memory of one warp: two rows and its ring
     wide_smem_bytes: int  # wide_warps * wide_warp_bytes
+    huge_table: torch.Tensor  # int64 [nr_huge, TABLE_COLUMNS]: the huge buckets
+    nr_huge: int
+    huge_blocks: int  # one a column
+    huge_threads: int  # threads a block: HUGE_THREADS
+    huge_scratch_values: int  # sum 2 * P * B over the huge buckets
 
 
 def cell_bytes(P: int, itemsize: int) -> int:
@@ -341,7 +374,8 @@ def _offsets(shapes):
 def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
                  wide_stages: Optional[int], wide_warps: Optional[int]) -> LaunchPlan:
     narrow = [k for k, (P, _, _) in enumerate(shapes) if P <= NARROW_P]
-    wide = [k for k, (P, _, _) in enumerate(shapes) if P > NARROW_P]
+    wide = [k for k, (P, _, _) in enumerate(shapes) if NARROW_P < P <= WIDE_P]
+    huge = [k for k, (P, _, _) in enumerate(shapes) if P > WIDE_P]
     cols = sum(shapes[k][2] for k in narrow)
     tile = TILE_SMALL if cols <= TILE_SWITCH else TILE_LARGE
     want = stages or min(MAX_STAGES, max(MIN_STAGES, -(-STAGE_COLUMNS // max(cols, 1))))
@@ -364,6 +398,13 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
         P, H, B = shapes[k]
         wide_table[r] = (P, H, B, wide_block, rows[k], nodes[k], arcs[k], wide_depth)
         wide_block += -(-B // warps) if H > 0 else 0
+    huge_table = np.zeros((len(huge), TABLE_COLUMNS), dtype=np.int64)
+    huge_block = scratch = 0
+    for r, k in enumerate(huge):
+        P, H, B = shapes[k]
+        huge_table[r] = (P, H, B, huge_block, rows[k], nodes[k], arcs[k], scratch)
+        huge_block += B if H > 0 else 0
+        scratch += 2 * P * B
     return LaunchPlan(
         table=torch.from_numpy(table).to(device), nr_buckets=len(narrow), nr_blocks=block,
         tile=tile, pmax=max((shapes[k][0] for k in narrow), default=1), smem_bytes=smem,
@@ -371,12 +412,13 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
         wide_table=torch.from_numpy(wide_table).to(device), nr_wide=len(wide),
         wide_blocks=wide_block, wide_warps=warps, wide_pmax=wide_pmax,
         wide_warp_bytes=warp_bytes, wide_smem_bytes=warps * warp_bytes,
+        huge_table=torch.from_numpy(huge_table).to(device), nr_huge=len(huge),
+        huge_blocks=huge_block, huge_threads=HUGE_THREADS, huge_scratch_values=scratch,
     )
 
 
 def launch_plan(shapes, dtype: torch.dtype, device, stages: Optional[int] = None,
-                wide_stages: Optional[int] = None,
-                wide_warps: Optional[int] = None) -> LaunchPlan:
+                wide_stages: Optional[int] = None, wide_warps: Optional[int] = None) -> LaunchPlan:
     """The plan of one launch over buckets of ``shapes`` ((P, H, B) each)
     whose buffers lie flat, bucket after bucket. Built once per distinct
     argument list (cached); ``stages`` overrides the prefetch depth of the
@@ -385,6 +427,47 @@ def launch_plan(shapes, dtype: torch.dtype, device, stages: Optional[int] = None
     itemsize = torch.empty((), dtype=dtype).element_size()
     return _launch_plan(tuple(tuple(int(x) for x in s) for s in shapes), itemsize,
                         str(torch.device(device)), stages, wide_stages, wide_warps)
+
+
+def huge_scratch(plan: LaunchPlan, dtype: torch.dtype, device) -> Optional[torch.Tensor]:
+    """The scratch rows of the huge body over ``plan``'s huge buckets (uint8,
+    ``huge_scratch_values`` values of ``dtype``): one buffer per layout, made
+    with it and freed with it. None off the card (the twins need none) and
+    where the plan has no huge bucket."""
+    device = torch.device(device)
+    if device.type != "cuda" or not plan.huge_scratch_values:
+        return None
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return torch.empty(plan.huge_scratch_values * itemsize, dtype=torch.uint8, device=device)
+
+
+def solve_bytes(shapes, itemsize: int) -> int:
+    """Device memory a solve over buckets of ``shapes`` works in: the arc
+    records, per layer the state, the half-sweep's outputs, the deltas, alpha
+    and three int64 index entries, per node the frontier in and out, and the
+    huge body's scratch rows."""
+    _, _, _, E, N, arcs = _offsets(shapes)
+    scratch = sum(2 * P * B for P, _, B in shapes if P > WIDE_P)
+    return arcs + E * (9 * itemsize + 3 * 8) + (2 * N + scratch) * itemsize
+
+
+def _check_device_memory(shapes, itemsize: int, device: torch.device) -> None:
+    """Raise MemoryError, naming the bytes, when a layout does not fit the
+    card's free memory: the one limit on a bucket's width. Free is what the
+    driver reports free plus what PyTorch's caching allocator holds reserved
+    but unused (a warm process keeps freed tensors' memory there, and
+    reuses it for the layout)."""
+    if device.type != "cuda":
+        return
+    need = solve_bytes(shapes, itemsize)
+    free, total = torch.cuda.mem_get_info(device)
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    if need > free + cached:
+        widest = max((P for P, _, _ in shapes), default=0)
+        raise MemoryError(
+            f"the layout (widest bucket P={widest}, {len(shapes)} buckets) needs {need} bytes "
+            f"of device memory to solve; {device} has {free} of {total} free and {cached} "
+            f"cached by the allocator")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -397,6 +480,7 @@ class UniformGeom:
     arcs: torch.Tensor  # uint8 [plan.arc_bytes]: every bucket's records
     alpha: torch.Tensor  # float [E]
     plan: LaunchPlan  # the launches over all buckets
+    huge_scratch: Optional[torch.Tensor] = None  # the huge body's rows (:func:`huge_scratch`)
 
     @property
     def V(self) -> int:
@@ -558,12 +642,13 @@ def _pack_candidates(max_d: int) -> List[int]:
     return sorted({min(m * max_d, max(PACK_H_CAP, max_d)) for m in (1, 2, 3, 4)})
 
 
-def _pack_eval(deps: np.ndarray, cap: int):
-    """FFD-pack ``deps`` under ``cap``; returns (cost, col, row0, H, B) under
-    the cost model bucket area + PACK_LAMBDA per serial row."""
+def _pack_eval(deps: np.ndarray, cap: int, P: int):
+    """FFD-pack ``deps`` (BDDs of width P) under ``cap``; returns (cost, col,
+    row0, H, B) under the cost model bucket area + PACK_LAMBDA per serial
+    row."""
     col, row0, nc = _ffd_pack(deps, cap)
     H = int((row0 + deps).max())
-    B = _pad_to(nc, 128 if nc >= 128 else 8)
+    B = lane_pad(nc, P)
     return H * B + PACK_LAMBDA * H, col, row0, H, B
 
 
@@ -592,7 +677,7 @@ def _pack_buckets(buckets: Sequence[dict], nr_vars: int) -> List[dict]:
             deps = np.array([s[0] for s in tier], dtype=np.int64)
             best = None
             for cap in _pack_candidates(int(deps.max())):
-                cand = _pack_eval(deps, cap)
+                cand = _pack_eval(deps, cap, P)
                 if best is None or cand[0] < best[0]:
                     best = cand
             _, col, row0, H, B = best
@@ -682,6 +767,8 @@ def _build_host(
         return torch.from_numpy(np.array(x, dtype=dt)).to(device)  # owned copy
 
     shapes = [b["node_valid"].shape for b in buckets]
+    _check_device_memory([(P, H, B) for H, P, B in shapes],
+                         torch.empty((), dtype=dtype).element_size(), device)
     plan = launch_plan([(P, H, B) for H, P, B in shapes], dtype, device)
     arcs_np = np.zeros(plan.arc_bytes, dtype=np.uint8)
     for b, off in zip(buckets, plan.arc_offsets):
@@ -711,6 +798,7 @@ def _build_host(
         arcs=arcs,
         alpha=alpha,
         plan=plan,
+        huge_scratch=huge_scratch(plan, dtype, device),
     )
     return UniformHost(
         geom=geom,
@@ -789,14 +877,14 @@ def _merge_small_buckets(groups: Dict[Tuple[int, int], List]) -> Dict[Tuple[int,
 
 def flatten_uniform(collection, nr_vars: int, nr_primal_vars: Optional[int] = None,
                     dtype=torch.float32, device="cuda", pack=None,
-                    lane_pad: int = 128) -> UniformHost:
+                    lanes: int = 128) -> UniformHost:
     """Bucketed uniform layout of a QBDD ``BddCollection``: the Python
     pipeline's way to the layout that :func:`from_native_host` builds from the
     host library (uniform.py:699-839 of the JAX package, bucket for bucket:
     a bucket is keyed by the width rounded up to a power of two and the depth
     rounded to eighths of one). ``pack`` defaults to column packing for
-    float32 only. ``lane_pad`` pads B as the JAX package does, so both build
-    the same arrays."""
+    float32 only. ``lanes`` pads B as the JAX package does, so both build
+    the same arrays (:func:`lane_pad`; huge buckets are not padded here)."""
     from bdd_tpu_torch.bdd.collection import BOT, TOP
 
     if nr_primal_vars is None:
@@ -831,9 +919,8 @@ def flatten_uniform(collection, nr_vars: int, nr_primal_vars: Optional[int] = No
     for key in sorted(members_of):
         members = members_of[key]
         P, H = key
-        arc_bytes(P)  # a width no record holds is refused before the arrays are made
         nB = len(members)
-        B = _pad_to(nB, lane_pad if nB >= lane_pad else 8)
+        B = lane_pad(nB, P, lanes)
         bk = dict(
             node_valid=np.zeros((H, P, B), dtype=bool),
             lo_kind=np.full((H, P, B), ARC_BOT, dtype=np.int32),

@@ -3,14 +3,16 @@ bdd_tpu/solver/pallas_uniform.py).
 
 Two levels of wrapper over the kernels of ``csrc/uniform_sweep.cu``
 (``uniform_forward``, ``uniform_backward``, each with a body for buckets of
-up to 32 slots and one for wider buckets; see the design notes there):
+up to 32 slots, one for buckets of up to 8,192 and one for wider buckets; see
+the design notes there):
 
 * ``forward_iteration_cuda`` / ``backward_iteration_cuda`` take a whole
   ``UniformGeom`` and flat tensors and run the half-sweep of every bucket: ONE
-  launch over the narrow buckets and a second one over the wide buckets, where
-  the layout has any. The iteration uses these. Shapes and types were fixed
-  when the layout was built, so a call checks only what it is handed,
-  allocates the four outputs and makes one ctypes call per launch.
+  launch over the narrow buckets, a second one over the wide buckets and a
+  third over the huge ones, each where the layout has any. The iteration
+  uses these. Shapes and types were fixed when the layout was built, so a
+  call checks only what it is handed, allocates the four outputs and makes
+  one ctypes call per launch.
 * ``bucket_forward_iteration_cuda`` / ``bucket_backward_iteration_cuda`` keep
   the signature of the Pallas wrappers: one bucket, [H, B] tensors, optional
   per-layer ``alpha`` and ``omega``. They launch the same kernels over a table
@@ -23,19 +25,20 @@ up to 32 slots and one for wider buckets; see the design notes there):
   one launch per body.
 
 On CUDA tensors a wrapper launches its kernel or raises. On CPU tensors it
-runs the plain torch twins of ``uniform.py``. Every width up to
-``layout.MAX_P`` runs a kernel, for any H and in float32 and float64; there
-is no fallback.
+runs the plain torch twins of ``uniform.py``. Every width runs a kernel (a
+narrow one if it is a power of two), for any H and in float32 and float64;
+there is no fallback.
 
 Frontier tensors are [H, P, B] at every one-bucket wrapper and flat in the
 storage order of ``UniformGeom.per_bucket_nodes`` at the fused ones (a wide
-bucket stores [H, B, P]; a one-bucket wrapper that is handed another layout
-of a wide frontier copies it into that one first).
+or huge bucket stores [H, B, P]; a one-bucket wrapper that is handed another
+layout of such a frontier copies it into that one first).
 
 ``LAUNCHES`` counts kernel launches, one key per kernel and body
 (``uniform_forward`` is the narrow body's launch, ``uniform_forward_wide`` the
-wide body's). The twins never count here (``uniform.TWIN_SWEEP_CALLS`` and
-``uniform.PLAIN_RUN_CALLS`` count them).
+wide body's, ``uniform_forward_huge`` the huge body's). The twins never count
+here (``uniform.TWIN_SWEEP_CALLS`` and ``uniform.PLAIN_RUN_CALLS`` count
+them).
 """
 from __future__ import annotations
 
@@ -46,11 +49,11 @@ import torch
 from bdd_tpu_torch import _build
 from bdd_tpu_torch.solver import uniform as uf
 from bdd_tpu_torch.solver.layout import (
-    MAX_P,
     NARROW_P,
     BucketGeom,
     LaunchPlan,
     UniformGeom,
+    huge_scratch,
     launch_plan,
 )
 
@@ -58,7 +61,9 @@ SUPPORTED_P = (1, 2, 4, 8, 16, 32)  # the narrow body's instantiations
 KERNELS = ("uniform_forward", "uniform_backward")  # the half-sweeps
 RUN = "uniform_backward_run"  # the backward kernel's entry without the cost update
 WIDE = "_wide"  # suffix of the wide body's entries and of its key in LAUNCHES
-LAUNCHES = {kernel + body: 0 for kernel in KERNELS + (RUN,) for body in ("", WIDE)}
+HUGE = "_huge"  # the same for the huge body (P > layout.WIDE_P)
+BODIES = ("", WIDE, HUGE)
+LAUNCHES = {kernel + body: 0 for kernel in KERNELS + (RUN,) for body in BODIES}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -75,13 +80,13 @@ def _suffix(dtype: torch.dtype) -> str:
 
 
 def _check_widths(shapes) -> None:
-    """Narrow buckets need an instantiation of their width; the wide body takes
-    any width that a launch plan holds (``layout.arc_bytes`` refuses more)."""
+    """Narrow buckets need an instantiation of their width; the wide and huge
+    bodies take any wider P."""
     for P, H, B in shapes:
         if P <= NARROW_P and P not in SUPPORTED_P:
             raise ValueError(
                 f"no sweep kernel for bucket shape (P={P}, H={H}, B={B}); instantiated P: "
-                f"{SUPPORTED_P}, and any P from {NARROW_P + 1} to {MAX_P} in the wide body"
+                f"{SUPPORTED_P}, and any P above {NARROW_P} in the wide and huge bodies"
             )
 
 
@@ -97,12 +102,14 @@ def _check_all(named, shapes) -> None:
 
 
 def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha, omega,
-              frontier, outs):
+              frontier, outs, scratch=None):
     """A closure that queues ``kernel`` on the current stream (the narrow
-    buckets' launch, then the wide buckets', each where the plan has blocks
-    for it) and raises on a launch error. It holds its tensors alive and does
-    not count; ``launch.counts`` names the key of ``LAUNCHES`` of every launch
-    a call makes."""
+    buckets' launch, then the wide buckets', then the huge buckets', each
+    where the plan has blocks for it) and raises on a launch error. It holds
+    its tensors alive and does not count; ``launch.counts`` names the key of
+    ``LAUNCHES`` of every launch a call makes. ``scratch``: the layout's rows
+    of the huge body (:func:`layout.huge_scratch`), which the forward's huge
+    launch needs and the others do not read."""
     suffix = _suffix(lo.dtype)
     if isinstance(omega, torch.Tensor) and omega.dim() > 0:
         omega_arr, omega_val = omega, 0.0
@@ -127,8 +134,13 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
         calls.append((kernel + WIDE, (
             plan.wide_table.data_ptr(), plan.nr_wide, plan.wide_blocks, plan.wide_warps,
             plan.wide_warp_bytes, plan.wide_smem_bytes, *buffers)))
+    if plan.huge_blocks:
+        rows = scratch if kernel == "uniform_forward" else None
+        calls.append((kernel + HUGE, (
+            plan.huge_table.data_ptr(), plan.nr_huge, plan.huge_blocks, plan.huge_threads,
+            *buffers[:-1], ptr(rows), buffers[-1])))
     calls = [(name, getattr(lib, f"{name}_{suffix}"), args) for name, args in calls]
-    keep = (plan, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, frontier, outs)
+    keep = (plan, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, frontier, outs, scratch)
 
     def launch() -> None:
         for name, fn, args in calls:
@@ -170,7 +182,7 @@ def prepare_fused_launch(kernel: str, geom: UniformGeom, lo, hi, frontier, omega
                        ("din_hi", din_hi, E), ("frontier", frontier, N)))
     outs = _fresh_outputs(lo, frontier)
     return _launcher(kernel, plan, geom.arcs, lo, hi, din_lo, din_hi, geom.alpha, omega,
-                     frontier, outs), outs
+                     frontier, outs, geom.huge_scratch), outs
 
 
 def _fused(kernel: str, twin, geom: UniformGeom, lo, hi, frontier, omega, din_lo, din_hi):
@@ -274,7 +286,8 @@ def prepare_launch(kernel: str, g: BucketGeom, lo, hi, frontier, omega, din_lo, 
     _check_bucket_geometry(g, lo)
     plan = launch_plan([(P, H, B)], lo.dtype, lo.device)
     outs = _fresh_outputs(lo, stored)
-    launch = _launcher(kernel, plan, g.arcs, lo, hi, din_lo, din_hi, alpha, omega, stored, outs)
+    launch = _launcher(kernel, plan, g.arcs, lo, hi, din_lo, din_hi, alpha, omega, stored, outs,
+                       huge_scratch(plan, lo.dtype, lo.device))
     return launch, outs[:3] + (_node_view(P, outs[3]),)
 
 

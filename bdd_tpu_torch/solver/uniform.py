@@ -361,6 +361,35 @@ def init_uniform_state(host: UniformHost, objective) -> UniformState:
     return state_from_flat(geom, lo, hi, torch.zeros_like(hi), backward_run(geom, lo, hi))
 
 
+def init_uniform_state_from_layer_costs(host: UniformHost, layer_costs) -> UniformState:
+    """State from explicit per-layer duals {(bdd, var): (lo, hi)} or (lo, hi,
+    mm) triples (uniform.py:1098): the warm start of cut tightening. Missing
+    layers get (0, 0) and deferred marginals start at 0 unless a triple gives
+    one. ``UniformHost.layer_bdd`` is exact per slot, so packed, wide and huge
+    layouts all take it; the costs-to-terminal come from the backward
+    kernel's run-only entry."""
+    geom = host.geom
+    lo, hi, mm = (np.zeros(geom.plan.E) for _ in range(3))
+    off = 0
+    for g, lbdd in zip(geom.buckets, host.layer_bdd):
+        n = g.H * g.B
+        lvar = g.layer_var.cpu().numpy().ravel()
+        lbdd = np.asarray(lbdd).ravel()
+        for e in np.nonzero(g.layer_valid.cpu().numpy().ravel() & (lbdd >= 0))[0]:
+            c = layer_costs.get((int(lbdd[e]), int(lvar[e])))
+            if c is not None:
+                lo[off + e], hi[off + e] = c[0], c[1]
+                if len(c) > 2:
+                    mm[off + e] = c[2]
+        off += n
+
+    def t(x):
+        return torch.from_numpy(x).to(geom.device, geom.dtype)
+
+    lo, hi = t(lo), t(hi)
+    return state_from_flat(geom, lo, hi, t(mm), backward_run(geom, lo, hi))
+
+
 def lower_bound_from_cft(geom: UniformGeom, cft: Sequence[torch.Tensor]) -> torch.Tensor:
     """Sum of per-BDD root costs (slot 0 at every root row), accumulated in
     float64 and cast back to the state dtype (uniform.py:1675)."""
@@ -370,14 +399,21 @@ def lower_bound_from_cft(geom: UniformGeom, cft: Sequence[torch.Tensor]) -> torc
     return lb.to(geom.dtype)
 
 
-def distribute_delta(geom: UniformGeom, state: UniformState) -> UniformState:
-    """Fold the deferred marginals into the costs (uniform.py:1707)."""
+def folded_costs(geom: UniformGeom, state: UniformState) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flat costs (lo, hi) with the deferred marginals folded in."""
     lo, hi, mm, _ = state.flat
     din_lo, din_hi = exchange_delta_flat(geom, mm)
     valid = geom.exchange.valid
-    nl = torch.where(valid, lo + geom.alpha * din_lo, 0.0)
-    nh = torch.where(valid, hi + geom.alpha * din_hi, 0.0)
-    return state_from_flat(geom, nl, nh, torch.zeros_like(lo), backward_run(geom, nl, nh))
+    return (torch.where(valid, lo + geom.alpha * din_lo, 0.0),
+            torch.where(valid, hi + geom.alpha * din_hi, 0.0))
+
+
+def distribute_delta(geom: UniformGeom, state: UniformState, run=backward_run) -> UniformState:
+    """Fold the deferred marginals into the costs (uniform.py:1707); ``run``
+    (geom, lo, hi) -> cft [N] refreshes the costs-to-terminal (the smooth
+    solver passes its smooth run)."""
+    nl, nh = folded_costs(geom, state)
+    return state_from_flat(geom, nl, nh, torch.zeros_like(nl), run(geom, nl, nh))
 
 
 def lower_bound(geom: UniformGeom, state: UniformState) -> torch.Tensor:
@@ -388,31 +424,35 @@ def lower_bound_with_deferred(geom: UniformGeom, state: UniformState) -> torch.T
     return lower_bound_from_cft(geom, distribute_delta(geom, state).cft)
 
 
-def min_marginals_all(geom: UniformGeom, state: UniformState):
+def min_marginals_all(geom: UniformGeom, state: UniformState, cft=None):
+    """Per-bucket hard min-marginals of the state's costs; ``cft``: per-bucket
+    hard costs-to-terminal in place of the state's own."""
     return tuple(
-        bucket_min_marginals(g, lo, hi, cft)
-        for g, lo, hi, cft in zip(geom.buckets, state.lo, state.hi, state.cft)
+        bucket_min_marginals(g, lo, hi, c)
+        for g, lo, hi, c in zip(geom.buckets, state.lo, state.hi,
+                                state.cft if cft is None else cft)
     )
 
 
 def update_costs_flat(geom: UniformGeom, state: UniformState, lo_delta: torch.Tensor,
-                      hi_delta: torch.Tensor) -> UniformState:
+                      hi_delta: torch.Tensor, run=backward_run) -> UniformState:
     """Add per-slot cost deltas [E] at the valid slots, refreshing the
-    backward run."""
+    costs-to-terminal with ``run`` (as in :func:`distribute_delta`)."""
     lo, hi, mm, _ = state.flat
     valid = geom.exchange.valid
     nl = torch.where(valid, lo + lo_delta, 0.0)
     nh = torch.where(valid, hi + hi_delta, 0.0)
-    return state_from_flat(geom, nl, nh, mm, backward_run(geom, nl, nh))
+    return state_from_flat(geom, nl, nh, mm, run(geom, nl, nh))
 
 
 def update_costs_per_var(
-    geom: UniformGeom, state: UniformState, lo_u: torch.Tensor, hi_u: torch.Tensor
+    geom: UniformGeom, state: UniformState, lo_u: torch.Tensor, hi_u: torch.Tensor,
+    run=backward_run,
 ) -> UniformState:
     """Add per-variable cost deltas [V+1] (sentinel last) split by the
-    isotropic weights, refreshing the backward run (uniform.py:1784)."""
+    isotropic weights, refreshing the costs-to-terminal (uniform.py:1784)."""
     ids = geom.exchange.ids
-    return update_costs_flat(geom, state, geom.alpha * lo_u[ids], geom.alpha * hi_u[ids])
+    return update_costs_flat(geom, state, geom.alpha * lo_u[ids], geom.alpha * hi_u[ids], run)
 
 
 # --------------------------------------------------- solutions & dual algebra

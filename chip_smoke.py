@@ -16,7 +16,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      torch twins exactly (same ±inf pattern, max |diff| = 0). Each launch is
      timed warm (as the iteration finds it) and cold (a buffer larger than
      the L2 cache written in between), beside its bound: the bytes the launch
-     must move over the card's memory rate; gm50k float32 also at forced
+     must move for the columns that hold a BDD (padding columns left out)
+     over the card's memory rate; gm50k float32 also at forced
      prefetch depths and left unpacked;
   3. main path at size: ``bdd_tpu_torch.api.BddSolver(device="cuda")`` solves
      gm50k dual-only for 500 iterations in float32 (twice, bit-identical
@@ -29,13 +30,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      and of the native C++ baseline; a torch.profiler trace of one iteration
      block per precision: device busy share, and the number of host syncs
      between the block's first and last launch, which must be 0;
-  6. wide buckets: 2,000 knapsack rows of 40 variables over 20,000 variables
+  6. wide and huge buckets: 2,000 knapsack rows of 40 variables over 20,000 variables
      (coefficients 1..20, right-hand side half the row sum), whose BDDs are
      wider than 32 slots and run through the warp-a-column body of the
      kernels (a launch of its own per half-sweep): kernel vs twin on every
      bucket and fused, float32 and float64, times beside the byte bound, and
      a 200-iteration dual solve per precision held to the native C++ solver,
-     with the launches counted and the twins' call counter unmoved;
+     with the launches counted and the twins' call counter unmoved. Then 132
+     rows of 48 variables with coefficients 1..1,000 (P = 16,384: four-byte
+     arcs, the block-a-column body, a launch of its own; the bucket keeps
+     its 132 columns, not padded to 256) and 132 rows of 32 (P = 8,192, the widest
+     wide body): kernel == twin, times beside the byte bound (the huge body
+     also at 256 and 512 threads a block), and a
+     200-iteration float64 solve of the huge rows against the native solver,
+     every half-sweep one launch of the huge body;
   7. Python pipeline (BddPreprocessor -> flatten_uniform) on grid12: float64
      bound against the native pipeline's (rel 1e-7), default float32 with the
      host rounding, and one solve each with BDD splitting, wedelin and best;
@@ -57,7 +65,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the same layout, and the hop loops that are still torch ops
      (``bdds_solution``, ``bucket_forward_run``, ``min_marginals_all``) timed
      on gm50k.
-Every layout that phases 2 and 6-10 hold the half-sweeps on also holds the
+ 11. tightening: MIS-200 (``independent_set(200, edge_prob=0.15)``), float64,
+     ``"tighten": {"cliques": true}``, on the card and on the CPU: BDDs before
+     and after, groups melded, the bound before and after (it must rise; the
+     warm start must keep the converged bound), card and CPU bounds within rel
+     1e-9, wall time by step, launches, and the kernels against the twins on
+     the melded layout;
+ 12. smooth solvers: "smooth mma" on grid12 in float32 and float64 (the float64
+     bound against the port's CPU run, rel 1e-9), the smooth bound at a fixed
+     temperature (below the hard bound after every iteration; near-monotone
+     from a perturbed point of a 3x3 assignment), ms per smooth iteration
+     beside ms per MMA iteration on grid12 and gm50k (phase 10's Python
+     build), and the kernel launches a hop of the smooth sweeps (torch ops);
+     no sweep kernel and no plain version runs, the hard bound comes from
+     the run-only entry.
+Every layout that phases 2 and 6-11 hold the half-sweeps on also holds the
 run-only entry of the backward kernel (``uniform_backward_run``: the
 costs-to-terminal of given costs) to the plain run, bit-equal, timed warm and
 cold beside its byte bound; the knapsack layout also times the wide body at
@@ -71,9 +93,11 @@ the state their solves left, and check that no twin sweep ran in any solve.
 Imports nothing of JAX and nothing of bdd_tpu (checked at the end): the port
 carries its own host library, ILP model, frontends and generators.
 Prints the card line, one JSON line of per-kernel results (a row per kernel,
-body and path: gm50k, knapsack, python grid12, batch64, batch256, the server's
-batch), and as the last line {"ok": true, "device": {...}}.
+body and path: gm50k, knapsack, knapsack48 (huge), python grid12, batch64,
+batch256, the server's batch, the L-BFGS layouts, tighten mis200), and as the
+last line {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import math
 import os
@@ -89,6 +113,8 @@ L2_FLUSH_BYTES = 256 << 20  # several times the 50 MB L2
 KERNELS = ("uniform_forward", "uniform_backward")
 RUN = "uniform_backward_run"  # the backward kernel's entry without the cost update
 WIDE = "_wide"  # suffix of the wide-bucket body's entries in errs, times and the kernels line
+HUGE = "_huge"  # the same for the huge body (a block a column, P > 8,192)
+BODIES = ("", WIDE, HUGE)
 KNAPSACK_ITERS = 200
 BATCH_ITERS = 100
 GRID_OUTER_ITERS = 200
@@ -102,11 +128,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def launch_counts(narrow: int = 0, wide: int = 0) -> dict:
-    """The half-sweep keys of ``sweep_kernels.LAUNCHES`` after ``narrow``
-    launches of either kernel's narrow body and ``wide`` launches of either
-    kernel's wide body."""
-    return {k + body: n for k in KERNELS for body, n in (("", narrow), (WIDE, wide))}
+def launch_counts(narrow: int = 0, wide: int = 0, huge: int = 0) -> dict:
+    """The half-sweep keys of ``sweep_kernels.LAUNCHES`` after ``narrow``,
+    ``wide`` and ``huge`` launches of either kernel's narrow, wide and huge
+    body."""
+    return {k + body: n for k in KERNELS
+            for body, n in (("", narrow), (WIDE, wide), (HUGE, huge))}
 
 
 def sweeps_of(counts: dict) -> dict:
@@ -185,11 +212,18 @@ def compare(out, ref, tol: float) -> float:
     return err
 
 
+def bdd_shapes(buckets):
+    """(P, H, columns that hold a BDD) per bucket: the work a launch must do.
+    A padding column (no valid layer; the layouts pad B to TPU lanes) holds
+    nothing the solve needs, so the byte bounds leave it out."""
+    return [(g.P, g.H, int(g.layer_valid.any(0).sum())) for g in buckets]
+
+
 def launch_bytes(shapes, itemsize: int, forward: bool) -> int:
     """Bytes one launch must move: every input read once, every output
-    written once. Per (hop, column): the geometry record, lo hi din_lo
-    din_hi alpha and P frontier values in, 3 + P values out. The forward
-    kernel never reads cft of hop 0."""
+    written once. Per (hop, column) of ``shapes`` (:func:`bdd_shapes`): the
+    geometry record, lo hi din_lo din_hi alpha and P frontier values in,
+    3 + P values out. The forward kernel never reads cft of hop 0."""
     from bdd_tpu_torch.solver.layout import record_bytes
 
     total = 0
@@ -201,8 +235,9 @@ def launch_bytes(shapes, itemsize: int, forward: bool) -> int:
 
 
 def run_bytes(shapes, itemsize: int) -> int:
-    """Bytes one launch of the run-only entry must move: per (hop, column) the
-    geometry record, lo and hi in, P frontier values out."""
+    """Bytes one launch of the run-only entry must move: per (hop, column) of
+    ``shapes`` (:func:`bdd_shapes`) the geometry record, lo and hi in, P
+    frontier values out."""
     from bdd_tpu_torch.solver.layout import record_bytes
 
     return sum(H * B * (record_bytes(P) + (2 + P) * itemsize) for P, H, B in shapes)
@@ -242,7 +277,9 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
                    state=None):
     """Phase 2 for one host: every bucket alone, then all buckets fused, then
     the run-only entry; ``variants``: keyword sets of ``layout.launch_plan``
-    (forced ring depths, warps a block) to time the fused launches at as well;
+    (forced ring depths, warps a block) or ``huge_threads`` (threads a block
+    of the huge body, set on a copy of the plan) to time the fused launches
+    at as well;
     ``suffix``: WIDE when every bucket of the host runs the wide body;
     ``state``: the state to sweep from (a solver's, after its solve) instead
     of five iterations from ``objective``."""
@@ -282,7 +319,7 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
         # device time of the kernel alone (pre-validated launches) vs the twin
         launch_f, _ = sk.prepare_launch("uniform_forward", *args)
         launch_b, _ = sk.prepare_launch("uniform_backward", *bargs)
-        shape = [(g.P, g.H, g.B)]
+        shape = bdd_shapes([g])
         t = {
             "uniform_forward": (cuda_ms(launch_f, 100),
                                 cuda_ms(lambda: uf.bucket_forward_iteration(*args), 2),
@@ -325,7 +362,8 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
         errs[name + suffix] = max(errs[name + suffix], compare(out, ref, TOL[dt]))
         rose = sweeps_of({k: n - before[k] for k, n in sk.LAUNCHES.items()})
         want = {**launch_counts(), name: int(geom.plan.nr_blocks > 0),
-                name + WIDE: int(geom.plan.wide_blocks > 0)}
+                name + WIDE: int(geom.plan.wide_blocks > 0),
+                name + HUGE: int(geom.plan.huge_blocks > 0)}
         if rose != want:
             fail(f"{label} {dt}: one fused {name} call counted launches {rose}, not {want}")
     # the timing loops launch directly: checked once, no allocation, no count
@@ -336,7 +374,7 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
     plan = geom.plan
     for name, launch, fwd in (("uniform_forward", launch_f, True),
                               ("uniform_backward", launch_b, False)):
-        nbytes = launch_bytes(plan.shapes, itemsize, fwd)
+        nbytes = launch_bytes(bdd_shapes(geom.buckets), itemsize, fwd)
         e = entry[name]
         e.update(ms=cuda_ms(launch, 200), cold_ms=cuda_ms(launch, 20, flush), bytes=nbytes,
                  bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
@@ -346,17 +384,22 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
             f"{[int(s) for s in plan.table[:, 7].tolist()]}, {plan.smem_bytes} B shared; one "
             f"over {plan.nr_wide} wide bucket(s), {plan.wide_blocks} blocks of "
             f"{plan.wide_warps} warps, stages {[int(s) for s in plan.wide_table[:, 7].tolist()]}, "
-            f"{plan.wide_smem_bytes} B shared: match; "
+            f"{plan.wide_smem_bytes} B shared; one over {plan.nr_huge} huge bucket(s), "
+            f"{plan.huge_blocks} blocks of {plan.huge_threads} threads: match; "
             f"warm {e['ms']:.4f} ms ({share(e['bound_ms'], e['ms'])}), "
             f"cold {e['cold_ms']:.4f} ms ({share(e['bound_ms'], e['cold_ms'])}), "
-            f"bound {e['bound_ms']:.4f} ms = {nbytes} B at 3.35 TB/s; per-bucket launches "
+            f"bound {e['bound_ms']:.4f} ms = {nbytes} B (columns with a BDD) at 3.35 TB/s; "
+            f"per-bucket launches "
             f"summed {e['bucket_ms']:.4f} ms; twins summed {e['plain_ms']:.4f} ms {card}",
             flush=True,
         )
     print(f"[fused] {label} {dt} forward wrapper call (checks, 4 allocations, 1 launch): "
           f"{wrapper_ms:.4f} ms per call {card}", flush=True)
     for forced in variants:
-        deep = layout.launch_plan(plan.shapes, geom.dtype, geom.device, **forced)
+        deep = dataclasses.replace(
+            layout.launch_plan(plan.shapes, geom.dtype, geom.device,
+                               **{k: v for k, v in forced.items() if k != "huge_threads"}),
+            huge_threads=forced.get("huge_threads", layout.HUGE_THREADS))
         row = []
         for name, args, fwd in (("uniform_forward", args_f, True),
                                 ("uniform_backward", args_b, False)):
@@ -370,7 +413,8 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
               f"{[int(s) for s in deep.table[:, 7].tolist()]}, {deep.smem_bytes} B shared; wide "
               f"{deep.wide_warps} warps a block, stages "
               f"{[int(s) for s in deep.wide_table[:, 7].tolist()]}, {deep.wide_smem_bytes} B "
-              f"shared: match; {'; '.join(row)} {card}", flush=True)
+              f"shared; huge {deep.huge_threads} threads a block: match; {'; '.join(row)} "
+              f"{card}", flush=True)
     run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix)
 
 
@@ -400,12 +444,12 @@ def run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix):
     torch.cuda.synchronize()
     errs[key] = max(errs[key], compare([out], [geom.flatten_nodes(refs)], TOL[dt]))
     rose = {k: n - before[k] for k, n in sk.LAUNCHES.items() if n != before[k]}
-    want = {k: 1 for k, blocks in ((RUN, geom.plan.nr_blocks), (RUN + WIDE, geom.plan.wide_blocks))
-            if blocks}
+    want = {k: 1 for k, blocks in ((RUN, geom.plan.nr_blocks), (RUN + WIDE, geom.plan.wide_blocks),
+                                   (RUN + HUGE, geom.plan.huge_blocks)) if blocks}
     if rose != want:
         fail(f"{label} {dt}: one fused run call counted launches {rose}, not {want}")
     launch, _ = sk.prepare_run_launch(geom, lo, hi)
-    nbytes = run_bytes(geom.plan.shapes, itemsize)
+    nbytes = run_bytes(bdd_shapes(geom.buckets), itemsize)
     e = entry[RUN] = {
         "ms": cuda_ms(launch, 200), "cold_ms": cuda_ms(launch, 20, flush),
         "plain_ms": cuda_ms(plain, 2), "bytes": nbytes,
@@ -413,8 +457,9 @@ def run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix):
     print(f"[run] {label} {dt} {RUN}: one launch per body over {len(geom.buckets)} bucket(s) "
           f"{[tuple(s) for s in geom.plan.shapes][:8]}: match; warm {e['ms']:.4f} ms "
           f"({share(e['bound_ms'], e['ms'])}), cold {e['cold_ms']:.4f} ms "
-          f"({share(e['bound_ms'], e['cold_ms'])}), bound {e['bound_ms']:.4f} ms = {nbytes} B at "
-          f"3.35 TB/s; the plain run on the card {e['plain_ms']:.4f} ms {card}", flush=True)
+          f"({share(e['bound_ms'], e['cold_ms'])}), bound {e['bound_ms']:.4f} ms = {nbytes} B "
+          f"(columns with a BDD) at 3.35 TB/s; the plain run on the card {e['plain_ms']:.4f} ms "
+          f"{card}", flush=True)
 
 
 def solve_dual(lp, precision):
@@ -489,13 +534,15 @@ def profile_block(label, host, objective, card, n=25):
 
 
 def knapsack_lp(seed: int = 0, nr_vars: int = 20_000, nr_rows: int = 2_000,
-                row_len: int = 40) -> str:
+                row_len: int = 40, coef_max: int = 20) -> str:
     """Covering knapsack rows with mixed integer coefficients: each row takes
-    ``row_len`` variables with coefficients in 1..20 and asks for at least
-    half of the row sum; positive costs. The rows are cut from random
-    permutations of the variables, so every variable lies in the same number
-    of rows and none is left to a one-node BDD. A row's BDD is some 200 nodes
-    wide, far past the 32 slots of the narrow arc record."""
+    ``row_len`` variables with coefficients in 1..``coef_max`` and asks for
+    at least half of the row sum; positive costs. The rows are cut from
+    random permutations of the variables, so every variable lies in the same
+    number of rows and none is left to a one-node BDD. With the defaults a
+    row's BDD is some 200 nodes wide, far past the 32 slots of the narrow arc
+    record; 48 variables with coefficients up to 1,000 make rows wider than
+    8,192 slots (the huge body's), 32 variables rows of 8,192."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -506,7 +553,7 @@ def knapsack_lp(seed: int = 0, nr_vars: int = 20_000, nr_rows: int = 2_000,
     members = np.concatenate([rng.permutation(nr_vars)
                               for _ in range(nr_rows * row_len // nr_vars)])
     for r, var in enumerate(members.reshape(nr_rows, row_len)):
-        coef = rng.randint(1, 21, size=row_len)
+        coef = rng.randint(1, coef_max + 1, size=row_len)
         lines.append(f"r{r}: " + " + ".join(f"{a} x{v}" for a, v in zip(coef, var))
                      + f" >= {int(coef.sum()) // 2}")
     lines.append("End")
@@ -608,6 +655,342 @@ def phase_wide(card, errs, times, flush):
         launches[name] = {"at": "knapsack", "dt": name, "suffix": WIDE, "launches": counted,
                           "iterations": res["iterations"]}
     return launches["float32"]
+
+
+HUGE_ROWS = dict(nr_vars=1584, nr_rows=132, row_len=48, coef_max=1000)  # P = 16,384
+WIDEST_ROWS = dict(nr_vars=1056, nr_rows=132, row_len=32, coef_max=1000)  # P = 8,192
+HUGE_ITERS = 200
+
+
+def phase_huge(card, errs, times, flush):
+    """Phase 6, huge rows: knapsack rows wider than 8,192 slots through the
+    block-a-column body (four-byte arcs, a launch of its own per half-sweep),
+    and rows of exactly 8,192 through the wide body; 132 rows, a column each
+    (one block an SM)."""
+    import torch
+    from bdd_tpu_torch.api import BddSolver
+    from bdd_tpu_torch.native import NativeHost
+    from bdd_tpu_torch.solver import layout
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+
+    t0 = time.perf_counter()
+    lp = knapsack_lp(**HUGE_ROWS)
+    nh = NativeHost(lp, "input")
+    print(f"[huge] knapsack rows {HUGE_ROWS}: {nh.nr_bdds()} BDDs, {nh.nr_vars()} variables, "
+          f"built by the host library in {time.perf_counter() - t0:.2f} s {card}", flush=True)
+    for dtype in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        # unpacked in float32 too: packing keeps one BDD a column here (the
+        # same shapes) and took 42 s of host time over the 1.6 GB of arc
+        # arrays on the card machine's host (NVIDIA H100 80GB HBM3, 700 W)
+        host = layout.from_native_host(nh, dtype, "cuda", pack=False)
+        shapes = [(g.P, g.H, g.B) for g in host.geom.buckets]
+        columns = sum(int((d > 0).sum()) for d in host.depths)
+        print(f"[huge] knapsack48 {dtype}: buckets (P, H, B) {shapes}, {columns} columns with a "
+              f"BDD, arc record {layout.record_bytes(shapes[0][0])} B a hop and column, layout "
+              f"built in {time.perf_counter() - t0:.2f} s {card}", flush=True)
+        if (min(P for P, _, _ in shapes) <= layout.WIDE_P or columns < 132
+                or sum(B for _, _, B in shapes) != columns):
+            fail(f"the huge knapsack family has buckets {shapes}, {columns} columns; expected "
+                 f"only P > {layout.WIDE_P} and at least 132 columns, none of them padding")
+        kernel_vs_twin("knapsack48", host, nh.objective(), card, errs, times, flush, suffix=HUGE,
+                       variants=({"huge_threads": 256}, {"huge_threads": 512}))
+        del host
+    widest = NativeHost(knapsack_lp(**WIDEST_ROWS), "input")
+    for dtype in (torch.float32, torch.float64):
+        host = layout.from_native_host(widest, dtype, "cuda")
+        shapes = [(g.P, g.H, g.B) for g in host.geom.buckets]
+        if [P for P, _, _ in shapes] != [layout.WIDE_P]:
+            fail(f"the P = {layout.WIDE_P} knapsack family has buckets {shapes}")
+        print(f"[huge] knapsack32 {dtype}: buckets (P, H, B) {shapes}: the widest wide body "
+              f"{card}", flush=True)
+        kernel_vs_twin("knapsack32", host, widest.objective(), card, errs, times, flush,
+                       suffix=WIDE)
+        del host
+    cs = nh.cpu_solver()
+    t0 = time.perf_counter()
+    cs.iterations(HUGE_ITERS, 0.5)
+    native_s = time.perf_counter() - t0
+    lb_native = cs.lower_bound_with_deferred()
+    # the solve in float64 (the precision a solve of rows of such
+    # coefficients needs; a float32 solve agreed with the native solver to
+    # 1.1e-7 relative, and its layout build doubles this phase)
+    for name, prec in (("float64", "double"),):
+        sk.reset_launch_counts()
+        twins_before = plain_calls()
+        cfg = {"precision": prec, **DUAL_ONLY, **fixed_iterations(HUGE_ITERS)}
+        t0 = time.perf_counter()
+        res = BddSolver(cfg, device="cuda").read_ilp(lp_string=lp).solve(verbose=False)
+        wall = time.perf_counter() - t0
+        rel = abs(res["lower_bound"] - lb_native) / abs(lb_native)
+        counted = dict(sk.LAUNCHES)
+        print(f"[huge] knapsack48 {name}: lb {res['lower_bound']!r} after {res['iterations']} "
+              f"iterations vs the native C++ solver {lb_native!r}: rel diff {rel:.3e} (limit "
+              f"{LB_REL[prec]}), solve {res['solve_time']} s = "
+              f"{1e3 * res['solve_time'] / res['iterations']:.4f} ms per iteration, {wall:.2f} s "
+              f"wall (native {native_s:.2f} s); launches {counted}; plain versions called "
+              f"{ {k: plain_calls()[k] - twins_before[k] for k in twins_before} } {card}",
+              flush=True)
+        if res["status"] != "solved" or res["iterations"] != HUGE_ITERS or not rel <= LB_REL[prec]:
+            fail(f"huge knapsack {name} bound off the native solver")
+        # every bucket is huge: a half-sweep is ONE launch, the huge table's
+        if (sweeps_of(counted) != launch_counts(huge=HUGE_ITERS) or counted[RUN]
+                or counted[RUN + WIDE] or not counted[RUN + HUGE]):
+            fail(f"huge knapsack {name}: launches {counted}; expected "
+                 f"{launch_counts(huge=HUGE_ITERS)} and runs of the huge body only")
+        if plain_calls() != twins_before:
+            fail(f"huge knapsack {name}: a plain sweep or run ran during the solve on the card")
+    return {"at": "knapsack48", "dt": "float64", "suffix": HUGE, "launches": counted,
+            "iterations": res["iterations"]}
+
+
+MIS200 = dict(nr_nodes=200, edge_prob=0.15, seed=0)  # the MIS-200 rows of BENCH.md:419-420
+TIGHTEN_ITERS = 1000
+
+
+def phase_tighten(card, errs, times, flush):
+    """Phase 11: the cut-tightening phase (clique facets) on MIS-200, on the
+    card and, for the bound, on the CPU."""
+    from bdd_tpu_torch.api import BddSolver
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.utils.problems import independent_set
+
+    cfg = {"relaxation solver": "uniform mma", "precision": "double", "variable order": "bfs",
+           "tighten": {"cliques": True}, **DUAL_ONLY, **fixed_iterations(TIGHTEN_ITERS)}
+    results = {}
+    for device in ("cuda", "cpu"):
+        sk.reset_launch_counts()
+        before = plain_calls()
+        t0 = time.perf_counter()
+        s = BddSolver(dict(cfg), device=device).read_ilp(ilp=independent_set(**MIS200))
+        res = s.solve(verbose=False)
+        wall = time.perf_counter() - t0
+        st, tb = s.tighten_stats, res.get("tighten")
+        if res["status"] != "solved" or tb is None:
+            fail(f"tighten MIS-200 on {device}: {str(res)[:300]}")
+        results[device] = (s, res, dict(sk.LAUNCHES), wall)
+        print(f"[tighten] MIS-200 float64 on {device}: BDDs {st['bdds_before']} -> "
+              f"{st['bdds_after']}, {st['groups_melded']} groups melded, "
+              f"{st['tight_variables']} tight variables; bound {tb['pre_lower_bound']!r} -> "
+              f"{tb['post_lower_bound']!r} (warm start {st['warm_lower_bound']!r}); wall "
+              f"{wall:.2f} s: dual {st['dual_s']:.3f} s, min-marginals and export "
+              f"{st['min_marginals_s']:.3f} s, meld {st['meld_s']:.3f} s, rebuild "
+              f"{st['rebuild_s']:.3f} s, re-solve {st['resolve_s']:.3f} s; launches "
+              f"{dict(sk.LAUNCHES)}; plain versions "
+              f"{ {k: plain_calls()[k] - before[k] for k in before} } {card}", flush=True)
+        if device == "cuda":
+            if plain_calls() != before:
+                fail(f"tighten MIS-200: plain versions ran on the card: {before} -> "
+                     f"{plain_calls()}")
+            if not tb["post_lower_bound"] > tb["pre_lower_bound"]:
+                fail(f"tighten MIS-200: the bound did not rise: {tb}")
+            if st["warm_lower_bound"] < tb["pre_lower_bound"] - 1e-9 * abs(tb["pre_lower_bound"]):
+                fail(f"tighten MIS-200: the warm start fell below the converged bound: "
+                     f"{st['warm_lower_bound']!r} < {tb['pre_lower_bound']!r}")
+    (s, res, counted, _), (_, cpu, _, _) = results["cuda"], results["cpu"]
+    for key in ("pre_lower_bound", "post_lower_bound"):
+        a, b = res["tighten"][key], cpu["tighten"][key]
+        if not abs(a - b) <= 1e-9 * abs(b):
+            fail(f"tighten MIS-200 {key}: card {a!r} vs CPU {b!r} (rel > 1e-9)")
+    iterations = s.tighten_stats["dual_iterations"] + res["iterations"]
+    if sweeps_of(counted) != launch_counts(narrow=iterations):
+        fail(f"tighten MIS-200: launches {counted}; expected one narrow launch per kernel and "
+             f"iteration of the two solves ({iterations})")
+    print(f"[tighten] MIS-200: card and CPU bounds agree to rel 1e-9; the bound rose by "
+          f"{res['tighten']['post_lower_bound'] - res['tighten']['pre_lower_bound']:.6f} {card}",
+          flush=True)
+    # the kernels against the twins on the melded layout, from its solved state
+    kernel_vs_twin("tighten mis200", s.solver.host, None, card, errs, times, flush,
+                   state=s.solver.state)
+    return {"at": "tighten mis200", "dt": "float64", "suffix": "", "launches": counted,
+            "iterations": iterations}
+
+
+MATCHING_3X3 = """Minimize
+-2 x_11 - 1 x_12 - 1 x_13 - 1 x_21 - 2 x_22 - 1 x_23 - 1 x_31 - 1 x_32 - 2 x_33
+Subject To
+x_11 + x_12 + x_13 = 1
+x_21 + x_22 + x_23 = 1
+x_31 + x_32 + x_33 = 1
+x_11 + x_21 + x_31 = 1
+x_12 + x_22 + x_32 = 1
+x_13 + x_23 + x_33 = 1
+End"""  # tests/fixtures.py: a 3x3 assignment, LP-tight at -6
+SMOOTH_CFG = {"relaxation solver": "smooth mma", "smoothing": 0.2, "smoothing decay factor": 0.5}
+SMOOTH_ITERS = 200
+GM_SMOOTH_ITERS = 20
+
+
+def perturb_zero_sum(s, magnitude=1.7) -> None:
+    """Move a solver's dual point without changing the relaxation: per
+    variable with two layers or more, +magnitude on one layer's hi cost and
+    -magnitude on another's (tests/test_smooth_mma.py)."""
+    import numpy as np
+
+    lv, valid = s.f.layer_var, s.f.valid_layer_mask()
+    dh = np.zeros(lv.shape[0])
+    first = {}
+    for i in np.nonzero(valid)[0]:
+        v = int(lv[i])
+        if v not in first:
+            first[v] = i
+        elif first[v] >= 0:
+            dh[first[v]] += magnitude
+            dh[i] -= magnitude
+            first[v] = -1
+    s.update_layer_costs(np.zeros_like(dh), dh)
+
+
+def smooth_rates(label, host, objective, card, n):
+    """ms per smooth iteration (torch ops) beside ms per MMA iteration
+    (kernels) on one layout, and the kernels a hop of the smooth sweeps
+    launches (profiler); the smooth iterations move no sweep kernel and no
+    plain version."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from bdd_tpu_torch.solver import smooth_mma as smma
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver import uniform as uf
+
+    sol = smma.SmoothSolver(host, objective, smoothing=0.2, smoothing_decay=1.0)
+    geom = sol.geom
+    smma.smooth_iterations(geom, sol.state, 1, 0.5, sol.smoothing)  # warm
+    before, launched = plain_calls(), dict(sk.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = smma.smooth_iterations(geom, sol.state, n, 0.5, sol.smoothing)
+    torch.cuda.synchronize()
+    smooth_ms = 1e3 * (time.perf_counter() - t0) / n
+    if plain_calls() != before or sweeps_of(sk.LAUNCHES) != sweeps_of(launched):
+        fail(f"{label}: the smooth iterations called a plain version or a sweep kernel")
+    hard = uf.init_uniform_state(host, objective)
+    uf.iterations(geom, hard, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uf.iterations(geom, hard, n)
+    torch.cuda.synchronize()
+    mma_ms = 1e3 * (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        smma.smooth_iterations(geom, state, 1, 0.5, sol.smoothing)
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events() if e.name in ("cudaLaunchKernel", "cuLaunchKernel"))
+    hops = 2 * sum(g.H for g in geom.buckets)
+    print(f"[smooth] {label}: {smooth_ms:.4f} ms per smooth iteration (torch ops, {n} "
+          f"iterations) vs {mma_ms:.4f} ms per MMA iteration (kernels) on the same layout "
+          f"{[(g.P, g.H, g.B) for g in geom.buckets]}: {smooth_ms / mma_ms:.1f}x; "
+          f"{kernels} kernel launches per smooth iteration = {kernels / hops:.1f} per hop "
+          f"({hops} hops) {card}", flush=True)
+    return smooth_ms, mma_ms
+
+
+def phase_smooth(card, gm_python):
+    """Phase 12: "smooth mma" through ``BddSolver`` on grid12 (float32 and
+    float64, the float64 bound against the port's CPU run), the smooth bound
+    at a fixed temperature, and the time of a smooth iteration beside an MMA
+    iteration on grid12 and on gm50k's Python build."""
+    from bdd_tpu_torch.api import BddSolver
+    from bdd_tpu_torch.ilp import parse_lp_string
+    from bdd_tpu_torch.solver import smooth_mma as smma
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.utils.problems import grid_mrf
+
+    for prec in ("float", "double"):
+        out = {}
+        for device in ("cuda", "cpu") if prec == "double" else ("cuda",):
+            sk.reset_launch_counts()
+            before = plain_calls()
+            cfg = {**SMOOTH_CFG, "precision": prec, **DUAL_ONLY, **fixed_iterations(SMOOTH_ITERS)}
+            t0 = time.perf_counter()
+            s = BddSolver(cfg, device=device).read_ilp(ilp=grid_mrf(12, 12, 4, seed=0))
+            res = s.solve(verbose=False)
+            wall = time.perf_counter() - t0
+            if (res["status"] != "solved" or res["iterations"] != SMOOTH_ITERS
+                    or not isinstance(s.solver, smma.SmoothSolver)):
+                fail(f"smooth mma grid12 {prec} on {device}: {str(res)[:300]}")
+            if device == "cuda" and (plain_calls() != before or any(sweeps_of(sk.LAUNCHES).values())
+                                     or not sk.LAUNCHES[RUN]):
+                fail(f"smooth mma grid12 {prec}: launches {dict(sk.LAUNCHES)}, plain versions "
+                     f"{before} -> {plain_calls()}: the smooth sweeps run as torch ops and the "
+                     f"hard bound through the run-only kernel entry")
+            out[device] = res
+            print(f"[smooth] grid12 {prec} on {device}: hard lb {res['lower_bound']!r} after "
+                  f"{res['iterations']} iterations, final temperature {s.solver.smoothing}, "
+                  f"smooth bound {s.solver.smooth_bound()!r}; solve {res['solve_time']} s = "
+                  f"{1e3 * res['solve_time'] / res['iterations']:.4f} ms per iteration, "
+                  f"{wall:.2f} s wall; launches {dict(sk.LAUNCHES)} {card}", flush=True)
+        if prec == "double":
+            a, b = out["cuda"]["lower_bound"], out["cpu"]["lower_bound"]
+            if not abs(a - b) <= 1e-9 * abs(b):
+                fail(f"smooth mma grid12 float64: card {a!r} vs CPU {b!r} (rel > 1e-9)")
+            print(f"[smooth] grid12 float64: card and CPU bounds agree to rel 1e-9 ({a!r}, "
+                  f"{b!r}) {card}", flush=True)
+    # at a fixed temperature the hard bound of the costs lies at or above the
+    # smooth bound after every iteration. The smooth bound ascends only
+    # nearly: the relu-split of the deferred marginals is hard MMA's applied
+    # to smoothed marginals (the reference comments its strict-monotonicity
+    # asserts out). As the JAX package's test does: from a perturbed dual
+    # point of MATCHING_3x3 at T = 0.5, no dip of more than 1e-3 relative and
+    # an overall rise. On grid12 at T = 0.2 from the initial point the bound
+    # rises for a few iterations and then falls towards its fixed point, as
+    # the JAX package's does (the same trajectory; the CPU tests hold it):
+    # reported, and the float64 trajectory on the card held to the CPU run.
+    layouts = {}
+    for label, make, T, perturb in (
+            ("matching3x3", lambda: parse_lp_string(MATCHING_3X3), 0.5, True),
+            ("grid12", lambda: grid_mrf(12, 12, 4, seed=0), 0.2, False)):
+        for prec in ("float", "double"):
+            runs = {}
+            for device in ("cuda", "cpu") if prec == "double" else ("cuda",):
+                s = BddSolver({"precision": prec, **DUAL_ONLY}, device=device).read_ilp(ilp=make())
+                s.process_ilp().transform_to_bdds()
+                sol = smma.SmoothSolver.from_collection(
+                    s.pre.collection, s.pre.total_nr_variables(), s.pre.objective_vector(),
+                    nr_primal_vars=s.pre.nr_primal_variables, dtype=s.dtype, device=device,
+                    smoothing=T, smoothing_decay=1.0)
+                if perturb:
+                    perturb_zero_sum(sol)
+                bounds, hards = [sol.smooth_bound()], [sol.lower_bound_with_deferred()]
+                for _ in range(30):
+                    sol.iteration()
+                    bounds.append(sol.smooth_bound())
+                    hards.append(sol.lower_bound_with_deferred())
+                runs[device] = bounds, hards
+                if device == "cuda" and label == "grid12":
+                    layouts[prec] = (sol.host, s.pre.objective_vector())
+            tol = 1e-9 if prec == "double" else 1e-4
+            bounds, hards = runs["cuda"]
+            dips = [b - a for a, b in zip(bounds, bounds[1:]) if b < a]
+            deep = [b - a for a, b in zip(bounds, bounds[1:]) if b < a - 1e-3 * max(1.0, abs(a))]
+            below = [i for i, (b, h) in enumerate(zip(bounds, hards)) if h < b - tol * abs(h)]
+            if below or (perturb and (deep or not bounds[-1] > bounds[0] + 1e-3)):
+                fail(f"smooth mma {label} {prec} at T = {T}: smooth bounds {bounds}, hard "
+                     f"{hards}: dips {dips}, hard below smooth after iterations {below}")
+            cpu = runs.get("cpu", ([], []))[0]
+            if any(abs(a - b) > 1e-9 * abs(b) for a, b in zip(bounds, cpu)):
+                fail(f"smooth mma {label} float64 at T = {T}: card {bounds} vs CPU {cpu}")
+            peak = max(range(len(bounds)), key=lambda i: bounds[i])
+            print(f"[smooth] {label} {prec} at T = {T}{', perturbed' if perturb else ''}, 30 "
+                  f"iterations: smooth bound {bounds[0]!r} -> {bounds[-1]!r}, highest "
+                  f"{bounds[peak]!r} after {peak}; {len(dips)} dips, the largest "
+                  f"{min(dips, default=0.0):.3e}; hard bound {hards[-1]!r}, at or above the "
+                  f"smooth one after every iteration"
+                  f"{'; the trajectory equals the CPU run to rel 1e-9' if cpu else ''} {card}",
+                  flush=True)
+    for prec, (host, objective) in layouts.items():
+        smooth_rates(f"grid12 {prec}", host, objective, card, 20)
+    host, objective = gm_python
+    sol = smma.SmoothSolver(host, objective, smoothing=0.2, smoothing_decay=0.5)
+    before = plain_calls()
+    t0 = time.perf_counter()
+    sol.iteration_block(GM_SMOOTH_ITERS)
+    lb = sol.lower_bound_with_deferred()
+    wall = time.perf_counter() - t0
+    if plain_calls() != before or not math.isfinite(lb):
+        fail(f"smooth mma gm50k float32: lb {lb}, plain versions {before} -> {plain_calls()}")
+    print(f"[smooth] gm50k float32 (Python build): hard lb {lb!r} after {GM_SMOOTH_ITERS} "
+          f"smooth iterations at T = 0.2, smooth bound {sol.smooth_bound()!r} at T = "
+          f"{sol.smoothing}; {wall:.2f} s wall {card}", flush=True)
+    smooth_rates("gm50k float32", host, objective, card, 5)
 
 
 def phase_python_pipeline(card, errs, times, flush):
@@ -990,6 +1373,7 @@ def phase_outer(card, gm_lp, gm_host, gm_objective, errs, times, flush):
           f"{[(g.P, g.H, g.B) for g in outer.base.geom.buckets]} {card}", flush=True)
     kernel_vs_twin("gm50k lbfgs", outer.base.host, None, card, errs, times, flush,
                    state=outer.base.state)
+    gm_python = (outer.base.host, s.pre.objective_vector())
     paths.append({"at": "gm50k lbfgs", "dt": "float32", "suffix": "", "launches": counted,
                   "iterations": res["iterations"]})
     # ---- what an outer iteration is made of, on the native gm50k layout: the
@@ -1011,7 +1395,7 @@ def phase_outer(card, gm_lp, gm_host, gm_objective, errs, times, flush):
     }
     print(f"[outer] gm50k float32 native layout {[(g.P, g.H, g.B) for g in geom.buckets]}, ms per "
           f"call on the card: { {k: round(v, 4) for k, v in parts.items()} } {card}", flush=True)
-    return paths
+    return paths, gm_python
 
 
 def main() -> None:
@@ -1037,6 +1421,9 @@ def main() -> None:
     _build.load()
     print(f"[build] {', '.join(os.path.relpath(p) for p in paths.values())} "
           f"(nvcc and g++ side by side) in {time.perf_counter() - t0:.2f} s {card}", flush=True)
+    errs = {name + suffix: 0.0 for name in KERNELS + (RUN,) for suffix in BODIES}
+    times = {}
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
     from bdd_tpu_torch.native import NativeHost
     from bdd_tpu_torch.solver import layout
@@ -1051,9 +1438,6 @@ def main() -> None:
     nh = NativeHost(gm_lp, "bfs")
     print(f"[gm50k] {nh.nr_bdds()} BDDs, {nh.nr_vars()} variables, {nh.nr_buckets()} raw "
           f"buckets, built in {time.perf_counter() - t0:.2f} s {card}", flush=True)
-    errs = {name + suffix: 0.0 for name in KERNELS + (RUN,) for suffix in ("", WIDE)}
-    times = {}
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     gm_f32 = layout.from_native_host(nh, torch.float32, "cuda")
     gm_f64 = layout.from_native_host(nh, torch.float64, "cuda")
     kernel_vs_twin("gm50k", gm_f32, nh.objective(), card, errs, times, flush,
@@ -1151,16 +1535,35 @@ def main() -> None:
     if syncs:
         fail(f"{syncs} host syncs inside an iteration block; expected 0")
 
-    # ------------------------------------------------- 6-9. the later slices
-    paths.append(phase_wide(card, errs, times, flush))
-    paths.append(phase_python_pipeline(card, errs, times, flush))
-    paths += phase_batch(card, errs, times, flush)
-    paths.append(phase_serve(card, gm_lp, f32a["lower_bound"], errs, times, flush))
-    paths += phase_outer(card, gm_lp, gm_f32, nh.objective(), errs, times, flush)
-    del flush
-    print(f"[kernel] every bucket and fused launch of phases 2 and 6-10 matches its plain "
-          f"version, max |diff| {errs}", flush=True)
+    # ------------------------------------------------ 6-12. the later slices
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[phase] {name}: {time.perf_counter() - t0:.2f} s {card}", flush=True)
+        return out
 
+    paths.append(timed("wide", phase_wide, card, errs, times, flush))
+    paths.append(timed("huge", phase_huge, card, errs, times, flush))
+    paths.append(timed("python", phase_python_pipeline, card, errs, times, flush))
+    paths += timed("batch", phase_batch, card, errs, times, flush)
+    paths.append(timed("serve", phase_serve, card, gm_lp, f32a["lower_bound"], errs, times,
+                       flush))
+    outer, gm_python = timed("outer", phase_outer, card, gm_lp, gm_f32, nh.objective(), errs,
+                             times, flush)
+    paths += outer
+    paths.append(timed("tighten", phase_tighten, card, errs, times, flush))
+    timed("smooth", phase_smooth, card, gm_python)
+    del flush
+    finish(paths, errs, times)
+
+
+def finish(paths, errs, times) -> None:
+    """The checks and lines that end a run: no JAX imported, the kernels line
+    (a row per kernel, body and path), the result line."""
+    import torch
+
+    print(f"[kernel] every bucket and fused launch of the phases matches its plain "
+          f"version, max |diff| {errs}", flush=True)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "bdd_tpu"))
     if foreign:

@@ -122,7 +122,7 @@ def test_cli(tmp_path):
     [
         ({"relaxation solver": "lbfgs parallel mma"}, None),
         ({"relaxation solver": "hybrid mma"}, True),
-        ({"tighten": True}, True),
+        ({"tighten": {"cliques": True}}, False),
         ({"split chunk size": 4}, False),
         ({"split bdds": {}}, False),
         ({"export lp": "out.lp"}, False),
@@ -133,10 +133,11 @@ def test_cli(tmp_path):
          "python"],
 )
 def test_unported_configs_raise(config, waits, tmp_path, monkeypatch):
-    """The keys that still wait raise and name their ROADMAP item; the keys
+    """The names that still wait raise and name their ROADMAP item; the keys
     that the Python pipeline brought solve, with the JAX package's bound
-    (float64, abs 1e-8); the outer loops construct (``waits`` None; their
-    solves are held to the JAX package's in tests/test_torch_outer.py)."""
+    (float64, abs 1e-8), and so does the tightening phase; the outer loops
+    construct (``waits`` None; their solves are held to the JAX package's in
+    tests/test_torch_outer.py)."""
     if waits is None:
         from bdd_tpu_torch.solver.lbfgs import LbfgsSolver
 

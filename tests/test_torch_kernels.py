@@ -10,6 +10,8 @@ card the ``cuda`` tests skip; the CPU tests check that the wrappers run the
 twins there. Built with -fmad=false, the kernels must equal the twins bit for
 bit: same ±inf pattern, identical finite values.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -70,11 +72,13 @@ def setup(name, dtype, device, iters=3):
     return host, st, dl, dh
 
 
-def launches(narrow=0, wide=0, run=0, run_wide=0):
-    """``sk.LAUNCHES`` after ``narrow`` / ``wide`` launches of either half-sweep
-    kernel and ``run`` / ``run_wide`` launches of the run-only backward entry."""
-    out = {k + body: n for k in sk.KERNELS for body, n in (("", narrow), (sk.WIDE, wide))}
-    return {**out, sk.RUN: run, sk.RUN + sk.WIDE: run_wide}
+def launches(narrow=0, wide=0, run=0, run_wide=0, huge=0, run_huge=0):
+    """``sk.LAUNCHES`` after ``narrow`` / ``wide`` / ``huge`` launches of either
+    half-sweep kernel and ``run`` / ``run_wide`` / ``run_huge`` launches of the
+    run-only backward entry."""
+    out = {k + body: n for k in sk.KERNELS
+           for body, n in (("", narrow), (sk.WIDE, wide), (sk.HUGE, huge))}
+    return {**out, sk.RUN: run, sk.RUN + sk.WIDE: run_wide, sk.RUN + sk.HUGE: run_huge}
 
 
 def assert_identical(out, ref):
@@ -170,11 +174,20 @@ def test_iterations_through_kernels_equal_twins(cuda_device, precision):
 
 
 def test_unsupported_width_raises_on_card():
-    """A width past the widest arc record's slots is refused when the bucket
-    is built, before any launch."""
-    b = random_bucket(2 * layout.MAX_P, 2, 8, np.random.RandomState(0))
-    with pytest.raises(ValueError, match=f"P={2 * layout.MAX_P} exceeds .* {layout.MAX_P} slots"):
-        layout._build_host([b], np.ones(4, np.int64), 4, 4, 8, torch.float32, "cpu")
+    """No arc record refuses a width any more: a bucket past the wide body's
+    8,192 slots builds with four-byte arcs and goes to the huge body's table.
+    What no kernel takes is a narrow width that is no power of two (no layout
+    builds one): the launch refuses it before anything runs."""
+    b = random_bucket(2 * layout.WIDE_P, 2, 8, np.random.RandomState(0))
+    host = layout._build_host([b], np.ones(4, np.int64), 4, 4, 8, torch.float32, "cpu")
+    plan = host.geom.plan
+    assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.huge_blocks) == (0, 0, 1, 8)
+    assert plan.arc_bytes == 2 * 8 * layout.record_bytes(2 * layout.WIDE_P) == 2 * 8 * 8 * 16384
+    odd, (lo, hi, fr, dl, dh) = synthetic_host([(3, 2, 8)], torch.float32, "cpu")
+    with pytest.raises(ValueError, match="P=3"):
+        sk.prepare_fused_launch("uniform_forward", odd.geom, lo, hi, fr, 0.5, dl, dh)
+    with pytest.raises(ValueError, match="P=3"):
+        sk.prepare_run_launch(odd.geom, lo, hi)
 
 
 # ------------------------------------------------- synthetic bucket shapes
@@ -250,9 +263,12 @@ SHAPES = [(P, H, B) for P in sk.SUPPORTED_P for H, B in ((1, 37), (2, 64), (11, 
 # depths, P = 2,048 and the widest P
 WIDE_SHAPES = [(64, 1, 37), (48, 7, 9), (128, 11, 13), (256, 5, 8), (512, 2, 3),
                (33, 40, 7), (33, 1, 1), (64, 40, 8), (256, 40, 9), (2048, 3, 2),
-               (256, 1, 2048), (64, 40, 2048), (2048, 40, 1), (layout.MAX_P, 3, 2),
-               (layout.MAX_P, 1, 1)]
-SHAPES += WIDE_SHAPES
+               (256, 1, 2048), (64, 40, 2048), (2048, 40, 1), (layout.WIDE_P, 3, 2),
+               (layout.WIDE_P, 1, 1)]
+# huge buckets (four bytes an arc, the block-a-column body): just past the
+# wide body, widths no multiple of the block's threads, H of 1 and B of 1
+HUGE_SHAPES = [(layout.WIDE_P + 1, 3, 3), (16384, 2, 2), (9000, 1, 1), (8200, 6, 4)]
+SHAPES += WIDE_SHAPES + HUGE_SHAPES
 
 
 @pytest.mark.parametrize("precision", ["float", "double"])
@@ -369,7 +385,7 @@ def test_plan_splits_narrow_and_wide_buckets():
     # the widest bucket fits a block in either precision: one warp, in
     # float64 without a ring
     for dtype, depth in ((torch.float32, 1), (torch.float64, 0)):
-        widest = layout.launch_plan([(layout.MAX_P, 2, 8)], dtype, "cpu")
+        widest = layout.launch_plan([(layout.WIDE_P, 2, 8)], dtype, "cpu")
         assert widest.wide_warps == 1 and widest.wide_smem_bytes <= layout.MAX_DYNAMIC_SMEM
         assert int(widest.wide_table[0, 7]) == depth
 
@@ -396,7 +412,7 @@ def test_mixed_layout_counts_a_narrow_and_a_wide_launch(cuda_device, precision):
 @pytest.mark.parametrize("precision", ["float", "double"])
 @pytest.mark.parametrize("zero_costs", [False, True], ids=["random", "ties-at-zero"])
 @pytest.mark.parametrize("shape", [(8, 7, 40), (64, 7, 9), (256, 5, 8), (33, 40, 7),
-                                   (2048, 3, 2)],
+                                   (2048, 3, 2), (8200, 5, 3)],
                          ids=lambda s: "P%d-H%d-B%d" % s)
 def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_costs, precision):
     """Outside what a solve produces: -inf deltas (inf - inf, so NaN costs
@@ -458,8 +474,9 @@ def test_one_bucket_run_equals_plain_run(cuda_device, shape, precision):
     sk.reset_launch_counts()
     out = sk.bucket_backward_run_cuda(g, lo.view(g.H, g.B), hi.view(g.H, g.B))
     torch.cuda.synchronize()
-    wide = shape[0] > layout.NARROW_P
-    assert sk.LAUNCHES == launches(run=int(not wide), run_wide=int(wide))
+    P = shape[0]
+    body = "" if P <= layout.NARROW_P else (sk.WIDE if P <= layout.WIDE_P else sk.HUGE)
+    assert sk.LAUNCHES == {**launches(), sk.RUN + body: 1}
     assert_same_bits([out], [uf.bucket_backward_run(g, lo.view(g.H, g.B), hi.view(g.H, g.B))])
 
 
@@ -484,7 +501,7 @@ def test_fused_run_over_all_shapes_equals_plain_run(cuda_device, precision, stag
     sk.reset_launch_counts()
     before = dict(uf.PLAIN_RUN_CALLS)
     assert_same_bits([sk.backward_run_cuda(geom, lo, hi)], [ref])
-    assert sk.LAUNCHES == launches(run=1, run_wide=1)
+    assert sk.LAUNCHES == launches(run=1, run_wide=1, run_huge=1)
     assert uf.PLAIN_RUN_CALLS == before
 
 
@@ -507,3 +524,139 @@ def test_wide_body_variants_equal_twins(cuda_device, precision, warps, stages):
         launch()
         torch.cuda.synchronize()
         assert_identical(out, twins_bucket_by_bucket(twin, geom, lo, hi, fr, 0.5, dl, dh))
+
+
+# ------------------------------------------------------------- huge buckets
+def test_plan_puts_huge_buckets_in_a_third_table():
+    shapes = [(2, 3, 40), (16384, 2, 3), (128, 5, 8), (8200, 4, 5)]
+    host, _ = synthetic_host(shapes, torch.float32, "cpu")
+    plan = host.geom.plan
+    assert [tuple(r[:3]) for r in plan.huge_table.tolist()] == [shapes[1], shapes[3]]
+    assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge) == (1, 1, 2)
+    # a block a column; the last column: the bucket's offset into the scratch rows
+    assert plan.huge_blocks == 8 and [r[3] for r in plan.huge_table.tolist()] == [0, 3]
+    assert [r[7] for r in plan.huge_table.tolist()] == [0, 2 * 16384 * 3]
+    assert plan.huge_threads == layout.HUGE_THREADS == 1024
+    assert plan.huge_scratch_values == 2 * 16384 * 3 + 2 * 8200 * 5
+    # the rows belong to the layout, allocated on the card only
+    assert host.geom.huge_scratch is None
+    assert layout.huge_scratch(plan, torch.float32, "cpu") is None
+    assert layout.arc_bytes(8192) == 2 and layout.arc_bytes(8193) == 4
+    assert layout.record_bytes(8193) == 8 * 8193
+    # the bytes a solve works in, the number a layout too large for the card names
+    E = 3 * 40 + 2 * 3 + 5 * 8 + 4 * 5
+    N = 3 * 2 * 40 + 2 * 16384 * 3 + 5 * 128 * 8 + 4 * 8200 * 5
+    scratch = 2 * 16384 * 3 + 2 * 8200 * 5
+    assert layout.solve_bytes(plan.shapes, 4) == plan.arc_bytes + E * (9 * 4 + 24) + (
+        2 * N + scratch) * 4
+
+
+def test_layout_past_the_cards_memory_is_refused_naming_the_bytes(monkeypatch):
+    """The one limit left on a width is device memory: a layout that does not
+    fit the card's free memory is refused before anything is uploaded, with
+    the bytes it needs (``layout.solve_bytes``) in the message."""
+    shapes = [(1 << 20, 40, 132)]
+    need = layout.solve_bytes(shapes, 4)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device: (need - 1, 2 * need))
+    with pytest.raises(MemoryError, match=f"needs {need} bytes .* {need - 1} of {2 * need} free"):
+        layout._check_device_memory(shapes, 4, torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device: (need, 2 * need))
+    layout._check_device_memory(shapes, 4, torch.device("cuda", 0))
+    layout._check_device_memory(shapes, 4, torch.device("cpu"))  # no limit off the card
+
+
+@pytest.mark.parametrize("cached", [0, 1, 1 << 30])
+def test_memory_the_allocator_caches_counts_as_free(monkeypatch, cached):
+    """A warm process keeps freed tensors' memory in PyTorch's caching
+    allocator, which the driver's free figure leaves out: that memory counts
+    as free, so a layout that fits it is not refused."""
+    shapes = [(1 << 20, 40, 132)]
+    need = layout.solve_bytes(shapes, 4)
+    free = need - 1
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device: (free, 2 * need))
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device: 7 << 30)
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device: (7 << 30) + cached)
+    if cached:
+        layout._check_device_memory(shapes, 4, torch.device("cuda", 0))
+    else:
+        with pytest.raises(MemoryError, match=f"{free} of {2 * need} free and 0 cached"):
+            layout._check_device_memory(shapes, 4, torch.device("cuda", 0))
+
+
+@pytest.mark.cuda
+def test_layout_fits_memory_held_in_the_allocators_cache(cuda_device):
+    """On the card: fill the allocator's cache with a freed tensor, so that
+    the driver reports less free memory than the layout needs, and the check
+    still passes."""
+    free, _ = torch.cuda.mem_get_info(cuda_device)
+    hold = torch.empty(free - (1 << 30), dtype=torch.uint8, device=cuda_device)
+    del hold  # back to the cache, not to the driver
+    free, _ = torch.cuda.mem_get_info(cuda_device)
+    shapes = [(16384, 48, 1 + (4 << 30) // layout.solve_bytes([(16384, 48, 1)], 8))]
+    assert free < layout.solve_bytes(shapes, 8) < free + torch.cuda.memory_reserved(cuda_device)
+    layout._check_device_memory(shapes, 8, cuda_device)
+    torch.cuda.empty_cache()
+
+
+def test_huge_buckets_pad_no_columns():
+    """Columns pad to TPU lanes (128) as in the JAX package, else to 8,
+    except in a huge bucket, whose body runs a block a column: there not at
+    all, in the flattening (``lane_pad``) and in the column packing's cost
+    model alike (``csrc/bdd_host.cpp`` pads so too)."""
+    assert layout.lane_pad(132, 8192) == 256 and layout.lane_pad(132, 8193) == 132
+    assert layout.lane_pad(100, 2) == 104 and layout.lane_pad(100, 16384) == 100
+    assert layout.lane_pad(132, 2, lanes=64) == 192 and layout.lane_pad(5, 8193, lanes=64) == 5
+    deps = np.full(132, 48)
+    assert layout._pack_eval(deps, 48, 8192)[4] == 256
+    assert layout._pack_eval(deps, 48, 16384)[4] == 132
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_mixed_layout_counts_three_launches(cuda_device, precision):
+    """Narrow, wide and huge buckets in one layout: three launches per
+    half-sweep and per run, against the twins bucket by bucket."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    shapes = [(2, 9, 70), (8200, 3, 5), (128, 5, 9), (16384, 2, 2)]
+    host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=4)
+    geom = host.geom
+    assert geom.huge_scratch.numel() == 2 * (8200 * 5 + 16384 * 2) * lo.element_size()
+    sk.reset_launch_counts()
+    calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
+    out_f = sk.forward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)
+    out_b = sk.backward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)
+    run = sk.backward_run_cuda(geom, lo, hi)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == launches(narrow=1, wide=1, huge=1, run=1, run_wide=1, run_huge=1)
+    assert {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS} == calls  # no plain version on the card
+    assert_same_bits(out_f, twins_bucket_by_bucket(
+        uf.bucket_forward_iteration, geom, lo, hi, fr, 0.5, dl, dh))
+    assert_same_bits(out_b, twins_bucket_by_bucket(
+        uf.bucket_backward_iteration, geom, lo, hi, fr, 0.5, dl, dh))
+    assert_same_bits([run], [geom.flatten_nodes([
+        uf.bucket_backward_run(g, a, b)
+        for g, a, b in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("threads", [32, 256, 512, 1024])
+def test_huge_body_thread_counts_equal_twins(cuda_device, precision, threads):
+    """The huge body at forced threads a block (one warp up to the largest
+    block): both half-sweeps and the run against their plain versions."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    host, (lo, hi, fr, dl, dh) = synthetic_host(HUGE_SHAPES, dtype, cuda_device, seed=13)
+    geom = host.geom
+    plan = dataclasses.replace(geom.plan, huge_threads=threads)
+    for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
+                         ("uniform_backward", uf.bucket_backward_iteration)):
+        launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
+        launch()
+        torch.cuda.synchronize()
+        assert_same_bits(out, twins_bucket_by_bucket(twin, geom, lo, hi, fr, 0.5, dl, dh))
+    launch, out = sk.prepare_run_launch(geom, lo, hi, plan)
+    launch()
+    torch.cuda.synchronize()
+    assert_same_bits([out], [geom.flatten_nodes([
+        uf.bucket_backward_run(g, a, b)
+        for g, a, b in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])])

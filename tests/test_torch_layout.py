@@ -99,8 +99,8 @@ def test_pack_candidates_and_cost_model_match_jax():
     for max_d in (1, 5, 64, 100, 256, 300):
         assert layout._pack_candidates(max_d) == uf._pack_candidates(max_d)
     deps = rng.randint(1, 40, size=300).astype(np.int64)
-    for cap in (40, 80, 256):
-        a, b = layout._pack_eval(deps, cap), uf._pack_eval(deps, cap)
+    for cap, P in ((40, 2), (80, 32), (256, layout.WIDE_P)):  # the JAX package's at P <= WIDE_P
+        a, b = layout._pack_eval(deps, cap, P), uf._pack_eval(deps, cap)
         assert a[0] == b[0] and a[3:] == b[3:]
         np.testing.assert_array_equal(a[1], b[1])
         np.testing.assert_array_equal(a[2], b[2])
@@ -195,15 +195,16 @@ def test_byte_geometry_round_trips_for_every_width(P):
 
 @pytest.mark.parametrize("what", ["kind", "slot", "width"])
 def test_byte_geometry_refuses_what_it_cannot_hold(what):
-    P = 2 * layout.MAX_P if what == "width" else 2  # up to MAX_P the two-byte record holds
-    z = np.zeros((1, P, 4), dtype=np.int32)
+    """A kind outside 0..2, a slot past the one-byte record's 5 bits and, at
+    a width past the wide body's (four-byte arcs), a slot past 28 bits."""
+    P = 2 * layout.WIDE_P if what == "width" else 2
+    z = np.zeros((1, P, 4), dtype=np.int64)
     bad = z.copy()
-    bad[0, 0, 0] = {"kind": 3, "slot": 32, "width": 0}[what]
+    bad[0, 0, 0] = {"kind": 3, "slot": 32, "width": 1 << 28}[what]
     args = dict(node_valid=z > 0, lo_kind=z, lo_slot=z, hi_kind=z, hi_slot=z)
-    if what != "width":
-        args["hi_" + what] = bad
+    args["hi_" + ("kind" if what == "kind" else "slot")] = bad
     m = np.zeros((1, 4), dtype=bool)
-    with pytest.raises(ValueError, match=str(layout.MAX_P) if what == "width" else "arc kind"):
+    with pytest.raises(ValueError, match="arc kind"):
         layout.encode_arcs(*args.values(), m, m)
 
 

@@ -320,12 +320,12 @@ def test_cli_and_server_take_the_outer_solvers(tmp_path):
         if name == "lbfgs jax mma":
             assert got["lower_bound"] == direct["lower_bound"]
             assert got["solution"] == direct["solution"]
-    waits = serve.handle_request({**cfg, "relaxation solver": "smooth mma"}, device="cpu")
+    waits = serve.handle_request({**cfg, "relaxation solver": "dense mma"}, device="cpu")
     assert waits["status"] == "error" and "ROADMAP.md" in waits["message"]
 
 
 def test_keys_that_still_wait_raise():
-    for cfg in ({"tighten": True}, {"smoothing": 0.1}, {"relaxation solver": "smooth mma"},
+    for cfg in ({"relaxation solver": "sharded mma"}, {"relaxation solver": "multi parallel mma"},
                 {"relaxation solver": "lbfgs sharded mma"}, {"relaxation solver": "hybrid mma"},
                 {"relaxation solver": "dense mma"}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 1[0-5]"):

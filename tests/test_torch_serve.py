@@ -98,7 +98,7 @@ def test_serve_non_object_request_isolated():
 def test_serve_key_that_waits_answers_error_and_goes_on(tmp_path):
     lp = tmp_path / "p.lp"
     lp.write_text(fixtures.COVERING)
-    n, lines = run(port_serve, [json.dumps({"input": str(lp), "tighten": True}),
+    n, lines = run(port_serve, [json.dumps({"input": str(lp), "relaxation solver": "dense mma"}),
                                 json.dumps({"input": str(lp), "precision": "double",
                                             "perturbation rounding": False})], device="cpu")
     assert n == 2

@@ -66,6 +66,39 @@ def test_copied_module_differs_only_in_import_lines(rel):
             assert a.replace("bdd_tpu_torch.", "bdd_tpu.") == b or "PACK_H_CAP" in a
 
 
+def test_tighten_copy_differs_only_in_the_listed_lines():
+    """``solver/tighten.py`` is a copy of the JAX package's. Its differences:
+    the import lines (the port's modules), the port's constructor of a
+    solver from a collection (``UniformSolver.from_collection``), and the
+    meld-disjointness guard, which raises ValueError where the original
+    asserts."""
+    import difflib
+
+    ours = (ROOT / "bdd_tpu_torch/solver/tighten.py").read_text().splitlines()
+    theirs = (ROOT / "bdd_tpu/solver/tighten.py").read_text().splitlines()
+    guard = (['    assert len(_all) == len(set(_all)), "meld groups must be disjoint"'],
+             ["    if len(_all) != len(set(_all)):",
+              '        raise ValueError("meld groups must be disjoint")'])
+    diffs = []
+    for op, i1, i2, j1, j2 in difflib.SequenceMatcher(a=theirs, b=ours,
+                                                       autojunk=False).get_opcodes():
+        if op == "equal":
+            continue
+        a, b = theirs[i1:i2], ours[j1:j2]
+        if (a, b) == guard:
+            diffs.append("guard")
+            continue
+        assert op == "replace" and len(a) == len(b), (a, b)
+        for x, y in zip(a, b):
+            if _is_import_line(x):
+                assert y == x.replace("bdd_tpu.", "bdd_tpu_torch."), (x, y)
+                diffs.append("import")
+            else:
+                assert y == x.replace("UniformSolver(", "UniformSolver.from_collection("), (x, y)
+                diffs.append("constructor")
+    assert sorted(diffs) == ["constructor"] * 2 + ["guard"] + ["import"] * 3
+
+
 def test_importing_the_whole_port_pulls_in_no_jax():
     code = (
         "import sys, pkgutil, importlib\n"
@@ -79,7 +112,8 @@ def test_importing_the_whole_port_pulls_in_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-2000:]
-    for mod in ("serve", "api", "bdd.preprocessor", "solver.extras", "utils.batching"):
+    for mod in ("serve", "api", "bdd.preprocessor", "solver.extras", "utils.batching",
+                "solver.tighten", "solver.smooth", "solver.smooth_mma"):
         assert f"'bdd_tpu_torch.{mod}'" in out.stdout
 
 GENERATORS = {

@@ -152,7 +152,7 @@ def test_knapsack_solves_like_jax_on_the_default_path(name, precision, tol):
     assert got["lower_bound"] == pytest.approx(want["lower_bound"], **tol)
 
 
-@pytest.mark.parametrize("P", [33, 64, 512, layout.MAX_P])
+@pytest.mark.parametrize("P", [33, 64, 512, layout.WIDE_P])
 def test_two_byte_record_round_trip(P):
     rng = np.random.RandomState(P)
     H, B = 3, 5
@@ -179,7 +179,9 @@ def test_narrow_buckets_keep_their_one_byte_records(P):
 
 
 def test_widest_bucket_builds_and_sweeps_and_wider_is_refused():
-    P = layout.MAX_P
+    """The widest bucket of the wide body sweeps, and a wider one is no longer
+    refused: it builds with four-byte arcs into the huge body's table."""
+    P = layout.WIDE_P
     host, (lo, hi, fr, dl, dh) = synthetic_host([(P, 2, 8)], torch.float64, "cpu")
     g = host.geom.buckets[0]
     args = (g, lo.view(2, 8), hi.view(2, 8), fr.view(2, P, 8), 0.5, dl.view(2, 8), dh.view(2, 8))
@@ -188,10 +190,83 @@ def test_widest_bucket_builds_and_sweeps_and_wider_is_refused():
     assert out_f[3].shape == out_b[3].shape == (2, P, 8)
     assert not any(torch.isnan(x).any() for x in out_f + out_b)
     wider = random_bucket(2 * P, 1, 8, np.random.RandomState(0))
-    with pytest.raises(ValueError, match=f"{P} slots"):
-        layout._build_host([wider], np.ones(4, np.int64), 4, 4, 8, torch.float32, "cpu")
-    with pytest.raises(ValueError, match=f"{P} slots"):
-        layout.launch_plan([(2 * P, 1, 8)], torch.float32, "cpu")
+    host = layout._build_host([wider], np.ones(4, np.int64), 4, 4, 8, torch.float32, "cpu")
+    assert host.geom.buckets[0].arcs.shape == (1, 8, 8 * 2 * P)
+    plan = layout.launch_plan([(2 * P, 1, 8)], torch.float32, "cpu")
+    assert (plan.nr_wide, plan.nr_huge, plan.huge_blocks) == (0, 1, 8)
+
+
+@pytest.mark.parametrize("P", [layout.WIDE_P + 1, 16384])
+def test_four_byte_record_round_trip(P):
+    """Every kind, slots up to P - 1 and every flag (node_valid on the lo
+    arcs, layer_valid on arc P, the root row on arc P + 1) through the
+    four-byte record and back; bit 31 stays clear."""
+    rng = np.random.RandomState(P)
+    H, B = 3, 5
+    b = random_bucket(P, H, B, rng)
+    b["lo_slot"][0, 0, 0] = b["hi_slot"][1, 2, 3] = P - 1
+    b["lo_kind"][0, 0, 0], b["hi_kind"][1, 2, 3] = layout.ARC_BOT, layout.ARC_TOP
+    b["layer_valid"][:, 0] = True
+    b["layer_valid"][:, 1] = False
+    roots = b["root_mask"]
+    rec = layout.encode_arcs(*(b[k] for k in layout._NODE_KEYS), b["layer_valid"], roots)
+    assert rec.dtype == np.uint8 and rec.shape == (H, B, 8 * P) == (H, B, layout.record_bytes(P))
+    assert (rec.view("<i4") >= 0).all()
+    g = layout.BucketGeom(P=P, arcs=torch.from_numpy(rec), layer_var=torch.zeros((H, B)),
+                          alpha=torch.zeros((H, B)), packed=True)
+    for name in layout._NODE_KEYS:
+        got = getattr(g, name)
+        assert got.dtype == (torch.bool if name == "node_valid" else torch.int32)
+        np.testing.assert_array_equal(got.numpy(), b[name], err_msg=name)
+    np.testing.assert_array_equal(g.layer_valid.numpy(), b["layer_valid"])
+    np.testing.assert_array_equal(g.roots.numpy(), roots)
+    assert g.node_valid.any() and (~g.node_valid).any() and g.roots.any() and (~g.roots).any()
+
+
+def _jax_bucket(b):
+    """A bdd_tpu ``BucketGeom`` of the numpy bucket dict ``b``."""
+    return uf.BucketGeom(
+        *(jnp.asarray(b[k]) for k in ("node_valid", "lo_kind", "lo_slot", "hi_kind", "hi_slot",
+                                      "layer_valid", "layer_var")),
+        jnp.asarray(b["alpha"]), None if b["root_mask"] is None else jnp.asarray(b["root_mask"]))
+
+
+def test_huge_bucket_matches_jax_f64():
+    """A synthetic bucket past the wide body's 8,192 slots (a random valid arc
+    set: kinds, slots and flags, not a BDD) carried across with
+    ``from_jax_arrays`` and held to the JAX package's XLA bucket functions in
+    float64 (atol 1e-12): forward and backward half-sweeps, the backward run
+    and the min-marginals. H and B are small because the XLA functions
+    gather with one-hot [P, P, B] masks."""
+    P, H, B = layout.WIDE_P + 1, 2, 1
+    rng = np.random.RandomState(7)
+    b = random_bucket(P, H, B, rng, packed=False)
+    b["layer_valid"][:] = True
+    b["node_valid"][0, 0] = True
+    g = _jax_bucket(b)
+    host = uf.UniformHost(uf.UniformGeom((g,), jnp.ones(4, jnp.int32)), (b["bdd_of_col"],),
+                          (b["depths"],), 4, 4, 1, (b["layer_bdd"],))
+    lo, hi = rng.randn(H, B), rng.randn(H, B)
+    cft = np.where(rng.rand(H, P, B) < 0.2, np.inf, rng.randn(H, P, B))
+    state = uf.UniformState((lo,), (hi,), (np.zeros((H, B)),), (cft,))
+    port, ps = layout.from_jax_arrays(host, state, dtype=torch.float64)
+    pg = port.geom.buckets[0]
+    assert layout.arc_bytes(pg.P) == 4 and port.geom.plan.nr_huge == 1
+    dl, dh = rng.randn(H, B), rng.randn(H, B)
+    dl[0, 0] = np.inf
+    tl, th = torch.from_numpy(dl), torch.from_numpy(dh)
+    j = [jnp.asarray(x) for x in (lo, hi, cft, dl, dh)]
+    ref_f = uf.bucket_forward_iteration(g, j[0], j[1], j[2], 0.5, j[3], j[4])
+    out_f = tuf.bucket_forward_iteration(pg, ps.lo[0], ps.hi[0], ps.cft[0], 0.5, tl, th)
+    assert_same(out_f, ref_f, atol=1e-12)
+    ref_b = uf.bucket_backward_iteration(g, ref_f[0], ref_f[1], ref_f[3], 0.5, j[3], j[4])
+    out_b = tuf.bucket_backward_iteration(pg, out_f[0], out_f[1], out_f[3], 0.5, tl, th)
+    assert_same(out_b, ref_b, atol=1e-12)
+    run = uf.bucket_backward_run(g, j[0], j[1])
+    assert_same([tuf.bucket_backward_run(pg, ps.lo[0], ps.hi[0])], [run], atol=1e-12)
+    assert_same(tuf.bucket_min_marginals(pg, ps.lo[0], ps.hi[0]),
+                uf.bucket_min_marginals(g, j[0], j[1]), atol=1e-12)
+    assert np.isfinite(np.asarray(ref_b[3])).any()
 
 
 def _one_hot_child_cft(kind, slot, cft_next, P):
