@@ -81,6 +81,8 @@ LBFGS_SOLVERS = ("lbfgs parallel mma", "lbfgs cuda parallel mma", "lbfgs jax mma
 OUTER_SOLVERS = LBFGS_SOLVERS + ("subgradient",)  # outer loops over the uniform backend
 SMOOTH_SOLVERS = ("smooth mma", "mma smooth", "parallel mma smooth")
 HOST_SOLVERS = ("sequential mma", "parallel mma", "ref mma")
+# deep BDDs on the native solver's worker thread, the rest on the card
+HYBRID_SOLVERS = ("hybrid mma", "multi parallel mma", "hybrid parallel mma")
 _ORDERS = ("input", "bfs", "cuthill", "minimum degree", "mindegree")
 _EXPORT_KEYS = ("export lp", "export bdd lp", "export bdd graph", "print statistics",
                 "export difficult core")
@@ -90,9 +92,6 @@ _SOLVERS_NOT_PORTED = {
     "sharded mma": "Queue 1 item 13 (multiple devices)",
     "lbfgs sharded mma": "Queue 1 item 13 (multiple devices)",
     "subgradient sharded mma": "Queue 1 item 13 (multiple devices)",
-    "hybrid mma": "Queue 1 item 14 (hybrid CPU + GPU solve)",
-    "multi parallel mma": "Queue 1 item 14 (hybrid CPU + GPU solve)",
-    "hybrid parallel mma": "Queue 1 item 14 (hybrid CPU + GPU solve)",
     "dense mma": "Queue 1 item 15 (the dense backend)",
 }
 
@@ -181,7 +180,8 @@ class BddSolver:
         name = cfg["relaxation solver"]
         if name in _SOLVERS_NOT_PORTED:
             raise _not_ported(f"relaxation solver {name!r}", _SOLVERS_NOT_PORTED[name])
-        if name not in UNIFORM_SOLVERS + OUTER_SOLVERS + SMOOTH_SOLVERS + HOST_SOLVERS:
+        if name not in (UNIFORM_SOLVERS + OUTER_SOLVERS + SMOOTH_SOLVERS + HOST_SOLVERS
+                        + HYBRID_SOLVERS):
             raise ValueError(f"unknown relaxation solver {name!r}")
         if cfg["variable order"] not in _ORDERS:
             raise ValueError(f"unknown variable order {cfg['variable order']!r}")
@@ -380,6 +380,21 @@ class BddSolver:
                            and not isinstance(smoothing, bool) else 0.1),
                 smoothing_decay=float(self.config.get("smoothing decay factor", 0.5)),
                 min_smoothing=float(self.config.get("min smoothing", 1e-3)),
+            )
+        elif name in HYBRID_SOLVERS:
+            # the deep BDDs on the native C++ OpenMP solver (a worker
+            # thread), the short ones on the card, the delta summed across
+            # both every half-sweep (bdd_tpu/api.py:295-317)
+            from bdd_tpu_torch.solver.hybrid import HybridSolver
+
+            self.solver = HybridSolver(
+                self.pre.collection,
+                self.pre.total_nr_variables(),
+                obj,
+                nr_primal_vars=self.pre.nr_primal_variables,
+                dtype=self.dtype,
+                hop_threshold=self.config.get("hybrid hop threshold"),
+                device=self.device,
             )
         else:  # _check_config admits no other name
             raise ValueError(f"unknown relaxation solver {name!r}")
@@ -835,6 +850,8 @@ class BddSolver:
         if self.config.get("export difficult core"):
             self.export_difficult_core()
         sol = self.round(verbose=verbose)
+        if hasattr(self.solver, "close"):
+            self.solver.close()  # hybrid mma: release the worker thread
         result = {"status": "solved", "lower_bound": float(lb), **self.dual_stats}
         tb = getattr(self, "_tighten_bounds", None)
         if tb is not None:

@@ -6,8 +6,8 @@ covers the hot host pipeline: LP parse, orderings, lineq->BDD, qbdd, uniform
 bucket flattening, and the OpenMP CPU solver that serves as the baseline.
 Unsupported features (nonlinear monomials, coalesce, OPB, split) raise
 NativeUnsupported. ``layout.from_native_host`` takes the place of
-``NativeHost.make_uniform_host``; the export to a python ``BddCollection``
-comes with the python pipeline (ROADMAP.md queue 1 item 7).
+``NativeHost.make_uniform_host``; ``NativeHost.collection`` exports the BDDs
+as the port's own python ``BddCollection``.
 """
 from __future__ import annotations
 
@@ -271,6 +271,31 @@ class NativeHost:
             bdd_of_col=bdd_of_col,
             depths=depths,
         )
+
+    # ------------------------------------------------------------ collection
+    def collection(self):
+        """Export as a python BddCollection (tests / fallback interop)."""
+        from bdd_tpu_torch.bdd.collection import BddCollection
+
+        lib = self._lib
+        nn = ctypes.c_int64()
+        nb = ctypes.c_int64()
+        lib.bh_collection_sizes(self._ctx, ctypes.byref(nn), ctypes.byref(nb))
+        var = np.zeros(nn.value, dtype=np.int64)
+        lo = np.zeros(nn.value, dtype=np.int64)
+        hi = np.zeros(nn.value, dtype=np.int64)
+        delim = np.zeros(nb.value + 1, dtype=np.int64)
+
+        def ptr(a):
+            return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+        lib.bh_fill_collection(self._ctx, ptr(var), ptr(lo), ptr(hi), ptr(delim))
+        col = BddCollection()
+        col.var = [int(v) for v in var]
+        col.lo = [int(v) for v in lo]
+        col.hi = [int(v) for v in hi]
+        col.delim = [int(v) for v in delim]
+        return col
 
     def cpu_solver(self, objective=None) -> "NativeCpuSolver":
         """Multi-core OpenMP parallel-MMA solver over this context's BDDs —

@@ -877,20 +877,29 @@ def _merge_small_buckets(groups: Dict[Tuple[int, int], List]) -> Dict[Tuple[int,
 
 def flatten_uniform(collection, nr_vars: int, nr_primal_vars: Optional[int] = None,
                     dtype=torch.float32, device="cuda", pack=None,
-                    lanes: int = 128) -> UniformHost:
+                    lanes: int = 128, counts_override=None,
+                    keep_bdds: Optional[Sequence[int]] = None) -> UniformHost:
     """Bucketed uniform layout of a QBDD ``BddCollection``: the Python
     pipeline's way to the layout that :func:`from_native_host` builds from the
     host library (uniform.py:699-839 of the JAX package, bucket for bucket:
     a bucket is keyed by the width rounded up to a power of two and the depth
     rounded to eighths of one). ``pack`` defaults to column packing for
     float32 only. ``lanes`` pads B as the JAX package does, so both build
-    the same arrays (:func:`lane_pad`; huge buckets are not padded here)."""
+    the same arrays (:func:`lane_pad`; huge buckets are not padded here).
+
+    ``keep_bdds``: the BDD numbers to lay out (default all); ``layer_bdd``
+    keeps their numbers in the whole collection. ``counts_override``: the
+    per-variable BDD counts of the whole collection, which then set ``alpha``
+    and ``num_bdds_per_var`` (the hybrid solve's device share); a variable
+    with no slot here gets an empty exchange segment. With it, ``pack``
+    defaults to no packing, as in the JAX package."""
     from bdd_tpu_torch.bdd.collection import BOT, TOP
 
     if nr_primal_vars is None:
         nr_primal_vars = nr_vars
+    bdd_nrs = list(keep_bdds) if keep_bdds is not None else list(range(collection.nr_bdds()))
     info = []  # (bucket_key, bdd_nr, levels, vars, slots, depth)
-    for b in range(collection.nr_bdds()):
+    for b in bdd_nrs:
         levels = collection.node_levels(b)
         depth = max(levels) + 1
         lvars = collection.level_variables(b)
@@ -909,10 +918,13 @@ def flatten_uniform(collection, nr_vars: int, nr_primal_vars: Optional[int] = No
         members_of.setdefault(item[0], []).append(item)
     members_of = _merge_small_buckets(members_of)
 
-    counts = np.zeros(nr_vars, dtype=np.int32)
-    for (_, _, _, lvars, _, _) in info:
-        for v in lvars:
-            counts[v] += 1
+    if counts_override is not None:
+        counts = np.asarray(counts_override, dtype=np.int32)
+    else:
+        counts = np.zeros(nr_vars, dtype=np.int32)
+        for (_, _, _, lvars, _, _) in info:
+            for v in lvars:
+                counts[v] += 1
     counts_safe = np.maximum(counts, 1)
 
     buckets: List[dict] = []
@@ -960,11 +972,10 @@ def flatten_uniform(collection, nr_vars: int, nr_primal_vars: Optional[int] = No
         bk["alpha"][m] = 1.0 / counts_safe[bk["layer_var"][m]]
         buckets.append(bk)
     if pack is None:
-        pack = dtype == torch.float32
+        pack = dtype == torch.float32 and counts_override is None
     if pack and buckets:
         buckets = _pack_buckets(buckets, nr_vars)
-    return _build_host(buckets, counts, nr_vars, nr_primal_vars, collection.nr_bdds(),
-                       dtype, device)
+    return _build_host(buckets, counts, nr_vars, nr_primal_vars, len(bdd_nrs), dtype, device)
 
 
 def pack_uniform_host(host: UniformHost) -> UniformHost:

@@ -258,15 +258,24 @@ def segment_reduce(geom: UniformGeom, flat: torch.Tensor, reduce: str, initial: 
     )
 
 
-def exchange_delta_flat(geom: UniformGeom, mm: torch.Tensor):
+DeltaReduce = Callable[[torch.Tensor], torch.Tensor]
+
+
+def exchange_delta_flat(geom: UniformGeom, mm: torch.Tensor,
+                        delta_reduce: Optional[DeltaReduce] = None):
     """Delta consensus (uniform.py:1571-1609) on the flat slot order: per
     variable, the sums of relu(-mm) and relu(mm) over its layers, gathered
     back to every slot. ``mm`` [E] -> (din_lo, din_hi) [E]; 0 at invalid
-    slots. Every gather is one-dimensional (a gather of [E, 2] float64 rows
-    runs several times slower on the card); the reduction takes the two
-    columns as one [Ev, 2] tensor, which torch reduces with one sequential
-    loop per variable and column (one-dimensional data would go to a tree
-    reduction that sums in another order, and slower)."""
+    slots. ``delta_reduce``: a callable applied to the per-variable sums
+    [V + 1, 2] (row = variable id, the empty row V last) before they are
+    gathered back; the hybrid solve adds the host solver's sums there. The
+    JAX package also hands it the rows of its permutation exchange, which it
+    must map to variables; the port has only this segment exchange, so its
+    rows are the variable ids. Every gather is one-dimensional (a gather of
+    [E, 2] float64 rows runs several times slower on the card); the reduction
+    takes the two columns as one [Ev, 2] tensor, which torch reduces with one
+    sequential loop per variable and column (one-dimensional data would go to
+    a tree reduction that sums in another order, and slower)."""
     ex = geom.exchange
     m = mm[ex.order]
     contrib = torch.stack([-m, m], dim=1).clamp_min_(0.0)
@@ -275,6 +284,8 @@ def exchange_delta_flat(geom: UniformGeom, mm: torch.Tensor):
     dsum = torch.segment_reduce(
         contrib, "sum", lengths=ex.segments, axis=0, unsafe=True, initial=0.0
     )
+    if delta_reduce is not None:
+        dsum = delta_reduce(dsum)
     return dsum[:, 0][ex.ids], dsum[:, 1][ex.ids]
 
 
@@ -303,14 +314,16 @@ def sweep_per_bucket(sweep: Callable, geom: UniformGeom, lo, hi, frontier, omega
 
 
 def iteration(
-    geom: UniformGeom, state: UniformState, omega=0.5, sweeps: Optional[Sweeps] = None
+    geom: UniformGeom, state: UniformState, omega=0.5, sweeps: Optional[Sweeps] = None,
+    delta_reduce=None,
 ) -> UniformState:
     """One full dual MMA iteration over all buckets on the flat state:
     exchange, forward half-sweep, exchange, backward half-sweep. By default
     each half-sweep is one call of the fused kernel wrappers (one launch on
     the card; the twins bucket by bucket on CPU tensors). ``sweeps``:
     (forward, backward) per-bucket functions to run bucket by bucket
-    instead."""
+    instead. ``delta_reduce``: the hook of :func:`exchange_delta_flat` for
+    both exchanges, or a (forward, backward) pair, one for each."""
     if not geom.buckets:
         return state
     if sweeps is None:
@@ -319,19 +332,22 @@ def iteration(
         fwd, bwd = sk.forward_iteration_cuda, sk.backward_iteration_cuda
     else:
         fwd, bwd = (functools.partial(sweep_per_bucket, s) for s in sweeps)
+    reduce_fwd, reduce_bwd = (delta_reduce if isinstance(delta_reduce, tuple)
+                              else (delta_reduce, delta_reduce))
     lo, hi, mm, cft = state.flat
-    din_lo, din_hi = exchange_delta_flat(geom, mm)
+    din_lo, din_hi = exchange_delta_flat(geom, mm, reduce_fwd)
     lo, hi, mm, cfr = fwd(geom, lo, hi, cft, omega, din_lo, din_hi)
-    din_lo, din_hi = exchange_delta_flat(geom, mm)
+    din_lo, din_hi = exchange_delta_flat(geom, mm, reduce_bwd)
     lo, hi, mm, cft = bwd(geom, lo, hi, cfr, omega, din_lo, din_hi)
     return state_from_flat(geom, lo, hi, mm, cft)
 
 
 def iterations(
-    geom: UniformGeom, state: UniformState, n: int, omega=0.5, sweeps: Optional[Sweeps] = None
+    geom: UniformGeom, state: UniformState, n: int, omega=0.5, sweeps: Optional[Sweeps] = None,
+    delta_reduce=None,
 ) -> UniformState:
     for _ in range(n):
-        state = iteration(geom, state, omega, sweeps)
+        state = iteration(geom, state, omega, sweeps, delta_reduce)
     return state
 
 
@@ -399,20 +415,24 @@ def lower_bound_from_cft(geom: UniformGeom, cft: Sequence[torch.Tensor]) -> torc
     return lb.to(geom.dtype)
 
 
-def folded_costs(geom: UniformGeom, state: UniformState) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The flat costs (lo, hi) with the deferred marginals folded in."""
+def folded_costs(geom: UniformGeom, state: UniformState,
+                 delta_reduce: Optional[DeltaReduce] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flat costs (lo, hi) with the deferred marginals folded in
+    (``delta_reduce``: as in :func:`exchange_delta_flat`)."""
     lo, hi, mm, _ = state.flat
-    din_lo, din_hi = exchange_delta_flat(geom, mm)
+    din_lo, din_hi = exchange_delta_flat(geom, mm, delta_reduce)
     valid = geom.exchange.valid
     return (torch.where(valid, lo + geom.alpha * din_lo, 0.0),
             torch.where(valid, hi + geom.alpha * din_hi, 0.0))
 
 
-def distribute_delta(geom: UniformGeom, state: UniformState, run=backward_run) -> UniformState:
+def distribute_delta(geom: UniformGeom, state: UniformState, run=backward_run,
+                     delta_reduce: Optional[DeltaReduce] = None) -> UniformState:
     """Fold the deferred marginals into the costs (uniform.py:1707); ``run``
     (geom, lo, hi) -> cft [N] refreshes the costs-to-terminal (the smooth
-    solver passes its smooth run)."""
-    nl, nh = folded_costs(geom, state)
+    solver passes its smooth run); ``delta_reduce``: as in
+    :func:`exchange_delta_flat`."""
+    nl, nh = folded_costs(geom, state, delta_reduce)
     return state_from_flat(geom, nl, nh, torch.zeros_like(nl), run(geom, nl, nh))
 
 
@@ -420,8 +440,9 @@ def lower_bound(geom: UniformGeom, state: UniformState) -> torch.Tensor:
     return lower_bound_from_cft(geom, state.cft)
 
 
-def lower_bound_with_deferred(geom: UniformGeom, state: UniformState) -> torch.Tensor:
-    return lower_bound_from_cft(geom, distribute_delta(geom, state).cft)
+def lower_bound_with_deferred(geom: UniformGeom, state: UniformState,
+                              delta_reduce: Optional[DeltaReduce] = None) -> torch.Tensor:
+    return lower_bound_from_cft(geom, distribute_delta(geom, state, delta_reduce=delta_reduce).cft)
 
 
 def min_marginals_all(geom: UniformGeom, state: UniformState, cft=None):

@@ -79,6 +79,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      build), and the kernel launches a hop of the smooth sweeps (torch ops);
      no sweep kernel and no plain version runs, the hard bound comes from
      the run-only entry.
+ 13. hybrid CPU + GPU ("hybrid mma", ``solver/hybrid.py``): the JAX package's
+     hybrid instance (set cover 500 x 2,000 plus one row over all 2,000 sets,
+     ``benchmarks/hybrid_solver.py:39-45``), whose 2,000-level BDD goes to the
+     native solver's worker thread at the automatic threshold, in float32 and
+     float64 for 200 iterations: the bound against the native solver over the
+     whole collection (rel 1e-3 / 1e-7), float64 against the same solve on the
+     CPU (rel 1e-9), ``to_native_full`` continuing the trajectory (rel 1e-7),
+     it/s beside the native solver's and the card's alone with the deep BDD
+     unsplit, the host half-sweep alone and inside the hybrid, host syncs per
+     iteration from a profiler trace (exactly 2: one per consensus), one
+     launch of each half-sweep per iteration and no plain version; gm50k
+     float32 on phase 10's Python build with every 50th BDD on the host, the
+     same checks, ms per iteration beside plain MMA's; "hybrid mma" through
+     ``BddSolver.solve`` on grid12 with rounding (the BDDs of depth 16 on the
+     host); the worker thread gone after ``close()``; then the extras on the
+     card: phase 3's gm50k float32 state moved to a float64 native solver
+     (``transfer_costs_to_native``), and a checkpoint (``save_state`` /
+     ``load_state``) whose next 10 iterations equal the uninterrupted run's
+     bit for bit.
 Every layout that phases 2 and 6-11 hold the half-sweeps on also holds the
 run-only entry of the backward kernel (``uniform_backward_run``: the
 costs-to-terminal of given costs) to the plain run, bit-equal, timed warm and
@@ -88,14 +107,16 @@ the card may call a plain sweep or the plain backward run (counters checked).
 Phases 7-9 hold the kernels to the twins as phase 2 does (bit-equal, timed
 beside the byte bound) on the layouts their own paths built (flatten_uniform's
 grid12, plain and split; the batches of 64 and 256; the server's batch) from
-the state their solves left, and check that no twin sweep ran in any solve.
+the state their solves left, and check that no twin sweep ran in any solve;
+phase 13 does the same on both hybrid device layouts (a BDD subset whose
+alpha comes from the whole collection's counts).
 
 Imports nothing of JAX and nothing of bdd_tpu (checked at the end): the port
 carries its own host library, ILP model, frontends and generators.
 Prints the card line, one JSON line of per-kernel results (a row per kernel,
 body and path: gm50k, knapsack, knapsack48 (huge), python grid12, batch64,
-batch256, the server's batch, the L-BFGS layouts, tighten mis200), and as the
-last line {"ok": true, "device": {...}}.
+batch256, the server's batch, the L-BFGS layouts, tighten mis200, hybrid
+deep, hybrid gm50k), and as the last line {"ok": true, "device": {...}}.
 """
 import dataclasses
 import json
@@ -978,7 +999,7 @@ def phase_smooth(card, gm_python):
                   flush=True)
     for prec, (host, objective) in layouts.items():
         smooth_rates(f"grid12 {prec}", host, objective, card, 20)
-    host, objective = gm_python
+    host, objective = gm_python[:2]
     sol = smma.SmoothSolver(host, objective, smoothing=0.2, smoothing_decay=0.5)
     before = plain_calls()
     t0 = time.perf_counter()
@@ -1373,7 +1394,7 @@ def phase_outer(card, gm_lp, gm_host, gm_objective, errs, times, flush):
           f"{[(g.P, g.H, g.B) for g in outer.base.geom.buckets]} {card}", flush=True)
     kernel_vs_twin("gm50k lbfgs", outer.base.host, None, card, errs, times, flush,
                    state=outer.base.state)
-    gm_python = (outer.base.host, s.pre.objective_vector())
+    gm_python = (outer.base.host, s.pre.objective_vector(), s.pre)
     paths.append({"at": "gm50k lbfgs", "dt": "float32", "suffix": "", "launches": counted,
                   "iterations": res["iterations"]})
     # ---- what an outer iteration is made of, on the native gm50k layout: the
@@ -1396,6 +1417,371 @@ def phase_outer(card, gm_lp, gm_host, gm_objective, errs, times, flush):
     print(f"[outer] gm50k float32 native layout {[(g.P, g.H, g.B) for g in geom.buckets]}, ms per "
           f"call on the card: { {k: round(v, 4) for k, v in parts.items()} } {card}", flush=True)
     return paths, gm_python
+
+
+HYBRID_ITERS = 200
+GM_HYBRID_ITERS = 100
+UNSPLIT_ITERS = 50
+
+
+def hybrid_instance():
+    """The JAX package's own hybrid instance (benchmarks/hybrid_solver.py:39-45):
+    set cover, 500 rows over 2,000 sets, and one row over all 2,000 sets
+    (a BDD 2,000 levels deep, some 300 nodes wide)."""
+    from bdd_tpu_torch.ilp.model import Ineq
+    from bdd_tpu_torch.utils.problems import set_cover
+
+    ilp = set_cover(500, 2000, density=0.004, seed=0)
+    ilp.add_linear_constraint([1] * 2000, list(range(2000)), Ineq.LEQ, 300)
+    ilp.reorder_bfs()
+    ilp.normalize()
+    return ilp
+
+
+class TimedHost:
+    """A hybrid's host solver with the time of every half-sweep recorded (on
+    the worker thread that runs it); every other call passes through."""
+
+    def __init__(self, cs):
+        self._cs = cs
+        self.seconds = []
+
+    def half_iteration_ext(self, *args):
+        t0 = time.perf_counter()
+        self._cs.half_iteration_ext(*args)
+        self.seconds.append(time.perf_counter() - t0)
+
+    def __getattr__(self, name):
+        return getattr(self._cs, name)
+
+
+def host_half_sweep_ms(hs, collection, objective, n=20) -> float:
+    """ms of one host half-sweep alone: a native solver over the hybrid's
+    host BDDs with the global counts, nothing else running."""
+    import numpy as np
+    from bdd_tpu_torch import native
+    from bdd_tpu_torch.solver.hybrid import _subset_flat
+
+    cs = native.cpu_solver_from_flat(*_subset_flat(collection, hs.host_bdds), hs.nr_vars,
+                                     objective, nbpv=hs.f.num_bdds_per_var)
+    delta = np.zeros((hs.nr_vars, 2))
+    cs.half_iteration_ext(0.5, 1, delta)  # warm
+    t0 = time.perf_counter()
+    for k in range(n):
+        cs.half_iteration_ext(0.5, 1 if k % 2 == 0 else -1, delta)
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def consensus_steps(label, hs, card, n=10) -> None:
+    """ms of each host step of one consensus, alone (the solver idle): the
+    device sums [V + 1, 2] read to the host, the host solver's partial
+    delta, the float64 combination, and the host share cast, copied up and
+    added on the card."""
+    import numpy as np
+    import torch
+
+    V = hs.nr_vars
+    dsum = torch.zeros((V + 1, 2), dtype=hs.dtype, device="cuda")
+    cpu_d = np.zeros((V, 2))
+    torch.cuda.synchronize()
+
+    def ms(fn):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    def add():
+        hs._contrib[:V] = torch.from_numpy(cpu_d)
+        return dsum + hs._contrib.to(dsum.device, non_blocking=True)
+
+    part = dsum.cpu()
+    steps = {"read [V + 1, 2]": ms(dsum.cpu), "partial_delta": ms(hs._cs.partial_delta),
+             "combine": ms(lambda: part[:V].to(torch.float64).numpy() + cpu_d),
+             "cast, copy up, add": ms(add)}
+    print(f"[hybrid] {label}: one consensus, each host step alone (V = {V}): "
+          f"{ {k: round(v, 4) for k, v in steps.items()} } ms {card}", flush=True)
+
+
+def hybrid_syncs(label, hs, card, n=10) -> float:
+    """Host syncs per iteration of a hybrid block under torch.profiler,
+    between its first and last kernel launch (one per consensus is the
+    design: two an iteration)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        hs.iteration_block(n)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    launches = [e.time_range.start for e in events
+                if e.name in ("cudaLaunchKernel", "cuLaunchKernel")]
+    if not launches:
+        fail(f"hybrid {label}: the profiler saw no kernel launch")
+    first, last = min(launches), max(launches)
+    syncs = {}
+    for e in events:
+        if e.name in SYNC_EVENTS and first <= e.time_range.start <= last:
+            syncs[e.name] = syncs.get(e.name, 0) + 1
+    per = sum(syncs.values()) / n
+    print(f"[hybrid] {label}: host syncs in a block of {n} iterations {syncs}: {per:.2f} per "
+          f"iteration {card}", flush=True)
+    return per
+
+
+def run_hybrid(label, hs, n, card):
+    """n iterations of a hybrid in blocks of 25 with its host half-sweeps
+    timed; fails if a plain version ran. Returns (ms per iteration, bound,
+    launches, host half-sweep ms inside the hybrid)."""
+    import torch
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+
+    timed_host = hs._cs = TimedHost(hs._cs)
+    sk.reset_launch_counts()
+    before = plain_calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(0, n, 25):
+        hs.iteration_block(min(25, n - k))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / n
+    lb = hs.lower_bound_with_deferred()  # one launch of the run-only entry
+    counted = dict(sk.LAUNCHES)
+    if plain_calls() != before:
+        fail(f"{label}: plain versions ran on the card: {before} -> {plain_calls()}")
+    inside = 1e3 * sum(timed_host.seconds) / max(1, len(timed_host.seconds))
+    if len(timed_host.seconds) != 2 * n:
+        fail(f"{label}: {len(timed_host.seconds)} host half-sweeps in {n} iterations")
+    hs._cs = timed_host._cs
+    return ms, lb, counted, inside
+
+
+def phase_hybrid(card, errs, times, flush, gm_python, gm_nh, gm_f32, gm_bound):
+    """Phase 13: the hybrid CPU + GPU solve (``solver/hybrid.py``): the deep
+    BDDs on the native solver's worker thread, the rest through the sweep
+    kernels, the delta summed across both every half-sweep; then the
+    extras on the card (float64 transfer, checkpoints)."""
+    import tempfile
+    import threading
+
+    import torch
+    from bdd_tpu_torch import native
+    from bdd_tpu_torch.api import BddSolver
+    from bdd_tpu_torch.bdd.preprocessor import BddPreprocessor
+    from bdd_tpu_torch.solver import extras
+    from bdd_tpu_torch.solver import layout
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver.hybrid import HybridSolver
+    from bdd_tpu_torch.solver.uniform_wrapper import UniformSolver
+    from bdd_tpu_torch.utils.problems import grid_mrf
+
+    threads_before = threading.active_count()
+    paths = []
+    # ---- (a) the JAX package's hybrid instance, automatic threshold
+    t0 = time.perf_counter()
+    pre = BddPreprocessor(hybrid_instance())
+    col, V, obj = pre.collection, pre.total_nr_variables(), pre.objective_vector()
+    depths = [len(col.level_variables(b)) for b in range(col.nr_bdds())]
+    print(f"[hybrid] set cover 500 x 2,000 + one row over all: {col.nr_bdds()} BDDs, "
+          f"{len(col.var)} nodes, depths {max(depths)} (deepest) and {sorted(depths)[-2]} (next); "
+          f"Python build {time.perf_counter() - t0:.2f} s {card}", flush=True)
+    whole = native.cpu_solver_from_collection(col, V, obj)
+    t0 = time.perf_counter()
+    whole.iterations(HYBRID_ITERS, 0.5)
+    native_ms = 1e3 * (time.perf_counter() - t0) / HYBRID_ITERS
+    lb_native = whole.lower_bound_with_deferred()
+    rates = {}
+    for name, dtype, prec in (("float32", torch.float32, "float"),
+                              ("float64", torch.float64, "double")):
+        t0 = time.perf_counter()
+        hs = HybridSolver(col, V, obj, nr_primal_vars=pre.nr_primal_variables, dtype=dtype,
+                          device="cuda")
+        build_s = time.perf_counter() - t0
+        if len(hs.host_bdds) != 1 or depths[hs.host_bdds[0]] != max(depths):
+            fail(f"hybrid deep {name}: threshold {hs.hop_threshold} put BDDs {hs.host_bdds[:5]} "
+                 f"on the host; expected the deepest alone")
+        ms, lb, counted, inside = run_hybrid(f"hybrid deep {name}", hs, HYBRID_ITERS, card)
+        rel = abs(lb - lb_native) / abs(lb_native)
+        per_it = {k: v / HYBRID_ITERS for k, v in counted.items() if v}
+        print(f"[hybrid] deep {name}: {len(hs.host_bdds)} BDD on the host, "
+              f"{len(hs.device_bdds)} on the card in buckets "
+              f"{[(g.P, g.H, g.B) for g in hs.geom.buckets]} (threshold {hs.hop_threshold}, "
+              f"layout {build_s:.2f} s); lb {lb!r} after {HYBRID_ITERS} iterations vs the native "
+              f"solver over the whole collection {lb_native!r}: rel {rel:.3e} (limit "
+              f"{LB_REL[prec]}); {ms:.4f} ms per iteration = {1e3 / ms:.1f} it/s (native whole "
+              f"{native_ms:.4f} ms = {1e3 / native_ms:.1f} it/s, {whole.nr_threads()} threads); "
+              f"host half-sweep inside the hybrid {inside:.4f} ms; launches per iteration "
+              f"{per_it} {card}", flush=True)
+        if not rel <= LB_REL[prec]:
+            fail(f"hybrid deep {name}: bound off the native solver over the whole collection")
+        if sweeps_of(counted) != launch_counts(narrow=HYBRID_ITERS):
+            fail(f"hybrid deep {name}: launches {counted}; expected one narrow launch per "
+                 f"kernel and iteration")
+        syncs = hybrid_syncs(f"deep {name}", hs, card)
+        consensus_steps(f"deep {name}", hs, card)
+        alone = host_half_sweep_ms(hs, col, obj)
+        dev = UniformSolver(hs.host, obj)  # the device share alone, no consensus
+        dev.iteration_block(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev.iteration_block(HYBRID_ITERS)
+        torch.cuda.synchronize()
+        dev_ms = 1e3 * (time.perf_counter() - t0) / HYBRID_ITERS
+        print(f"[hybrid] deep {name}: host half-sweep alone {alone:.4f} ms vs {inside:.4f} ms "
+              f"inside the hybrid; the card's share alone (no consensus) {dev_ms:.4f} ms per "
+              f"iteration; the hybrid {ms:.4f} ms {card}", flush=True)
+        if syncs != 2:
+            fail(f"hybrid deep {name}: {syncs} host syncs per iteration; expected 2")
+        rates[name] = 1e3 / ms
+        kernel_vs_twin("hybrid deep", hs.host, None, card, errs, times, flush, state=hs.state)
+        paths.append({"at": "hybrid deep", "dt": name, "suffix": "", "launches": counted,
+                      "iterations": HYBRID_ITERS})
+        if name == "float64":
+            card_lb, hs_lb = lb, hs.lower_bound_with_deferred()
+            full = hs.to_native_full()
+            full_lb = full.lower_bound_with_deferred()
+            hs.iteration_block(10)
+            full.iterations(10, 0.5)
+            cont = (hs.lower_bound_with_deferred(), full.lower_bound_with_deferred())
+            print(f"[hybrid] deep float64 to_native_full: bound {full_lb!r} vs the hybrid's "
+                  f"{hs_lb!r}; 10 iterations on: native {cont[1]!r}, hybrid {cont[0]!r} {card}",
+                  flush=True)
+            if not (abs(full_lb - hs_lb) <= 1e-7 * abs(hs_lb)
+                    and abs(cont[1] - cont[0]) <= 1e-7 * abs(cont[0])):
+                fail("hybrid deep float64: to_native_full does not continue the trajectory")
+        hs.close()
+        del hs
+    cpu = HybridSolver(col, V, obj, nr_primal_vars=pre.nr_primal_variables,
+                       dtype=torch.float64, device="cpu")
+    t0 = time.perf_counter()
+    cpu.iteration_block(HYBRID_ITERS)
+    cpu_lb = cpu.lower_bound_with_deferred()
+    cpu_s = time.perf_counter() - t0
+    cpu.close()
+    if not abs(cpu_lb - card_lb) <= 1e-9 * abs(cpu_lb):
+        fail(f"hybrid deep float64: card {card_lb!r} vs CPU {cpu_lb!r} (rel > 1e-9)")
+    print(f"[hybrid] deep float64: card and CPU bounds agree to rel 1e-9 ({card_lb!r}, "
+          f"{cpu_lb!r}; the CPU run {cpu_s:.2f} s) {card}", flush=True)
+    # the card alone, the deep BDD unsplit in the layout (a wide bucket of
+    # 2,000 hops)
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        host = layout.flatten_uniform(col, V, pre.nr_primal_variables, dtype=dtype,
+                                      device="cuda")
+        sol = UniformSolver(host, obj)
+        sol.iteration_block(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol.iteration_block(UNSPLIT_ITERS)
+        torch.cuda.synchronize()
+        unsplit_ms = 1e3 * (time.perf_counter() - t0) / UNSPLIT_ITERS
+        print(f"[hybrid] deep {name}, the card alone with the deep BDD unsplit: buckets "
+              f"{[(g.P, g.H, g.B) for g in host.geom.buckets]}, {unsplit_ms:.4f} ms per "
+              f"iteration = {1e3 / unsplit_ms:.1f} it/s vs the hybrid's {rates[name]:.1f} "
+              f"{card}", flush=True)
+        del sol, host
+
+    # ---- (b) gm50k float32 on phase 10's Python build, every 50th BDD on the host
+    gm_host, _, gm_pre = gm_python
+    col, V, obj = gm_pre.collection, gm_pre.total_nr_variables(), gm_pre.objective_vector()
+    t0 = time.perf_counter()
+    hs = HybridSolver(col, V, obj, nr_primal_vars=gm_pre.nr_primal_variables,
+                      dtype=torch.float32, device="cuda",
+                      force_host_bdds=range(0, col.nr_bdds(), 50))
+    build_s = time.perf_counter() - t0
+    ms, lb, counted, inside = run_hybrid("hybrid gm50k", hs, GM_HYBRID_ITERS, card)
+    whole = native.cpu_solver_from_collection(col, V, obj)
+    whole.iterations(GM_HYBRID_ITERS, 0.5)
+    lb_native = whole.lower_bound_with_deferred()
+    rel = abs(lb - lb_native) / abs(lb_native)
+    full = UniformSolver(gm_host, obj)  # phase 10's layout of the whole collection
+    full.iteration_block(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full.iteration_block(GM_HYBRID_ITERS)
+    torch.cuda.synchronize()
+    mma_ms = 1e3 * (time.perf_counter() - t0) / GM_HYBRID_ITERS
+    del full
+    alone = host_half_sweep_ms(hs, col, obj)
+    print(f"[hybrid] gm50k float32: {len(hs.host_bdds)} BDDs on the host, {len(hs.device_bdds)} "
+          f"on the card (layout {build_s:.2f} s); lb {lb!r} after {GM_HYBRID_ITERS} iterations vs "
+          f"the native solver over the whole collection {lb_native!r}: rel {rel:.3e} (limit "
+          f"{LB_REL['float']}); {ms:.4f} ms per iteration vs plain MMA on the full layout "
+          f"{mma_ms:.4f} ms; host half-sweep alone {alone:.4f} ms, inside {inside:.4f} ms; "
+          f"launches per iteration "
+          f"{ {k: v / GM_HYBRID_ITERS for k, v in counted.items() if v} } {card}", flush=True)
+    if not rel <= LB_REL["float"]:
+        fail("hybrid gm50k float32: bound off the native solver over the whole collection")
+    if sweeps_of(counted) != launch_counts(narrow=GM_HYBRID_ITERS):
+        fail(f"hybrid gm50k: launches {counted}; expected one narrow launch per kernel and "
+             f"iteration")
+    if hybrid_syncs("gm50k float32", hs, card) != 2:
+        fail("hybrid gm50k float32: not 2 host syncs per iteration")
+    consensus_steps("gm50k float32", hs, card)
+    kernel_vs_twin("hybrid gm50k", hs.host, None, card, errs, times, flush, state=hs.state)
+    paths.append({"at": "hybrid gm50k", "dt": "float32", "suffix": "", "launches": counted,
+                  "iterations": GM_HYBRID_ITERS})
+    hs.close()
+    del hs
+
+    # ---- (d) "hybrid mma" through BddSolver on grid12 with rounding, the
+    # 264 BDDs of depth 16 on the host
+    ilp = grid_mrf(12, 12, 4, seed=0)
+    sk.reset_launch_counts()
+    before = plain_calls()
+    t0 = time.perf_counter()
+    s = BddSolver({"relaxation solver": "hybrid mma", "hybrid hop threshold": 5},
+                  device="cuda").read_ilp(ilp=ilp)
+    res = s.solve(verbose=False)
+    wall = time.perf_counter() - t0
+    checked_solution(ilp, res, "hybrid mma grid12")
+    if (not isinstance(s.solver, HybridSolver) or not s.solver.host_bdds
+            or not s.solver.device_bdds or s.solver._pool is not None
+            or plain_calls() != before or min(sk.LAUNCHES[k] for k in KERNELS) < res["iterations"]):
+        fail(f"hybrid mma grid12: split {len(s.solver.host_bdds)} / {len(s.solver.device_bdds)}, "
+             f"launches {dict(sk.LAUNCHES)}, plain versions {before} -> {plain_calls()}")
+    print(f"[hybrid] grid12 'hybrid mma' with rounding, threshold 5: "
+          f"{len(s.solver.host_bdds)} BDDs on the host, {len(s.solver.device_bdds)} on the card; "
+          f"lb {res['lower_bound']!r}, objective {res['objective']!r}, {res['iterations']} dual "
+          f"iterations, {wall:.2f} s wall; launches {dict(sk.LAUNCHES)} {card}", flush=True)
+    del s
+    if threading.active_count() != threads_before:
+        fail(f"hybrid: {threading.active_count()} threads after close(), {threads_before} before")
+
+    # ---- (e) extras on the card: phase 3's gm50k float32 state (500
+    # iterations on the same layout: the same bits) to a float64 native
+    # solver, and a checkpoint round trip
+    sol = UniformSolver(gm_f32, gm_nh.objective())
+    sol.iteration_block(GM_ITERS)
+    lb32 = sol.lower_bound_with_deferred()
+    if lb32 != gm_bound:
+        fail(f"gm50k float32 state: bound {lb32!r}, phase 3 had {gm_bound!r}")
+    cs = gm_nh.cpu_solver()
+    t0 = time.perf_counter()
+    extras.transfer_costs_to_native(sol.host, sol.state, cs)
+    transfer_s = time.perf_counter() - t0
+    after = cs.lower_bound_with_deferred()
+    cs.iterations(100, 0.5)
+    print(f"[extras] gm50k float32 -> float64 native: bound {lb32!r} on the card, {after!r} "
+          f"after the transfer ({transfer_s:.3f} s), {cs.lower_bound_with_deferred()!r} after "
+          f"100 float64 iterations {card}", flush=True)
+    if not abs(after - lb32) <= 1e-4 * abs(lb32):
+        fail(f"transfer_costs_to_native: bound {after!r} vs {lb32!r}")
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "gm50k.pkl")
+        t0 = time.perf_counter()
+        extras.save_state(sol, path)
+        fresh = UniformSolver(gm_f32, gm_nh.objective())
+        extras.load_state(fresh, path)
+        ckpt_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    sol.iteration_block(10)
+    fresh.iteration_block(10)
+    if not all(torch.equal(a, b) for a, b in zip(sol.state.flat, fresh.state.flat)):
+        fail("checkpoint: the 10 iterations after load_state differ from the uninterrupted run")
+    print(f"[extras] gm50k float32 checkpoint: {size} B saved and loaded in {ckpt_s:.3f} s; the "
+          f"next 10 iterations bit-identical to the uninterrupted run {card}", flush=True)
+    return paths
 
 
 def main() -> None:
@@ -1535,7 +1921,7 @@ def main() -> None:
     if syncs:
         fail(f"{syncs} host syncs inside an iteration block; expected 0")
 
-    # ------------------------------------------------ 6-12. the later slices
+    # ------------------------------------------------ 6-13. the later slices
     def timed(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
@@ -1553,6 +1939,8 @@ def main() -> None:
     paths += outer
     paths.append(timed("tighten", phase_tighten, card, errs, times, flush))
     timed("smooth", phase_smooth, card, gm_python)
+    paths += timed("hybrid", phase_hybrid, card, errs, times, flush, gm_python, nh, gm_f32,
+                   f32a["lower_bound"])
     del flush
     finish(paths, errs, times)
 

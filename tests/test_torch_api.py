@@ -121,7 +121,9 @@ def test_cli(tmp_path):
     "config,waits",
     [
         ({"relaxation solver": "lbfgs parallel mma"}, None),
-        ({"relaxation solver": "hybrid mma"}, True),
+        ({"relaxation solver": "hybrid mma"}, False),
+        ({"relaxation solver": "sharded mma"}, True),
+        ({"relaxation solver": "dense mma"}, True),
         ({"tighten": {"cliques": True}}, False),
         ({"split chunk size": 4}, False),
         ({"split bdds": {}}, False),
@@ -129,14 +131,17 @@ def test_cli(tmp_path):
         ({"perturbation rounding": {"method": "wedelin"}}, False),
         ({"use native preprocessing": False}, False),
     ],
-    ids=["lbfgs", "hybrid", "tighten", "split", "split_bdds", "export", "wedelin",
-         "python"],
+    ids=["lbfgs", "hybrid", "sharded", "dense", "tighten", "split", "split_bdds", "export",
+         "wedelin", "python"],
 )
 def test_unported_configs_raise(config, waits, tmp_path, monkeypatch):
     """The names that still wait raise and name their ROADMAP item; the keys
     that the Python pipeline brought solve, with the JAX package's bound
-    (float64, abs 1e-8), and so does the tightening phase; the outer loops
-    construct (``waits`` None; their solves are held to the JAX package's in
+    (float64, abs 1e-8), and so do the tightening phase and the hybrid solve
+    (all on the device at the automatic threshold: the JAX package's native
+    solver would overrun its scratch under this module's thread cap;
+    tests/test_torch_hybrid.py splits it); the outer loops construct
+    (``waits`` None; their solves are held to the JAX package's in
     tests/test_torch_outer.py)."""
     if waits is None:
         from bdd_tpu_torch.solver.lbfgs import LbfgsSolver

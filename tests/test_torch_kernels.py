@@ -660,3 +660,42 @@ def test_huge_body_thread_counts_equal_twins(cuda_device, precision, threads):
     assert_same_bits([out], [geom.flatten_nodes([
         uf.bucket_backward_run(g, a, b)
         for g, a, b in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])])
+
+
+@pytest.mark.cuda
+def test_hybrid_card_equals_cpu(cuda_device):
+    """The hybrid solve (solver/hybrid.py) with half the BDDs on the native
+    solver's worker thread: the card's float64 trajectory equals the same
+    solve on the CPU (rel 1e-9), every iteration one launch of each half-sweep
+    and no plain version, and the worker thread gone after close()."""
+    import threading
+
+    from bdd_tpu_torch.bdd.preprocessor import BddPreprocessor
+    from bdd_tpu_torch.solver.hybrid import HybridSolver
+
+    ilp = grid_mrf(5, 5, 3, seed=3)
+    ilp.reorder_bfs()
+    ilp.normalize()
+    pre = BddPreprocessor(ilp)
+    force = list(range(0, pre.collection.nr_bdds(), 2))
+    before = threading.active_count()
+    bounds = {}
+    for device in ("cpu", cuda_device):
+        s = HybridSolver(pre.collection, pre.total_nr_variables(), pre.objective_vector(),
+                         dtype=torch.float64, device=device, force_host_bdds=force)
+        sk.reset_launch_counts()
+        plain = dict(uf.TWIN_SWEEP_CALLS), dict(uf.PLAIN_RUN_CALLS)
+        trail = []
+        for _ in range(4):
+            s.iteration_block(5)
+            trail.append(s.lower_bound_with_deferred())
+        bounds[str(device)] = trail
+        if device != "cpu":
+            counted = {k: n for k, n in sk.LAUNCHES.items() if not k.startswith(sk.RUN)}
+            assert counted == {k: v for k, v in launches(narrow=20).items()
+                               if not k.startswith(sk.RUN)}
+            assert (dict(uf.TWIN_SWEEP_CALLS), dict(uf.PLAIN_RUN_CALLS)) == plain
+        s.close()
+    assert threading.active_count() == before
+    for a, b in zip(bounds["cpu"], bounds[str(cuda_device)]):
+        assert abs(a - b) <= 1e-9 * abs(a)

@@ -99,6 +99,40 @@ def test_tighten_copy_differs_only_in_the_listed_lines():
     assert sorted(diffs) == ["constructor"] * 2 + ["guard"] + ["import"] * 3
 
 
+# functions of the port that are copies of the JAX package's, under the same
+# name in the module of the same relative name, with only their import lines
+# renamed
+COPIED_FUNCTIONS = [
+    ("solver/extras.py", "lagrange_constraint_matrix"),
+    ("solver/extras.py", "exact_min_via_meld"),
+    ("solver/extras.py", "exact_min_bruteforce"),
+    ("solver/hybrid.py", "split_bdds"),
+    ("solver/hybrid.py", "_subset_flat"),
+    ("solver/hybrid.py", "_JointLayerView"),
+]
+
+
+def _top_level_source(path: Path, name: str) -> list:
+    import ast
+
+    text = path.read_text()
+    for node in ast.parse(text).body:
+        if getattr(node, "name", None) == name:
+            return ast.get_source_segment(text, node).splitlines()
+    raise AssertionError(f"{path} has no top-level {name}")
+
+
+@pytest.mark.parametrize("rel,name", COPIED_FUNCTIONS, ids=[n for _, n in COPIED_FUNCTIONS])
+def test_copied_function_differs_only_in_import_lines(rel, name):
+    ours = _top_level_source(ROOT / "bdd_tpu_torch" / rel, name)
+    theirs = _top_level_source(ROOT / "bdd_tpu" / rel, name)
+    assert len(ours) == len(theirs)
+    for n, (a, b) in enumerate(zip(ours, theirs), 1):
+        if a != b:
+            assert _is_import_line(a) and _is_import_line(b), f"{rel}:{name}:{n}: {a!r} vs {b!r}"
+            assert a.replace("bdd_tpu_torch.", "bdd_tpu.") == b
+
+
 def test_importing_the_whole_port_pulls_in_no_jax():
     code = (
         "import sys, pkgutil, importlib\n"
@@ -113,7 +147,7 @@ def test_importing_the_whole_port_pulls_in_no_jax():
                          timeout=300, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-2000:]
     for mod in ("serve", "api", "bdd.preprocessor", "solver.extras", "utils.batching",
-                "solver.tighten", "solver.smooth", "solver.smooth_mma"):
+                "solver.tighten", "solver.smooth", "solver.smooth_mma", "solver.hybrid"):
         assert f"'bdd_tpu_torch.{mod}'" in out.stdout
 
 GENERATORS = {
