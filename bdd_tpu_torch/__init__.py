@@ -12,6 +12,9 @@ module names so every port module has an obvious counterpart:
   bdd_tpu_torch.solver.uniform_wrapper — UniformSolver duck interface
   bdd_tpu_torch.solver.rounding_device — on-device incremental rounding
   bdd_tpu_torch.api                    — BddSolver for the native main path + CLI
+  bdd_tpu_torch.solver.learned         — learned MMA iterations and their gradients
+  bdd_tpu_torch.learn                  — the learned solver (DOGE): features, GNN,
+                                          training, dataset, checkpoints
 
 The port stands alone: it imports neither JAX nor any module of ``bdd_tpu``.
 What it needs of the JAX-free modules there it keeps as copies of its own,

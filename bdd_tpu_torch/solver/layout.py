@@ -832,6 +832,20 @@ def _host_buckets(host: UniformHost) -> List[dict]:
     return out
 
 
+def host_to_arrays(host: UniformHost) -> dict:
+    """A host as numpy arrays (its buckets, per-variable counts and sizes),
+    for a cache on disk or a copy in another float type or on another device:
+    :func:`host_from_arrays` builds it back."""
+    return {"buckets": _host_buckets(host),
+            "counts": host.geom.num_bdds_per_var.cpu().numpy(), "nr_vars": host.nr_vars,
+            "nr_primal_vars": host.nr_primal_vars, "nr_bdds": host.nr_bdds}
+
+
+def host_from_arrays(arrays: dict, dtype=torch.float32, device="cuda") -> UniformHost:
+    return _build_host(arrays["buckets"], arrays["counts"], arrays["nr_vars"],
+                       arrays["nr_primal_vars"], arrays["nr_bdds"], dtype, device)
+
+
 # ----------------------------------------------------------------- builders
 def from_native_host(nh, dtype=torch.float32, device="cuda", pack=None) -> UniformHost:
     """Solver-ready host from a ``bdd_tpu_torch.native.NativeHost``, the

@@ -69,7 +69,12 @@ def _srelax(vals_lo, vals_hi, lo_k, lo_s, hi_k, hi_s, nvalid, P: int, T) -> torc
 
 
 def _temperature(smoothing, g: BucketGeom, like: torch.Tensor) -> torch.Tensor:
-    """The temperature of a bucket as a [B] tensor of like's dtype."""
+    """The temperature of a bucket as a [B] tensor of like's dtype. A number
+    is filled in on the device: a copy of it from the host would wait for
+    the card (the learned solver's rollout reads its features with no host
+    sync)."""
+    if isinstance(smoothing, (int, float)):
+        return torch.full((g.B,), smoothing, dtype=like.dtype, device=like.device)
     return torch.as_tensor(smoothing, dtype=like.dtype, device=like.device).expand(g.B)
 
 

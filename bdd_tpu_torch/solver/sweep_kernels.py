@@ -168,27 +168,32 @@ def _fresh_outputs(lo, frontier):
 
 # ------------------------------------------------------- all buckets, fused
 def prepare_fused_launch(kernel: str, geom: UniformGeom, lo, hi, frontier, omega,
-                         din_lo, din_hi, plan: LaunchPlan = None):
+                         din_lo, din_hi, plan: LaunchPlan = None, alpha=None):
     """Check one launch of ``kernel`` over all buckets of ``geom`` on flat
     tensors and allocate its outputs. Returns (launch, outs); ``launch()``
     does not count (timing and comparisons call it directly). ``plan``
-    replaces ``geom.plan`` (another prefetch depth over the same buckets)."""
+    replaces ``geom.plan`` (another prefetch depth over the same buckets).
+    ``omega``: a scalar or a flat [E] tensor; ``alpha``: flat [E] per-layer
+    weights in place of ``geom.alpha`` (the learned solver's)."""
     plan = plan or geom.plan
     _check_widths(plan.shapes)
     E, N = plan.E, plan.N
     if isinstance(omega, torch.Tensor) and omega.dim() > 0:
         omega = omega.to(lo.dtype).expand(E).contiguous()
+    alpha = geom.alpha if alpha is None else alpha
     _check_flat(geom, (("lo", lo, E), ("hi", hi, E), ("din_lo", din_lo, E),
-                       ("din_hi", din_hi, E), ("frontier", frontier, N)))
+                       ("din_hi", din_hi, E), ("alpha", alpha, E), ("frontier", frontier, N)))
     outs = _fresh_outputs(lo, frontier)
-    return _launcher(kernel, plan, geom.arcs, lo, hi, din_lo, din_hi, geom.alpha, omega,
+    return _launcher(kernel, plan, geom.arcs, lo, hi, din_lo, din_hi, alpha, omega,
                      frontier, outs, geom.huge_scratch), outs
 
 
-def _fused(kernel: str, twin, geom: UniformGeom, lo, hi, frontier, omega, din_lo, din_hi):
+def _fused(kernel: str, twin, geom: UniformGeom, lo, hi, frontier, omega, din_lo, din_hi,
+           alpha):
     if lo.device.type == "cpu":
-        return uf.sweep_per_bucket(twin, geom, lo, hi, frontier, omega, din_lo, din_hi)
-    launch, outs = prepare_fused_launch(kernel, geom, lo, hi, frontier, omega, din_lo, din_hi)
+        return uf.sweep_per_bucket(twin, geom, lo, hi, frontier, omega, din_lo, din_hi, alpha)
+    launch, outs = prepare_fused_launch(kernel, geom, lo, hi, frontier, omega, din_lo, din_hi,
+                                        alpha=alpha)
     _launch_counted(launch)
     return outs
 
@@ -229,18 +234,19 @@ def backward_run_cuda(geom: UniformGeom, lo, hi) -> torch.Tensor:
     return cft
 
 
-def forward_iteration_cuda(geom: UniformGeom, lo, hi, cft, omega, din_lo, din_hi):
+def forward_iteration_cuda(geom: UniformGeom, lo, hi, cft, omega, din_lo, din_hi, alpha=None):
     """Forward half-sweep of every bucket on flat tensors (lo, hi, din_* [E];
-    cft [N]) -> (lo, hi, def_mm [E], cfr [N]), freshly allocated."""
+    cft [N]; omega a scalar or [E]; alpha [E], default ``geom.alpha``) ->
+    (lo, hi, def_mm [E], cfr [N]), freshly allocated."""
     return _fused("uniform_forward", uf.bucket_forward_iteration, geom, lo, hi, cft, omega,
-                  din_lo, din_hi)
+                  din_lo, din_hi, alpha)
 
 
-def backward_iteration_cuda(geom: UniformGeom, lo, hi, cfr, omega, din_lo, din_hi):
+def backward_iteration_cuda(geom: UniformGeom, lo, hi, cfr, omega, din_lo, din_hi, alpha=None):
     """Backward half-sweep of every bucket on flat tensors -> (lo, hi, def_mm
     [E], cft [N]), freshly allocated."""
     return _fused("uniform_backward", uf.bucket_backward_iteration, geom, lo, hi, cfr, omega,
-                  din_lo, din_hi)
+                  din_lo, din_hi, alpha)
 
 
 # ---------------------------------------------------------------- one bucket

@@ -48,7 +48,9 @@ def _restart_cfr(cfr: torch.Tensor, root_row: torch.Tensor, P: int) -> torch.Ten
     slot 0, INF elsewhere). Exact: the carry entering a restart row is all-INF
     (the previous BDD's last layer has no internal arcs)."""
     root_init = torch.full((P, 1), INF, dtype=cfr.dtype, device=cfr.device)
-    root_init[0] = 0.0
+    # fill_ with a number: an item assignment would copy a device scalar back
+    # to the host (one sync a hop)
+    root_init[:1].fill_(0.0)
     return torch.where(root_row[None, :], root_init, cfr)
 
 
@@ -73,9 +75,37 @@ def _relax_next(vals, kind, slot, valid, P: int) -> torch.Tensor:
     return out.scatter_reduce_(0, idx.clamp_max(P - 1), src, "amin", include_self=True)
 
 
+class _Relu(torch.autograd.Function):
+    """max(x, 0) with ``clamp_min``'s value (the kernels' bits, signed zeros
+    included) and the gradient of the JAX package's ``jnp.maximum(x, 0.0)``,
+    which splits a tie evenly: 1/2 at x == 0, where ``clamp_min``'s gradient
+    is 1. The tie is common: a deferred marginal is 0 wherever a marginal
+    difference is 0 or one side is infinite."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.clamp_min(0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x > 0, g, torch.where(x == 0, 0.5 * g, 0.0))
+
+
+def relu(x: torch.Tensor, inplace: bool = False) -> torch.Tensor:
+    """max(x, 0): ``clamp_min`` (in place if asked) unless autograd records
+    x, then :class:`_Relu` (same value, the JAX package's gradient)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Relu.apply(x)
+    return x.clamp_min_(0.0) if inplace else x.clamp_min(0.0)
+
+
 def _hop_cost_update(lo_row, hi_row, m0, m1, omega_row, alpha_row, din_lo, din_hi, lvalid):
     """MMA cost update of one hop row (uniform.py:1181-1205). Forcing deltas
-    (±inf) are added unscaled, so alpha <= 1/3 keeps them infinite."""
+    (±inf) are added unscaled, so alpha <= 1/3 keeps them infinite. The
+    double where around alpha * din keeps an infinite delta out of the
+    product, whose gradient would be 0 x inf = NaN (the learned path)."""
     fin0 = torch.isfinite(m0)
     fin1 = torch.isfinite(m1)
     both = fin0 & fin1
@@ -86,8 +116,8 @@ def _hop_cost_update(lo_row, hi_row, m0, m1, omega_row, alpha_row, din_lo, din_h
     dfin1 = torch.isfinite(din_hi)
     dlo = alpha_row * torch.where(dfin0, din_lo, 0.0) + torch.where(dfin0, 0.0, din_lo)
     dhi = alpha_row * torch.where(dfin1, din_hi, 0.0) + torch.where(dfin1, 0.0, din_hi)
-    new_lo = torch.where(fin0, lo_row - torch.clamp_min(-mm_rm, 0.0), INF) + dlo
-    new_hi = torch.where(fin1, hi_row - torch.clamp_min(mm_rm, 0.0), INF) + dhi
+    new_lo = torch.where(fin0, lo_row - relu(-mm_rm), INF) + dlo
+    new_hi = torch.where(fin1, hi_row - relu(mm_rm), INF) + dhi
     def_mm = torch.where(both, mm_rm, torch.where(fin1, -INF, INF))
     return (
         torch.where(lvalid, new_lo, 0.0),
@@ -278,7 +308,7 @@ def exchange_delta_flat(geom: UniformGeom, mm: torch.Tensor,
     a tree reduction that sums in another order, and slower)."""
     ex = geom.exchange
     m = mm[ex.order]
-    contrib = torch.stack([-m, m], dim=1).clamp_min_(0.0)
+    contrib = relu(torch.stack([-m, m], dim=1), inplace=True)
     # [V + 1, 2]: the last segment is empty, the sentinel variable V of
     # invalid slots, and comes out as the initial 0
     dsum = torch.segment_reduce(
@@ -293,21 +323,23 @@ Sweeps = Tuple[Callable, Callable]
 
 
 def sweep_per_bucket(sweep: Callable, geom: UniformGeom, lo, hi, frontier, omega,
-                     din_lo, din_hi) -> Tuple[torch.Tensor, ...]:
+                     din_lo, din_hi, alpha=None) -> Tuple[torch.Tensor, ...]:
     """A half-sweep on flat tensors through a per-bucket sweep function (a
     twin, or a one-bucket kernel wrapper): one call per bucket on views, the
     outputs laid flat again. Same signature from ``geom`` on, and the same
-    result, as the one-launch wrappers of ``sweep_kernels``."""
+    result, as the one-launch wrappers of ``sweep_kernels``; ``alpha``: flat
+    [E] per-layer weights (default ``geom.alpha``)."""
     if isinstance(omega, torch.Tensor) and omega.dim() > 0:
         omegas = geom.per_bucket(omega.expand(geom.plan.E))
     else:
         omegas = (omega,) * len(geom.buckets)
+    alphas = (None,) * len(geom.buckets) if alpha is None else geom.per_bucket(alpha)
     outs = [
-        sweep(g, l, h, f, om, dl, dh)
-        for g, l, h, f, om, dl, dh in zip(
+        sweep(g, l, h, f, om, dl, dh, al)
+        for g, l, h, f, om, dl, dh, al in zip(
             geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi),
             geom.per_bucket_nodes(frontier), omegas, geom.per_bucket(din_lo),
-            geom.per_bucket(din_hi))
+            geom.per_bucket(din_hi), alphas)
     ]
     new_lo, new_hi, new_mm, frontiers = zip(*outs)
     return flatten(new_lo), flatten(new_hi), flatten(new_mm), geom.flatten_nodes(frontiers)
@@ -315,7 +347,7 @@ def sweep_per_bucket(sweep: Callable, geom: UniformGeom, lo, hi, frontier, omega
 
 def iteration(
     geom: UniformGeom, state: UniformState, omega=0.5, sweeps: Optional[Sweeps] = None,
-    delta_reduce=None,
+    delta_reduce=None, alpha=None,
 ) -> UniformState:
     """One full dual MMA iteration over all buckets on the flat state:
     exchange, forward half-sweep, exchange, backward half-sweep. By default
@@ -323,7 +355,10 @@ def iteration(
     the card; the twins bucket by bucket on CPU tensors). ``sweeps``:
     (forward, backward) per-bucket functions to run bucket by bucket
     instead. ``delta_reduce``: the hook of :func:`exchange_delta_flat` for
-    both exchanges, or a (forward, backward) pair, one for each."""
+    both exchanges, or a (forward, backward) pair, one for each. ``omega``:
+    a scalar or flat [E] per-layer damping; ``alpha``: flat [E] per-layer
+    weights of the deferred deltas (default ``geom.alpha``, the isotropic
+    ones; the learned solver passes its own)."""
     if not geom.buckets:
         return state
     if sweeps is None:
@@ -336,9 +371,9 @@ def iteration(
                               else (delta_reduce, delta_reduce))
     lo, hi, mm, cft = state.flat
     din_lo, din_hi = exchange_delta_flat(geom, mm, reduce_fwd)
-    lo, hi, mm, cfr = fwd(geom, lo, hi, cft, omega, din_lo, din_hi)
+    lo, hi, mm, cfr = fwd(geom, lo, hi, cft, omega, din_lo, din_hi, alpha)
     din_lo, din_hi = exchange_delta_flat(geom, mm, reduce_bwd)
-    lo, hi, mm, cft = bwd(geom, lo, hi, cfr, omega, din_lo, din_hi)
+    lo, hi, mm, cft = bwd(geom, lo, hi, cfr, omega, din_lo, din_hi, alpha)
     return state_from_flat(geom, lo, hi, mm, cft)
 
 

@@ -98,6 +98,29 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      (``transfer_costs_to_native``), and a checkpoint (``save_state`` /
      ``load_state``) whose next 10 iterations equal the uninterrupted run's
      bit for bit.
+ 14. the learned solver (DOGE, ``learn/``, ``solver/learned.py``): the JAX
+     package's trained ``benchmarks/doge_gm120.ckpt`` read by the port's own
+     reader, on gm120 seed 100 (``graph_matching(120, 120, seed=100,
+     candidates=6, nr_quadratic=2000)``, the held-out instance of
+     ``benchmarks/train_doge_scale.py``; float32, the trainer's Python
+     pipeline): (a) the GNN's per-layer alpha and omega through one fused
+     forward and one fused backward launch and the run entry, bit-equal to
+     the twins and timed beside the byte bound (alpha and omega counted as
+     arrays); (b) the checkpoint's rollout, 20 rounds x 20 learned
+     iterations with history and smooth features: the per-round bounds, one
+     host sync per rollout (sync debug mode) and none between its first and
+     last launch (profiler), ms per round by span (features, GNN,
+     iterations, bound) and the device busy share, one launch of each
+     half-sweep per learned iteration, plain MMA on the same layout for 400
+     iterations beside it (not gated), and the first 2 rounds through the
+     twins, bit-equal; (c) training on gm120 seed 0 (phase 10's Python
+     build), depth cut to 2 rounds (one pre-round, one with gradients): the
+     kernels with the same alpha and omega held to the twins on that layout,
+     the parameter gradients of the autograd Functions (kernels forward, the
+     twins recomputed backward) against plain autograd through the twins
+     (rel 1e-6 of the largest entry; losses bit-equal), and two training
+     steps (finite losses, parameters moved, one launch of each half-sweep
+     per learned iteration).
 Every layout that phases 2 and 6-11 hold the half-sweeps on also holds the
 run-only entry of the backward kernel (``uniform_backward_run``: the
 costs-to-terminal of given costs) to the plain run, bit-equal, timed warm and
@@ -111,12 +134,14 @@ the state their solves left, and check that no twin sweep ran in any solve;
 phase 13 does the same on both hybrid device layouts (a BDD subset whose
 alpha comes from the whole collection's counts).
 
-Imports nothing of JAX and nothing of bdd_tpu (checked at the end): the port
-carries its own host library, ILP model, frontends and generators.
+Imports nothing of JAX, flax, optax, msgpack or bdd_tpu (checked at the
+end): the port carries its own host library, ILP model, frontends,
+generators and checkpoint reader.
 Prints the card line, one JSON line of per-kernel results (a row per kernel,
 body and path: gm50k, knapsack, knapsack48 (huge), python grid12, batch64,
 batch256, the server's batch, the L-BFGS layouts, tighten mis200, hybrid
-deep, hybrid gm50k), and as the last line {"ok": true, "device": {...}}.
+deep, hybrid gm50k, gm120 learned (the rollout), gm120 train), and as the
+last line {"ok": true, "device": {...}}.
 """
 import dataclasses
 import json
@@ -171,11 +196,12 @@ def plain_calls() -> dict:
     return {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
 
 
-def gm50k_lp() -> str:
+def gm50k_lp(seed: int = 0) -> str:
+    """The gm50k instance (gm120 of ``benchmarks/train_doge_scale.py``) of a seed."""
     from bdd_tpu_torch.frontends.graph_matching import construct_graph_matching_ilp
     from bdd_tpu_torch.utils.problems import graph_matching
 
-    inst = graph_matching(120, 120, seed=0, candidates=6, nr_quadratic=2000)
+    inst = graph_matching(120, 120, seed=seed, candidates=6, nr_quadratic=2000)
     return construct_graph_matching_ilp(inst)[0].write_lp()
 
 
@@ -240,17 +266,19 @@ def bdd_shapes(buckets):
     return [(g.P, g.H, int(g.layer_valid.any(0).sum())) for g in buckets]
 
 
-def launch_bytes(shapes, itemsize: int, forward: bool) -> int:
+def launch_bytes(shapes, itemsize: int, forward: bool, omega_array: bool = False) -> int:
     """Bytes one launch must move: every input read once, every output
     written once. Per (hop, column) of ``shapes`` (:func:`bdd_shapes`): the
-    geometry record, lo hi din_lo din_hi alpha and P frontier values in,
-    3 + P values out. The forward kernel never reads cft of hop 0."""
+    geometry record, lo hi din_lo din_hi alpha (and omega, when it is an
+    array: the learned path) and P frontier values in, 3 + P values out. The
+    forward kernel never reads cft of hop 0."""
     from bdd_tpu_torch.solver.layout import record_bytes
 
     total = 0
+    values_in = 6 if omega_array else 5
     for P, H, B in shapes:
         frontier_rows = H - 1 if forward else H
-        total += H * B * (record_bytes(P) + 5 * itemsize + (3 + P) * itemsize)
+        total += H * B * (record_bytes(P) + values_in * itemsize + (3 + P) * itemsize)
         total += frontier_rows * P * B * itemsize
     return total
 
@@ -1784,6 +1812,306 @@ def phase_hybrid(card, errs, times, flush, gm_python, gm_nh, gm_f32, gm_bound):
     return paths
 
 
+LEARNED_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks",
+                            "doge_gm120.ckpt")
+LEARNED_SEED = 100  # the held-out instance of benchmarks/train_doge_scale.py
+LEARNED_TRAIN_ROUNDS = 2  # depth cut of the checkpoint's 20: one pre-round, one with gradients
+LEARNED_MMA_ITERS = 400  # the rollout's 20 rounds x 20 iterations
+LEARNED_TWIN_ROUNDS = 2
+LEARNED_PROFILE_ROUNDS = 2
+GRAD_REL = 1e-6
+
+
+def learned_vs_twin(label, geom, state, alpha, omega, card, errs, times, flush):
+    """Phase 14 (a) on one layout: the GNN's per-layer alpha and omega through
+    one fused forward and one fused backward launch against the twins bucket
+    by bucket (bit-equal), each timed warm and cold beside its byte bound
+    (alpha and omega count as arrays), then the run-only entry on the
+    updated costs (``run_vs_plain``)."""
+    import torch
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver import uniform as uf
+
+    dt = str(geom.dtype).replace("torch.", "")
+    itemsize = torch.empty((), dtype=geom.dtype).element_size()
+    check_index_on_card(label, geom)
+    lo, hi, mm, cft = state.flat
+    dl, dh = uf.exchange_delta_flat(geom, mm)
+    args_f = (geom, lo, hi, cft, omega, dl, dh)
+    ref_f = uf.sweep_per_bucket(uf.bucket_forward_iteration, *args_f, alpha)
+    dl2, dh2 = uf.exchange_delta_flat(geom, ref_f[2])
+    args_b = (geom, ref_f[0], ref_f[1], ref_f[3], omega, dl2, dh2)
+    ref_b = uf.sweep_per_bucket(uf.bucket_backward_iteration, *args_b, alpha)
+    entry = times.setdefault((label, dt), {})
+    plan = geom.plan
+    bodies = [body for body, blocks in (("", plan.nr_blocks), (WIDE, plan.wide_blocks),
+                                        (HUGE, plan.huge_blocks)) if blocks]
+    for name, wrapper, twin, args, ref, fwd in (
+            ("uniform_forward", sk.forward_iteration_cuda, uf.bucket_forward_iteration, args_f,
+             ref_f, True),
+            ("uniform_backward", sk.backward_iteration_cuda, uf.bucket_backward_iteration,
+             args_b, ref_b, False)):
+        before = dict(sk.LAUNCHES)
+        out = wrapper(*args, alpha)
+        torch.cuda.synchronize()
+        err = compare(out, ref, TOL[dt])
+        for body in bodies:
+            errs[name + body] = max(errs[name + body], err)
+        rose = {k: n - before[k] for k, n in sk.LAUNCHES.items() if n != before[k]}
+        if rose != {name + body: 1 for body in bodies}:
+            fail(f"{label}: one fused learned {name} call counted launches {rose}")
+        launch, _ = sk.prepare_fused_launch(name, *args, alpha=alpha)
+        nbytes = launch_bytes(bdd_shapes(geom.buckets), itemsize, fwd, omega_array=True)
+        e = entry[name] = {
+            "ms": cuda_ms(launch, 200), "cold_ms": cuda_ms(launch, 20, flush),
+            "plain_ms": cuda_ms(lambda: uf.sweep_per_bucket(twin, *args, alpha), 2),
+            "bytes": nbytes, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+        print(f"[learned] {label} {dt} {name} with the GNN's alpha and omega arrays over "
+              f"{len(geom.buckets)} bucket(s) {[(g.P, g.H, g.B) for g in geom.buckets][:6]}: "
+              f"equal to the twins (max |diff| {err}, same ±inf pattern); warm {e['ms']:.4f} ms "
+              f"({share(e['bound_ms'], e['ms'])}), cold {e['cold_ms']:.4f} ms "
+              f"({share(e['bound_ms'], e['cold_ms'])}), bound {e['bound_ms']:.4f} ms = "
+              f"{nbytes} B at 3.35 TB/s; twins {e['plain_ms']:.4f} ms {card}", flush=True)
+    run_vs_plain(label, geom, ref_b[0], ref_b[1], card, errs, entry, flush, "")
+
+
+def per_body(geom, n: int) -> dict:
+    """The half-sweep launch counts of n iterations on ``geom``: n of either
+    kernel for each body the layout has."""
+    plan = geom.plan
+    return launch_counts(narrow=n * int(plan.nr_blocks > 0), wide=n * int(plan.wide_blocks > 0),
+                         huge=n * int(plan.huge_blocks > 0))
+
+
+def rollout_syncs(trainer, inst):
+    """A fused rollout of the checkpoint's rounds with torch's sync debug
+    mode on: (bounds, wall seconds, host syncs with their call sites)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            lbs = trainer.run_learned_rounds(inst)
+            wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    return lbs, wall, syncs
+
+
+def profile_rollout(label, trainer, inst, card):
+    """torch.profiler over a short rollout: per round the host time of each
+    span of ``learn.train.SPANS`` and the device time of the kernels under
+    it, the device busy share, launches per round, and host syncs between
+    the first and last kernel launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from bdd_tpu_torch.learn.train import SPANS
+
+    n = LEARNED_PROFILE_ROUNDS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_learned_rounds(inst, n)
+        wall = time.perf_counter() - t0
+    events = list(prof.events())
+    launches = [e.time_range.start for e in events if e.name == "cudaLaunchKernel"]
+    if not launches:
+        fail(f"{label}: the profiler saw no kernel launch in a rollout")
+    first, last = min(launches), max(launches)
+    syncs = sum(1 for e in events if e.name in SYNC_EVENTS and first <= e.time_range.start <= last)
+    # a span shows twice: its host range and its device range
+    spans = {k: [0.0, 0.0] for k in SPANS}
+    device_us = 0.0
+    for a in prof.key_averages():
+        dev = getattr(a, "device_time_total", None) or getattr(a, "cuda_time_total", 0.0)
+        if a.key in SPANS:
+            spans[a.key][0] = max(spans[a.key][0], a.cpu_time_total / 1e3 / n)
+            spans[a.key][1] = max(spans[a.key][1], dev / 1e3 / n)
+            continue
+        device_us += getattr(a, "self_device_time_total", None) or getattr(
+            a, "self_cuda_time_total", 0.0)
+    split = ", ".join(f"{k.split('.')[1]} {h:.2f} ms host / {d:.2f} ms device"
+                      for k, (h, d) in spans.items())
+    print(f"[learned] {label} profiled rollout of {n} rounds: wall {1e3 * wall / n:.2f} ms a "
+          f"round (under the profiler); by span: {split}; device busy {device_us / 1e3 / n:.2f} "
+          f"ms a round (busy share {device_us / 1e6 / wall:.3f}); {len(launches) / n:.0f} kernel "
+          f"launches a round; host syncs between the first and last launch {syncs} {card}",
+          flush=True)
+    if syncs:
+        fail(f"{label}: {syncs} host syncs inside a fused rollout")
+    return spans
+
+
+def phase_learned(card, errs, times, flush, gm_python):
+    """Phase 14: the learned solver (DOGE) from the JAX package's trained
+    ``doge_gm120.ckpt`` on gm120 seed 100 (float32, the Python pipeline the
+    trainer builds with): (a) the kernels with the GNN's alpha and omega
+    against the twins; (b) the checkpoint's 20 x 20 rollout with one host
+    sync, its time by span, plain MMA on the same layout for as many
+    iterations, and the first rounds through the twins, bit-equal; (c) two
+    training steps on gm120 seed 0 (phase 10's Python build), depth cut to
+    2 rounds, whose gradients equal plain autograd through the twins."""
+    import torch
+    from bdd_tpu_torch.bdd.preprocessor import BddPreprocessor
+    from bdd_tpu_torch.ilp import parse_lp_string
+    from bdd_tpu_torch.learn import checkpoint
+    from bdd_tpu_torch.learn import train as tr
+    from bdd_tpu_torch.solver import layout
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver import uniform as uf
+    from bdd_tpu_torch.solver.uniform_wrapper import UniformSolver
+
+    paths = []
+    # ---- gm120 seed 100 through the trainer's pipeline, the checkpoint
+    t0 = time.perf_counter()
+    ilp = parse_lp_string(gm50k_lp(LEARNED_SEED))
+    ilp.normalize()
+    pre = BddPreprocessor(ilp)
+    host = layout.flatten_uniform(pre.collection, pre.total_nr_variables(),
+                                  pre.nr_primal_variables, dtype=torch.float32,
+                                  device=layout.resolve_device("cuda"))
+    inst = tr.Instance(host, pre.objective_vector(), pre=pre)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer = tr.DogeTrainer()
+    trainer.load(LEARNED_CKPT, inst)
+    cfg = trainer.cfg
+    print(f"[learned] gm120 seed {LEARNED_SEED}: {host.nr_bdds} BDDs, {host.nr_vars} variables, "
+          f"buckets {[(g.P, g.H, g.B) for g in host.geom.buckets]}, built in {build_s:.2f} s; "
+          f"{LEARNED_CKPT} ({len(checkpoint.load(LEARNED_CKPT)[1])} tensors, config {cfg}) "
+          f"loaded through the port's reader in {time.perf_counter() - t0:.2f} s {card}",
+          flush=True)
+    geom = host.geom
+    # ---- (a) the kernels with the GNN's weights, against the twins
+    with torch.no_grad():
+        alpha, omega, update, _ = trainer._predict(
+            inst, inst.state0, trainer._zero_lstm(inst), trainer._zero_history(inst))
+        state = trainer._apply_free_update(geom, inst.state0, update)
+    learned_vs_twin("gm120 learned", geom, state, alpha, omega, card, errs, times, flush)
+    # ---- (b) the checkpoint's rollout: one host sync, bounds, time by span
+    trainer.run_learned_rounds(inst, 1)  # warm
+    sk.reset_launch_counts()
+    before = plain_calls()
+    lbs, wall, syncs = rollout_syncs(trainer, inst)
+    counted = dict(sk.LAUNCHES)
+    n_rounds, iters = cfg.nr_rounds, cfg.iters_per_round
+    if len(syncs) != 1:
+        fail(f"gm120 rollout: {len(syncs)} host syncs, expected 1: {syncs[:20]}")
+    if plain_calls() != before or not all(map(math.isfinite, lbs)):
+        fail(f"gm120 rollout: bounds {lbs}, plain versions {before} -> {plain_calls()}")
+    want = n_rounds * iters
+    if sweeps_of(counted) != per_body(geom, want):
+        fail(f"gm120 rollout: launches {counted}, expected one of each half-sweep per body and "
+             f"learned iteration ({want})")
+    print(f"[learned] gm120 seed {LEARNED_SEED} rollout, {n_rounds} rounds x {iters} iterations "
+          f"(fused): bounds {lbs}; best {max(lbs)!r}; {1e3 * wall / n_rounds:.2f} ms a round, "
+          f"{wall:.2f} s wall; host syncs {len(syncs)} ({syncs}); launches {counted} {card}",
+          flush=True)
+    profile_rollout("gm120 learned", trainer, inst, card)
+    paths.append({"at": "gm120 learned", "dt": "float32", "suffix": "", "launches": counted,
+                  "iterations": want})
+    # plain MMA on the same layout for as many iterations (printed, not gated)
+    sol = UniformSolver(host, pre.objective_vector())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol.iteration_block(LEARNED_MMA_ITERS)
+    mma_lb = sol.lower_bound_with_deferred()
+    mma_s = time.perf_counter() - t0
+    print(f"[learned] gm120 seed {LEARNED_SEED}: plain MMA on the same layout, "
+          f"{LEARNED_MMA_ITERS} iterations: lb {mma_lb!r} in {mma_s:.3f} s "
+          f"({1e3 * mma_s / LEARNED_MMA_ITERS:.4f} ms an iteration); the learned rollout's last "
+          f"bound {lbs[-1]!r}, best {max(lbs)!r} ({1e3 * wall / want:.4f} ms a learned "
+          f"iteration with its share of features and GNN) {card}", flush=True)
+    # the first rounds through the twins: the same bounds to the last bit
+    trainer.sweeps = uf.TWIN_SWEEPS
+    t0 = time.perf_counter()
+    twin = trainer.run_learned_rounds(inst, LEARNED_TWIN_ROUNDS)
+    twin_s = time.perf_counter() - t0
+    trainer.sweeps = None
+    if twin != lbs[:LEARNED_TWIN_ROUNDS]:
+        fail(f"gm120 rollout: the twins' first rounds {twin} vs the kernels' "
+             f"{lbs[:LEARNED_TWIN_ROUNDS]}")
+    print(f"[learned] the first {LEARNED_TWIN_ROUNDS} rounds through the twins on the card equal "
+          f"the kernels' bit for bit ({twin}); {twin_s:.2f} s {card}", flush=True)
+    # ---- (c) training on gm120 seed 0: gradients, then two steps
+    t_host, t_objective, t_pre = gm_python
+    t0 = time.perf_counter()
+    tinst = tr.Instance(t_host, t_objective, pre=t_pre)
+    trainer = tr.DogeTrainer()
+    trainer.load(LEARNED_CKPT, tinst)
+    trainer.cfg = dataclasses.replace(trainer.cfg, nr_rounds=LEARNED_TRAIN_ROUNDS)
+    cfg = trainer.cfg
+    print(f"[learned] gm120 seed 0 (phase 10's Python build, buckets "
+          f"{[(g.P, g.H, g.B) for g in t_host.geom.buckets]}): instance and checkpoint in "
+          f"{time.perf_counter() - t0:.2f} s; training depth cut to {cfg.nr_rounds} rounds of "
+          f"{cfg.iters_per_round} ({cfg.grad_rounds} with gradients) {card}", flush=True)
+    with torch.no_grad():
+        alpha, omega, update, _ = trainer._predict(
+            tinst, tinst.state0, trainer._zero_lstm(tinst), trainer._zero_history(tinst))
+        state = trainer._apply_free_update(t_host.geom, tinst.state0, update)
+    learned_vs_twin("gm120 train", t_host.geom, state, alpha, omega, card, errs, times, flush)
+    grads, losses = [], []
+    ways = {None: "kernels forward, twins recomputed backward",
+            uf.TWIN_SWEEPS: "twins both ways, plain autograd"}
+    for sweeps in ways:
+        trainer.sweeps = sweeps
+        trainer.opt.zero_grad(set_to_none=True)
+        sk.reset_launch_counts()
+        twins_before = dict(uf.TWIN_SWEEP_CALLS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.loss_and_grads(tinst)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        grads.append({k: p.grad.clone() for k, p in trainer.model.named_parameters()})
+        losses.append(loss.item())
+        twin_calls = {k: uf.TWIN_SWEEP_CALLS[k] - twins_before[k] for k in twins_before}
+        print(f"[learned] gm120 seed 0 loss and gradients, {ways[sweeps]}: loss "
+              f"{losses[-1]!r} in {grad_s:.2f} s; launches {dict(sk.LAUNCHES)}; twin half-sweeps "
+              f"{twin_calls} {card}", flush=True)
+        if sweeps is None:
+            learned = cfg.nr_rounds * cfg.iters_per_round
+            if sweeps_of(sk.LAUNCHES) != per_body(t_host.geom, learned):
+                fail(f"gm120 training: launches {dict(sk.LAUNCHES)}, expected {learned} of each "
+                     f"half-sweep (one per learned iteration)")
+    trainer.sweeps = None
+    scale = max(float(g.abs().max()) for g in grads[1].values())
+    diff = max(float((grads[0][k] - grads[1][k]).abs().max()) for k in grads[1])
+    if losses[0] != losses[1] or not 0 < scale < math.inf or not diff <= GRAD_REL * scale:
+        fail(f"gm120 training: losses {losses}, gradients max |diff| {diff} against their "
+             f"largest entry {scale} (limit rel {GRAD_REL})")
+    print(f"[learned] gm120 seed 0: LearnedIteration / BackwardRun gradients equal plain "
+          f"autograd through the twins: max |diff| {diff:.3e} over {len(grads[1])} parameter "
+          f"tensors, {diff / scale:.3e} of the largest entry {scale:.3e} (limit {GRAD_REL}); "
+          f"losses bit-equal ({losses[0]!r}) {card}", flush=True)
+    start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    sk.reset_launch_counts()
+    steps = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps.append((trainer.train_step(tinst)["loss"], time.perf_counter() - t0))
+    counted = dict(sk.LAUNCHES)
+    moved = max(float((v - start[k]).abs().max()) for k, v in trainer.model.state_dict().items())
+    learned = 2 * cfg.nr_rounds * cfg.iters_per_round
+    if (not all(math.isfinite(l) for l, _ in steps) or not moved > 0
+            or sweeps_of(counted) != per_body(t_host.geom, learned)):
+        fail(f"gm120 training: steps {steps}, parameters moved {moved}, launches {counted}")
+    print(f"[learned] gm120 seed 0: two training steps: losses {[l for l, _ in steps]}, "
+          f"{[round(s, 2) for _, s in steps]} s; parameters moved up to {moved:.3e}; launches "
+          f"{counted} ({learned} learned iterations) {card}", flush=True)
+    paths.append({"at": "gm120 train", "dt": "float32", "suffix": "", "launches": counted,
+                  "iterations": learned})
+    return paths
+
+
 def main() -> None:
     # the native C++ baseline's OpenMP pool reads these when first loaded
     for k, v in (("OMP_NUM_THREADS", str(os.cpu_count() or 4)), ("OMP_WAIT_POLICY", "active")):
@@ -1941,6 +2269,7 @@ def main() -> None:
     timed("smooth", phase_smooth, card, gm_python)
     paths += timed("hybrid", phase_hybrid, card, errs, times, flush, gm_python, nh, gm_f32,
                    f32a["lower_bound"])
+    paths += timed("learned", phase_learned, card, errs, times, flush, gm_python)
     del flush
     finish(paths, errs, times)
 
@@ -1952,8 +2281,8 @@ def finish(paths, errs, times) -> None:
 
     print(f"[kernel] every bucket and fused launch of the phases matches its plain "
           f"version, max |diff| {errs}", flush=True)
-    foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "bdd_tpu"))
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "bdd_tpu", "flax", "optax", "msgpack"))
     if foreign:
         fail(f"the port's main path imported JAX or the JAX package: {foreign[:5]}")
 

@@ -236,12 +236,17 @@ def synthetic_host(shapes, dtype, device, seed=0, packed=True):
     return host, random_costs(host.geom, rng, device)
 
 
-def twins_bucket_by_bucket(twin, geom, lo, hi, frontier, omega, dl, dh):
+def twins_bucket_by_bucket(twin, geom, lo, hi, frontier, omega, dl, dh, alpha=None):
+    """``omega``: a scalar or flat [E]; ``alpha``: flat [E] or the layout's."""
+    n = len(geom.buckets)
+    omegas = geom.per_bucket(omega) if isinstance(omega, torch.Tensor) else (omega,) * n
+    alphas = geom.per_bucket(alpha) if alpha is not None else (None,) * n
     outs = [
-        twin(g, a, b, f, omega, x, y)
-        for g, a, b, f, x, y in zip(
+        twin(g, a, b, f, om, x, y, al)
+        for g, a, b, f, om, x, y, al in zip(
             geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi),
-            geom.per_bucket_nodes(frontier), geom.per_bucket(dl), geom.per_bucket(dh))
+            geom.per_bucket_nodes(frontier), omegas, geom.per_bucket(dl), geom.per_bucket(dh),
+            alphas)
     ]
     return flat_outputs(geom, outs)
 
@@ -699,3 +704,121 @@ def test_hybrid_card_equals_cpu(cuda_device):
     assert threading.active_count() == before
     for a, b in zip(bounds["cpu"], bounds[str(cuda_device)]):
         assert abs(a - b) <= 1e-9 * abs(a)
+
+
+def learned_weights(geom, seed=0):
+    """Random per-layer (alpha normalized per variable, omega) on the layout's
+    device, made with numpy."""
+    from bdd_tpu_torch.solver import learned as ln
+
+    rng = np.random.RandomState(seed)
+    E = geom.plan.E
+    raw = torch.from_numpy(rng.rand(E) + 0.05).to(geom.device, geom.dtype)
+    omega = torch.from_numpy(rng.uniform(0.1, 0.95, E)).to(geom.device, geom.dtype)
+    return ln.normalize_alpha(geom, raw), omega
+
+
+@pytest.mark.parametrize("name", list(INSTANCES))
+def test_learned_weights_through_the_fused_wrappers_on_cpu_equal_the_twins(name):
+    host, st, dl, dh = setup(name, torch.float64, "cpu")
+    geom = host.geom
+    alpha, omega = learned_weights(geom)
+    lo, hi, _, cft = st.flat
+    dl, dh = layout.flatten(dl), layout.flatten(dh)
+    fwd = sk.forward_iteration_cuda(geom, lo, hi, cft, omega, dl, dh, alpha)
+    ref = twins_bucket_by_bucket(uf.bucket_forward_iteration, geom, lo, hi, cft, omega, dl, dh,
+                                 alpha)
+    assert_identical(fwd, ref)
+    # the weights reach the sweep: the isotropic ones give another result
+    iso = sk.forward_iteration_cuda(geom, lo, hi, cft, omega, dl, dh)
+    assert not torch.equal(torch.nan_to_num(iso[0]), torch.nan_to_num(fwd[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("name", list(INSTANCES))
+def test_learned_weights_through_the_fused_launch_equal_the_twins(cuda_device, name, precision):
+    """The learned path's launches: per-layer alpha and omega arrays through
+    one fused forward and one fused backward launch, and the run entry on the
+    updated costs, bit for bit against the twins."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    host, st, dl, dh = setup(name, dtype, cuda_device)
+    geom = host.geom
+    alpha, omega = learned_weights(geom, seed=1)
+    lo, hi, _, cft = st.flat
+    dl, dh = layout.flatten(dl), layout.flatten(dh)
+    sk.reset_launch_counts()
+    fwd = sk.forward_iteration_cuda(geom, lo, hi, cft, omega, dl, dh, alpha)
+    bwd = sk.backward_iteration_cuda(geom, fwd[0], fwd[1], fwd[3], omega, dl, dh, alpha)
+    run = sk.backward_run_cuda(geom, bwd[0], bwd[1])
+    torch.cuda.synchronize()
+    assert_same_bits(fwd, twins_bucket_by_bucket(uf.bucket_forward_iteration, geom, lo, hi,
+                                                 cft, omega, dl, dh, alpha))
+    assert_same_bits(bwd, twins_bucket_by_bucket(uf.bucket_backward_iteration, geom, fwd[0],
+                                                 fwd[1], fwd[3], omega, dl, dh, alpha))
+    assert_same_bits([run], [geom.flatten_nodes([
+        uf.bucket_backward_run(g, a, b)
+        for g, a, b in zip(geom.buckets, geom.per_bucket(bwd[0]), geom.per_bucket(bwd[1]))])])
+    wide = int(geom.plan.wide_blocks > 0)
+    assert sk.LAUNCHES == launches(narrow=int(geom.plan.nr_blocks > 0), wide=wide, run=1,
+                                   run_wide=wide)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(INSTANCES))
+def test_learned_gradients_on_the_card_equal_plain_autograd(cuda_device, name):
+    """The dual loss's gradient with respect to alpha, omega and the costs:
+    LearnedIteration / BackwardRun (kernels forward, twins recomputed
+    backward) against plain autograd through the twins, on the card in
+    float64; one launch of each half-sweep per learned iteration."""
+    from bdd_tpu_torch.solver import learned as ln
+
+    host, st, _, _ = setup(name, torch.float64, cuda_device)
+    geom = host.geom
+    alpha, omega = learned_weights(geom, seed=2)
+    n = 3
+    grads = []
+    for sweeps in (None, uf.TWIN_SWEEPS):
+        sk.reset_launch_counts()
+        lo, hi = (t.clone().requires_grad_() for t in st.flat[:2])
+        a, o = alpha.clone().requires_grad_(), omega.clone().requires_grad_()
+        state = layout.state_from_flat(geom, lo, hi, st.flat[2], ln.backward_run(
+            geom, lo, hi, sweeps))
+        loss = ln.dual_loss(geom, state, a, o, n, sweeps)
+        if sweeps is None:
+            forward_launches = {k: v for k, v in sk.LAUNCHES.items() if not k.startswith(sk.RUN)}
+        grads.append(torch.autograd.grad(loss, (a, o, lo, hi)))
+    torch.cuda.synchronize()
+    wide = int(geom.plan.wide_blocks > 0)
+    want = {k: v for k, v in launches(narrow=n * int(geom.plan.nr_blocks > 0),
+                                      wide=n * wide).items() if not k.startswith(sk.RUN)}
+    assert forward_launches == want
+    for x, y in zip(*grads):
+        assert torch.isfinite(x).all()
+        torch.testing.assert_close(x, y, rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.cuda
+def test_doge_training_step_on_the_card(cuda_device):
+    """Two training steps of the learned solver on the card (features, GNN,
+    learned iterations on the kernels, twin recomputation backward): finite
+    losses, parameters that move, one launch of each half-sweep per learned
+    iteration, and a fused rollout equal to a streamed one."""
+    from bdd_tpu_torch.learn.train import DogeTrainer, Instance, TrainConfig
+    from bdd_tpu_torch.utils.problems import independent_set
+
+    inst = Instance.from_ilp(independent_set(14, 0.3, seed=1), device=cuda_device)
+    cfg = TrainConfig(dim=16, nr_rounds=2, iters_per_round=4, free_update=True,
+                      history_features=True, layer_norm=True, smooth_temps=(0.1, 10.0))
+    t = DogeTrainer(cfg)
+    t.init(inst)
+    before = {k: v.clone() for k, v in t.model.state_dict().items()}
+    sk.reset_launch_counts()
+    losses = [t.train_step(inst)["loss"] for _ in range(2)]
+    assert all(np.isfinite(losses))
+    learned = 2 * cfg.nr_rounds * cfg.iters_per_round
+    counted = {k: v for k, v in sk.LAUNCHES.items() if not k.startswith(sk.RUN)}
+    assert counted == {k: v for k, v in launches(narrow=learned).items()
+                       if not k.startswith(sk.RUN)}
+    assert any(not torch.equal(v, t.model.state_dict()[k]) for k, v in before.items())
+    assert t.run_learned_rounds(inst, 3) == t.run_learned_rounds(inst, 3, fused=False)

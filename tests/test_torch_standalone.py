@@ -45,7 +45,7 @@ COPIED = [
     "ilp/lp_parser.py", "ilp/mps_parser.py", "ilp/opb_parser.py", "frontends/__init__.py",
     "frontends/graph_matching.py", "frontends/mrf_uai.py",
     "frontends/multi_graph_matching.py", "solver/flatten.py", "solver/ref_solver.py",
-    "solver/sequential.py", "solver/rounding.py", "utils/batching.py",
+    "solver/sequential.py", "solver/rounding.py", "utils/batching.py", "learn/configs.py",
 ]
 
 
@@ -139,7 +139,8 @@ def test_importing_the_whole_port_pulls_in_no_jax():
         "import bdd_tpu_torch\n"
         "for m in pkgutil.walk_packages(bdd_tpu_torch.__path__, 'bdd_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'bdd_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'bdd_tpu', 'flax', 'optax', 'msgpack'))\n"
         "assert not bad, bad\n"
         "print(sorted(m for m in sys.modules if m.startswith('bdd_tpu_torch')))\n"
     )
@@ -147,7 +148,9 @@ def test_importing_the_whole_port_pulls_in_no_jax():
                          timeout=300, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-2000:]
     for mod in ("serve", "api", "bdd.preprocessor", "solver.extras", "utils.batching",
-                "solver.tighten", "solver.smooth", "solver.smooth_mma", "solver.hybrid"):
+                "solver.tighten", "solver.smooth", "solver.smooth_mma", "solver.hybrid",
+                "solver.learned", "learn.features", "learn.model", "learn.checkpoint",
+                "learn.train", "learn.configs", "learn.data"):
         assert f"'bdd_tpu_torch.{mod}'" in out.stdout
 
 GENERATORS = {
