@@ -25,8 +25,12 @@ Relaxation solver names:
         ascent with temperature annealing (keys "smoothing", "smoothing decay
         factor", "min smoothing"; a bare "smoothing" key selects it)
     "sequential mma", "parallel mma" / "ref mma" -> numpy backends on the host
-Every other name of ``bdd_tpu.api`` raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it. The key ``"tighten"`` (true, or {"cliques",
+    "sharded mma" / "lbfgs sharded mma" / "subgradient sharded mma" -> the
+        BDDs partitioned over the ranks of a torch.distributed process group,
+        one shard a rank (key "partition": "auto", "block" or "mincut"); one
+        shard on the device without a group
+"dense mma" raises ``NotImplementedError`` naming the ROADMAP.md item that
+ports it. The key ``"tighten"`` (true, or {"cliques",
 "odd cycles", "eps", "node limit"}) adds the cut-tightening phase after the
 dual solve.
 """
@@ -83,15 +87,14 @@ SMOOTH_SOLVERS = ("smooth mma", "mma smooth", "parallel mma smooth")
 HOST_SOLVERS = ("sequential mma", "parallel mma", "ref mma")
 # deep BDDs on the native solver's worker thread, the rest on the card
 HYBRID_SOLVERS = ("hybrid mma", "multi parallel mma", "hybrid parallel mma")
+# the BDDs partitioned over the ranks of a process group (bdd_tpu/api.py:318-347)
+SHARDED_SOLVERS = ("sharded mma", "lbfgs sharded mma", "subgradient sharded mma")
 _ORDERS = ("input", "bfs", "cuthill", "minimum degree", "mindegree")
 _EXPORT_KEYS = ("export lp", "export bdd lp", "export bdd graph", "print statistics",
                 "export difficult core")
 
 # relaxation solver of bdd_tpu.api -> ROADMAP.md item that ports it
 _SOLVERS_NOT_PORTED = {
-    "sharded mma": "Queue 1 item 13 (multiple devices)",
-    "lbfgs sharded mma": "Queue 1 item 13 (multiple devices)",
-    "subgradient sharded mma": "Queue 1 item 13 (multiple devices)",
     "dense mma": "Queue 1 item 15 (the dense backend)",
 }
 
@@ -181,8 +184,13 @@ class BddSolver:
         if name in _SOLVERS_NOT_PORTED:
             raise _not_ported(f"relaxation solver {name!r}", _SOLVERS_NOT_PORTED[name])
         if name not in (UNIFORM_SOLVERS + OUTER_SOLVERS + SMOOTH_SOLVERS + HOST_SOLVERS
-                        + HYBRID_SOLVERS):
+                        + HYBRID_SOLVERS + SHARDED_SOLVERS):
             raise ValueError(f"unknown relaxation solver {name!r}")
+        if name in SHARDED_SOLVERS:
+            from bdd_tpu_torch.solver.uniform_sharded import PARTITIONS
+
+            if cfg.get("partition", "auto") not in PARTITIONS:
+                raise ValueError(f"unknown partition {cfg['partition']!r}: one of {PARTITIONS}")
         if cfg["variable order"] not in _ORDERS:
             raise ValueError(f"unknown variable order {cfg['variable order']!r}")
         if cfg["precision"] not in ("float", "double"):
@@ -396,6 +404,30 @@ class BddSolver:
                 hop_threshold=self.config.get("hybrid hop threshold"),
                 device=self.device,
             )
+        elif name in SHARDED_SOLVERS:
+            # one shard of the BDDs on every rank of the process group (one
+            # shard alone without a group), the deltas summed across them
+            # every half-sweep; every rank runs this same pipeline
+            from bdd_tpu_torch.solver.uniform_sharded import ShardedUniformSolver
+
+            base = ShardedUniformSolver(
+                self.pre.collection,
+                self.pre.total_nr_variables(),
+                obj,
+                nr_primal_vars=self.pre.nr_primal_variables,
+                dtype=self.dtype,
+                partition=self.config.get("partition", "auto"),
+                device=self.device,
+            )
+            if name.startswith("lbfgs"):
+                from bdd_tpu_torch.solver.lbfgs import LbfgsSolver
+
+                base = LbfgsSolver(base, **_lbfgs_kwargs(self.config))
+            elif name.startswith("subgradient"):
+                from bdd_tpu_torch.solver.subgradient import SubgradientSolver
+
+                base = SubgradientSolver(base)
+            self.solver = base
         else:  # _check_config admits no other name
             raise ValueError(f"unknown relaxation solver {name!r}")
         return self
@@ -868,21 +900,34 @@ class BddSolver:
 
 def main(argv=None) -> int:
     """CLI: ``python -m bdd_tpu_torch.api <config.json | problem.lp> [--device
-    cuda]``. A config with an ``"inputs"`` list is solved as one batch."""
+    cuda]``. A config with an ``"inputs"`` list is solved as one batch. A
+    sharded solver under a launcher that sets WORLD_SIZE > 1 (``torchrun
+    --nproc_per_node=D -m bdd_tpu_torch.api cfg.json``) joins the launcher's
+    process group first; every rank solves, rank 0 prints."""
+    import os
+
+    from bdd_tpu_torch.utils import multihost
+
     ap = argparse.ArgumentParser(prog="python -m bdd_tpu_torch.api")
     ap.add_argument("input", help="config .json or problem .lp")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.input.endswith(".json"):
         with open(args.input) as fh:
-            solver = BddSolver(json.load(fh), device=args.device)
+            config = json.load(fh)
     else:
-        solver = BddSolver({"input": args.input}, device=args.device)
+        config = {"input": args.input}
+    if (config.get("relaxation solver") in SHARDED_SOLVERS
+            and int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        multihost.initialize(platform=torch.device(args.device).type)
+    solver = BddSolver(config, device=args.device)
     if "inputs" in solver.config:  # batched serving mode
         result = solver.solve_batch(paths=solver.config["inputs"])
     else:
         result = solver.solve()
-    bdd_log(json.dumps(result, indent=2, default=str))
+    if multihost.process_index() == 0:
+        bdd_log(json.dumps(result, indent=2, default=str))
+    multihost.shutdown()
     return 0
 
 

@@ -1506,7 +1506,11 @@ struct CpuSolver {
         delta_hi.assign(nr_vars, 0.0);
     }
 
-    // delta[v] = sum_layers relu(-+def_mm) (ref_solver._compute_delta)
+    // delta[v] = sum_layers relu(-+def_mm) (ref_solver._compute_delta).
+    // Deterministic for a given team size: a static schedule gives each
+    // thread the same layers on every call, and the rows of the team are
+    // added in thread order. A team of another size sums in another order
+    // (the last bit may differ between OMP_NUM_THREADS settings).
     void compute_delta() {
         // A parallel region started here has at most omp_get_max_threads()
         // threads of THIS thread (an OpenMP per-thread setting), so the
@@ -1678,12 +1682,12 @@ struct CpuSolver {
         half_iteration(omega, -1);
     }
 
+    // The bound's sum runs serially in BDD order: an OpenMP reduction
+    // combines its threads' partial sums in the order they arrive, so its
+    // last bit changed from call to call (native/bdd_host.cpp still does so).
     double lower_bound() {
         if (!cft_valid) backward_run();
         double lb = 0.0;
-#ifdef _OPENMP
-#pragma omp parallel for reduction(+ : lb)
-#endif
         for (int64_t b = 0; b < nr_bdds; ++b) lb += cft[node_off[b]];
         return lb;
     }
@@ -1712,9 +1716,11 @@ struct CpuSolver {
             slo[l] += a * delta_lo[v];
             shi[l] += a * delta_hi[v];
         }
-        double lb = 0.0;
+        // each BDD's root cost into its own entry under any schedule, then
+        // one serial sum in BDD order: the same bits on every call
+        std::vector<double> root(nr_bdds);
 #ifdef _OPENMP
-#pragma omp parallel for schedule(dynamic, 16) reduction(+ : lb)
+#pragma omp parallel for schedule(dynamic, 16)
 #endif
         for (int64_t b = 0; b < nr_bdds; ++b) {
             const int64_t* lvl = &level_off[lvl_idx[b]];
@@ -1726,8 +1732,10 @@ struct CpuSolver {
                     scft[i] = std::min(term_cft(lo_arc[i], scft.data()) + cl,
                                        term_cft(hi_arc[i], scft.data()) + ch);
             }
-            lb += scft[node_off[b]];
+            root[b] = scft[node_off[b]];
         }
+        double lb = 0.0;
+        for (int64_t b = 0; b < nr_bdds; ++b) lb += root[b];
         return lb;
     }
 

@@ -652,10 +652,39 @@ def _pack_eval(deps: np.ndarray, cap: int, P: int):
     return H * B + PACK_LAMBDA * H, col, row0, H, B
 
 
-def _pack_buckets(buckets: Sequence[dict], nr_vars: int) -> List[dict]:
+def choose_pack_caps(depths_by_class: Dict[int, np.ndarray]) -> Dict[Tuple[int, int], int]:
+    """The packed-column height per (width class P, depth tier) under the
+    cost model of :func:`_pack_buckets`, from a pooled multiset of segment
+    depths per class (uniform.py:908-937). The sharded solve pools the depths
+    of all its shards and packs every shard with the result, so that the
+    shards' buckets take the same heights."""
+    caps: Dict[Tuple[int, int], int] = {}
+    for P, deps_all in depths_by_class.items():
+        deps_all = np.asarray(deps_all, dtype=np.int64)
+        for ti, sel in enumerate((deps_all <= PACK_H_CAP, deps_all > PACK_H_CAP)):
+            deps = deps_all[sel]
+            if deps.size == 0:
+                continue
+            max_d = int(deps.max())
+            if max_d > PACK_H_CAP:
+                caps[(int(P), ti)] = max_d
+                continue
+            best = None
+            for cap in _pack_candidates(max_d):
+                cost = _pack_eval(deps, cap, int(P))[0]
+                if best is None or cost < best[0]:
+                    best = (cost, cap)
+            caps[(int(P), ti)] = best[1]
+    return caps
+
+
+def _pack_buckets(buckets: Sequence[dict], nr_vars: int,
+                  caps: Optional[Dict[Tuple[int, int], int]] = None) -> List[dict]:
     """Vertical column packing (uniform.py:939-1075): per width class P and
     depth tier (<= / > PACK_H_CAP), stack the BDDs of all buckets into the
-    columns of one bucket, with ``root_mask`` marking segment starts."""
+    columns of one bucket, with ``root_mask`` marking segment starts. The
+    column height per (P, tier) is ``caps``' (:func:`choose_pack_caps`), by
+    default chosen from these buckets' own depths."""
     assert all(b["root_mask"] is None for b in buckets), "already packed"
     classes: Dict[int, List[Tuple[int, int, int, int]]] = {}
     for k, bk in enumerate(buckets):
@@ -664,6 +693,8 @@ def _pack_buckets(buckets: Sequence[dict], nr_vars: int) -> List[dict]:
             classes.setdefault(bk["node_valid"].shape[1], []).append(
                 (int(deps[c]), k, int(c), int(bk["bdd_of_col"][c]))
             )
+    if caps is None:
+        caps = choose_pack_caps({P: [s[0] for s in segs] for P, segs in classes.items()})
     out: List[dict] = []
     for P in sorted(classes):
         segs = classes[P]
@@ -671,16 +702,12 @@ def _pack_buckets(buckets: Sequence[dict], nr_vars: int) -> List[dict]:
             [s for s in segs if s[0] <= PACK_H_CAP],
             [s for s in segs if s[0] > PACK_H_CAP],
         ]
-        for tier in tiers:
+        for ti, tier in enumerate(tiers):
             if not tier:
                 continue
             deps = np.array([s[0] for s in tier], dtype=np.int64)
-            best = None
-            for cap in _pack_candidates(int(deps.max())):
-                cand = _pack_eval(deps, cap, P)
-                if best is None or cand[0] < best[0]:
-                    best = cand
-            _, col, row0, H, B = best
+            max_d = int(deps.max())
+            _, col, row0, H, B = _pack_eval(deps, max(caps.get((P, ti), max_d), max_d), P)
             nb = dict(
                 node_valid=np.zeros((H, P, B), dtype=bool),
                 lo_kind=np.full((H, P, B), ARC_BOT, dtype=np.int32),
@@ -907,10 +934,24 @@ def flatten_uniform(collection, nr_vars: int, nr_primal_vars: Optional[int] = No
     and ``num_bdds_per_var`` (the hybrid solve's device share); a variable
     with no slot here gets an empty exchange segment. With it, ``pack``
     defaults to no packing, as in the JAX package."""
-    from bdd_tpu_torch.bdd.collection import BOT, TOP
-
     if nr_primal_vars is None:
         nr_primal_vars = nr_vars
+    buckets, counts = flatten_buckets(collection, nr_vars, lanes, counts_override, keep_bdds)
+    if pack is None:
+        pack = dtype == torch.float32 and counts_override is None
+    if pack and buckets:
+        buckets = _pack_buckets(buckets, nr_vars)
+    nr_bdds = len(keep_bdds) if keep_bdds is not None else collection.nr_bdds()
+    return _build_host(buckets, counts, nr_vars, nr_primal_vars, nr_bdds, dtype, device)
+
+
+def flatten_buckets(collection, nr_vars: int, lanes: int = 128, counts_override=None,
+                    keep_bdds: Optional[Sequence[int]] = None) -> Tuple[List[dict], np.ndarray]:
+    """The numpy half of :func:`flatten_uniform`: the unpacked bucket dicts
+    of the BDDs ``keep_bdds`` (default all) and the per-variable BDD counts
+    (``counts_override`` if given), nothing on a device."""
+    from bdd_tpu_torch.bdd.collection import BOT, TOP
+
     bdd_nrs = list(keep_bdds) if keep_bdds is not None else list(range(collection.nr_bdds()))
     info = []  # (bucket_key, bdd_nr, levels, vars, slots, depth)
     for b in bdd_nrs:
@@ -985,17 +1026,15 @@ def flatten_uniform(collection, nr_vars: int, nr_primal_vars: Optional[int] = No
         bk["alpha"] = np.zeros((H, B))
         bk["alpha"][m] = 1.0 / counts_safe[bk["layer_var"][m]]
         buckets.append(bk)
-    if pack is None:
-        pack = dtype == torch.float32 and counts_override is None
-    if pack and buckets:
-        buckets = _pack_buckets(buckets, nr_vars)
-    return _build_host(buckets, counts, nr_vars, nr_primal_vars, len(bdd_nrs), dtype, device)
+    return buckets, counts
 
 
-def pack_uniform_host(host: UniformHost) -> UniformHost:
-    """Column-pack an unpacked host (uniform.pack_uniform_host)."""
+def pack_uniform_host(host: UniformHost,
+                      caps: Optional[Dict[Tuple[int, int], int]] = None) -> UniformHost:
+    """Column-pack an unpacked host (uniform.pack_uniform_host); ``caps``: the
+    column heights of :func:`choose_pack_caps`."""
     return _build_host(
-        _pack_buckets(_host_buckets(host), host.nr_vars),
+        _pack_buckets(_host_buckets(host), host.nr_vars, caps),
         host.geom.num_bdds_per_var.cpu().numpy(),
         host.nr_vars,
         host.nr_primal_vars,

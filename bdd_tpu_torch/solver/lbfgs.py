@@ -22,6 +22,13 @@ The host waits for the device where the control flow branches on a value: once
 for the curvature s.y of an iteration, and once per step-search trial for its
 lower bound. Every gradient step takes its costs-to-terminal from the run-only
 entry of the backward kernel (``uniform.gradient_step``).
+
+On a ``ShardedUniformSolver`` (one rank's shard of the dual) the same loop
+runs on every rank through :class:`_Ops`: the net costs and the zero-sum
+projection sum their per-variable rows across the ranks, and every inner
+product is this shard's dot summed across them, so every scalar the host
+branches on (a curvature, a trial's bound) is one value that every rank
+holds and every rank takes the same branch (bdd_tpu/solver/lbfgs.py:53-110).
 """
 from __future__ import annotations
 
@@ -39,6 +46,36 @@ def solution_gradient(base: UniformSolver) -> torch.Tensor:
     """The supergradient of the dual at the solver's state: the per-BDD argmin
     solutions, flat [E] in the state's dtype (0 at invalid slots)."""
     return flatten(base.bdds_solution()).to(base.dtype)
+
+
+class _Ops:
+    """The dual algebra of the outer loops on their base solver: one
+    device's (``UniformSolver``), or one rank's shard of a sharded solve,
+    whose ``delta_reduce`` and ``sum_reduce`` sum across the ranks (the JAX
+    package's ``_Ops``, lbfgs.py:53-110; its dense branch waits for the
+    dense backend)."""
+
+    def __init__(self, base) -> None:
+        self.base = base
+        self.delta_reduce = getattr(base, "delta_reduce", None)
+        self.sum_reduce = getattr(base, "sum_reduce", None)
+
+    def grad(self) -> torch.Tensor:
+        return solution_gradient(self.base)
+
+    def net_costs(self) -> torch.Tensor:
+        return uf.net_solver_costs(self.base.geom, self.base.state, self.delta_reduce)
+
+    def make_dual_feasible(self, g: torch.Tensor) -> torch.Tensor:
+        return uf.make_dual_feasible(self.base.geom, g, self.sum_reduce)
+
+    def gradient_step(self, g: torch.Tensor, step) -> None:
+        self.base.state = uf.gradient_step(self.base.geom, self.base.state, g, step)
+
+    def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The inner product over the whole dual (0-dim, on the device)."""
+        d = torch.dot(a, b)
+        return d if self.sum_reduce is None else self.sum_reduce(d)
 
 
 class _HistEntry(NamedTuple):
@@ -67,6 +104,9 @@ class LbfgsSolver:
         step_size_increase_factor: float = 1.1,
     ) -> None:
         self.base = base
+        self.ops = _Ops(base)
+        if hasattr(base, "clock"):  # a sharded base: one clock for all its ranks
+            self.clock = base.clock
         self.f = base.f
         self.m = history_size
         self.step_size = init_step_size
@@ -104,11 +144,11 @@ class LbfgsSolver:
 
     # -------------------------------------------------------------- lbfgs core
     def _store_iterate(self, cur_grad: torch.Tensor) -> None:
-        cur_x = uf.net_solver_costs(self.base.geom, self.base.state)
+        cur_x = self.ops.net_costs()
         if self.prev_x is not None:
             s = cur_x - self.prev_x
             y = self.prev_grad - cur_grad
-            rho_inv = float(torch.dot(s, y))  # the curvature decides: one wait
+            rho_inv = float(self.ops.dot(s, y))  # the curvature decides: one wait
             if rho_inv > 1e-8:
                 self.history.append(_HistEntry(s, y, rho_inv))
                 if len(self.history) > self.m:
@@ -123,19 +163,20 @@ class LbfgsSolver:
         """Two-loop recursion; gradients negated implicitly by the y
         convention (maximization). The scalars are 0-dim tensors: nothing
         here waits for the device."""
+        dot = self.ops.dot
         d = cur_grad
         alphas = []
         for h in reversed(self.history):
-            a = torch.dot(h.s, d) / h.rho_inv
+            a = dot(h.s, d) / h.rho_inv
             alphas.append(a)
             d = d - a * h.y
         alphas.reverse()
         last = self.history[-1]
-        h0 = last.rho_inv / (1e-8 + torch.dot(last.y, last.y))
+        h0 = last.rho_inv / (1e-8 + dot(last.y, last.y))
         # r = H0 * q between the loops (Nocedal alg. 7.4)
         d = h0 * d
         for a, h in zip(alphas, self.history):
-            beta = (1.0 / h.rho_inv) * torch.dot(h.y, d)
+            beta = (1.0 / h.rho_inv) * dot(h.y, d)
             d = d + (a - beta) * h.s
         return d
 
@@ -153,7 +194,7 @@ class LbfgsSolver:
             nonlocal prev_step
             net = step - prev_step
             if net != 0.0:
-                base.state = uf.gradient_step(base.geom, base.state, direction, net)
+                self.ops.gradient_step(direction, net)
             prev_step = step
 
         num_updates = 0
@@ -194,10 +235,10 @@ class LbfgsSolver:
             return
         if not self.lb_history:
             self.lb_history.append(self.base.lower_bound())
-        cur_grad = solution_gradient(self.base)
+        cur_grad = self.ops.grad()
         self._store_iterate(cur_grad)
         if self._update_possible():
-            d = uf.make_dual_feasible(self.base.geom, self._compute_direction(cur_grad))
+            d = self.ops.make_dual_feasible(self._compute_direction(cur_grad))
             self._search_step_size_and_apply(d)
         self.base.iteration()
         self.lb_history.append(self.base.lower_bound())

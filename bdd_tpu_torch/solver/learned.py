@@ -40,9 +40,10 @@ def _records(*xs: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
-def _iteration_flat(geom: UniformGeom, lo, hi, mm, cft, alpha, omega, sweeps=None):
+def _iteration_flat(geom: UniformGeom, lo, hi, mm, cft, alpha, omega, sweeps=None,
+                    delta_reduce=None):
     state = uf.iteration(geom, state_from_flat(geom, lo, hi, mm, cft), omega, sweeps,
-                         alpha=alpha)
+                         delta_reduce=delta_reduce, alpha=alpha)
     return state.flat
 
 
@@ -50,20 +51,25 @@ class LearnedIteration(torch.autograd.Function):
     """One learned iteration on the flat state (lo, hi, def_mm [E], cft [N])
     with flat alpha and omega [E]: exchange, forward kernel, exchange,
     backward kernel. Backward recomputes the iteration from its saved inputs
-    through the twins and differentiates that."""
+    through the twins and differentiates that. ``delta_reduce``: the
+    exchange's hook (:func:`uniform.exchange_delta_flat`), run again in the
+    recomputation; a sharded solve passes a sum across its ranks whose own
+    backward sums the gradients across them."""
 
     @staticmethod
-    def forward(ctx, geom, lo, hi, mm, cft, alpha, omega):
+    def forward(ctx, geom, delta_reduce, lo, hi, mm, cft, alpha, omega):
         ctx.geom = geom
+        ctx.delta_reduce = delta_reduce
         ctx.save_for_backward(lo, hi, mm, cft, alpha, omega)
-        return _iteration_flat(geom, lo, hi, mm, cft, alpha, omega)
+        return _iteration_flat(geom, lo, hi, mm, cft, alpha, omega, delta_reduce=delta_reduce)
 
     @staticmethod
     def backward(ctx, *grads):
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            outs = _iteration_flat(ctx.geom, *inputs, sweeps=uf.TWIN_SWEEPS)
-        return (None, *torch.autograd.grad(outs, inputs, grads, allow_unused=True))
+            outs = _iteration_flat(ctx.geom, *inputs, sweeps=uf.TWIN_SWEEPS,
+                                   delta_reduce=ctx.delta_reduce)
+        return (None, None, *torch.autograd.grad(outs, inputs, grads, allow_unused=True))
 
 
 def _plain_run(geom: UniformGeom, lo, hi) -> torch.Tensor:
@@ -119,26 +125,27 @@ def normalize_alpha(geom: UniformGeom, raw: torch.Tensor) -> torch.Tensor:
 
 
 def learned_iteration(geom: UniformGeom, state: UniformState, alpha: torch.Tensor,
-                      omega: torch.Tensor, sweeps=None) -> UniformState:
+                      omega: torch.Tensor, sweeps=None, delta_reduce=None) -> UniformState:
     """One dual iteration with per-layer (alpha, omega) (learned.py:53-95).
     ``sweeps``: ``uniform.TWIN_SWEEPS`` to run the twins under plain autograd
-    in place of :class:`LearnedIteration`."""
+    in place of :class:`LearnedIteration`; ``delta_reduce``: the exchange's
+    hook (the sharded solve's sum across ranks)."""
     lo, hi, mm, cft = state.flat
     if sweeps is not None:
-        out = _iteration_flat(geom, lo, hi, mm, cft, alpha, omega, sweeps)
+        out = _iteration_flat(geom, lo, hi, mm, cft, alpha, omega, sweeps, delta_reduce)
     elif _records(lo, hi, mm, cft, alpha, omega):
-        out = LearnedIteration.apply(geom, lo, hi, mm, cft, alpha, omega)
+        out = LearnedIteration.apply(geom, delta_reduce, lo, hi, mm, cft, alpha, omega)
     else:
-        out = _iteration_flat(geom, lo, hi, mm, cft, alpha, omega)
+        out = _iteration_flat(geom, lo, hi, mm, cft, alpha, omega, delta_reduce=delta_reduce)
     return state_from_flat(geom, *out)
 
 
 def learned_iterations(geom: UniformGeom, state: UniformState, alpha, omega, n: int,
-                       sweeps=None) -> UniformState:
+                       sweeps=None, delta_reduce=None) -> UniformState:
     """n differentiable iterations (learned.py:98-115): autograd keeps one
     saved state per iteration."""
     for _ in range(n):
-        state = learned_iteration(geom, state, alpha, omega, sweeps)
+        state = learned_iteration(geom, state, alpha, omega, sweeps, delta_reduce)
     return state
 
 
@@ -151,7 +158,7 @@ def per_bdd_lower_bound(geom: UniformGeom, state: UniformState) -> torch.Tensor:
 
 def learned_iterations_with_stats(geom: UniformGeom, state: UniformState, alpha, omega,
                                   n: int, history_itr: int = 0, beta: float = 0.9,
-                                  sweeps=None):
+                                  sweeps=None, delta_reduce=None):
     """n iterations that also keep the exponential moving averages of the
     last ``history_itr`` iterations (learned.py:118-187): per layer the
     argmin solution (``sol_avg``), per BDD root the first and second
@@ -169,7 +176,7 @@ def learned_iterations_with_stats(geom: UniformGeom, state: UniformState, alpha,
         return new if count == 0 else beta * avg + (1.0 - beta) * new
 
     for i in range(n):
-        state = learned_iteration(geom, state, alpha, omega, sweeps)
+        state = learned_iteration(geom, state, alpha, omega, sweeps, delta_reduce)
         lb = per_bdd_lower_bound(geom, state)
         if i >= k0:
             sol = flatten(uf.bdds_solution(geom, state)).to(z.dtype)
@@ -183,13 +190,14 @@ def learned_iterations_with_stats(geom: UniformGeom, state: UniformState, alpha,
 
 
 def distribute_delta_learned(geom: UniformGeom, state: UniformState, alpha,
-                             sweeps=None) -> UniformState:
+                             sweeps=None, delta_reduce=None) -> UniformState:
     """Fold the deferred deltas into the costs with the learned weights
     (learned.py:190-217). The double where keeps an infinite delta (a forced
     variable) out of the product with alpha, whose gradient would be
-    0 x inf = NaN; the infinity is added back unscaled."""
+    0 x inf = NaN; the infinity is added back unscaled. ``delta_reduce``:
+    the exchange's hook."""
     lo, hi, mm, _ = state.flat
-    din_lo, din_hi = uf.exchange_delta_flat(geom, mm)
+    din_lo, din_hi = uf.exchange_delta_flat(geom, mm, delta_reduce)
     valid = geom.exchange.valid
 
     def scaled(d):
@@ -202,11 +210,12 @@ def distribute_delta_learned(geom: UniformGeom, state: UniformState, alpha,
 
 
 def dual_loss(geom: UniformGeom, state: UniformState, alpha, omega, n: int,
-              sweeps=None) -> torch.Tensor:
+              sweeps=None, delta_reduce=None) -> torch.Tensor:
     """-lower bound after n learned iterations and the learned delta
-    distribution: the DOGE training loss (learned.py:232-246)."""
-    out = learned_iterations(geom, state, alpha, omega, n, sweeps)
-    out = distribute_delta_learned(geom, out, alpha, sweeps)
+    distribution: the DOGE training loss (learned.py:232-246); on a shard,
+    its share of it (``delta_reduce``: the exchange's hook)."""
+    out = learned_iterations(geom, state, alpha, omega, n, sweeps, delta_reduce)
+    out = distribute_delta_learned(geom, out, alpha, sweeps, delta_reduce)
     return -per_bdd_lower_bound(geom, out).sum()
 
 

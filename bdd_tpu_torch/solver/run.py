@@ -1,8 +1,10 @@
 """Dual-ascent termination loop (ref: include/run_solver_util.h:10-78).
 
 Works with any solver exposing ``iteration()`` and ``lower_bound()`` (the duck
-interface of the port's solvers). Copy of bdd_tpu/solver/run.py with the same
-block schedule, so both packages stop after the same iterations. Solvers may
+interface of the port's solvers), and reads the solver's ``clock()`` where it
+has one (a sharded solver: rank 0's, on every rank). Copy of
+bdd_tpu/solver/run.py with the same block schedule, so both packages stop
+after the same iterations. Solvers may
 expose ``iteration_block(n)`` running n iterations without a host sync; the
 loop then checks termination once per block.
 """
@@ -34,7 +36,10 @@ def run_solver(
     {iterations, solve_time, initial_lower_bound} (solver statistics for the
     result payload)."""
     assert 0.0 <= improvement_slope < 1.0
-    start = time.monotonic()
+    # a sharded solver reads one clock for all its ranks, so that the time
+    # limit stops every rank after the same block
+    clock = getattr(s, "clock", time.monotonic)
+    start = clock()
     lb_initial = s.lower_bound()
     first_gain_per_iter = None  # |lb_initial - lb_after_first_check| / n
     lb_post = lb_initial
@@ -63,7 +68,7 @@ def run_solver(
                 s.iteration_block(b)
                 n += b
                 it += b
-                if time.monotonic() - start > time_limit:
+                if clock() - start > time_limit:
                     break  # bound the overshoot to one block
         else:
             s.iteration()
@@ -80,7 +85,7 @@ def run_solver(
             # 'first-iteration improvement' (run_solver_util.h:37-74) made
             # the slope criterion ~block_size x looser
             first_gain_per_iter = abs(lb_initial - lb_post) / max(n, 1)
-        elapsed = time.monotonic() - start
+        elapsed = clock() - start
         if verbose:
             bdd_log(
                 f"[bdd solver] iteration {it}, lower bound = {lb_post:.6f}, "
@@ -110,7 +115,7 @@ def run_solver(
     if stats is not None:
         stats.update(
             iterations=it,
-            solve_time=round(time.monotonic() - start, 4),
+            solve_time=round(clock() - start, 4),
             initial_lower_bound=float(lb_initial),
         )
     return lb_post

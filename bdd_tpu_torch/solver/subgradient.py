@@ -7,14 +7,14 @@ step size grows when the EMA of the bound lags the current bound and shrinks
 when the bound falls below the best seen. Every step takes its
 costs-to-terminal from the run-only entry of the backward kernel
 (``uniform.gradient_step``); the host waits for the two lower bounds of an
-iteration.
+iteration. On a ``ShardedUniformSolver`` the projection sums across the ranks
+and the bounds are global (``lbfgs._Ops``), so every rank steps alike.
 """
 from __future__ import annotations
 
 import math
 
-from bdd_tpu_torch.solver import uniform as uf
-from bdd_tpu_torch.solver.lbfgs import solution_gradient
+from bdd_tpu_torch.solver.lbfgs import _Ops
 from bdd_tpu_torch.solver.uniform_wrapper import UniformSolver
 
 
@@ -27,6 +27,9 @@ class SubgradientSolver:
 
     def __init__(self, base: UniformSolver, step_size: float = 1.0) -> None:
         self.base = base
+        self.ops = _Ops(base)
+        if hasattr(base, "clock"):  # a sharded base: one clock for all its ranks
+            self.clock = base.clock
         self.f = base.f
         self.step_size = step_size
         self.best_lb = -math.inf
@@ -54,8 +57,7 @@ class SubgradientSolver:
             self.best_lb = lb
         if math.isinf(self.ema_lb):
             self.ema_lb = lb
-        g = uf.make_dual_feasible(base.geom, solution_gradient(base))
-        base.state = uf.gradient_step(base.geom, base.state, g, self.step_size)
+        self.ops.gradient_step(self.ops.make_dual_feasible(self.ops.grad()), self.step_size)
         lb = base.lower_bound()
         self.best_lb = max(self.best_lb, lb)
         self.ema_lb = self.EMA_WEIGHT * self.ema_lb + (1 - self.EMA_WEIGHT) * lb

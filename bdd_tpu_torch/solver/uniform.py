@@ -549,11 +549,13 @@ def bdds_solution(geom: UniformGeom, state: UniformState) -> Tuple[torch.Tensor,
     return tuple(out)
 
 
-def net_solver_costs(geom: UniformGeom, state: UniformState) -> torch.Tensor:
+def net_solver_costs(geom: UniformGeom, state: UniformState,
+                     delta_reduce: Optional[DeltaReduce] = None) -> torch.Tensor:
     """Per-layer net costs x = hi - lo + deferred share, flat [E]
-    (uniform.py:1803)."""
+    (uniform.py:1803); ``delta_reduce``: as in :func:`exchange_delta_flat`
+    (the sharded solve sums the deltas across its ranks there)."""
     lo, hi, mm, _ = state.flat
-    dl, dh = exchange_delta_flat(geom, mm)
+    dl, dh = exchange_delta_flat(geom, mm, delta_reduce)
     fl, fh = torch.isfinite(dl), torch.isfinite(dh)
     # a variable forced BOTH ways (infeasible) has dl = dh = +inf; inf - inf
     # would put a NaN into the L-BFGS history: the deferred share counts as 0
@@ -563,16 +565,21 @@ def net_solver_costs(geom: UniformGeom, state: UniformState) -> torch.Tensor:
     return torch.where(geom.exchange.valid, hi - lo + geom.alpha * diff, 0.0)
 
 
-def make_dual_feasible(geom: UniformGeom, g: torch.Tensor) -> torch.Tensor:
+def make_dual_feasible(geom: UniformGeom, g: torch.Tensor,
+                       sum_reduce: Optional[DeltaReduce] = None) -> torch.Tensor:
     """Zero-sum projection per primal variable of a flat per-layer vector [E]
     (uniform.py:1828): the per-variable sums by the deterministic segment
     reduction of the exchange; the sentinel variable V of invalid slots is
-    the empty last segment, 0."""
+    the empty last segment, 0. ``sum_reduce``: a callable applied to the
+    per-variable sums [V + 1] before they are gathered back (the sharded
+    solve sums them across its ranks)."""
     ex = geom.exchange
     x = torch.where(ex.valid, g, 0.0)
     sums = torch.segment_reduce(
         x[ex.order].unsqueeze(1), "sum", lengths=ex.segments, axis=0, unsafe=True, initial=0.0
     )[:, 0]
+    if sum_reduce is not None:
+        sums = sum_reduce(sums)
     return torch.where(ex.valid, g - geom.alpha * sums[ex.ids], 0.0)
 
 

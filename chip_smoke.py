@@ -35,14 +35,14 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      wider than 32 slots and run through the warp-a-column body of the
      kernels (a launch of its own per half-sweep): kernel vs twin on every
      bucket and fused, float32 and float64, times beside the byte bound, and
-     a 200-iteration dual solve per precision held to the native C++ solver,
+     a 100-iteration dual solve per precision held to the native C++ solver,
      with the launches counted and the twins' call counter unmoved. Then 132
      rows of 48 variables with coefficients 1..1,000 (P = 16,384: four-byte
      arcs, the block-a-column body, a launch of its own; the bucket keeps
      its 132 columns, not padded to 256) and 132 rows of 32 (P = 8,192, the widest
      wide body): kernel == twin, times beside the byte bound (the huge body
      also at 256 and 512 threads a block), and a
-     200-iteration float64 solve of the huge rows against the native solver,
+     100-iteration float64 solve of the huge rows against the native solver,
      every half-sweep one launch of the huge body;
   7. Python pipeline (BddPreprocessor -> flatten_uniform) on grid12: float64
      bound against the native pipeline's (rel 1e-7), default float32 with the
@@ -106,21 +106,37 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      pipeline): (a) the GNN's per-layer alpha and omega through one fused
      forward and one fused backward launch and the run entry, bit-equal to
      the twins and timed beside the byte bound (alpha and omega counted as
-     arrays); (b) the checkpoint's rollout, 20 rounds x 20 learned
+     arrays); (b) the checkpoint's rollout, 10 rounds x 20 learned
      iterations with history and smooth features: the per-round bounds, one
      host sync per rollout (sync debug mode) and none between its first and
      last launch (profiler), ms per round by span (features, GNN,
      iterations, bound) and the device busy share, one launch of each
-     half-sweep per learned iteration, plain MMA on the same layout for 400
+     half-sweep per learned iteration, plain MMA on the same layout for 200
      iterations beside it (not gated), and the first 2 rounds through the
      twins, bit-equal; (c) training on gm120 seed 0 (phase 10's Python
      build), depth cut to 2 rounds (one pre-round, one with gradients): the
      kernels with the same alpha and omega held to the twins on that layout,
      the parameter gradients of the autograd Functions (kernels forward, the
      twins recomputed backward) against plain autograd through the twins
-     (rel 1e-6 of the largest entry; losses bit-equal), and two training
-     steps (finite losses, parameters moved, one launch of each half-sweep
-     per learned iteration).
+     (rel 1e-6 of the largest entry; losses bit-equal), and a training
+     step (finite loss, parameters moved, one launch of each half-sweep per
+     learned iteration).
+ 15. the sharded solve (``solver/uniform_sharded.py``): two rank processes
+     of this script (``--sharded-rank``) on the one card, joined by gloo
+     (NCCL refuses two ranks a card; gloo stages the card's tensors through
+     the host), each holding one shard of gm50k (phase 3's LP through the
+     native host library, partition "auto"): float32 and float64 solves of
+     500 iterations held to phase 3's bound and to the native solver (rel
+     1e-3 / 1e-7), launches counted per rank, no plain sweep; the kernels
+     against the twins on rank 0's shard layout; one all_reduce of the
+     shared rows and of all rows timed; host syncs and device busy share of
+     a profiled block; "lbfgs sharded mma" beside "sharded mma" through
+     BddSolver on grid12; one ShardedDogeTrainer step (the checkpoint's
+     configuration without history features, 2 rounds); every rank's bounds
+     the same, and no rank imported JAX. Then rank 0 alone in a process
+     group over NCCL on grid12, every row of the sums through the backend:
+     the float32 bound against the one-device solver's on the same
+     collection.
 Every layout that phases 2 and 6-11 hold the half-sweeps on also holds the
 run-only entry of the backward kernel (``uniform_backward_run``: the
 costs-to-terminal of given costs) to the plain run, bit-equal, timed warm and
@@ -140,7 +156,8 @@ generators and checkpoint reader.
 Prints the card line, one JSON line of per-kernel results (a row per kernel,
 body and path: gm50k, knapsack, knapsack48 (huge), python grid12, batch64,
 batch256, the server's batch, the L-BFGS layouts, tighten mis200, hybrid
-deep, hybrid gm50k, gm120 learned (the rollout), gm120 train), and as the
+deep, hybrid gm50k, gm120 learned (the rollout), gm120 train, sharded gm50k
+(rank 0's shard)), and as the
 last line {"ok": true, "device": {...}}.
 """
 import dataclasses
@@ -161,7 +178,7 @@ RUN = "uniform_backward_run"  # the backward kernel's entry without the cost upd
 WIDE = "_wide"  # suffix of the wide-bucket body's entries in errs, times and the kernels line
 HUGE = "_huge"  # the same for the huge body (a block a column, P > 8,192)
 BODIES = ("", WIDE, HUGE)
-KNAPSACK_ITERS = 200
+KNAPSACK_ITERS = 100  # cut from 200 (PR 8): the native solver's share of the phase
 BATCH_ITERS = 100
 GRID_OUTER_ITERS = 200
 GM_OUTER_ITERS = 100
@@ -708,7 +725,7 @@ def phase_wide(card, errs, times, flush):
 
 HUGE_ROWS = dict(nr_vars=1584, nr_rows=132, row_len=48, coef_max=1000)  # P = 16,384
 WIDEST_ROWS = dict(nr_vars=1056, nr_rows=132, row_len=32, coef_max=1000)  # P = 8,192
-HUGE_ITERS = 200
+HUGE_ITERS = 100  # cut from 200 (PR 8): the native solver's share of the phase
 
 
 def phase_huge(card, errs, times, flush):
@@ -866,7 +883,7 @@ x_12 + x_22 + x_32 = 1
 x_13 + x_23 + x_33 = 1
 End"""  # tests/fixtures.py: a 3x3 assignment, LP-tight at -6
 SMOOTH_CFG = {"relaxation solver": "smooth mma", "smoothing": 0.2, "smoothing decay factor": 0.5}
-SMOOTH_ITERS = 200
+SMOOTH_ITERS = 100  # cut from 200 (PR 8) to keep the whole script near its budget
 GM_SMOOTH_ITERS = 20
 
 
@@ -1816,10 +1833,14 @@ LEARNED_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchma
                             "doge_gm120.ckpt")
 LEARNED_SEED = 100  # the held-out instance of benchmarks/train_doge_scale.py
 LEARNED_TRAIN_ROUNDS = 2  # depth cut of the checkpoint's 20: one pre-round, one with gradients
-LEARNED_MMA_ITERS = 400  # the rollout's 20 rounds x 20 iterations
+# the rollout's depth: 10 of the checkpoint's 20 rounds of 20 iterations
+# (cut in PR 8 to keep the whole script near its budget)
+LEARNED_ROLLOUT_ROUNDS = 10
+LEARNED_MMA_ITERS = 200  # as many iterations as the rollout
 LEARNED_TWIN_ROUNDS = 2
 LEARNED_PROFILE_ROUNDS = 2
 GRAD_REL = 1e-6
+LEARNED_TRAIN_STEPS = 1  # cut from 2 (PR 8): one step moves the parameters and counts launches
 
 
 def learned_vs_twin(label, geom, state, alpha, omega, card, errs, times, flush):
@@ -1883,7 +1904,7 @@ def per_body(geom, n: int) -> dict:
                          huge=n * int(plan.huge_blocks > 0))
 
 
-def rollout_syncs(trainer, inst):
+def rollout_syncs(trainer, inst, nr_rounds):
     """A fused rollout of the checkpoint's rounds with torch's sync debug
     mode on: (bounds, wall seconds, host syncs with their call sites)."""
     import warnings
@@ -1896,7 +1917,7 @@ def rollout_syncs(trainer, inst):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             t0 = time.perf_counter()
-            lbs = trainer.run_learned_rounds(inst)
+            lbs = trainer.run_learned_rounds(inst, nr_rounds)
             wall = time.perf_counter() - t0
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -1953,10 +1974,11 @@ def phase_learned(card, errs, times, flush, gm_python):
     """Phase 14: the learned solver (DOGE) from the JAX package's trained
     ``doge_gm120.ckpt`` on gm120 seed 100 (float32, the Python pipeline the
     trainer builds with): (a) the kernels with the GNN's alpha and omega
-    against the twins; (b) the checkpoint's 20 x 20 rollout with one host
+    against the twins; (b) the checkpoint's rollout (10 of its 20 rounds of
+    20 iterations) with one host
     sync, its time by span, plain MMA on the same layout for as many
-    iterations, and the first rounds through the twins, bit-equal; (c) two
-    training steps on gm120 seed 0 (phase 10's Python build), depth cut to
+    iterations, and the first rounds through the twins, bit-equal; (c) a
+    training step on gm120 seed 0 (phase 10's Python build), depth cut to
     2 rounds, whose gradients equal plain autograd through the twins."""
     import torch
     from bdd_tpu_torch.bdd.preprocessor import BddPreprocessor
@@ -1999,9 +2021,9 @@ def phase_learned(card, errs, times, flush, gm_python):
     trainer.run_learned_rounds(inst, 1)  # warm
     sk.reset_launch_counts()
     before = plain_calls()
-    lbs, wall, syncs = rollout_syncs(trainer, inst)
+    lbs, wall, syncs = rollout_syncs(trainer, inst, LEARNED_ROLLOUT_ROUNDS)
     counted = dict(sk.LAUNCHES)
-    n_rounds, iters = cfg.nr_rounds, cfg.iters_per_round
+    n_rounds, iters = LEARNED_ROLLOUT_ROUNDS, cfg.iters_per_round
     if len(syncs) != 1:
         fail(f"gm120 rollout: {len(syncs)} host syncs, expected 1: {syncs[:20]}")
     if plain_calls() != before or not all(map(math.isfinite, lbs)):
@@ -2040,7 +2062,7 @@ def phase_learned(card, errs, times, flush, gm_python):
              f"{lbs[:LEARNED_TWIN_ROUNDS]}")
     print(f"[learned] the first {LEARNED_TWIN_ROUNDS} rounds through the twins on the card equal "
           f"the kernels' bit for bit ({twin}); {twin_s:.2f} s {card}", flush=True)
-    # ---- (c) training on gm120 seed 0: gradients, then two steps
+    # ---- (c) training on gm120 seed 0: gradients, then a step
     t_host, t_objective, t_pre = gm_python
     t0 = time.perf_counter()
     tinst = tr.Instance(t_host, t_objective, pre=t_pre)
@@ -2094,21 +2116,427 @@ def phase_learned(card, errs, times, flush, gm_python):
     start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     sk.reset_launch_counts()
     steps = []
-    for _ in range(2):
+    for _ in range(LEARNED_TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         steps.append((trainer.train_step(tinst)["loss"], time.perf_counter() - t0))
     counted = dict(sk.LAUNCHES)
     moved = max(float((v - start[k]).abs().max()) for k, v in trainer.model.state_dict().items())
-    learned = 2 * cfg.nr_rounds * cfg.iters_per_round
+    learned = LEARNED_TRAIN_STEPS * cfg.nr_rounds * cfg.iters_per_round
     if (not all(math.isfinite(l) for l, _ in steps) or not moved > 0
             or sweeps_of(counted) != per_body(t_host.geom, learned)):
         fail(f"gm120 training: steps {steps}, parameters moved {moved}, launches {counted}")
-    print(f"[learned] gm120 seed 0: two training steps: losses {[l for l, _ in steps]}, "
+    print(f"[learned] gm120 seed 0: {LEARNED_TRAIN_STEPS} training step(s): losses "
+          f"{[l for l, _ in steps]}, "
           f"{[round(s, 2) for _, s in steps]} s; parameters moved up to {moved:.3e}; launches "
           f"{counted} ({learned} learned iterations) {card}", flush=True)
     paths.append({"at": "gm120 train", "dt": "float32", "suffix": "", "launches": counted,
                   "iterations": learned})
+    return paths
+
+
+# ------------------------------------------------------------ 15. sharded
+SHARDED_RANKS = 2  # rank processes on the one card (gloo: NCCL refuses two ranks a card)
+SHARDED_TIMEOUT_S = 400
+SHARDED_LBFGS_ITERS = 50
+COMM_REPS = 20
+
+
+def rank_card(rank: int, size: int, backend: str) -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    return f"[{smi}; rank {rank} of {size}, {backend}]"
+
+
+def expected_sweeps(geom, n: int) -> dict:
+    """The half-sweep launches of n iterations on ``geom``: one a body that
+    holds a bucket, per kernel and iteration."""
+    plan = geom.plan
+    return {**launch_counts(), **{k + body: n for k in KERNELS for body, blocks in (
+        ("", plan.nr_blocks), (WIDE, plan.wide_blocks), (HUGE, plan.huge_blocks)) if blocks}}
+
+
+def collective_ms(comm, t, reps: int = COMM_REPS) -> float:
+    """Host ms per all_reduce of ``t`` (every rank in step; each ends when
+    the sum is back in ``t`` on the card)."""
+    import torch
+
+    comm.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        comm.all_reduce_(t)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def profile_sharded(s, n: int = 10) -> dict:
+    """torch.profiler over n sharded iterations: host syncs per iteration
+    (by kind, the device-to-host copies of the backend's staging included),
+    device busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    s.iteration_block(2)  # warm
+    torch.cuda.synchronize()
+    s.comm.barrier()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.iteration_block(n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    syncs = {}
+    for e in prof.events():
+        if e.name in SYNC_EVENTS or e.name == "cudaMemcpy":
+            syncs[e.name] = syncs.get(e.name, 0) + 1
+    device_us = sum(getattr(a, "self_device_time_total", None) or getattr(
+        a, "self_cuda_time_total", 0.0) for a in prof.key_averages())
+    if device_us <= 0:
+        fail("the profiler recorded no device time in a sharded block")
+    return {"syncs_per_iteration": sum(v for k, v in syncs.items() if k in SYNC_EVENTS) / n,
+            "syncs": {k: v / n for k, v in syncs.items()}, "wall_ms": 1e3 * wall / n,
+            "busy_ms": device_us / 1e3 / n, "busy_share": device_us / 1e6 / wall}
+
+
+def sharded_solve(label, s, card) -> dict:
+    """GM_ITERS iterations of a sharded solver, timed; the global bound, the
+    launches counted in this rank's run (every one a kernel's: no plain
+    sweep or run), the collectives per iteration and their payload."""
+    import torch
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+
+    comm = s.comm
+    plain = plain_calls()
+    sk.reset_launch_counts()
+    comm.calls = comm.bytes = 0
+    torch.cuda.synchronize()
+    comm.barrier()
+    t0 = time.perf_counter()
+    s.iteration_block(GM_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls, nbytes = comm.calls, comm.bytes
+    lb = s.lower_bound()  # the deltas distributed: one launch of the run entry a body
+    launches = dict(sk.LAUNCHES)
+    if plain_calls() != plain:
+        fail(f"{label}: a plain sweep or run ran in the sharded solve: {plain_calls()} vs {plain}")
+    if sweeps_of(launches) != expected_sweeps(s.geom, GM_ITERS):
+        fail(f"{label}: launches {launches}, expected {expected_sweeps(s.geom, GM_ITERS)}")
+    out = {"lb": lb, "its_per_s": GM_ITERS / wall, "launches": launches,
+           "collectives_per_iteration": calls / GM_ITERS,
+           "bytes_per_collective": nbytes / max(calls, 1)}
+    print(f"[sharded] {label}: lb {lb!r} after {GM_ITERS} iterations, {out['its_per_s']:.1f} it/s "
+          f"per rank; {out['collectives_per_iteration']:.2f} all_reduce an iteration of "
+          f"{out['bytes_per_collective']:.0f} B; launches {launches} {card}", flush=True)
+    return out
+
+
+def nccl_one_rank(group, card) -> dict:
+    """grid12 float32 on a process group of one rank over NCCL, every row of
+    the sums through the backend, against the one-device solver on the same
+    collection."""
+    import torch
+    from bdd_tpu_torch.native import NativeHost
+    from bdd_tpu_torch.solver.uniform_sharded import ShardedUniformSolver
+    from bdd_tpu_torch.solver.uniform_wrapper import UniformSolver
+    from bdd_tpu_torch.utils.problems import grid_mrf
+
+    nh = NativeHost(grid_mrf(12, 12, 4, seed=0).write_lp(), "bfs")
+    collection, V, obj = nh.collection(), nh.nr_vars(), nh.objective()
+    s = ShardedUniformSolver(collection, V, obj, group=group, dtype=torch.float32,
+                             plan_family="global")
+    res = sharded_solve("grid12 float32, one rank, every row through NCCL", s, card)
+    one = UniformSolver.from_collection(collection, V, obj, dtype=torch.float32)
+    one.iteration_block(GM_ITERS)
+    res["one_device_lb"] = one.lower_bound_with_deferred()
+    res["profile"] = p = profile_sharded(s)
+    print(f"[sharded] one rank, NCCL: lb {res['lb']!r}, the one-device solver on the same "
+          f"collection {res['one_device_lb']!r}; {p['syncs_per_iteration']:.2f} host syncs an "
+          f"iteration {p['syncs']}, wall {p['wall_ms']:.4f} ms, busy share "
+          f"{p['busy_share']:.3f} {card}", flush=True)
+    return res
+
+
+def sharded_rank(argv) -> None:
+    """One rank of phase 15 (``chip_smoke.py --sharded-rank RANK SIZE PORT
+    OUTDIR LP``), on the one card over gloo: the gm50k LP through the
+    native host library to a BDD collection, float32 and float64 sharded
+    solves with partition "auto", the collectives timed, a profiled block,
+    the kernels against the twins on rank 0's shard layout, "lbfgs sharded
+    mma" and "sharded mma" through BddSolver on grid12, one
+    ShardedDogeTrainer step; then rank 0 alone in a process group of its own
+    over NCCL (:func:`nccl_one_rank`). Writes OUTDIR/rank<R>.json."""
+    import torch
+    import torch.distributed as dist
+
+    rank, size, port, outdir, lp_path = (
+        int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4])
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: a rank of phase 15 needs an NVIDIA GPU")
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // (2 * size)))
+    card = rank_card(rank, size, "gloo")
+    from bdd_tpu_torch import _build
+    from bdd_tpu_torch.native import NativeHost
+    from bdd_tpu_torch.solver.uniform_sharded import ShardedUniformSolver
+    from bdd_tpu_torch.utils import multihost as mh
+
+    _build.load()
+    t0 = time.perf_counter()
+    mh.initialize(f"localhost:{port}", size, rank, platform="cuda", backend="gloo")
+    out = {"rank": rank, "size": size, "init_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    with open(lp_path) as fh:
+        nh = NativeHost(fh.read(), "bfs")
+    collection = nh.collection()
+    V, obj = nh.nr_vars(), nh.objective()
+    out["native_s"] = time.perf_counter() - t0
+    errs = {name + suffix: 0.0 for name in KERNELS + (RUN,) for suffix in BODIES}
+    times = {}
+
+    def build(label, **kw):
+        t = time.perf_counter()
+        s = ShardedUniformSolver(collection, V, obj, **kw)
+        built = time.perf_counter() - t
+        geom = s.geom
+        print(f"[sharded] {label} rank {rank}: {len(s.layout.parts[rank])} of "
+              f"{collection.nr_bdds()} BDDs, buckets {[tuple(x) for x in geom.plan.shapes]}, "
+              f"{s.layout.shared.size} variables shared of {V}; built in {built:.2f} s "
+              f"(native host library {out['native_s']:.2f} s) {card}", flush=True)
+        return s, built
+
+    s32, out["build32_s"] = build("gm50k float32", dtype=torch.float32, partition="auto")
+    s64, out["build64_s"] = build("gm50k float64", dtype=torch.float64, like=s32.layout)
+    out["bdds"] = [len(p) for p in s32.layout.parts]
+    out["shared"] = int(s32.layout.shared.size)
+    for dt, s in (("float32", s32), ("float64", s64)):
+        res = sharded_solve(f"gm50k {dt}", s, card)
+        rows = torch.zeros(int(s.rows.numel()), 2, dtype=s.dtype, device=s.device)
+        every = torch.zeros(V + 1, 2, dtype=s.dtype, device=s.device)
+        res["shared_ms"] = collective_ms(s.comm, rows)
+        res["all_rows_ms"] = collective_ms(s.comm, every)
+        res["host_ms"] = collective_ms(s.comm, rows.cpu())  # gloo alone, no staging
+        res["shared_bytes"] = rows.numel() * rows.element_size()
+        res["all_rows_bytes"] = every.numel() * every.element_size()
+        res["profile"] = profile_sharded(s)
+        p = res["profile"]
+        print(f"[sharded] gm50k {dt}: one all_reduce of the shared rows "
+              f"{res['shared_ms']:.4f} ms ({res['shared_bytes']} B; the same rows on the "
+              f"host, no staging: {res['host_ms']:.4f} ms), of all rows "
+              f"{res['all_rows_ms']:.4f} ms ({res['all_rows_bytes']} B); profiled block: "
+              f"{p['syncs_per_iteration']:.2f} host syncs an iteration {p['syncs']}, wall "
+              f"{p['wall_ms']:.4f} ms, device busy {p['busy_ms']:.4f} ms an iteration (busy "
+              f"share {p['busy_share']:.3f}, under the profiler) {card}", flush=True)
+        out[dt] = res
+    if rank == 0:
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        for s in (s32, s64):
+            kernel_vs_twin("sharded gm50k", s.host, obj, card, errs, times, flush,
+                           state=s.state)
+        del flush
+    s32.comm.barrier()
+    out["errs"] = errs
+    out["times"] = {f"{label}|{dt}": e for (label, dt), e in times.items()}
+    out["lbfgs"] = sharded_lbfgs(card)
+    out["doge"] = sharded_doge(s32, obj, card)
+    # one rank over NCCL: a process group of rank 0 alone (NCCL refuses two
+    # ranks a card); every rank of the world takes part in making it
+    nccl = dist.new_group(ranks=[0], backend="nccl")
+    if rank == 0:
+        out["nccl"] = nccl_one_rank(nccl, rank_card(0, 1, "nccl"))
+    s32.comm.barrier()
+    mh.shutdown()
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "bdd_tpu", "flax", "optax", "msgpack"))
+    if foreign:
+        fail(f"a rank imported JAX or the JAX package: {foreign[:5]}")
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+
+
+def sharded_lbfgs(card) -> dict:
+    """grid12 float64 through BddSolver: "lbfgs sharded mma" and "sharded
+    mma", dual only, SHARDED_LBFGS_ITERS iterations each."""
+    import torch
+    from bdd_tpu_torch.api import BddSolver
+    from bdd_tpu_torch.utils.problems import grid_mrf
+
+    out = {}
+    for name in ("lbfgs sharded mma", "sharded mma"):
+        cfg = {"relaxation solver": name, "precision": "double", "perturbation rounding": False,
+               **fixed_iterations(SHARDED_LBFGS_ITERS)}
+        t0 = time.perf_counter()
+        res = BddSolver(cfg, device="cuda").read_ilp(ilp=grid_mrf(12, 12, 4, seed=0)).solve(
+            verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if res["status"] != "solved" or not math.isfinite(res["lower_bound"]):
+            fail(f"grid12 {name}: {res['status']}, lb {res['lower_bound']}")
+        out[name] = {"lb": res["lower_bound"], "iterations": res["iterations"],
+                     "solve_s": res["solve_time"], "wall_s": wall}
+        print(f"[sharded] grid12 float64 {name!r} through BddSolver: lb {res['lower_bound']!r} "
+              f"after {res['iterations']} iterations, solve {res['solve_time']} s, "
+              f"{wall:.2f} s with the Python build {card}", flush=True)
+    return out
+
+
+def sharded_doge(s, objective, card) -> dict:
+    """One ShardedDogeTrainer step on the float32 gm50k shards (gm120 seed
+    0), cut to LEARNED_TRAIN_ROUNDS rounds as phase 14 is; the checkpoint's
+    configuration without its history features (the sharded trainer has
+    none), a fresh model from its seed. Finite loss; every rank holds the same
+    parameters after the step."""
+    import torch
+    from bdd_tpu_torch.learn import checkpoint
+    from bdd_tpu_torch.learn.sharded import ShardedDogeTrainer
+    from bdd_tpu_torch.learn.train import TrainConfig
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+
+    cfg_d, _ = checkpoint.load(LEARNED_CKPT)
+    cfg_d.update(nr_rounds=LEARNED_TRAIN_ROUNDS, history_features=False,
+                 smooth_temps=tuple(cfg_d["smooth_temps"]))
+    cfg = TrainConfig(**cfg_d)
+    t0 = time.perf_counter()
+    tr = ShardedDogeTrainer(s, objective, cfg)
+    tr.init()
+    init_s = time.perf_counter() - t0
+    sk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = tr.train_step()["loss"]
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    flat = torch.cat([p.detach().reshape(-1) for p in tr.model.parameters()])
+    spread = float((s.comm.all_gather(flat) - flat).abs().max())
+    learned = cfg.nr_rounds * cfg.iters_per_round
+    if not math.isfinite(loss) or spread != 0.0 or min(launches[k] for k in KERNELS) == 0:
+        fail(f"sharded DOGE step: loss {loss}, parameters differ across ranks by {spread}, "
+             f"launches {launches}")
+    print(f"[sharded] ShardedDogeTrainer on gm120 seed 0 ({cfg.nr_rounds} rounds of "
+          f"{cfg.iters_per_round}, {cfg.grad_rounds} with gradients): global view and model in "
+          f"{init_s:.2f} s, a step {step_s:.2f} s, loss {loss!r}; parameters equal on every rank; "
+          f"launches {launches} ({learned} learned iterations) {card}", flush=True)
+    return {"loss": loss, "step_s": step_s, "init_s": init_s, "launches": launches}
+
+
+def run_ranks(size: int, lp_path: str, outdir: str) -> list:
+    """Start ``size`` rank processes of this script on the card, echo their
+    output, fail if one fails or outlasts SHARDED_TIMEOUT_S; their JSON."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    logs = [open(os.path.join(outdir, f"rank{r}.log"), "w+") for r in range(size)]
+    # the ranks share the host's cores: a passive OpenMP pool of their own
+    # size (the native baseline's active spin would take the cores the
+    # collectives' threads need)
+    threads = str(max(1, (os.cpu_count() or 2) // (2 * size)))
+    env = dict(os.environ, OMP_WAIT_POLICY="passive", OMP_NUM_THREADS=threads)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r), str(size),
+         str(port), outdir, lp_path], stdout=log, stderr=subprocess.STDOUT, env=env)
+        for r, log in enumerate(logs)]
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        fail(f"a rank outlasted {SHARDED_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        lines = text.splitlines()
+        if p.returncode != 0:
+            print("\n".join(lines[-40:]), file=sys.stderr, flush=True)
+            fail(f"rank {r} of {size} exited with {p.returncode}")
+        print("\n".join(line for line in lines if line.startswith("[")), flush=True)
+    out = []
+    for r in range(size):
+        with open(os.path.join(outdir, f"rank{r}.json")) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def phase_sharded(card, errs, times, gm_lp, gm_ref):
+    """Phase 15: the sharded solve. Two rank processes on the one card
+    (gloo, which stages the card's tensors through the host; NCCL refuses
+    two ranks a card) solve gm50k (phase 3's LP, 50,701 BDDs, partition
+    "auto") for GM_ITERS iterations in float32 and float64, held to phase
+    3's one-device bound and to the native solver (rel 1e-3 / 1e-7); the
+    kernels against the twins on rank 0's shard layout; the collectives
+    timed over the shared rows and over all rows; host syncs and device busy
+    share of a profiled block; "lbfgs sharded mma" on grid12 through
+    BddSolver; one ShardedDogeTrainer step. Then rank 0 alone in a process
+    group over NCCL on grid12 (every row of the sums through the backend)
+    against the one-device solver. ``gm_ref``: phase 3's bounds."""
+    import shutil
+    import tempfile
+
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        lp_path = os.path.join(outdir, "gm50k.lp")
+        with open(lp_path, "w") as fh:
+            fh.write(gm_lp)
+        t0 = time.perf_counter()
+        ranks = run_ranks(SHARDED_RANKS, lp_path, outdir)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    r0 = ranks[0]
+
+    def bounds(r):
+        return (r["float32"]["lb"], r["float64"]["lb"],
+                {name: v["lb"] for name, v in r["lbfgs"].items()}, r["doge"]["loss"])
+
+    if any(bounds(r) != bounds(r0) for r in ranks):
+        fail(f"the ranks' bounds differ: {[bounds(r) for r in ranks]}")
+    paths = []
+    for dt, prec in (("float32", "float"), ("float64", "double")):
+        lb = r0[dt]["lb"]
+        for what, ref in (("phase 3's one-device bound", gm_ref[dt]),
+                          ("the native solver", gm_ref["native"])):
+            rel = abs(lb - ref) / abs(ref)
+            print(f"[sharded] gm50k {dt}, {SHARDED_RANKS} ranks: lb {lb!r} vs {what} {ref!r}: "
+                  f"rel diff {rel:.3e} (limit {LB_REL[prec]}) {card}", flush=True)
+            if not rel <= LB_REL[prec]:
+                fail(f"sharded gm50k {dt} bound off {what}")
+        paths.append({"at": f"sharded gm50k (rank 0 of {SHARDED_RANKS})", "dt": dt, "suffix": "",
+                      "launches": r0[dt]["launches"], "iterations": GM_ITERS})
+    for key, e in r0["times"].items():
+        label, dt = key.split("|")
+        times[(f"{label} (rank 0 of {SHARDED_RANKS})", dt)] = e
+    for k, v in r0["errs"].items():
+        errs[k] = max(errs[k], v)
+    lb_l, lb_m = (r0["lbfgs"][n]["lb"] for n in ("lbfgs sharded mma", "sharded mma"))
+    if not lb_l >= lb_m - 1e-6:
+        fail(f"grid12: lbfgs sharded mma {lb_l!r} below sharded mma {lb_m!r}")
+    n32 = r0["nccl"]
+    nrel = abs(n32["lb"] - n32["one_device_lb"]) / abs(n32["one_device_lb"])
+    if not nrel <= LB_REL["float"]:
+        fail(f"one NCCL rank: grid12 float32 bound {n32['lb']!r} vs the one-device solver's "
+             f"{n32['one_device_lb']!r}")
+    print(f"[sharded] summary: {SHARDED_RANKS} gloo ranks {ranks_s:.2f} s (init "
+          f"{[round(r['init_s'], 2) for r in ranks]} s, native build "
+          f"{[round(r['native_s'], 2) for r in ranks]} s, shard layouts float32 "
+          f"{[round(r['build32_s'], 2) for r in ranks]} s, float64 "
+          f"{[round(r['build64_s'], 2) for r in ranks]} s; BDDs per shard {r0['bdds']}, "
+          f"{r0['shared']} shared variables); it/s per rank float32 "
+          f"{[round(r['float32']['its_per_s'], 1) for r in ranks]}, float64 "
+          f"{[round(r['float64']['its_per_s'], 1) for r in ranks]}; lbfgs sharded mma "
+          f"{lb_l!r} >= sharded mma {lb_m!r}; DOGE step {r0['doge']['step_s']:.2f} s, loss "
+          f"{r0['doge']['loss']!r}; one NCCL rank: grid12 float32 lb "
+          f"{n32['lb']!r} (rel {nrel:.3e} to the one-device solver), "
+          f"{n32['its_per_s']:.1f} it/s, {n32['profile']['syncs_per_iteration']:.2f} host syncs "
+          f"an iteration {card}", flush=True)
     return paths
 
 
@@ -2270,6 +2698,8 @@ def main() -> None:
     paths += timed("hybrid", phase_hybrid, card, errs, times, flush, gm_python, nh, gm_f32,
                    f32a["lower_bound"])
     paths += timed("learned", phase_learned, card, errs, times, flush, gm_python)
+    paths += timed("sharded", phase_sharded, card, errs, times, gm_lp, {
+        "float32": f32a["lower_bound"], "float64": f64["lower_bound"], "native": lb_native})
     del flush
     finish(paths, errs, times)
 
@@ -2316,4 +2746,7 @@ def finish(paths, errs, times) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sharded_rank(sys.argv[2:])
+    else:
+        main()

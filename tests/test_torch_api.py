@@ -122,7 +122,7 @@ def test_cli(tmp_path):
     [
         ({"relaxation solver": "lbfgs parallel mma"}, None),
         ({"relaxation solver": "hybrid mma"}, False),
-        ({"relaxation solver": "sharded mma"}, True),
+        ({"relaxation solver": "sharded mma"}, False),
         ({"relaxation solver": "dense mma"}, True),
         ({"tighten": {"cliques": True}}, False),
         ({"split chunk size": 4}, False),
@@ -140,7 +140,9 @@ def test_unported_configs_raise(config, waits, tmp_path, monkeypatch):
     (float64, abs 1e-8), and so do the tightening phase and the hybrid solve
     (all on the device at the automatic threshold: the JAX package's native
     solver would overrun its scratch under this module's thread cap;
-    tests/test_torch_hybrid.py splits it); the outer loops construct
+    tests/test_torch_hybrid.py splits it) and the sharded solve (one shard:
+    no process group; the JAX package's over its 8 CPU devices; the ranks
+    are tested in tests/test_torch_sharded.py); the outer loops construct
     (``waits`` None; their solves are held to the JAX package's in
     tests/test_torch_outer.py)."""
     if waits is None:

@@ -193,12 +193,18 @@ def test_transfer_costs_to_native_equals_jax(name):
     theirs = jnative.cpu_solver_from_collection(pre.collection, V, np.zeros(V))
     extras.transfer_costs_to_native(host, state, mine)
     jextras.transfer_costs_to_native(js.host, js.state, theirs)
-    assert mine.lower_bound_with_deferred() == theirs.lower_bound_with_deferred()
+    # native/bdd_host.cpp sums its bound in an order that changes between
+    # runs (an OpenMP reduction): one ulp of spread; the port's sums in BDD
+    # order, the same bits on every read
+    assert mine.lower_bound_with_deferred() == pytest.approx(
+        theirs.lower_bound_with_deferred(), rel=1e-12)
     assert mine.lower_bound_with_deferred() == pytest.approx(
         js.lower_bound_with_deferred(), rel=1e-5)
     mine.iterations(5, 0.5)
     theirs.iterations(5, 0.5)
-    assert mine.lower_bound_with_deferred() == theirs.lower_bound_with_deferred()
+    assert mine.lower_bound_with_deferred() == pytest.approx(
+        theirs.lower_bound_with_deferred(), rel=1e-12)
+    assert len({mine.lower_bound_with_deferred().hex() for _ in range(5)}) == 1
     nb = tpre.collection.nr_bdds()  # the BDDs numbered backwards: other keys
     other = tnative.cpu_solver_from_flat(
         *_subset_flat(tpre.collection, list(range(nb))[::-1]), V, np.zeros(V))

@@ -109,6 +109,11 @@ COPIED_FUNCTIONS = [
     ("solver/hybrid.py", "split_bdds"),
     ("solver/hybrid.py", "_subset_flat"),
     ("solver/hybrid.py", "_JointLayerView"),
+    ("solver/sharding.py", "partition_bdds"),
+    ("solver/sharding.py", "shared_width"),
+    ("solver/sharding.py", "partition_cost"),
+    ("solver/sharding.py", "refine_partition_mincut"),
+    ("solver/sharding.py", "_subcollection"),
 ]
 
 
@@ -150,7 +155,8 @@ def test_importing_the_whole_port_pulls_in_no_jax():
     for mod in ("serve", "api", "bdd.preprocessor", "solver.extras", "utils.batching",
                 "solver.tighten", "solver.smooth", "solver.smooth_mma", "solver.hybrid",
                 "solver.learned", "learn.features", "learn.model", "learn.checkpoint",
-                "learn.train", "learn.configs", "learn.data"):
+                "learn.train", "learn.configs", "learn.data", "solver.sharding",
+                "solver.uniform_sharded", "utils.multihost", "learn.sharded"):
         assert f"'bdd_tpu_torch.{mod}'" in out.stdout
 
 GENERATORS = {
