@@ -12,6 +12,15 @@ module names so every port module has an obvious counterpart:
   bdd_tpu_torch.solver.uniform_wrapper — UniformSolver duck interface
   bdd_tpu_torch.solver.rounding_device — on-device incremental rounding
   bdd_tpu_torch.api                    — BddSolver for the native main path + CLI
+  bdd_tpu_torch.solver.dense           — the dense hop-scan backend
+                                          (bdd_tpu.solver.jax_solver)
+  bdd_tpu_torch.solver.dense_wrapper   — DenseSolver duck interface
+                                          (bdd_tpu.solver.wrapper, JaxSolver)
+  bdd_tpu_torch.solver.prefix          — log-depth (min,+) prefix sweeps
+                                          (bdd_tpu.solver.prefix)
+  bdd_tpu_torch.solver.sharding        — partitions and the dense sharded solve
+                                          on torch.distributed
+                                          (bdd_tpu.solver.sharding)
   bdd_tpu_torch.solver.learned         — learned MMA iterations and their gradients
   bdd_tpu_torch.learn                  — the learned solver (DOGE): features, GNN,
                                           training, dataset, checkpoints

@@ -29,10 +29,10 @@ Relaxation solver names:
         BDDs partitioned over the ranks of a torch.distributed process group,
         one shard a rank (key "partition": "auto", "block" or "mincut"); one
         shard on the device without a group
-"dense mma" raises ``NotImplementedError`` naming the ROADMAP.md item that
-ports it. The key ``"tighten"`` (true, or {"cliques",
-"odd cycles", "eps", "node limit"}) adds the cut-tightening phase after the
-dual solve.
+    "dense mma" -> the dense hop-scan backend (``solver/dense.py``) on the
+        device, built from the Python pipeline's flat BDD arrays
+The key ``"tighten"`` (true, or {"cliques", "odd cycles", "eps", "node
+limit"}) adds the cut-tightening phase after the dual solve.
 """
 from __future__ import annotations
 
@@ -89,15 +89,10 @@ HOST_SOLVERS = ("sequential mma", "parallel mma", "ref mma")
 HYBRID_SOLVERS = ("hybrid mma", "multi parallel mma", "hybrid parallel mma")
 # the BDDs partitioned over the ranks of a process group (bdd_tpu/api.py:318-347)
 SHARDED_SOLVERS = ("sharded mma", "lbfgs sharded mma", "subgradient sharded mma")
+DENSE_SOLVERS = ("dense mma",)
 _ORDERS = ("input", "bfs", "cuthill", "minimum degree", "mindegree")
 _EXPORT_KEYS = ("export lp", "export bdd lp", "export bdd graph", "print statistics",
                 "export difficult core")
-
-# relaxation solver of bdd_tpu.api -> ROADMAP.md item that ports it
-_SOLVERS_NOT_PORTED = {
-    "dense mma": "Queue 1 item 15 (the dense backend)",
-}
-
 
 def _merge(base: dict, override: dict) -> dict:
     out = dict(base)
@@ -119,12 +114,6 @@ def _lbfgs_kwargs(config: dict) -> dict:
         "step size increase factor": "step_size_increase_factor",
     }
     return {rename.get(k, k): v for k, v in config.get("lbfgs", {}).items()}
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to bdd_tpu_torch yet: see ROADMAP.md {item}"
-    )
 
 
 def _write_ilp(ilp, path: str, what: str) -> None:
@@ -181,10 +170,8 @@ class BddSolver:
     def _check_config(self) -> None:
         cfg = self.config
         name = cfg["relaxation solver"]
-        if name in _SOLVERS_NOT_PORTED:
-            raise _not_ported(f"relaxation solver {name!r}", _SOLVERS_NOT_PORTED[name])
         if name not in (UNIFORM_SOLVERS + OUTER_SOLVERS + SMOOTH_SOLVERS + HOST_SOLVERS
-                        + HYBRID_SOLVERS + SHARDED_SOLVERS):
+                        + HYBRID_SOLVERS + SHARDED_SOLVERS + DENSE_SOLVERS):
             raise ValueError(f"unknown relaxation solver {name!r}")
         if name in SHARDED_SOLVERS:
             from bdd_tpu_torch.solver.uniform_sharded import PARTITIONS
@@ -373,6 +360,12 @@ class BddSolver:
 
                 base = SubgradientSolver(base)
             self.solver = base
+        elif name in DENSE_SOLVERS:
+            # the dense hop-scan backend over the Python pipeline's flat
+            # arrays (bdd_tpu/api.py:379-399; never from the native host)
+            from bdd_tpu_torch.solver.dense_wrapper import DenseSolver
+
+            self.solver = DenseSolver(self.flat, obj, dtype=self.dtype, device=self.device)
         elif name in SMOOTH_SOLVERS:
             from bdd_tpu_torch.solver.smooth_mma import SmoothSolver
 

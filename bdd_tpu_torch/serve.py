@@ -15,8 +15,8 @@ Protocol (JSONL):
     {"inputs": ["a.lp", "b.lp"], ...} -> list of results (batched serving)
     {"shutdown": true}                -> {"status": "bye"} and exit
 
-A request that cannot be served (not an object, a missing file, a key that is
-not ported) answers {"status": "error", "message": ...} and the loop goes on:
+A request that cannot be served (not an object, a missing file, an unknown
+solver name) answers {"status": "error", "message": ...} and the loop goes on:
 that is the protocol, not a fallback. Nothing else is caught.
 
 Usage: python -m bdd_tpu_torch.serve [--device cuda] [< requests.jsonl]

@@ -36,6 +36,7 @@ from bdd_tpu_torch.solver.rounding import (
     MM_ZERO,
     MmDecoder,
 )
+from bdd_tpu_torch.solver.dense import SolverState as DenseState
 from bdd_tpu_torch.solver.layout import UniformState, state_from_buckets
 from bdd_tpu_torch.solver.run import run_solver
 from bdd_tpu_torch.utils.logging import bdd_log
@@ -208,11 +209,17 @@ def _state_leaves(state: UniformState):
 
 def save_state(s, path: str) -> None:
     """Checkpoint the dual state of a uniform-backend solver (UniformSolver,
-    SmoothSolver, HybridSolver's device side) or a RefSolver, as the JAX
-    package writes it: a pickle of {"kind": class name, "state": [numpy
-    leaves]} (RefSolver: its per-layer "lo", "hi", "def_mm")."""
-    if isinstance(getattr(s, "state", None), UniformState):
-        blob = {"kind": type(s).__name__, "state": _state_leaves(s.state)}
+    SmoothSolver, HybridSolver's device side), of a DenseSolver or of a
+    RefSolver, as the JAX package writes it: a pickle of {"kind": class name,
+    "state": [numpy leaves]} (a dense state: [lo, hi, def_mm, cft], the
+    leaves of a ``JaxSolver``'s; RefSolver: its per-layer "lo", "hi",
+    "def_mm")."""
+    state = getattr(s, "state", None)
+    if isinstance(state, UniformState):
+        blob = {"kind": type(s).__name__, "state": _state_leaves(state)}
+    elif isinstance(state, DenseState):
+        blob = {"kind": type(s).__name__,
+                "state": [np.ascontiguousarray(x.cpu().numpy()) for x in state]}
     elif hasattr(s, "lo_cost"):
         blob = {
             "kind": "RefSolver",
@@ -241,10 +248,12 @@ def load_state(s, path: str) -> None:
         s._cft = None
         return
     template = getattr(s, "state", None)
-    if not isinstance(template, UniformState):
+    if not isinstance(template, (UniformState, DenseState)):
         raise ValueError(f"a {blob['kind']} checkpoint does not load into a {type(s).__name__}")
     arrays = blob["state"]
-    leaves = [*template.lo, *template.hi, *template.def_mm, *template.cft]
+    dense = isinstance(template, DenseState)
+    leaves = (list(template) if dense
+              else [*template.lo, *template.hi, *template.def_mm, *template.cft])
     if len(arrays) != len(leaves) or any(
         np.asarray(a).shape != tuple(t.shape) for a, t in zip(arrays, leaves)
     ):
@@ -253,6 +262,10 @@ def load_state(s, path: str) -> None:
             f"({len(arrays)} vs {len(leaves)} leaves / shape mismatch) "
             "— geometry/backend mismatch")
     geom = s.geom
+    if dense:
+        s.state = DenseState(*(torch.from_numpy(np.array(a)).to(geom.device, geom.dtype)
+                               for a in arrays))
+        return
     nb = len(template.lo)
 
     def t(xs):

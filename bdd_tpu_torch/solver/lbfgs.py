@@ -29,6 +29,10 @@ projection sum their per-variable rows across the ranks, and every inner
 product is this shard's dot summed across them, so every scalar the host
 branches on (a curvature, a trial's bound) is one value that every rank
 holds and every rank takes the same branch (bdd_tpu/solver/lbfgs.py:53-110).
+On a ``DenseSolver`` (the dense backend) the per-layer vectors are flat
+views [H * L] of its [H, L] tensors, and :class:`_Ops` calls the dense
+module's dual algebra; there every gradient step takes its costs-to-terminal
+from the dense backward run (torch ops).
 """
 from __future__ import annotations
 
@@ -37,26 +41,32 @@ from typing import Deque, NamedTuple, Optional
 
 import torch
 
+from bdd_tpu_torch.solver import dense as dn
 from bdd_tpu_torch.solver import uniform as uf
+from bdd_tpu_torch.solver.dense_wrapper import DenseSolver
 from bdd_tpu_torch.solver.layout import flatten
 from bdd_tpu_torch.solver.uniform_wrapper import UniformSolver
 
 
-def solution_gradient(base: UniformSolver) -> torch.Tensor:
+def solution_gradient(base) -> torch.Tensor:
     """The supergradient of the dual at the solver's state: the per-BDD argmin
-    solutions, flat [E] in the state's dtype (0 at invalid slots)."""
+    solutions in the state's dtype, 0 at invalid layers; flat [E] over the
+    buckets of a uniform base, flat [H * L] over the rows of a dense one."""
+    if isinstance(base, DenseSolver):
+        return base.bdds_solution().reshape(-1).to(base.dtype)
     return flatten(base.bdds_solution()).to(base.dtype)
 
 
 class _Ops:
     """The dual algebra of the outer loops on their base solver: one
-    device's (``UniformSolver``), or one rank's shard of a sharded solve,
-    whose ``delta_reduce`` and ``sum_reduce`` sum across the ranks (the JAX
-    package's ``_Ops``, lbfgs.py:53-110; its dense branch waits for the
-    dense backend)."""
+    device's (``UniformSolver``), one rank's shard of a sharded solve, whose
+    ``delta_reduce`` and ``sum_reduce`` sum across the ranks, or the dense
+    backend's (``DenseSolver``: flat views of its [H, L] tensors), picked by
+    the base's type as the JAX package's ``_Ops`` does (lbfgs.py:53-110)."""
 
     def __init__(self, base) -> None:
         self.base = base
+        self.dense = isinstance(base, DenseSolver)
         self.delta_reduce = getattr(base, "delta_reduce", None)
         self.sum_reduce = getattr(base, "sum_reduce", None)
 
@@ -64,13 +74,23 @@ class _Ops:
         return solution_gradient(self.base)
 
     def net_costs(self) -> torch.Tensor:
+        if self.dense:
+            return dn.net_solver_costs(self.base.geom, self.base.state).reshape(-1)
         return uf.net_solver_costs(self.base.geom, self.base.state, self.delta_reduce)
 
     def make_dual_feasible(self, g: torch.Tensor) -> torch.Tensor:
+        if self.dense:
+            geom = self.base.geom
+            return dn.make_dual_feasible(geom, g.reshape(geom.H, geom.L)).reshape(-1)
         return uf.make_dual_feasible(self.base.geom, g, self.sum_reduce)
 
     def gradient_step(self, g: torch.Tensor, step) -> None:
-        self.base.state = uf.gradient_step(self.base.geom, self.base.state, g, step)
+        if self.dense:
+            geom = self.base.geom
+            self.base.state = dn.gradient_step(geom, self.base.state, g.reshape(geom.H, geom.L),
+                                               step)
+        else:
+            self.base.state = uf.gradient_step(self.base.geom, self.base.state, g, step)
 
     def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """The inner product over the whole dual (0-dim, on the device)."""
@@ -79,13 +99,14 @@ class _Ops:
 
 
 class _HistEntry(NamedTuple):
-    s: torch.Tensor  # flat [E]
+    s: torch.Tensor  # flat [E] (uniform) or [H * L] (dense)
     y: torch.Tensor
     rho_inv: float
 
 
 class LbfgsSolver:
-    """Wraps a ``UniformSolver``; duck interface compatible with
+    """Wraps a ``UniformSolver``, a ``ShardedUniformSolver`` or a
+    ``DenseSolver``; duck interface compatible with
     ``run_solver`` and the rounding heuristics (which reach the dual state
     through ``.base``)."""
 

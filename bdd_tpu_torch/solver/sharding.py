@@ -1,22 +1,34 @@
-"""Partitions of a BDD collection over the shards of a sharded solve: the
-host part of bdd_tpu/solver/sharding.py (lines 35-238), numpy only.
+"""Partitions of a BDD collection over the shards of a sharded solve, and
+the dense sharded solve (counterpart of bdd_tpu/solver/sharding.py).
 
 BDDs are partitioned into contiguous blocks balanced by node count, in the
 order of each BDD's median variable, so that every shard gets a tight window
 of variables; ``refine_partition_mincut`` moves boundary BDDs to shrink the
 set of variables that several shards share (the rows the consensus must
-carry across shards). The functions are copies of the JAX package's, held to
-them line for line by ``tests/test_torch_standalone.py``. The rest of that
-file, the dense ``ShardedSolver`` over ``jax_solver.py``, belongs with the
-dense backend (ROADMAP queue 1, item 15).
+carry across shards). These host functions (numpy) are copies of the JAX
+package's, held to them line for line by ``tests/test_torch_standalone.py``.
+
+The dense sharded solve (``ShardedBdds``, ``shard_collection``,
+``init_sharded_state``, ``ShardedSolver``) runs the dense backend
+(``solver/dense.py``) on one shard a rank of a ``torch.distributed`` process
+group: every shard's dense arrays are padded to the common (H, W, L), and the
+per-variable delta pair [V + 1] of each half-sweep is summed across the ranks
+(``uniform_sharded.all_reduce``) before the sweep takes it; the JAX package
+stacks the shards on a device axis under ``shard_map`` and sums with one
+``lax.psum``. With no process group the solver is one shard on its device.
+Every rank builds the host (numpy) arrays of all D shards, in the same
+deterministic way and with no collective, and uploads only its own.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 from bdd_tpu_torch.bdd.collection import BddCollection
+from bdd_tpu_torch.solver import dense as dn
+from bdd_tpu_torch.solver.flatten import ARC_BOT, densify, flatten_collection
 
 
 def partition_bdds(collection: BddCollection, nr_shards: int) -> List[List[int]]:
@@ -222,3 +234,176 @@ def _subcollection(collection: BddCollection, bdd_nrs: List[int]) -> BddCollecti
     for b in bdd_nrs:
         out.add_bdd(collection.local_nodes(b))
     return out
+
+
+# ------------------------------------------------------- the dense sharding
+_GEOM_KEYS = ("node_valid", "layer_local", "lo_kind", "lo_next", "hi_kind", "hi_next",
+              "layer_valid", "layer_var", "alpha", "num_bdds_per_var")
+
+
+class ShardedBdds(NamedTuple):
+    """Per-shard dense geometry and bookkeeping. ``arrays``: every shard's
+    padded host arrays (numpy, keyed by the ``DenseGeom`` field names; alpha
+    float64), the leaves that the JAX package stacks on its device axis;
+    ``geoms``: the shards built on the device (None for the others)."""
+
+    arrays: tuple  # per shard {field: numpy array}
+    geoms: tuple  # per shard DenseGeom or None
+    flats: tuple  # per-shard FlatBdds (host)
+    denses: tuple  # per-shard DenseBdds (host)
+    parts: tuple  # per-shard bdd number lists (into the original collection)
+    num_bdds_per_var_global: np.ndarray
+
+
+def shard_collection(collection: BddCollection, nr_vars: int, nr_shards: int,
+                     nr_primal_vars: Optional[int] = None, dtype=torch.float32,
+                     device="cuda", shards: Optional[Sequence[int]] = None) -> ShardedBdds:
+    """The dense arrays of ``nr_shards`` shards (sharding.py:249-323 of the
+    JAX package): each shard's BDDs flattened and densified on their own,
+    padded to the common (H, W, L), alpha from the whole collection's
+    per-variable counts. An empty shard holds one placeholder BDD whose
+    layers are invalid: it neither receives nor emits delta mass and adds 0
+    to the bound. ``shards``: the shards to build on ``device`` (default
+    all)."""
+    parts = partition_bdds(collection, nr_shards)
+    flats, denses, dummy = [], [], []
+    for p in parts:
+        sub = _subcollection(collection, p)
+        dummy.append(sub.nr_bdds() == 0)
+        if sub.nr_bdds() == 0:
+            sub.add_bdd([(0, -1, -1)])
+        flats.append(flatten_collection(sub, nr_vars, nr_primal_vars))
+        denses.append(densify(flats[-1]))
+
+    # global per-variable BDD counts (placeholder BDDs excluded)
+    counts = np.zeros(nr_vars, dtype=np.int32)
+    for p, f in zip(parts, flats):
+        if len(p) > 0:
+            counts += f.num_bdds_per_var
+    counts_safe = np.maximum(counts, 1)
+
+    H = max(d.H for d in denses)
+    W = max(d.W for d in denses)
+    L = max(d.L for d in denses)
+    arrays = []
+    for d, is_dummy in zip(denses, dummy):
+        alpha = np.zeros((H, L))
+        lvar = np.full((H, L), nr_vars, dtype=np.int32)
+        lvalid = np.zeros((H, L), dtype=bool)
+        if not is_dummy:
+            lvar[: d.H, : d.L] = d.layer_var
+            lvalid[: d.H, : d.L] = d.layer_valid
+        alpha[lvalid] = 1.0 / counts_safe[lvar[lvalid]]
+        nvalid = np.zeros((H, W), dtype=bool)
+        nvalid[: d.H, : d.W] = d.node_valid
+        llocal = np.full((H, W), L, dtype=np.int32)
+        llocal[: d.H, : d.W] = np.where(d.layer_local == d.L, L, d.layer_local)
+        kinds_next = {}
+        for side in ("lo", "hi"):
+            kind = np.full((H, W), ARC_BOT, dtype=np.int32)
+            nxt = np.full((H, W), W, dtype=np.int32)
+            kind[: d.H, : d.W] = getattr(d, f"{side}_kind")
+            nxt[: d.H, : d.W] = np.where(getattr(d, f"{side}_next") == d.W, W,
+                                         getattr(d, f"{side}_next"))
+            kinds_next[f"{side}_kind"], kinds_next[f"{side}_next"] = kind, nxt
+        arrays.append(dict(node_valid=nvalid, layer_local=llocal, **kinds_next,
+                           layer_valid=lvalid, layer_var=lvar, alpha=alpha,
+                           num_bdds_per_var=counts))
+    return ShardedBdds(arrays=tuple(arrays), geoms=_geoms(arrays, dtype, device, shards),
+                       flats=tuple(flats), denses=tuple(denses),
+                       parts=tuple(tuple(p) for p in parts), num_bdds_per_var_global=counts)
+
+
+def _geoms(arrays, dtype, device, shards: Optional[Sequence[int]]) -> tuple:
+    """The device geometries of the ``shards`` asked for (default all)."""
+    want = range(len(arrays)) if shards is None else shards
+    return tuple(dn.geom_from_arrays(*(a[k] for k in _GEOM_KEYS), dtype=dtype, device=device)
+                 if d in want else None for d, a in enumerate(arrays))
+
+
+def init_sharded_state(sharded: ShardedBdds, objective, shard: int) -> dn.SolverState:
+    """The initial state of one built shard (one slice of the JAX package's
+    stacked [D, H, L] / [D, H, W] state): the objective split by the global
+    per-variable BDD counts, a clean backward run."""
+    geom = sharded.geoms[shard]
+    a = sharded.arrays[shard]
+    obj = np.asarray(objective, dtype=np.float64)
+    counts = np.maximum(sharded.num_bdds_per_var_global, 1)
+    lvar, lvalid = a["layer_var"], a["layer_valid"]
+    hi = np.zeros(lvar.shape)
+    hi[lvalid] = obj[lvar[lvalid]] / counts[lvar[lvalid]]
+    hi = torch.from_numpy(hi).to(geom.device, geom.dtype)
+    lo = torch.zeros_like(hi)
+    return dn.SolverState(lo=lo, hi=hi, def_mm=torch.zeros_like(hi),
+                          cft=dn.backward_run(geom, lo, hi))
+
+
+class ShardedSolver:
+    """One rank's shard of the dense sharded solve (the JAX package's
+    ``ShardedSolver`` over a device mesh): every rank constructs it with the
+    same arguments and calls its methods in the same order (each runs
+    collectives). Cross-shard communication: one all_reduce of the
+    per-variable delta pair [V + 1, 2] per half-sweep; the bound is the sum
+    across the ranks of the local bounds after distributing the reduced
+    deltas. With no process group: one shard on ``device``. ``like``: the
+    ``sharded`` of an earlier solver of the same collection and ranks
+    (another float type), whose partition and host arrays it takes in place
+    of building them again."""
+
+    default_block_size = 10
+
+    def __init__(self, collection: BddCollection, nr_vars: int, objective, group=None,
+                 nr_primal_vars: Optional[int] = None, dtype=torch.float32,
+                 omega: float = 0.5, device="cuda", like: Optional[ShardedBdds] = None) -> None:
+        from bdd_tpu_torch.solver.layout import resolve_device
+        from bdd_tpu_torch.solver.uniform_sharded import Comm
+
+        self.comm = Comm(group)
+        device = resolve_device(device)
+        if self.comm.backend == "nccl" and device.type != "cuda":
+            raise ValueError("an NCCL process group needs the solver on a card")
+        r = self.comm.rank
+        if like is None:
+            self.sharded = shard_collection(collection, nr_vars, self.comm.size, nr_primal_vars,
+                                            dtype=dtype, device=device, shards=[r])
+        else:
+            if len(like.parts) != self.comm.size or len(like.num_bdds_per_var_global) != nr_vars:
+                raise ValueError(f"a sharding of {len(like.parts)} shards and "
+                                 f"{len(like.num_bdds_per_var_global)} variables for "
+                                 f"{self.comm.size} ranks and {nr_vars} variables")
+            self.sharded = like._replace(geoms=_geoms(like.arrays, dtype, device, [r]))
+        self.geom = self.sharded.geoms[r]
+        self.state = init_sharded_state(self.sharded, objective, r)
+        self.dtype, self.device, self.omega = dtype, device, omega
+
+    def _delta(self, def_mm: torch.Tensor):
+        """The per-variable delta pair of this shard's deferred marginals,
+        summed across the ranks."""
+        from bdd_tpu_torch.solver.uniform_sharded import all_reduce
+
+        d = all_reduce(self.comm, dn.delta_sums(self.geom, def_mm))
+        return d[:, 0], d[:, 1]
+
+    def iteration(self) -> None:
+        geom, omega = self.geom, self.omega
+        state, cfr = dn.forward_iteration(geom, self.state, omega,
+                                          delta=self._delta(self.state.def_mm))
+        self.state = dn.backward_iteration(geom, state, omega, cfr,
+                                           delta=self._delta(state.def_mm))
+
+    def iteration_block(self, n: int) -> None:
+        for _ in range(n):
+            self.iteration()
+
+    def lower_bound(self) -> float:
+        """The global bound after distributing the reduced deferred deltas:
+        this shard's root costs summed in float64, summed across the ranks."""
+        from bdd_tpu_torch.solver.uniform_sharded import all_reduce
+
+        geom = self.geom
+        cft = dn.update_costs(geom, self.state, *self._delta(self.state.def_mm)).cft
+        local = torch.where(geom.node_valid[0], cft[0], 0.0).to(torch.float64).sum()
+        return float(all_reduce(self.comm, local).to(self.dtype))
+
+    def lower_bound_with_deferred(self) -> float:
+        return self.lower_bound()

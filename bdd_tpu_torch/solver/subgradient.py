@@ -8,7 +8,8 @@ when the bound falls below the best seen. Every step takes its
 costs-to-terminal from the run-only entry of the backward kernel
 (``uniform.gradient_step``); the host waits for the two lower bounds of an
 iteration. On a ``ShardedUniformSolver`` the projection sums across the ranks
-and the bounds are global (``lbfgs._Ops``), so every rank steps alike.
+and the bounds are global (``lbfgs._Ops``), so every rank steps alike; on a
+``DenseSolver`` the dense backend's dual algebra runs instead.
 """
 from __future__ import annotations
 

@@ -106,13 +106,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      pipeline): (a) the GNN's per-layer alpha and omega through one fused
      forward and one fused backward launch and the run entry, bit-equal to
      the twins and timed beside the byte bound (alpha and omega counted as
-     arrays); (b) the checkpoint's rollout, 10 rounds x 20 learned
+     arrays); (b) the checkpoint's rollout, 5 rounds x 20 learned
      iterations with history and smooth features: the per-round bounds, one
      host sync per rollout (sync debug mode) and none between its first and
      last launch (profiler), ms per round by span (features, GNN,
      iterations, bound) and the device busy share, one launch of each
-     half-sweep per learned iteration, plain MMA on the same layout for 200
-     iterations beside it (not gated), and the first 2 rounds through the
+     half-sweep per learned iteration, plain MMA on the same layout for 100
+     iterations beside it (not gated), and the first round through the
      twins, bit-equal; (c) training on gm120 seed 0 (phase 10's Python
      build), depth cut to 2 rounds (one pre-round, one with gradients): the
      kernels with the same alpha and omega held to the twins on that layout,
@@ -136,7 +136,31 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the same, and no rank imported JAX. Then rank 0 alone in a process
      group over NCCL on grid12, every row of the sums through the backend:
      the float32 bound against the one-device solver's on the same
-     collection.
+     collection. The dense part: in the same two ranks, the dense sharded
+     solve (``solver/sharding.py``'s ``ShardedSolver``) over the native
+     host's gm50k collection, float32 and float64, 100 iterations, one
+     all_reduce of the [V + 1, 2] delta pair per half-sweep: every rank's
+     bound equal, held to a one-device DenseSolver on the same collection
+     (run by this process while the ranks build their layouts; rel 1e-5 /
+     1e-12), ms an iteration and per all_reduce.
+ 16. the dense backend ("dense mma", ``solver/dense.py``, torch ops in a hop
+     loop; no sweep kernel, so no row of its own): (a) DenseSolver on phase
+     10's Python build of gm50k, 200 iterations, float32 twice (bit-identical)
+     and float64, held to the uniform solver on the same build after as many
+     iterations (rel 1e-3 / 1e-9), it/s beside the uniform path's, kernel
+     launches an iteration, device busy share and host syncs (0) from a
+     profiled block; (b) grid12 float64 on the card against the CPU (rel
+     1e-12); (c) "dense mma" through BddSolver on grid12 with the default
+     rounding (dual depth cut to 100 iterations): feasible, objective >=
+     bound; with "tighten" the bound is kept; (d) L-BFGS and subgradient over
+     DenseSolver on grid12 float64, 100 outer iterations, beside plain dense
+     MMA; (e) the log-depth prefix sweeps (``solver/prefix.py``) on phase 2's
+     unpacked gm50k layouts against the run-only kernel's costs-to-terminal
+     and bound, the plain forward run and ``min_marginals_all`` (float64 abs
+     1e-9, float32 rel 1e-5), timed beside them; (f) a checkpoint saved and
+     loaded on the card, the next 10 iterations bit for bit. Every dense solve
+     is checked to move neither the sweep kernels' launch counts nor the
+     plain versions' call counts.
 Every layout that phases 2 and 6-11 hold the half-sweeps on also holds the
 run-only entry of the backward kernel (``uniform_backward_run``: the
 costs-to-terminal of given costs) to the plain run, bit-equal, timed warm and
@@ -883,8 +907,9 @@ x_12 + x_22 + x_32 = 1
 x_13 + x_23 + x_33 = 1
 End"""  # tests/fixtures.py: a 3x3 assignment, LP-tight at -6
 SMOOTH_CFG = {"relaxation solver": "smooth mma", "smoothing": 0.2, "smoothing decay factor": 0.5}
-SMOOTH_ITERS = 100  # cut from 200 (PR 8) to keep the whole script near its budget
+SMOOTH_ITERS = 50  # depth cut from 200 to keep the whole script in its time budget
 GM_SMOOTH_ITERS = 20
+SMOOTH_FIXED_T_ITERS = 15  # grid12 at a fixed temperature: depth cut from 30
 
 
 def perturb_zero_sum(s, magnitude=1.7) -> None:
@@ -1001,9 +1026,9 @@ def phase_smooth(card, gm_python):
     # the JAX package's does (the same trajectory; the CPU tests hold it):
     # reported, and the float64 trajectory on the card held to the CPU run.
     layouts = {}
-    for label, make, T, perturb in (
-            ("matching3x3", lambda: parse_lp_string(MATCHING_3X3), 0.5, True),
-            ("grid12", lambda: grid_mrf(12, 12, 4, seed=0), 0.2, False)):
+    for label, make, T, perturb, n in (
+            ("matching3x3", lambda: parse_lp_string(MATCHING_3X3), 0.5, True, 30),
+            ("grid12", lambda: grid_mrf(12, 12, 4, seed=0), 0.2, False, SMOOTH_FIXED_T_ITERS)):
         for prec in ("float", "double"):
             runs = {}
             for device in ("cuda", "cpu") if prec == "double" else ("cuda",):
@@ -1016,7 +1041,7 @@ def phase_smooth(card, gm_python):
                 if perturb:
                     perturb_zero_sum(sol)
                 bounds, hards = [sol.smooth_bound()], [sol.lower_bound_with_deferred()]
-                for _ in range(30):
+                for _ in range(n):
                     sol.iteration()
                     bounds.append(sol.smooth_bound())
                     hards.append(sol.lower_bound_with_deferred())
@@ -1035,7 +1060,7 @@ def phase_smooth(card, gm_python):
             if any(abs(a - b) > 1e-9 * abs(b) for a, b in zip(bounds, cpu)):
                 fail(f"smooth mma {label} float64 at T = {T}: card {bounds} vs CPU {cpu}")
             peak = max(range(len(bounds)), key=lambda i: bounds[i])
-            print(f"[smooth] {label} {prec} at T = {T}{', perturbed' if perturb else ''}, 30 "
+            print(f"[smooth] {label} {prec} at T = {T}{', perturbed' if perturb else ''}, {n} "
                   f"iterations: smooth bound {bounds[0]!r} -> {bounds[-1]!r}, highest "
                   f"{bounds[peak]!r} after {peak}; {len(dips)} dips, the largest "
                   f"{min(dips, default=0.0):.3e}; hard bound {hards[-1]!r}, at or above the "
@@ -1043,7 +1068,7 @@ def phase_smooth(card, gm_python):
                   f"{'; the trajectory equals the CPU run to rel 1e-9' if cpu else ''} {card}",
                   flush=True)
     for prec, (host, objective) in layouts.items():
-        smooth_rates(f"grid12 {prec}", host, objective, card, 20)
+        smooth_rates(f"grid12 {prec}", host, objective, card, 10)
     host, objective = gm_python[:2]
     sol = smma.SmoothSolver(host, objective, smoothing=0.2, smoothing_decay=0.5)
     before = plain_calls()
@@ -1439,7 +1464,7 @@ def phase_outer(card, gm_lp, gm_host, gm_objective, errs, times, flush):
           f"{[(g.P, g.H, g.B) for g in outer.base.geom.buckets]} {card}", flush=True)
     kernel_vs_twin("gm50k lbfgs", outer.base.host, None, card, errs, times, flush,
                    state=outer.base.state)
-    gm_python = (outer.base.host, s.pre.objective_vector(), s.pre)
+    gm_python = (outer.base.host, s.pre.objective_vector(), s.pre, s.flat)
     paths.append({"at": "gm50k lbfgs", "dt": "float32", "suffix": "", "launches": counted,
                   "iterations": res["iterations"]})
     # ---- what an outer iteration is made of, on the native gm50k layout: the
@@ -1727,7 +1752,7 @@ def phase_hybrid(card, errs, times, flush, gm_python, gm_nh, gm_f32, gm_bound):
         del sol, host
 
     # ---- (b) gm50k float32 on phase 10's Python build, every 50th BDD on the host
-    gm_host, _, gm_pre = gm_python
+    gm_host, _, gm_pre = gm_python[:3]
     col, V, obj = gm_pre.collection, gm_pre.total_nr_variables(), gm_pre.objective_vector()
     t0 = time.perf_counter()
     hs = HybridSolver(col, V, obj, nr_primal_vars=gm_pre.nr_primal_variables,
@@ -1835,10 +1860,10 @@ LEARNED_SEED = 100  # the held-out instance of benchmarks/train_doge_scale.py
 LEARNED_TRAIN_ROUNDS = 2  # depth cut of the checkpoint's 20: one pre-round, one with gradients
 # the rollout's depth: 10 of the checkpoint's 20 rounds of 20 iterations
 # (cut in PR 8 to keep the whole script near its budget)
-LEARNED_ROLLOUT_ROUNDS = 10
-LEARNED_MMA_ITERS = 200  # as many iterations as the rollout
-LEARNED_TWIN_ROUNDS = 2
-LEARNED_PROFILE_ROUNDS = 2
+LEARNED_ROLLOUT_ROUNDS = 5  # depth cut from the checkpoint's 20 to keep the script in its budget
+LEARNED_MMA_ITERS = 100  # as many iterations as the rollout
+LEARNED_TWIN_ROUNDS = 1  # one round shows the twins equal to the kernels
+LEARNED_PROFILE_ROUNDS = 1  # the profiler processes every one of a round's ~70,500 launches
 GRAD_REL = 1e-6
 LEARNED_TRAIN_STEPS = 1  # cut from 2 (PR 8): one step moves the parameters and counts launches
 
@@ -1974,7 +1999,7 @@ def phase_learned(card, errs, times, flush, gm_python):
     """Phase 14: the learned solver (DOGE) from the JAX package's trained
     ``doge_gm120.ckpt`` on gm120 seed 100 (float32, the Python pipeline the
     trainer builds with): (a) the kernels with the GNN's alpha and omega
-    against the twins; (b) the checkpoint's rollout (10 of its 20 rounds of
+    against the twins; (b) the checkpoint's rollout (5 of its 20 rounds of
     20 iterations) with one host
     sync, its time by span, plain MMA on the same layout for as many
     iterations, and the first rounds through the twins, bit-equal; (c) a
@@ -2063,7 +2088,7 @@ def phase_learned(card, errs, times, flush, gm_python):
     print(f"[learned] the first {LEARNED_TWIN_ROUNDS} rounds through the twins on the card equal "
           f"the kernels' bit for bit ({twin}); {twin_s:.2f} s {card}", flush=True)
     # ---- (c) training on gm120 seed 0: gradients, then a step
-    t_host, t_objective, t_pre = gm_python
+    t_host, t_objective, t_pre = gm_python[:3]
     t0 = time.perf_counter()
     tinst = tr.Instance(t_host, t_objective, pre=t_pre)
     trainer = tr.DogeTrainer()
@@ -2266,8 +2291,9 @@ def sharded_rank(argv) -> None:
     solves with partition "auto", the collectives timed, a profiled block,
     the kernels against the twins on rank 0's shard layout, "lbfgs sharded
     mma" and "sharded mma" through BddSolver on grid12, one
-    ShardedDogeTrainer step; then rank 0 alone in a process group of its own
-    over NCCL (:func:`nccl_one_rank`). Writes OUTDIR/rank<R>.json."""
+    ShardedDogeTrainer step, the dense sharded solve (:func:`sharded_dense`);
+    then rank 0 alone in a process group of its own over NCCL
+    (:func:`nccl_one_rank`). Writes OUTDIR/rank<R>.json."""
     import torch
     import torch.distributed as dist
 
@@ -2340,6 +2366,7 @@ def sharded_rank(argv) -> None:
     out["times"] = {f"{label}|{dt}": e for (label, dt), e in times.items()}
     out["lbfgs"] = sharded_lbfgs(card)
     out["doge"] = sharded_doge(s32, obj, card)
+    out["dense"] = sharded_dense(rank, collection, V, obj, card)
     # one rank over NCCL: a process group of rank 0 alone (NCCL refuses two
     # ranks a card); every rank of the world takes part in making it
     nccl = dist.new_group(ranks=[0], backend="nccl")
@@ -2421,9 +2448,11 @@ def sharded_doge(s, objective, card) -> dict:
     return {"loss": loss, "step_s": step_s, "init_s": init_s, "launches": launches}
 
 
-def run_ranks(size: int, lp_path: str, outdir: str) -> list:
-    """Start ``size`` rank processes of this script on the card, echo their
-    output, fail if one fails or outlasts SHARDED_TIMEOUT_S; their JSON."""
+def run_ranks(size: int, lp_path: str, outdir: str, meanwhile=None):
+    """Start ``size`` rank processes of this script on the card, run
+    ``meanwhile()`` (if given) in this process while they work, echo their
+    output, fail if one fails or outlasts SHARDED_TIMEOUT_S; (their JSON,
+    what ``meanwhile`` returned)."""
     import socket
 
     with socket.socket() as sock:
@@ -2441,6 +2470,7 @@ def run_ranks(size: int, lp_path: str, outdir: str) -> list:
         for r, log in enumerate(logs)]
     deadline = time.monotonic() + SHARDED_TIMEOUT_S
     try:
+        extra = meanwhile() if meanwhile is not None else None
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
     except subprocess.TimeoutExpired:
@@ -2463,6 +2493,40 @@ def run_ranks(size: int, lp_path: str, outdir: str) -> list:
     for r in range(size):
         with open(os.path.join(outdir, f"rank{r}.json")) as fh:
             out.append(json.load(fh))
+    return out, extra
+
+
+def dense_reference(gm_lp: str, card) -> dict:
+    """The one-device DenseSolver on the collection the ranks of phase 15
+    solve (gm50k through the native host library), float32 and float64,
+    DENSE_SHARDED_ITERS iterations: the reference of the dense sharded solve.
+    Run in the parent while the ranks build their layouts (host work; their
+    first card work comes after it), so that it adds no time to the phase."""
+    import torch
+    from bdd_tpu_torch.native import NativeHost
+    from bdd_tpu_torch.solver.dense_wrapper import DenseSolver
+    from bdd_tpu_torch.solver.flatten import densify, flatten_collection
+
+    t0 = time.perf_counter()
+    nh = NativeHost(gm_lp, "bfs")
+    V = nh.nr_vars()
+    flat = flatten_collection(nh.collection(), V, V)
+    dense = densify(flat)
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[-1]
+
+        def solve():
+            one = DenseSolver(flat, nh.objective(), dtype=dt, device="cuda", dense=dense)
+            one.iteration_block(DENSE_SHARDED_ITERS)
+            return one.lower_bound_with_deferred()
+
+        out[name] = dense_guard(f"one-device dense gm50k {name}", solve)
+    out["s"] = time.perf_counter() - t0
+    print(f"[sharded] the one-device DenseSolver on the ranks' gm50k collection (H={dense.H} "
+          f"W={dense.W} L={dense.L}), {DENSE_SHARDED_ITERS} iterations, in this process while "
+          f"the ranks built their layouts: float32 {out['float32']!r}, float64 "
+          f"{out['float64']!r}; {out['s']:.2f} s {card}", flush=True)
     return out
 
 
@@ -2475,9 +2539,11 @@ def phase_sharded(card, errs, times, gm_lp, gm_ref):
     kernels against the twins on rank 0's shard layout; the collectives
     timed over the shared rows and over all rows; host syncs and device busy
     share of a profiled block; "lbfgs sharded mma" on grid12 through
-    BddSolver; one ShardedDogeTrainer step. Then rank 0 alone in a process
-    group over NCCL on grid12 (every row of the sums through the backend)
-    against the one-device solver. ``gm_ref``: phase 3's bounds."""
+    BddSolver; one ShardedDogeTrainer step; the dense sharded solve against
+    a one-device DenseSolver that this process runs meanwhile
+    (:func:`dense_reference`). Then rank 0 alone in a process group over
+    NCCL on grid12 (every row of the sums through the backend) against the
+    one-device solver. ``gm_ref``: phase 3's bounds."""
     import shutil
     import tempfile
 
@@ -2487,7 +2553,8 @@ def phase_sharded(card, errs, times, gm_lp, gm_ref):
         with open(lp_path, "w") as fh:
             fh.write(gm_lp)
         t0 = time.perf_counter()
-        ranks = run_ranks(SHARDED_RANKS, lp_path, outdir)
+        ranks, one_device = run_ranks(SHARDED_RANKS, lp_path, outdir,
+                                      lambda: dense_reference(gm_lp, card))
         ranks_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
@@ -2495,7 +2562,8 @@ def phase_sharded(card, errs, times, gm_lp, gm_ref):
 
     def bounds(r):
         return (r["float32"]["lb"], r["float64"]["lb"],
-                {name: v["lb"] for name, v in r["lbfgs"].items()}, r["doge"]["loss"])
+                {name: v["lb"] for name, v in r["lbfgs"].items()}, r["doge"]["loss"],
+                r["dense"]["float32"]["lb"], r["dense"]["float64"]["lb"])
 
     if any(bounds(r) != bounds(r0) for r in ranks):
         fail(f"the ranks' bounds differ: {[bounds(r) for r in ranks]}")
@@ -2519,6 +2587,18 @@ def phase_sharded(card, errs, times, gm_lp, gm_ref):
     lb_l, lb_m = (r0["lbfgs"][n]["lb"] for n in ("lbfgs sharded mma", "sharded mma"))
     if not lb_l >= lb_m - 1e-6:
         fail(f"grid12: lbfgs sharded mma {lb_l!r} below sharded mma {lb_m!r}")
+    for dt in ("float32", "float64"):
+        d, ref = r0["dense"][dt], one_device[dt]
+        rel = abs(d["lb"] - ref) / abs(ref)
+        print(f"[sharded] dense gm50k {dt}, {SHARDED_RANKS} ranks: lb {d['lb']!r} after "
+              f"{DENSE_SHARDED_ITERS} iterations vs the one-device DenseSolver's "
+              f"{ref!r}: rel diff {rel:.3e} (limit {DENSE_SHARDED_REL[dt]}); "
+              f"{[round(r['dense'][dt]['ms_per_iteration'], 2) for r in ranks]} ms an iteration, "
+              f"an all_reduce of the [V + 1, 2] pair "
+              f"{[round(r['dense'][dt]['all_reduce_ms'], 4) for r in ranks]} ms; every rank's "
+              f"bound equal {card}", flush=True)
+        if not rel <= DENSE_SHARDED_REL[dt]:
+            fail(f"dense sharded gm50k {dt} bound off the one-device DenseSolver's")
     n32 = r0["nccl"]
     nrel = abs(n32["lb"] - n32["one_device_lb"]) / abs(n32["one_device_lb"])
     if not nrel <= LB_REL["float"]:
@@ -2538,6 +2618,358 @@ def phase_sharded(card, errs, times, gm_lp, gm_ref):
           f"{n32['its_per_s']:.1f} it/s, {n32['profile']['syncs_per_iteration']:.2f} host syncs "
           f"an iteration {card}", flush=True)
     return paths
+
+
+DENSE_ITERS = 200  # gm50k: the dense solves and the uniform reference
+DENSE_GRID_ITERS = 50  # grid12 float64: card against CPU
+DENSE_TIGHTEN_ITERS = 30  # "dense mma" with and without "tighten", dual only
+DENSE_API_ITERS = 100  # depth cut of the default 1,000 for the API solves (rounding as default)
+DENSE_OUTER_ITERS = 100
+DENSE_PROFILE_ITERS = 2
+DENSE_PREFIX_ITERS = 20  # iterations before the prefix sweeps read the state
+DENSE_SHARDED_ITERS = 100  # phase 15's dense part
+DENSE_REL = {"float32": 1e-3, "float64": 1e-9}  # dense vs uniform after the same iterations
+DENSE_SHARDED_REL = {"float32": 1e-5, "float64": 1e-12}  # ranks vs one device
+
+
+def dense_guard(what, fn):
+    """fn() with the sweep kernels' launch counts and the plain versions'
+    call counts held: the dense path launches no sweep kernel and calls no
+    twin or plain run; fails otherwise."""
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+
+    sk.reset_launch_counts()
+    before = plain_calls()
+    out = fn()
+    if any(sk.LAUNCHES.values()) or plain_calls() != before:
+        fail(f"{what}: the dense path moved the sweep kernels' counts {dict(sk.LAUNCHES)} or "
+             f"the plain versions' {before} -> {plain_calls()}")
+    return out
+
+
+def profile_dense(label, solver, card, n=DENSE_PROFILE_ITERS) -> dict:
+    """torch.profiler over one block of n dense iterations: kernel launches
+    per iteration, device busy share, and the host syncs between the block's
+    first and last launch (must be 0)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    solver.iteration_block(1)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.iteration_block(n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = list(prof.events())
+    launches = [e.time_range.start for e in events if e.name in ("cudaLaunchKernel",
+                                                                 "cudaLaunchKernelExC")]
+    if not launches:
+        fail(f"{label}: the profiler saw no kernel launch in a dense block")
+    first, last = min(launches), max(launches)
+    syncs = {}
+    for e in events:
+        if e.name in SYNC_EVENTS and first <= e.time_range.start <= last:
+            syncs[e.name] = syncs.get(e.name, 0) + 1
+    device_us = sum(getattr(a, "self_device_time_total", None) or getattr(
+        a, "self_cuda_time_total", 0.0) for a in prof.key_averages())
+    if device_us <= 0:
+        fail(f"{label}: the profiler recorded no device time")
+    out = {"launches_per_iteration": len(launches) / n, "syncs": sum(syncs.values()),
+           "wall_ms": 1e3 * wall / n, "busy_ms": device_us / 1e3 / n,
+           "busy_share": device_us / 1e6 / wall}
+    print(f"[dense] {label} profiled block of {n} iterations: {out['launches_per_iteration']:.1f} "
+          f"kernel launches an iteration, host syncs between first and last launch "
+          f"{out['syncs']} {syncs}; wall {out['wall_ms']:.2f} ms, device busy "
+          f"{out['busy_ms']:.3f} ms an iteration (busy share {out['busy_share']:.3f}, under the "
+          f"profiler) {card}", flush=True)
+    if out["syncs"]:
+        fail(f"{label}: {out['syncs']} host syncs inside a dense block; expected 0")
+    return out
+
+
+def close_runs(what, got, want, dt) -> float:
+    """Fails unless got and want (tensors) have the same ±inf pattern and
+    agree to abs 1e-9 (float64) or rel 1e-5 (float32); the largest |diff|."""
+    import torch
+
+    fg, fw = torch.isfinite(got), torch.isfinite(want)
+    if not torch.equal(fg, fw) or not torch.equal(got[~fg], want[~fw]):
+        fail(f"{what}: the ±inf patterns differ")
+    if not fg.any():
+        return 0.0
+    diff = (got[fg] - want[fw]).abs()
+    err = float(diff.max())
+    limit = (1e-9 if dt == torch.float64
+             else 1e-5 * torch.clamp_min(want[fw].abs(), 1.0))
+    if bool((diff > limit).any()):
+        fail(f"{what}: max |diff| {err} over the limit ({dt})")
+    return err
+
+
+def phase_dense(card, gm_python, gm_prefix, gm_objective):
+    """Phase 16: the dense backend ("dense mma", ``solver/dense.py``) on the
+    card. ``gm_python``: phase 10's Python build of gm50k (host, objective,
+    preprocessor, flat arrays); ``gm_prefix``:
+    phase 2's unpacked gm50k layouts by dtype name."""
+    import tempfile
+
+    import torch
+    from bdd_tpu_torch.api import BddSolver
+    from bdd_tpu_torch.solver import extras
+    from bdd_tpu_torch.solver import layout
+    from bdd_tpu_torch.solver import prefix as px
+    from bdd_tpu_torch.solver import uniform as uf
+    from bdd_tpu_torch.solver.dense_wrapper import DenseSolver
+    from bdd_tpu_torch.solver.flatten import densify
+    from bdd_tpu_torch.solver.lbfgs import LbfgsSolver
+    from bdd_tpu_torch.solver.subgradient import SubgradientSolver
+    from bdd_tpu_torch.solver.uniform_wrapper import UniformSolver
+    from bdd_tpu_torch.utils.problems import grid_mrf
+
+    out = {}
+    # ---- (a) gm50k on phase 10's Python build: float32 twice, float64 once
+    host32, objective, pre, flat = gm_python
+    V, npv = pre.total_nr_variables(), pre.nr_primal_variables
+    t0 = time.perf_counter()
+    dense = densify(flat)
+    build_s = time.perf_counter() - t0
+    print(f"[dense] gm50k (phase 10's Python build, its flat arrays): {flat.nr_bdds} BDDs, "
+          f"{flat.nr_nodes} nodes, H={dense.H} W={dense.W} L={dense.L}; densify {build_s:.2f} s "
+          f"{card}", flush=True)
+
+    def timed_solve(make, n):
+        s = make()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s.iteration_block(n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return s, float(s.lower_bound_with_deferred()), n / wall
+
+    solves = {}
+    for run, dt in (("float32", torch.float32), ("float32 rerun", torch.float32),
+                    ("float64", torch.float64)):
+        solves[run] = dense_guard(f"gm50k dense {run}", lambda: timed_solve(
+            lambda: DenseSolver(flat, objective, dtype=dt, device="cuda", dense=dense),
+            DENSE_ITERS))
+    if solves["float32"][1] != solves["float32 rerun"][1] or not all(
+            torch.equal(a, b) for a, b in zip(solves["float32"][0].state,
+                                              solves["float32 rerun"][0].state)):
+        fail(f"gm50k dense float32 reruns differ: {solves['float32'][1]!r} vs "
+             f"{solves['float32 rerun'][1]!r}")
+    host64 = layout.flatten_uniform(pre.collection, V, npv, dtype=torch.float64, device="cuda")
+    for name, host in (("float32", host32), ("float64", host64)):
+        s, lb, its = solves[name]
+        _, ref, ref_its = timed_solve(lambda: UniformSolver(host, objective), DENSE_ITERS)
+        rel = abs(lb - ref) / abs(ref)
+        print(f"[dense] gm50k {name}: lb {lb!r} after {DENSE_ITERS} iterations vs the uniform "
+              f"solver on the same Python build {ref!r}: rel diff {rel:.3e} (limit "
+              f"{DENSE_REL[name]}); {its:.2f} it/s ({1e3 / its:.2f} ms an iteration) against the "
+              f"uniform path's {ref_its:.1f} it/s on the same build {card}", flush=True)
+        if not rel <= DENSE_REL[name]:
+            fail(f"gm50k dense {name} bound off the uniform solver's")
+        out[f"gm50k {name}"] = {"lb": lb, "its_per_s": its, "uniform_lb": ref,
+                                "uniform_its_per_s": ref_its}
+    print(f"[dense] gm50k float32 rerun bit-identical: {solves['float32 rerun'][1]!r}; no sweep "
+          f"kernel launched and no plain version called in the dense solves {card}", flush=True)
+    out["profile"] = dense_guard("gm50k dense profile", lambda: profile_dense(
+        "gm50k float32", solves["float32"][0], card))
+    del solves, host64
+
+    # ---- (b) grid12 float64: the card against the CPU
+    grid = BddSolver({"precision": "double", "relaxation solver": "dense mma"},
+                     device="cuda").read_ilp(ilp=grid_mrf(12, 12, 4, seed=0))
+    grid.process_ilp().transform_to_bdds()
+    gflat, gobj = grid.flat, grid.pre.objective_vector()
+    gdense = densify(gflat)
+
+    def grid_solver(dt=torch.float64, device="cuda"):
+        return DenseSolver(gflat, gobj, dtype=dt, device=device, dense=gdense)
+
+    card_s, card_lb, card_its = dense_guard("grid12 dense float64", lambda: timed_solve(
+        grid_solver, DENSE_GRID_ITERS))
+    t0 = time.perf_counter()
+    cpu_s = grid_solver(device="cpu")
+    cpu_s.iteration_block(DENSE_GRID_ITERS)
+    cpu_lb = cpu_s.lower_bound_with_deferred()
+    cpu_its = DENSE_GRID_ITERS / (time.perf_counter() - t0)
+    rel = abs(card_lb - cpu_lb) / abs(cpu_lb)
+    state_err = max(float(torch.nan_to_num(a.cpu() - b, nan=0.0, posinf=0.0, neginf=0.0)
+                          .abs().max()) for a, b in zip(card_s.state, cpu_s.state))
+    print(f"[dense] grid12 float64, H={gdense.H} W={gdense.W} L={gdense.L}: card lb {card_lb!r} vs "
+          f"CPU {cpu_lb!r} after {DENSE_GRID_ITERS} iterations: rel diff {rel:.3e} (limit "
+          f"1e-12), state max |diff| {state_err:.3e}; card {card_its:.2f} it/s, CPU "
+          f"{cpu_its:.2f} it/s {card}", flush=True)
+    if not rel <= 1e-12:
+        fail("grid12 dense float64: card and CPU bounds differ")
+    out["grid12 card vs cpu"] = {"rel": rel, "card_its_per_s": card_its, "cpu_its_per_s": cpu_its}
+
+    # ---- (c) the API: "dense mma" with the default rounding, and with "tighten"
+    ilp = grid_mrf(12, 12, 4, seed=0)
+    api_cfg = {"relaxation solver": "dense mma",
+               "termination criteria": {"maximum iterations": DENSE_API_ITERS}}
+
+    def api_solve(cfg, ilp_):
+        t = time.perf_counter()
+        solver = BddSolver(cfg, device="cuda").read_ilp(ilp=ilp_)
+        res = solver.solve(verbose=False)
+        if not isinstance(solver.solver, DenseSolver):
+            fail(f"dense mma built a {type(solver.solver).__name__}")
+        return res, time.perf_counter() - t
+
+    res, wall = dense_guard("grid12 dense mma through BddSolver", lambda: api_solve(api_cfg, ilp))
+    checked_solution(ilp, res, "grid12 dense mma")
+    lb, obj = res["lower_bound"], res["objective"]
+    print(f"[dense] grid12 BddSolver('dense mma', default rounding, {DENSE_API_ITERS} dual "
+          f"iterations) on the card: lb {lb!r}, objective {obj!r}, gap "
+          f"{(obj - lb) / abs(obj):.4%}, feasible; {wall:.2f} s wall {card}", flush=True)
+    dual_cfg = {"relaxation solver": "dense mma", **DUAL_ONLY,
+                **fixed_iterations(DENSE_TIGHTEN_ITERS)}
+    plain, _ = dense_guard("grid12 dense mma dual only", lambda: api_solve(
+        dual_cfg, grid_mrf(12, 12, 4, seed=0)))
+    tight, _ = dense_guard("grid12 dense mma with tighten", lambda: api_solve(
+        {**dual_cfg, "tighten": True}, grid_mrf(12, 12, 4, seed=0)))
+    if tight["lower_bound"] != plain["lower_bound"] or "tighten" in tight:
+        fail(f"dense mma with tighten: lb {tight['lower_bound']!r} vs {plain['lower_bound']!r} "
+             f"without; the phase must be skipped")
+    print(f"[dense] grid12 'dense mma' with 'tighten': skipped (no layer costs), bound kept "
+          f"{tight['lower_bound']!r} {card}", flush=True)
+    out["api"] = {"lb": lb, "objective": obj, "wall_s": wall}
+
+    # ---- (d) the outer loops over the dense base, grid12 float64
+    outer = {}
+    for name, wrap in (("lbfgs", LbfgsSolver), ("subgradient", SubgradientSolver),
+                       ("plain dense MMA", None)):
+        def run():
+            solver = grid_solver() if wrap is None else wrap(grid_solver())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if wrap is None:
+                solver.iteration_block(DENSE_OUTER_ITERS)
+            else:
+                for _ in range(DENSE_OUTER_ITERS):
+                    solver.iteration()
+            torch.cuda.synchronize()
+            return (float(solver.lower_bound_with_deferred()),
+                    1e3 * (time.perf_counter() - t) / DENSE_OUTER_ITERS)
+
+        outer[name] = dense_guard(f"grid12 dense {name}", run)
+    (lb_l, ms_l), (lb_s, ms_s), (lb_m, ms_m) = (outer[k] for k in (
+        "lbfgs", "subgradient", "plain dense MMA"))
+    if not (math.isfinite(lb_s) and lb_l >= lb_m - 1e-3 * abs(lb_m)):
+        fail(f"grid12 dense outer loops: lbfgs {lb_l!r}, subgradient {lb_s!r}, MMA {lb_m!r}")
+    print(f"[dense] grid12 float64 after {DENSE_OUTER_ITERS} outer iterations over DenseSolver: "
+          f"lbfgs {lb_l!r} ({ms_l:.2f} ms an outer iteration), subgradient {lb_s!r} "
+          f"({ms_s:.2f} ms), plain dense MMA {lb_m!r} ({ms_m:.2f} ms an iteration) {card}",
+          flush=True)
+    out["outer"] = outer
+
+    # ---- (e) the prefix sweeps on phase 2's unpacked gm50k layouts
+    for name, host in gm_prefix.items():
+        dt = host.geom.dtype
+        sol = UniformSolver(host, gm_objective)
+        sol.iteration_block(DENSE_PREFIX_ITERS)
+        geom, st = sol.geom, sol.state
+        lo, hi = st.flat[0], st.flat[1]
+        run_cft = geom.per_bucket_nodes(uf.backward_run(geom, lo, hi))
+        lb_run = float(uf.lower_bound_from_cft(geom, run_cft))
+        lb_px = float(px.lower_bound_prefix(geom, st))
+        tol = 1e-9 if dt == torch.float64 else 1e-5 * max(1.0, abs(lb_run))
+        if not abs(lb_px - lb_run) <= tol:
+            fail(f"gm50k {name}: lower_bound_prefix {lb_px!r} vs the run entry's {lb_run!r}")
+        mm = uf.min_marginals_all(geom, st, cft=run_cft)
+        errs_px = [0.0, 0.0, 0.0]
+        for g, l, h, c, (m0, m1) in zip(geom.buckets, st.lo, st.hi, run_cft, mm):
+            errs_px[0] = max(errs_px[0], close_runs(
+                f"gm50k {name} backward prefix", px.bucket_backward_run_prefix(g, l, h), c, dt))
+            errs_px[1] = max(errs_px[1], close_runs(
+                f"gm50k {name} forward prefix", px.bucket_forward_run_prefix(g, l, h),
+                uf.bucket_forward_run(g, l, h), dt))
+            for a, b in zip(px.bucket_min_marginals_prefix(g, l, h), (m0, m1)):
+                errs_px[2] = max(errs_px[2], close_runs(f"gm50k {name} prefix marginals", a, b, dt))
+
+        def each(fn):
+            return lambda: [fn(g, l, h) for g, l, h in zip(geom.buckets, st.lo, st.hi)]
+
+        ms = {"lower_bound_prefix": cuda_ms(lambda: px.lower_bound_prefix(geom, st), 5),
+              "backward run entry (kernel)": cuda_ms(lambda: uf.backward_run(geom, lo, hi), 20),
+              "bucket_backward_run_prefix": cuda_ms(each(px.bucket_backward_run_prefix), 5),
+              "bucket_forward_run_prefix": cuda_ms(each(px.bucket_forward_run_prefix), 5),
+              "plain bucket_forward_run": cuda_ms(each(uf.bucket_forward_run), 3),
+              "bucket_min_marginals_prefix": cuda_ms(each(px.bucket_min_marginals_prefix), 5),
+              "min_marginals_all": cuda_ms(lambda: uf.min_marginals_all(geom, st, cft=run_cft), 3)}
+        print(f"[dense] prefix sweeps on gm50k unpacked {name} "
+              f"{[(g.P, g.H, g.B) for g in geom.buckets]} after {DENSE_PREFIX_ITERS} iterations: "
+              f"lower_bound_prefix {lb_px!r} vs the run entry's {lb_run!r}; backward, forward and "
+              f"min-marginal prefix sweeps match the run entry, the plain forward run and "
+              f"min_marginals_all (max |diff| {errs_px}); ms over all buckets "
+              f"{ {k: round(v, 4) for k, v in ms.items()} } {card}", flush=True)
+        out[f"prefix {name}"] = {"lb": lb_px, "run_lb": lb_run, "ms": ms}
+
+    # ---- (f) a checkpoint on the card, resumed bit for bit
+    def checkpoint():
+        with tempfile.TemporaryDirectory() as td:
+            path = os.path.join(td, "dense.pkl")
+            a = grid_solver(torch.float32)
+            a.iteration_block(10)
+            extras.save_state(a, path)
+            b = grid_solver(torch.float32)
+            extras.load_state(b, path)
+        a.iteration_block(10)
+        b.iteration_block(10)
+        if not all(torch.equal(x, y) for x, y in zip(a.state, b.state)) or (
+                a.lower_bound_with_deferred() != b.lower_bound_with_deferred()):
+            fail("dense checkpoint: the next 10 iterations differ from the uninterrupted run")
+        return a.lower_bound_with_deferred()
+
+    lb_ck = dense_guard("grid12 dense checkpoint", checkpoint)
+    print(f"[dense] grid12 float32 checkpoint saved and loaded on the card: the next 10 "
+          f"iterations equal the uninterrupted run bit for bit (lb {lb_ck!r}) {card}", flush=True)
+    return out
+
+
+def sharded_dense(rank, collection, V, obj, card) -> dict:
+    """Phase 15's dense part on this rank: the dense ``ShardedSolver`` over
+    the gm50k collection, float32 and float64 (the float64 solver takes the
+    float32 one's shards), DENSE_SHARDED_ITERS iterations each, one
+    all_reduce of the [V + 1, 2] delta pair timed (the one-device reference
+    is :func:`dense_reference`, in the parent)."""
+    import torch
+    from bdd_tpu_torch.solver.sharding import ShardedSolver
+
+    out, like = {}, None
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[-1]
+        t0 = time.perf_counter()
+        s = ShardedSolver(collection, V, obj, dtype=dt, like=like)
+        build_s = time.perf_counter() - t0
+        like = s.sharded
+
+        def solve():
+            s.comm.calls = 0
+            torch.cuda.synchronize()
+            s.comm.barrier()
+            t = time.perf_counter()
+            s.iteration_block(DENSE_SHARDED_ITERS)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        wall = dense_guard(f"dense sharded {name}", solve)
+        calls = s.comm.calls
+        lb = s.lower_bound()
+        pair_ms = collective_ms(s.comm, torch.zeros(V + 1, 2, dtype=dt, device=s.device), 10)
+        g = s.geom
+        out[name] = {"lb": lb, "ms_per_iteration": 1e3 * wall / DENSE_SHARDED_ITERS,
+                     "all_reduce_ms": pair_ms, "build_s": build_s,
+                     "collectives_per_iteration": calls / DENSE_SHARDED_ITERS}
+        print(f"[sharded] dense {name} rank {rank}: {len(s.sharded.parts[rank])} BDDs, shard "
+              f"H={g.H} W={g.W} L={g.L}, built in {build_s:.2f} s; lb {lb!r} after "
+              f"{DENSE_SHARDED_ITERS} iterations, {out[name]['ms_per_iteration']:.2f} ms an "
+              f"iteration, {out[name]['collectives_per_iteration']:.2f} all_reduce an iteration, "
+              f"one all_reduce of the [V + 1, 2] pair {pair_ms:.4f} ms {card}", flush=True)
+    s.comm.barrier()
+    return out
 
 
 def main() -> None:
@@ -2582,11 +3014,11 @@ def main() -> None:
           f"buckets, built in {time.perf_counter() - t0:.2f} s {card}", flush=True)
     gm_f32 = layout.from_native_host(nh, torch.float32, "cuda")
     gm_f64 = layout.from_native_host(nh, torch.float64, "cuda")
+    gm_unpacked = layout.from_native_host(nh, torch.float32, "cuda", pack=False)
     kernel_vs_twin("gm50k", gm_f32, nh.objective(), card, errs, times, flush,
                    variants=({"stages": 1}, {"stages": 8}))
     kernel_vs_twin("gm50k", gm_f64, nh.objective(), card, errs, times, flush)
-    kernel_vs_twin("gm50k unpacked", layout.from_native_host(nh, torch.float32, "cuda", pack=False),
-                   nh.objective(), card, errs, times, flush)
+    kernel_vs_twin("gm50k unpacked", gm_unpacked, nh.objective(), card, errs, times, flush)
     grid_nh = NativeHost(grid_mrf(12, 12, 4, seed=0).write_lp(), "bfs")
     kernel_vs_twin("grid12", layout.from_native_host(grid_nh, torch.float32, "cuda"),
                    grid_nh.objective(), card, errs, times, flush)
@@ -2700,6 +3132,8 @@ def main() -> None:
     paths += timed("learned", phase_learned, card, errs, times, flush, gm_python)
     paths += timed("sharded", phase_sharded, card, errs, times, gm_lp, {
         "float32": f32a["lower_bound"], "float64": f64["lower_bound"], "native": lb_native})
+    timed("dense", phase_dense, card, gm_python, {"float32": gm_unpacked, "float64": gm_f64},
+          nh.objective())
     del flush
     finish(paths, errs, times)
 

@@ -123,7 +123,7 @@ def test_cli(tmp_path):
         ({"relaxation solver": "lbfgs parallel mma"}, None),
         ({"relaxation solver": "hybrid mma"}, False),
         ({"relaxation solver": "sharded mma"}, False),
-        ({"relaxation solver": "dense mma"}, True),
+        ({"relaxation solver": "dense mma"}, False),
         ({"tighten": {"cliques": True}}, False),
         ({"split chunk size": 4}, False),
         ({"split bdds": {}}, False),
@@ -135,9 +135,9 @@ def test_cli(tmp_path):
          "wedelin", "python"],
 )
 def test_unported_configs_raise(config, waits, tmp_path, monkeypatch):
-    """The names that still wait raise and name their ROADMAP item; the keys
-    that the Python pipeline brought solve, with the JAX package's bound
-    (float64, abs 1e-8), and so do the tightening phase and the hybrid solve
+    """No name waits any more: the keys that the Python pipeline brought
+    solve, with the JAX package's bound (float64, abs 1e-8), and so do the
+    dense backend ("dense mma"), the tightening phase and the hybrid solve
     (all on the device at the automatic threshold: the JAX package's native
     solver would overrun its scratch under this module's thread cap;
     tests/test_torch_hybrid.py splits it) and the sharded solve (one shard:
@@ -152,10 +152,6 @@ def test_unported_configs_raise(config, waits, tmp_path, monkeypatch):
         s.read_ilp(lp_string=CASES["grid"]).process_ilp().transform_to_bdds().construct_solver()
         assert isinstance(s.solver, LbfgsSolver) and s.solver.m == 3
         assert s._python_pipeline_reason() is not None  # as bdd_tpu: the Python pipeline
-        return
-    if waits:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            api.BddSolver(config, device="cpu")
         return
     monkeypatch.chdir(tmp_path)  # "export lp" writes a relative path
     cfg = {"precision": "double", "termination criteria": {"maximum iterations": 100}}
@@ -213,7 +209,8 @@ def test_port_never_imports_jax():
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "for name in ('api', 'serve', 'native', 'solver.run', 'solver.rounding',\n"
-        "             'solver.lbfgs', 'solver.subgradient',\n"
+        "             'solver.lbfgs', 'solver.subgradient', 'solver.dense',\n"
+        "             'solver.dense_wrapper', 'solver.prefix',\n"
         "             'solver.sweep_kernels', 'solver.extras', 'solver.flatten',\n"
         "             'solver.ref_solver', 'solver.sequential', 'utils.logging',\n"
         "             'utils.problems', 'utils.batching', 'ilp.lp_parser', 'ilp.mps_parser',\n"

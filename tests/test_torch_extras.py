@@ -25,6 +25,7 @@ from bdd_tpu.solver import RefSolver as JaxRefSolver
 from bdd_tpu.solver import extras as jextras
 from bdd_tpu.solver import flatten_collection as jflatten
 from bdd_tpu.solver.uniform_wrapper import UniformSolver as JaxUniformSolver
+from bdd_tpu.solver.wrapper import JaxSolver
 from bdd_tpu.utils.problems import grid_mrf, set_cover
 from bdd_tpu_torch import native as tnative
 from bdd_tpu_torch.bdd.preprocessor import BddPreprocessor as PortPreprocessor
@@ -32,6 +33,7 @@ from bdd_tpu_torch.ilp import parse_lp_string as pparse
 from bdd_tpu_torch.ilp.model import ILPInput, Ineq
 from bdd_tpu_torch.solver import extras
 from bdd_tpu_torch.solver import layout
+from bdd_tpu_torch.solver.dense_wrapper import DenseSolver
 from bdd_tpu_torch.solver.flatten import flatten_collection as pflatten
 from bdd_tpu_torch.solver.hybrid import HybridSolver, _subset_flat
 from bdd_tpu_torch.solver.ref_solver import RefSolver as PortRefSolver
@@ -57,18 +59,22 @@ def _cap_torch_threads():
 
 
 def build(lp, backend, side):
-    """A float64 solver of ``backend`` ("ref" or "uniform") over ``lp`` from
-    ``side``'s package ("port" or "jax")."""
+    """A float64 solver of ``backend`` ("ref", "uniform" or "dense") over
+    ``lp`` from ``side``'s package ("port" or "jax")."""
     if side == "jax":
         pre = JaxPreprocessor(jparse(lp))
-        if backend == "ref":
+        if backend in ("ref", "dense"):
             flat = jflatten(pre.collection, pre.total_nr_variables(), pre.nr_primal_variables)
+            if backend == "dense":
+                return JaxSolver(flat, pre.objective_vector(), dtype=jnp.float64)
             return JaxRefSolver(flat, pre.objective_vector())
         return JaxUniformSolver(pre.collection, pre.total_nr_variables(), pre.objective_vector(),
                                 nr_primal_vars=pre.nr_primal_variables, dtype=jnp.float64)
     pre = PortPreprocessor(pparse(lp))
-    if backend == "ref":
+    if backend in ("ref", "dense"):
         flat = pflatten(pre.collection, pre.total_nr_variables(), pre.nr_primal_variables)
+        if backend == "dense":
+            return DenseSolver(flat, pre.objective_vector(), dtype=torch.float64, device="cpu")
         return PortRefSolver(flat, pre.objective_vector())
     return UniformSolver.from_collection(pre.collection, pre.total_nr_variables(),
                                          pre.objective_vector(),
@@ -80,7 +86,7 @@ CHECKPOINT_LPS = {"two_simplex": fixtures.TWO_SIMPLEX, "matching": fixtures.MATC
                   "grid": grid_mrf(3, 3, 2, seed=1).write_lp(), "wide": WIDE_ROW}
 
 
-@pytest.mark.parametrize("backend", ["ref", "uniform"])
+@pytest.mark.parametrize("backend", ["ref", "uniform", "dense"])
 @pytest.mark.parametrize("writer", ["jax", "port"])
 @pytest.mark.parametrize("name", list(CHECKPOINT_LPS))
 def test_checkpoint_crosses_between_packages(tmp_path, name, writer, backend):
@@ -111,6 +117,38 @@ def test_checkpoint_crosses_between_packages(tmp_path, name, writer, backend):
                                                    *s.state.cft)]
         if name == "wide":
             assert max(g.P for g in s.geom.buckets) > layout.NARROW_P
+    if backend == "dense" and writer == "port":
+        # the JAX SolverState's leaves: lo, hi, def_mm [H, L], cft [H, W]
+        assert [tuple(np.shape(x)) for x in jax.tree.leaves(s2.state)] == [
+            tuple(x.shape) for x in s.state]
+
+
+def test_dense_checkpoint_resumes_bit_for_bit_and_refuses_other_layouts(tmp_path):
+    """A DenseSolver's checkpoint ({"kind": "DenseSolver", "state": [lo, hi,
+    def_mm, cft]}) loaded into a fresh solver iterates on to the same bits;
+    one of another instance or backend raises ValueError."""
+    import pickle
+
+    lp = CHECKPOINT_LPS["grid"]
+    a = build(lp, "dense", "port")
+    a.iteration_block(4)
+    path = str(tmp_path / "dense.pkl")
+    extras.save_state(a, path)
+    with open(path, "rb") as fh:
+        blob = pickle.load(fh)
+    assert blob["kind"] == "DenseSolver" and len(blob["state"]) == 4
+    b = build(lp, "dense", "port")
+    extras.load_state(b, path)
+    a.iteration_block(3)
+    b.iteration_block(3)
+    for x, y in zip(a.state, b.state):
+        assert torch.equal(x, y)
+    for other in (build(CHECKPOINT_LPS["matching"], "dense", "port"), build(lp, "uniform", "port")):
+        with pytest.raises(ValueError, match="state structure"):
+            extras.load_state(other, path)
+    extras.save_state(build(lp, "uniform", "port"), path)
+    with pytest.raises(ValueError, match="state structure"):
+        extras.load_state(a, path)
 
 
 def test_checkpoint_roundtrip_of_smooth_and_hybrid_and_the_iteration_after(tmp_path):

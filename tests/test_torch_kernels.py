@@ -668,6 +668,34 @@ def test_huge_body_thread_counts_equal_twins(cuda_device, precision, threads):
 
 
 @pytest.mark.cuda
+def test_dense_card_equals_cpu(cuda_device):
+    """The dense backend (solver/dense.py, torch ops) on the card: the
+    float64 trajectory equals the CPU's (rel 1e-12), float32 reruns are
+    bit-identical, and no sweep kernel or plain version runs."""
+    from bdd_tpu_torch.bdd.preprocessor import BddPreprocessor
+    from bdd_tpu_torch.solver.dense_wrapper import DenseSolver
+    from bdd_tpu_torch.solver.flatten import flatten_collection
+
+    ilp = grid_mrf(5, 5, 3, seed=3)
+    ilp.reorder_bfs()
+    ilp.normalize()
+    pre = BddPreprocessor(ilp)
+    flat = flatten_collection(pre.collection, pre.total_nr_variables(), pre.nr_primal_variables)
+    sk.reset_launch_counts()
+    plain = dict(uf.TWIN_SWEEP_CALLS), dict(uf.PLAIN_RUN_CALLS)
+    bounds = {}
+    for device, dtype in (("cpu", torch.float64), (cuda_device, torch.float64),
+                          (cuda_device, torch.float32), (cuda_device, torch.float32)):
+        s = DenseSolver(flat, pre.objective_vector(), dtype=dtype, device=device)
+        s.iteration_block(20)
+        bounds.setdefault(dtype, []).append(s.lower_bound_with_deferred())
+    assert bounds[torch.float64][1] == pytest.approx(bounds[torch.float64][0], rel=1e-12)
+    assert bounds[torch.float32][0] == bounds[torch.float32][1]
+    assert not any(sk.LAUNCHES.values())
+    assert (dict(uf.TWIN_SWEEP_CALLS), dict(uf.PLAIN_RUN_CALLS)) == plain
+
+
+@pytest.mark.cuda
 def test_hybrid_card_equals_cpu(cuda_device):
     """The hybrid solve (solver/hybrid.py) with half the BDDs on the native
     solver's worker thread: the card's float64 trajectory equals the same

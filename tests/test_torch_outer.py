@@ -16,6 +16,10 @@ Inputs come from numpy seeds and cross to the port through
   differently on the two sides would show as far more than the tolerance.
 - ``BddSolver.solve`` with each of the four solver names against
   ``bdd_tpu.api`` (float64: bound rel 1e-9, same status and iteration count).
+- the same loops over the dense backend (``DenseSolver``) against the JAX
+  package's over ``JaxSolver`` (float64, abs 1e-9, its jitted and its
+  host-driven path), the dense ``bdds_solution`` against the uniform one,
+  and ``"dense mma"`` through ``BddSolver`` and the server.
 """
 import math
 import os
@@ -35,15 +39,22 @@ from bdd_tpu.bdd import BddPreprocessor
 from bdd_tpu.solver import uniform as uf
 from bdd_tpu.solver.lbfgs import LbfgsSolver as JaxLbfgs
 from bdd_tpu.solver.subgradient import SubgradientSolver as JaxSubgradient
+from bdd_tpu.solver import flatten_collection as jflatten
 from bdd_tpu.solver.uniform_wrapper import UniformSolver as JaxUniformSolver
+from bdd_tpu.solver.wrapper import JaxSolver
 from bdd_tpu.utils.problems import grid_mrf
 from bdd_tpu_torch import api
+from bdd_tpu_torch.bdd.preprocessor import BddPreprocessor as PortPreprocessor
+from bdd_tpu_torch.ilp import parse_lp_string as port_parse
 from bdd_tpu_torch.solver import layout
 from bdd_tpu_torch.solver import sweep_kernels as sk
 from bdd_tpu_torch.solver import uniform as tuf
+from bdd_tpu_torch.solver.dense_wrapper import DenseSolver
+from bdd_tpu_torch.solver.flatten import flatten_collection
 from bdd_tpu_torch.solver.lbfgs import LbfgsSolver, solution_gradient
 from bdd_tpu_torch.solver.subgradient import SubgradientSolver
 from bdd_tpu_torch.solver.uniform_wrapper import UniformSolver
+from bdd_tpu_torch.utils.problems import grid_mrf as port_grid_mrf
 from tests import fixtures
 from tests.test_torch_sweep import FORCING, GRID, assert_same, jax_setup
 from tests.test_torch_wide import MIXED
@@ -320,17 +331,143 @@ def test_cli_and_server_take_the_outer_solvers(tmp_path):
         if name == "lbfgs jax mma":
             assert got["lower_bound"] == direct["lower_bound"]
             assert got["solution"] == direct["solution"]
-    waits = serve.handle_request({**cfg, "relaxation solver": "dense mma"}, device="cpu")
-    assert waits["status"] == "error" and "ROADMAP.md" in waits["message"]
+    dense = serve.handle_request({**cfg, "relaxation solver": "dense mma"}, device="cpu")
+    ref = jax_api.BddSolver({**cfg, "relaxation solver": "dense mma"})
+    ref.read_ilp(lp_string=fixtures.MATCHING_3x3)
+    want = ref.solve(verbose=False)
+    assert dense["status"] == want["status"] == "solved"
+    assert dense["lower_bound"] == pytest.approx(want["lower_bound"], abs=1e-8)
+    assert dense["solution"] == want["solution"]
 
 
 def test_keys_that_still_wait_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 1[0-5]"):
-        api.BddSolver({"relaxation solver": "dense mma"}, device="cpu")
+    """No solver name of the JAX package waits any more: each solves through
+    ``BddSolver`` on the CPU. "dense mma" gives the JAX package's bound and
+    solution; with "tighten" it keeps its bound (the dense solver exposes no
+    layer costs); ``solve_batch`` refuses it as the JAX package does."""
     for name in ("hybrid mma", "multi parallel mma", "hybrid parallel mma",  # ported
-                 "sharded mma", "subgradient sharded mma", "lbfgs sharded mma"):
+                 "sharded mma", "subgradient sharded mma", "lbfgs sharded mma", "dense mma"):
         assert math.isfinite(api.BddSolver({"relaxation solver": name}, device="cpu")
                              .read_ilp(lp_string=fixtures.MATCHING_3x3)
                              .solve(verbose=False)["lower_bound"])
     assert math.isfinite(api.BddSolver({"relaxation solver": "subgradient"}, device="cpu")
                          .read_ilp(lp_string=fixtures.MATCHING_3x3).solve(verbose=False)["lower_bound"])
+    cfg = {"relaxation solver": "dense mma", "precision": "double",
+           "termination criteria": {"maximum iterations": 60}}
+    ref = jax_api.BddSolver(dict(cfg))
+    ref.read_ilp(lp_string=GRID)
+    want = ref.solve(verbose=False)
+    s = api.BddSolver(dict(cfg), device="cpu").read_ilp(lp_string=GRID)
+    got = s.solve(verbose=False)
+    assert isinstance(s.solver, DenseSolver)
+    assert got["status"] == want["status"] == "solved"
+    assert got["lower_bound"] == pytest.approx(want["lower_bound"], abs=1e-8)
+    assert got["solution"] == want["solution"]
+    tight = api.BddSolver({**cfg, "tighten": True, "perturbation rounding": False},
+                          device="cpu").read_ilp(lp_string=GRID).solve(verbose=False)
+    assert "tighten" not in tight
+    assert tight["lower_bound"] == pytest.approx(want["lower_bound"], abs=1e-8)
+    with pytest.raises(ValueError, match="uniform-mma"):
+        api.BddSolver(dict(cfg), device="cpu").solve_batch(
+            ilps=[port_parse(fixtures.MATCHING_3x3)], verbose=False)
+
+
+# ------------------------------------------------------- the dense backend
+def dense_bases(seed=5):
+    """The JAX package's ``JaxSolver`` and the port's ``DenseSolver`` on the
+    same grid (float64), each through its own pipeline."""
+    ilp, port_ilp = grid_mrf(4, 4, 3, seed=seed), port_grid_mrf(4, 4, 3, seed=seed)
+    ilp.normalize()
+    port_ilp.normalize()
+    pre, tpre = BddPreprocessor(ilp), PortPreprocessor(port_ilp)
+    obj = pre.objective_vector()
+    np.testing.assert_array_equal(obj, tpre.objective_vector())
+    return (JaxSolver(jflatten(pre.collection, pre.total_nr_variables(),
+                               pre.nr_primal_variables), obj, dtype=jnp.float64),
+            DenseSolver(flatten_collection(tpre.collection, tpre.total_nr_variables(),
+                                           tpre.nr_primal_variables),
+                        obj, dtype=torch.float64, device="cpu"))
+
+
+def dense_trajectory(make, host_path, n=40):
+    if host_path:
+        os.environ["BDD_TPU_LBFGS_HOST"] = "1"
+    try:
+        j, t = dense_bases()
+        want = trajectory(make[0](j), n)
+    finally:
+        os.environ.pop("BDD_TPU_LBFGS_HOST", None)
+    solver = make[1](t)
+    return trajectory(solver, n), want, solver
+
+
+@pytest.mark.parametrize("path", ["jit", "host"])
+def test_dense_lbfgs_trajectory_matches_jax(path):
+    sk.reset_launch_counts()
+    got, want, solver = dense_trajectory((JaxLbfgs, LbfgsSolver), host_path=path == "host")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    assert solver.ops.dense and len(solver.history) == solver.m  # the two-loop recursion ran
+    assert got[-1] > got[0]
+    assert solver.history[0].s.shape == (solver.base.geom.H * solver.base.geom.L,)
+    assert not any(sk.LAUNCHES.values())
+
+
+def test_dense_subgradient_trajectory_matches_jax():
+    got, want, solver = dense_trajectory((JaxSubgradient, SubgradientSolver), host_path=False)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    assert solver.ops.dense
+
+
+def test_dense_solution_gradient_is_flat_and_masked():
+    _, t = dense_bases()
+    t.iteration_block(3)
+    g = solution_gradient(t)
+    geom = t.geom
+    assert g.shape == (geom.H * geom.L,) and g.dtype == torch.float64
+    assert set(np.unique(g.numpy())) <= {0.0, 1.0}
+    assert not g[~geom.layer_valid.reshape(-1)].any()
+
+
+def test_dense_bdds_solution_equals_the_uniform_one():
+    """As tests/test_outer_solvers.py's uniform-vs-dense test: the per-(BDD,
+    variable) choices of the dense and the uniform backend on the same
+    collection and costs agree exactly."""
+    pre = PortPreprocessor(port_parse(fixtures.MATCHING_3x3))
+    flat = flatten_collection(pre.collection, pre.total_nr_variables(), pre.nr_primal_variables)
+    d = DenseSolver(flat, pre.objective_vector(), dtype=torch.float64, device="cpu")
+    us = UniformSolver.from_collection(pre.collection, pre.total_nr_variables(),
+                                       pre.objective_vector(),
+                                       nr_primal_vars=pre.nr_primal_variables,
+                                       dtype=torch.float64, device="cpu")
+    for solver in (d, us):
+        solver.iteration_block(2)
+    votes_d = {}
+    sol = d.bdds_solution().numpy()
+    lvar, lbdd = d.dense.layer_var, d.dense.layer_bdd
+    for h, l in zip(*np.nonzero(d.dense.layer_valid)):
+        votes_d[(int(lbdd[h, l]), int(lvar[h, l]))] = int(sol[h, l])
+    votes_u = {}
+    for g, s_, lb in zip(us.geom.buckets, tuf.bdds_solution(us.geom, us.state), us.host.layer_bdd):
+        lv, valid = g.layer_var.numpy(), g.layer_valid.numpy()
+        for h, b in zip(*np.nonzero(valid)):
+            votes_u[(int(lb[h, b]), int(lv[h, b]))] = int(s_[h, b])
+    assert len(votes_d) == int(flat.valid_layer_mask().sum())
+    assert votes_d == votes_u
+
+
+@pytest.mark.parametrize("method", ["incremental", "wedelin", "biased", "best"])
+def test_dense_mma_rounds_like_jax(method):
+    """The host roundings over the dense backend (``min_marginals`` /
+    ``update_costs``; "best" restores the dense state between heuristics):
+    the JAX package's bound and solution (float64)."""
+    cfg = {"relaxation solver": "dense mma", "precision": "double", "rounding method": method,
+           "termination criteria": {"maximum iterations": 40}}
+    ref = jax_api.BddSolver(dict(cfg))
+    ref.read_ilp(lp_string=fixtures.MATCHING_3x3)
+    want = ref.solve(verbose=False)
+    got = api.BddSolver(dict(cfg), device="cpu").read_ilp(
+        lp_string=fixtures.MATCHING_3x3).solve(verbose=False)
+    assert got["status"] == want["status"] == "solved"
+    assert got["lower_bound"] == pytest.approx(want["lower_bound"], abs=1e-8)
+    assert "solution" in got and got["solution"] == want["solution"]
+    assert got["objective"] == pytest.approx(want["objective"], abs=1e-9)

@@ -359,10 +359,22 @@ def test_only_native_unsupported_selects_the_python_pipeline(monkeypatch, capsys
         api.BddSolver({}, device="cpu").read_ilp(lp_string=fixtures.COVERING).solve(verbose=False)
 
 
-@pytest.mark.parametrize("name", sorted(api._SOLVERS_NOT_PORTED))
+@pytest.mark.parametrize("name", ["dense mma"])
 def test_solvers_that_wait_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item \d+"):
-        api.BddSolver({"relaxation solver": name}, device="cpu")
+    """No solver name waits any more: the last one that did ("dense mma",
+    ROADMAP.md Queue 1 item 15) solves, and every relaxation solver name of
+    the JAX package's ``construct_solver`` is taken by the port's."""
+    import inspect
+    import re
+
+    names = set(re.findall(r'"([a-z ]*mma[a-z ]*|subgradient)"',
+                           inspect.getsource(jax_api.BddSolver.construct_solver)))
+    assert name in names and len(names) >= 20
+    for other in sorted(names):
+        api.BddSolver({"relaxation solver": other}, device="cpu")  # raises nothing
+    res = api.BddSolver({"relaxation solver": name}, device="cpu").read_ilp(
+        lp_string=fixtures.MATCHING_3x3).solve(verbose=False)
+    assert res["status"] == "solved" and math.isfinite(res["lower_bound"])
 
 
 def test_unknown_names_raise_value_errors():

@@ -96,13 +96,16 @@ def test_serve_non_object_request_isolated():
 
 
 def test_serve_key_that_waits_answers_error_and_goes_on(tmp_path):
+    """A request the server cannot serve (an unknown relaxation solver name:
+    no name of the JAX package waits any more) answers an error, and the
+    server answers the next line."""
     lp = tmp_path / "p.lp"
     lp.write_text(fixtures.COVERING)
-    n, lines = run(port_serve, [json.dumps({"input": str(lp), "relaxation solver": "dense mma"}),
+    n, lines = run(port_serve, [json.dumps({"input": str(lp), "relaxation solver": "bogus mma"}),
                                 json.dumps({"input": str(lp), "precision": "double",
                                             "perturbation rounding": False})], device="cpu")
     assert n == 2
-    assert lines[0]["status"] == "error" and "ROADMAP.md" in lines[0]["message"]
+    assert lines[0]["status"] == "error" and "unknown relaxation solver" in lines[0]["message"]
     assert lines[1]["status"] == "solved" and "solution" not in lines[1]
 
 

@@ -11,6 +11,13 @@ module, solve through the port alone; their bounds are held here to JAX's
 and the one-device port's within abs 1e-9 in float64 (JAX's own limit,
 tests/test_uniform_sharded.py:47): the ranks sum the per-variable deltas in
 the backend's order, the one-device solve in slot order.
+
+The dense sharded solve (``solver/sharding.py``'s ``ShardedSolver``):
+``shard_collection``'s arrays against the JAX package's array for array
+(D = 2 and 4), and D = 2 and D = 4 gloo ranks of the "dense" scenario (one
+start per D for the module) whose float64 bounds after 15 iterations equal
+the JAX ``ShardedSolver``'s on its virtual CPU devices and the one-device
+``DenseSolver``'s (abs 1e-12); TWO_SIMPLEX at D = 4 leaves a shard empty.
 """
 import numpy as np
 import pytest
@@ -25,6 +32,7 @@ from jax.sharding import Mesh
 
 from bdd_tpu.bdd import BddPreprocessor as JaxPreprocessor
 from bdd_tpu.ilp import parse_lp_string as jparse
+from bdd_tpu.solver import flatten_collection as jflatten
 from bdd_tpu.solver import sharding as jsharding
 from bdd_tpu.solver import uniform as juf
 from bdd_tpu.solver import uniform_sharded as jus
@@ -34,6 +42,8 @@ from bdd_tpu_torch.ilp import parse_lp_string
 from bdd_tpu_torch.solver import layout
 from bdd_tpu_torch.solver import sharding
 from bdd_tpu_torch.solver import uniform_sharded as us
+from bdd_tpu_torch.solver.dense_wrapper import DenseSolver
+from bdd_tpu_torch.solver.flatten import flatten_collection
 from bdd_tpu_torch.solver.uniform_wrapper import UniformSolver
 from bdd_tpu_torch.utils.problems import graph_matching, grid_mrf, set_cover
 from tests import fixtures
@@ -301,3 +311,114 @@ def test_ranks_doge_step_equals_one_process(results, D):
     assert res["doge grad diff"] <= 1e-5 and res["doge grad max"] > 1e-3
     assert res["doge params spread"] == 0.0
     assert all(np.isfinite(float.fromhex(x)) for x in res["doge rounds"])
+
+
+# ------------------------------------------------------- the dense sharding
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("name", ["grid", "matching", "two_simplex"])
+def test_dense_shard_collection_equals_jax(name, D):
+    """Every shard's padded arrays (the ten ``DenseGeom`` fields, common H, W
+    and L, the placeholder BDD of an empty shard) and its initial state equal
+    the JAX package's stacked ones; each shard built on the device gives the
+    same arrays."""
+    lp = fixtures.TWO_SIMPLEX if name == "two_simplex" else LPS[name]
+    jp, tp = both(lp)
+    want = jsharding.shard_collection(jp.collection, jp.total_nr_variables(), D,
+                                      jp.nr_primal_variables, dtype=jnp.float64)
+    got = sharding.shard_collection(tp.collection, tp.total_nr_variables(), D,
+                                    tp.nr_primal_variables, dtype=torch.float64, device="cpu")
+    assert got.parts == want.parts
+    np.testing.assert_array_equal(got.num_bdds_per_var_global, want.num_bdds_per_var_global)
+    jstate = jsharding.init_sharded_state(want, jp.objective_vector(), dtype=jnp.float64)
+    for d in range(D):
+        for key in sharding._GEOM_KEYS:
+            ref = np.asarray(getattr(want.geom, key))[d]
+            np.testing.assert_array_equal(got.arrays[d][key], ref, err_msg=f"{d} {key}")
+            np.testing.assert_array_equal(getattr(got.geoms[d], key).numpy().astype(ref.dtype),
+                                          ref, err_msg=f"{d} {key}")
+        st = sharding.init_sharded_state(got, tp.objective_vector(), d)
+        for f in st._fields:
+            a, b = getattr(st, f).numpy(), np.asarray(getattr(jstate, f))[d]
+            np.testing.assert_array_equal(np.isinf(a), np.isinf(b))
+            np.testing.assert_allclose(a[~np.isinf(a)], b[~np.isinf(b)], rtol=0, atol=1e-12)
+    if name == "two_simplex" and D == 4:
+        assert any(len(p) == 0 for p in got.parts)  # the placeholder shard
+    only = sharding.shard_collection(tp.collection, tp.total_nr_variables(), D,
+                                     tp.nr_primal_variables, dtype=torch.float64, device="cpu",
+                                     shards=[1])
+    assert only.geoms[0] is None and only.geoms[1] is not None
+
+
+def one_device_dense(lp: str, n: int, dtype=torch.float64) -> float:
+    _, tp = both(lp)
+    flat = flatten_collection(tp.collection, tp.total_nr_variables(), tp.nr_primal_variables)
+    s = DenseSolver(flat, tp.objective_vector(), dtype=dtype, device="cpu")
+    s.iteration_block(n)
+    return s.lower_bound_with_deferred()
+
+
+def test_dense_sharded_solver_without_a_group_is_one_shard():
+    _, tp = both(LPS["grid"])
+    s = sharding.ShardedSolver(tp.collection, tp.total_nr_variables(), tp.objective_vector(),
+                               nr_primal_vars=tp.nr_primal_variables, dtype=torch.float64,
+                               device="cpu")
+    assert s.comm.size == 1 and s.default_block_size == 10
+    s.iteration_block(15)
+    assert s.lower_bound() == s.lower_bound_with_deferred()
+    assert s.lower_bound() == pytest.approx(one_device_dense(LPS["grid"], 15), abs=1e-12)
+    # float32 from the float64 solver's arrays: the same as a fresh build
+    args = (tp.collection, tp.total_nr_variables(), tp.objective_vector())
+    like = sharding.ShardedSolver(*args, dtype=torch.float32, device="cpu", like=s.sharded)
+    fresh = sharding.ShardedSolver(*args, dtype=torch.float32, device="cpu")
+    assert like.sharded.parts == fresh.sharded.parts
+    for a, b in zip(like.state, fresh.state):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="variables"):
+        sharding.ShardedSolver(tp.collection, tp.total_nr_variables() + 1,
+                               np.append(tp.objective_vector(), 0.0), device="cpu",
+                               like=s.sharded)
+
+
+@pytest.fixture(scope="module")
+def dense_results():
+    started = {D: ranks.start(D, "dense") for D in (2, 4)}  # side by side
+    return {D: ranks.wait(procs) for D, procs in started.items()}
+
+
+def jax_dense_sharded_bound(lp: str, D: int, n: int) -> float:
+    pre = JaxPreprocessor(jparse(lp))
+    s = jsharding.ShardedSolver(
+        pre.collection, pre.total_nr_variables(), pre.objective_vector(),
+        mesh=Mesh(np.array(jax.devices()[:D]), ("b",)), nr_primal_vars=pre.nr_primal_variables,
+        dtype=jnp.float64)
+    s.iteration_block(n)
+    return s.lower_bound()
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_dense_ranks_agree_and_import_no_jax(dense_results, D):
+    res = dense_results[D]
+    assert all(r["size"] == D for r in res)
+    for r in res[1:]:
+        assert {k: v for k, v in r.items() if k != "rank" and not k.startswith("dense bdds")} == {
+            k: v for k, v in res[0].items() if k != "rank" and not k.startswith("dense bdds")}
+    for name, lp in ranks.DENSE_INSTANCES.items():  # every BDD on one rank
+        parts = [r[f"dense bdds {name}"] for r in res]
+        nr_bdds = both(lp())[1].collection.nr_bdds()
+        assert sorted(b for p in parts for b in p) == list(range(nr_bdds))
+    # two all_reduces an iteration, one for the bound
+    assert res[0]["dense calls grid"] == 2 * ranks.DENSE_ITERS + 2
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("name", list(ranks.DENSE_INSTANCES))
+def test_dense_ranks_bounds_equal_jax_and_one_device(dense_results, D, name):
+    res = dense_results[D][0]
+    lp = ranks.DENSE_INSTANCES[name]()
+    n = ranks.DENSE_ITERS
+    got = lb(res, f"dense lb {name}")
+    assert got == pytest.approx(jax_dense_sharded_bound(lp, D, n), abs=1e-12)
+    assert got == pytest.approx(one_device_dense(lp, n), abs=1e-12)
+    assert lb(res, f"dense lb {name} f32") == pytest.approx(got, rel=1e-5, abs=1e-5)
+    if name == "two_simplex" and D == 4:
+        assert [] in [r[f"dense bdds {name}"] for r in dense_results[D]]  # an empty shard

@@ -156,7 +156,8 @@ def test_importing_the_whole_port_pulls_in_no_jax():
                 "solver.tighten", "solver.smooth", "solver.smooth_mma", "solver.hybrid",
                 "solver.learned", "learn.features", "learn.model", "learn.checkpoint",
                 "learn.train", "learn.configs", "learn.data", "solver.sharding",
-                "solver.uniform_sharded", "utils.multihost", "learn.sharded"):
+                "solver.uniform_sharded", "utils.multihost", "learn.sharded",
+                "solver.dense", "solver.dense_wrapper", "solver.prefix"):
         assert f"'bdd_tpu_torch.{mod}'" in out.stdout
 
 GENERATORS = {

@@ -160,6 +160,37 @@ def scenario_doge(out: dict) -> None:
     out["doge rounds"] = [hexed(x) for x in tr.run_learned_rounds(2)]
 
 
+# the dense sharded solve's instances: name -> LP text builder (15 iterations)
+DENSE_INSTANCES = {
+    "chain": lambda: fixtures.SHORT_MRF_CHAIN,
+    "matching": lambda: fixtures.MATCHING_3x3,
+    "covering": lambda: fixtures.COVERING,
+    "two_simplex": lambda: fixtures.TWO_SIMPLEX,
+    "grid": lambda: _grid(3, 3, 2, 4),
+}
+DENSE_ITERS = 15
+
+
+def scenario_dense(out: dict) -> None:
+    """The dense sharded solve (``sharding.ShardedSolver``): the bound after
+    DENSE_ITERS iterations in float64 per instance, the collectives it took,
+    this rank's shard (its BDDs, whether it holds only the placeholder),
+    and a float32 bound."""
+    from bdd_tpu_torch.solver.sharding import ShardedSolver
+
+    for name, lp in DENSE_INSTANCES.items():
+        pre = preprocess(lp())
+        for dtype in (torch.float64, torch.float32):
+            s = ShardedSolver(pre.collection, pre.total_nr_variables(), pre.objective_vector(),
+                              nr_primal_vars=pre.nr_primal_variables, dtype=dtype, device="cpu")
+            s.comm.calls = 0
+            s.iteration_block(DENSE_ITERS)
+            key = "" if dtype == torch.float64 else " f32"
+            out[f"dense lb {name}{key}"] = hexed(s.lower_bound())
+            out[f"dense calls {name}{key}"] = s.comm.calls
+        out[f"dense bdds {name}"] = list(s.sharded.parts[s.comm.rank])
+
+
 def scenario_checkpoint(out: dict, ckpt_dir: str, phase: str) -> None:
     """Kill and resume: 'start' runs 8 iterations and writes the checkpoint
     (and runs 16 uninterrupted on a second solver), 'resume' is a fresh set
@@ -245,6 +276,8 @@ def main() -> None:
     out = {"rank": rank, "size": mh.process_count()}
     if scenario == "solve":
         scenario_solve(out)
+    elif scenario == "dense":
+        scenario_dense(out)
     else:
         scenario_checkpoint(out, sys.argv[5], scenario)
     mh.shutdown()
