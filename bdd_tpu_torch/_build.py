@@ -139,21 +139,23 @@ def _declare(lib: ctypes.CDLL) -> None:
     # (table, nr_buckets, nr_blocks, tile, pmax, smem_bytes, arcs, lo, hi,
     #  din_lo, din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi,
     #  out_mm, frontier out, stream); the wide entries read tile as the
-    # warps a block and pmax as the values a shared-memory row
+    # warps a block and pmax as the values a shared-memory row, the huge
+    # entries tile as the threads a block
     sig = [vp, i, i, i, i, i] + [vp] * 7 + [d] + [vp] * 6
     for suffix in ("f32", "f64"):
         for name in ("uniform_forward", "uniform_backward", "uniform_backward_run",
                      "uniform_forward_wide", "uniform_backward_wide",
-                     "uniform_backward_run_wide"):
+                     "uniform_backward_run_wide", "uniform_forward_huge",
+                     "uniform_backward_huge", "uniform_backward_run_huge"):
             f = getattr(lib, f"{name}_{suffix}")
             f.argtypes, f.restype = sig, i
-    # the huge entries: (table, nr_buckets, nr_blocks, threads, arcs, lo, hi,
-    #  din_lo, din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi,
-    #  out_mm, frontier out, scratch, stream)
+    # the L2 body's entries: (table, nr_buckets, nr_blocks, threads, arcs, lo,
+    #  hi, din_lo, din_hi, alpha, omega_arr, omega, frontier in, out_lo,
+    #  out_hi, out_mm, frontier out, scratch, stream)
     huge = [vp, i, i, i] + [vp] * 7 + [d] + [vp] * 7
     for suffix in ("f32", "f64"):
-        for name in ("uniform_forward_huge", "uniform_backward_huge",
-                     "uniform_backward_run_huge"):
+        for name in ("uniform_forward_huge_l2", "uniform_backward_huge_l2",
+                     "uniform_backward_run_huge_l2"):
             f = getattr(lib, f"{name}_{suffix}")
             f.argtypes, f.restype = huge, i
 

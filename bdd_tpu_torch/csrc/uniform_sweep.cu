@@ -4,8 +4,10 @@
 //   uniform_forward  <- _forward_kernel  (pallas_uniform.py:112-180)
 //   uniform_backward <- _backward_kernel (pallas_uniform.py:183-246)
 // One launch runs the whole half-sweep of EVERY bucket of up to 32 slots of
-// a solve, a second one that of the buckets of up to 8,192 slots (the wide
-// section) and a third one that of the wider ones (the huge section): per hop
+// a solve, a second one that of the wide buckets (the wide section), a third
+// one that of the huge buckets whose rows fit a block's shared memory (the
+// huge section: the wider ones, and the wide ones from the plan's crossover
+// up to 8,192 slots), and a fourth one that of the rest (the L2 body): per hop
 // the min-marginals, the MMA cost update, and the frontier (forward cfr) or
 // costs-to-terminal (backward cft). uniform_backward_run is the backward body
 // without the cost update: the costs-to-terminal of given costs
@@ -55,15 +57,16 @@
 //    solver/layout.py writes this form and the twins decode the same bytes.
 //    Buckets of more than 32 slots carry two bytes an arc and have a body of
 //    their own (the wide section), and those of more than 8,192 four bytes
-//    and a third (the huge section): this one holds a column's P frontier
-//    values in registers and does not stretch past P = 32.
+//    and a block a column (the huge section): this one holds a column's P
+//    frontier values in registers and does not stretch past P = 32.
 //
 // Build: nvcc without --use_fast_math (isinf/isnan must hold) and with
 // -fmad=false (no FMA contraction), so results match the twin bit for bit.
 // Each launch runs on the caller's stream; the C entry points return
 // cudaGetLastError(), -1 for a largest P with no instantiation (or a forward
-// huge launch without its scratch rows), or -2 for a tile that is not 32 or
-// 64 columns (a block size the wide or huge body does not take).
+// L2 launch without its scratch rows, or shared memory past the opt-in), or
+// -2 for a tile that is not 32 or 64 columns (a block size the wide or huge
+// body does not take, or a huge bucket too wide for a slot code).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,7 +88,9 @@ struct Bucket {
   long long row_off;      // elements, into the [H, B] buffers
   long long node_off;     // elements, into the frontier buffers
   long long arc_off;      // bytes, into the geometry records
-  long long stages;       // hops in flight: 1..MAX_STAGES (narrow), 0..MAX_STAGES (wide)
+  long long stages;       // hops in flight: 1..MAX_STAGES (narrow), 0..MAX_STAGES (wide);
+                          // huge: the backward's rows in shared memory, 1 or 2;
+                          // L2: the offset into the scratch rows
 };
 
 template <typename T>
@@ -810,42 +815,572 @@ int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int
 }
 
 // ------------------------------------------------------------ huge buckets
-// Buckets wider than 8,192 slots (four bytes an arc: kind | slot << 2 | flag
-// << 30, bit 31 clear) run in a third launch, over a table of their own: a
-// column's two rows no longer fit a warp's shared memory (the wide body's
-// limit). One BLOCK owns one column and its threads stride over the P slots.
-// The forward frontier rows of a column (this hop's, as keys, and the next
-// one being built) lie in a scratch buffer in device memory, [B, 2, P] per
-// bucket, which each layout allocates once (layout.huge_scratch); the
-// table's last column is the bucket's offset into it. A huge bucket is not
-// padded to 128 columns (layout.lane_pad): a padding column would cost a
-// block its whole sweep. Per forward hop:
-//  1. each thread decodes its slots of the current row (or the root restart),
-//     writes them out as cfr, takes its part of the min-marginals and sets
-//     its slots of the next row to the key of +inf;
-//  2. a block reduction of the min-marginals (a warp butterfly, then the
-//     warps' results through shared memory): one __syncthreads, which also
-//     makes every reset visible;
-//  3. the cost update, computed alike by every thread;
-//  4. the relaxation: a global atomicMin on the wide body's order-preserving
-//     key (Key<T>) per internal arc; a __syncthreads ends the hop.
-// Per backward hop each slot gathers its two children from the row of hop
-// h+1, which this block wrote one hop before as its output (cft): the
-// min-marginals' reduction and one __syncthreads, no atomics (the run: one
-// __syncthreads). Every thread runs every hop to its end, since each phase
-// waits for the whole block. Rows written in this launch are read back with
-// __ldcg (from L2), which the barrier orders. A minimum is exact in any
-// order and every sum is formed as the twins form it, so the results equal
-// the twins' bit for bit, as in the other two bodies.
+// Buckets past the wide body run a third launch, one BLOCK a column, over a
+// table of their own: the buckets wider than 8,192 slots (four bytes an arc:
+// kind | slot << 2 | flag << 30, bit 31 clear) and, routed there by the
+// launch plan, the wide buckets from HUGE_FROM (solver/layout.py) up to
+// 8,192 slots, which keep their two-byte records (kind | slot << 2 | flag <<
+// 15). It replaces, as the other bodies do, _forward_kernel and
+// _backward_kernel of bdd_tpu/solver/pallas_uniform.py:112, :183, and the
+// XLA scans that the JAX package runs for such widths
+// (bucket_forward_iteration / bucket_backward_iteration / bucket_backward_run,
+// bdd_tpu/solver/uniform.py:1281, :1335, :1208). A huge bucket is not padded
+// to 128 columns (layout.lane_pad): a padding column costs a block its whole
+// sweep.
 //
-// Bound: bytes, as the other bodies; per (hop, column) a record of 8P bytes.
-// This is the simple body: no ring, no TMA; the arc words, the incoming
-// frontier row and the layer scalars are read from device memory where they
-// are used (the scalars by every thread: one line, broadcast). The forward
-// scratch rows are L2-resident for a column's whole run.
+// Bound: bytes. Per (hop, column) the record (2P arc words), P frontier
+// values in and P out and a few layer values; at P = 16,384 256 KB a hop and
+// column in float32 and 384 KB in float64, 10.3 / 15.4 us a hop for 132
+// columns at 3.35 TB/s. The block must stream its column's share of that
+// (about 25 GB/s an SM) through a serial chain of hops, with two reductions
+// over the whole block in each.
+//
+// Two forms, chosen by the plan per bucket by the bytes of its rows:
+//  * the SHARED-MEMORY body (sweep_huge_kernel, LAUNCHES key "_huge"): the
+//    bucket's rows live in shared memory. It takes every huge bucket whose
+//    smallest block (a row of P values and a row of P slot codes) fits the
+//    227 KB a block may opt into: up to 29,016 slots in float32 and 19,316
+//    in float64 (layout.huge_fits);
+//  * the L2 body (sweep_huge_l2_kernel, "_huge_l2"), for wider buckets:
+//    its rows in device memory. Its forward rows lie in a scratch
+//    buffer in device memory ([B, 2, P] per bucket, layout.huge_scratch; the
+//    table's last column is the bucket's offset into it), relaxed by global
+//    atomicMin; its backward gathers from the row it wrote as output one hop
+//    before, through L2 with __ldcg. No ring; every load is issued where it
+//    is used. A cluster of blocks a column sharing one row through
+//    distributed shared memory would take these buckets into shared memory
+//    too (ROADMAP.md).
+//
+// What the L2 body spends its time on (chip_smoke.py --huge-split,
+// knapsack48 at B = 132 on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+// section 6): its global atomics and L2 gathers, not its bytes. The
+// forward with its relaxation into a row of shared memory took 1.14 / 1.62
+// ms instead of 1.44 / 2.04 (float32 / float64); prefetching the next hop to
+// L2 made either body slower (1.71 / 2.37 ms), so no body prefetches.
+//
+// Design of the shared-memory body, and what each point answers:
+//  * Every random access goes to shared memory. The forward relaxation is a
+//    red.shared.min on the order-preserving key (Key<T>, 64-bit in float64)
+//    into one row of P keys; the backward gathers its children from the row
+//    of hop h+1 in shared memory (two rows, read and built, where two fit
+//    for the SM's blocks; else one row, and a barrier before it is
+//    overwritten from the hop's output in L2). The forward gathers cft of
+//    hop h+1 through L1 from device memory: staged in shared memory instead
+//    (a ring of two rows filled a hop ahead with cp.async by every thread,
+//    where two blocks an SM still fit) it was slower (chip_smoke.py
+//    --huge-split, variant "staged"; PERF.md section 6).
+//  * No register arrays: the slot loops are runtime loops, and what a slot
+//    needs after the hop's reduction is kept where only its owner reads it:
+//    its code (both children, as a slot, 0 or +inf, and the node's valid
+//    flag; four bytes) in a row of codes in shared memory, the forward's cfr
+//    value in the hop's own output, read back from L2 by the relaxation. A
+//    first design that held 16 slots a thread in registers spilled (32
+//    registers and 800-940 B of stack frame in float64) and ran 1.9 / 5.7
+//    ms. The arc words (half the hop's bytes) are read once, by the first
+//    pass.
+//  * Loads in flight: a thread takes its slots in groups of HUGE_GROUP where
+//    it has that many, every device-memory load of a group issued first
+//    (shared memory goes through volatile asm with 32-bit addresses, which
+//    the compiler does not move loads across); a child's cost is looked up
+//    only for a slot code, since most slots of a layer hold no node. The
+//    layer values arrive by cp.async a hop ahead.
+//  * One barrier for the min-marginals: each warp reduces its partials by
+//    shuffles, writes them, and after the barrier every warp reduces the
+//    warps' partials itself (no second barrier to broadcast a result).
+//    Forward: that barrier and one at the hop's end. Backward: the same,
+//    plus one before the row is overwritten when it has only one. Run: one
+//    (two with one row).
+// Measured at knapsack48 (same card, PERF.md section 6): 62-84% of the byte
+// bound in the four half-sweeps and 60-62% in the run, against 32-42% and
+// 54-58% for the L2 body in the same call.
+// A minimum is exact in any order and every sum is formed as the twins form
+// it, so the results equal the twins' bit for bit, as in the other bodies.
 constexpr unsigned HUGE_SLOT_MASK = (1u << 28) - 1;
 constexpr int HUGE_MAX_THREADS = 1024;
+constexpr int WIDE_P = 8192;          // two-byte records up to here
+constexpr int HUGE_SCALARS = 8;       // values a ring slot keeps for the layer (6 used)
+constexpr unsigned CODE_INF = 0x7fffu;   // child code: +inf (BOT; forward, no relaxation)
+constexpr unsigned CODE_ZERO = 0x7ffeu;  // child code: 0 (TOP, or a slot outside the bucket)
+constexpr unsigned NODE_VALID = 0x8000u;
 
+template <typename W>
+struct Arc;
+
+template <>
+struct Arc<uint16_t> {
+  static constexpr unsigned MASK = WIDE_SLOT_MASK;
+  __device__ static __forceinline__ unsigned flag(unsigned w) { return w >> 15; }
+};
+
+template <>
+struct Arc<uint32_t> {
+  static constexpr unsigned MASK = HUGE_SLOT_MASK;
+  __device__ static __forceinline__ unsigned flag(unsigned w) { return (w >> 30) & 1u; }
+};
+
+// a child's cost as a code: a slot of the bucket, 0 or +inf
+__device__ __forceinline__ unsigned child_code(unsigned kind, unsigned slot, unsigned P) {
+  if (kind == ARC_INTERNAL) return slot < P ? slot : CODE_ZERO;
+  return kind == ARC_TOP ? CODE_ZERO : CODE_INF;
+}
+
+// min of (m0, m1) over the block, in every thread, with one barrier: each
+// warp reduces the warps' partials itself. `red` is [64] in shared memory,
+// free again once the block has passed its next barrier.
+template <typename T>
+__device__ __forceinline__ void block_min2_once(T& m0, T& m1, T* red) {
+  const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
+  const int warps = (int)blockDim.x >> 5;
+  m0 = warp_min(m0);
+  m1 = warp_min(m1);
+  if (lane == 0) {
+    red[warp] = m0;
+    red[32 + warp] = m1;
+  }
+  __syncthreads();
+  const T inf = inf_v<T>();
+  m0 = warp_min(lane < warps ? red[lane] : inf);
+  m1 = warp_min(lane < warps ? red[32 + lane] : inf);
+}
+
+// Shared memory by 32-bit shared addresses: explicit ld / st / red.shared,
+// so that no row access becomes a generic one and no address takes two
+// registers.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+template <typename V>
+__device__ __forceinline__ V ld_shared(uint32_t a);
+template <>
+__device__ __forceinline__ float ld_shared<float>(uint32_t a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+template <>
+__device__ __forceinline__ double ld_shared<double>(uint32_t a) {
+  double v;
+  asm volatile("ld.shared.f64 %0, [%1];" : "=d"(v) : "r"(a) : "memory");
+  return v;
+}
+template <>
+__device__ __forceinline__ unsigned ld_shared<unsigned>(uint32_t a) {
+  unsigned v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a) : "memory");
+  return v;
+}
+template <>
+__device__ __forceinline__ unsigned long long ld_shared<unsigned long long>(uint32_t a) {
+  unsigned long long v;
+  asm volatile("ld.shared.u64 %0, [%1];" : "=l"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_shared(uint32_t a, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t a, double v) {
+  asm volatile("st.shared.f64 [%0], %1;" ::"r"(a), "d"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t a, unsigned v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t a, unsigned long long v) {
+  asm volatile("st.shared.u64 [%0], %1;" ::"r"(a), "l"(v) : "memory");
+}
+__device__ __forceinline__ void red_min_shared(uint32_t a, unsigned v) {
+  asm volatile("red.shared.min.u32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+}
+__device__ __forceinline__ void red_min_shared(uint32_t a, unsigned long long v) {
+  asm volatile("red.shared.min.u64 [%0], %1;" ::"r"(a), "l"(v) : "memory");
+}
+
+// a slot's arc words as one code: both children's (a slot, 0 or +inf) and
+// the node's valid flag
+template <typename W>
+__device__ __forceinline__ unsigned slot_code(unsigned l, unsigned r, unsigned P) {
+  using A = Arc<W>;
+  return child_code(l & 3u, (l >> 2) & A::MASK, P) |
+         (child_code(r & 3u, (r >> 2) & A::MASK, P) << 16) | (A::flag(l) ? NODE_VALID : 0u);
+}
+
+// the cost of a child by its code, from a row of the next hop's cft in
+// shared memory (shared address `row`) or in device memory (`grow`); `has`:
+// false past the last hop. Only a slot loads: most slots of a layer hold no
+// node, and their children cost nothing to look up.
+template <typename T, bool SHARED>
+__device__ __forceinline__ T child_cost(unsigned c, uint32_t row, const T* grow, bool has) {
+  const T inf = inf_v<T>();
+  if (c == CODE_INF) return inf;
+  if (c == CODE_ZERO) return T(0);
+  if (!has) return inf;
+  if constexpr (SHARED) return ld_shared<T>(row + c * (unsigned)sizeof(T));
+  else return __ldg(grow + c);
+}
+
+// The slot loops of the huge body take a thread's slots (p = t + j *
+// blockDim) one at a time (four unrolled) or in groups (p = p0 + u *
+// blockDim, u < HUGE_GROUP): every device-memory load of a group is issued
+// before the first of them is used (the shared-memory accesses are volatile
+// asm, which the compiler does not move loads across). Measured per pass
+// (chip_smoke.py --huge-split; PERF.md section 6): the forward in groups
+// where a thread has HUGE_GROUP slots or more, else a slot at a time; the
+// backward always in groups (with a second, one-slot form compiled beside it
+// its float64 pass at knapsack48 took a fifth longer and its float32 pass a
+// tenth less: the grouped loop's code moves with what else the kernel
+// holds); the run a slot at a time.
+constexpr int HUGE_GROUP = 4;
+
+// The forward's first pass over this thread's slots, cft of hop h+1 read
+// through L1: the slot codes into their row, cfr of the hop out, the
+// thread's part of the min-marginals, its slots of the key row reset to +inf.
+template <typename T, typename W, int G>
+__device__ __forceinline__ void forward_pass(const W* rec, int P, uint32_t key, uint32_t codes,
+                                             const T* cft_g, bool has, bool restart, T lo, T hi,
+                                             T* fout, T& m0, T& m1) {
+  using K = Key<T>;
+  using U = typename K::U;
+  const T inf = inf_v<T>();
+  const U key_inf = K::enc(inf);
+  const int nt = (int)blockDim.x;
+#pragma unroll(G == 1 ? 4 : 1)
+  for (int p0 = (int)threadIdx.x; p0 < P; p0 += G * nt) {
+    unsigned l[G], r[G], c[G];
+    T tl[G], th[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int p = p0 + u * nt;
+      l[u] = p < P ? (unsigned)rec[p] : 0u;
+      r[u] = p < P ? (unsigned)rec[P + p] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      c[u] = slot_code<W>(l[u], r[u], (unsigned)P);
+      // cft of the child: TOP -> 0, BOT -> inf, else cft[h+1][slot] (inf
+      // past the last hop; 0 for a slot outside the bucket, as the twin)
+      tl[u] = child_cost<T, false>(c[u] & 0x7fffu, 0u, cft_g, has);
+      th[u] = child_cost<T, false>(c[u] >> 16, 0u, cft_g, has);
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int p = p0 + u * nt;
+      if (p < P) {
+        st_shared(codes + 4u * (unsigned)p, c[u]);
+        const bool nv = (c[u] & NODE_VALID) != 0;
+        const uint32_t kp = key + (unsigned)p * (unsigned)sizeof(U);
+        const T fv = restart ? (p == 0 ? T(0) : inf) : K::dec(ld_shared<U>(kp));
+        st_shared(kp, key_inf);  // only this thread reads slot p; relaxed after the barrier
+        m0 = min_v(m0, nv ? fv + lo + tl[u] : inf);
+        m1 = min_v(m1, nv ? fv + hi + th[u] : inf);
+        fout[p] = fv;
+      }
+    }
+  }
+}
+
+// The forward relaxation: key[k] = min over valid p with an internal arc
+// into k of cfr[p] + cost of that arc; cfr[p] read back from this hop's
+// output (in L2)
+template <typename T, int G>
+__device__ __forceinline__ void relax_pass(int P, uint32_t key, uint32_t codes, const T* fout,
+                                           T nl, T nh) {
+  using K = Key<T>;
+  using U = typename K::U;
+  const int nt = (int)blockDim.x;
+#pragma unroll(G == 1 ? 4 : 1)
+  for (int p0 = (int)threadIdx.x; p0 < P; p0 += G * nt) {
+    unsigned c[G];
+    T fv[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int p = p0 + u * nt;
+      c[u] = p < P ? ld_shared<unsigned>(codes + 4u * (unsigned)p) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const bool any = (c[u] & NODE_VALID) && ((c[u] & 0x7fffu) < CODE_ZERO ||
+                                                (c[u] >> 16) < CODE_ZERO);
+      fv[u] = any ? __ldcg(fout + p0 + u * nt) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      if (c[u] & NODE_VALID) {
+        const unsigned lc = c[u] & 0x7fffu, hc = c[u] >> 16;
+        if (lc < CODE_ZERO) red_min_shared(key + lc * (unsigned)sizeof(U), K::enc(fv[u] + nl));
+        if (hc < CODE_ZERO) red_min_shared(key + hc * (unsigned)sizeof(U), K::enc(fv[u] + nh));
+      }
+    }
+  }
+}
+
+// The backward's first pass: the slot codes into their row and the thread's
+// part of the min-marginals, from cfr of this hop (own slots, device memory)
+// and the children's cft in the row of hop h+1 (`rin`)
+template <typename T, typename W, int G>
+__device__ __forceinline__ void backward_pass(const W* rec, const T* cfr, int P, uint32_t codes,
+                                              uint32_t rin, bool has, T lo, T hi, T& m0,
+                                              T& m1) {
+  const T inf = inf_v<T>();
+  const int nt = (int)blockDim.x;
+#pragma unroll(G == 1 ? 4 : 1)
+  for (int p0 = (int)threadIdx.x; p0 < P; p0 += G * nt) {
+    unsigned l[G], r[G];
+    T cf[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int p = p0 + u * nt;
+      l[u] = p < P ? (unsigned)rec[p] : 0u;
+      r[u] = p < P ? (unsigned)rec[P + p] : 0u;
+      cf[u] = p < P ? cfr[p] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int p = p0 + u * nt;
+      const unsigned c = slot_code<W>(l[u], r[u], (unsigned)P);
+      if (p < P) st_shared(codes + 4u * (unsigned)p, c);
+      const T tl = child_cost<T, true>(c & 0x7fffu, rin, nullptr, has);
+      const T th = child_cost<T, true>(c >> 16, rin, nullptr, has);
+      const bool nv = p < P && (c & NODE_VALID);
+      m0 = min_v(m0, nv ? cf[u] + lo + tl : inf);
+      m1 = min_v(m1, nv ? cf[u] + hi + th : inf);
+    }
+  }
+}
+
+// cft of this hop from the new costs (nl, nh): out to device memory and,
+// with two rows, into the row being built (`rout`); the run decodes the
+// record here, the backward reads the codes its first pass wrote
+template <typename T, typename W, bool RUN, int G>
+__device__ __forceinline__ void cft_pass(const W* rec, int P, uint32_t codes, uint32_t rin,
+                                         bool has, T nl, T nh, T* fout, uint32_t rout,
+                                         bool two_rows) {
+  const T inf = inf_v<T>();
+  const int nt = (int)blockDim.x;
+#pragma unroll(G == 1 ? 4 : 1)
+  for (int p0 = (int)threadIdx.x; p0 < P; p0 += G * nt) {
+    unsigned c[G];
+    if constexpr (RUN) {
+      unsigned l[G], r[G];
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int p = p0 + u * nt;
+        l[u] = p < P ? (unsigned)rec[p] : 0u;
+        r[u] = p < P ? (unsigned)rec[P + p] : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < G; ++u) c[u] = slot_code<W>(l[u], r[u], (unsigned)P);
+    } else {
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int p = p0 + u * nt;
+        c[u] = p < P ? ld_shared<unsigned>(codes + 4u * (unsigned)p) : 0u;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int p = p0 + u * nt;
+      const T tl = child_cost<T, true>(c[u] & 0x7fffu, rin, nullptr, has);
+      const T th = child_cost<T, true>(c[u] >> 16, rin, nullptr, has);
+      const T v = (c[u] & NODE_VALID) ? min_v(nl + tl, nh + th) : inf;
+      if (p < P) {
+        fout[p] = v;
+        if (two_rows) st_shared(rout + (unsigned)p * (unsigned)sizeof(T), v);
+      }
+    }
+  }
+}
+
+// one row: this thread's outputs back from L2 into the row, a group of
+// loads in flight at a time
+template <typename T>
+__device__ __forceinline__ void copy_back(const T* fout, int P, uint32_t row) {
+  constexpr int G = HUGE_GROUP;
+  const int nt = (int)blockDim.x;
+  for (int p0 = (int)threadIdx.x; p0 < P; p0 += G * nt) {
+    T v[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) v[u] = p0 + u * nt < P ? __ldcg(fout + p0 + u * nt) : T(0);
+#pragma unroll
+    for (int u = 0; u < G; ++u)
+      if (p0 + u * nt < P) st_shared(row + (unsigned)(p0 + u * nt) * (unsigned)sizeof(T), v[u]);
+  }
+}
+
+// Dynamic shared memory of a block (solver/layout.py, huge_smem_bytes):
+// [row 0 | row 1 (backward, where the table's last column is 2) | the slot
+//  codes, pad16(4P) | 64 values of partials | two ring slots of HUGE_SCALARS
+//  values], every row pad16(P values).
+template <typename T, int MODE, typename W>
+__device__ __forceinline__ void huge_column(const Args<T>& a, const Bucket& bk,
+                                            unsigned char* smem, long long b) {
+  using K = Key<T>;
+  using A = Arc<W>;
+  constexpr bool FORWARD = MODE == MODE_FORWARD, RUN = MODE == MODE_BACKWARD_RUN;
+  constexpr int SZ = (int)sizeof(T);
+  constexpr int G = HUGE_GROUP;
+  const int P = (int)bk.P, H = (int)bk.H;
+  const long long B = bk.B;
+  const int t = (int)threadIdx.x, nt = (int)blockDim.x;
+  const bool grouped = FORWARD ? P >= G * nt : !RUN;
+  const bool two_rows = !FORWARD && bk.stages == 2;
+  const T inf = inf_v<T>();
+  const int row_bytes = pad16(P * SZ);
+  const uint32_t row0 = smem_addr(smem);
+  const uint32_t codes = row0 + (two_rows ? 2 : 1) * row_bytes;
+  T* const red = (T*)(smem + (two_rows ? 2 : 1) * row_bytes + pad16(4 * P));
+  unsigned char* const ring = (unsigned char*)(red + 64);
+  const int slot_bytes = HUGE_SCALARS * SZ;
+
+  const W* const g_arcs = (const W*)(a.arcs + bk.arc_off);
+  const T* const g_front = RUN ? nullptr : a.frontier + bk.node_off;  // rows [H, B, P]
+  T* const g_out = a.out_frontier + bk.node_off;
+  const int nscalars = RUN ? 2 : (a.omega_arr ? 6 : 5);
+
+  // the layer values of hop h into a ring slot
+  auto start_copies = [&](int h, unsigned char* slot) {
+    const size_t e = (size_t)bk.row_off + (size_t)h * B + b;
+    if (t < nscalars) {
+      const T* src = t == 0 ? a.lo : t == 1 ? a.hi : t == 2 ? a.din_lo : t == 3 ? a.din_hi
+                     : t == 4 ? a.alpha : a.omega_arr;
+      cp_async<SZ>(slot + t * SZ, src + e);
+    }
+  };
+
+  if constexpr (FORWARD) {
+    for (int p = t; p < P; p += nt) st_shared(row0 + (unsigned)p * (unsigned)SZ, K::enc(inf));
+  }
+  start_copies(FORWARD ? 0 : H - 1, ring);
+  cp_commit();
+  cp_wait(0);
+  __syncthreads();
+
+  uint32_t rin = row0;                                 // backward: cft of hop h+1
+  uint32_t rout = two_rows ? row0 + row_bytes : row0;  // the row being built
+  for (int i = 0; i < H; ++i) {
+    const int h = FORWARD ? i : H - 1 - i;
+    unsigned char* const slot = ring + (i & 1) * slot_bytes;
+    if (i + 1 < H) start_copies(FORWARD ? h + 1 : h - 1, ring + ((i + 1) & 1) * slot_bytes);
+    cp_commit();
+    const size_t col = (size_t)h * B + b;
+    const W* rec = g_arcs + col * 2 * P;
+    const unsigned w_layer = rec[P], w_root = rec[P + 1];
+    const T* sc = (const T*)slot;
+    const T lo = sc[0], hi = sc[1];
+    T* fout = g_out + col * P;
+    T nl = lo, nh = hi, mm = T(0);
+    const bool has = h + 1 < H;  // cft of hop h+1 (none past the last hop)
+
+    if constexpr (FORWARD) {
+      const bool restart = A::flag(w_root) != 0;  // also the hop-0 init
+      const T* cft_g = g_front + (col + (size_t)B) * P;  // cft of hop h+1
+      T m0 = inf, m1 = inf;
+      if (grouped)
+        forward_pass<T, W, G>(rec, P, row0, codes, cft_g, has, restart, lo, hi, fout, m0, m1);
+      else
+        forward_pass<T, W, 1>(rec, P, row0, codes, cft_g, has, restart, lo, hi, fout, m0, m1);
+      block_min2_once(m0, m1, red);  // also: every reset and every read of cft is done
+      hop_cost_update(lo, hi, m0, m1, a.omega_arr ? sc[5] : a.omega, sc[4], sc[2], sc[3],
+                      A::flag(w_layer) != 0, nl, nh, mm);
+      if (grouped)
+        relax_pass<T, G>(P, row0, codes, fout, nl, nh);
+      else
+        relax_pass<T, 1>(P, row0, codes, fout, nl, nh);
+    } else {
+      if constexpr (!RUN) {
+        const T* cfr = g_front + col * P;  // cfr of this hop, own slots
+        T m0 = inf, m1 = inf;
+        if (grouped)
+          backward_pass<T, W, G>(rec, cfr, P, codes, rin, has, lo, hi, m0, m1);
+        else
+          backward_pass<T, W, 1>(rec, cfr, P, codes, rin, has, lo, hi, m0, m1);
+        block_min2_once(m0, m1, red);
+        hop_cost_update(lo, hi, m0, m1, a.omega_arr ? sc[5] : a.omega, sc[4], sc[2], sc[3],
+                        A::flag(w_layer) != 0, nl, nh, mm);
+      }
+      if (grouped)
+        cft_pass<T, W, RUN, G>(rec, P, codes, rin, has, nl, nh, fout, rout, two_rows);
+      else
+        cft_pass<T, W, RUN, 1>(rec, P, codes, rin, has, nl, nh, fout, rout, two_rows);
+      if (!two_rows) {
+        __syncthreads();  // every gather from the row is done before it is overwritten
+        copy_back(fout, P, rout);
+      }
+    }
+    if constexpr (!RUN) {
+      if (t == 0) {
+        const size_t e = (size_t)bk.row_off + col;
+        a.out_lo[e] = nl;
+        a.out_hi[e] = nh;
+        a.out_mm[e] = mm;
+      }
+    }
+    cp_wait(0);       // the next hop's ring slot has landed
+    __syncthreads();  // the row is built, and this hop's ring slot is free
+    if (two_rows) {
+      const uint32_t swap = rin;
+      rin = rout;
+      rout = swap;
+    }
+  }
+}
+
+// `launch_huge` admits only a table whose slots fit a code (the plan sends
+// no other bucket), and each block finds its body by its bucket's width
+template <typename T, int MODE>
+__global__ void __launch_bounds__(HUGE_MAX_THREADS, 1) sweep_huge_kernel(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int k = 0;
+  while (k + 1 < a.nr_buckets && (long long)blockIdx.x >= a.table[k + 1].first_block) ++k;
+  const Bucket bk = a.table[k];
+  const long long b = (long long)blockIdx.x - bk.first_block;  // the column
+  if (bk.P <= WIDE_P)
+    huge_column<T, MODE, uint16_t>(a, bk, smem, b);
+  else
+    huge_column<T, MODE, uint32_t>(a, bk, smem, b);
+}
+
+// as `launch`, over the table of the shared-memory huge body: one block of
+// `threads` threads a column, `pmax` the widest bucket, `smem_bytes` of
+// dynamic shared memory a block
+template <typename T, int MODE>
+int launch_huge(const void* table, int nr_buckets, int nr_blocks, int threads, int pmax,
+                int smem_bytes, const void* arcs, const void* lo, const void* hi,
+                const void* din_lo, const void* din_hi, const void* alpha, const void* omega_arr,
+                double omega, const void* frontier, void* out_lo, void* out_hi, void* out_mm,
+                void* out_frontier, void* stream) {
+  if (nr_blocks == 0) return 0;
+  if (threads < 32 || threads > HUGE_MAX_THREADS || threads % 32 || pmax >= (int)CODE_ZERO)
+    return -2;
+  if (smem_bytes < 1 || smem_bytes > MAX_DYNAMIC_SMEM) return -1;
+  static bool opted_in = false;  // above 48 KB a kernel must ask, once
+  if (!opted_in) {
+    const cudaError_t rc =
+        cudaFuncSetAttribute(sweep_huge_kernel<T, MODE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_DYNAMIC_SMEM);
+    if (rc != cudaSuccess) return (int)rc;
+    opted_in = true;
+  }
+  const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
+                  (const T*)lo,         (const T*)hi,       (const T*)din_lo,
+                  (const T*)din_hi,     (const T*)alpha,    (const T*)omega_arr,
+                  (T)omega,             (const T*)frontier, (T*)out_lo,
+                  (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
+  sweep_huge_kernel<T, MODE><<<nr_blocks, threads, smem_bytes, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------- huge buckets: the L2 body
+// The L2 form of the huge body (see the huge section's note). Per forward
+// hop: each thread decodes its slots of the current row (or the root
+// restart), writes them out as cfr, takes its part of the min-marginals and
+// sets its slots of the next row to the key of +inf; a block reduction of the
+// min-marginals (one __syncthreads, which also makes every reset visible);
+// the cost update, computed alike by every thread; the relaxation, a global
+// atomicMin on Key<T> per internal arc; a __syncthreads ends the hop. Per
+// backward hop each slot gathers its two children from the row of hop h+1,
+// which this block wrote one hop before as its output (cft): the
+// min-marginals' reduction and one __syncthreads, no atomics. Rows written
+// in this launch are read back with __ldcg (from L2), which the barrier
+// orders.
 __device__ __forceinline__ unsigned huge_flag(uint32_t w) { return (w >> 30) & 1u; }
 
 // min of (m0, m1) over the block, in every thread; `red` is [64] in shared
@@ -871,8 +1406,8 @@ __device__ __forceinline__ void block_min2(T& m0, T& m1, T* red) {
 }
 
 template <typename T, int MODE>
-__global__ void __launch_bounds__(HUGE_MAX_THREADS) sweep_huge_kernel(Args<T> a,
-                                                                       unsigned char* scratch) {
+__global__ void __launch_bounds__(HUGE_MAX_THREADS) sweep_huge_l2_kernel(Args<T> a,
+                                                                          unsigned char* scratch) {
   using K = Key<T>;
   using U = typename K::U;
   constexpr bool FORWARD = MODE == MODE_FORWARD, RUN = MODE == MODE_BACKWARD_RUN;
@@ -993,15 +1528,15 @@ __global__ void __launch_bounds__(HUGE_MAX_THREADS) sweep_huge_kernel(Args<T> a,
   }
 }
 
-// as `launch`, over the table of the huge buckets: one block of `threads`
+// as `launch`, over the table of the L2 body: one block of `threads`
 // threads a column; `scratch`: the forward rows (null for the backward
 // entries, which keep none)
 template <typename T, int MODE>
-int launch_huge(const void* table, int nr_buckets, int nr_blocks, int threads,
-                const void* arcs, const void* lo, const void* hi, const void* din_lo,
-                const void* din_hi, const void* alpha, const void* omega_arr, double omega,
-                const void* frontier, void* out_lo, void* out_hi, void* out_mm,
-                void* out_frontier, void* scratch, void* stream) {
+int launch_huge_l2(const void* table, int nr_buckets, int nr_blocks, int threads,
+                   const void* arcs, const void* lo, const void* hi, const void* din_lo,
+                   const void* din_hi, const void* alpha, const void* omega_arr, double omega,
+                   const void* frontier, void* out_lo, void* out_hi, void* out_mm,
+                   void* out_frontier, void* scratch, void* stream) {
   if (nr_blocks == 0) return 0;
   if (threads < 32 || threads > HUGE_MAX_THREADS || threads % 32) return -2;
   if (MODE == MODE_FORWARD && scratch == nullptr) return -1;
@@ -1010,7 +1545,7 @@ int launch_huge(const void* table, int nr_buckets, int nr_blocks, int threads,
                   (const T*)din_hi,     (const T*)alpha,    (const T*)omega_arr,
                   (T)omega,             (const T*)frontier, (T*)out_lo,
                   (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
-  sweep_huge_kernel<T, MODE><<<nr_blocks, threads, 0, (cudaStream_t)stream>>>(
+  sweep_huge_l2_kernel<T, MODE><<<nr_blocks, threads, 0, (cudaStream_t)stream>>>(
       a, (unsigned char*)scratch);
   return (int)cudaGetLastError();
 }
@@ -1021,7 +1556,8 @@ int launch_huge(const void* table, int nr_buckets, int nr_blocks, int threads,
 //  din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi, out_mm,
 //  frontier out, stream); the buffers are flat over the buckets of the table
 // (the wide entries read tile as the warps a block and pmax as the bytes of
-// shared memory a warp). The run entries read arcs, lo and hi and write the
+// shared memory a warp; the shared-memory huge entries tile as the threads a
+// block, one block a column). The run entries read arcs, lo and hi and write the
 // frontier; their other buffers are null.
 #define SWEEP_ENTRY(NAME, LAUNCH, T, MODE)                                      \
   extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks,         \
@@ -1049,8 +1585,14 @@ SWEEP_ENTRY(uniform_backward_wide_f32, launch_wide, float, MODE_BACKWARD)
 SWEEP_ENTRY(uniform_backward_wide_f64, launch_wide, double, MODE_BACKWARD)
 SWEEP_ENTRY(uniform_backward_run_wide_f32, launch_wide, float, MODE_BACKWARD_RUN)
 SWEEP_ENTRY(uniform_backward_run_wide_f64, launch_wide, double, MODE_BACKWARD_RUN)
+SWEEP_ENTRY(uniform_forward_huge_f32, launch_huge, float, MODE_FORWARD)
+SWEEP_ENTRY(uniform_forward_huge_f64, launch_huge, double, MODE_FORWARD)
+SWEEP_ENTRY(uniform_backward_huge_f32, launch_huge, float, MODE_BACKWARD)
+SWEEP_ENTRY(uniform_backward_huge_f64, launch_huge, double, MODE_BACKWARD)
+SWEEP_ENTRY(uniform_backward_run_huge_f32, launch_huge, float, MODE_BACKWARD_RUN)
+SWEEP_ENTRY(uniform_backward_run_huge_f64, launch_huge, double, MODE_BACKWARD_RUN)
 
-// the huge entries: (table, nr_buckets, nr_blocks, threads, arcs, lo, hi,
+// the L2 body's entries: (table, nr_buckets, nr_blocks, threads, arcs, lo, hi,
 // din_lo, din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi,
 // out_mm, frontier out, scratch, stream)
 #define HUGE_ENTRY(NAME, T, MODE)                                                    \
@@ -1060,14 +1602,15 @@ SWEEP_ENTRY(uniform_backward_run_wide_f64, launch_wide, double, MODE_BACKWARD_RU
                       const void* omega_arr, double omega, const void* frontier,     \
                       void* out_lo, void* out_hi, void* out_mm, void* out_frontier,  \
                       void* scratch, void* stream) {                                 \
-    return launch_huge<T, MODE>(table, nr_buckets, nr_blocks, threads, arcs, lo, hi,   \
-                                din_lo, din_hi, alpha, omega_arr, omega, frontier,     \
-                                out_lo, out_hi, out_mm, out_frontier, scratch, stream); \
+    return launch_huge_l2<T, MODE>(table, nr_buckets, nr_blocks, threads, arcs, lo,    \
+                                   hi, din_lo, din_hi, alpha, omega_arr, omega,         \
+                                   frontier, out_lo, out_hi, out_mm, out_frontier,      \
+                                   scratch, stream);                                    \
   }
 
-HUGE_ENTRY(uniform_forward_huge_f32, float, MODE_FORWARD)
-HUGE_ENTRY(uniform_forward_huge_f64, double, MODE_FORWARD)
-HUGE_ENTRY(uniform_backward_huge_f32, float, MODE_BACKWARD)
-HUGE_ENTRY(uniform_backward_huge_f64, double, MODE_BACKWARD)
-HUGE_ENTRY(uniform_backward_run_huge_f32, float, MODE_BACKWARD_RUN)
-HUGE_ENTRY(uniform_backward_run_huge_f64, double, MODE_BACKWARD_RUN)
+HUGE_ENTRY(uniform_forward_huge_l2_f32, float, MODE_FORWARD)
+HUGE_ENTRY(uniform_forward_huge_l2_f64, double, MODE_FORWARD)
+HUGE_ENTRY(uniform_backward_huge_l2_f32, float, MODE_BACKWARD)
+HUGE_ENTRY(uniform_backward_huge_l2_f64, double, MODE_BACKWARD)
+HUGE_ENTRY(uniform_backward_run_huge_l2_f32, float, MODE_BACKWARD_RUN)
+HUGE_ENTRY(uniform_backward_run_huge_l2_f64, double, MODE_BACKWARD_RUN)

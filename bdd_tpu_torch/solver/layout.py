@@ -62,10 +62,12 @@ def resolve_device(device) -> torch.device:
 # same arcs in every form: on a lo arc node_valid of its slot, on arc P (the
 # first hi arc) layer_valid, and on arc P + 1 (the second hi arc; a padding
 # byte when P = 1) the root row.
-# WIDE_P is the widest bucket of the wide sweep body: one warp's two rows and
-# one ring slot of P = 8192 float64 values take 229,440 of the 232,448 bytes
-# of shared memory a block may opt into (:func:`wide_warp_bytes`). Wider
-# buckets run the huge body: a block a column, its rows in device memory.
+# WIDE_P is the widest bucket of the wide sweep body and of the two-byte
+# record: one warp's two rows and one ring slot of P = 8192 float64 values take
+# 229,440 of the 232,448 bytes of shared memory a block may opt into
+# (:func:`wide_warp_bytes`). Wider buckets run the huge body, a block a
+# column, and so do most wide buckets from HUGE_FROM on, on their two-byte
+# records (:func:`body_of`).
 NARROW_P = 32
 WIDE_P = 8192
 _FLAG_SHIFT = {1: 7, 2: 15, 4: 30}
@@ -233,15 +235,92 @@ ARC_ALIGN = 16  # bytes; bucket offsets into the records keep 16-byte copies ali
 WIDE_WARPS = 8  # columns (one warp each) a block of the wide kernel takes at most
 WIDE_STAGES = 1  # hops a warp of the wide kernel copies ahead
 WIDE_SCALARS = 8  # values a ring slot keeps for the layer (6 used)
-SM_COUNT = 132  # H100 SXM
+SM_COUNT = 132  # H100 SXM; a plan for a card reads the card's own count (:func:`sm_count`)
 MAX_DYNAMIC_SMEM = 227 * 1024  # the most a block may opt into
-# threads of a block (a column) of the huge body: at 132 columns of P =
-# 16,384 a block of 1,024 ran both half-sweeps 10-27% faster than one of 512
-# and about twice as fast as one of 256 (chip_smoke.py, phase 6, on an NVIDIA
-# H100 80GB HBM3 at 700 W). Fixed: the kernel takes any multiple of 32 up to
-# 1,024, and only the tests and chip_smoke.py's timing variants set another
+SM_SMEM = 228 * 1024  # shared memory of one SM, over its blocks
+BLOCK_SMEM_RESERVED = 1024  # what the card keeps of it for every resident block
+# Threads of a block (a column) of the huge body, at most; the plan gives the
+# shared-memory form fewer only where several of its blocks reside on an SM,
+# as many as its columns ask for and its shared memory lets fit
+# (:func:`_huge_plan`: 512 for the 256 columns of P = 8,192 rows, two blocks
+# an SM; 1,024 wherever a P = 16,384 bucket is in the table, since one such
+# block fills an SM's shared memory). The L2 form runs 1,024: at 132 columns of P = 16,384 its half-sweeps
+# took 1.44 / 1.54 ms in float32 and 2.05 / 1.78 ms in float64, against 2.29
+# / 2.69 and 2.92 / 2.86 ms at 512 threads (chip_smoke.py, phase 6, "[depth]",
+# NVIDIA H100 80GB HBM3 at 700 W; 256 threads were about twice as slow again).
+# Only the tests and chip_smoke.py's timing variants set other counts
 # (``dataclasses.replace`` of a plan).
 HUGE_THREADS = 1024
+HUGE_MAX_CODE = 0x7FFD  # a slot code holds slots below this (uniform_sweep.cu, CODE_ZERO)
+HUGE_SCALARS = 8  # values a ring slot of the huge body keeps for the layer (6 used)
+# Wide buckets from HUGE_FROM up to WIDE_P slots run the huge body (its
+# shared-memory form, on their two-byte records), except float32 buckets
+# narrower than HUGE_FROM_F32_MANY over more than HUGE_F32_BLOCKS_SM columns
+# an SM: there a huge block has 128 threads or fewer and the wide body's
+# warp a column is faster. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+# (chip_smoke.py, "[huge] crossover" of phase 6 and of --huge-split; PERF.md
+# section 6), forward + backward, wide / huge body, ms, knapsack rows of 32
+# variables: over 256 columns, at 256 slots 0.114 / 0.132 in float32 and
+# 0.172 / 0.184 in float64, at 512 0.178 / 0.182 and 0.271 / 0.240, at
+# 1,024 0.299 / 0.223 and 0.469 / 0.278, at 8,192 3.724 / 0.811 and 5.606 /
+# 1.000; in float32 at 1,024 slots over 512 columns 0.306 / 0.277, over
+# 1,024 0.353 / 0.479, over 2,048 0.697 / 0.882; at 2,048 slots over 1,024
+# columns 1.100 / 0.872, over 2,048 2.176 / 2.196; at 4,096 over 2,048 8.060
+# / 3.703; in float64 the huge body leads at every one of these.
+HUGE_FROM = 1024
+HUGE_FROM_F32_MANY = 2048
+HUGE_F32_BLOCKS_SM = 4
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device``: the card's own count, SM_COUNT
+    off the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return SM_COUNT
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def huge_smem_bytes(P: int, itemsize: int, two_rows: bool = False) -> int:
+    """Dynamic shared memory of one block of the shared-memory huge body: one
+    row of P values (keys, forward; cft, backward), a second with
+    ``two_rows``, the slot codes (four bytes a slot), 64 values of partials
+    and a ring of two slots of HUGE_SCALARS values. ``uniform_sweep.cu`` lays
+    it out the same way."""
+    row = _pad_to(P * itemsize, 16)
+    return (row * (2 if two_rows else 1) + _pad_to(4 * P, 16) + 64 * itemsize
+            + 2 * HUGE_SCALARS * itemsize)
+
+
+def huge_fits(P: int, itemsize: int) -> bool:
+    """Whether a bucket of width P takes the shared-memory huge body: its
+    smallest block (one row) fits the shared memory a block
+    may opt into, and its slots fit a slot code: in float32 up to 29,016
+    slots, in float64 up to 19,316."""
+    return P < HUGE_MAX_CODE and huge_smem_bytes(P, itemsize) <= MAX_DYNAMIC_SMEM
+
+
+def body_of(P: int, itemsize: int, columns: int = 0, sms: int = SM_COUNT,
+            huge_from: Optional[int] = None) -> str:
+    """The sweep body a bucket of width P over ``columns`` columns runs in a
+    solve of values of ``itemsize`` bytes on a card of ``sms`` SMs:
+    "narrow", "wide", "huge" (the shared-memory form; also the wide buckets
+    the route sends there: from HUGE_FROM slots on, in float32 below
+    HUGE_FROM_F32_MANY only while the columns are at most HUGE_F32_BLOCKS_SM
+    an SM) or "huge_l2" (rows that do not fit a block's shared memory:
+    :func:`huge_fits`). ``huge_from`` replaces the route: every wide bucket
+    from that width on takes the huge body (timing variants)."""
+    if P <= NARROW_P:
+        return "narrow"
+    if P <= WIDE_P:
+        if huge_from is not None:
+            routed = P >= huge_from
+        else:
+            routed = P >= HUGE_FROM and (itemsize != 4 or P >= HUGE_FROM_F32_MANY
+                                         or columns <= HUGE_F32_BLOCKS_SM * sms)
+        if not routed:
+            return "wide"
+    return "huge" if huge_fits(P, itemsize) else "huge_l2"
 
 
 def lane_pad(nr_columns: int, P: int, lanes: int = 128) -> int:
@@ -261,12 +340,15 @@ def lane_pad(nr_columns: int, P: int, lanes: int = 128) -> int:
 class LaunchPlan:
     """What the launches of a sweep kernel over a list of buckets need beside
     the buffers: the bucket tables on the device and the grids' numbers. The
-    narrow buckets (P <= NARROW_P) go in one launch, the wide ones (P <=
-    WIDE_P) in a second, the huge ones in a third, each over its own table;
-    the tables index the same flat buffers. The huge table's last column is
-    the bucket's offset (in values) into the scratch rows of the huge body,
-    the two frontier rows of every huge column ([B, 2, P] per bucket,
-    ``huge_scratch_values`` in all). The plan is cached and shared by every
+    narrow buckets (P <= NARROW_P) go in one launch, the wide ones in a
+    second, the huge ones in a third (:func:`body_of`: the shared-memory form,
+    which also takes the wide buckets the route sends it) and those whose rows
+    do not fit a block's shared memory in a fourth (the L2 form), each over
+    its own table; the tables index the same flat buffers. The huge table's
+    last column holds the rows the bucket's backward keeps in shared memory
+    (1 or 2); the L2 table's is the bucket's offset (in values) into the L2
+    form's scratch rows, the two frontier rows of every such column ([B, 2,
+    P] per bucket, ``huge_scratch_values`` in all). The plan is cached and shared by every
     layout of its shapes, so it holds no buffer: each layout allocates its
     own rows (:func:`huge_scratch`)."""
 
@@ -276,7 +358,7 @@ class LaunchPlan:
     tile: int
     pmax: int  # widest narrow bucket
     smem_bytes: int
-    shapes: Tuple[Tuple[int, int, int], ...]  # (P, H, B) per bucket, narrow and wide
+    shapes: Tuple[Tuple[int, int, int], ...]  # (P, H, B) per bucket, every body
     arc_offsets: Tuple[int, ...]  # bytes into the records, per bucket
     E: int  # sum H * B
     N: int  # sum H * P * B
@@ -288,11 +370,18 @@ class LaunchPlan:
     wide_pmax: int  # widest bucket
     wide_warp_bytes: int  # shared memory of one warp: two rows and its ring
     wide_smem_bytes: int  # wide_warps * wide_warp_bytes
-    huge_table: torch.Tensor  # int64 [nr_huge, TABLE_COLUMNS]: the huge buckets
+    huge_table: torch.Tensor  # int64 [nr_huge, TABLE_COLUMNS]: the shared-memory huge body's
     nr_huge: int
     huge_blocks: int  # one a column
-    huge_threads: int  # threads a block: HUGE_THREADS
-    huge_scratch_values: int  # sum 2 * P * B over the huge buckets
+    huge_threads: int  # threads a block
+    huge_pmax: int  # widest bucket of the huge table
+    huge_smem_forward: int  # shared memory a block of the forward launch
+    huge_smem_backward: int  # the same, backward and run
+    l2_table: torch.Tensor  # int64 [nr_l2, TABLE_COLUMNS]: the L2 body's buckets
+    nr_l2: int
+    l2_blocks: int  # one a column
+    l2_threads: int  # threads a block: HUGE_THREADS
+    huge_scratch_values: int  # sum 2 * P * B over the L2 body's buckets
 
 
 def cell_bytes(P: int, itemsize: int) -> int:
@@ -330,7 +419,7 @@ def wide_warp_bytes(P: int, itemsize: int, stages: int) -> int:
     return 2 * wide_row_bytes(P, itemsize) + (stages + 1) * wide_slot_bytes(P, itemsize)
 
 
-def _wide_plan(shapes, itemsize: int, stages: Optional[int], warps: Optional[int]):
+def _wide_plan(shapes, itemsize: int, stages: Optional[int], warps: Optional[int], sms: int):
     """(warps a block, stages, bytes a warp) of the wide launch over buckets
     ``shapes``. A warp copies WIDE_STAGES hops ahead (measured on the card: a
     deeper ring buys nothing at any column count, a ring of none costs a
@@ -352,7 +441,7 @@ def _wide_plan(shapes, itemsize: int, stages: Optional[int], warps: Optional[int
     warp_bytes = wide_warp_bytes(widest, itemsize, stages)
     cols = sum(B for _, H, B in shapes if H > 0)
     if warps is None:
-        warps = -(-cols // SM_COUNT)
+        warps = -(-cols // sms)
     warps = max(1, min(warps, WIDE_WARPS, MAX_DYNAMIC_SMEM // warp_bytes))
     return warps, stages, warp_bytes
 
@@ -370,12 +459,44 @@ def _offsets(shapes):
     return tuple(rows), tuple(nodes), tuple(arcs), e, n, a
 
 
+def _huge_plan(shapes, itemsize: int, sms: int):
+    """(threads a block, the backward's rows per bucket, shared memory of a
+    forward and of a backward block) of the shared-memory huge launch over
+    ``shapes``. An SM holds as many of its blocks as the columns ask for and
+    the launch's shared memory (its widest bucket's) lets reside; they share
+    the SM's 1,024 threads of 64 registers. The backward keeps two rows where
+    that many blocks still fit with them. The forward gathers cft of hop h+1
+    through L1 (staged in shared memory it was slower: chip_smoke.py
+    --huge-split; PERF.md section 6)."""
+    if not shapes:
+        return HUGE_THREADS, [], 0, 0
+    cols = sum(B for _, H, B in shapes if H > 0)
+    fwd = max(huge_smem_bytes(P, itemsize) for P, _, _ in shapes)
+    resident = max(1, min(-(-cols // sms), SM_SMEM // (fwd + BLOCK_SMEM_RESERVED)))
+    threads = max(32, HUGE_THREADS // resident // 32 * 32)
+
+    def two_rows(P: int) -> bool:
+        nbytes = huge_smem_bytes(P, itemsize, two_rows=True)
+        return (nbytes <= MAX_DYNAMIC_SMEM
+                and resident * (nbytes + BLOCK_SMEM_RESERVED) <= SM_SMEM)
+
+    rows = [2 if two_rows(P) else 1 for P, _, _ in shapes]
+    bwd = max(huge_smem_bytes(P, itemsize, two_rows=r == 2) for (P, _, _), r in zip(shapes, rows))
+    return threads, rows, fwd, bwd
+
+
 @functools.lru_cache(maxsize=256)
 def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
-                 wide_stages: Optional[int], wide_warps: Optional[int]) -> LaunchPlan:
-    narrow = [k for k, (P, _, _) in enumerate(shapes) if P <= NARROW_P]
-    wide = [k for k, (P, _, _) in enumerate(shapes) if NARROW_P < P <= WIDE_P]
-    huge = [k for k, (P, _, _) in enumerate(shapes) if P > WIDE_P]
+                 wide_stages: Optional[int], wide_warps: Optional[int],
+                 huge_from: Optional[int], huge_body: Optional[str]) -> LaunchPlan:
+    sms = sm_count(device)
+    body = [body_of(P, itemsize, B, sms, huge_from) for P, _, B in shapes]
+    if huge_body == "huge_l2":  # the L2 body for every bucket past the wide records
+        body = ["huge_l2" if P > WIDE_P else b for b, (P, _, _) in zip(body, shapes)]
+    narrow = [k for k, b in enumerate(body) if b == "narrow"]
+    wide = [k for k, b in enumerate(body) if b == "wide"]
+    huge = [k for k, b in enumerate(body) if b == "huge"]
+    l2 = [k for k, b in enumerate(body) if b == "huge_l2"]
     cols = sum(shapes[k][2] for k in narrow)
     tile = TILE_SMALL if cols <= TILE_SWITCH else TILE_LARGE
     want = stages or min(MAX_STAGES, max(MIN_STAGES, -(-STAGE_COLUMNS // max(cols, 1))))
@@ -391,19 +512,26 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
         block += -(-B // tile) if H > 0 else 0
     wide_pmax = max((shapes[k][0] for k in wide), default=0)
     warps, wide_depth, warp_bytes = _wide_plan(
-        [shapes[k] for k in wide], itemsize, wide_stages, wide_warps)
+        [shapes[k] for k in wide], itemsize, wide_stages, wide_warps, sms)
     wide_table = np.zeros((len(wide), TABLE_COLUMNS), dtype=np.int64)
     wide_block = 0
     for r, k in enumerate(wide):
         P, H, B = shapes[k]
         wide_table[r] = (P, H, B, wide_block, rows[k], nodes[k], arcs[k], wide_depth)
         wide_block += -(-B // warps) if H > 0 else 0
+    threads, huge_rows, smem_fwd, smem_bwd = _huge_plan([shapes[k] for k in huge], itemsize, sms)
     huge_table = np.zeros((len(huge), TABLE_COLUMNS), dtype=np.int64)
-    huge_block = scratch = 0
+    huge_block = 0
     for r, k in enumerate(huge):
         P, H, B = shapes[k]
-        huge_table[r] = (P, H, B, huge_block, rows[k], nodes[k], arcs[k], scratch)
+        huge_table[r] = (P, H, B, huge_block, rows[k], nodes[k], arcs[k], huge_rows[r])
         huge_block += B if H > 0 else 0
+    l2_table = np.zeros((len(l2), TABLE_COLUMNS), dtype=np.int64)
+    l2_block = scratch = 0
+    for r, k in enumerate(l2):
+        P, H, B = shapes[k]
+        l2_table[r] = (P, H, B, l2_block, rows[k], nodes[k], arcs[k], scratch)
+        l2_block += B if H > 0 else 0
         scratch += 2 * P * B
     return LaunchPlan(
         table=torch.from_numpy(table).to(device), nr_buckets=len(narrow), nr_blocks=block,
@@ -413,27 +541,37 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
         wide_blocks=wide_block, wide_warps=warps, wide_pmax=wide_pmax,
         wide_warp_bytes=warp_bytes, wide_smem_bytes=warps * warp_bytes,
         huge_table=torch.from_numpy(huge_table).to(device), nr_huge=len(huge),
-        huge_blocks=huge_block, huge_threads=HUGE_THREADS, huge_scratch_values=scratch,
+        huge_blocks=huge_block, huge_threads=threads,
+        huge_pmax=max((shapes[k][0] for k in huge), default=0),
+        huge_smem_forward=smem_fwd, huge_smem_backward=smem_bwd,
+        l2_table=torch.from_numpy(l2_table).to(device), nr_l2=len(l2), l2_blocks=l2_block,
+        l2_threads=HUGE_THREADS, huge_scratch_values=scratch,
     )
 
 
 def launch_plan(shapes, dtype: torch.dtype, device, stages: Optional[int] = None,
-                wide_stages: Optional[int] = None, wide_warps: Optional[int] = None) -> LaunchPlan:
-    """The plan of one launch over buckets of ``shapes`` ((P, H, B) each)
-    whose buffers lie flat, bucket after bucket. Built once per distinct
-    argument list (cached); ``stages`` overrides the prefetch depth of the
-    narrow buckets, ``wide_stages`` and ``wide_warps`` the depth and the
-    warps a block of the wide ones."""
+                wide_stages: Optional[int] = None, wide_warps: Optional[int] = None,
+                huge_from: Optional[int] = None, huge_body: Optional[str] = None) -> LaunchPlan:
+    """The plan of one launch per body over buckets of ``shapes`` ((P, H, B)
+    each) whose buffers lie flat, bucket after bucket. Built once per
+    distinct argument list (cached). The other arguments force what the plan
+    would choose, for timing and tests: ``stages`` the prefetch depth of the
+    narrow buckets, ``wide_stages`` and ``wide_warps`` the depth and the warps
+    a block of the wide ones, ``huge_from`` the narrowest wide bucket the huge
+    body takes whatever its columns (WIDE_P + 1: none; :func:`body_of`),
+    ``huge_body="huge_l2"`` the L2 body for
+    every bucket past WIDE_P."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     return _launch_plan(tuple(tuple(int(x) for x in s) for s in shapes), itemsize,
-                        str(torch.device(device)), stages, wide_stages, wide_warps)
+                        str(torch.device(device)), stages, wide_stages, wide_warps,
+                        huge_from, huge_body)
 
 
 def huge_scratch(plan: LaunchPlan, dtype: torch.dtype, device) -> Optional[torch.Tensor]:
-    """The scratch rows of the huge body over ``plan``'s huge buckets (uint8,
-    ``huge_scratch_values`` values of ``dtype``): one buffer per layout, made
-    with it and freed with it. None off the card (the twins need none) and
-    where the plan has no huge bucket."""
+    """The scratch rows of the L2 body over ``plan``'s buckets in its table
+    (uint8, ``huge_scratch_values`` values of ``dtype``): one buffer per
+    layout, made with it and freed with it. None off the card (the twins need
+    none) and where the plan sends no bucket to the L2 body."""
     device = torch.device(device)
     if device.type != "cuda" or not plan.huge_scratch_values:
         return None
@@ -445,9 +583,9 @@ def solve_bytes(shapes, itemsize: int) -> int:
     """Device memory a solve over buckets of ``shapes`` works in: the arc
     records, per layer the state, the half-sweep's outputs, the deltas, alpha
     and three int64 index entries, per node the frontier in and out, and the
-    huge body's scratch rows."""
+    scratch rows of the buckets the L2 body takes."""
     _, _, _, E, N, arcs = _offsets(shapes)
-    scratch = sum(2 * P * B for P, _, B in shapes if P > WIDE_P)
+    scratch = sum(2 * P * B for P, _, B in shapes if body_of(P, itemsize) == "huge_l2")
     return arcs + E * (9 * itemsize + 3 * 8) + (2 * N + scratch) * itemsize
 
 

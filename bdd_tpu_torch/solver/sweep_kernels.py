@@ -3,8 +3,10 @@ bdd_tpu/solver/pallas_uniform.py).
 
 Two levels of wrapper over the kernels of ``csrc/uniform_sweep.cu``
 (``uniform_forward``, ``uniform_backward``, each with a body for buckets of
-up to 32 slots, one for buckets of up to 8,192 and one for wider buckets; see
-the design notes there):
+up to 32 slots, one for wide buckets, one a block a column for wider buckets
+(``layout.body_of``: from ``layout.HUGE_FROM`` slots on, rows in shared
+memory) and its L2 form for buckets whose rows do not fit a block
+(``layout.huge_fits``); see the design notes there):
 
 * ``forward_iteration_cuda`` / ``backward_iteration_cuda`` take a whole
   ``UniformGeom`` and flat tensors and run the half-sweep of every bucket: ONE
@@ -36,9 +38,9 @@ layout of such a frontier copies it into that one first).
 
 ``LAUNCHES`` counts kernel launches, one key per kernel and body
 (``uniform_forward`` is the narrow body's launch, ``uniform_forward_wide`` the
-wide body's, ``uniform_forward_huge`` the huge body's). The twins never count
-here (``uniform.TWIN_SWEEP_CALLS`` and ``uniform.PLAIN_RUN_CALLS`` count
-them).
+wide body's, ``uniform_forward_huge`` the huge body's,
+``uniform_forward_huge_l2`` its L2 form's). The twins never count here
+(``uniform.TWIN_SWEEP_CALLS`` and ``uniform.PLAIN_RUN_CALLS`` count them).
 """
 from __future__ import annotations
 
@@ -61,8 +63,9 @@ SUPPORTED_P = (1, 2, 4, 8, 16, 32)  # the narrow body's instantiations
 KERNELS = ("uniform_forward", "uniform_backward")  # the half-sweeps
 RUN = "uniform_backward_run"  # the backward kernel's entry without the cost update
 WIDE = "_wide"  # suffix of the wide body's entries and of its key in LAUNCHES
-HUGE = "_huge"  # the same for the huge body (P > layout.WIDE_P)
-BODIES = ("", WIDE, HUGE)
+HUGE = "_huge"  # the same for the huge body (a block a column, rows in shared memory)
+HUGE_L2 = "_huge_l2"  # the same for its L2 form (rows past a block's shared memory)
+BODIES = ("", WIDE, HUGE, HUGE_L2)
 LAUNCHES = {kernel + body: 0 for kernel in KERNELS + (RUN,) for body in BODIES}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -104,12 +107,12 @@ def _check_all(named, shapes) -> None:
 def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha, omega,
               frontier, outs, scratch=None):
     """A closure that queues ``kernel`` on the current stream (the narrow
-    buckets' launch, then the wide buckets', then the huge buckets', each
-    where the plan has blocks for it) and raises on a launch error. It holds
-    its tensors alive and does not count; ``launch.counts`` names the key of
-    ``LAUNCHES`` of every launch a call makes. ``scratch``: the layout's rows
-    of the huge body (:func:`layout.huge_scratch`), which the forward's huge
-    launch needs and the others do not read."""
+    buckets' launch, then the wide buckets', the huge buckets' and the L2
+    body's, each where the plan has blocks for it) and raises on a launch
+    error. It holds its tensors alive and does not count; ``launch.counts``
+    names the key of ``LAUNCHES`` of every launch a call makes. ``scratch``:
+    the rows of the L2 body (:func:`layout.huge_scratch`), which the forward's
+    L2 launch needs and the others do not read."""
     suffix = _suffix(lo.dtype)
     if isinstance(omega, torch.Tensor) and omega.dim() > 0:
         omega_arr, omega_val = omega, 0.0
@@ -135,9 +138,14 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
             plan.wide_table.data_ptr(), plan.nr_wide, plan.wide_blocks, plan.wide_warps,
             plan.wide_warp_bytes, plan.wide_smem_bytes, *buffers)))
     if plan.huge_blocks:
-        rows = scratch if kernel == "uniform_forward" else None
+        smem = plan.huge_smem_forward if kernel == "uniform_forward" else plan.huge_smem_backward
         calls.append((kernel + HUGE, (
             plan.huge_table.data_ptr(), plan.nr_huge, plan.huge_blocks, plan.huge_threads,
+            plan.huge_pmax, smem, *buffers)))
+    if plan.l2_blocks:
+        rows = scratch if kernel == "uniform_forward" else None
+        calls.append((kernel + HUGE_L2, (
+            plan.l2_table.data_ptr(), plan.nr_l2, plan.l2_blocks, plan.l2_threads,
             *buffers[:-1], ptr(rows), buffers[-1])))
     calls = [(name, getattr(lib, f"{name}_{suffix}"), args) for name, args in calls]
     keep = (plan, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, frontier, outs, scratch)
@@ -172,7 +180,8 @@ def prepare_fused_launch(kernel: str, geom: UniformGeom, lo, hi, frontier, omega
     """Check one launch of ``kernel`` over all buckets of ``geom`` on flat
     tensors and allocate its outputs. Returns (launch, outs); ``launch()``
     does not count (timing and comparisons call it directly). ``plan``
-    replaces ``geom.plan`` (another prefetch depth over the same buckets).
+    replaces ``geom.plan`` (another prefetch depth or body over the same
+    buckets; it gets scratch rows of its own where its L2 body needs them).
     ``omega``: a scalar or a flat [E] tensor; ``alpha``: flat [E] per-layer
     weights in place of ``geom.alpha`` (the learned solver's)."""
     plan = plan or geom.plan
@@ -184,8 +193,9 @@ def prepare_fused_launch(kernel: str, geom: UniformGeom, lo, hi, frontier, omega
     _check_flat(geom, (("lo", lo, E), ("hi", hi, E), ("din_lo", din_lo, E),
                        ("din_hi", din_hi, E), ("alpha", alpha, E), ("frontier", frontier, N)))
     outs = _fresh_outputs(lo, frontier)
+    scratch = geom.huge_scratch if plan is geom.plan else huge_scratch(plan, lo.dtype, lo.device)
     return _launcher(kernel, plan, geom.arcs, lo, hi, din_lo, din_hi, alpha, omega,
-                     frontier, outs, geom.huge_scratch), outs
+                     frontier, outs, scratch), outs
 
 
 def _fused(kernel: str, twin, geom: UniformGeom, lo, hi, frontier, omega, din_lo, din_hi,

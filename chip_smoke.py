@@ -2,6 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (bdd_tpu_torch) on one NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
+(``python3 chip_smoke.py --huge-split`` times variants of the huge body
+instead: see ``huge_split``)
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. card: CUDA present, card name and power limit; build both libraries of
@@ -34,15 +36,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      (coefficients 1..20, right-hand side half the row sum), whose BDDs are
      wider than 32 slots and run through the warp-a-column body of the
      kernels (a launch of its own per half-sweep): kernel vs twin on every
-     bucket and fused, float32 and float64, times beside the byte bound, and
-     a 100-iteration dual solve per precision held to the native C++ solver,
-     with the launches counted and the twins' call counter unmoved. Then 132
-     rows of 48 variables with coefficients 1..1,000 (P = 16,384: four-byte
-     arcs, the block-a-column body, a launch of its own; the bucket keeps
-     its 132 columns, not padded to 256) and 132 rows of 32 (P = 8,192, the widest
-     wide body): kernel == twin, times beside the byte bound (the huge body
-     also at 256 and 512 threads a block), and a
-     100-iteration float64 solve of the huge rows against the native solver,
+     bucket and fused, float32 and float64, times beside the byte bound (and
+     the huge body forced on the same layout), and a 100-iteration dual solve
+     per precision held to the native C++ solver, with the launches counted
+     and the twins' call counter unmoved. Then 132 rows of 48 variables with
+     coefficients 1..1,000 (knapsack48: P = 16,384, four-byte arcs, the
+     block-a-column huge body with its rows in shared memory, a launch of its
+     own; 132 columns, not padded): kernel == twin, times beside the byte
+     bound and beside the L2 body (the huge body's rows in device memory) forced on the
+     same layout in the same call; the crossover between the wide and the
+     huge body on 132 rows of 32 variables, P = 256 to 8,192 over 256 columns
+     ("[huge] crossover" lines: forward, backward, run, both precisions,
+     every launch held to the plain versions; more columns: --huge-split); the P = 8,192 rows (knapsack32) on the
+     body the route gives them, with 20 counted iterations; knapsack48 and
+     knapsack32 in one layout (one huge table of 388 columns, beside the
+     threads a block that the column count alone would give); 132 rows of 48
+     variables with coefficients up to 2,000 (P = 32,768, past a block's
+     shared memory) on the L2 body, with 20 counted iterations; and a
+     100-iteration float64 solve of knapsack48 against the native solver,
      every half-sweep one launch of the huge body;
   7. Python pipeline (BddPreprocessor -> flatten_uniform) on grid12: float64
      bound against the native pipeline's (rel 1e-7), default float32 with the
@@ -178,7 +189,8 @@ Imports nothing of JAX, flax, optax, msgpack or bdd_tpu (checked at the
 end): the port carries its own host library, ILP model, frontends,
 generators and checkpoint reader.
 Prints the card line, one JSON line of per-kernel results (a row per kernel,
-body and path: gm50k, knapsack, knapsack48 (huge), python grid12, batch64,
+body and path: gm50k, knapsack, knapsack48 (huge), knapsack32 (huge, routed),
+knapsack48 L2 (the L2 body), python grid12, batch64,
 batch256, the server's batch, the L-BFGS layouts, tighten mis200, hybrid
 deep, hybrid gm50k, gm120 learned (the rollout), gm120 train, sharded gm50k
 (rank 0's shard)), and as the
@@ -188,6 +200,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -200,8 +213,9 @@ L2_FLUSH_BYTES = 256 << 20  # several times the 50 MB L2
 KERNELS = ("uniform_forward", "uniform_backward")
 RUN = "uniform_backward_run"  # the backward kernel's entry without the cost update
 WIDE = "_wide"  # suffix of the wide-bucket body's entries in errs, times and the kernels line
-HUGE = "_huge"  # the same for the huge body (a block a column, P > 8,192)
-BODIES = ("", WIDE, HUGE)
+HUGE = "_huge"  # the same for the huge body (a block a column, rows in shared memory)
+HUGE_L2 = "_huge_l2"  # the same for its L2 form (rows past a block's shared memory)
+BODIES = ("", WIDE, HUGE, HUGE_L2)
 KNAPSACK_ITERS = 100  # cut from 200 (PR 8): the native solver's share of the phase
 BATCH_ITERS = 100
 GRID_OUTER_ITERS = 200
@@ -215,12 +229,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def launch_counts(narrow: int = 0, wide: int = 0, huge: int = 0) -> dict:
+def launch_counts(narrow: int = 0, wide: int = 0, huge: int = 0, huge_l2: int = 0) -> dict:
     """The half-sweep keys of ``sweep_kernels.LAUNCHES`` after ``narrow``,
-    ``wide`` and ``huge`` launches of either kernel's narrow, wide and huge
-    body."""
+    ``wide``, ``huge`` and ``huge_l2`` launches of either kernel's narrow,
+    wide, huge and L2 body."""
     return {k + body: n for k in KERNELS
-            for body, n in (("", narrow), (WIDE, wide), (HUGE, huge))}
+            for body, n in (("", narrow), (WIDE, wide), (HUGE, huge), (HUGE_L2, huge_l2))}
 
 
 def sweeps_of(counts: dict) -> dict:
@@ -366,11 +380,11 @@ def check_index_on_card(label, geom) -> None:
 def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=(), suffix="",
                    state=None):
     """Phase 2 for one host: every bucket alone, then all buckets fused, then
-    the run-only entry; ``variants``: keyword sets of ``layout.launch_plan``
-    (forced ring depths, warps a block) or ``huge_threads`` (threads a block
-    of the huge body, set on a copy of the plan) to time the fused launches
-    at as well;
-    ``suffix``: WIDE when every bucket of the host runs the wide body;
+    the run-only entry; ``variants``: keyword sets of :func:`variant_plan`
+    (forced ring depths, warps a block, bodies, threads a block of a huge
+    form) to time the fused launches (and, where a huge form runs, the run
+    entry) at as well;
+    ``suffix``: the body every bucket of the host runs (WIDE, HUGE, HUGE_L2);
     ``state``: the state to sweep from (a solver's, after its solve) instead
     of five iterations from ``objective``."""
     import torch
@@ -453,7 +467,8 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
         rose = sweeps_of({k: n - before[k] for k, n in sk.LAUNCHES.items()})
         want = {**launch_counts(), name: int(geom.plan.nr_blocks > 0),
                 name + WIDE: int(geom.plan.wide_blocks > 0),
-                name + HUGE: int(geom.plan.huge_blocks > 0)}
+                name + HUGE: int(geom.plan.huge_blocks > 0),
+                name + HUGE_L2: int(geom.plan.l2_blocks > 0)}
         if rose != want:
             fail(f"{label} {dt}: one fused {name} call counted launches {rose}, not {want}")
     # the timing loops launch directly: checked once, no allocation, no count
@@ -475,7 +490,10 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
             f"over {plan.nr_wide} wide bucket(s), {plan.wide_blocks} blocks of "
             f"{plan.wide_warps} warps, stages {[int(s) for s in plan.wide_table[:, 7].tolist()]}, "
             f"{plan.wide_smem_bytes} B shared; one over {plan.nr_huge} huge bucket(s), "
-            f"{plan.huge_blocks} blocks of {plan.huge_threads} threads: match; "
+            f"{plan.huge_blocks} blocks of {plan.huge_threads} threads, flags "
+            f"{[int(r[7]) for r in plan.huge_table.tolist()]}, {plan.huge_smem_forward} / "
+            f"{plan.huge_smem_backward} B shared; one over {plan.nr_l2} L2 bucket(s), "
+            f"{plan.l2_blocks} blocks of {plan.l2_threads} threads: match; "
             f"warm {e['ms']:.4f} ms ({share(e['bound_ms'], e['ms'])}), "
             f"cold {e['cold_ms']:.4f} ms ({share(e['bound_ms'], e['cold_ms'])}), "
             f"bound {e['bound_ms']:.4f} ms = {nbytes} B (columns with a BDD) at 3.35 TB/s; "
@@ -485,11 +503,9 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
         )
     print(f"[fused] {label} {dt} forward wrapper call (checks, 4 allocations, 1 launch): "
           f"{wrapper_ms:.4f} ms per call {card}", flush=True)
+    run_ref = None
     for forced in variants:
-        deep = dataclasses.replace(
-            layout.launch_plan(plan.shapes, geom.dtype, geom.device,
-                               **{k: v for k, v in forced.items() if k != "huge_threads"}),
-            huge_threads=forced.get("huge_threads", layout.HUGE_THREADS))
+        deep = variant_plan(plan, geom, forced)
         row = []
         for name, args, fwd in (("uniform_forward", args_f, True),
                                 ("uniform_backward", args_b, False)):
@@ -499,13 +515,40 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
             compare(out, ref_f if fwd else ref_b, TOL[dt])
             row.append(f"{name} warm {cuda_ms(launch, 200):.4f} ms, cold "
                        f"{cuda_ms(launch, 20, flush):.4f} ms")
+        if deep.huge_blocks or deep.l2_blocks:  # the run entry too, where a huge form runs
+            if run_ref is None:
+                run_ref = geom.flatten_nodes([uf.bucket_backward_run(g, a, b) for g, a, b in zip(
+                    geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])
+            launch, out = sk.prepare_run_launch(geom, lo, hi, deep)
+            launch()
+            torch.cuda.synchronize()
+            compare([out], [run_ref], TOL[dt])
+            row.append(f"{RUN} warm {cuda_ms(launch, 200):.4f} ms, cold "
+                       f"{cuda_ms(launch, 20, flush):.4f} ms")
         print(f"[depth] {label} {dt} {forced}: narrow stages "
               f"{[int(s) for s in deep.table[:, 7].tolist()]}, {deep.smem_bytes} B shared; wide "
-              f"{deep.wide_warps} warps a block, stages "
+              f"{deep.nr_wide} bucket(s), {deep.wide_warps} warps a block, stages "
               f"{[int(s) for s in deep.wide_table[:, 7].tolist()]}, {deep.wide_smem_bytes} B "
-              f"shared; huge {deep.huge_threads} threads a block: match; {'; '.join(row)} "
-              f"{card}", flush=True)
+              f"shared; huge {deep.nr_huge} bucket(s), {deep.huge_threads} threads a block, flags "
+              f"{[int(r[7]) for r in deep.huge_table.tolist()]}; L2 {deep.nr_l2} bucket(s), "
+              f"{deep.l2_threads} threads a block: match; {'; '.join(row)} {card}", flush=True)
     run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix)
+
+
+PLAN_FIELDS = ("huge_threads", "l2_threads")  # set on a copy of a plan, not by launch_plan
+
+
+def variant_plan(plan, geom, forced: dict):
+    """The plan of a timing variant: ``layout.launch_plan`` over the same
+    buckets with the keywords of ``forced`` that it takes (forced ring
+    depths, warps a block, the crossover ``huge_from``, ``huge_body``, the
+    huge body's rows), and the threads a block of either huge form set on a
+    copy."""
+    from bdd_tpu_torch.solver import layout
+
+    deep = layout.launch_plan(plan.shapes, geom.dtype, geom.device,
+                              **{k: v for k, v in forced.items() if k not in PLAN_FIELDS})
+    return dataclasses.replace(deep, **{k: v for k, v in forced.items() if k in PLAN_FIELDS})
 
 
 def run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix):
@@ -535,7 +578,8 @@ def run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix):
     errs[key] = max(errs[key], compare([out], [geom.flatten_nodes(refs)], TOL[dt]))
     rose = {k: n - before[k] for k, n in sk.LAUNCHES.items() if n != before[k]}
     want = {k: 1 for k, blocks in ((RUN, geom.plan.nr_blocks), (RUN + WIDE, geom.plan.wide_blocks),
-                                   (RUN + HUGE, geom.plan.huge_blocks)) if blocks}
+                                   (RUN + HUGE, geom.plan.huge_blocks),
+                                   (RUN + HUGE_L2, geom.plan.l2_blocks)) if blocks}
     if rose != want:
         fail(f"{label} {dt}: one fused run call counted launches {rose}, not {want}")
     launch, _ = sk.prepare_run_launch(geom, lo, hi)
@@ -697,10 +741,11 @@ def phase_wide(card, errs, times, flush):
             fail(f"the knapsack instance has buckets of widths {widths}; expected only wide ones")
         # the wide body as planned (one hop ahead, 8 warps a block), then at
         # other ring depths (0: every hop waits for its own copies, so what is
-        # left is the coalesced layout alone) and at four warps a block
+        # left is the coalesced layout alone), at four warps a block, and the
+        # huge body forced on the same layout (below the crossover)
         kernel_vs_twin("knapsack", host, nh.objective(), card, errs, times, flush, suffix=WIDE,
                        variants=({"wide_stages": 0}, {"wide_stages": 2}, {"wide_stages": 4},
-                                 {"wide_warps": 4}))
+                                 {"wide_warps": 4}, {"huge_from": layout.NARROW_P + 1}))
         del host
     # few columns: 40 rows make 40 columns of the same width, fewer than the
     # card has SMs; the plan gives each column a block of its own. Timed
@@ -712,7 +757,7 @@ def phase_wide(card, errs, times, flush):
             fail("the 40-row knapsack instance has a narrow bucket")
         kernel_vs_twin("knapsack40", host, few.objective(), card, errs, times, flush,
                        suffix=WIDE, variants=({"wide_stages": 0}, {"wide_stages": 8},
-                                              {"wide_warps": 8}))
+                                              {"wide_warps": 8}, {"huge_from": layout.NARROW_P + 1}))
         del host
     cs = nh.cpu_solver()
     t0 = time.perf_counter()
@@ -749,14 +794,135 @@ def phase_wide(card, errs, times, flush):
 
 HUGE_ROWS = dict(nr_vars=1584, nr_rows=132, row_len=48, coef_max=1000)  # P = 16,384
 WIDEST_ROWS = dict(nr_vars=1056, nr_rows=132, row_len=32, coef_max=1000)  # P = 8,192
+# rows of 32 variables whose coefficients (up to the value) make BDDs of P
+# slots, 132 of them over 256 columns (lane padding): the crossover between
+# the wide body and the huge body
+CROSSOVER_ROWS = {256: 25, 512: 50, 1024: 100, 2048: 250, 4096: 500}
+# rows of 48 variables with coefficients up to 2,000: P = 32,768, past a
+# block's shared memory in either precision (the L2 body)
+L2_ROWS = dict(nr_vars=1584, nr_rows=132, row_len=48, coef_max=2000)
 HUGE_ITERS = 100  # cut from 200 (PR 8): the native solver's share of the phase
+PATH_ITERS = 20  # iterations of the knapsack32 and L2 paths, counted for the kernels line
+OLD_HUGE_THREADS = 320  # what a block of 388 columns got when threads followed columns alone
+
+
+def merged_lp(*lps: str) -> str:
+    """One LP of the rows of every LP of ``knapsack_lp``'s form, each over
+    variables (and rows) of its own: the k-th's are renamed with k."""
+    objective, rows = [], []
+    for k, lp in enumerate(lps):
+        lines = re.sub(r"\bx(\d+)", rf"y{k}_\1", lp).splitlines()
+        objective.append(lines[1])
+        rows += [f"m{k}{line}" for line in lines[3:-1]]
+    return "\n".join(["Minimize", " + ".join(objective), "Subject To", *rows, "End"])
+
+
+def counted_iterations(label, host, objective, n, card) -> dict:
+    """``n`` iterations through the kernels on ``host`` from its initial
+    state, counted: a path of the kernels line. Fails if a plain sweep or
+    run ran."""
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver import uniform as uf
+
+    st = uf.init_uniform_state(host, objective)
+    sk.reset_launch_counts()
+    before = plain_calls()
+    st = uf.iterations(host.geom, st, n, 0.5)
+    lb = float(uf.lower_bound_with_deferred(host.geom, st))
+    counted = dict(sk.LAUNCHES)
+    if plain_calls() != before:
+        fail(f"{label}: a plain sweep or run ran in its iterations on the card")
+    print(f"[huge] {label}: {n} iterations through the kernels, bound {lb!r}, launches "
+          f"{ {k: v for k, v in counted.items() if v} } {card}", flush=True)
+    return counted
+
+
+def crossover_rows(P: int, nr_rows: int, coef_max: int, card, flush) -> None:
+    """:func:`crossover` on ``nr_rows`` knapsack rows of 32 variables whose
+    coefficients (up to ``coef_max``) make BDDs of P slots, both precisions."""
+    import torch
+    from bdd_tpu_torch.native import NativeHost
+    from bdd_tpu_torch.solver import layout
+
+    rows = NativeHost(knapsack_lp(nr_vars=8 * nr_rows, nr_rows=nr_rows, row_len=32,
+                                  coef_max=coef_max), "input")
+    for dtype in (torch.float32, torch.float64):
+        host = layout.from_native_host(rows, dtype, "cuda")
+        if [g.P for g in host.geom.buckets] != [P]:
+            fail(f"{nr_rows} crossover rows of coefficients up to {coef_max} have buckets "
+                 f"{[(g.P, g.H, g.B) for g in host.geom.buckets]}; expected P = {P}")
+        crossover(f"knapsack{P}" + ("" if nr_rows == 132 else f" x{nr_rows}"), host,
+                  rows.objective(), card, flush)
+        del host
+
+
+def crossover(label, host, objective, card, flush) -> dict:
+    """The wide body against the huge body on one layout of wide buckets, as
+    it was built (lane padding included): forward, backward and run, each
+    held to the plain versions bit for bit and timed warm and cold beside the
+    byte bound; one ``[huge] crossover`` line."""
+    import torch
+    from bdd_tpu_torch.solver import layout
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver import uniform as uf
+
+    geom = host.geom
+    dt = str(geom.dtype).replace("torch.", "")
+    itemsize = torch.empty((), dtype=geom.dtype).element_size()
+    st = uf.iterations(geom, uf.init_uniform_state(host, objective), 5)
+    lo, hi, mm, cft = st.flat
+    dl, dh = uf.exchange_delta_flat(geom, mm)
+    ref_f = uf.sweep_per_bucket(uf.bucket_forward_iteration, geom, lo, hi, cft, 0.5, dl, dh)
+    ref_b = uf.sweep_per_bucket(uf.bucket_backward_iteration, geom, ref_f[0], ref_f[1], ref_f[3],
+                                0.5, dl, dh)
+    ref_r = geom.flatten_nodes([uf.bucket_backward_run(g, a, b) for g, a, b in zip(
+        geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])
+    shapes = bdd_shapes(geom.buckets)
+    bound = {"fwd": launch_bytes(shapes, itemsize, True), "bwd": launch_bytes(shapes, itemsize, False),
+             "run": run_bytes(shapes, itemsize)}
+    out = {}
+    for body, huge_from in (("wide", layout.WIDE_P + 1), ("huge", layout.NARROW_P + 1)):
+        plan = layout.launch_plan(geom.plan.shapes, geom.dtype, geom.device, huge_from=huge_from)
+        if (plan.nr_wide, plan.nr_huge) != ((len(shapes), 0) if body == "wide" else (0, len(shapes))):
+            fail(f"{label} {dt}: the {body} variant's plan has {plan.nr_wide} wide and "
+                 f"{plan.nr_huge} huge buckets")
+        launches = {"fwd": sk.prepare_fused_launch("uniform_forward", geom, lo, hi, cft, 0.5, dl,
+                                                   dh, plan),
+                    "bwd": sk.prepare_fused_launch("uniform_backward", geom, ref_f[0], ref_f[1],
+                                                   ref_f[3], 0.5, dl, dh, plan),
+                    "run": sk.prepare_run_launch(geom, lo, hi, plan)}
+        for key, (launch, res) in launches.items():
+            launch()
+            torch.cuda.synchronize()
+            compare(res if key != "run" else [res],
+                    {"fwd": ref_f, "bwd": ref_b, "run": [ref_r]}[key], TOL[dt])
+            out[(body, key)] = (cuda_ms(launch, 100), cuda_ms(launch, 10, flush))
+        if body == "huge":
+            threads = plan.huge_threads
+    route = "huge" if geom.plan.nr_huge else "wide"
+    print(f"[huge] crossover {label} P={geom.plan.shapes[0][0]} {dt} (buckets "
+          f"{[tuple(x) for x in geom.plan.shapes]}, {sum(B for _, _, B in shapes)} columns with a "
+          f"BDD): match; " + "; ".join(
+              f"{key} bound {1e3 * bound[key] / HBM_BYTES_PER_S:.4f} ms, wide "
+              f"{out[('wide', key)][0]:.4f} / {out[('wide', key)][1]:.4f} ms, huge "
+              f"{out[('huge', key)][0]:.4f} / {out[('huge', key)][1]:.4f} ms (warm / cold)"
+              for key in ("fwd", "bwd", "run"))
+          + f"; huge {threads} threads a block; the plan routes it to the {route} body {card}",
+          flush=True)
+    return out
 
 
 def phase_huge(card, errs, times, flush):
     """Phase 6, huge rows: knapsack rows wider than 8,192 slots through the
-    block-a-column body (four-byte arcs, a launch of its own per half-sweep),
-    and rows of exactly 8,192 through the wide body; 132 rows, a column each
-    (one block an SM)."""
+    huge body (a block a column, rows in shared memory, a launch of its own
+    per half-sweep), beside the L2 body (its rows in device memory) forced on
+    the same layout; the crossover between the wide and the huge body on
+    knapsack rows of 256 to 8,192 slots over 256 columns; rows of exactly
+    8,192 on the body the route gives
+    them; knapsack48 and those rows in one layout; rows of 32,768 slots, past
+    a block's shared memory, on the L2 body. Returns the paths of the kernels
+    line: knapsack48's float64 solve, knapsack32's and the L2 rows' counted
+    iterations."""
     import torch
     from bdd_tpu_torch.api import BddSolver
     from bdd_tpu_torch.native import NativeHost
@@ -776,27 +942,92 @@ def phase_huge(card, errs, times, flush):
         host = layout.from_native_host(nh, dtype, "cuda", pack=False)
         shapes = [(g.P, g.H, g.B) for g in host.geom.buckets]
         columns = sum(int((d > 0).sum()) for d in host.depths)
+        plan = host.geom.plan
         print(f"[huge] knapsack48 {dtype}: buckets (P, H, B) {shapes}, {columns} columns with a "
               f"BDD, arc record {layout.record_bytes(shapes[0][0])} B a hop and column, layout "
-              f"built in {time.perf_counter() - t0:.2f} s {card}", flush=True)
+              f"built in {time.perf_counter() - t0:.2f} s; {plan.nr_huge} bucket(s) on the "
+              f"shared-memory huge body, {plan.nr_l2} on the L2 body {card}", flush=True)
         if (min(P for P, _, _ in shapes) <= layout.WIDE_P or columns < 132
-                or sum(B for _, _, B in shapes) != columns):
+                or sum(B for _, _, B in shapes) != columns or plan.nr_huge != len(shapes)):
             fail(f"the huge knapsack family has buckets {shapes}, {columns} columns; expected "
-                 f"only P > {layout.WIDE_P} and at least 132 columns, none of them padding")
+                 f"only P > {layout.WIDE_P} and at least 132 columns, none of them padding, "
+                 f"all on the shared-memory huge body")
+        # the L2 body forced on the same layout, at 1,024 and 512 threads a block
         kernel_vs_twin("knapsack48", host, nh.objective(), card, errs, times, flush, suffix=HUGE,
-                       variants=({"huge_threads": 256}, {"huge_threads": 512}))
+                       variants=({"huge_body": "huge_l2"},
+                                 {"huge_body": "huge_l2", "l2_threads": 512}))
         del host
-    widest = NativeHost(knapsack_lp(**WIDEST_ROWS), "input")
+    # the crossover: the wide body against the huge body, 256 to 4,096 slots
+    # over 256 columns (more columns: ``--huge-split``)
+    for P, coef_max in CROSSOVER_ROWS.items():
+        crossover_rows(P, 132, coef_max, card, flush)
+    # rows of 8,192 slots: the body the route gives them, the wide body beside it
+    widest_lp = knapsack_lp(**WIDEST_ROWS)
+    widest = NativeHost(widest_lp, "input")
+    paths = []
     for dtype in (torch.float32, torch.float64):
         host = layout.from_native_host(widest, dtype, "cuda")
         shapes = [(g.P, g.H, g.B) for g in host.geom.buckets]
+        route = "huge" if host.geom.plan.nr_huge else "wide"
+        suffix = {"wide": WIDE, "huge": HUGE}[route]
         if [P for P, _, _ in shapes] != [layout.WIDE_P]:
             fail(f"the P = {layout.WIDE_P} knapsack family has buckets {shapes}")
-        print(f"[huge] knapsack32 {dtype}: buckets (P, H, B) {shapes}: the widest wide body "
+        print(f"[huge] knapsack32 {dtype}: buckets (P, H, B) {shapes}: routed to the {route} body "
               f"{card}", flush=True)
+        crossover("knapsack32", host, widest.objective(), card, flush)
         kernel_vs_twin("knapsack32", host, widest.objective(), card, errs, times, flush,
-                       suffix=WIDE)
+                       suffix=suffix)
+        if dtype == torch.float32:
+            counted = counted_iterations("knapsack32 float32", host, widest.objective(),
+                                         PATH_ITERS, card)
+            body = {"wide": dict(wide=PATH_ITERS), "huge": dict(huge=PATH_ITERS)}[route]
+            if sweeps_of(counted) != launch_counts(**body):
+                fail(f"knapsack32: launches {counted}; expected {launch_counts(**body)}")
+            paths.append({"at": "knapsack32", "dt": "float32", "suffix": suffix,
+                          "launches": counted, "iterations": PATH_ITERS})
         del host
+    # knapsack48 and the rows of 8,192 slots in one layout (388 columns in one
+    # huge table): the plan's threads a block, and the threads that three
+    # blocks an SM would share beside them, though only one resides
+    mixed = NativeHost(merged_lp(lp, widest_lp), "input")
+    host = layout.from_native_host(mixed, torch.float32, "cuda", pack=False)
+    plan = host.geom.plan
+    shapes = [(g.P, g.H, g.B) for g in host.geom.buckets]
+    print(f"[huge] knapsack48 + knapsack32 float32: buckets (P, H, B) {shapes}, {plan.nr_huge} "
+          f"on the huge body, {plan.huge_threads} threads a block {card}", flush=True)
+    if sorted(P for P, _, _ in shapes) != [layout.WIDE_P, 16384] or plan.nr_huge != 2:
+        fail(f"the merged knapsack layout has buckets {shapes}, {plan.nr_huge} on the huge body")
+    kernel_vs_twin("knapsack48+32", host, mixed.objective(), card, errs, times, flush,
+                   suffix=HUGE, variants=({"huge_threads": OLD_HUGE_THREADS},))
+    del host, mixed
+    # rows past a block's shared memory in either precision: the L2 body
+    t0 = time.perf_counter()
+    l2 = NativeHost(knapsack_lp(**L2_ROWS), "input")
+    print(f"[huge] knapsack rows {L2_ROWS}: {l2.nr_bdds()} BDDs, built by the host library in "
+          f"{time.perf_counter() - t0:.2f} s {card}", flush=True)
+    for dtype in (torch.float32, torch.float64):
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        host = layout.from_native_host(l2, dtype, "cuda", pack=False)
+        plan = host.geom.plan
+        shapes = [(g.P, g.H, g.B) for g in host.geom.buckets]
+        print(f"[huge] knapsack48 L2 {dtype}: buckets (P, H, B) {shapes}, "
+              f"{layout.huge_smem_bytes(shapes[0][0], itemsize)} B of shared memory a block at "
+              f"the least (a block may have {layout.MAX_DYNAMIC_SMEM}): {plan.nr_l2} bucket(s) "
+              f"on the L2 body {card}", flush=True)
+        if plan.nr_l2 != len(shapes) or plan.nr_huge or plan.nr_wide or plan.nr_buckets:
+            fail(f"the P = 32,768 knapsack rows are not all on the L2 body: {shapes}")
+        kernel_vs_twin("knapsack48 L2", host, l2.objective(), card, errs, times, flush,
+                       suffix=HUGE_L2)
+        if dtype == torch.float64:
+            counted = counted_iterations("knapsack48 L2 float64", host, l2.objective(),
+                                         PATH_ITERS, card)
+            if sweeps_of(counted) != launch_counts(huge_l2=PATH_ITERS):
+                fail(f"knapsack48 L2: launches {counted}; expected "
+                     f"{launch_counts(huge_l2=PATH_ITERS)}")
+            paths.append({"at": "knapsack48 L2", "dt": "float64", "suffix": HUGE_L2,
+                          "launches": counted, "iterations": PATH_ITERS})
+        del host
+    del l2
     cs = nh.cpu_solver()
     t0 = time.perf_counter()
     cs.iterations(HUGE_ITERS, 0.5)
@@ -825,13 +1056,13 @@ def phase_huge(card, errs, times, flush):
             fail(f"huge knapsack {name} bound off the native solver")
         # every bucket is huge: a half-sweep is ONE launch, the huge table's
         if (sweeps_of(counted) != launch_counts(huge=HUGE_ITERS) or counted[RUN]
-                or counted[RUN + WIDE] or not counted[RUN + HUGE]):
+                or counted[RUN + WIDE] or counted[RUN + HUGE_L2] or not counted[RUN + HUGE]):
             fail(f"huge knapsack {name}: launches {counted}; expected "
                  f"{launch_counts(huge=HUGE_ITERS)} and runs of the huge body only")
         if plain_calls() != twins_before:
             fail(f"huge knapsack {name}: a plain sweep or run ran during the solve on the card")
-    return {"at": "knapsack48", "dt": "float64", "suffix": HUGE, "launches": counted,
-            "iterations": res["iterations"]}
+    return [{"at": "knapsack48", "dt": "float64", "suffix": HUGE, "launches": counted,
+             "iterations": res["iterations"]}] + paths
 
 
 MIS200 = dict(nr_nodes=200, edge_prob=0.15, seed=0)  # the MIS-200 rows of BENCH.md:419-420
@@ -2972,6 +3203,338 @@ def sharded_dense(rank, collection, V, obj, card) -> dict:
     return out
 
 
+# ------------------------------------------------ the huge body's split
+# ``python3 chip_smoke.py --huge-split``: variants of the sweep kernels timed
+# side by side. Each is a copy of ``csrc/uniform_sweep.cu`` with a few lines
+# replaced, built with the library's own flags and ``-Xptxas -v`` into
+# ``bdd_tpu_torch/build/variants/`` (all copies side by side) and loaded in
+# place of the library. A replacement whose text is no longer in the source
+# stops the run and names it. The variants of the L2 body (forced by the
+# plan with ``huge_body="huge_l2"``):
+#   l2            as it is;
+#   l2_smem_row   its forward relaxes into a row of keys in shared memory (the
+#                 current row saved to its scratch row for the relaxation
+#                 pass), its backward gathers from a copy of the row of hop
+#                 h+1 in shared memory;
+#   l2_prefetch   the block prefetches the next hop's arc record and frontier
+#                 row to L2 as a hop starts, before this hop's barriers;
+# and of the shared-memory body (the plan's):
+#   smem          as it is;
+#   smem_one_row  the backward on one row where the plan gives it two;
+#   smem_single   every slot loop a slot at a time;
+#   smem_run_grouped  the run's slot loop in groups of HUGE_GROUP loads too;
+#   smem_backward_by_width  the backward in groups only where a thread has
+#                 HUGE_GROUP slots (a one-slot form compiled beside it);
+#   smem_prefetch the next hop's arc record (and the cft row the forward
+#                 gathers, or the backward's cfr row) prefetched to L2;
+#   staged        the forward's cft row of hop h+1 copied into shared memory a
+#                 hop ahead (cp.async by every thread, a ring of two rows)
+#                 instead of gathered through L1; only where two blocks an SM
+#                 still fit with it, so at the crossover rows, not knapsack48.
+_L2_KERNEL = "sweep_huge_l2_kernel(Args<T> a,"
+_GROUPED = "  const bool grouped = FORWARD ? P >= G * nt : !RUN;\n"
+_PREFETCH_HELPERS = (
+    "// min of (m0, m1) over the block, in every thread, with one barrier: each",
+    "__device__ __forceinline__ void prefetch_l2(const void* p) {\n"
+    "  asm volatile(\"prefetch.L2 [%0];\" ::\"l\"(p));\n"
+    "}\n"
+    "__device__ __forceinline__ void block_prefetch(const void* g, size_t bytes) {\n"
+    "  const unsigned char* c = (const unsigned char*)g;\n"
+    "  for (size_t off = (size_t)threadIdx.x * 128; off < bytes;\n"
+    "       off += (size_t)blockDim.x * 128)\n"
+    "    prefetch_l2(c + off);\n"
+    "}\n"
+    "// min of (m0, m1) over the block, in every thread, with one barrier: each")
+SPLIT_PATCHES = {
+    "l2_smem_row": [
+        ("  U* row_b = FORWARD ? row_a + P : nullptr;\n",
+         "  U* row_b = FORWARD ? row_a + P : nullptr;\n"
+         "  extern __shared__ __align__(16) unsigned char dsm[];\n"
+         "  U* const key = (U*)dsm;\n"
+         "  T* const srow = (T*)dsm;\n", "l2"),
+        ("    for (long long p = t0; p < P; p += nt) row_a[p] = K::enc(inf);\n",
+         "    for (long long p = t0; p < P; p += nt) key[p] = K::enc(inf);\n", "l2"),
+        ("        const T f = restart ? (p == 0 ? T(0) : inf) : K::dec(__ldcg(cur + p));\n"
+         "        m0 = min_v(m0, nv ? f + lo + tl : inf);\n"
+         "        m1 = min_v(m1, nv ? f + hi + th : inf);\n"
+         "        fout_h[p] = f;\n"
+         "        nxt[p] = key_inf;\n",
+         "        const U kk = key[p];\n"
+         "        const T f = restart ? (p == 0 ? T(0) : inf) : K::dec(kk);\n"
+         "        m0 = min_v(m0, nv ? f + lo + tl : inf);\n"
+         "        m1 = min_v(m1, nv ? f + hi + th : inf);\n"
+         "        fout_h[p] = f;\n"
+         "        row_a[p] = kk;\n"
+         "        key[p] = key_inf;\n", "l2"),
+        ("atomicMin(nxt + ls, K::enc(f + nl));", "atomicMin(key + ls, K::enc(f + nl));", "l2"),
+        ("atomicMin(nxt + hs, K::enc(f + nh));", "atomicMin(key + hs, K::enc(f + nh));", "l2"),
+        ("      const T* cur = h + 1 < H ? g_out + (col + B) * P : nullptr;\n",
+         "      const T* cur = h + 1 < H ? srow : nullptr;\n", "l2"),
+        ("(cur ? __ldcg(cur + ls) : inf)", "(cur ? cur[ls] : inf)", "l2"),
+        ("(cur ? __ldcg(cur + hs) : inf)", "(cur ? cur[hs] : inf)", "l2"),
+        ("    __syncthreads();  // the row is built before the next hop reads it\n",
+         "    __syncthreads();  // the row is built before the next hop reads it\n"
+         "    if constexpr (!FORWARD) {\n"
+         "      for (long long p = t0; p < P; p += nt) srow[p] = __ldcg(g_out + col * P + p);\n"
+         "      __syncthreads();\n"
+         "    }\n", "l2"),
+        ("  sweep_huge_l2_kernel<T, MODE><<<nr_blocks, threads, 0, (cudaStream_t)stream>>>(\n",
+         "  static bool opted = false;\n"
+         "  if (!opted) {\n"
+         "    cudaFuncSetAttribute(sweep_huge_l2_kernel<T, MODE>,\n"
+         "                         cudaFuncAttributeMaxDynamicSharedMemorySize, 160 * 1024);\n"
+         "    opted = true;\n"
+         "  }\n"
+         "  sweep_huge_l2_kernel<T, MODE><<<nr_blocks, threads, 160 * 1024,\n"
+         "                                 (cudaStream_t)stream>>>(\n", "l2"),
+    ],
+    "l2_prefetch": [
+        _PREFETCH_HELPERS,
+        ("  for (int i = 0; i < H; ++i) {\n"
+         "    const int h = FORWARD ? i : H - 1 - i;\n"
+         "    const size_t col = (size_t)h * B + b;\n"
+         "    const uint32_t* rec = g_arcs + col * 2 * P;\n",
+         "  for (int i = 0; i < H; ++i) {\n"
+         "    const int h = FORWARD ? i : H - 1 - i;\n"
+         "    if (i + 1 < H) {\n"
+         "      const int hn = FORWARD ? h + 1 : h - 1;\n"
+         "      const size_t cn = (size_t)hn * B + b;\n"
+         "      block_prefetch(g_arcs + cn * 2 * P, (size_t)2 * P * 4);\n"
+         "      if (!RUN && (!FORWARD || hn + 1 < H))\n"
+         "        block_prefetch(g_front + (cn + (FORWARD ? B : 0)) * P, (size_t)P * sizeof(T));\n"
+         "    }\n"
+         "    const size_t col = (size_t)h * B + b;\n"
+         "    const uint32_t* rec = g_arcs + col * 2 * P;\n", "l2"),
+    ],
+    "smem_one_row": [("  const bool two_rows = !FORWARD && bk.stages == 2;\n",
+                      "  const bool two_rows = false;\n")],
+    "smem_single": [(_GROUPED, "  const bool grouped = false;\n")],
+    "smem_run_grouped": [(_GROUPED, "  const bool grouped = FORWARD ? P >= G * nt : true;\n")],
+    "smem_backward_by_width": [(_GROUPED, "  const bool grouped = !RUN && P >= G * nt;\n")],
+    "smem_prefetch": [
+        _PREFETCH_HELPERS,
+        ("    if (i + 1 < H) start_copies(FORWARD ? h + 1 : h - 1, ring + ((i + 1) & 1) * slot_bytes);\n",
+         "    if (i + 1 < H) {\n"
+         "      const int hn = FORWARD ? h + 1 : h - 1;\n"
+         "      start_copies(hn, ring + ((i + 1) & 1) * slot_bytes);\n"
+         "      block_prefetch(g_arcs + ((size_t)hn * B + b) * 2 * P, (size_t)2 * P * sizeof(W));\n"
+         "      if (FORWARD && hn + 1 < H)\n"
+         "        block_prefetch(g_front + ((size_t)(hn + 1) * B + b) * P, (size_t)P * SZ);\n"
+         "      if (!FORWARD && !RUN)\n"
+         "        block_prefetch(g_front + ((size_t)hn * B + b) * P, (size_t)P * SZ);\n"
+         "    }\n"),
+    ],
+    "staged": [
+        ("  const int slot_bytes = HUGE_SCALARS * SZ;\n",
+         "  const int slot_bytes = HUGE_SCALARS * SZ + (FORWARD ? row_bytes : 0);\n"),
+        ("      cp_async<SZ>(slot + t * SZ, src + e);\n    }\n  };\n",
+         "      cp_async<SZ>(slot + t * SZ, src + e);\n    }\n"
+         "    if (FORWARD && h + 1 < H) {  // cft of hop h+1 into the slot's row\n"
+         "      const unsigned char* g =\n"
+         "          (const unsigned char*)(g_front + ((size_t)(h + 1) * B + b) * P);\n"
+         "      unsigned char* dst = slot + HUGE_SCALARS * SZ;\n"
+         "      if ((P * SZ) % 16 == 0)\n"
+         "        for (int c = t * 16; c < P * SZ; c += nt * 16) cp_async<16>(dst + c, g + c);\n"
+         "      else\n"
+         "        for (int c = t * SZ; c < P * SZ; c += nt * SZ) cp_async<SZ>(dst + c, g + c);\n"
+         "    }\n  };\n"),
+        ("      const T* cft_g = g_front + (col + (size_t)B) * P;  // cft of hop h+1\n",
+         "      const T* cft_g = (const T*)(slot + HUGE_SCALARS * SZ);  // staged\n"),
+        ("      tl[u] = child_cost<T, false>(c[u] & 0x7fffu, 0u, cft_g, has);\n"
+         "      th[u] = child_cost<T, false>(c[u] >> 16, 0u, cft_g, has);\n",
+         "      tl[u] = child_cost<T, true>(c[u] & 0x7fffu, smem_addr(cft_g), nullptr, has);\n"
+         "      th[u] = child_cost<T, true>(c[u] >> 16, smem_addr(cft_g), nullptr, has);\n"),
+    ],
+}
+# (variant, library, plan keywords, the layouts it runs on)
+SPLIT_RUNS = [("l2", None, {"huge_body": "huge_l2"}, ("knapsack48",)),
+              ("l2_smem_row", "l2_smem_row", {"huge_body": "huge_l2"}, ("knapsack48",)),
+              ("l2_prefetch", "l2_prefetch", {"huge_body": "huge_l2"}, ("knapsack48",)),
+              ("smem", None, {}, ("knapsack48", "crossover")),
+              ("smem_one_row", "smem_one_row", {}, ("knapsack48",)),
+              ("smem_single", "smem_single", {}, ("knapsack48",)),
+              ("smem_run_grouped", "smem_run_grouped", {}, ("knapsack48",)),
+              ("smem_backward_by_width", "smem_backward_by_width", {}, ("knapsack48",)),
+              ("smem_prefetch", "smem_prefetch", {}, ("knapsack48",)),
+              ("staged", "staged", {}, ("crossover",))]
+SPLIT_CROSSOVER_P = (1024, 4096)  # crossover rows (132 over 256 columns) where staging fits
+# the crossover at more columns: (P, rows, coefficients up to); rows pad to
+# a multiple of 128 columns (at 100, two of 2,000 rows stay within 512 slots)
+SPLIT_COLUMNS = [(1024, 512, 110), (1024, 1024, 110), (1024, 2000, 110), (2048, 1024, 250),
+                 (2048, 2000, 250), (4096, 2000, 500)]
+
+
+def split_source(name: str) -> str:
+    """The kernel source with the replacements of variant ``name``."""
+    from bdd_tpu_torch import _build
+
+    with open(_build.SOURCE) as fh:
+        src = fh.read()
+    for old, new, *scope in SPLIT_PATCHES[name]:
+        if scope:  # only inside the L2 body
+            head, tail = src.split(_L2_KERNEL, 1)
+            end = tail.index("\n}  // namespace")
+            if old not in tail[:end]:
+                fail(f"{name}: the text {old[:60]!r} is not in the L2 body")
+            src = head + _L2_KERNEL + tail[:end].replace(old, new) + tail[end:]
+        else:
+            if old not in src:
+                fail(f"{name}: the text {old[:60]!r} is not in the source")
+            src = src.replace(old, new)
+    return src
+
+
+def split_build() -> dict:
+    """Compile the kernel source and every variant side by side (``-Xptxas
+    -v``); name -> (library path, ptxas report)."""
+    from bdd_tpu_torch import _build
+
+    out_dir = os.path.join(_build.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = _build.nvcc_path()
+    jobs = {}
+    for name in [None] + list(SPLIT_PATCHES):
+        stem = name or "repo"
+        src = _build.SOURCE
+        if name:
+            src = os.path.join(out_dir, f"{stem}.cu")
+            with open(src, "w") as fh:
+                fh.write(split_source(name))
+        lib = os.path.join(out_dir, f"lib{stem}.so")
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib, src]
+        jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for name, (lib, proc) in jobs.items():
+        report = proc.communicate()[0]
+        if proc.returncode:
+            fail(f"nvcc failed for variant {name or 'repo'}:\n{report[-4000:]}")
+        built[name] = (lib, report)
+    return built
+
+
+def split_ptxas(report: str):
+    """(kernel, registers, spill stores, stack frame) of the huge kernels."""
+    rows, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S*(sweep_huge\w*_kernelI[fd]Li\d))", line)
+        if m:
+            name = m.group(2)
+            continue
+        if name and "stack frame" in line:
+            frame = int(re.search(r"(\d+) bytes stack frame", line).group(1))
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+            rows.append([name, None, spill, frame])
+        elif name and "Used" in line and rows and rows[-1][0] == name:
+            rows[-1][1] = int(re.search(r"Used (\d+) registers", line).group(1))
+            name = None
+    return rows
+
+
+def huge_split() -> None:
+    """Every variant held to the twins bit for bit and timed warm and cold
+    beside the byte bound: on knapsack48 (B = 132), both precisions, and, for
+    the staged forward, on the crossover rows of SPLIT_CROSSOVER_P slots.
+    Then the crossover between the wide and the huge body at more columns
+    (SPLIT_COLUMNS), with the library as built."""
+    import ctypes
+    import torch
+    from bdd_tpu_torch import _build
+    from bdd_tpu_torch.native import NativeHost
+    from bdd_tpu_torch.solver import layout
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver import uniform as uf
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: the split needs an NVIDIA GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    card = f"[{smi}]"
+    t0 = time.perf_counter()
+    built = split_build()
+    print(f"[split] built {len(built)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
+    libs = {}
+    for name, (path, report) in built.items():
+        for kern, regs, spill, frame in split_ptxas(report):
+            print(f"[ptxas] {name or 'repo'} {kern}: {regs} registers, {spill} B spill stores, "
+                  f"{frame} B stack frame", flush=True)
+        libs[name] = ctypes.CDLL(path)
+        _build._declare(libs[name])
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    layouts = [("knapsack48", knapsack_lp(**HUGE_ROWS), "knapsack48")]
+    layouts += [(f"knapsack{P}", knapsack_lp(nr_vars=1056, nr_rows=132, row_len=32,
+                                             coef_max=CROSSOVER_ROWS[P]), "crossover")
+                for P in SPLIT_CROSSOVER_P]
+    for label, lp, kind in layouts:
+        nh = NativeHost(lp, "input")
+        for dtype in (torch.float32, torch.float64):
+            host = layout.from_native_host(nh, dtype, "cuda", pack=False)
+            geom = host.geom
+            dt = str(dtype).replace("torch.", "")
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            st = uf.iterations(geom, uf.init_uniform_state(host, nh.objective()), 5,
+                               sweeps=uf.TWIN_SWEEPS)
+            lo, hi, mm, cft = st.flat
+            dl, dh = uf.exchange_delta_flat(geom, mm)
+            ref_f = uf.sweep_per_bucket(uf.bucket_forward_iteration, geom, lo, hi, cft, 0.5, dl,
+                                        dh)
+            ref_b = uf.sweep_per_bucket(uf.bucket_backward_iteration, geom, ref_f[0], ref_f[1],
+                                        ref_f[3], 0.5, dl, dh)
+            ref_r = geom.flatten_nodes([uf.bucket_backward_run(g, a, b) for g, a, b in zip(
+                geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])
+            shapes = bdd_shapes(geom.buckets)
+            bounds = {"uniform_forward": launch_bytes(shapes, itemsize, True),
+                      "uniform_backward": launch_bytes(shapes, itemsize, False),
+                      RUN: run_bytes(shapes, itemsize)}
+            print(f"[split] {label} {dt}: buckets {[tuple(s) for s in geom.plan.shapes]}, bounds "
+                  + ", ".join(f"{k} {1e3 * v / HBM_BYTES_PER_S:.4f} ms" for k, v in bounds.items())
+                  + f" {card}", flush=True)
+            for variant, libname, force, kinds in SPLIT_RUNS:
+                if kind not in kinds:
+                    continue
+                _build._LIB = libs[libname]
+                plan = layout.launch_plan(geom.plan.shapes, dtype, "cuda",
+                                          huge_from=layout.NARROW_P + 1, **force)
+                if variant == "staged":  # two ring rows of cft beside the plan's block
+                    cft_row = -(-geom.plan.shapes[0][0] * itemsize // 16) * 16
+                    plan = dataclasses.replace(
+                        plan, huge_smem_forward=plan.huge_smem_forward + 2 * cft_row)
+                    if 2 * (plan.huge_smem_forward + layout.BLOCK_SMEM_RESERVED) > layout.SM_SMEM:
+                        fail(f"{label} {dt}: a staged block does not leave room for two an SM")
+                launches = {
+                    "uniform_forward": sk.prepare_fused_launch(
+                        "uniform_forward", geom, lo, hi, cft, 0.5, dl, dh, plan),
+                    "uniform_backward": sk.prepare_fused_launch(
+                        "uniform_backward", geom, ref_f[0], ref_f[1], ref_f[3], 0.5, dl, dh,
+                        plan),
+                    RUN: sk.prepare_run_launch(geom, lo, hi, plan)}
+                if variant == "staged":  # only the forward differs
+                    launches = {"uniform_forward": launches["uniform_forward"]}
+                row = []
+                for kernel, (launch, out) in launches.items():
+                    launch()
+                    torch.cuda.synchronize()
+                    ref = {"uniform_forward": ref_f, "uniform_backward": ref_b}.get(kernel,
+                                                                                    [ref_r])
+                    compare(out if kernel != RUN else [out], ref, 0.0)
+                    warm, cold = cuda_ms(launch, 100), cuda_ms(launch, 10, flush)
+                    bound = 1e3 * bounds[kernel] / HBM_BYTES_PER_S
+                    row.append(f"{kernel} warm {warm:.4f} ms ({100 * bound / warm:.1f}% of bound), "
+                               f"cold {cold:.4f} ms")
+                body = (f"L2 body, {plan.l2_threads} threads" if plan.nr_l2 else
+                        f"shared-memory body, {plan.huge_threads} threads, backward rows "
+                        f"{[int(r[7]) for r in plan.huge_table.tolist()]}, smem "
+                        f"{plan.huge_smem_forward} / {plan.huge_smem_backward} B")
+                print(f"[split] {label} {dt} {variant} ({body}): match; {'; '.join(row)} "
+                      f"{card}", flush=True)
+            del host, geom, st, ref_f, ref_b, ref_r
+            torch.cuda.empty_cache()
+    _build._LIB = None
+    for P, nr_rows, coef_max in SPLIT_COLUMNS:
+        crossover_rows(P, nr_rows, coef_max, card, flush)
+
+
 def main() -> None:
     # the native C++ baseline's OpenMP pool reads these when first loaded
     for k, v in (("OMP_NUM_THREADS", str(os.cpu_count() or 4)), ("OMP_WAIT_POLICY", "active")):
@@ -3117,7 +3680,7 @@ def main() -> None:
         return out
 
     paths.append(timed("wide", phase_wide, card, errs, times, flush))
-    paths.append(timed("huge", phase_huge, card, errs, times, flush))
+    paths += timed("huge", phase_huge, card, errs, times, flush)
     paths.append(timed("python", phase_python_pipeline, card, errs, times, flush))
     paths += timed("batch", phase_batch, card, errs, times, flush)
     paths.append(timed("serve", phase_serve, card, gm_lp, f32a["lower_bound"], errs, times,
@@ -3182,5 +3745,7 @@ def finish(paths, errs, times) -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:
         sharded_rank(sys.argv[2:])
+    elif sys.argv[1:] == ["--huge-split"]:
+        huge_split()
     else:
         main()

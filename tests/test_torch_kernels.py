@@ -72,13 +72,14 @@ def setup(name, dtype, device, iters=3):
     return host, st, dl, dh
 
 
-def launches(narrow=0, wide=0, run=0, run_wide=0, huge=0, run_huge=0):
-    """``sk.LAUNCHES`` after ``narrow`` / ``wide`` / ``huge`` launches of either
-    half-sweep kernel and ``run`` / ``run_wide`` / ``run_huge`` launches of the
-    run-only backward entry."""
+def launches(narrow=0, wide=0, run=0, run_wide=0, huge=0, run_huge=0, huge_l2=0, run_huge_l2=0):
+    """``sk.LAUNCHES`` after ``narrow`` / ``wide`` / ``huge`` / ``huge_l2``
+    launches of either half-sweep kernel and ``run`` / ``run_wide`` /
+    ``run_huge`` / ``run_huge_l2`` launches of the run-only backward entry."""
     out = {k + body: n for k in sk.KERNELS
-           for body, n in (("", narrow), (sk.WIDE, wide), (sk.HUGE, huge))}
-    return {**out, sk.RUN: run, sk.RUN + sk.WIDE: run_wide, sk.RUN + sk.HUGE: run_huge}
+           for body, n in (("", narrow), (sk.WIDE, wide), (sk.HUGE, huge), (sk.HUGE_L2, huge_l2))}
+    return {**out, sk.RUN: run, sk.RUN + sk.WIDE: run_wide, sk.RUN + sk.HUGE: run_huge,
+            sk.RUN + sk.HUGE_L2: run_huge_l2}
 
 
 def assert_identical(out, ref):
@@ -270,10 +271,18 @@ WIDE_SHAPES = [(64, 1, 37), (48, 7, 9), (128, 11, 13), (256, 5, 8), (512, 2, 3),
                (33, 40, 7), (33, 1, 1), (64, 40, 8), (256, 40, 9), (2048, 3, 2),
                (256, 1, 2048), (64, 40, 2048), (2048, 40, 1), (layout.WIDE_P, 3, 2),
                (layout.WIDE_P, 1, 1)]
-# huge buckets (four bytes an arc, the block-a-column body): just past the
-# wide body, widths no multiple of the block's threads, H of 1 and B of 1
+# huge buckets (four bytes an arc, the block-a-column body, rows in shared
+# memory): just past the wide records, widths no multiple of the block's
+# threads, H of 1 and B of 1, the widest
 HUGE_SHAPES = [(layout.WIDE_P + 1, 3, 3), (16384, 2, 2), (9000, 1, 1), (8200, 6, 4)]
-SHAPES += WIDE_SHAPES + HUGE_SHAPES
+# wide buckets the plan routes to the huge body on their two-byte records:
+# from the crossover to the widest, odd widths among them
+ROUTED_SHAPES = [(layout.HUGE_FROM, 5, 3), (layout.HUGE_FROM + 3, 2, 2), (4096, 3, 9),
+                 (6001, 1, 1), (layout.WIDE_P, 4, 2)]
+# rows past a block's shared memory: the L2 body, its rows in device memory
+# (20,001 slots only in float64; float32 keeps them in shared memory)
+L2_SHAPES = [(30000, 3, 2), (20001, 1, 1)]
+SHAPES += WIDE_SHAPES + HUGE_SHAPES + ROUTED_SHAPES + L2_SHAPES
 
 
 @pytest.mark.parametrize("precision", ["float", "double"])
@@ -390,9 +399,13 @@ def test_plan_splits_narrow_and_wide_buckets():
     # the widest bucket fits a block in either precision: one warp, in
     # float64 without a ring
     for dtype, depth in ((torch.float32, 1), (torch.float64, 0)):
-        widest = layout.launch_plan([(layout.WIDE_P, 2, 8)], dtype, "cpu")
+        widest = layout.launch_plan([(layout.WIDE_P, 2, 8)], dtype, "cpu",
+                                    huge_from=layout.WIDE_P + 1)
         assert widest.wide_warps == 1 and widest.wide_smem_bytes <= layout.MAX_DYNAMIC_SMEM
         assert int(widest.wide_table[0, 7]) == depth
+        # by default the plan routes it to the huge body
+        routed = layout.launch_plan([(layout.WIDE_P, 2, 8)], dtype, "cpu")
+        assert (routed.nr_wide, routed.nr_huge, routed.huge_blocks) == (0, 1, 8)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["float", "double"])
@@ -417,7 +430,8 @@ def test_mixed_layout_counts_a_narrow_and_a_wide_launch(cuda_device, precision):
 @pytest.mark.parametrize("precision", ["float", "double"])
 @pytest.mark.parametrize("zero_costs", [False, True], ids=["random", "ties-at-zero"])
 @pytest.mark.parametrize("shape", [(8, 7, 40), (64, 7, 9), (256, 5, 8), (33, 40, 7),
-                                   (2048, 3, 2), (8200, 5, 3)],
+                                   (2048, 3, 2), (8200, 5, 3), (layout.HUGE_FROM + 3, 4, 3),
+                                   (20001, 3, 2)],
                          ids=lambda s: "P%d-H%d-B%d" % s)
 def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_costs, precision):
     """Outside what a solve produces: -inf deltas (inf - inf, so NaN costs
@@ -479,8 +493,8 @@ def test_one_bucket_run_equals_plain_run(cuda_device, shape, precision):
     sk.reset_launch_counts()
     out = sk.bucket_backward_run_cuda(g, lo.view(g.H, g.B), hi.view(g.H, g.B))
     torch.cuda.synchronize()
-    P = shape[0]
-    body = "" if P <= layout.NARROW_P else (sk.WIDE if P <= layout.WIDE_P else sk.HUGE)
+    body = {"narrow": "", "wide": sk.WIDE, "huge": sk.HUGE, "huge_l2": sk.HUGE_L2}[
+        layout.body_of(shape[0], 4 if precision == "float" else 8, shape[2])]
     assert sk.LAUNCHES == {**launches(), sk.RUN + body: 1}
     assert_same_bits([out], [uf.bucket_backward_run(g, lo.view(g.H, g.B), hi.view(g.H, g.B))])
 
@@ -506,7 +520,7 @@ def test_fused_run_over_all_shapes_equals_plain_run(cuda_device, precision, stag
     sk.reset_launch_counts()
     before = dict(uf.PLAIN_RUN_CALLS)
     assert_same_bits([sk.backward_run_cuda(geom, lo, hi)], [ref])
-    assert sk.LAUNCHES == launches(run=1, run_wide=1, run_huge=1)
+    assert sk.LAUNCHES == launches(run=1, run_wide=1, run_huge=1, run_huge_l2=1)
     assert uf.PLAIN_RUN_CALLS == before
 
 
@@ -533,27 +547,143 @@ def test_wide_body_variants_equal_twins(cuda_device, precision, warps, stages):
 
 # ------------------------------------------------------------- huge buckets
 def test_plan_puts_huge_buckets_in_a_third_table():
-    shapes = [(2, 3, 40), (16384, 2, 3), (128, 5, 8), (8200, 4, 5)]
+    shapes = [(2, 3, 40), (16384, 2, 3), (128, 5, 8), (8200, 4, 5), (30000, 2, 3)]
     host, _ = synthetic_host(shapes, torch.float32, "cpu")
     plan = host.geom.plan
     assert [tuple(r[:3]) for r in plan.huge_table.tolist()] == [shapes[1], shapes[3]]
-    assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge) == (1, 1, 2)
-    # a block a column; the last column: the bucket's offset into the scratch rows
+    assert [tuple(r[:3]) for r in plan.l2_table.tolist()] == [shapes[4]]
+    assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.nr_l2) == (1, 1, 2, 1)
+    # a block a column; the huge table's last column: the rows the backward
+    # keeps in shared memory (two: one block an SM)
     assert plan.huge_blocks == 8 and [r[3] for r in plan.huge_table.tolist()] == [0, 3]
-    assert [r[7] for r in plan.huge_table.tolist()] == [0, 2 * 16384 * 3]
-    assert plan.huge_threads == layout.HUGE_THREADS == 1024
-    assert plan.huge_scratch_values == 2 * 16384 * 3 + 2 * 8200 * 5
+    assert plan.l2_blocks == 3 and [r[3] for r in plan.l2_table.tolist()] == [0]
+    assert [r[7] for r in plan.huge_table.tolist()] == [2, 2]
+    assert plan.huge_threads == plan.l2_threads == layout.HUGE_THREADS == 1024
+    assert plan.huge_pmax == 16384
+    # the L2 table's last column: the bucket's offset into the scratch rows,
+    # which only the L2 body's buckets get
+    assert [r[7] for r in plan.l2_table.tolist()] == [0]
+    assert plan.huge_scratch_values == 2 * 30000 * 3
     # the rows belong to the layout, allocated on the card only
     assert host.geom.huge_scratch is None
     assert layout.huge_scratch(plan, torch.float32, "cpu") is None
     assert layout.arc_bytes(8192) == 2 and layout.arc_bytes(8193) == 4
     assert layout.record_bytes(8193) == 8 * 8193
     # the bytes a solve works in, the number a layout too large for the card names
-    E = 3 * 40 + 2 * 3 + 5 * 8 + 4 * 5
-    N = 3 * 2 * 40 + 2 * 16384 * 3 + 5 * 128 * 8 + 4 * 8200 * 5
-    scratch = 2 * 16384 * 3 + 2 * 8200 * 5
+    E = 3 * 40 + 2 * 3 + 5 * 8 + 4 * 5 + 2 * 3
+    N = 3 * 2 * 40 + 2 * 16384 * 3 + 5 * 128 * 8 + 4 * 8200 * 5 + 2 * 30000 * 3
+    scratch = 2 * 30000 * 3
     assert layout.solve_bytes(plan.shapes, 4) == plan.arc_bytes + E * (9 * 4 + 24) + (
         2 * N + scratch) * 4
+
+
+@pytest.mark.parametrize("P,itemsize,body", [
+    (2, 8, "narrow"), (layout.NARROW_P, 8, "narrow"), (layout.NARROW_P + 1, 8, "wide"),
+    (layout.HUGE_FROM - 1, 8, "wide"), (layout.HUGE_FROM, 8, "huge"), (layout.WIDE_P, 4, "huge"),
+    (layout.WIDE_P + 1, 8, "huge"), (16384, 8, "huge"), (19316, 8, "huge"),
+    (19317, 8, "huge_l2"), (29016, 4, "huge"), (29017, 4, "huge_l2")])
+def test_plan_sends_each_width_to_its_body(P, itemsize, body):
+    """narrow, wide, routed two-byte huge, huge (its rows in a block's shared
+    memory), L2: one table each, and the records and padding follow the
+    width alone, whichever body runs it."""
+    dtype = torch.float32 if itemsize == 4 else torch.float64
+    assert layout.body_of(P, itemsize) == body
+    assert layout.huge_fits(P, itemsize) == (body != "huge_l2")
+    plan = layout.launch_plan([(P, 3, 5)], dtype, "cpu")
+    assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.nr_l2) == tuple(
+        int(body == b) for b in ("narrow", "wide", "huge", "huge_l2"))
+    assert layout.arc_bytes(P) == (1 if P <= layout.NARROW_P else 2 if P <= layout.WIDE_P else 4)
+    assert layout.lane_pad(132, P) == (132 if P > layout.WIDE_P else 256)
+    if body == "huge":
+        assert plan.huge_pmax == P and plan.huge_threads == layout.HUGE_THREADS
+        assert max(plan.huge_smem_forward, plan.huge_smem_backward) <= layout.MAX_DYNAMIC_SMEM
+    # the wide body still takes every wide bucket where the plan is told so
+    if P <= layout.WIDE_P and body == "huge":
+        forced = layout.launch_plan([(P, 3, 5)], dtype, "cpu", huge_from=layout.WIDE_P + 1)
+        assert (forced.nr_wide, forced.nr_huge) == (1, 0)
+
+
+@pytest.mark.parametrize("P,itemsize,columns,body", [
+    (layout.HUGE_FROM, 4, 4 * 132, "huge"), (layout.HUGE_FROM, 4, 4 * 132 + 1, "wide"),
+    (layout.HUGE_FROM, 4, 2048, "wide"), (layout.HUGE_FROM, 8, 2048, "huge"),
+    (layout.HUGE_FROM_F32_MANY - 1, 4, 1024, "wide"), (layout.HUGE_FROM_F32_MANY, 4, 2048, "huge"),
+    (4096, 4, 2048, "huge"), (layout.WIDE_P, 4, 1 << 14, "huge"), (512, 4, 8, "wide")])
+def test_route_follows_the_columns_in_float32(P, itemsize, columns, body):
+    """float32 buckets below HUGE_FROM_F32_MANY slots take the huge body only
+    while their columns are at most HUGE_F32_BLOCKS_SM an SM (more would
+    give a huge block 128 threads or fewer, where the wide body is faster);
+    float64 and wider buckets whatever their columns. A forced ``huge_from``
+    replaces the route, and the plan follows it with the card's SMs."""
+    dtype = torch.float32 if itemsize == 4 else torch.float64
+    assert layout.HUGE_F32_BLOCKS_SM == 4
+    assert layout.body_of(P, itemsize, columns) == body
+    plan = layout.launch_plan([(P, 2, columns)], dtype, "cpu")
+    assert (plan.nr_wide, plan.nr_huge) == ((1, 0) if body == "wide" else (0, 1))
+    assert layout.body_of(P, itemsize, columns, huge_from=layout.NARROW_P + 1) == "huge"
+    forced = layout.launch_plan([(P, 2, columns)], dtype, "cpu", huge_from=layout.NARROW_P + 1)
+    assert (forced.nr_wide, forced.nr_huge) == (0, 1)
+    # on a card of fewer SMs the same columns are more an SM
+    assert layout.body_of(P, itemsize, 4 * 66 + 1, sms=66) == layout.body_of(
+        P, itemsize, 4 * 132 + 1, sms=132)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_huge_plan_shared_memory_is_the_kernels(itemsize):
+    """The shared memory the plan gives a huge block is what
+    ``uniform_sweep.cu`` carves: [row | second row (backward, two rows) | the
+    slot codes, four bytes a slot | 64 values of partials | two ring slots of
+    HUGE_SCALARS values], each row padded to 16 bytes. An SM holds as many
+    blocks as the columns ask for and the launch's shared memory lets
+    reside, and they share its 1,024 threads; the backward keeps a second
+    row where that many blocks still fit with it."""
+    dtype = torch.float32 if itemsize == 4 else torch.float64
+    assert layout.sm_count("cpu") == layout.SM_COUNT == 132
+
+    def carved(P, two_rows):
+        row = -(-P * itemsize // 16) * 16
+        return (row * (1 + two_rows) + -(-4 * P // 16) * 16 + 64 * itemsize
+                + 2 * layout.HUGE_SCALARS * itemsize)
+
+    def rows(plan):
+        return [int(r[7]) for r in plan.huge_table.tolist()]
+
+    # knapsack48: 132 columns of 16,384 slots, one block of 1,024 threads an
+    # SM; float32 keeps two backward rows, float64 one
+    two = itemsize == 4
+    plan = layout.launch_plan([(16384, 48, 132)], dtype, "cpu")
+    assert (plan.huge_threads, plan.huge_blocks) == (1024, 132)
+    assert plan.huge_smem_forward == carved(16384, False) == layout.huge_smem_bytes(
+        16384, itemsize)
+    assert plan.huge_smem_backward == carved(16384, two)
+    assert rows(plan) == [1 + two]
+    # routed rows of 8,192 slots over 256 columns: two blocks an SM of 512
+    # threads each, as the SM's shared memory allows
+    plan = layout.launch_plan([(layout.WIDE_P, 32, 256)], dtype, "cpu")
+    assert (plan.huge_threads, plan.huge_blocks) == (512, 256)
+    assert plan.huge_smem_forward == carved(layout.WIDE_P, False)
+    assert plan.huge_smem_backward == carved(layout.WIDE_P, two)
+    assert rows(plan) == [1 + two]
+    # both in one table (388 columns, three an SM): a block of the launch
+    # carves knapsack48's shared memory, so one resides an SM, at 1,024
+    # threads, not at the 320 that three blocks would share
+    plan = layout.launch_plan([(16384, 48, 132), (layout.WIDE_P, 32, 256)], dtype, "cpu")
+    assert (plan.huge_threads, plan.huge_blocks) == (1024, 388)
+    assert plan.huge_smem_forward == carved(16384, False)
+    assert rows(plan) == [1 + two, 2]
+    assert plan.huge_smem_backward == max(carved(16384, two), carved(layout.WIDE_P, True))
+    # few columns of 4,096 slots: two rows in either precision
+    plan = layout.launch_plan([(4096, 3, 8)], dtype, "cpu")
+    assert rows(plan) == [2] and plan.huge_threads == 1024
+    assert plan.huge_smem_forward == carved(4096, False)
+    assert plan.huge_smem_backward == carved(4096, True)
+    # 2,048 columns of 1,024 slots (the huge body forced in float32): 16
+    # blocks an SM of 64 threads; in float64 16 blocks fit only on one row
+    # each
+    plan = layout.launch_plan([(layout.HUGE_FROM, 32, 2048)], dtype, "cpu",
+                              huge_from=layout.HUGE_FROM)
+    assert (plan.huge_threads, plan.huge_blocks) == (64, 2048)
+    assert rows(plan) == [1 + two]
+    assert 16 * (plan.huge_smem_backward + layout.BLOCK_SMEM_RESERVED) <= layout.SM_SMEM
 
 
 def test_layout_past_the_cards_memory_is_refused_naming_the_bytes(monkeypatch):
@@ -625,7 +755,7 @@ def test_mixed_layout_counts_three_launches(cuda_device, precision):
     shapes = [(2, 9, 70), (8200, 3, 5), (128, 5, 9), (16384, 2, 2)]
     host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=4)
     geom = host.geom
-    assert geom.huge_scratch.numel() == 2 * (8200 * 5 + 16384 * 2) * lo.element_size()
+    assert geom.huge_scratch is None  # both huge buckets keep their rows in shared memory
     sk.reset_launch_counts()
     calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
     out_f = sk.forward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)
@@ -647,12 +777,51 @@ def test_mixed_layout_counts_three_launches(cuda_device, precision):
 @pytest.mark.parametrize("precision", ["float", "double"])
 @pytest.mark.parametrize("threads", [32, 256, 512, 1024])
 def test_huge_body_thread_counts_equal_twins(cuda_device, precision, threads):
-    """The huge body at forced threads a block (one warp up to the largest
-    block): both half-sweeps and the run against their plain versions."""
+    """Both huge forms at forced threads a block (one warp up to the largest
+    block): both half-sweeps and the run against their plain versions. The
+    shared-memory body over every wide and huge shape (the wide ones routed
+    to it, on their two-byte records), the L2 body over the huge shapes."""
     dtype = torch.float32 if precision == "float" else torch.float64
-    host, (lo, hi, fr, dl, dh) = synthetic_host(HUGE_SHAPES, dtype, cuda_device, seed=13)
+    fits = WIDE_SHAPES + HUGE_SHAPES + ROUTED_SHAPES
+    for shapes, force in ((fits, {"huge_from": layout.NARROW_P + 1}),
+                          (HUGE_SHAPES + L2_SHAPES, {"huge_body": "huge_l2"})):
+        host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=13)
+        geom = host.geom
+        plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, **force)
+        if "huge_body" in force:
+            assert plan.nr_huge == 0 and plan.nr_l2 == len(shapes)
+            plan = dataclasses.replace(plan, l2_threads=threads)
+        else:
+            assert plan.nr_huge == len(shapes) and plan.nr_wide == plan.nr_l2 == 0
+            plan = dataclasses.replace(plan, huge_threads=threads)
+        for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
+                             ("uniform_backward", uf.bucket_backward_iteration)):
+            launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
+            launch()
+            torch.cuda.synchronize()
+            assert_same_bits(out, twins_bucket_by_bucket(twin, geom, lo, hi, fr, 0.5, dl, dh))
+        launch, out = sk.prepare_run_launch(geom, lo, hi, plan)
+        launch()
+        torch.cuda.synchronize()
+        assert_same_bits([out], [geom.flatten_nodes([
+            uf.bucket_backward_run(g, a, b)
+            for g, a, b in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_huge_body_shared_memory_rows_equal_twins(cuda_device, precision):
+    """The shared-memory huge body with its backward on one row and on two in
+    one launch, as the plan's fit gives them: over the huge, routed and L2
+    shapes, one row where two do not fit a block (float32 at 20,001 slots,
+    float64 at 16,384), and the L2 body beside them."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    host, (lo, hi, fr, dl, dh) = synthetic_host(HUGE_SHAPES + ROUTED_SHAPES + L2_SHAPES, dtype,
+                                                cuda_device, seed=17)
     geom = host.geom
-    plan = dataclasses.replace(geom.plan, huge_threads=threads)
+    plan = geom.plan
+    assert sorted(set(int(r[7]) for r in plan.huge_table.tolist())) == [1, 2]
+    assert plan.nr_l2 == (1 if precision == "float" else 2)
     for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
                          ("uniform_backward", uf.bucket_backward_iteration)):
         launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
@@ -663,6 +832,37 @@ def test_huge_body_thread_counts_equal_twins(cuda_device, precision, threads):
     launch()
     torch.cuda.synchronize()
     assert_same_bits([out], [geom.flatten_nodes([
+        uf.bucket_backward_run(g, a, b)
+        for g, a, b in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_mixed_layout_counts_one_launch_per_body(cuda_device, precision):
+    """Narrow, wide, routed, huge and L2 buckets in one layout: four launches
+    per half-sweep and per run, one per body, the routed and the huge bucket
+    in one; against the twins bucket by bucket, and no plain version on the
+    card."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    shapes = [(2, 9, 70), (layout.HUGE_FROM, 3, 5), (128, 5, 9), (16384, 2, 2), (30000, 2, 2)]
+    host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=5)
+    geom = host.geom
+    assert (geom.plan.nr_huge, geom.plan.nr_l2) == (2, 1)
+    assert geom.huge_scratch.numel() == 2 * 30000 * 2 * lo.element_size()
+    sk.reset_launch_counts()
+    calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
+    out_f = sk.forward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)
+    out_b = sk.backward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)
+    run = sk.backward_run_cuda(geom, lo, hi)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == launches(narrow=1, wide=1, huge=1, huge_l2=1, run=1, run_wide=1,
+                                   run_huge=1, run_huge_l2=1)
+    assert {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS} == calls
+    assert_same_bits(out_f, twins_bucket_by_bucket(
+        uf.bucket_forward_iteration, geom, lo, hi, fr, 0.5, dl, dh))
+    assert_same_bits(out_b, twins_bucket_by_bucket(
+        uf.bucket_backward_iteration, geom, lo, hi, fr, 0.5, dl, dh))
+    assert_same_bits([run], [geom.flatten_nodes([
         uf.bucket_backward_run(g, a, b)
         for g, a, b in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])])
 

@@ -83,6 +83,29 @@ def test_from_native_host_matches_make_uniform_host(name, precision):
     assert_host_equal(port, ref, tdt)
 
 
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_routed_wide_rows_keep_the_jax_layout(precision):
+    """Knapsack rows of 32 variables with coefficients up to 1,000 (BDDs of
+    8,192 slots, the widest two-byte record): the plan sends their bucket to
+    the huge body, and the layout stays the JAX package's: two-byte records,
+    the same arrays, columns padded as there (``lane_pad``; 132 rows would
+    take 256 columns)."""
+    from chip_smoke import knapsack_lp
+
+    lp = knapsack_lp(nr_vars=256, nr_rows=8, row_len=32, coef_max=1000)
+    jdt, tdt = {"float": (jnp.float32, torch.float32),
+                "double": (jnp.float64, torch.float64)}[precision]
+    ref = NativeHost(lp, "input").make_uniform_host(dtype=jdt)
+    port = layout.from_native_host(PortNativeHost(lp, "input"), dtype=tdt, device="cpu")
+    assert_host_equal(port, ref, tdt)
+    assert [g.P for g in port.geom.buckets] == [layout.WIDE_P]
+    g = port.geom.buckets[0]
+    assert g.arcs.shape[2] == layout.record_bytes(layout.WIDE_P) == 4 * layout.WIDE_P
+    plan = port.geom.plan
+    assert (plan.nr_wide, plan.nr_huge, plan.huge_blocks) == (0, 1, g.B)
+    assert layout.arc_bytes(layout.WIDE_P) == 2 and layout.lane_pad(132, layout.WIDE_P) == 256
+
+
 @pytest.mark.parametrize("name", list(LPS))
 def test_pack_uniform_host_matches_jax(name):
     nh = NativeHost(LPS[name], "input")

@@ -231,15 +231,18 @@ def _jax_bucket(b):
         jnp.asarray(b["alpha"]), None if b["root_mask"] is None else jnp.asarray(b["root_mask"]))
 
 
-def test_huge_bucket_matches_jax_f64():
-    """A synthetic bucket past the wide body's 8,192 slots (a random valid arc
-    set: kinds, slots and flags, not a BDD) carried across with
-    ``from_jax_arrays`` and held to the JAX package's XLA bucket functions in
-    float64 (atol 1e-12): forward and backward half-sweeps, the backward run
-    and the min-marginals. H and B are small because the XLA functions
-    gather with one-hot [P, P, B] masks."""
-    P, H, B = layout.WIDE_P + 1, 2, 1
-    rng = np.random.RandomState(7)
+@pytest.mark.parametrize("P", [layout.WIDE_P + 1, layout.HUGE_FROM],
+                         ids=["four-byte", "routed-two-byte"])
+def test_huge_bucket_matches_jax_f64(P):
+    """A synthetic bucket the huge body takes (a random valid arc set: kinds,
+    slots and flags, not a BDD), past the wide records' 8,192 slots or a wide
+    one the plan routes there, carried across with ``from_jax_arrays`` and
+    held to the JAX package's XLA bucket functions in float64 (atol 1e-12):
+    forward and backward half-sweeps, the backward run and the
+    min-marginals. H and B are small because the XLA functions gather with
+    one-hot [P, P, B] masks."""
+    H, B = 2, 1
+    rng = np.random.RandomState(7 if P > layout.WIDE_P else 11)
     b = random_bucket(P, H, B, rng, packed=False)
     b["layer_valid"][:] = True
     b["node_valid"][0, 0] = True
@@ -251,7 +254,8 @@ def test_huge_bucket_matches_jax_f64():
     state = uf.UniformState((lo,), (hi,), (np.zeros((H, B)),), (cft,))
     port, ps = layout.from_jax_arrays(host, state, dtype=torch.float64)
     pg = port.geom.buckets[0]
-    assert layout.arc_bytes(pg.P) == 4 and port.geom.plan.nr_huge == 1
+    assert layout.arc_bytes(pg.P) == (4 if P > layout.WIDE_P else 2)
+    assert port.geom.plan.nr_huge == 1 and port.geom.plan.nr_wide == 0
     dl, dh = rng.randn(H, B), rng.randn(H, B)
     dl[0, 0] = np.inf
     tl, th = torch.from_numpy(dl), torch.from_numpy(dh)
