@@ -7,7 +7,9 @@
 // a solve, a second one that of the wide buckets (the wide section), a third
 // one that of the huge buckets whose rows fit a block's shared memory (the
 // huge section: the wider ones, and the wide ones from the plan's crossover
-// up to 8,192 slots), and a fourth one that of the rest (the L2 body): per hop
+// up to 8,192 slots), a fourth one that of the buckets whose rows fit the
+// shared memory of a cluster of blocks (the cluster body) and a fifth one
+// that of the rest (the L2 body): per hop
 // the min-marginals, the MMA cost update, and the frontier (forward cfr) or
 // costs-to-terminal (backward cft). uniform_backward_run is the backward body
 // without the cost update: the costs-to-terminal of given costs
@@ -835,21 +837,24 @@ int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int
 // (about 25 GB/s an SM) through a serial chain of hops, with two reductions
 // over the whole block in each.
 //
-// Two forms, chosen by the plan per bucket by the bytes of its rows:
+// Three forms, chosen by the plan per bucket by the bytes of its rows:
 //  * the SHARED-MEMORY body (sweep_huge_kernel, LAUNCHES key "_huge"): the
 //    bucket's rows live in shared memory. It takes every huge bucket whose
 //    smallest block (a row of P values and a row of P slot codes) fits the
 //    227 KB a block may opt into: up to 29,016 slots in float32 and 19,316
 //    in float64 (layout.huge_fits);
-//  * the L2 body (sweep_huge_l2_kernel, "_huge_l2"), for wider buckets:
-//    its rows in device memory. Its forward rows lie in a scratch
+//  * the CLUSTER body (sweep_huge_cluster_kernel, "_huge_cluster", its own
+//    section below): wider buckets whose rows fit the shared memory of a
+//    cluster of 2, 4 or 8 blocks, each block a share of the row
+//    (layout.cluster_fits);
+//  * the L2 body (sweep_huge_l2_kernel, "_huge_l2"), for what no cluster
+//    holds (and where the plan is told so): its rows in device memory. Its
+//    forward rows lie in a scratch
 //    buffer in device memory ([B, 2, P] per bucket, layout.huge_scratch; the
 //    table's last column is the bucket's offset into it), relaxed by global
 //    atomicMin; its backward gathers from the row it wrote as output one hop
 //    before, through L2 with __ldcg. No ring; every load is issued where it
-//    is used. A cluster of blocks a column sharing one row through
-//    distributed shared memory would take these buckets into shared memory
-//    too (ROADMAP.md).
+//    is used.
 //
 // What the L2 body spends its time on (chip_smoke.py --huge-split,
 // knapsack48 at B = 132 on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
@@ -1368,6 +1373,588 @@ int launch_huge(const void* table, int nr_buckets, int nr_blocks, int threads, i
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------- huge buckets: the cluster body
+// Rows past a block's shared memory (layout.body_of: "huge_cluster", from
+// 29,017 slots in float32 and 19,317 in float64 up to CL_MAX_P) run a fifth
+// launch: a CLUSTER of C blocks (2, 4 or 8; thread block clusters of sm_90)
+// a column. Block r of the cluster keeps slots [r S, (r + 1) S), S =
+// ceil(P / C), of the column's rows in its shared memory, with their slot
+// codes; every access to a slot another block keeps goes to that block's
+// shared memory through distributed shared memory (mapa + ld / st / red
+// .shared::cluster). It replaces, for these widths, what the L2 body did
+// with global atomics and L2 gathers (chip_smoke.py --huge-split; PERF.md
+// section 6), and keeps what the huge body does well: runtime slot loops with
+// no register arrays, device loads issued HUGE_GROUP at a time, the layer
+// values copied by cp.async a hop ahead, the forward's cft of hop h+1
+// gathered through L1.
+//
+// Per hop:
+//  * forward: the first pass over the block's slots (codes into their row,
+//    cfr out, its key reset to +inf, the min-marginals' partials); the
+//    min-marginals reduced over the block (one __syncthreads) and then over
+//    the cluster: each block stores its pair into every block's row of pairs
+//    and one cluster barrier ends it (it also makes every reset of the key
+//    rows visible); the cost update, alike in every block; the relaxation, a
+//    min on the order-preserving key (Key<T>) into the block that keeps the
+//    child (cl_relax: red.shared::cluster.min in float32; in float64
+//    red.shared.min into the block's own row and compare-and-swap into a
+//    peer's); a cluster barrier ends the hop (every arrival in, before the
+//    next hop reads its row). Two cluster barriers.
+//  * backward: the first pass gathers each child's cft of hop h+1 from the
+//    block that keeps it; the same reduction; the cft pass gathers again
+//    and builds the block's slots of the new row. Two rows (read and built)
+//    where they fit for the blocks an SM holds: two cluster barriers a hop;
+//    else one row, and a third barrier before it is overwritten.
+//  * run: no reduction: one cluster barrier (two with one row).
+// A cluster barrier (barrier.cluster.arrive.release / wait.acquire) costs
+// more than __syncthreads; at H = 48 a forward half-sweep has 96 of them.
+// The first one is split: a block arrives once its key row is reset and
+// waits only before its first access to a peer, so that no block reaches a
+// peer that has not started. Every hop ends with a cluster barrier, so no
+// block leaves while a peer may still read or write its shared memory.
+//
+// Slot codes are four bytes: two 16-bit children (a slot, CL_ZERO for 0,
+// CL_INF for +inf), or CL_NONE for a slot that holds no node (its children
+// are never looked at, and cost no load). A child's block and its place
+// there come from its slot by a multiply (slot / S as __umulhi by
+// ceil(2^32 / S): exact for slots and S below 2^16).
+// Ragged rows: P need not be a multiple of C; the last blocks hold fewer
+// slots (or none) and take part in every barrier. A child slot outside the
+// bucket costs 0, and BOT +inf, as in the twins and the L2 body.
+// Bound: bytes, as the other huge forms; a block moves its share of the
+// column's record, rows and layer values.
+constexpr int CLUSTER_MAX = 8;           // portable cluster sizes: 2, 4, 8
+constexpr unsigned CL_INF = 0xffffu;     // child code: +inf (BOT)
+constexpr unsigned CL_ZERO = 0xfffeu;    // child code: 0 (TOP, or a slot outside the bucket)
+constexpr unsigned CL_NONE = 0xfffdu;    // code of a slot that holds no node
+constexpr int CL_MAX_P = (int)CL_NONE;   // a child code holds slots below this
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_blocks() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+// the address of shared address `a` (this block's) in block `rank`'s shared memory
+__device__ __forceinline__ uint32_t cluster_map(uint32_t a, unsigned rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+template <typename V>
+__device__ __forceinline__ V ld_cluster(uint32_t a);
+template <>
+__device__ __forceinline__ float ld_cluster<float>(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+template <>
+__device__ __forceinline__ double ld_cluster<double>(uint32_t a) {
+  double v;
+  asm volatile("ld.shared::cluster.f64 %0, [%1];" : "=d"(v) : "r"(a) : "memory");
+  return v;
+}
+template <>
+__device__ __forceinline__ unsigned long long ld_cluster<unsigned long long>(uint32_t a) {
+  unsigned long long v;
+  asm volatile("ld.shared::cluster.u64 %0, [%1];" : "=l"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_cluster(uint32_t a, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(a), "f"(v) : "memory");
+}
+__device__ __forceinline__ void st_cluster(uint32_t a, double v) {
+  asm volatile("st.shared::cluster.f64 [%0], %1;" ::"r"(a), "d"(v) : "memory");
+}
+__device__ __forceinline__ void red_min_cluster(uint32_t a, unsigned v) {
+  asm volatile("red.shared::cluster.min.u32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+}
+// The 64-bit min (float64 keys) into a peer's row by compare-and-swap: red
+// / atom .shared::cluster.min.u64 lost arrivals on the card when blocks of a
+// cluster relaxed into one row at once (a NaN's key missing from a minimum
+// in the card tests on an NVIDIA H100; PERF.md section 6), the CAS loop
+// never did. A thread that cannot lower the value stores nothing. Keys of
+// the block's own slots take red.shared.min.u64 through its own window
+// (cl_relax), as in the huge body.
+__device__ __forceinline__ void red_min_cluster(uint32_t a, unsigned long long v) {
+  unsigned long long old = ld_cluster<unsigned long long>(a);
+  while (old > v) {
+    const unsigned long long seen = old;
+    asm volatile("atom.shared::cluster.cas.b64 %0, [%1], %2, %3;"
+                 : "=l"(old) : "r"(a), "l"(seen), "l"(v) : "memory");
+    if (old == seen) return;
+  }
+}
+
+// where a slot lies in the cluster: block slot / S, place slot % S
+struct Share {
+  unsigned S, magic;  // magic = ceil(2^32 / S)
+  __device__ __forceinline__ uint32_t at(uint32_t row, unsigned slot, unsigned size) const {
+    const unsigned q = __umulhi(slot, magic);
+    return cluster_map(row + (slot - q * S) * size, q);
+  }
+};
+
+__device__ __forceinline__ unsigned cl_child(unsigned w, unsigned P) {
+  const unsigned kind = w & 3u, slot = (w >> 2) & HUGE_SLOT_MASK;
+  if (kind == ARC_INTERNAL) return slot < P ? slot : CL_ZERO;
+  return kind == ARC_TOP ? CL_ZERO : CL_INF;
+}
+__device__ __forceinline__ unsigned cl_code(unsigned l, unsigned r, unsigned P) {
+  return Arc<uint32_t>::flag(l) ? cl_child(l, P) | (cl_child(r, P) << 16) : CL_NONE;
+}
+// the cost of child `c` of a node from the cluster's row at shared address
+// `row` (`has`: false past the last hop)
+template <typename T>
+__device__ __forceinline__ T cl_cost(unsigned c, uint32_t row, const Share& sh, bool has) {
+  if (c == CL_INF) return inf_v<T>();
+  if (c == CL_ZERO) return T(0);
+  if (!has) return inf_v<T>();
+  return ld_cluster<T>(sh.at(row, c, (unsigned)sizeof(T)));
+}
+
+// the same from a row in device memory (`g`: cft of hop h+1), through L1
+template <typename T>
+__device__ __forceinline__ T cl_cost_g(unsigned c, const T* g, bool has) {
+  if (c == CL_INF) return inf_v<T>();
+  if (c == CL_ZERO) return T(0);
+  if (!has) return inf_v<T>();
+  return __ldg(g + c);
+}
+
+// The forward's first pass over the block's slots [base, base + n): cft of
+// hop h+1 read through L1, the slot codes into their row, cfr of the hop
+// out, the partials of the min-marginals, the block's keys reset to +inf.
+template <typename T, int G>
+__device__ __forceinline__ void cl_forward_pass(const uint32_t* rec, int P, int base, int n,
+                                                uint32_t key, uint32_t codes, const T* cft_g,
+                                                bool has, bool restart, T lo, T hi, T* fout,
+                                                T& m0, T& m1) {
+  using K = Key<T>;
+  using U = typename K::U;
+  const T inf = inf_v<T>();
+  const U key_inf = K::enc(inf);
+  const int nt = (int)blockDim.x;
+#pragma unroll(G == 1 ? 4 : 1)
+  for (int j0 = (int)threadIdx.x; j0 < n; j0 += G * nt) {
+    unsigned l[G], r[G], c[G];
+    T tl[G], th[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int j = j0 + u * nt;
+      l[u] = j < n ? rec[base + j] : 0u;
+      r[u] = j < n ? rec[P + base + j] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      c[u] = cl_code(l[u], r[u], (unsigned)P);
+      const bool nv = (c[u] & 0xffffu) != CL_NONE;
+      tl[u] = nv ? cl_cost_g(c[u] & 0xffffu, cft_g, has) : inf;
+      th[u] = nv ? cl_cost_g(c[u] >> 16, cft_g, has) : inf;
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int j = j0 + u * nt;
+      if (j < n) {
+        st_shared(codes + 4u * (unsigned)j, c[u]);
+        const bool nv = (c[u] & 0xffffu) != CL_NONE;
+        const uint32_t kp = key + (unsigned)j * (unsigned)sizeof(U);
+        const T fv = restart ? (base + j == 0 ? T(0) : inf) : K::dec(ld_shared<U>(kp));
+        st_shared(kp, key_inf);  // no peer reaches it before the cluster barrier
+        m0 = min_v(m0, nv ? fv + lo + tl[u] : inf);
+        m1 = min_v(m1, nv ? fv + hi + th[u] : inf);
+        fout[base + j] = fv;
+      }
+    }
+  }
+}
+
+// One arrival `v` at child `slot`, into the key row (shared address `key`)
+// of the block that keeps it: float32 keys by red.shared::cluster.min.u32,
+// float64 keys by red.shared.min.u64 into the block's own row and by
+// compare-and-swap into a peer's (red_min_cluster). Measured on knapsack48's
+// rows of 32,768 slots in float64 (chip runs, PERF.md section 6): 2.08 ms a
+// forward half-sweep, against 2.91 ms with every arrival by
+// compare-and-swap.
+template <typename U>
+__device__ __forceinline__ void cl_relax(uint32_t key, unsigned slot, const Share& sh, U v) {
+  const unsigned q = __umulhi(slot, sh.magic);
+  const uint32_t at = key + (slot - q * sh.S) * (unsigned)sizeof(U);
+  if constexpr (sizeof(U) == 8) {
+    if (q == cluster_rank()) {
+      red_min_shared(at, v);
+      return;
+    }
+  }
+  red_min_cluster(cluster_map(at, q), v);
+}
+
+// The forward relaxation from the block's slots into the keys of whichever
+// block keeps each child; cfr read back from this hop's output (in L2)
+template <typename T, int G>
+__device__ __forceinline__ void cl_relax_pass(int base, int n, uint32_t key, uint32_t codes,
+                                              const T* fout, T nl, T nh, const Share& sh) {
+  using K = Key<T>;
+  using U = typename K::U;
+  const int nt = (int)blockDim.x;
+#pragma unroll(G == 1 ? 4 : 1)
+  for (int j0 = (int)threadIdx.x; j0 < n; j0 += G * nt) {
+    unsigned c[G];
+    T fv[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int j = j0 + u * nt;
+      c[u] = j < n ? ld_shared<unsigned>(codes + 4u * (unsigned)j) : CL_NONE;
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const unsigned lc = c[u] & 0xffffu, hc = c[u] >> 16;
+      const bool any = lc != CL_NONE && (lc < CL_NONE || hc < CL_NONE);
+      fv[u] = any ? __ldcg(fout + base + j0 + u * nt) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const unsigned lc = c[u] & 0xffffu, hc = c[u] >> 16;
+      if (lc != CL_NONE) {
+        if (lc < CL_NONE) cl_relax(key, lc, sh, K::enc(fv[u] + nl));
+        if (hc < CL_NONE) cl_relax(key, hc, sh, K::enc(fv[u] + nh));
+      }
+    }
+  }
+}
+
+// The backward's first pass: the slot codes into their row and the
+// partials of the min-marginals, from cfr of this hop (the block's slots,
+// device memory) and the children's cft of hop h+1 in the cluster's row
+template <typename T, int G>
+__device__ __forceinline__ void cl_backward_pass(const uint32_t* rec, const T* cfr, int P,
+                                                 int base, int n, uint32_t codes, uint32_t rin,
+                                                 bool has, T lo, T hi, T& m0, T& m1,
+                                                 const Share& sh) {
+  const T inf = inf_v<T>();
+  const int nt = (int)blockDim.x;
+#pragma unroll(G == 1 ? 4 : 1)
+  for (int j0 = (int)threadIdx.x; j0 < n; j0 += G * nt) {
+    unsigned l[G], r[G];
+    T cf[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int j = j0 + u * nt;
+      l[u] = j < n ? rec[base + j] : 0u;
+      r[u] = j < n ? rec[P + base + j] : 0u;
+      cf[u] = j < n ? cfr[base + j] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int j = j0 + u * nt;
+      const unsigned c = cl_code(l[u], r[u], (unsigned)P);
+      if (j < n) st_shared(codes + 4u * (unsigned)j, c);
+      const bool nv = (c & 0xffffu) != CL_NONE;  // false past the block's slots
+      const T tl = nv ? cl_cost<T>(c & 0xffffu, rin, sh, has) : inf;
+      const T th = nv ? cl_cost<T>(c >> 16, rin, sh, has) : inf;
+      m0 = min_v(m0, nv ? cf[u] + lo + tl : inf);
+      m1 = min_v(m1, nv ? cf[u] + hi + th : inf);
+    }
+  }
+}
+
+// cft of the block's slots from the new costs (nl, nh): out to device
+// memory and, with two rows, into the row being built (`rout`); the run
+// decodes the record here, the backward reads the codes its first pass wrote
+template <typename T, bool RUN, int G>
+__device__ __forceinline__ void cl_cft_pass(const uint32_t* rec, int P, int base, int n,
+                                            uint32_t codes, uint32_t rin, bool has, T nl, T nh,
+                                            T* fout, uint32_t rout, bool two_rows,
+                                            const Share& sh) {
+  const T inf = inf_v<T>();
+  const int nt = (int)blockDim.x;
+#pragma unroll(G == 1 ? 4 : 1)
+  for (int j0 = (int)threadIdx.x; j0 < n; j0 += G * nt) {
+    unsigned c[G];
+    if constexpr (RUN) {
+      unsigned l[G], r[G];
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int j = j0 + u * nt;
+        l[u] = j < n ? rec[base + j] : 0u;
+        r[u] = j < n ? rec[P + base + j] : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < G; ++u) c[u] = cl_code(l[u], r[u], (unsigned)P);
+    } else {
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int j = j0 + u * nt;
+        c[u] = j < n ? ld_shared<unsigned>(codes + 4u * (unsigned)j) : CL_NONE;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int j = j0 + u * nt;
+      const bool nv = (c[u] & 0xffffu) != CL_NONE;
+      const T tl = nv ? cl_cost<T>(c[u] & 0xffffu, rin, sh, has) : inf;
+      const T th = nv ? cl_cost<T>(c[u] >> 16, rin, sh, has) : inf;
+      const T v = nv ? min_v(nl + tl, nh + th) : inf;
+      if (j < n) {
+        fout[base + j] = v;
+        if (two_rows) st_shared(rout + (unsigned)j * (unsigned)sizeof(T), v);
+      }
+    }
+  }
+}
+
+// min of (m0, m1) over the cluster, the same in every thread of every
+// block: over the block (block_min2_once), then each block stores its pair
+// into slot `rank` of every block's row of pairs, one cluster barrier, and
+// every thread takes the min over the C pairs in rank order. `first`: the
+// block's first access to a peer, which waits for the start-up barrier.
+template <typename T>
+__device__ __forceinline__ void cluster_min2(T& m0, T& m1, T* red, T* pairs, unsigned C,
+                                             unsigned rank, bool first) {
+  block_min2_once(m0, m1, red);
+  if (first) cluster_wait();
+  if (threadIdx.x < C) {
+    const uint32_t at = cluster_map(smem_addr(pairs + 2 * rank), threadIdx.x);
+    st_cluster(at, m0);
+    st_cluster(at + (unsigned)sizeof(T), m1);
+  }
+  cluster_sync();
+  T x = pairs[0], y = pairs[1];
+  for (unsigned k = 1; k < C; ++k) {
+    x = min_v(x, pairs[2 * k]);
+    y = min_v(y, pairs[2 * k + 1]);
+  }
+  m0 = x;
+  m1 = y;
+}
+
+// Dynamic shared memory of a block (solver/layout.py, cluster_smem_bytes):
+// [row 0 | row 1 (backward, where the table's last column is 2) | the slot
+//  codes, pad16(4S) | 64 values of partials | 2 CLUSTER_MAX values: the
+//  cluster's pairs by rank | two ring slots of HUGE_SCALARS values], every
+// row pad16(S values).
+template <typename T, int MODE>
+__device__ __forceinline__ void cluster_column(const Args<T>& a, const Bucket& bk,
+                                               unsigned char* smem, long long b) {
+  using K = Key<T>;
+  constexpr bool FORWARD = MODE == MODE_FORWARD, RUN = MODE == MODE_BACKWARD_RUN;
+  constexpr int SZ = (int)sizeof(T);
+  constexpr int G = HUGE_GROUP;
+  const int P = (int)bk.P, H = (int)bk.H;
+  const long long B = bk.B;
+  const int t = (int)threadIdx.x, nt = (int)blockDim.x;
+  const unsigned C = cluster_blocks(), rank = cluster_rank();
+  const unsigned S = ((unsigned)P + C - 1) / C;
+  const Share sh{S, 0xffffffffu / S + 1u};
+  const int base = (int)(rank * S);
+  const int n = max(0, min((int)S, P - base));  // the block's slots
+  const bool grouped = FORWARD ? n >= G * nt : !RUN;  // as the huge body's loops
+  const bool two = !FORWARD && bk.stages == 2;
+  const int row_bytes = pad16((int)S * SZ);
+  const uint32_t row0 = smem_addr(smem);
+  const uint32_t codes = row0 + (two ? 2 : 1) * row_bytes;
+  T* const red = (T*)(smem + (two ? 2 : 1) * row_bytes + pad16(4 * (int)S));
+  T* const pairs = red + 64;
+  unsigned char* const ring = (unsigned char*)(pairs + 2 * CLUSTER_MAX);
+  const int ring_bytes = HUGE_SCALARS * SZ;
+
+  const uint32_t* const g_arcs = (const uint32_t*)(a.arcs + bk.arc_off);
+  const T* const g_front = RUN ? nullptr : a.frontier + bk.node_off;  // rows [H, B, P]
+  T* const g_out = a.out_frontier + bk.node_off;
+  const int nscalars = RUN ? 2 : (a.omega_arr ? 6 : 5);
+  // the layer values of hop h into a ring slot
+  auto copy_layer = [&](int h, unsigned char* dst) {
+    const size_t e = (size_t)bk.row_off + (size_t)h * B + b;
+    if (t < nscalars) {
+      const T* src = t == 0 ? a.lo : t == 1 ? a.hi : t == 2 ? a.din_lo : t == 3 ? a.din_hi
+                     : t == 4 ? a.alpha : a.omega_arr;
+      cp_async<SZ>(dst + t * SZ, src + e);
+    }
+  };
+
+  if constexpr (FORWARD) {
+    for (int j = t; j < n; j += nt) st_shared(row0 + (unsigned)j * (unsigned)SZ, K::enc(inf_v<T>()));
+  }
+  copy_layer(FORWARD ? 0 : H - 1, ring);
+  cp_commit();
+  cp_wait(0);
+  __syncthreads();
+  cluster_arrive();  // the start-up barrier: waited for before the first access to a peer
+
+  uint32_t rin = row0;                            // backward: cft of hop h+1
+  uint32_t rout = two ? row0 + row_bytes : row0;  // the row being built
+  for (int i = 0; i < H; ++i) {
+    const int h = FORWARD ? i : H - 1 - i;
+    unsigned char* const cur = ring + (i & 1) * ring_bytes;
+    if (i + 1 < H) copy_layer(FORWARD ? h + 1 : h - 1, ring + ((i + 1) & 1) * ring_bytes);
+    cp_commit();
+    const size_t col = (size_t)h * B + b;
+    const uint32_t* rec = g_arcs + col * 2 * P;
+    const unsigned w_layer = rec[P], w_root = rec[P + 1];
+    const T* sc = (const T*)cur;
+    const T lo = sc[0], hi = sc[1];
+    T* fout = g_out + col * P;
+    T nl = lo, nh = hi, mm = T(0);
+    const bool has = h + 1 < H;  // cft of hop h+1 (none past the last hop)
+
+    if constexpr (FORWARD) {
+      const bool restart = Arc<uint32_t>::flag(w_root) != 0;  // also the hop-0 init
+      const T* cft_next = g_front + (col + (size_t)B) * P;
+      T m0 = inf_v<T>(), m1 = inf_v<T>();
+      if (grouped)
+        cl_forward_pass<T, G>(rec, P, base, n, row0, codes, cft_next, has, restart, lo, hi,
+                              fout, m0, m1);
+      else
+        cl_forward_pass<T, 1>(rec, P, base, n, row0, codes, cft_next, has, restart, lo, hi,
+                              fout, m0, m1);
+      cluster_min2(m0, m1, red, pairs, C, rank, i == 0);  // also: every reset is visible
+      hop_cost_update(lo, hi, m0, m1, a.omega_arr ? sc[5] : a.omega, sc[4], sc[2], sc[3],
+                      Arc<uint32_t>::flag(w_layer) != 0, nl, nh, mm);
+      if (grouped)
+        cl_relax_pass<T, G>(base, n, row0, codes, fout, nl, nh, sh);
+      else
+        cl_relax_pass<T, 1>(base, n, row0, codes, fout, nl, nh, sh);
+    } else {
+      if constexpr (!RUN) {
+        const T* cfr = g_front + col * P;  // cfr of this hop
+        T m0 = inf_v<T>(), m1 = inf_v<T>();
+        if (i == 0) cluster_wait();
+        if (grouped)
+          cl_backward_pass<T, G>(rec, cfr, P, base, n, codes, rin, has, lo, hi, m0, m1, sh);
+        else
+          cl_backward_pass<T, 1>(rec, cfr, P, base, n, codes, rin, has, lo, hi, m0, m1, sh);
+        cluster_min2(m0, m1, red, pairs, C, rank, false);
+        hop_cost_update(lo, hi, m0, m1, a.omega_arr ? sc[5] : a.omega, sc[4], sc[2], sc[3],
+                        Arc<uint32_t>::flag(w_layer) != 0, nl, nh, mm);
+      } else {
+        if (i == 0) cluster_wait();
+      }
+      if (grouped)
+        cl_cft_pass<T, RUN, G>(rec, P, base, n, codes, rin, has, nl, nh, fout, rout, two, sh);
+      else
+        cl_cft_pass<T, RUN, 1>(rec, P, base, n, codes, rin, has, nl, nh, fout, rout, two, sh);
+      if (!two) {
+        cluster_sync();  // every peer's gather from the row is done before it is overwritten
+        copy_back(fout + base, n, rout);
+      }
+    }
+    if constexpr (!RUN) {
+      if (t == 0 && rank == 0) {
+        const size_t e = (size_t)bk.row_off + col;
+        a.out_lo[e] = nl;
+        a.out_hi[e] = nh;
+        a.out_mm[e] = mm;
+      }
+    }
+    cp_wait(0);      // the next hop's ring slot has landed
+    cluster_sync();  // every arrival and row is in, and this hop's ring slot is free
+    if (two) {
+      const uint32_t swap = rin;
+      rin = rout;
+      rout = swap;
+    }
+  }
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(HUGE_MAX_THREADS, 1) sweep_huge_cluster_kernel(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int k = 0;
+  while (k + 1 < a.nr_buckets && (long long)blockIdx.x >= a.table[k + 1].first_block) ++k;
+  const Bucket bk = a.table[k];
+  // the column: a bucket's blocks are its columns' clusters in order
+  const long long b = ((long long)blockIdx.x - bk.first_block) / (long long)cluster_blocks();
+  cluster_column<T, MODE>(a, bk, smem, b);
+}
+
+template <typename T, int MODE>
+int cluster_opt_in() {
+  static bool opted_in = false;  // above 48 KB a kernel must ask, once
+  if (!opted_in) {
+    const cudaError_t rc =
+        cudaFuncSetAttribute(sweep_huge_cluster_kernel<T, MODE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_DYNAMIC_SMEM);
+    if (rc != cudaSuccess) return (int)rc;
+    opted_in = true;
+  }
+  return 0;
+}
+
+cudaLaunchConfig_t cluster_config(int nr_blocks, int threads, int cluster, int smem_bytes,
+                                  void* stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)nr_blocks);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// as `launch_huge`, over the table of the cluster body: `cluster` blocks of
+// `threads` threads a column (cudaLaunchKernelEx with a cluster dimension,
+// a runtime value), `pmax` the widest bucket. A cluster that cannot be
+// placed is refused by the launch, and the code returned.
+template <typename T, int MODE>
+int launch_huge_cluster(const void* table, int nr_buckets, int nr_blocks, int threads,
+                        int cluster, int pmax, int smem_bytes, const void* arcs, const void* lo,
+                        const void* hi, const void* din_lo, const void* din_hi,
+                        const void* alpha, const void* omega_arr, double omega,
+                        const void* frontier, void* out_lo, void* out_hi, void* out_mm,
+                        void* out_frontier, void* stream) {
+  if (nr_blocks == 0) return 0;
+  if (threads < 32 || threads > HUGE_MAX_THREADS || threads % 32 || pmax > CL_MAX_P) return -2;
+  if ((cluster != 2 && cluster != 4 && cluster != CLUSTER_MAX) || nr_blocks % cluster) return -2;
+  if (smem_bytes < 1 || smem_bytes > MAX_DYNAMIC_SMEM) return -1;
+  const int rc = cluster_opt_in<T, MODE>();
+  if (rc) return rc;
+  const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
+                  (const T*)lo,         (const T*)hi,       (const T*)din_lo,
+                  (const T*)din_hi,     (const T*)alpha,    (const T*)omega_arr,
+                  (T)omega,             (const T*)frontier, (T*)out_lo,
+                  (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(nr_blocks, threads, cluster, smem_bytes, stream,
+                                                attr);
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, sweep_huge_cluster_kernel<T, MODE>, a);
+  if (launched != cudaSuccess) return (int)launched;
+  return (int)cudaGetLastError();
+}
+
+// how many clusters of `cluster` blocks of `threads` threads and
+// `smem_bytes` of shared memory the card holds at once (the forward kernel;
+// cudaOccupancyMaxActiveClusters), into *clusters
+template <typename T>
+int cluster_occupancy(int cluster, int threads, int smem_bytes, int* clusters) {
+  const int rc = cluster_opt_in<T, MODE_FORWARD>();
+  if (rc) return rc;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, threads, cluster, smem_bytes, nullptr,
+                                                attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      clusters, (const void*)sweep_huge_cluster_kernel<T, MODE_FORWARD>, &cfg);
+}
+
 // ------------------------------------------- huge buckets: the L2 body
 // The L2 form of the huge body (see the huge section's note). Per forward
 // hop: each thread decodes its slots of the current row (or the root
@@ -1614,3 +2201,39 @@ HUGE_ENTRY(uniform_backward_huge_l2_f32, float, MODE_BACKWARD)
 HUGE_ENTRY(uniform_backward_huge_l2_f64, double, MODE_BACKWARD)
 HUGE_ENTRY(uniform_backward_run_huge_l2_f32, float, MODE_BACKWARD_RUN)
 HUGE_ENTRY(uniform_backward_run_huge_l2_f64, double, MODE_BACKWARD_RUN)
+
+// the cluster body's entries: (table, nr_buckets, nr_blocks, threads, cluster,
+// pmax, smem_bytes, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, omega,
+// frontier in, out_lo, out_hi, out_mm, frontier out, stream)
+#define CLUSTER_ENTRY(NAME, T, MODE)                                                  \
+  extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks, int threads,  \
+                      int cluster, int pmax, int smem_bytes, const void* arcs,       \
+                      const void* lo, const void* hi, const void* din_lo,            \
+                      const void* din_hi, const void* alpha, const void* omega_arr,  \
+                      double omega, const void* frontier, void* out_lo,              \
+                      void* out_hi, void* out_mm, void* out_frontier, void* stream) { \
+    return launch_huge_cluster<T, MODE>(table, nr_buckets, nr_blocks, threads,        \
+                                        cluster, pmax, smem_bytes, arcs, lo, hi,      \
+                                        din_lo, din_hi, alpha, omega_arr, omega,      \
+                                        frontier, out_lo, out_hi, out_mm,             \
+                                        out_frontier, stream);                        \
+  }
+
+CLUSTER_ENTRY(uniform_forward_huge_cluster_f32, float, MODE_FORWARD)
+CLUSTER_ENTRY(uniform_forward_huge_cluster_f64, double, MODE_FORWARD)
+CLUSTER_ENTRY(uniform_backward_huge_cluster_f32, float, MODE_BACKWARD)
+CLUSTER_ENTRY(uniform_backward_huge_cluster_f64, double, MODE_BACKWARD)
+CLUSTER_ENTRY(uniform_backward_run_huge_cluster_f32, float, MODE_BACKWARD_RUN)
+CLUSTER_ENTRY(uniform_backward_run_huge_cluster_f64, double, MODE_BACKWARD_RUN)
+
+// (cluster, threads, smem_bytes, clusters out): the clusters of the cluster
+// body the card holds at once (solver/layout.py picks the cluster size and
+// the threads a block from the answer)
+extern "C" int uniform_huge_cluster_occupancy_f32(int cluster, int threads, int smem_bytes,
+                                                  int* clusters) {
+  return cluster_occupancy<float>(cluster, threads, smem_bytes, clusters);
+}
+extern "C" int uniform_huge_cluster_occupancy_f64(int cluster, int threads, int smem_bytes,
+                                                  int* clusters) {
+  return cluster_occupancy<double>(cluster, threads, smem_bytes, clusters);
+}

@@ -244,7 +244,8 @@ BLOCK_SMEM_RESERVED = 1024  # what the card keeps of it for every resident block
 # as many as its columns ask for and its shared memory lets fit
 # (:func:`_huge_plan`: 512 for the 256 columns of P = 8,192 rows, two blocks
 # an SM; 1,024 wherever a P = 16,384 bucket is in the table, since one such
-# block fills an SM's shared memory). The L2 form runs 1,024: at 132 columns of P = 16,384 its half-sweeps
+# block fills an SM's shared memory; the cluster body's the same way, over
+# its blocks, :func:`_cluster_plan`). The L2 form runs 1,024: at 132 columns of P = 16,384 its half-sweeps
 # took 1.44 / 1.54 ms in float32 and 2.05 / 1.78 ms in float64, against 2.29
 # / 2.69 and 2.92 / 2.86 ms at 512 threads (chip_smoke.py, phase 6, "[depth]",
 # NVIDIA H100 80GB HBM3 at 700 W; 256 threads were about twice as slow again).
@@ -266,10 +267,25 @@ HUGE_SCALARS = 8  # values a ring slot of the huge body keeps for the layer (6 u
 # 1.000; in float32 at 1,024 slots over 512 columns 0.306 / 0.277, over
 # 1,024 0.353 / 0.479, over 2,048 0.697 / 0.882; at 2,048 slots over 1,024
 # columns 1.100 / 0.872, over 2,048 2.176 / 2.196; at 4,096 over 2,048 8.060
-# / 3.703; in float64 the huge body leads at every one of these.
+# / 3.703; in float64 the huge body leads at every one of these. The rule
+# holds for the huge table as a whole, which one launch runs at one thread
+# count and one block's shared memory (:func:`_route_huge_table`): routed
+# float32 buckets below HUGE_FROM_F32_MANY go back to the wide body where the
+# table's columns are more than HUGE_F32_BLOCKS_SM an SM, or more than its
+# widest bucket's shared memory lets reside.
 HUGE_FROM = 1024
 HUGE_FROM_F32_MANY = 2048
 HUGE_F32_BLOCKS_SM = 4
+# Rows past a block's shared memory (:func:`huge_fits`) run the cluster body
+# where a cluster of CLUSTER_SIZES blocks holds them (:func:`cluster_fits`): a
+# cluster of C blocks a column, each block a share of ceil(P / C) slots of
+# the rows in its shared memory, the rest reached through distributed shared
+# memory. Its slot codes hold two 16-bit children, so slots below
+# CLUSTER_MAX_P (uniform_sweep.cu, CL_NONE); the L2 body takes the rest. On
+# knapsack rows of 32,768 slots it leads the L2 body in both precisions
+# (chip_smoke.py --huge-split cluster; PERF.md section 6).
+CLUSTER_SIZES = (2, 4, 8)  # the portable cluster sizes
+CLUSTER_MAX_P = 0xFFFD
 
 
 def sm_count(device) -> int:
@@ -300,6 +316,27 @@ def huge_fits(P: int, itemsize: int) -> bool:
     return P < HUGE_MAX_CODE and huge_smem_bytes(P, itemsize) <= MAX_DYNAMIC_SMEM
 
 
+def cluster_smem_bytes(P: int, C: int, itemsize: int, two_rows: bool = False) -> int:
+    """Dynamic shared memory of one block of the cluster body, C blocks a
+    column: one row of its share of S = ceil(P / C) slots (keys, forward;
+    cft, backward), a second with ``two_rows``, their slot codes (four bytes
+    a slot), 64 values of partials, the cluster's pairs of min-marginals (two
+    values a block, for the largest cluster) and a ring of two slots of
+    HUGE_SCALARS values. ``uniform_sweep.cu`` lays it out the same way."""
+    S = -(-P // C)
+    row = _pad_to(S * itemsize, 16)
+    return (row * (2 if two_rows else 1) + _pad_to(4 * S, 16)
+            + (64 + 2 * max(CLUSTER_SIZES) + 2 * HUGE_SCALARS) * itemsize)
+
+
+def cluster_fits(P: int, itemsize: int) -> bool:
+    """Whether the cluster body holds a bucket of width P: its slots fit a
+    child code, and a block's share at the largest cluster fits the shared
+    memory a block may opt into."""
+    return (P <= CLUSTER_MAX_P
+            and cluster_smem_bytes(P, max(CLUSTER_SIZES), itemsize) <= MAX_DYNAMIC_SMEM)
+
+
 def body_of(P: int, itemsize: int, columns: int = 0, sms: int = SM_COUNT,
             huge_from: Optional[int] = None) -> str:
     """The sweep body a bucket of width P over ``columns`` columns runs in a
@@ -307,9 +344,12 @@ def body_of(P: int, itemsize: int, columns: int = 0, sms: int = SM_COUNT,
     "narrow", "wide", "huge" (the shared-memory form; also the wide buckets
     the route sends there: from HUGE_FROM slots on, in float32 below
     HUGE_FROM_F32_MANY only while the columns are at most HUGE_F32_BLOCKS_SM
-    an SM) or "huge_l2" (rows that do not fit a block's shared memory:
-    :func:`huge_fits`). ``huge_from`` replaces the route: every wide bucket
-    from that width on takes the huge body (timing variants)."""
+    an SM), "huge_cluster" (rows that do not fit a block's shared memory,
+    :func:`huge_fits`, but a cluster's: :func:`cluster_fits`) or "huge_l2"
+    (the rest). ``huge_from`` replaces the route: every wide bucket from that
+    width on takes the huge body (timing variants). A layout's plan also
+    holds the route's float32 rule on its huge table as a whole
+    (:func:`_route_huge_table`)."""
     if P <= NARROW_P:
         return "narrow"
     if P <= WIDE_P:
@@ -320,7 +360,11 @@ def body_of(P: int, itemsize: int, columns: int = 0, sms: int = SM_COUNT,
                                          or columns <= HUGE_F32_BLOCKS_SM * sms)
         if not routed:
             return "wide"
-    return "huge" if huge_fits(P, itemsize) else "huge_l2"
+    if huge_fits(P, itemsize):
+        return "huge"
+    if cluster_fits(P, itemsize):
+        return "huge_cluster"
+    return "huge_l2"
 
 
 def lane_pad(nr_columns: int, P: int, lanes: int = 128) -> int:
@@ -342,9 +386,10 @@ class LaunchPlan:
     the buffers: the bucket tables on the device and the grids' numbers. The
     narrow buckets (P <= NARROW_P) go in one launch, the wide ones in a
     second, the huge ones in a third (:func:`body_of`: the shared-memory form,
-    which also takes the wide buckets the route sends it) and those whose rows
-    do not fit a block's shared memory in a fourth (the L2 form), each over
-    its own table; the tables index the same flat buffers. The huge table's
+    which also takes the wide buckets the route sends it), those whose rows
+    fit a cluster's shared memory in a fourth (the cluster form, C blocks a
+    column) and the rest in a fifth (the L2 form), each over its own table;
+    the tables index the same flat buffers. The huge and the cluster table's
     last column holds the rows the bucket's backward keeps in shared memory
     (1 or 2); the L2 table's is the bucket's offset (in values) into the L2
     form's scratch rows, the two frontier rows of every such column ([B, 2,
@@ -377,6 +422,14 @@ class LaunchPlan:
     huge_pmax: int  # widest bucket of the huge table
     huge_smem_forward: int  # shared memory a block of the forward launch
     huge_smem_backward: int  # the same, backward and run
+    cluster_table: torch.Tensor  # int64 [nr_cluster, TABLE_COLUMNS]: the cluster body's
+    nr_cluster: int
+    cluster_blocks: int  # cluster_size a column
+    cluster_size: int  # C: the blocks of a cluster, one column
+    cluster_threads: int  # threads a block
+    cluster_pmax: int  # widest bucket of the cluster table
+    cluster_smem_forward: int  # shared memory a block of the forward launch
+    cluster_smem_backward: int  # the same, backward and run
     l2_table: torch.Tensor  # int64 [nr_l2, TABLE_COLUMNS]: the L2 body's buckets
     nr_l2: int
     l2_blocks: int  # one a column
@@ -485,17 +538,116 @@ def _huge_plan(shapes, itemsize: int, sms: int):
     return threads, rows, fwd, bwd
 
 
+def _route_huge_table(shapes, body, itemsize: int, sms: int):
+    """``body`` (per bucket, :func:`body_of`) with the route's float32 rule
+    held on the huge table as a whole. One launch runs the table at one
+    thread count and one block's shared memory, its widest bucket's
+    (:func:`_huge_plan`), so a float32 bucket below HUGE_FROM_F32_MANY that
+    the route sent there by its own columns goes back to the wide body where
+    the table's columns are more than HUGE_F32_BLOCKS_SM an SM (its blocks
+    would get 128 threads or fewer), or more an SM than that shared memory
+    lets reside (they would wait, a wave at a time, behind the widest
+    bucket's blocks)."""
+    few = [k for k, b in enumerate(body)
+           if b == "huge" and itemsize == 4 and shapes[k][0] < HUGE_FROM_F32_MANY]
+    if not few:
+        return body
+    huge = [shapes[k] for k, b in enumerate(body) if b == "huge"]
+    per_sm = -(-sum(B for _, H, B in huge if H > 0) // sms)
+    fwd = max(huge_smem_bytes(P, itemsize) for P, _, _ in huge)
+    if per_sm <= min(HUGE_F32_BLOCKS_SM, SM_SMEM // (fwd + BLOCK_SMEM_RESERVED)):
+        return body
+    return ["wide" if k in few else b for k, b in enumerate(body)]
+
+
+def cluster_occupancy(itemsize: int, C: int, threads: int, smem: int, device, sms: int) -> int:
+    """Clusters of C blocks of ``threads`` threads and ``smem`` bytes of
+    shared memory that the card holds at once: on the card its own answer
+    (``cudaOccupancyMaxActiveClusters`` of the forward kernel: clusters are
+    placed within a GPC, so not every SM need be usable); off it, the blocks
+    an SM holds by shared memory and threads, over ``sms`` SMs."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        import ctypes
+
+        from bdd_tpu_torch import _build
+
+        out = ctypes.c_int(0)
+        fn = getattr(_build.load(), f"uniform_huge_cluster_occupancy_f{8 * itemsize}")
+        with torch.cuda.device(device):
+            rc = fn(C, threads, smem, ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed (code {rc}) for a "
+                               f"cluster of {C} blocks of {threads} threads, {smem} B")
+        return out.value
+    per_sm = min(SM_SMEM // (smem + BLOCK_SMEM_RESERVED), HUGE_THREADS // threads)
+    return sms * per_sm // C
+
+
+def _cluster_plan(shapes, itemsize: int, sms: int, device: str, size: Optional[int]):
+    """(C, threads a block, the backward's rows per bucket, shared memory of
+    a forward and of a backward block) of the cluster launch over
+    ``shapes``. For each cluster size C of CLUSTER_SIZES (``size`` forces
+    one) whose block share of the widest bucket fits a block: as many blocks
+    an SM as the columns' C blocks ask for and the forward's shared memory
+    lets reside, sharing the SM's 1,024 threads; the card's answer for the
+    clusters it holds at once (:func:`cluster_occupancy`). The plan takes
+    the C of the fewest waves of clusters times slots a thread (the passes a
+    hop makes), the smallest C on a tie (fewest barriers and remote
+    accesses). The backward keeps two rows where that many blocks still fit
+    with them. A width no C holds raises ValueError."""
+    if not shapes:
+        return CLUSTER_SIZES[0], HUGE_THREADS, [], 0, 0
+    cols = max(1, sum(B for _, H, B in shapes if H > 0))
+    widest = max(P for P, _, _ in shapes)
+    best = None
+    for C in ((size,) if size else CLUSTER_SIZES):
+        fwd = cluster_smem_bytes(widest, C, itemsize)
+        if fwd > MAX_DYNAMIC_SMEM or widest > CLUSTER_MAX_P:
+            continue
+        resident = max(1, min(-(-cols * C // sms), SM_SMEM // (fwd + BLOCK_SMEM_RESERVED)))
+        threads = max(32, HUGE_THREADS // resident // 32 * 32)
+        active = cluster_occupancy(itemsize, C, threads, fwd, device, sms)
+        if active < 1:
+            continue
+        share = -(-widest // C)
+        cost = -(-cols // active) * -(-share // threads)
+        if best is None or cost < best[0]:
+            best = (cost, C, threads, resident, fwd)
+    if best is None:
+        raise ValueError(f"no cluster of {CLUSTER_SIZES if not size else size} blocks holds a "
+                         f"bucket of {widest} slots")
+    _, C, threads, resident, fwd = best
+
+    def two_rows(P: int) -> bool:
+        nbytes = cluster_smem_bytes(P, C, itemsize, two_rows=True)
+        return (nbytes <= MAX_DYNAMIC_SMEM
+                and resident * (nbytes + BLOCK_SMEM_RESERVED) <= SM_SMEM)
+
+    rows = [2 if two_rows(P) else 1 for P, _, _ in shapes]
+    bwd = max(cluster_smem_bytes(P, C, itemsize, two_rows=r == 2)
+              for (P, _, _), r in zip(shapes, rows))
+    return C, threads, rows, fwd, bwd
+
+
 @functools.lru_cache(maxsize=256)
 def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
                  wide_stages: Optional[int], wide_warps: Optional[int],
-                 huge_from: Optional[int], huge_body: Optional[str]) -> LaunchPlan:
+                 huge_from: Optional[int], huge_body: Optional[str],
+                 cluster_size: Optional[int]) -> LaunchPlan:
     sms = sm_count(device)
     body = [body_of(P, itemsize, B, sms, huge_from) for P, _, B in shapes]
+    if huge_from is None:
+        body = _route_huge_table(shapes, body, itemsize, sms)
     if huge_body == "huge_l2":  # the L2 body for every bucket past the wide records
         body = ["huge_l2" if P > WIDE_P else b for b, (P, _, _) in zip(body, shapes)]
+    elif huge_body == "huge_cluster":  # the cluster body wherever it holds the rows
+        body = ["huge_cluster" if P > WIDE_P and cluster_fits(P, itemsize) else b
+                for b, (P, _, _) in zip(body, shapes)]
     narrow = [k for k, b in enumerate(body) if b == "narrow"]
     wide = [k for k, b in enumerate(body) if b == "wide"]
     huge = [k for k, b in enumerate(body) if b == "huge"]
+    clustered = [k for k, b in enumerate(body) if b == "huge_cluster"]
     l2 = [k for k, b in enumerate(body) if b == "huge_l2"]
     cols = sum(shapes[k][2] for k in narrow)
     tile = TILE_SMALL if cols <= TILE_SWITCH else TILE_LARGE
@@ -526,6 +678,14 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
         P, H, B = shapes[k]
         huge_table[r] = (P, H, B, huge_block, rows[k], nodes[k], arcs[k], huge_rows[r])
         huge_block += B if H > 0 else 0
+    C, cl_threads, cl_rows, cl_fwd, cl_bwd = _cluster_plan(
+        [shapes[k] for k in clustered], itemsize, sms, device, cluster_size)
+    cluster_table = np.zeros((len(clustered), TABLE_COLUMNS), dtype=np.int64)
+    cluster_block = 0
+    for r, k in enumerate(clustered):
+        P, H, B = shapes[k]
+        cluster_table[r] = (P, H, B, cluster_block, rows[k], nodes[k], arcs[k], cl_rows[r])
+        cluster_block += C * B if H > 0 else 0
     l2_table = np.zeros((len(l2), TABLE_COLUMNS), dtype=np.int64)
     l2_block = scratch = 0
     for r, k in enumerate(l2):
@@ -544,6 +704,10 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
         huge_blocks=huge_block, huge_threads=threads,
         huge_pmax=max((shapes[k][0] for k in huge), default=0),
         huge_smem_forward=smem_fwd, huge_smem_backward=smem_bwd,
+        cluster_table=torch.from_numpy(cluster_table).to(device), nr_cluster=len(clustered),
+        cluster_blocks=cluster_block, cluster_size=C, cluster_threads=cl_threads,
+        cluster_pmax=max((shapes[k][0] for k in clustered), default=0),
+        cluster_smem_forward=cl_fwd, cluster_smem_backward=cl_bwd,
         l2_table=torch.from_numpy(l2_table).to(device), nr_l2=len(l2), l2_blocks=l2_block,
         l2_threads=HUGE_THREADS, huge_scratch_values=scratch,
     )
@@ -551,7 +715,8 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
 
 def launch_plan(shapes, dtype: torch.dtype, device, stages: Optional[int] = None,
                 wide_stages: Optional[int] = None, wide_warps: Optional[int] = None,
-                huge_from: Optional[int] = None, huge_body: Optional[str] = None) -> LaunchPlan:
+                huge_from: Optional[int] = None, huge_body: Optional[str] = None,
+                cluster_size: Optional[int] = None) -> LaunchPlan:
     """The plan of one launch per body over buckets of ``shapes`` ((P, H, B)
     each) whose buffers lie flat, bucket after bucket. Built once per
     distinct argument list (cached). The other arguments force what the plan
@@ -560,11 +725,13 @@ def launch_plan(shapes, dtype: torch.dtype, device, stages: Optional[int] = None
     a block of the wide ones, ``huge_from`` the narrowest wide bucket the huge
     body takes whatever its columns (WIDE_P + 1: none; :func:`body_of`),
     ``huge_body="huge_l2"`` the L2 body for
-    every bucket past WIDE_P."""
+    every bucket past WIDE_P, ``huge_body="huge_cluster"`` the cluster body
+    for every such bucket it holds, ``cluster_size`` the blocks of its
+    clusters (2, 4 or 8)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     return _launch_plan(tuple(tuple(int(x) for x in s) for s in shapes), itemsize,
                         str(torch.device(device)), stages, wide_stages, wide_warps,
-                        huge_from, huge_body)
+                        huge_from, huge_body, cluster_size)
 
 
 def huge_scratch(plan: LaunchPlan, dtype: torch.dtype, device) -> Optional[torch.Tensor]:
@@ -583,7 +750,8 @@ def solve_bytes(shapes, itemsize: int) -> int:
     """Device memory a solve over buckets of ``shapes`` works in: the arc
     records, per layer the state, the half-sweep's outputs, the deltas, alpha
     and three int64 index entries, per node the frontier in and out, and the
-    scratch rows of the buckets the L2 body takes."""
+    scratch rows of the buckets the L2 body takes (the cluster body keeps
+    none)."""
     _, _, _, E, N, arcs = _offsets(shapes)
     scratch = sum(2 * P * B for P, _, B in shapes if body_of(P, itemsize) == "huge_l2")
     return arcs + E * (9 * itemsize + 3 * 8) + (2 * N + scratch) * itemsize

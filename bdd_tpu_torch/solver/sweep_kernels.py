@@ -5,13 +5,15 @@ Two levels of wrapper over the kernels of ``csrc/uniform_sweep.cu``
 (``uniform_forward``, ``uniform_backward``, each with a body for buckets of
 up to 32 slots, one for wide buckets, one a block a column for wider buckets
 (``layout.body_of``: from ``layout.HUGE_FROM`` slots on, rows in shared
-memory) and its L2 form for buckets whose rows do not fit a block
-(``layout.huge_fits``); see the design notes there):
+memory), its cluster form, a cluster of blocks a column, for buckets whose
+rows do not fit a block (``layout.huge_fits``) but a cluster
+(``layout.cluster_fits``), and its L2 form for the rest; see the design
+notes there):
 
 * ``forward_iteration_cuda`` / ``backward_iteration_cuda`` take a whole
   ``UniformGeom`` and flat tensors and run the half-sweep of every bucket: ONE
-  launch over the narrow buckets, a second one over the wide buckets and a
-  third over the huge ones, each where the layout has any. The iteration
+  launch over the narrow buckets, a second one over the wide buckets and one
+  over each huge form's, each where the layout has any. The iteration
   uses these. Shapes and types were fixed when the layout was built, so a
   call checks only what it is handed, allocates the four outputs and makes
   one ctypes call per launch.
@@ -39,6 +41,7 @@ layout of such a frontier copies it into that one first).
 ``LAUNCHES`` counts kernel launches, one key per kernel and body
 (``uniform_forward`` is the narrow body's launch, ``uniform_forward_wide`` the
 wide body's, ``uniform_forward_huge`` the huge body's,
+``uniform_forward_huge_cluster`` its cluster form's,
 ``uniform_forward_huge_l2`` its L2 form's). The twins never count here
 (``uniform.TWIN_SWEEP_CALLS`` and ``uniform.PLAIN_RUN_CALLS`` count them).
 """
@@ -64,8 +67,9 @@ KERNELS = ("uniform_forward", "uniform_backward")  # the half-sweeps
 RUN = "uniform_backward_run"  # the backward kernel's entry without the cost update
 WIDE = "_wide"  # suffix of the wide body's entries and of its key in LAUNCHES
 HUGE = "_huge"  # the same for the huge body (a block a column, rows in shared memory)
-HUGE_L2 = "_huge_l2"  # the same for its L2 form (rows past a block's shared memory)
-BODIES = ("", WIDE, HUGE, HUGE_L2)
+HUGE_CLUSTER = "_huge_cluster"  # its cluster form (rows past a block's, within a cluster's)
+HUGE_L2 = "_huge_l2"  # the same for its L2 form (rows past a cluster's shared memory)
+BODIES = ("", WIDE, HUGE, HUGE_CLUSTER, HUGE_L2)
 LAUNCHES = {kernel + body: 0 for kernel in KERNELS + (RUN,) for body in BODIES}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -107,8 +111,8 @@ def _check_all(named, shapes) -> None:
 def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha, omega,
               frontier, outs, scratch=None):
     """A closure that queues ``kernel`` on the current stream (the narrow
-    buckets' launch, then the wide buckets', the huge buckets' and the L2
-    body's, each where the plan has blocks for it) and raises on a launch
+    buckets' launch, then the wide buckets', the huge buckets', the cluster
+    body's and the L2 body's, each where the plan has blocks for it) and raises on a launch
     error. It holds its tensors alive and does not count; ``launch.counts``
     names the key of ``LAUNCHES`` of every launch a call makes. ``scratch``:
     the rows of the L2 body (:func:`layout.huge_scratch`), which the forward's
@@ -142,6 +146,12 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
         calls.append((kernel + HUGE, (
             plan.huge_table.data_ptr(), plan.nr_huge, plan.huge_blocks, plan.huge_threads,
             plan.huge_pmax, smem, *buffers)))
+    if plan.cluster_blocks:
+        smem = (plan.cluster_smem_forward if kernel == "uniform_forward"
+                else plan.cluster_smem_backward)
+        calls.append((kernel + HUGE_CLUSTER, (
+            plan.cluster_table.data_ptr(), plan.nr_cluster, plan.cluster_blocks,
+            plan.cluster_threads, plan.cluster_size, plan.cluster_pmax, smem, *buffers)))
     if plan.l2_blocks:
         rows = scratch if kernel == "uniform_forward" else None
         calls.append((kernel + HUGE_L2, (

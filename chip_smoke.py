@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch/CUDA port (bdd_tpu_torch) on one NVIDIA GPU.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
-(``python3 chip_smoke.py --huge-split`` times variants of the huge body
-instead: see ``huge_split``)
+(``python3 chip_smoke.py --huge-split [part ...]`` times variants of the
+huge body, the route on a whole huge table and the cluster body's cluster
+sizes instead: see ``huge_split``)
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. card: CUDA present, card name and power limit; build both libraries of
@@ -43,16 +44,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      coefficients 1..1,000 (knapsack48: P = 16,384, four-byte arcs, the
      block-a-column huge body with its rows in shared memory, a launch of its
      own; 132 columns, not padded): kernel == twin, times beside the byte
-     bound and beside the L2 body (the huge body's rows in device memory) forced on the
-     same layout in the same call; the crossover between the wide and the
-     huge body on 132 rows of 32 variables, P = 256 to 8,192 over 256 columns
-     ("[huge] crossover" lines: forward, backward, run, both precisions,
-     every launch held to the plain versions; more columns: --huge-split); the P = 8,192 rows (knapsack32) on the
-     body the route gives them, with 20 counted iterations; knapsack48 and
-     knapsack32 in one layout (one huge table of 388 columns, beside the
-     threads a block that the column count alone would give); 132 rows of 48
+     bound; the P = 8,192 rows (knapsack32) on the body the route gives
+     them, beside the wide body ("[huge] crossover": forward, backward, run,
+     both precisions, every launch held to the plain versions; P = 256 to
+     4,096 and more columns: --huge-split columns), with 20 counted
+     iterations; knapsack48 and knapsack32 in one layout (one huge table of
+     388 columns); 132 rows of 48
      variables with coefficients up to 2,000 (P = 32,768, past a block's
-     shared memory) on the L2 body, with 20 counted iterations; and a
+     shared memory) on the cluster body (a cluster of blocks a column, the
+     row split over their shared memory), beside the L2 body forced on the
+     same layout, with 20 counted float64 iterations held to the native
+     solver's bound after as many; 8 such rows with coefficients up to 4,000
+     (P = 65,536, past what a cluster's slot codes hold) on the L2 body, with
+     20 counted float64 iterations held the same way; and a
      100-iteration float64 solve of knapsack48 against the native solver,
      every half-sweep one launch of the huge body;
   7. Python pipeline (BddPreprocessor -> flatten_uniform) on grid12: float64
@@ -214,8 +218,9 @@ KERNELS = ("uniform_forward", "uniform_backward")
 RUN = "uniform_backward_run"  # the backward kernel's entry without the cost update
 WIDE = "_wide"  # suffix of the wide-bucket body's entries in errs, times and the kernels line
 HUGE = "_huge"  # the same for the huge body (a block a column, rows in shared memory)
-HUGE_L2 = "_huge_l2"  # the same for its L2 form (rows past a block's shared memory)
-BODIES = ("", WIDE, HUGE, HUGE_L2)
+HUGE_CLUSTER = "_huge_cluster"  # its cluster form (rows past a block's, within a cluster's)
+HUGE_L2 = "_huge_l2"  # the same for its L2 form (rows past a cluster's shared memory)
+BODIES = ("", WIDE, HUGE, HUGE_CLUSTER, HUGE_L2)
 KNAPSACK_ITERS = 100  # cut from 200 (PR 8): the native solver's share of the phase
 BATCH_ITERS = 100
 GRID_OUTER_ITERS = 200
@@ -229,12 +234,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def launch_counts(narrow: int = 0, wide: int = 0, huge: int = 0, huge_l2: int = 0) -> dict:
+def launch_counts(narrow: int = 0, wide: int = 0, huge: int = 0, huge_cluster: int = 0,
+                  huge_l2: int = 0) -> dict:
     """The half-sweep keys of ``sweep_kernels.LAUNCHES`` after ``narrow``,
-    ``wide``, ``huge`` and ``huge_l2`` launches of either kernel's narrow,
-    wide, huge and L2 body."""
+    ``wide``, ``huge``, ``huge_cluster`` and ``huge_l2`` launches of either
+    kernel's narrow, wide, huge, cluster and L2 body."""
     return {k + body: n for k in KERNELS
-            for body, n in (("", narrow), (WIDE, wide), (HUGE, huge), (HUGE_L2, huge_l2))}
+            for body, n in (("", narrow), (WIDE, wide), (HUGE, huge),
+                            (HUGE_CLUSTER, huge_cluster), (HUGE_L2, huge_l2))}
 
 
 def sweeps_of(counts: dict) -> dict:
@@ -384,7 +391,8 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
     (forced ring depths, warps a block, bodies, threads a block of a huge
     form) to time the fused launches (and, where a huge form runs, the run
     entry) at as well;
-    ``suffix``: the body every bucket of the host runs (WIDE, HUGE, HUGE_L2);
+    ``suffix``: the body every bucket of the host runs (WIDE, HUGE,
+    HUGE_CLUSTER, HUGE_L2);
     ``state``: the state to sweep from (a solver's, after its solve) instead
     of five iterations from ``objective``."""
     import torch
@@ -468,6 +476,7 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
         want = {**launch_counts(), name: int(geom.plan.nr_blocks > 0),
                 name + WIDE: int(geom.plan.wide_blocks > 0),
                 name + HUGE: int(geom.plan.huge_blocks > 0),
+                name + HUGE_CLUSTER: int(geom.plan.cluster_blocks > 0),
                 name + HUGE_L2: int(geom.plan.l2_blocks > 0)}
         if rose != want:
             fail(f"{label} {dt}: one fused {name} call counted launches {rose}, not {want}")
@@ -492,8 +501,12 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
             f"{plan.wide_smem_bytes} B shared; one over {plan.nr_huge} huge bucket(s), "
             f"{plan.huge_blocks} blocks of {plan.huge_threads} threads, flags "
             f"{[int(r[7]) for r in plan.huge_table.tolist()]}, {plan.huge_smem_forward} / "
-            f"{plan.huge_smem_backward} B shared; one over {plan.nr_l2} L2 bucket(s), "
-            f"{plan.l2_blocks} blocks of {plan.l2_threads} threads: match; "
+            f"{plan.huge_smem_backward} B shared; one over {plan.nr_cluster} cluster bucket(s), "
+            f"{plan.cluster_blocks} blocks of {plan.cluster_threads} threads in clusters of "
+            f"{plan.cluster_size}, flags {[int(r[7]) for r in plan.cluster_table.tolist()]}, "
+            f"{plan.cluster_smem_forward} / {plan.cluster_smem_backward} B shared; one over "
+            f"{plan.nr_l2} L2 bucket(s), {plan.l2_blocks} blocks of {plan.l2_threads} threads: "
+            f"match; "
             f"warm {e['ms']:.4f} ms ({share(e['bound_ms'], e['ms'])}), "
             f"cold {e['cold_ms']:.4f} ms ({share(e['bound_ms'], e['cold_ms'])}), "
             f"bound {e['bound_ms']:.4f} ms = {nbytes} B (columns with a BDD) at 3.35 TB/s; "
@@ -513,9 +526,11 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
             launch()
             torch.cuda.synchronize()
             compare(out, ref_f if fwd else ref_b, TOL[dt])
-            row.append(f"{name} warm {cuda_ms(launch, 200):.4f} ms, cold "
-                       f"{cuda_ms(launch, 20, flush):.4f} ms")
-        if deep.huge_blocks or deep.l2_blocks:  # the run entry too, where a huge form runs
+            warm, cold, bound = cuda_ms(launch, 200), cuda_ms(launch, 20, flush), entry[name][
+                "bound_ms"]
+            row.append(f"{name} warm {warm:.4f} ms ({share(bound, warm)}), cold {cold:.4f} ms "
+                       f"({share(bound, cold)})")
+        if deep.huge_blocks or deep.cluster_blocks or deep.l2_blocks:  # the run entry too
             if run_ref is None:
                 run_ref = geom.flatten_nodes([uf.bucket_backward_run(g, a, b) for g, a, b in zip(
                     geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])
@@ -523,26 +538,31 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
             launch()
             torch.cuda.synchronize()
             compare([out], [run_ref], TOL[dt])
-            row.append(f"{RUN} warm {cuda_ms(launch, 200):.4f} ms, cold "
-                       f"{cuda_ms(launch, 20, flush):.4f} ms")
+            warm, cold = cuda_ms(launch, 200), cuda_ms(launch, 20, flush)
+            bound = 1e3 * run_bytes(bdd_shapes(geom.buckets), itemsize) / HBM_BYTES_PER_S
+            row.append(f"{RUN} warm {warm:.4f} ms ({share(bound, warm)}), cold {cold:.4f} ms "
+                       f"({share(bound, cold)})")
         print(f"[depth] {label} {dt} {forced}: narrow stages "
               f"{[int(s) for s in deep.table[:, 7].tolist()]}, {deep.smem_bytes} B shared; wide "
               f"{deep.nr_wide} bucket(s), {deep.wide_warps} warps a block, stages "
               f"{[int(s) for s in deep.wide_table[:, 7].tolist()]}, {deep.wide_smem_bytes} B "
               f"shared; huge {deep.nr_huge} bucket(s), {deep.huge_threads} threads a block, flags "
-              f"{[int(r[7]) for r in deep.huge_table.tolist()]}; L2 {deep.nr_l2} bucket(s), "
-              f"{deep.l2_threads} threads a block: match; {'; '.join(row)} {card}", flush=True)
+              f"{[int(r[7]) for r in deep.huge_table.tolist()]}; cluster {deep.nr_cluster} "
+              f"bucket(s), clusters of {deep.cluster_size}, {deep.cluster_threads} threads a block; "
+              f"L2 {deep.nr_l2} bucket(s), {deep.l2_threads} threads a block: match; "
+              f"{'; '.join(row)} {card}", flush=True)
     run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix)
 
 
-PLAN_FIELDS = ("huge_threads", "l2_threads")  # set on a copy of a plan, not by launch_plan
+# set on a copy of a plan, not by launch_plan
+PLAN_FIELDS = ("huge_threads", "cluster_threads", "l2_threads")
 
 
 def variant_plan(plan, geom, forced: dict):
     """The plan of a timing variant: ``layout.launch_plan`` over the same
     buckets with the keywords of ``forced`` that it takes (forced ring
-    depths, warps a block, the crossover ``huge_from``, ``huge_body``, the
-    huge body's rows), and the threads a block of either huge form set on a
+    depths, warps a block, the crossover ``huge_from``, ``huge_body``,
+    ``cluster_size``), and the threads a block of a huge form set on a
     copy."""
     from bdd_tpu_torch.solver import layout
 
@@ -579,6 +599,7 @@ def run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix):
     rose = {k: n - before[k] for k, n in sk.LAUNCHES.items() if n != before[k]}
     want = {k: 1 for k, blocks in ((RUN, geom.plan.nr_blocks), (RUN + WIDE, geom.plan.wide_blocks),
                                    (RUN + HUGE, geom.plan.huge_blocks),
+                                   (RUN + HUGE_CLUSTER, geom.plan.cluster_blocks),
                                    (RUN + HUGE_L2, geom.plan.l2_blocks)) if blocks}
     if rose != want:
         fail(f"{label} {dt}: one fused run call counted launches {rose}, not {want}")
@@ -799,11 +820,13 @@ WIDEST_ROWS = dict(nr_vars=1056, nr_rows=132, row_len=32, coef_max=1000)  # P = 
 # the wide body and the huge body
 CROSSOVER_ROWS = {256: 25, 512: 50, 1024: 100, 2048: 250, 4096: 500}
 # rows of 48 variables with coefficients up to 2,000: P = 32,768, past a
-# block's shared memory in either precision (the L2 body)
+# block's shared memory in either precision (the cluster body)
 L2_ROWS = dict(nr_vars=1584, nr_rows=132, row_len=48, coef_max=2000)
+# up to 4,000: P = 65,536, past what a cluster's slot code holds (the L2
+# body); eight rows, so that their host build stays a few seconds
+L2_WIDE_ROWS = dict(nr_vars=96, nr_rows=8, row_len=48, coef_max=4000)
 HUGE_ITERS = 100  # cut from 200 (PR 8): the native solver's share of the phase
 PATH_ITERS = 20  # iterations of the knapsack32 and L2 paths, counted for the kernels line
-OLD_HUGE_THREADS = 320  # what a block of 388 columns got when threads followed columns alone
 
 
 def merged_lp(*lps: str) -> str:
@@ -817,10 +840,12 @@ def merged_lp(*lps: str) -> str:
     return "\n".join(["Minimize", " + ".join(objective), "Subject To", *rows, "End"])
 
 
-def counted_iterations(label, host, objective, n, card) -> dict:
+def counted_iterations(label, host, objective, n, card, native=None) -> dict:
     """``n`` iterations through the kernels on ``host`` from its initial
     state, counted: a path of the kernels line. Fails if a plain sweep or
-    run ran."""
+    run ran, or, given ``native`` (the ``NativeHost`` the layout was built
+    from), if the bound is off the native C++ solver's after as many
+    iterations by more than LB_REL["double"]."""
     from bdd_tpu_torch.solver import sweep_kernels as sk
     from bdd_tpu_torch.solver import uniform as uf
 
@@ -834,6 +859,18 @@ def counted_iterations(label, host, objective, n, card) -> dict:
         fail(f"{label}: a plain sweep or run ran in its iterations on the card")
     print(f"[huge] {label}: {n} iterations through the kernels, bound {lb!r}, launches "
           f"{ {k: v for k, v in counted.items() if v} } {card}", flush=True)
+    if native is not None:
+        cs = native.cpu_solver()
+        t0 = time.perf_counter()
+        cs.iterations(n, 0.5)
+        native_s = time.perf_counter() - t0
+        lb_native = cs.lower_bound_with_deferred()
+        rel = abs(lb - lb_native) / abs(lb_native)
+        print(f"[huge] {label}: the native C++ solver after {n} iterations {lb_native!r} "
+              f"({native_s:.2f} s): rel diff {rel:.3e} (limit {LB_REL['double']}) {card}",
+              flush=True)
+        if not rel <= LB_REL["double"]:
+            fail(f"{label}: bound {lb!r} off the native solver's {lb_native!r}")
     return counted
 
 
@@ -915,14 +952,14 @@ def crossover(label, host, objective, card, flush) -> dict:
 def phase_huge(card, errs, times, flush):
     """Phase 6, huge rows: knapsack rows wider than 8,192 slots through the
     huge body (a block a column, rows in shared memory, a launch of its own
-    per half-sweep), beside the L2 body (its rows in device memory) forced on
-    the same layout; the crossover between the wide and the huge body on
-    knapsack rows of 256 to 8,192 slots over 256 columns; rows of exactly
-    8,192 on the body the route gives
-    them; knapsack48 and those rows in one layout; rows of 32,768 slots, past
-    a block's shared memory, on the L2 body. Returns the paths of the kernels
-    line: knapsack48's float64 solve, knapsack32's and the L2 rows' counted
-    iterations."""
+    per half-sweep); rows of exactly 8,192 on the body the route gives them,
+    beside the wide body (the crossover; at 256 to 4,096 slots: ``--huge-split
+    columns``); knapsack48 and those rows in one layout; rows of 32,768 slots, past
+    a block's shared memory, on the cluster body (beside the L2 body forced
+    on the same layout), and rows of 65,536, past a cluster's slot codes, on
+    the L2 body. Returns the paths of the kernels line: knapsack48's float64
+    solve, knapsack32's, the 32,768-slot rows' and the 65,536-slot rows'
+    counted iterations."""
     import torch
     from bdd_tpu_torch.api import BddSolver
     from bdd_tpu_torch.native import NativeHost
@@ -952,15 +989,8 @@ def phase_huge(card, errs, times, flush):
             fail(f"the huge knapsack family has buckets {shapes}, {columns} columns; expected "
                  f"only P > {layout.WIDE_P} and at least 132 columns, none of them padding, "
                  f"all on the shared-memory huge body")
-        # the L2 body forced on the same layout, at 1,024 and 512 threads a block
-        kernel_vs_twin("knapsack48", host, nh.objective(), card, errs, times, flush, suffix=HUGE,
-                       variants=({"huge_body": "huge_l2"},
-                                 {"huge_body": "huge_l2", "l2_threads": 512}))
+        kernel_vs_twin("knapsack48", host, nh.objective(), card, errs, times, flush, suffix=HUGE)
         del host
-    # the crossover: the wide body against the huge body, 256 to 4,096 slots
-    # over 256 columns (more columns: ``--huge-split``)
-    for P, coef_max in CROSSOVER_ROWS.items():
-        crossover_rows(P, 132, coef_max, card, flush)
     # rows of 8,192 slots: the body the route gives them, the wide body beside it
     widest_lp = knapsack_lp(**WIDEST_ROWS)
     widest = NativeHost(widest_lp, "input")
@@ -987,8 +1017,7 @@ def phase_huge(card, errs, times, flush):
                           "launches": counted, "iterations": PATH_ITERS})
         del host
     # knapsack48 and the rows of 8,192 slots in one layout (388 columns in one
-    # huge table): the plan's threads a block, and the threads that three
-    # blocks an SM would share beside them, though only one resides
+    # huge table)
     mixed = NativeHost(merged_lp(lp, widest_lp), "input")
     host = layout.from_native_host(mixed, torch.float32, "cuda", pack=False)
     plan = host.geom.plan
@@ -998,36 +1027,49 @@ def phase_huge(card, errs, times, flush):
     if sorted(P for P, _, _ in shapes) != [layout.WIDE_P, 16384] or plan.nr_huge != 2:
         fail(f"the merged knapsack layout has buckets {shapes}, {plan.nr_huge} on the huge body")
     kernel_vs_twin("knapsack48+32", host, mixed.objective(), card, errs, times, flush,
-                   suffix=HUGE, variants=({"huge_threads": OLD_HUGE_THREADS},))
+                   suffix=HUGE)
     del host, mixed
-    # rows past a block's shared memory in either precision: the L2 body
-    t0 = time.perf_counter()
-    l2 = NativeHost(knapsack_lp(**L2_ROWS), "input")
-    print(f"[huge] knapsack rows {L2_ROWS}: {l2.nr_bdds()} BDDs, built by the host library in "
-          f"{time.perf_counter() - t0:.2f} s {card}", flush=True)
-    for dtype in (torch.float32, torch.float64):
-        itemsize = torch.empty((), dtype=dtype).element_size()
-        host = layout.from_native_host(l2, dtype, "cuda", pack=False)
-        plan = host.geom.plan
-        shapes = [(g.P, g.H, g.B) for g in host.geom.buckets]
-        print(f"[huge] knapsack48 L2 {dtype}: buckets (P, H, B) {shapes}, "
-              f"{layout.huge_smem_bytes(shapes[0][0], itemsize)} B of shared memory a block at "
-              f"the least (a block may have {layout.MAX_DYNAMIC_SMEM}): {plan.nr_l2} bucket(s) "
-              f"on the L2 body {card}", flush=True)
-        if plan.nr_l2 != len(shapes) or plan.nr_huge or plan.nr_wide or plan.nr_buckets:
-            fail(f"the P = 32,768 knapsack rows are not all on the L2 body: {shapes}")
-        kernel_vs_twin("knapsack48 L2", host, l2.objective(), card, errs, times, flush,
-                       suffix=HUGE_L2)
-        if dtype == torch.float64:
-            counted = counted_iterations("knapsack48 L2 float64", host, l2.objective(),
-                                         PATH_ITERS, card)
-            if sweeps_of(counted) != launch_counts(huge_l2=PATH_ITERS):
-                fail(f"knapsack48 L2: launches {counted}; expected "
-                     f"{launch_counts(huge_l2=PATH_ITERS)}")
-            paths.append({"at": "knapsack48 L2", "dt": "float64", "suffix": HUGE_L2,
-                          "launches": counted, "iterations": PATH_ITERS})
-        del host
-    del l2
+    # rows past a block's shared memory in either precision: the cluster
+    # body, the L2 body forced beside it; then rows past a cluster's slot
+    # codes on the L2 body
+    for label, rows, dtypes, suffix in (
+            ("knapsack48 L2", L2_ROWS, (torch.float32, torch.float64), HUGE_CLUSTER),
+            ("knapsack L2 wide", L2_WIDE_ROWS, (torch.float64,), HUGE_L2)):
+        t0 = time.perf_counter()
+        l2 = NativeHost(knapsack_lp(**rows), "input")
+        print(f"[huge] knapsack rows {rows}: {l2.nr_bdds()} BDDs, built by the host library in "
+              f"{time.perf_counter() - t0:.2f} s {card}", flush=True)
+        for dtype in dtypes:
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            dt = str(dtype).replace("torch.", "")
+            host = layout.from_native_host(l2, dtype, "cuda", pack=False)
+            plan = host.geom.plan
+            shapes = [(g.P, g.H, g.B) for g in host.geom.buckets]
+            print(f"[huge] {label} {dt}: buckets (P, H, B) {shapes}, "
+                  f"{layout.huge_smem_bytes(shapes[0][0], itemsize)} B of shared memory a block at "
+                  f"the least (a block may have {layout.MAX_DYNAMIC_SMEM}): {plan.nr_cluster} "
+                  f"bucket(s) on the cluster body (clusters of {plan.cluster_size}, "
+                  f"{plan.cluster_threads} threads a block), {plan.nr_l2} on the L2 body {card}",
+                  flush=True)
+            on = plan.nr_cluster if suffix == HUGE_CLUSTER else plan.nr_l2
+            if on != len(shapes) or plan.nr_huge or plan.nr_wide or plan.nr_buckets:
+                fail(f"the {label} rows are not all on the {suffix[1:]} body: {shapes}, "
+                     f"{plan.nr_cluster} on the cluster body, {plan.nr_l2} on the L2 body")
+            variants = ({"huge_body": "huge_l2"},) if suffix == HUGE_CLUSTER else ()
+            kernel_vs_twin(label, host, l2.objective(), card, errs, times, flush, suffix=suffix,
+                           variants=variants)
+            if dtype == torch.float64:
+                counted = counted_iterations(f"{label} float64", host, l2.objective(),
+                                             PATH_ITERS, card, native=l2)
+                want = launch_counts(**{suffix[1:]: PATH_ITERS})
+                if sweeps_of(counted) != want or not counted[RUN + suffix] or any(
+                        counted[RUN + b] for b in BODIES if b != suffix):
+                    fail(f"{label}: launches {counted}; expected {want} and runs of the "
+                         f"{suffix[1:]} body only")
+                paths.append({"at": label, "dt": "float64", "suffix": suffix,
+                              "launches": counted, "iterations": PATH_ITERS})
+            del host
+        del l2
     cs = nh.cpu_solver()
     t0 = time.perf_counter()
     cs.iterations(HUGE_ITERS, 0.5)
@@ -1055,8 +1097,8 @@ def phase_huge(card, errs, times, flush):
         if res["status"] != "solved" or res["iterations"] != HUGE_ITERS or not rel <= LB_REL[prec]:
             fail(f"huge knapsack {name} bound off the native solver")
         # every bucket is huge: a half-sweep is ONE launch, the huge table's
-        if (sweeps_of(counted) != launch_counts(huge=HUGE_ITERS) or counted[RUN]
-                or counted[RUN + WIDE] or counted[RUN + HUGE_L2] or not counted[RUN + HUGE]):
+        if (sweeps_of(counted) != launch_counts(huge=HUGE_ITERS) or not counted[RUN + HUGE]
+                or any(counted[RUN + b] for b in BODIES if b != HUGE)):
             fail(f"huge knapsack {name}: launches {counted}; expected "
                  f"{launch_counts(huge=HUGE_ITERS)} and runs of the huge body only")
         if plain_calls() != twins_before:
@@ -3431,12 +3473,159 @@ def split_ptxas(report: str):
     return rows
 
 
-def huge_split() -> None:
-    """Every variant held to the twins bit for bit and timed warm and cold
-    beside the byte bound: on knapsack48 (B = 132), both precisions, and, for
-    the staged forward, on the crossover rows of SPLIT_CROSSOVER_P slots.
-    Then the crossover between the wide and the huge body at more columns
-    (SPLIT_COLUMNS), with the library as built."""
+# knapsack rows of 24, 32, 40 and 48 variables whose coefficients (up to the
+# second number) make BDDs of 1,024 slots, 500 rows of each: four float32
+# buckets that the route sends to the huge body one by one (512 columns, at
+# most 4 an SM), 2,048 columns in one table
+ROUTE_ROWS = ((24, 180), (32, 100), (40, 80), (48, 70))
+ROUTE_NR_ROWS = 500
+# (C, threads a block) of the cluster body timed on knapsack48's L2 rows
+# beside the plan's own (None: the plan's threads for that C)
+CLUSTER_SWEEP = [(2, None), (2, 512), (4, None), (4, 1024), (8, None), (8, 512)]
+SPLIT_PARTS = ("variants", "columns", "route", "cluster")
+
+
+def split_state(host, objective):
+    """(lo, hi, cft, din_lo, din_hi) after five twin iterations, and the
+    plain versions' forward, backward and run outputs from them."""
+    from bdd_tpu_torch.solver import uniform as uf
+
+    geom = host.geom
+    st = uf.iterations(geom, uf.init_uniform_state(host, objective), 5, sweeps=uf.TWIN_SWEEPS)
+    lo, hi, mm, cft = st.flat
+    dl, dh = uf.exchange_delta_flat(geom, mm)
+    ref_f = uf.sweep_per_bucket(uf.bucket_forward_iteration, geom, lo, hi, cft, 0.5, dl, dh)
+    ref_b = uf.sweep_per_bucket(uf.bucket_backward_iteration, geom, ref_f[0], ref_f[1], ref_f[3],
+                                0.5, dl, dh)
+    ref_r = geom.flatten_nodes([uf.bucket_backward_run(g, a, b) for g, a, b in zip(
+        geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])
+    return (lo, hi, cft, dl, dh), {"uniform_forward": ref_f, "uniform_backward": ref_b, RUN: [ref_r]}
+
+
+def split_times(geom, state, refs, plan, flush, reps=100) -> dict:
+    """kernel -> (warm, cold ms) of the three launches of ``plan`` over
+    ``geom`` from ``state``, each held to the plain versions bit for bit."""
+    import torch
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+
+    lo, hi, cft, dl, dh = state
+    ref_f = refs["uniform_forward"]
+    launches = {
+        "uniform_forward": sk.prepare_fused_launch("uniform_forward", geom, lo, hi, cft, 0.5, dl,
+                                                   dh, plan),
+        "uniform_backward": sk.prepare_fused_launch("uniform_backward", geom, ref_f[0], ref_f[1],
+                                                    ref_f[3], 0.5, dl, dh, plan),
+        RUN: sk.prepare_run_launch(geom, lo, hi, plan)}
+    out = {}
+    for kernel, (launch, res) in launches.items():
+        launch()
+        torch.cuda.synchronize()
+        compare(res if kernel != RUN else [res], refs[kernel], 0.0)
+        out[kernel] = (cuda_ms(launch, reps), cuda_ms(launch, max(1, reps // 10), flush))
+    return out
+
+
+def split_bounds(geom, itemsize: int) -> dict:
+    shapes = bdd_shapes(geom.buckets)
+    return {k: 1e3 * v / HBM_BYTES_PER_S for k, v in (
+        ("uniform_forward", launch_bytes(shapes, itemsize, True)),
+        ("uniform_backward", launch_bytes(shapes, itemsize, False)),
+        (RUN, run_bytes(shapes, itemsize)))}
+
+
+def split_row(times: dict, bounds: dict) -> str:
+    return "; ".join(f"{k} warm {w:.4f} ms ({share(bounds[k], w)}), cold {c:.4f} ms"
+                     for k, (w, c) in times.items())
+
+
+def split_route(card, flush) -> None:
+    """The route's float32 rule on a whole huge table: layouts whose float32
+    buckets below HUGE_FROM_F32_MANY the route once sent to the huge body one
+    by one, timed as the plan runs them now (the wide body) and as they ran
+    before (``huge_from=HUGE_FROM``: every one in the huge table, at the
+    threads its columns leave a block). ROUTE_ROWS over 2,048 columns; and
+    200 rows of 1,024 slots beside knapsack48's in one layout."""
+    import torch
+    from bdd_tpu_torch.native import NativeHost
+    from bdd_tpu_torch.solver import layout
+
+    lps = [knapsack_lp(nr_vars=10 * n, nr_rows=ROUTE_NR_ROWS, row_len=n, coef_max=c)
+           for n, c in ROUTE_ROWS]
+    beside = merged_lp(knapsack_lp(nr_vars=320, nr_rows=200, row_len=32, coef_max=100),
+                       knapsack_lp(**HUGE_ROWS))
+    for label, lp in (("four 1,024-slot families", merged_lp(*lps)),
+                      ("1,024 slots beside knapsack48", beside)):
+        t0 = time.perf_counter()
+        nh = NativeHost(lp, "input")
+        host = layout.from_native_host(nh, torch.float32, "cuda", pack=False)
+        geom = host.geom
+        state, refs = split_state(host, nh.objective())
+        now = geom.plan
+        before = layout.launch_plan(now.shapes, torch.float32, "cuda", huge_from=layout.HUGE_FROM)
+        bounds = split_bounds(geom, 4)
+        print(f"[split] route {label} float32: buckets {[tuple(x) for x in now.shapes]}, built in "
+              f"{time.perf_counter() - t0:.1f} s; now {now.nr_wide} wide, {now.nr_huge} huge at "
+              f"{now.huge_threads} threads, {now.huge_smem_forward} B a block; before "
+              f"{before.nr_wide} wide, {before.nr_huge} huge at {before.huge_threads} threads, "
+              f"{before.huge_smem_forward} B a block {card}", flush=True)
+        for name, plan in (("before", before), ("now", now), ("now", now), ("before", before)):
+            print(f"[split] route {label} float32 {name}: match; "
+                  f"{split_row(split_times(geom, state, refs, plan, flush), bounds)} {card}",
+                  flush=True)
+        del host, geom, state, refs
+        torch.cuda.empty_cache()
+
+
+def split_cluster(card, flush) -> None:
+    """The cluster body on knapsack48's L2 rows (P = 32,768 over 132
+    columns), both precisions: every (C, threads) of CLUSTER_SWEEP, the
+    card's answer for the clusters it holds at once, and the L2 body beside
+    them, each held to the plain versions bit for bit."""
+    import torch
+    from bdd_tpu_torch.native import NativeHost
+    from bdd_tpu_torch.solver import layout
+
+    nh = NativeHost(knapsack_lp(**L2_ROWS), "input")
+    for dtype in (torch.float32, torch.float64):
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        dt = str(dtype).replace("torch.", "")
+        host = layout.from_native_host(nh, dtype, "cuda", pack=False)
+        geom = host.geom
+        state, refs = split_state(host, nh.objective())
+        bounds = split_bounds(geom, itemsize)
+        plan = geom.plan
+        print(f"[split] cluster knapsack48 L2 {dt}: buckets {[tuple(x) for x in plan.shapes]}; the "
+              f"plan: clusters of {plan.cluster_size}, {plan.cluster_threads} threads, rows "
+              f"{[int(r[7]) for r in plan.cluster_table.tolist()]}, {plan.cluster_smem_forward} / "
+              f"{plan.cluster_smem_backward} B {card}", flush=True)
+        l2 = layout.launch_plan(plan.shapes, dtype, "cuda", huge_body="huge_l2")
+        print(f"[split] cluster knapsack48 L2 {dt} L2 body: match; "
+              f"{split_row(split_times(geom, state, refs, l2, flush), bounds)} {card}", flush=True)
+        for C, threads in CLUSTER_SWEEP:
+            forced = layout.launch_plan(plan.shapes, dtype, "cuda", huge_body="huge_cluster",
+                                        cluster_size=C)
+            if threads:
+                forced = dataclasses.replace(forced, cluster_threads=threads)
+            active = layout.cluster_occupancy(itemsize, C, forced.cluster_threads,
+                                              forced.cluster_smem_forward, "cuda", 0)
+            print(f"[split] cluster knapsack48 L2 {dt} C={C} {forced.cluster_threads} threads "
+                  f"({active} clusters at once, rows "
+                  f"{[int(r[7]) for r in forced.cluster_table.tolist()]}, "
+                  f"{forced.cluster_smem_forward} / {forced.cluster_smem_backward} B): match; "
+                  f"{split_row(split_times(geom, state, refs, forced, flush), bounds)} {card}",
+                  flush=True)
+        del host, geom, state, refs
+        torch.cuda.empty_cache()
+
+
+def huge_split(parts=()) -> None:
+    """``parts`` of SPLIT_PARTS (all where none is named). "variants": every
+    variant held to the twins bit for bit and timed warm and cold beside the
+    byte bound, on knapsack48 (B = 132), both precisions, and, for the staged
+    forward, on the crossover rows of SPLIT_CROSSOVER_P slots. "columns": the
+    crossover between the wide and the huge body at more columns
+    (SPLIT_COLUMNS), with the library as built; "route": :func:`split_route`;
+    "cluster": :func:`split_cluster`."""
     import ctypes
     import torch
     from bdd_tpu_torch import _build
@@ -3445,12 +3634,28 @@ def huge_split() -> None:
     from bdd_tpu_torch.solver import sweep_kernels as sk
     from bdd_tpu_torch.solver import uniform as uf
 
+    parts = tuple(parts) or SPLIT_PARTS
+    if set(parts) - set(SPLIT_PARTS):
+        fail(f"--huge-split takes parts of {SPLIT_PARTS}, not {parts}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the split needs an NVIDIA GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     card = f"[{smi}]"
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    _build.load()
+    if "route" in parts:
+        split_route(card, flush)
+    if "cluster" in parts:
+        split_cluster(card, flush)
+    if "columns" in parts:
+        for P, coef_max in CROSSOVER_ROWS.items():
+            crossover_rows(P, 132, coef_max, card, flush)
+        for P, nr_rows, coef_max in SPLIT_COLUMNS:
+            crossover_rows(P, nr_rows, coef_max, card, flush)
+    if "variants" not in parts:
+        return
     t0 = time.perf_counter()
     built = split_build()
     print(f"[split] built {len(built)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3461,7 +3666,6 @@ def huge_split() -> None:
                   f"{frame} B stack frame", flush=True)
         libs[name] = ctypes.CDLL(path)
         _build._declare(libs[name])
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     layouts = [("knapsack48", knapsack_lp(**HUGE_ROWS), "knapsack48")]
     layouts += [(f"knapsack{P}", knapsack_lp(nr_vars=1056, nr_rows=132, row_len=32,
                                              coef_max=CROSSOVER_ROWS[P]), "crossover")
@@ -3531,8 +3735,6 @@ def huge_split() -> None:
             del host, geom, st, ref_f, ref_b, ref_r
             torch.cuda.empty_cache()
     _build._LIB = None
-    for P, nr_rows, coef_max in SPLIT_COLUMNS:
-        crossover_rows(P, nr_rows, coef_max, card, flush)
 
 
 def main() -> None:
@@ -3745,7 +3947,7 @@ def finish(paths, errs, times) -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:
         sharded_rank(sys.argv[2:])
-    elif sys.argv[1:] == ["--huge-split"]:
-        huge_split()
+    elif sys.argv[1:2] == ["--huge-split"]:
+        huge_split(sys.argv[2:])
     else:
         main()

@@ -72,14 +72,17 @@ def setup(name, dtype, device, iters=3):
     return host, st, dl, dh
 
 
-def launches(narrow=0, wide=0, run=0, run_wide=0, huge=0, run_huge=0, huge_l2=0, run_huge_l2=0):
-    """``sk.LAUNCHES`` after ``narrow`` / ``wide`` / ``huge`` / ``huge_l2``
-    launches of either half-sweep kernel and ``run`` / ``run_wide`` /
-    ``run_huge`` / ``run_huge_l2`` launches of the run-only backward entry."""
+def launches(narrow=0, wide=0, run=0, run_wide=0, huge=0, run_huge=0, huge_l2=0, run_huge_l2=0,
+             huge_cluster=0, run_huge_cluster=0):
+    """``sk.LAUNCHES`` after ``narrow`` / ``wide`` / ``huge`` /
+    ``huge_cluster`` / ``huge_l2`` launches of either half-sweep kernel and
+    ``run`` / ``run_wide`` / ``run_huge`` / ``run_huge_cluster`` /
+    ``run_huge_l2`` launches of the run-only backward entry."""
     out = {k + body: n for k in sk.KERNELS
-           for body, n in (("", narrow), (sk.WIDE, wide), (sk.HUGE, huge), (sk.HUGE_L2, huge_l2))}
+           for body, n in (("", narrow), (sk.WIDE, wide), (sk.HUGE, huge),
+                           (sk.HUGE_CLUSTER, huge_cluster), (sk.HUGE_L2, huge_l2))}
     return {**out, sk.RUN: run, sk.RUN + sk.WIDE: run_wide, sk.RUN + sk.HUGE: run_huge,
-            sk.RUN + sk.HUGE_L2: run_huge_l2}
+            sk.RUN + sk.HUGE_CLUSTER: run_huge_cluster, sk.RUN + sk.HUGE_L2: run_huge_l2}
 
 
 def assert_identical(out, ref):
@@ -279,10 +282,13 @@ HUGE_SHAPES = [(layout.WIDE_P + 1, 3, 3), (16384, 2, 2), (9000, 1, 1), (8200, 6,
 # from the crossover to the widest, odd widths among them
 ROUTED_SHAPES = [(layout.HUGE_FROM, 5, 3), (layout.HUGE_FROM + 3, 2, 2), (4096, 3, 9),
                  (6001, 1, 1), (layout.WIDE_P, 4, 2)]
-# rows past a block's shared memory: the L2 body, its rows in device memory
-# (20,001 slots only in float64; float32 keeps them in shared memory)
-L2_SHAPES = [(30000, 3, 2), (20001, 1, 1)]
-SHAPES += WIDE_SHAPES + HUGE_SHAPES + ROUTED_SHAPES + L2_SHAPES
+# rows past a block's shared memory: the cluster body, each block of a
+# cluster a share of them (20,001 slots only in float64; float32 keeps them
+# in one block's shared memory); ragged against every cluster size
+CLUSTER_SHAPES = [(30000, 3, 2), (20001, 1, 1)]
+# rows past any cluster's: the L2 body, its rows in device memory
+L2_SHAPES = [(70000, 2, 1)]
+SHAPES += WIDE_SHAPES + HUGE_SHAPES + ROUTED_SHAPES + CLUSTER_SHAPES + L2_SHAPES
 
 
 @pytest.mark.parametrize("precision", ["float", "double"])
@@ -431,7 +437,7 @@ def test_mixed_layout_counts_a_narrow_and_a_wide_launch(cuda_device, precision):
 @pytest.mark.parametrize("zero_costs", [False, True], ids=["random", "ties-at-zero"])
 @pytest.mark.parametrize("shape", [(8, 7, 40), (64, 7, 9), (256, 5, 8), (33, 40, 7),
                                    (2048, 3, 2), (8200, 5, 3), (layout.HUGE_FROM + 3, 4, 3),
-                                   (20001, 3, 2)],
+                                   (20001, 3, 2), (30000, 3, 2)],
                          ids=lambda s: "P%d-H%d-B%d" % s)
 def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_costs, precision):
     """Outside what a solve produces: -inf deltas (inf - inf, so NaN costs
@@ -493,7 +499,8 @@ def test_one_bucket_run_equals_plain_run(cuda_device, shape, precision):
     sk.reset_launch_counts()
     out = sk.bucket_backward_run_cuda(g, lo.view(g.H, g.B), hi.view(g.H, g.B))
     torch.cuda.synchronize()
-    body = {"narrow": "", "wide": sk.WIDE, "huge": sk.HUGE, "huge_l2": sk.HUGE_L2}[
+    body = {"narrow": "", "wide": sk.WIDE, "huge": sk.HUGE, "huge_cluster": sk.HUGE_CLUSTER,
+            "huge_l2": sk.HUGE_L2}[
         layout.body_of(shape[0], 4 if precision == "float" else 8, shape[2])]
     assert sk.LAUNCHES == {**launches(), sk.RUN + body: 1}
     assert_same_bits([out], [uf.bucket_backward_run(g, lo.view(g.H, g.B), hi.view(g.H, g.B))])
@@ -520,7 +527,8 @@ def test_fused_run_over_all_shapes_equals_plain_run(cuda_device, precision, stag
     sk.reset_launch_counts()
     before = dict(uf.PLAIN_RUN_CALLS)
     assert_same_bits([sk.backward_run_cuda(geom, lo, hi)], [ref])
-    assert sk.LAUNCHES == launches(run=1, run_wide=1, run_huge=1, run_huge_l2=1)
+    assert sk.LAUNCHES == launches(run=1, run_wide=1, run_huge=1, run_huge_cluster=1,
+                                   run_huge_l2=1)
     assert uf.PLAIN_RUN_CALLS == before
 
 
@@ -547,32 +555,42 @@ def test_wide_body_variants_equal_twins(cuda_device, precision, warps, stages):
 
 # ------------------------------------------------------------- huge buckets
 def test_plan_puts_huge_buckets_in_a_third_table():
-    shapes = [(2, 3, 40), (16384, 2, 3), (128, 5, 8), (8200, 4, 5), (30000, 2, 3)]
+    shapes = [(2, 3, 40), (16384, 2, 3), (128, 5, 8), (8200, 4, 5), (30000, 2, 3),
+              (70000, 2, 2)]
     host, _ = synthetic_host(shapes, torch.float32, "cpu")
     plan = host.geom.plan
     assert [tuple(r[:3]) for r in plan.huge_table.tolist()] == [shapes[1], shapes[3]]
-    assert [tuple(r[:3]) for r in plan.l2_table.tolist()] == [shapes[4]]
-    assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.nr_l2) == (1, 1, 2, 1)
+    assert [tuple(r[:3]) for r in plan.cluster_table.tolist()] == [shapes[4]]
+    assert [tuple(r[:3]) for r in plan.l2_table.tolist()] == [shapes[5]]
+    assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.nr_cluster, plan.nr_l2) == (
+        1, 1, 2, 1, 1)
     # a block a column; the huge table's last column: the rows the backward
     # keeps in shared memory (two: one block an SM)
     assert plan.huge_blocks == 8 and [r[3] for r in plan.huge_table.tolist()] == [0, 3]
-    assert plan.l2_blocks == 3 and [r[3] for r in plan.l2_table.tolist()] == [0]
+    assert plan.l2_blocks == 2 and [r[3] for r in plan.l2_table.tolist()] == [0]
     assert [r[7] for r in plan.huge_table.tolist()] == [2, 2]
     assert plan.huge_threads == plan.l2_threads == layout.HUGE_THREADS == 1024
     assert plan.huge_pmax == 16384
+    # a cluster of C blocks a column (three columns over 132 SMs: the largest
+    # cluster), two backward rows
+    assert plan.cluster_size == 8 and plan.cluster_blocks == 8 * 3
+    assert [r[3] for r in plan.cluster_table.tolist()] == [0]
+    assert [r[7] for r in plan.cluster_table.tolist()] == [2]
+    assert plan.cluster_pmax == 30000 and plan.cluster_threads == 1024
     # the L2 table's last column: the bucket's offset into the scratch rows,
-    # which only the L2 body's buckets get
+    # which only the L2 body's buckets get (not the cluster body's)
     assert [r[7] for r in plan.l2_table.tolist()] == [0]
-    assert plan.huge_scratch_values == 2 * 30000 * 3
+    assert plan.huge_scratch_values == 2 * 70000 * 2
     # the rows belong to the layout, allocated on the card only
     assert host.geom.huge_scratch is None
     assert layout.huge_scratch(plan, torch.float32, "cpu") is None
     assert layout.arc_bytes(8192) == 2 and layout.arc_bytes(8193) == 4
     assert layout.record_bytes(8193) == 8 * 8193
     # the bytes a solve works in, the number a layout too large for the card names
-    E = 3 * 40 + 2 * 3 + 5 * 8 + 4 * 5 + 2 * 3
-    N = 3 * 2 * 40 + 2 * 16384 * 3 + 5 * 128 * 8 + 4 * 8200 * 5 + 2 * 30000 * 3
-    scratch = 2 * 30000 * 3
+    E = 3 * 40 + 2 * 3 + 5 * 8 + 4 * 5 + 2 * 3 + 2 * 2
+    N = (3 * 2 * 40 + 2 * 16384 * 3 + 5 * 128 * 8 + 4 * 8200 * 5 + 2 * 30000 * 3
+         + 2 * 70000 * 2)
+    scratch = 2 * 70000 * 2
     assert layout.solve_bytes(plan.shapes, 4) == plan.arc_bytes + E * (9 * 4 + 24) + (
         2 * N + scratch) * 4
 
@@ -581,17 +599,33 @@ def test_plan_puts_huge_buckets_in_a_third_table():
     (2, 8, "narrow"), (layout.NARROW_P, 8, "narrow"), (layout.NARROW_P + 1, 8, "wide"),
     (layout.HUGE_FROM - 1, 8, "wide"), (layout.HUGE_FROM, 8, "huge"), (layout.WIDE_P, 4, "huge"),
     (layout.WIDE_P + 1, 8, "huge"), (16384, 8, "huge"), (19316, 8, "huge"),
-    (19317, 8, "huge_l2"), (29016, 4, "huge"), (29017, 4, "huge_l2")])
+    (19317, 8, "huge_cluster"), (29016, 4, "huge"), (29017, 4, "huge_cluster"),
+    (32768, 4, "huge_cluster"), (32768, 8, "huge_cluster"),
+    (layout.CLUSTER_MAX_P, 4, "huge_cluster"), (layout.CLUSTER_MAX_P, 8, "huge_cluster"),
+    (layout.CLUSTER_MAX_P + 1, 4, "huge_l2"), (layout.CLUSTER_MAX_P + 1, 8, "huge_l2")])
 def test_plan_sends_each_width_to_its_body(P, itemsize, body):
     """narrow, wide, routed two-byte huge, huge (its rows in a block's shared
-    memory), L2: one table each, and the records and padding follow the
-    width alone, whichever body runs it."""
+    memory), cluster (its rows in a cluster's: past a block's, within the
+    slots a cluster's child code holds), L2 (the rest): one table each, and
+    the records and padding follow the width alone, whichever body runs
+    it."""
     dtype = torch.float32 if itemsize == 4 else torch.float64
     assert layout.body_of(P, itemsize) == body
-    assert layout.huge_fits(P, itemsize) == (body != "huge_l2")
+    assert layout.huge_fits(P, itemsize) == (body not in ("huge_cluster", "huge_l2"))
+    assert layout.cluster_fits(P, itemsize) == (body != "huge_l2")
     plan = layout.launch_plan([(P, 3, 5)], dtype, "cpu")
-    assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.nr_l2) == tuple(
-        int(body == b) for b in ("narrow", "wide", "huge", "huge_l2"))
+    assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.nr_cluster, plan.nr_l2) == tuple(
+        int(body == b) for b in ("narrow", "wide", "huge", "huge_cluster", "huge_l2"))
+    # no bucket but the L2 body's has scratch rows
+    assert plan.huge_scratch_values == (2 * P * 5 if body == "huge_l2" else 0)
+    if body == "huge_cluster":
+        assert plan.cluster_pmax == P and plan.cluster_blocks == 5 * plan.cluster_size
+        assert plan.cluster_size in layout.CLUSTER_SIZES
+        assert max(plan.cluster_smem_forward, plan.cluster_smem_backward) <= (
+            layout.MAX_DYNAMIC_SMEM)
+        # the L2 body where the plan is told so
+        forced = layout.launch_plan([(P, 3, 5)], dtype, "cpu", huge_body="huge_l2")
+        assert (forced.nr_cluster, forced.nr_l2) == (0, 1)
     assert layout.arc_bytes(P) == (1 if P <= layout.NARROW_P else 2 if P <= layout.WIDE_P else 4)
     assert layout.lane_pad(132, P) == (132 if P > layout.WIDE_P else 256)
     if body == "huge":
@@ -686,6 +720,111 @@ def test_huge_plan_shared_memory_is_the_kernels(itemsize):
     assert 16 * (plan.huge_smem_backward + layout.BLOCK_SMEM_RESERVED) <= layout.SM_SMEM
 
 
+# shapes that the route sends to the huge body one by one (float32, below
+# HUGE_FROM_F32_MANY slots, at most HUGE_F32_BLOCKS_SM columns an SM each)
+# but whose huge table as a whole would break its rule: 2,000 columns (16 an
+# SM: blocks of 64 threads), and 200 beside knapsack48's rows (whose 131 KB
+# block lets one block an SM reside)
+ROUTE_TABLES = {
+    "2000-columns": ([(1024, 32, 500), (1536, 40, 500), (1280, 24, 500), (1100, 36, 500)],
+                     ["wide"] * 4),
+    "beside-knapsack48": ([(1024, 32, 200), (16384, 48, 132)], ["wide", "huge"]),
+    "few-columns": ([(1024, 3, 5), (16384, 2, 2)], ["huge", "huge"]),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_TABLES))
+def test_huge_table_holds_the_route_as_a_whole(case):
+    """One launch runs the huge table at one thread count and one block's
+    shared memory, so the route's float32 rule (HUGE_F32_BLOCKS_SM columns an
+    SM) holds for the table as a whole: a routed float32 bucket below
+    HUGE_FROM_F32_MANY slots goes back to the wide body where the table's
+    columns are more an SM than that, or than its widest block lets reside.
+    float64 buckets stay, and a forced ``huge_from`` still replaces the
+    route (where every one of these ran before)."""
+    shapes, bodies = ROUTE_TABLES[case]
+    assert all(layout.body_of(P, 4, B) == "huge" for P, _, B in shapes)
+    plan = layout.launch_plan(shapes, torch.float32, "cpu")
+    assert [tuple(r[:3]) for r in plan.wide_table.tolist()] == [
+        s for s, b in zip(shapes, bodies) if b == "wide"]
+    assert [tuple(r[:3]) for r in plan.huge_table.tolist()] == [
+        s for s, b in zip(shapes, bodies) if b == "huge"]
+    cols = sum(B for _, _, B in shapes if _ < layout.HUGE_FROM_F32_MANY)
+    if any(b == "huge" and P < layout.HUGE_FROM_F32_MANY for (P, _, _), b in zip(shapes, bodies)):
+        assert plan.huge_threads >= layout.HUGE_THREADS // layout.HUGE_F32_BLOCKS_SM
+        assert -(-plan.huge_blocks // layout.SM_COUNT) * (
+            plan.huge_smem_forward + layout.BLOCK_SMEM_RESERVED) <= layout.SM_SMEM
+    if plan.nr_huge:
+        assert plan.huge_smem_forward == max(layout.huge_smem_bytes(P, 4)
+                                             for (P, _, _), b in zip(shapes, bodies) if b == "huge")
+    forced = layout.launch_plan(shapes, torch.float32, "cpu", huge_from=layout.HUGE_FROM)
+    assert (forced.nr_wide, forced.nr_huge) == (0, len(shapes))
+    if case == "2000-columns":  # the launch the four buckets got before
+        assert cols == 2000 and forced.huge_threads == 64
+    f64 = layout.launch_plan(shapes, torch.float64, "cpu")
+    assert (f64.nr_wide, f64.nr_huge) == (0, len(shapes))
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_cluster_plan_shared_memory_is_the_kernels(itemsize):
+    """The shared memory the plan gives a block of the cluster body is what
+    ``uniform_sweep.cu`` carves: [row of its share S = ceil(P / C) | second
+    row (backward, two rows) | the share's slot codes, four bytes a slot | 64
+    values of partials | 16 values of the cluster's pairs | two ring slots of
+    HUGE_SCALARS values], each row padded to 16 bytes. A column is C blocks,
+    C of CLUSTER_SIZES; the threads a block follow the blocks an SM holds,
+    and the C is the one of the fewest waves of clusters times slots a
+    thread."""
+    dtype = torch.float32 if itemsize == 4 else torch.float64
+
+    def carved(P, C, two_rows):
+        S = -(-P // C)
+        row = -(-S * itemsize // 16) * 16
+        return (row * (1 + two_rows) + -(-4 * S // 16) * 16
+                + (64 + 16 + 2 * layout.HUGE_SCALARS) * itemsize)
+
+    def rows(plan):
+        return [int(r[7]) for r in plan.cluster_table.tolist()]
+
+    # knapsack48's L2 rows (P = 32,768 over 132 columns): a block of a
+    # cluster of two holds 16,384 slots, one block an SM at 1,024 threads
+    plan = layout.launch_plan([(32768, 48, 132)], dtype, "cpu")
+    assert (plan.cluster_size, plan.cluster_threads, plan.cluster_blocks) == (2, 1024, 264)
+    assert plan.cluster_smem_forward == carved(32768, 2, False) == layout.cluster_smem_bytes(
+        32768, 2, itemsize)
+    two = itemsize == 4  # float64: two rows of 16,384 values do not fit a block
+    assert rows(plan) == [1 + two]
+    assert plan.cluster_smem_backward == carved(32768, 2, two)
+    # every cluster size, forced: the block's share and the blocks an SM
+    for C, threads in ((2, 1024), (4, 1024 // 3 // 32 * 32 if two else 512),
+                       (8, 1024 // 6 // 32 * 32 if two else 256)):
+        plan = layout.launch_plan([(32768, 48, 132)], dtype, "cpu", cluster_size=C)
+        assert (plan.cluster_size, plan.cluster_blocks) == (C, 132 * C)
+        assert plan.cluster_smem_forward == carved(32768, C, False)
+        resident = min(C, layout.SM_SMEM // (plan.cluster_smem_forward
+                                             + layout.BLOCK_SMEM_RESERVED))
+        assert plan.cluster_threads == threads == 1024 // resident // 32 * 32
+        assert plan.cluster_smem_backward == carved(32768, C, rows(plan)[0] == 2)
+        assert resident * (plan.cluster_smem_backward + layout.BLOCK_SMEM_RESERVED) <= (
+            layout.SM_SMEM)
+    # one column and a ragged width: the largest cluster, its last block
+    # holding fewer slots; two buckets in one table share the widest's block
+    plan = layout.launch_plan([(30001, 2, 1), (20001, 3, 2)], dtype, "cpu",
+                              huge_body="huge_cluster")
+    assert (plan.nr_cluster, plan.cluster_size, plan.cluster_threads) == (2, 8, 1024)
+    assert [r[3] for r in plan.cluster_table.tolist()] == [0, 8]
+    assert plan.cluster_blocks == 8 * 3 and plan.cluster_pmax == 30001
+    assert plan.cluster_smem_forward == carved(30001, 8, False)
+    assert rows(plan) == [2, 2] and plan.cluster_smem_backward == carved(30001, 8, True)
+    # a width no block of the largest cluster holds is refused
+    with pytest.raises(ValueError, match="no cluster"):
+        layout._cluster_plan([(layout.CLUSTER_MAX_P + 1, 2, 1)], itemsize, 132, "cpu", None)
+    # off the card, the clusters held at once: the blocks an SM holds by
+    # shared memory and threads, over the SMs
+    assert layout.cluster_occupancy(itemsize, 2, 1024, 131000, "cpu", 132) == 66
+    assert layout.cluster_occupancy(itemsize, 4, 256, 60000, "cpu", 132) == 99
+
+
 def test_layout_past_the_cards_memory_is_refused_naming_the_bytes(monkeypatch):
     """The one limit left on a width is device memory: a layout that does not
     fit the card's free memory is refused before anything is uploaded, with
@@ -777,20 +916,29 @@ def test_mixed_layout_counts_three_launches(cuda_device, precision):
 @pytest.mark.parametrize("precision", ["float", "double"])
 @pytest.mark.parametrize("threads", [32, 256, 512, 1024])
 def test_huge_body_thread_counts_equal_twins(cuda_device, precision, threads):
-    """Both huge forms at forced threads a block (one warp up to the largest
-    block): both half-sweeps and the run against their plain versions. The
-    shared-memory body over every wide and huge shape (the wide ones routed
-    to it, on their two-byte records), the L2 body over the huge shapes."""
+    """The three huge forms at forced threads a block (one warp up to the
+    largest block): both half-sweeps and the run against their plain
+    versions. The shared-memory body over every wide and huge shape (the
+    wide ones routed to it, on their two-byte records), the L2 body over the
+    huge, cluster and L2 shapes, the cluster body over the huge and cluster
+    shapes at every cluster size (ragged against each)."""
     dtype = torch.float32 if precision == "float" else torch.float64
     fits = WIDE_SHAPES + HUGE_SHAPES + ROUTED_SHAPES
+    past = HUGE_SHAPES + CLUSTER_SHAPES
     for shapes, force in ((fits, {"huge_from": layout.NARROW_P + 1}),
-                          (HUGE_SHAPES + L2_SHAPES, {"huge_body": "huge_l2"})):
+                          (past + L2_SHAPES, {"huge_body": "huge_l2"}),
+                          *((past, {"huge_body": "huge_cluster", "cluster_size": C})
+                            for C in layout.CLUSTER_SIZES)):
         host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=13)
         geom = host.geom
         plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, **force)
-        if "huge_body" in force:
-            assert plan.nr_huge == 0 and plan.nr_l2 == len(shapes)
+        if force.get("huge_body") == "huge_l2":
+            assert plan.nr_huge == plan.nr_cluster == 0 and plan.nr_l2 == len(shapes)
             plan = dataclasses.replace(plan, l2_threads=threads)
+        elif "huge_body" in force:
+            assert plan.nr_huge == plan.nr_l2 == 0 and plan.nr_cluster == len(shapes)
+            assert plan.cluster_size == force["cluster_size"]
+            plan = dataclasses.replace(plan, cluster_threads=threads)
         else:
             assert plan.nr_huge == len(shapes) and plan.nr_wide == plan.nr_l2 == 0
             plan = dataclasses.replace(plan, huge_threads=threads)
@@ -812,51 +960,62 @@ def test_huge_body_thread_counts_equal_twins(cuda_device, precision, threads):
 @pytest.mark.parametrize("precision", ["float", "double"])
 def test_huge_body_shared_memory_rows_equal_twins(cuda_device, precision):
     """The shared-memory huge body with its backward on one row and on two in
-    one launch, as the plan's fit gives them: over the huge, routed and L2
-    shapes, one row where two do not fit a block (float32 at 20,001 slots,
-    float64 at 16,384), and the L2 body beside them."""
+    one launch, as the plan's fit gives them: over the huge, routed, cluster
+    and L2 shapes, one row where two do not fit a block (float32 at 20,001
+    slots, float64 at 16,384), and the cluster and L2 bodies beside them.
+    Then the cluster body in clusters of two, where a block's share of the
+    wider bucket fits one row only and the narrower one's two (float32 40,000
+    and 30,000 slots, float64 30,000 and 20,001)."""
     dtype = torch.float32 if precision == "float" else torch.float64
-    host, (lo, hi, fr, dl, dh) = synthetic_host(HUGE_SHAPES + ROUTED_SHAPES + L2_SHAPES, dtype,
-                                                cuda_device, seed=17)
-    geom = host.geom
-    plan = geom.plan
-    assert sorted(set(int(r[7]) for r in plan.huge_table.tolist())) == [1, 2]
-    assert plan.nr_l2 == (1 if precision == "float" else 2)
-    for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
-                         ("uniform_backward", uf.bucket_backward_iteration)):
-        launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
+    two_row_shapes = [(40000, 2, 2), (30000, 3, 1)] if precision == "float" else [
+        (30000, 2, 2), (20001, 3, 1)]
+    for shapes, force in ((HUGE_SHAPES + ROUTED_SHAPES + CLUSTER_SHAPES + L2_SHAPES, {}),
+                          (two_row_shapes, {"cluster_size": 2})):
+        host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=17)
+        geom = host.geom
+        plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, **force)
+        if force:
+            assert plan.nr_cluster == 2 and plan.cluster_size == 2
+            assert [int(r[7]) for r in plan.cluster_table.tolist()] == [1, 2]
+        else:
+            assert sorted(set(int(r[7]) for r in plan.huge_table.tolist())) == [1, 2]
+            assert plan.nr_cluster == (1 if precision == "float" else 2) and plan.nr_l2 == 1
+        for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
+                             ("uniform_backward", uf.bucket_backward_iteration)):
+            launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
+            launch()
+            torch.cuda.synchronize()
+            assert_same_bits(out, twins_bucket_by_bucket(twin, geom, lo, hi, fr, 0.5, dl, dh))
+        launch, out = sk.prepare_run_launch(geom, lo, hi, plan)
         launch()
         torch.cuda.synchronize()
-        assert_same_bits(out, twins_bucket_by_bucket(twin, geom, lo, hi, fr, 0.5, dl, dh))
-    launch, out = sk.prepare_run_launch(geom, lo, hi, plan)
-    launch()
-    torch.cuda.synchronize()
-    assert_same_bits([out], [geom.flatten_nodes([
-        uf.bucket_backward_run(g, a, b)
-        for g, a, b in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])])
+        assert_same_bits([out], [geom.flatten_nodes([
+            uf.bucket_backward_run(g, a, b)
+            for g, a, b in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["float", "double"])
 def test_mixed_layout_counts_one_launch_per_body(cuda_device, precision):
-    """Narrow, wide, routed, huge and L2 buckets in one layout: four launches
-    per half-sweep and per run, one per body, the routed and the huge bucket
-    in one; against the twins bucket by bucket, and no plain version on the
-    card."""
+    """Narrow, wide, routed, huge, cluster and L2 buckets in one layout: five
+    launches per half-sweep and per run, one per body, the routed and the
+    huge bucket in one; against the twins bucket by bucket, and no plain
+    version on the card."""
     dtype = torch.float32 if precision == "float" else torch.float64
-    shapes = [(2, 9, 70), (layout.HUGE_FROM, 3, 5), (128, 5, 9), (16384, 2, 2), (30000, 2, 2)]
+    shapes = [(2, 9, 70), (layout.HUGE_FROM, 3, 5), (128, 5, 9), (16384, 2, 2), (30000, 2, 2),
+              (70000, 2, 1)]
     host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=5)
     geom = host.geom
-    assert (geom.plan.nr_huge, geom.plan.nr_l2) == (2, 1)
-    assert geom.huge_scratch.numel() == 2 * 30000 * 2 * lo.element_size()
+    assert (geom.plan.nr_huge, geom.plan.nr_cluster, geom.plan.nr_l2) == (2, 1, 1)
+    assert geom.huge_scratch.numel() == 2 * 70000 * 1 * lo.element_size()
     sk.reset_launch_counts()
     calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
     out_f = sk.forward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)
     out_b = sk.backward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)
     run = sk.backward_run_cuda(geom, lo, hi)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == launches(narrow=1, wide=1, huge=1, huge_l2=1, run=1, run_wide=1,
-                                   run_huge=1, run_huge_l2=1)
+    assert sk.LAUNCHES == launches(narrow=1, wide=1, huge=1, huge_cluster=1, huge_l2=1, run=1,
+                                   run_wide=1, run_huge=1, run_huge_cluster=1, run_huge_l2=1)
     assert {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS} == calls
     assert_same_bits(out_f, twins_bucket_by_bucket(
         uf.bucket_forward_iteration, geom, lo, hi, fr, 0.5, dl, dh))

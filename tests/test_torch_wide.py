@@ -231,21 +231,26 @@ def _jax_bucket(b):
         jnp.asarray(b["alpha"]), None if b["root_mask"] is None else jnp.asarray(b["root_mask"]))
 
 
-@pytest.mark.parametrize("P", [layout.WIDE_P + 1, layout.HUGE_FROM],
-                         ids=["four-byte", "routed-two-byte"])
+@pytest.mark.parametrize("P", [layout.WIDE_P + 1, layout.HUGE_FROM, 19317],
+                         ids=["four-byte", "routed-two-byte", "cluster"])
 def test_huge_bucket_matches_jax_f64(P):
-    """A synthetic bucket the huge body takes (a random valid arc set: kinds,
-    slots and flags, not a BDD), past the wide records' 8,192 slots or a wide
-    one the plan routes there, carried across with ``from_jax_arrays`` and
-    held to the JAX package's XLA bucket functions in float64 (atol 1e-12):
-    forward and backward half-sweeps, the backward run and the
-    min-marginals. H and B are small because the XLA functions gather with
-    one-hot [P, P, B] masks."""
+    """A synthetic bucket a huge form takes (a random valid arc set: kinds,
+    slots and flags, not a BDD), past the wide records' 8,192 slots, a wide
+    one the plan routes there, or one past a block's shared memory that the
+    cluster body takes (the narrowest in float64), carried across with
+    ``from_jax_arrays`` and held to the JAX package's XLA bucket functions in
+    float64 (atol 1e-12): forward and backward half-sweeps, the backward run
+    and the min-marginals. H and B are small because the XLA functions
+    gather with one-hot [P, P, B] masks (at 19,317 slots about 6 GB and 20
+    s on the CPU)."""
     H, B = 2, 1
     rng = np.random.RandomState(7 if P > layout.WIDE_P else 11)
     b = random_bucket(P, H, B, rng, packed=False)
     b["layer_valid"][:] = True
     b["node_valid"][0, 0] = True
+    # the root's hi arc ends at the top terminal: a finite cost-to-terminal
+    # whatever the other draws, so the comparison below is never all-inf
+    b["hi_kind"][0, 0] = layout.ARC_TOP
     g = _jax_bucket(b)
     host = uf.UniformHost(uf.UniformGeom((g,), jnp.ones(4, jnp.int32)), (b["bdd_of_col"],),
                           (b["depths"],), 4, 4, 1, (b["layer_bdd"],))
@@ -255,7 +260,10 @@ def test_huge_bucket_matches_jax_f64(P):
     port, ps = layout.from_jax_arrays(host, state, dtype=torch.float64)
     pg = port.geom.buckets[0]
     assert layout.arc_bytes(pg.P) == (4 if P > layout.WIDE_P else 2)
-    assert port.geom.plan.nr_huge == 1 and port.geom.plan.nr_wide == 0
+    plan = port.geom.plan
+    body = "huge_cluster" if P > 19316 else "huge"
+    assert layout.body_of(P, 8, B) == body and plan.nr_wide == plan.nr_l2 == 0
+    assert (plan.nr_huge, plan.nr_cluster) == ((1, 0) if body == "huge" else (0, 1))
     dl, dh = rng.randn(H, B), rng.randn(H, B)
     dl[0, 0] = np.inf
     tl, th = torch.from_numpy(dl), torch.from_numpy(dh)
