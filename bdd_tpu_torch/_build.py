@@ -160,7 +160,8 @@ def _declare(lib: ctypes.CDLL) -> None:
             f.argtypes, f.restype = huge, i
     # the cluster body's entries: (table, nr_buckets, nr_blocks, threads,
     #  cluster, pmax, smem_bytes, arcs, ..., frontier out, stream), and the
-    #  card's answer for its clusters: (cluster, threads, smem_bytes, out)
+    #  card's answer for its clusters: (cluster, threads, smem_bytes, pmax,
+    #  out)
     cluster = [vp, i, i, i, i, i, i] + [vp] * 7 + [d] + [vp] * 6
     for suffix in ("f32", "f64"):
         for name in ("uniform_forward_huge_cluster", "uniform_backward_huge_cluster",
@@ -168,7 +169,7 @@ def _declare(lib: ctypes.CDLL) -> None:
             f = getattr(lib, f"{name}_{suffix}")
             f.argtypes, f.restype = cluster, i
         f = getattr(lib, f"uniform_huge_cluster_occupancy_{suffix}")
-        f.argtypes, f.restype = [i, i, i, ctypes.POINTER(ctypes.c_int)], i
+        f.argtypes, f.restype = [i, i, i, i, ctypes.POINTER(ctypes.c_int)], i
 
 
 def load() -> ctypes.CDLL:

@@ -845,7 +845,7 @@ int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int
 //    in float64 (layout.huge_fits);
 //  * the CLUSTER body (sweep_huge_cluster_kernel, "_huge_cluster", its own
 //    section below): wider buckets whose rows fit the shared memory of a
-//    cluster of 2, 4 or 8 blocks, each block a share of the row
+//    cluster of 2, 4, 8 or 16 blocks, each block a share of the row
 //    (layout.cluster_fits);
 //  * the L2 body (sweep_huge_l2_kernel, "_huge_l2"), for what no cluster
 //    holds (and where the plan is told so): its rows in device memory. Its
@@ -1375,8 +1375,9 @@ int launch_huge(const void* table, int nr_buckets, int nr_blocks, int threads, i
 
 // ---------------------------------------- huge buckets: the cluster body
 // Rows past a block's shared memory (layout.body_of: "huge_cluster", from
-// 29,017 slots in float32 and 19,317 in float64 up to CL_MAX_P) run a fifth
-// launch: a CLUSTER of C blocks (2, 4 or 8; thread block clusters of sm_90)
+// 29,017 slots in float32 and 19,317 in float64 up to what a cluster of 16
+// holds: 309,312 / 231,552 slots) run a fifth launch: a CLUSTER of C blocks
+// (2, 4, 8 or 16; thread block clusters of sm_90, 16 a non-portable size)
 // a column. Block r of the cluster keeps slots [r S, (r + 1) S), S =
 // ceil(P / C), of the column's rows in its shared memory, with their slot
 // codes; every access to a slot another block keeps goes to that block's
@@ -1413,21 +1414,54 @@ int launch_huge(const void* table, int nr_buckets, int nr_blocks, int threads, i
 // peer that has not started. Every hop ends with a cluster barrier, so no
 // block leaves while a peer may still read or write its shared memory.
 //
-// Slot codes are four bytes: two 16-bit children (a slot, CL_ZERO for 0,
-// CL_INF for +inf), or CL_NONE for a slot that holds no node (its children
-// are never looked at, and cost no load). A child's block and its place
-// there come from its slot by a multiply (slot / S as __umulhi by
-// ceil(2^32 / S): exact for slots and S below 2^16).
+// Slot codes (ClCode<W>) hold both children of a slot (a slot, ZERO for 0,
+// INF for +inf) or NONE for a slot that holds no node (its children are
+// never looked at, and cost no load). Two widths, one a launch, by the
+// table's widest bucket: four bytes (two 16-bit children) where every slot
+// is below CL_MAX_P, the form of the rows of 32,768 slots; eight bytes (two
+// 32-bit children) past that.
+// A child's block and its place there come from its slot by a multiply
+// (Share::block). magic = ceil(2^32 / S) (S >= 2: a cluster bucket is wider
+// than WIDE_P and C <= 16, so S > 512), magic * S = 2^32 + e with 0 <= e <
+// S, so slot * magic / 2^32 = slot / S + slot * e / (S 2^32), and __umulhi
+// takes the floor of that. Four-byte codes: slots and S below 2^16, so
+// slot * e < 2^32 and the excess is below 1 / S, too little to carry
+// slot / S past the next integer: the floor is slot / S. Eight-byte codes:
+// slots below 2^28 (the record's slot field), the excess below slot / 2^32
+// < 1, so the floor is slot / S or one more, and one multiply and compare
+// takes the one back: exact for every slot the record holds.
 // Ragged rows: P need not be a multiple of C; the last blocks hold fewer
 // slots (or none) and take part in every barrier. A child slot outside the
 // bucket costs 0, and BOT +inf, as in the twins and the L2 body.
 // Bound: bytes, as the other huge forms; a block moves its share of the
 // column's record, rows and layer values.
-constexpr int CLUSTER_MAX = 8;           // portable cluster sizes: 2, 4, 8
-constexpr unsigned CL_INF = 0xffffu;     // child code: +inf (BOT)
-constexpr unsigned CL_ZERO = 0xfffeu;    // child code: 0 (TOP, or a slot outside the bucket)
-constexpr unsigned CL_NONE = 0xfffdu;    // code of a slot that holds no node
-constexpr int CL_MAX_P = (int)CL_NONE;   // a child code holds slots below this
+constexpr int CLUSTER_MAX = 16;  // cluster sizes 2, 4, 8 (portable) and 16 (non-portable)
+
+template <typename W>
+struct ClCode;
+template <>
+struct ClCode<unsigned> {  // two 16-bit children
+  static constexpr unsigned INF = 0xffffu;   // child code: +inf (BOT)
+  static constexpr unsigned ZERO = 0xfffeu;  // child code: 0 (TOP, or a slot outside the bucket)
+  static constexpr unsigned NONE = 0xfffdu;  // code of a slot that holds no node
+  __device__ static __forceinline__ unsigned lo(unsigned c) { return c & 0xffffu; }
+  __device__ static __forceinline__ unsigned hi(unsigned c) { return c >> 16; }
+  __device__ static __forceinline__ unsigned pack(unsigned l, unsigned r) { return l | (r << 16); }
+};
+template <>
+struct ClCode<unsigned long long> {  // two 32-bit children
+  static constexpr unsigned INF = 0xffffffffu;
+  static constexpr unsigned ZERO = 0xfffffffeu;
+  static constexpr unsigned NONE = 0xfffffffdu;
+  __device__ static __forceinline__ unsigned lo(unsigned long long c) { return (unsigned)c; }
+  __device__ static __forceinline__ unsigned hi(unsigned long long c) {
+    return (unsigned)(c >> 32);
+  }
+  __device__ static __forceinline__ unsigned long long pack(unsigned l, unsigned r) {
+    return (unsigned long long)l | ((unsigned long long)r << 32);
+  }
+};
+constexpr int CL_MAX_P = (int)ClCode<unsigned>::NONE;  // four-byte codes hold slots below this
 
 __device__ __forceinline__ unsigned cluster_rank() {
   unsigned r;
@@ -1501,38 +1535,49 @@ __device__ __forceinline__ void red_min_cluster(uint32_t a, unsigned long long v
   }
 }
 
-// where a slot lies in the cluster: block slot / S, place slot % S
+// where a slot lies in the cluster: block slot / S, place slot % S (W: the
+// launch's slot code, whose width bounds the slots; see above)
+template <typename W>
 struct Share {
   unsigned S, magic;  // magic = ceil(2^32 / S)
-  __device__ __forceinline__ uint32_t at(uint32_t row, unsigned slot, unsigned size) const {
+  __device__ __forceinline__ unsigned block(unsigned slot) const {
     const unsigned q = __umulhi(slot, magic);
+    if constexpr (sizeof(W) == 8) return q * S > slot ? q - 1u : q;
+    return q;
+  }
+  __device__ __forceinline__ uint32_t at(uint32_t row, unsigned slot, unsigned size) const {
+    const unsigned q = block(slot);
     return cluster_map(row + (slot - q * S) * size, q);
   }
 };
 
+template <typename W>
 __device__ __forceinline__ unsigned cl_child(unsigned w, unsigned P) {
+  using CC = ClCode<W>;
   const unsigned kind = w & 3u, slot = (w >> 2) & HUGE_SLOT_MASK;
-  if (kind == ARC_INTERNAL) return slot < P ? slot : CL_ZERO;
-  return kind == ARC_TOP ? CL_ZERO : CL_INF;
+  if (kind == ARC_INTERNAL) return slot < P ? slot : CC::ZERO;
+  return kind == ARC_TOP ? CC::ZERO : CC::INF;
 }
-__device__ __forceinline__ unsigned cl_code(unsigned l, unsigned r, unsigned P) {
-  return Arc<uint32_t>::flag(l) ? cl_child(l, P) | (cl_child(r, P) << 16) : CL_NONE;
+template <typename W>
+__device__ __forceinline__ W cl_code(unsigned l, unsigned r, unsigned P) {
+  using CC = ClCode<W>;
+  return Arc<uint32_t>::flag(l) ? CC::pack(cl_child<W>(l, P), cl_child<W>(r, P)) : W(CC::NONE);
 }
 // the cost of child `c` of a node from the cluster's row at shared address
 // `row` (`has`: false past the last hop)
-template <typename T>
-__device__ __forceinline__ T cl_cost(unsigned c, uint32_t row, const Share& sh, bool has) {
-  if (c == CL_INF) return inf_v<T>();
-  if (c == CL_ZERO) return T(0);
+template <typename T, typename W>
+__device__ __forceinline__ T cl_cost(unsigned c, uint32_t row, const Share<W>& sh, bool has) {
+  if (c == ClCode<W>::INF) return inf_v<T>();
+  if (c == ClCode<W>::ZERO) return T(0);
   if (!has) return inf_v<T>();
   return ld_cluster<T>(sh.at(row, c, (unsigned)sizeof(T)));
 }
 
 // the same from a row in device memory (`g`: cft of hop h+1), through L1
-template <typename T>
+template <typename T, typename W>
 __device__ __forceinline__ T cl_cost_g(unsigned c, const T* g, bool has) {
-  if (c == CL_INF) return inf_v<T>();
-  if (c == CL_ZERO) return T(0);
+  if (c == ClCode<W>::INF) return inf_v<T>();
+  if (c == ClCode<W>::ZERO) return T(0);
   if (!has) return inf_v<T>();
   return __ldg(g + c);
 }
@@ -1540,19 +1585,21 @@ __device__ __forceinline__ T cl_cost_g(unsigned c, const T* g, bool has) {
 // The forward's first pass over the block's slots [base, base + n): cft of
 // hop h+1 read through L1, the slot codes into their row, cfr of the hop
 // out, the partials of the min-marginals, the block's keys reset to +inf.
-template <typename T, int G>
+template <typename T, typename W, int G>
 __device__ __forceinline__ void cl_forward_pass(const uint32_t* rec, int P, int base, int n,
                                                 uint32_t key, uint32_t codes, const T* cft_g,
                                                 bool has, bool restart, T lo, T hi, T* fout,
                                                 T& m0, T& m1) {
   using K = Key<T>;
   using U = typename K::U;
+  using CC = ClCode<W>;
   const T inf = inf_v<T>();
   const U key_inf = K::enc(inf);
   const int nt = (int)blockDim.x;
 #pragma unroll(G == 1 ? 4 : 1)
   for (int j0 = (int)threadIdx.x; j0 < n; j0 += G * nt) {
-    unsigned l[G], r[G], c[G];
+    unsigned l[G], r[G];
+    W c[G];
     T tl[G], th[G];
 #pragma unroll
     for (int u = 0; u < G; ++u) {
@@ -1562,17 +1609,17 @@ __device__ __forceinline__ void cl_forward_pass(const uint32_t* rec, int P, int 
     }
 #pragma unroll
     for (int u = 0; u < G; ++u) {
-      c[u] = cl_code(l[u], r[u], (unsigned)P);
-      const bool nv = (c[u] & 0xffffu) != CL_NONE;
-      tl[u] = nv ? cl_cost_g(c[u] & 0xffffu, cft_g, has) : inf;
-      th[u] = nv ? cl_cost_g(c[u] >> 16, cft_g, has) : inf;
+      c[u] = cl_code<W>(l[u], r[u], (unsigned)P);
+      const bool nv = CC::lo(c[u]) != CC::NONE;
+      tl[u] = nv ? cl_cost_g<T, W>(CC::lo(c[u]), cft_g, has) : inf;
+      th[u] = nv ? cl_cost_g<T, W>(CC::hi(c[u]), cft_g, has) : inf;
     }
 #pragma unroll
     for (int u = 0; u < G; ++u) {
       const int j = j0 + u * nt;
       if (j < n) {
-        st_shared(codes + 4u * (unsigned)j, c[u]);
-        const bool nv = (c[u] & 0xffffu) != CL_NONE;
+        st_shared(codes + (unsigned)sizeof(W) * (unsigned)j, c[u]);
+        const bool nv = CC::lo(c[u]) != CC::NONE;
         const uint32_t kp = key + (unsigned)j * (unsigned)sizeof(U);
         const T fv = restart ? (base + j == 0 ? T(0) : inf) : K::dec(ld_shared<U>(kp));
         st_shared(kp, key_inf);  // no peer reaches it before the cluster barrier
@@ -1591,9 +1638,9 @@ __device__ __forceinline__ void cl_forward_pass(const uint32_t* rec, int P, int 
 // rows of 32,768 slots in float64 (chip runs, PERF.md section 6): 2.08 ms a
 // forward half-sweep, against 2.91 ms with every arrival by
 // compare-and-swap.
-template <typename U>
-__device__ __forceinline__ void cl_relax(uint32_t key, unsigned slot, const Share& sh, U v) {
-  const unsigned q = __umulhi(slot, sh.magic);
+template <typename U, typename W>
+__device__ __forceinline__ void cl_relax(uint32_t key, unsigned slot, const Share<W>& sh, U v) {
+  const unsigned q = sh.block(slot);
   const uint32_t at = key + (slot - q * sh.S) * (unsigned)sizeof(U);
   if constexpr (sizeof(U) == 8) {
     if (q == cluster_rank()) {
@@ -1606,33 +1653,33 @@ __device__ __forceinline__ void cl_relax(uint32_t key, unsigned slot, const Shar
 
 // The forward relaxation from the block's slots into the keys of whichever
 // block keeps each child; cfr read back from this hop's output (in L2)
-template <typename T, int G>
+template <typename T, typename W, int G>
 __device__ __forceinline__ void cl_relax_pass(int base, int n, uint32_t key, uint32_t codes,
-                                              const T* fout, T nl, T nh, const Share& sh) {
+                                              const T* fout, T nl, T nh, const Share<W>& sh) {
   using K = Key<T>;
-  using U = typename K::U;
+  using CC = ClCode<W>;
   const int nt = (int)blockDim.x;
 #pragma unroll(G == 1 ? 4 : 1)
   for (int j0 = (int)threadIdx.x; j0 < n; j0 += G * nt) {
-    unsigned c[G];
+    W c[G];
     T fv[G];
 #pragma unroll
     for (int u = 0; u < G; ++u) {
       const int j = j0 + u * nt;
-      c[u] = j < n ? ld_shared<unsigned>(codes + 4u * (unsigned)j) : CL_NONE;
+      c[u] = j < n ? ld_shared<W>(codes + (unsigned)sizeof(W) * (unsigned)j) : W(CC::NONE);
     }
 #pragma unroll
     for (int u = 0; u < G; ++u) {
-      const unsigned lc = c[u] & 0xffffu, hc = c[u] >> 16;
-      const bool any = lc != CL_NONE && (lc < CL_NONE || hc < CL_NONE);
+      const unsigned lc = CC::lo(c[u]), hc = CC::hi(c[u]);
+      const bool any = lc != CC::NONE && (lc < CC::NONE || hc < CC::NONE);
       fv[u] = any ? __ldcg(fout + base + j0 + u * nt) : T(0);
     }
 #pragma unroll
     for (int u = 0; u < G; ++u) {
-      const unsigned lc = c[u] & 0xffffu, hc = c[u] >> 16;
-      if (lc != CL_NONE) {
-        if (lc < CL_NONE) cl_relax(key, lc, sh, K::enc(fv[u] + nl));
-        if (hc < CL_NONE) cl_relax(key, hc, sh, K::enc(fv[u] + nh));
+      const unsigned lc = CC::lo(c[u]), hc = CC::hi(c[u]);
+      if (lc != CC::NONE) {
+        if (lc < CC::NONE) cl_relax(key, lc, sh, K::enc(fv[u] + nl));
+        if (hc < CC::NONE) cl_relax(key, hc, sh, K::enc(fv[u] + nh));
       }
     }
   }
@@ -1641,11 +1688,12 @@ __device__ __forceinline__ void cl_relax_pass(int base, int n, uint32_t key, uin
 // The backward's first pass: the slot codes into their row and the
 // partials of the min-marginals, from cfr of this hop (the block's slots,
 // device memory) and the children's cft of hop h+1 in the cluster's row
-template <typename T, int G>
+template <typename T, typename W, int G>
 __device__ __forceinline__ void cl_backward_pass(const uint32_t* rec, const T* cfr, int P,
                                                  int base, int n, uint32_t codes, uint32_t rin,
                                                  bool has, T lo, T hi, T& m0, T& m1,
-                                                 const Share& sh) {
+                                                 const Share<W>& sh) {
+  using CC = ClCode<W>;
   const T inf = inf_v<T>();
   const int nt = (int)blockDim.x;
 #pragma unroll(G == 1 ? 4 : 1)
@@ -1662,11 +1710,11 @@ __device__ __forceinline__ void cl_backward_pass(const uint32_t* rec, const T* c
 #pragma unroll
     for (int u = 0; u < G; ++u) {
       const int j = j0 + u * nt;
-      const unsigned c = cl_code(l[u], r[u], (unsigned)P);
-      if (j < n) st_shared(codes + 4u * (unsigned)j, c);
-      const bool nv = (c & 0xffffu) != CL_NONE;  // false past the block's slots
-      const T tl = nv ? cl_cost<T>(c & 0xffffu, rin, sh, has) : inf;
-      const T th = nv ? cl_cost<T>(c >> 16, rin, sh, has) : inf;
+      const W c = cl_code<W>(l[u], r[u], (unsigned)P);
+      if (j < n) st_shared(codes + (unsigned)sizeof(W) * (unsigned)j, c);
+      const bool nv = CC::lo(c) != CC::NONE;  // false past the block's slots
+      const T tl = nv ? cl_cost<T>(CC::lo(c), rin, sh, has) : inf;
+      const T th = nv ? cl_cost<T>(CC::hi(c), rin, sh, has) : inf;
       m0 = min_v(m0, nv ? cf[u] + lo + tl : inf);
       m1 = min_v(m1, nv ? cf[u] + hi + th : inf);
     }
@@ -1676,16 +1724,17 @@ __device__ __forceinline__ void cl_backward_pass(const uint32_t* rec, const T* c
 // cft of the block's slots from the new costs (nl, nh): out to device
 // memory and, with two rows, into the row being built (`rout`); the run
 // decodes the record here, the backward reads the codes its first pass wrote
-template <typename T, bool RUN, int G>
+template <typename T, typename W, bool RUN, int G>
 __device__ __forceinline__ void cl_cft_pass(const uint32_t* rec, int P, int base, int n,
                                             uint32_t codes, uint32_t rin, bool has, T nl, T nh,
                                             T* fout, uint32_t rout, bool two_rows,
-                                            const Share& sh) {
+                                            const Share<W>& sh) {
+  using CC = ClCode<W>;
   const T inf = inf_v<T>();
   const int nt = (int)blockDim.x;
 #pragma unroll(G == 1 ? 4 : 1)
   for (int j0 = (int)threadIdx.x; j0 < n; j0 += G * nt) {
-    unsigned c[G];
+    W c[G];
     if constexpr (RUN) {
       unsigned l[G], r[G];
 #pragma unroll
@@ -1695,20 +1744,20 @@ __device__ __forceinline__ void cl_cft_pass(const uint32_t* rec, int P, int base
         r[u] = j < n ? rec[P + base + j] : 0u;
       }
 #pragma unroll
-      for (int u = 0; u < G; ++u) c[u] = cl_code(l[u], r[u], (unsigned)P);
+      for (int u = 0; u < G; ++u) c[u] = cl_code<W>(l[u], r[u], (unsigned)P);
     } else {
 #pragma unroll
       for (int u = 0; u < G; ++u) {
         const int j = j0 + u * nt;
-        c[u] = j < n ? ld_shared<unsigned>(codes + 4u * (unsigned)j) : CL_NONE;
+        c[u] = j < n ? ld_shared<W>(codes + (unsigned)sizeof(W) * (unsigned)j) : W(CC::NONE);
       }
     }
 #pragma unroll
     for (int u = 0; u < G; ++u) {
       const int j = j0 + u * nt;
-      const bool nv = (c[u] & 0xffffu) != CL_NONE;
-      const T tl = nv ? cl_cost<T>(c[u] & 0xffffu, rin, sh, has) : inf;
-      const T th = nv ? cl_cost<T>(c[u] >> 16, rin, sh, has) : inf;
+      const bool nv = CC::lo(c[u]) != CC::NONE;
+      const T tl = nv ? cl_cost<T>(CC::lo(c[u]), rin, sh, has) : inf;
+      const T th = nv ? cl_cost<T>(CC::hi(c[u]), rin, sh, has) : inf;
       const T v = nv ? min_v(nl + tl, nh + th) : inf;
       if (j < n) {
         fout[base + j] = v;
@@ -1745,10 +1794,10 @@ __device__ __forceinline__ void cluster_min2(T& m0, T& m1, T* red, T* pairs, uns
 
 // Dynamic shared memory of a block (solver/layout.py, cluster_smem_bytes):
 // [row 0 | row 1 (backward, where the table's last column is 2) | the slot
-//  codes, pad16(4S) | 64 values of partials | 2 CLUSTER_MAX values: the
-//  cluster's pairs by rank | two ring slots of HUGE_SCALARS values], every
-// row pad16(S values).
-template <typename T, int MODE>
+//  codes, pad16(sizeof(W) S) | 64 values of partials | 2 CLUSTER_MAX values:
+//  the cluster's pairs by rank | two ring slots of HUGE_SCALARS values],
+// every row pad16(S values).
+template <typename T, int MODE, typename W>
 __device__ __forceinline__ void cluster_column(const Args<T>& a, const Bucket& bk,
                                                unsigned char* smem, long long b) {
   using K = Key<T>;
@@ -1760,7 +1809,7 @@ __device__ __forceinline__ void cluster_column(const Args<T>& a, const Bucket& b
   const int t = (int)threadIdx.x, nt = (int)blockDim.x;
   const unsigned C = cluster_blocks(), rank = cluster_rank();
   const unsigned S = ((unsigned)P + C - 1) / C;
-  const Share sh{S, 0xffffffffu / S + 1u};
+  const Share<W> sh{S, 0xffffffffu / S + 1u};
   const int base = (int)(rank * S);
   const int n = max(0, min((int)S, P - base));  // the block's slots
   const bool grouped = FORWARD ? n >= G * nt : !RUN;  // as the huge body's loops
@@ -1768,7 +1817,7 @@ __device__ __forceinline__ void cluster_column(const Args<T>& a, const Bucket& b
   const int row_bytes = pad16((int)S * SZ);
   const uint32_t row0 = smem_addr(smem);
   const uint32_t codes = row0 + (two ? 2 : 1) * row_bytes;
-  T* const red = (T*)(smem + (two ? 2 : 1) * row_bytes + pad16(4 * (int)S));
+  T* const red = (T*)(smem + (two ? 2 : 1) * row_bytes + pad16((int)sizeof(W) * (int)S));
   T* const pairs = red + 64;
   unsigned char* const ring = (unsigned char*)(pairs + 2 * CLUSTER_MAX);
   const int ring_bytes = HUGE_SCALARS * SZ;
@@ -1817,27 +1866,27 @@ __device__ __forceinline__ void cluster_column(const Args<T>& a, const Bucket& b
       const T* cft_next = g_front + (col + (size_t)B) * P;
       T m0 = inf_v<T>(), m1 = inf_v<T>();
       if (grouped)
-        cl_forward_pass<T, G>(rec, P, base, n, row0, codes, cft_next, has, restart, lo, hi,
-                              fout, m0, m1);
+        cl_forward_pass<T, W, G>(rec, P, base, n, row0, codes, cft_next, has, restart, lo, hi,
+                                 fout, m0, m1);
       else
-        cl_forward_pass<T, 1>(rec, P, base, n, row0, codes, cft_next, has, restart, lo, hi,
-                              fout, m0, m1);
+        cl_forward_pass<T, W, 1>(rec, P, base, n, row0, codes, cft_next, has, restart, lo, hi,
+                                 fout, m0, m1);
       cluster_min2(m0, m1, red, pairs, C, rank, i == 0);  // also: every reset is visible
       hop_cost_update(lo, hi, m0, m1, a.omega_arr ? sc[5] : a.omega, sc[4], sc[2], sc[3],
                       Arc<uint32_t>::flag(w_layer) != 0, nl, nh, mm);
       if (grouped)
-        cl_relax_pass<T, G>(base, n, row0, codes, fout, nl, nh, sh);
+        cl_relax_pass<T, W, G>(base, n, row0, codes, fout, nl, nh, sh);
       else
-        cl_relax_pass<T, 1>(base, n, row0, codes, fout, nl, nh, sh);
+        cl_relax_pass<T, W, 1>(base, n, row0, codes, fout, nl, nh, sh);
     } else {
       if constexpr (!RUN) {
         const T* cfr = g_front + col * P;  // cfr of this hop
         T m0 = inf_v<T>(), m1 = inf_v<T>();
         if (i == 0) cluster_wait();
         if (grouped)
-          cl_backward_pass<T, G>(rec, cfr, P, base, n, codes, rin, has, lo, hi, m0, m1, sh);
+          cl_backward_pass<T, W, G>(rec, cfr, P, base, n, codes, rin, has, lo, hi, m0, m1, sh);
         else
-          cl_backward_pass<T, 1>(rec, cfr, P, base, n, codes, rin, has, lo, hi, m0, m1, sh);
+          cl_backward_pass<T, W, 1>(rec, cfr, P, base, n, codes, rin, has, lo, hi, m0, m1, sh);
         cluster_min2(m0, m1, red, pairs, C, rank, false);
         hop_cost_update(lo, hi, m0, m1, a.omega_arr ? sc[5] : a.omega, sc[4], sc[2], sc[3],
                         Arc<uint32_t>::flag(w_layer) != 0, nl, nh, mm);
@@ -1845,9 +1894,9 @@ __device__ __forceinline__ void cluster_column(const Args<T>& a, const Bucket& b
         if (i == 0) cluster_wait();
       }
       if (grouped)
-        cl_cft_pass<T, RUN, G>(rec, P, base, n, codes, rin, has, nl, nh, fout, rout, two, sh);
+        cl_cft_pass<T, W, RUN, G>(rec, P, base, n, codes, rin, has, nl, nh, fout, rout, two, sh);
       else
-        cl_cft_pass<T, RUN, 1>(rec, P, base, n, codes, rin, has, nl, nh, fout, rout, two, sh);
+        cl_cft_pass<T, W, RUN, 1>(rec, P, base, n, codes, rin, has, nl, nh, fout, rout, two, sh);
       if (!two) {
         cluster_sync();  // every peer's gather from the row is done before it is overwritten
         copy_back(fout + base, n, rout);
@@ -1871,7 +1920,9 @@ __device__ __forceinline__ void cluster_column(const Args<T>& a, const Bucket& b
   }
 }
 
-template <typename T, int MODE>
+// W: the slot code of every bucket of the table (ClCode), chosen by the
+// launch from the widest
+template <typename T, int MODE, typename W>
 __global__ void __launch_bounds__(HUGE_MAX_THREADS, 1) sweep_huge_cluster_kernel(Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   int k = 0;
@@ -1879,16 +1930,22 @@ __global__ void __launch_bounds__(HUGE_MAX_THREADS, 1) sweep_huge_cluster_kernel
   const Bucket bk = a.table[k];
   // the column: a bucket's blocks are its columns' clusters in order
   const long long b = ((long long)blockIdx.x - bk.first_block) / (long long)cluster_blocks();
-  cluster_column<T, MODE>(a, bk, smem, b);
+  cluster_column<T, MODE, W>(a, bk, smem, b);
 }
 
-template <typename T, int MODE>
+// once per instantiation: above 48 KB of shared memory a kernel must ask,
+// and a cluster of 16 blocks (a non-portable size) must be allowed before a
+// launch or the occupancy query takes one
+template <typename T, int MODE, typename W>
 int cluster_opt_in() {
-  static bool opted_in = false;  // above 48 KB a kernel must ask, once
+  static bool opted_in = false;
   if (!opted_in) {
-    const cudaError_t rc =
-        cudaFuncSetAttribute(sweep_huge_cluster_kernel<T, MODE>,
+    cudaError_t rc =
+        cudaFuncSetAttribute(sweep_huge_cluster_kernel<T, MODE, W>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_DYNAMIC_SMEM);
+    if (rc != cudaSuccess) return (int)rc;
+    rc = cudaFuncSetAttribute(sweep_huge_cluster_kernel<T, MODE, W>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (rc != cudaSuccess) return (int)rc;
     opted_in = true;
   }
@@ -1913,20 +1970,17 @@ cudaLaunchConfig_t cluster_config(int nr_blocks, int threads, int cluster, int s
 
 // as `launch_huge`, over the table of the cluster body: `cluster` blocks of
 // `threads` threads a column (cudaLaunchKernelEx with a cluster dimension,
-// a runtime value), `pmax` the widest bucket. A cluster that cannot be
-// placed is refused by the launch, and the code returned.
-template <typename T, int MODE>
-int launch_huge_cluster(const void* table, int nr_buckets, int nr_blocks, int threads,
-                        int cluster, int pmax, int smem_bytes, const void* arcs, const void* lo,
+// a runtime value), `pmax` the widest bucket, whose width sets the slot
+// code of the launch: four bytes up to CL_MAX_P, else eight. A cluster that
+// cannot be placed is refused by the launch, and the code returned.
+template <typename T, int MODE, typename W>
+int launch_cluster_code(const void* table, int nr_buckets, int nr_blocks, int threads,
+                        int cluster, int smem_bytes, const void* arcs, const void* lo,
                         const void* hi, const void* din_lo, const void* din_hi,
                         const void* alpha, const void* omega_arr, double omega,
                         const void* frontier, void* out_lo, void* out_hi, void* out_mm,
                         void* out_frontier, void* stream) {
-  if (nr_blocks == 0) return 0;
-  if (threads < 32 || threads > HUGE_MAX_THREADS || threads % 32 || pmax > CL_MAX_P) return -2;
-  if ((cluster != 2 && cluster != 4 && cluster != CLUSTER_MAX) || nr_blocks % cluster) return -2;
-  if (smem_bytes < 1 || smem_bytes > MAX_DYNAMIC_SMEM) return -1;
-  const int rc = cluster_opt_in<T, MODE>();
+  const int rc = cluster_opt_in<T, MODE, W>();
   if (rc) return rc;
   const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
                   (const T*)lo,         (const T*)hi,       (const T*)din_lo,
@@ -1936,23 +1990,55 @@ int launch_huge_cluster(const void* table, int nr_buckets, int nr_blocks, int th
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(nr_blocks, threads, cluster, smem_bytes, stream,
                                                 attr);
-  const cudaError_t launched = cudaLaunchKernelEx(&cfg, sweep_huge_cluster_kernel<T, MODE>, a);
+  const cudaError_t launched =
+      cudaLaunchKernelEx(&cfg, sweep_huge_cluster_kernel<T, MODE, W>, a);
   if (launched != cudaSuccess) return (int)launched;
   return (int)cudaGetLastError();
 }
 
+template <typename T, int MODE>
+int launch_huge_cluster(const void* table, int nr_buckets, int nr_blocks, int threads,
+                        int cluster, int pmax, int smem_bytes, const void* arcs, const void* lo,
+                        const void* hi, const void* din_lo, const void* din_hi,
+                        const void* alpha, const void* omega_arr, double omega,
+                        const void* frontier, void* out_lo, void* out_hi, void* out_mm,
+                        void* out_frontier, void* stream) {
+  if (nr_blocks == 0) return 0;
+  if (threads < 32 || threads > HUGE_MAX_THREADS || threads % 32 || pmax < 1 ||
+      pmax > (int)HUGE_SLOT_MASK)
+    return -2;
+  if ((cluster != 2 && cluster != 4 && cluster != 8 && cluster != CLUSTER_MAX) ||
+      nr_blocks % cluster)
+    return -2;
+  if (smem_bytes < 1 || smem_bytes > MAX_DYNAMIC_SMEM) return -1;
+  if (pmax <= CL_MAX_P)
+    return launch_cluster_code<T, MODE, unsigned>(
+        table, nr_buckets, nr_blocks, threads, cluster, smem_bytes, arcs, lo, hi, din_lo, din_hi,
+        alpha, omega_arr, omega, frontier, out_lo, out_hi, out_mm, out_frontier, stream);
+  return launch_cluster_code<T, MODE, unsigned long long>(
+      table, nr_buckets, nr_blocks, threads, cluster, smem_bytes, arcs, lo, hi, din_lo, din_hi,
+      alpha, omega_arr, omega, frontier, out_lo, out_hi, out_mm, out_frontier, stream);
+}
+
 // how many clusters of `cluster` blocks of `threads` threads and
-// `smem_bytes` of shared memory the card holds at once (the forward kernel;
+// `smem_bytes` of shared memory the card holds at once (the forward kernel
+// of the slot code a table of widest bucket `pmax` takes;
 // cudaOccupancyMaxActiveClusters), into *clusters
-template <typename T>
-int cluster_occupancy(int cluster, int threads, int smem_bytes, int* clusters) {
-  const int rc = cluster_opt_in<T, MODE_FORWARD>();
+template <typename T, typename W>
+int cluster_occupancy_code(int cluster, int threads, int smem_bytes, int* clusters) {
+  const int rc = cluster_opt_in<T, MODE_FORWARD, W>();
   if (rc) return rc;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(cluster, threads, cluster, smem_bytes, nullptr,
                                                 attr);
   return (int)cudaOccupancyMaxActiveClusters(
-      clusters, (const void*)sweep_huge_cluster_kernel<T, MODE_FORWARD>, &cfg);
+      clusters, (const void*)sweep_huge_cluster_kernel<T, MODE_FORWARD, W>, &cfg);
+}
+template <typename T>
+int cluster_occupancy(int cluster, int threads, int smem_bytes, int pmax, int* clusters) {
+  if (pmax <= CL_MAX_P)
+    return cluster_occupancy_code<T, unsigned>(cluster, threads, smem_bytes, clusters);
+  return cluster_occupancy_code<T, unsigned long long>(cluster, threads, smem_bytes, clusters);
 }
 
 // ------------------------------------------- huge buckets: the L2 body
@@ -2226,14 +2312,15 @@ CLUSTER_ENTRY(uniform_backward_huge_cluster_f64, double, MODE_BACKWARD)
 CLUSTER_ENTRY(uniform_backward_run_huge_cluster_f32, float, MODE_BACKWARD_RUN)
 CLUSTER_ENTRY(uniform_backward_run_huge_cluster_f64, double, MODE_BACKWARD_RUN)
 
-// (cluster, threads, smem_bytes, clusters out): the clusters of the cluster
-// body the card holds at once (solver/layout.py picks the cluster size and
-// the threads a block from the answer)
+// (cluster, threads, smem_bytes, pmax, clusters out): the clusters of the
+// cluster body the card holds at once, for a table whose widest bucket is
+// pmax (solver/layout.py picks the cluster size and the threads a block
+// from the answer)
 extern "C" int uniform_huge_cluster_occupancy_f32(int cluster, int threads, int smem_bytes,
-                                                  int* clusters) {
-  return cluster_occupancy<float>(cluster, threads, smem_bytes, clusters);
+                                                  int pmax, int* clusters) {
+  return cluster_occupancy<float>(cluster, threads, smem_bytes, pmax, clusters);
 }
 extern "C" int uniform_huge_cluster_occupancy_f64(int cluster, int threads, int smem_bytes,
-                                                  int* clusters) {
-  return cluster_occupancy<double>(cluster, threads, smem_bytes, clusters);
+                                                  int pmax, int* clusters) {
+  return cluster_occupancy<double>(cluster, threads, smem_bytes, pmax, clusters);
 }

@@ -280,12 +280,32 @@ HUGE_F32_BLOCKS_SM = 4
 # where a cluster of CLUSTER_SIZES blocks holds them (:func:`cluster_fits`): a
 # cluster of C blocks a column, each block a share of ceil(P / C) slots of
 # the rows in its shared memory, the rest reached through distributed shared
-# memory. Its slot codes hold two 16-bit children, so slots below
-# CLUSTER_MAX_P (uniform_sweep.cu, CL_NONE); the L2 body takes the rest. On
-# knapsack rows of 32,768 slots it leads the L2 body in both precisions
-# (chip_smoke.py --huge-split cluster; PERF.md section 6).
-CLUSTER_SIZES = (2, 4, 8)  # the portable cluster sizes
-CLUSTER_MAX_P = 0xFFFD
+# memory. 16 is a non-portable cluster size, which the kernels allow. Its
+# slot codes take four bytes (two 16-bit children) where the table's widest
+# bucket is below CLUSTER_MAX_P (uniform_sweep.cu, CL_MAX_P) and eight (two
+# 32-bit children) past it (:func:`cluster_code_bytes`), so only shared
+# memory bounds the width: a cluster of 16 holds up to 309,312 slots in
+# float32 and 231,552 in float64 (every power-of-two bucket up to 262,144 /
+# 131,072); the L2 body takes the rest. On knapsack rows of 32,768 slots it
+# leads the L2 body in both precisions (chip_smoke.py --huge-split cluster;
+# PERF.md section 6). One rule for both precisions: on an NVIDIA H100 80GB
+# HBM3 (700 W) the card holds 66 / 30 / 15 / 7 clusters of 2 / 4 / 8 / 16
+# blocks of one block an SM, and the plan's rule (fewest waves of clusters
+# times slots a thread, then the smallest C) picked the fastest C measured
+# in both precisions: C = 2 on 132 rows of 32,768 slots (C = 16, 2.1-4.2x
+# slower there), C = 8 at 1,024 threads on 8 rows of 65,536 (the float32
+# forward / backward / run 0.513 / 0.427 / 0.384 ms, float64 0.763 / 0.512
+# / 0.404; C = 16 at 1,024 threads, two waves of 7 clusters, 1.4-1.5x
+# slower; at 512 threads, one wave, float32 within 3% and float64's
+# forward 15% slower: its compare-and-swap into peers, 15 of 16 arrivals).
+CLUSTER_SIZES = (2, 4, 8, 16)
+CLUSTER_MAX_P = 0xFFFD  # four-byte slot codes hold slots below this
+# Clusters are placed within one GPC (graphics processing cluster), so the
+# card holds fewer large clusters at once than its SMs alone would
+# (:func:`cluster_occupancy`). The SMs of an H100 SXM's GPCs as the card's
+# answers above imply them (132 SMs; at one block an SM they give exactly
+# 66 / 30 / 15 / 7): the estimate off the card.
+GPC_SMS = (18, 18, 18, 18, 18, 16, 16, 10)
 
 
 def sm_count(device) -> int:
@@ -316,25 +336,35 @@ def huge_fits(P: int, itemsize: int) -> bool:
     return P < HUGE_MAX_CODE and huge_smem_bytes(P, itemsize) <= MAX_DYNAMIC_SMEM
 
 
-def cluster_smem_bytes(P: int, C: int, itemsize: int, two_rows: bool = False) -> int:
+def cluster_code_bytes(pmax: int) -> int:
+    """Bytes of a slot code of the cluster body in a launch whose widest
+    bucket is ``pmax``: four (two 16-bit children) below CLUSTER_MAX_P, else
+    eight (two 32-bit children). ``uniform_sweep.cu`` picks the same."""
+    return 4 if pmax <= CLUSTER_MAX_P else 8
+
+
+def cluster_smem_bytes(P: int, C: int, itemsize: int, two_rows: bool = False,
+                       pmax: Optional[int] = None) -> int:
     """Dynamic shared memory of one block of the cluster body, C blocks a
     column: one row of its share of S = ceil(P / C) slots (keys, forward;
-    cft, backward), a second with ``two_rows``, their slot codes (four bytes
-    a slot), 64 values of partials, the cluster's pairs of min-marginals (two
-    values a block, for the largest cluster) and a ring of two slots of
-    HUGE_SCALARS values. ``uniform_sweep.cu`` lays it out the same way."""
+    cft, backward), a second with ``two_rows``, their slot codes (of the
+    launch's widest bucket ``pmax``, P where not given:
+    :func:`cluster_code_bytes`), 64 values of partials, the cluster's pairs
+    of min-marginals (two values a block, for the largest cluster) and a ring
+    of two slots of HUGE_SCALARS values. ``uniform_sweep.cu`` lays it out the
+    same way."""
     S = -(-P // C)
     row = _pad_to(S * itemsize, 16)
-    return (row * (2 if two_rows else 1) + _pad_to(4 * S, 16)
+    code = cluster_code_bytes(P if pmax is None else pmax)
+    return (row * (2 if two_rows else 1) + _pad_to(code * S, 16)
             + (64 + 2 * max(CLUSTER_SIZES) + 2 * HUGE_SCALARS) * itemsize)
 
 
 def cluster_fits(P: int, itemsize: int) -> bool:
-    """Whether the cluster body holds a bucket of width P: its slots fit a
-    child code, and a block's share at the largest cluster fits the shared
-    memory a block may opt into."""
-    return (P <= CLUSTER_MAX_P
-            and cluster_smem_bytes(P, max(CLUSTER_SIZES), itemsize) <= MAX_DYNAMIC_SMEM)
+    """Whether the cluster body holds a bucket of width P: a block's share at
+    the largest cluster, with its slot codes, fits the shared memory a block
+    may opt into (up to 309,312 slots in float32 and 231,552 in float64)."""
+    return cluster_smem_bytes(P, max(CLUSTER_SIZES), itemsize) <= MAX_DYNAMIC_SMEM
 
 
 def body_of(P: int, itemsize: int, columns: int = 0, sms: int = SM_COUNT,
@@ -345,9 +375,11 @@ def body_of(P: int, itemsize: int, columns: int = 0, sms: int = SM_COUNT,
     the route sends there: from HUGE_FROM slots on, in float32 below
     HUGE_FROM_F32_MANY only while the columns are at most HUGE_F32_BLOCKS_SM
     an SM), "huge_cluster" (rows that do not fit a block's shared memory,
-    :func:`huge_fits`, but a cluster's: :func:`cluster_fits`) or "huge_l2"
-    (the rest). ``huge_from`` replaces the route: every wide bucket from that
-    width on takes the huge body (timing variants). A layout's plan also
+    :func:`huge_fits`, but a cluster's of 16 blocks: :func:`cluster_fits`,
+    whatever the width) or "huge_l2" (the rest: past 309,312 slots in
+    float32 and 231,552 in float64). ``huge_from`` replaces the route: every
+    wide bucket from that width on takes the huge body (timing variants). A
+    layout's plan also
     holds the route's float32 rule on its huge table as a whole
     (:func:`_route_huge_table`)."""
     if P <= NARROW_P:
@@ -560,12 +592,19 @@ def _route_huge_table(shapes, body, itemsize: int, sms: int):
     return ["wide" if k in few else b for k, b in enumerate(body)]
 
 
-def cluster_occupancy(itemsize: int, C: int, threads: int, smem: int, device, sms: int) -> int:
+def cluster_occupancy(itemsize: int, C: int, threads: int, smem: int, device, sms: int,
+                      pmax: int) -> int:
     """Clusters of C blocks of ``threads`` threads and ``smem`` bytes of
-    shared memory that the card holds at once: on the card its own answer
-    (``cudaOccupancyMaxActiveClusters`` of the forward kernel: clusters are
-    placed within a GPC, so not every SM need be usable); off it, the blocks
-    an SM holds by shared memory and threads, over ``sms`` SMs."""
+    shared memory that the card holds at once, for a table whose widest
+    bucket is ``pmax`` (its slot code picks the kernel): on the card its own
+    answer (``cudaOccupancyMaxActiveClusters`` of the forward kernel). Off
+    it, an estimate: the blocks an SM holds by shared memory and threads, in
+    whole clusters within each GPC of GPC_SMS (a card of ``sms`` SMs other
+    than their sum counts as one GPC). Over the SMs alone the estimate would
+    over-count large clusters: at one block an SM 132 // 16 = 8 clusters of
+    16, where the card holds 7. With several blocks an SM the card's answer
+    is lower than the estimate (58 clusters of 16 at 13 blocks an SM against
+    104; PERF.md section 6), so the estimate is an upper bound there."""
     device = torch.device(device)
     if device.type == "cuda":
         import ctypes
@@ -575,13 +614,14 @@ def cluster_occupancy(itemsize: int, C: int, threads: int, smem: int, device, sm
         out = ctypes.c_int(0)
         fn = getattr(_build.load(), f"uniform_huge_cluster_occupancy_f{8 * itemsize}")
         with torch.cuda.device(device):
-            rc = fn(C, threads, smem, ctypes.byref(out))
+            rc = fn(C, threads, smem, pmax, ctypes.byref(out))
         if rc != 0:
             raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed (code {rc}) for a "
                                f"cluster of {C} blocks of {threads} threads, {smem} B")
         return out.value
     per_sm = min(SM_SMEM // (smem + BLOCK_SMEM_RESERVED), HUGE_THREADS // threads)
-    return sms * per_sm // C
+    gpcs = GPC_SMS if sms == sum(GPC_SMS) else (sms,)
+    return sum(n * per_sm // C for n in gpcs)
 
 
 def _cluster_plan(shapes, itemsize: int, sms: int, device: str, size: Optional[int]):
@@ -594,8 +634,9 @@ def _cluster_plan(shapes, itemsize: int, sms: int, device: str, size: Optional[i
     clusters it holds at once (:func:`cluster_occupancy`). The plan takes
     the C of the fewest waves of clusters times slots a thread (the passes a
     hop makes), the smallest C on a tie (fewest barriers and remote
-    accesses). The backward keeps two rows where that many blocks still fit
-    with them. A width no C holds raises ValueError."""
+    accesses). The slot codes are the widest bucket's
+    (:func:`cluster_code_bytes`). The backward keeps two rows where that many
+    blocks still fit with them. A width no C holds raises ValueError."""
     if not shapes:
         return CLUSTER_SIZES[0], HUGE_THREADS, [], 0, 0
     cols = max(1, sum(B for _, H, B in shapes if H > 0))
@@ -603,11 +644,11 @@ def _cluster_plan(shapes, itemsize: int, sms: int, device: str, size: Optional[i
     best = None
     for C in ((size,) if size else CLUSTER_SIZES):
         fwd = cluster_smem_bytes(widest, C, itemsize)
-        if fwd > MAX_DYNAMIC_SMEM or widest > CLUSTER_MAX_P:
+        if fwd > MAX_DYNAMIC_SMEM:
             continue
         resident = max(1, min(-(-cols * C // sms), SM_SMEM // (fwd + BLOCK_SMEM_RESERVED)))
         threads = max(32, HUGE_THREADS // resident // 32 * 32)
-        active = cluster_occupancy(itemsize, C, threads, fwd, device, sms)
+        active = cluster_occupancy(itemsize, C, threads, fwd, device, sms, widest)
         if active < 1:
             continue
         share = -(-widest // C)
@@ -620,12 +661,12 @@ def _cluster_plan(shapes, itemsize: int, sms: int, device: str, size: Optional[i
     _, C, threads, resident, fwd = best
 
     def two_rows(P: int) -> bool:
-        nbytes = cluster_smem_bytes(P, C, itemsize, two_rows=True)
+        nbytes = cluster_smem_bytes(P, C, itemsize, two_rows=True, pmax=widest)
         return (nbytes <= MAX_DYNAMIC_SMEM
                 and resident * (nbytes + BLOCK_SMEM_RESERVED) <= SM_SMEM)
 
     rows = [2 if two_rows(P) else 1 for P, _, _ in shapes]
-    bwd = max(cluster_smem_bytes(P, C, itemsize, two_rows=r == 2)
+    bwd = max(cluster_smem_bytes(P, C, itemsize, two_rows=r == 2, pmax=widest)
               for (P, _, _), r in zip(shapes, rows))
     return C, threads, rows, fwd, bwd
 
@@ -727,7 +768,7 @@ def launch_plan(shapes, dtype: torch.dtype, device, stages: Optional[int] = None
     ``huge_body="huge_l2"`` the L2 body for
     every bucket past WIDE_P, ``huge_body="huge_cluster"`` the cluster body
     for every such bucket it holds, ``cluster_size`` the blocks of its
-    clusters (2, 4 or 8)."""
+    clusters (2, 4, 8 or 16)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     return _launch_plan(tuple(tuple(int(x) for x in s) for s in shapes), itemsize,
                         str(torch.device(device)), stages, wide_stages, wide_warps,

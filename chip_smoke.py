@@ -385,7 +385,7 @@ def check_index_on_card(label, geom) -> None:
 
 
 def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=(), suffix="",
-                   state=None):
+                   state=None, reps=200):
     """Phase 2 for one host: every bucket alone, then all buckets fused, then
     the run-only entry; ``variants``: keyword sets of :func:`variant_plan`
     (forced ring depths, warps a block, bodies, threads a block of a huge
@@ -394,7 +394,9 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
     ``suffix``: the body every bucket of the host runs (WIDE, HUGE,
     HUGE_CLUSTER, HUGE_L2);
     ``state``: the state to sweep from (a solver's, after its solve) instead
-    of five iterations from ``objective``."""
+    of five iterations from ``objective``; ``reps``: the warm launches a
+    fused launch is timed over (a tenth of them cold, half per bucket),
+    fewer where one launch takes milliseconds."""
     import torch
     from bdd_tpu_torch.solver import layout
     from bdd_tpu_torch.solver import sweep_kernels as sk
@@ -433,10 +435,10 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
         launch_b, _ = sk.prepare_launch("uniform_backward", *bargs)
         shape = bdd_shapes([g])
         t = {
-            "uniform_forward": (cuda_ms(launch_f, 100),
+            "uniform_forward": (cuda_ms(launch_f, reps // 2),
                                 cuda_ms(lambda: uf.bucket_forward_iteration(*args), 2),
                                 launch_bytes(shape, itemsize, True)),
-            "uniform_backward": (cuda_ms(launch_b, 100),
+            "uniform_backward": (cuda_ms(launch_b, reps // 2),
                                  cuda_ms(lambda: uf.bucket_backward_iteration(*bargs), 2),
                                  launch_bytes(shape, itemsize, False)),
         }
@@ -490,7 +492,8 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
                               ("uniform_backward", launch_b, False)):
         nbytes = launch_bytes(bdd_shapes(geom.buckets), itemsize, fwd)
         e = entry[name]
-        e.update(ms=cuda_ms(launch, 200), cold_ms=cuda_ms(launch, 20, flush), bytes=nbytes,
+        e.update(ms=cuda_ms(launch, reps), cold_ms=cuda_ms(launch, reps // 10, flush),
+                 bytes=nbytes,
                  bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
         print(
             f"[fused] {label} {dt} {name}: one launch over {plan.nr_buckets} narrow bucket(s), "
@@ -526,7 +529,7 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
             launch()
             torch.cuda.synchronize()
             compare(out, ref_f if fwd else ref_b, TOL[dt])
-            warm, cold, bound = cuda_ms(launch, 200), cuda_ms(launch, 20, flush), entry[name][
+            warm, cold, bound = cuda_ms(launch, reps), cuda_ms(launch, reps // 10, flush), entry[name][
                 "bound_ms"]
             row.append(f"{name} warm {warm:.4f} ms ({share(bound, warm)}), cold {cold:.4f} ms "
                        f"({share(bound, cold)})")
@@ -538,7 +541,7 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
             launch()
             torch.cuda.synchronize()
             compare([out], [run_ref], TOL[dt])
-            warm, cold = cuda_ms(launch, 200), cuda_ms(launch, 20, flush)
+            warm, cold = cuda_ms(launch, reps), cuda_ms(launch, reps // 10, flush)
             bound = 1e3 * run_bytes(bdd_shapes(geom.buckets), itemsize) / HBM_BYTES_PER_S
             row.append(f"{RUN} warm {warm:.4f} ms ({share(bound, warm)}), cold {cold:.4f} ms "
                        f"({share(bound, cold)})")
@@ -551,7 +554,7 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
               f"bucket(s), clusters of {deep.cluster_size}, {deep.cluster_threads} threads a block; "
               f"L2 {deep.nr_l2} bucket(s), {deep.l2_threads} threads a block: match; "
               f"{'; '.join(row)} {card}", flush=True)
-    run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix)
+    run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix, reps)
 
 
 # set on a copy of a plan, not by launch_plan
@@ -571,7 +574,7 @@ def variant_plan(plan, geom, forced: dict):
     return dataclasses.replace(deep, **{k: v for k, v in forced.items() if k in PLAN_FIELDS})
 
 
-def run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix):
+def run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix, reps=200):
     """The run-only entry of the backward kernel on the flat costs (lo, hi)
     against the plain run: every bucket alone and all buckets fused, bit-equal;
     the fused launch timed warm and cold beside its byte bound."""
@@ -606,7 +609,7 @@ def run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix):
     launch, _ = sk.prepare_run_launch(geom, lo, hi)
     nbytes = run_bytes(bdd_shapes(geom.buckets), itemsize)
     e = entry[RUN] = {
-        "ms": cuda_ms(launch, 200), "cold_ms": cuda_ms(launch, 20, flush),
+        "ms": cuda_ms(launch, reps), "cold_ms": cuda_ms(launch, reps // 10, flush),
         "plain_ms": cuda_ms(plain, 2), "bytes": nbytes,
         "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
     print(f"[run] {label} {dt} {RUN}: one launch per body over {len(geom.buckets)} bucket(s) "
@@ -822,9 +825,14 @@ CROSSOVER_ROWS = {256: 25, 512: 50, 1024: 100, 2048: 250, 4096: 500}
 # rows of 48 variables with coefficients up to 2,000: P = 32,768, past a
 # block's shared memory in either precision (the cluster body)
 L2_ROWS = dict(nr_vars=1584, nr_rows=132, row_len=48, coef_max=2000)
-# up to 4,000: P = 65,536, past what a cluster's slot code holds (the L2
-# body); eight rows, so that their host build stays a few seconds
+# up to 4,000: P = 65,536, past what four-byte slot codes hold: the cluster
+# body with eight-byte codes; eight rows, so that their host build stays a
+# few seconds
 L2_WIDE_ROWS = dict(nr_vars=96, nr_rows=8, row_len=48, coef_max=4000)
+# up to 16,000: P = 262,144, past what a cluster of 16 holds in float64 (the
+# L2 body, 8-13 ms a launch: timed over a fifth of the launches), within it
+# in float32; one row
+L2_WIDEST_ROWS = dict(nr_vars=48, nr_rows=1, row_len=48, coef_max=16000)
 HUGE_ITERS = 100  # cut from 200 (PR 8): the native solver's share of the phase
 PATH_ITERS = 20  # iterations of the knapsack32 and L2 paths, counted for the kernels line
 
@@ -955,11 +963,12 @@ def phase_huge(card, errs, times, flush):
     per half-sweep); rows of exactly 8,192 on the body the route gives them,
     beside the wide body (the crossover; at 256 to 4,096 slots: ``--huge-split
     columns``); knapsack48 and those rows in one layout; rows of 32,768 slots, past
-    a block's shared memory, on the cluster body (beside the L2 body forced
-    on the same layout), and rows of 65,536, past a cluster's slot codes, on
-    the L2 body. Returns the paths of the kernels line: knapsack48's float64
-    solve, knapsack32's, the 32,768-slot rows' and the 65,536-slot rows'
-    counted iterations."""
+    a block's shared memory, and of 65,536, past four-byte slot codes, on
+    the cluster body (beside the L2 body forced on the same layout), and
+    a row of 262,144, past a cluster of 16 in float64, on the L2 body (in
+    float32 on the cluster body). Returns the paths of the kernels line:
+    knapsack48's float64 solve, knapsack32's, and the counted float64
+    iterations of the 32,768-, 65,536- and 262,144-slot rows."""
     import torch
     from bdd_tpu_torch.api import BddSolver
     from bdd_tpu_torch.native import NativeHost
@@ -1030,16 +1039,21 @@ def phase_huge(card, errs, times, flush):
                    suffix=HUGE)
     del host, mixed
     # rows past a block's shared memory in either precision: the cluster
-    # body, the L2 body forced beside it; then rows past a cluster's slot
-    # codes on the L2 body
-    for label, rows, dtypes, suffix in (
-            ("knapsack48 L2", L2_ROWS, (torch.float32, torch.float64), HUGE_CLUSTER),
-            ("knapsack L2 wide", L2_WIDE_ROWS, (torch.float64,), HUGE_L2)):
+    # body (four-byte slot codes at 32,768 slots, eight-byte ones at
+    # 65,536), the L2 body forced beside it; then rows past a cluster of 16
+    # in float64 on the L2 body, in float32 on the cluster body
+    for label, rows, runs, forced, reps in (
+            ("knapsack48 L2", L2_ROWS,
+             ((torch.float32, HUGE_CLUSTER), (torch.float64, HUGE_CLUSTER)), True, 200),
+            ("knapsack L2 wide", L2_WIDE_ROWS,
+             ((torch.float32, HUGE_CLUSTER), (torch.float64, HUGE_CLUSTER)), True, 200),
+            ("knapsack L2 widest", L2_WIDEST_ROWS,
+             ((torch.float32, HUGE_CLUSTER), (torch.float64, HUGE_L2)), False, 40)):
         t0 = time.perf_counter()
         l2 = NativeHost(knapsack_lp(**rows), "input")
         print(f"[huge] knapsack rows {rows}: {l2.nr_bdds()} BDDs, built by the host library in "
               f"{time.perf_counter() - t0:.2f} s {card}", flush=True)
-        for dtype in dtypes:
+        for dtype, suffix in runs:
             itemsize = torch.empty((), dtype=dtype).element_size()
             dt = str(dtype).replace("torch.", "")
             host = layout.from_native_host(l2, dtype, "cuda", pack=False)
@@ -1049,15 +1063,17 @@ def phase_huge(card, errs, times, flush):
                   f"{layout.huge_smem_bytes(shapes[0][0], itemsize)} B of shared memory a block at "
                   f"the least (a block may have {layout.MAX_DYNAMIC_SMEM}): {plan.nr_cluster} "
                   f"bucket(s) on the cluster body (clusters of {plan.cluster_size}, "
-                  f"{plan.cluster_threads} threads a block), {plan.nr_l2} on the L2 body {card}",
-                  flush=True)
+                  f"{plan.cluster_threads} threads a block, "
+                  f"{layout.cluster_code_bytes(plan.cluster_pmax)}-byte slot codes, "
+                  f"{plan.cluster_smem_forward} / {plan.cluster_smem_backward} B a block), "
+                  f"{plan.nr_l2} on the L2 body {card}", flush=True)
             on = plan.nr_cluster if suffix == HUGE_CLUSTER else plan.nr_l2
             if on != len(shapes) or plan.nr_huge or plan.nr_wide or plan.nr_buckets:
                 fail(f"the {label} rows are not all on the {suffix[1:]} body: {shapes}, "
                      f"{plan.nr_cluster} on the cluster body, {plan.nr_l2} on the L2 body")
-            variants = ({"huge_body": "huge_l2"},) if suffix == HUGE_CLUSTER else ()
+            variants = ({"huge_body": "huge_l2"},) if forced else ()
             kernel_vs_twin(label, host, l2.objective(), card, errs, times, flush, suffix=suffix,
-                           variants=variants)
+                           variants=variants, reps=reps)
             if dtype == torch.float64:
                 counted = counted_iterations(f"{label} float64", host, l2.objective(),
                                              PATH_ITERS, card, native=l2)
@@ -3459,7 +3475,7 @@ def split_ptxas(report: str):
     """(kernel, registers, spill stores, stack frame) of the huge kernels."""
     rows, name = [], None
     for line in report.splitlines():
-        m = re.search(r"Function properties for (\S*(sweep_huge\w*_kernelI[fd]Li\d))", line)
+        m = re.search(r"Function properties for (\S*(sweep_huge\w*_kernelI[fd]Li\dE[jy]?))", line)
         if m:
             name = m.group(2)
             continue
@@ -3481,7 +3497,13 @@ ROUTE_ROWS = ((24, 180), (32, 100), (40, 80), (48, 70))
 ROUTE_NR_ROWS = 500
 # (C, threads a block) of the cluster body timed on knapsack48's L2 rows
 # beside the plan's own (None: the plan's threads for that C)
-CLUSTER_SWEEP = [(2, None), (2, 512), (4, None), (4, 1024), (8, None), (8, 512)]
+CLUSTER_SWEEP = [(2, None), (2, 512), (4, None), (4, 1024), (8, None), (8, 512), (16, None),
+                 (16, 1024)]
+# the cluster sizes timed on the 65,536-slot rows (eight-byte slot codes), at
+# 8 columns (phase 6's rows) and at 132 (here only: their host build is too
+# slow for phase 6); a size whose block does not hold its share is named
+CLUSTER_WIDE_SWEEP = [(2, None), (4, None), (8, None), (8, 512), (16, None), (16, 512)]
+L2_WIDE_ROWS_132 = dict(nr_vars=1584, nr_rows=132, row_len=48, coef_max=4000)
 SPLIT_PARTS = ("variants", "columns", "route", "cluster")
 
 
@@ -3578,44 +3600,59 @@ def split_route(card, flush) -> None:
 
 def split_cluster(card, flush) -> None:
     """The cluster body on knapsack48's L2 rows (P = 32,768 over 132
-    columns), both precisions: every (C, threads) of CLUSTER_SWEEP, the
-    card's answer for the clusters it holds at once, and the L2 body beside
-    them, each held to the plain versions bit for bit."""
+    columns) and on rows of 65,536 slots over 8 and over 132 columns, both
+    precisions: every (C, threads) of CLUSTER_SWEEP / CLUSTER_WIDE_SWEEP,
+    the card's answer for the clusters it holds at once, and the L2 body
+    beside them, each held to the plain versions bit for bit."""
     import torch
     from bdd_tpu_torch.native import NativeHost
     from bdd_tpu_torch.solver import layout
 
-    nh = NativeHost(knapsack_lp(**L2_ROWS), "input")
-    for dtype in (torch.float32, torch.float64):
-        itemsize = torch.empty((), dtype=dtype).element_size()
-        dt = str(dtype).replace("torch.", "")
-        host = layout.from_native_host(nh, dtype, "cuda", pack=False)
-        geom = host.geom
-        state, refs = split_state(host, nh.objective())
-        bounds = split_bounds(geom, itemsize)
-        plan = geom.plan
-        print(f"[split] cluster knapsack48 L2 {dt}: buckets {[tuple(x) for x in plan.shapes]}; the "
-              f"plan: clusters of {plan.cluster_size}, {plan.cluster_threads} threads, rows "
-              f"{[int(r[7]) for r in plan.cluster_table.tolist()]}, {plan.cluster_smem_forward} / "
-              f"{plan.cluster_smem_backward} B {card}", flush=True)
-        l2 = layout.launch_plan(plan.shapes, dtype, "cuda", huge_body="huge_l2")
-        print(f"[split] cluster knapsack48 L2 {dt} L2 body: match; "
-              f"{split_row(split_times(geom, state, refs, l2, flush), bounds)} {card}", flush=True)
-        for C, threads in CLUSTER_SWEEP:
-            forced = layout.launch_plan(plan.shapes, dtype, "cuda", huge_body="huge_cluster",
-                                        cluster_size=C)
-            if threads:
-                forced = dataclasses.replace(forced, cluster_threads=threads)
-            active = layout.cluster_occupancy(itemsize, C, forced.cluster_threads,
-                                              forced.cluster_smem_forward, "cuda", 0)
-            print(f"[split] cluster knapsack48 L2 {dt} C={C} {forced.cluster_threads} threads "
-                  f"({active} clusters at once, rows "
-                  f"{[int(r[7]) for r in forced.cluster_table.tolist()]}, "
-                  f"{forced.cluster_smem_forward} / {forced.cluster_smem_backward} B): match; "
-                  f"{split_row(split_times(geom, state, refs, forced, flush), bounds)} {card}",
+    for label, rows, sweep in (("knapsack48 L2", L2_ROWS, CLUSTER_SWEEP),
+                               ("knapsack L2 wide", L2_WIDE_ROWS, CLUSTER_WIDE_SWEEP),
+                               ("knapsack L2 wide x132", L2_WIDE_ROWS_132, CLUSTER_WIDE_SWEEP)):
+        t0 = time.perf_counter()
+        nh = NativeHost(knapsack_lp(**rows), "input")
+        print(f"[split] cluster {label}: {nh.nr_bdds()} BDDs built in "
+              f"{time.perf_counter() - t0:.1f} s {card}", flush=True)
+        for dtype in (torch.float32, torch.float64):
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            dt = str(dtype).replace("torch.", "")
+            host = layout.from_native_host(nh, dtype, "cuda", pack=False)
+            geom = host.geom
+            state, refs = split_state(host, nh.objective())
+            bounds = split_bounds(geom, itemsize)
+            plan = geom.plan
+            print(f"[split] cluster {label} {dt}: buckets {[tuple(x) for x in plan.shapes]}; the "
+                  f"plan: clusters of {plan.cluster_size}, {plan.cluster_threads} threads, "
+                  f"{layout.cluster_code_bytes(plan.cluster_pmax)}-byte slot codes, rows "
+                  f"{[int(r[7]) for r in plan.cluster_table.tolist()]}, "
+                  f"{plan.cluster_smem_forward} / {plan.cluster_smem_backward} B {card}",
                   flush=True)
-        del host, geom, state, refs
-        torch.cuda.empty_cache()
+            l2 = layout.launch_plan(plan.shapes, dtype, "cuda", huge_body="huge_l2")
+            print(f"[split] cluster {label} {dt} L2 body: match; "
+                  f"{split_row(split_times(geom, state, refs, l2, flush), bounds)} {card}",
+                  flush=True)
+            for C, threads in sweep:
+                try:
+                    forced = layout.launch_plan(plan.shapes, dtype, "cuda",
+                                                huge_body="huge_cluster", cluster_size=C)
+                except ValueError as exc:  # its share does not fit a block
+                    print(f"[split] cluster {label} {dt} C={C}: {exc} {card}", flush=True)
+                    continue
+                if threads:
+                    forced = dataclasses.replace(forced, cluster_threads=threads)
+                active = layout.cluster_occupancy(itemsize, C, forced.cluster_threads,
+                                                  forced.cluster_smem_forward, "cuda", 0,
+                                                  forced.cluster_pmax)
+                print(f"[split] cluster {label} {dt} C={C} {forced.cluster_threads} threads "
+                      f"({active} clusters at once, rows "
+                      f"{[int(r[7]) for r in forced.cluster_table.tolist()]}, "
+                      f"{forced.cluster_smem_forward} / {forced.cluster_smem_backward} B): match; "
+                      f"{split_row(split_times(geom, state, refs, forced, flush), bounds)} "
+                      f"{card}", flush=True)
+            del host, geom, state, refs
+            torch.cuda.empty_cache()
 
 
 def huge_split(parts=()) -> None:

@@ -284,10 +284,14 @@ ROUTED_SHAPES = [(layout.HUGE_FROM, 5, 3), (layout.HUGE_FROM + 3, 2, 2), (4096, 
                  (6001, 1, 1), (layout.WIDE_P, 4, 2)]
 # rows past a block's shared memory: the cluster body, each block of a
 # cluster a share of them (20,001 slots only in float64; float32 keeps them
-# in one block's shared memory); ragged against every cluster size
-CLUSTER_SHAPES = [(30000, 3, 2), (20001, 1, 1)]
-# rows past any cluster's: the L2 body, its rows in device memory
-L2_SHAPES = [(70000, 2, 1)]
+# in one block's shared memory); ragged against every cluster size. The
+# first two take four-byte slot codes; 65,536 and 70,000 slots take
+# eight-byte ones (past CLUSTER_MAX_P), and only clusters of 8 and 16 hold
+# them in float64
+CLUSTER_SHAPES = [(30000, 3, 2), (20001, 1, 1), (65536, 2, 1), (70000, 3, 2)]
+# rows past any cluster's (a cluster of 16 holds 309,312 slots in float32
+# and 231,552 in float64): the L2 body, its rows in device memory
+L2_SHAPES = [(320000, 2, 1)]
 SHAPES += WIDE_SHAPES + HUGE_SHAPES + ROUTED_SHAPES + CLUSTER_SHAPES + L2_SHAPES
 
 
@@ -437,7 +441,7 @@ def test_mixed_layout_counts_a_narrow_and_a_wide_launch(cuda_device, precision):
 @pytest.mark.parametrize("zero_costs", [False, True], ids=["random", "ties-at-zero"])
 @pytest.mark.parametrize("shape", [(8, 7, 40), (64, 7, 9), (256, 5, 8), (33, 40, 7),
                                    (2048, 3, 2), (8200, 5, 3), (layout.HUGE_FROM + 3, 4, 3),
-                                   (20001, 3, 2), (30000, 3, 2)],
+                                   (20001, 3, 2), (30000, 3, 2), (65536, 3, 2), (70000, 3, 2)],
                          ids=lambda s: "P%d-H%d-B%d" % s)
 def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_costs, precision):
     """Outside what a solve produces: -inf deltas (inf - inf, so NaN costs
@@ -556,7 +560,7 @@ def test_wide_body_variants_equal_twins(cuda_device, precision, warps, stages):
 # ------------------------------------------------------------- huge buckets
 def test_plan_puts_huge_buckets_in_a_third_table():
     shapes = [(2, 3, 40), (16384, 2, 3), (128, 5, 8), (8200, 4, 5), (30000, 2, 3),
-              (70000, 2, 2)]
+              (320000, 2, 2)]
     host, _ = synthetic_host(shapes, torch.float32, "cpu")
     plan = host.geom.plan
     assert [tuple(r[:3]) for r in plan.huge_table.tolist()] == [shapes[1], shapes[3]]
@@ -573,14 +577,14 @@ def test_plan_puts_huge_buckets_in_a_third_table():
     assert plan.huge_pmax == 16384
     # a cluster of C blocks a column (three columns over 132 SMs: the largest
     # cluster), two backward rows
-    assert plan.cluster_size == 8 and plan.cluster_blocks == 8 * 3
+    assert plan.cluster_size == 16 and plan.cluster_blocks == 16 * 3
     assert [r[3] for r in plan.cluster_table.tolist()] == [0]
     assert [r[7] for r in plan.cluster_table.tolist()] == [2]
     assert plan.cluster_pmax == 30000 and plan.cluster_threads == 1024
     # the L2 table's last column: the bucket's offset into the scratch rows,
     # which only the L2 body's buckets get (not the cluster body's)
     assert [r[7] for r in plan.l2_table.tolist()] == [0]
-    assert plan.huge_scratch_values == 2 * 70000 * 2
+    assert plan.huge_scratch_values == 2 * 320000 * 2
     # the rows belong to the layout, allocated on the card only
     assert host.geom.huge_scratch is None
     assert layout.huge_scratch(plan, torch.float32, "cpu") is None
@@ -589,8 +593,8 @@ def test_plan_puts_huge_buckets_in_a_third_table():
     # the bytes a solve works in, the number a layout too large for the card names
     E = 3 * 40 + 2 * 3 + 5 * 8 + 4 * 5 + 2 * 3 + 2 * 2
     N = (3 * 2 * 40 + 2 * 16384 * 3 + 5 * 128 * 8 + 4 * 8200 * 5 + 2 * 30000 * 3
-         + 2 * 70000 * 2)
-    scratch = 2 * 70000 * 2
+         + 2 * 320000 * 2)
+    scratch = 2 * 320000 * 2
     assert layout.solve_bytes(plan.shapes, 4) == plan.arc_bytes + E * (9 * 4 + 24) + (
         2 * N + scratch) * 4
 
@@ -602,13 +606,16 @@ def test_plan_puts_huge_buckets_in_a_third_table():
     (19317, 8, "huge_cluster"), (29016, 4, "huge"), (29017, 4, "huge_cluster"),
     (32768, 4, "huge_cluster"), (32768, 8, "huge_cluster"),
     (layout.CLUSTER_MAX_P, 4, "huge_cluster"), (layout.CLUSTER_MAX_P, 8, "huge_cluster"),
-    (layout.CLUSTER_MAX_P + 1, 4, "huge_l2"), (layout.CLUSTER_MAX_P + 1, 8, "huge_l2")])
+    (layout.CLUSTER_MAX_P + 1, 4, "huge_cluster"), (layout.CLUSTER_MAX_P + 1, 8, "huge_cluster"),
+    (65536, 4, "huge_cluster"), (65536, 8, "huge_cluster"), (131072, 8, "huge_cluster"),
+    (262144, 4, "huge_cluster"), (262144, 8, "huge_l2"), (231552, 8, "huge_cluster"),
+    (231553, 8, "huge_l2"), (309312, 4, "huge_cluster"), (309313, 4, "huge_l2")])
 def test_plan_sends_each_width_to_its_body(P, itemsize, body):
     """narrow, wide, routed two-byte huge, huge (its rows in a block's shared
-    memory), cluster (its rows in a cluster's: past a block's, within the
-    slots a cluster's child code holds), L2 (the rest): one table each, and
-    the records and padding follow the width alone, whichever body runs
-    it."""
+    memory), cluster (its rows in a cluster's: past a block's, up to what a
+    cluster of 16 blocks holds with eight-byte slot codes, 309,312 slots in
+    float32 and 231,552 in float64), L2 (the rest): one table each, and the
+    records and padding follow the width alone, whichever body runs it."""
     dtype = torch.float32 if itemsize == 4 else torch.float64
     assert layout.body_of(P, itemsize) == body
     assert layout.huge_fits(P, itemsize) == (body not in ("huge_cluster", "huge_l2"))
@@ -623,6 +630,12 @@ def test_plan_sends_each_width_to_its_body(P, itemsize, body):
         assert plan.cluster_size in layout.CLUSTER_SIZES
         assert max(plan.cluster_smem_forward, plan.cluster_smem_backward) <= (
             layout.MAX_DYNAMIC_SMEM)
+        # the slot codes: four bytes up to CLUSTER_MAX_P, eight past it
+        code = 4 if P <= layout.CLUSTER_MAX_P else 8
+        assert layout.cluster_code_bytes(P) == code
+        S = -(-P // plan.cluster_size)
+        assert plan.cluster_smem_forward == (-(-S * itemsize // 16) * 16 + -(-code * S // 16) * 16
+                                             + (64 + 32 + 2 * layout.HUGE_SCALARS) * itemsize)
         # the L2 body where the plan is told so
         forced = layout.launch_plan([(P, 3, 5)], dtype, "cpu", huge_body="huge_l2")
         assert (forced.nr_cluster, forced.nr_l2) == (0, 1)
@@ -769,23 +782,25 @@ def test_huge_table_holds_the_route_as_a_whole(case):
 def test_cluster_plan_shared_memory_is_the_kernels(itemsize):
     """The shared memory the plan gives a block of the cluster body is what
     ``uniform_sweep.cu`` carves: [row of its share S = ceil(P / C) | second
-    row (backward, two rows) | the share's slot codes, four bytes a slot | 64
-    values of partials | 16 values of the cluster's pairs | two ring slots of
-    HUGE_SCALARS values], each row padded to 16 bytes. A column is C blocks,
-    C of CLUSTER_SIZES; the threads a block follow the blocks an SM holds,
-    and the C is the one of the fewest waves of clusters times slots a
-    thread."""
+    row (backward, two rows) | the share's slot codes, four bytes a slot
+    where the table's widest bucket is below CLUSTER_MAX_P and eight past it
+    | 64 values of partials | 32 values of the cluster's pairs (two a block
+    of the largest cluster, 16) | two ring slots of HUGE_SCALARS values],
+    each row padded to 16 bytes. A column is C blocks, C of CLUSTER_SIZES;
+    the threads a block follow the blocks an SM holds, and the C is the one
+    of the fewest waves of clusters times slots a thread."""
     dtype = torch.float32 if itemsize == 4 else torch.float64
 
-    def carved(P, C, two_rows):
+    def carved(P, C, two_rows, code=4):
         S = -(-P // C)
         row = -(-S * itemsize // 16) * 16
-        return (row * (1 + two_rows) + -(-4 * S // 16) * 16
-                + (64 + 16 + 2 * layout.HUGE_SCALARS) * itemsize)
+        return (row * (1 + two_rows) + -(-code * S // 16) * 16
+                + (64 + 32 + 2 * layout.HUGE_SCALARS) * itemsize)
 
     def rows(plan):
         return [int(r[7]) for r in plan.cluster_table.tolist()]
 
+    assert layout.CLUSTER_SIZES == (2, 4, 8, 16)
     # knapsack48's L2 rows (P = 32,768 over 132 columns): a block of a
     # cluster of two holds 16,384 slots, one block an SM at 1,024 threads
     plan = layout.launch_plan([(32768, 48, 132)], dtype, "cpu")
@@ -797,7 +812,7 @@ def test_cluster_plan_shared_memory_is_the_kernels(itemsize):
     assert plan.cluster_smem_backward == carved(32768, 2, two)
     # every cluster size, forced: the block's share and the blocks an SM
     for C, threads in ((2, 1024), (4, 1024 // 3 // 32 * 32 if two else 512),
-                       (8, 1024 // 6 // 32 * 32 if two else 256)):
+                       (8, 1024 // 6 // 32 * 32 if two else 256), (16, 64 if two else 128)):
         plan = layout.launch_plan([(32768, 48, 132)], dtype, "cpu", cluster_size=C)
         assert (plan.cluster_size, plan.cluster_blocks) == (C, 132 * C)
         assert plan.cluster_smem_forward == carved(32768, C, False)
@@ -811,18 +826,152 @@ def test_cluster_plan_shared_memory_is_the_kernels(itemsize):
     # holding fewer slots; two buckets in one table share the widest's block
     plan = layout.launch_plan([(30001, 2, 1), (20001, 3, 2)], dtype, "cpu",
                               huge_body="huge_cluster")
-    assert (plan.nr_cluster, plan.cluster_size, plan.cluster_threads) == (2, 8, 1024)
-    assert [r[3] for r in plan.cluster_table.tolist()] == [0, 8]
-    assert plan.cluster_blocks == 8 * 3 and plan.cluster_pmax == 30001
-    assert plan.cluster_smem_forward == carved(30001, 8, False)
-    assert rows(plan) == [2, 2] and plan.cluster_smem_backward == carved(30001, 8, True)
+    assert (plan.nr_cluster, plan.cluster_size, plan.cluster_threads) == (2, 16, 1024)
+    assert [r[3] for r in plan.cluster_table.tolist()] == [0, 16]
+    assert plan.cluster_blocks == 16 * 3 and plan.cluster_pmax == 30001
+    assert plan.cluster_smem_forward == carved(30001, 16, False)
+    assert rows(plan) == [2, 2] and plan.cluster_smem_backward == carved(30001, 16, True)
+    # rows of 65,536 slots over 8 columns (knapsack L2 wide): eight-byte
+    # codes, clusters of 8 at one block an SM, two backward rows: the card
+    # holds 15 such clusters at once but only 7 of 16 (two waves of 16, a
+    # tie broken to the smaller C)
+    plan = layout.launch_plan([(65536, 48, 8)], dtype, "cpu")
+    assert (plan.nr_cluster, plan.nr_l2, plan.cluster_size) == (1, 0, 8)
+    assert (plan.cluster_threads, plan.cluster_blocks) == (1024, 64)
+    assert plan.cluster_smem_forward == carved(65536, 8, False, 8) == layout.cluster_smem_bytes(
+        65536, 8, itemsize)
+    assert rows(plan) == [2] and plan.cluster_smem_backward == carved(65536, 8, True, 8)
+    # forced to clusters of 16 (128 blocks); of 4 only in float32 (a float64
+    # block of 16,384 slots with eight-byte codes does not fit)
+    plan = layout.launch_plan([(65536, 48, 8)], dtype, "cpu", cluster_size=16)
+    assert (plan.cluster_size, plan.cluster_blocks, plan.cluster_threads) == (16, 128, 1024)
+    assert plan.cluster_smem_forward == carved(65536, 16, False, 8)
+    assert rows(plan) == [2] and plan.cluster_smem_backward == carved(65536, 16, True, 8)
+    if two:
+        plan = layout.launch_plan([(65536, 48, 8)], dtype, "cpu", cluster_size=4)
+        assert plan.cluster_smem_forward == carved(65536, 4, False, 8)
+        assert rows(plan) == [1] and plan.cluster_smem_backward == carved(65536, 4, False, 8)
+    else:
+        with pytest.raises(ValueError, match="no cluster of 4 blocks holds a bucket of 65536"):
+            layout.launch_plan([(65536, 48, 8)], dtype, "cpu", cluster_size=4)
+    # a narrower bucket beside a wider one takes the widest's eight-byte codes
+    plan = layout.launch_plan([(65536, 2, 1), (30000, 3, 2)], dtype, "cpu")
+    assert (plan.nr_cluster, plan.cluster_size, plan.cluster_pmax) == (2, 16, 65536)
+    assert plan.cluster_smem_forward == carved(65536, 16, False, 8)
+    assert rows(plan) == [2, 2] and plan.cluster_smem_backward == carved(65536, 16, True, 8)
+    assert layout.cluster_smem_bytes(30000, 16, itemsize, True, pmax=65536) == carved(
+        30000, 16, True, 8)
     # a width no block of the largest cluster holds is refused
+    widest = 309312 if two else 231552
+    assert layout.cluster_smem_bytes(widest, 16, itemsize) <= layout.MAX_DYNAMIC_SMEM
+    assert layout.cluster_smem_bytes(widest + 1, 16, itemsize) > layout.MAX_DYNAMIC_SMEM
     with pytest.raises(ValueError, match="no cluster"):
-        layout._cluster_plan([(layout.CLUSTER_MAX_P + 1, 2, 1)], itemsize, 132, "cpu", None)
+        layout._cluster_plan([(widest + 1, 2, 1)], itemsize, 132, "cpu", None)
     # off the card, the clusters held at once: the blocks an SM holds by
-    # shared memory and threads, over the SMs
-    assert layout.cluster_occupancy(itemsize, 2, 1024, 131000, "cpu", 132) == 66
-    assert layout.cluster_occupancy(itemsize, 4, 256, 60000, "cpu", 132) == 99
+    # shared memory and threads, in whole clusters within each GPC (a cluster
+    # is placed within one); at one block an SM what the card answers
+    assert sum(layout.GPC_SMS) == layout.SM_COUNT == 132
+    assert [layout.cluster_occupancy(itemsize, C, 1024, 131000, "cpu", 132, 32768)
+            for C in layout.CLUSTER_SIZES] == [66, 30, 15, 7]
+    assert layout.cluster_occupancy(itemsize, 4, 256, 60000, "cpu", 132, 32768) == 96
+    assert layout.cluster_occupancy(itemsize, 16, 256, 30000, "cpu", 132, 65536) == 30
+    assert layout.cluster_occupancy(itemsize, 16, 1024, 60000, "cpu", 64, 65536) == 4
+
+
+def _cluster_block(slot, S, wide):
+    """The kernel's ``Share::block`` (uniform_sweep.cu) in numpy: the high
+    word of slot * magic, magic = 0xffffffff / S + 1 = ceil(2^32 / S) as the
+    kernel computes it, less one where that is past the slot with
+    eight-byte codes (``wide``)."""
+    slot = np.asarray(slot, dtype=np.uint64)
+    S = np.asarray(S, dtype=np.uint64)
+    magic = (np.uint64(0xFFFFFFFF) // S + np.uint64(1)) & np.uint64(0xFFFFFFFF)
+    q = (slot * magic) >> np.uint64(32)
+    if wide:
+        q = q - (q * S > slot).astype(np.uint64)
+    return q
+
+
+def test_cluster_block_formula_finds_every_slot():
+    """A child's block in its cluster and its place there come from its slot
+    by a multiply (``Share::block``), evaluated here as the kernel does it:
+    over every slot of every (P, C) the plan can give the cluster body (every
+    power-of-two width from 16,384 slots to the widest a cluster holds, the
+    limits of either slot code and precision, the widths of the tests), at
+    every C whose block holds its share, block = slot // S and place = slot %
+    S within the cluster. Four-byte codes (a table whose widest bucket is
+    below CLUSTER_MAX_P) take the multiply alone, eight-byte codes (any
+    bucket of a table past it) with its correction. Then every share S the
+    plan can give, at the last slot of each block, where the multiply's
+    excess is largest: the correction is needed there (without it the
+    multiply is one block too far at some of them)."""
+    widths = {1 << k for k in range(14, 19)} | {
+        19317, 20001, 29017, 30000, 30001, 40000, 65536, 70000, layout.CLUSTER_MAX_P,
+        layout.CLUSTER_MAX_P + 1, 231552, 309312}
+    checked = 0
+    for P in sorted(widths):
+        slot = np.arange(P, dtype=np.uint64)
+        for itemsize in (4, 8):
+            for C in layout.CLUSTER_SIZES:
+                if layout.cluster_smem_bytes(P, C, itemsize) > layout.MAX_DYNAMIC_SMEM:
+                    continue
+                S = -(-P // C)
+                for wide in ((False, True) if P <= layout.CLUSTER_MAX_P else (True,)):
+                    q = _cluster_block(slot, S, wide)
+                    np.testing.assert_array_equal(q, slot // np.uint64(S))
+                    assert int(q.max()) < C and int((slot - q * np.uint64(S)).max()) < S
+                    checked += 1
+    assert checked > 60
+    # every share: the last slot of each block of the largest cluster
+    # (eight-byte codes: S up to 19,332, float32 at C = 16) and, for
+    # four-byte codes, every block's last slot below CLUSTER_MAX_P
+    S = np.arange(-(-(layout.WIDE_P + 1) // 16), 19333, dtype=np.uint64)[:, None]
+    last = np.arange(1, 17, dtype=np.uint64)[None, :] * S - np.uint64(1)
+    np.testing.assert_array_equal(_cluster_block(last, S, True), last // S)
+    assert (_cluster_block(last, S, False) != last // S).any()
+    S = np.arange(-(-(layout.WIDE_P + 1) // 16), -(-layout.CLUSTER_MAX_P // 2) + 1,
+                  dtype=np.uint64)[:, None]
+    last = np.arange(1, 17, dtype=np.uint64)[None, :] * S - np.uint64(1)
+    below = last < np.uint64(layout.CLUSTER_MAX_P)
+    np.testing.assert_array_equal(_cluster_block(last, S, False)[below], (last // S)[below])
+
+
+@pytest.mark.cuda
+def test_eight_byte_codes_find_every_block_on_the_card(cuda_device):
+    """The kernel's correction step on the card: a float32 bucket of 264,768
+    slots holds only in clusters of 16 (shares of 16,548 slots), where the
+    bare multiply puts the last slot one block past the cluster. Arcs into
+    that slot and into every block's last slot, from every hop, and the
+    kernels against the twins bit for bit: both half-sweeps and the run."""
+    P, H, B, C = 264768, 3, 1, 16
+    S = P // C
+    slots = np.arange(P, dtype=np.uint64)
+    assert np.nonzero(_cluster_block(slots, S, False) != slots // np.uint64(S))[0].tolist() == [
+        P - 1]
+    rng = np.random.RandomState(21)
+    b = random_bucket(P, H, B, rng)
+    b["node_valid"][1:, P - 1] = True
+    b["lo_kind"][0, 0], b["lo_slot"][0, 0] = layout.ARC_INTERNAL, P - 1
+    b["lo_kind"][1, :1000], b["lo_slot"][1, :1000] = layout.ARC_INTERNAL, P - 1
+    b["hi_kind"][1, 1000:1000 + C] = layout.ARC_INTERNAL
+    b["hi_slot"][1, 1000:1000 + C, 0] = np.arange(1, C + 1) * S - 1
+    host = layout._build_host([b], np.ones(4, np.int64), 4, 4, 1, torch.float32, cuda_device)
+    lo, hi, fr, dl, dh = random_costs(host.geom, rng, cuda_device)
+    geom = host.geom
+    assert (geom.plan.nr_cluster, geom.plan.cluster_size) == (1, C)
+    assert layout.cluster_code_bytes(geom.plan.cluster_pmax) == 8
+    for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
+                         ("uniform_backward", uf.bucket_backward_iteration)):
+        launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh)
+        launch()
+        torch.cuda.synchronize()
+        assert_same_bits(out, twins_bucket_by_bucket(twin, geom, lo, hi, fr, 0.5, dl, dh))
+    launch, out = sk.prepare_run_launch(geom, lo, hi)
+    launch()
+    torch.cuda.synchronize()
+    assert_same_bits([out], [geom.flatten_nodes([
+        uf.bucket_backward_run(g, a, c)
+        for g, a, c in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])])
 
 
 def test_layout_past_the_cards_memory_is_refused_naming_the_bytes(monkeypatch):
@@ -920,15 +1069,20 @@ def test_huge_body_thread_counts_equal_twins(cuda_device, precision, threads):
     largest block): both half-sweeps and the run against their plain
     versions. The shared-memory body over every wide and huge shape (the
     wide ones routed to it, on their two-byte records), the L2 body over the
-    huge, cluster and L2 shapes, the cluster body over the huge and cluster
-    shapes at every cluster size (ragged against each)."""
+    huge, cluster and L2 shapes, the cluster body over the huge shapes and
+    the cluster shapes of four-byte slot codes at every cluster size (ragged
+    against each), and with those of eight-byte codes (65,536 and 70,000
+    slots: every bucket of the table takes them) at 8 and 16."""
     dtype = torch.float32 if precision == "float" else torch.float64
     fits = WIDE_SHAPES + HUGE_SHAPES + ROUTED_SHAPES
-    past = HUGE_SHAPES + CLUSTER_SHAPES
+    four = HUGE_SHAPES + [s for s in CLUSTER_SHAPES if s[0] <= layout.CLUSTER_MAX_P]
+    eight = HUGE_SHAPES + CLUSTER_SHAPES
     for shapes, force in ((fits, {"huge_from": layout.NARROW_P + 1}),
-                          (past + L2_SHAPES, {"huge_body": "huge_l2"}),
-                          *((past, {"huge_body": "huge_cluster", "cluster_size": C})
-                            for C in layout.CLUSTER_SIZES)):
+                          (eight + L2_SHAPES, {"huge_body": "huge_l2"}),
+                          *((four, {"huge_body": "huge_cluster", "cluster_size": C})
+                            for C in layout.CLUSTER_SIZES),
+                          *((eight, {"huge_body": "huge_cluster", "cluster_size": C})
+                            for C in (8, 16))):
         host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=13)
         geom = host.geom
         plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, **force)
@@ -938,6 +1092,7 @@ def test_huge_body_thread_counts_equal_twins(cuda_device, precision, threads):
         elif "huge_body" in force:
             assert plan.nr_huge == plan.nr_l2 == 0 and plan.nr_cluster == len(shapes)
             assert plan.cluster_size == force["cluster_size"]
+            assert layout.cluster_code_bytes(plan.cluster_pmax) == (8 if shapes is eight else 4)
             plan = dataclasses.replace(plan, cluster_threads=threads)
         else:
             assert plan.nr_huge == len(shapes) and plan.nr_wide == plan.nr_l2 == 0
@@ -962,7 +1117,8 @@ def test_huge_body_shared_memory_rows_equal_twins(cuda_device, precision):
     """The shared-memory huge body with its backward on one row and on two in
     one launch, as the plan's fit gives them: over the huge, routed, cluster
     and L2 shapes, one row where two do not fit a block (float32 at 20,001
-    slots, float64 at 16,384), and the cluster and L2 bodies beside them.
+    slots, float64 at 16,384), and the cluster (eight-byte slot codes) and
+    L2 bodies beside them.
     Then the cluster body in clusters of two, where a block's share of the
     wider bucket fits one row only and the narrower one's two (float32 40,000
     and 30,000 slots, float64 30,000 and 20,001)."""
@@ -979,7 +1135,7 @@ def test_huge_body_shared_memory_rows_equal_twins(cuda_device, precision):
             assert [int(r[7]) for r in plan.cluster_table.tolist()] == [1, 2]
         else:
             assert sorted(set(int(r[7]) for r in plan.huge_table.tolist())) == [1, 2]
-            assert plan.nr_cluster == (1 if precision == "float" else 2) and plan.nr_l2 == 1
+            assert plan.nr_cluster == (3 if precision == "float" else 4) and plan.nr_l2 == 1
         for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
                              ("uniform_backward", uf.bucket_backward_iteration)):
             launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
@@ -1003,11 +1159,11 @@ def test_mixed_layout_counts_one_launch_per_body(cuda_device, precision):
     version on the card."""
     dtype = torch.float32 if precision == "float" else torch.float64
     shapes = [(2, 9, 70), (layout.HUGE_FROM, 3, 5), (128, 5, 9), (16384, 2, 2), (30000, 2, 2),
-              (70000, 2, 1)]
+              L2_SHAPES[0]]
     host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=5)
     geom = host.geom
     assert (geom.plan.nr_huge, geom.plan.nr_cluster, geom.plan.nr_l2) == (2, 1, 1)
-    assert geom.huge_scratch.numel() == 2 * 70000 * 1 * lo.element_size()
+    assert geom.huge_scratch.numel() == 2 * L2_SHAPES[0][0] * 1 * lo.element_size()
     sk.reset_launch_counts()
     calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
     out_f = sk.forward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)

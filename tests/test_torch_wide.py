@@ -231,19 +231,57 @@ def _jax_bucket(b):
         jnp.asarray(b["alpha"]), None if b["root_mask"] is None else jnp.asarray(b["root_mask"]))
 
 
-@pytest.mark.parametrize("P", [layout.WIDE_P + 1, layout.HUGE_FROM, 19317],
-                         ids=["four-byte", "routed-two-byte", "cluster"])
-def test_huge_bucket_matches_jax_f64(P):
+def _gathered_child_cft(kind, slot, cft_next, P):
+    """``bdd_tpu.solver.uniform._child_cft`` with its one-hot [P, P, B] sum
+    replaced by an index gather: the same values (a slot outside [0, P)
+    reads 0, as no one-hot row matches it), up to the sign of a zero."""
+    inside = (slot >= 0) & (slot < P)
+    gathered = jnp.where(inside, jnp.take_along_axis(cft_next, jnp.where(inside, slot, 0),
+                                                     axis=0), 0.0)
+    return jnp.where(kind == uf.ARC_TOP, 0.0, jnp.where(kind == uf.ARC_BOT, uf.INF, gathered))
+
+
+def _scattered_relax_next(vals, kind, slot, valid, P):
+    """``bdd_tpu.solver.uniform._relax_next`` with its masked min over [P, P,
+    B] replaced by a scatter-min into a dropped extra row: the same values."""
+    into = (slot >= 0) & (slot < P) & (kind == uf.ARC_INTERNAL) & valid
+    rows = jnp.where(into, slot, P)
+    cols = jnp.broadcast_to(jnp.arange(slot.shape[1])[None, :], slot.shape)
+    out = jnp.full((P + 1, slot.shape[1]), uf.INF, dtype=vals.dtype)
+    return out.at[rows, cols].min(vals)[:P]
+
+
+@pytest.mark.parametrize("P", [layout.WIDE_P + 1, layout.HUGE_FROM, 19317, 65536],
+                         ids=["four-byte", "routed-two-byte", "cluster", "cluster-eight-byte"])
+def test_huge_bucket_matches_jax_f64(P, monkeypatch):
     """A synthetic bucket a huge form takes (a random valid arc set: kinds,
     slots and flags, not a BDD), past the wide records' 8,192 slots, a wide
     one the plan routes there, or one past a block's shared memory that the
-    cluster body takes (the narrowest in float64), carried across with
-    ``from_jax_arrays`` and held to the JAX package's XLA bucket functions in
-    float64 (atol 1e-12): forward and backward half-sweeps, the backward run
-    and the min-marginals. H and B are small because the XLA functions
-    gather with one-hot [P, P, B] masks (at 19,317 slots about 6 GB and 20
-    s on the CPU)."""
+    cluster body takes (the narrowest in float64, and a power-of-two bucket
+    of 65,536 slots, past what four-byte slot codes hold), carried across
+    with ``from_jax_arrays`` and held to the JAX package's XLA bucket
+    functions in float64 (atol 1e-12): forward and backward half-sweeps, the
+    backward run and the min-marginals. H and B are small because the XLA
+    functions gather with one-hot [P, P, B] masks (at 19,317 slots about 6 GB
+    and 20 s on the CPU). At 65,536 slots those masks would take some 70 GB,
+    so there the XLA functions run with their two mask helpers replaced by
+    an index gather and a scatter-min (``_gathered_child_cft``,
+    ``_scattered_relax_next``), which are first held to the masks on a
+    bucket of 256 slots."""
     H, B = 2, 1
+    if P > layout.CLUSTER_MAX_P:
+        r = np.random.RandomState(3)
+        n, b = 256, 3
+        kind, slot = r.randint(0, 3, (n, b)), r.randint(-2, n + 3, (n, b))
+        cft_next = np.where(r.rand(n, b) < 0.2, np.inf, r.randn(n, b))
+        vals, valid = r.randn(n, b), r.rand(n, b) < 0.8
+        j = [jnp.asarray(x) for x in (kind, slot, cft_next, vals, valid)]
+        np.testing.assert_array_equal(_gathered_child_cft(j[0], j[1], j[2], n),
+                                      uf._child_cft(j[0], j[1], j[2], n))
+        np.testing.assert_array_equal(_scattered_relax_next(j[3], j[0], j[1], j[4], n),
+                                      uf._relax_next(j[3], j[0], j[1], j[4], n))
+        monkeypatch.setattr(uf, "_child_cft", _gathered_child_cft)
+        monkeypatch.setattr(uf, "_relax_next", _scattered_relax_next)
     rng = np.random.RandomState(7 if P > layout.WIDE_P else 11)
     b = random_bucket(P, H, B, rng, packed=False)
     b["layer_valid"][:] = True
@@ -264,6 +302,8 @@ def test_huge_bucket_matches_jax_f64(P):
     body = "huge_cluster" if P > 19316 else "huge"
     assert layout.body_of(P, 8, B) == body and plan.nr_wide == plan.nr_l2 == 0
     assert (plan.nr_huge, plan.nr_cluster) == ((1, 0) if body == "huge" else (0, 1))
+    if body == "huge_cluster":  # the launch's slot codes: four bytes below 65,533 slots
+        assert layout.cluster_code_bytes(plan.cluster_pmax) == (8 if P > 65533 else 4)
     dl, dh = rng.randn(H, B), rng.randn(H, B)
     dl[0, 0] = np.inf
     tl, th = torch.from_numpy(dl), torch.from_numpy(dh)
