@@ -149,15 +149,19 @@ def _declare(lib: ctypes.CDLL) -> None:
                      "uniform_backward_huge", "uniform_backward_run_huge"):
             f = getattr(lib, f"{name}_{suffix}")
             f.argtypes, f.restype = sig, i
-    # the L2 body's entries: (table, nr_buckets, nr_blocks, threads, arcs, lo,
-    #  hi, din_lo, din_hi, alpha, omega_arr, omega, frontier in, out_lo,
-    #  out_hi, out_mm, frontier out, scratch, stream)
-    huge = [vp, i, i, i] + [vp] * 7 + [d] + [vp] * 7
+    # the L2 body's entries: (table, nr_buckets, nr_blocks, threads, split,
+    #  nr_columns, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, omega,
+    #  frontier in, out_lo, out_hi, out_mm, frontier out, rows, partials,
+    #  counters, stream), and the card's answer for its blocks an SM:
+    #  (threads, out)
+    huge = [vp, i, i, i, i, i] + [vp] * 7 + [d] + [vp] * 9
     for suffix in ("f32", "f64"):
         for name in ("uniform_forward_huge_l2", "uniform_backward_huge_l2",
                      "uniform_backward_run_huge_l2"):
             f = getattr(lib, f"{name}_{suffix}")
             f.argtypes, f.restype = huge, i
+        f = getattr(lib, f"uniform_huge_l2_occupancy_{suffix}")
+        f.argtypes, f.restype = [i, ctypes.POINTER(ctypes.c_int)], i
     # the cluster body's entries: (table, nr_buckets, nr_blocks, threads,
     #  cluster, pmax, smem_bytes, arcs, ..., frontier out, stream), and the
     #  card's answer for its clusters: (cluster, threads, smem_bytes, pmax,

@@ -65,10 +65,12 @@
 // Build: nvcc without --use_fast_math (isinf/isnan must hold) and with
 // -fmad=false (no FMA contraction), so results match the twin bit for bit.
 // Each launch runs on the caller's stream; the C entry points return
-// cudaGetLastError(), -1 for a largest P with no instantiation (or a forward
-// L2 launch without its scratch rows, or shared memory past the opt-in), or
-// -2 for a tile that is not 32 or 64 columns (a block size the wide or huge
-// body does not take, or a huge bucket too wide for a slot code).
+// cudaGetLastError(), -1 for a largest P with no instantiation (or an L2
+// launch without its scratch, or shared memory past the opt-in), -2 for a
+// tile that is not 32 or 64 columns (a block size the wide or huge body does
+// not take, a huge bucket too wide for a slot code, or an L2 split the body
+// does not take), or the code of a launch the card refused (a cooperative
+// L2 grid it cannot place at once).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -847,21 +849,20 @@ int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int
 //    section below): wider buckets whose rows fit the shared memory of a
 //    cluster of 2, 4, 8 or 16 blocks, each block a share of the row
 //    (layout.cluster_fits);
-//  * the L2 body (sweep_huge_l2_kernel, "_huge_l2"), for what no cluster
-//    holds (and where the plan is told so): its rows in device memory. Its
-//    forward rows lie in a scratch
-//    buffer in device memory ([B, 2, P] per bucket, layout.huge_scratch; the
-//    table's last column is the bucket's offset into it), relaxed by global
-//    atomicMin; its backward gathers from the row it wrote as output one hop
-//    before, through L2 with __ldcg. No ring; every load is issued where it
-//    is used.
+//  * the L2 body (sweep_huge_l2_kernel, "_huge_l2", its own section
+//    below), for what no cluster holds (and where the plan is told so): its
+//    rows in device memory, served from L2, each column spread over G blocks
+//    (LaunchPlan.l2_split) that meet at a hop barrier of the column in
+//    device memory; the forward's key rows in a scratch buffer
+//    (layout.huge_scratch), relaxed by global atomicMin.
 //
-// What the L2 body spends its time on (chip_smoke.py --huge-split,
-// knapsack48 at B = 132 on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
-// section 6): its global atomics and L2 gathers, not its bytes. The
-// forward with its relaxation into a row of shared memory took 1.14 / 1.62
-// ms instead of 1.44 / 2.04 (float32 / float64); prefetching the next hop to
-// L2 made either body slower (1.71 / 2.37 ms), so no body prefetches.
+// Two findings of the L2 body's first form, one block a column
+// (chip_smoke.py --huge-split, knapsack48 at B = 132 on an NVIDIA H100
+// 80GB HBM3 at 700 W; PERF.md section 6): it spent its time on its global
+// atomics and L2 gathers, not its bytes. Its forward with the relaxation
+// into a row of shared memory took 1.14 / 1.62 ms instead of 1.44 / 2.04
+// (float32 / float64); prefetching the next hop to L2 made either body
+// slower (1.71 / 2.37 ms), so no body prefetches.
 //
 // Design of the shared-memory body, and what each point answers:
 //  * Every random access goes to shared memory. The forward relaxation is a
@@ -2042,19 +2043,98 @@ int cluster_occupancy(int cluster, int threads, int smem_bytes, int pmax, int* c
 }
 
 // ------------------------------------------- huge buckets: the L2 body
-// The L2 form of the huge body (see the huge section's note). Per forward
-// hop: each thread decodes its slots of the current row (or the root
-// restart), writes them out as cfr, takes its part of the min-marginals and
-// sets its slots of the next row to the key of +inf; a block reduction of the
-// min-marginals (one __syncthreads, which also makes every reset visible);
-// the cost update, computed alike by every thread; the relaxation, a global
-// atomicMin on Key<T> per internal arc; a __syncthreads ends the hop. Per
-// backward hop each slot gathers its two children from the row of hop h+1,
-// which this block wrote one hop before as its output (cft): the
-// min-marginals' reduction and one __syncthreads, no atomics. Rows written
-// in this launch are read back with __ldcg (from L2), which the barrier
-// orders.
+// The L2 form of the huge body (see the huge section's note): each column of
+// an L2 bucket spread over G blocks (LaunchPlan.l2_split), its rows in device
+// memory, served from L2. Block g of a column owns the chunks of L2_CHUNK
+// slots (a warp's) whose index is g modulo G; warp w of the block takes the
+// block's chunks w, w + warps, ..., a lane one slot of each
+// (layout.l2_slots mirrors it). Per forward hop, two hop barriers of the
+// column (below): each block decodes its slots (or the root restart), writes
+// them out as cfr, takes its pair of partial min-marginals and resets its
+// slots of the next key row to +inf; barrier A (the partials are visible,
+// and every reset is ordered before any other block's atomicMin lands
+// there); every block reduces the column's G partials in one order (warp 0,
+// in every block alike) and makes the same cost update; each block relaxes
+// its slots' arcs by a global atomicMin on Key<T> into the column's next row
+// in the scratch; barrier B (the row is complete). Per backward hop: the
+// partials, from cfr of the hop and the children's cft in the row of hop
+// h+1 that the column wrote one hop before (__ldcg, after that hop's barrier
+// B); barrier A; the cost update; the block's slots of cft; barrier B. The
+// run: its slots of cft, one barrier. Block 0 of the column writes the
+// layer's outputs. G = 1 is a block a column, the hop barrier a
+// __syncthreads and the partials the block's own: the body as it was before
+// the column was spread. A gather or a relaxation touches only a slot that
+// holds a node (most slots of a layer hold none).
+//
+// The hop barrier of a column (ColumnBarrier): __syncthreads; thread 0 adds
+// one to the column's counter with red.release.gpu (a release: what the
+// block wrote before the __syncthreads is visible before its arrival) and
+// spins on an ld.acquire.gpu of it until the column's G blocks have all
+// arrived (an acquire: what they wrote is visible, to the block through the
+// next __syncthreads); __syncthreads. The release and the acquire order the
+// memory themselves, so no fence stands beside them (variant l2_fenced of
+// chip_smoke.py --huge-split barrier adds __threadfence on both sides).
+// Counters are per column, not per grid: one launch
+// holds L2 buckets of different H, whose columns pass different numbers of
+// barriers. Each launch zeroes its counters on the stream first
+// (cudaMemsetAsync, no host sync), so a barrier's target is G times the
+// barriers passed. Blocks wait for other blocks, so where G > 1 the grid is
+// launched cooperatively (cudaLaunchKernelEx, cudaLaunchAttributeCooperative):
+// the card places every block at once or refuses the launch, and the refusal
+// comes back as the entry's code (the wrapper raises). Rows written in the
+// launch are read back with __ldcg (L2), never through L1.
+//
+// What it answers: with one block a column (the first form) a row of 262,144
+// slots over 2 columns kept 2 of the 132 SMs busy, each of their threads
+// walking 256 slots a hop as chains of dependent loads and atomics: 274 us a
+// forward hop against about 3.7 us of bytes (chip_smoke.py, phase 6, on an
+// NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6). The plan takes G from the card's resident blocks over the L2
+// columns (66 at 2 columns), so every SM works on the column and a thread
+// on about 4 slots a hop, their loads issued HUGE_GROUP at a time. Chunks of
+// a warp, dealt out in turn, spread a layer whose nodes fill its low slots
+// over every block of the column.
+// Scratch (layout.huge_scratch, three parts): the forward's key rows [B, 2,
+// P] per bucket (the table's last column is the bucket's offset, in values),
+// then, where G > 1, the partials [columns, G, 2] values and the counters
+// [columns] (u32). A column's place in them is first_block / G + b.
 __device__ __forceinline__ unsigned huge_flag(uint32_t w) { return (w >> 30) & 1u; }
+
+constexpr int L2_CHUNK = 32;        // slots a chunk of a block's share: a warp's
+constexpr int L2_MAX_SPLIT = 256;   // blocks a column, at most (layout.L2_MAX_SPLIT)
+
+struct L2Scratch {
+  unsigned char* rows;  // the forward's key rows
+  void* partials;       // [columns, G, 2] values (G > 1)
+  unsigned* counters;   // [columns] arrivals at the column's barriers (G > 1)
+  int split;            // G: blocks a column
+};
+
+__device__ __forceinline__ void red_release_add(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// the hop barrier of one column of `blocks` blocks (see above); `passed`
+// counts the arrivals the column's counter has seen at this block's last one
+struct ColumnBarrier {
+  unsigned* counter;
+  unsigned blocks, passed;
+  __device__ __forceinline__ void sync() {
+    __syncthreads();
+    if (blocks == 1) return;
+    passed += blocks;
+    if (threadIdx.x == 0) {
+      red_release_add(counter, 1u);
+      while (ld_acquire(counter) < passed) {
+      }
+    }
+    __syncthreads();
+  }
+};
 
 // min of (m0, m1) over the block, in every thread; `red` is [64] in shared
 // memory, free again once the block has passed its next barrier
@@ -2078,31 +2158,107 @@ __device__ __forceinline__ void block_min2(T& m0, T& m1, T* red) {
   m1 = y;
 }
 
+// min of (m0, m1) over the column, the same in every thread of its G
+// blocks: over the block, warp 0 stores the block's pair as partial g, the
+// column's barrier A, and warp 0 of every block reduces the G pairs in one
+// order (lane-strided, then the butterfly; lane 0's result, broadcast
+// through `red`). G = 1: the block's own reduction.
+template <typename T>
+__device__ __forceinline__ void column_min2(T& m0, T& m1, T* red, T* part, int g,
+                                            ColumnBarrier& bar) {
+  const int G = (int)bar.blocks;
+  if (G == 1) {
+    block_min2(m0, m1, red);
+    return;
+  }
+  const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
+  const int warps = (int)blockDim.x >> 5;
+  const T inf = inf_v<T>();
+  m0 = warp_min(m0);
+  m1 = warp_min(m1);
+  if (lane == 0) {
+    red[warp] = m0;
+    red[32 + warp] = m1;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const T x = warp_min(lane < warps ? red[lane] : inf);
+    const T y = warp_min(lane < warps ? red[32 + lane] : inf);
+    if (lane == 0) {
+      part[2 * g] = x;
+      part[2 * g + 1] = y;
+    }
+  }
+  bar.sync();  // barrier A
+  if (warp == 0) {
+    T x = inf, y = inf;
+    for (int q = lane; q < G; q += 32) {
+      x = min_v(x, __ldcg(part + 2 * q));
+      y = min_v(y, __ldcg(part + 2 * q + 1));
+    }
+    x = warp_min(x);
+    y = warp_min(y);
+    if (lane == 0) {
+      red[0] = x;
+      red[32] = y;
+    }
+  }
+  __syncthreads();
+  m0 = red[0];
+  m1 = red[32];
+}
+
+// a child's cost from its arc word: TOP 0, BOT +inf, an internal arc the
+// row's value at its slot (`row` null: past the last hop, +inf; a slot
+// outside the bucket: 0, as the twins); `L2`: the row was written in this
+// launch (__ldcg), else it is an input (__ldg)
+template <typename T, bool L2>
+__device__ __forceinline__ T l2_child(uint32_t w, long long P, const T* row) {
+  const unsigned kind = w & 3u;
+  if (kind != ARC_INTERNAL) return kind == ARC_TOP ? T(0) : inf_v<T>();
+  const long long slot = (w >> 2) & HUGE_SLOT_MASK;
+  if (slot >= P) return T(0);
+  if (row == nullptr) return inf_v<T>();
+  if constexpr (L2) return __ldcg(row + slot);
+  else return __ldg(row + slot);
+}
+
 template <typename T, int MODE>
 __global__ void __launch_bounds__(HUGE_MAX_THREADS) sweep_huge_l2_kernel(Args<T> a,
-                                                                          unsigned char* scratch) {
+                                                                          L2Scratch s) {
   using K = Key<T>;
   using U = typename K::U;
   constexpr bool FORWARD = MODE == MODE_FORWARD, RUN = MODE == MODE_BACKWARD_RUN;
+  constexpr int GR = HUGE_GROUP;
   __shared__ T red[64];
   int k = 0;
   while (k + 1 < a.nr_buckets && (long long)blockIdx.x >= a.table[k + 1].first_block) ++k;
   const Bucket bk = a.table[k];
   const long long P = bk.P, B = bk.B;
   const int H = (int)bk.H;
-  const long long b = (long long)blockIdx.x - bk.first_block;  // the column
-  const long long t0 = threadIdx.x, nt = blockDim.x;
+  const int G = s.split;
+  const long long j = (long long)blockIdx.x - bk.first_block;
+  const long long b = j / G;         // the column
+  const int g = (int)(j - b * G);    // this block's share of it
+  const long long column = bk.first_block / G + b;  // its place in the partials and counters
+  const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
+  const int warps = (int)blockDim.x >> 5;
+  // this thread's slots: first, first + stride, ... (layout.l2_slots)
+  const long long first = ((long long)warp * G + g) * L2_CHUNK + lane;
+  const long long stride = (long long)warps * G * L2_CHUNK;
+  ColumnBarrier bar{G > 1 ? s.counters + column : nullptr, (unsigned)G, 0u};
+  T* const part = G > 1 ? (T*)s.partials + column * 2 * G : nullptr;
   const T inf = inf_v<T>();
   const uint32_t* g_arcs = (const uint32_t*)(a.arcs + bk.arc_off);
   const T* g_front = RUN ? nullptr : a.frontier + bk.node_off;  // rows [H, B, P]
   T* g_out = a.out_frontier + bk.node_off;
-  // forward: this column's rows in the scratch buffer (the table's last
-  // column is the bucket's offset into it, in values)
-  U* row_a = FORWARD ? (U*)scratch + bk.stages + b * 2 * P : nullptr;
+  // forward: this column's key rows in the scratch (the table's last
+  // column is the bucket's offset into them, in values)
+  U* row_a = FORWARD ? (U*)s.rows + bk.stages + b * 2 * P : nullptr;
   U* row_b = FORWARD ? row_a + P : nullptr;
   if constexpr (FORWARD) {
-    // each thread reads only its own slots of row_a before the first barrier
-    for (long long p = t0; p < P; p += nt) row_a[p] = K::enc(inf);
+    // only this thread reads its slots of row_a before the first barrier
+    for (long long p = first; p < P; p += stride) row_a[p] = K::enc(inf);
   }
 
   for (int i = 0; i < H; ++i) {
@@ -2110,117 +2266,200 @@ __global__ void __launch_bounds__(HUGE_MAX_THREADS) sweep_huge_l2_kernel(Args<T>
     const size_t col = (size_t)h * B + b;
     const uint32_t* rec = g_arcs + col * 2 * P;
     const size_t e = (size_t)bk.row_off + col;
-    const T lo = a.lo[e], hi = a.hi[e];
+    const T lo = __ldg(a.lo + e), hi = __ldg(a.hi + e);
     T* fout_h = g_out + col * P;
     T m0 = inf, m1 = inf, nl = lo, nh = hi, mm = T(0);
 
     if constexpr (FORWARD) {
       const U* cur = row_a;
       U* nxt = row_b;
-      const bool restart = huge_flag(rec[P + 1]) != 0;  // also the hop-0 init
-      const bool last = h + 1 >= H;
-      const T* fr = last ? nullptr : g_front + (col + B) * P;  // cft of hop h+1
+      const bool restart = huge_flag(__ldg(rec + P + 1)) != 0;  // also the hop-0 init
+      const T* fr = h + 1 < H ? g_front + (col + B) * P : nullptr;  // cft of hop h+1
       const U key_inf = K::enc(inf);
-      for (long long p = t0; p < P; p += nt) {
-        const uint32_t lb = rec[p], hb = rec[P + p];
-        const unsigned lk = lb & 3u, ls = (lb >> 2) & HUGE_SLOT_MASK;
-        const unsigned hk = hb & 3u, hs = (hb >> 2) & HUGE_SLOT_MASK;
-        // cft of the child: TOP -> 0, BOT -> inf, else cft[h+1][slot] (inf
-        // past the last hop; 0 for a slot outside the bucket, as the twin)
-        T tl = lk == ARC_TOP ? T(0) : inf, th = hk == ARC_TOP ? T(0) : inf;
-        if (lk == ARC_INTERNAL) tl = ls < P ? (last ? inf : fr[ls]) : T(0);
-        if (hk == ARC_INTERNAL) th = hs < P ? (last ? inf : fr[hs]) : T(0);
-        const bool nv = huge_flag(lb) != 0;
-        const T f = restart ? (p == 0 ? T(0) : inf) : K::dec(__ldcg(cur + p));
-        m0 = min_v(m0, nv ? f + lo + tl : inf);
-        m1 = min_v(m1, nv ? f + hi + th : inf);
-        fout_h[p] = f;
-        nxt[p] = key_inf;
+      for (long long p0 = first; p0 < P; p0 += GR * stride) {
+        uint32_t lb[GR], hb[GR];
+        T f[GR], tl[GR], th[GR];
+#pragma unroll
+        for (int u = 0; u < GR; ++u) {
+          const long long p = p0 + u * stride;
+          const bool in = p < P;
+          lb[u] = in ? __ldg(rec + p) : 0u;
+          hb[u] = in ? __ldg(rec + P + p) : 0u;
+          f[u] = restart ? (p == 0 ? T(0) : inf) : (in ? K::dec(__ldcg(cur + p)) : inf);
+        }
+#pragma unroll
+        for (int u = 0; u < GR; ++u) {
+          const bool nv = huge_flag(lb[u]) != 0;
+          tl[u] = nv ? l2_child<T, false>(lb[u], P, fr) : inf;
+          th[u] = nv ? l2_child<T, false>(hb[u], P, fr) : inf;
+        }
+#pragma unroll
+        for (int u = 0; u < GR; ++u) {
+          const long long p = p0 + u * stride;
+          if (p < P) {
+            const bool nv = huge_flag(lb[u]) != 0;
+            m0 = min_v(m0, nv ? f[u] + lo + tl[u] : inf);
+            m1 = min_v(m1, nv ? f[u] + hi + th[u] : inf);
+            fout_h[p] = f[u];
+            nxt[p] = key_inf;  // no other block reaches it before barrier A
+          }
+        }
       }
-      block_min2(m0, m1, red);  // the barrier: every reset is visible below
-      const T om = a.omega_arr ? a.omega_arr[e] : a.omega;
-      hop_cost_update(lo, hi, m0, m1, om, a.alpha[e], a.din_lo[e], a.din_hi[e],
-                      huge_flag(rec[P]) != 0, nl, nh, mm);
+      column_min2(m0, m1, red, part, g, bar);  // barrier A: every reset is in
+      const T om = a.omega_arr ? __ldg(a.omega_arr + e) : a.omega;
+      hop_cost_update(lo, hi, m0, m1, om, __ldg(a.alpha + e), __ldg(a.din_lo + e),
+                      __ldg(a.din_hi + e), huge_flag(__ldg(rec + P)) != 0, nl, nh, mm);
       // relax the frontier to h+1: nxt[k] = min over valid p with an
       // internal arc into k of cfr[p] + cost of that arc
-      for (long long p = t0; p < P; p += nt) {
-        const uint32_t lb = rec[p], hb = rec[P + p];
-        if (!huge_flag(lb)) continue;
-        const unsigned ls = (lb >> 2) & HUGE_SLOT_MASK, hs = (hb >> 2) & HUGE_SLOT_MASK;
-        const T f = restart ? (p == 0 ? T(0) : inf) : K::dec(__ldcg(cur + p));
-        if ((lb & 3u) == ARC_INTERNAL && ls < P) atomicMin(nxt + ls, K::enc(f + nl));
-        if ((hb & 3u) == ARC_INTERNAL && hs < P) atomicMin(nxt + hs, K::enc(f + nh));
+      for (long long p0 = first; p0 < P; p0 += GR * stride) {
+        uint32_t lb[GR], hb[GR];
+        T f[GR];
+#pragma unroll
+        for (int u = 0; u < GR; ++u) {
+          const long long p = p0 + u * stride;
+          lb[u] = p < P ? __ldg(rec + p) : 0u;
+          hb[u] = p < P ? __ldg(rec + P + p) : 0u;
+          const bool any = huge_flag(lb[u]) && ((lb[u] & 3u) == ARC_INTERNAL ||
+                                                (hb[u] & 3u) == ARC_INTERNAL);
+          f[u] = !any ? T(0) : restart ? (p == 0 ? T(0) : inf) : K::dec(__ldcg(cur + p));
+        }
+#pragma unroll
+        for (int u = 0; u < GR; ++u) {
+          if (!huge_flag(lb[u])) continue;
+          const long long ls = (lb[u] >> 2) & HUGE_SLOT_MASK, hs = (hb[u] >> 2) & HUGE_SLOT_MASK;
+          if ((lb[u] & 3u) == ARC_INTERNAL && ls < P) atomicMin(nxt + ls, K::enc(f[u] + nl));
+          if ((hb[u] & 3u) == ARC_INTERNAL && hs < P) atomicMin(nxt + hs, K::enc(f[u] + nh));
+        }
       }
     } else {
-      // cft of hop h+1: this block's output of the hop before (inf past the last hop)
+      // cft of hop h+1: the column's output of the hop before (none past the last hop)
       const T* cur = h + 1 < H ? g_out + (col + B) * P : nullptr;
       if constexpr (!RUN) {
-        const T* cfr = g_front + col * P;
-        for (long long p = t0; p < P; p += nt) {
-          const uint32_t lb = rec[p], hb = rec[P + p];
-          const unsigned lk = lb & 3u, ls = (lb >> 2) & HUGE_SLOT_MASK;
-          const unsigned hk = hb & 3u, hs = (hb >> 2) & HUGE_SLOT_MASK;
-          const T gl = ls < P ? (cur ? __ldcg(cur + ls) : inf) : T(0);
-          const T gh = hs < P ? (cur ? __ldcg(cur + hs) : inf) : T(0);
-          const T tl = lk == ARC_TOP ? T(0) : (lk == ARC_BOT ? inf : gl);
-          const T th = hk == ARC_TOP ? T(0) : (hk == ARC_BOT ? inf : gh);
-          const bool nv = huge_flag(lb) != 0;
-          const T cf = cfr[p];  // cfr of this hop
-          m0 = min_v(m0, nv ? cf + lo + tl : inf);
-          m1 = min_v(m1, nv ? cf + hi + th : inf);
+        const T* cfr = g_front + col * P;  // cfr of this hop
+        for (long long p0 = first; p0 < P; p0 += GR * stride) {
+          uint32_t lb[GR], hb[GR];
+          T cf[GR];
+#pragma unroll
+          for (int u = 0; u < GR; ++u) {
+            const long long p = p0 + u * stride;
+            lb[u] = p < P ? __ldg(rec + p) : 0u;
+            hb[u] = p < P ? __ldg(rec + P + p) : 0u;
+            cf[u] = p < P ? __ldg(cfr + p) : T(0);
+          }
+#pragma unroll
+          for (int u = 0; u < GR; ++u) {
+            const bool nv = huge_flag(lb[u]) != 0;  // false past the bucket's slots
+            const T tl = nv ? l2_child<T, true>(lb[u], P, cur) : inf;
+            const T th = nv ? l2_child<T, true>(hb[u], P, cur) : inf;
+            m0 = min_v(m0, nv ? cf[u] + lo + tl : inf);
+            m1 = min_v(m1, nv ? cf[u] + hi + th : inf);
+          }
         }
-        block_min2(m0, m1, red);
-        const T om = a.omega_arr ? a.omega_arr[e] : a.omega;
-        hop_cost_update(lo, hi, m0, m1, om, a.alpha[e], a.din_lo[e], a.din_hi[e],
-                        huge_flag(rec[P]) != 0, nl, nh, mm);
+        column_min2(m0, m1, red, part, g, bar);  // barrier A
+        const T om = a.omega_arr ? __ldg(a.omega_arr + e) : a.omega;
+        hop_cost_update(lo, hi, m0, m1, om, __ldg(a.alpha + e), __ldg(a.din_lo + e),
+                        __ldg(a.din_hi + e), huge_flag(__ldg(rec + P)) != 0, nl, nh, mm);
       }
-      for (long long p = t0; p < P; p += nt) {
-        const uint32_t lb = rec[p], hb = rec[P + p];
-        const unsigned lk = lb & 3u, ls = (lb >> 2) & HUGE_SLOT_MASK;
-        const unsigned hk = hb & 3u, hs = (hb >> 2) & HUGE_SLOT_MASK;
-        const T gl = ls < P ? (cur ? __ldcg(cur + ls) : inf) : T(0);
-        const T gh = hs < P ? (cur ? __ldcg(cur + hs) : inf) : T(0);
-        const T tl = lk == ARC_TOP ? T(0) : (lk == ARC_BOT ? inf : gl);
-        const T th = hk == ARC_TOP ? T(0) : (hk == ARC_BOT ? inf : gh);
-        fout_h[p] = huge_flag(lb) ? min_v(nl + tl, nh + th) : inf;
+      for (long long p0 = first; p0 < P; p0 += GR * stride) {
+        uint32_t lb[GR], hb[GR];
+#pragma unroll
+        for (int u = 0; u < GR; ++u) {
+          const long long p = p0 + u * stride;
+          lb[u] = p < P ? __ldg(rec + p) : 0u;
+          hb[u] = p < P ? __ldg(rec + P + p) : 0u;
+        }
+#pragma unroll
+        for (int u = 0; u < GR; ++u) {
+          const long long p = p0 + u * stride;
+          const bool nv = huge_flag(lb[u]) != 0;
+          const T tl = nv ? l2_child<T, true>(lb[u], P, cur) : inf;
+          const T th = nv ? l2_child<T, true>(hb[u], P, cur) : inf;
+          if (p < P) fout_h[p] = nv ? min_v(nl + tl, nh + th) : inf;
+        }
       }
-    }
-    __syncthreads();  // the row is built before the next hop reads it
-    if constexpr (FORWARD) {
-      U* const swap = row_a;
-      row_a = row_b;
-      row_b = swap;
     }
     if constexpr (!RUN) {
-      if (t0 == 0) {
+      if (g == 0 && threadIdx.x == 0) {
         a.out_lo[e] = nl;
         a.out_hi[e] = nh;
         a.out_mm[e] = mm;
       }
     }
+    bar.sync();  // barrier B: the row is built before the next hop reads it
+    if constexpr (FORWARD) {
+      U* const swap = row_a;
+      row_a = row_b;
+      row_b = swap;
+    }
   }
 }
 
-// as `launch`, over the table of the L2 body: one block of `threads`
-// threads a column; `scratch`: the forward rows (null for the backward
-// entries, which keep none)
+// as `launch`, over the table of the L2 body: `split` blocks of `threads`
+// threads a column over `nr_columns` columns; `rows` (the forward's key
+// rows), `partials` and `counters` (where split > 1): the layout's scratch.
+// split > 1 zeroes the counters and launches cooperatively; a grid the card
+// cannot place at once is refused, and the code returned.
 template <typename T, int MODE>
-int launch_huge_l2(const void* table, int nr_buckets, int nr_blocks, int threads,
-                   const void* arcs, const void* lo, const void* hi, const void* din_lo,
-                   const void* din_hi, const void* alpha, const void* omega_arr, double omega,
-                   const void* frontier, void* out_lo, void* out_hi, void* out_mm,
-                   void* out_frontier, void* scratch, void* stream) {
+int launch_huge_l2(const void* table, int nr_buckets, int nr_blocks, int threads, int split,
+                   int nr_columns, const void* arcs, const void* lo, const void* hi,
+                   const void* din_lo, const void* din_hi, const void* alpha,
+                   const void* omega_arr, double omega, const void* frontier, void* out_lo,
+                   void* out_hi, void* out_mm, void* out_frontier, void* rows, void* partials,
+                   void* counters, void* stream) {
   if (nr_blocks == 0) return 0;
   if (threads < 32 || threads > HUGE_MAX_THREADS || threads % 32) return -2;
-  if (MODE == MODE_FORWARD && scratch == nullptr) return -1;
+  if (split < 1 || split > L2_MAX_SPLIT || nr_columns < 1 ||
+      (long long)nr_blocks != (long long)split * nr_columns)
+    return -2;
+  if (MODE == MODE_FORWARD && rows == nullptr) return -1;
+  if (split > 1 && (partials == nullptr || counters == nullptr)) return -1;
   const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
                   (const T*)lo,         (const T*)hi,       (const T*)din_lo,
                   (const T*)din_hi,     (const T*)alpha,    (const T*)omega_arr,
                   (T)omega,             (const T*)frontier, (T*)out_lo,
                   (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
-  sweep_huge_l2_kernel<T, MODE><<<nr_blocks, threads, 0, (cudaStream_t)stream>>>(
-      a, (unsigned char*)scratch);
+  const L2Scratch sc{(unsigned char*)rows, partials, (unsigned*)counters, split};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (split == 1) {
+    sweep_huge_l2_kernel<T, MODE><<<nr_blocks, threads, 0, s>>>(a, sc);
+    return (int)cudaGetLastError();
+  }
+  cudaError_t rc = cudaMemsetAsync(counters, 0, (size_t)nr_columns * sizeof(unsigned), s);
+  if (rc != cudaSuccess) return (int)rc;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)nr_blocks);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  rc = cudaLaunchKernelEx(&cfg, sweep_huge_l2_kernel<T, MODE>, a, sc);
+  if (rc != cudaSuccess) {
+    cudaGetLastError();  // a refused launch is no error of the next one
+    return (int)rc;
+  }
   return (int)cudaGetLastError();
+}
+
+// the blocks of `threads` threads of the L2 body an SM holds at once, the
+// least over its three entries (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// into *blocks
+template <typename T>
+int l2_occupancy(int threads, int* blocks) {
+  int n[3] = {0, 0, 0};
+  cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n[0], sweep_huge_l2_kernel<T, MODE_FORWARD>, threads, 0);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n[1], sweep_huge_l2_kernel<T, MODE_BACKWARD>, threads, 0);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n[2], sweep_huge_l2_kernel<T, MODE_BACKWARD_RUN>, threads, 0);
+  *blocks = n[0] < n[1] ? (n[0] < n[2] ? n[0] : n[2]) : (n[1] < n[2] ? n[1] : n[2]);
+  return (int)rc;
 }
 
 }  // namespace
@@ -2265,20 +2504,21 @@ SWEEP_ENTRY(uniform_backward_huge_f64, launch_huge, double, MODE_BACKWARD)
 SWEEP_ENTRY(uniform_backward_run_huge_f32, launch_huge, float, MODE_BACKWARD_RUN)
 SWEEP_ENTRY(uniform_backward_run_huge_f64, launch_huge, double, MODE_BACKWARD_RUN)
 
-// the L2 body's entries: (table, nr_buckets, nr_blocks, threads, arcs, lo, hi,
-// din_lo, din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi,
-// out_mm, frontier out, scratch, stream)
-#define HUGE_ENTRY(NAME, T, MODE)                                                    \
-  extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks, int threads,  \
-                      const void* arcs, const void* lo, const void* hi,              \
-                      const void* din_lo, const void* din_hi, const void* alpha,     \
-                      const void* omega_arr, double omega, const void* frontier,     \
-                      void* out_lo, void* out_hi, void* out_mm, void* out_frontier,  \
-                      void* scratch, void* stream) {                                 \
-    return launch_huge_l2<T, MODE>(table, nr_buckets, nr_blocks, threads, arcs, lo,    \
-                                   hi, din_lo, din_hi, alpha, omega_arr, omega,         \
-                                   frontier, out_lo, out_hi, out_mm, out_frontier,      \
-                                   scratch, stream);                                    \
+// the L2 body's entries: (table, nr_buckets, nr_blocks, threads, split,
+// nr_columns, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, omega, frontier
+// in, out_lo, out_hi, out_mm, frontier out, rows, partials, counters, stream)
+#define HUGE_ENTRY(NAME, T, MODE)                                                     \
+  extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks, int threads,   \
+                      int split, int nr_columns, const void* arcs, const void* lo,    \
+                      const void* hi, const void* din_lo, const void* din_hi,         \
+                      const void* alpha, const void* omega_arr, double omega,         \
+                      const void* frontier, void* out_lo, void* out_hi, void* out_mm, \
+                      void* out_frontier, void* rows, void* partials, void* counters, \
+                      void* stream) {                                                 \
+    return launch_huge_l2<T, MODE>(table, nr_buckets, nr_blocks, threads, split,        \
+                                   nr_columns, arcs, lo, hi, din_lo, din_hi, alpha,     \
+                                   omega_arr, omega, frontier, out_lo, out_hi, out_mm,  \
+                                   out_frontier, rows, partials, counters, stream);     \
   }
 
 HUGE_ENTRY(uniform_forward_huge_l2_f32, float, MODE_FORWARD)
@@ -2323,4 +2563,12 @@ extern "C" int uniform_huge_cluster_occupancy_f32(int cluster, int threads, int 
 extern "C" int uniform_huge_cluster_occupancy_f64(int cluster, int threads, int smem_bytes,
                                                   int pmax, int* clusters) {
   return cluster_occupancy<double>(cluster, threads, smem_bytes, pmax, clusters);
+}
+// (threads, blocks out): the blocks of the L2 body an SM holds at once
+// (solver/layout.py sizes the blocks a column from the answer)
+extern "C" int uniform_huge_l2_occupancy_f32(int threads, int* blocks) {
+  return l2_occupancy<float>(threads, blocks);
+}
+extern "C" int uniform_huge_l2_occupancy_f64(int threads, int* blocks) {
+  return l2_occupancy<double>(threads, blocks);
 }

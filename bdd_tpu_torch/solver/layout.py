@@ -306,6 +306,16 @@ CLUSTER_MAX_P = 0xFFFD  # four-byte slot codes hold slots below this
 # answers above imply them (132 SMs; at one block an SM they give exactly
 # 66 / 30 / 15 / 7): the estimate off the card.
 GPC_SMS = (18, 18, 18, 18, 18, 16, 16, 10)
+# The L2 body (rows past what a cluster of 16 holds, or where the plan is
+# told so) spreads each column over G blocks (``LaunchPlan.l2_split``) that
+# meet at a hop barrier of the column in device memory (uniform_sweep.cu,
+# the L2 section). Block g of a column owns the chunks of L2_CHUNK slots (a
+# warp's) whose index is g modulo G (:func:`l2_slots`). The plan takes G from
+# the blocks the card holds at once over the L2 columns
+# (:func:`choose_l2_split`); where G > 1 a cooperative launch places every
+# block at once or is refused. G = 1 is a block a column.
+L2_CHUNK = 32
+L2_MAX_SPLIT = 256  # blocks a column the kernel takes at most
 
 
 def sm_count(device) -> int:
@@ -367,6 +377,67 @@ def cluster_fits(P: int, itemsize: int) -> bool:
     return cluster_smem_bytes(P, max(CLUSTER_SIZES), itemsize) <= MAX_DYNAMIC_SMEM
 
 
+def l2_occupancy(itemsize: int, threads: int, device) -> int:
+    """Blocks of ``threads`` threads of the L2 body that an SM holds at once:
+    on the card its own answer (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    the least over the three entries); off it an estimate by the kernel's
+    register bound (64 a thread at HUGE_THREADS): HUGE_THREADS // threads."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        import ctypes
+
+        from bdd_tpu_torch import _build
+
+        out = ctypes.c_int(0)
+        fn = getattr(_build.load(), f"uniform_huge_l2_occupancy_f{8 * itemsize}")
+        with torch.cuda.device(device):
+            rc = fn(threads, ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed (code {rc}) "
+                               f"for the L2 body at {threads} threads a block")
+        return out.value
+    return max(1, HUGE_THREADS // threads)
+
+
+def choose_l2_split(columns: int, pmax: int, threads: int, resident: int) -> int:
+    """G, the blocks a column of the L2 body, for ``columns`` columns (of
+    buckets with a hop) whose widest bucket is ``pmax`` slots, at
+    ``threads`` threads a block on a card that holds ``resident`` such
+    blocks at once: as many as the card holds for every column together, at
+    most one a thread's worth of slots (ceil(pmax / threads)) and
+    L2_MAX_SPLIT, at least 1. 66 for 2 columns on 132 SMs at one block an
+    SM; 1 from 132 columns on (where the body runs as a block a column)."""
+    if columns < 1:
+        return 1
+    return max(1, min(resident // columns, -(-pmax // threads), L2_MAX_SPLIT))
+
+
+def l2_slots(P: int, G: int, g: int, threads: int) -> np.ndarray:
+    """The slots block g of a column of G blocks of ``threads`` threads
+    walks in a bucket of P slots, as the kernel's loops do (thread t = 32 w +
+    lane takes first = (w G + g) L2_CHUNK + lane, then every stride = (threads
+    / 32) G L2_CHUNK slots): the chunks of L2_CHUNK slots whose index is g
+    modulo G, one slot a lane."""
+    warps = threads // 32
+    first = ((np.arange(warps)[:, None] * G + g) * L2_CHUNK + np.arange(32)[None, :]).reshape(-1)
+    stride = warps * G * L2_CHUNK
+    slots = first[None, :] + stride * np.arange(-(-P // stride) + 1)[:, None]
+    return slots[slots < P]
+
+
+def l2_scratch_bytes(values: int, split: int, columns: int, itemsize: int) -> Tuple[int, int, int]:
+    """(byte offset of the partials, of the counters, bytes in all) of the L2
+    body's scratch: the forward's key rows (``values`` values), then, where
+    the split G is above 1, the partials of every column (G pairs of values)
+    and its counter (four bytes); each part starts 16-byte aligned.
+    ``uniform_sweep.cu`` reads them at these offsets."""
+    rows = _pad_to(values * itemsize, 16)
+    if split == 1:
+        return rows, rows, rows
+    counters = rows + _pad_to(2 * split * columns * itemsize, 16)
+    return rows, counters, counters + 4 * columns
+
+
 def body_of(P: int, itemsize: int, columns: int = 0, sms: int = SM_COUNT,
             huge_from: Optional[int] = None) -> str:
     """The sweep body a bucket of width P over ``columns`` columns runs in a
@@ -424,10 +495,12 @@ class LaunchPlan:
     the tables index the same flat buffers. The huge and the cluster table's
     last column holds the rows the bucket's backward keeps in shared memory
     (1 or 2); the L2 table's is the bucket's offset (in values) into the L2
-    form's scratch rows, the two frontier rows of every such column ([B, 2,
-    P] per bucket, ``huge_scratch_values`` in all). The plan is cached and shared by every
-    layout of its shapes, so it holds no buffer: each layout allocates its
-    own rows (:func:`huge_scratch`)."""
+    form's scratch rows, the forward's two key rows of every such column
+    ([B, 2, P] per bucket, ``huge_scratch_values`` in all), and its
+    ``first_block`` counts blocks, ``l2_split`` of them a column. The plan is
+    cached and shared by every layout of its shapes, so it holds no buffer:
+    each layout allocates its own scratch (:func:`huge_scratch`: the rows,
+    and the partials and counters of the column barriers)."""
 
     table: torch.Tensor  # int64 [nr_buckets, TABLE_COLUMNS]: the narrow buckets
     nr_buckets: int
@@ -464,9 +537,11 @@ class LaunchPlan:
     cluster_smem_backward: int  # the same, backward and run
     l2_table: torch.Tensor  # int64 [nr_l2, TABLE_COLUMNS]: the L2 body's buckets
     nr_l2: int
-    l2_blocks: int  # one a column
+    l2_blocks: int  # l2_split a column
     l2_threads: int  # threads a block: HUGE_THREADS
     huge_scratch_values: int  # sum 2 * P * B over the L2 body's buckets
+    l2_split: int  # G: the blocks a column of the L2 body (:func:`choose_l2_split`)
+    l2_columns: int  # the L2 body's columns (of buckets with a hop)
 
 
 def cell_bytes(P: int, itemsize: int) -> int:
@@ -675,7 +750,7 @@ def _cluster_plan(shapes, itemsize: int, sms: int, device: str, size: Optional[i
 def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
                  wide_stages: Optional[int], wide_warps: Optional[int],
                  huge_from: Optional[int], huge_body: Optional[str],
-                 cluster_size: Optional[int]) -> LaunchPlan:
+                 cluster_size: Optional[int], l2_split: Optional[int]) -> LaunchPlan:
     sms = sm_count(device)
     body = [body_of(P, itemsize, B, sms, huge_from) for P, _, B in shapes]
     if huge_from is None:
@@ -727,12 +802,19 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
         P, H, B = shapes[k]
         cluster_table[r] = (P, H, B, cluster_block, rows[k], nodes[k], arcs[k], cl_rows[r])
         cluster_block += C * B if H > 0 else 0
+    l2_cols = sum(shapes[k][2] for k in l2 if shapes[k][1] > 0)
+    if l2_split is None:
+        l2_split = choose_l2_split(
+            l2_cols, max((shapes[k][0] for k in l2), default=1), HUGE_THREADS,
+            sms * l2_occupancy(itemsize, HUGE_THREADS, device)) if l2_cols else 1
+    elif not 1 <= l2_split <= L2_MAX_SPLIT:
+        raise ValueError(f"the L2 body takes 1 to {L2_MAX_SPLIT} blocks a column, not {l2_split}")
     l2_table = np.zeros((len(l2), TABLE_COLUMNS), dtype=np.int64)
     l2_block = scratch = 0
     for r, k in enumerate(l2):
         P, H, B = shapes[k]
         l2_table[r] = (P, H, B, l2_block, rows[k], nodes[k], arcs[k], scratch)
-        l2_block += B if H > 0 else 0
+        l2_block += l2_split * B if H > 0 else 0
         scratch += 2 * P * B
     return LaunchPlan(
         table=torch.from_numpy(table).to(device), nr_buckets=len(narrow), nr_blocks=block,
@@ -750,14 +832,15 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
         cluster_pmax=max((shapes[k][0] for k in clustered), default=0),
         cluster_smem_forward=cl_fwd, cluster_smem_backward=cl_bwd,
         l2_table=torch.from_numpy(l2_table).to(device), nr_l2=len(l2), l2_blocks=l2_block,
-        l2_threads=HUGE_THREADS, huge_scratch_values=scratch,
+        l2_threads=HUGE_THREADS, huge_scratch_values=scratch, l2_split=l2_split,
+        l2_columns=l2_cols,
     )
 
 
 def launch_plan(shapes, dtype: torch.dtype, device, stages: Optional[int] = None,
                 wide_stages: Optional[int] = None, wide_warps: Optional[int] = None,
                 huge_from: Optional[int] = None, huge_body: Optional[str] = None,
-                cluster_size: Optional[int] = None) -> LaunchPlan:
+                cluster_size: Optional[int] = None, l2_split: Optional[int] = None) -> LaunchPlan:
     """The plan of one launch per body over buckets of ``shapes`` ((P, H, B)
     each) whose buffers lie flat, bucket after bucket. Built once per
     distinct argument list (cached). The other arguments force what the plan
@@ -768,34 +851,48 @@ def launch_plan(shapes, dtype: torch.dtype, device, stages: Optional[int] = None
     ``huge_body="huge_l2"`` the L2 body for
     every bucket past WIDE_P, ``huge_body="huge_cluster"`` the cluster body
     for every such bucket it holds, ``cluster_size`` the blocks of its
-    clusters (2, 4, 8 or 16)."""
+    clusters (2, 4, 8 or 16), ``l2_split`` the blocks a column of the L2
+    body (1 to L2_MAX_SPLIT; more than the card holds at once is refused at
+    the launch)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     return _launch_plan(tuple(tuple(int(x) for x in s) for s in shapes), itemsize,
                         str(torch.device(device)), stages, wide_stages, wide_warps,
-                        huge_from, huge_body, cluster_size)
+                        huge_from, huge_body, cluster_size, l2_split)
+
+
+def plan_scratch_bytes(plan: LaunchPlan, itemsize: int) -> Tuple[int, int, int]:
+    """:func:`l2_scratch_bytes` of ``plan``'s L2 launch."""
+    return l2_scratch_bytes(plan.huge_scratch_values, plan.l2_split, plan.l2_columns, itemsize)
 
 
 def huge_scratch(plan: LaunchPlan, dtype: torch.dtype, device) -> Optional[torch.Tensor]:
-    """The scratch rows of the L2 body over ``plan``'s buckets in its table
-    (uint8, ``huge_scratch_values`` values of ``dtype``): one buffer per
-    layout, made with it and freed with it. None off the card (the twins need
-    none) and where the plan sends no bucket to the L2 body."""
+    """The scratch of the L2 body over ``plan``'s buckets in its table (uint8,
+    :func:`plan_scratch_bytes`: the forward's key rows, and where the plan
+    splits a column the partials and counters that all three entries use):
+    one buffer per layout, made with it and freed with it. None off the card
+    (the twins need none) and where the plan sends no bucket to the L2
+    body."""
     device = torch.device(device)
-    if device.type != "cuda" or not plan.huge_scratch_values:
+    if device.type != "cuda" or not plan.l2_blocks:
         return None
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return torch.empty(plan.huge_scratch_values * itemsize, dtype=torch.uint8, device=device)
+    return torch.empty(plan_scratch_bytes(plan, itemsize)[2], dtype=torch.uint8, device=device)
 
 
 def solve_bytes(shapes, itemsize: int) -> int:
     """Device memory a solve over buckets of ``shapes`` works in: the arc
     records, per layer the state, the half-sweep's outputs, the deltas, alpha
     and three int64 index entries, per node the frontier in and out, and the
-    scratch rows of the buckets the L2 body takes (the cluster body keeps
-    none)."""
+    scratch of the buckets the L2 body takes (the cluster body keeps none):
+    their key rows and the partials and counters of their columns, counted at
+    L2_MAX_SPLIT blocks a column, the most any plan takes (a few KB a column
+    at most above the plan's own)."""
     _, _, _, E, N, arcs = _offsets(shapes)
-    scratch = sum(2 * P * B for P, _, B in shapes if body_of(P, itemsize) == "huge_l2")
-    return arcs + E * (9 * itemsize + 3 * 8) + (2 * N + scratch) * itemsize
+    l2 = [(P, H, B) for P, H, B in shapes if body_of(P, itemsize) == "huge_l2"]
+    columns = sum(B for _, H, B in l2 if H > 0)
+    split = L2_MAX_SPLIT if columns else 1
+    scratch = l2_scratch_bytes(sum(2 * P * B for P, _, B in l2), split, columns, itemsize)[2]
+    return arcs + E * (9 * itemsize + 3 * 8) + 2 * N * itemsize + scratch
 
 
 def _check_device_memory(shapes, itemsize: int, device: torch.device) -> None:
@@ -827,7 +924,7 @@ class UniformGeom:
     arcs: torch.Tensor  # uint8 [plan.arc_bytes]: every bucket's records
     alpha: torch.Tensor  # float [E]
     plan: LaunchPlan  # the launches over all buckets
-    huge_scratch: Optional[torch.Tensor] = None  # the huge body's rows (:func:`huge_scratch`)
+    huge_scratch: Optional[torch.Tensor] = None  # the L2 body's scratch (:func:`huge_scratch`)
 
     @property
     def V(self) -> int:

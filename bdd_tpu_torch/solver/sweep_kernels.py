@@ -60,6 +60,7 @@ from bdd_tpu_torch.solver.layout import (
     UniformGeom,
     huge_scratch,
     launch_plan,
+    plan_scratch_bytes,
 )
 
 SUPPORTED_P = (1, 2, 4, 8, 16, 32)  # the narrow body's instantiations
@@ -115,8 +116,9 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
     body's and the L2 body's, each where the plan has blocks for it) and raises on a launch
     error. It holds its tensors alive and does not count; ``launch.counts``
     names the key of ``LAUNCHES`` of every launch a call makes. ``scratch``:
-    the rows of the L2 body (:func:`layout.huge_scratch`), which the forward's
-    L2 launch needs and the others do not read."""
+    the L2 body's (:func:`layout.huge_scratch`): the key rows, which the
+    forward reads, and the partials and counters of the column barriers,
+    which every entry needs where the plan splits a column."""
     suffix = _suffix(lo.dtype)
     if isinstance(omega, torch.Tensor) and omega.dim() > 0:
         omega_arr, omega_val = omega, 0.0
@@ -153,10 +155,14 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
             plan.cluster_table.data_ptr(), plan.nr_cluster, plan.cluster_blocks,
             plan.cluster_threads, plan.cluster_size, plan.cluster_pmax, smem, *buffers)))
     if plan.l2_blocks:
-        rows = scratch if kernel == "uniform_forward" else None
+        if scratch is None:
+            raise ValueError(f"{kernel}: the L2 body's launch needs its scratch "
+                             f"(layout.huge_scratch)")
+        base = scratch.data_ptr()
+        parts, counters, _ = plan_scratch_bytes(plan, lo.element_size())
         calls.append((kernel + HUGE_L2, (
-            plan.l2_table.data_ptr(), plan.nr_l2, plan.l2_blocks, plan.l2_threads,
-            *buffers[:-1], ptr(rows), buffers[-1])))
+            plan.l2_table.data_ptr(), plan.nr_l2, plan.l2_blocks, plan.l2_threads, plan.l2_split,
+            plan.l2_columns, *buffers[:-1], base, base + parts, base + counters, buffers[-1])))
     calls = [(name, getattr(lib, f"{name}_{suffix}"), args) for name, args in calls]
     keep = (plan, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, frontier, outs, scratch)
 
@@ -190,8 +196,8 @@ def prepare_fused_launch(kernel: str, geom: UniformGeom, lo, hi, frontier, omega
     """Check one launch of ``kernel`` over all buckets of ``geom`` on flat
     tensors and allocate its outputs. Returns (launch, outs); ``launch()``
     does not count (timing and comparisons call it directly). ``plan``
-    replaces ``geom.plan`` (another prefetch depth or body over the same
-    buckets; it gets scratch rows of its own where its L2 body needs them).
+    replaces ``geom.plan`` (another prefetch depth, body or split over the
+    same buckets; it gets a scratch of its own where its L2 body needs one).
     ``omega``: a scalar or a flat [E] tensor; ``alpha``: flat [E] per-layer
     weights in place of ``geom.alpha`` (the learned solver's)."""
     plan = plan or geom.plan
@@ -236,8 +242,9 @@ def prepare_run_launch(geom: UniformGeom, lo, hi, plan: LaunchPlan = None):
     _check_widths(plan.shapes)
     _check_flat(geom, (("lo", lo, plan.E), ("hi", hi, plan.E)))
     cft = torch.empty(plan.N, dtype=lo.dtype, device=lo.device)
+    scratch = geom.huge_scratch if plan is geom.plan else huge_scratch(plan, lo.dtype, lo.device)
     return _launcher(RUN, plan, geom.arcs, lo, hi, None, None, None, 0.0, None,
-                     (None, None, None, cft)), cft
+                     (None, None, None, cft), scratch), cft
 
 
 def backward_run_cuda(geom: UniformGeom, lo, hi) -> torch.Tensor:
@@ -355,5 +362,6 @@ def bucket_backward_run_cuda(g: BucketGeom, lo, hi) -> torch.Tensor:
     stored = torch.empty((H, P, B) if P <= NARROW_P else (H, B, P), dtype=lo.dtype,
                          device=lo.device)
     _launch_counted(_launcher(RUN, plan, g.arcs, lo, hi, None, None, None, 0.0, None,
-                              (None, None, None, stored)))
+                              (None, None, None, stored),
+                              huge_scratch(plan, lo.dtype, lo.device)))
     return _node_view(P, stored)

@@ -3,8 +3,8 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --huge-split [part ...]`` times variants of the
-huge body, the route on a whole huge table and the cluster body's cluster
-sizes instead: see ``huge_split``)
+huge body, the route on a whole huge table, the cluster body's cluster
+sizes and the L2 body's barriers instead: see ``huge_split``)
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. card: CUDA present, card name and power limit; build both libraries of
@@ -55,8 +55,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      row split over their shared memory), beside the L2 body forced on the
      same layout, with 20 counted float64 iterations held to the native
      solver's bound after as many; 8 such rows with coefficients up to 4,000
-     (P = 65,536, past what a cluster's slot codes hold) on the L2 body, with
-     20 counted float64 iterations held the same way; and a
+     (P = 65,536, eight-byte slot codes) on the cluster body, with 20
+     counted float64 iterations held the same way; one row with
+     coefficients up to 16,000 (P = 262,144, past a cluster of 16 in
+     float64) on the L2 body, its column spread over G blocks, with the
+     form of one block a column forced beside it and 20 counted float64
+     iterations; and a
      100-iteration float64 solve of knapsack48 against the native solver,
      every half-sweep one launch of the huge body;
   7. Python pipeline (BddPreprocessor -> flatten_uniform) on grid12: float64
@@ -508,8 +512,8 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
             f"{plan.cluster_blocks} blocks of {plan.cluster_threads} threads in clusters of "
             f"{plan.cluster_size}, flags {[int(r[7]) for r in plan.cluster_table.tolist()]}, "
             f"{plan.cluster_smem_forward} / {plan.cluster_smem_backward} B shared; one over "
-            f"{plan.nr_l2} L2 bucket(s), {plan.l2_blocks} blocks of {plan.l2_threads} threads: "
-            f"match; "
+            f"{plan.nr_l2} L2 bucket(s), {plan.l2_blocks} blocks of {plan.l2_threads} threads, "
+            f"{plan.l2_split} a column: match; "
             f"warm {e['ms']:.4f} ms ({share(e['bound_ms'], e['ms'])}), "
             f"cold {e['cold_ms']:.4f} ms ({share(e['bound_ms'], e['cold_ms'])}), "
             f"bound {e['bound_ms']:.4f} ms = {nbytes} B (columns with a BDD) at 3.35 TB/s; "
@@ -552,7 +556,8 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
               f"shared; huge {deep.nr_huge} bucket(s), {deep.huge_threads} threads a block, flags "
               f"{[int(r[7]) for r in deep.huge_table.tolist()]}; cluster {deep.nr_cluster} "
               f"bucket(s), clusters of {deep.cluster_size}, {deep.cluster_threads} threads a block; "
-              f"L2 {deep.nr_l2} bucket(s), {deep.l2_threads} threads a block: match; "
+              f"L2 {deep.nr_l2} bucket(s), {deep.l2_threads} threads a block, {deep.l2_split} "
+              f"blocks a column: match; "
               f"{'; '.join(row)} {card}", flush=True)
     run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix, reps)
 
@@ -830,8 +835,9 @@ L2_ROWS = dict(nr_vars=1584, nr_rows=132, row_len=48, coef_max=2000)
 # few seconds
 L2_WIDE_ROWS = dict(nr_vars=96, nr_rows=8, row_len=48, coef_max=4000)
 # up to 16,000: P = 262,144, past what a cluster of 16 holds in float64 (the
-# L2 body, 8-13 ms a launch: timed over a fifth of the launches), within it
-# in float32; one row
+# L2 body, its column over G blocks, with the form of one block a column
+# beside it at 8-17 ms a launch: timed over a fifth of the launches), within
+# it in float32; one row
 L2_WIDEST_ROWS = dict(nr_vars=48, nr_rows=1, row_len=48, coef_max=16000)
 HUGE_ITERS = 100  # cut from 200 (PR 8): the native solver's share of the phase
 PATH_ITERS = 20  # iterations of the knapsack32 and L2 paths, counted for the kernels line
@@ -965,8 +971,9 @@ def phase_huge(card, errs, times, flush):
     columns``); knapsack48 and those rows in one layout; rows of 32,768 slots, past
     a block's shared memory, and of 65,536, past four-byte slot codes, on
     the cluster body (beside the L2 body forced on the same layout), and
-    a row of 262,144, past a cluster of 16 in float64, on the L2 body (in
-    float32 on the cluster body). Returns the paths of the kernels line:
+    a row of 262,144, past a cluster of 16 in float64, on the L2 body (its
+    column over the plan's G blocks, the form of one block a column forced
+    beside it; in float32 on the cluster body). Returns the paths of the kernels line:
     knapsack48's float64 solve, knapsack32's, and the counted float64
     iterations of the 32,768-, 65,536- and 262,144-slot rows."""
     import torch
@@ -1041,19 +1048,22 @@ def phase_huge(card, errs, times, flush):
     # rows past a block's shared memory in either precision: the cluster
     # body (four-byte slot codes at 32,768 slots, eight-byte ones at
     # 65,536), the L2 body forced beside it; then rows past a cluster of 16
-    # in float64 on the L2 body, in float32 on the cluster body
-    for label, rows, runs, forced, reps in (
+    # in float64 on the L2 body (the form of one block a column forced
+    # beside it), in float32 on the cluster body
+    on_l2 = ({"huge_body": "huge_l2"},)
+    for label, rows, runs, reps in (
             ("knapsack48 L2", L2_ROWS,
-             ((torch.float32, HUGE_CLUSTER), (torch.float64, HUGE_CLUSTER)), True, 200),
+             ((torch.float32, HUGE_CLUSTER, on_l2), (torch.float64, HUGE_CLUSTER, on_l2)), 200),
             ("knapsack L2 wide", L2_WIDE_ROWS,
-             ((torch.float32, HUGE_CLUSTER), (torch.float64, HUGE_CLUSTER)), True, 200),
+             ((torch.float32, HUGE_CLUSTER, on_l2), (torch.float64, HUGE_CLUSTER, on_l2)), 200),
             ("knapsack L2 widest", L2_WIDEST_ROWS,
-             ((torch.float32, HUGE_CLUSTER), (torch.float64, HUGE_L2)), False, 40)):
+             ((torch.float32, HUGE_CLUSTER, ()), (torch.float64, HUGE_L2, ({"l2_split": 1},))),
+             40)):
         t0 = time.perf_counter()
         l2 = NativeHost(knapsack_lp(**rows), "input")
         print(f"[huge] knapsack rows {rows}: {l2.nr_bdds()} BDDs, built by the host library in "
               f"{time.perf_counter() - t0:.2f} s {card}", flush=True)
-        for dtype, suffix in runs:
+        for dtype, suffix, variants in runs:
             itemsize = torch.empty((), dtype=dtype).element_size()
             dt = str(dtype).replace("torch.", "")
             host = layout.from_native_host(l2, dtype, "cuda", pack=False)
@@ -1066,14 +1076,21 @@ def phase_huge(card, errs, times, flush):
                   f"{plan.cluster_threads} threads a block, "
                   f"{layout.cluster_code_bytes(plan.cluster_pmax)}-byte slot codes, "
                   f"{plan.cluster_smem_forward} / {plan.cluster_smem_backward} B a block), "
-                  f"{plan.nr_l2} on the L2 body {card}", flush=True)
+                  f"{plan.nr_l2} on the L2 body ({plan.l2_split} blocks a column, "
+                  f"{plan.l2_blocks} blocks) {card}", flush=True)
             on = plan.nr_cluster if suffix == HUGE_CLUSTER else plan.nr_l2
             if on != len(shapes) or plan.nr_huge or plan.nr_wide or plan.nr_buckets:
                 fail(f"the {label} rows are not all on the {suffix[1:]} body: {shapes}, "
                      f"{plan.nr_cluster} on the cluster body, {plan.nr_l2} on the L2 body")
-            variants = ({"huge_body": "huge_l2"},) if forced else ()
             kernel_vs_twin(label, host, l2.objective(), card, errs, times, flush, suffix=suffix,
                            variants=variants, reps=reps)
+            if suffix == HUGE_L2:
+                e, hops = times[(label, dt)], max(H for _, H, _ in plan.shapes)
+                print(f"[huge] {label} {dt} L2 body: {plan.l2_split} blocks a column over "
+                      f"{plan.l2_columns} column(s), {plan.l2_blocks} blocks of "
+                      f"{plan.l2_threads} threads; a hop (of {hops}) "
+                      + ", ".join(f"{k} {e[k]['ms'] / hops:.4f} ms" for k in (
+                          "uniform_forward", "uniform_backward", RUN)) + f" {card}", flush=True)
             if dtype == torch.float64:
                 counted = counted_iterations(f"{label} float64", host, l2.objective(),
                                              PATH_ITERS, card, native=l2)
@@ -2909,14 +2926,19 @@ def phase_sharded(card, errs, times, gm_lp, gm_ref):
     return paths
 
 
-DENSE_ITERS = 200  # gm50k: the dense solves and the uniform reference
+# gm50k: the dense solves (three of about 48 ms an iteration) and the
+# uniform reference; depth cut from 200 to keep the script near its time
+# budget on slower hosts (the comparison's limits are unchanged)
+DENSE_ITERS = 100
 DENSE_GRID_ITERS = 50  # grid12 float64: card against CPU
 DENSE_TIGHTEN_ITERS = 30  # "dense mma" with and without "tighten", dual only
 DENSE_API_ITERS = 100  # depth cut of the default 1,000 for the API solves (rounding as default)
 DENSE_OUTER_ITERS = 100
 DENSE_PROFILE_ITERS = 2
 DENSE_PREFIX_ITERS = 20  # iterations before the prefix sweeps read the state
-DENSE_SHARDED_ITERS = 100  # phase 15's dense part
+# phase 15's dense part (two ranks at about 90 ms an iteration, and the
+# one-device reference); depth cut from 100 as DENSE_ITERS
+DENSE_SHARDED_ITERS = 50
 DENSE_REL = {"float32": 1e-3, "float64": 1e-9}  # dense vs uniform after the same iterations
 DENSE_SHARDED_REL = {"float32": 1e-5, "float64": 1e-12}  # ranks vs one device
 
@@ -3267,16 +3289,15 @@ def sharded_dense(rank, collection, V, obj, card) -> dict:
 # replaced, built with the library's own flags and ``-Xptxas -v`` into
 # ``bdd_tpu_torch/build/variants/`` (all copies side by side) and loaded in
 # place of the library. A replacement whose text is no longer in the source
-# stops the run and names it. The variants of the L2 body (forced by the
-# plan with ``huge_body="huge_l2"``):
-#   l2            as it is;
-#   l2_smem_row   its forward relaxes into a row of keys in shared memory (the
-#                 current row saved to its scratch row for the relaxation
-#                 pass), its backward gathers from a copy of the row of hop
-#                 h+1 in shared memory;
-#   l2_prefetch   the block prefetches the next hop's arc record and frontier
-#                 row to L2 as a hop starts, before this hop's barriers;
-# and of the shared-memory body (the plan's):
+# stops the run and names it. The runs of the L2 body (forced by the plan
+# with ``huge_body="huge_l2"``; at knapsack48's 132 columns the plan's G is
+# 1, so both are the form of one block a column):
+#   l2            as the plan gives it;
+#   l2_one_block  G = 1 forced (``l2_split=1``);
+# the variant of the L2 body's hop barrier (run by the "barrier" part, where
+# the plan splits a column):
+#   l2_fenced     __threadfence before the arrival and after the wait;
+# and the variants of the shared-memory body (the plan's):
 #   smem          as it is;
 #   smem_one_row  the backward on one row where the plan gives it two;
 #   smem_single   every slot loop a slot at a time;
@@ -3289,7 +3310,6 @@ def sharded_dense(rank, collection, V, obj, card) -> dict:
 #                 hop ahead (cp.async by every thread, a ring of two rows)
 #                 instead of gathered through L1; only where two blocks an SM
 #                 still fit with it, so at the crossover rows, not knapsack48.
-_L2_KERNEL = "sweep_huge_l2_kernel(Args<T> a,"
 _GROUPED = "  const bool grouped = FORWARD ? P >= G * nt : !RUN;\n"
 _PREFETCH_HELPERS = (
     "// min of (m0, m1) over the block, in every thread, with one barrier: each",
@@ -3304,66 +3324,14 @@ _PREFETCH_HELPERS = (
     "}\n"
     "// min of (m0, m1) over the block, in every thread, with one barrier: each")
 SPLIT_PATCHES = {
-    "l2_smem_row": [
-        ("  U* row_b = FORWARD ? row_a + P : nullptr;\n",
-         "  U* row_b = FORWARD ? row_a + P : nullptr;\n"
-         "  extern __shared__ __align__(16) unsigned char dsm[];\n"
-         "  U* const key = (U*)dsm;\n"
-         "  T* const srow = (T*)dsm;\n", "l2"),
-        ("    for (long long p = t0; p < P; p += nt) row_a[p] = K::enc(inf);\n",
-         "    for (long long p = t0; p < P; p += nt) key[p] = K::enc(inf);\n", "l2"),
-        ("        const T f = restart ? (p == 0 ? T(0) : inf) : K::dec(__ldcg(cur + p));\n"
-         "        m0 = min_v(m0, nv ? f + lo + tl : inf);\n"
-         "        m1 = min_v(m1, nv ? f + hi + th : inf);\n"
-         "        fout_h[p] = f;\n"
-         "        nxt[p] = key_inf;\n",
-         "        const U kk = key[p];\n"
-         "        const T f = restart ? (p == 0 ? T(0) : inf) : K::dec(kk);\n"
-         "        m0 = min_v(m0, nv ? f + lo + tl : inf);\n"
-         "        m1 = min_v(m1, nv ? f + hi + th : inf);\n"
-         "        fout_h[p] = f;\n"
-         "        row_a[p] = kk;\n"
-         "        key[p] = key_inf;\n", "l2"),
-        ("atomicMin(nxt + ls, K::enc(f + nl));", "atomicMin(key + ls, K::enc(f + nl));", "l2"),
-        ("atomicMin(nxt + hs, K::enc(f + nh));", "atomicMin(key + hs, K::enc(f + nh));", "l2"),
-        ("      const T* cur = h + 1 < H ? g_out + (col + B) * P : nullptr;\n",
-         "      const T* cur = h + 1 < H ? srow : nullptr;\n", "l2"),
-        ("(cur ? __ldcg(cur + ls) : inf)", "(cur ? cur[ls] : inf)", "l2"),
-        ("(cur ? __ldcg(cur + hs) : inf)", "(cur ? cur[hs] : inf)", "l2"),
-        ("    __syncthreads();  // the row is built before the next hop reads it\n",
-         "    __syncthreads();  // the row is built before the next hop reads it\n"
-         "    if constexpr (!FORWARD) {\n"
-         "      for (long long p = t0; p < P; p += nt) srow[p] = __ldcg(g_out + col * P + p);\n"
-         "      __syncthreads();\n"
-         "    }\n", "l2"),
-        ("  sweep_huge_l2_kernel<T, MODE><<<nr_blocks, threads, 0, (cudaStream_t)stream>>>(\n",
-         "  static bool opted = false;\n"
-         "  if (!opted) {\n"
-         "    cudaFuncSetAttribute(sweep_huge_l2_kernel<T, MODE>,\n"
-         "                         cudaFuncAttributeMaxDynamicSharedMemorySize, 160 * 1024);\n"
-         "    opted = true;\n"
-         "  }\n"
-         "  sweep_huge_l2_kernel<T, MODE><<<nr_blocks, threads, 160 * 1024,\n"
-         "                                 (cudaStream_t)stream>>>(\n", "l2"),
-    ],
-    "l2_prefetch": [
-        _PREFETCH_HELPERS,
-        ("  for (int i = 0; i < H; ++i) {\n"
-         "    const int h = FORWARD ? i : H - 1 - i;\n"
-         "    const size_t col = (size_t)h * B + b;\n"
-         "    const uint32_t* rec = g_arcs + col * 2 * P;\n",
-         "  for (int i = 0; i < H; ++i) {\n"
-         "    const int h = FORWARD ? i : H - 1 - i;\n"
-         "    if (i + 1 < H) {\n"
-         "      const int hn = FORWARD ? h + 1 : h - 1;\n"
-         "      const size_t cn = (size_t)hn * B + b;\n"
-         "      block_prefetch(g_arcs + cn * 2 * P, (size_t)2 * P * 4);\n"
-         "      if (!RUN && (!FORWARD || hn + 1 < H))\n"
-         "        block_prefetch(g_front + (cn + (FORWARD ? B : 0)) * P, (size_t)P * sizeof(T));\n"
-         "    }\n"
-         "    const size_t col = (size_t)h * B + b;\n"
-         "    const uint32_t* rec = g_arcs + col * 2 * P;\n", "l2"),
-    ],
+    "l2_fenced": [("      red_release_add(counter, 1u);\n"
+                   "      while (ld_acquire(counter) < passed) {\n"
+                   "      }\n",
+                   "      __threadfence();\n"
+                   "      red_release_add(counter, 1u);\n"
+                   "      while (ld_acquire(counter) < passed) {\n"
+                   "      }\n"
+                   "      __threadfence();\n")],
     "smem_one_row": [("  const bool two_rows = !FORWARD && bk.stages == 2;\n",
                       "  const bool two_rows = false;\n")],
     "smem_single": [(_GROUPED, "  const bool grouped = false;\n")],
@@ -3406,8 +3374,7 @@ SPLIT_PATCHES = {
 }
 # (variant, library, plan keywords, the layouts it runs on)
 SPLIT_RUNS = [("l2", None, {"huge_body": "huge_l2"}, ("knapsack48",)),
-              ("l2_smem_row", "l2_smem_row", {"huge_body": "huge_l2"}, ("knapsack48",)),
-              ("l2_prefetch", "l2_prefetch", {"huge_body": "huge_l2"}, ("knapsack48",)),
+              ("l2_one_block", None, {"huge_body": "huge_l2", "l2_split": 1}, ("knapsack48",)),
               ("smem", None, {}, ("knapsack48", "crossover")),
               ("smem_one_row", "smem_one_row", {}, ("knapsack48",)),
               ("smem_single", "smem_single", {}, ("knapsack48",)),
@@ -3428,30 +3395,24 @@ def split_source(name: str) -> str:
 
     with open(_build.SOURCE) as fh:
         src = fh.read()
-    for old, new, *scope in SPLIT_PATCHES[name]:
-        if scope:  # only inside the L2 body
-            head, tail = src.split(_L2_KERNEL, 1)
-            end = tail.index("\n}  // namespace")
-            if old not in tail[:end]:
-                fail(f"{name}: the text {old[:60]!r} is not in the L2 body")
-            src = head + _L2_KERNEL + tail[:end].replace(old, new) + tail[end:]
-        else:
-            if old not in src:
-                fail(f"{name}: the text {old[:60]!r} is not in the source")
-            src = src.replace(old, new)
+    for old, new in SPLIT_PATCHES[name]:
+        if old not in src:
+            fail(f"{name}: the text {old[:60]!r} is not in the source")
+        src = src.replace(old, new)
     return src
 
 
-def split_build() -> dict:
-    """Compile the kernel source and every variant side by side (``-Xptxas
-    -v``); name -> (library path, ptxas report)."""
+def split_build(names=None) -> dict:
+    """Compile the kernel source and the variants ``names`` (every one of
+    SPLIT_PATCHES where none is named) side by side (``-Xptxas -v``); name ->
+    (library path, ptxas report)."""
     from bdd_tpu_torch import _build
 
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _build.nvcc_path()
     jobs = {}
-    for name in [None] + list(SPLIT_PATCHES):
+    for name in [None] + list(SPLIT_PATCHES if names is None else names):
         stem = name or "repo"
         src = _build.SOURCE
         if name:
@@ -3503,8 +3464,13 @@ CLUSTER_SWEEP = [(2, None), (2, 512), (4, None), (4, 1024), (8, None), (8, 512),
 # 8 columns (phase 6's rows) and at 132 (here only: their host build is too
 # slow for phase 6); a size whose block does not hold its share is named
 CLUSTER_WIDE_SWEEP = [(2, None), (4, None), (8, None), (8, 512), (16, None), (16, 512)]
+# the row of 262,144 slots: only a cluster of 16 holds it (float32)
+CLUSTER_WIDEST_SWEEP = [(16, None)]
 L2_WIDE_ROWS_132 = dict(nr_vars=1584, nr_rows=132, row_len=48, coef_max=4000)
-SPLIT_PARTS = ("variants", "columns", "route", "cluster")
+SPLIT_PARTS = ("variants", "columns", "route", "cluster", "barrier")
+# the L2 body's hop barriers alone: a bucket of BARRIER_P slots whose layers
+# hold no node, BARRIER_H hops, over 1 and 2 columns
+BARRIER_P, BARRIER_H = 262144, 48
 
 
 def split_state(host, objective):
@@ -3600,17 +3566,20 @@ def split_route(card, flush) -> None:
 
 def split_cluster(card, flush) -> None:
     """The cluster body on knapsack48's L2 rows (P = 32,768 over 132
-    columns) and on rows of 65,536 slots over 8 and over 132 columns, both
-    precisions: every (C, threads) of CLUSTER_SWEEP / CLUSTER_WIDE_SWEEP,
-    the card's answer for the clusters it holds at once, and the L2 body
-    beside them, each held to the plain versions bit for bit."""
+    columns), on rows of 65,536 slots over 8 and over 132 columns and on
+    the row of 262,144 slots, both precisions: every (C, threads) of
+    CLUSTER_SWEEP / CLUSTER_WIDE_SWEEP / CLUSTER_WIDEST_SWEEP, the card's
+    answer for the clusters it holds at once, and the L2 body beside them,
+    at the plan's blocks a column and at one, each held to the plain
+    versions bit for bit."""
     import torch
     from bdd_tpu_torch.native import NativeHost
     from bdd_tpu_torch.solver import layout
 
     for label, rows, sweep in (("knapsack48 L2", L2_ROWS, CLUSTER_SWEEP),
                                ("knapsack L2 wide", L2_WIDE_ROWS, CLUSTER_WIDE_SWEEP),
-                               ("knapsack L2 wide x132", L2_WIDE_ROWS_132, CLUSTER_WIDE_SWEEP)):
+                               ("knapsack L2 wide x132", L2_WIDE_ROWS_132, CLUSTER_WIDE_SWEEP),
+                               ("knapsack L2 widest", L2_WIDEST_ROWS, CLUSTER_WIDEST_SWEEP)):
         t0 = time.perf_counter()
         nh = NativeHost(knapsack_lp(**rows), "input")
         print(f"[split] cluster {label}: {nh.nr_bdds()} BDDs built in "
@@ -3629,10 +3598,16 @@ def split_cluster(card, flush) -> None:
                   f"{[int(r[7]) for r in plan.cluster_table.tolist()]}, "
                   f"{plan.cluster_smem_forward} / {plan.cluster_smem_backward} B {card}",
                   flush=True)
-            l2 = layout.launch_plan(plan.shapes, dtype, "cuda", huge_body="huge_l2")
-            print(f"[split] cluster {label} {dt} L2 body: match; "
-                  f"{split_row(split_times(geom, state, refs, l2, flush), bounds)} {card}",
-                  flush=True)
+            for split in (None, 1):
+                l2 = layout.launch_plan(plan.shapes, dtype, "cuda", huge_body="huge_l2",
+                                        l2_split=split)
+                reps = 100 if l2.l2_split > 1 or plan.shapes[0][0] < 262144 else 20
+                print(f"[split] cluster {label} {dt} L2 body, {l2.l2_split} blocks a column "
+                      f"({l2.l2_blocks} blocks): match; "
+                      f"{split_row(split_times(geom, state, refs, l2, flush, reps), bounds)} "
+                      f"{card}", flush=True)
+                if l2.l2_split == 1:
+                    break
             for C, threads in sweep:
                 try:
                     forced = layout.launch_plan(plan.shapes, dtype, "cuda",
@@ -3655,6 +3630,58 @@ def split_cluster(card, flush) -> None:
             torch.cuda.empty_cache()
 
 
+def split_barrier(card, flush) -> None:
+    """What the L2 body's hop barriers cost alone: a float64 bucket of
+    BARRIER_P slots whose layers hold no node past the root (a hop reads its
+    record, takes no gather and no atomic, and passes its barriers: two a
+    forward and a backward hop, one a run's), BARRIER_H hops over 1 and 2
+    columns, at the plan's blocks a column and at one, held to the plain
+    versions; the ms a hop of each entry. At the plan's blocks a column also
+    the variant ``l2_fenced`` beside the source's, in turns (source, fenced,
+    fenced, source)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from bdd_tpu_torch import _build
+    from bdd_tpu_torch.solver import layout
+
+    libs = {}
+    for name, (path, _) in split_build(["l2_fenced"]).items():
+        libs[name] = ctypes.CDLL(path)
+        _build._declare(libs[name])
+
+    P, H = BARRIER_P, BARRIER_H
+    for B in (1, 2):
+        zeros = np.zeros((H, P, B), dtype=np.int32)
+        node_valid = zeros.astype(bool)
+        node_valid[0, 0] = True  # the root, both arcs to the terminal: no node past hop 0
+        top = zeros.copy()
+        top[0, 0] = layout.ARC_TOP
+        bucket = dict(
+            node_valid=node_valid, lo_kind=top, lo_slot=zeros, hi_kind=top,
+            hi_slot=zeros, layer_valid=np.ones((H, B), bool),
+            layer_var=np.zeros((H, B), np.int32), alpha=np.full((H, B), 0.5),
+            layer_bdd=np.zeros((H, B), np.int64), root_mask=None,
+            bdd_of_col=np.arange(B, dtype=np.int64), depths=np.full(B, H, dtype=np.int32))
+        host = layout._build_host([bucket], np.full(1, B, np.int64), 1, 1, B, torch.float64,
+                                  "cuda")
+        geom = host.geom
+        state, refs = split_state(host, np.ones(1))
+        for split, lib in ((None, None), (None, "l2_fenced"), (None, "l2_fenced"), (None, None),
+                           (1, None)):
+            _build._LIB = libs[lib]
+            plan = layout.launch_plan(geom.plan.shapes, torch.float64, "cuda", l2_split=split)
+            times = split_times(geom, state, refs, plan, flush, 100 if plan.l2_split > 1 else 20)
+            print(f"[split] barrier P={P} H={H} B={B} float64 {lib or 'source'}, {plan.l2_split} "
+                  f"blocks a column ({plan.l2_blocks} blocks), no node past the root: match; "
+                  + "; ".join(f"{k} warm {w:.4f} ms ({1e3 * w / H:.2f} us a hop), cold {c:.4f} ms"
+                              for k, (w, c) in times.items()) + f" {card}", flush=True)
+        _build._LIB = None
+        del host, geom, state, refs
+        torch.cuda.empty_cache()
+
+
 def huge_split(parts=()) -> None:
     """``parts`` of SPLIT_PARTS (all where none is named). "variants": every
     variant held to the twins bit for bit and timed warm and cold beside the
@@ -3662,7 +3689,7 @@ def huge_split(parts=()) -> None:
     forward, on the crossover rows of SPLIT_CROSSOVER_P slots. "columns": the
     crossover between the wide and the huge body at more columns
     (SPLIT_COLUMNS), with the library as built; "route": :func:`split_route`;
-    "cluster": :func:`split_cluster`."""
+    "cluster": :func:`split_cluster`; "barrier": :func:`split_barrier`."""
     import ctypes
     import torch
     from bdd_tpu_torch import _build
@@ -3686,6 +3713,8 @@ def huge_split(parts=()) -> None:
         split_route(card, flush)
     if "cluster" in parts:
         split_cluster(card, flush)
+    if "barrier" in parts:
+        split_barrier(card, flush)
     if "columns" in parts:
         for P, coef_max in CROSSOVER_ROWS.items():
             crossover_rows(P, 132, coef_max, card, flush)
@@ -3694,7 +3723,7 @@ def huge_split(parts=()) -> None:
     if "variants" not in parts:
         return
     t0 = time.perf_counter()
-    built = split_build()
+    built = split_build([n for n in SPLIT_PATCHES if n != "l2_fenced"])
     print(f"[split] built {len(built)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
     libs = {}
     for name, (path, report) in built.items():
@@ -3763,7 +3792,8 @@ def huge_split(parts=()) -> None:
                     bound = 1e3 * bounds[kernel] / HBM_BYTES_PER_S
                     row.append(f"{kernel} warm {warm:.4f} ms ({100 * bound / warm:.1f}% of bound), "
                                f"cold {cold:.4f} ms")
-                body = (f"L2 body, {plan.l2_threads} threads" if plan.nr_l2 else
+                body = (f"L2 body, {plan.l2_threads} threads, {plan.l2_split} a column"
+                        if plan.nr_l2 else
                         f"shared-memory body, {plan.huge_threads} threads, backward rows "
                         f"{[int(r[7]) for r in plan.huge_table.tolist()]}, smem "
                         f"{plan.huge_smem_forward} / {plan.huge_smem_backward} B")

@@ -441,7 +441,8 @@ def test_mixed_layout_counts_a_narrow_and_a_wide_launch(cuda_device, precision):
 @pytest.mark.parametrize("zero_costs", [False, True], ids=["random", "ties-at-zero"])
 @pytest.mark.parametrize("shape", [(8, 7, 40), (64, 7, 9), (256, 5, 8), (33, 40, 7),
                                    (2048, 3, 2), (8200, 5, 3), (layout.HUGE_FROM + 3, 4, 3),
-                                   (20001, 3, 2), (30000, 3, 2), (65536, 3, 2), (70000, 3, 2)],
+                                   (20001, 3, 2), (30000, 3, 2), (65536, 3, 2), (70000, 3, 2),
+                                   (320000, 3, 2)],
                          ids=lambda s: "P%d-H%d-B%d" % s)
 def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_costs, precision):
     """Outside what a solve produces: -inf deltas (inf - inf, so NaN costs
@@ -451,16 +452,7 @@ def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_c
     twin must agree on the NaN pattern and, elsewhere, on every bit."""
     dtype = torch.float32 if precision == "float" else torch.float64
     host, costs = synthetic_host([shape], dtype, cuda_device, seed=sum(shape))
-    rng = np.random.RandomState(1)
-    lo, hi, fr, dl, dh = (x.clone() for x in costs)
-    for x in (lo, hi, dl, dh):
-        if zero_costs:
-            x[torch.isfinite(x)] = 0.0
-        x[torch.from_numpy(rng.rand(len(x)) < 0.3).to(cuda_device)] = -0.0
-    if zero_costs:
-        fr[torch.isfinite(fr)] = 0.0
-    for x in (dl, dh):
-        x[torch.from_numpy(rng.rand(len(x)) < 0.1).to(cuda_device)] = -float("inf")
+    lo, hi, fr, dl, dh = nan_and_zero_costs(costs, zero_costs)
     g = host.geom.buckets[0]
     args = (g, lo.view(g.H, g.B), hi.view(g.H, g.B), fr.view(g.H, g.P, g.B), 0.5,
             dl.view(g.H, g.B), dh.view(g.H, g.B))
@@ -477,6 +469,23 @@ def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_c
     run = sk.bucket_backward_run_cuda(g, args[1], args[2])
     torch.cuda.synchronize()
     assert_same_bits([run], [uf.bucket_backward_run(g, args[1], args[2])])
+
+
+def nan_and_zero_costs(costs, zero_costs):
+    """Copies of flat (lo, hi, frontier, din_lo, din_hi) with -0.0 at 30% of
+    the costs and deltas and -inf at 10% of the deltas (so NaN costs reach
+    the relaxation); with ``zero_costs`` every finite value a zero first."""
+    rng = np.random.RandomState(1)
+    lo, hi, fr, dl, dh = (x.clone() for x in costs)
+    for x in (lo, hi, dl, dh):
+        if zero_costs:
+            x[torch.isfinite(x)] = 0.0
+        x[torch.from_numpy(rng.rand(len(x)) < 0.3).to(x.device)] = -0.0
+    if zero_costs:
+        fr[torch.isfinite(fr)] = 0.0
+    for x in (dl, dh):
+        x[torch.from_numpy(rng.rand(len(x)) < 0.1).to(x.device)] = -float("inf")
+    return lo, hi, fr, dl, dh
 
 
 # ------------------------------------------------ the run-only backward entry
@@ -571,7 +580,9 @@ def test_plan_puts_huge_buckets_in_a_third_table():
     # a block a column; the huge table's last column: the rows the backward
     # keeps in shared memory (two: one block an SM)
     assert plan.huge_blocks == 8 and [r[3] for r in plan.huge_table.tolist()] == [0, 3]
-    assert plan.l2_blocks == 2 and [r[3] for r in plan.l2_table.tolist()] == [0]
+    # the L2 body: its two columns spread over the 132 SMs, 66 blocks each
+    assert (plan.l2_split, plan.l2_columns) == (66, 2)
+    assert plan.l2_blocks == 2 * 66 and [r[3] for r in plan.l2_table.tolist()] == [0]
     assert [r[7] for r in plan.huge_table.tolist()] == [2, 2]
     assert plan.huge_threads == plan.l2_threads == layout.HUGE_THREADS == 1024
     assert plan.huge_pmax == 16384
@@ -590,13 +601,166 @@ def test_plan_puts_huge_buckets_in_a_third_table():
     assert layout.huge_scratch(plan, torch.float32, "cpu") is None
     assert layout.arc_bytes(8192) == 2 and layout.arc_bytes(8193) == 4
     assert layout.record_bytes(8193) == 8 * 8193
-    # the bytes a solve works in, the number a layout too large for the card names
+    # the bytes a solve works in, the number a layout too large for the card
+    # names: with the L2 body's scratch, its key rows and the partials and
+    # counters of its two columns, counted at the most blocks a column a plan
+    # takes
     E = 3 * 40 + 2 * 3 + 5 * 8 + 4 * 5 + 2 * 3 + 2 * 2
     N = (3 * 2 * 40 + 2 * 16384 * 3 + 5 * 128 * 8 + 4 * 8200 * 5 + 2 * 30000 * 3
          + 2 * 320000 * 2)
-    scratch = 2 * 320000 * 2
+    scratch = 2 * 320000 * 2 * 4 + 2 * layout.L2_MAX_SPLIT * 2 * 4 + 2 * 4
     assert layout.solve_bytes(plan.shapes, 4) == plan.arc_bytes + E * (9 * 4 + 24) + (
-        2 * N + scratch) * 4
+        2 * N * 4 + scratch)
+
+
+
+# ------------------------------------------- the L2 body: G blocks a column
+@pytest.mark.parametrize("columns,sms,split", [
+    (1, 132, 132), (2, 132, 66), (7, 132, 18), (66, 132, 2), (132, 132, 1), (200, 132, 1),
+    (2, 66, 33), (7, 114, 16), (3, 1, 1)])
+def test_l2_split_follows_the_columns(columns, sms, split):
+    """G, the blocks a column of the L2 body: as many as the card holds at
+    once for every column together (one block of 1,024 threads an SM off the
+    card), at least 1; on 132 SMs the plan's own for tables of that many
+    columns of 320,000 slots, its blocks G a column."""
+    assert layout.l2_occupancy(8, layout.HUGE_THREADS, "cpu") == 1
+    assert layout.choose_l2_split(columns, 320000, layout.HUGE_THREADS, sms) == split
+    if sms == layout.SM_COUNT:
+        plan = layout.launch_plan([(320000, 2, columns)], torch.float64, "cpu")
+        assert (plan.nr_l2, plan.l2_split, plan.l2_columns) == (1, split, columns)
+        assert plan.l2_blocks == split * columns and plan.l2_threads == layout.HUGE_THREADS
+
+
+def test_l2_split_is_capped_and_forced():
+    """G keeps at least a thread's worth of slots a block of the widest
+    bucket (ceil(pmax / threads)) and at most L2_MAX_SPLIT; a table of no
+    column with a hop splits nothing; ``l2_split`` forces G (1 to
+    L2_MAX_SPLIT: the card refuses more than it holds at the launch)."""
+    assert layout.choose_l2_split(1, 8193, 1024, 132) == 9
+    assert layout.choose_l2_split(1, 1 << 20, 32, 132 * 32) == layout.L2_MAX_SPLIT == 256
+    assert layout.choose_l2_split(0, 320000, 1024, 132) == 1
+    assert layout.l2_occupancy(4, 256, "cpu") == 4
+    # forced to the L2 body, a bucket of 9,000 slots over 3 columns: 9 a column
+    plan = layout.launch_plan([(9000, 2, 3)], torch.float32, "cpu", huge_body="huge_l2")
+    assert (plan.l2_split, plan.l2_blocks) == (9, 27)
+    for split in (1, 2, 7, 256):
+        forced = layout.launch_plan([(320000, 2, 2)], torch.float32, "cpu", l2_split=split)
+        assert (forced.l2_split, forced.l2_blocks) == (split, 2 * split)
+    for split in (0, 257):
+        with pytest.raises(ValueError, match="1 to 256 blocks a column"):
+            layout.launch_plan([(320000, 2, 2)], torch.float32, "cpu", l2_split=split)
+
+
+@pytest.mark.parametrize("split", [None, 5, 1])
+def test_l2_first_block_counts_in_units_of_the_split(split):
+    """The L2 table's ``first_block`` counts blocks, G of them a column, and
+    its last column the bucket's offset into the key rows; three buckets of
+    different H and B in one table (6 columns: G = 22 on 132 SMs)."""
+    shapes = [(320000, 2, 3), (330000, 4, 2), (400000, 3, 1)]
+    plan = layout.launch_plan(shapes, torch.float64, "cpu", l2_split=split)
+    G = split or 22
+    assert plan.l2_split == G and plan.l2_columns == 6
+    assert [r[3] for r in plan.l2_table.tolist()] == [0, 3 * G, 5 * G]
+    assert plan.l2_blocks == 6 * G
+    assert [r[7] for r in plan.l2_table.tolist()] == [0, 2 * 320000 * 3,
+                                                     2 * 320000 * 3 + 2 * 330000 * 2]
+    assert plan.huge_scratch_values == 2 * (320000 * 3 + 330000 * 2 + 400000)
+
+
+@pytest.mark.parametrize("P,G,threads", [
+    (320000, 132, 1024), (262144, 66, 1024), (262144, 1, 1024), (70001, 7, 256),
+    (8193, 9, 1024), (1000, 7, 64), (100, 4, 32), (33, 66, 1024), (65, 3, 32)])
+def test_l2_slots_cover_every_slot_once(P, G, threads):
+    """The share mapping (``layout.l2_slots``, the kernel's loops): over
+    every slot of a bucket of P slots, the blocks of a column of G blocks
+    own each slot exactly once, block (slot // L2_CHUNK) mod G; with P no
+    multiple of G nor of a chunk, and G past P / threads (blocks with no
+    slot, which still pass every barrier)."""
+    seen = np.zeros(P, dtype=np.int64)
+    for g in range(G):
+        slots = layout.l2_slots(P, G, g, threads)
+        assert len(np.unique(slots)) == len(slots)
+        assert ((slots // layout.L2_CHUNK) % G == g).all()
+        seen[slots] += 1
+    assert (seen == 1).all()
+    # one block a column walks every slot as the block-a-column body did
+    one = layout.l2_slots(P, 1, 0, threads)
+    assert sorted(one.tolist()) == list(range(P))
+
+
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_l2_scratch_holds_rows_partials_and_counters(precision):
+    """The layout's L2 scratch: the forward's key rows, then, where the plan
+    splits a column, the partials (G pairs of values a column) and the
+    counters (four bytes a column), each part 16-byte aligned; a split of 1
+    keeps only the rows. The bytes a solve works in count them at the most
+    blocks a column a plan takes, which holds the plan's own on any card."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    itemsize = 4 if precision == "float" else 8
+    rows = 2 * 320000 * 2 * itemsize
+    plan = layout.launch_plan([(320000, 48, 2)], dtype, "cpu")
+    assert (plan.l2_split, plan.l2_columns) == (66, 2)
+    parts, counters, total = layout.plan_scratch_bytes(plan, itemsize)
+    assert parts == rows and counters == rows + -(-2 * 66 * 2 * itemsize // 16) * 16
+    assert total == counters + 4 * 2
+    one = layout.launch_plan([(320000, 48, 2)], dtype, "cpu", l2_split=1)
+    assert layout.plan_scratch_bytes(one, itemsize) == (rows, rows, rows)
+    assert layout.huge_scratch(plan, dtype, "cpu") is None  # the twins need none
+    E, N = 48 * 2, 48 * 320000 * 2
+    base = layout.record_bytes(320000) * E + E * (9 * itemsize + 24) + 2 * N * itemsize
+    most = layout.l2_scratch_bytes(2 * 320000 * 2, layout.L2_MAX_SPLIT, 2, itemsize)[2]
+    assert layout.solve_bytes([(320000, 48, 2)], itemsize) == base + most >= base + total
+
+
+class _Recorder:
+    """A stand-in for the kernel library: every entry records its arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+
+        return entry
+
+
+@pytest.mark.parametrize("split", [None, 1])
+def test_l2_launch_hands_every_entry_its_scratch(monkeypatch, split):
+    """What the wrapper hands the L2 entries (the library replaced by a
+    recorder): G, the columns, the key rows, the partials and the counters
+    inside the layout's scratch, the same buffer for the forward, the
+    backward and the run; a launch without the scratch is refused."""
+    rec = _Recorder()
+    monkeypatch.setattr(sk._build, "load", lambda: rec)
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
+    host, (lo, hi, fr, dl, dh) = synthetic_host([(320000, 2, 2)], torch.float32, "cpu")
+    geom = host.geom
+    plan = layout.launch_plan(geom.plan.shapes, torch.float32, "cpu", l2_split=split)
+    G = split or 66
+    parts, counters, total = layout.plan_scratch_bytes(plan, 4)
+    scratch = torch.empty(total, dtype=torch.uint8)
+    base = scratch.data_ptr()
+    for kernel, frontier in (("uniform_forward", fr), ("uniform_backward", fr), (sk.RUN, None)):
+        outs = (None, None, None, torch.empty_like(fr)) if kernel == sk.RUN else (
+            torch.empty_like(lo), torch.empty_like(lo), torch.empty_like(lo), torch.empty_like(fr))
+        launch = sk._launcher(kernel, plan, geom.arcs, lo, hi, None if frontier is None else dl,
+                              None if frontier is None else dh, geom.alpha, 0.5, frontier, outs,
+                              scratch)
+        assert launch.counts == (kernel + sk.HUGE_L2,)
+        launch()
+        name, args = rec.calls[-1]
+        assert name == kernel + sk.HUGE_L2 + "_f32"
+        assert args[2:6] == (2 * G, layout.HUGE_THREADS, G, 2)
+        assert args[-4:-1] == (base, base + parts, base + counters)
+        assert base + counters + (4 * 2 if G > 1 else 0) <= base + total
+        with pytest.raises(ValueError, match="needs its scratch"):
+            sk._launcher(kernel, plan, geom.arcs, lo, hi, None, None, None, 0.5, frontier, outs)
 
 
 @pytest.mark.parametrize("P,itemsize,body", [
@@ -1150,6 +1314,158 @@ def test_huge_body_shared_memory_rows_equal_twins(cuda_device, precision):
             for g, a, b in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])])
 
 
+def run_ref(geom, lo, hi):
+    return geom.flatten_nodes([uf.bucket_backward_run(g, a, b) for g, a, b in zip(
+        geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("split", [None, 1, 2, 3, 7])
+def test_l2_body_at_each_split_equals_twins_bit_for_bit(cuda_device, precision, split):
+    """The L2 body at the plan's G and at forced G of 1 (a block a column),
+    2 and odd ones, over two buckets of different H in one table (the hop
+    barriers count per column), with rows that restart past hop 0: the
+    forward, the backward and the run against the twins bit for bit, on
+    random costs and on costs whose NaN and signed zeros reach a frontier."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    itemsize = 4 if precision == "float" else 8
+    host, costs = synthetic_host(L2_SHAPES + [(250000, 3, 2)], dtype, cuda_device, seed=23)
+    geom = host.geom
+    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, huge_body="huge_l2",
+                              l2_split=split)
+    resident = layout.l2_occupancy(itemsize, layout.HUGE_THREADS, cuda_device) * layout.sm_count(
+        cuda_device)
+    assert (plan.nr_l2, plan.l2_columns) == (2, 3)
+    assert plan.l2_split == (split or layout.choose_l2_split(3, 320000, 1024, resident))
+    assert plan.l2_blocks == 3 * plan.l2_split
+    assert any(bool(g.roots[1:].any()) for g in geom.buckets)  # restarts past hop 0
+    for zero_costs in (None, False, True):
+        lo, hi, fr, dl, dh = costs if zero_costs is None else nan_and_zero_costs(costs, zero_costs)
+        seen_nan = False
+        for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
+                             ("uniform_backward", uf.bucket_backward_iteration)):
+            launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
+            launch()
+            torch.cuda.synchronize()
+            ref = twins_bucket_by_bucket(twin, geom, lo, hi, fr, 0.5, dl, dh)
+            assert_same_bits(out, ref)
+            seen_nan = seen_nan or bool(torch.isnan(ref[3]).any())
+        if zero_costs is not None:
+            assert seen_nan  # the case is what it says: a NaN went through a frontier
+        launch, out = sk.prepare_run_launch(geom, lo, hi, plan)
+        launch()
+        torch.cuda.synchronize()
+        assert_same_bits([out], [run_ref(geom, lo, hi)])
+
+
+def rootless_hosts(dtype, device, P=262144, H=4, B=2):
+    """The same random bucket, unpacked and packed, with random costs,
+    whose column 0 starts at a root row that holds no root: row 0 a valid
+    layer of every column (so its records flag a root row, as an unpacked
+    layout flags the valid layers of row 0) but column 0's slot 0 empty.
+    No layout builds one (a BDD's first layer holds its root at slot 0);
+    the records of both are the same bytes."""
+    hosts = []
+    for packed in (False, True):
+        rng = np.random.RandomState(31)
+        bucket = random_bucket(P, H, B, rng, packed)
+        bucket["layer_valid"][0] = True
+        bucket["layer_var"][0] = np.arange(B) % 4
+        bucket["alpha"][0] = 0.5
+        bucket["layer_bdd"][0] = 0
+        bucket["node_valid"][0, 0] = True
+        bucket["node_valid"][0, 0, 0] = False
+        if packed:
+            bucket["root_mask"] = layout.root_rows(bucket["layer_valid"], None)
+        host = layout._build_host([bucket], np.ones(4, np.int64), 4, 4, 1, dtype, device)
+        hosts.append((host, random_costs(host.geom, rng, device)))
+    return hosts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("split", [None, 1, 2, 3])
+def test_l2_body_restarts_a_rootless_root_row_at_each_split(cuda_device, precision, split):
+    """A root row that holds no root, at the plan's G and at G of 1, 2 and 3:
+    the L2 body restarts the frontier there as every body does (0 at slot 0,
+    the packed twins' restart), whatever the split. So the forward, the
+    backward and the run equal the packed twins bit for bit, and the forward
+    differs from the unpacked twins, whose first row is 0 at the valid slots
+    of row 0 (here none), at that one slot alone."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    itemsize = 4 if precision == "float" else 8
+    (plain, costs), (packed, same_costs) = rootless_hosts(dtype, cuda_device)
+    lo, hi, fr, dl, dh = costs
+    assert all(torch.equal(x, y) for x, y in zip(costs, same_costs))
+    assert torch.equal(plain.geom.arcs, packed.geom.arcs)  # one bucket to the kernels
+    assert not plain.geom.buckets[0].packed and packed.geom.buckets[0].packed
+    plan = layout.launch_plan(plain.geom.plan.shapes, dtype, cuda_device, huge_body="huge_l2",
+                              l2_split=split)
+    resident = layout.l2_occupancy(itemsize, layout.HUGE_THREADS, cuda_device) * layout.sm_count(
+        cuda_device)
+    assert plan.nr_l2 == 1 and plan.l2_split == (
+        split or layout.choose_l2_split(2, 262144, layout.HUGE_THREADS, resident))
+    for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
+                         ("uniform_backward", uf.bucket_backward_iteration)):
+        launch, out = sk.prepare_fused_launch(kernel, plain.geom, lo, hi, fr, 0.5, dl, dh, plan)
+        launch()
+        torch.cuda.synchronize()
+        assert_same_bits(out, twins_bucket_by_bucket(twin, packed.geom, lo, hi, fr, 0.5, dl, dh))
+        ref = twins_bucket_by_bucket(twin, plain.geom, lo, hi, fr, 0.5, dl, dh)
+        assert_same_bits(out[:3], ref[:3])
+        got, want = (plain.geom.per_bucket_nodes(x)[0] for x in (out[3], ref[3]))
+        bits = torch.int32 if precision == "float" else torch.int64
+        differ = (got.view(bits) != want.view(bits)) & ~(torch.isnan(got) & torch.isnan(want))
+        if kernel == "uniform_forward":
+            assert differ.nonzero().tolist() == [[0, 0, 0]]
+            assert (got[0, 0, 0].item(), want[0, 0, 0].item()) == (0.0, float("inf"))
+            assert not torch.signbit(got[0, 0, 0])
+        else:
+            assert not differ.any()
+    launch, out = sk.prepare_run_launch(plain.geom, lo, hi, plan)
+    launch()
+    torch.cuda.synchronize()
+    assert_same_bits([out], [run_ref(plain.geom, lo, hi)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_l2_split_past_the_cards_residency_raises(cuda_device, precision):
+    """A G whose grid the card cannot place at once: the cooperative launch
+    is refused and each entry raises, with no hang and no fallback (to G = 1,
+    the twins or the CPU); the plan's own G launches right after it and
+    equals the twins."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    itemsize = 4 if precision == "float" else 8
+    host, (lo, hi, fr, dl, dh) = synthetic_host([(320000, 2, 2)], dtype, cuda_device, seed=29)
+    geom = host.geom
+    resident = layout.l2_occupancy(itemsize, layout.HUGE_THREADS, cuda_device) * layout.sm_count(
+        cuda_device)
+    too_many = resident // 2 + 1
+    assert too_many <= layout.L2_MAX_SPLIT
+    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, l2_split=too_many)
+    sk.reset_launch_counts()
+    calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
+    for launch, _ in (sk.prepare_fused_launch("uniform_forward", geom, lo, hi, fr, 0.5, dl, dh,
+                                              plan),
+                      sk.prepare_fused_launch("uniform_backward", geom, lo, hi, fr, 0.5, dl, dh,
+                                              plan),
+                      sk.prepare_run_launch(geom, lo, hi, plan)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            launch()
+    torch.cuda.synchronize()
+    assert {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS} == calls
+    assert geom.plan.l2_split == min(resident // 2, layout.L2_MAX_SPLIT)
+    out = sk.forward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)
+    run = sk.backward_run_cuda(geom, lo, hi)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == {**launches(), "uniform_forward" + sk.HUGE_L2: 1, sk.RUN + sk.HUGE_L2: 1}
+    assert_same_bits(out, twins_bucket_by_bucket(
+        uf.bucket_forward_iteration, geom, lo, hi, fr, 0.5, dl, dh))
+    assert_same_bits([run], [run_ref(geom, lo, hi)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["float", "double"])
 def test_mixed_layout_counts_one_launch_per_body(cuda_device, precision):
@@ -1163,7 +1479,11 @@ def test_mixed_layout_counts_one_launch_per_body(cuda_device, precision):
     host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=5)
     geom = host.geom
     assert (geom.plan.nr_huge, geom.plan.nr_cluster, geom.plan.nr_l2) == (2, 1, 1)
-    assert geom.huge_scratch.numel() == 2 * L2_SHAPES[0][0] * 1 * lo.element_size()
+    # the L2 body's scratch: its key rows, and the partials and counter of
+    # its one column, split over the plan's G blocks
+    assert geom.plan.huge_scratch_values == 2 * L2_SHAPES[0][0] * 1
+    assert geom.plan.l2_columns == 1 and geom.plan.l2_split > 1
+    assert geom.huge_scratch.numel() == layout.plan_scratch_bytes(geom.plan, lo.element_size())[2]
     sk.reset_launch_counts()
     calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
     out_f = sk.forward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)
