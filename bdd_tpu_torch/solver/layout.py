@@ -276,8 +276,9 @@ HUGE_SCALARS = 8  # values a ring slot of the huge body keeps for the layer (6 u
 HUGE_FROM = 1024
 HUGE_FROM_F32_MANY = 2048
 HUGE_F32_BLOCKS_SM = 4
-# Rows past a block's shared memory (:func:`huge_fits`) run the cluster body
-# where a cluster of CLUSTER_SIZES blocks holds them (:func:`cluster_fits`): a
+# Rows past a block's shared memory (:func:`huge_fits`) may run the cluster
+# body where a cluster of CLUSTER_SIZES blocks holds them (:func:`cluster_fits`;
+# the route takes it where their columns are many, L2_FROM_SPLIT below): a
 # cluster of C blocks a column, each block a share of ceil(P / C) slots of
 # the rows in its shared memory, the rest reached through distributed shared
 # memory. 16 is a non-portable cluster size, which the kernels allow. Its
@@ -286,9 +287,12 @@ HUGE_F32_BLOCKS_SM = 4
 # 32-bit children) past it (:func:`cluster_code_bytes`), so only shared
 # memory bounds the width: a cluster of 16 holds up to 309,312 slots in
 # float32 and 231,552 in float64 (every power-of-two bucket up to 262,144 /
-# 131,072); the L2 body takes the rest. On knapsack rows of 32,768 slots it
-# leads the L2 body in both precisions (chip_smoke.py --huge-split cluster;
-# PERF.md section 6). One rule for both precisions: on an NVIDIA H100 80GB
+# 131,072); the L2 body takes the rest, and in float64 what only a cluster
+# of 16 holds (CLUSTER_ROUTED). Many columns of 32,768 slots and more run
+# faster on it than on the L2 body (L2_FROM_SPLIT), and so do clusters of 16
+# in float32 (CLUSTER_ROUTED) and the eight-byte codes (132 float32 rows
+# of 65,536 slots, 4.20 ms forward against 5.75; PERF.md section 6). The
+# plan's cluster size, one rule for both precisions: on an NVIDIA H100 80GB
 # HBM3 (700 W) the card holds 66 / 30 / 15 / 7 clusters of 2 / 4 / 8 / 16
 # blocks of one block an SM, and the plan's rule (fewest waves of clusters
 # times slots a thread, then the smallest C) picked the fastest C measured
@@ -299,6 +303,21 @@ HUGE_F32_BLOCKS_SM = 4
 # slower; at 512 threads, one wave, float32 within 3% and float64's
 # forward 15% slower: its compare-and-swap into peers, 15 of 16 arrivals).
 CLUSTER_SIZES = (2, 4, 8, 16)
+# The largest cluster whose rows the route gives the cluster body, by the
+# values' bytes (:func:`body_of`). Rows that only a cluster of 16 holds
+# (past 154,656 float32 / 115,776 float64 slots) keep it in float32, where
+# its forward leads the L2 body's over the columns the route gives it such
+# rows (G below 4, 34 columns and more: 66 rows of 262,144 slots 9.16 / 8.35
+# / 8.25 ms forward / backward / run against the L2 body's 11.16 / 7.17 /
+# 3.75 at G = 2, 132 rows 17.13 / 15.60 / 15.33 against 22.06 / 14.35 / 7.49
+# at G = 1; also at G = 4, 33 rows, 4.59 / 4.19 against 5.64 / 3.57),
+# and take the L2 body in float64, which led it in all three entries at
+# every column count measured (131,072 slots over 1 to 132 columns; 66 rows
+# 7.64 / 4.96 / 2.60 against 9.55 / 5.92 / 4.39 ms, 132 rows 15.06 / 9.82 /
+# 5.18 against 18.19 / 11.20 / 8.38; NVIDIA H100 80GB HBM3, 700 W,
+# chip_smoke.py --huge-split route; PERF.md section 6).
+# ``huge_body="huge_cluster"`` still reaches C = 16 in both precisions.
+CLUSTER_ROUTED = {4: 16, 8: 8}
 CLUSTER_MAX_P = 0xFFFD  # four-byte slot codes hold slots below this
 # Clusters are placed within one GPC (graphics processing cluster), so the
 # card holds fewer large clusters at once than its SMs alone would
@@ -306,8 +325,9 @@ CLUSTER_MAX_P = 0xFFFD  # four-byte slot codes hold slots below this
 # answers above imply them (132 SMs; at one block an SM they give exactly
 # 66 / 30 / 15 / 7): the estimate off the card.
 GPC_SMS = (18, 18, 18, 18, 18, 16, 16, 10)
-# The L2 body (rows past what a cluster of 16 holds, or where the plan is
-# told so) spreads each column over G blocks (``LaunchPlan.l2_split``) that
+# The L2 body (rows past what the route's clusters hold, CLUSTER_ROUTED, rows
+# past a block's over few columns, every run of rows past a block's, and
+# where the plan is told so) spreads each column over G blocks (``LaunchPlan.l2_split``) that
 # meet at a hop barrier of the column in device memory (uniform_sweep.cu,
 # the L2 section). Block g of a column owns the chunks of L2_CHUNK slots (a
 # warp's) whose index is g modulo G (:func:`l2_slots`). The plan takes G from
@@ -316,6 +336,26 @@ GPC_SMS = (18, 18, 18, 18, 18, 16, 16, 10)
 # block at once or is refused. G = 1 is a block a column.
 L2_CHUNK = 32
 L2_MAX_SPLIT = 256  # blocks a column the kernel takes at most
+# Rows that a cluster holds but a block does not take the cluster body or the
+# L2 body by their columns as well as their width (:func:`_route_cluster_or_l2`):
+# the half-sweeps of such a bucket take the L2 body where the L2 table's G,
+# counted with the bucket in it, is at least L2_FROM_SPLIT; the run-only entry
+# takes the L2 body for every one of them (:func:`run_body_of`). Measured on
+# an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --huge-split route; PERF.md
+# section 6), warm ms forward / backward, the cluster body at the plan's
+# C against the L2 body at the plan's G, knapsack rows of 48 variables: at G =
+# 4 (33 columns) the L2 body led on 5 of 6 layouts (32,768 slots 0.72 / 0.65
+# against 0.64 / 0.50 in float32, 0.96 / 0.83 against 0.86 / 0.63 in float64;
+# 65,536 slots 1.64 / 1.54 against 1.44 / 0.85 and 2.19 / 1.60 against 1.99 /
+# 1.31; 131,072 float64 slots 4.83 / 2.97 against 3.89 / 2.56), not on
+# 262,144 float32 slots (4.59 / 4.21 against 5.64 / 3.60); at G = 8 to 132 (1
+# to 16 columns) on every layout but 8 columns of 32,768 float32 slots (0.33
+# / 0.29 against 0.33 / 0.30); at G = 2 (66 columns) and 1 (132) the cluster
+# body led (32,768 float32 slots 0.77 / 0.74 against 1.44 / 0.85, and 1.52 /
+# 1.45 against 2.97 / 1.94). One rule for both precisions. The L2 run led on
+# every layout, 1.3-4.8x (132 rows of 32,768 float64 slots: 1.34 ms against
+# 1.81).
+L2_FROM_SPLIT = 4
 
 
 def sm_count(device) -> int:
@@ -370,11 +410,12 @@ def cluster_smem_bytes(P: int, C: int, itemsize: int, two_rows: bool = False,
             + (64 + 2 * max(CLUSTER_SIZES) + 2 * HUGE_SCALARS) * itemsize)
 
 
-def cluster_fits(P: int, itemsize: int) -> bool:
-    """Whether the cluster body holds a bucket of width P: a block's share at
-    the largest cluster, with its slot codes, fits the shared memory a block
-    may opt into (up to 309,312 slots in float32 and 231,552 in float64)."""
-    return cluster_smem_bytes(P, max(CLUSTER_SIZES), itemsize) <= MAX_DYNAMIC_SMEM
+def cluster_fits(P: int, itemsize: int, C: int = max(CLUSTER_SIZES)) -> bool:
+    """Whether the cluster body holds a bucket of width P in clusters of up
+    to C blocks: a block's share at C, with its slot codes, fits the shared
+    memory a block may opt into (at C = 16 up to 309,312 slots in float32
+    and 231,552 in float64; at C = 8 154,656 and 115,776)."""
+    return cluster_smem_bytes(P, C, itemsize) <= MAX_DYNAMIC_SMEM
 
 
 def l2_occupancy(itemsize: int, threads: int, device) -> int:
@@ -440,19 +481,21 @@ def l2_scratch_bytes(values: int, split: int, columns: int, itemsize: int) -> Tu
 
 def body_of(P: int, itemsize: int, columns: int = 0, sms: int = SM_COUNT,
             huge_from: Optional[int] = None) -> str:
-    """The sweep body a bucket of width P over ``columns`` columns runs in a
-    solve of values of ``itemsize`` bytes on a card of ``sms`` SMs:
-    "narrow", "wide", "huge" (the shared-memory form; also the wide buckets
-    the route sends there: from HUGE_FROM slots on, in float32 below
-    HUGE_FROM_F32_MANY only while the columns are at most HUGE_F32_BLOCKS_SM
-    an SM), "huge_cluster" (rows that do not fit a block's shared memory,
-    :func:`huge_fits`, but a cluster's of 16 blocks: :func:`cluster_fits`,
-    whatever the width) or "huge_l2" (the rest: past 309,312 slots in
-    float32 and 231,552 in float64). ``huge_from`` replaces the route: every
-    wide bucket from that width on takes the huge body (timing variants). A
-    layout's plan also
-    holds the route's float32 rule on its huge table as a whole
-    (:func:`_route_huge_table`)."""
+    """The body the half-sweeps of a bucket of width P over ``columns``
+    columns take by its width, in a solve of values of ``itemsize`` bytes on
+    a card of ``sms`` SMs: "narrow", "wide", "huge" (the shared-memory form;
+    also the wide buckets the route sends there: from HUGE_FROM slots on, in
+    float32 below HUGE_FROM_F32_MANY only while the columns are at most
+    HUGE_F32_BLOCKS_SM an SM), "huge_cluster" (rows that do not fit a
+    block's shared memory, :func:`huge_fits`, but a cluster's of up to
+    CLUSTER_ROUTED blocks: :func:`cluster_fits`) or "huge_l2" (the rest: past
+    309,312 slots in float32 and 115,776 in float64). ``huge_from`` replaces
+    the route of the wide buckets: every one from that width on takes the
+    huge body (timing variants). A layout's plan holds the route on its
+    tables as a whole: the float32 rule on the huge table
+    (:func:`_route_huge_table`) and the cluster-or-L2 rule by the L2 table's
+    columns (:func:`_route_cluster_or_l2`), and its run-only entry takes the
+    L2 body for the cluster body's buckets (:func:`run_body_of`)."""
     if P <= NARROW_P:
         return "narrow"
     if P <= WIDE_P:
@@ -465,9 +508,16 @@ def body_of(P: int, itemsize: int, columns: int = 0, sms: int = SM_COUNT,
             return "wide"
     if huge_fits(P, itemsize):
         return "huge"
-    if cluster_fits(P, itemsize):
+    if cluster_fits(P, itemsize, CLUSTER_ROUTED[itemsize]):
         return "huge_cluster"
     return "huge_l2"
+
+
+def run_body_of(body: str) -> str:
+    """The body the run-only entry takes for a bucket whose half-sweeps run
+    ``body``: the L2 body for the cluster body's buckets, the same body
+    otherwise."""
+    return "huge_l2" if body == "huge_cluster" else body
 
 
 def lane_pad(nr_columns: int, P: int, lanes: int = 128) -> int:
@@ -489,13 +539,14 @@ class LaunchPlan:
     the buffers: the bucket tables on the device and the grids' numbers. The
     narrow buckets (P <= NARROW_P) go in one launch, the wide ones in a
     second, the huge ones in a third (:func:`body_of`: the shared-memory form,
-    which also takes the wide buckets the route sends it), those whose rows
-    fit a cluster's shared memory in a fourth (the cluster form, C blocks a
-    column) and the rest in a fifth (the L2 form), each over its own table;
-    the tables index the same flat buffers. The huge and the cluster table's
-    last column holds the rows the bucket's backward keeps in shared memory
-    (1 or 2); the L2 table's is the bucket's offset (in values) into the L2
-    form's scratch rows, the forward's two key rows of every such column
+    which also takes the wide buckets the route sends it), those the route
+    gives the cluster form (C blocks a column) in a fourth and the rest in a
+    fifth (the L2 form), each over its own table; the tables index the same
+    flat buffers. The run-only entry has an L2 table of its own, which also
+    takes the cluster form's buckets (:func:`run_body_of`). The huge and the
+    cluster table's last column holds the rows the bucket's backward keeps in
+    shared memory (1 or 2); the L2 table's is the bucket's offset (in values)
+    into the L2 form's scratch rows, the forward's two key rows of every such column
     ([B, 2, P] per bucket, ``huge_scratch_values`` in all), and its
     ``first_block`` counts blocks, ``l2_split`` of them a column. The plan is
     cached and shared by every layout of its shapes, so it holds no buffer:
@@ -542,6 +593,15 @@ class LaunchPlan:
     huge_scratch_values: int  # sum 2 * P * B over the L2 body's buckets
     l2_split: int  # G: the blocks a column of the L2 body (:func:`choose_l2_split`)
     l2_columns: int  # the L2 body's columns (of buckets with a hop)
+    # the run-only entry's own route (:func:`run_body_of`): the cluster
+    # table's blocks where the run launches it (0 where its buckets moved to
+    # the run's L2 table), and that table, its blocks, G and columns
+    run_cluster_blocks: int
+    run_l2_table: torch.Tensor  # int64 [nr_run_l2, TABLE_COLUMNS]; the last column 0
+    nr_run_l2: int
+    run_l2_blocks: int
+    run_l2_split: int
+    run_l2_columns: int
 
 
 def cell_bytes(P: int, itemsize: int) -> int:
@@ -667,6 +727,52 @@ def _route_huge_table(shapes, body, itemsize: int, sms: int):
     return ["wide" if k in few else b for k, b in enumerate(body)]
 
 
+def _route_cluster_or_l2(shapes, body, resident: int):
+    """``body`` (per bucket, :func:`body_of`) with the cluster-or-L2 rule
+    held on the L2 table as a whole. One launch runs that table at one G, the
+    card's ``resident`` blocks over all its columns (:func:`choose_l2_split`),
+    so a bucket that a cluster holds joins it only where G, counted with the
+    bucket and every one that joined before, stays at least L2_FROM_SPLIT.
+    They try in a fixed order, widest first (then in table order), so the
+    table's G at the end is the last joiner's, at or above L2_FROM_SPLIT."""
+    held = [k for k, b in enumerate(body) if b == "huge_cluster"]
+    if not held:
+        return body
+    body = list(body)
+    l2 = [k for k, b in enumerate(body) if b == "huge_l2"]
+    cols = sum(shapes[k][2] for k in l2 if shapes[k][1] > 0)
+    pmax = max((shapes[k][0] for k in l2), default=0)
+    for k in sorted(held, key=lambda k: (-shapes[k][0], k)):
+        P, H, B = shapes[k]
+        more = cols + (B if H > 0 else 0)
+        if choose_l2_split(more, max(pmax, P), HUGE_THREADS, resident) >= L2_FROM_SPLIT:
+            body[k] = "huge_l2"
+            cols, pmax = more, max(pmax, P)
+    return body
+
+
+def _l2_launch(shapes, l2, rows, nodes, arcs, split: Optional[int], resident: Optional[int],
+               key_rows: bool):
+    """(table, blocks, G, columns, key-row values) of one launch of the L2
+    body over the buckets ``l2`` (indices into ``shapes``): G from
+    :func:`choose_l2_split` unless ``split`` forces it, ``first_block`` in
+    blocks, G a column; the table's last column the bucket's offset into the
+    key rows where ``key_rows`` (the half-sweeps'), else 0 (the run reads
+    none)."""
+    cols = sum(shapes[k][2] for k in l2 if shapes[k][1] > 0)
+    if split is None:
+        split = choose_l2_split(cols, max((shapes[k][0] for k in l2), default=1), HUGE_THREADS,
+                                resident) if cols else 1
+    table = np.zeros((len(l2), TABLE_COLUMNS), dtype=np.int64)
+    block = values = 0
+    for r, k in enumerate(l2):
+        P, H, B = shapes[k]
+        table[r] = (P, H, B, block, rows[k], nodes[k], arcs[k], values)
+        block += split * B if H > 0 else 0
+        values += 2 * P * B if key_rows else 0
+    return table, block, split, cols, values
+
+
 def cluster_occupancy(itemsize: int, C: int, threads: int, smem: int, device, sms: int,
                       pmax: int) -> int:
     """Clusters of C blocks of ``threads`` threads and ``smem`` bytes of
@@ -755,11 +861,18 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
     body = [body_of(P, itemsize, B, sms, huge_from) for P, _, B in shapes]
     if huge_from is None:
         body = _route_huge_table(shapes, body, itemsize, sms)
+    # huge_body forces one body on all three entries
     if huge_body == "huge_l2":  # the L2 body for every bucket past the wide records
         body = ["huge_l2" if P > WIDE_P else b for b, (P, _, _) in zip(body, shapes)]
     elif huge_body == "huge_cluster":  # the cluster body wherever it holds the rows
         body = ["huge_cluster" if P > WIDE_P and cluster_fits(P, itemsize) else b
                 for b, (P, _, _) in zip(body, shapes)]
+    resident = None  # blocks of the L2 body the card holds at once, where a bucket may take it
+    if any(b in ("huge_cluster", "huge_l2") for b in body):
+        resident = sms * l2_occupancy(itemsize, HUGE_THREADS, device)
+        if huge_body is None:
+            body = _route_cluster_or_l2(shapes, body, resident)
+    run_body = body if huge_body else [run_body_of(b) for b in body]
     narrow = [k for k, b in enumerate(body) if b == "narrow"]
     wide = [k for k, b in enumerate(body) if b == "wide"]
     huge = [k for k, b in enumerate(body) if b == "huge"]
@@ -802,20 +915,13 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
         P, H, B = shapes[k]
         cluster_table[r] = (P, H, B, cluster_block, rows[k], nodes[k], arcs[k], cl_rows[r])
         cluster_block += C * B if H > 0 else 0
-    l2_cols = sum(shapes[k][2] for k in l2 if shapes[k][1] > 0)
-    if l2_split is None:
-        l2_split = choose_l2_split(
-            l2_cols, max((shapes[k][0] for k in l2), default=1), HUGE_THREADS,
-            sms * l2_occupancy(itemsize, HUGE_THREADS, device)) if l2_cols else 1
-    elif not 1 <= l2_split <= L2_MAX_SPLIT:
+    if l2_split is not None and not 1 <= l2_split <= L2_MAX_SPLIT:
         raise ValueError(f"the L2 body takes 1 to {L2_MAX_SPLIT} blocks a column, not {l2_split}")
-    l2_table = np.zeros((len(l2), TABLE_COLUMNS), dtype=np.int64)
-    l2_block = scratch = 0
-    for r, k in enumerate(l2):
-        P, H, B = shapes[k]
-        l2_table[r] = (P, H, B, l2_block, rows[k], nodes[k], arcs[k], scratch)
-        l2_block += l2_split * B if H > 0 else 0
-        scratch += 2 * P * B
+    l2_table, l2_block, split, l2_cols, scratch = _l2_launch(
+        shapes, l2, rows, nodes, arcs, l2_split, resident, key_rows=True)
+    run_l2 = [k for k, b in enumerate(run_body) if b == "huge_l2"]
+    run_table, run_block, run_split, run_cols, _ = _l2_launch(
+        shapes, run_l2, rows, nodes, arcs, l2_split, resident, key_rows=False)
     return LaunchPlan(
         table=torch.from_numpy(table).to(device), nr_buckets=len(narrow), nr_blocks=block,
         tile=tile, pmax=max((shapes[k][0] for k in narrow), default=1), smem_bytes=smem,
@@ -832,8 +938,11 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
         cluster_pmax=max((shapes[k][0] for k in clustered), default=0),
         cluster_smem_forward=cl_fwd, cluster_smem_backward=cl_bwd,
         l2_table=torch.from_numpy(l2_table).to(device), nr_l2=len(l2), l2_blocks=l2_block,
-        l2_threads=HUGE_THREADS, huge_scratch_values=scratch, l2_split=l2_split,
+        l2_threads=HUGE_THREADS, huge_scratch_values=scratch, l2_split=split,
         l2_columns=l2_cols,
+        run_cluster_blocks=cluster_block if "huge_cluster" in run_body else 0,
+        run_l2_table=torch.from_numpy(run_table).to(device), nr_run_l2=len(run_l2),
+        run_l2_blocks=run_block, run_l2_split=run_split, run_l2_columns=run_cols,
     )
 
 
@@ -861,19 +970,25 @@ def launch_plan(shapes, dtype: torch.dtype, device, stages: Optional[int] = None
 
 
 def plan_scratch_bytes(plan: LaunchPlan, itemsize: int) -> Tuple[int, int, int]:
-    """:func:`l2_scratch_bytes` of ``plan``'s L2 launch."""
-    return l2_scratch_bytes(plan.huge_scratch_values, plan.l2_split, plan.l2_columns, itemsize)
+    """:func:`l2_scratch_bytes` of ``plan``'s two L2 launches in one buffer:
+    the half-sweeps' key rows, then room for the partials and the counters of
+    whichever launch needs more (the half-sweeps' or the run's, which take
+    turns on the layout's stream)."""
+    half = l2_scratch_bytes(plan.huge_scratch_values, plan.l2_split, plan.l2_columns, itemsize)
+    run = l2_scratch_bytes(plan.huge_scratch_values, plan.run_l2_split, plan.run_l2_columns,
+                           itemsize)
+    counters = max(half[1], run[1])
+    return half[0], counters, counters + max(half[2] - half[1], run[2] - run[1])
 
 
 def huge_scratch(plan: LaunchPlan, dtype: torch.dtype, device) -> Optional[torch.Tensor]:
-    """The scratch of the L2 body over ``plan``'s buckets in its table (uint8,
-    :func:`plan_scratch_bytes`: the forward's key rows, and where the plan
-    splits a column the partials and counters that all three entries use):
-    one buffer per layout, made with it and freed with it. None off the card
-    (the twins need none) and where the plan sends no bucket to the L2
-    body."""
+    """The scratch of the L2 body over ``plan``'s buckets in its tables (uint8,
+    :func:`plan_scratch_bytes`: the forward's key rows, and where a launch
+    splits a column the partials and counters that it uses): one buffer per
+    layout, made with it and freed with it. None off the card (the twins need
+    none) and where the plan sends no bucket of any entry to the L2 body."""
     device = torch.device(device)
-    if device.type != "cuda" or not plan.l2_blocks:
+    if device.type != "cuda" or not (plan.l2_blocks or plan.run_l2_blocks):
         return None
     itemsize = torch.empty((), dtype=dtype).element_size()
     return torch.empty(plan_scratch_bytes(plan, itemsize)[2], dtype=torch.uint8, device=device)
@@ -883,12 +998,14 @@ def solve_bytes(shapes, itemsize: int) -> int:
     """Device memory a solve over buckets of ``shapes`` works in: the arc
     records, per layer the state, the half-sweep's outputs, the deltas, alpha
     and three int64 index entries, per node the frontier in and out, and the
-    scratch of the buckets the L2 body takes (the cluster body keeps none):
-    their key rows and the partials and counters of their columns, counted at
-    L2_MAX_SPLIT blocks a column, the most any plan takes (a few KB a column
-    at most above the plan's own)."""
+    scratch of the L2 body as the most the route can give these buckets: the
+    key rows of every bucket past a block's shared memory (each may take the
+    L2 body, :func:`_route_cluster_or_l2`; the cluster body keeps none), and
+    the partials and counters of all their columns (the run's L2 table takes
+    them all) at L2_MAX_SPLIT blocks a column (a few KB a column at most
+    above the plan's own)."""
     _, _, _, E, N, arcs = _offsets(shapes)
-    l2 = [(P, H, B) for P, H, B in shapes if body_of(P, itemsize) == "huge_l2"]
+    l2 = [(P, H, B) for P, H, B in shapes if not huge_fits(P, itemsize)]
     columns = sum(B for _, H, B in l2 if H > 0)
     split = L2_MAX_SPLIT if columns else 1
     scratch = l2_scratch_bytes(sum(2 * P * B for P, _, B in l2), split, columns, itemsize)[2]

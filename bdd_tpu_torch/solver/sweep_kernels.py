@@ -5,10 +5,11 @@ Two levels of wrapper over the kernels of ``csrc/uniform_sweep.cu``
 (``uniform_forward``, ``uniform_backward``, each with a body for buckets of
 up to 32 slots, one for wide buckets, one a block a column for wider buckets
 (``layout.body_of``: from ``layout.HUGE_FROM`` slots on, rows in shared
-memory), its cluster form, a cluster of blocks a column, for buckets whose
-rows do not fit a block (``layout.huge_fits``) but a cluster
-(``layout.cluster_fits``), and its L2 form for the rest; see the design
-notes there):
+memory), and for buckets whose rows do not fit a block (``layout.huge_fits``)
+its cluster form, a cluster of blocks a column, where a cluster holds them
+(``layout.cluster_fits``) and their columns are many, and its L2 form for
+the rest; the run-only entry takes the L2 form for all of them; see the
+design notes there):
 
 * ``forward_iteration_cuda`` / ``backward_iteration_cuda`` take a whole
   ``UniformGeom`` and flat tensors and run the half-sweep of every bucket: ONE
@@ -113,7 +114,8 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
               frontier, outs, scratch=None):
     """A closure that queues ``kernel`` on the current stream (the narrow
     buckets' launch, then the wide buckets', the huge buckets', the cluster
-    body's and the L2 body's, each where the plan has blocks for it) and raises on a launch
+    body's and the L2 body's, each where the plan has blocks for it; the run
+    entry's cluster and L2 launches by its own route) and raises on a launch
     error. It holds its tensors alive and does not count; ``launch.counts``
     names the key of ``LAUNCHES`` of every launch a call makes. ``scratch``:
     the L2 body's (:func:`layout.huge_scratch`): the key rows, which the
@@ -148,21 +150,28 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
         calls.append((kernel + HUGE, (
             plan.huge_table.data_ptr(), plan.nr_huge, plan.huge_blocks, plan.huge_threads,
             plan.huge_pmax, smem, *buffers)))
-    if plan.cluster_blocks:
+    # the run-only entry takes its own route (layout.run_body_of)
+    if plan.run_cluster_blocks if kernel == RUN else plan.cluster_blocks:
         smem = (plan.cluster_smem_forward if kernel == "uniform_forward"
                 else plan.cluster_smem_backward)
         calls.append((kernel + HUGE_CLUSTER, (
             plan.cluster_table.data_ptr(), plan.nr_cluster, plan.cluster_blocks,
             plan.cluster_threads, plan.cluster_size, plan.cluster_pmax, smem, *buffers)))
-    if plan.l2_blocks:
+    if kernel == RUN:
+        l2 = (plan.run_l2_table, plan.nr_run_l2, plan.run_l2_blocks, plan.run_l2_split,
+              plan.run_l2_columns)
+    else:
+        l2 = (plan.l2_table, plan.nr_l2, plan.l2_blocks, plan.l2_split, plan.l2_columns)
+    table, nr_l2, l2_blocks, split, columns = l2
+    if l2_blocks:
         if scratch is None:
             raise ValueError(f"{kernel}: the L2 body's launch needs its scratch "
                              f"(layout.huge_scratch)")
         base = scratch.data_ptr()
         parts, counters, _ = plan_scratch_bytes(plan, lo.element_size())
         calls.append((kernel + HUGE_L2, (
-            plan.l2_table.data_ptr(), plan.nr_l2, plan.l2_blocks, plan.l2_threads, plan.l2_split,
-            plan.l2_columns, *buffers[:-1], base, base + parts, base + counters, buffers[-1])))
+            table.data_ptr(), nr_l2, l2_blocks, plan.l2_threads, split, columns, *buffers[:-1],
+            base, base + parts, base + counters, buffers[-1])))
     calls = [(name, getattr(lib, f"{name}_{suffix}"), args) for name, args in calls]
     keep = (plan, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, frontier, outs, scratch)
 

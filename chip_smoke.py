@@ -389,14 +389,16 @@ def check_index_on_card(label, geom) -> None:
 
 
 def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=(), suffix="",
-                   state=None, reps=200):
+                   state=None, reps=200, run_suffix=None):
     """Phase 2 for one host: every bucket alone, then all buckets fused, then
     the run-only entry; ``variants``: keyword sets of :func:`variant_plan`
     (forced ring depths, warps a block, bodies, threads a block of a huge
     form) to time the fused launches (and, where a huge form runs, the run
     entry) at as well;
     ``suffix``: the body every bucket of the host runs (WIDE, HUGE,
-    HUGE_CLUSTER, HUGE_L2);
+    HUGE_CLUSTER, HUGE_L2), ``run_suffix`` the body of its run-only entry
+    where the run's route differs (the cluster body's buckets run on the L2
+    body);
     ``state``: the state to sweep from (a solver's, after its solve) instead
     of five iterations from ``objective``; ``reps``: the warm launches a
     fused launch is timed over (a tenth of them cold, half per bucket),
@@ -537,7 +539,7 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
                 "bound_ms"]
             row.append(f"{name} warm {warm:.4f} ms ({share(bound, warm)}), cold {cold:.4f} ms "
                        f"({share(bound, cold)})")
-        if deep.huge_blocks or deep.cluster_blocks or deep.l2_blocks:  # the run entry too
+        if deep.huge_blocks or deep.cluster_blocks or deep.run_l2_blocks:  # the run entry too
             if run_ref is None:
                 run_ref = geom.flatten_nodes([uf.bucket_backward_run(g, a, b) for g, a, b in zip(
                     geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])
@@ -559,7 +561,8 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
               f"L2 {deep.nr_l2} bucket(s), {deep.l2_threads} threads a block, {deep.l2_split} "
               f"blocks a column: match; "
               f"{'; '.join(row)} {card}", flush=True)
-    run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix, reps)
+    run_vs_plain(label, geom, lo, hi, card, errs, entry, flush,
+                 suffix if run_suffix is None else run_suffix, reps)
 
 
 # set on a copy of a plan, not by launch_plan
@@ -607,8 +610,8 @@ def run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix, reps=200
     rose = {k: n - before[k] for k, n in sk.LAUNCHES.items() if n != before[k]}
     want = {k: 1 for k, blocks in ((RUN, geom.plan.nr_blocks), (RUN + WIDE, geom.plan.wide_blocks),
                                    (RUN + HUGE, geom.plan.huge_blocks),
-                                   (RUN + HUGE_CLUSTER, geom.plan.cluster_blocks),
-                                   (RUN + HUGE_L2, geom.plan.l2_blocks)) if blocks}
+                                   (RUN + HUGE_CLUSTER, geom.plan.run_cluster_blocks),
+                                   (RUN + HUGE_L2, geom.plan.run_l2_blocks)) if blocks}
     if rose != want:
         fail(f"{label} {dt}: one fused run call counted launches {rose}, not {want}")
     launch, _ = sk.prepare_run_launch(geom, lo, hi)
@@ -854,12 +857,13 @@ def merged_lp(*lps: str) -> str:
     return "\n".join(["Minimize", " + ".join(objective), "Subject To", *rows, "End"])
 
 
-def counted_iterations(label, host, objective, n, card, native=None) -> dict:
+def counted_iterations(label, host, objective, n, card, native=None,
+                       rel_limit=LB_REL["double"]) -> dict:
     """``n`` iterations through the kernels on ``host`` from its initial
     state, counted: a path of the kernels line. Fails if a plain sweep or
     run ran, or, given ``native`` (the ``NativeHost`` the layout was built
     from), if the bound is off the native C++ solver's after as many
-    iterations by more than LB_REL["double"]."""
+    iterations by more than ``rel_limit``."""
     from bdd_tpu_torch.solver import sweep_kernels as sk
     from bdd_tpu_torch.solver import uniform as uf
 
@@ -881,9 +885,9 @@ def counted_iterations(label, host, objective, n, card, native=None) -> dict:
         lb_native = cs.lower_bound_with_deferred()
         rel = abs(lb - lb_native) / abs(lb_native)
         print(f"[huge] {label}: the native C++ solver after {n} iterations {lb_native!r} "
-              f"({native_s:.2f} s): rel diff {rel:.3e} (limit {LB_REL['double']}) {card}",
+              f"({native_s:.2f} s): rel diff {rel:.3e} (limit {rel_limit}) {card}",
               flush=True)
-        if not rel <= LB_REL["double"]:
+        if not rel <= rel_limit:
             fail(f"{label}: bound {lb!r} off the native solver's {lb_native!r}")
     return counted
 
@@ -968,14 +972,16 @@ def phase_huge(card, errs, times, flush):
     huge body (a block a column, rows in shared memory, a launch of its own
     per half-sweep); rows of exactly 8,192 on the body the route gives them,
     beside the wide body (the crossover; at 256 to 4,096 slots: ``--huge-split
-    columns``); knapsack48 and those rows in one layout; rows of 32,768 slots, past
-    a block's shared memory, and of 65,536, past four-byte slot codes, on
-    the cluster body (beside the L2 body forced on the same layout), and
-    a row of 262,144, past a cluster of 16 in float64, on the L2 body (its
-    column over the plan's G blocks, the form of one block a column forced
-    beside it; in float32 on the cluster body). Returns the paths of the kernels line:
-    knapsack48's float64 solve, knapsack32's, and the counted float64
-    iterations of the 32,768-, 65,536- and 262,144-slot rows."""
+    columns``); knapsack48 and those rows in one layout; rows past a block's
+    shared memory on the bodies the route gives them by their columns, the
+    other body forced beside them: 132 rows of 32,768 slots sweep on the
+    cluster body and run on the L2 body, 8 rows of 65,536 slots (eight-byte
+    slot codes in the cluster body) and a row of 262,144 take the L2 body
+    (its column over the plan's G blocks; in float64, past any cluster, the
+    form of one block a column forced beside it). Returns the paths of the
+    kernels line: knapsack48's float64 solve, knapsack32's, the counted
+    float64 iterations of the 32,768-, 65,536- and 262,144-slot rows and
+    the counted float32 ones of the 262,144-slot row."""
     import torch
     from bdd_tpu_torch.api import BddSolver
     from bdd_tpu_torch.native import NativeHost
@@ -1045,25 +1051,31 @@ def phase_huge(card, errs, times, flush):
     kernel_vs_twin("knapsack48+32", host, mixed.objective(), card, errs, times, flush,
                    suffix=HUGE)
     del host, mixed
-    # rows past a block's shared memory in either precision: the cluster
-    # body (four-byte slot codes at 32,768 slots, eight-byte ones at
-    # 65,536), the L2 body forced beside it; then rows past a cluster of 16
-    # in float64 on the L2 body (the form of one block a column forced
-    # beside it), in float32 on the cluster body
-    on_l2 = ({"huge_body": "huge_l2"},)
+    # rows past a block's shared memory in either precision, on the bodies
+    # the route gives them (layout._route_cluster_or_l2, by their columns as
+    # well as their width) with the other body forced beside them: 132 rows of 32,768
+    # slots (four-byte slot codes) sweep on the cluster body and run on the
+    # L2 body; 8 rows of 65,536 (eight-byte codes) and one of 262,144 take
+    # the L2 body in all three entries (beside the float64 row, past any
+    # cluster, its form of one block a column instead). Counted iterations:
+    # both precisions of the widest row (float32 is the default), float64 of
+    # the others.
+    on_l2, on_cluster = {"huge_body": "huge_l2"}, {"huge_body": "huge_cluster"}
     for label, rows, runs, reps in (
             ("knapsack48 L2", L2_ROWS,
-             ((torch.float32, HUGE_CLUSTER, on_l2), (torch.float64, HUGE_CLUSTER, on_l2)), 200),
+             ((torch.float32, HUGE_CLUSTER, HUGE_L2, (on_l2, on_cluster), False),
+              (torch.float64, HUGE_CLUSTER, HUGE_L2, (on_l2, on_cluster), True)), 100),
             ("knapsack L2 wide", L2_WIDE_ROWS,
-             ((torch.float32, HUGE_CLUSTER, on_l2), (torch.float64, HUGE_CLUSTER, on_l2)), 200),
+             ((torch.float32, HUGE_L2, HUGE_L2, (on_cluster,), False),
+              (torch.float64, HUGE_L2, HUGE_L2, (on_cluster,), True)), 200),
             ("knapsack L2 widest", L2_WIDEST_ROWS,
-             ((torch.float32, HUGE_CLUSTER, ()), (torch.float64, HUGE_L2, ({"l2_split": 1},))),
-             40)):
+             ((torch.float32, HUGE_L2, HUGE_L2, (on_cluster,), True),
+              (torch.float64, HUGE_L2, HUGE_L2, ({"l2_split": 1},), True)), 40)):
         t0 = time.perf_counter()
         l2 = NativeHost(knapsack_lp(**rows), "input")
         print(f"[huge] knapsack rows {rows}: {l2.nr_bdds()} BDDs, built by the host library in "
               f"{time.perf_counter() - t0:.2f} s {card}", flush=True)
-        for dtype, suffix, variants in runs:
+        for dtype, suffix, run_suffix, variants, count in runs:
             itemsize = torch.empty((), dtype=dtype).element_size()
             dt = str(dtype).replace("torch.", "")
             host = layout.from_native_host(l2, dtype, "cuda", pack=False)
@@ -1077,13 +1089,19 @@ def phase_huge(card, errs, times, flush):
                   f"{layout.cluster_code_bytes(plan.cluster_pmax)}-byte slot codes, "
                   f"{plan.cluster_smem_forward} / {plan.cluster_smem_backward} B a block), "
                   f"{plan.nr_l2} on the L2 body ({plan.l2_split} blocks a column, "
-                  f"{plan.l2_blocks} blocks) {card}", flush=True)
+                  f"{plan.l2_blocks} blocks); the run: {plan.nr_run_l2} on the L2 body "
+                  f"({plan.run_l2_split} blocks a column), the cluster body "
+                  f"{'too' if plan.run_cluster_blocks else 'not'} {card}", flush=True)
             on = plan.nr_cluster if suffix == HUGE_CLUSTER else plan.nr_l2
-            if on != len(shapes) or plan.nr_huge or plan.nr_wide or plan.nr_buckets:
-                fail(f"the {label} rows are not all on the {suffix[1:]} body: {shapes}, "
-                     f"{plan.nr_cluster} on the cluster body, {plan.nr_l2} on the L2 body")
+            run_on = (plan.nr_cluster if plan.run_cluster_blocks else 0) if (
+                run_suffix == HUGE_CLUSTER) else plan.nr_run_l2
+            if (on != len(shapes) or run_on != len(shapes) or plan.nr_huge or plan.nr_wide
+                    or plan.nr_buckets):
+                fail(f"the {label} rows do not all sweep on the {suffix[1:]} body and run on the "
+                     f"{run_suffix[1:]} body: {shapes}, {plan.nr_cluster} on the cluster body, "
+                     f"{plan.nr_l2} on the L2 body, {plan.nr_run_l2} runs on the L2 body")
             kernel_vs_twin(label, host, l2.objective(), card, errs, times, flush, suffix=suffix,
-                           variants=variants, reps=reps)
+                           variants=variants, reps=reps, run_suffix=run_suffix)
             if suffix == HUGE_L2:
                 e, hops = times[(label, dt)], max(H for _, H, _ in plan.shapes)
                 print(f"[huge] {label} {dt} L2 body: {plan.l2_split} blocks a column over "
@@ -1091,15 +1109,16 @@ def phase_huge(card, errs, times, flush):
                       f"{plan.l2_threads} threads; a hop (of {hops}) "
                       + ", ".join(f"{k} {e[k]['ms'] / hops:.4f} ms" for k in (
                           "uniform_forward", "uniform_backward", RUN)) + f" {card}", flush=True)
-            if dtype == torch.float64:
-                counted = counted_iterations(f"{label} float64", host, l2.objective(),
-                                             PATH_ITERS, card, native=l2)
+            if count:
+                prec = "float" if dtype == torch.float32 else "double"
+                counted = counted_iterations(f"{label} {dt}", host, l2.objective(), PATH_ITERS,
+                                             card, native=l2, rel_limit=LB_REL[prec])
                 want = launch_counts(**{suffix[1:]: PATH_ITERS})
-                if sweeps_of(counted) != want or not counted[RUN + suffix] or any(
-                        counted[RUN + b] for b in BODIES if b != suffix):
-                    fail(f"{label}: launches {counted}; expected {want} and runs of the "
-                         f"{suffix[1:]} body only")
-                paths.append({"at": label, "dt": "float64", "suffix": suffix,
+                if sweeps_of(counted) != want or not counted[RUN + run_suffix] or any(
+                        counted[RUN + b] for b in BODIES if b != run_suffix):
+                    fail(f"{label} {dt}: launches {counted}; expected {want} and runs of the "
+                         f"{run_suffix[1:]} body only")
+                paths.append({"at": label, "dt": dt, "suffix": suffix, "run_suffix": run_suffix,
                               "launches": counted, "iterations": PATH_ITERS})
             del host
         del l2
@@ -3467,10 +3486,13 @@ CLUSTER_WIDE_SWEEP = [(2, None), (4, None), (8, None), (8, 512), (16, None), (16
 # the row of 262,144 slots: only a cluster of 16 holds it (float32)
 CLUSTER_WIDEST_SWEEP = [(16, None)]
 L2_WIDE_ROWS_132 = dict(nr_vars=1584, nr_rows=132, row_len=48, coef_max=4000)
-SPLIT_PARTS = ("variants", "columns", "route", "cluster", "barrier")
+SPLIT_PARTS = ("variants", "columns", "table", "route", "cluster", "barrier")
 # the L2 body's hop barriers alone: a bucket of BARRIER_P slots whose layers
 # hold no node, BARRIER_H hops, over 1 and 2 columns
 BARRIER_P, BARRIER_H = 262144, 48
+
+
+SPLIT_CHUNK = 1 << 28  # values a comparison of split_times takes at once
 
 
 def split_state(host, objective):
@@ -3492,24 +3514,32 @@ def split_state(host, objective):
 
 def split_times(geom, state, refs, plan, flush, reps=100) -> dict:
     """kernel -> (warm, cold ms) of the three launches of ``plan`` over
-    ``geom`` from ``state``, each held to the plain versions bit for bit."""
+    ``geom`` from ``state``, each held to the plain versions bit for bit.
+    One launch's outputs at a time, compared in chunks of SPLIT_CHUNK values,
+    so that layouts of tens of GB leave room for the comparison."""
     import torch
     from bdd_tpu_torch.solver import sweep_kernels as sk
 
     lo, hi, cft, dl, dh = state
     ref_f = refs["uniform_forward"]
-    launches = {
-        "uniform_forward": sk.prepare_fused_launch("uniform_forward", geom, lo, hi, cft, 0.5, dl,
-                                                   dh, plan),
-        "uniform_backward": sk.prepare_fused_launch("uniform_backward", geom, ref_f[0], ref_f[1],
-                                                    ref_f[3], 0.5, dl, dh, plan),
-        RUN: sk.prepare_run_launch(geom, lo, hi, plan)}
     out = {}
-    for kernel, (launch, res) in launches.items():
+    for kernel in ("uniform_forward", "uniform_backward", RUN):
+        if kernel == RUN:
+            launch, res = sk.prepare_run_launch(geom, lo, hi, plan)
+            res = [res]
+        else:
+            a, b, c = (lo, hi, cft) if kernel == "uniform_forward" else (
+                ref_f[0], ref_f[1], ref_f[3])
+            launch, res = sk.prepare_fused_launch(kernel, geom, a, b, c, 0.5, dl, dh, plan)
         launch()
         torch.cuda.synchronize()
-        compare(res if kernel != RUN else [res], refs[kernel], 0.0)
+        if [x.shape for x in res] != [y.shape for y in refs[kernel]]:
+            fail(f"{kernel}: outputs {[tuple(x.shape) for x in res]} vs the plain version's "
+                 f"{[tuple(y.shape) for y in refs[kernel]]}")
+        compare(*([c for x in xs for c in x.reshape(-1).split(SPLIT_CHUNK)]
+                  for xs in (res, refs[kernel])), 0.0)
         out[kernel] = (cuda_ms(launch, reps), cuda_ms(launch, max(1, reps // 10), flush))
+        del launch, res
     return out
 
 
@@ -3526,7 +3556,7 @@ def split_row(times: dict, bounds: dict) -> str:
                      for k, (w, c) in times.items())
 
 
-def split_route(card, flush) -> None:
+def split_table(card, flush) -> None:
     """The route's float32 rule on a whole huge table: layouts whose float32
     buckets below HUGE_FROM_F32_MANY the route once sent to the huge body one
     by one, timed as the plan runs them now (the wide body) and as they ran
@@ -3562,6 +3592,77 @@ def split_route(card, flush) -> None:
                   flush=True)
         del host, geom, state, refs
         torch.cuda.empty_cache()
+
+
+def route_rows(columns: int, coef_max: int) -> dict:
+    """``knapsack_lp``'s arguments for ``columns`` rows of 48 variables with
+    coefficients up to ``coef_max`` (2,000 / 4,000 / 8,000 / 16,000 make
+    BDDs of 32,768 / 65,536 / 131,072 / 262,144 slots), over as many
+    variables as whole permutations allow."""
+    nr_vars = 1584 if columns % 33 == 0 else 96 if columns % 2 == 0 else 48
+    return dict(nr_vars=nr_vars, nr_rows=columns, row_len=48, coef_max=coef_max)
+
+
+# the layouts of --huge-split route: (slots, columns, coefficients up to, the
+# precisions a cluster holds the rows in); 262,144 slots only C = 16 holds,
+# and only in float32, 131,072 in float64 only C = 16 (the widest of them,
+# 132 columns, about 27 / 20 GB to solve)
+ROUTE_LAYOUTS = ([(65536, c, 4000, ("float32", "float64")) for c in (1, 8, 16)]
+                 + [(262144, c, 16000, ("float32",)) for c in (1, 8)]
+                 + [(131072, c, 8000, ("float64",)) for c in (1, 8)]
+                 + [(32768, c, 2000, ("float32", "float64")) for c in (8, 33, 66, 132)]
+                 + [(65536, c, 4000, ("float32", "float64")) for c in (33, 66, 132)]
+                 + [(262144, c, 16000, ("float32",)) for c in (33, 66, 132)]
+                 + [(131072, c, 8000, ("float64",)) for c in (33, 66, 132)])
+
+
+def split_route(card, flush, widths=()) -> None:
+    """The cluster body against the L2 body on the layouts of ROUTE_LAYOUTS
+    (knapsack rows, H = 48, unpacked), where ``widths`` names any ((P,) or
+    (P, columns)) those alone: each forced in turns (cluster, L2, L2, cluster), the
+    cluster body at the plan's cluster size and the L2 body at the plan's
+    blocks a column G for its table, every launch held to the plain versions
+    bit for bit; the route's own choice beside them. What
+    ``layout.L2_FROM_SPLIT`` and ``layout.CLUSTER_SIZES`` rest on."""
+    import torch
+    from bdd_tpu_torch.native import NativeHost
+    from bdd_tpu_torch.solver import layout
+
+    for P, columns, coef_max, precisions in ROUTE_LAYOUTS:
+        if widths and not {(P,), (P, columns)} & set(widths):
+            continue
+        t0 = time.perf_counter()
+        nh = NativeHost(knapsack_lp(**route_rows(columns, coef_max)), "input")
+        print(f"[split] route P={P} x{columns}: {nh.nr_bdds()} BDDs built in "
+              f"{time.perf_counter() - t0:.1f} s {card}", flush=True)
+        for dt in precisions:
+            dtype = getattr(torch, dt)
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            host = layout.from_native_host(nh, dtype, "cuda", pack=False)
+            geom = host.geom
+            state, refs = split_state(host, nh.objective())
+            bounds = split_bounds(geom, itemsize)
+            shapes = geom.plan.shapes
+            cluster = layout.launch_plan(shapes, dtype, "cuda", huge_body="huge_cluster")
+            l2 = layout.launch_plan(shapes, dtype, "cuda", huge_body="huge_l2")
+            route = geom.plan
+            print(f"[split] route P={P} x{columns} {dt}: buckets {[tuple(x) for x in shapes]}, "
+                  f"{layout.solve_bytes(shapes, itemsize)} B to solve; cluster C = "
+                  f"{cluster.cluster_size}, {cluster.cluster_threads} threads, "
+                  f"{layout.cluster_code_bytes(cluster.cluster_pmax)}-byte codes; L2 G = "
+                  f"{l2.l2_split} ({l2.l2_blocks} blocks); the route: {route.nr_cluster} cluster, "
+                  f"{route.nr_l2} L2 bucket(s) {card}", flush=True)
+            reps = 100 if columns <= 16 else 40
+            turns = (("cluster", cluster), ("L2", l2), ("L2", l2), ("cluster", cluster))
+            if not cluster.nr_cluster:  # no cluster size holds these rows
+                turns = turns[1:2]
+            for name, plan in turns:
+                print(f"[split] route P={P} x{columns} {dt} {name}: match; "
+                      f"{split_row(split_times(geom, state, refs, plan, flush, reps), bounds)} "
+                      f"{card}", flush=True)
+            del host, geom, state, refs
+            torch.cuda.empty_cache()
+        del nh
 
 
 def split_cluster(card, flush) -> None:
@@ -3688,8 +3789,10 @@ def huge_split(parts=()) -> None:
     byte bound, on knapsack48 (B = 132), both precisions, and, for the staged
     forward, on the crossover rows of SPLIT_CROSSOVER_P slots. "columns": the
     crossover between the wide and the huge body at more columns
-    (SPLIT_COLUMNS), with the library as built; "route": :func:`split_route`;
-    "cluster": :func:`split_cluster`; "barrier": :func:`split_barrier`."""
+    (SPLIT_COLUMNS), with the library as built; "table": :func:`split_table`;
+    "route": :func:`split_route` ("route:262144,131072x66": those widths,
+    the second over 66 columns alone); "cluster": :func:`split_cluster`;
+    "barrier": :func:`split_barrier`."""
     import ctypes
     import torch
     from bdd_tpu_torch import _build
@@ -3699,6 +3802,11 @@ def huge_split(parts=()) -> None:
     from bdd_tpu_torch.solver import uniform as uf
 
     parts = tuple(parts) or SPLIT_PARTS
+    # "route:W,WxC": the route part on rows of those widths alone (WxC: over
+    # C columns alone)
+    widths = [tuple(int(v) for v in w.split("x")) for p in parts if p.startswith("route:")
+              for w in p[6:].split(",")]
+    parts = tuple("route" if p.startswith("route:") else p for p in parts)
     if set(parts) - set(SPLIT_PARTS):
         fail(f"--huge-split takes parts of {SPLIT_PARTS}, not {parts}")
     if not torch.cuda.is_available():
@@ -3709,8 +3817,10 @@ def huge_split(parts=()) -> None:
     card = f"[{smi}]"
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     _build.load()
+    if "table" in parts:
+        split_table(card, flush)
     if "route" in parts:
-        split_route(card, flush)
+        split_route(card, flush, widths)
     if "cluster" in parts:
         split_cluster(card, flush)
     if "barrier" in parts:
@@ -3995,14 +4105,17 @@ def finish(paths, errs, times) -> None:
     for path in paths:
         for name in KERNELS + (RUN,):
             e = times[(path["at"], path["dt"])][name]
-            count = path["launches"][name + path["suffix"]]
+            # the run-only entry takes its own route (the cluster body's buckets on the L2 body)
+            suffix = path.get("run_suffix", path["suffix"]) if name == RUN else path["suffix"]
+            key = name + suffix
+            count = path["launches"][key]
             if count == 0:
-                fail(f"{name + path['suffix']} was never launched on the path {path['at']}")
+                fail(f"{key} was never launched on the path {path['at']}")
             rows.append({
-                "name": name + path["suffix"], "at": f"{path['at']} {path['dt']}",
+                "name": key, "at": f"{path['at']} {path['dt']}",
                 "route": "cuda", "source": src, "replaces": replaces[name], "launches": count,
                 "launches_per_iteration": path["iterations"] and count / path["iterations"],
-                "max_abs_err": errs[name + path["suffix"]], "ms": e["ms"],
+                "max_abs_err": errs[key], "ms": e["ms"],
                 "cold_ms": e["cold_ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                 "bound_by": "bytes", "bytes": e["bytes"], "library_ms": None})
     print(json.dumps({"kernels": rows}), flush=True)

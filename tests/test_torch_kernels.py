@@ -449,11 +449,15 @@ def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_c
     reach the frontier relaxation, whose minimum must keep them) and -0.0
     among the costs and deltas; with ``zero_costs`` every finite cost and
     frontier value is a zero, so every minimum is a tie of zeros. Kernel and
-    twin must agree on the NaN pattern and, elsewhere, on every bit."""
+    twin must agree on the NaN pattern and, elsewhere, on every bit. Rows
+    past a block's shared memory that a cluster holds run on the route's
+    body (over these few columns the L2 body) and on the cluster body
+    forced, all three entries."""
     dtype = torch.float32 if precision == "float" else torch.float64
     host, costs = synthetic_host([shape], dtype, cuda_device, seed=sum(shape))
     lo, hi, fr, dl, dh = nan_and_zero_costs(costs, zero_costs)
-    g = host.geom.buckets[0]
+    geom = host.geom
+    g = geom.buckets[0]
     args = (g, lo.view(g.H, g.B), hi.view(g.H, g.B), fr.view(g.H, g.P, g.B), 0.5,
             dl.view(g.H, g.B), dh.view(g.H, g.B))
     seen_nan = False
@@ -468,7 +472,25 @@ def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_c
     # the run-only entry on the same costs: NaN costs reach its relaxation too
     run = sk.bucket_backward_run_cuda(g, args[1], args[2])
     torch.cuda.synchronize()
-    assert_same_bits([run], [uf.bucket_backward_run(g, args[1], args[2])])
+    ref_run = uf.bucket_backward_run(g, args[1], args[2])
+    assert_same_bits([run], [ref_run])
+    itemsize = lo.element_size()
+    if layout.huge_fits(g.P, itemsize) or not layout.cluster_fits(g.P, itemsize):
+        return
+    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, huge_body="huge_cluster")
+    assert plan.nr_cluster == 1 and plan.run_cluster_blocks == plan.cluster_blocks
+    for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
+                         ("uniform_backward", uf.bucket_backward_iteration)):
+        launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
+        assert launch.counts == (kernel + sk.HUGE_CLUSTER,)
+        launch()
+        torch.cuda.synchronize()
+        assert_same_bits(out, twins_bucket_by_bucket(twin, geom, lo, hi, fr, 0.5, dl, dh))
+    launch, out = sk.prepare_run_launch(geom, lo, hi, plan)
+    assert launch.counts == (sk.RUN + sk.HUGE_CLUSTER,)
+    launch()
+    torch.cuda.synchronize()
+    assert_same_bits([out], [geom.flatten_nodes([ref_run])])
 
 
 def nan_and_zero_costs(costs, zero_costs):
@@ -513,8 +535,8 @@ def test_one_bucket_run_equals_plain_run(cuda_device, shape, precision):
     out = sk.bucket_backward_run_cuda(g, lo.view(g.H, g.B), hi.view(g.H, g.B))
     torch.cuda.synchronize()
     body = {"narrow": "", "wide": sk.WIDE, "huge": sk.HUGE, "huge_cluster": sk.HUGE_CLUSTER,
-            "huge_l2": sk.HUGE_L2}[
-        layout.body_of(shape[0], 4 if precision == "float" else 8, shape[2])]
+            "huge_l2": sk.HUGE_L2}[layout.run_body_of(
+                layout.body_of(shape[0], 4 if precision == "float" else 8, shape[2]))]
     assert sk.LAUNCHES == {**launches(), sk.RUN + body: 1}
     assert_same_bits([out], [uf.bucket_backward_run(g, lo.view(g.H, g.B), hi.view(g.H, g.B))])
 
@@ -540,8 +562,8 @@ def test_fused_run_over_all_shapes_equals_plain_run(cuda_device, precision, stag
     sk.reset_launch_counts()
     before = dict(uf.PLAIN_RUN_CALLS)
     assert_same_bits([sk.backward_run_cuda(geom, lo, hi)], [ref])
-    assert sk.LAUNCHES == launches(run=1, run_wide=1, run_huge=1, run_huge_cluster=1,
-                                   run_huge_l2=1)
+    # the run's route never launches the cluster body
+    assert sk.LAUNCHES == launches(run=1, run_wide=1, run_huge=1, run_huge_l2=1)
     assert uf.PLAIN_RUN_CALLS == before
 
 
@@ -568,11 +590,14 @@ def test_wide_body_variants_equal_twins(cuda_device, precision, warps, stages):
 
 # ------------------------------------------------------------- huge buckets
 def test_plan_puts_huge_buckets_in_a_third_table():
-    shapes = [(2, 3, 40), (16384, 2, 3), (128, 5, 8), (8200, 4, 5), (30000, 2, 3),
+    shapes = [(2, 3, 40), (16384, 2, 3), (128, 5, 8), (8200, 4, 5), (30000, 2, 130),
               (320000, 2, 2)]
     host, _ = synthetic_host(shapes, torch.float32, "cpu")
     plan = host.geom.plan
     assert [tuple(r[:3]) for r in plan.huge_table.tolist()] == [shapes[1], shapes[3]]
+    # past a block's shared memory: the 130 columns of 30,000 slots stay on
+    # the cluster body (with them the L2 table's G would be 1), the rows past
+    # a cluster's take the L2 body
     assert [tuple(r[:3]) for r in plan.cluster_table.tolist()] == [shapes[4]]
     assert [tuple(r[:3]) for r in plan.l2_table.tolist()] == [shapes[5]]
     assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.nr_cluster, plan.nr_l2) == (
@@ -586,9 +611,9 @@ def test_plan_puts_huge_buckets_in_a_third_table():
     assert [r[7] for r in plan.huge_table.tolist()] == [2, 2]
     assert plan.huge_threads == plan.l2_threads == layout.HUGE_THREADS == 1024
     assert plan.huge_pmax == 16384
-    # a cluster of C blocks a column (three columns over 132 SMs: the largest
-    # cluster), two backward rows
-    assert plan.cluster_size == 16 and plan.cluster_blocks == 16 * 3
+    # a cluster of C blocks a column (130 columns over 132 SMs: two waves of
+    # the card's 66 clusters of two), two backward rows
+    assert plan.cluster_size == 2 and plan.cluster_blocks == 2 * 130
     assert [r[3] for r in plan.cluster_table.tolist()] == [0]
     assert [r[7] for r in plan.cluster_table.tolist()] == [2]
     assert plan.cluster_pmax == 30000 and plan.cluster_threads == 1024
@@ -596,22 +621,30 @@ def test_plan_puts_huge_buckets_in_a_third_table():
     # which only the L2 body's buckets get (not the cluster body's)
     assert [r[7] for r in plan.l2_table.tolist()] == [0]
     assert plan.huge_scratch_values == 2 * 320000 * 2
+    # the run-only entry: the cluster bucket on the L2 body beside the L2
+    # bucket, 132 columns at one block each
+    assert plan.run_cluster_blocks == 0
+    assert [tuple(r[:3]) for r in plan.run_l2_table.tolist()] == [shapes[4], shapes[5]]
+    assert (plan.run_l2_split, plan.run_l2_columns, plan.run_l2_blocks) == (1, 132, 132)
+    assert [r[3] for r in plan.run_l2_table.tolist()] == [0, 130]
+    assert [r[7] for r in plan.run_l2_table.tolist()] == [0, 0]  # the run reads no key rows
     # the rows belong to the layout, allocated on the card only
     assert host.geom.huge_scratch is None
     assert layout.huge_scratch(plan, torch.float32, "cpu") is None
     assert layout.arc_bytes(8192) == 2 and layout.arc_bytes(8193) == 4
     assert layout.record_bytes(8193) == 8 * 8193
     # the bytes a solve works in, the number a layout too large for the card
-    # names: with the L2 body's scratch, its key rows and the partials and
-    # counters of its two columns, counted at the most blocks a column a plan
-    # takes
-    E = 3 * 40 + 2 * 3 + 5 * 8 + 4 * 5 + 2 * 3 + 2 * 2
-    N = (3 * 2 * 40 + 2 * 16384 * 3 + 5 * 128 * 8 + 4 * 8200 * 5 + 2 * 30000 * 3
+    # names: with the L2 body's scratch as the most any plan of these buckets
+    # takes, the key rows of every bucket past a block's shared memory and
+    # the partials and counters of all their columns, at the most blocks a
+    # column a plan takes
+    E = 3 * 40 + 2 * 3 + 5 * 8 + 4 * 5 + 2 * 130 + 2 * 2
+    N = (3 * 2 * 40 + 2 * 16384 * 3 + 5 * 128 * 8 + 4 * 8200 * 5 + 2 * 30000 * 130
          + 2 * 320000 * 2)
-    scratch = 2 * 320000 * 2 * 4 + 2 * layout.L2_MAX_SPLIT * 2 * 4 + 2 * 4
+    scratch = (2 * (30000 * 130 + 320000 * 2) * 4 + 2 * layout.L2_MAX_SPLIT * 132 * 4
+               + 132 * 4)
     assert layout.solve_bytes(plan.shapes, 4) == plan.arc_bytes + E * (9 * 4 + 24) + (
         2 * N * 4 + scratch)
-
 
 
 # ------------------------------------------- the L2 body: G blocks a column
@@ -771,25 +804,50 @@ def test_l2_launch_hands_every_entry_its_scratch(monkeypatch, split):
     (32768, 4, "huge_cluster"), (32768, 8, "huge_cluster"),
     (layout.CLUSTER_MAX_P, 4, "huge_cluster"), (layout.CLUSTER_MAX_P, 8, "huge_cluster"),
     (layout.CLUSTER_MAX_P + 1, 4, "huge_cluster"), (layout.CLUSTER_MAX_P + 1, 8, "huge_cluster"),
-    (65536, 4, "huge_cluster"), (65536, 8, "huge_cluster"), (131072, 8, "huge_cluster"),
-    (262144, 4, "huge_cluster"), (262144, 8, "huge_l2"), (231552, 8, "huge_cluster"),
+    (65536, 4, "huge_cluster"), (65536, 8, "huge_cluster"), (115776, 8, "huge_cluster"),
+    (115777, 8, "huge_l2"), (131072, 8, "huge_l2"), (154657, 4, "huge_cluster"),
+    (262144, 4, "huge_cluster"), (262144, 8, "huge_l2"), (231552, 8, "huge_l2"),
     (231553, 8, "huge_l2"), (309312, 4, "huge_cluster"), (309313, 4, "huge_l2")])
 def test_plan_sends_each_width_to_its_body(P, itemsize, body):
     """narrow, wide, routed two-byte huge, huge (its rows in a block's shared
     memory), cluster (its rows in a cluster's: past a block's, up to what a
-    cluster of 16 blocks holds with eight-byte slot codes, 309,312 slots in
-    float32 and 231,552 in float64), L2 (the rest): one table each, and the
-    records and padding follow the width alone, whichever body runs it."""
+    cluster of CLUSTER_ROUTED blocks holds with eight-byte slot codes,
+    309,312 slots in float32 at 16 and 115,776 in float64 at 8), L2 (the
+    rest; a cluster of 16 holds float64 rows up to 231,552 slots where the
+    plan is told so): one table each, and the records and padding follow
+    the width alone, whichever body runs it. Past a block's shared memory
+    the columns choose too: over 5 columns (an L2 table's G of 19 and more)
+    the route gives a width the cluster body holds to the L2 body, over 132
+    (G = 1) to the cluster body, whose run takes the L2 body; ``body_of``
+    gives the width's body whatever the columns, and only the plan holds
+    the route."""
     dtype = torch.float32 if itemsize == 4 else torch.float64
     assert layout.body_of(P, itemsize) == body
     assert layout.huge_fits(P, itemsize) == (body not in ("huge_cluster", "huge_l2"))
-    assert layout.cluster_fits(P, itemsize) == (body != "huge_l2")
+    assert layout.cluster_fits(P, itemsize, layout.CLUSTER_ROUTED[itemsize]) == (
+        body != "huge_l2")
+    held = layout.cluster_fits(P, itemsize)  # by a cluster of 16
+    assert held == (body != "huge_l2" or itemsize == 8 and P <= 231552)
+    routed = "huge_l2" if body == "huge_cluster" else body
+    assert layout.body_of(P, itemsize, 5) == body
     plan = layout.launch_plan([(P, 3, 5)], dtype, "cpu")
     assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.nr_cluster, plan.nr_l2) == tuple(
-        int(body == b) for b in ("narrow", "wide", "huge", "huge_cluster", "huge_l2"))
+        int(routed == b) for b in ("narrow", "wide", "huge", "huge_cluster", "huge_l2"))
     # no bucket but the L2 body's has scratch rows
-    assert plan.huge_scratch_values == (2 * P * 5 if body == "huge_l2" else 0)
-    if body == "huge_cluster":
+    assert plan.huge_scratch_values == (2 * P * 5 if routed == "huge_l2" else 0)
+    if routed == "huge_l2":
+        assert plan.l2_split == layout.choose_l2_split(5, P, 1024, 132) >= layout.L2_FROM_SPLIT
+        assert (plan.nr_run_l2, plan.run_l2_split) == (1, plan.l2_split)
+    if held and not layout.huge_fits(P, itemsize):
+        many = layout.launch_plan([(P, 3, 132)], dtype, "cpu")
+        assert layout.body_of(P, itemsize, 132) == body
+        on = body == "huge_cluster"
+        assert (many.nr_cluster, many.nr_l2, many.nr_run_l2, many.run_cluster_blocks) == (
+            int(on), int(not on), 1, 0)
+        # the cluster body where the plan is told so, over the same 5 columns
+        plan = layout.launch_plan([(P, 3, 5)], dtype, "cpu", huge_body="huge_cluster")
+        assert (plan.nr_cluster, plan.nr_l2, plan.nr_run_l2) == (1, 0, 0)
+        assert plan.run_cluster_blocks == plan.cluster_blocks
         assert plan.cluster_pmax == P and plan.cluster_blocks == 5 * plan.cluster_size
         assert plan.cluster_size in layout.CLUSTER_SIZES
         assert max(plan.cluster_smem_forward, plan.cluster_smem_backward) <= (
@@ -812,6 +870,171 @@ def test_plan_sends_each_width_to_its_body(P, itemsize, body):
     if P <= layout.WIDE_P and body == "huge":
         forced = layout.launch_plan([(P, 3, 5)], dtype, "cpu", huge_from=layout.WIDE_P + 1)
         assert (forced.nr_wide, forced.nr_huge) == (1, 0)
+
+
+# -------------------------------- the cluster-or-L2 route by columns
+# the layouts the crossover was measured on (chip_smoke.py --huge-split
+# route): (P, columns, precisions, the L2 table's G on 132 SMs)
+ROUTE_LAYOUTS = ([(32768, c, (4, 8), g) for c, g in ((8, 16), (33, 4), (66, 2), (132, 1))]
+                 + [(65536, c, (4, 8), g)
+                    for c, g in ((1, 64), (8, 16), (16, 8), (33, 4), (66, 2), (132, 1))]
+                 + [(262144, c, (4,), g) for c, g in ((1, 132), (8, 16), (33, 4), (66, 2),
+                                                      (132, 1))]
+                 + [(131072, c, (8,), g) for c, g in ((1, 128), (8, 16), (33, 4), (66, 2),
+                                                      (132, 1))])
+
+
+@pytest.mark.parametrize("P,columns,itemsizes,G", ROUTE_LAYOUTS,
+                         ids=lambda v: str(v) if not isinstance(v, tuple) else None)
+def test_route_sends_few_columns_to_the_l2_body(P, columns, itemsizes, G):
+    """Rows past a block's shared memory that a cluster holds: the
+    half-sweeps take the L2 body where its G over their columns is at least
+    L2_FROM_SPLIT (1 to 33 columns here) and the cluster body where it is
+    lower (66 and 132 columns), but in float64 rows that only a cluster of 16
+    holds (131,072 slots) take the L2 body at any column count
+    (CLUSTER_ROUTED); the run-only entry takes the L2 body either way, at the
+    G of its own table, and launches no cluster."""
+    assert layout.L2_FROM_SPLIT == 4
+    assert layout.choose_l2_split(columns, P, layout.HUGE_THREADS, 132) == G
+    for itemsize in itemsizes:
+        dtype = torch.float32 if itemsize == 4 else torch.float64
+        assert layout.cluster_fits(P, itemsize) and not layout.huge_fits(P, itemsize)
+        routed = (P, itemsize) != (131072, 8)
+        assert layout.cluster_fits(P, itemsize, layout.CLUSTER_ROUTED[itemsize]) == routed
+        body = "huge_l2" if G >= layout.L2_FROM_SPLIT or not routed else "huge_cluster"
+        assert layout.body_of(P, itemsize, columns) == (  # the width's
+            "huge_cluster" if routed else "huge_l2")
+        assert layout.run_body_of(body) == "huge_l2"
+        plan = layout.launch_plan([(P, 48, columns)], dtype, "cpu")
+        assert (plan.nr_cluster, plan.nr_l2) == ((0, 1) if body == "huge_l2" else (1, 0))
+        if body == "huge_l2":  # by its columns, or past the route's clusters by its width
+            assert plan.l2_split == G and (G >= layout.L2_FROM_SPLIT or not routed)
+        assert (plan.nr_run_l2, plan.run_cluster_blocks) == (1, 0)
+        assert (plan.run_l2_split, plan.run_l2_columns, plan.run_l2_blocks) == (
+            G, columns, G * columns)
+
+
+@pytest.mark.parametrize("itemsize,shapes,cluster,G", [
+    # past a cluster's rows in float64 (320,000 slots, 2 columns) beside
+    # rows a cluster holds: the widest joins first (10 columns: G = 11), then
+    # the next (15: G = 8); none would leave G below 4
+    (8, [(320000, 2, 2), (30000, 2, 3), (65536, 2, 10)], [], 8),
+    # 20 columns each: the widest joins (G = 6), the next would take G to 3
+    # at 40 columns, and so would the narrowest: it stays too, though it
+    # comes first in the table (alone it would have joined)
+    (4, [(40000, 2, 20), (50000, 2, 20), (45000, 2, 20)], [(40000, 2, 20), (45000, 2, 20)], 6),
+    # the same widths in another table order: the same plan
+    (4, [(45000, 2, 20), (40000, 2, 20), (50000, 2, 20)], [(45000, 2, 20), (40000, 2, 20)], 6),
+    # the 65,536-slot rows join (G = 16); the 132 columns of 32,768 would
+    # take G to 1 and keep the cluster body
+    (4, [(32768, 2, 132), (65536, 2, 8)], [(32768, 2, 132)], 16),
+    # a bucket with no hop (H = 0) adds no column: G stays 13
+    (8, [(30000, 2, 10), (30000, 0, 200)], [], 13),
+])
+def test_route_moves_the_widest_first_and_keeps_g(itemsize, shapes, cluster, G):
+    """The route over a whole table: buckets a cluster holds join the L2
+    table widest first, each only where the table's G with it stays at least
+    L2_FROM_SPLIT, so the plan does not depend on the table's order and its
+    own G ends at or above the threshold; the run's L2 table takes every
+    bucket past a block's shared memory."""
+    dtype = torch.float32 if itemsize == 4 else torch.float64
+    plan = layout.launch_plan(shapes, dtype, "cpu")
+    assert [tuple(r[:3]) for r in plan.cluster_table.tolist()] == cluster
+    moved = [s for s in shapes if s not in cluster]
+    assert [tuple(r[:3]) for r in plan.l2_table.tolist()] == moved
+    assert plan.l2_split == G >= layout.L2_FROM_SPLIT
+    assert plan.l2_split == layout.choose_l2_split(
+        plan.l2_columns, max(P for P, _, _ in moved), layout.HUGE_THREADS, 132)
+    assert [tuple(r[:3]) for r in plan.run_l2_table.tolist()] == list(shapes)
+    assert plan.run_cluster_blocks == 0
+    assert plan.run_l2_columns == sum(B for _, H, B in shapes if H > 0)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_scratch_holds_the_runs_partials_and_counters(itemsize):
+    """The layout's scratch also holds the partials and counters of the
+    run's own L2 launch, whose table may have more columns and another G
+    than the half-sweeps': room for whichever needs more of each, after the
+    half-sweeps' key rows; the run reads no key rows. A layout whose
+    half-sweeps run no L2 bucket still gets the run's scratch on the card
+    (only the twins run off it). The bytes a solve works in count the most
+    any plan takes."""
+    dtype = torch.float32 if itemsize == 4 else torch.float64
+    pad = lambda n: -(-n // 16) * 16  # noqa: E731
+    # half-sweeps: 320,000 slots over 2 columns, G = 66; the 40 columns of
+    # 30,000 slots stay on the cluster body (G would be 3) and join the run's
+    # table: 42 columns, G = 3
+    shapes = [(320000, 2, 2), (30000, 2, 40)]
+    plan = layout.launch_plan(shapes, dtype, "cpu")
+    assert (plan.l2_split, plan.l2_columns, plan.nr_cluster) == (66, 2, 1)
+    assert (plan.run_l2_split, plan.run_l2_columns, plan.run_l2_blocks) == (3, 42, 126)
+    rows = 2 * 320000 * 2 * itemsize
+    parts, counters, total = layout.plan_scratch_bytes(plan, itemsize)
+    assert parts == rows  # the key rows, of the half-sweeps' L2 bucket alone
+    assert counters == rows + pad(max(2 * 66 * 2, 2 * 3 * 42) * itemsize)
+    assert total == counters + 4 * 42  # the run's 42 counters
+    # no L2 bucket in the half-sweeps: the scratch is the run's partials and
+    # counters alone (33 columns of 32,768 slots on the cluster body at 132
+    # SMs would be G = 4, so 40 columns: G = 3)
+    plan = layout.launch_plan([(32768, 48, 40)], dtype, "cpu")
+    assert (plan.nr_l2, plan.nr_cluster, plan.run_l2_split) == (0, 1, 3)
+    assert layout.plan_scratch_bytes(plan, itemsize) == (
+        0, pad(2 * 3 * 40 * itemsize), pad(2 * 3 * 40 * itemsize) + 4 * 40)
+    assert layout.huge_scratch(plan, dtype, "cpu") is None  # the twins need none
+    # a G of 1 for both: nothing but the key rows (here none)
+    plan = layout.launch_plan([(32768, 48, 132)], dtype, "cpu")
+    assert layout.plan_scratch_bytes(plan, itemsize) == (0, 0, 0)
+    # the bytes a solve works in: key rows of every bucket past a block's
+    # shared memory, partials and counters of all their columns at
+    # L2_MAX_SPLIT, above the plan's own
+    E, N = 48 * 40, 48 * 32768 * 40
+    base = layout.record_bytes(32768) * E + E * (9 * itemsize + 24) + 2 * N * itemsize
+    most = layout.l2_scratch_bytes(2 * 32768 * 40, layout.L2_MAX_SPLIT, 40, itemsize)[2]
+    assert layout.solve_bytes([(32768, 48, 40)], itemsize) == base + most
+    plan = layout.launch_plan([(32768, 48, 40)], dtype, "cpu")
+    assert most >= layout.plan_scratch_bytes(plan, itemsize)[2]
+
+
+@pytest.mark.parametrize("force,sweeps,run", [
+    ({}, sk.HUGE_CLUSTER, sk.HUGE_L2),
+    ({"huge_body": "huge_cluster"}, sk.HUGE_CLUSTER, sk.HUGE_CLUSTER),
+    ({"huge_body": "huge_l2"}, sk.HUGE_L2, sk.HUGE_L2),
+    ({"huge_body": "huge_l2", "l2_split": 2}, sk.HUGE_L2, sk.HUGE_L2),
+    ({"l2_split": 2}, sk.HUGE_CLUSTER, sk.HUGE_L2),
+])
+def test_each_entry_launches_the_body_of_its_route(monkeypatch, force, sweeps, run):
+    """What each entry launches (the library replaced by a recorder), on 40
+    columns of 30,000 slots: by the route the half-sweeps on the cluster
+    body (an L2 table's G would be 3) and the run on the L2 body at G = 3;
+    the forcing of ``huge_body`` holds for all three entries, and a forced
+    ``l2_split`` for the run's L2 table too."""
+    rec = _Recorder()
+    monkeypatch.setattr(sk._build, "load", lambda: rec)
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
+    host, (lo, hi, fr, dl, dh) = synthetic_host([(30000, 2, 40)], torch.float32, "cpu")
+    geom = host.geom
+    plan = layout.launch_plan(geom.plan.shapes, torch.float32, "cpu", **force)
+    scratch = torch.empty(layout.plan_scratch_bytes(plan, 4)[2], dtype=torch.uint8)
+    G = force.get("l2_split", 3)
+    for kernel, frontier in (("uniform_forward", fr), ("uniform_backward", fr), (sk.RUN, None)):
+        outs = (None, None, None, torch.empty_like(fr)) if kernel == sk.RUN else (
+            torch.empty_like(lo), torch.empty_like(lo), torch.empty_like(lo), torch.empty_like(fr))
+        launch = sk._launcher(kernel, plan, geom.arcs, lo, hi, None if frontier is None else dl,
+                              None if frontier is None else dh, geom.alpha, 0.5, frontier, outs,
+                              scratch)
+        body = run if kernel == sk.RUN else sweeps
+        assert launch.counts == (kernel + body,)
+        launch()
+        name, args = rec.calls[-1]
+        assert name == kernel + body + "_f32"
+        if body == sk.HUGE_L2:  # blocks, threads, G, columns
+            assert args[2:6] == (40 * G, layout.HUGE_THREADS, G, 40)
+        else:  # blocks, threads, C
+            assert args[2:5] == (plan.cluster_blocks, plan.cluster_threads, plan.cluster_size)
 
 
 @pytest.mark.parametrize("P,itemsize,columns,body", [
@@ -995,11 +1218,13 @@ def test_cluster_plan_shared_memory_is_the_kernels(itemsize):
     assert plan.cluster_blocks == 16 * 3 and plan.cluster_pmax == 30001
     assert plan.cluster_smem_forward == carved(30001, 16, False)
     assert rows(plan) == [2, 2] and plan.cluster_smem_backward == carved(30001, 16, True)
-    # rows of 65,536 slots over 8 columns (knapsack L2 wide): eight-byte
-    # codes, clusters of 8 at one block an SM, two backward rows: the card
-    # holds 15 such clusters at once but only 7 of 16 (two waves of 16, a
-    # tie broken to the smaller C)
-    plan = layout.launch_plan([(65536, 48, 8)], dtype, "cpu")
+    # rows of 65,536 slots over 8 columns (knapsack L2 wide), which the route
+    # gives the L2 body, told to take the cluster body: eight-byte codes,
+    # clusters of 8 at one block an SM, two backward rows: the card holds 15
+    # such clusters at once but only 7 of 16 (two waves of 16, a tie broken
+    # to the smaller C)
+    assert layout.launch_plan([(65536, 48, 8)], dtype, "cpu").nr_cluster == 0
+    plan = layout.launch_plan([(65536, 48, 8)], dtype, "cpu", huge_body="huge_cluster")
     assert (plan.nr_cluster, plan.nr_l2, plan.cluster_size) == (1, 0, 8)
     assert (plan.cluster_threads, plan.cluster_blocks) == (1024, 64)
     assert plan.cluster_smem_forward == carved(65536, 8, False, 8) == layout.cluster_smem_bytes(
@@ -1007,19 +1232,23 @@ def test_cluster_plan_shared_memory_is_the_kernels(itemsize):
     assert rows(plan) == [2] and plan.cluster_smem_backward == carved(65536, 8, True, 8)
     # forced to clusters of 16 (128 blocks); of 4 only in float32 (a float64
     # block of 16,384 slots with eight-byte codes does not fit)
-    plan = layout.launch_plan([(65536, 48, 8)], dtype, "cpu", cluster_size=16)
+    plan = layout.launch_plan([(65536, 48, 8)], dtype, "cpu", huge_body="huge_cluster",
+                              cluster_size=16)
     assert (plan.cluster_size, plan.cluster_blocks, plan.cluster_threads) == (16, 128, 1024)
     assert plan.cluster_smem_forward == carved(65536, 16, False, 8)
     assert rows(plan) == [2] and plan.cluster_smem_backward == carved(65536, 16, True, 8)
     if two:
-        plan = layout.launch_plan([(65536, 48, 8)], dtype, "cpu", cluster_size=4)
+        plan = layout.launch_plan([(65536, 48, 8)], dtype, "cpu", huge_body="huge_cluster",
+                                  cluster_size=4)
         assert plan.cluster_smem_forward == carved(65536, 4, False, 8)
         assert rows(plan) == [1] and plan.cluster_smem_backward == carved(65536, 4, False, 8)
     else:
         with pytest.raises(ValueError, match="no cluster of 4 blocks holds a bucket of 65536"):
-            layout.launch_plan([(65536, 48, 8)], dtype, "cpu", cluster_size=4)
+            layout.launch_plan([(65536, 48, 8)], dtype, "cpu", huge_body="huge_cluster",
+                               cluster_size=4)
     # a narrower bucket beside a wider one takes the widest's eight-byte codes
-    plan = layout.launch_plan([(65536, 2, 1), (30000, 3, 2)], dtype, "cpu")
+    plan = layout.launch_plan([(65536, 2, 1), (30000, 3, 2)], dtype, "cpu",
+                              huge_body="huge_cluster")
     assert (plan.nr_cluster, plan.cluster_size, plan.cluster_pmax) == (2, 16, 65536)
     assert plan.cluster_smem_forward == carved(65536, 16, False, 8)
     assert rows(plan) == [2, 2] and plan.cluster_smem_backward == carved(65536, 16, True, 8)
@@ -1122,15 +1351,18 @@ def test_eight_byte_codes_find_every_block_on_the_card(cuda_device):
     host = layout._build_host([b], np.ones(4, np.int64), 4, 4, 1, torch.float32, cuda_device)
     lo, hi, fr, dl, dh = random_costs(host.geom, rng, cuda_device)
     geom = host.geom
-    assert (geom.plan.nr_cluster, geom.plan.cluster_size) == (1, C)
-    assert layout.cluster_code_bytes(geom.plan.cluster_pmax) == 8
+    assert geom.plan.nr_l2 == 1  # one column: the route's L2 body
+    plan = layout.launch_plan(geom.plan.shapes, torch.float32, cuda_device,
+                              huge_body="huge_cluster")
+    assert (plan.nr_cluster, plan.cluster_size) == (1, C)
+    assert layout.cluster_code_bytes(plan.cluster_pmax) == 8
     for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
                          ("uniform_backward", uf.bucket_backward_iteration)):
-        launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh)
+        launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
         launch()
         torch.cuda.synchronize()
         assert_same_bits(out, twins_bucket_by_bucket(twin, geom, lo, hi, fr, 0.5, dl, dh))
-    launch, out = sk.prepare_run_launch(geom, lo, hi)
+    launch, out = sk.prepare_run_launch(geom, lo, hi, plan)
     launch()
     torch.cuda.synchronize()
     assert_same_bits([out], [geom.flatten_nodes([
@@ -1281,8 +1513,8 @@ def test_huge_body_shared_memory_rows_equal_twins(cuda_device, precision):
     """The shared-memory huge body with its backward on one row and on two in
     one launch, as the plan's fit gives them: over the huge, routed, cluster
     and L2 shapes, one row where two do not fit a block (float32 at 20,001
-    slots, float64 at 16,384), and the cluster (eight-byte slot codes) and
-    L2 bodies beside them.
+    slots, float64 at 16,384), and the L2 body beside them (the route gives
+    it the cluster shapes too: their few columns).
     Then the cluster body in clusters of two, where a block's share of the
     wider bucket fits one row only and the narrower one's two (float32 40,000
     and 30,000 slots, float64 30,000 and 20,001)."""
@@ -1290,7 +1522,7 @@ def test_huge_body_shared_memory_rows_equal_twins(cuda_device, precision):
     two_row_shapes = [(40000, 2, 2), (30000, 3, 1)] if precision == "float" else [
         (30000, 2, 2), (20001, 3, 1)]
     for shapes, force in ((HUGE_SHAPES + ROUTED_SHAPES + CLUSTER_SHAPES + L2_SHAPES, {}),
-                          (two_row_shapes, {"cluster_size": 2})):
+                          (two_row_shapes, {"huge_body": "huge_cluster", "cluster_size": 2})):
         host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=17)
         geom = host.geom
         plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, **force)
@@ -1299,7 +1531,7 @@ def test_huge_body_shared_memory_rows_equal_twins(cuda_device, precision):
             assert [int(r[7]) for r in plan.cluster_table.tolist()] == [1, 2]
         else:
             assert sorted(set(int(r[7]) for r in plan.huge_table.tolist())) == [1, 2]
-            assert plan.nr_cluster == (3 if precision == "float" else 4) and plan.nr_l2 == 1
+            assert plan.nr_cluster == 0 and plan.nr_l2 == (4 if precision == "float" else 5)
         for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
                              ("uniform_backward", uf.bucket_backward_iteration)):
             launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
@@ -1468,13 +1700,90 @@ def test_l2_split_past_the_cards_residency_raises(cuda_device, precision):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("columns,G", [(132, 1), (40, 3)])
+def test_run_on_its_own_route_equals_the_twin(cuda_device, precision, columns, G):
+    """A layout whose half-sweeps run on the cluster body (its columns too
+    many for the L2 body's G to reach L2_FROM_SPLIT): the run-only entry
+    takes the L2 body at its own table's G (1 a column at 132 columns, a
+    cooperative launch of 3 at 40), through the fused and the one-bucket
+    wrapper, and equals the plain run bit for bit; the half-sweeps launch
+    the cluster body and equal the twins; no plain version on the card."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    P = 30000 if precision == "float" else 20001  # past a block's shared memory
+    host, (lo, hi, fr, dl, dh) = synthetic_host([(P, 3, columns)], dtype, cuda_device, seed=31)
+    geom = host.geom
+    plan = geom.plan
+    assert (plan.nr_cluster, plan.nr_l2, plan.run_cluster_blocks) == (1, 0, 0)
+    assert (plan.nr_run_l2, plan.run_l2_split, plan.run_l2_blocks) == (1, G, G * columns)
+    assert geom.huge_scratch.numel() == layout.plan_scratch_bytes(plan, lo.element_size())[2]
+    sk.reset_launch_counts()
+    calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
+    run = sk.backward_run_cuda(geom, lo, hi)
+    g = geom.buckets[0]
+    one = sk.bucket_backward_run_cuda(g, lo.view(g.H, g.B), hi.view(g.H, g.B))
+    out_f = sk.forward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)
+    out_b = sk.backward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == launches(huge_cluster=1, run_huge_l2=2)
+    assert {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS} == calls
+    assert_same_bits([run], [run_ref(geom, lo, hi)])
+    assert_same_bits([one], [uf.bucket_backward_run(g, lo.view(g.H, g.B), hi.view(g.H, g.B))])
+    assert_same_bits(out_f, twins_bucket_by_bucket(
+        uf.bucket_forward_iteration, geom, lo, hi, fr, 0.5, dl, dh))
+    assert_same_bits(out_b, twins_bucket_by_bucket(
+        uf.bucket_backward_iteration, geom, lo, hi, fr, 0.5, dl, dh))
+    # the cluster body's run where the plan is told so: the same bits
+    forced = layout.launch_plan(plan.shapes, dtype, cuda_device, huge_body="huge_cluster")
+    launch, out = sk.prepare_run_launch(geom, lo, hi, forced)
+    assert launch.counts == (sk.RUN + sk.HUGE_CLUSTER,)
+    launch()
+    torch.cuda.synchronize()
+    assert_same_bits([out], [run])
+
+
+@pytest.mark.cuda
+def test_float32_solve_of_the_widest_row_launches_only_the_l2_body(cuda_device):
+    """A default (float32) solve of one knapsack row of 262,144 slots
+    through the user entry point: every sweep and run launches the L2 body
+    (one column: G = the card's resident blocks), no plain version runs on
+    the card, and the bound agrees with the native solver's after as many
+    iterations within the float32 limit of the smoke test."""
+    from bdd_tpu_torch.api import BddSolver
+    from chip_smoke import DUAL_ONLY, L2_WIDEST_ROWS, LB_REL, fixed_iterations, knapsack_lp
+
+    lp = knapsack_lp(**L2_WIDEST_ROWS)
+    nh = NativeHost(lp, "input")
+    host = layout.from_native_host(nh, torch.float32, cuda_device, pack=False)
+    assert [(g.P, g.B) for g in host.geom.buckets] == [(262144, 1)]
+    assert (host.geom.plan.nr_l2, host.geom.plan.nr_cluster) == (1, 0)
+    del host
+    n = 20
+    sk.reset_launch_counts()
+    calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
+    res = BddSolver({"precision": "float", **DUAL_ONLY, **fixed_iterations(n)},
+                    device="cuda").read_ilp(lp_string=lp).solve(verbose=False)
+    assert res["iterations"] == n
+    assert {k: v for k, v in sk.LAUNCHES.items() if v} == {
+        "uniform_forward" + sk.HUGE_L2: n, "uniform_backward" + sk.HUGE_L2: n,
+        sk.RUN + sk.HUGE_L2: sk.LAUNCHES[sk.RUN + sk.HUGE_L2]}
+    assert sk.LAUNCHES[sk.RUN + sk.HUGE_L2] > 0
+    assert {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS} == calls
+    cs = nh.cpu_solver()
+    cs.iterations(n, 0.5)
+    native = cs.lower_bound_with_deferred()
+    assert abs(res["lower_bound"] - native) <= LB_REL["float"] * abs(native)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
 def test_mixed_layout_counts_one_launch_per_body(cuda_device, precision):
     """Narrow, wide, routed, huge, cluster and L2 buckets in one layout: five
-    launches per half-sweep and per run, one per body, the routed and the
-    huge bucket in one; against the twins bucket by bucket, and no plain
+    launches per half-sweep, one per body, the routed and the huge bucket in
+    one, and four per run (its route takes the cluster bucket, 131 columns,
+    to the L2 body); against the twins bucket by bucket, and no plain
     version on the card."""
     dtype = torch.float32 if precision == "float" else torch.float64
-    shapes = [(2, 9, 70), (layout.HUGE_FROM, 3, 5), (128, 5, 9), (16384, 2, 2), (30000, 2, 2),
+    shapes = [(2, 9, 70), (layout.HUGE_FROM, 3, 5), (128, 5, 9), (16384, 2, 2), (30000, 2, 131),
               L2_SHAPES[0]]
     host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=5)
     geom = host.geom
@@ -1483,6 +1792,7 @@ def test_mixed_layout_counts_one_launch_per_body(cuda_device, precision):
     # its one column, split over the plan's G blocks
     assert geom.plan.huge_scratch_values == 2 * L2_SHAPES[0][0] * 1
     assert geom.plan.l2_columns == 1 and geom.plan.l2_split > 1
+    assert (geom.plan.run_l2_columns, geom.plan.run_l2_split) == (132, 1)
     assert geom.huge_scratch.numel() == layout.plan_scratch_bytes(geom.plan, lo.element_size())[2]
     sk.reset_launch_counts()
     calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
@@ -1491,7 +1801,7 @@ def test_mixed_layout_counts_one_launch_per_body(cuda_device, precision):
     run = sk.backward_run_cuda(geom, lo, hi)
     torch.cuda.synchronize()
     assert sk.LAUNCHES == launches(narrow=1, wide=1, huge=1, huge_cluster=1, huge_l2=1, run=1,
-                                   run_wide=1, run_huge=1, run_huge_cluster=1, run_huge_l2=1)
+                                   run_wide=1, run_huge=1, run_huge_l2=1)
     assert {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS} == calls
     assert_same_bits(out_f, twins_bucket_by_bucket(
         uf.bucket_forward_iteration, geom, lo, hi, fr, 0.5, dl, dh))

@@ -257,7 +257,7 @@ def test_huge_bucket_matches_jax_f64(P, monkeypatch):
     """A synthetic bucket a huge form takes (a random valid arc set: kinds,
     slots and flags, not a BDD), past the wide records' 8,192 slots, a wide
     one the plan routes there, or one past a block's shared memory that the
-    cluster body takes (the narrowest in float64, and a power-of-two bucket
+    cluster body holds (the narrowest in float64, and a power-of-two bucket
     of 65,536 slots, past what four-byte slot codes hold), carried across
     with ``from_jax_arrays`` and held to the JAX package's XLA bucket
     functions in float64 (atol 1e-12): forward and backward half-sweeps, the
@@ -299,11 +299,16 @@ def test_huge_bucket_matches_jax_f64(P, monkeypatch):
     pg = port.geom.buckets[0]
     assert layout.arc_bytes(pg.P) == (4 if P > layout.WIDE_P else 2)
     plan = port.geom.plan
-    body = "huge_cluster" if P > 19316 else "huge"
-    assert layout.body_of(P, 8, B) == body and plan.nr_wide == plan.nr_l2 == 0
-    assert (plan.nr_huge, plan.nr_cluster) == ((1, 0) if body == "huge" else (0, 1))
-    if body == "huge_cluster":  # the launch's slot codes: four bytes below 65,533 slots
-        assert layout.cluster_code_bytes(plan.cluster_pmax) == (8 if P > 65533 else 4)
+    # past a block's shared memory one column takes the L2 body (its G is 19
+    # and more), and the cluster body where the plan is told so
+    body = "huge_l2" if P > 19316 else "huge"
+    assert layout.body_of(P, 8, B) == ("huge_cluster" if P > 19316 else "huge")  # the width's
+    assert plan.nr_wide == plan.nr_cluster == 0
+    assert (plan.nr_huge, plan.nr_l2) == ((1, 0) if body == "huge" else (0, 1))
+    if body == "huge_l2":  # the cluster launch's slot codes: four bytes below 65,533 slots
+        forced = layout.launch_plan(plan.shapes, torch.float64, "cpu", huge_body="huge_cluster")
+        assert forced.nr_cluster == 1
+        assert layout.cluster_code_bytes(forced.cluster_pmax) == (8 if P > 65533 else 4)
     dl, dh = rng.randn(H, B), rng.randn(H, B)
     dl[0, 0] = np.inf
     tl, th = torch.from_numpy(dl), torch.from_numpy(dh)
