@@ -427,11 +427,11 @@ class BddSolver:
 
     # ------------------------------------------------------------------ solve
     def solve_dual(self, verbose: bool = True) -> float:
-        from bdd_tpu_torch.utils.logging import device_trace
+        from bdd_tpu_torch.utils.logging import device_trace, span
 
         t = self.config["termination criteria"]
         self.dual_stats = {}
-        with device_trace(label="solve_dual"):  # BDD_TPU_TRACE=dir to capture
+        with device_trace(label="solve_dual"), span("bdd.solve_dual"):  # BDD_TPU_TRACE=dir
             lb = run_solver(
                 self.solver,
                 max_iter=t["maximum iterations"],

@@ -2097,6 +2097,17 @@ int cluster_occupancy(int cluster, int threads, int smem_bytes, int pmax, int* c
 // P] per bucket (the table's last column is the bucket's offset, in values),
 // then, where G > 1, the partials [columns, G, 2] values and the counters
 // [columns] (u32). A column's place in them is first_block / G + b.
+//
+// The counting entries (sweep_huge_l2_counted_kernel, "_count" in the entry's
+// name) are the same body with the hop barrier timed: thread 0 of a block
+// reads clock64 before its arrival and after its spin, and at the block's
+// end adds its summed wait and its cycles since it began to a pair of
+// 64-bit accumulators, one atomic each. Both are SM cycles of one block, so
+// their ratio needs no clock rate; G = 1 returns before the spin and waits
+// 0. The entries without "_count" compile the body without it (the clock
+// reads and the accumulators exist only in the counting instantiation,
+// ColumnBarrier<true>), so their registers, and the blocks an SM holds, which G
+// comes from, are the body's own.
 __device__ __forceinline__ unsigned huge_flag(uint32_t w) { return (w >> 30) & 1u; }
 
 constexpr int L2_CHUNK = 32;        // slots a chunk of a block's share: a warp's
@@ -2119,18 +2130,24 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
 }
 
 // the hop barrier of one column of `blocks` blocks (see above); `passed`
-// counts the arrivals the column's counter has seen at this block's last one
+// counts the arrivals the column's counter has seen at this block's last one.
+// TIMED (the counting entries): thread 0 also sums in `wait` the SM cycles
+// from before its arrival to the end of its spin
+template <bool TIMED>
 struct ColumnBarrier {
   unsigned* counter;
   unsigned blocks, passed;
+  long long wait = 0;
   __device__ __forceinline__ void sync() {
     __syncthreads();
     if (blocks == 1) return;
     passed += blocks;
     if (threadIdx.x == 0) {
+      [[maybe_unused]] const long long t0 = TIMED ? clock64() : 0;
       red_release_add(counter, 1u);
       while (ld_acquire(counter) < passed) {
       }
+      if constexpr (TIMED) wait += clock64() - t0;
     }
     __syncthreads();
   }
@@ -2163,9 +2180,8 @@ __device__ __forceinline__ void block_min2(T& m0, T& m1, T* red) {
 // column's barrier A, and warp 0 of every block reduces the G pairs in one
 // order (lane-strided, then the butterfly; lane 0's result, broadcast
 // through `red`). G = 1: the block's own reduction.
-template <typename T>
-__device__ __forceinline__ void column_min2(T& m0, T& m1, T* red, T* part, int g,
-                                            ColumnBarrier& bar) {
+template <typename T, typename Bar>
+__device__ __forceinline__ void column_min2(T& m0, T& m1, T* red, T* part, int g, Bar& bar) {
   const int G = (int)bar.blocks;
   if (G == 1) {
     block_min2(m0, m1, red);
@@ -2223,13 +2239,19 @@ __device__ __forceinline__ T l2_child(uint32_t w, long long P, const T* row) {
   else return __ldg(row + slot);
 }
 
-template <typename T, int MODE>
-__global__ void __launch_bounds__(HUGE_MAX_THREADS) sweep_huge_l2_kernel(Args<T> a,
-                                                                          L2Scratch s) {
+// the L2 body; COUNT: the counting instantiation, which adds thread 0's
+// barrier wait and its block's cycles to acc[0] and acc[1]
+template <typename T, int MODE, bool COUNT>
+__device__ __forceinline__ void huge_l2_body(Args<T> a, L2Scratch s,
+                                             unsigned long long* acc) {
   using K = Key<T>;
   using U = typename K::U;
   constexpr bool FORWARD = MODE == MODE_FORWARD, RUN = MODE == MODE_BACKWARD_RUN;
   constexpr int GR = HUGE_GROUP;
+  long long started = 0;
+  if constexpr (COUNT) {
+    if (threadIdx.x == 0) started = clock64();
+  }
   __shared__ T red[64];
   int k = 0;
   while (k + 1 < a.nr_buckets && (long long)blockIdx.x >= a.table[k + 1].first_block) ++k;
@@ -2246,7 +2268,7 @@ __global__ void __launch_bounds__(HUGE_MAX_THREADS) sweep_huge_l2_kernel(Args<T>
   // this thread's slots: first, first + stride, ... (layout.l2_slots)
   const long long first = ((long long)warp * G + g) * L2_CHUNK + lane;
   const long long stride = (long long)warps * G * L2_CHUNK;
-  ColumnBarrier bar{G > 1 ? s.counters + column : nullptr, (unsigned)G, 0u};
+  ColumnBarrier<COUNT> bar{G > 1 ? s.counters + column : nullptr, (unsigned)G, 0u};
   T* const part = G > 1 ? (T*)s.partials + column * 2 * G : nullptr;
   const T inf = inf_v<T>();
   const uint32_t* g_arcs = (const uint32_t*)(a.arcs + bk.arc_off);
@@ -2392,21 +2414,48 @@ __global__ void __launch_bounds__(HUGE_MAX_THREADS) sweep_huge_l2_kernel(Args<T>
       row_b = swap;
     }
   }
+  if constexpr (COUNT) {
+    if (threadIdx.x == 0) {
+      atomicAdd(acc, (unsigned long long)bar.wait);
+      atomicAdd(acc + 1, (unsigned long long)(clock64() - started));
+    }
+  }
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(HUGE_MAX_THREADS) sweep_huge_l2_kernel(Args<T> a,
+                                                                          L2Scratch s) {
+  huge_l2_body<T, MODE, false>(a, s, nullptr);
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(HUGE_MAX_THREADS)
+    sweep_huge_l2_counted_kernel(Args<T> a, L2Scratch s, unsigned long long* acc) {
+  huge_l2_body<T, MODE, true>(a, s, acc);
+}
+
+// the L2 body's kernel, or with COUNT its counting form
+template <typename T, int MODE, bool COUNT>
+auto l2_kernel() {
+  if constexpr (COUNT) return sweep_huge_l2_counted_kernel<T, MODE>;
+  else return sweep_huge_l2_kernel<T, MODE>;
 }
 
 // as `launch`, over the table of the L2 body: `split` blocks of `threads`
 // threads a column over `nr_columns` columns; `rows` (the forward's key
 // rows), `partials` and `counters` (where split > 1): the layout's scratch.
 // split > 1 zeroes the counters and launches cooperatively; a grid the card
-// cannot place at once is refused, and the code returned.
-template <typename T, int MODE>
+// cannot place at once is refused, and the code returned. COUNT: the
+// counting form, into the pair `acc` (the wait, the block cycles).
+template <typename T, int MODE, bool COUNT>
 int launch_huge_l2(const void* table, int nr_buckets, int nr_blocks, int threads, int split,
                    int nr_columns, const void* arcs, const void* lo, const void* hi,
                    const void* din_lo, const void* din_hi, const void* alpha,
                    const void* omega_arr, double omega, const void* frontier, void* out_lo,
                    void* out_hi, void* out_mm, void* out_frontier, void* rows, void* partials,
-                   void* counters, void* stream) {
+                   void* counters, unsigned long long* acc, void* stream) {
   if (nr_blocks == 0) return 0;
+  if (COUNT && acc == nullptr) return -1;
   if (threads < 32 || threads > HUGE_MAX_THREADS || threads % 32) return -2;
   if (split < 1 || split > L2_MAX_SPLIT || nr_columns < 1 ||
       (long long)nr_blocks != (long long)split * nr_columns)
@@ -2421,7 +2470,10 @@ int launch_huge_l2(const void* table, int nr_buckets, int nr_blocks, int threads
   const L2Scratch sc{(unsigned char*)rows, partials, (unsigned*)counters, split};
   const cudaStream_t s = (cudaStream_t)stream;
   if (split == 1) {
-    sweep_huge_l2_kernel<T, MODE><<<nr_blocks, threads, 0, s>>>(a, sc);
+    if constexpr (COUNT)
+      sweep_huge_l2_counted_kernel<T, MODE><<<nr_blocks, threads, 0, s>>>(a, sc, acc);
+    else
+      sweep_huge_l2_kernel<T, MODE><<<nr_blocks, threads, 0, s>>>(a, sc);
     return (int)cudaGetLastError();
   }
   cudaError_t rc = cudaMemsetAsync(counters, 0, (size_t)nr_columns * sizeof(unsigned), s);
@@ -2436,7 +2488,10 @@ int launch_huge_l2(const void* table, int nr_buckets, int nr_blocks, int threads
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  rc = cudaLaunchKernelEx(&cfg, sweep_huge_l2_kernel<T, MODE>, a, sc);
+  if constexpr (COUNT)
+    rc = cudaLaunchKernelEx(&cfg, sweep_huge_l2_counted_kernel<T, MODE>, a, sc, acc);
+  else
+    rc = cudaLaunchKernelEx(&cfg, sweep_huge_l2_kernel<T, MODE>, a, sc);
   if (rc != cudaSuccess) {
     cudaGetLastError();  // a refused launch is no error of the next one
     return (int)rc;
@@ -2444,20 +2499,20 @@ int launch_huge_l2(const void* table, int nr_buckets, int nr_blocks, int threads
   return (int)cudaGetLastError();
 }
 
-// the blocks of `threads` threads of the L2 body an SM holds at once, the
-// least over its three entries (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// into *blocks
-template <typename T>
+// the blocks of `threads` threads of the L2 body (COUNT: its counting form)
+// an SM holds at once, the least over its three entries
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks
+template <typename T, bool COUNT>
 int l2_occupancy(int threads, int* blocks) {
   int n[3] = {0, 0, 0};
   cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n[0], sweep_huge_l2_kernel<T, MODE_FORWARD>, threads, 0);
+      &n[0], l2_kernel<T, MODE_FORWARD, COUNT>(), threads, 0);
   if (rc == cudaSuccess)
     rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n[1], sweep_huge_l2_kernel<T, MODE_BACKWARD>, threads, 0);
+        &n[1], l2_kernel<T, MODE_BACKWARD, COUNT>(), threads, 0);
   if (rc == cudaSuccess)
     rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n[2], sweep_huge_l2_kernel<T, MODE_BACKWARD_RUN>, threads, 0);
+        &n[2], l2_kernel<T, MODE_BACKWARD_RUN, COUNT>(), threads, 0);
   *blocks = n[0] < n[1] ? (n[0] < n[2] ? n[0] : n[2]) : (n[1] < n[2] ? n[1] : n[2]);
   return (int)rc;
 }
@@ -2515,10 +2570,11 @@ SWEEP_ENTRY(uniform_backward_run_huge_f64, launch_huge, double, MODE_BACKWARD_RU
                       const void* frontier, void* out_lo, void* out_hi, void* out_mm, \
                       void* out_frontier, void* rows, void* partials, void* counters, \
                       void* stream) {                                                 \
-    return launch_huge_l2<T, MODE>(table, nr_buckets, nr_blocks, threads, split,        \
-                                   nr_columns, arcs, lo, hi, din_lo, din_hi, alpha,     \
-                                   omega_arr, omega, frontier, out_lo, out_hi, out_mm,  \
-                                   out_frontier, rows, partials, counters, stream);     \
+    return launch_huge_l2<T, MODE, false>(table, nr_buckets, nr_blocks, threads, split, \
+                                          nr_columns, arcs, lo, hi, din_lo, din_hi,     \
+                                          alpha, omega_arr, omega, frontier, out_lo,    \
+                                          out_hi, out_mm, out_frontier, rows, partials, \
+                                          counters, nullptr, stream);                   \
   }
 
 HUGE_ENTRY(uniform_forward_huge_l2_f32, float, MODE_FORWARD)
@@ -2527,6 +2583,30 @@ HUGE_ENTRY(uniform_backward_huge_l2_f32, float, MODE_BACKWARD)
 HUGE_ENTRY(uniform_backward_huge_l2_f64, double, MODE_BACKWARD)
 HUGE_ENTRY(uniform_backward_run_huge_l2_f32, float, MODE_BACKWARD_RUN)
 HUGE_ENTRY(uniform_backward_run_huge_l2_f64, double, MODE_BACKWARD_RUN)
+
+// their counting forms: the same arguments, and before the stream `acc`, the
+// pair of 64-bit accumulators (the blocks' barrier wait, their cycles)
+#define HUGE_COUNT_ENTRY(NAME, T, MODE)                                               \
+  extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks, int threads,   \
+                      int split, int nr_columns, const void* arcs, const void* lo,    \
+                      const void* hi, const void* din_lo, const void* din_hi,         \
+                      const void* alpha, const void* omega_arr, double omega,         \
+                      const void* frontier, void* out_lo, void* out_hi, void* out_mm, \
+                      void* out_frontier, void* rows, void* partials, void* counters, \
+                      void* acc, void* stream) {                                      \
+    return launch_huge_l2<T, MODE, true>(table, nr_buckets, nr_blocks, threads, split,  \
+                                         nr_columns, arcs, lo, hi, din_lo, din_hi,      \
+                                         alpha, omega_arr, omega, frontier, out_lo,     \
+                                         out_hi, out_mm, out_frontier, rows, partials,  \
+                                         counters, (unsigned long long*)acc, stream);   \
+  }
+
+HUGE_COUNT_ENTRY(uniform_forward_huge_l2_count_f32, float, MODE_FORWARD)
+HUGE_COUNT_ENTRY(uniform_forward_huge_l2_count_f64, double, MODE_FORWARD)
+HUGE_COUNT_ENTRY(uniform_backward_huge_l2_count_f32, float, MODE_BACKWARD)
+HUGE_COUNT_ENTRY(uniform_backward_huge_l2_count_f64, double, MODE_BACKWARD)
+HUGE_COUNT_ENTRY(uniform_backward_run_huge_l2_count_f32, float, MODE_BACKWARD_RUN)
+HUGE_COUNT_ENTRY(uniform_backward_run_huge_l2_count_f64, double, MODE_BACKWARD_RUN)
 
 // the cluster body's entries: (table, nr_buckets, nr_blocks, threads, cluster,
 // pmax, smem_bytes, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, omega,
@@ -2567,8 +2647,16 @@ extern "C" int uniform_huge_cluster_occupancy_f64(int cluster, int threads, int 
 // (threads, blocks out): the blocks of the L2 body an SM holds at once
 // (solver/layout.py sizes the blocks a column from the answer)
 extern "C" int uniform_huge_l2_occupancy_f32(int threads, int* blocks) {
-  return l2_occupancy<float>(threads, blocks);
+  return l2_occupancy<float, false>(threads, blocks);
 }
 extern "C" int uniform_huge_l2_occupancy_f64(int threads, int* blocks) {
-  return l2_occupancy<double>(threads, blocks);
+  return l2_occupancy<double, false>(threads, blocks);
+}
+// the same for its counting entries (the wrapper counts only where they
+// hold as many blocks an SM)
+extern "C" int uniform_huge_l2_count_occupancy_f32(int threads, int* blocks) {
+  return l2_occupancy<float, true>(threads, blocks);
+}
+extern "C" int uniform_huge_l2_count_occupancy_f64(int threads, int* blocks) {
+  return l2_occupancy<double, true>(threads, blocks);
 }

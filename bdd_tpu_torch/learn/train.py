@@ -29,7 +29,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from bdd_tpu_torch.learn import checkpoint
 from bdd_tpu_torch.learn import features as ft
@@ -38,10 +37,12 @@ from bdd_tpu_torch.solver import layout
 from bdd_tpu_torch.solver import learned as ln
 from bdd_tpu_torch.solver import uniform as uf
 from bdd_tpu_torch.solver.layout import UniformHost, UniformState, state_from_flat
+from bdd_tpu_torch.utils.logging import span
 
 
-# profiler ranges of a round: the features, the GNN with its heads, the free
-# update with the learned iterations, the delta distribution with the bound
+# spans of a round, recorded while a profiler records (BDD_TPU_TRACE): the
+# features, the GNN with its heads, the free update with the learned
+# iterations, the delta distribution with the bound
 SPANS = ("doge.features", "doge.gnn", "doge.iterations", "doge.bound")
 
 
@@ -211,9 +212,9 @@ class DogeTrainer:
         """(alpha [E], omega [E], free update [E] or None, LSTM state)."""
         if prev_lb is None:
             prev_lb = self._zero_prev_lb(instance)
-        with record_function(SPANS[0]):
+        with span(SPANS[0]):
             var_f, bdd_f, edge_f = self._features(instance, state, history, prev_lb)
-        with record_function(SPANS[1]):
+        with span(SPANS[1]):
             out = self.model(instance.spec, var_f, bdd_f, edge_f, lstm_state=lstm)
             geom = instance.host.geom
             valid = instance.spec.layer_valid
@@ -241,7 +242,7 @@ class DogeTrainer:
         cfg = self.cfg
         geom = instance.host.geom
         alpha, omega, update, lstm = self._predict(instance, state, lstm, history, prev_lb)
-        with record_function(SPANS[2]):
+        with span(SPANS[2]):
             if cfg.prev_lb_features:
                 prev_lb = ft.per_bdd_lb_vector(instance.host, instance.spec, state)
             state = self._apply_free_update(geom, state, update)
@@ -253,7 +254,7 @@ class DogeTrainer:
             else:
                 state = ln.learned_iterations(geom, state, alpha, omega, cfg.iters_per_round,
                                               self.sweeps)
-        with record_function(SPANS[3]):
+        with span(SPANS[3]):
             dist = ln.distribute_delta_learned(geom, state, alpha, self.sweeps)
         return dist, state, lstm, history, prev_lb
 
@@ -318,7 +319,7 @@ class DogeTrainer:
         lbs = []
         for _ in range(n):
             dist, state, lstm, hist, plb = self._round(instance, state, lstm, hist, plb)
-            with record_function(SPANS[3]):
+            with span(SPANS[3]):
                 lb = uf.lower_bound_from_cft(geom, dist.cft)
             lbs.append(lb if fused else float(lb))
         if fused and lbs:

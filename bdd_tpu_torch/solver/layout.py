@@ -418,11 +418,12 @@ def cluster_fits(P: int, itemsize: int, C: int = max(CLUSTER_SIZES)) -> bool:
     return cluster_smem_bytes(P, C, itemsize) <= MAX_DYNAMIC_SMEM
 
 
-def l2_occupancy(itemsize: int, threads: int, device) -> int:
-    """Blocks of ``threads`` threads of the L2 body that an SM holds at once:
-    on the card its own answer (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
-    the least over the three entries); off it an estimate by the kernel's
-    register bound (64 a thread at HUGE_THREADS): HUGE_THREADS // threads."""
+def l2_occupancy(itemsize: int, threads: int, device, counting: bool = False) -> int:
+    """Blocks of ``threads`` threads of the L2 body (``counting``: of its
+    counting entries) that an SM holds at once: on the card its own answer
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, the least over the
+    three entries); off it an estimate by the kernel's register bound (64 a
+    thread at HUGE_THREADS): HUGE_THREADS // threads."""
     device = torch.device(device)
     if device.type == "cuda":
         import ctypes
@@ -430,7 +431,8 @@ def l2_occupancy(itemsize: int, threads: int, device) -> int:
         from bdd_tpu_torch import _build
 
         out = ctypes.c_int(0)
-        fn = getattr(_build.load(), f"uniform_huge_l2_occupancy_f{8 * itemsize}")
+        name = "uniform_huge_l2_count_occupancy" if counting else "uniform_huge_l2_occupancy"
+        fn = getattr(_build.load(), f"{name}_f{8 * itemsize}")
         with torch.cuda.device(device):
             rc = fn(threads, ctypes.byref(out))
         if rc != 0:

@@ -13,7 +13,7 @@ from __future__ import annotations
 import math
 import time
 
-from bdd_tpu_torch.utils.logging import bdd_log
+from bdd_tpu_torch.utils.logging import bdd_log, span
 
 
 def run_solver(
@@ -65,13 +65,15 @@ def run_solver(
                     it = max_iter
                     break
                 b = min(block_size, remaining)
-                s.iteration_block(b)
+                with span("bdd.block"):
+                    s.iteration_block(b)
                 n += b
                 it += b
                 if clock() - start > time_limit:
                     break  # bound the overshoot to one block
         else:
-            s.iteration()
+            with span("bdd.block"):
+                s.iteration()
             n = 1
             it += 1
         if n == 0:

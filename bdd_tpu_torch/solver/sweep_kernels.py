@@ -45,10 +45,19 @@ wide body's, ``uniform_forward_huge`` the huge body's,
 ``uniform_forward_huge_cluster`` its cluster form's,
 ``uniform_forward_huge_l2`` its L2 form's). The twins never count here
 (``uniform.TWIN_SWEEP_CALLS`` and ``uniform.PLAIN_RUN_CALLS`` count them).
+
+``L2_WAIT`` counts the L2 body's hop-barrier wait: while a ``torch.profiler``
+records, an L2 launch takes the body's counting entry (``_count``), which
+adds, block by block, thread 0's SM cycles spent at the column's hop
+barriers and the block's SM cycles from start to end. Where the counting
+entries hold fewer blocks an SM than the body's own (which G comes from),
+the launch runs uncounted. ``l2_wait_cycles`` reads the sums, and
+``L2_COUNTED`` counts by entry the launches that took the counting entry
+(``LAUNCHES`` counts them under ``_huge_l2`` with the others).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -60,6 +69,7 @@ from bdd_tpu_torch.solver.layout import (
     LaunchPlan,
     UniformGeom,
     huge_scratch,
+    l2_occupancy,
     launch_plan,
     plan_scratch_bytes,
 )
@@ -73,12 +83,48 @@ HUGE_CLUSTER = "_huge_cluster"  # its cluster form (rows past a block's, within 
 HUGE_L2 = "_huge_l2"  # the same for its L2 form (rows past a cluster's shared memory)
 BODIES = ("", WIDE, HUGE, HUGE_CLUSTER, HUGE_L2)
 LAUNCHES = {kernel + body: 0 for kernel in KERNELS + (RUN,) for body in BODIES}
+L2_ENTRIES = KERNELS + (RUN,)  # the rows of an L2_WAIT tensor
+# per device: int64 [3, 2], a row an entry of L2_ENTRIES: (barrier wait, block cycles)
+L2_WAIT: Dict[torch.device, torch.Tensor] = {}
+L2_COUNTED = {kernel: 0 for kernel in L2_ENTRIES}  # launches of the counting entries
+_COUNTING_FITS: Dict[tuple, bool] = {}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in L2_COUNTED:
+        L2_COUNTED[k] = 0
+    for t in L2_WAIT.values():
+        t.zero_()
+
+
+def _l2_wait(device: torch.device) -> torch.Tensor:
+    t = L2_WAIT.get(device)
+    if t is None:
+        t = L2_WAIT[device] = torch.zeros((len(L2_ENTRIES), 2), dtype=torch.int64, device=device)
+    return t
+
+
+def l2_wait_cycles() -> Dict[str, Tuple[int, int]]:
+    """(barrier wait, block cycles) of the L2 body's counted launches by
+    entry, summed over the devices (SM cycles; a read on the host)."""
+    out = {k: (0, 0) for k in L2_ENTRIES}
+    for t in L2_WAIT.values():
+        for k, (wait, cycles) in zip(L2_ENTRIES, t.tolist()):
+            out[k] = (out[k][0] + wait, out[k][1] + cycles)
+    return out
+
+
+def _counting_fits(itemsize: int, threads: int, device: torch.device) -> bool:
+    """Whether the L2 body's counting entries hold as many blocks an SM as
+    its own entries, from which the plan took G."""
+    key = (itemsize, threads, device)
+    if key not in _COUNTING_FITS:
+        _COUNTING_FITS[key] = (l2_occupancy(itemsize, threads, device, counting=True)
+                               >= l2_occupancy(itemsize, threads, device))
+    return _COUNTING_FITS[key]
 
 
 def _suffix(dtype: torch.dtype) -> str:
@@ -116,11 +162,14 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
     buckets' launch, then the wide buckets', the huge buckets', the cluster
     body's and the L2 body's, each where the plan has blocks for it; the run
     entry's cluster and L2 launches by its own route) and raises on a launch
-    error. It holds its tensors alive and does not count; ``launch.counts``
-    names the key of ``LAUNCHES`` of every launch a call makes. ``scratch``:
+    error. It holds its tensors alive and does not count in ``LAUNCHES``;
+    ``launch.counts`` names the key of ``LAUNCHES`` of every launch a call
+    makes. ``scratch``:
     the L2 body's (:func:`layout.huge_scratch`): the key rows, which the
     forward reads, and the partials and counters of the column barriers,
-    which every entry needs where the plan splits a column."""
+    which every entry needs where the plan splits a column. A launch made
+    while a profiler records takes the L2 body's counting entry, where it
+    fits (``L2_WAIT``), and counts itself in ``L2_COUNTED``."""
     suffix = _suffix(lo.dtype)
     if isinstance(omega, torch.Tensor) and omega.dim() > 0:
         omega_arr, omega_val = omega, 0.0
@@ -174,9 +223,22 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
             base, base + parts, base + counters, buffers[-1])))
     calls = [(name, getattr(lib, f"{name}_{suffix}"), args) for name, args in calls]
     keep = (plan, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, frontier, outs, scratch)
+    counting = False
+    if l2_blocks:  # the L2 call is the last one
+        wait = _l2_wait(lo.device)
+        acc = wait.data_ptr() + L2_ENTRIES.index(kernel) * wait.stride(0) * wait.element_size()
+        # asked here and not in a traced launch: the card's first answer
+        # loads the counting entries
+        counting = _counting_fits(lo.element_size(), plan.l2_threads, lo.device)
 
     def launch() -> None:
-        for name, fn, args in calls:
+        todo = calls
+        if counting and torch._C._autograd._profiler_enabled():
+            name, _, args = calls[-1]
+            todo = calls[:-1] + [(name, getattr(lib, f"{name}_count_{suffix}"),
+                                  args[:-1] + (acc, args[-1]))]
+            L2_COUNTED[kernel] += 1
+        for name, fn, args in todo:
             rc = fn(*args)
             if rc != 0:
                 raise RuntimeError(

@@ -21,6 +21,7 @@ the host (the segment lengths are checked once, when the layout is built).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -38,6 +39,7 @@ from bdd_tpu_torch.solver.layout import (
     flatten,
     state_from_flat,
 )
+from bdd_tpu_torch.utils.logging import span
 
 INF = float("inf")
 
@@ -307,16 +309,17 @@ def exchange_delta_flat(geom: UniformGeom, mm: torch.Tensor,
     sequential loop per variable and column (one-dimensional data would go to
     a tree reduction that sums in another order, and slower)."""
     ex = geom.exchange
-    m = mm[ex.order]
-    contrib = relu(torch.stack([-m, m], dim=1), inplace=True)
-    # [V + 1, 2]: the last segment is empty, the sentinel variable V of
-    # invalid slots, and comes out as the initial 0
-    dsum = torch.segment_reduce(
-        contrib, "sum", lengths=ex.segments, axis=0, unsafe=True, initial=0.0
-    )
-    if delta_reduce is not None:
-        dsum = delta_reduce(dsum)
-    return dsum[:, 0][ex.ids], dsum[:, 1][ex.ids]
+    with span("bdd.exchange"):
+        m = mm[ex.order]
+        contrib = relu(torch.stack([-m, m], dim=1), inplace=True)
+        # [V + 1, 2]: the last segment is empty, the sentinel variable V of
+        # invalid slots, and comes out as the initial 0
+        dsum = torch.segment_reduce(
+            contrib, "sum", lengths=ex.segments, axis=0, unsafe=True, initial=0.0
+        )
+        if delta_reduce is not None:
+            dsum = delta_reduce(dsum)
+        return dsum[:, 0][ex.ids], dsum[:, 1][ex.ids]
 
 
 Sweeps = Tuple[Callable, Callable]
@@ -402,14 +405,17 @@ def init_uniform_state(host: UniformHost, objective) -> UniformState:
     geom = host.geom
     dev, dt = geom.device, geom.dtype
     ex = geom.exchange
-    obj = torch.zeros(geom.V + 1, dtype=torch.float64, device=dev)
-    obj[: geom.V] = torch.as_tensor(np.asarray(objective, dtype=np.float64), device=dev)
-    counts = torch.ones(geom.V + 1, dtype=torch.float64, device=dev)
-    counts[: geom.V] = geom.num_bdds_per_var.clamp_min(1)
-    share = obj[ex.ids] / counts[ex.ids]  # invalid slots: the sentinel V, 0
-    hi = torch.where(ex.valid, share, 0.0).to(dt)
-    lo = torch.zeros_like(hi)
-    return state_from_flat(geom, lo, hi, torch.zeros_like(hi), backward_run(geom, lo, hi))
+    with span("bdd.init"):
+        obj = torch.zeros(geom.V + 1, dtype=torch.float64, device=dev)
+        # a copy from pageable host memory: on the card it waits for the stream
+        with span("bdd.sync") if dev.type == "cuda" else contextlib.nullcontext():
+            obj[: geom.V] = torch.as_tensor(np.asarray(objective, dtype=np.float64), device=dev)
+        counts = torch.ones(geom.V + 1, dtype=torch.float64, device=dev)
+        counts[: geom.V] = geom.num_bdds_per_var.clamp_min(1)
+        share = obj[ex.ids] / counts[ex.ids]  # invalid slots: the sentinel V, 0
+        hi = torch.where(ex.valid, share, 0.0).to(dt)
+        lo = torch.zeros_like(hi)
+        return state_from_flat(geom, lo, hi, torch.zeros_like(hi), backward_run(geom, lo, hi))
 
 
 def init_uniform_state_from_layer_costs(host: UniformHost, layer_costs) -> UniformState:

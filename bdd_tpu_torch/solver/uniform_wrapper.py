@@ -14,6 +14,7 @@ import torch
 
 from bdd_tpu_torch.solver import uniform as uf
 from bdd_tpu_torch.solver.layout import UniformHost, flatten_uniform
+from bdd_tpu_torch.utils.logging import span
 
 
 class UniformLayerView:
@@ -93,18 +94,28 @@ class UniformSolver:
     def iteration_block(self, n: int) -> None:
         self.state = uf.iterations(self.geom, self.state, n, self.omega)
 
+    # reads of the card's values on the host are ``bdd.sync`` spans: each
+    # waits for the stream (the profiler's count of the program's host syncs)
     def lower_bound(self) -> float:
-        return float(uf.lower_bound_from_cft(self.geom, self._hard_cft()))
+        with span("bdd.bound"):
+            lb = uf.lower_bound_from_cft(self.geom, self._hard_cft())
+            with span("bdd.sync"):
+                return float(lb)
 
     def lower_bound_with_deferred(self) -> float:
-        return float(uf.lower_bound_with_deferred(self.geom, self.state))
+        with span("bdd.bound"):
+            lb = uf.lower_bound_with_deferred(self.geom, self.state)
+            with span("bdd.sync"):
+                return float(lb)
 
     def lower_bound_per_bdd(self) -> np.ndarray:
         """float64 [nr_bdds]: each BDD's root cost (uniform_wrapper.py:115)."""
         out = np.zeros(self.host.nr_bdds)
-        for g, cft, lbdd in zip(self.geom.buckets, self._hard_cft(), self.host.layer_bdd):
-            roots = g.roots.cpu().numpy()
-            vals = cft[:, 0, :].cpu().numpy()
+        cfts = self._hard_cft()
+        with span("bdd.sync"):  # the reads of every bucket, one span
+            read = [(g.roots.cpu().numpy(), cft[:, 0, :].cpu().numpy())
+                    for g, cft in zip(self.geom.buckets, cfts)]
+        for (roots, vals), lbdd in zip(read, self.host.layer_bdd):
             bdds = np.asarray(lbdd)
             m = roots & (bdds >= 0)
             out[bdds[m]] = vals[m]
@@ -115,8 +126,10 @@ class UniformSolver:
         """Concatenated per-bucket [H*B] min marginals (UniformLayerView
         indexing); +inf at invalid layers."""
         mm = uf.min_marginals_all(self.geom, self.state, self._hard_cft())
-        m0 = torch.cat([a.reshape(-1) for a, _ in mm]).cpu().numpy()
-        m1 = torch.cat([b.reshape(-1) for _, b in mm]).cpu().numpy()
+        with span("bdd.sync"):
+            m0 = torch.cat([a.reshape(-1) for a, _ in mm]).cpu().numpy()
+        with span("bdd.sync"):
+            m1 = torch.cat([b.reshape(-1) for _, b in mm]).cpu().numpy()
         return m0, m1
 
     def bdds_solution(self) -> Tuple[torch.Tensor, ...]:

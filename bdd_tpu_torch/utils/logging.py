@@ -9,7 +9,9 @@ Copy of bdd_tpu/utils/logging.py. Device-level profiling: set
 BDD_TPU_TRACE=/path/to/dir (or call ``device_trace``) to capture a
 ``torch.profiler`` trace (a Chrome trace file, viewable in Perfetto) around
 the solve, the counterpart of the reference's cudaDeviceSynchronize-bracketed
-kernel timing in debug builds (bdd_cuda_parallel_mma.cu:130-132).
+kernel timing in debug builds (bdd_cuda_parallel_mma.cu:130-132). Inside it,
+and inside any other ``torch.profiler`` capture, the program marks its layers
+with ``span`` ranges (``bdd.*``), on the clock of the device's kernels.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import sys
 import time
 from collections import defaultdict
 from typing import Optional
+
+import torch
 
 _log_file = None
 _console = None  # None: sys.stdout as it is when a line is written
@@ -74,6 +78,23 @@ def scoped_timer(label: str, log: bool = False):
             bdd_log(f"[timer] {label}: {dt:.3f} s")
 
 
+_NO_SPAN = contextlib.nullcontext()
+# the profiler's named host range: its fast form where torch has it (1.7 us a
+# range under a CPU profiler against record_function's 10-15 us; a host event
+# of the same name, without record_function's copy on the device's timeline)
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None) or torch.profiler.record_function
+
+
+def span(name: str):
+    """A profiler range named ``name`` while a ``torch.profiler`` records
+    (``device_trace``, or any other capture), else one shared null context:
+    a span costs one check when nothing records. The profiler puts the range
+    on the clock of the device's kernels, copies and fills."""
+    if torch._C._autograd._profiler_enabled():
+        return _RANGE(name)
+    return _NO_SPAN
+
+
 @contextlib.contextmanager
 def device_trace(trace_dir: Optional[str] = None, label: str = "solve"):
     """Capture a torch.profiler trace (host and, where there is one, the
@@ -87,7 +108,6 @@ def device_trace(trace_dir: Optional[str] = None, label: str = "solve"):
         with scoped_timer(label):
             yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

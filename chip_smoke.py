@@ -844,6 +844,12 @@ L2_WIDE_ROWS = dict(nr_vars=96, nr_rows=8, row_len=48, coef_max=4000)
 L2_WIDEST_ROWS = dict(nr_vars=48, nr_rows=1, row_len=48, coef_max=16000)
 HUGE_ITERS = 100  # cut from 200 (PR 8): the native solver's share of the phase
 PATH_ITERS = 20  # iterations of the knapsack32 and L2 paths, counted for the kernels line
+HUGE_L2_COUNT = HUGE_L2 + "_count"  # the L2 body's counting entries in errs, times and the kernels line
+COUNTED_REPS = 40  # launches a counting entry and its uncounted one are each timed over
+# the benchmark's mknap.t50.dual instance (portbench/configs/mknap_cb1.json,
+# tightness 0.5): 5 rows of 32,768 slots on the L2 body at G = 26
+MKNAP_T50 = dict(rows=5, items=100, tightness=0.5)
+MKNAP_SEED = 3_000_000_001
 
 
 def merged_lp(*lps: str) -> str:
@@ -967,6 +973,105 @@ def crossover(label, host, objective, card, flush) -> dict:
     return out
 
 
+def same_bits(a, b) -> bool:
+    """Whether two tensors of one dtype hold the same bit patterns (NaN and
+    signed zeros included)."""
+    import torch
+
+    view = {torch.float32: torch.int32, torch.float64: torch.int64}.get(a.dtype, a.dtype)
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def counted_vs_plain(label, host, objective, card, errs, times, reps=COUNTED_REPS) -> dict:
+    """The L2 body's counting entries (``_count``: the launch the wrapper
+    takes while a profiler records) on a layout that has L2 blocks, under a
+    CPU-only torch.profiler: the fused forward and backward from the state of
+    five iterations and the run-only entry, each L2 entry the plan has,
+    against the plain versions at TOL and bit for bit against the uncounted
+    launch; the barrier wait 0 where a column has one block and strictly
+    between 0 and the block cycles where it has more; one launch each of the
+    counting entries counted in ``sweep_kernels.L2_COUNTED``; each timed
+    beside the uncounted launch. Returns the path of the kernels line
+    (suffix HUGE_L2_COUNT)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from bdd_tpu_torch.solver import layout
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver import uniform as uf
+
+    geom, plan = host.geom, host.geom.plan
+    dt = str(geom.dtype).replace("torch.", "")
+    itemsize = torch.empty((), dtype=geom.dtype).element_size()
+    st = uf.iterations(geom, uf.init_uniform_state(host, objective), 5)
+    lo, hi, mm, cft = st.flat
+    dl, dh = uf.exchange_delta_flat(geom, mm)
+    dl_b, dh_b = geom.per_bucket(dl), geom.per_bucket(dh)
+
+    def cat(outs):  # as the fused wrappers lay them: the frontier in storage order
+        new_lo, new_hi, new_mm, frontier = zip(*outs)
+        return (layout.flatten(new_lo), layout.flatten(new_hi), layout.flatten(new_mm),
+                geom.flatten_nodes(frontier))
+
+    ref_f = [uf.bucket_forward_iteration(g, st.lo[k], st.hi[k], st.cft[k], 0.5, dl_b[k], dh_b[k])
+             for k, g in enumerate(geom.buckets)]
+    ref_b = cat([uf.bucket_backward_iteration(g, r[0], r[1], r[3], 0.5, dl_b[k], dh_b[k])
+                 for (k, g), r in zip(enumerate(geom.buckets), ref_f)])
+    ref_f = cat(ref_f)
+    ref_run = [geom.flatten_nodes([uf.bucket_backward_run(g, a, b) for g, a, b in zip(
+        geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])]
+    shapes = bdd_shapes(geom.buckets)
+    entries = []
+    if plan.l2_blocks:
+        entries += [
+            ("uniform_forward", plan.l2_split, ref_f, launch_bytes(shapes, itemsize, True),
+             sk.prepare_fused_launch("uniform_forward", geom, lo, hi, cft, 0.5, dl, dh)),
+            ("uniform_backward", plan.l2_split, ref_b, launch_bytes(shapes, itemsize, False),
+             sk.prepare_fused_launch("uniform_backward", geom, ref_f[0], ref_f[1], ref_f[3],
+                                     0.5, dl, dh))]
+    if plan.run_l2_blocks:
+        entries.append((RUN, plan.run_l2_split, ref_run, run_bytes(shapes, itemsize),
+                        sk.prepare_run_launch(geom, lo, hi)))
+    if not entries:
+        fail(f"{label} {dt}: no L2 block in the plan")
+    entry = times.setdefault((f"{label} counted", dt), {})
+    launches, row = {}, []
+    for name, split, ref, nbytes, (launch, out) in entries:
+        outs = [out] if name == RUN else list(out)
+        launch()
+        torch.cuda.synchronize()
+        uncounted = [o.clone() for o in outs]
+        uncounted_ms = cuda_ms(launch, reps)
+        key = name + HUGE_L2_COUNT
+        n0, (w0, c0) = sk.L2_COUNTED[name], sk.l2_wait_cycles()[name]
+        with profile(activities=[ProfilerActivity.CPU]):
+            launch()
+            torch.cuda.synchronize()
+            n1, (w1, c1) = sk.L2_COUNTED[name], sk.l2_wait_cycles()[name]
+            counted_ms = cuda_ms(launch, reps)
+        wait, cycles = w1 - w0, c1 - c0
+        if n1 - n0 != 1:
+            fail(f"{label} {dt} {name}: {n1 - n0} counting launches under the profiler, not 1 "
+                 f"(the counting entries hold fewer blocks an SM than the body's?)")
+        errs[key] = max(errs.get(key, 0.0), compare(outs, ref, TOL[dt]))
+        if not all(same_bits(a, b) for a, b in zip(outs, uncounted)):
+            fail(f"{label} {dt} {name}: the counting launch differs from the uncounted one")
+        if not (cycles > 0 and (wait == 0 if split == 1 else 0 < wait < cycles)):
+            fail(f"{label} {dt} {name}: barrier wait {wait} of {cycles} block cycles at "
+                 f"{split} block(s) a column")
+        launches[key] = n1 - n0
+        entry[name] = {"ms": counted_ms, "cold_ms": None, "plain_ms": None, "bytes": nbytes,
+                       "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "uncounted_ms": uncounted_ms,
+                       "wait_pct": 100.0 * wait / cycles}
+        row.append(f"{name} at {split} a column: wait {100.0 * wait / cycles:.2f}% of "
+                   f"{cycles} block cycles, counted {counted_ms:.4f} ms against "
+                   f"{uncounted_ms:.4f} uncounted ({100.0 * (counted_ms / uncounted_ms - 1):+.2f}%)")
+    print(f"[counted] {label} {dt} L2 counting entries under a CPU-only profiler: match the "
+          f"plain versions and the uncounted launches bit for bit; {'; '.join(row)} {card}",
+          flush=True)
+    return {"at": f"{label} counted", "dt": dt, "suffix": HUGE_L2_COUNT, "launches": launches,
+            "iterations": 0, "entries": tuple(name for name, *_ in entries)}
+
+
 def phase_huge(card, errs, times, flush):
     """Phase 6, huge rows: knapsack rows wider than 8,192 slots through the
     huge body (a block a column, rows in shared memory, a launch of its own
@@ -978,10 +1083,13 @@ def phase_huge(card, errs, times, flush):
     cluster body and run on the L2 body, 8 rows of 65,536 slots (eight-byte
     slot codes in the cluster body) and a row of 262,144 take the L2 body
     (its column over the plan's G blocks; in float64, past any cluster, the
-    form of one block a column forced beside it). Returns the paths of the
+    form of one block a column forced beside it); on each layout with L2
+    blocks, and on the benchmark's mknap.t50.dual layout, the L2 body's
+    counting entries (``counted_vs_plain``). Returns the paths of the
     kernels line: knapsack48's float64 solve, knapsack32's, the counted
-    float64 iterations of the 32,768-, 65,536- and 262,144-slot rows and
-    the counted float32 ones of the 262,144-slot row."""
+    float64 iterations of the 32,768-, 65,536- and 262,144-slot rows, the
+    counted float32 ones of the 262,144-slot row, and the counting entries'
+    launches on each of those layouts."""
     import torch
     from bdd_tpu_torch.api import BddSolver
     from bdd_tpu_torch.native import NativeHost
@@ -1102,6 +1210,7 @@ def phase_huge(card, errs, times, flush):
                      f"{plan.nr_l2} on the L2 body, {plan.nr_run_l2} runs on the L2 body")
             kernel_vs_twin(label, host, l2.objective(), card, errs, times, flush, suffix=suffix,
                            variants=variants, reps=reps, run_suffix=run_suffix)
+            paths.append(counted_vs_plain(label, host, l2.objective(), card, errs, times))
             if suffix == HUGE_L2:
                 e, hops = times[(label, dt)], max(H for _, H, _ in plan.shapes)
                 print(f"[huge] {label} {dt} L2 body: {plan.l2_split} blocks a column over "
@@ -1122,6 +1231,18 @@ def phase_huge(card, errs, times, flush):
                               "launches": counted, "iterations": PATH_ITERS})
             del host
         del l2
+    # the benchmark's mknap.t50.dual layout, whose traced runs take the
+    # counting entries
+    from portbench.generators import chu_beasley
+
+    mknap = NativeHost(chu_beasley.make(MKNAP_T50, MKNAP_SEED).lp_text(), "input")
+    host = layout.from_native_host(mknap, torch.float32, "cuda")
+    plan = host.geom.plan
+    print(f"[huge] mknap.t50 float32 (seed {MKNAP_SEED}): buckets (P, H, B) "
+          f"{[tuple(s) for s in plan.shapes]}, {plan.nr_l2} on the L2 body ({plan.l2_split} "
+          f"blocks a column), the run {plan.nr_run_l2} ({plan.run_l2_split}) {card}", flush=True)
+    paths.append(counted_vs_plain("mknap.t50", host, mknap.objective(), card, errs, times))
+    del host, mknap
     cs = nh.cpu_solver()
     t0 = time.perf_counter()
     cs.iterations(HUGE_ITERS, 0.5)
@@ -4103,7 +4224,7 @@ def finish(paths, errs, times) -> None:
     # largest over every comparison of that body
     rows = []
     for path in paths:
-        for name in KERNELS + (RUN,):
+        for name in path.get("entries", KERNELS + (RUN,)):
             e = times[(path["at"], path["dt"])][name]
             # the run-only entry takes its own route (the cluster body's buckets on the L2 body)
             suffix = path.get("run_suffix", path["suffix"]) if name == RUN else path["suffix"]
@@ -4117,7 +4238,9 @@ def finish(paths, errs, times) -> None:
                 "launches_per_iteration": path["iterations"] and count / path["iterations"],
                 "max_abs_err": errs[key], "ms": e["ms"],
                 "cold_ms": e["cold_ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-                "bound_by": "bytes", "bytes": e["bytes"], "library_ms": None})
+                "bound_by": "bytes", "bytes": e["bytes"], "library_ms": None,
+                # the counting entries' rows: the uncounted launch's time, the wait share
+                **{k: e[k] for k in ("uncounted_ms", "wait_pct") if k in e}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
