@@ -278,7 +278,8 @@ HUGE_FROM_F32_MANY = 2048
 HUGE_F32_BLOCKS_SM = 4
 # Rows past a block's shared memory (:func:`huge_fits`) may run the cluster
 # body where a cluster of CLUSTER_SIZES blocks holds them (:func:`cluster_fits`;
-# the route takes it where their columns are many, L2_FROM_SPLIT below): a
+# the route takes it where their columns are many, L2_FROM_SPLIT below, and
+# for float32 rows a block holds over few columns, BLOCK_ROWS_CLUSTER): a
 # cluster of C blocks a column, each block a share of ceil(P / C) slots of
 # the rows in its shared memory, the rest reached through distributed shared
 # memory. 16 is a non-portable cluster size, which the kernels allow. Its
@@ -326,7 +327,7 @@ CLUSTER_MAX_P = 0xFFFD  # four-byte slot codes hold slots below this
 # 66 / 30 / 15 / 7): the estimate off the card.
 GPC_SMS = (18, 18, 18, 18, 18, 16, 16, 10)
 # The L2 body (rows past what the route's clusters hold, CLUSTER_ROUTED, rows
-# past a block's over few columns, every run of rows past a block's, and
+# past WIDE_P over few columns, every run of rows the cluster body sweeps, and
 # where the plan is told so) spreads each column over G blocks (``LaunchPlan.l2_split``) that
 # meet at a hop barrier of the column in device memory (uniform_sweep.cu,
 # the L2 section). Block g of a column owns the chunks of L2_CHUNK slots (a
@@ -336,11 +337,13 @@ GPC_SMS = (18, 18, 18, 18, 18, 16, 16, 10)
 # block at once or is refused. G = 1 is a block a column.
 L2_CHUNK = 32
 L2_MAX_SPLIT = 256  # blocks a column the kernel takes at most
-# Rows that a cluster holds but a block does not take the cluster body or the
-# L2 body by their columns as well as their width (:func:`_route_cluster_or_l2`):
-# the half-sweeps of such a bucket take the L2 body where the L2 table's G,
-# counted with the bucket in it, is at least L2_FROM_SPLIT; the run-only entry
-# takes the L2 body for every one of them (:func:`run_body_of`). Measured on
+# Rows past WIDE_P take their body by their columns as well as their width
+# (:func:`_route_by_columns`): the half-sweeps of a bucket that a cluster or
+# a block holds take the L2 body where the L2 table's G, counted with the
+# bucket in it, is at least L2_FROM_SPLIT (float32 rows a block holds the
+# cluster body there, while one wave of clusters holds them:
+# BLOCK_ROWS_CLUSTER); the run-only entry takes the L2 body for every bucket
+# that a cluster holds but a block does not (:func:`run_body_of`). Measured on
 # an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --huge-split route; PERF.md
 # section 6), warm ms forward / backward, the cluster body at the plan's
 # C against the L2 body at the plan's G, knapsack rows of 48 variables: at G =
@@ -354,8 +357,34 @@ L2_MAX_SPLIT = 256  # blocks a column the kernel takes at most
 # body led (32,768 float32 slots 0.77 / 0.74 against 1.44 / 0.85, and 1.52 /
 # 1.45 against 2.97 / 1.94). One rule for both precisions. The L2 run led on
 # every layout, 1.3-4.8x (132 rows of 32,768 float64 slots: 1.34 ms against
-# 1.81).
+# 1.81). Rows a block holds (knapsack48's 16,384 slots in both precisions,
+# padded to 29,016 in float32 and 19,316 in float64), warm ms forward +
+# backward, the shared-memory huge body against the L2 body at the plan's G:
+# the L2 body led at G = 4 to 29 (1 to 33 columns) on every layout, 1.7-4.1x
+# (over 33 columns 16,384 slots 1.37 against 0.77 in float32, 1.52 against
+# 0.91 in float64; 29,016 slots 2.50 against 1.08; 19,316 slots 1.86
+# against 1.10), at G = 2 (66 columns) on three by 5-22% and not on 19,316
+# float64 slots (1.93 against 1.96), and the huge body led at G = 1 (132
+# columns: 16,384 slots 1.53 against 2.15 and 1.86 against 3.32): the same
+# threshold, as for rows a cluster holds.
 L2_FROM_SPLIT = 4
+# Float32 rows that a block holds (past WIDE_P), where the rule by columns
+# gives them the L2 body, take the cluster body instead while the card holds
+# a cluster of BLOCK_ROWS_CLUSTER blocks for every column of the cluster table
+# with them at once (:func:`_route_by_columns`; 7 clusters of 16 on an H100,
+# so up to 7 columns); float64 rows keep the L2 body. Measured on an NVIDIA
+# H100 80GB HBM3 at 700 W (chip_smoke.py --huge-split route; PERF.md section
+# 6), warm ms forward + backward, the L2 body at the plan's G against the
+# cluster body at the plan's C: float32 over 1, 5 and 7 columns (C = 16)
+# 16,384 slots 0.52 / 0.56 / 0.56 against 0.42 / 0.46 / 0.48, 29,016 slots
+# 0.52 / 0.60 / 0.61 against 0.47 / 0.55 / 0.56; over 8 and 16 columns (C =
+# 8, 4) 16,384 slots 0.57 / 0.63 against 0.53 / 0.60, 29,016 slots 0.62 /
+# 0.74 against 0.68 / 0.84; float64 16,384 and 19,316 slots over 1 to 16
+# columns 0.58-0.76 against 0.57-0.92, the cluster body behind on 9 of 10
+# (its forward's compare-and-swap into peers); mknap.t25.dual's 5 rows of
+# 16,384 float32 slots 926-931 dual iterations a second against the L2
+# body's 793-796.
+BLOCK_ROWS_CLUSTER = {4: 16}
 
 
 def sm_count(device) -> int:
@@ -495,9 +524,11 @@ def body_of(P: int, itemsize: int, columns: int = 0, sms: int = SM_COUNT,
     the route of the wide buckets: every one from that width on takes the
     huge body (timing variants). A layout's plan holds the route on its
     tables as a whole: the float32 rule on the huge table
-    (:func:`_route_huge_table`) and the cluster-or-L2 rule by the L2 table's
-    columns (:func:`_route_cluster_or_l2`), and its run-only entry takes the
-    L2 body for the cluster body's buckets (:func:`run_body_of`)."""
+    (:func:`_route_huge_table`) and the rule by the L2 table's columns for
+    buckets past WIDE_P that a block or a cluster holds
+    (:func:`_route_by_columns`; float32 rows a block holds over few columns
+    take the cluster body), and its run-only entry takes the L2 body for the
+    cluster body's buckets (:func:`run_body_of`)."""
     if P <= NARROW_P:
         return "narrow"
     if P <= WIDE_P:
@@ -729,27 +760,44 @@ def _route_huge_table(shapes, body, itemsize: int, sms: int):
     return ["wide" if k in few else b for k, b in enumerate(body)]
 
 
-def _route_cluster_or_l2(shapes, body, resident: int):
-    """``body`` (per bucket, :func:`body_of`) with the cluster-or-L2 rule
-    held on the L2 table as a whole. One launch runs that table at one G, the
+def _columns(shapes, body, which: str) -> int:
+    """Columns (of buckets with a hop) of the buckets that ``body`` gives
+    ``which``."""
+    return sum(B for (_, H, B), b in zip(shapes, body) if b == which and H > 0)
+
+
+def _route_by_columns(shapes, body, resident: int, clusters: int = 0):
+    """``body`` (per bucket, :func:`body_of`) with the rule by columns held
+    on the L2 table as a whole. One launch runs that table at one G, the
     card's ``resident`` blocks over all its columns (:func:`choose_l2_split`),
-    so a bucket that a cluster holds joins it only where G, counted with the
-    bucket and every one that joined before, stays at least L2_FROM_SPLIT.
-    They try in a fixed order, widest first (then in table order), so the
-    table's G at the end is the last joiner's, at or above L2_FROM_SPLIT."""
-    held = [k for k, b in enumerate(body) if b == "huge_cluster"]
+    so a bucket past WIDE_P that a cluster or a block holds (the cluster or
+    the shared-memory huge body by its width) joins it only where G, counted
+    with the bucket and every one that joined before, stays at least
+    L2_FROM_SPLIT. They try in a fixed order, widest first (then in table
+    order), so the table's G at the end is the last joiner's, at or above
+    L2_FROM_SPLIT. A bucket that a block holds and that would join takes the
+    cluster body instead while the card's ``clusters`` clusters of the
+    route's largest size (BLOCK_ROWS_CLUSTER; 0: none) hold every column of
+    the cluster table with it at once; the wider buckets that a cluster holds
+    have chosen before it. Buckets at or below WIDE_P keep their body: the
+    L2 body reads only four-byte records."""
+    held = [k for k, b in enumerate(body)
+            if b == "huge_cluster" or b == "huge" and shapes[k][0] > WIDE_P]
     if not held:
         return body
     body = list(body)
-    l2 = [k for k, b in enumerate(body) if b == "huge_l2"]
-    cols = sum(shapes[k][2] for k in l2 if shapes[k][1] > 0)
-    pmax = max((shapes[k][0] for k in l2), default=0)
+    cols = _columns(shapes, body, "huge_l2")
+    pmax = max((P for (P, _, _), b in zip(shapes, body) if b == "huge_l2"), default=0)
     for k in sorted(held, key=lambda k: (-shapes[k][0], k)):
         P, H, B = shapes[k]
-        more = cols + (B if H > 0 else 0)
-        if choose_l2_split(more, max(pmax, P), HUGE_THREADS, resident) >= L2_FROM_SPLIT:
+        own = B if H > 0 else 0
+        if choose_l2_split(cols + own, max(pmax, P), HUGE_THREADS, resident) < L2_FROM_SPLIT:
+            continue
+        if body[k] == "huge" and own + _columns(shapes, body, "huge_cluster") <= clusters:
+            body[k] = "huge_cluster"
+        else:
             body[k] = "huge_l2"
-            cols, pmax = more, max(pmax, P)
+            cols, pmax = cols + own, max(pmax, P)
     return body
 
 
@@ -861,19 +909,30 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
                  cluster_size: Optional[int], l2_split: Optional[int]) -> LaunchPlan:
     sms = sm_count(device)
     body = [body_of(P, itemsize, B, sms, huge_from) for P, _, B in shapes]
-    if huge_from is None:
-        body = _route_huge_table(shapes, body, itemsize, sms)
-    # huge_body forces one body on all three entries
+    # huge_body forces one body on all three entries ("huge": the width's body
+    # past WIDE_P, so the shared-memory one wherever a block holds the rows)
     if huge_body == "huge_l2":  # the L2 body for every bucket past the wide records
         body = ["huge_l2" if P > WIDE_P else b for b, (P, _, _) in zip(body, shapes)]
     elif huge_body == "huge_cluster":  # the cluster body wherever it holds the rows
         body = ["huge_cluster" if P > WIDE_P and cluster_fits(P, itemsize) else b
                 for b, (P, _, _) in zip(body, shapes)]
     resident = None  # blocks of the L2 body the card holds at once, where a bucket may take it
-    if any(b in ("huge_cluster", "huge_l2") for b in body):
+    if any(b in ("huge_cluster", "huge_l2") or b == "huge" and P > WIDE_P
+           for b, (P, _, _) in zip(body, shapes)):
         resident = sms * l2_occupancy(itemsize, HUGE_THREADS, device)
         if huge_body is None:
-            body = _route_cluster_or_l2(shapes, body, resident)
+            # the clusters of BLOCK_ROWS_CLUSTER blocks the card holds at once
+            # over the rows a block holds past WIDE_P, where the precision has any
+            C = BLOCK_ROWS_CLUSTER.get(itemsize)
+            block = [P for (P, _, _), b in zip(shapes, body) if b == "huge" and P > WIDE_P]
+            clusters = 0
+            if C and block:
+                clusters = cluster_occupancy(itemsize, C, HUGE_THREADS,
+                                             cluster_smem_bytes(max(block), C, itemsize), device,
+                                             sms, max(block))
+            body = _route_by_columns(shapes, body, resident, clusters)
+    if huge_from is None:  # on the huge table that the route by columns leaves
+        body = _route_huge_table(shapes, body, itemsize, sms)
     run_body = body if huge_body else [run_body_of(b) for b in body]
     narrow = [k for k, b in enumerate(body) if b == "narrow"]
     wide = [k for k, b in enumerate(body) if b == "wide"]
@@ -961,7 +1020,9 @@ def launch_plan(shapes, dtype: torch.dtype, device, stages: Optional[int] = None
     body takes whatever its columns (WIDE_P + 1: none; :func:`body_of`),
     ``huge_body="huge_l2"`` the L2 body for
     every bucket past WIDE_P, ``huge_body="huge_cluster"`` the cluster body
-    for every such bucket it holds, ``cluster_size`` the blocks of its
+    for every such bucket it holds, ``huge_body="huge"`` the body of each
+    bucket's width (:func:`body_of`: the shared-memory body for every such
+    bucket a block holds), ``cluster_size`` the blocks of its
     clusters (2, 4, 8 or 16), ``l2_split`` the blocks a column of the L2
     body (1 to L2_MAX_SPLIT; more than the card holds at once is refused at
     the launch)."""
@@ -1001,13 +1062,13 @@ def solve_bytes(shapes, itemsize: int) -> int:
     records, per layer the state, the half-sweep's outputs, the deltas, alpha
     and three int64 index entries, per node the frontier in and out, and the
     scratch of the L2 body as the most the route can give these buckets: the
-    key rows of every bucket past a block's shared memory (each may take the
-    L2 body, :func:`_route_cluster_or_l2`; the cluster body keeps none), and
+    key rows of every bucket past WIDE_P (each may take the L2 body,
+    :func:`_route_by_columns`; the other bodies keep none), and
     the partials and counters of all their columns (the run's L2 table takes
     them all) at L2_MAX_SPLIT blocks a column (a few KB a column at most
     above the plan's own)."""
     _, _, _, E, N, arcs = _offsets(shapes)
-    l2 = [(P, H, B) for P, H, B in shapes if not huge_fits(P, itemsize)]
+    l2 = [(P, H, B) for P, H, B in shapes if P > WIDE_P]
     columns = sum(B for _, H, B in l2 if H > 0)
     split = L2_MAX_SPLIT if columns else 1
     scratch = l2_scratch_bytes(sum(2 * P * B for P, _, B in l2), split, columns, itemsize)[2]

@@ -60,7 +60,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      coefficients up to 16,000 (P = 262,144, past a cluster of 16 in
      float64) on the L2 body, its column spread over G blocks, with the
      form of one block a column forced beside it and 20 counted float64
-     iterations; and a
+     iterations; the benchmark's mknap.t50.dual layout (5 rows of 32,768
+     slots) on the L2 body and mknap.t25.dual's (5 of 16,384, which a block
+     holds) on the cluster body by the route (the huge and the L2 body
+     forced beside it), with the L2 body's counting entries; and a
      100-iteration float64 solve of knapsack48 against the native solver,
      every half-sweep one launch of the huge body;
   7. Python pipeline (BddPreprocessor -> flatten_uniform) on grid12: float64
@@ -849,6 +852,10 @@ COUNTED_REPS = 40  # launches a counting entry and its uncounted one are each ti
 # the benchmark's mknap.t50.dual instance (portbench/configs/mknap_cb1.json,
 # tightness 0.5): 5 rows of 32,768 slots on the L2 body at G = 26
 MKNAP_T50 = dict(rows=5, items=100, tightness=0.5)
+# and its mknap.t25.dual instance (tightness 0.25): 5 rows of 16,384 slots,
+# which a block's shared memory holds, on the cluster body (clusters of 16)
+# by their columns, their run on the L2 body
+MKNAP_T25 = dict(rows=5, items=100, tightness=0.25)
 MKNAP_SEED = 3_000_000_001
 
 
@@ -1085,7 +1092,9 @@ def phase_huge(card, errs, times, flush):
     (its column over the plan's G blocks; in float64, past any cluster, the
     form of one block a column forced beside it); on each layout with L2
     blocks, and on the benchmark's mknap.t50.dual layout, the L2 body's
-    counting entries (``counted_vs_plain``). Returns the paths of the
+    counting entries (``counted_vs_plain``); the benchmark's mknap.t25.dual
+    layout (5 rows a block holds) on the cluster body by the route, the huge
+    and the L2 body forced beside it, and its run's counting entry. Returns the paths of the
     kernels line: knapsack48's float64 solve, knapsack32's, the counted
     float64 iterations of the 32,768-, 65,536- and 262,144-slot rows, the
     counted float32 ones of the 262,144-slot row, and the counting entries'
@@ -1242,6 +1251,24 @@ def phase_huge(card, errs, times, flush):
           f"{[tuple(s) for s in plan.shapes]}, {plan.nr_l2} on the L2 body ({plan.l2_split} "
           f"blocks a column), the run {plan.nr_run_l2} ({plan.run_l2_split}) {card}", flush=True)
     paths.append(counted_vs_plain("mknap.t50", host, mknap.objective(), card, errs, times))
+    del host, mknap
+    # the benchmark's mknap.t25.dual layout (float32, packed as the harness
+    # builds it): rows a block holds over 5 columns, on the cluster body by
+    # the route and their run on the L2 body, the shared-memory huge body and
+    # the L2 body forced beside it; the run's counting entry
+    mknap = NativeHost(chu_beasley.make(MKNAP_T25, MKNAP_SEED).lp_text(), "input")
+    host = layout.from_native_host(mknap, torch.float32, "cuda")
+    plan = host.geom.plan
+    print(f"[huge] mknap.t25 float32 (seed {MKNAP_SEED}): buckets (P, H, B) "
+          f"{[tuple(s) for s in plan.shapes]}, {plan.nr_cluster} on the cluster body (clusters "
+          f"of {plan.cluster_size}), the run {plan.nr_run_l2} on the L2 body "
+          f"({plan.run_l2_split} blocks a column) {card}", flush=True)
+    if (plan.nr_cluster, plan.nr_run_l2, plan.nr_huge, plan.nr_l2) != (1, 1, 0, 0):
+        fail(f"mknap.t25's rows {plan.shapes} do not take the cluster body by the route")
+    kernel_vs_twin("mknap.t25", host, mknap.objective(), card, errs, times, flush,
+                   variants=({"huge_body": "huge"}, {"huge_body": "huge_l2"}),
+                   suffix=HUGE_CLUSTER, run_suffix=HUGE_L2)
+    paths.append(counted_vs_plain("mknap.t25", host, mknap.objective(), card, errs, times))
     del host, mknap
     cs = nh.cpu_solver()
     t0 = time.perf_counter()
@@ -3735,31 +3762,66 @@ ROUTE_LAYOUTS = ([(65536, c, 4000, ("float32", "float64")) for c in (1, 8, 16)]
                  + [(65536, c, 4000, ("float32", "float64")) for c in (33, 66, 132)]
                  + [(262144, c, 16000, ("float32",)) for c in (33, 66, 132)]
                  + [(131072, c, 8000, ("float64",)) for c in (33, 66, 132)])
+# rows past WIDE_P that a block holds: knapsack48's rows of 16,384 slots in
+# both precisions, and the same rows padded with empty slots to the widest a
+# block holds, 29,016 in float32 and 19,316 in float64 (no layout builds such
+# a bucket: widths are powers of two); the shared-memory huge body, the L2 body
+# and the cluster body forced in turns. What the route of such rows rests on.
+BLOCK_ROUTE_LAYOUTS = [(P, c, 1000, dts) for c in (1, 5, 7, 8, 16, 33, 66, 132)
+                       for P, dts in ((16384, ("float32", "float64")), (29016, ("float32",)),
+                                      (19316, ("float64",)))]
+
+
+def padded_host(nh, P: int, dtype):
+    """The layout of ``nh``'s BDDs, unpacked, with every bucket widened to P
+    slots by slots that hold no node (the records of a width no layout
+    builds, whose rows still reach every slot of the bucket)."""
+    import numpy as np
+    from bdd_tpu_torch.solver import layout
+
+    buckets, counts = layout._native_buckets(nh)
+    for b in buckets:
+        H, width, B = b["node_valid"].shape
+        more = ((0, 0), (0, P - width), (0, 0))
+        b["node_valid"] = np.pad(b["node_valid"], more)
+        for k, fill in (("lo_kind", layout.ARC_BOT), ("hi_kind", layout.ARC_BOT),
+                        ("lo_slot", 0), ("hi_slot", 0)):
+            b[k] = np.pad(b[k], more, constant_values=fill)
+    V = nh.nr_vars()
+    return layout._build_host(buckets, counts, V, V, nh.nr_bdds(), dtype, "cuda")
 
 
 def split_route(card, flush, widths=()) -> None:
-    """The cluster body against the L2 body on the layouts of ROUTE_LAYOUTS
-    (knapsack rows, H = 48, unpacked), where ``widths`` names any ((P,) or
-    (P, columns)) those alone: each forced in turns (cluster, L2, L2, cluster), the
-    cluster body at the plan's cluster size and the L2 body at the plan's
-    blocks a column G for its table, every launch held to the plain versions
-    bit for bit; the route's own choice beside them. What
-    ``layout.L2_FROM_SPLIT`` and ``layout.CLUSTER_SIZES`` rest on."""
+    """The bodies past WIDE_P against each other on the layouts of
+    ROUTE_LAYOUTS and BLOCK_ROUTE_LAYOUTS (knapsack rows, H = 48, unpacked),
+    where ``widths`` names any ((P,) or (P, columns)) those alone: each forced
+    in turns, the cluster body at the plan's cluster size and the L2 body at
+    the plan's blocks a column G for its table (cluster, L2, L2, cluster;
+    where a block holds the rows the shared-memory huge body first and last:
+    huge, L2, cluster, cluster, L2, huge), every launch held to the plain
+    versions bit for bit; the route's own choice beside them. What
+    ``layout.L2_FROM_SPLIT``, ``layout.BLOCK_ROWS_CLUSTER`` and
+    ``layout.CLUSTER_SIZES`` rest on."""
     import torch
     from bdd_tpu_torch.native import NativeHost
     from bdd_tpu_torch.solver import layout
 
-    for P, columns, coef_max, precisions in ROUTE_LAYOUTS:
+    rows = nh = None  # the rows last built, kept for the next layout of the same rows
+    for P, columns, coef_max, precisions in ROUTE_LAYOUTS + BLOCK_ROUTE_LAYOUTS:
         if widths and not {(P,), (P, columns)} & set(widths):
             continue
-        t0 = time.perf_counter()
-        nh = NativeHost(knapsack_lp(**route_rows(columns, coef_max)), "input")
-        print(f"[split] route P={P} x{columns}: {nh.nr_bdds()} BDDs built in "
-              f"{time.perf_counter() - t0:.1f} s {card}", flush=True)
+        if rows != (columns, coef_max):
+            rows, nh = (columns, coef_max), None
+            t0 = time.perf_counter()
+            nh = NativeHost(knapsack_lp(**route_rows(columns, coef_max)), "input")
+            print(f"[split] route x{columns} (coefficients up to {coef_max}): {nh.nr_bdds()} "
+                  f"BDDs built in {time.perf_counter() - t0:.1f} s {card}", flush=True)
         for dt in precisions:
             dtype = getattr(torch, dt)
             itemsize = torch.empty((), dtype=dtype).element_size()
-            host = layout.from_native_host(nh, dtype, "cuda", pack=False)
+            # a layout's widths are powers of two; the others are padded rows
+            host = (layout.from_native_host(nh, dtype, "cuda", pack=False) if P & (P - 1) == 0
+                    else padded_host(nh, P, dtype))
             geom = host.geom
             state, refs = split_state(host, nh.objective())
             bounds = split_bounds(geom, itemsize)
@@ -3771,19 +3833,22 @@ def split_route(card, flush, widths=()) -> None:
                   f"{layout.solve_bytes(shapes, itemsize)} B to solve; cluster C = "
                   f"{cluster.cluster_size}, {cluster.cluster_threads} threads, "
                   f"{layout.cluster_code_bytes(cluster.cluster_pmax)}-byte codes; L2 G = "
-                  f"{l2.l2_split} ({l2.l2_blocks} blocks); the route: {route.nr_cluster} cluster, "
-                  f"{route.nr_l2} L2 bucket(s) {card}", flush=True)
+                  f"{l2.l2_split} ({l2.l2_blocks} blocks); the route: {route.nr_huge} huge, "
+                  f"{route.nr_cluster} cluster, {route.nr_l2} L2 bucket(s) {card}", flush=True)
             reps = 100 if columns <= 16 else 40
             turns = (("cluster", cluster), ("L2", l2), ("L2", l2), ("cluster", cluster))
             if not cluster.nr_cluster:  # no cluster size holds these rows
                 turns = turns[1:2]
+            if layout.huge_fits(P, itemsize):
+                huge = layout.launch_plan(shapes, dtype, "cuda", huge_body="huge")
+                turns = (("huge", huge), ("L2", l2), ("cluster", cluster), ("cluster", cluster),
+                         ("L2", l2), ("huge", huge))
             for name, plan in turns:
                 print(f"[split] route P={P} x{columns} {dt} {name}: match; "
                       f"{split_row(split_times(geom, state, refs, plan, flush, reps), bounds)} "
                       f"{card}", flush=True)
             del host, geom, state, refs
             torch.cuda.empty_cache()
-        del nh
 
 
 def split_cluster(card, flush) -> None:

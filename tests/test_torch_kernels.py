@@ -179,13 +179,17 @@ def test_iterations_through_kernels_equal_twins(cuda_device, precision):
 
 def test_unsupported_width_raises_on_card():
     """No arc record refuses a width any more: a bucket past the wide body's
-    8,192 slots builds with four-byte arcs and goes to the huge body's table.
-    What no kernel takes is a narrow width that is no power of two (no layout
-    builds one): the launch refuses it before anything runs."""
+    8,192 slots builds with four-byte arcs and goes to the L2 body's table
+    (over its 8 columns, G = 16) or, where the plan is told so, the huge
+    body's. What no kernel takes is a narrow width that is no power of two
+    (no layout builds one): the launch refuses it before anything runs."""
     b = random_bucket(2 * layout.WIDE_P, 2, 8, np.random.RandomState(0))
     host = layout._build_host([b], np.ones(4, np.int64), 4, 4, 8, torch.float32, "cpu")
     plan = host.geom.plan
-    assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.huge_blocks) == (0, 0, 1, 8)
+    assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.nr_l2, plan.l2_blocks) == (
+        0, 0, 0, 1, 8 * 16)
+    forced = layout.launch_plan(plan.shapes, torch.float32, "cpu", huge_body="huge")
+    assert (forced.nr_huge, forced.nr_l2, forced.huge_blocks) == (1, 0, 8)
     assert plan.arc_bytes == 2 * 8 * layout.record_bytes(2 * layout.WIDE_P) == 2 * 8 * 8 * 16384
     odd, (lo, hi, fr, dl, dh) = synthetic_host([(3, 2, 8)], torch.float32, "cpu")
     with pytest.raises(ValueError, match="P=3"):
@@ -450,9 +454,11 @@ def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_c
     among the costs and deltas; with ``zero_costs`` every finite cost and
     frontier value is a zero, so every minimum is a tie of zeros. Kernel and
     twin must agree on the NaN pattern and, elsewhere, on every bit. Rows
-    past a block's shared memory that a cluster holds run on the route's
-    body (over these few columns the L2 body) and on the cluster body
-    forced, all three entries."""
+    past WIDE_P run on the route's body (over these few columns the L2 body,
+    or the cluster body for float32 rows a block holds) and on the body of
+    their width forced, all three entries: the
+    shared-memory huge body where a block holds them, else the cluster body
+    where a cluster does."""
     dtype = torch.float32 if precision == "float" else torch.float64
     host, costs = synthetic_host([shape], dtype, cuda_device, seed=sum(shape))
     lo, hi, fr, dl, dh = nan_and_zero_costs(costs, zero_costs)
@@ -475,19 +481,21 @@ def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_c
     ref_run = uf.bucket_backward_run(g, args[1], args[2])
     assert_same_bits([run], [ref_run])
     itemsize = lo.element_size()
-    if layout.huge_fits(g.P, itemsize) or not layout.cluster_fits(g.P, itemsize):
+    if g.P <= layout.WIDE_P or not layout.cluster_fits(g.P, itemsize):
         return
-    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, huge_body="huge_cluster")
-    assert plan.nr_cluster == 1 and plan.run_cluster_blocks == plan.cluster_blocks
+    force, suffix = (("huge", sk.HUGE) if layout.huge_fits(g.P, itemsize)
+                     else ("huge_cluster", sk.HUGE_CLUSTER))
+    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, huge_body=force)
+    assert plan.nr_huge + plan.nr_cluster == 1 and plan.nr_l2 == plan.nr_run_l2 == 0
     for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
                          ("uniform_backward", uf.bucket_backward_iteration)):
         launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
-        assert launch.counts == (kernel + sk.HUGE_CLUSTER,)
+        assert launch.counts == (kernel + suffix,)
         launch()
         torch.cuda.synchronize()
         assert_same_bits(out, twins_bucket_by_bucket(twin, geom, lo, hi, fr, 0.5, dl, dh))
     launch, out = sk.prepare_run_launch(geom, lo, hi, plan)
-    assert launch.counts == (sk.RUN + sk.HUGE_CLUSTER,)
+    assert launch.counts == (sk.RUN + suffix,)
     launch()
     torch.cuda.synchronize()
     assert_same_bits([out], [geom.flatten_nodes([ref_run])])
@@ -534,9 +542,10 @@ def test_one_bucket_run_equals_plain_run(cuda_device, shape, precision):
     sk.reset_launch_counts()
     out = sk.bucket_backward_run_cuda(g, lo.view(g.H, g.B), hi.view(g.H, g.B))
     torch.cuda.synchronize()
-    body = {"narrow": "", "wide": sk.WIDE, "huge": sk.HUGE, "huge_cluster": sk.HUGE_CLUSTER,
-            "huge_l2": sk.HUGE_L2}[layout.run_body_of(
-                layout.body_of(shape[0], 4 if precision == "float" else 8, shape[2]))]
+    plan = layout.launch_plan([shape], dtype, cuda_device)  # the route: by width and columns
+    body = sk.HUGE_L2 if plan.nr_run_l2 else {
+        "narrow": "", "wide": sk.WIDE, "huge": sk.HUGE}[
+            layout.body_of(shape[0], 4 if precision == "float" else 8, shape[2])]
     assert sk.LAUNCHES == {**launches(), sk.RUN + body: 1}
     assert_same_bits([out], [uf.bucket_backward_run(g, lo.view(g.H, g.B), hi.view(g.H, g.B))])
 
@@ -590,21 +599,22 @@ def test_wide_body_variants_equal_twins(cuda_device, precision, warps, stages):
 
 # ------------------------------------------------------------- huge buckets
 def test_plan_puts_huge_buckets_in_a_third_table():
-    shapes = [(2, 3, 40), (16384, 2, 3), (128, 5, 8), (8200, 4, 5), (30000, 2, 130),
+    shapes = [(2, 3, 40), (16384, 2, 40), (128, 5, 8), (8200, 4, 40), (30000, 2, 130),
               (320000, 2, 2)]
     host, _ = synthetic_host(shapes, torch.float32, "cpu")
     plan = host.geom.plan
     assert [tuple(r[:3]) for r in plan.huge_table.tolist()] == [shapes[1], shapes[3]]
     # past a block's shared memory: the 130 columns of 30,000 slots stay on
     # the cluster body (with them the L2 table's G would be 1), the rows past
-    # a cluster's take the L2 body
+    # a cluster's take the L2 body; the rows a block holds stay on the huge
+    # body (with either, G would be 3)
     assert [tuple(r[:3]) for r in plan.cluster_table.tolist()] == [shapes[4]]
     assert [tuple(r[:3]) for r in plan.l2_table.tolist()] == [shapes[5]]
     assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.nr_cluster, plan.nr_l2) == (
         1, 1, 2, 1, 1)
     # a block a column; the huge table's last column: the rows the backward
     # keeps in shared memory (two: one block an SM)
-    assert plan.huge_blocks == 8 and [r[3] for r in plan.huge_table.tolist()] == [0, 3]
+    assert plan.huge_blocks == 80 and [r[3] for r in plan.huge_table.tolist()] == [0, 40]
     # the L2 body: its two columns spread over the 132 SMs, 66 blocks each
     assert (plan.l2_split, plan.l2_columns) == (66, 2)
     assert plan.l2_blocks == 2 * 66 and [r[3] for r in plan.l2_table.tolist()] == [0]
@@ -635,14 +645,13 @@ def test_plan_puts_huge_buckets_in_a_third_table():
     assert layout.record_bytes(8193) == 8 * 8193
     # the bytes a solve works in, the number a layout too large for the card
     # names: with the L2 body's scratch as the most any plan of these buckets
-    # takes, the key rows of every bucket past a block's shared memory and
-    # the partials and counters of all their columns, at the most blocks a
-    # column a plan takes
-    E = 3 * 40 + 2 * 3 + 5 * 8 + 4 * 5 + 2 * 130 + 2 * 2
-    N = (3 * 2 * 40 + 2 * 16384 * 3 + 5 * 128 * 8 + 4 * 8200 * 5 + 2 * 30000 * 130
+    # takes, the key rows of every bucket past WIDE_P and the partials and
+    # counters of all their columns, at the most blocks a column a plan takes
+    E = 3 * 40 + 2 * 40 + 5 * 8 + 4 * 40 + 2 * 130 + 2 * 2
+    N = (3 * 2 * 40 + 2 * 16384 * 40 + 5 * 128 * 8 + 4 * 8200 * 40 + 2 * 30000 * 130
          + 2 * 320000 * 2)
-    scratch = (2 * (30000 * 130 + 320000 * 2) * 4 + 2 * layout.L2_MAX_SPLIT * 132 * 4
-               + 132 * 4)
+    scratch = (2 * (16384 * 40 + 8200 * 40 + 30000 * 130 + 320000 * 2) * 4
+               + 2 * layout.L2_MAX_SPLIT * 212 * 4 + 212 * 4)
     assert layout.solve_bytes(plan.shapes, 4) == plan.arc_bytes + E * (9 * 4 + 24) + (
         2 * N * 4 + scratch)
 
@@ -815,12 +824,13 @@ def test_plan_sends_each_width_to_its_body(P, itemsize, body):
     309,312 slots in float32 at 16 and 115,776 in float64 at 8), L2 (the
     rest; a cluster of 16 holds float64 rows up to 231,552 slots where the
     plan is told so): one table each, and the records and padding follow
-    the width alone, whichever body runs it. Past a block's shared memory
-    the columns choose too: over 5 columns (an L2 table's G of 19 and more)
-    the route gives a width the cluster body holds to the L2 body, over 132
-    (G = 1) to the cluster body, whose run takes the L2 body; ``body_of``
-    gives the width's body whatever the columns, and only the plan holds
-    the route."""
+    the width alone, whichever body runs it. Past WIDE_P the columns choose
+    too: over 5 columns (an L2 table's G of 9 and more) the route gives a
+    width a block or a cluster holds to the L2 body (float32 rows a block
+    holds to the cluster body, 5 clusters of 16), over 132 (G = 1) to the
+    body of its width, where the cluster body's run takes the L2 body and
+    the huge body's its own; ``body_of`` gives the width's body whatever the
+    columns, and only the plan holds the route."""
     dtype = torch.float32 if itemsize == 4 else torch.float64
     assert layout.body_of(P, itemsize) == body
     assert layout.huge_fits(P, itemsize) == (body not in ("huge_cluster", "huge_l2"))
@@ -828,7 +838,9 @@ def test_plan_sends_each_width_to_its_body(P, itemsize, body):
         body != "huge_l2")
     held = layout.cluster_fits(P, itemsize)  # by a cluster of 16
     assert held == (body != "huge_l2" or itemsize == 8 and P <= 231552)
-    routed = "huge_l2" if body == "huge_cluster" else body
+    routed = "huge_l2" if body == "huge_cluster" or P > layout.WIDE_P else body
+    if itemsize == 4 and body == "huge" and P > layout.WIDE_P:
+        routed = "huge_cluster"
     assert layout.body_of(P, itemsize, 5) == body
     plan = layout.launch_plan([(P, 3, 5)], dtype, "cpu")
     assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.nr_cluster, plan.nr_l2) == tuple(
@@ -838,12 +850,14 @@ def test_plan_sends_each_width_to_its_body(P, itemsize, body):
     if routed == "huge_l2":
         assert plan.l2_split == layout.choose_l2_split(5, P, 1024, 132) >= layout.L2_FROM_SPLIT
         assert (plan.nr_run_l2, plan.run_l2_split) == (1, plan.l2_split)
-    if held and not layout.huge_fits(P, itemsize):
+    if routed == "huge_cluster":  # clusters of 16; the run on the L2 body
+        assert (plan.cluster_size, plan.nr_run_l2, plan.run_cluster_blocks) == (16, 1, 0)
+    if held and P > layout.WIDE_P:
         many = layout.launch_plan([(P, 3, 132)], dtype, "cpu")
         assert layout.body_of(P, itemsize, 132) == body
-        on = body == "huge_cluster"
-        assert (many.nr_cluster, many.nr_l2, many.nr_run_l2, many.run_cluster_blocks) == (
-            int(on), int(not on), 1, 0)
+        assert (many.nr_huge, many.nr_cluster, many.nr_l2) == tuple(
+            int(body == b) for b in ("huge", "huge_cluster", "huge_l2"))
+        assert (many.nr_run_l2, many.run_cluster_blocks) == (int(body != "huge"), 0)
         # the cluster body where the plan is told so, over the same 5 columns
         plan = layout.launch_plan([(P, 3, 5)], dtype, "cpu", huge_body="huge_cluster")
         assert (plan.nr_cluster, plan.nr_l2, plan.nr_run_l2) == (1, 0, 0)
@@ -863,9 +877,13 @@ def test_plan_sends_each_width_to_its_body(P, itemsize, body):
         assert (forced.nr_cluster, forced.nr_l2) == (0, 1)
     assert layout.arc_bytes(P) == (1 if P <= layout.NARROW_P else 2 if P <= layout.WIDE_P else 4)
     assert layout.lane_pad(132, P) == (132 if P > layout.WIDE_P else 256)
-    if body == "huge":
-        assert plan.huge_pmax == P and plan.huge_threads == layout.HUGE_THREADS
-        assert max(plan.huge_smem_forward, plan.huge_smem_backward) <= layout.MAX_DYNAMIC_SMEM
+    if body == "huge":  # on the huge body: over 5 columns up to WIDE_P, over 132 past it
+        on = plan if P <= layout.WIDE_P else many
+        assert on.huge_pmax == P and on.huge_threads == layout.HUGE_THREADS
+        assert max(on.huge_smem_forward, on.huge_smem_backward) <= layout.MAX_DYNAMIC_SMEM
+        # the huge body over the 5 columns where the plan is told so, all three entries
+        forced = layout.launch_plan([(P, 3, 5)], dtype, "cpu", huge_body="huge")
+        assert (forced.nr_huge, forced.nr_l2, forced.nr_run_l2) == (1, 0, 0)
     # the wide body still takes every wide bucket where the plan is told so
     if P <= layout.WIDE_P and body == "huge":
         forced = layout.launch_plan([(P, 3, 5)], dtype, "cpu", huge_from=layout.WIDE_P + 1)
@@ -948,6 +966,123 @@ def test_route_moves_the_widest_first_and_keeps_g(itemsize, shapes, cluster, G):
     assert [tuple(r[:3]) for r in plan.run_l2_table.tolist()] == list(shapes)
     assert plan.run_cluster_blocks == 0
     assert plan.run_l2_columns == sum(B for _, H, B in shapes if H > 0)
+
+
+# ------------------------------ rows a block holds, routed by their columns
+# the L2 table's G on 132 SMs for rows past WIDE_P that a block holds, by
+# width and columns: the layouts the threshold was measured on (chip_smoke.py
+# --huge-split route: 16,384 slots in both precisions, the widest a block
+# holds, 29,016 in float32 and 19,316 in float64), the narrowest such width,
+# and 50 columns (a batch of ten mknap.t25 instances)
+BLOCK_SPLITS = {16384: {1: 16, 5: 16, 8: 16, 16: 8, 33: 4, 50: 2, 66: 2, 132: 1},
+                29016: {1: 29, 5: 26, 8: 16, 16: 8, 33: 4, 66: 2, 132: 1},
+                19316: {1: 19, 5: 19, 8: 16, 16: 8, 33: 4, 66: 2, 132: 1},
+                layout.WIDE_P + 1: {1: 9, 5: 9, 33: 4, 66: 2}}
+BLOCK_ROUTE = [(P, itemsize, columns, G)
+               for P, itemsizes in ((16384, (4, 8)), (29016, (4,)), (19316, (8,)),
+                                    (layout.WIDE_P + 1, (4, 8)))
+               for itemsize in itemsizes for columns, G in BLOCK_SPLITS[P].items()]
+
+
+@pytest.mark.parametrize("P,itemsize,columns,G", BLOCK_ROUTE,
+                         ids=lambda v: str(v))
+def test_route_sends_block_held_rows_by_their_columns(P, itemsize, columns, G):
+    """Rows past WIDE_P that a block's shared memory holds: the half-sweeps
+    take the L2 body where its G over their columns is at least
+    L2_FROM_SPLIT (33 columns and fewer) and the shared-memory huge body
+    where it is lower (50 columns and more: knapsack48's 132 rows at G = 1);
+    in float32 the cluster body (clusters of 16) instead of the L2 body where
+    the card holds a cluster of 16 for every column at once (7 off the card:
+    1 and 5 columns, mknap.t25's 5 rows of 16,384 slots among them). The
+    run-only entry takes the L2 body for the L2 and the cluster body's
+    buckets, at the G of its own table, and the huge body for its own.
+    ``body_of`` gives the width's body whatever the columns."""
+    dtype = torch.float32 if itemsize == 4 else torch.float64
+    assert layout.huge_fits(P, itemsize) and P > layout.WIDE_P
+    assert layout.body_of(P, itemsize, columns) == "huge"  # the width's
+    assert layout.choose_l2_split(columns, P, layout.HUGE_THREADS, 132) == G
+    assert layout.cluster_occupancy(itemsize, 16, layout.HUGE_THREADS,
+                                    layout.cluster_smem_bytes(P, 16, itemsize), "cpu", 132, P) == 7
+    plan = layout.launch_plan([(P, 48, columns)], dtype, "cpu")
+    if G >= layout.L2_FROM_SPLIT and itemsize == 4 and columns <= 7:
+        assert (plan.nr_huge, plan.nr_l2, plan.nr_cluster) == (0, 0, 1)
+        assert (plan.cluster_size, plan.cluster_blocks, plan.cluster_threads) == (
+            16, 16 * columns, layout.HUGE_THREADS)
+        assert plan.huge_scratch_values == 0
+        assert (plan.nr_run_l2, plan.run_l2_split, plan.run_cluster_blocks) == (1, G, 0)
+    elif G >= layout.L2_FROM_SPLIT:
+        assert (plan.nr_huge, plan.nr_l2, plan.nr_cluster) == (0, 1, 0)
+        assert (plan.l2_split, plan.l2_columns, plan.l2_blocks) == (G, columns, G * columns)
+        assert plan.huge_scratch_values == 2 * P * columns
+        assert (plan.nr_run_l2, plan.run_l2_split, plan.run_l2_blocks) == (1, G, G * columns)
+    else:
+        assert (plan.nr_huge, plan.nr_l2, plan.nr_cluster) == (1, 0, 0)
+        assert (plan.huge_blocks, plan.huge_pmax, plan.huge_threads) == (
+            columns, P, layout.HUGE_THREADS)
+        assert (plan.nr_run_l2, plan.huge_scratch_values) == (0, 0)
+    # each body where the plan is told so, all three entries
+    for force, counts in (("huge", (1, 0, 0)), ("huge_l2", (0, 0, 1)),
+                          ("huge_cluster", (0, 1, 0))):
+        forced = layout.launch_plan([(P, 48, columns)], dtype, "cpu", huge_body=force)
+        assert (forced.nr_huge, forced.nr_cluster, forced.nr_l2) == counts
+        assert forced.nr_run_l2 == counts[2] and forced.run_cluster_blocks == (
+            forced.cluster_blocks)
+
+
+@pytest.mark.parametrize("itemsize,shapes,bodies,G", [
+    # rows a cluster holds join first (8 columns: G = 16); the rows a block
+    # holds would join (13: G = 10), and take the cluster body (5 clusters of
+    # 16); the 300 columns of 2,048 float32 slots keep the huge body, alone
+    # in its table
+    (4, [(2048, 32, 300), (16384, 48, 5), (32768, 48, 8)],
+     ["huge", "huge_cluster", "huge_l2"], 16),
+    # 132 columns of 32,768 slots keep the cluster body (G = 1), so the rows
+    # a block holds find no room there (137 clusters) and join the L2 table
+    # alone (G = 16)
+    (4, [(2048, 32, 300), (16384, 48, 5), (32768, 48, 132)],
+     ["huge", "huge_l2", "huge_cluster"], 16),
+    # rows a block holds: the 3 columns of 20,000 slots, the wider, take the
+    # cluster body first (3 clusters of 16); with the 8 columns of 16,384 it
+    # would hold 11, so those join the L2 table (G = 16)
+    (4, [(16384, 48, 8), (20000, 2, 3)], ["huge_l2", "huge_cluster"], 16),
+    # beside them 200 columns of 1,024 float32 slots: on the huge table the
+    # route leaves behind (500 columns, 4 an SM, its widest block 2,048
+    # slots' less than 17 KB) they keep the huge body; with the 16,384-slot
+    # rows in it (one 131 KB block an SM) they would take the wide body
+    (4, [(2048, 32, 300), (16384, 48, 5), (32768, 48, 8), (1024, 32, 200)],
+     ["huge", "huge_cluster", "huge_l2", "huge"], 16),
+    # float64 beside rows past a cluster's (2 columns): 19,316 slots join (22
+    # columns: G = 6), then 16,384 (32: G = 4)
+    (8, [(320000, 2, 2), (16384, 48, 10), (19316, 3, 20), (2048, 32, 300)],
+     ["huge_l2", "huge_l2", "huge_l2", "huge"], 4),
+    # the rows a cluster holds join (10 columns: G = 13); the 30 columns of
+    # 16,384 slots would take G to 3 and keep the huge body
+    (8, [(30000, 2, 10), (16384, 4, 30), (2048, 3, 5)], ["huge_l2", "huge", "huge"], 13),
+])
+def test_route_by_columns_over_a_mixed_table(itemsize, shapes, bodies, G):
+    """Rows a block holds and rows a cluster holds past WIDE_P join the L2
+    table by one rule, widest first, each while G stays at least
+    L2_FROM_SPLIT (float32 rows a block holds take the cluster body instead
+    while 7 clusters of 16 hold the cluster table's columns); rows at or
+    below WIDE_P (2,048 slots) keep the body of their width, and the huge
+    table that is left is planned as a whole (``_route_huge_table``,
+    ``_huge_plan``). The run takes the L2 body for the cluster body's
+    buckets, the huge body for its own."""
+    dtype = torch.float32 if itemsize == 4 else torch.float64
+    plan = layout.launch_plan(shapes, dtype, "cpu")
+    for table, body in ((plan.huge_table, "huge"), (plan.cluster_table, "huge_cluster"),
+                        (plan.l2_table, "huge_l2"), (plan.wide_table, "wide")):
+        assert [tuple(r[:3]) for r in table.tolist()] == [
+            s for s, b in zip(shapes, bodies) if b == body]
+    assert plan.l2_split == G >= layout.L2_FROM_SPLIT
+    huge = [s for s, b in zip(shapes, bodies) if b == "huge"]
+    if huge:
+        assert plan.huge_smem_forward == max(layout.huge_smem_bytes(P, itemsize)
+                                             for P, _, _ in huge)
+        assert plan.huge_threads == layout._huge_plan(huge, itemsize, 132)[0]
+    assert [tuple(r[:3]) for r in plan.run_l2_table.tolist()] == [
+        s for s, b in zip(shapes, bodies) if b in ("huge_l2", "huge_cluster")]
+    assert plan.run_cluster_blocks == 0
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
@@ -1124,12 +1259,16 @@ def test_huge_plan_shared_memory_is_the_kernels(itemsize):
 # HUGE_FROM_F32_MANY slots, at most HUGE_F32_BLOCKS_SM columns an SM each)
 # but whose huge table as a whole would break its rule: 2,000 columns (16 an
 # SM: blocks of 64 threads), and 200 beside knapsack48's rows (whose 131 KB
-# block lets one block an SM reside)
+# block lets one block an SM reside); and few columns, where the rows of
+# 16,384 slots leave the huge table by their columns (in float32 for the
+# cluster body, 2 clusters of 16; in float64 for the L2 body, G = 16) and
+# the huge table left behind keeps the 1,024-slot rows. The float32 bodies,
+# and the buckets the float64 route moves to the L2 body
 ROUTE_TABLES = {
     "2000-columns": ([(1024, 32, 500), (1536, 40, 500), (1280, 24, 500), (1100, 36, 500)],
-                     ["wide"] * 4),
-    "beside-knapsack48": ([(1024, 32, 200), (16384, 48, 132)], ["wide", "huge"]),
-    "few-columns": ([(1024, 3, 5), (16384, 2, 2)], ["huge", "huge"]),
+                     ["wide"] * 4, 0),
+    "beside-knapsack48": ([(1024, 32, 200), (16384, 48, 132)], ["wide", "huge"], 0),
+    "few-columns": ([(1024, 3, 5), (16384, 2, 2)], ["huge", "huge_cluster"], 1),
 }
 
 
@@ -1141,14 +1280,15 @@ def test_huge_table_holds_the_route_as_a_whole(case):
     HUGE_FROM_F32_MANY slots goes back to the wide body where the table's
     columns are more an SM than that, or than its widest block lets reside.
     float64 buckets stay, and a forced ``huge_from`` still replaces the
-    route (where every one of these ran before)."""
-    shapes, bodies = ROUTE_TABLES[case]
+    route (where every one of these ran before, but those the route by
+    columns sends to another body)."""
+    shapes, bodies, on_l2 = ROUTE_TABLES[case]
     assert all(layout.body_of(P, 4, B) == "huge" for P, _, B in shapes)
     plan = layout.launch_plan(shapes, torch.float32, "cpu")
-    assert [tuple(r[:3]) for r in plan.wide_table.tolist()] == [
-        s for s, b in zip(shapes, bodies) if b == "wide"]
-    assert [tuple(r[:3]) for r in plan.huge_table.tolist()] == [
-        s for s, b in zip(shapes, bodies) if b == "huge"]
+    for table, body in ((plan.wide_table, "wide"), (plan.huge_table, "huge"),
+                        (plan.cluster_table, "huge_cluster"), (plan.l2_table, "huge_l2")):
+        assert [tuple(r[:3]) for r in table.tolist()] == [
+            s for s, b in zip(shapes, bodies) if b == body]
     cols = sum(B for _, _, B in shapes if _ < layout.HUGE_FROM_F32_MANY)
     if any(b == "huge" and P < layout.HUGE_FROM_F32_MANY for (P, _, _), b in zip(shapes, bodies)):
         assert plan.huge_threads >= layout.HUGE_THREADS // layout.HUGE_F32_BLOCKS_SM
@@ -1157,12 +1297,13 @@ def test_huge_table_holds_the_route_as_a_whole(case):
     if plan.nr_huge:
         assert plan.huge_smem_forward == max(layout.huge_smem_bytes(P, 4)
                                              for (P, _, _), b in zip(shapes, bodies) if b == "huge")
+    moved = len(shapes) - bodies.count("wide") - bodies.count("huge")
     forced = layout.launch_plan(shapes, torch.float32, "cpu", huge_from=layout.HUGE_FROM)
-    assert (forced.nr_wide, forced.nr_huge) == (0, len(shapes))
+    assert (forced.nr_wide, forced.nr_huge) == (0, len(shapes) - moved)
     if case == "2000-columns":  # the launch the four buckets got before
         assert cols == 2000 and forced.huge_threads == 64
     f64 = layout.launch_plan(shapes, torch.float64, "cpu")
-    assert (f64.nr_wide, f64.nr_huge) == (0, len(shapes))
+    assert (f64.nr_wide, f64.nr_huge, f64.nr_l2) == (0, len(shapes) - on_l2, on_l2)
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
@@ -1434,9 +1575,11 @@ def test_huge_buckets_pad_no_columns():
 @pytest.mark.parametrize("precision", ["float", "double"])
 def test_mixed_layout_counts_three_launches(cuda_device, precision):
     """Narrow, wide and huge buckets in one layout: three launches per
-    half-sweep and per run, against the twins bucket by bucket."""
+    half-sweep and per run, against the twins bucket by bucket (40 columns
+    each past WIDE_P: with either, the L2 table's G would be 3, so the route
+    keeps both on the huge body)."""
     dtype = torch.float32 if precision == "float" else torch.float64
-    shapes = [(2, 9, 70), (8200, 3, 5), (128, 5, 9), (16384, 2, 2)]
+    shapes = [(2, 9, 70), (8200, 3, 40), (128, 5, 9), (16384, 2, 40)]
     host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=4)
     geom = host.geom
     assert geom.huge_scratch is None  # both huge buckets keep their rows in shared memory
@@ -1473,7 +1616,7 @@ def test_huge_body_thread_counts_equal_twins(cuda_device, precision, threads):
     fits = WIDE_SHAPES + HUGE_SHAPES + ROUTED_SHAPES
     four = HUGE_SHAPES + [s for s in CLUSTER_SHAPES if s[0] <= layout.CLUSTER_MAX_P]
     eight = HUGE_SHAPES + CLUSTER_SHAPES
-    for shapes, force in ((fits, {"huge_from": layout.NARROW_P + 1}),
+    for shapes, force in ((fits, {"huge_from": layout.NARROW_P + 1, "huge_body": "huge"}),
                           (eight + L2_SHAPES, {"huge_body": "huge_l2"}),
                           *((four, {"huge_body": "huge_cluster", "cluster_size": C})
                             for C in layout.CLUSTER_SIZES),
@@ -1485,7 +1628,7 @@ def test_huge_body_thread_counts_equal_twins(cuda_device, precision, threads):
         if force.get("huge_body") == "huge_l2":
             assert plan.nr_huge == plan.nr_cluster == 0 and plan.nr_l2 == len(shapes)
             plan = dataclasses.replace(plan, l2_threads=threads)
-        elif "huge_body" in force:
+        elif force.get("huge_body") == "huge_cluster":
             assert plan.nr_huge == plan.nr_l2 == 0 and plan.nr_cluster == len(shapes)
             assert plan.cluster_size == force["cluster_size"]
             assert layout.cluster_code_bytes(plan.cluster_pmax) == (8 if shapes is eight else 4)
@@ -1512,26 +1655,28 @@ def test_huge_body_thread_counts_equal_twins(cuda_device, precision, threads):
 def test_huge_body_shared_memory_rows_equal_twins(cuda_device, precision):
     """The shared-memory huge body with its backward on one row and on two in
     one launch, as the plan's fit gives them: over the huge, routed, cluster
-    and L2 shapes, one row where two do not fit a block (float32 at 20,001
-    slots, float64 at 16,384), and the L2 body beside them (the route gives
-    it the cluster shapes too: their few columns).
+    and L2 shapes with the body of each width forced (the route would give
+    the L2 body every one past WIDE_P: their few columns), one row where two
+    do not fit a block (float32 at 20,001 slots, float64 at 16,384), and the
+    cluster and the L2 body beside them.
     Then the cluster body in clusters of two, where a block's share of the
     wider bucket fits one row only and the narrower one's two (float32 40,000
     and 30,000 slots, float64 30,000 and 20,001)."""
     dtype = torch.float32 if precision == "float" else torch.float64
     two_row_shapes = [(40000, 2, 2), (30000, 3, 1)] if precision == "float" else [
         (30000, 2, 2), (20001, 3, 1)]
-    for shapes, force in ((HUGE_SHAPES + ROUTED_SHAPES + CLUSTER_SHAPES + L2_SHAPES, {}),
+    for shapes, force in ((HUGE_SHAPES + ROUTED_SHAPES + CLUSTER_SHAPES + L2_SHAPES,
+                           {"huge_body": "huge"}),
                           (two_row_shapes, {"huge_body": "huge_cluster", "cluster_size": 2})):
         host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=17)
         geom = host.geom
         plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, **force)
-        if force:
+        if force["huge_body"] == "huge_cluster":
             assert plan.nr_cluster == 2 and plan.cluster_size == 2
             assert [int(r[7]) for r in plan.cluster_table.tolist()] == [1, 2]
-        else:
+        else:  # float32 holds 20,001 slots in a block, float64 in a cluster
             assert sorted(set(int(r[7]) for r in plan.huge_table.tolist())) == [1, 2]
-            assert plan.nr_cluster == 0 and plan.nr_l2 == (4 if precision == "float" else 5)
+            assert (plan.nr_cluster, plan.nr_l2) == ((3, 1) if precision == "float" else (4, 1))
         for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
                              ("uniform_backward", uf.bucket_backward_iteration)):
             launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
@@ -1776,14 +1921,78 @@ def test_float32_solve_of_the_widest_row_launches_only_the_l2_body(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["float", "double"])
+def test_mknap_t25_rows_launch_the_body_of_their_route(cuda_device, precision):
+    """The benchmark's mknap.t25 instance (five knapsack rows of 100 items,
+    tightness 0.25: 5 columns of 16,384 slots, which a block's shared memory
+    holds; 100 hops packed in float32, 112 unpacked in float64): by the route
+    the half-sweeps take the cluster body in float32 (clusters of 16, 80
+    blocks) and the L2 body in float64 (G = 16, 80 blocks), the run the L2
+    body at G = 16 in both. From a state after five twin iterations each
+    entry equals its plain version bit for bit, one launch each; 20
+    iterations through the kernels launch nothing else, run no plain
+    version, and agree with the native solver's bound after as many
+    iterations (chip_smoke's limits)."""
+    from chip_smoke import LB_REL
+    from portbench.generators import chu_beasley
+
+    dtype = torch.float32 if precision == "float" else torch.float64
+    nh = NativeHost(chu_beasley.make(dict(rows=5, items=100, tightness=0.25),
+                                     3_000_000_001).lp_text(), "input")
+    host = layout.from_native_host(nh, dtype, cuda_device)
+    geom = host.geom
+    plan = geom.plan
+    assert plan.shapes == ((16384, 100 if precision == "float" else 112, 5),)
+    body = sk.HUGE_CLUSTER if precision == "float" else sk.HUGE_L2
+    if body == sk.HUGE_CLUSTER:
+        assert (plan.nr_huge, plan.nr_cluster, plan.nr_l2) == (0, 1, 0)
+        assert (plan.cluster_size, plan.cluster_blocks) == (16, 80)
+    else:
+        assert (plan.nr_huge, plan.nr_cluster, plan.nr_l2) == (0, 0, 1)
+        assert (plan.l2_split, plan.l2_blocks) == (16, 80)
+    assert (plan.nr_run_l2, plan.run_l2_split, plan.run_cluster_blocks) == (1, 16, 0)
+    st = uf.iterations(geom, uf.init_uniform_state(host, nh.objective()), 5,
+                       sweeps=uf.TWIN_SWEEPS)
+    lo, hi, _, fr = st.flat
+    dl, dh = uf.exchange_delta_flat(geom, st.flat[2])
+    sk.reset_launch_counts()
+    calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
+    out_f = sk.forward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)
+    out_b = sk.backward_iteration_cuda(geom, out_f[0], out_f[1], out_f[3], 0.5, dl, dh)
+    run = sk.backward_run_cuda(geom, lo, hi)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == {**launches(run_huge_l2=1), "uniform_forward" + body: 1,
+                           "uniform_backward" + body: 1}
+    assert {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS} == calls
+    ref_f = twins_bucket_by_bucket(uf.bucket_forward_iteration, geom, lo, hi, fr, 0.5, dl, dh)
+    assert_same_bits(out_f, ref_f)
+    assert_same_bits(out_b, twins_bucket_by_bucket(
+        uf.bucket_backward_iteration, geom, ref_f[0], ref_f[1], ref_f[3], 0.5, dl, dh))
+    assert_same_bits([run], [run_ref(geom, lo, hi)])
+    n = 20
+    sk.reset_launch_counts()
+    calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
+    st = uf.iterations(geom, uf.init_uniform_state(host, nh.objective()), n, 0.5)
+    lb = float(uf.lower_bound_with_deferred(geom, st))
+    assert {k: v for k, v in sk.LAUNCHES.items() if v and k != sk.RUN + sk.HUGE_L2} == {
+        "uniform_forward" + body: n, "uniform_backward" + body: n}
+    assert {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS} == calls
+    cs = nh.cpu_solver()
+    cs.iterations(n, 0.5)
+    native = cs.lower_bound_with_deferred()
+    assert abs(lb - native) <= LB_REL[precision] * abs(native)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
 def test_mixed_layout_counts_one_launch_per_body(cuda_device, precision):
     """Narrow, wide, routed, huge, cluster and L2 buckets in one layout: five
     launches per half-sweep, one per body, the routed and the huge bucket in
     one, and four per run (its route takes the cluster bucket, 131 columns,
     to the L2 body); against the twins bucket by bucket, and no plain
-    version on the card."""
+    version on the card. The 33 columns of 16,384 slots stay on the huge
+    body: with them the L2 table's G would be 3."""
     dtype = torch.float32 if precision == "float" else torch.float64
-    shapes = [(2, 9, 70), (layout.HUGE_FROM, 3, 5), (128, 5, 9), (16384, 2, 2), (30000, 2, 131),
+    shapes = [(2, 9, 70), (layout.HUGE_FROM, 3, 5), (128, 5, 9), (16384, 2, 33), (30000, 2, 131),
               L2_SHAPES[0]]
     host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=5)
     geom = host.geom

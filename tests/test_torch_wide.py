@@ -180,7 +180,8 @@ def test_narrow_buckets_keep_their_one_byte_records(P):
 
 def test_widest_bucket_builds_and_sweeps_and_wider_is_refused():
     """The widest bucket of the wide body sweeps, and a wider one is no longer
-    refused: it builds with four-byte arcs into the huge body's table."""
+    refused: it builds with four-byte arcs into the L2 body's table (its 8
+    columns: G = 16) or, where the plan is told so, the huge body's."""
     P = layout.WIDE_P
     host, (lo, hi, fr, dl, dh) = synthetic_host([(P, 2, 8)], torch.float64, "cpu")
     g = host.geom.buckets[0]
@@ -193,6 +194,8 @@ def test_widest_bucket_builds_and_sweeps_and_wider_is_refused():
     host = layout._build_host([wider], np.ones(4, np.int64), 4, 4, 8, torch.float32, "cpu")
     assert host.geom.buckets[0].arcs.shape == (1, 8, 8 * 2 * P)
     plan = layout.launch_plan([(2 * P, 1, 8)], torch.float32, "cpu")
+    assert (plan.nr_wide, plan.nr_huge, plan.nr_l2, plan.l2_split) == (0, 0, 1, 16)
+    plan = layout.launch_plan([(2 * P, 1, 8)], torch.float32, "cpu", huge_body="huge")
     assert (plan.nr_wide, plan.nr_huge, plan.huge_blocks) == (0, 1, 8)
 
 
@@ -299,13 +302,17 @@ def test_huge_bucket_matches_jax_f64(P, monkeypatch):
     pg = port.geom.buckets[0]
     assert layout.arc_bytes(pg.P) == (4 if P > layout.WIDE_P else 2)
     plan = port.geom.plan
-    # past a block's shared memory one column takes the L2 body (its G is 19
-    # and more), and the cluster body where the plan is told so
-    body = "huge_l2" if P > 19316 else "huge"
+    # past WIDE_P one column takes the L2 body (its G is 9 and more), and the
+    # body of its width where the plan is told so: the huge body where a
+    # block holds the rows, else the cluster body
+    body = "huge_l2" if P > layout.WIDE_P else "huge"
     assert layout.body_of(P, 8, B) == ("huge_cluster" if P > 19316 else "huge")  # the width's
     assert plan.nr_wide == plan.nr_cluster == 0
     assert (plan.nr_huge, plan.nr_l2) == ((1, 0) if body == "huge" else (0, 1))
-    if body == "huge_l2":  # the cluster launch's slot codes: four bytes below 65,533 slots
+    if layout.WIDE_P < P <= 19316:
+        forced = layout.launch_plan(plan.shapes, torch.float64, "cpu", huge_body="huge")
+        assert (forced.nr_huge, forced.nr_l2, forced.nr_run_l2) == (1, 0, 0)
+    if P > 19316:  # the cluster launch's slot codes: four bytes below 65,533 slots
         forced = layout.launch_plan(plan.shapes, torch.float64, "cpu", huge_body="huge_cluster")
         assert forced.nr_cluster == 1
         assert layout.cluster_code_bytes(forced.cluster_pmax) == (8 if P > 65533 else 4)
