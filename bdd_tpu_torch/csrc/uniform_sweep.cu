@@ -905,6 +905,7 @@ constexpr unsigned HUGE_SLOT_MASK = (1u << 28) - 1;
 constexpr int HUGE_MAX_THREADS = 1024;
 constexpr int WIDE_P = 8192;          // two-byte records up to here
 constexpr int HUGE_SCALARS = 8;       // values a ring slot keeps for the layer (6 used)
+constexpr int HUGE_COUNT_SMEM = 16 * (HUGE_MAX_THREADS / 32);  // the counting form's static tallies
 constexpr unsigned CODE_INF = 0x7fffu;   // child code: +inf (BOT; forward, no relaxation)
 constexpr unsigned CODE_ZERO = 0x7ffeu;  // child code: 0 (TOP, or a slot outside the bucket)
 constexpr unsigned NODE_VALID = 0x8000u;
@@ -928,25 +929,6 @@ struct Arc<uint32_t> {
 __device__ __forceinline__ unsigned child_code(unsigned kind, unsigned slot, unsigned P) {
   if (kind == ARC_INTERNAL) return slot < P ? slot : CODE_ZERO;
   return kind == ARC_TOP ? CODE_ZERO : CODE_INF;
-}
-
-// min of (m0, m1) over the block, in every thread, with one barrier: each
-// warp reduces the warps' partials itself. `red` is [64] in shared memory,
-// free again once the block has passed its next barrier.
-template <typename T>
-__device__ __forceinline__ void block_min2_once(T& m0, T& m1, T* red) {
-  const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
-  const int warps = (int)blockDim.x >> 5;
-  m0 = warp_min(m0);
-  m1 = warp_min(m1);
-  if (lane == 0) {
-    red[warp] = m0;
-    red[32 + warp] = m1;
-  }
-  __syncthreads();
-  const T inf = inf_v<T>();
-  m0 = warp_min(lane < warps ? red[lane] : inf);
-  m1 = warp_min(lane < warps ? red[32 + lane] : inf);
 }
 
 // Shared memory by 32-bit shared addresses: explicit ld / st / red.shared,
@@ -998,6 +980,52 @@ __device__ __forceinline__ void red_min_shared(uint32_t a, unsigned v) {
 }
 __device__ __forceinline__ void red_min_shared(uint32_t a, unsigned long long v) {
   asm volatile("red.shared.min.u64 [%0], %1;" ::"r"(a), "l"(v) : "memory");
+}
+
+// a block barrier; TIMED (the huge body's counting form): lane 0 of each
+// warp adds its SM cycles from its arrival to its release to its warp's
+// 64-bit sum at shared address `tally` + 16 warp, keeping its clock at
+// arrival in the eight bytes after it (a store alone before the barrier:
+// nothing to wait for there, and no register of the body held across it);
+// it reads its clock first thing after the release. So the sums are what
+// each warp lost at the barrier, the last to arrive (thread 0's warp, which
+// also starts the ring slot's copies and writes the layer's outputs) and
+// those that wait on it alike.
+template <bool TIMED>
+__device__ __forceinline__ void block_sync(uint32_t tally) {
+  if constexpr (TIMED) {
+    const bool lead = (threadIdx.x & 31) == 0;
+    const uint32_t mine = tally + 16u * (threadIdx.x >> 5);
+    if (lead) st_shared(mine + 8u, (unsigned long long)clock64());
+    __syncthreads();
+    if (lead) {
+      const unsigned long long released = clock64();
+      st_shared(mine, ld_shared<unsigned long long>(mine) + released -
+                          ld_shared<unsigned long long>(mine + 8u));
+    }
+  } else {
+    __syncthreads();
+  }
+}
+
+// min of (m0, m1) over the block, in every thread, with one barrier: each
+// warp reduces the warps' partials itself. `red` is [64] in shared memory,
+// free again once the block has passed its next barrier. TIMED: the barrier
+// is timed into `tally` (block_sync).
+template <typename T, bool TIMED = false>
+__device__ __forceinline__ void block_min2_once(T& m0, T& m1, T* red, uint32_t tally = 0u) {
+  const int lane = (int)threadIdx.x & 31, warp = (int)threadIdx.x >> 5;
+  const int warps = (int)blockDim.x >> 5;
+  m0 = warp_min(m0);
+  m1 = warp_min(m1);
+  if (lane == 0) {
+    red[warp] = m0;
+    red[32 + warp] = m1;
+  }
+  block_sync<TIMED>(tally);
+  const T inf = inf_v<T>();
+  m0 = warp_min(lane < warps ? red[lane] : inf);
+  m1 = warp_min(lane < warps ? red[32 + lane] : inf);
 }
 
 // a slot's arc words as one code: both children's (a slot, 0 or +inf) and
@@ -1215,9 +1243,13 @@ __device__ __forceinline__ void copy_back(const T* fout, int P, uint32_t row) {
 // [row 0 | row 1 (backward, where the table's last column is 2) | the slot
 //  codes, pad16(4P) | 64 values of partials | two ring slots of HUGE_SCALARS
 //  values], every row pad16(P values).
-template <typename T, int MODE, typename W>
+// COUNT: the counting instantiation (sweep_huge_counted_kernel), which times
+// each warp at every barrier of a hop (the min-marginals' one, the one before
+// a single row is overwritten, the hop's last) into its sum at shared
+// address `tally` (block_sync). Without COUNT the body holds no clock read.
+template <typename T, int MODE, typename W, bool COUNT>
 __device__ __forceinline__ void huge_column(const Args<T>& a, const Bucket& bk,
-                                            unsigned char* smem, long long b) {
+                                            unsigned char* smem, long long b, uint32_t tally) {
   using K = Key<T>;
   using A = Arc<W>;
   constexpr bool FORWARD = MODE == MODE_FORWARD, RUN = MODE == MODE_BACKWARD_RUN;
@@ -1283,7 +1315,8 @@ __device__ __forceinline__ void huge_column(const Args<T>& a, const Bucket& bk,
         forward_pass<T, W, G>(rec, P, row0, codes, cft_g, has, restart, lo, hi, fout, m0, m1);
       else
         forward_pass<T, W, 1>(rec, P, row0, codes, cft_g, has, restart, lo, hi, fout, m0, m1);
-      block_min2_once(m0, m1, red);  // also: every reset and every read of cft is done
+      // also: every reset and every read of cft is done
+      block_min2_once<T, COUNT>(m0, m1, red, tally);
       hop_cost_update(lo, hi, m0, m1, a.omega_arr ? sc[5] : a.omega, sc[4], sc[2], sc[3],
                       A::flag(w_layer) != 0, nl, nh, mm);
       if (grouped)
@@ -1298,7 +1331,7 @@ __device__ __forceinline__ void huge_column(const Args<T>& a, const Bucket& bk,
           backward_pass<T, W, G>(rec, cfr, P, codes, rin, has, lo, hi, m0, m1);
         else
           backward_pass<T, W, 1>(rec, cfr, P, codes, rin, has, lo, hi, m0, m1);
-        block_min2_once(m0, m1, red);
+        block_min2_once<T, COUNT>(m0, m1, red, tally);
         hop_cost_update(lo, hi, m0, m1, a.omega_arr ? sc[5] : a.omega, sc[4], sc[2], sc[3],
                         A::flag(w_layer) != 0, nl, nh, mm);
       }
@@ -1307,7 +1340,8 @@ __device__ __forceinline__ void huge_column(const Args<T>& a, const Bucket& bk,
       else
         cft_pass<T, W, RUN, 1>(rec, P, codes, rin, has, nl, nh, fout, rout, two_rows);
       if (!two_rows) {
-        __syncthreads();  // every gather from the row is done before it is overwritten
+        // every gather from the row is done before it is overwritten
+        block_sync<COUNT>(tally);
         copy_back(fout, P, rout);
       }
     }
@@ -1319,8 +1353,8 @@ __device__ __forceinline__ void huge_column(const Args<T>& a, const Bucket& bk,
         a.out_mm[e] = mm;
       }
     }
-    cp_wait(0);       // the next hop's ring slot has landed
-    __syncthreads();  // the row is built, and this hop's ring slot is free
+    cp_wait(0);                // the next hop's ring slot has landed
+    block_sync<COUNT>(tally);  // the row is built, and this hop's ring slot is free
     if (two_rows) {
       const uint32_t swap = rin;
       rin = rout;
@@ -1329,48 +1363,137 @@ __device__ __forceinline__ void huge_column(const Args<T>& a, const Bucket& bk,
   }
 }
 
-// `launch_huge` admits only a table whose slots fit a code (the plan sends
-// no other bucket), and each block finds its body by its bucket's width
-template <typename T, int MODE>
-__global__ void __launch_bounds__(HUGE_MAX_THREADS, 1) sweep_huge_kernel(Args<T> a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// a block of the huge body: its bucket by the table, its body by the
+// bucket's width (`launch_huge` admits only a table whose slots fit a code;
+// the plan sends no other bucket)
+template <typename T, int MODE, bool COUNT>
+__device__ __forceinline__ void huge_block(const Args<T>& a, unsigned char* smem,
+                                           uint32_t tally) {
   int k = 0;
   while (k + 1 < a.nr_buckets && (long long)blockIdx.x >= a.table[k + 1].first_block) ++k;
   const Bucket bk = a.table[k];
   const long long b = (long long)blockIdx.x - bk.first_block;  // the column
   if (bk.P <= WIDE_P)
-    huge_column<T, MODE, uint16_t>(a, bk, smem, b);
+    huge_column<T, MODE, uint16_t, COUNT>(a, bk, smem, b, tally);
   else
-    huge_column<T, MODE, uint32_t>(a, bk, smem, b);
+    huge_column<T, MODE, uint32_t, COUNT>(a, bk, smem, b, tally);
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(HUGE_MAX_THREADS, 1) sweep_huge_kernel(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  huge_block<T, MODE, false>(a, smem, 0u);
+}
+
+// the counting form: it adds its warps' summed wait at the hop barriers and
+// its warps' SM cycles from the block's start to its end (the block's cycles
+// times its warps) to acc[0] and acc[1], thread 0 by one atomic each (the
+// start's clock subtracted at the start, the end's added at the end). Each
+// warp keeps its sum and its clock at a barrier's arrival in static shared
+// memory, whose address is a constant: in registers (or in the dynamic
+// layout, whose addresses are not) thread 0's alone slowed the backward by up
+// to a fifth (PERF.md section 6). The same launch bounds as the body's own,
+// so the compiler holds it to the same registers (64 a thread).
+template <typename T, int MODE>
+__global__ void __launch_bounds__(HUGE_MAX_THREADS, 1)
+    sweep_huge_counted_kernel(Args<T> a, unsigned long long* acc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // a warp's: the sum; a clock at arrival
+  __shared__ unsigned long long tally[HUGE_COUNT_SMEM / 8];
+  const unsigned long long warps = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) tally[2 * (threadIdx.x >> 5)] = 0ull;
+  if (threadIdx.x == 0) atomicAdd(acc + 1, 0ull - warps * (unsigned long long)clock64());
+  huge_block<T, MODE, true>(a, smem, smem_addr(tally));
+  __syncthreads();  // every warp's sum is in
+  if (threadIdx.x == 0) {
+    const unsigned long long end = clock64();
+    unsigned long long wait = 0ull;
+    for (unsigned w = 0; w < warps; ++w) wait += tally[2 * w];
+    atomicAdd(acc, wait);
+    atomicAdd(acc + 1, warps * end);
+  }
+}
+
+// the huge body's kernel, or with COUNT its counting form
+template <typename T, int MODE, bool COUNT>
+auto huge_kernel() {
+  if constexpr (COUNT) return sweep_huge_counted_kernel<T, MODE>;
+  else return sweep_huge_kernel<T, MODE>;
+}
+
+// the dynamic shared memory a block of the huge body (COUNT: of its counting
+// form, whose static tallies count against a block's) may take
+template <bool COUNT>
+constexpr int huge_max_smem() {
+  return MAX_DYNAMIC_SMEM - (COUNT ? HUGE_COUNT_SMEM : 0);
+}
+
+// above 48 KB a kernel must ask for its shared memory, once
+template <typename T, int MODE, bool COUNT>
+int huge_opt_in() {
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        huge_kernel<T, MODE, COUNT>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+        huge_max_smem<COUNT>());
+    if (rc != cudaSuccess) return (int)rc;
+    opted_in = true;
+  }
+  return 0;
+}
+
+// the blocks of `threads` threads and `smem_bytes` of dynamic shared memory
+// of the huge body (COUNT: of its counting form) an SM holds at once, the
+// least over its three entries (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// into *blocks; 0 where a block may not take `smem_bytes`
+template <typename T, bool COUNT>
+int huge_occupancy(int threads, int smem_bytes, int* blocks) {
+  *blocks = 0;
+  if (smem_bytes > huge_max_smem<COUNT>()) return 0;
+  int rc = huge_opt_in<T, MODE_FORWARD, COUNT>();
+  if (rc == 0) rc = huge_opt_in<T, MODE_BACKWARD, COUNT>();
+  if (rc == 0) rc = huge_opt_in<T, MODE_BACKWARD_RUN, COUNT>();
+  int n[3] = {0, 0, 0};
+  if (rc == 0)
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n[0], huge_kernel<T, MODE_FORWARD, COUNT>(), threads, smem_bytes);
+  if (rc == 0)
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n[1], huge_kernel<T, MODE_BACKWARD, COUNT>(), threads, smem_bytes);
+  if (rc == 0)
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n[2], huge_kernel<T, MODE_BACKWARD_RUN, COUNT>(), threads, smem_bytes);
+  *blocks = n[0] < n[1] ? (n[0] < n[2] ? n[0] : n[2]) : (n[1] < n[2] ? n[1] : n[2]);
+  return rc;
 }
 
 // as `launch`, over the table of the shared-memory huge body: one block of
 // `threads` threads a column, `pmax` the widest bucket, `smem_bytes` of
-// dynamic shared memory a block
-template <typename T, int MODE>
+// dynamic shared memory a block. COUNT: the counting form, into the pair
+// `acc` (the blocks' barrier wait, their cycles).
+template <typename T, int MODE, bool COUNT = false>
 int launch_huge(const void* table, int nr_buckets, int nr_blocks, int threads, int pmax,
                 int smem_bytes, const void* arcs, const void* lo, const void* hi,
                 const void* din_lo, const void* din_hi, const void* alpha, const void* omega_arr,
                 double omega, const void* frontier, void* out_lo, void* out_hi, void* out_mm,
-                void* out_frontier, void* stream) {
+                void* out_frontier, void* stream, unsigned long long* acc = nullptr) {
   if (nr_blocks == 0) return 0;
+  if (COUNT && acc == nullptr) return -1;
   if (threads < 32 || threads > HUGE_MAX_THREADS || threads % 32 || pmax >= (int)CODE_ZERO)
     return -2;
-  if (smem_bytes < 1 || smem_bytes > MAX_DYNAMIC_SMEM) return -1;
-  static bool opted_in = false;  // above 48 KB a kernel must ask, once
-  if (!opted_in) {
-    const cudaError_t rc =
-        cudaFuncSetAttribute(sweep_huge_kernel<T, MODE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_DYNAMIC_SMEM);
-    if (rc != cudaSuccess) return (int)rc;
-    opted_in = true;
-  }
+  if (smem_bytes < 1 || smem_bytes > huge_max_smem<COUNT>()) return -1;
+  const int rc = huge_opt_in<T, MODE, COUNT>();
+  if (rc != 0) return rc;
   const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
                   (const T*)lo,         (const T*)hi,       (const T*)din_lo,
                   (const T*)din_hi,     (const T*)alpha,    (const T*)omega_arr,
                   (T)omega,             (const T*)frontier, (T*)out_lo,
                   (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
-  sweep_huge_kernel<T, MODE><<<nr_blocks, threads, smem_bytes, (cudaStream_t)stream>>>(a);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if constexpr (COUNT)
+    sweep_huge_counted_kernel<T, MODE><<<nr_blocks, threads, smem_bytes, s>>>(a, acc);
+  else
+    sweep_huge_kernel<T, MODE><<<nr_blocks, threads, smem_bytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -2559,6 +2682,30 @@ SWEEP_ENTRY(uniform_backward_huge_f64, launch_huge, double, MODE_BACKWARD)
 SWEEP_ENTRY(uniform_backward_run_huge_f32, launch_huge, float, MODE_BACKWARD_RUN)
 SWEEP_ENTRY(uniform_backward_run_huge_f64, launch_huge, double, MODE_BACKWARD_RUN)
 
+// the counting forms of the shared-memory huge body's entries: the same
+// arguments, and before the stream `acc`, the pair of 64-bit accumulators
+// (the blocks' barrier wait, their cycles)
+#define HUGE_SMEM_COUNT_ENTRY(NAME, T, MODE)                                            \
+  extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks, int tile,      \
+                      int pmax, int smem_bytes, const void* arcs, const void* lo,      \
+                      const void* hi, const void* din_lo, const void* din_hi,          \
+                      const void* alpha, const void* omega_arr, double omega,          \
+                      const void* frontier, void* out_lo, void* out_hi, void* out_mm,  \
+                      void* out_frontier, void* acc, void* stream) {                   \
+    return launch_huge<T, MODE, true>(table, nr_buckets, nr_blocks, tile, pmax,         \
+                                      smem_bytes, arcs, lo, hi, din_lo, din_hi, alpha,  \
+                                      omega_arr, omega, frontier, out_lo, out_hi,       \
+                                      out_mm, out_frontier, stream,                     \
+                                      (unsigned long long*)acc);                        \
+  }
+
+HUGE_SMEM_COUNT_ENTRY(uniform_forward_huge_count_f32, float, MODE_FORWARD)
+HUGE_SMEM_COUNT_ENTRY(uniform_forward_huge_count_f64, double, MODE_FORWARD)
+HUGE_SMEM_COUNT_ENTRY(uniform_backward_huge_count_f32, float, MODE_BACKWARD)
+HUGE_SMEM_COUNT_ENTRY(uniform_backward_huge_count_f64, double, MODE_BACKWARD)
+HUGE_SMEM_COUNT_ENTRY(uniform_backward_run_huge_count_f32, float, MODE_BACKWARD_RUN)
+HUGE_SMEM_COUNT_ENTRY(uniform_backward_run_huge_count_f64, double, MODE_BACKWARD_RUN)
+
 // the L2 body's entries: (table, nr_buckets, nr_blocks, threads, split,
 // nr_columns, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, omega, frontier
 // in, out_lo, out_hi, out_mm, frontier out, rows, partials, counters, stream)
@@ -2643,6 +2790,21 @@ extern "C" int uniform_huge_cluster_occupancy_f32(int cluster, int threads, int 
 extern "C" int uniform_huge_cluster_occupancy_f64(int cluster, int threads, int smem_bytes,
                                                   int pmax, int* clusters) {
   return cluster_occupancy<double>(cluster, threads, smem_bytes, pmax, clusters);
+}
+// (threads, smem_bytes, blocks out): the blocks of the shared-memory huge
+// body, and of its counting form, an SM holds at once (the wrapper counts
+// only where the counting form holds as many as the body)
+extern "C" int uniform_huge_occupancy_f32(int threads, int smem_bytes, int* blocks) {
+  return huge_occupancy<float, false>(threads, smem_bytes, blocks);
+}
+extern "C" int uniform_huge_occupancy_f64(int threads, int smem_bytes, int* blocks) {
+  return huge_occupancy<double, false>(threads, smem_bytes, blocks);
+}
+extern "C" int uniform_huge_count_occupancy_f32(int threads, int smem_bytes, int* blocks) {
+  return huge_occupancy<float, true>(threads, smem_bytes, blocks);
+}
+extern "C" int uniform_huge_count_occupancy_f64(int threads, int smem_bytes, int* blocks) {
+  return huge_occupancy<double, true>(threads, smem_bytes, blocks);
 }
 // (threads, blocks out): the blocks of the L2 body an SM holds at once
 // (solver/layout.py sizes the blocks a column from the answer)

@@ -447,6 +447,32 @@ def cluster_fits(P: int, itemsize: int, C: int = max(CLUSTER_SIZES)) -> bool:
     return cluster_smem_bytes(P, C, itemsize) <= MAX_DYNAMIC_SMEM
 
 
+def huge_occupancy(itemsize: int, threads: int, smem: int, device,
+                   counting: bool = False) -> int:
+    """Blocks of ``threads`` threads and ``smem`` bytes of dynamic shared
+    memory of the shared-memory huge body (``counting``: of its counting
+    entries) that an SM holds at once: on the card its own answer
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, the least over the
+    three entries; 0 where a block may not take ``smem``); off it an
+    estimate by the kernel's register bound: HUGE_THREADS // threads."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        import ctypes
+
+        from bdd_tpu_torch import _build
+
+        out = ctypes.c_int(0)
+        name = "uniform_huge_count_occupancy" if counting else "uniform_huge_occupancy"
+        fn = getattr(_build.load(), f"{name}_f{8 * itemsize}")
+        with torch.cuda.device(device):
+            rc = fn(threads, smem, ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed (code {rc}) "
+                               f"for the huge body at {threads} threads and {smem} B a block")
+        return out.value
+    return max(1, HUGE_THREADS // threads)
+
+
 def l2_occupancy(itemsize: int, threads: int, device, counting: bool = False) -> int:
     """Blocks of ``threads`` threads of the L2 body (``counting``: of its
     counting entries) that an SM holds at once: on the card its own answer

@@ -54,6 +54,18 @@ entries hold fewer blocks an SM than the body's own (which G comes from),
 the launch runs uncounted. ``l2_wait_cycles`` reads the sums, and
 ``L2_COUNTED`` counts by entry the launches that took the counting entry
 (``LAUNCHES`` counts them under ``_huge_l2`` with the others).
+
+``HUGE_WAIT`` counts the shared-memory huge body's wait at its block
+barriers: while a profiler records, one launch of an entry in every
+HUGE_COUNT_EVERY (the first included; ``HUGE_PROFILED`` counts them) takes
+the body's counting entry (``_count``, kernel ``sweep_huge_counted_kernel``),
+which adds each warp's SM cycles from its arrival to its release at each
+hop's block barriers and the warps' SM cycles from the block's start to its
+end, where the counting entries hold as many blocks an SM as the body's own
+(``layout.huge_occupancy``). The counting entry runs slower than the body's
+own (PERF.md section 6), so a traced slice takes it only that often.
+``huge_wait_cycles`` reads the sums (``LAUNCHES`` counts the launches under
+``_huge``).
 """
 from __future__ import annotations
 
@@ -68,6 +80,7 @@ from bdd_tpu_torch.solver.layout import (
     BucketGeom,
     LaunchPlan,
     UniformGeom,
+    huge_occupancy,
     huge_scratch,
     l2_occupancy,
     launch_plan,
@@ -83,10 +96,13 @@ HUGE_CLUSTER = "_huge_cluster"  # its cluster form (rows past a block's, within 
 HUGE_L2 = "_huge_l2"  # the same for its L2 form (rows past a cluster's shared memory)
 BODIES = ("", WIDE, HUGE, HUGE_CLUSTER, HUGE_L2)
 LAUNCHES = {kernel + body: 0 for kernel in KERNELS + (RUN,) for body in BODIES}
-L2_ENTRIES = KERNELS + (RUN,)  # the rows of an L2_WAIT tensor
+L2_ENTRIES = KERNELS + (RUN,)  # the rows of an L2_WAIT or HUGE_WAIT tensor
 # per device: int64 [3, 2], a row an entry of L2_ENTRIES: (barrier wait, block cycles)
 L2_WAIT: Dict[torch.device, torch.Tensor] = {}
+HUGE_WAIT: Dict[torch.device, torch.Tensor] = {}  # the same, of the huge body
 L2_COUNTED = {kernel: 0 for kernel in L2_ENTRIES}  # launches of the counting entries
+HUGE_COUNT_EVERY = 50  # a profiled launch of the huge body in this many takes its counting entry
+HUGE_PROFILED = {kernel: 0 for kernel in L2_ENTRIES}  # huge launches made under a profiler
 _COUNTING_FITS: Dict[tuple, bool] = {}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -94,36 +110,48 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    for k in L2_COUNTED:
-        L2_COUNTED[k] = 0
-    for t in L2_WAIT.values():
+    for k in L2_ENTRIES:
+        L2_COUNTED[k] = HUGE_PROFILED[k] = 0
+    for t in (*L2_WAIT.values(), *HUGE_WAIT.values()):
         t.zero_()
 
 
-def _l2_wait(device: torch.device) -> torch.Tensor:
-    t = L2_WAIT.get(device)
+def _wait_acc(sums: Dict[torch.device, torch.Tensor], kernel: str, device: torch.device) -> int:
+    """The address of ``kernel``'s row of the device's tensor in ``sums``
+    (``L2_WAIT`` or ``HUGE_WAIT``), made on first use."""
+    t = sums.get(device)
     if t is None:
-        t = L2_WAIT[device] = torch.zeros((len(L2_ENTRIES), 2), dtype=torch.int64, device=device)
-    return t
+        t = sums[device] = torch.zeros((len(L2_ENTRIES), 2), dtype=torch.int64, device=device)
+    return t.data_ptr() + L2_ENTRIES.index(kernel) * t.stride(0) * t.element_size()
 
 
-def l2_wait_cycles() -> Dict[str, Tuple[int, int]]:
-    """(barrier wait, block cycles) of the L2 body's counted launches by
-    entry, summed over the devices (SM cycles; a read on the host)."""
+def _wait_cycles(sums: Dict[torch.device, torch.Tensor]) -> Dict[str, Tuple[int, int]]:
     out = {k: (0, 0) for k in L2_ENTRIES}
-    for t in L2_WAIT.values():
+    for t in sums.values():
         for k, (wait, cycles) in zip(L2_ENTRIES, t.tolist()):
             out[k] = (out[k][0] + wait, out[k][1] + cycles)
     return out
 
 
-def _counting_fits(itemsize: int, threads: int, device: torch.device) -> bool:
-    """Whether the L2 body's counting entries hold as many blocks an SM as
-    its own entries, from which the plan took G."""
-    key = (itemsize, threads, device)
+def l2_wait_cycles() -> Dict[str, Tuple[int, int]]:
+    """(barrier wait, block cycles) of the L2 body's counted launches by
+    entry, summed over the devices (SM cycles; a read on the host)."""
+    return _wait_cycles(L2_WAIT)
+
+
+def huge_wait_cycles() -> Dict[str, Tuple[int, int]]:
+    """(barrier wait, block cycles) of the shared-memory huge body's counted
+    launches by entry, summed over the devices (SM cycles; a read on the host)."""
+    return _wait_cycles(HUGE_WAIT)
+
+
+def _counting_fits(occupancy, *args) -> bool:
+    """Whether a body's counting entries hold as many blocks an SM as its own
+    entries, by which the plan placed the body: ``occupancy`` is
+    ``l2_occupancy`` or ``huge_occupancy``, asked of ``args``."""
+    key = (occupancy.__name__, *args)
     if key not in _COUNTING_FITS:
-        _COUNTING_FITS[key] = (l2_occupancy(itemsize, threads, device, counting=True)
-                               >= l2_occupancy(itemsize, threads, device))
+        _COUNTING_FITS[key] = (occupancy(*args, counting=True) >= occupancy(*args))
     return _COUNTING_FITS[key]
 
 
@@ -169,7 +197,9 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
     forward reads, and the partials and counters of the column barriers,
     which every entry needs where the plan splits a column. A launch made
     while a profiler records takes the L2 body's counting entry, where it
-    fits (``L2_WAIT``), and counts itself in ``L2_COUNTED``."""
+    fits (``L2_WAIT``; counted in ``L2_COUNTED``), and one in every
+    HUGE_COUNT_EVERY the huge body's, where it fits (``HUGE_WAIT``; counted
+    in ``HUGE_PROFILED``)."""
     suffix = _suffix(lo.dtype)
     if isinstance(omega, torch.Tensor) and omega.dim() > 0:
         omega_arr, omega_val = omega, 0.0
@@ -223,21 +253,35 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
             base, base + parts, base + counters, buffers[-1])))
     calls = [(name, getattr(lib, f"{name}_{suffix}"), args) for name, args in calls]
     keep = (plan, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, frontier, outs, scratch)
-    counting = False
-    if l2_blocks:  # the L2 call is the last one
-        wait = _l2_wait(lo.device)
-        acc = wait.data_ptr() + L2_ENTRIES.index(kernel) * wait.stride(0) * wait.element_size()
-        # asked here and not in a traced launch: the card's first answer
-        # loads the counting entries
-        counting = _counting_fits(lo.element_size(), plan.l2_threads, lo.device)
+    # the launches that take their counting entry under a profiler, by body:
+    # (index into calls, the address of the entry's accumulators). Asked
+    # here and not in a traced launch: the card's first answer loads the
+    # counting entries.
+    itemsize = lo.element_size()
+    counting = {}
+    if plan.huge_blocks and all(
+            _counting_fits(huge_occupancy, itemsize, plan.huge_threads, smem, lo.device)
+            for smem in (plan.huge_smem_forward, plan.huge_smem_backward)):
+        counting[HUGE] = ([n for n, _, _ in calls].index(kernel + HUGE),
+                          _wait_acc(HUGE_WAIT, kernel, lo.device))
+    if l2_blocks and _counting_fits(l2_occupancy, itemsize, plan.l2_threads, lo.device):
+        # the L2 call is the last one
+        counting[HUGE_L2] = (len(calls) - 1, _wait_acc(L2_WAIT, kernel, lo.device))
 
     def launch() -> None:
         todo = calls
         if counting and torch._C._autograd._profiler_enabled():
-            name, _, args = calls[-1]
-            todo = calls[:-1] + [(name, getattr(lib, f"{name}_count_{suffix}"),
-                                  args[:-1] + (acc, args[-1]))]
-            L2_COUNTED[kernel] += 1
+            todo = list(calls)
+            for body, (i, acc) in counting.items():
+                if body == HUGE:
+                    HUGE_PROFILED[kernel] += 1
+                    if (HUGE_PROFILED[kernel] - 1) % HUGE_COUNT_EVERY:
+                        continue
+                else:
+                    L2_COUNTED[kernel] += 1
+                name, _, args = calls[i]
+                todo[i] = (name, getattr(lib, f"{name}_count_{suffix}"),
+                           args[:-1] + (acc, args[-1]))
         for name, fn, args in todo:
             rc = fn(*args)
             if rc != 0:

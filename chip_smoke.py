@@ -48,7 +48,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      them, beside the wide body ("[huge] crossover": forward, backward, run,
      both precisions, every launch held to the plain versions; P = 256 to
      4,096 and more columns: --huge-split columns), with 20 counted
-     iterations; knapsack48 and knapsack32 in one layout (one huge table of
+     iterations; the huge body's counting entries on knapsack48 and on the
+     benchmark's gap_d60900.dual layout (60 rows of 1,024 slots over 900
+     hops), bit for bit against the uncounted launches and timed beside
+     them; knapsack48 and knapsack32 in one layout (one huge table of
      388 columns); 132 rows of 48
      variables with coefficients up to 2,000 (P = 32,768, past a block's
      shared memory) on the cluster body (a cluster of blocks a column, the
@@ -847,7 +850,6 @@ L2_WIDE_ROWS = dict(nr_vars=96, nr_rows=8, row_len=48, coef_max=4000)
 L2_WIDEST_ROWS = dict(nr_vars=48, nr_rows=1, row_len=48, coef_max=16000)
 HUGE_ITERS = 100  # cut from 200 (PR 8): the native solver's share of the phase
 PATH_ITERS = 20  # iterations of the knapsack32 and L2 paths, counted for the kernels line
-HUGE_L2_COUNT = HUGE_L2 + "_count"  # the L2 body's counting entries in errs, times and the kernels line
 COUNTED_REPS = 40  # launches a counting entry and its uncounted one are each timed over
 # the benchmark's mknap.t50.dual instance (portbench/configs/mknap_cb1.json,
 # tightness 0.5): 5 rows of 32,768 slots on the L2 body at G = 26
@@ -857,6 +859,10 @@ MKNAP_T50 = dict(rows=5, items=100, tightness=0.5)
 # by their columns, their run on the L2 body
 MKNAP_T25 = dict(rows=5, items=100, tightness=0.25)
 MKNAP_SEED = 3_000_000_001
+# the benchmark's gap_d60900.dual instance (portbench/configs/gap_d60900.json):
+# 60 capacity rows of 1,024 slots over 900 hops on the shared-memory huge
+# body (64 blocks), 900 assignment rows on the narrow body
+GAP_D60900 = dict(agents=60, jobs=900, type="D")
 
 
 def merged_lp(*lps: str) -> str:
@@ -989,17 +995,21 @@ def same_bits(a, b) -> bool:
     return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
 
 
-def counted_vs_plain(label, host, objective, card, errs, times, reps=COUNTED_REPS) -> dict:
-    """The L2 body's counting entries (``_count``: the launch the wrapper
-    takes while a profiler records) on a layout that has L2 blocks, under a
+def counted_vs_plain(label, host, objective, card, errs, times, reps=COUNTED_REPS,
+                     body=HUGE_L2) -> dict:
+    """A body's counting entries (``_count``: the launch the wrapper takes
+    while a profiler records), the L2 body's (``body`` HUGE_L2) or the
+    shared-memory huge body's (HUGE; every profiled launch counted here,
+    HUGE_COUNT_EVERY = 1), on a layout that has blocks of it, under a
     CPU-only torch.profiler: the fused forward and backward from the state of
-    five iterations and the run-only entry, each L2 entry the plan has,
-    against the plain versions at TOL and bit for bit against the uncounted
-    launch; the barrier wait 0 where a column has one block and strictly
-    between 0 and the block cycles where it has more; one launch each of the
-    counting entries counted in ``sweep_kernels.L2_COUNTED``; each timed
-    beside the uncounted launch. Returns the path of the kernels line
-    (suffix HUGE_L2_COUNT)."""
+    five iterations and the run-only entry, each entry of the body the plan
+    has, against the plain versions at TOL and bit for bit against the
+    uncounted launch; the barrier wait strictly between 0 and the block
+    cycles, except on the L2 body where a column has one block (0 there); one
+    launch each of the counting entries counted (``L2_COUNTED`` /
+    ``HUGE_PROFILED``); each timed beside the uncounted launch in turns
+    (uncounted, counted, counted, uncounted). Returns the path of the kernels
+    line (suffix ``body`` + "_count")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from bdd_tpu_torch.solver import layout
@@ -1027,56 +1037,100 @@ def counted_vs_plain(label, host, objective, card, errs, times, reps=COUNTED_REP
     ref_run = [geom.flatten_nodes([uf.bucket_backward_run(g, a, b) for g, a, b in zip(
         geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])]
     shapes = bdd_shapes(geom.buckets)
+    if body == HUGE:  # a block a column, in all three entries
+        blocks = (plan.huge_blocks, plan.huge_blocks)
+        splits = (1, 1)
+        counted_of, wait_of = sk.HUGE_PROFILED, sk.huge_wait_cycles
+    else:
+        blocks = (plan.l2_blocks, plan.run_l2_blocks)
+        splits = (plan.l2_split, plan.run_l2_split)
+        counted_of, wait_of = sk.L2_COUNTED, sk.l2_wait_cycles
     entries = []
-    if plan.l2_blocks:
+    if blocks[0]:
         entries += [
-            ("uniform_forward", plan.l2_split, ref_f, launch_bytes(shapes, itemsize, True),
+            ("uniform_forward", splits[0], ref_f, launch_bytes(shapes, itemsize, True),
              sk.prepare_fused_launch("uniform_forward", geom, lo, hi, cft, 0.5, dl, dh)),
-            ("uniform_backward", plan.l2_split, ref_b, launch_bytes(shapes, itemsize, False),
+            ("uniform_backward", splits[0], ref_b, launch_bytes(shapes, itemsize, False),
              sk.prepare_fused_launch("uniform_backward", geom, ref_f[0], ref_f[1], ref_f[3],
                                      0.5, dl, dh))]
-    if plan.run_l2_blocks:
-        entries.append((RUN, plan.run_l2_split, ref_run, run_bytes(shapes, itemsize),
+    if blocks[1]:
+        entries.append((RUN, splits[1], ref_run, run_bytes(shapes, itemsize),
                         sk.prepare_run_launch(geom, lo, hi)))
     if not entries:
-        fail(f"{label} {dt}: no L2 block in the plan")
+        fail(f"{label} {dt}: no {body[1:]} block in the plan")
     entry = times.setdefault((f"{label} counted", dt), {})
+    suffix = body + "_count"
     launches, row = {}, []
-    for name, split, ref, nbytes, (launch, out) in entries:
-        outs = [out] if name == RUN else list(out)
-        launch()
-        torch.cuda.synchronize()
-        uncounted = [o.clone() for o in outs]
-        uncounted_ms = cuda_ms(launch, reps)
-        key = name + HUGE_L2_COUNT
-        n0, (w0, c0) = sk.L2_COUNTED[name], sk.l2_wait_cycles()[name]
-        with profile(activities=[ProfilerActivity.CPU]):
+    every = sk.HUGE_COUNT_EVERY
+    sk.HUGE_COUNT_EVERY = 1
+    try:
+        for name, split, ref, nbytes, (launch, out) in entries:
+            outs = [out] if name == RUN else list(out)
             launch()
             torch.cuda.synchronize()
-            n1, (w1, c1) = sk.L2_COUNTED[name], sk.l2_wait_cycles()[name]
-            counted_ms = cuda_ms(launch, reps)
-        wait, cycles = w1 - w0, c1 - c0
-        if n1 - n0 != 1:
-            fail(f"{label} {dt} {name}: {n1 - n0} counting launches under the profiler, not 1 "
-                 f"(the counting entries hold fewer blocks an SM than the body's?)")
-        errs[key] = max(errs.get(key, 0.0), compare(outs, ref, TOL[dt]))
-        if not all(same_bits(a, b) for a, b in zip(outs, uncounted)):
-            fail(f"{label} {dt} {name}: the counting launch differs from the uncounted one")
-        if not (cycles > 0 and (wait == 0 if split == 1 else 0 < wait < cycles)):
-            fail(f"{label} {dt} {name}: barrier wait {wait} of {cycles} block cycles at "
-                 f"{split} block(s) a column")
-        launches[key] = n1 - n0
-        entry[name] = {"ms": counted_ms, "cold_ms": None, "plain_ms": None, "bytes": nbytes,
-                       "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "uncounted_ms": uncounted_ms,
-                       "wait_pct": 100.0 * wait / cycles}
-        row.append(f"{name} at {split} a column: wait {100.0 * wait / cycles:.2f}% of "
-                   f"{cycles} block cycles, counted {counted_ms:.4f} ms against "
-                   f"{uncounted_ms:.4f} uncounted ({100.0 * (counted_ms / uncounted_ms - 1):+.2f}%)")
-    print(f"[counted] {label} {dt} L2 counting entries under a CPU-only profiler: match the "
-          f"plain versions and the uncounted launches bit for bit; {'; '.join(row)} {card}",
+            uncounted = [o.clone() for o in outs]
+            key = name + suffix
+            n0, (w0, c0) = counted_of[name], wait_of()[name]
+            with profile(activities=[ProfilerActivity.CPU]):
+                launch()
+                torch.cuda.synchronize()
+                n1, (w1, c1) = counted_of[name], wait_of()[name]
+            wait, cycles = w1 - w0, c1 - c0
+            if n1 - n0 != 1:
+                fail(f"{label} {dt} {name}: {n1 - n0} counting launches under the profiler, "
+                     f"not 1 (the counting entries hold fewer blocks an SM than the body's?)")
+            errs[key] = max(errs.get(key, 0.0), compare(outs, ref, TOL[dt]))
+            if not all(same_bits(a, b) for a, b in zip(outs, uncounted)):
+                fail(f"{label} {dt} {name}: the counting launch differs from the uncounted one")
+            if not (cycles > 0 and (wait == 0 if body == HUGE_L2 and split == 1
+                                    else 0 < wait < cycles)):
+                fail(f"{label} {dt} {name}: barrier wait {wait} of {cycles} block cycles at "
+                     f"{split} block(s) a column")
+            turns = {"uncounted": [cuda_ms(launch, reps)]}
+            with profile(activities=[ProfilerActivity.CPU]):
+                turns["counted"] = [cuda_ms(launch, reps), cuda_ms(launch, reps)]
+            turns["uncounted"].append(cuda_ms(launch, reps))
+            counted_ms, uncounted_ms = (sum(turns[k]) / 2 for k in ("counted", "uncounted"))
+            cost = 100.0 * (counted_ms / uncounted_ms - 1)
+            launches[key] = n1 - n0
+            entry[name] = {"ms": counted_ms, "cold_ms": None, "plain_ms": None, "bytes": nbytes,
+                           "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                           "uncounted_ms": uncounted_ms, "wait_pct": 100.0 * wait / cycles}
+            row.append(f"{name} at {split} a column: wait {100.0 * wait / cycles:.2f}% of "
+                       f"{cycles} cycles, counted {counted_ms:.4f} ms against {uncounted_ms:.4f} "
+                       f"uncounted ({cost:+.2f}%"
+                       + (f"; {cost / every:+.3f}% of the body's time at one launch in {every}"
+                          if body == HUGE else "") + ")")
+    finally:
+        sk.HUGE_COUNT_EVERY = every
+    print(f"[counted] {label} {dt} {body[1:]} counting entries under a CPU-only profiler: match "
+          f"the plain versions and the uncounted launches bit for bit; {'; '.join(row)} {card}",
           flush=True)
-    return {"at": f"{label} counted", "dt": dt, "suffix": HUGE_L2_COUNT, "launches": launches,
+    return {"at": f"{label} counted", "dt": dt, "suffix": suffix, "launches": launches,
             "iterations": 0, "entries": tuple(name for name, *_ in entries)}
+
+
+def gap_counted(card, errs, times) -> dict:
+    """The shared-memory huge body's counting entries (``counted_vs_plain``)
+    on the benchmark's gap_d60900.dual layout (float32, packed as the harness
+    builds it): 64 blocks of 1,024 slots over 900 hops, the assignment rows
+    on the narrow body beside them."""
+    import torch
+    from bdd_tpu_torch.native import NativeHost
+    from bdd_tpu_torch.solver import layout
+    from portbench.generators import yagiura_gap
+
+    t0 = time.perf_counter()
+    gap = NativeHost(yagiura_gap.make(GAP_D60900, MKNAP_SEED).lp_text(), "input")
+    host = layout.from_native_host(gap, torch.float32, "cuda")
+    plan = host.geom.plan
+    print(f"[huge] gap_d60900 float32 (seed {MKNAP_SEED}): buckets (P, H, B) "
+          f"{[tuple(s) for s in plan.shapes]}, {plan.huge_blocks} blocks of the huge body, "
+          f"{plan.nr_blocks} of the narrow body, built in {time.perf_counter() - t0:.2f} s {card}",
+          flush=True)
+    if (plan.huge_blocks, plan.nr_wide, plan.nr_cluster, plan.nr_l2) != (64, 0, 0, 0):
+        fail(f"gap_d60900's rows {plan.shapes} do not take the huge body by the route")
+    return counted_vs_plain("gap_d60900", host, gap.objective(), card, errs, times, body=HUGE)
 
 
 def phase_huge(card, errs, times, flush):
@@ -1092,19 +1146,22 @@ def phase_huge(card, errs, times, flush):
     (its column over the plan's G blocks; in float64, past any cluster, the
     form of one block a column forced beside it); on each layout with L2
     blocks, and on the benchmark's mknap.t50.dual layout, the L2 body's
-    counting entries (``counted_vs_plain``); the benchmark's mknap.t25.dual
+    counting entries (``counted_vs_plain``), and the shared-memory huge
+    body's on knapsack48 and the benchmark's gap_d60900.dual layout
+    (``gap_counted``); the benchmark's mknap.t25.dual
     layout (5 rows a block holds) on the cluster body by the route, the huge
     and the L2 body forced beside it, and its run's counting entry. Returns the paths of the
     kernels line: knapsack48's float64 solve, knapsack32's, the counted
     float64 iterations of the 32,768-, 65,536- and 262,144-slot rows, the
     counted float32 ones of the 262,144-slot row, and the counting entries'
-    launches on each of those layouts."""
+    launches on each of those layouts and on knapsack48 and gap_d60900."""
     import torch
     from bdd_tpu_torch.api import BddSolver
     from bdd_tpu_torch.native import NativeHost
     from bdd_tpu_torch.solver import layout
     from bdd_tpu_torch.solver import sweep_kernels as sk
 
+    paths = []
     t0 = time.perf_counter()
     lp = knapsack_lp(**HUGE_ROWS)
     nh = NativeHost(lp, "input")
@@ -1129,11 +1186,13 @@ def phase_huge(card, errs, times, flush):
                  f"only P > {layout.WIDE_P} and at least 132 columns, none of them padding, "
                  f"all on the shared-memory huge body")
         kernel_vs_twin("knapsack48", host, nh.objective(), card, errs, times, flush, suffix=HUGE)
+        paths.append(counted_vs_plain("knapsack48", host, nh.objective(), card, errs, times,
+                                      body=HUGE))
         del host
+    paths.append(gap_counted(card, errs, times))
     # rows of 8,192 slots: the body the route gives them, the wide body beside it
     widest_lp = knapsack_lp(**WIDEST_ROWS)
     widest = NativeHost(widest_lp, "input")
-    paths = []
     for dtype in (torch.float32, torch.float64):
         host = layout.from_native_host(widest, dtype, "cuda")
         shapes = [(g.P, g.H, g.B) for g in host.geom.buckets]

@@ -1,7 +1,8 @@
 """The port's spans and counters: ``utils.logging.span`` ranges at the layer
 boundaries of the dual loop, ``bdd.sync`` around the host's reads of the
-card's values, and the L2 sweep body's hop-barrier wait
-(``sweep_kernels.L2_WAIT``).
+card's values, the L2 sweep body's hop-barrier wait
+(``sweep_kernels.L2_WAIT``) and the shared-memory huge body's block-barrier
+wait (``sweep_kernels.HUGE_WAIT``).
 
 This file imports no JAX and nothing of bdd_tpu. The CPU tests record under
 a CPU ``torch.profiler``; the ``cuda`` tests skip without a card and run on
@@ -183,24 +184,33 @@ def test_learned_round_spans_record_under_a_profiler_and_not_without(monkeypatch
 
 
 # ------------------------------------------------ the L2 body's wait counter
-def _l2_launcher(rec, monkeypatch, kernel, split=None):
+def _recorded_launcher(rec, monkeypatch, kernel, shapes, **forced):
+    """``sk._launcher`` of ``kernel`` over synthetic float32 buckets of
+    ``shapes`` on the CPU, by the layout's plan or one with ``forced``
+    keywords, with the library replaced by the recorder ``rec`` (stream 7)."""
     monkeypatch.setattr(sk._build, "load", lambda: rec)
 
     class _Stream:
         cuda_stream = 7
 
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
-    host, (lo, hi, fr, dl, dh) = synthetic_host([(320000, 2, 2)], torch.float32, "cpu")
+    host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, torch.float32, "cpu")
     geom = host.geom
-    plan = layout.launch_plan(geom.plan.shapes, torch.float32, "cpu", l2_split=split)
-    _, _, total = layout.plan_scratch_bytes(plan, 4)
-    scratch = torch.empty(total, dtype=torch.uint8)
+    plan = layout.launch_plan(geom.plan.shapes, torch.float32, "cpu", **forced) if forced \
+        else geom.plan
+    scratch = None
+    if plan.l2_blocks:
+        scratch = torch.empty(layout.plan_scratch_bytes(plan, 4)[2], dtype=torch.uint8)
     run = kernel == sk.RUN
     outs = (None, None, None, torch.empty_like(fr)) if run else (
         torch.empty_like(lo), torch.empty_like(lo), torch.empty_like(lo), torch.empty_like(fr))
-    return sk._launcher(kernel, plan, geom.arcs, lo, hi, None if run else dl,
-                        None if run else dh, geom.alpha, 0.5, None if run else fr, outs,
-                        scratch)
+    return plan, sk._launcher(kernel, plan, geom.arcs, lo, hi, None if run else dl,
+                              None if run else dh, geom.alpha, 0.5, None if run else fr, outs,
+                              scratch)
+
+
+def _l2_launcher(rec, monkeypatch, kernel, split=None):
+    return _recorded_launcher(rec, monkeypatch, kernel, [(320000, 2, 2)], l2_split=split)[1]
 
 
 @pytest.mark.parametrize("kernel", sk.L2_ENTRIES)
@@ -250,6 +260,118 @@ def test_l2_wait_cycles_sum_the_devices_and_reset_zeroes_them(monkeypatch):
     sk.reset_launch_counts()
     assert sk.l2_wait_cycles() == {k: (0, 0) for k in sk.L2_ENTRIES}
     assert sk.L2_COUNTED == {k: 0 for k in sk.L2_ENTRIES}
+
+
+# ------------------------------------------- the huge body's wait counter
+def _huge_row(kernel):
+    acc = sk.HUGE_WAIT[torch.device("cpu")]
+    return acc[sk.L2_ENTRIES.index(kernel)].data_ptr()
+
+
+@pytest.mark.parametrize("kernel", sk.L2_ENTRIES)
+def test_huge_launch_counts_only_while_a_profiler_records(monkeypatch, kernel):
+    """A layout with a narrow and a huge bucket: outside a profiler both
+    entries as they are; under one the huge body's counting entry with the
+    same arguments and, before the stream, the address of the entry's row of
+    the device's HUGE_WAIT; the narrow launch unchanged."""
+    rec = _Recorder()
+    monkeypatch.setattr(sk, "HUGE_WAIT", {})
+    monkeypatch.setattr(sk, "HUGE_PROFILED", {k: 0 for k in sk.L2_ENTRIES})
+    plan, launch = _recorded_launcher(rec, monkeypatch, kernel, [(2, 3, 8), (1024, 4, 8)])
+    assert (plan.nr_blocks, plan.huge_blocks, plan.l2_blocks) == (1, 8, 0)
+    launch()
+    plain = rec.calls[-2:]
+    assert [name for name, _ in plain] == [kernel + "_f32", kernel + sk.HUGE + "_f32"]
+    with profile(activities=[ProfilerActivity.CPU]):
+        launch()
+    (narrow, narrow_args), (name, args) = rec.calls[-2:]
+    assert (narrow, narrow_args) == plain[0]
+    assert name == kernel + sk.HUGE + "_count_f32"
+    assert args == plain[1][1][:-1] + (_huge_row(kernel), 7)
+    assert launch.counts == (kernel, kernel + sk.HUGE)
+    assert sk.HUGE_PROFILED == {k: int(k == kernel) for k in sk.L2_ENTRIES}
+    launch()
+    assert rec.calls[-2:] == plain
+
+
+def test_huge_launch_counts_one_in_every_huge_count_every_under_a_profiler(monkeypatch):
+    """Under a profiler the huge launch takes its counting entry at the
+    first profiled launch of its entry and then once in every
+    HUGE_COUNT_EVERY; reset_launch_counts starts over."""
+    rec = _Recorder()
+    monkeypatch.setattr(sk, "HUGE_WAIT", {})
+    monkeypatch.setattr(sk, "HUGE_PROFILED", {k: 0 for k in sk.L2_ENTRIES})
+    monkeypatch.setattr(sk, "HUGE_COUNT_EVERY", 3)
+    _, launch = _recorded_launcher(rec, monkeypatch, "uniform_forward", [(1024, 4, 8)])
+
+    def counted(n):
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(n):
+                launch()
+        return [name.endswith("_count_f32") for name, _ in rec.calls[-n:]]
+
+    assert counted(4) == [True, False, False, True]
+    launch()  # no profiler: neither counted nor seen
+    assert counted(3) == [False, False, True]
+    assert sk.HUGE_PROFILED["uniform_forward"] == 7
+    sk.reset_launch_counts()
+    assert sk.HUGE_PROFILED == {k: 0 for k in sk.L2_ENTRIES}
+    assert counted(2) == [True, False]
+
+
+def test_huge_launch_stays_uncounted_where_the_counting_form_does_not_fit(monkeypatch):
+    """Where the card holds fewer blocks an SM of the counting entries than
+    of the body's own (rows whose shared memory leaves no room for the
+    counting form's static tallies: none at all), the huge launch keeps its
+    own entry under a profiler."""
+    def occupancy(itemsize, threads, smem, device, counting=False):
+        return 0 if counting else 1
+
+    monkeypatch.setattr(sk, "huge_occupancy", occupancy)
+    monkeypatch.setattr(sk, "_COUNTING_FITS", {})
+    rec = _Recorder()
+    monkeypatch.setattr(sk, "HUGE_WAIT", {})
+    plan, launch = _recorded_launcher(rec, monkeypatch, "uniform_forward", [(29016, 2, 1)],
+                                      huge_body="huge")
+    assert plan.huge_blocks == 1
+    with profile(activities=[ProfilerActivity.CPU]):
+        launch()
+    assert rec.calls[-1][0] == "uniform_forward" + sk.HUGE + "_f32"
+    assert sk.HUGE_WAIT == {}
+
+
+def test_huge_and_l2_launches_both_count_under_a_profiler(monkeypatch):
+    """A layout with a huge and an L2 bucket: under a profiler both take
+    their counting entries, each into its own accumulators."""
+    rec = _Recorder()
+    monkeypatch.setattr(sk, "HUGE_WAIT", {})
+    monkeypatch.setattr(sk, "L2_WAIT", {})
+    monkeypatch.setattr(sk, "L2_COUNTED", {k: 0 for k in sk.L2_ENTRIES})
+    monkeypatch.setattr(sk, "HUGE_PROFILED", {k: 0 for k in sk.L2_ENTRIES})
+    kernel = "uniform_backward"
+    plan, launch = _recorded_launcher(rec, monkeypatch, kernel, [(1024, 4, 8), (320000, 2, 2)])
+    assert plan.huge_blocks and plan.l2_blocks
+    launch()
+    plain = rec.calls[-2:]
+    with profile(activities=[ProfilerActivity.CPU]):
+        launch()
+    (huge, huge_args), (l2, l2_args) = rec.calls[-2:]
+    assert (huge, l2) == (kernel + sk.HUGE + "_count_f32", kernel + sk.HUGE_L2 + "_count_f32")
+    assert huge_args == plain[0][1][:-1] + (_huge_row(kernel), 7)
+    l2_row = sk.L2_WAIT[torch.device("cpu")][sk.L2_ENTRIES.index(kernel)].data_ptr()
+    assert l2_args == plain[1][1][:-1] + (l2_row, 7)
+    assert sk.L2_COUNTED == {k: int(k == kernel) for k in sk.L2_ENTRIES}
+
+
+def test_huge_wait_cycles_sum_the_devices_and_reset_zeroes_them(monkeypatch):
+    monkeypatch.setattr(sk, "HUGE_WAIT", {
+        torch.device("cpu"): torch.tensor([[1, 10], [2, 20], [0, 5]]),
+        torch.device("cuda", 1): torch.tensor([[3, 30], [0, 0], [0, 0]])})
+    assert sk.huge_wait_cycles() == {"uniform_forward": (4, 40), "uniform_backward": (2, 20),
+                                     sk.RUN: (0, 5)}
+    assert sk.l2_wait_cycles() != sk.huge_wait_cycles()
+    sk.reset_launch_counts()
+    assert sk.huge_wait_cycles() == {k: (0, 0) for k in sk.L2_ENTRIES}
 
 
 # ------------------------------------------------------------- on the card
@@ -334,3 +456,72 @@ def test_l2_wait_counter_on_forced_plans(cuda_device, precision, split):
         launch()  # no profiler: nothing counted
         torch.cuda.synchronize()
         assert sk.l2_wait_cycles() == before
+
+
+def _huge_counted(launch):
+    """Run ``launch`` under a profiler; the (wait, cycles) it added to the
+    huge body's counter by entry."""
+    before = sk.huge_wait_cycles()
+    with profile(activities=[ProfilerActivity.CPU]):
+        launch()
+        torch.cuda.synchronize()
+    after = sk.huge_wait_cycles()
+    return {k: (after[k][0] - before[k][0], after[k][1] - before[k][1]) for k in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,fits", [
+    ((1024, 900, 64), torch.float32, True),     # d60900's capacity rows
+    ((16384, 4, 132), torch.float64, True),     # knapsack48's rows, one block an SM
+    ((8192, 2, 256), torch.float32, True),      # two blocks an SM
+    ((19316, 2, 3), torch.float64, False),      # the widest float64 rows: 16 B left
+    ((29016, 2, 3), torch.float32, False)])     # the widest float32 rows: no room left
+def test_huge_counting_fits_beside_the_plans_blocks(cuda_device, shape, dtype, fits):
+    """The card's answer: the counting entries, with their static tallies,
+    hold as many blocks an SM as the body's own, except where the plan's
+    blocks leave less shared memory than the tallies take."""
+    plan = layout.launch_plan([shape], dtype, cuda_device, huge_body="huge")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert plan.huge_blocks == shape[2]
+    assert all(sk._counting_fits(layout.huge_occupancy, itemsize, plan.huge_threads, smem,
+                                 cuda_device)
+               for smem in (plan.huge_smem_forward, plan.huge_smem_backward)) == fits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_huge_wait_counter_equals_the_uncounted_body(cuda_device, precision, monkeypatch):
+    """The shared-memory huge body's counting entries (all three) give the
+    outputs of its own entries bit for bit, on rows of 1,024 slots (two rows
+    in the backward's shared memory) and 16,384 (one in float64), and count
+    a wait at the block barriers below the blocks' cycles; without a
+    profiler nothing is counted."""
+    monkeypatch.setattr(sk, "HUGE_COUNT_EVERY", 1)  # every profiled launch counts
+    dtype = torch.float32 if precision == "float" else torch.float64
+    host, (lo, hi, fr, dl, dh) = synthetic_host([(1024, 12, 8), (16384, 6, 3)], dtype,
+                                                cuda_device, seed=41)
+    geom = host.geom
+    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, huge_body="huge")
+    assert (plan.nr_huge, plan.huge_blocks, plan.nr_cluster, plan.nr_l2) == (2, 11, 0, 0)
+    for kernel, (launch, out) in (
+            ("uniform_forward", sk.prepare_fused_launch("uniform_forward", geom, lo, hi, fr, 0.5,
+                                                        dl, dh, plan)),
+            ("uniform_backward", sk.prepare_fused_launch("uniform_backward", geom, lo, hi, fr,
+                                                         0.5, dl, dh, plan)),
+            (sk.RUN, sk.prepare_run_launch(geom, lo, hi, plan))):
+        assert launch.counts == (kernel + sk.HUGE,)
+        outs = [out] if kernel == sk.RUN else list(out)
+        launch()
+        torch.cuda.synchronize()
+        plain = [o.clone() for o in outs]
+        for o in outs:
+            o.fill_(7.0)
+        counts = _huge_counted(launch)
+        assert_same_bits(outs, plain)
+        wait, cycles = counts[kernel]
+        assert all(v == (0, 0) for k, v in counts.items() if k != kernel)
+        assert 0 < wait < cycles
+        before = sk.huge_wait_cycles()
+        launch()  # no profiler: nothing counted
+        torch.cuda.synchronize()
+        assert sk.huge_wait_cycles() == before
