@@ -140,25 +140,28 @@ def _declare(lib: ctypes.CDLL) -> None:
     #  din_lo, din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi,
     #  out_mm, frontier out, stream); the wide entries read tile as the
     # warps a block and pmax as the values a shared-memory row, the huge
-    # entries tile as the threads a block; the huge entries' counting forms
+    # entries tile as the threads a block and take after smem_bytes the ring
+    # form's hops (0: the grouped body); the huge entries' counting forms
     # ("_count") take the pair of accumulators before the stream
     sig = [vp, i, i, i, i, i] + [vp] * 7 + [d] + [vp] * 6
+    huge_sig = sig[:6] + [i] + sig[6:]
     for suffix in ("f32", "f64"):
         for name in ("uniform_forward", "uniform_backward", "uniform_backward_run",
                      "uniform_forward_wide", "uniform_backward_wide",
-                     "uniform_backward_run_wide", "uniform_forward_huge",
-                     "uniform_backward_huge", "uniform_backward_run_huge"):
+                     "uniform_backward_run_wide"):
             f = getattr(lib, f"{name}_{suffix}")
             f.argtypes, f.restype = sig, i
         for name in ("uniform_forward_huge", "uniform_backward_huge",
                      "uniform_backward_run_huge"):
+            f = getattr(lib, f"{name}_{suffix}")
+            f.argtypes, f.restype = huge_sig, i
             f = getattr(lib, f"{name}_count_{suffix}")
-            f.argtypes, f.restype = sig[:-1] + [vp, vp], i
+            f.argtypes, f.restype = huge_sig[:-1] + [vp, vp], i
         # the card's answer for the blocks an SM holds of the huge entries
-        # and of their counting forms: (threads, smem_bytes, out)
+        # and of their counting forms: (threads, smem_bytes, hops, out)
         for name in ("uniform_huge_occupancy", "uniform_huge_count_occupancy"):
             f = getattr(lib, f"{name}_{suffix}")
-            f.argtypes, f.restype = [i, i, ctypes.POINTER(ctypes.c_int)], i
+            f.argtypes, f.restype = [i, i, i, ctypes.POINTER(ctypes.c_int)], i
     # the L2 body's entries: (table, nr_buckets, nr_blocks, threads, split,
     #  nr_columns, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, omega,
     #  frontier in, out_lo, out_hi, out_mm, frontier out, rows, partials,

@@ -844,7 +844,14 @@ int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int
 //    bucket's rows live in shared memory. It takes every huge bucket whose
 //    smallest block (a row of P values and a row of P slot codes) fits the
 //    227 KB a block may opt into: up to 29,016 slots in float32 and 19,316
-//    in float64 (layout.huge_fits);
+//    in float64 (layout.huge_fits). A launch takes it in one of two kernels
+//    by its table's widest bucket against its threads (LaunchPlan.huge_hops):
+//    the grouped body below (sweep_huge_kernel) where a thread holds more
+//    than one slot, its slot loops bound by bandwidth (knapsack rows of
+//    8,192 and 16,384 slots, 8 and 16 a thread); the ring form
+//    (sweep_huge_ring_kernel, its own section below) where no bucket is
+//    wider than the threads, one slot a thread, bound by the latency of its
+//    loads (the 1,024-slot capacity rows of a generalized assignment);
 //  * the CLUSTER body (sweep_huge_cluster_kernel, "_huge_cluster", its own
 //    section below): wider buckets whose rows fit the shared memory of a
 //    cluster of 2, 4, 8 or 16 blocks, each block a share of the row
@@ -874,7 +881,10 @@ int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int
 //    hop h+1 through L1 from device memory: staged in shared memory instead
 //    (a ring of two rows filled a hop ahead with cp.async by every thread,
 //    where two blocks an SM still fit) it was slower (chip_smoke.py
-//    --huge-split, variant "staged"; PERF.md section 6).
+//    --huge-split, variant "staged"; PERF.md section 6). That and the L2
+//    prefetch were tried one hop ahead at 4 to 16 slots a thread, where a
+//    thread's grouped loads already overlap; the ring form copies whole hops
+//    several ahead where a thread has one slot.
 //  * No register arrays: the slot loops are runtime loops, and what a slot
 //    needs after the hop's reduction is kept where only its owner reads it:
 //    its code (both children, as a slot, 0 or +inf, and the node's valid
@@ -1414,10 +1424,278 @@ __global__ void __launch_bounds__(HUGE_MAX_THREADS, 1)
   }
 }
 
-// the huge body's kernel, or with COUNT its counting form
+// ------------------------------------------- huge buckets: the ring form
+// A launch whose every huge bucket is no wider than a block's threads (the
+// plan's huge_pmax <= huge_threads, LaunchPlan.huge_hops: the 1,024-slot
+// capacity rows of a generalized assignment at 1,024 threads) takes the RING
+// form (sweep_huge_ring_kernel, LAUNCHES key "_huge" too) in place of the
+// grouped body above. Thread t owns slot t; threads past P take part in the
+// barriers only. Such buckets keep two-byte records (P <= 1,024 < WIDE_P).
+//
+// What it answers: at one slot a thread the grouped body's hop is a chain of
+// dependent device-memory loads, not bytes (the slot's arc words and the
+// layer's flag words; then the forward's cft of hop h+1 by the child's slot,
+// the backward's cfr of its slot; the forward relaxation's cfr read back
+// from L2): 2.47 / 3.53 us a hop forward / backward over 900 hops of 1,024
+// slots, 5.1% / 3.6% of the byte bound, the warps 12.75% of their cycles at
+// the barriers (PERF.md sections 5 and 6). Every one of those inputs is a
+// launch input whose address is known at entry, so this form copies them
+// all into a ring of S + 1 stages in shared memory, S = hops (the plan's
+// HUGE_RING_HOPS) ahead of the hop that reads them. A stage holds one hop of
+// the column: its arc record (2P two-byte words), its frontier row (forward:
+// cft of hop h+1, the gathers' source; backward: cfr of hop h, the slots'
+// own; the run none) and the layer's values. The copies are cp.async over the
+// block's threads, one copy a thread and row at most (P <= threads): 16 bytes
+// where every hop's row is 16-byte aligned, else 4 (a record) or a value's
+// (a row); the record's from thread 0 on, the row's from thread nt / 2 on,
+// the layer values by the last threads. At the end of
+// hop i a thread waits for its own copies of hop i + 1 (cp.async.wait_group
+// S - 1) before the hop's last barrier, which makes every thread's copies
+// visible and frees the stage of hop i, into which hop i + 1 starts the
+// copies of hop i + 1 + S. Nothing the launch writes is read ahead. What is
+// left on a hop's path: shared-memory loads, registers, shuffles and the
+// block barriers (forward: the min-marginals' and the hop's last; backward:
+// the same, on two rows, which P <= 1,024 always has room for; run: one).
+// One slot a thread also keeps in registers what the grouped body keeps
+// elsewhere: the slot's code (no row of codes), the forward's cfr for its
+// relaxation (no read back from L2), the children's costs for the
+// backward's cft (no second gather): no grouped loop, no register arrays.
+// The grouped body keeps its source: the two forms share only helpers, since
+// code compiled beside the grouped loop moved its schedule by -10% to +20%
+// (chip_smoke.py --huge-split; PERF.md section 6).
+constexpr int HUGE_RING_MAX = 8;  // the deepest ring: cp_wait's groups in flight
+
+// The ring form's dynamic shared memory (solver/layout.py, huge_smem_bytes
+// with `ring` hops S): [the forward's row of keys, or the backward's and the
+// run's two rows of cft, pad16(P values) each | 64 values of partials | S + 1
+// stages of (the arc record, pad16(4P) | the frontier row, pad16(P values) |
+// HUGE_SCALARS values)]; the run lays its stages out as the backward does
+// and leaves their rows unused.
+struct RingLayout {
+  int row;      // bytes of a row of P values
+  int red;      // offset of the partials
+  int ring;     // offset of the first stage
+  int front;    // offset of the frontier row in a stage
+  int scalars;  // offset of the layer values in a stage
+  int stage;    // bytes of a stage
+  int total;
+  __host__ __device__ RingLayout(int P, int sz, int hops, bool forward)
+      : row(pad16(P * sz)),
+        red((forward ? 1 : 2) * row),
+        ring(red + 64 * sz),
+        front(pad16(4 * P)),
+        scalars(front + row),
+        stage(scalars + HUGE_SCALARS * sz),
+        total(ring + (hops + 1) * stage) {}
+};
+
+// one column of the ring form; COUNT times every warp at each barrier of a
+// hop into its sum at shared address `tally`, as huge_column does
 template <typename T, int MODE, bool COUNT>
+__device__ __forceinline__ void huge_ring_column(const Args<T>& a, const Bucket& bk,
+                                                 unsigned char* smem, long long b, int hops,
+                                                 uint32_t tally) {
+  using K = Key<T>;
+  using U = typename K::U;
+  using A = Arc<uint16_t>;
+  constexpr bool FORWARD = MODE == MODE_FORWARD, RUN = MODE == MODE_BACKWARD_RUN;
+  constexpr int SZ = (int)sizeof(T);
+  const int P = (int)bk.P, H = (int)bk.H;
+  const long long B = bk.B;
+  const int t = (int)threadIdx.x, nt = (int)blockDim.x;
+  const bool mine = t < P;  // the thread's slot is one of the bucket's
+  const T inf = inf_v<T>();
+  const RingLayout L(P, SZ, hops, FORWARD);
+  const uint32_t row0 = smem_addr(smem);
+  T* const red = (T*)(smem + L.red);
+  unsigned char* const ring = smem + L.ring;
+  const long long first = FORWARD ? b : (long long)(H - 1) * B + b;  // the first hop's column
+  const long long step = FORWARD ? B : -B;                           // from one hop's to the next
+
+  // This thread's share of a stage's copies, the same at every hop: with at
+  // most as many slots as threads, one chunk of the record (thread t: chunk
+  // t) and one of the row (thread t - nt / 2, mod nt), of 16 bytes where every
+  // hop's source is 16-byte aligned (the bucket's rows start so and are a
+  // multiple of 16 bytes long), else of 4 (a record) or SZ bytes (a row); a
+  // layer value by each of the last threads. Sources run along, one hop a
+  // step, as the stages are filled in hop order.
+  const uint8_t* rec_src = a.arcs + bk.arc_off + first * 4 * P;
+  const bool rec16 = !(((unsigned)(uintptr_t)(a.arcs + bk.arc_off) | 4u * (unsigned)P) & 15u);
+  const int rec_c = t * (rec16 ? 16 : 4) < 4 * P ? t * (rec16 ? 16 : 4) : -1;
+  const uint8_t* row_src = nullptr;
+  bool row16 = false;
+  int row_c = -1;
+  if constexpr (!RUN) {  // forward: cft of hop h+1; backward: cfr of hop h
+    const T* g_front = a.frontier + bk.node_off;
+    row_src = (const uint8_t*)(g_front + (first + (FORWARD ? B : 0)) * P);
+    row16 = !(((unsigned)(uintptr_t)g_front | (unsigned)(P * SZ)) & 15u);
+    const int k = t < nt / 2 ? t + nt - nt / 2 : t - nt / 2;
+    row_c = k * (row16 ? 16 : SZ) < P * SZ ? k * (row16 ? 16 : SZ) : -1;
+  }
+  const int s = nt - 1 - t;  // the layer value this thread copies, where below the count
+  const T* sc_src = nullptr;
+  if (s < (RUN ? 2 : (a.omega_arr ? 6 : 5)))
+    sc_src = (s == 0 ? a.lo : s == 1 ? a.hi : s == 2 ? a.din_lo : s == 3 ? a.din_hi
+              : s == 4 ? a.alpha : a.omega_arr) + bk.row_off + first;
+
+  // the inputs of the i-th hop into the stage at `st`, one group of copies
+  // (empty past the last hop)
+  auto fill = [&](int i, unsigned char* st) {
+    if (i < H) {
+      if (rec_c >= 0) {
+        if (rec16) cp_async<16>(st + rec_c, rec_src + rec_c);
+        else cp_async<4>(st + rec_c, rec_src + rec_c);
+      }
+      rec_src += step * 4 * P;
+      if constexpr (!RUN) {
+        if (row_c >= 0 && (!FORWARD || i + 1 < H)) {
+          if (row16) cp_async<16>(st + L.front + row_c, row_src + row_c);
+          else cp_async<SZ>(st + L.front + row_c, row_src + row_c);
+        }
+        row_src += step * P * SZ;
+      }
+      if (sc_src) {
+        cp_async<SZ>(st + L.scalars + s * SZ, sc_src);
+        sc_src += step;
+      }
+    }
+    cp_commit();
+  };
+
+  if constexpr (FORWARD) {
+    if (mine) st_shared(row0 + (unsigned)t * (unsigned)SZ, K::enc(inf));
+  }
+  for (int i = 0; i < hops; ++i) fill(i, ring + i * L.stage);
+  cp_wait(hops - 1);
+  __syncthreads();
+
+  T* out = a.out_frontier + bk.node_off + first * P + t;  // this thread's slot of hop h's row
+  size_t e = (size_t)(bk.row_off + first);                 // hop h's layer outputs
+  uint32_t rin = row0;                                     // backward, run: cft of hop h+1
+  uint32_t rout = row0 + L.row;                            // the row being built
+  int cur = 0;                                             // the stage of hop i
+  for (int i = 0; i < H; ++i) {
+    // the stage the last hop's barrier freed takes hop i + hops
+    fill(i + hops, ring + (cur == 0 ? hops : cur - 1) * L.stage);
+    const unsigned char* const st = ring + cur * L.stage;
+    const uint16_t* const rec = (const uint16_t*)st;
+    const T* const sc = (const T*)(st + L.scalars);
+    const uint32_t frow = smem_addr(st + L.front);
+    const T lo = sc[0], hi = sc[1];
+    const unsigned w_layer = rec[P], w_root = rec[P + 1];
+    const bool has = FORWARD ? i + 1 < H : i > 0;  // cft of hop h+1 (none past the last hop)
+    const unsigned c = mine ? slot_code<uint16_t>(rec[t], rec[P + t], (unsigned)P) : 0u;
+    const bool nv = (c & NODE_VALID) != 0;
+    T nl = lo, nh = hi, mm = T(0);
+
+    if constexpr (FORWARD) {
+      T m0 = inf, m1 = inf, fv = inf;
+      if (mine) {
+        const uint32_t kp = row0 + (unsigned)t * (unsigned)SZ;
+        fv = A::flag(w_root) ? (t == 0 ? T(0) : inf) : K::dec(ld_shared<U>(kp));
+        st_shared(kp, K::enc(inf));  // only this thread reads slot t; relaxed after the barrier
+        const T tl = child_cost<T, true>(c & 0x7fffu, frow, nullptr, has);
+        const T th = child_cost<T, true>(c >> 16, frow, nullptr, has);
+        m0 = nv ? fv + lo + tl : inf;
+        m1 = nv ? fv + hi + th : inf;
+        *out = fv;
+      }
+      block_min2_once<T, COUNT>(m0, m1, red, tally);
+      hop_cost_update(lo, hi, m0, m1, a.omega_arr ? sc[5] : a.omega, sc[4], sc[2], sc[3],
+                      A::flag(w_layer) != 0, nl, nh, mm);
+      if (nv) {
+        const unsigned lc = c & 0x7fffu, hc = c >> 16;
+        if (lc < CODE_ZERO) red_min_shared(row0 + lc * (unsigned)sizeof(U), K::enc(fv + nl));
+        if (hc < CODE_ZERO) red_min_shared(row0 + hc * (unsigned)sizeof(U), K::enc(fv + nh));
+      }
+    } else {
+      T tl = inf, th = inf;
+      if (mine) {
+        tl = child_cost<T, true>(c & 0x7fffu, rin, nullptr, has);
+        th = child_cost<T, true>(c >> 16, rin, nullptr, has);
+      }
+      if constexpr (!RUN) {
+        T m0 = inf, m1 = inf;
+        if (nv) {
+          const T cf = ld_shared<T>(frow + (unsigned)t * (unsigned)SZ);  // cfr of the slot
+          m0 = cf + lo + tl;
+          m1 = cf + hi + th;
+        }
+        block_min2_once<T, COUNT>(m0, m1, red, tally);
+        hop_cost_update(lo, hi, m0, m1, a.omega_arr ? sc[5] : a.omega, sc[4], sc[2], sc[3],
+                        A::flag(w_layer) != 0, nl, nh, mm);
+      }
+      if (mine) {
+        const T v = nv ? min_v(nl + tl, nh + th) : inf;
+        *out = v;
+        st_shared(rout + (unsigned)t * (unsigned)SZ, v);
+      }
+    }
+    if constexpr (!RUN) {
+      if (t == 0) {
+        a.out_lo[e] = nl;
+        a.out_hi[e] = nh;
+        a.out_mm[e] = mm;
+      }
+    }
+    out += step * P;
+    e += step;
+    cp_wait(hops - 1);         // this thread's copies of hop i + 1 have landed
+    block_sync<COUNT>(tally);  // every thread's; the row is built; stage `cur` is free
+    if constexpr (!FORWARD) {
+      const uint32_t swap = rin;
+      rin = rout;
+      rout = swap;
+    }
+    cur = cur == hops ? 0 : cur + 1;
+  }
+}
+
+// a block of the ring form: its bucket by the table
+template <typename T, int MODE, bool COUNT>
+__device__ __forceinline__ void huge_ring_block(const Args<T>& a, unsigned char* smem, int hops,
+                                                uint32_t tally) {
+  int k = 0;
+  while (k + 1 < a.nr_buckets && (long long)blockIdx.x >= a.table[k + 1].first_block) ++k;
+  const Bucket bk = a.table[k];
+  huge_ring_column<T, MODE, COUNT>(a, bk, smem, (long long)blockIdx.x - bk.first_block, hops,
+                                   tally);
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(HUGE_MAX_THREADS, 1) sweep_huge_ring_kernel(Args<T> a,
+                                                                               int hops) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  huge_ring_block<T, MODE, false>(a, smem, hops, 0u);
+}
+
+// its counting form, as sweep_huge_counted_kernel: every warp's wait at the
+// hop barriers and the warps' SM cycles into acc[0] and acc[1]
+template <typename T, int MODE>
+__global__ void __launch_bounds__(HUGE_MAX_THREADS, 1)
+    sweep_huge_ring_counted_kernel(Args<T> a, int hops, unsigned long long* acc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned long long tally[HUGE_COUNT_SMEM / 8];
+  const unsigned long long warps = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) tally[2 * (threadIdx.x >> 5)] = 0ull;
+  if (threadIdx.x == 0) atomicAdd(acc + 1, 0ull - warps * (unsigned long long)clock64());
+  huge_ring_block<T, MODE, true>(a, smem, hops, smem_addr(tally));
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned long long end = clock64();
+    unsigned long long wait = 0ull;
+    for (unsigned w = 0; w < warps; ++w) wait += tally[2 * w];
+    atomicAdd(acc, wait);
+    atomicAdd(acc + 1, warps * end);
+  }
+}
+
+// the huge body's kernel (RING: its ring form), or with COUNT its counting form
+template <typename T, int MODE, bool COUNT, bool RING>
 auto huge_kernel() {
-  if constexpr (COUNT) return sweep_huge_counted_kernel<T, MODE>;
+  if constexpr (RING && COUNT) return sweep_huge_ring_counted_kernel<T, MODE>;
+  else if constexpr (RING) return sweep_huge_ring_kernel<T, MODE>;
+  else if constexpr (COUNT) return sweep_huge_counted_kernel<T, MODE>;
   else return sweep_huge_kernel<T, MODE>;
 }
 
@@ -1429,12 +1707,12 @@ constexpr int huge_max_smem() {
 }
 
 // above 48 KB a kernel must ask for its shared memory, once
-template <typename T, int MODE, bool COUNT>
+template <typename T, int MODE, bool COUNT, bool RING>
 int huge_opt_in() {
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        huge_kernel<T, MODE, COUNT>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+        huge_kernel<T, MODE, COUNT, RING>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
         huge_max_smem<COUNT>());
     if (rc != cudaSuccess) return (int)rc;
     opted_in = true;
@@ -1443,37 +1721,47 @@ int huge_opt_in() {
 }
 
 // the blocks of `threads` threads and `smem_bytes` of dynamic shared memory
-// of the huge body (COUNT: of its counting form) an SM holds at once, the
-// least over its three entries (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// into *blocks; 0 where a block may not take `smem_bytes`
-template <typename T, bool COUNT>
+// of the huge body (COUNT: of its counting form; RING: of its ring form) an
+// SM holds at once, the least over its three entries
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks; 0 where a
+// block may not take `smem_bytes`
+template <typename T, bool COUNT, bool RING>
 int huge_occupancy(int threads, int smem_bytes, int* blocks) {
   *blocks = 0;
   if (smem_bytes > huge_max_smem<COUNT>()) return 0;
-  int rc = huge_opt_in<T, MODE_FORWARD, COUNT>();
-  if (rc == 0) rc = huge_opt_in<T, MODE_BACKWARD, COUNT>();
-  if (rc == 0) rc = huge_opt_in<T, MODE_BACKWARD_RUN, COUNT>();
+  int rc = huge_opt_in<T, MODE_FORWARD, COUNT, RING>();
+  if (rc == 0) rc = huge_opt_in<T, MODE_BACKWARD, COUNT, RING>();
+  if (rc == 0) rc = huge_opt_in<T, MODE_BACKWARD_RUN, COUNT, RING>();
   int n[3] = {0, 0, 0};
   if (rc == 0)
     rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n[0], huge_kernel<T, MODE_FORWARD, COUNT>(), threads, smem_bytes);
+        &n[0], huge_kernel<T, MODE_FORWARD, COUNT, RING>(), threads, smem_bytes);
   if (rc == 0)
     rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n[1], huge_kernel<T, MODE_BACKWARD, COUNT>(), threads, smem_bytes);
+        &n[1], huge_kernel<T, MODE_BACKWARD, COUNT, RING>(), threads, smem_bytes);
   if (rc == 0)
     rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n[2], huge_kernel<T, MODE_BACKWARD_RUN, COUNT>(), threads, smem_bytes);
+        &n[2], huge_kernel<T, MODE_BACKWARD_RUN, COUNT, RING>(), threads, smem_bytes);
   *blocks = n[0] < n[1] ? (n[0] < n[2] ? n[0] : n[2]) : (n[1] < n[2] ? n[1] : n[2]);
   return rc;
 }
 
+// the same, of the grouped body (hops 0) or of the ring form at `hops`
+template <typename T, bool COUNT>
+int huge_occupancy(int threads, int smem_bytes, int hops, int* blocks) {
+  return hops ? huge_occupancy<T, COUNT, true>(threads, smem_bytes, blocks)
+              : huge_occupancy<T, COUNT, false>(threads, smem_bytes, blocks);
+}
+
 // as `launch`, over the table of the shared-memory huge body: one block of
 // `threads` threads a column, `pmax` the widest bucket, `smem_bytes` of
-// dynamic shared memory a block. COUNT: the counting form, into the pair
-// `acc` (the blocks' barrier wait, their cycles).
+// dynamic shared memory a block; `hops` 0: the grouped body, 1 to
+// HUGE_RING_MAX: the ring form at that depth (every bucket no wider than the
+// threads, `smem_bytes` at least its layout's). COUNT: the counting form,
+// into the pair `acc` (the blocks' barrier wait, their cycles).
 template <typename T, int MODE, bool COUNT = false>
 int launch_huge(const void* table, int nr_buckets, int nr_blocks, int threads, int pmax,
-                int smem_bytes, const void* arcs, const void* lo, const void* hi,
+                int smem_bytes, int hops, const void* arcs, const void* lo, const void* hi,
                 const void* din_lo, const void* din_hi, const void* alpha, const void* omega_arr,
                 double omega, const void* frontier, void* out_lo, void* out_hi, void* out_mm,
                 void* out_frontier, void* stream, unsigned long long* acc = nullptr) {
@@ -1481,8 +1769,11 @@ int launch_huge(const void* table, int nr_buckets, int nr_blocks, int threads, i
   if (COUNT && acc == nullptr) return -1;
   if (threads < 32 || threads > HUGE_MAX_THREADS || threads % 32 || pmax >= (int)CODE_ZERO)
     return -2;
+  if (hops < 0 || hops > HUGE_RING_MAX || (hops && pmax > threads)) return -2;
   if (smem_bytes < 1 || smem_bytes > huge_max_smem<COUNT>()) return -1;
-  const int rc = huge_opt_in<T, MODE, COUNT>();
+  if (hops && smem_bytes < RingLayout(pmax, (int)sizeof(T), hops, MODE == MODE_FORWARD).total)
+    return -1;
+  const int rc = hops ? huge_opt_in<T, MODE, COUNT, true>() : huge_opt_in<T, MODE, COUNT, false>();
   if (rc != 0) return rc;
   const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
                   (const T*)lo,         (const T*)hi,       (const T*)din_lo,
@@ -1490,10 +1781,16 @@ int launch_huge(const void* table, int nr_buckets, int nr_blocks, int threads, i
                   (T)omega,             (const T*)frontier, (T*)out_lo,
                   (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
   const cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (COUNT)
+  if (hops) {
+    if constexpr (COUNT)
+      sweep_huge_ring_counted_kernel<T, MODE><<<nr_blocks, threads, smem_bytes, s>>>(a, hops, acc);
+    else
+      sweep_huge_ring_kernel<T, MODE><<<nr_blocks, threads, smem_bytes, s>>>(a, hops);
+  } else if constexpr (COUNT) {
     sweep_huge_counted_kernel<T, MODE><<<nr_blocks, threads, smem_bytes, s>>>(a, acc);
-  else
+  } else {
     sweep_huge_kernel<T, MODE><<<nr_blocks, threads, smem_bytes, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -2675,27 +2972,43 @@ SWEEP_ENTRY(uniform_backward_wide_f32, launch_wide, float, MODE_BACKWARD)
 SWEEP_ENTRY(uniform_backward_wide_f64, launch_wide, double, MODE_BACKWARD)
 SWEEP_ENTRY(uniform_backward_run_wide_f32, launch_wide, float, MODE_BACKWARD_RUN)
 SWEEP_ENTRY(uniform_backward_run_wide_f64, launch_wide, double, MODE_BACKWARD_RUN)
-SWEEP_ENTRY(uniform_forward_huge_f32, launch_huge, float, MODE_FORWARD)
-SWEEP_ENTRY(uniform_forward_huge_f64, launch_huge, double, MODE_FORWARD)
-SWEEP_ENTRY(uniform_backward_huge_f32, launch_huge, float, MODE_BACKWARD)
-SWEEP_ENTRY(uniform_backward_huge_f64, launch_huge, double, MODE_BACKWARD)
-SWEEP_ENTRY(uniform_backward_run_huge_f32, launch_huge, float, MODE_BACKWARD_RUN)
-SWEEP_ENTRY(uniform_backward_run_huge_f64, launch_huge, double, MODE_BACKWARD_RUN)
 
-// the counting forms of the shared-memory huge body's entries: the same
-// arguments, and before the stream `acc`, the pair of 64-bit accumulators
-// (the blocks' barrier wait, their cycles)
+// the shared-memory huge body's entries: the arguments of SWEEP_ENTRY and,
+// after smem_bytes, `hops`: 0 for the grouped body (sweep_huge_kernel), 1 to
+// HUGE_RING_MAX for the ring form at that depth (sweep_huge_ring_kernel)
+#define HUGE_SMEM_ENTRY(NAME, T, MODE)                                                  \
+  extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks, int tile,      \
+                      int pmax, int smem_bytes, int hops, const void* arcs,            \
+                      const void* lo, const void* hi, const void* din_lo,              \
+                      const void* din_hi, const void* alpha, const void* omega_arr,    \
+                      double omega, const void* frontier, void* out_lo, void* out_hi,  \
+                      void* out_mm, void* out_frontier, void* stream) {                \
+    return launch_huge<T, MODE>(table, nr_buckets, nr_blocks, tile, pmax, smem_bytes,  \
+                                hops, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr,   \
+                                omega, frontier, out_lo, out_hi, out_mm, out_frontier,  \
+                                stream);                                                \
+  }
+
+HUGE_SMEM_ENTRY(uniform_forward_huge_f32, float, MODE_FORWARD)
+HUGE_SMEM_ENTRY(uniform_forward_huge_f64, double, MODE_FORWARD)
+HUGE_SMEM_ENTRY(uniform_backward_huge_f32, float, MODE_BACKWARD)
+HUGE_SMEM_ENTRY(uniform_backward_huge_f64, double, MODE_BACKWARD)
+HUGE_SMEM_ENTRY(uniform_backward_run_huge_f32, float, MODE_BACKWARD_RUN)
+HUGE_SMEM_ENTRY(uniform_backward_run_huge_f64, double, MODE_BACKWARD_RUN)
+
+// their counting forms: the same arguments, and before the stream `acc`, the
+// pair of 64-bit accumulators (the blocks' barrier wait, their cycles)
 #define HUGE_SMEM_COUNT_ENTRY(NAME, T, MODE)                                            \
   extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks, int tile,      \
-                      int pmax, int smem_bytes, const void* arcs, const void* lo,      \
-                      const void* hi, const void* din_lo, const void* din_hi,          \
-                      const void* alpha, const void* omega_arr, double omega,          \
-                      const void* frontier, void* out_lo, void* out_hi, void* out_mm,  \
-                      void* out_frontier, void* acc, void* stream) {                   \
+                      int pmax, int smem_bytes, int hops, const void* arcs,            \
+                      const void* lo, const void* hi, const void* din_lo,              \
+                      const void* din_hi, const void* alpha, const void* omega_arr,    \
+                      double omega, const void* frontier, void* out_lo, void* out_hi,  \
+                      void* out_mm, void* out_frontier, void* acc, void* stream) {     \
     return launch_huge<T, MODE, true>(table, nr_buckets, nr_blocks, tile, pmax,         \
-                                      smem_bytes, arcs, lo, hi, din_lo, din_hi, alpha,  \
-                                      omega_arr, omega, frontier, out_lo, out_hi,       \
-                                      out_mm, out_frontier, stream,                     \
+                                      smem_bytes, hops, arcs, lo, hi, din_lo, din_hi,   \
+                                      alpha, omega_arr, omega, frontier, out_lo,        \
+                                      out_hi, out_mm, out_frontier, stream,             \
                                       (unsigned long long*)acc);                        \
   }
 
@@ -2791,20 +3104,23 @@ extern "C" int uniform_huge_cluster_occupancy_f64(int cluster, int threads, int 
                                                   int pmax, int* clusters) {
   return cluster_occupancy<double>(cluster, threads, smem_bytes, pmax, clusters);
 }
-// (threads, smem_bytes, blocks out): the blocks of the shared-memory huge
-// body, and of its counting form, an SM holds at once (the wrapper counts
-// only where the counting form holds as many as the body)
-extern "C" int uniform_huge_occupancy_f32(int threads, int smem_bytes, int* blocks) {
-  return huge_occupancy<float, false>(threads, smem_bytes, blocks);
+// (threads, smem_bytes, hops, blocks out): the blocks of the shared-memory
+// huge body (hops 0: the grouped body, else its ring form), and of its
+// counting form, an SM holds at once (the wrapper counts only where the
+// counting form holds as many as the body)
+extern "C" int uniform_huge_occupancy_f32(int threads, int smem_bytes, int hops, int* blocks) {
+  return huge_occupancy<float, false>(threads, smem_bytes, hops, blocks);
 }
-extern "C" int uniform_huge_occupancy_f64(int threads, int smem_bytes, int* blocks) {
-  return huge_occupancy<double, false>(threads, smem_bytes, blocks);
+extern "C" int uniform_huge_occupancy_f64(int threads, int smem_bytes, int hops, int* blocks) {
+  return huge_occupancy<double, false>(threads, smem_bytes, hops, blocks);
 }
-extern "C" int uniform_huge_count_occupancy_f32(int threads, int smem_bytes, int* blocks) {
-  return huge_occupancy<float, true>(threads, smem_bytes, blocks);
+extern "C" int uniform_huge_count_occupancy_f32(int threads, int smem_bytes, int hops,
+                                                int* blocks) {
+  return huge_occupancy<float, true>(threads, smem_bytes, hops, blocks);
 }
-extern "C" int uniform_huge_count_occupancy_f64(int threads, int smem_bytes, int* blocks) {
-  return huge_occupancy<double, true>(threads, smem_bytes, blocks);
+extern "C" int uniform_huge_count_occupancy_f64(int threads, int smem_bytes, int hops,
+                                                int* blocks) {
+  return huge_occupancy<double, true>(threads, smem_bytes, hops, blocks);
 }
 // (threads, blocks out): the blocks of the L2 body an SM holds at once
 // (solver/layout.py sizes the blocks a column from the answer)

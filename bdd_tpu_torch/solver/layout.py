@@ -254,6 +254,16 @@ BLOCK_SMEM_RESERVED = 1024  # what the card keeps of it for every resident block
 HUGE_THREADS = 1024
 HUGE_MAX_CODE = 0x7FFD  # a slot code holds slots below this (uniform_sweep.cu, CODE_ZERO)
 HUGE_SCALARS = 8  # values a ring slot of the huge body keeps for the layer (6 used)
+# Hops the shared-memory huge body's ring form copies ahead (each hop's arc
+# record, frontier row and layer values into a ring of HUGE_RING_HOPS + 1
+# stages in shared memory): the form a launch takes where no bucket of its
+# huge table is wider than its threads, one slot a thread
+# (``LaunchPlan.huge_hops``; uniform_sweep.cu, sweep_huge_ring_kernel).
+# Measured over 1 to 4 hops on the gap_d60900 layout (chip_smoke.py
+# --huge-ring; PERF.md section 6). HUGE_RING_MAX: the deepest the kernel
+# takes.
+HUGE_RING_HOPS = 3
+HUGE_RING_MAX = 8
 # Wide buckets from HUGE_FROM up to WIDE_P slots run the huge body (its
 # shared-memory form, on their two-byte records), except float32 buckets
 # narrower than HUGE_FROM_F32_MANY over more than HUGE_F32_BLOCKS_SM columns
@@ -396,15 +406,21 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def huge_smem_bytes(P: int, itemsize: int, two_rows: bool = False) -> int:
+def huge_smem_bytes(P: int, itemsize: int, two_rows: bool = False, ring: int = 0) -> int:
     """Dynamic shared memory of one block of the shared-memory huge body: one
     row of P values (keys, forward; cft, backward), a second with
     ``two_rows``, the slot codes (four bytes a slot), 64 values of partials
-    and a ring of two slots of HUGE_SCALARS values. ``uniform_sweep.cu`` lays
-    it out the same way."""
+    and a ring of two slots of HUGE_SCALARS values. With ``ring`` (S hops,
+    the ring form; ``two_rows`` for the backward and the run): the rows, 64
+    values of partials and S + 1 stages of a hop's arc record (4P bytes),
+    frontier row (P values) and HUGE_SCALARS values. ``uniform_sweep.cu``
+    lays it out the same way (``RingLayout`` for the ring form)."""
     row = _pad_to(P * itemsize, 16)
-    return (row * (2 if two_rows else 1) + _pad_to(4 * P, 16) + 64 * itemsize
-            + 2 * HUGE_SCALARS * itemsize)
+    rows = row * (2 if two_rows else 1)
+    if ring:
+        stage = _pad_to(4 * P, 16) + row + HUGE_SCALARS * itemsize
+        return rows + 64 * itemsize + (ring + 1) * stage
+    return rows + _pad_to(4 * P, 16) + 64 * itemsize + 2 * HUGE_SCALARS * itemsize
 
 
 def huge_fits(P: int, itemsize: int) -> bool:
@@ -448,10 +464,11 @@ def cluster_fits(P: int, itemsize: int, C: int = max(CLUSTER_SIZES)) -> bool:
 
 
 def huge_occupancy(itemsize: int, threads: int, smem: int, device,
-                   counting: bool = False) -> int:
+                   counting: bool = False, hops: int = 0) -> int:
     """Blocks of ``threads`` threads and ``smem`` bytes of dynamic shared
     memory of the shared-memory huge body (``counting``: of its counting
-    entries) that an SM holds at once: on the card its own answer
+    entries; ``hops``: of its ring form at that depth, 0 the grouped body)
+    that an SM holds at once: on the card its own answer
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, the least over the
     three entries; 0 where a block may not take ``smem``); off it an
     estimate by the kernel's register bound: HUGE_THREADS // threads."""
@@ -465,10 +482,11 @@ def huge_occupancy(itemsize: int, threads: int, smem: int, device,
         name = "uniform_huge_count_occupancy" if counting else "uniform_huge_occupancy"
         fn = getattr(_build.load(), f"{name}_f{8 * itemsize}")
         with torch.cuda.device(device):
-            rc = fn(threads, smem, ctypes.byref(out))
+            rc = fn(threads, smem, hops, ctypes.byref(out))
         if rc != 0:
             raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed (code {rc}) "
-                               f"for the huge body at {threads} threads and {smem} B a block")
+                               f"for the huge body at {threads} threads and {smem} B a block "
+                               f"(ring hops {hops})")
         return out.value
     return max(1, HUGE_THREADS // threads)
 
@@ -637,6 +655,7 @@ class LaunchPlan:
     huge_pmax: int  # widest bucket of the huge table
     huge_smem_forward: int  # shared memory a block of the forward launch
     huge_smem_backward: int  # the same, backward and run
+    huge_ring_hops: int  # the ring form's depth where the plan gives it, else 0 (:func:`_huge_plan`)
     cluster_table: torch.Tensor  # int64 [nr_cluster, TABLE_COLUMNS]: the cluster body's
     nr_cluster: int
     cluster_blocks: int  # cluster_size a column
@@ -661,6 +680,15 @@ class LaunchPlan:
     run_l2_blocks: int
     run_l2_split: int
     run_l2_columns: int
+
+    @property
+    def huge_hops(self) -> int:
+        """The hops of the ring form that the shared-memory huge launch
+        takes, 0 for the grouped body: the ring form only where every bucket
+        of the huge table is no wider than its threads (one slot a thread;
+        a plan whose threads were changed after it was built falls back to
+        the grouped body, whose shared memory the ring form's covers)."""
+        return self.huge_ring_hops if self.huge_pmax <= self.huge_threads else 0
 
 
 def cell_bytes(P: int, itemsize: int) -> int:
@@ -738,17 +766,23 @@ def _offsets(shapes):
     return tuple(rows), tuple(nodes), tuple(arcs), e, n, a
 
 
-def _huge_plan(shapes, itemsize: int, sms: int):
+def _huge_plan(shapes, itemsize: int, sms: int, ring: Optional[int] = None):
     """(threads a block, the backward's rows per bucket, shared memory of a
-    forward and of a backward block) of the shared-memory huge launch over
-    ``shapes``. An SM holds as many of its blocks as the columns ask for and
-    the launch's shared memory (its widest bucket's) lets reside; they share
-    the SM's 1,024 threads of 64 registers. The backward keeps two rows where
-    that many blocks still fit with them. The forward gathers cft of hop h+1
-    through L1 (staged in shared memory it was slower: chip_smoke.py
-    --huge-split; PERF.md section 6)."""
+    forward and of a backward block, the ring form's hops or 0) of the
+    shared-memory huge launch over ``shapes``. An SM holds as many of its
+    blocks as the columns ask for and the grouped body's shared memory (its
+    widest bucket's) lets reside; they share the SM's 1,024 threads of 64
+    registers. The backward keeps two rows where that many blocks still fit
+    with them. The forward gathers cft of hop h+1 through L1 (staged in
+    shared memory one hop ahead at 4 to 16 slots a thread it was slower:
+    chip_smoke.py --huge-split; PERF.md section 6). Where no bucket is wider
+    than the threads (one slot a thread, where the hop waits on its loads)
+    the launch takes the ring form instead, HUGE_RING_HOPS hops ahead
+    (``ring``: that many, or False / 0 for the grouped body), and its shared
+    memory; at most 1,024 slots a block, the stages of every depth up to
+    HUGE_RING_MAX leave the same blocks room to reside."""
     if not shapes:
-        return HUGE_THREADS, [], 0, 0
+        return HUGE_THREADS, [], 0, 0, 0
     cols = sum(B for _, H, B in shapes if H > 0)
     fwd = max(huge_smem_bytes(P, itemsize) for P, _, _ in shapes)
     resident = max(1, min(-(-cols // sms), SM_SMEM // (fwd + BLOCK_SMEM_RESERVED)))
@@ -760,8 +794,15 @@ def _huge_plan(shapes, itemsize: int, sms: int):
                 and resident * (nbytes + BLOCK_SMEM_RESERVED) <= SM_SMEM)
 
     rows = [2 if two_rows(P) else 1 for P, _, _ in shapes]
+    hops = HUGE_RING_HOPS if ring is None else int(ring)
+    if not 0 <= hops <= HUGE_RING_MAX:
+        raise ValueError(f"the huge body's ring takes 0 to {HUGE_RING_MAX} hops, not {ring}")
+    pmax = max(P for P, _, _ in shapes)
+    if hops and pmax <= threads:
+        return (threads, rows, huge_smem_bytes(pmax, itemsize, ring=hops),
+                huge_smem_bytes(pmax, itemsize, two_rows=True, ring=hops), hops)
     bwd = max(huge_smem_bytes(P, itemsize, two_rows=r == 2) for (P, _, _), r in zip(shapes, rows))
-    return threads, rows, fwd, bwd
+    return threads, rows, fwd, bwd, 0
 
 
 def _route_huge_table(shapes, body, itemsize: int, sms: int):
@@ -932,7 +973,8 @@ def _cluster_plan(shapes, itemsize: int, sms: int, device: str, size: Optional[i
 def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
                  wide_stages: Optional[int], wide_warps: Optional[int],
                  huge_from: Optional[int], huge_body: Optional[str],
-                 cluster_size: Optional[int], l2_split: Optional[int]) -> LaunchPlan:
+                 cluster_size: Optional[int], l2_split: Optional[int],
+                 huge_ring: Optional[int]) -> LaunchPlan:
     sms = sm_count(device)
     body = [body_of(P, itemsize, B, sms, huge_from) for P, _, B in shapes]
     # huge_body forces one body on all three entries ("huge": the width's body
@@ -987,7 +1029,8 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
         P, H, B = shapes[k]
         wide_table[r] = (P, H, B, wide_block, rows[k], nodes[k], arcs[k], wide_depth)
         wide_block += -(-B // warps) if H > 0 else 0
-    threads, huge_rows, smem_fwd, smem_bwd = _huge_plan([shapes[k] for k in huge], itemsize, sms)
+    threads, huge_rows, smem_fwd, smem_bwd, ring_hops = _huge_plan(
+        [shapes[k] for k in huge], itemsize, sms, huge_ring)
     huge_table = np.zeros((len(huge), TABLE_COLUMNS), dtype=np.int64)
     huge_block = 0
     for r, k in enumerate(huge):
@@ -1019,7 +1062,7 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
         huge_table=torch.from_numpy(huge_table).to(device), nr_huge=len(huge),
         huge_blocks=huge_block, huge_threads=threads,
         huge_pmax=max((shapes[k][0] for k in huge), default=0),
-        huge_smem_forward=smem_fwd, huge_smem_backward=smem_bwd,
+        huge_smem_forward=smem_fwd, huge_smem_backward=smem_bwd, huge_ring_hops=ring_hops,
         cluster_table=torch.from_numpy(cluster_table).to(device), nr_cluster=len(clustered),
         cluster_blocks=cluster_block, cluster_size=C, cluster_threads=cl_threads,
         cluster_pmax=max((shapes[k][0] for k in clustered), default=0),
@@ -1036,7 +1079,8 @@ def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
 def launch_plan(shapes, dtype: torch.dtype, device, stages: Optional[int] = None,
                 wide_stages: Optional[int] = None, wide_warps: Optional[int] = None,
                 huge_from: Optional[int] = None, huge_body: Optional[str] = None,
-                cluster_size: Optional[int] = None, l2_split: Optional[int] = None) -> LaunchPlan:
+                cluster_size: Optional[int] = None, l2_split: Optional[int] = None,
+                huge_ring: Optional[int] = None) -> LaunchPlan:
     """The plan of one launch per body over buckets of ``shapes`` ((P, H, B)
     each) whose buffers lie flat, bucket after bucket. Built once per
     distinct argument list (cached). The other arguments force what the plan
@@ -1051,11 +1095,14 @@ def launch_plan(shapes, dtype: torch.dtype, device, stages: Optional[int] = None
     bucket a block holds), ``cluster_size`` the blocks of its
     clusters (2, 4, 8 or 16), ``l2_split`` the blocks a column of the L2
     body (1 to L2_MAX_SPLIT; more than the card holds at once is refused at
-    the launch)."""
+    the launch), ``huge_ring`` the hops of the shared-memory huge body's ring
+    form where it takes that form (1 to HUGE_RING_MAX; False or 0: the
+    grouped body on the same table)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     return _launch_plan(tuple(tuple(int(x) for x in s) for s in shapes), itemsize,
                         str(torch.device(device)), stages, wide_stages, wide_warps,
-                        huge_from, huge_body, cluster_size, l2_split)
+                        huge_from, huge_body, cluster_size, l2_split,
+                        None if huge_ring is None else int(huge_ring))
 
 
 def plan_scratch_bytes(plan: LaunchPlan, itemsize: int) -> Tuple[int, int, int]:

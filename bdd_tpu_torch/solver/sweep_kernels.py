@@ -66,6 +66,12 @@ end, where the counting entries hold as many blocks an SM as the body's own
 own (PERF.md section 6), so a traced slice takes it only that often.
 ``huge_wait_cycles`` reads the sums (``LAUNCHES`` counts the launches under
 ``_huge``).
+
+``HUGE_RING`` counts by entry the launches of the shared-memory huge body
+that take its ring form (``LaunchPlan.huge_hops``: every bucket of the huge
+table no wider than its threads; ``LAUNCHES`` counts them under ``_huge``
+with the others). The ring form's counting entry feeds ``HUGE_WAIT`` as the
+grouped body's does.
 """
 from __future__ import annotations
 
@@ -103,6 +109,7 @@ HUGE_WAIT: Dict[torch.device, torch.Tensor] = {}  # the same, of the huge body
 L2_COUNTED = {kernel: 0 for kernel in L2_ENTRIES}  # launches of the counting entries
 HUGE_COUNT_EVERY = 50  # a profiled launch of the huge body in this many takes its counting entry
 HUGE_PROFILED = {kernel: 0 for kernel in L2_ENTRIES}  # huge launches made under a profiler
+HUGE_RING = {kernel: 0 for kernel in L2_ENTRIES}  # huge launches that took the ring form
 _COUNTING_FITS: Dict[tuple, bool] = {}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -111,7 +118,7 @@ def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     for k in L2_ENTRIES:
-        L2_COUNTED[k] = HUGE_PROFILED[k] = 0
+        L2_COUNTED[k] = HUGE_PROFILED[k] = HUGE_RING[k] = 0
     for t in (*L2_WAIT.values(), *HUGE_WAIT.values()):
         t.zero_()
 
@@ -145,13 +152,13 @@ def huge_wait_cycles() -> Dict[str, Tuple[int, int]]:
     return _wait_cycles(HUGE_WAIT)
 
 
-def _counting_fits(occupancy, *args) -> bool:
+def _counting_fits(occupancy, *args, **kw) -> bool:
     """Whether a body's counting entries hold as many blocks an SM as its own
     entries, by which the plan placed the body: ``occupancy`` is
-    ``l2_occupancy`` or ``huge_occupancy``, asked of ``args``."""
-    key = (occupancy.__name__, *args)
+    ``l2_occupancy`` or ``huge_occupancy``, asked of ``args`` and ``kw``."""
+    key = (occupancy.__name__, *args, *sorted(kw.items()))
     if key not in _COUNTING_FITS:
-        _COUNTING_FITS[key] = (occupancy(*args, counting=True) >= occupancy(*args))
+        _COUNTING_FITS[key] = (occupancy(*args, counting=True, **kw) >= occupancy(*args, **kw))
     return _COUNTING_FITS[key]
 
 
@@ -224,11 +231,11 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
         calls.append((kernel + WIDE, (
             plan.wide_table.data_ptr(), plan.nr_wide, plan.wide_blocks, plan.wide_warps,
             plan.wide_warp_bytes, plan.wide_smem_bytes, *buffers)))
-    if plan.huge_blocks:
+    if plan.huge_blocks:  # the ring form where plan.huge_hops
         smem = plan.huge_smem_forward if kernel == "uniform_forward" else plan.huge_smem_backward
         calls.append((kernel + HUGE, (
             plan.huge_table.data_ptr(), plan.nr_huge, plan.huge_blocks, plan.huge_threads,
-            plan.huge_pmax, smem, *buffers)))
+            plan.huge_pmax, smem, plan.huge_hops, *buffers)))
     # the run-only entry takes its own route (layout.run_body_of)
     if plan.run_cluster_blocks if kernel == RUN else plan.cluster_blocks:
         smem = (plan.cluster_smem_forward if kernel == "uniform_forward"
@@ -260,7 +267,8 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
     itemsize = lo.element_size()
     counting = {}
     if plan.huge_blocks and all(
-            _counting_fits(huge_occupancy, itemsize, plan.huge_threads, smem, lo.device)
+            _counting_fits(huge_occupancy, itemsize, plan.huge_threads, smem, lo.device,
+                           hops=plan.huge_hops)
             for smem in (plan.huge_smem_forward, plan.huge_smem_backward)):
         counting[HUGE] = ([n for n, _, _ in calls].index(kernel + HUGE),
                           _wait_acc(HUGE_WAIT, kernel, lo.device))
@@ -291,6 +299,7 @@ def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha
 
     launch.keep = keep
     launch.counts = tuple(name for name, _, _ in calls)
+    launch.ring = kernel if plan.huge_blocks and plan.huge_hops else None
     return launch
 
 
@@ -298,6 +307,8 @@ def _launch_counted(launch) -> None:
     launch()
     for name in launch.counts:
         LAUNCHES[name] += 1
+    if launch.ring:
+        HUGE_RING[launch.ring] += 1
 
 
 def _fresh_outputs(lo, frontier):

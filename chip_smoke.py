@@ -4,7 +4,9 @@
 Usage, from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --huge-split [part ...]`` times variants of the
 huge body, the route on a whole huge table, the cluster body's cluster
-sizes and the L2 body's barriers instead: see ``huge_split``)
+sizes and the L2 body's barriers instead: see ``huge_split``;
+``python3 chip_smoke.py --huge-ring`` the huge body's ring form on the
+gap_d60900 layout: see ``huge_ring``)
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. card: CUDA present, card name and power limit; build both libraries of
@@ -50,8 +52,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      4,096 and more columns: --huge-split columns), with 20 counted
      iterations; the huge body's counting entries on knapsack48 and on the
      benchmark's gap_d60900.dual layout (60 rows of 1,024 slots over 900
-     hops), bit for bit against the uncounted launches and timed beside
-     them; knapsack48 and knapsack32 in one layout (one huge table of
+     hops, the ring form), bit for bit against the uncounted launches and
+     timed beside them (``--huge-ring``: that layout's ring form beside the
+     grouped body and at each ring depth); knapsack48 and knapsack32 in one layout (one huge table of
      388 columns); 132 rows of 48
      variables with coefficients up to 2,000 (P = 32,768, past a block's
      shared memory) on the cluster body (a cluster of blocks a column, the
@@ -1133,6 +1136,120 @@ def gap_counted(card, errs, times) -> dict:
     return counted_vs_plain("gap_d60900", host, gap.objective(), card, errs, times, body=HUGE)
 
 
+# the ring form's depths timed on the gap_d60900 layout (``launch_plan``'s
+# ``huge_ring``): layout.HUGE_RING_HOPS is the one chosen from them
+RING_DEPTHS = (1, 2, 3, 4)
+
+
+def gap_forms(card, errs, times, flush, reps=20) -> list:
+    """The benchmark's gap_d60900.dual layout (float32, packed as the harness
+    builds it: 64 columns of 1,024 slots over 900 hops on the shared-memory
+    huge body, one slot a thread): its route's ring form and the grouped body
+    forced on the same table (``huge_ring=False``), all three entries, each
+    launch held to the plain versions and to the other form bit for bit and
+    timed warm and cold in turns (ring, grouped, grouped, ring) beside the
+    byte bound; then the ring at every depth of RING_DEPTHS (a forced
+    ``huge_ring``), bit for bit, timed in turns with the route's depth.
+    Returns the two paths of the kernels line ("gap_d60900 ring",
+    "gap_d60900 grouped"; the launches one an entry)."""
+    import torch
+    from bdd_tpu_torch.native import NativeHost
+    from bdd_tpu_torch.solver import layout
+    from bdd_tpu_torch.solver import sweep_kernels as sk
+    from bdd_tpu_torch.solver import uniform as uf
+    from portbench.generators import yagiura_gap
+
+    gap = NativeHost(yagiura_gap.make(GAP_D60900, MKNAP_SEED).lp_text(), "input")
+    host = layout.from_native_host(gap, torch.float32, "cuda")
+    geom, route = host.geom, host.geom.plan
+    if (route.huge_blocks, route.huge_hops) != (64, layout.HUGE_RING_HOPS):
+        fail(f"gap_d60900's rows {route.shapes} take {route.huge_blocks} huge blocks at ring "
+             f"depth {route.huge_hops}; expected 64 on the ring form")
+    st = uf.iterations(geom, uf.init_uniform_state(host, gap.objective()), 5)
+    lo, hi, mm, cft = st.flat
+    dl, dh = uf.exchange_delta_flat(geom, mm)
+    ref_f = uf.sweep_per_bucket(uf.bucket_forward_iteration, geom, lo, hi, cft, 0.5, dl, dh)
+    ref_b = uf.sweep_per_bucket(uf.bucket_backward_iteration, geom, ref_f[0], ref_f[1],
+                                ref_f[3], 0.5, dl, dh)
+    refs = {"uniform_forward": ref_f, "uniform_backward": ref_b, RUN: [geom.flatten_nodes([
+        uf.bucket_backward_run(g, a, b)
+        for g, a, b in zip(geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])]}
+    shapes = bdd_shapes(geom.buckets)
+    bounds = {"uniform_forward": launch_bytes(shapes, 4, True),
+              "uniform_backward": launch_bytes(shapes, 4, False), RUN: run_bytes(shapes, 4)}
+
+    def launches(plan):
+        """entry -> (launch, its outputs as a list), each checked once:
+        counted, bit for bit against the plain versions"""
+        out = {
+            "uniform_forward": sk.prepare_fused_launch("uniform_forward", geom, lo, hi, cft, 0.5,
+                                                       dl, dh, plan),
+            "uniform_backward": sk.prepare_fused_launch("uniform_backward", geom, ref_f[0],
+                                                        ref_f[1], ref_f[3], 0.5, dl, dh, plan),
+            RUN: sk.prepare_run_launch(geom, lo, hi, plan)}
+        out = {k: (launch, [res] if k == RUN else list(res)) for k, (launch, res) in out.items()}
+        for name, (launch, res) in out.items():
+            sk._launch_counted(launch)
+            torch.cuda.synchronize()
+            errs[name + HUGE] = max(errs[name + HUGE], compare(res, refs[name], TOL["float32"]))
+            if not all(same_bits(a, b) for a, b in zip(res, refs[name])):
+                fail(f"gap_d60900 {name} at ring depth {plan.huge_hops}: not bit for bit the "
+                     f"plain version's")
+        return out
+
+    forms = {"ring": route,
+             "grouped": layout.launch_plan(route.shapes, torch.float32, "cuda", huge_ring=False)}
+    if forms["grouped"].huge_hops != 0:
+        fail("huge_ring=False left the gap layout on the ring form")
+    paths = []
+    for form, plan in forms.items():
+        sk.reset_launch_counts()
+        forms[form] = launches(plan)
+        rings = dict(sk.HUGE_RING)
+        if rings != {k: int(form == "ring") for k in rings}:
+            fail(f"gap_d60900 {form}: HUGE_RING counted {rings}")
+        paths.append({"at": f"gap_d60900 {form}", "dt": "float32", "suffix": HUGE,
+                      "launches": {k + HUGE: sk.LAUNCHES[k + HUGE] for k in refs},
+                      "iterations": 0})
+    for name in refs:
+        turns = {"ring": [], "grouped": []}
+        for form in ("ring", "grouped", "grouped", "ring"):
+            launch = forms[form][name][0]
+            turns[form].append((cuda_ms(launch, reps), cuda_ms(launch, max(2, reps // 10), flush)))
+        bound_ms = 1e3 * bounds[name] / HBM_BYTES_PER_S
+        for form, ms in turns.items():
+            warm, cold = (sum(x[i] for x in ms) / len(ms) for i in (0, 1))
+            times.setdefault((f"gap_d60900 {form}", "float32"), {})[name] = {
+                "ms": warm, "cold_ms": cold, "plain_ms": None, "bytes": bounds[name],
+                "bound_ms": bound_ms}
+        print(f"[ring] gap_d60900 float32 {name} (buckets {[tuple(s) for s in route.shapes]}): "
+              f"both forms match the plain versions bit for bit; in turns ring / grouped / "
+              f"grouped / ring warm "
+              + " / ".join(f"{turns[f][i][0]:.4f}" for f, i in (("ring", 0), ("grouped", 0),
+                                                                ("grouped", 1), ("ring", 1)))
+              + f" ms, cold {turns['ring'][0][1]:.4f} / {turns['grouped'][0][1]:.4f} ms; bound "
+              f"{bound_ms:.4f} ms; ring {100 * bound_ms / turns['ring'][0][0]:.2f}% of it, "
+              f"grouped {100 * bound_ms / turns['grouped'][0][0]:.2f}%; ring depth "
+              f"{route.huge_hops}, smem {route.huge_smem_forward} / {route.huge_smem_backward} B "
+              f"{card}", flush=True)
+    # the depths: each against the route's, in turns
+    for hops in RING_DEPTHS:
+        deep = launches(layout.launch_plan(route.shapes, torch.float32, "cuda", huge_ring=hops))
+        row = []
+        for name in refs:
+            ms = {}
+            for which, launch in (("route", forms["ring"][name][0]), ("depth", deep[name][0]),
+                                  ("depth", deep[name][0]), ("route", forms["ring"][name][0])):
+                ms.setdefault(which, []).append(cuda_ms(launch, reps))
+            row.append(f"{name} {sum(ms['depth']) / 2:.4f} ms (route's "
+                       f"{sum(ms['route']) / 2:.4f})")
+        print(f"[ring] gap_d60900 float32 depth {hops}: bit for bit; in turns with the route's "
+              f"depth {route.huge_hops}: {'; '.join(row)} {card}", flush=True)
+    del host, geom, forms, refs
+    torch.cuda.empty_cache()
+    return paths
+
+
 def phase_huge(card, errs, times, flush):
     """Phase 6, huge rows: knapsack rows wider than 8,192 slots through the
     huge body (a block a column, rows in shared memory, a launch of its own
@@ -1148,7 +1265,7 @@ def phase_huge(card, errs, times, flush):
     blocks, and on the benchmark's mknap.t50.dual layout, the L2 body's
     counting entries (``counted_vs_plain``), and the shared-memory huge
     body's on knapsack48 and the benchmark's gap_d60900.dual layout
-    (``gap_counted``); the benchmark's mknap.t25.dual
+    (``gap_counted``; the ring form's there); the benchmark's mknap.t25.dual
     layout (5 rows a block holds) on the cluster body by the route, the huge
     and the L2 body forced beside it, and its run's counting entry. Returns the paths of the
     kernels line: knapsack48's float64 solve, knapsack32's, the counted
@@ -4159,6 +4276,32 @@ def huge_split(parts=()) -> None:
     _build._LIB = None
 
 
+def huge_ring() -> None:
+    """``--huge-ring``: the shared-memory huge body's ring form alone, on the
+    benchmark's gap_d60900 layout: its counting entries (``gap_counted``: bit
+    for bit against the uncounted launches, and what they cost), both forms
+    and the ring's depths (``gap_forms``); then the kernels line of those
+    paths."""
+    import torch
+    from bdd_tpu_torch import _build
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: --huge-ring needs an NVIDIA GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    card = f"[{smi}]"
+    _build.build_all()
+    _build.load()
+    errs = {name + suffix: 0.0 for name in KERNELS + (RUN,) for suffix in BODIES}
+    times = {}
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    paths = [gap_counted(card, errs, times)]
+    paths += gap_forms(card, errs, times, flush)
+    del flush
+    finish(paths, errs, times)
+
+
 def main() -> None:
     # the native C++ baseline's OpenMP pool reads these when first loaded
     for k, v in (("OMP_NUM_THREADS", str(os.cpu_count() or 4)), ("OMP_WAIT_POLICY", "active")):
@@ -4376,5 +4519,7 @@ if __name__ == "__main__":
         sharded_rank(sys.argv[2:])
     elif sys.argv[1:2] == ["--huge-split"]:
         huge_split(sys.argv[2:])
+    elif sys.argv[1:2] == ["--huge-ring"]:
+        huge_ring()
     else:
         main()

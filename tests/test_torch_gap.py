@@ -116,3 +116,84 @@ def test_d60900_plans_huge_and_narrow_blocks_alone(dtype):
     assert plan.wide_blocks == plan.cluster_blocks == plan.run_cluster_blocks == 0
     assert plan.l2_blocks == plan.run_l2_blocks == 0
     assert layout.huge_scratch(plan, dtype, "cpu") is None
+
+
+def ring_layout_bytes(P: int, itemsize: int, hops: int, forward: bool) -> int:
+    """The ring form's shared memory as uniform_sweep.cu's RingLayout carves
+    it: the forward's row of keys or the backward's two rows (pad16 of P
+    values each), 64 values of partials, hops + 1 stages of the arc record
+    (pad16(4P)), a frontier row and HUGE_SCALARS values."""
+    def pad16(x):
+        return -(-x // 16) * 16
+
+    row = pad16(P * itemsize)
+    stage = pad16(4 * P) + row + layout.HUGE_SCALARS * itemsize
+    return (1 if forward else 2) * row + 64 * itemsize + (hops + 1) * stage
+
+
+D60900 = {"d60900": [(2, 60, 1024), (1024, 900, 64)],
+          "small": [(2, SMALL["agents"], SMALL["jobs"]), (1024, SMALL["jobs"], 8)]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("size", list(D60900))
+def test_gap_capacity_rows_take_the_ring_form(size, dtype):
+    """The capacity rows (1,024 slots at 1,024 threads: one slot a thread)
+    take the huge body's ring form at HUGE_RING_HOPS, its shared memory the
+    kernel's layout; ``huge_ring=False`` keeps the grouped body on the same
+    table, and ``huge_ring`` forces the depth (1 to HUGE_RING_MAX)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    shapes = D60900[size]
+    plan = layout.launch_plan(shapes, dtype, "cpu")
+    S = layout.HUGE_RING_HOPS
+    assert (plan.nr_huge, plan.huge_pmax, plan.huge_threads) == (1, 1024, 1024)
+    assert plan.huge_hops == plan.huge_ring_hops == S
+    assert plan.huge_smem_forward == ring_layout_bytes(1024, itemsize, S, True) == (
+        layout.huge_smem_bytes(1024, itemsize, ring=S))
+    assert plan.huge_smem_backward == ring_layout_bytes(1024, itemsize, S, False) == (
+        layout.huge_smem_bytes(1024, itemsize, two_rows=True, ring=S))
+    grouped = layout.launch_plan(shapes, dtype, "cpu", huge_ring=False)
+    assert (grouped.huge_hops, grouped.huge_ring_hops, grouped.huge_threads) == (0, 0, 1024)
+    assert grouped.huge_smem_forward == layout.huge_smem_bytes(1024, itemsize)
+    assert grouped.huge_smem_backward == layout.huge_smem_bytes(1024, itemsize, two_rows=True)
+    assert torch.equal(grouped.huge_table, plan.huge_table)
+    for hops in range(1, layout.HUGE_RING_MAX + 1):
+        deep = layout.launch_plan(shapes, dtype, "cpu", huge_ring=hops)
+        assert deep.huge_hops == hops
+        assert deep.huge_smem_backward == ring_layout_bytes(1024, itemsize, hops, False)
+        assert deep.huge_smem_backward <= layout.MAX_DYNAMIC_SMEM
+    with pytest.raises(ValueError, match="ring"):
+        layout.launch_plan(shapes, dtype, "cpu", huge_ring=layout.HUGE_RING_MAX + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shapes,threads,hops", [
+    ([(16384, 48, 132)], 1024, 0),                   # knapsack48
+    ([(8192, 32, 256)], 512, 0),                     # knapsack32
+    ([(16384, 48, 132), (8192, 32, 256)], 1024, 0),  # the mixed table of 388 columns
+    ([(1024, 3, 8), (2048, 2, 3)], 1024, 0),         # one bucket past the threads
+    ([(1056, 3, 8)], 1024, 0),
+    ([(1024, 3, 8)], 1024, layout.HUGE_RING_HOPS),
+    ([(544, 3, 264)], 512, 0),                       # two blocks an SM: 512 threads
+    ([(512, 3, 264)], 512, layout.HUGE_RING_HOPS),
+    ([(40, 2, 3), (1000, 5, 2)], 1024, layout.HUGE_RING_HOPS),
+], ids=["knapsack48", "knapsack32", "mixed388", "past-threads", "P1056", "P1024", "P544-512",
+        "P512-512", "ragged"])
+def test_ring_form_exactly_where_no_bucket_is_wider_than_the_threads(shapes, threads, hops,
+                                                                      dtype):
+    """The plan gives the huge launch the ring form exactly where its
+    widest bucket is no wider than its threads (huge_pmax <= huge_threads),
+    the grouped body elsewhere: knapsack48, knapsack32 and their mixed table
+    of 388 columns keep it. Every bucket forced onto the huge body
+    (``huge_from``); the run takes the same form."""
+    itemsize = torch.finfo(dtype).bits // 8
+    plan = layout.launch_plan(shapes, dtype, "cpu", huge_from=layout.NARROW_P + 1)
+    assert plan.nr_huge == len(shapes) and plan.huge_threads == threads
+    assert plan.huge_hops == hops == (layout.HUGE_RING_HOPS if plan.huge_pmax <= threads else 0)
+    if hops:
+        widest = max(P for P, _, _ in shapes)
+        assert plan.huge_smem_forward == ring_layout_bytes(widest, itemsize, hops, True)
+        # the blocks the grouped body's plan lets reside fit with the ring's stages
+        resident = layout.HUGE_THREADS // threads
+        assert resident * (plan.huge_smem_backward + layout.BLOCK_SMEM_RESERVED) <= (
+            layout.SM_SMEM)

@@ -237,9 +237,17 @@ def random_costs(geom, rng, device):
     return draw(E, 0.02), draw(E, 0.02), draw(N, 0.2), draw(E, 0.05), draw(E, 0.05)
 
 
-def synthetic_host(shapes, dtype, device, seed=0, packed=True):
+def synthetic_host(shapes, dtype, device, seed=0, packed=True, padded=False):
+    """A host of random buckets of ``shapes``; ``padded``: the last column of
+    each packed bucket of more than one column emptied, as lane padding
+    leaves a column (no valid layer, no node, depth 0)."""
     rng = np.random.RandomState(seed)
     buckets = [random_bucket(P, H, B, rng, packed) for P, H, B in shapes]
+    for b in buckets if padded else ():
+        if b["depths"].size > 1:
+            b["layer_valid"][:, -1] = b["node_valid"][:, :, -1] = b["root_mask"][:, -1] = False
+            b["layer_var"][:, -1], b["alpha"][:, -1], b["layer_bdd"][:, -1] = 4, 0.0, -1
+            b["depths"][-1] = 0
     host = layout._build_host(buckets, np.ones(4, np.int64), 4, 4, len(buckets), dtype, device)
     return host, random_costs(host.geom, rng, device)
 
@@ -446,7 +454,7 @@ def test_mixed_layout_counts_a_narrow_and_a_wide_launch(cuda_device, precision):
 @pytest.mark.parametrize("shape", [(8, 7, 40), (64, 7, 9), (256, 5, 8), (33, 40, 7),
                                    (2048, 3, 2), (8200, 5, 3), (layout.HUGE_FROM + 3, 4, 3),
                                    (20001, 3, 2), (30000, 3, 2), (65536, 3, 2), (70000, 3, 2),
-                                   (320000, 3, 2)],
+                                   (320000, 3, 2), (layout.HUGE_FROM, 5, 3), (999, 4, 3)],
                          ids=lambda s: "P%d-H%d-B%d" % s)
 def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_costs, precision):
     """Outside what a solve produces: -inf deltas (inf - inf, so NaN costs
@@ -458,7 +466,9 @@ def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_c
     or the cluster body for float32 rows a block holds) and on the body of
     their width forced, all three entries: the
     shared-memory huge body where a block holds them, else the cluster body
-    where a cluster does."""
+    where a cluster does. Rows of 33 to 1,024 slots (1,024 by the route) run
+    on the huge body's ring form (one slot a thread) and on its grouped body
+    forced on the same table, all three entries."""
     dtype = torch.float32 if precision == "float" else torch.float64
     host, costs = synthetic_host([shape], dtype, cuda_device, seed=sum(shape))
     lo, hi, fr, dl, dh = nan_and_zero_costs(costs, zero_costs)
@@ -481,24 +491,31 @@ def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_c
     ref_run = uf.bucket_backward_run(g, args[1], args[2])
     assert_same_bits([run], [ref_run])
     itemsize = lo.element_size()
-    if g.P <= layout.WIDE_P or not layout.cluster_fits(g.P, itemsize):
-        return
-    force, suffix = (("huge", sk.HUGE) if layout.huge_fits(g.P, itemsize)
-                     else ("huge_cluster", sk.HUGE_CLUSTER))
-    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, huge_body=force)
-    assert plan.nr_huge + plan.nr_cluster == 1 and plan.nr_l2 == plan.nr_run_l2 == 0
-    for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
-                         ("uniform_backward", uf.bucket_backward_iteration)):
-        launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
-        assert launch.counts == (kernel + suffix,)
+    plans, suffix = [], sk.HUGE
+    if layout.NARROW_P < g.P <= layout.HUGE_THREADS:  # the ring form, the grouped body beside it
+        plans = [layout.launch_plan(geom.plan.shapes, dtype, cuda_device,
+                                    huge_from=layout.NARROW_P + 1, huge_ring=ring)
+                 for ring in (None, False)]
+        assert [p.huge_hops for p in plans] == [layout.HUGE_RING_HOPS, 0]
+    elif g.P > layout.WIDE_P and layout.cluster_fits(g.P, itemsize):
+        force, suffix = (("huge", sk.HUGE) if layout.huge_fits(g.P, itemsize)
+                         else ("huge_cluster", sk.HUGE_CLUSTER))
+        plans = [layout.launch_plan(geom.plan.shapes, dtype, cuda_device, huge_body=force)]
+        assert plans[0].nr_huge + plans[0].nr_cluster == 1
+        assert plans[0].nr_l2 == plans[0].nr_run_l2 == 0
+    for plan in plans:
+        for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
+                             ("uniform_backward", uf.bucket_backward_iteration)):
+            launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
+            assert launch.counts == (kernel + suffix,)
+            launch()
+            torch.cuda.synchronize()
+            assert_same_bits(out, twins_bucket_by_bucket(twin, geom, lo, hi, fr, 0.5, dl, dh))
+        launch, out = sk.prepare_run_launch(geom, lo, hi, plan)
+        assert launch.counts == (sk.RUN + suffix,)
         launch()
         torch.cuda.synchronize()
-        assert_same_bits(out, twins_bucket_by_bucket(twin, geom, lo, hi, fr, 0.5, dl, dh))
-    launch, out = sk.prepare_run_launch(geom, lo, hi, plan)
-    assert launch.counts == (sk.RUN + suffix,)
-    launch()
-    torch.cuda.synchronize()
-    assert_same_bits([out], [geom.flatten_nodes([ref_run])])
+        assert_same_bits([out], [geom.flatten_nodes([ref_run])])
 
 
 def nan_and_zero_costs(costs, zero_costs):
@@ -1294,8 +1311,8 @@ def test_huge_table_holds_the_route_as_a_whole(case):
         assert plan.huge_threads >= layout.HUGE_THREADS // layout.HUGE_F32_BLOCKS_SM
         assert -(-plan.huge_blocks // layout.SM_COUNT) * (
             plan.huge_smem_forward + layout.BLOCK_SMEM_RESERVED) <= layout.SM_SMEM
-    if plan.nr_huge:
-        assert plan.huge_smem_forward == max(layout.huge_smem_bytes(P, 4)
+    if plan.nr_huge:  # the ring form's where one slot a thread (1,024 slots few columns)
+        assert plan.huge_smem_forward == max(layout.huge_smem_bytes(P, 4, ring=plan.huge_hops)
                                              for (P, _, _), b in zip(shapes, bodies) if b == "huge")
     moved = len(shapes) - bodies.count("wide") - bodies.count("huge")
     forced = layout.launch_plan(shapes, torch.float32, "cpu", huge_from=layout.HUGE_FROM)
@@ -1694,6 +1711,141 @@ def test_huge_body_shared_memory_rows_equal_twins(cuda_device, precision):
 def run_ref(geom, lo, hi):
     return geom.flatten_nodes([uf.bucket_backward_run(g, a, b) for g, a, b in zip(
         geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])
+
+
+# ------------------------------------ the shared-memory huge body's ring form
+# Tables whose every bucket is no wider than a block's threads (one slot a
+# thread: the ring form), a bucket each of H = 1, 2, S, S + 1 and 900 hops
+# (S = HUGE_RING_HOPS): 1,024 slots at 1,024 threads (the gap layout's
+# capacity rows); ragged widths whose records and rows no 16-byte copy takes
+# (4P bytes of 4 and 8 modulo 16: the 4- and 8-byte copies); widths far below
+# the threads; the same at the threads the widest asks for (64)
+_S = layout.HUGE_RING_HOPS
+RING_TABLES = {
+    "P1024": ([(1024, 1, 2), (1024, 2, 3), (1024, _S, 1), (1024, _S + 1, 2), (1024, 900, 4)],
+              None),
+    "ragged": ([(999, 1, 1), (1001, 2, 2), (1022, _S, 1), (997, _S + 1, 3), (1001, 900, 2)],
+               None),
+    "small": ([(40, 1, 2), (33, 2, 5), (64, _S, 3), (48, _S + 1, 2), (40, 900, 2)], None),
+    "small-64-threads": ([(40, 1, 2), (33, 2, 5), (64, _S, 3), (48, _S + 1, 2), (40, 900, 2)],
+                         64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+@pytest.mark.parametrize("weights", ["scalar", "learned"])
+@pytest.mark.parametrize("table", list(RING_TABLES))
+def test_ring_form_equals_twins_and_the_grouped_body(cuda_device, monkeypatch, table, weights,
+                                                     precision):
+    """The shared-memory huge body's ring form over RING_TABLES: both
+    half-sweeps and the run, plain and counting forms (every profiled launch
+    counted where the counting entries hold as many blocks an SM), bit for bit the twins' and the grouped body's forced on the
+    same table and threads (``huge_ring=False``), with restart flags (packed
+    roots) and a padding column in every bucket of more than one; with
+    ``learned`` the learned path's per-layer alpha and omega arrays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dtype = torch.float32 if precision == "float" else torch.float64
+    shapes, threads = RING_TABLES[table]
+    host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=len(table),
+                                                padded=True)
+    geom = host.geom
+    plans = [layout.launch_plan(geom.plan.shapes, dtype, cuda_device,
+                                huge_from=layout.NARROW_P + 1, huge_ring=ring)
+             for ring in (None, False)]
+    if threads:
+        plans = [dataclasses.replace(p, huge_threads=threads) for p in plans]
+    assert [p.nr_huge for p in plans] == [len(shapes)] * 2
+    assert [p.huge_hops for p in plans] == [layout.HUGE_RING_HOPS, 0]
+    omega, alpha = 0.5, None
+    if weights == "learned":
+        rng = np.random.RandomState(5)
+        omega = torch.from_numpy(rng.uniform(0.1, 1.0, geom.plan.E)).to(cuda_device, dtype)
+        alpha = torch.from_numpy(rng.choice([1.0, 0.5, 1 / 3, 0.25], geom.plan.E)).to(
+            cuda_device, dtype)
+    refs = {
+        "uniform_forward": twins_bucket_by_bucket(uf.bucket_forward_iteration, geom, lo, hi, fr,
+                                                  omega, dl, dh, alpha),
+        "uniform_backward": twins_bucket_by_bucket(uf.bucket_backward_iteration, geom, lo, hi,
+                                                   fr, omega, dl, dh, alpha),
+        sk.RUN: [run_ref(geom, lo, hi)]}
+    monkeypatch.setattr(sk, "HUGE_COUNT_EVERY", 1)
+    for plan in plans:
+        # the counting entries where they hold as many blocks an SM (at 1,024
+        # threads always: one block an SM)
+        fits = all(sk._counting_fits(layout.huge_occupancy, lo.element_size(), plan.huge_threads,
+                                     smem, cuda_device, hops=plan.huge_hops)
+                   for smem in (plan.huge_smem_forward, plan.huge_smem_backward))
+        assert fits or threads
+        for kernel, ref in refs.items():
+            if kernel == sk.RUN:
+                launch, out = sk.prepare_run_launch(geom, lo, hi, plan)
+                out = [out]
+            else:
+                launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, omega, dl, dh,
+                                                      plan, alpha=alpha)
+            launch()
+            torch.cuda.synchronize()
+            assert_same_bits(out, ref)
+            for o in out:
+                o.fill_(7.0)
+            counted, cycles = sk.HUGE_PROFILED[kernel], sk.huge_wait_cycles()[kernel][1]
+            with profile(activities=[ProfilerActivity.CPU]):
+                launch()
+                torch.cuda.synchronize()
+            assert sk.HUGE_PROFILED[kernel] == counted + fits
+            assert (sk.huge_wait_cycles()[kernel][1] > cycles) == fits  # the counting form ran
+            assert_same_bits(out, ref)
+
+
+def test_split_variants_still_patch_the_grouped_body():
+    """chip_smoke.py's ``--huge-split`` variants replace exact lines of the
+    kernel source (SPLIT_PATCHES): every line they replace is there once
+    (the ring form left the grouped body's source as it was), so each
+    variant's source builds from this one."""
+    import chip_smoke
+    from bdd_tpu_torch import _build
+
+    with open(_build.SOURCE) as fh:
+        src = fh.read()
+    for name, pairs in chip_smoke.SPLIT_PATCHES.items():
+        assert all(src.count(old) == 1 for old, _ in pairs), name
+        assert chip_smoke.split_source(name) != src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float", "double"])
+def test_ring_form_refuses_a_bucket_wider_than_its_threads(cuda_device, precision):
+    """The ring form's entry refuses (code -2) a table whose widest bucket is
+    wider than its threads, and (-1) less shared memory than its layout's;
+    the wrapper hands a plan whose threads were cut below its widest bucket
+    to the grouped body, which then runs it bit for bit."""
+    dtype = torch.float32 if precision == "float" else torch.float64
+    host, (lo, hi, fr, dl, dh) = synthetic_host([(1024, 3, 2)], dtype, cuda_device, seed=3)
+    geom = host.geom
+    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, huge_from=layout.NARROW_P + 1)
+    assert plan.huge_hops == layout.HUGE_RING_HOPS
+    cut = dataclasses.replace(plan, huge_threads=512)
+    assert cut.huge_hops == 0 and cut.huge_ring_hops == layout.HUGE_RING_HOPS
+    launch, out = sk.prepare_fused_launch("uniform_forward", geom, lo, hi, fr, 0.5, dl, dh, cut)
+    launch()
+    torch.cuda.synchronize()
+    assert_same_bits(out, twins_bucket_by_bucket(uf.bucket_forward_iteration, geom, lo, hi, fr,
+                                                 0.5, dl, dh))
+    short = dataclasses.replace(plan, huge_smem_forward=plan.huge_smem_forward - 16)
+    launch, _ = sk.prepare_fused_launch("uniform_forward", geom, lo, hi, fr, 0.5, dl, dh, short)
+    with pytest.raises(RuntimeError, match="code -1"):
+        launch()
+    lib = sk._build.load()
+    suffix = "f32" if precision == "float" else "f64"
+    rc = getattr(lib, f"uniform_forward_huge_{suffix}")(
+        plan.huge_table.data_ptr(), plan.nr_huge, plan.huge_blocks, 512, 1024,
+        plan.huge_smem_forward, layout.HUGE_RING_HOPS, geom.arcs.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), dl.data_ptr(), dh.data_ptr(), geom.alpha.data_ptr(), None, 0.5,
+        fr.data_ptr(), *(torch.empty_like(x).data_ptr() for x in (lo, lo, lo, fr)),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == -2
 
 
 @pytest.mark.cuda

@@ -324,7 +324,7 @@ def test_huge_launch_stays_uncounted_where_the_counting_form_does_not_fit(monkey
     of the body's own (rows whose shared memory leaves no room for the
     counting form's static tallies: none at all), the huge launch keeps its
     own entry under a profiler."""
-    def occupancy(itemsize, threads, smem, device, counting=False):
+    def occupancy(itemsize, threads, smem, device, counting=False, hops=0):
         return 0 if counting else 1
 
     monkeypatch.setattr(sk, "huge_occupancy", occupancy)
@@ -361,6 +361,32 @@ def test_huge_and_l2_launches_both_count_under_a_profiler(monkeypatch):
     l2_row = sk.L2_WAIT[torch.device("cpu")][sk.L2_ENTRIES.index(kernel)].data_ptr()
     assert l2_args == plain[1][1][:-1] + (l2_row, 7)
     assert sk.L2_COUNTED == {k: int(k == kernel) for k in sk.L2_ENTRIES}
+
+
+@pytest.mark.parametrize("kernel", sk.L2_ENTRIES)
+def test_huge_ring_counts_the_ring_forms_launches_by_entry(monkeypatch, kernel):
+    """HUGE_RING counts by entry the counted launches that take the huge
+    body's ring form (1,024 slots at 1,024 threads), which hand the library
+    their hops after the shared memory, and none of the grouped body's (the
+    same table with ``huge_ring=False``; 16,384 slots); both count under
+    ``_huge`` in LAUNCHES, and reset_launch_counts clears HUGE_RING with the
+    other counters."""
+    rec = _Recorder()
+    monkeypatch.setattr(sk, "HUGE_RING", {k: 0 for k in sk.L2_ENTRIES})
+    monkeypatch.setattr(sk, "LAUNCHES", dict.fromkeys(sk.LAUNCHES, 0))
+    smem = "huge_smem_forward" if kernel == "uniform_forward" else "huge_smem_backward"
+    for shapes, forced, hops in (([(2, 3, 8), (1024, 4, 8)], {}, layout.HUGE_RING_HOPS),
+                                 ([(2, 3, 8), (1024, 4, 8)], {"huge_ring": False}, 0),
+                                 ([(16384, 2, 2)], {"huge_body": "huge"}, 0)):
+        plan, launch = _recorded_launcher(rec, monkeypatch, kernel, shapes, **forced)
+        sk._launch_counted(launch)
+        name, args = rec.calls[-1]
+        assert name == kernel + sk.HUGE + "_f32"
+        assert args[5:7] == (getattr(plan, smem), hops) and plan.huge_hops == hops
+    assert sk.HUGE_RING == {k: int(k == kernel) for k in sk.L2_ENTRIES}
+    assert sk.LAUNCHES[kernel + sk.HUGE] == 3
+    sk.reset_launch_counts()
+    assert sk.HUGE_RING == {k: 0 for k in sk.L2_ENTRIES}
 
 
 def test_huge_wait_cycles_sum_the_devices_and_reset_zeroes_them(monkeypatch):
