@@ -134,63 +134,40 @@ def build_all() -> Dict[str, str]:
     return {k: str(v) for k, v in out.items()}
 
 
+class Launch(ctypes.Structure):
+    """The library's record of one launch of a sweep body (uniform_sweep.cu,
+    ``Launch``; ``layout.BodyLaunch`` with its L2 scratch and counting
+    accumulator)."""
+
+    _fields_ = [("table", ctypes.c_void_p), ("body", ctypes.c_int), ("nr_buckets", ctypes.c_int),
+                ("blocks", ctypes.c_int), ("threads", ctypes.c_int),
+                ("smem_forward", ctypes.c_int), ("smem_backward", ctypes.c_int),
+                ("own", ctypes.c_int * 2), ("rows", ctypes.c_void_p),
+                ("partials", ctypes.c_void_p), ("counters", ctypes.c_void_p),
+                ("acc", ctypes.c_void_p)]
+
+
+class Buffers(ctypes.Structure):
+    """The buffers of a half-sweep or a run (uniform_sweep.cu, ``Buffers``)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "arcs", "lo", "hi", "din_lo", "din_hi", "alpha", "omega_arr")] + [
+        ("omega", ctypes.c_double)] + [(name, ctypes.c_void_p) for name in (
+            "frontier", "out_lo", "out_hi", "out_mm", "out_frontier")]
+
+
 def _declare(lib: ctypes.CDLL) -> None:
-    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    # (table, nr_buckets, nr_blocks, tile, pmax, smem_bytes, arcs, lo, hi,
-    #  din_lo, din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi,
-    #  out_mm, frontier out, stream); the wide entries read tile as the
-    # warps a block and pmax as the values a shared-memory row, the huge
-    # entries tile as the threads a block and take after smem_bytes the ring
-    # form's hops (0: the grouped body); the huge entries' counting forms
-    # ("_count") take the pair of accumulators before the stream
-    sig = [vp, i, i, i, i, i] + [vp] * 7 + [d] + [vp] * 6
-    huge_sig = sig[:6] + [i] + sig[6:]
+    i = ctypes.c_int
     for suffix in ("f32", "f64"):
-        for name in ("uniform_forward", "uniform_backward", "uniform_backward_run",
-                     "uniform_forward_wide", "uniform_backward_wide",
-                     "uniform_backward_run_wide"):
+        # (records, n, buffers, stream, index of the first record that failed)
+        for name in ("uniform_forward", "uniform_backward", "uniform_backward_run"):
             f = getattr(lib, f"{name}_{suffix}")
-            f.argtypes, f.restype = sig, i
-        for name in ("uniform_forward_huge", "uniform_backward_huge",
-                     "uniform_backward_run_huge"):
-            f = getattr(lib, f"{name}_{suffix}")
-            f.argtypes, f.restype = huge_sig, i
-            f = getattr(lib, f"{name}_count_{suffix}")
-            f.argtypes, f.restype = huge_sig[:-1] + [vp, vp], i
-        # the card's answer for the blocks an SM holds of the huge entries
-        # and of their counting forms: (threads, smem_bytes, hops, out)
-        for name in ("uniform_huge_occupancy", "uniform_huge_count_occupancy"):
-            f = getattr(lib, f"{name}_{suffix}")
-            f.argtypes, f.restype = [i, i, i, ctypes.POINTER(ctypes.c_int)], i
-    # the L2 body's entries: (table, nr_buckets, nr_blocks, threads, split,
-    #  nr_columns, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, omega,
-    #  frontier in, out_lo, out_hi, out_mm, frontier out, rows, partials,
-    #  counters, stream), their counting forms ("_count": the pair of
-    #  accumulators before the stream), and the card's answer for the blocks
-    #  an SM holds of each: (threads, out)
-    huge = [vp, i, i, i, i, i] + [vp] * 7 + [d] + [vp] * 9
-    for suffix in ("f32", "f64"):
-        for name in ("uniform_forward_huge_l2", "uniform_backward_huge_l2",
-                     "uniform_backward_run_huge_l2"):
-            f = getattr(lib, f"{name}_{suffix}")
-            f.argtypes, f.restype = huge, i
-            f = getattr(lib, f"{name}_count_{suffix}")
-            f.argtypes, f.restype = huge + [vp], i
-        for name in ("uniform_huge_l2_occupancy", "uniform_huge_l2_count_occupancy"):
-            f = getattr(lib, f"{name}_{suffix}")
-            f.argtypes, f.restype = [i, ctypes.POINTER(ctypes.c_int)], i
-    # the cluster body's entries: (table, nr_buckets, nr_blocks, threads,
-    #  cluster, pmax, smem_bytes, arcs, ..., frontier out, stream), and the
-    #  card's answer for its clusters: (cluster, threads, smem_bytes, pmax,
-    #  out)
-    cluster = [vp, i, i, i, i, i, i] + [vp] * 7 + [d] + [vp] * 6
-    for suffix in ("f32", "f64"):
-        for name in ("uniform_forward_huge_cluster", "uniform_backward_huge_cluster",
-                     "uniform_backward_run_huge_cluster"):
-            f = getattr(lib, f"{name}_{suffix}")
-            f.argtypes, f.restype = cluster, i
-        f = getattr(lib, f"uniform_huge_cluster_occupancy_{suffix}")
-        f.argtypes, f.restype = [i, i, i, i, ctypes.POINTER(ctypes.c_int)], i
+            f.argtypes = [ctypes.POINTER(Launch), i, ctypes.POINTER(Buffers), ctypes.c_void_p,
+                          ctypes.POINTER(i)]
+            f.restype = i
+        # (body, threads, smem_bytes, own0, own1, counting, out)
+        f = getattr(lib, f"uniform_occupancy_{suffix}")
+        f.argtypes, f.restype = [i] * 6 + [ctypes.POINTER(i)], i
 
 
 def load() -> ctypes.CDLL:

@@ -64,17 +64,69 @@
 //
 // Build: nvcc without --use_fast_math (isinf/isnan must hold) and with
 // -fmad=false (no FMA contraction), so results match the twin bit for bit.
-// Each launch runs on the caller's stream; the C entry points return
+// The C interface: one entry per half-sweep (and the run) and precision,
+// which takes the launches of a plan as records (Launch, one a body, in the
+// plan's order; solver/layout.py builds them, route and all) and the
+// buffers (Buffers), and launches the records in order on the caller's
+// stream; one occupancy entry per precision. A launch returns
 // cudaGetLastError(), -1 for a largest P with no instantiation (or an L2
-// launch without its scratch, or shared memory past the opt-in), -2 for a
-// tile that is not 32 or 64 columns (a block size the wide or huge body does
-// not take, a huge bucket too wide for a slot code, or an L2 split the body
-// does not take), or the code of a launch the card refused (a cooperative
-// L2 grid it cannot place at once).
+// launch without its scratch, a counting form without its accumulator, or
+// shared memory past the opt-in), -2 for a tile that is not 32 or 64
+// columns (a block size the wide or huge body does not take, a huge bucket
+// too wide for a slot code, a ring form over a bucket wider than its
+// threads, or an L2 split the body does not take), or the code of a launch
+// the card refused (a cooperative L2 grid it cannot place at once); the
+// entry stops at the first record that fails and names it.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
+
+// the bodies, in the order of layout.BODIES
+enum Body { BODY_NARROW, BODY_WIDE, BODY_HUGE, BODY_CLUSTER, BODY_L2 };
+
+// one launch of a sweep body over its table (layout.BodyLaunch; mirrored by
+// _build.Launch): the dynamic shared memory a block of the forward and of
+// the backward and run, the body's own two integers (narrow: tile, widest
+// bucket; wide: warps a block, bytes a warp; huge: widest bucket, ring hops
+// or 0; cluster: C, widest bucket; L2: G, columns), the L2 body's scratch
+// (the forward's key rows, the partials, the counters) and `acc`: null for
+// the body's own kernel, else the pair of 64-bit accumulators of its
+// counting form (the huge and the L2 body)
+struct Launch {
+  const void* table;
+  int body;
+  int nr_buckets;
+  int blocks;
+  int threads;
+  int smem_forward;
+  int smem_backward;
+  int own[2];
+  void* rows;
+  void* partials;
+  void* counters;
+  unsigned long long* acc;
+};
+
+// the buffers of a half-sweep or a run, flat over the buckets of every table
+// (mirrored by _build.Buffers); the run reads arcs, lo and hi and writes
+// out_frontier, its other buffers null
+struct Buffers {
+  const void* arcs;
+  const void* lo;
+  const void* hi;
+  const void* din_lo;
+  const void* din_hi;
+  const void* alpha;
+  const void* omega_arr;
+  double omega;
+  const void* frontier;
+  void* out_lo;
+  void* out_hi;
+  void* out_mm;
+  void* out_frontier;
+};
 
 namespace {
 
@@ -481,27 +533,20 @@ __global__ void __launch_bounds__(MAX_TILE) sweep_kernel(Args<T> a) {
   }
 }
 
+// the narrow body's launch of record `r` (tile, pmax: the widest bucket)
+// with the buffers `a` over its table, `smem_bytes` a block
 template <typename T, int MODE>
-int launch(const void* table, int nr_buckets, int nr_blocks, int tile, int pmax,
-           int smem_bytes, const void* arcs, const void* lo, const void* hi,
-           const void* din_lo, const void* din_hi, const void* alpha,
-           const void* omega_arr, double omega, const void* frontier, void* out_lo,
-           void* out_hi, void* out_mm, void* out_frontier, void* stream) {
-  if (nr_blocks == 0) return 0;
+int launch(const Args<T>& a, const Launch& r, int smem_bytes, cudaStream_t s) {
+  const int tile = r.own[0], pmax = r.own[1];
+  if (r.blocks == 0) return 0;
   if (tile != 32 && tile != MAX_TILE) return -2;
   if (pmax < 1 || pmax > 32 || (pmax & (pmax - 1))) return -1;  // 1, 2, 4, ..., 32
-  const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
-                  (const T*)lo,         (const T*)hi,       (const T*)din_lo,
-                  (const T*)din_hi,     (const T*)alpha,    (const T*)omega_arr,
-                  (T)omega,             (const T*)frontier, (T*)out_lo,
-                  (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
-  cudaStream_t s = (cudaStream_t)stream;
   if (pmax <= 2)
-    sweep_kernel<T, MODE, 2><<<nr_blocks, tile, smem_bytes, s>>>(a);
+    sweep_kernel<T, MODE, 2><<<r.blocks, tile, smem_bytes, s>>>(a);
   else if (pmax <= 8)
-    sweep_kernel<T, MODE, 8><<<nr_blocks, tile, smem_bytes, s>>>(a);
+    sweep_kernel<T, MODE, 8><<<r.blocks, tile, smem_bytes, s>>>(a);
   else
-    sweep_kernel<T, MODE, 32><<<nr_blocks, tile, smem_bytes, s>>>(a);
+    sweep_kernel<T, MODE, 32><<<r.blocks, tile, smem_bytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -790,12 +835,9 @@ __global__ void __launch_bounds__(32 * WIDE_MAX_WARPS) sweep_wide_kernel(Args<T>
 // as `launch`, over the table of the wide buckets: `warps` columns a block
 // (one warp each), `warp_bytes` of shared memory a warp
 template <typename T, int MODE>
-int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int warp_bytes,
-                int smem_bytes, const void* arcs, const void* lo, const void* hi,
-                const void* din_lo, const void* din_hi, const void* alpha,
-                const void* omega_arr, double omega, const void* frontier, void* out_lo,
-                void* out_hi, void* out_mm, void* out_frontier, void* stream) {
-  if (nr_blocks == 0) return 0;
+int launch_wide(const Args<T>& a, const Launch& r, int smem_bytes, cudaStream_t s) {
+  const int warps = r.own[0], warp_bytes = r.own[1];
+  if (r.blocks == 0) return 0;
   if (warps < 1 || warps > WIDE_MAX_WARPS) return -2;
   if (warp_bytes < 1 || warp_bytes % 16 || smem_bytes != warps * warp_bytes ||
       smem_bytes > MAX_DYNAMIC_SMEM)
@@ -808,13 +850,7 @@ int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int
     if (rc != cudaSuccess) return (int)rc;
     opted_in = true;
   }
-  const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
-                  (const T*)lo,         (const T*)hi,       (const T*)din_lo,
-                  (const T*)din_hi,     (const T*)alpha,    (const T*)omega_arr,
-                  (T)omega,             (const T*)frontier, (T*)out_lo,
-                  (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
-  sweep_wide_kernel<T, MODE><<<nr_blocks, 32 * warps, smem_bytes, (cudaStream_t)stream>>>(
-      a, warp_bytes);
+  sweep_wide_kernel<T, MODE><<<r.blocks, 32 * warps, smem_bytes, s>>>(a, warp_bytes);
   return (int)cudaGetLastError();
 }
 
@@ -845,7 +881,7 @@ int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int
 //    smallest block (a row of P values and a row of P slot codes) fits the
 //    227 KB a block may opt into: up to 29,016 slots in float32 and 19,316
 //    in float64 (layout.huge_fits). A launch takes it in one of two kernels
-//    by its table's widest bucket against its threads (LaunchPlan.huge_hops):
+//    by its table's widest bucket against its threads (the record's hops):
 //    the grouped body below (sweep_huge_kernel) where a thread holds more
 //    than one slot, its slot loops bound by bandwidth (knapsack rows of
 //    8,192 and 16,384 slots, 8 and 16 a thread); the ring form
@@ -857,9 +893,9 @@ int launch_wide(const void* table, int nr_buckets, int nr_blocks, int warps, int
 //    cluster of 2, 4, 8 or 16 blocks, each block a share of the row
 //    (layout.cluster_fits);
 //  * the L2 body (sweep_huge_l2_kernel, "_huge_l2", its own section
-//    below), for what no cluster holds (and where the plan is told so): its
+//    below), for what no cluster holds (and where a plan is built so): its
 //    rows in device memory, served from L2, each column spread over G blocks
-//    (LaunchPlan.l2_split) that meet at a hop barrier of the column in
+//    (the record's own[0]) that meet at a hop barrier of the column in
 //    device memory; the forward's key rows in a scratch buffer
 //    (layout.huge_scratch), relaxed by global atomicMin.
 //
@@ -1426,7 +1462,7 @@ __global__ void __launch_bounds__(HUGE_MAX_THREADS, 1)
 
 // ------------------------------------------- huge buckets: the ring form
 // A launch whose every huge bucket is no wider than a block's threads (the
-// plan's huge_pmax <= huge_threads, LaunchPlan.huge_hops: the 1,024-slot
+// widest bucket no wider than the threads, the record's hops: the 1,024-slot
 // capacity rows of a generalized assignment at 1,024 threads) takes the RING
 // form (sweep_huge_ring_kernel, LAUNCHES key "_huge" too) in place of the
 // grouped body above. Thread t owns slot t; threads past P take part in the
@@ -1759,13 +1795,11 @@ int huge_occupancy(int threads, int smem_bytes, int hops, int* blocks) {
 // HUGE_RING_MAX: the ring form at that depth (every bucket no wider than the
 // threads, `smem_bytes` at least its layout's). COUNT: the counting form,
 // into the pair `acc` (the blocks' barrier wait, their cycles).
-template <typename T, int MODE, bool COUNT = false>
-int launch_huge(const void* table, int nr_buckets, int nr_blocks, int threads, int pmax,
-                int smem_bytes, int hops, const void* arcs, const void* lo, const void* hi,
-                const void* din_lo, const void* din_hi, const void* alpha, const void* omega_arr,
-                double omega, const void* frontier, void* out_lo, void* out_hi, void* out_mm,
-                void* out_frontier, void* stream, unsigned long long* acc = nullptr) {
-  if (nr_blocks == 0) return 0;
+template <typename T, int MODE, bool COUNT>
+int launch_huge(const Args<T>& a, const Launch& r, int smem_bytes, cudaStream_t s) {
+  const int threads = r.threads, pmax = r.own[0], hops = r.own[1];
+  unsigned long long* const acc = r.acc;
+  if (r.blocks == 0) return 0;
   if (COUNT && acc == nullptr) return -1;
   if (threads < 32 || threads > HUGE_MAX_THREADS || threads % 32 || pmax >= (int)CODE_ZERO)
     return -2;
@@ -1775,27 +1809,21 @@ int launch_huge(const void* table, int nr_buckets, int nr_blocks, int threads, i
     return -1;
   const int rc = hops ? huge_opt_in<T, MODE, COUNT, true>() : huge_opt_in<T, MODE, COUNT, false>();
   if (rc != 0) return rc;
-  const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
-                  (const T*)lo,         (const T*)hi,       (const T*)din_lo,
-                  (const T*)din_hi,     (const T*)alpha,    (const T*)omega_arr,
-                  (T)omega,             (const T*)frontier, (T*)out_lo,
-                  (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
-  const cudaStream_t s = (cudaStream_t)stream;
   if (hops) {
     if constexpr (COUNT)
-      sweep_huge_ring_counted_kernel<T, MODE><<<nr_blocks, threads, smem_bytes, s>>>(a, hops, acc);
+      sweep_huge_ring_counted_kernel<T, MODE><<<r.blocks, threads, smem_bytes, s>>>(a, hops, acc);
     else
-      sweep_huge_ring_kernel<T, MODE><<<nr_blocks, threads, smem_bytes, s>>>(a, hops);
+      sweep_huge_ring_kernel<T, MODE><<<r.blocks, threads, smem_bytes, s>>>(a, hops);
   } else if constexpr (COUNT) {
-    sweep_huge_counted_kernel<T, MODE><<<nr_blocks, threads, smem_bytes, s>>>(a, acc);
+    sweep_huge_counted_kernel<T, MODE><<<r.blocks, threads, smem_bytes, s>>>(a, acc);
   } else {
-    sweep_huge_kernel<T, MODE><<<nr_blocks, threads, smem_bytes, s>>>(a);
+    sweep_huge_kernel<T, MODE><<<r.blocks, threads, smem_bytes, s>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------- huge buckets: the cluster body
-// Rows past a block's shared memory (layout.body_of: "huge_cluster", from
+// Rows past a block's shared memory (layout.route: "huge_cluster", from
 // 29,017 slots in float32 and 19,317 in float64 up to what a cluster of 16
 // holds: 309,312 / 231,552 slots) run a fifth launch: a CLUSTER of C blocks
 // (2, 4, 8 or 16; thread block clusters of sm_90, 16 a non-portable size)
@@ -2374,12 +2402,12 @@ int cluster_opt_in() {
 }
 
 cudaLaunchConfig_t cluster_config(int nr_blocks, int threads, int cluster, int smem_bytes,
-                                  void* stream, cudaLaunchAttribute* attr) {
+                                  cudaStream_t stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)nr_blocks);
   cfg.blockDim = dim3((unsigned)threads);
   cfg.dynamicSmemBytes = (size_t)smem_bytes;
-  cfg.stream = (cudaStream_t)stream;
+  cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = (unsigned)cluster;
   attr[0].val.clusterDim.y = 1;
@@ -2395,21 +2423,11 @@ cudaLaunchConfig_t cluster_config(int nr_blocks, int threads, int cluster, int s
 // code of the launch: four bytes up to CL_MAX_P, else eight. A cluster that
 // cannot be placed is refused by the launch, and the code returned.
 template <typename T, int MODE, typename W>
-int launch_cluster_code(const void* table, int nr_buckets, int nr_blocks, int threads,
-                        int cluster, int smem_bytes, const void* arcs, const void* lo,
-                        const void* hi, const void* din_lo, const void* din_hi,
-                        const void* alpha, const void* omega_arr, double omega,
-                        const void* frontier, void* out_lo, void* out_hi, void* out_mm,
-                        void* out_frontier, void* stream) {
+int launch_cluster_code(const Args<T>& a, const Launch& r, int smem_bytes, cudaStream_t s) {
   const int rc = cluster_opt_in<T, MODE, W>();
   if (rc) return rc;
-  const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
-                  (const T*)lo,         (const T*)hi,       (const T*)din_lo,
-                  (const T*)din_hi,     (const T*)alpha,    (const T*)omega_arr,
-                  (T)omega,             (const T*)frontier, (T*)out_lo,
-                  (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(nr_blocks, threads, cluster, smem_bytes, stream,
+  const cudaLaunchConfig_t cfg = cluster_config(r.blocks, r.threads, r.own[0], smem_bytes, s,
                                                 attr);
   const cudaError_t launched =
       cudaLaunchKernelEx(&cfg, sweep_huge_cluster_kernel<T, MODE, W>, a);
@@ -2418,12 +2436,8 @@ int launch_cluster_code(const void* table, int nr_buckets, int nr_blocks, int th
 }
 
 template <typename T, int MODE>
-int launch_huge_cluster(const void* table, int nr_buckets, int nr_blocks, int threads,
-                        int cluster, int pmax, int smem_bytes, const void* arcs, const void* lo,
-                        const void* hi, const void* din_lo, const void* din_hi,
-                        const void* alpha, const void* omega_arr, double omega,
-                        const void* frontier, void* out_lo, void* out_hi, void* out_mm,
-                        void* out_frontier, void* stream) {
+int launch_huge_cluster(const Args<T>& a, const Launch& r, int smem_bytes, cudaStream_t s) {
+  const int nr_blocks = r.blocks, threads = r.threads, cluster = r.own[0], pmax = r.own[1];
   if (nr_blocks == 0) return 0;
   if (threads < 32 || threads > HUGE_MAX_THREADS || threads % 32 || pmax < 1 ||
       pmax > (int)HUGE_SLOT_MASK)
@@ -2432,13 +2446,8 @@ int launch_huge_cluster(const void* table, int nr_buckets, int nr_blocks, int th
       nr_blocks % cluster)
     return -2;
   if (smem_bytes < 1 || smem_bytes > MAX_DYNAMIC_SMEM) return -1;
-  if (pmax <= CL_MAX_P)
-    return launch_cluster_code<T, MODE, unsigned>(
-        table, nr_buckets, nr_blocks, threads, cluster, smem_bytes, arcs, lo, hi, din_lo, din_hi,
-        alpha, omega_arr, omega, frontier, out_lo, out_hi, out_mm, out_frontier, stream);
-  return launch_cluster_code<T, MODE, unsigned long long>(
-      table, nr_buckets, nr_blocks, threads, cluster, smem_bytes, arcs, lo, hi, din_lo, din_hi,
-      alpha, omega_arr, omega, frontier, out_lo, out_hi, out_mm, out_frontier, stream);
+  if (pmax <= CL_MAX_P) return launch_cluster_code<T, MODE, unsigned>(a, r, smem_bytes, s);
+  return launch_cluster_code<T, MODE, unsigned long long>(a, r, smem_bytes, s);
 }
 
 // how many clusters of `cluster` blocks of `threads` threads and
@@ -2464,7 +2473,7 @@ int cluster_occupancy(int cluster, int threads, int smem_bytes, int pmax, int* c
 
 // ------------------------------------------- huge buckets: the L2 body
 // The L2 form of the huge body (see the huge section's note): each column of
-// an L2 bucket spread over G blocks (LaunchPlan.l2_split), its rows in device
+// an L2 bucket spread over G blocks (the record's own[0]), its rows in device
 // memory, served from L2. Block g of a column owns the chunks of L2_CHUNK
 // slots (a warp's) whose index is g modulo G; warp w of the block takes the
 // block's chunks w, w + warps, ..., a lane one slot of each
@@ -2868,12 +2877,12 @@ auto l2_kernel() {
 // cannot place at once is refused, and the code returned. COUNT: the
 // counting form, into the pair `acc` (the wait, the block cycles).
 template <typename T, int MODE, bool COUNT>
-int launch_huge_l2(const void* table, int nr_buckets, int nr_blocks, int threads, int split,
-                   int nr_columns, const void* arcs, const void* lo, const void* hi,
-                   const void* din_lo, const void* din_hi, const void* alpha,
-                   const void* omega_arr, double omega, const void* frontier, void* out_lo,
-                   void* out_hi, void* out_mm, void* out_frontier, void* rows, void* partials,
-                   void* counters, unsigned long long* acc, void* stream) {
+int launch_huge_l2(const Args<T>& a, const Launch& r, cudaStream_t s) {
+  const int nr_blocks = r.blocks, threads = r.threads, split = r.own[0], nr_columns = r.own[1];
+  void* const rows = r.rows;
+  void* const partials = r.partials;
+  void* const counters = r.counters;
+  unsigned long long* const acc = r.acc;
   if (nr_blocks == 0) return 0;
   if (COUNT && acc == nullptr) return -1;
   if (threads < 32 || threads > HUGE_MAX_THREADS || threads % 32) return -2;
@@ -2882,13 +2891,7 @@ int launch_huge_l2(const void* table, int nr_buckets, int nr_blocks, int threads
     return -2;
   if (MODE == MODE_FORWARD && rows == nullptr) return -1;
   if (split > 1 && (partials == nullptr || counters == nullptr)) return -1;
-  const Args<T> a{(const Bucket*)table, nr_buckets,         (const uint8_t*)arcs,
-                  (const T*)lo,         (const T*)hi,       (const T*)din_lo,
-                  (const T*)din_hi,     (const T*)alpha,    (const T*)omega_arr,
-                  (T)omega,             (const T*)frontier, (T*)out_lo,
-                  (T*)out_hi,           (T*)out_mm,         (T*)out_frontier};
   const L2Scratch sc{(unsigned char*)rows, partials, (unsigned*)counters, split};
-  const cudaStream_t s = (cudaStream_t)stream;
   if (split == 1) {
     if constexpr (COUNT)
       sweep_huge_l2_counted_kernel<T, MODE><<<nr_blocks, threads, 0, s>>>(a, sc, acc);
@@ -2937,204 +2940,126 @@ int l2_occupancy(int threads, int* blocks) {
   return (int)rc;
 }
 
+// the launches of the records r[0..n) in order, over the buffers `b`; the
+// code of the first that fails, its index into *failed
+template <typename T, int MODE>
+int launch_records(const Launch* r, int n, const Buffers* b, void* stream, int* failed) {
+  Args<T> a{nullptr,          0,                    (const uint8_t*)b->arcs,
+            (const T*)b->lo,  (const T*)b->hi,      (const T*)b->din_lo,
+            (const T*)b->din_hi, (const T*)b->alpha, (const T*)b->omega_arr,
+            (T)b->omega,      (const T*)b->frontier, (T*)b->out_lo,
+            (T*)b->out_hi,    (T*)b->out_mm,        (T*)b->out_frontier};
+  const cudaStream_t s = (cudaStream_t)stream;
+  for (int i = 0; i < n; ++i) {
+    a.table = (const Bucket*)r[i].table;
+    a.nr_buckets = r[i].nr_buckets;
+    const int smem = MODE == MODE_FORWARD ? r[i].smem_forward : r[i].smem_backward;
+    int rc = -2;
+    switch (r[i].body) {
+      case BODY_NARROW: rc = launch<T, MODE>(a, r[i], smem, s); break;
+      case BODY_WIDE: rc = launch_wide<T, MODE>(a, r[i], smem, s); break;
+      case BODY_HUGE:
+        rc = r[i].acc ? launch_huge<T, MODE, true>(a, r[i], smem, s)
+                      : launch_huge<T, MODE, false>(a, r[i], smem, s);
+        break;
+      case BODY_CLUSTER: rc = launch_huge_cluster<T, MODE>(a, r[i], smem, s); break;
+      case BODY_L2:
+        rc = r[i].acc ? launch_huge_l2<T, MODE, true>(a, r[i], s)
+                      : launch_huge_l2<T, MODE, false>(a, r[i], s);
+        break;
+      default: break;
+    }
+    if (rc != 0) {
+      *failed = i;
+      return rc;
+    }
+  }
+  return 0;
+}
+
+// the card's answer for `body` at `threads` threads and `smem_bytes` of
+// dynamic shared memory a block, `own0` and `own1` the body's own integers
+// of its record (the form: the huge body's ring hops in own1, the cluster
+// body's C and widest bucket): the blocks of the huge and the L2 body an SM
+// holds at once (`counting`: of their counting forms), the clusters of the
+// cluster body the card holds at once, into *out
+template <typename T>
+int body_occupancy(int body, int threads, int smem_bytes, int own0, int own1, int counting,
+                   int* out) {
+  *out = 0;
+  switch (body) {
+    case BODY_HUGE:
+      return counting ? huge_occupancy<T, true>(threads, smem_bytes, own1, out)
+                      : huge_occupancy<T, false>(threads, smem_bytes, own1, out);
+    case BODY_CLUSTER:
+      return counting ? -2 : cluster_occupancy<T>(own0, threads, smem_bytes, own1, out);
+    case BODY_L2:
+      return counting ? l2_occupancy<T, true>(threads, out) : l2_occupancy<T, false>(threads, out);
+    default: return -2;
+  }
+}
+
 }  // namespace
 
-// (table, nr_buckets, nr_blocks, tile, pmax, smem_bytes, arcs, lo, hi, din_lo,
-//  din_hi, alpha, omega_arr, omega, frontier in, out_lo, out_hi, out_mm,
-//  frontier out, stream); the buffers are flat over the buckets of the table
-// (the wide entries read tile as the warps a block and pmax as the bytes of
-// shared memory a warp; the shared-memory huge entries tile as the threads a
-// block, one block a column). The run entries read arcs, lo and hi and write the
-// frontier; their other buffers are null.
-#define SWEEP_ENTRY(NAME, LAUNCH, T, MODE)                                      \
-  extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks,         \
-                      int tile, int pmax, int smem_bytes, const void* arcs,     \
-                      const void* lo, const void* hi, const void* din_lo,       \
-                      const void* din_hi, const void* alpha,                    \
-                      const void* omega_arr, double omega,                      \
-                      const void* frontier, void* out_lo, void* out_hi,         \
-                      void* out_mm, void* out_frontier, void* stream) {         \
-    return LAUNCH<T, MODE>(table, nr_buckets, nr_blocks, tile, pmax,            \
-                           smem_bytes, arcs, lo, hi, din_lo, din_hi, alpha,     \
-                           omega_arr, omega, frontier, out_lo, out_hi,          \
-                           out_mm, out_frontier, stream);                       \
+// (records, n, buffers, stream, failed): the launches of a plan's records
+// for one entry and precision, in order (the run entries' records are the
+// run's own route); 0, or the code of the first launch that failed and its
+// index into *failed
+#define SWEEP_ENTRY(NAME, T, MODE)                                                   \
+  extern "C" int NAME(const Launch* r, int n, const Buffers* b, void* stream,       \
+                      int* failed) {                                                \
+    return launch_records<T, MODE>(r, n, b, stream, failed);                        \
   }
 
-SWEEP_ENTRY(uniform_forward_f32, launch, float, MODE_FORWARD)
-SWEEP_ENTRY(uniform_forward_f64, launch, double, MODE_FORWARD)
-SWEEP_ENTRY(uniform_backward_f32, launch, float, MODE_BACKWARD)
-SWEEP_ENTRY(uniform_backward_f64, launch, double, MODE_BACKWARD)
-SWEEP_ENTRY(uniform_backward_run_f32, launch, float, MODE_BACKWARD_RUN)
-SWEEP_ENTRY(uniform_backward_run_f64, launch, double, MODE_BACKWARD_RUN)
-SWEEP_ENTRY(uniform_forward_wide_f32, launch_wide, float, MODE_FORWARD)
-SWEEP_ENTRY(uniform_forward_wide_f64, launch_wide, double, MODE_FORWARD)
-SWEEP_ENTRY(uniform_backward_wide_f32, launch_wide, float, MODE_BACKWARD)
-SWEEP_ENTRY(uniform_backward_wide_f64, launch_wide, double, MODE_BACKWARD)
-SWEEP_ENTRY(uniform_backward_run_wide_f32, launch_wide, float, MODE_BACKWARD_RUN)
-SWEEP_ENTRY(uniform_backward_run_wide_f64, launch_wide, double, MODE_BACKWARD_RUN)
+SWEEP_ENTRY(uniform_forward_f32, float, MODE_FORWARD)
+SWEEP_ENTRY(uniform_forward_f64, double, MODE_FORWARD)
+SWEEP_ENTRY(uniform_backward_f32, float, MODE_BACKWARD)
+SWEEP_ENTRY(uniform_backward_f64, double, MODE_BACKWARD)
+SWEEP_ENTRY(uniform_backward_run_f32, float, MODE_BACKWARD_RUN)
+SWEEP_ENTRY(uniform_backward_run_f64, double, MODE_BACKWARD_RUN)
 
-// the shared-memory huge body's entries: the arguments of SWEEP_ENTRY and,
-// after smem_bytes, `hops`: 0 for the grouped body (sweep_huge_kernel), 1 to
-// HUGE_RING_MAX for the ring form at that depth (sweep_huge_ring_kernel)
-#define HUGE_SMEM_ENTRY(NAME, T, MODE)                                                  \
-  extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks, int tile,      \
-                      int pmax, int smem_bytes, int hops, const void* arcs,            \
-                      const void* lo, const void* hi, const void* din_lo,              \
-                      const void* din_hi, const void* alpha, const void* omega_arr,    \
-                      double omega, const void* frontier, void* out_lo, void* out_hi,  \
-                      void* out_mm, void* out_frontier, void* stream) {                \
-    return launch_huge<T, MODE>(table, nr_buckets, nr_blocks, tile, pmax, smem_bytes,  \
-                                hops, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr,   \
-                                omega, frontier, out_lo, out_hi, out_mm, out_frontier,  \
-                                stream);                                                \
-  }
-
-HUGE_SMEM_ENTRY(uniform_forward_huge_f32, float, MODE_FORWARD)
-HUGE_SMEM_ENTRY(uniform_forward_huge_f64, double, MODE_FORWARD)
-HUGE_SMEM_ENTRY(uniform_backward_huge_f32, float, MODE_BACKWARD)
-HUGE_SMEM_ENTRY(uniform_backward_huge_f64, double, MODE_BACKWARD)
-HUGE_SMEM_ENTRY(uniform_backward_run_huge_f32, float, MODE_BACKWARD_RUN)
-HUGE_SMEM_ENTRY(uniform_backward_run_huge_f64, double, MODE_BACKWARD_RUN)
-
-// their counting forms: the same arguments, and before the stream `acc`, the
-// pair of 64-bit accumulators (the blocks' barrier wait, their cycles)
-#define HUGE_SMEM_COUNT_ENTRY(NAME, T, MODE)                                            \
-  extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks, int tile,      \
-                      int pmax, int smem_bytes, int hops, const void* arcs,            \
-                      const void* lo, const void* hi, const void* din_lo,              \
-                      const void* din_hi, const void* alpha, const void* omega_arr,    \
-                      double omega, const void* frontier, void* out_lo, void* out_hi,  \
-                      void* out_mm, void* out_frontier, void* acc, void* stream) {     \
-    return launch_huge<T, MODE, true>(table, nr_buckets, nr_blocks, tile, pmax,         \
-                                      smem_bytes, hops, arcs, lo, hi, din_lo, din_hi,   \
-                                      alpha, omega_arr, omega, frontier, out_lo,        \
-                                      out_hi, out_mm, out_frontier, stream,             \
-                                      (unsigned long long*)acc);                        \
-  }
-
-HUGE_SMEM_COUNT_ENTRY(uniform_forward_huge_count_f32, float, MODE_FORWARD)
-HUGE_SMEM_COUNT_ENTRY(uniform_forward_huge_count_f64, double, MODE_FORWARD)
-HUGE_SMEM_COUNT_ENTRY(uniform_backward_huge_count_f32, float, MODE_BACKWARD)
-HUGE_SMEM_COUNT_ENTRY(uniform_backward_huge_count_f64, double, MODE_BACKWARD)
-HUGE_SMEM_COUNT_ENTRY(uniform_backward_run_huge_count_f32, float, MODE_BACKWARD_RUN)
-HUGE_SMEM_COUNT_ENTRY(uniform_backward_run_huge_count_f64, double, MODE_BACKWARD_RUN)
-
-// the L2 body's entries: (table, nr_buckets, nr_blocks, threads, split,
-// nr_columns, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, omega, frontier
-// in, out_lo, out_hi, out_mm, frontier out, rows, partials, counters, stream)
-#define HUGE_ENTRY(NAME, T, MODE)                                                     \
-  extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks, int threads,   \
-                      int split, int nr_columns, const void* arcs, const void* lo,    \
-                      const void* hi, const void* din_lo, const void* din_hi,         \
-                      const void* alpha, const void* omega_arr, double omega,         \
-                      const void* frontier, void* out_lo, void* out_hi, void* out_mm, \
-                      void* out_frontier, void* rows, void* partials, void* counters, \
-                      void* stream) {                                                 \
-    return launch_huge_l2<T, MODE, false>(table, nr_buckets, nr_blocks, threads, split, \
-                                          nr_columns, arcs, lo, hi, din_lo, din_hi,     \
-                                          alpha, omega_arr, omega, frontier, out_lo,    \
-                                          out_hi, out_mm, out_frontier, rows, partials, \
-                                          counters, nullptr, stream);                   \
-  }
-
-HUGE_ENTRY(uniform_forward_huge_l2_f32, float, MODE_FORWARD)
-HUGE_ENTRY(uniform_forward_huge_l2_f64, double, MODE_FORWARD)
-HUGE_ENTRY(uniform_backward_huge_l2_f32, float, MODE_BACKWARD)
-HUGE_ENTRY(uniform_backward_huge_l2_f64, double, MODE_BACKWARD)
-HUGE_ENTRY(uniform_backward_run_huge_l2_f32, float, MODE_BACKWARD_RUN)
-HUGE_ENTRY(uniform_backward_run_huge_l2_f64, double, MODE_BACKWARD_RUN)
-
-// their counting forms: the same arguments, and before the stream `acc`, the
-// pair of 64-bit accumulators (the blocks' barrier wait, their cycles)
-#define HUGE_COUNT_ENTRY(NAME, T, MODE)                                               \
-  extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks, int threads,   \
-                      int split, int nr_columns, const void* arcs, const void* lo,    \
-                      const void* hi, const void* din_lo, const void* din_hi,         \
-                      const void* alpha, const void* omega_arr, double omega,         \
-                      const void* frontier, void* out_lo, void* out_hi, void* out_mm, \
-                      void* out_frontier, void* rows, void* partials, void* counters, \
-                      void* acc, void* stream) {                                      \
-    return launch_huge_l2<T, MODE, true>(table, nr_buckets, nr_blocks, threads, split,  \
-                                         nr_columns, arcs, lo, hi, din_lo, din_hi,      \
-                                         alpha, omega_arr, omega, frontier, out_lo,     \
-                                         out_hi, out_mm, out_frontier, rows, partials,  \
-                                         counters, (unsigned long long*)acc, stream);   \
-  }
-
-HUGE_COUNT_ENTRY(uniform_forward_huge_l2_count_f32, float, MODE_FORWARD)
-HUGE_COUNT_ENTRY(uniform_forward_huge_l2_count_f64, double, MODE_FORWARD)
-HUGE_COUNT_ENTRY(uniform_backward_huge_l2_count_f32, float, MODE_BACKWARD)
-HUGE_COUNT_ENTRY(uniform_backward_huge_l2_count_f64, double, MODE_BACKWARD)
-HUGE_COUNT_ENTRY(uniform_backward_run_huge_l2_count_f32, float, MODE_BACKWARD_RUN)
-HUGE_COUNT_ENTRY(uniform_backward_run_huge_l2_count_f64, double, MODE_BACKWARD_RUN)
-
-// the cluster body's entries: (table, nr_buckets, nr_blocks, threads, cluster,
-// pmax, smem_bytes, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, omega,
-// frontier in, out_lo, out_hi, out_mm, frontier out, stream)
-#define CLUSTER_ENTRY(NAME, T, MODE)                                                  \
-  extern "C" int NAME(const void* table, int nr_buckets, int nr_blocks, int threads,  \
-                      int cluster, int pmax, int smem_bytes, const void* arcs,       \
-                      const void* lo, const void* hi, const void* din_lo,            \
-                      const void* din_hi, const void* alpha, const void* omega_arr,  \
-                      double omega, const void* frontier, void* out_lo,              \
-                      void* out_hi, void* out_mm, void* out_frontier, void* stream) { \
-    return launch_huge_cluster<T, MODE>(table, nr_buckets, nr_blocks, threads,        \
-                                        cluster, pmax, smem_bytes, arcs, lo, hi,      \
-                                        din_lo, din_hi, alpha, omega_arr, omega,      \
-                                        frontier, out_lo, out_hi, out_mm,             \
-                                        out_frontier, stream);                        \
-  }
-
-CLUSTER_ENTRY(uniform_forward_huge_cluster_f32, float, MODE_FORWARD)
-CLUSTER_ENTRY(uniform_forward_huge_cluster_f64, double, MODE_FORWARD)
-CLUSTER_ENTRY(uniform_backward_huge_cluster_f32, float, MODE_BACKWARD)
-CLUSTER_ENTRY(uniform_backward_huge_cluster_f64, double, MODE_BACKWARD)
-CLUSTER_ENTRY(uniform_backward_run_huge_cluster_f32, float, MODE_BACKWARD_RUN)
-CLUSTER_ENTRY(uniform_backward_run_huge_cluster_f64, double, MODE_BACKWARD_RUN)
-
-// (cluster, threads, smem_bytes, pmax, clusters out): the clusters of the
-// cluster body the card holds at once, for a table whose widest bucket is
-// pmax (solver/layout.py picks the cluster size and the threads a block
-// from the answer)
-extern "C" int uniform_huge_cluster_occupancy_f32(int cluster, int threads, int smem_bytes,
-                                                  int pmax, int* clusters) {
-  return cluster_occupancy<float>(cluster, threads, smem_bytes, pmax, clusters);
+// (body, threads, smem_bytes, own0, own1, counting, out): body_occupancy
+// (solver/layout.py sizes the threads a block of the huge and the cluster
+// body, the cluster size and the L2 body's blocks a column from the
+// answers; the wrapper counts only where a counting form holds as many
+// blocks an SM as the body's own)
+extern "C" int uniform_occupancy_f32(int body, int threads, int smem_bytes, int own0, int own1,
+                                     int counting, int* out) {
+  return body_occupancy<float>(body, threads, smem_bytes, own0, own1, counting, out);
 }
-extern "C" int uniform_huge_cluster_occupancy_f64(int cluster, int threads, int smem_bytes,
-                                                  int pmax, int* clusters) {
-  return cluster_occupancy<double>(cluster, threads, smem_bytes, pmax, clusters);
+extern "C" int uniform_occupancy_f64(int body, int threads, int smem_bytes, int own0, int own1,
+                                     int counting, int* out) {
+  return body_occupancy<double>(body, threads, smem_bytes, own0, own1, counting, out);
 }
-// (threads, smem_bytes, hops, blocks out): the blocks of the shared-memory
-// huge body (hops 0: the grouped body, else its ring form), and of its
-// counting form, an SM holds at once (the wrapper counts only where the
-// counting form holds as many as the body)
-extern "C" int uniform_huge_occupancy_f32(int threads, int smem_bytes, int hops, int* blocks) {
-  return huge_occupancy<float, false>(threads, smem_bytes, hops, blocks);
-}
-extern "C" int uniform_huge_occupancy_f64(int threads, int smem_bytes, int hops, int* blocks) {
-  return huge_occupancy<double, false>(threads, smem_bytes, hops, blocks);
-}
-extern "C" int uniform_huge_count_occupancy_f32(int threads, int smem_bytes, int hops,
-                                                int* blocks) {
-  return huge_occupancy<float, true>(threads, smem_bytes, hops, blocks);
-}
-extern "C" int uniform_huge_count_occupancy_f64(int threads, int smem_bytes, int hops,
-                                                int* blocks) {
-  return huge_occupancy<double, true>(threads, smem_bytes, hops, blocks);
-}
-// (threads, blocks out): the blocks of the L2 body an SM holds at once
-// (solver/layout.py sizes the blocks a column from the answer)
-extern "C" int uniform_huge_l2_occupancy_f32(int threads, int* blocks) {
-  return l2_occupancy<float, false>(threads, blocks);
-}
-extern "C" int uniform_huge_l2_occupancy_f64(int threads, int* blocks) {
-  return l2_occupancy<double, false>(threads, blocks);
-}
-// the same for its counting entries (the wrapper counts only where they
-// hold as many blocks an SM)
-extern "C" int uniform_huge_l2_count_occupancy_f32(int threads, int* blocks) {
-  return l2_occupancy<float, true>(threads, blocks);
-}
-extern "C" int uniform_huge_l2_count_occupancy_f64(int threads, int* blocks) {
-  return l2_occupancy<double, true>(threads, blocks);
-}
+
+// the sizes and field offsets of Launch and Buffers, which _build's ctypes
+// mirrors must equal
+extern "C" const long long uniform_record_layout[] = {
+    sizeof(Launch),
+    offsetof(Launch, table),
+    offsetof(Launch, body),
+    offsetof(Launch, nr_buckets),
+    offsetof(Launch, blocks),
+    offsetof(Launch, threads),
+    offsetof(Launch, smem_forward),
+    offsetof(Launch, smem_backward),
+    offsetof(Launch, own),
+    offsetof(Launch, rows),
+    offsetof(Launch, partials),
+    offsetof(Launch, counters),
+    offsetof(Launch, acc),
+    sizeof(Buffers),
+    offsetof(Buffers, arcs),
+    offsetof(Buffers, lo),
+    offsetof(Buffers, hi),
+    offsetof(Buffers, din_lo),
+    offsetof(Buffers, din_hi),
+    offsetof(Buffers, alpha),
+    offsetof(Buffers, omega_arr),
+    offsetof(Buffers, omega),
+    offsetof(Buffers, frontier),
+    offsetof(Buffers, out_lo),
+    offsetof(Buffers, out_hi),
+    offsetof(Buffers, out_mm),
+    offsetof(Buffers, out_frontier),
+};

@@ -250,7 +250,7 @@ BLOCK_SMEM_RESERVED = 1024  # what the card keeps of it for every resident block
 # / 2.69 and 2.92 / 2.86 ms at 512 threads (chip_smoke.py, phase 6, "[depth]",
 # NVIDIA H100 80GB HBM3 at 700 W; 256 threads were about twice as slow again).
 # Only the tests and chip_smoke.py's timing variants set other counts
-# (``dataclasses.replace`` of a plan).
+# (``dataclasses.replace`` of a plan's launch).
 HUGE_THREADS = 1024
 HUGE_MAX_CODE = 0x7FFD  # a slot code holds slots below this (uniform_sweep.cu, CODE_ZERO)
 HUGE_SCALARS = 8  # values a ring slot of the huge body keeps for the layer (6 used)
@@ -258,7 +258,8 @@ HUGE_SCALARS = 8  # values a ring slot of the huge body keeps for the layer (6 u
 # record, frontier row and layer values into a ring of HUGE_RING_HOPS + 1
 # stages in shared memory): the form a launch takes where no bucket of its
 # huge table is wider than its threads, one slot a thread
-# (``LaunchPlan.huge_hops``; uniform_sweep.cu, sweep_huge_ring_kernel).
+# (the second of its launch's own integers, ``BodyLaunch.own``;
+# uniform_sweep.cu, sweep_huge_ring_kernel).
 # Measured over 1 to 4 hops on the gap_d60900 layout (chip_smoke.py
 # --huge-ring; PERF.md section 6). HUGE_RING_MAX: the deepest the kernel
 # takes.
@@ -327,7 +328,8 @@ CLUSTER_SIZES = (2, 4, 8, 16)
 # 7.64 / 4.96 / 2.60 against 9.55 / 5.92 / 4.39 ms, 132 rows 15.06 / 9.82 /
 # 5.18 against 18.19 / 11.20 / 8.38; NVIDIA H100 80GB HBM3, 700 W,
 # chip_smoke.py --huge-split route; PERF.md section 6).
-# ``huge_body="huge_cluster"`` still reaches C = 16 in both precisions.
+# A plan built on the cluster body (:func:`build_plan`) still reaches C = 16
+# in both precisions.
 CLUSTER_ROUTED = {4: 16, 8: 8}
 CLUSTER_MAX_P = 0xFFFD  # four-byte slot codes hold slots below this
 # Clusters are placed within one GPC (graphics processing cluster), so the
@@ -338,7 +340,8 @@ CLUSTER_MAX_P = 0xFFFD  # four-byte slot codes hold slots below this
 GPC_SMS = (18, 18, 18, 18, 18, 16, 16, 10)
 # The L2 body (rows past what the route's clusters hold, CLUSTER_ROUTED, rows
 # past WIDE_P over few columns, every run of rows the cluster body sweeps, and
-# where the plan is told so) spreads each column over G blocks (``LaunchPlan.l2_split``) that
+# where a plan is built so) spreads each column over G blocks (the first of
+# its launch's own integers, ``BodyLaunch.own``) that
 # meet at a hop barrier of the column in device memory (uniform_sweep.cu,
 # the L2 section). Block g of a column owns the chunks of L2_CHUNK slots (a
 # warp's) whose index is g modulo G (:func:`l2_slots`). The plan takes G from
@@ -353,7 +356,7 @@ L2_MAX_SPLIT = 256  # blocks a column the kernel takes at most
 # bucket in it, is at least L2_FROM_SPLIT (float32 rows a block holds the
 # cluster body there, while one wave of clusters holds them:
 # BLOCK_ROWS_CLUSTER); the run-only entry takes the L2 body for every bucket
-# that a cluster holds but a block does not (:func:`run_body_of`). Measured on
+# that a cluster holds but a block does not (:func:`route`). Measured on
 # an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --huge-split route; PERF.md
 # section 6), warm ms forward / backward, the cluster body at the plan's
 # C against the L2 body at the plan's G, knapsack rows of 48 variables: at G =
@@ -463,55 +466,45 @@ def cluster_fits(P: int, itemsize: int, C: int = max(CLUSTER_SIZES)) -> bool:
     return cluster_smem_bytes(P, C, itemsize) <= MAX_DYNAMIC_SMEM
 
 
-def huge_occupancy(itemsize: int, threads: int, smem: int, device,
-                   counting: bool = False, hops: int = 0) -> int:
+def _card_occupancy(itemsize: int, body: str, threads: int, smem: int, own: Tuple[int, int],
+                    counting: bool, device) -> int:
+    """The card's answer of the library's occupancy entry for ``body`` (a
+    suffix of :data:`SUFFIXES`) at ``threads`` threads and ``smem`` bytes of
+    dynamic shared memory a block, ``own`` the body's two integers as its
+    record holds them (:class:`BodyLaunch`; here the form they choose: the
+    huge body's ring hops, the cluster body's C and widest bucket): blocks
+    an SM holds of the huge and the L2 body (``counting``: of their counting
+    entries; the least over the three entries), clusters the card holds of
+    the cluster body (uniform_sweep.cu, ``body_occupancy``)."""
+    import ctypes
+
+    from bdd_tpu_torch import _build
+
+    out = ctypes.c_int(0)
+    fn = getattr(_build.load(), f"uniform_occupancy_f{8 * itemsize}")
+    with torch.cuda.device(device):
+        rc = fn(SUFFIXES.index(body), threads, smem, own[0], own[1], int(counting),
+                ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"the occupancy query failed (code {rc}) for the {body[1:]} body at "
+                           f"{threads} threads and {smem} B a block ({own})")
+    return out.value
+
+
+def block_occupancy(itemsize: int, body: str, threads: int, device, smem: int = 0,
+                    own: Tuple[int, int] = (0, 0), counting: bool = False) -> int:
     """Blocks of ``threads`` threads and ``smem`` bytes of dynamic shared
-    memory of the shared-memory huge body (``counting``: of its counting
-    entries; ``hops``: of its ring form at that depth, 0 the grouped body)
-    that an SM holds at once: on the card its own answer
+    memory that an SM holds at once of the shared-memory huge body (``body``
+    "_huge"; ``own`` its launch's own integers, whose hops choose the ring
+    form at that depth, 0 the grouped body) or of the L2 body ("_huge_l2",
+    no shared memory); ``counting``: of the body's counting entries. On the
+    card its own answer
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, the least over the
     three entries; 0 where a block may not take ``smem``); off it an
-    estimate by the kernel's register bound: HUGE_THREADS // threads."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        import ctypes
-
-        from bdd_tpu_torch import _build
-
-        out = ctypes.c_int(0)
-        name = "uniform_huge_count_occupancy" if counting else "uniform_huge_occupancy"
-        fn = getattr(_build.load(), f"{name}_f{8 * itemsize}")
-        with torch.cuda.device(device):
-            rc = fn(threads, smem, hops, ctypes.byref(out))
-        if rc != 0:
-            raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed (code {rc}) "
-                               f"for the huge body at {threads} threads and {smem} B a block "
-                               f"(ring hops {hops})")
-        return out.value
-    return max(1, HUGE_THREADS // threads)
-
-
-def l2_occupancy(itemsize: int, threads: int, device, counting: bool = False) -> int:
-    """Blocks of ``threads`` threads of the L2 body (``counting``: of its
-    counting entries) that an SM holds at once: on the card its own answer
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, the least over the
-    three entries); off it an estimate by the kernel's register bound (64 a
-    thread at HUGE_THREADS): HUGE_THREADS // threads."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        import ctypes
-
-        from bdd_tpu_torch import _build
-
-        out = ctypes.c_int(0)
-        name = "uniform_huge_l2_count_occupancy" if counting else "uniform_huge_l2_occupancy"
-        fn = getattr(_build.load(), f"{name}_f{8 * itemsize}")
-        with torch.cuda.device(device):
-            rc = fn(threads, ctypes.byref(out))
-        if rc != 0:
-            raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed (code {rc}) "
-                               f"for the L2 body at {threads} threads a block")
-        return out.value
+    estimate by the kernels' register bound (64 a thread at HUGE_THREADS):
+    HUGE_THREADS // threads."""
+    if torch.device(device).type == "cuda":
+        return _card_occupancy(itemsize, body, threads, smem, own, counting, device)
     return max(1, HUGE_THREADS // threads)
 
 
@@ -554,47 +547,34 @@ def l2_scratch_bytes(values: int, split: int, columns: int, itemsize: int) -> Tu
     return rows, counters, counters + 4 * columns
 
 
-def body_of(P: int, itemsize: int, columns: int = 0, sms: int = SM_COUNT,
-            huge_from: Optional[int] = None) -> str:
-    """The body the half-sweeps of a bucket of width P over ``columns``
-    columns take by its width, in a solve of values of ``itemsize`` bytes on
-    a card of ``sms`` SMs: "narrow", "wide", "huge" (the shared-memory form;
-    also the wide buckets the route sends there: from HUGE_FROM slots on, in
-    float32 below HUGE_FROM_F32_MANY only while the columns are at most
-    HUGE_F32_BLOCKS_SM an SM), "huge_cluster" (rows that do not fit a
-    block's shared memory, :func:`huge_fits`, but a cluster's of up to
-    CLUSTER_ROUTED blocks: :func:`cluster_fits`) or "huge_l2" (the rest: past
-    309,312 slots in float32 and 115,776 in float64). ``huge_from`` replaces
-    the route of the wide buckets: every one from that width on takes the
-    huge body (timing variants). A layout's plan holds the route on its
-    tables as a whole: the float32 rule on the huge table
-    (:func:`_route_huge_table`) and the rule by the L2 table's columns for
-    buckets past WIDE_P that a block or a cluster holds
-    (:func:`_route_by_columns`; float32 rows a block holds over few columns
-    take the cluster body), and its run-only entry takes the L2 body for the
-    cluster body's buckets (:func:`run_body_of`)."""
+# The sweep bodies in launch order, by the names the route gives them; a
+# body's suffix names its entries' keys of ``sweep_kernels.LAUNCHES``, and
+# its index the body in the library's records (uniform_sweep.cu, Body).
+BODIES = ("narrow", "wide", "huge", "huge_cluster", "huge_l2")
+SUFFIXES = tuple("" if b == "narrow" else "_" + b for b in BODIES)
+
+
+def body_of(P: int, itemsize: int, columns: int = 0, sms: int = SM_COUNT) -> str:
+    """The body of a bucket of width P over ``columns`` columns by its width,
+    in a solve of values of ``itemsize`` bytes on a card of ``sms`` SMs:
+    "narrow", "wide", "huge" (the shared-memory form; also the wide buckets
+    the route sends there: from HUGE_FROM slots on, in float32 below
+    HUGE_FROM_F32_MANY only while the columns are at most HUGE_F32_BLOCKS_SM
+    an SM), "huge_cluster" (rows that do not fit a block's shared memory,
+    :func:`huge_fits`, but a cluster's of up to CLUSTER_ROUTED blocks:
+    :func:`cluster_fits`) or "huge_l2" (the rest: past 309,312 slots in
+    float32 and 115,776 in float64). The first step of :func:`route`, which
+    holds the rest of the route on the tables as a whole."""
     if P <= NARROW_P:
         return "narrow"
-    if P <= WIDE_P:
-        if huge_from is not None:
-            routed = P >= huge_from
-        else:
-            routed = P >= HUGE_FROM and (itemsize != 4 or P >= HUGE_FROM_F32_MANY
-                                         or columns <= HUGE_F32_BLOCKS_SM * sms)
-        if not routed:
-            return "wide"
+    if P <= WIDE_P and not (P >= HUGE_FROM and (itemsize != 4 or P >= HUGE_FROM_F32_MANY
+                                                or columns <= HUGE_F32_BLOCKS_SM * sms)):
+        return "wide"
     if huge_fits(P, itemsize):
         return "huge"
     if cluster_fits(P, itemsize, CLUSTER_ROUTED[itemsize]):
         return "huge_cluster"
     return "huge_l2"
-
-
-def run_body_of(body: str) -> str:
-    """The body the run-only entry takes for a bucket whose half-sweeps run
-    ``body``: the L2 body for the cluster body's buckets, the same body
-    otherwise."""
-    return "huge_l2" if body == "huge_cluster" else body
 
 
 def lane_pad(nr_columns: int, P: int, lanes: int = 128) -> int:
@@ -610,85 +590,63 @@ def lane_pad(nr_columns: int, P: int, lanes: int = 128) -> int:
     return _pad_to(nr_columns, lanes if nr_columns >= lanes else 8)
 
 
-@dataclasses.dataclass(frozen=True)
-class LaunchPlan:
-    """What the launches of a sweep kernel over a list of buckets need beside
-    the buffers: the bucket tables on the device and the grids' numbers. The
-    narrow buckets (P <= NARROW_P) go in one launch, the wide ones in a
-    second, the huge ones in a third (:func:`body_of`: the shared-memory form,
-    which also takes the wide buckets the route sends it), those the route
-    gives the cluster form (C blocks a column) in a fourth and the rest in a
-    fifth (the L2 form), each over its own table; the tables index the same
-    flat buffers. The run-only entry has an L2 table of its own, which also
-    takes the cluster form's buckets (:func:`run_body_of`). The huge and the
-    cluster table's last column holds the rows the bucket's backward keeps in
-    shared memory (1 or 2); the L2 table's is the bucket's offset (in values)
-    into the L2 form's scratch rows, the forward's two key rows of every such column
-    ([B, 2, P] per bucket, ``huge_scratch_values`` in all), and its
-    ``first_block`` counts blocks, ``l2_split`` of them a column. The plan is
-    cached and shared by every layout of its shapes, so it holds no buffer:
-    each layout allocates its own scratch (:func:`huge_scratch`: the rows,
-    and the partials and counters of the column barriers)."""
+@dataclasses.dataclass(frozen=True, eq=False)
+class BodyLaunch:
+    """One launch of a sweep body over its table of buckets: what the
+    library's record of it holds (uniform_sweep.cu, ``Launch``) beside the
+    L2 scratch. ``own``, the body's two integers: narrow (tile, widest
+    bucket), wide (warps a block, shared memory a warp), huge (widest
+    bucket, the ring form's hops or 0 for the grouped body), cluster (C, the
+    blocks of a cluster, one column; widest bucket), L2 (G, the blocks a
+    column; columns). The table's last column: the narrow and the wide
+    body's hops in flight, the huge and the cluster body's rows the backward
+    keeps in shared memory (1 or 2), the L2 body's offset (in values) into
+    the forward's key rows ([B, 2, P] per bucket; 0 in the run's, which
+    reads none); its ``first_block`` counts blocks, as many a column as the
+    body takes (the narrow body a tile of columns a block, the wide body a
+    warp a column)."""
 
-    table: torch.Tensor  # int64 [nr_buckets, TABLE_COLUMNS]: the narrow buckets
+    body: str  # one of SUFFIXES
+    table: torch.Tensor  # int64 [nr_buckets, TABLE_COLUMNS] on the plan's device
     nr_buckets: int
-    nr_blocks: int
-    tile: int
-    pmax: int  # widest narrow bucket
-    smem_bytes: int
+    blocks: int
+    threads: int  # a block
+    smem_forward: int  # dynamic shared memory a block of the forward launch
+    smem_backward: int  # the same, of the backward and the run
+    own: Tuple[int, int]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LaunchPlan:
+    """What the launches of the sweep kernels over a list of buckets need
+    beside the buffers: one launch per body (:data:`BODIES`, in that order)
+    over the buckets :func:`route` gives it, each over its own table; the
+    tables index the same flat buffers. ``sweeps`` are the half-sweeps'
+    launches and ``runs`` the run-only entry's (its own route: the L2 body
+    for the cluster body's buckets), each body's where it has blocks. The
+    plan is cached and shared by every layout of its shapes, so it holds no
+    buffer: each layout allocates its own L2 scratch (:func:`huge_scratch`:
+    the key rows, and the partials and counters of the column barriers) of
+    ``scratch_bytes``."""
+
     shapes: Tuple[Tuple[int, int, int], ...]  # (P, H, B) per bucket, every body
     arc_offsets: Tuple[int, ...]  # bytes into the records, per bucket
     E: int  # sum H * B
     N: int  # sum H * P * B
     arc_bytes: int
-    wide_table: torch.Tensor  # int64 [nr_wide, TABLE_COLUMNS]: the wide buckets
-    nr_wide: int
-    wide_blocks: int
-    wide_warps: int  # columns a block: one warp each
-    wide_pmax: int  # widest bucket
-    wide_warp_bytes: int  # shared memory of one warp: two rows and its ring
-    wide_smem_bytes: int  # wide_warps * wide_warp_bytes
-    huge_table: torch.Tensor  # int64 [nr_huge, TABLE_COLUMNS]: the shared-memory huge body's
-    nr_huge: int
-    huge_blocks: int  # one a column
-    huge_threads: int  # threads a block
-    huge_pmax: int  # widest bucket of the huge table
-    huge_smem_forward: int  # shared memory a block of the forward launch
-    huge_smem_backward: int  # the same, backward and run
-    huge_ring_hops: int  # the ring form's depth where the plan gives it, else 0 (:func:`_huge_plan`)
-    cluster_table: torch.Tensor  # int64 [nr_cluster, TABLE_COLUMNS]: the cluster body's
-    nr_cluster: int
-    cluster_blocks: int  # cluster_size a column
-    cluster_size: int  # C: the blocks of a cluster, one column
-    cluster_threads: int  # threads a block
-    cluster_pmax: int  # widest bucket of the cluster table
-    cluster_smem_forward: int  # shared memory a block of the forward launch
-    cluster_smem_backward: int  # the same, backward and run
-    l2_table: torch.Tensor  # int64 [nr_l2, TABLE_COLUMNS]: the L2 body's buckets
-    nr_l2: int
-    l2_blocks: int  # l2_split a column
-    l2_threads: int  # threads a block: HUGE_THREADS
-    huge_scratch_values: int  # sum 2 * P * B over the L2 body's buckets
-    l2_split: int  # G: the blocks a column of the L2 body (:func:`choose_l2_split`)
-    l2_columns: int  # the L2 body's columns (of buckets with a hop)
-    # the run-only entry's own route (:func:`run_body_of`): the cluster
-    # table's blocks where the run launches it (0 where its buckets moved to
-    # the run's L2 table), and that table, its blocks, G and columns
-    run_cluster_blocks: int
-    run_l2_table: torch.Tensor  # int64 [nr_run_l2, TABLE_COLUMNS]; the last column 0
-    nr_run_l2: int
-    run_l2_blocks: int
-    run_l2_split: int
-    run_l2_columns: int
+    sweeps: Tuple[BodyLaunch, ...]
+    runs: Tuple[BodyLaunch, ...]
+    # the L2 scratch (:func:`l2_scratch_bytes` of both entries' L2 launches,
+    # which take turns on the layout's stream): byte offset of the partials,
+    # of the counters, bytes in all
+    scratch_bytes: Tuple[int, int, int]
 
-    @property
-    def huge_hops(self) -> int:
-        """The hops of the ring form that the shared-memory huge launch
-        takes, 0 for the grouped body: the ring form only where every bucket
-        of the huge table is no wider than its threads (one slot a thread;
-        a plan whose threads were changed after it was built falls back to
-        the grouped body, whose shared memory the ring form's covers)."""
-        return self.huge_ring_hops if self.huge_pmax <= self.huge_threads else 0
+    def launch(self, body: str, run: bool = False) -> Optional[BodyLaunch]:
+        """The launch of ``body`` (a name of :data:`BODIES`) of the
+        half-sweeps (``run``: of the run-only entry); None where it has no
+        block."""
+        suffix = SUFFIXES[BODIES.index(body)]
+        return next((r for r in (self.runs if run else self.sweeps) if r.body == suffix), None)
 
 
 def cell_bytes(P: int, itemsize: int) -> int:
@@ -734,8 +692,6 @@ def _wide_plan(shapes, itemsize: int, stages: Optional[int], warps: Optional[int
     the SMs; many: WIDE_WARPS a block, as many as the widest bucket lets fit.
     ``stages`` / ``warps`` force either (timing variants); a width whose
     single warp fits no block even without a ring raises ValueError."""
-    if not shapes:
-        return 1, 0, 0
     widest = max(P for P, _, _ in shapes)
     if wide_warp_bytes(widest, itemsize, 0) > MAX_DYNAMIC_SMEM:
         raise ValueError(
@@ -781,8 +737,6 @@ def _huge_plan(shapes, itemsize: int, sms: int, ring: Optional[int] = None):
     (``ring``: that many, or False / 0 for the grouped body), and its shared
     memory; at most 1,024 slots a block, the stages of every depth up to
     HUGE_RING_MAX leave the same blocks room to reside."""
-    if not shapes:
-        return HUGE_THREADS, [], 0, 0, 0
     cols = sum(B for _, H, B in shapes if H > 0)
     fwd = max(huge_smem_bytes(P, itemsize) for P, _, _ in shapes)
     resident = max(1, min(-(-cols // sms), SM_SMEM // (fwd + BLOCK_SMEM_RESERVED)))
@@ -868,28 +822,6 @@ def _route_by_columns(shapes, body, resident: int, clusters: int = 0):
     return body
 
 
-def _l2_launch(shapes, l2, rows, nodes, arcs, split: Optional[int], resident: Optional[int],
-               key_rows: bool):
-    """(table, blocks, G, columns, key-row values) of one launch of the L2
-    body over the buckets ``l2`` (indices into ``shapes``): G from
-    :func:`choose_l2_split` unless ``split`` forces it, ``first_block`` in
-    blocks, G a column; the table's last column the bucket's offset into the
-    key rows where ``key_rows`` (the half-sweeps'), else 0 (the run reads
-    none)."""
-    cols = sum(shapes[k][2] for k in l2 if shapes[k][1] > 0)
-    if split is None:
-        split = choose_l2_split(cols, max((shapes[k][0] for k in l2), default=1), HUGE_THREADS,
-                                resident) if cols else 1
-    table = np.zeros((len(l2), TABLE_COLUMNS), dtype=np.int64)
-    block = values = 0
-    for r, k in enumerate(l2):
-        P, H, B = shapes[k]
-        table[r] = (P, H, B, block, rows[k], nodes[k], arcs[k], values)
-        block += split * B if H > 0 else 0
-        values += 2 * P * B if key_rows else 0
-    return table, block, split, cols, values
-
-
 def cluster_occupancy(itemsize: int, C: int, threads: int, smem: int, device, sms: int,
                       pmax: int) -> int:
     """Clusters of C blocks of ``threads`` threads and ``smem`` bytes of
@@ -903,20 +835,8 @@ def cluster_occupancy(itemsize: int, C: int, threads: int, smem: int, device, sm
     16, where the card holds 7. With several blocks an SM the card's answer
     is lower than the estimate (58 clusters of 16 at 13 blocks an SM against
     104; PERF.md section 6), so the estimate is an upper bound there."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        import ctypes
-
-        from bdd_tpu_torch import _build
-
-        out = ctypes.c_int(0)
-        fn = getattr(_build.load(), f"uniform_huge_cluster_occupancy_f{8 * itemsize}")
-        with torch.cuda.device(device):
-            rc = fn(C, threads, smem, pmax, ctypes.byref(out))
-        if rc != 0:
-            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed (code {rc}) for a "
-                               f"cluster of {C} blocks of {threads} threads, {smem} B")
-        return out.value
+    if torch.device(device).type == "cuda":
+        return _card_occupancy(itemsize, "_huge_cluster", threads, smem, (C, pmax), False, device)
     per_sm = min(SM_SMEM // (smem + BLOCK_SMEM_RESERVED), HUGE_THREADS // threads)
     gpcs = GPC_SMS if sms == sum(GPC_SMS) else (sms,)
     return sum(n * per_sm // C for n in gpcs)
@@ -935,8 +855,6 @@ def _cluster_plan(shapes, itemsize: int, sms: int, device: str, size: Optional[i
     accesses). The slot codes are the widest bucket's
     (:func:`cluster_code_bytes`). The backward keeps two rows where that many
     blocks still fit with them. A width no C holds raises ValueError."""
-    if not shapes:
-        return CLUSTER_SIZES[0], HUGE_THREADS, [], 0, 0
     cols = max(1, sum(B for _, H, B in shapes if H > 0))
     widest = max(P for P, _, _ in shapes)
     best = None
@@ -969,165 +887,192 @@ def _cluster_plan(shapes, itemsize: int, sms: int, device: str, size: Optional[i
     return C, threads, rows, fwd, bwd
 
 
-@functools.lru_cache(maxsize=256)
-def _launch_plan(shapes, itemsize: int, device: str, stages: Optional[int],
-                 wide_stages: Optional[int], wide_warps: Optional[int],
-                 huge_from: Optional[int], huge_body: Optional[str],
-                 cluster_size: Optional[int], l2_split: Optional[int],
-                 huge_ring: Optional[int]) -> LaunchPlan:
+def route(shapes, itemsize: int, device) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """The bodies (names of :data:`BODIES`) of the half-sweeps and of the
+    run-only entry, per bucket of ``shapes``, in a solve of values of
+    ``itemsize`` bytes on ``device``: the one place that decides which body
+    takes a bucket. Each bucket first takes the body of its width
+    (:func:`body_of`); then the rule by columns holds on the L2 table as a
+    whole (:func:`_route_by_columns`; float32 rows a block holds over few
+    columns take the cluster body) and the float32 rule on the huge table
+    that it leaves (:func:`_route_huge_table`). The run-only entry takes the
+    L2 body for the cluster body's buckets (it led on every layout measured,
+    L2_FROM_SPLIT) and the half-sweeps' body for the others."""
     sms = sm_count(device)
-    body = [body_of(P, itemsize, B, sms, huge_from) for P, _, B in shapes]
-    # huge_body forces one body on all three entries ("huge": the width's body
-    # past WIDE_P, so the shared-memory one wherever a block holds the rows)
-    if huge_body == "huge_l2":  # the L2 body for every bucket past the wide records
-        body = ["huge_l2" if P > WIDE_P else b for b, (P, _, _) in zip(body, shapes)]
-    elif huge_body == "huge_cluster":  # the cluster body wherever it holds the rows
-        body = ["huge_cluster" if P > WIDE_P and cluster_fits(P, itemsize) else b
-                for b, (P, _, _) in zip(body, shapes)]
-    resident = None  # blocks of the L2 body the card holds at once, where a bucket may take it
+    body = [body_of(P, itemsize, B, sms) for P, _, B in shapes]
     if any(b in ("huge_cluster", "huge_l2") or b == "huge" and P > WIDE_P
            for b, (P, _, _) in zip(body, shapes)):
-        resident = sms * l2_occupancy(itemsize, HUGE_THREADS, device)
-        if huge_body is None:
-            # the clusters of BLOCK_ROWS_CLUSTER blocks the card holds at once
-            # over the rows a block holds past WIDE_P, where the precision has any
-            C = BLOCK_ROWS_CLUSTER.get(itemsize)
-            block = [P for (P, _, _), b in zip(shapes, body) if b == "huge" and P > WIDE_P]
-            clusters = 0
-            if C and block:
-                clusters = cluster_occupancy(itemsize, C, HUGE_THREADS,
-                                             cluster_smem_bytes(max(block), C, itemsize), device,
-                                             sms, max(block))
-            body = _route_by_columns(shapes, body, resident, clusters)
-    if huge_from is None:  # on the huge table that the route by columns leaves
-        body = _route_huge_table(shapes, body, itemsize, sms)
-    run_body = body if huge_body else [run_body_of(b) for b in body]
-    narrow = [k for k, b in enumerate(body) if b == "narrow"]
-    wide = [k for k, b in enumerate(body) if b == "wide"]
-    huge = [k for k, b in enumerate(body) if b == "huge"]
-    clustered = [k for k, b in enumerate(body) if b == "huge_cluster"]
-    l2 = [k for k, b in enumerate(body) if b == "huge_l2"]
-    cols = sum(shapes[k][2] for k in narrow)
-    tile = TILE_SMALL if cols <= TILE_SWITCH else TILE_LARGE
-    want = stages or min(MAX_STAGES, max(MIN_STAGES, -(-STAGE_COLUMNS // max(cols, 1))))
-    rows, nodes, arcs, E, N, arc_bytes = _offsets(shapes)
-    table = np.zeros((len(narrow), TABLE_COLUMNS), dtype=np.int64)
-    block = smem = 0
-    for r, k in enumerate(narrow):
-        P, H, B = shapes[k]
-        per_slot = slot_bytes(P, itemsize, tile)
-        S = max(1, min(want, SMEM_BUDGET // per_slot - 1))  # S + 1 slots in the ring
-        smem = max(smem, (S + 1) * per_slot)
-        table[r] = (P, H, B, block, rows[k], nodes[k], arcs[k], S)
-        block += -(-B // tile) if H > 0 else 0
-    wide_pmax = max((shapes[k][0] for k in wide), default=0)
-    warps, wide_depth, warp_bytes = _wide_plan(
-        [shapes[k] for k in wide], itemsize, wide_stages, wide_warps, sms)
-    wide_table = np.zeros((len(wide), TABLE_COLUMNS), dtype=np.int64)
-    wide_block = 0
-    for r, k in enumerate(wide):
-        P, H, B = shapes[k]
-        wide_table[r] = (P, H, B, wide_block, rows[k], nodes[k], arcs[k], wide_depth)
-        wide_block += -(-B // warps) if H > 0 else 0
-    threads, huge_rows, smem_fwd, smem_bwd, ring_hops = _huge_plan(
-        [shapes[k] for k in huge], itemsize, sms, huge_ring)
-    huge_table = np.zeros((len(huge), TABLE_COLUMNS), dtype=np.int64)
-    huge_block = 0
-    for r, k in enumerate(huge):
-        P, H, B = shapes[k]
-        huge_table[r] = (P, H, B, huge_block, rows[k], nodes[k], arcs[k], huge_rows[r])
-        huge_block += B if H > 0 else 0
-    C, cl_threads, cl_rows, cl_fwd, cl_bwd = _cluster_plan(
-        [shapes[k] for k in clustered], itemsize, sms, device, cluster_size)
-    cluster_table = np.zeros((len(clustered), TABLE_COLUMNS), dtype=np.int64)
-    cluster_block = 0
-    for r, k in enumerate(clustered):
-        P, H, B = shapes[k]
-        cluster_table[r] = (P, H, B, cluster_block, rows[k], nodes[k], arcs[k], cl_rows[r])
-        cluster_block += C * B if H > 0 else 0
-    if l2_split is not None and not 1 <= l2_split <= L2_MAX_SPLIT:
-        raise ValueError(f"the L2 body takes 1 to {L2_MAX_SPLIT} blocks a column, not {l2_split}")
-    l2_table, l2_block, split, l2_cols, scratch = _l2_launch(
-        shapes, l2, rows, nodes, arcs, l2_split, resident, key_rows=True)
-    run_l2 = [k for k, b in enumerate(run_body) if b == "huge_l2"]
-    run_table, run_block, run_split, run_cols, _ = _l2_launch(
-        shapes, run_l2, rows, nodes, arcs, l2_split, resident, key_rows=False)
-    return LaunchPlan(
-        table=torch.from_numpy(table).to(device), nr_buckets=len(narrow), nr_blocks=block,
-        tile=tile, pmax=max((shapes[k][0] for k in narrow), default=1), smem_bytes=smem,
-        shapes=shapes, arc_offsets=arcs, E=E, N=N, arc_bytes=arc_bytes,
-        wide_table=torch.from_numpy(wide_table).to(device), nr_wide=len(wide),
-        wide_blocks=wide_block, wide_warps=warps, wide_pmax=wide_pmax,
-        wide_warp_bytes=warp_bytes, wide_smem_bytes=warps * warp_bytes,
-        huge_table=torch.from_numpy(huge_table).to(device), nr_huge=len(huge),
-        huge_blocks=huge_block, huge_threads=threads,
-        huge_pmax=max((shapes[k][0] for k in huge), default=0),
-        huge_smem_forward=smem_fwd, huge_smem_backward=smem_bwd, huge_ring_hops=ring_hops,
-        cluster_table=torch.from_numpy(cluster_table).to(device), nr_cluster=len(clustered),
-        cluster_blocks=cluster_block, cluster_size=C, cluster_threads=cl_threads,
-        cluster_pmax=max((shapes[k][0] for k in clustered), default=0),
-        cluster_smem_forward=cl_fwd, cluster_smem_backward=cl_bwd,
-        l2_table=torch.from_numpy(l2_table).to(device), nr_l2=len(l2), l2_blocks=l2_block,
-        l2_threads=HUGE_THREADS, huge_scratch_values=scratch, l2_split=split,
-        l2_columns=l2_cols,
-        run_cluster_blocks=cluster_block if "huge_cluster" in run_body else 0,
-        run_l2_table=torch.from_numpy(run_table).to(device), nr_run_l2=len(run_l2),
-        run_l2_blocks=run_block, run_l2_split=run_split, run_l2_columns=run_cols,
-    )
+        # the L2 body's blocks the card holds at once, and the clusters of
+        # BLOCK_ROWS_CLUSTER blocks over the rows a block holds past WIDE_P,
+        # where the precision has any
+        resident = sms * block_occupancy(itemsize, "_huge_l2", HUGE_THREADS, device)
+        C = BLOCK_ROWS_CLUSTER.get(itemsize)
+        block = [P for (P, _, _), b in zip(shapes, body) if b == "huge" and P > WIDE_P]
+        clusters = 0
+        if C and block:
+            clusters = cluster_occupancy(itemsize, C, HUGE_THREADS,
+                                         cluster_smem_bytes(max(block), C, itemsize), device,
+                                         sms, max(block))
+        body = _route_by_columns(shapes, body, resident, clusters)
+    body = _route_huge_table(shapes, body, itemsize, sms)
+    return tuple(body), tuple("huge_l2" if b == "huge_cluster" else b for b in body)
 
 
-def launch_plan(shapes, dtype: torch.dtype, device, stages: Optional[int] = None,
-                wide_stages: Optional[int] = None, wide_warps: Optional[int] = None,
-                huge_from: Optional[int] = None, huge_body: Optional[str] = None,
-                cluster_size: Optional[int] = None, l2_split: Optional[int] = None,
-                huge_ring: Optional[int] = None) -> LaunchPlan:
-    """The plan of one launch per body over buckets of ``shapes`` ((P, H, B)
-    each) whose buffers lie flat, bucket after bucket. Built once per
-    distinct argument list (cached). The other arguments force what the plan
-    would choose, for timing and tests: ``stages`` the prefetch depth of the
-    narrow buckets, ``wide_stages`` and ``wide_warps`` the depth and the warps
-    a block of the wide ones, ``huge_from`` the narrowest wide bucket the huge
-    body takes whatever its columns (WIDE_P + 1: none; :func:`body_of`),
-    ``huge_body="huge_l2"`` the L2 body for
-    every bucket past WIDE_P, ``huge_body="huge_cluster"`` the cluster body
-    for every such bucket it holds, ``huge_body="huge"`` the body of each
-    bucket's width (:func:`body_of`: the shared-memory body for every such
-    bucket a block holds), ``cluster_size`` the blocks of its
-    clusters (2, 4, 8 or 16), ``l2_split`` the blocks a column of the L2
-    body (1 to L2_MAX_SPLIT; more than the card holds at once is refused at
-    the launch), ``huge_ring`` the hops of the shared-memory huge body's ring
-    form where it takes that form (1 to HUGE_RING_MAX; False or 0: the
-    grouped body on the same table)."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return _launch_plan(tuple(tuple(int(x) for x in s) for s in shapes), itemsize,
-                        str(torch.device(device)), stages, wide_stages, wide_warps,
-                        huge_from, huge_body, cluster_size, l2_split,
-                        None if huge_ring is None else int(huge_ring))
+def _table(shapes, members, offsets, times: int, per: int, last, device):
+    """(table on ``device``, blocks) of the buckets ``members`` (indices into
+    ``shapes``): per bucket P, H, B, its first block, its offsets into the
+    buffers (``offsets``: :func:`_offsets`) and ``last[r]``; a bucket with a
+    hop takes ceil(B * times / per) blocks."""
+    rows, nodes, arcs = offsets[:3]
+    table = np.zeros((len(members), TABLE_COLUMNS), dtype=np.int64)
+    block = 0
+    for r, k in enumerate(members):
+        P, H, B = shapes[k]
+        table[r] = (P, H, B, block, rows[k], nodes[k], arcs[k], last[r])
+        block += -(-B * times // per) if H > 0 else 0
+    return torch.from_numpy(table).to(device), block
 
 
-def plan_scratch_bytes(plan: LaunchPlan, itemsize: int) -> Tuple[int, int, int]:
-    """:func:`l2_scratch_bytes` of ``plan``'s two L2 launches in one buffer:
-    the half-sweeps' key rows, then room for the partials and the counters of
-    whichever launch needs more (the half-sweeps' or the run's, which take
-    turns on the layout's stream)."""
-    half = l2_scratch_bytes(plan.huge_scratch_values, plan.l2_split, plan.l2_columns, itemsize)
-    run = l2_scratch_bytes(plan.huge_scratch_values, plan.run_l2_split, plan.run_l2_columns,
-                           itemsize)
+def _body_launch(body: str, shapes, members, itemsize: int, device: str, offsets,
+                 key_rows: bool, tune: dict) -> Optional[BodyLaunch]:
+    """The launch of ``body`` over the buckets ``members`` (indices into
+    ``shapes``), None where it has no block; ``key_rows``: the L2 table's
+    last column the buckets' offsets into the key rows (the half-sweeps'),
+    else 0; ``tune``: :func:`build_plan`'s keywords."""
+    mine = [shapes[k] for k in members]
+    if not mine:
+        return None
+    pmax = max(P for P, _, _ in mine)
+    sms = sm_count(device)
+    if body == "narrow":  # a tile of columns a block, one thread each
+        cols = sum(B for _, _, B in mine)
+        tile = TILE_SMALL if cols <= TILE_SWITCH else TILE_LARGE
+        want = tune["stages"] or min(MAX_STAGES,
+                                     max(MIN_STAGES, -(-STAGE_COLUMNS // max(cols, 1))))
+        last = [max(1, min(want, SMEM_BUDGET // slot_bytes(P, itemsize, tile) - 1))
+                for P, _, _ in mine]  # S + 1 slots in the ring
+        fwd = bwd = max((S + 1) * slot_bytes(P, itemsize, tile)
+                        for (P, _, _), S in zip(mine, last))
+        times, per, threads, own = 1, tile, tile, (tile, pmax)
+    elif body == "wide":  # a warp a column
+        warps, depth, warp_bytes = _wide_plan(mine, itemsize, tune["wide_stages"],
+                                              tune["wide_warps"], sms)
+        last, threads, own = [depth] * len(mine), 32 * warps, (warps, warp_bytes)
+        fwd = bwd = warps * warp_bytes
+        times, per = 1, warps
+    elif body == "huge":  # a block a column
+        threads, last, fwd, bwd, hops = _huge_plan(mine, itemsize, sms, tune["ring_hops"])
+        times, per, own = 1, 1, (pmax, hops)
+    elif body == "huge_cluster":  # a cluster of C blocks a column
+        C, threads, last, fwd, bwd = _cluster_plan(mine, itemsize, sms, device,
+                                                   tune["cluster_size"])
+        times, per, own = C, 1, (C, pmax)
+    else:  # the L2 body: G blocks a column
+        cols = sum(B for _, H, B in mine if H > 0)
+        split = tune["l2_split"] or (choose_l2_split(
+            cols, pmax, HUGE_THREADS,
+            sms * block_occupancy(itemsize, "_huge_l2", HUGE_THREADS, device)) if cols else 1)
+        last = list(np.cumsum([0] + [2 * P * B for P, _, B in mine])[:-1]) if key_rows else (
+            [0] * len(mine))
+        threads, fwd, bwd, own = HUGE_THREADS, 0, 0, (split, cols)
+        times, per = split, 1
+    table, blocks = _table(shapes, members, offsets, times, per, last, device)
+    if not blocks:
+        return None
+    return BodyLaunch(SUFFIXES[BODIES.index(body)], table, len(mine), blocks, threads, fwd, bwd,
+                      own)
+
+
+def _plan(shapes, itemsize: int, device: str, bodies, run_bodies, tune: dict) -> LaunchPlan:
+    if len(bodies) != len(shapes) or len(run_bodies) != len(shapes) or not set(
+            bodies + run_bodies) <= set(BODIES):
+        raise ValueError(f"a body of {BODIES} per bucket, for {len(shapes)} buckets: "
+                         f"{bodies} / {run_bodies}")
+    if tune["l2_split"] is not None and not 1 <= tune["l2_split"] <= L2_MAX_SPLIT:
+        raise ValueError(f"the L2 body takes 1 to {L2_MAX_SPLIT} blocks a column, "
+                         f"not {tune['l2_split']}")
+    offsets = _offsets(shapes)
+    sweeps, runs = [], []
+    for body in BODIES:
+        members = [k for k, b in enumerate(bodies) if b == body]
+        run_members = [k for k, b in enumerate(run_bodies) if b == body]
+        launch = _body_launch(body, shapes, members, itemsize, device, offsets, True, tune)
+        if run_members != members or body == "huge_l2":  # the run reads no key rows
+            run = _body_launch(body, shapes, run_members, itemsize, device, offsets, False, tune)
+        else:
+            run = launch
+        sweeps += [launch] if launch else []
+        runs += [run] if run else []
+    # the L2 scratch: the half-sweeps' key rows, then room for the partials
+    # and the counters of whichever L2 launch needs more
+    values = sum(2 * shapes[k][0] * shapes[k][2] for k, b in enumerate(bodies) if b == "huge_l2")
+    half, run = (l2_scratch_bytes(values, *next((r.own for r in launches if r.body == "_huge_l2"),
+                                                (1, 0)), itemsize)
+                 for launches in (sweeps, runs))
     counters = max(half[1], run[1])
-    return half[0], counters, counters + max(half[2] - half[1], run[2] - run[1])
+    return LaunchPlan(shapes=shapes, arc_offsets=offsets[2], E=offsets[3], N=offsets[4],
+                      arc_bytes=offsets[5], sweeps=tuple(sweeps), runs=tuple(runs),
+                      scratch_bytes=(half[0], counters,
+                                     counters + max(half[2] - half[1], run[2] - run[1])))
 
 
-def huge_scratch(plan: LaunchPlan, dtype: torch.dtype, device) -> Optional[torch.Tensor]:
+_TUNABLES = dict(stages=None, wide_stages=None, wide_warps=None, cluster_size=None,
+                 l2_split=None, ring_hops=None)
+
+
+def _shapes(shapes) -> Tuple[Tuple[int, int, int], ...]:
+    return tuple(tuple(int(x) for x in s) for s in shapes)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(shapes, itemsize: int, device: str) -> LaunchPlan:
+    return _plan(shapes, itemsize, device, *route(shapes, itemsize, device), _TUNABLES)
+
+
+def launch_plan(shapes, dtype: torch.dtype, device) -> LaunchPlan:
+    """The plan of one launch per body over buckets of ``shapes`` ((P, H, B)
+    each) whose buffers lie flat, bucket after bucket, each bucket on the
+    body :func:`route` gives it. Built once per distinct argument list
+    (cached)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return _launch_plan(_shapes(shapes), itemsize, str(torch.device(device)))
+
+
+def build_plan(shapes, dtype: torch.dtype, device, bodies: Sequence[str],
+               run_bodies: Optional[Sequence[str]] = None, *, stages: Optional[int] = None,
+               wide_stages: Optional[int] = None, wide_warps: Optional[int] = None,
+               cluster_size: Optional[int] = None, l2_split: Optional[int] = None,
+               ring_hops: Optional[int] = None) -> LaunchPlan:
+    """The plan of ``shapes`` as :func:`launch_plan` builds it, but on the
+    bodies given, for timing and tests: ``bodies`` (names of :data:`BODIES`)
+    per bucket for the half-sweeps, ``run_bodies`` for the run-only entry
+    (default ``bodies``). The keywords reach the kernel paths the route's
+    plan does not choose: ``stages`` the prefetch depth of the narrow
+    buckets, ``wide_stages`` and ``wide_warps`` the depth and the warps a
+    block of the wide ones, ``cluster_size`` the blocks of the cluster
+    body's clusters (2, 4, 8 or 16), ``l2_split`` the blocks a column of the
+    L2 body (1 to L2_MAX_SPLIT; more than the card holds at once is refused
+    at the launch), ``ring_hops`` the hops of the shared-memory huge body's
+    ring form where it takes that form (1 to HUGE_RING_MAX; 0: the grouped
+    body on the same table). Not cached."""
+    bodies = tuple(bodies)
+    tune = dict(stages=stages, wide_stages=wide_stages, wide_warps=wide_warps,
+                cluster_size=cluster_size, l2_split=l2_split, ring_hops=ring_hops)
+    return _plan(_shapes(shapes), torch.empty((), dtype=dtype).element_size(),
+                 str(torch.device(device)), bodies,
+                 bodies if run_bodies is None else tuple(run_bodies), tune)
+
+
+def huge_scratch(plan: LaunchPlan, device) -> Optional[torch.Tensor]:
     """The scratch of the L2 body over ``plan``'s buckets in its tables (uint8,
-    :func:`plan_scratch_bytes`: the forward's key rows, and where a launch
+    ``plan.scratch_bytes``: the forward's key rows, and where a launch
     splits a column the partials and counters that it uses): one buffer per
     layout, made with it and freed with it. None off the card (the twins need
     none) and where the plan sends no bucket of any entry to the L2 body."""
     device = torch.device(device)
-    if device.type != "cuda" or not (plan.l2_blocks or plan.run_l2_blocks):
+    if device.type != "cuda" or all(r.body != "_huge_l2" for r in plan.sweeps + plan.runs):
         return None
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return torch.empty(plan_scratch_bytes(plan, itemsize)[2], dtype=torch.uint8, device=device)
+    return torch.empty(plan.scratch_bytes[2], dtype=torch.uint8, device=device)
 
 
 def solve_bytes(shapes, itemsize: int) -> int:
@@ -1522,7 +1467,7 @@ def _build_host(
         arcs=arcs,
         alpha=alpha,
         plan=plan,
-        huge_scratch=huge_scratch(plan, dtype, device),
+        huge_scratch=huge_scratch(plan, device),
     )
     return UniformHost(
         geom=geom,

@@ -4,12 +4,12 @@ bdd_tpu/solver/pallas_uniform.py).
 Two levels of wrapper over the kernels of ``csrc/uniform_sweep.cu``
 (``uniform_forward``, ``uniform_backward``, each with a body for buckets of
 up to 32 slots, one for wide buckets, one a block a column for wider buckets
-(``layout.body_of``: from ``layout.HUGE_FROM`` slots on, rows in shared
-memory), and for buckets whose rows do not fit a block (``layout.huge_fits``)
-its cluster form, a cluster of blocks a column, where a cluster holds them
+(from ``layout.HUGE_FROM`` slots on, rows in shared memory), and for buckets
+whose rows do not fit a block (``layout.huge_fits``) its cluster form, a
+cluster of blocks a column, where a cluster holds them
 (``layout.cluster_fits``) and their columns are many, and its L2 form for
-the rest; the run-only entry takes the L2 form for all of them; see the
-design notes there):
+the rest; the run-only entry takes the L2 form for all of them;
+``layout.route`` gives each bucket its body; see the design notes there):
 
 * ``forward_iteration_cuda`` / ``backward_iteration_cuda`` take a whole
   ``UniformGeom`` and flat tensors and run the half-sweep of every bucket: ONE
@@ -17,7 +17,7 @@ design notes there):
   over each huge form's, each where the layout has any. The iteration
   uses these. Shapes and types were fixed when the layout was built, so a
   call checks only what it is handed, allocates the four outputs and makes
-  one ctypes call per launch.
+  one ctypes call.
 * ``bucket_forward_iteration_cuda`` / ``bucket_backward_iteration_cuda`` keep
   the signature of the Pallas wrappers: one bucket, [H, B] tensors, optional
   per-layer ``alpha`` and ``omega``. They launch the same kernels over a table
@@ -46,35 +46,32 @@ wide body's, ``uniform_forward_huge`` the huge body's,
 ``uniform_forward_huge_l2`` its L2 form's). The twins never count here
 (``uniform.TWIN_SWEEP_CALLS`` and ``uniform.PLAIN_RUN_CALLS`` count them).
 
-``L2_WAIT`` counts the L2 body's hop-barrier wait: while a ``torch.profiler``
-records, an L2 launch takes the body's counting entry (``_count``), which
-adds, block by block, thread 0's SM cycles spent at the column's hop
-barriers and the block's SM cycles from start to end. Where the counting
-entries hold fewer blocks an SM than the body's own (which G comes from),
-the launch runs uncounted. ``l2_wait_cycles`` reads the sums, and
-``L2_COUNTED`` counts by entry the launches that took the counting entry
-(``LAUNCHES`` counts them under ``_huge_l2`` with the others).
+A launch is one record of the plan (``layout.BodyLaunch``), and a call of an
+entry hands the library all of them at once (``_build.Launch``, made once per
+plan and scratch, and ``_build.Buffers``): one ctypes call a half-sweep.
 
-``HUGE_WAIT`` counts the shared-memory huge body's wait at its block
-barriers: while a profiler records, one launch of an entry in every
-HUGE_COUNT_EVERY (the first included; ``HUGE_PROFILED`` counts them) takes
-the body's counting entry (``_count``, kernel ``sweep_huge_counted_kernel``),
-which adds each warp's SM cycles from its arrival to its release at each
-hop's block barriers and the warps' SM cycles from the block's start to its
-end, where the counting entries hold as many blocks an SM as the body's own
-(``layout.huge_occupancy``). The counting entry runs slower than the body's
-own (PERF.md section 6), so a traced slice takes it only that often.
-``huge_wait_cycles`` reads the sums (``LAUNCHES`` counts the launches under
-``_huge``).
+Two bodies have a counting form, which adds, block by block, the SM cycles
+its blocks spend at the body's barriers (the L2 body: thread 0's at the
+column's hop barriers; the shared-memory huge body: each warp's from its
+arrival to its release at each hop's block barriers) and their SM cycles
+from start to end: ``L2_WAIT`` and ``HUGE_WAIT`` sum them by device and
+entry, ``l2_wait_cycles`` and ``huge_wait_cycles`` read the sums. While a
+``torch.profiler`` records, a launch of such a body takes its counting form
+once in every ``COUNT_EVERY[body]`` profiled launches of its entry, the first
+included: every L2 launch, one huge launch in HUGE_COUNT_EVERY (its counting
+form runs slower than its own, PERF.md section 6, so a traced slice takes it
+only that often). ``PROFILED`` and ``COUNTED`` count by (body, entry) the
+profiled launches and those that took the counting form. Where a counting
+form holds fewer blocks an SM than the body's own (by which the plan placed
+the body), the launch runs uncounted.
 
 ``HUGE_RING`` counts by entry the launches of the shared-memory huge body
-that take its ring form (``LaunchPlan.huge_hops``: every bucket of the huge
-table no wider than its threads; ``LAUNCHES`` counts them under ``_huge``
-with the others). The ring form's counting entry feeds ``HUGE_WAIT`` as the
-grouped body's does.
+that take its ring form (the hops of its record; ``LAUNCHES`` counts them
+under ``_huge`` with the others).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import torch
@@ -83,34 +80,38 @@ from bdd_tpu_torch import _build
 from bdd_tpu_torch.solver import uniform as uf
 from bdd_tpu_torch.solver.layout import (
     NARROW_P,
+    SUFFIXES,
+    BodyLaunch,
     BucketGeom,
     LaunchPlan,
     UniformGeom,
-    huge_occupancy,
+    block_occupancy,
     huge_scratch,
-    l2_occupancy,
     launch_plan,
-    plan_scratch_bytes,
 )
 
 SUPPORTED_P = (1, 2, 4, 8, 16, 32)  # the narrow body's instantiations
 KERNELS = ("uniform_forward", "uniform_backward")  # the half-sweeps
 RUN = "uniform_backward_run"  # the backward kernel's entry without the cost update
-WIDE = "_wide"  # suffix of the wide body's entries and of its key in LAUNCHES
-HUGE = "_huge"  # the same for the huge body (a block a column, rows in shared memory)
-HUGE_CLUSTER = "_huge_cluster"  # its cluster form (rows past a block's, within a cluster's)
-HUGE_L2 = "_huge_l2"  # the same for its L2 form (rows past a cluster's shared memory)
-BODIES = ("", WIDE, HUGE, HUGE_CLUSTER, HUGE_L2)
+# the suffixes of the wide body's entries and of its key in LAUNCHES, of the
+# huge body's (a block a column, rows in shared memory), of its cluster form
+# (rows past a block's, within a cluster's) and of its L2 form (rows past a
+# cluster's shared memory)
+BODIES = SUFFIXES
+WIDE, HUGE, HUGE_CLUSTER, HUGE_L2 = SUFFIXES[1:]
 LAUNCHES = {kernel + body: 0 for kernel in KERNELS + (RUN,) for body in BODIES}
 L2_ENTRIES = KERNELS + (RUN,)  # the rows of an L2_WAIT or HUGE_WAIT tensor
 # per device: int64 [3, 2], a row an entry of L2_ENTRIES: (barrier wait, block cycles)
 L2_WAIT: Dict[torch.device, torch.Tensor] = {}
 HUGE_WAIT: Dict[torch.device, torch.Tensor] = {}  # the same, of the huge body
-L2_COUNTED = {kernel: 0 for kernel in L2_ENTRIES}  # launches of the counting entries
-HUGE_COUNT_EVERY = 50  # a profiled launch of the huge body in this many takes its counting entry
-HUGE_PROFILED = {kernel: 0 for kernel in L2_ENTRIES}  # huge launches made under a profiler
+HUGE_COUNT_EVERY = 50
+# by body with a counting form: one profiled launch of an entry in this many takes it
+COUNT_EVERY = {HUGE_L2: 1, HUGE: HUGE_COUNT_EVERY}
+PROFILED = {(body, k): 0 for body in COUNT_EVERY for k in L2_ENTRIES}  # launches under a profiler
+COUNTED = dict(PROFILED)  # of those, the launches of the counting forms
 HUGE_RING = {kernel: 0 for kernel in L2_ENTRIES}  # huge launches that took the ring form
 _COUNTING_FITS: Dict[tuple, bool] = {}
+_RECORDS: Dict[tuple, ctypes.Array] = {}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -118,14 +119,18 @@ def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     for k in L2_ENTRIES:
-        L2_COUNTED[k] = HUGE_PROFILED[k] = HUGE_RING[k] = 0
+        HUGE_RING[k] = 0
+    for k in PROFILED:
+        PROFILED[k] = COUNTED[k] = 0
     for t in (*L2_WAIT.values(), *HUGE_WAIT.values()):
         t.zero_()
 
 
-def _wait_acc(sums: Dict[torch.device, torch.Tensor], kernel: str, device: torch.device) -> int:
-    """The address of ``kernel``'s row of the device's tensor in ``sums``
-    (``L2_WAIT`` or ``HUGE_WAIT``), made on first use."""
+def _wait_acc(body: str, kernel: str, device: torch.device) -> int:
+    """The address of ``kernel``'s row of the device's tensor of the sums
+    that ``body``'s counting form adds into (``L2_WAIT`` or ``HUGE_WAIT``),
+    made on first use."""
+    sums = L2_WAIT if body == HUGE_L2 else HUGE_WAIT
     t = sums.get(device)
     if t is None:
         t = sums[device] = torch.zeros((len(L2_ENTRIES), 2), dtype=torch.int64, device=device)
@@ -152,13 +157,18 @@ def huge_wait_cycles() -> Dict[str, Tuple[int, int]]:
     return _wait_cycles(HUGE_WAIT)
 
 
-def _counting_fits(occupancy, *args, **kw) -> bool:
-    """Whether a body's counting entries hold as many blocks an SM as its own
-    entries, by which the plan placed the body: ``occupancy`` is
-    ``l2_occupancy`` or ``huge_occupancy``, asked of ``args`` and ``kw``."""
-    key = (occupancy.__name__, *args, *sorted(kw.items()))
+def _counting_fits(launch: BodyLaunch, itemsize: int, device) -> bool:
+    """Whether the counting form of ``launch``'s body holds as many blocks an
+    SM as its own entries, by which the plan placed the body, at the
+    launch's threads and shared memory (``layout.block_occupancy``)."""
+    key = (launch.body, itemsize, launch.threads, launch.smem_forward, launch.smem_backward,
+           launch.own, device)
     if key not in _COUNTING_FITS:
-        _COUNTING_FITS[key] = (occupancy(*args, counting=True, **kw) >= occupancy(*args, **kw))
+        _COUNTING_FITS[key] = all(
+            block_occupancy(itemsize, launch.body, launch.threads, device, smem, launch.own,
+                            counting=True)
+            >= block_occupancy(itemsize, launch.body, launch.threads, device, smem, launch.own)
+            for smem in {launch.smem_forward, launch.smem_backward})
     return _COUNTING_FITS[key]
 
 
@@ -191,115 +201,85 @@ def _check_all(named, shapes) -> None:
             raise ValueError(f"{name} is not contiguous")
 
 
+def _records(plan: LaunchPlan, run: bool, scratch) -> ctypes.Array:
+    """The library's records of ``plan``'s launches of the half-sweeps
+    (``run``: of the run-only entry), the L2 body's with the scratch
+    ``scratch``: made once per plan, entry and scratch and shared by the
+    entry's closures, which set only the counting accumulators."""
+    key = (plan, run, None if scratch is None else scratch.data_ptr())
+    records = _RECORDS.get(key)
+    if records is None:
+        if len(_RECORDS) >= 256:
+            _RECORDS.clear()
+        launches = plan.runs if run else plan.sweeps
+        base = 0 if scratch is None else scratch.data_ptr()
+        parts, counters, _ = plan.scratch_bytes
+        records = _RECORDS[key] = (_build.Launch * len(launches))(*(
+            _build.Launch(r.table.data_ptr(), BODIES.index(r.body), r.nr_buckets, r.blocks,
+                          r.threads, r.smem_forward, r.smem_backward, r.own,
+                          *((base, base + parts, base + counters) if r.body == HUGE_L2
+                            else (None, None, None)))
+            for r in launches))
+    return records
+
+
 def _launcher(kernel: str, plan: LaunchPlan, arcs, lo, hi, din_lo, din_hi, alpha, omega,
               frontier, outs, scratch=None):
-    """A closure that queues ``kernel`` on the current stream (the narrow
-    buckets' launch, then the wide buckets', the huge buckets', the cluster
-    body's and the L2 body's, each where the plan has blocks for it; the run
-    entry's cluster and L2 launches by its own route) and raises on a launch
-    error. It holds its tensors alive and does not count in ``LAUNCHES``;
+    """A closure that queues ``kernel`` on the current stream, the launches
+    of the plan's records in order (the run entry's by its own route), in
+    one call of the library, and raises on a launch error, naming the body.
+    It holds its tensors alive and does not count in ``LAUNCHES``;
     ``launch.counts`` names the key of ``LAUNCHES`` of every launch a call
-    makes. ``scratch``:
-    the L2 body's (:func:`layout.huge_scratch`): the key rows, which the
-    forward reads, and the partials and counters of the column barriers,
-    which every entry needs where the plan splits a column. A launch made
-    while a profiler records takes the L2 body's counting entry, where it
-    fits (``L2_WAIT``; counted in ``L2_COUNTED``), and one in every
-    HUGE_COUNT_EVERY the huge body's, where it fits (``HUGE_WAIT``; counted
-    in ``HUGE_PROFILED``)."""
+    makes. ``scratch``: the L2 body's (:func:`layout.huge_scratch`): the key
+    rows, which the forward reads, and the partials and counters of the
+    column barriers, which every entry needs where the plan splits a column.
+    Under a profiler a launch takes its body's counting form as COUNT_EVERY
+    says, where it fits (``L2_WAIT``, ``HUGE_WAIT``)."""
     suffix = _suffix(lo.dtype)
+    launches = plan.runs if kernel == RUN else plan.sweeps
+    if scratch is None and any(r.body == HUGE_L2 for r in launches):
+        raise ValueError(f"{kernel}: the L2 body's launch needs its scratch "
+                         f"(layout.huge_scratch)")
     if isinstance(omega, torch.Tensor) and omega.dim() > 0:
         omega_arr, omega_val = omega, 0.0
     else:
         omega_arr, omega_val = None, float(omega)
-    lib = _build.load()
 
     def ptr(t):  # the run entry has no deltas, no incoming frontier, no cost outputs
         return None if t is None else t.data_ptr()
 
-    buffers = (
+    buffers = _build.Buffers(
         arcs.data_ptr(), lo.data_ptr(), hi.data_ptr(), ptr(din_lo), ptr(din_hi), ptr(alpha),
-        ptr(omega_arr), omega_val, ptr(frontier), *(ptr(o) for o in outs),
-        torch.cuda.current_stream(lo.device).cuda_stream,
-    )
-    calls = []
-    if plan.nr_blocks:
-        calls.append((kernel, (
-            plan.table.data_ptr(), plan.nr_buckets, plan.nr_blocks, plan.tile, plan.pmax,
-            plan.smem_bytes, *buffers)))
-    if plan.wide_blocks:
-        calls.append((kernel + WIDE, (
-            plan.wide_table.data_ptr(), plan.nr_wide, plan.wide_blocks, plan.wide_warps,
-            plan.wide_warp_bytes, plan.wide_smem_bytes, *buffers)))
-    if plan.huge_blocks:  # the ring form where plan.huge_hops
-        smem = plan.huge_smem_forward if kernel == "uniform_forward" else plan.huge_smem_backward
-        calls.append((kernel + HUGE, (
-            plan.huge_table.data_ptr(), plan.nr_huge, plan.huge_blocks, plan.huge_threads,
-            plan.huge_pmax, smem, plan.huge_hops, *buffers)))
-    # the run-only entry takes its own route (layout.run_body_of)
-    if plan.run_cluster_blocks if kernel == RUN else plan.cluster_blocks:
-        smem = (plan.cluster_smem_forward if kernel == "uniform_forward"
-                else plan.cluster_smem_backward)
-        calls.append((kernel + HUGE_CLUSTER, (
-            plan.cluster_table.data_ptr(), plan.nr_cluster, plan.cluster_blocks,
-            plan.cluster_threads, plan.cluster_size, plan.cluster_pmax, smem, *buffers)))
-    if kernel == RUN:
-        l2 = (plan.run_l2_table, plan.nr_run_l2, plan.run_l2_blocks, plan.run_l2_split,
-              plan.run_l2_columns)
-    else:
-        l2 = (plan.l2_table, plan.nr_l2, plan.l2_blocks, plan.l2_split, plan.l2_columns)
-    table, nr_l2, l2_blocks, split, columns = l2
-    if l2_blocks:
-        if scratch is None:
-            raise ValueError(f"{kernel}: the L2 body's launch needs its scratch "
-                             f"(layout.huge_scratch)")
-        base = scratch.data_ptr()
-        parts, counters, _ = plan_scratch_bytes(plan, lo.element_size())
-        calls.append((kernel + HUGE_L2, (
-            table.data_ptr(), nr_l2, l2_blocks, plan.l2_threads, split, columns, *buffers[:-1],
-            base, base + parts, base + counters, buffers[-1])))
-    calls = [(name, getattr(lib, f"{name}_{suffix}"), args) for name, args in calls]
-    keep = (plan, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, frontier, outs, scratch)
-    # the launches that take their counting entry under a profiler, by body:
-    # (index into calls, the address of the entry's accumulators). Asked
-    # here and not in a traced launch: the card's first answer loads the
-    # counting entries.
-    itemsize = lo.element_size()
-    counting = {}
-    if plan.huge_blocks and all(
-            _counting_fits(huge_occupancy, itemsize, plan.huge_threads, smem, lo.device,
-                           hops=plan.huge_hops)
-            for smem in (plan.huge_smem_forward, plan.huge_smem_backward)):
-        counting[HUGE] = ([n for n, _, _ in calls].index(kernel + HUGE),
-                          _wait_acc(HUGE_WAIT, kernel, lo.device))
-    if l2_blocks and _counting_fits(l2_occupancy, itemsize, plan.l2_threads, lo.device):
-        # the L2 call is the last one
-        counting[HUGE_L2] = (len(calls) - 1, _wait_acc(L2_WAIT, kernel, lo.device))
+        ptr(omega_arr), omega_val, ptr(frontier), *(ptr(o) for o in outs))
+    records = _records(plan, kernel == RUN, scratch)
+    fn = getattr(_build.load(), f"{kernel}_{suffix}")
+    stream = torch.cuda.current_stream(lo.device).cuda_stream
+    failed = ctypes.c_int(-1)
+    # the records of a body with a counting form, with the address of the
+    # entry's accumulators where the form fits (else None), set anew each
+    # call: the records are shared. Asked here and not in a traced launch:
+    # the card's first answer loads the counting entries.
+    counting = [(i, r.body, _wait_acc(r.body, kernel, lo.device)
+                 if _counting_fits(r, lo.element_size(), lo.device) else None)
+                for i, r in enumerate(launches) if r.body in COUNT_EVERY]
 
     def launch() -> None:
-        todo = calls
-        if counting and torch._C._autograd._profiler_enabled():
-            todo = list(calls)
-            for body, (i, acc) in counting.items():
-                if body == HUGE:
-                    HUGE_PROFILED[kernel] += 1
-                    if (HUGE_PROFILED[kernel] - 1) % HUGE_COUNT_EVERY:
-                        continue
-                else:
-                    L2_COUNTED[kernel] += 1
-                name, _, args = calls[i]
-                todo[i] = (name, getattr(lib, f"{name}_count_{suffix}"),
-                           args[:-1] + (acc, args[-1]))
-        for name, fn, args in todo:
-            rc = fn(*args)
-            if rc != 0:
-                raise RuntimeError(
-                    f"{name}_{suffix} launch failed (code {rc}) over buckets {plan.shapes}"
-                )
+        profiled = bool(counting) and torch._C._autograd._profiler_enabled()
+        for i, body, acc in counting:
+            due = False
+            if profiled and acc is not None:
+                due = PROFILED[body, kernel] % COUNT_EVERY[body] == 0
+                PROFILED[body, kernel] += 1
+                COUNTED[body, kernel] += due
+            records[i].acc = acc if due else None
+        rc = fn(records, len(launches), ctypes.byref(buffers), stream, ctypes.byref(failed))
+        if rc != 0:
+            raise RuntimeError(f"{kernel}{launches[failed.value].body}_{suffix} launch failed "
+                               f"(code {rc}) over buckets {plan.shapes}")
 
-    launch.keep = keep
-    launch.counts = tuple(name for name, _, _ in calls)
-    launch.ring = kernel if plan.huge_blocks and plan.huge_hops else None
+    launch.keep = (plan, arcs, lo, hi, din_lo, din_hi, alpha, omega_arr, frontier, outs, scratch)
+    launch.counts = tuple(kernel + r.body for r in launches)
+    launch.ring = kernel if any(r.body == HUGE and r.own[1] for r in launches) else None
     return launch
 
 
@@ -335,7 +315,7 @@ def prepare_fused_launch(kernel: str, geom: UniformGeom, lo, hi, frontier, omega
     _check_flat(geom, (("lo", lo, E), ("hi", hi, E), ("din_lo", din_lo, E),
                        ("din_hi", din_hi, E), ("alpha", alpha, E), ("frontier", frontier, N)))
     outs = _fresh_outputs(lo, frontier)
-    scratch = geom.huge_scratch if plan is geom.plan else huge_scratch(plan, lo.dtype, lo.device)
+    scratch = geom.huge_scratch if plan is geom.plan else huge_scratch(plan, lo.device)
     return _launcher(kernel, plan, geom.arcs, lo, hi, din_lo, din_hi, alpha, omega,
                      frontier, outs, scratch), outs
 
@@ -368,7 +348,7 @@ def prepare_run_launch(geom: UniformGeom, lo, hi, plan: LaunchPlan = None):
     _check_widths(plan.shapes)
     _check_flat(geom, (("lo", lo, plan.E), ("hi", hi, plan.E)))
     cft = torch.empty(plan.N, dtype=lo.dtype, device=lo.device)
-    scratch = geom.huge_scratch if plan is geom.plan else huge_scratch(plan, lo.dtype, lo.device)
+    scratch = geom.huge_scratch if plan is geom.plan else huge_scratch(plan, lo.device)
     return _launcher(RUN, plan, geom.arcs, lo, hi, None, None, None, 0.0, None,
                      (None, None, None, cft), scratch), cft
 
@@ -446,7 +426,7 @@ def prepare_launch(kernel: str, g: BucketGeom, lo, hi, frontier, omega, din_lo, 
     plan = launch_plan([(P, H, B)], lo.dtype, lo.device)
     outs = _fresh_outputs(lo, stored)
     launch = _launcher(kernel, plan, g.arcs, lo, hi, din_lo, din_hi, alpha, omega, stored, outs,
-                       huge_scratch(plan, lo.dtype, lo.device))
+                       huge_scratch(plan, lo.device))
     return launch, outs[:3] + (_node_view(P, outs[3]),)
 
 
@@ -489,5 +469,5 @@ def bucket_backward_run_cuda(g: BucketGeom, lo, hi) -> torch.Tensor:
                          device=lo.device)
     _launch_counted(_launcher(RUN, plan, g.arcs, lo, hi, None, None, None, 0.0, None,
                               (None, None, None, stored),
-                              huge_scratch(plan, lo.dtype, lo.device)))
+                              huge_scratch(plan, lo.device)))
     return _node_view(P, stored)

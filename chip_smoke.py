@@ -490,11 +490,7 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
         torch.cuda.synchronize()
         errs[name + suffix] = max(errs[name + suffix], compare(out, ref, TOL[dt]))
         rose = sweeps_of({k: n - before[k] for k, n in sk.LAUNCHES.items()})
-        want = {**launch_counts(), name: int(geom.plan.nr_blocks > 0),
-                name + WIDE: int(geom.plan.wide_blocks > 0),
-                name + HUGE: int(geom.plan.huge_blocks > 0),
-                name + HUGE_CLUSTER: int(geom.plan.cluster_blocks > 0),
-                name + HUGE_L2: int(geom.plan.l2_blocks > 0)}
+        want = {**launch_counts(), **{name + r.body: 1 for r in geom.plan.sweeps}}
         if rose != want:
             fail(f"{label} {dt}: one fused {name} call counted launches {rose}, not {want}")
     # the timing loops launch directly: checked once, no allocation, no count
@@ -511,20 +507,7 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
                  bytes=nbytes,
                  bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
         print(
-            f"[fused] {label} {dt} {name}: one launch over {plan.nr_buckets} narrow bucket(s), "
-            f"{plan.nr_blocks} blocks of {plan.tile}, stages "
-            f"{[int(s) for s in plan.table[:, 7].tolist()]}, {plan.smem_bytes} B shared; one "
-            f"over {plan.nr_wide} wide bucket(s), {plan.wide_blocks} blocks of "
-            f"{plan.wide_warps} warps, stages {[int(s) for s in plan.wide_table[:, 7].tolist()]}, "
-            f"{plan.wide_smem_bytes} B shared; one over {plan.nr_huge} huge bucket(s), "
-            f"{plan.huge_blocks} blocks of {plan.huge_threads} threads, flags "
-            f"{[int(r[7]) for r in plan.huge_table.tolist()]}, {plan.huge_smem_forward} / "
-            f"{plan.huge_smem_backward} B shared; one over {plan.nr_cluster} cluster bucket(s), "
-            f"{plan.cluster_blocks} blocks of {plan.cluster_threads} threads in clusters of "
-            f"{plan.cluster_size}, flags {[int(r[7]) for r in plan.cluster_table.tolist()]}, "
-            f"{plan.cluster_smem_forward} / {plan.cluster_smem_backward} B shared; one over "
-            f"{plan.nr_l2} L2 bucket(s), {plan.l2_blocks} blocks of {plan.l2_threads} threads, "
-            f"{plan.l2_split} a column: match; "
+            f"[fused] {label} {dt} {name}: one launch per body, {plan_text(plan)}: match; "
             f"warm {e['ms']:.4f} ms ({share(e['bound_ms'], e['ms'])}), "
             f"cold {e['cold_ms']:.4f} ms ({share(e['bound_ms'], e['cold_ms'])}), "
             f"bound {e['bound_ms']:.4f} ms = {nbytes} B (columns with a BDD) at 3.35 TB/s; "
@@ -536,7 +519,7 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
           f"{wrapper_ms:.4f} ms per call {card}", flush=True)
     run_ref = None
     for forced in variants:
-        deep = variant_plan(plan, geom, forced)
+        deep = variant_plan(plan.shapes, geom.dtype, geom.device, **forced)
         row = []
         for name, args, fwd in (("uniform_forward", args_f, True),
                                 ("uniform_backward", args_b, False)):
@@ -548,7 +531,7 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
                 "bound_ms"]
             row.append(f"{name} warm {warm:.4f} ms ({share(bound, warm)}), cold {cold:.4f} ms "
                        f"({share(bound, cold)})")
-        if deep.huge_blocks or deep.cluster_blocks or deep.run_l2_blocks:  # the run entry too
+        if any(r.body in (HUGE, HUGE_CLUSTER, HUGE_L2) for r in deep.runs):  # the run entry too
             if run_ref is None:
                 run_ref = geom.flatten_nodes([uf.bucket_backward_run(g, a, b) for g, a, b in zip(
                     geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])
@@ -560,35 +543,75 @@ def kernel_vs_twin(label, host, objective, card, errs, times, flush, variants=()
             bound = 1e3 * run_bytes(bdd_shapes(geom.buckets), itemsize) / HBM_BYTES_PER_S
             row.append(f"{RUN} warm {warm:.4f} ms ({share(bound, warm)}), cold {cold:.4f} ms "
                        f"({share(bound, cold)})")
-        print(f"[depth] {label} {dt} {forced}: narrow stages "
-              f"{[int(s) for s in deep.table[:, 7].tolist()]}, {deep.smem_bytes} B shared; wide "
-              f"{deep.nr_wide} bucket(s), {deep.wide_warps} warps a block, stages "
-              f"{[int(s) for s in deep.wide_table[:, 7].tolist()]}, {deep.wide_smem_bytes} B "
-              f"shared; huge {deep.nr_huge} bucket(s), {deep.huge_threads} threads a block, flags "
-              f"{[int(r[7]) for r in deep.huge_table.tolist()]}; cluster {deep.nr_cluster} "
-              f"bucket(s), clusters of {deep.cluster_size}, {deep.cluster_threads} threads a block; "
-              f"L2 {deep.nr_l2} bucket(s), {deep.l2_threads} threads a block, {deep.l2_split} "
-              f"blocks a column: match; "
+        print(f"[depth] {label} {dt} {forced}: {plan_text(deep)}: match; "
               f"{'; '.join(row)} {card}", flush=True)
     run_vs_plain(label, geom, lo, hi, card, errs, entry, flush,
                  suffix if run_suffix is None else run_suffix, reps)
 
 
-# set on a copy of a plan, not by launch_plan
-PLAN_FIELDS = ("huge_threads", "cluster_threads", "l2_threads")
+def plan_text(plan) -> str:
+    """Each launch of ``plan``'s half-sweeps and of its run: the body, its
+    buckets, blocks and threads, own integers, the last column of its table
+    (stages, backward rows or key-row offsets) and its shared memory."""
+    def text(r):
+        return (f"{r.body[1:] or 'narrow'} {r.nr_buckets} bucket(s), {r.blocks} blocks of "
+                f"{r.threads} threads, own {r.own}, last column "
+                f"{[int(x) for x in r.table[:, 7].tolist()]}, {r.smem_forward} / "
+                f"{r.smem_backward} B shared")
+
+    return "; ".join(map(text, plan.sweeps)) + "; the run: " + "; ".join(map(text, plan.runs))
 
 
-def variant_plan(plan, geom, forced: dict):
-    """The plan of a timing variant: ``layout.launch_plan`` over the same
-    buckets with the keywords of ``forced`` that it takes (forced ring
-    depths, warps a block, the crossover ``huge_from``, ``huge_body``,
-    ``cluster_size``), and the threads a block of a huge form set on a
-    copy."""
+def variant_plan(shapes, dtype, device, body=None, threads=None, **tunables):
+    """The plan of a timing variant: ``layout.build_plan`` over ``shapes``
+    with ``tunables`` (stages, warps a block, cluster size, L2 split, ring
+    hops), on the route's bodies or, with ``body`` (a name of
+    ``layout.BODIES``), on ``body`` for every bucket it takes, all three
+    entries ("wide": past NARROW_P up to WIDE_P; "huge": past NARROW_P where
+    a block holds the rows, else the body of the width; "huge_cluster": past
+    WIDE_P where a cluster of 16 holds them; "huge_l2": past WIDE_P);
+    ``threads``: the threads a block of ``body``'s launches, set on a copy
+    (a huge launch wider than them takes the grouped body)."""
+    import torch
     from bdd_tpu_torch.solver import layout
 
-    deep = layout.launch_plan(plan.shapes, geom.dtype, geom.device,
-                              **{k: v for k, v in forced.items() if k not in PLAN_FIELDS})
-    return dataclasses.replace(deep, **{k: v for k, v in forced.items() if k in PLAN_FIELDS})
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    bodies, runs = layout.route(tuple(shapes), itemsize, str(torch.device(device)))
+    if body is not None:
+        takes = {"wide": lambda P: layout.NARROW_P < P <= layout.WIDE_P,
+                 "huge": lambda P: P > layout.NARROW_P,
+                 "huge_cluster": lambda P: P > layout.WIDE_P and layout.cluster_fits(P, itemsize),
+                 "huge_l2": lambda P: P > layout.WIDE_P}[body]
+        bodies = runs = [
+            (body if body != "huge" or layout.huge_fits(P, itemsize)
+             else layout.body_of(P, itemsize, B)) if takes(P) else b
+            for (P, _, B), b in zip(shapes, bodies)]
+    plan = layout.build_plan(shapes, dtype, device, bodies, runs, **tunables)
+    if threads is None:
+        return plan
+
+    def one(r):
+        if r.body != BODIES[layout.BODIES.index(body)]:
+            return r
+        hops = r.own[1] if body != "huge" or r.own[0] <= threads else 0
+        return dataclasses.replace(r, threads=threads, own=(r.own[0], hops))
+
+    return dataclasses.replace(plan, sweeps=tuple(map(one, plan.sweeps)),
+                               runs=tuple(map(one, plan.runs)))
+
+
+def launch_of(plan, body, run=False):
+    """``plan``'s launch of ``body`` (a suffix of BODIES) in its half-sweeps
+    (``run``: in its run), None where it has none."""
+    return next((r for r in (plan.runs if run else plan.sweeps) if r.body == body), None)
+
+
+def blocks_of(plan, body, run=False) -> int:
+    return getattr(launch_of(plan, body, run), "blocks", 0)
+
+
+def buckets_of(plan, body, run=False) -> int:
+    return getattr(launch_of(plan, body, run), "nr_buckets", 0)
 
 
 def run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix, reps=200):
@@ -617,10 +640,7 @@ def run_vs_plain(label, geom, lo, hi, card, errs, entry, flush, suffix, reps=200
     torch.cuda.synchronize()
     errs[key] = max(errs[key], compare([out], [geom.flatten_nodes(refs)], TOL[dt]))
     rose = {k: n - before[k] for k, n in sk.LAUNCHES.items() if n != before[k]}
-    want = {k: 1 for k, blocks in ((RUN, geom.plan.nr_blocks), (RUN + WIDE, geom.plan.wide_blocks),
-                                   (RUN + HUGE, geom.plan.huge_blocks),
-                                   (RUN + HUGE_CLUSTER, geom.plan.run_cluster_blocks),
-                                   (RUN + HUGE_L2, geom.plan.run_l2_blocks)) if blocks}
+    want = {RUN + r.body: 1 for r in geom.plan.runs}
     if rose != want:
         fail(f"{label} {dt}: one fused run call counted launches {rose}, not {want}")
     launch, _ = sk.prepare_run_launch(geom, lo, hi)
@@ -786,7 +806,7 @@ def phase_wide(card, errs, times, flush):
         # huge body forced on the same layout (below the crossover)
         kernel_vs_twin("knapsack", host, nh.objective(), card, errs, times, flush, suffix=WIDE,
                        variants=({"wide_stages": 0}, {"wide_stages": 2}, {"wide_stages": 4},
-                                 {"wide_warps": 4}, {"huge_from": layout.NARROW_P + 1}))
+                                 {"wide_warps": 4}, {"body": "huge"}))
         del host
     # few columns: 40 rows make 40 columns of the same width, fewer than the
     # card has SMs; the plan gives each column a block of its own. Timed
@@ -798,7 +818,7 @@ def phase_wide(card, errs, times, flush):
             fail("the 40-row knapsack instance has a narrow bucket")
         kernel_vs_twin("knapsack40", host, few.objective(), card, errs, times, flush,
                        suffix=WIDE, variants=({"wide_stages": 0}, {"wide_stages": 8},
-                                              {"wide_warps": 8}, {"huge_from": layout.NARROW_P + 1}))
+                                              {"wide_warps": 8}, {"body": "huge"}))
         del host
     cs = nh.cpu_solver()
     t0 = time.perf_counter()
@@ -958,11 +978,10 @@ def crossover(label, host, objective, card, flush) -> dict:
     bound = {"fwd": launch_bytes(shapes, itemsize, True), "bwd": launch_bytes(shapes, itemsize, False),
              "run": run_bytes(shapes, itemsize)}
     out = {}
-    for body, huge_from in (("wide", layout.WIDE_P + 1), ("huge", layout.NARROW_P + 1)):
-        plan = layout.launch_plan(geom.plan.shapes, geom.dtype, geom.device, huge_from=huge_from)
-        if (plan.nr_wide, plan.nr_huge) != ((len(shapes), 0) if body == "wide" else (0, len(shapes))):
-            fail(f"{label} {dt}: the {body} variant's plan has {plan.nr_wide} wide and "
-                 f"{plan.nr_huge} huge buckets")
+    for body in ("wide", "huge"):
+        plan = variant_plan(geom.plan.shapes, geom.dtype, geom.device, body)
+        if [r.body for r in plan.sweeps] != ["_" + body]:
+            fail(f"{label} {dt}: the {body} variant's plan launches {plan_text(plan)}")
         launches = {"fwd": sk.prepare_fused_launch("uniform_forward", geom, lo, hi, cft, 0.5, dl,
                                                    dh, plan),
                     "bwd": sk.prepare_fused_launch("uniform_backward", geom, ref_f[0], ref_f[1],
@@ -975,8 +994,8 @@ def crossover(label, host, objective, card, flush) -> dict:
                     {"fwd": ref_f, "bwd": ref_b, "run": [ref_r]}[key], TOL[dt])
             out[(body, key)] = (cuda_ms(launch, 100), cuda_ms(launch, 10, flush))
         if body == "huge":
-            threads = plan.huge_threads
-    route = "huge" if geom.plan.nr_huge else "wide"
+            threads = plan.sweeps[0].threads
+    route = geom.plan.sweeps[0].body[1:]
     print(f"[huge] crossover {label} P={geom.plan.shapes[0][0]} {dt} (buckets "
           f"{[tuple(x) for x in geom.plan.shapes]}, {sum(B for _, _, B in shapes)} columns with a "
           f"BDD): match; " + "; ".join(
@@ -1003,14 +1022,14 @@ def counted_vs_plain(label, host, objective, card, errs, times, reps=COUNTED_REP
     """A body's counting entries (``_count``: the launch the wrapper takes
     while a profiler records), the L2 body's (``body`` HUGE_L2) or the
     shared-memory huge body's (HUGE; every profiled launch counted here,
-    HUGE_COUNT_EVERY = 1), on a layout that has blocks of it, under a
+    its COUNT_EVERY 1), on a layout that has blocks of it, under a
     CPU-only torch.profiler: the fused forward and backward from the state of
     five iterations and the run-only entry, each entry of the body the plan
     has, against the plain versions at TOL and bit for bit against the
     uncounted launch; the barrier wait strictly between 0 and the block
     cycles, except on the L2 body where a column has one block (0 there); one
-    launch each of the counting entries counted (``L2_COUNTED`` /
-    ``HUGE_PROFILED``); each timed beside the uncounted launch in turns
+    launch each of the counting entries counted (``sweep_kernels.COUNTED``);
+    each timed beside the uncounted launch in turns
     (uncounted, counted, counted, uncounted). Returns the path of the kernels
     line (suffix ``body`` + "_count")."""
     import torch
@@ -1040,23 +1059,19 @@ def counted_vs_plain(label, host, objective, card, errs, times, reps=COUNTED_REP
     ref_run = [geom.flatten_nodes([uf.bucket_backward_run(g, a, b) for g, a, b in zip(
         geom.buckets, geom.per_bucket(lo), geom.per_bucket(hi))])]
     shapes = bdd_shapes(geom.buckets)
-    if body == HUGE:  # a block a column, in all three entries
-        blocks = (plan.huge_blocks, plan.huge_blocks)
-        splits = (1, 1)
-        counted_of, wait_of = sk.HUGE_PROFILED, sk.huge_wait_cycles
-    else:
-        blocks = (plan.l2_blocks, plan.run_l2_blocks)
-        splits = (plan.l2_split, plan.run_l2_split)
-        counted_of, wait_of = sk.L2_COUNTED, sk.l2_wait_cycles
+    on = [next((r for r in rs if r.body == body), None) for rs in (plan.sweeps, plan.runs)]
+    # blocks a column: the L2 body's G, the huge body's one
+    splits = [r.own[0] if body == HUGE_L2 and r else 1 for r in on]
+    wait_of = sk.huge_wait_cycles if body == HUGE else sk.l2_wait_cycles
     entries = []
-    if blocks[0]:
+    if on[0]:
         entries += [
             ("uniform_forward", splits[0], ref_f, launch_bytes(shapes, itemsize, True),
              sk.prepare_fused_launch("uniform_forward", geom, lo, hi, cft, 0.5, dl, dh)),
             ("uniform_backward", splits[0], ref_b, launch_bytes(shapes, itemsize, False),
              sk.prepare_fused_launch("uniform_backward", geom, ref_f[0], ref_f[1], ref_f[3],
                                      0.5, dl, dh))]
-    if blocks[1]:
+    if on[1]:
         entries.append((RUN, splits[1], ref_run, run_bytes(shapes, itemsize),
                         sk.prepare_run_launch(geom, lo, hi)))
     if not entries:
@@ -1064,8 +1079,8 @@ def counted_vs_plain(label, host, objective, card, errs, times, reps=COUNTED_REP
     entry = times.setdefault((f"{label} counted", dt), {})
     suffix = body + "_count"
     launches, row = {}, []
-    every = sk.HUGE_COUNT_EVERY
-    sk.HUGE_COUNT_EVERY = 1
+    every = sk.COUNT_EVERY[body]
+    sk.COUNT_EVERY[body] = 1
     try:
         for name, split, ref, nbytes, (launch, out) in entries:
             outs = [out] if name == RUN else list(out)
@@ -1073,11 +1088,11 @@ def counted_vs_plain(label, host, objective, card, errs, times, reps=COUNTED_REP
             torch.cuda.synchronize()
             uncounted = [o.clone() for o in outs]
             key = name + suffix
-            n0, (w0, c0) = counted_of[name], wait_of()[name]
+            n0, (w0, c0) = sk.COUNTED[body, name], wait_of()[name]
             with profile(activities=[ProfilerActivity.CPU]):
                 launch()
                 torch.cuda.synchronize()
-                n1, (w1, c1) = counted_of[name], wait_of()[name]
+                n1, (w1, c1) = sk.COUNTED[body, name], wait_of()[name]
             wait, cycles = w1 - w0, c1 - c0
             if n1 - n0 != 1:
                 fail(f"{label} {dt} {name}: {n1 - n0} counting launches under the profiler, "
@@ -1105,7 +1120,7 @@ def counted_vs_plain(label, host, objective, card, errs, times, reps=COUNTED_REP
                        + (f"; {cost / every:+.3f}% of the body's time at one launch in {every}"
                           if body == HUGE else "") + ")")
     finally:
-        sk.HUGE_COUNT_EVERY = every
+        sk.COUNT_EVERY[body] = every
     print(f"[counted] {label} {dt} {body[1:]} counting entries under a CPU-only profiler: match "
           f"the plain versions and the uncounted launches bit for bit; {'; '.join(row)} {card}",
           flush=True)
@@ -1128,16 +1143,16 @@ def gap_counted(card, errs, times) -> dict:
     host = layout.from_native_host(gap, torch.float32, "cuda")
     plan = host.geom.plan
     print(f"[huge] gap_d60900 float32 (seed {MKNAP_SEED}): buckets (P, H, B) "
-          f"{[tuple(s) for s in plan.shapes]}, {plan.huge_blocks} blocks of the huge body, "
-          f"{plan.nr_blocks} of the narrow body, built in {time.perf_counter() - t0:.2f} s {card}",
-          flush=True)
-    if (plan.huge_blocks, plan.nr_wide, plan.nr_cluster, plan.nr_l2) != (64, 0, 0, 0):
+          f"{[tuple(s) for s in plan.shapes]}, {blocks_of(plan, HUGE)} blocks of the huge body, "
+          f"{blocks_of(plan, '')} of the narrow body, built in {time.perf_counter() - t0:.2f} s "
+          f"{card}", flush=True)
+    if [(r.body, r.blocks) for r in plan.sweeps if r.body] != [(HUGE, 64)]:
         fail(f"gap_d60900's rows {plan.shapes} do not take the huge body by the route")
     return counted_vs_plain("gap_d60900", host, gap.objective(), card, errs, times, body=HUGE)
 
 
-# the ring form's depths timed on the gap_d60900 layout (``launch_plan``'s
-# ``huge_ring``): layout.HUGE_RING_HOPS is the one chosen from them
+# the ring form's depths timed on the gap_d60900 layout (``layout.build_plan``'s
+# ``ring_hops``): layout.HUGE_RING_HOPS is the one chosen from them
 RING_DEPTHS = (1, 2, 3, 4)
 
 
@@ -1145,11 +1160,11 @@ def gap_forms(card, errs, times, flush, reps=20) -> list:
     """The benchmark's gap_d60900.dual layout (float32, packed as the harness
     builds it: 64 columns of 1,024 slots over 900 hops on the shared-memory
     huge body, one slot a thread): its route's ring form and the grouped body
-    forced on the same table (``huge_ring=False``), all three entries, each
+    forced on the same table (``ring_hops=0``), all three entries, each
     launch held to the plain versions and to the other form bit for bit and
     timed warm and cold in turns (ring, grouped, grouped, ring) beside the
     byte bound; then the ring at every depth of RING_DEPTHS (a forced
-    ``huge_ring``), bit for bit, timed in turns with the route's depth.
+    ``ring_hops``), bit for bit, timed in turns with the route's depth.
     Returns the two paths of the kernels line ("gap_d60900 ring",
     "gap_d60900 grouped"; the launches one an entry)."""
     import torch
@@ -1162,9 +1177,10 @@ def gap_forms(card, errs, times, flush, reps=20) -> list:
     gap = NativeHost(yagiura_gap.make(GAP_D60900, MKNAP_SEED).lp_text(), "input")
     host = layout.from_native_host(gap, torch.float32, "cuda")
     geom, route = host.geom, host.geom.plan
-    if (route.huge_blocks, route.huge_hops) != (64, layout.HUGE_RING_HOPS):
-        fail(f"gap_d60900's rows {route.shapes} take {route.huge_blocks} huge blocks at ring "
-             f"depth {route.huge_hops}; expected 64 on the ring form")
+    ring = route.launch("huge")
+    if (ring.blocks, ring.own[1]) != (64, layout.HUGE_RING_HOPS):
+        fail(f"gap_d60900's rows {route.shapes} take {ring.blocks} huge blocks at ring "
+             f"depth {ring.own[1]}; expected 64 on the ring form")
     st = uf.iterations(geom, uf.init_uniform_state(host, gap.objective()), 5)
     lo, hi, mm, cft = st.flat
     dl, dh = uf.exchange_delta_flat(geom, mm)
@@ -1193,14 +1209,14 @@ def gap_forms(card, errs, times, flush, reps=20) -> list:
             torch.cuda.synchronize()
             errs[name + HUGE] = max(errs[name + HUGE], compare(res, refs[name], TOL["float32"]))
             if not all(same_bits(a, b) for a, b in zip(res, refs[name])):
-                fail(f"gap_d60900 {name} at ring depth {plan.huge_hops}: not bit for bit the "
-                     f"plain version's")
+                fail(f"gap_d60900 {name} at ring depth {plan.launch('huge').own[1]}: not bit "
+                     f"for bit the plain version's")
         return out
 
     forms = {"ring": route,
-             "grouped": layout.launch_plan(route.shapes, torch.float32, "cuda", huge_ring=False)}
-    if forms["grouped"].huge_hops != 0:
-        fail("huge_ring=False left the gap layout on the ring form")
+             "grouped": variant_plan(route.shapes, torch.float32, "cuda", ring_hops=0)}
+    if forms["grouped"].launch("huge").own[1] != 0:
+        fail("ring_hops=0 left the gap layout on the ring form")
     paths = []
     for form, plan in forms.items():
         sk.reset_launch_counts()
@@ -1230,11 +1246,11 @@ def gap_forms(card, errs, times, flush, reps=20) -> list:
               + f" ms, cold {turns['ring'][0][1]:.4f} / {turns['grouped'][0][1]:.4f} ms; bound "
               f"{bound_ms:.4f} ms; ring {100 * bound_ms / turns['ring'][0][0]:.2f}% of it, "
               f"grouped {100 * bound_ms / turns['grouped'][0][0]:.2f}%; ring depth "
-              f"{route.huge_hops}, smem {route.huge_smem_forward} / {route.huge_smem_backward} B "
+              f"{ring.own[1]}, smem {ring.smem_forward} / {ring.smem_backward} B "
               f"{card}", flush=True)
     # the depths: each against the route's, in turns
     for hops in RING_DEPTHS:
-        deep = launches(layout.launch_plan(route.shapes, torch.float32, "cuda", huge_ring=hops))
+        deep = launches(variant_plan(route.shapes, torch.float32, "cuda", ring_hops=hops))
         row = []
         for name in refs:
             ms = {}
@@ -1244,7 +1260,7 @@ def gap_forms(card, errs, times, flush, reps=20) -> list:
             row.append(f"{name} {sum(ms['depth']) / 2:.4f} ms (route's "
                        f"{sum(ms['route']) / 2:.4f})")
         print(f"[ring] gap_d60900 float32 depth {hops}: bit for bit; in turns with the route's "
-              f"depth {route.huge_hops}: {'; '.join(row)} {card}", flush=True)
+              f"depth {ring.own[1]}: {'; '.join(row)} {card}", flush=True)
     del host, geom, forms, refs
     torch.cuda.empty_cache()
     return paths
@@ -1295,10 +1311,12 @@ def phase_huge(card, errs, times, flush):
         plan = host.geom.plan
         print(f"[huge] knapsack48 {dtype}: buckets (P, H, B) {shapes}, {columns} columns with a "
               f"BDD, arc record {layout.record_bytes(shapes[0][0])} B a hop and column, layout "
-              f"built in {time.perf_counter() - t0:.2f} s; {plan.nr_huge} bucket(s) on the "
-              f"shared-memory huge body, {plan.nr_l2} on the L2 body {card}", flush=True)
+              f"built in {time.perf_counter() - t0:.2f} s; {buckets_of(plan, HUGE)} bucket(s) on "
+              f"the shared-memory huge body, {buckets_of(plan, HUGE_L2)} on the L2 body {card}",
+              flush=True)
         if (min(P for P, _, _ in shapes) <= layout.WIDE_P or columns < 132
-                or sum(B for _, _, B in shapes) != columns or plan.nr_huge != len(shapes)):
+                or sum(B for _, _, B in shapes) != columns
+                or buckets_of(plan, HUGE) != len(shapes)):
             fail(f"the huge knapsack family has buckets {shapes}, {columns} columns; expected "
                  f"only P > {layout.WIDE_P} and at least 132 columns, none of them padding, "
                  f"all on the shared-memory huge body")
@@ -1313,8 +1331,8 @@ def phase_huge(card, errs, times, flush):
     for dtype in (torch.float32, torch.float64):
         host = layout.from_native_host(widest, dtype, "cuda")
         shapes = [(g.P, g.H, g.B) for g in host.geom.buckets]
-        route = "huge" if host.geom.plan.nr_huge else "wide"
-        suffix = {"wide": WIDE, "huge": HUGE}[route]
+        suffix = host.geom.plan.sweeps[0].body
+        route = suffix[1:]
         if [P for P, _, _ in shapes] != [layout.WIDE_P]:
             fail(f"the P = {layout.WIDE_P} knapsack family has buckets {shapes}")
         print(f"[huge] knapsack32 {dtype}: buckets (P, H, B) {shapes}: routed to the {route} body "
@@ -1337,15 +1355,16 @@ def phase_huge(card, errs, times, flush):
     host = layout.from_native_host(mixed, torch.float32, "cuda", pack=False)
     plan = host.geom.plan
     shapes = [(g.P, g.H, g.B) for g in host.geom.buckets]
-    print(f"[huge] knapsack48 + knapsack32 float32: buckets (P, H, B) {shapes}, {plan.nr_huge} "
-          f"on the huge body, {plan.huge_threads} threads a block {card}", flush=True)
-    if sorted(P for P, _, _ in shapes) != [layout.WIDE_P, 16384] or plan.nr_huge != 2:
-        fail(f"the merged knapsack layout has buckets {shapes}, {plan.nr_huge} on the huge body")
+    print(f"[huge] knapsack48 + knapsack32 float32: buckets (P, H, B) {shapes}, "
+          f"{plan_text(plan)} {card}", flush=True)
+    if sorted(P for P, _, _ in shapes) != [layout.WIDE_P, 16384] or buckets_of(plan, HUGE) != 2:
+        fail(f"the merged knapsack layout has buckets {shapes}, {buckets_of(plan, HUGE)} on the "
+             f"huge body")
     kernel_vs_twin("knapsack48+32", host, mixed.objective(), card, errs, times, flush,
                    suffix=HUGE)
     del host, mixed
     # rows past a block's shared memory in either precision, on the bodies
-    # the route gives them (layout._route_cluster_or_l2, by their columns as
+    # the route gives them (layout.route, by their columns as
     # well as their width) with the other body forced beside them: 132 rows of 32,768
     # slots (four-byte slot codes) sweep on the cluster body and run on the
     # L2 body; 8 rows of 65,536 (eight-byte codes) and one of 262,144 take
@@ -1353,7 +1372,7 @@ def phase_huge(card, errs, times, flush):
     # cluster, its form of one block a column instead). Counted iterations:
     # both precisions of the widest row (float32 is the default), float64 of
     # the others.
-    on_l2, on_cluster = {"huge_body": "huge_l2"}, {"huge_body": "huge_cluster"}
+    on_l2, on_cluster = {"body": "huge_l2"}, {"body": "huge_cluster"}
     for label, rows, runs, reps in (
             ("knapsack48 L2", L2_ROWS,
              ((torch.float32, HUGE_CLUSTER, HUGE_L2, (on_l2, on_cluster), False),
@@ -1376,31 +1395,21 @@ def phase_huge(card, errs, times, flush):
             shapes = [(g.P, g.H, g.B) for g in host.geom.buckets]
             print(f"[huge] {label} {dt}: buckets (P, H, B) {shapes}, "
                   f"{layout.huge_smem_bytes(shapes[0][0], itemsize)} B of shared memory a block at "
-                  f"the least (a block may have {layout.MAX_DYNAMIC_SMEM}): {plan.nr_cluster} "
-                  f"bucket(s) on the cluster body (clusters of {plan.cluster_size}, "
-                  f"{plan.cluster_threads} threads a block, "
-                  f"{layout.cluster_code_bytes(plan.cluster_pmax)}-byte slot codes, "
-                  f"{plan.cluster_smem_forward} / {plan.cluster_smem_backward} B a block), "
-                  f"{plan.nr_l2} on the L2 body ({plan.l2_split} blocks a column, "
-                  f"{plan.l2_blocks} blocks); the run: {plan.nr_run_l2} on the L2 body "
-                  f"({plan.run_l2_split} blocks a column), the cluster body "
-                  f"{'too' if plan.run_cluster_blocks else 'not'} {card}", flush=True)
-            on = plan.nr_cluster if suffix == HUGE_CLUSTER else plan.nr_l2
-            run_on = (plan.nr_cluster if plan.run_cluster_blocks else 0) if (
-                run_suffix == HUGE_CLUSTER) else plan.nr_run_l2
-            if (on != len(shapes) or run_on != len(shapes) or plan.nr_huge or plan.nr_wide
-                    or plan.nr_buckets):
+                  f"the least (a block may have {layout.MAX_DYNAMIC_SMEM}): {plan_text(plan)} "
+                  f"{card}", flush=True)
+            if ([(r.body, r.nr_buckets) for r in plan.sweeps] != [(suffix, len(shapes))]
+                    or [(r.body, r.nr_buckets) for r in plan.runs] != [(run_suffix, len(shapes))]):
                 fail(f"the {label} rows do not all sweep on the {suffix[1:]} body and run on the "
-                     f"{run_suffix[1:]} body: {shapes}, {plan.nr_cluster} on the cluster body, "
-                     f"{plan.nr_l2} on the L2 body, {plan.nr_run_l2} runs on the L2 body")
+                     f"{run_suffix[1:]} body: {shapes}, {plan_text(plan)}")
             kernel_vs_twin(label, host, l2.objective(), card, errs, times, flush, suffix=suffix,
                            variants=variants, reps=reps, run_suffix=run_suffix)
             paths.append(counted_vs_plain(label, host, l2.objective(), card, errs, times))
             if suffix == HUGE_L2:
                 e, hops = times[(label, dt)], max(H for _, H, _ in plan.shapes)
-                print(f"[huge] {label} {dt} L2 body: {plan.l2_split} blocks a column over "
-                      f"{plan.l2_columns} column(s), {plan.l2_blocks} blocks of "
-                      f"{plan.l2_threads} threads; a hop (of {hops}) "
+                rec = launch_of(plan, HUGE_L2)
+                print(f"[huge] {label} {dt} L2 body: {rec.own[0]} blocks a column over "
+                      f"{rec.own[1]} column(s), {rec.blocks} blocks of "
+                      f"{rec.threads} threads; a hop (of {hops}) "
                       + ", ".join(f"{k} {e[k]['ms'] / hops:.4f} ms" for k in (
                           "uniform_forward", "uniform_backward", RUN)) + f" {card}", flush=True)
             if count:
@@ -1424,8 +1433,7 @@ def phase_huge(card, errs, times, flush):
     host = layout.from_native_host(mknap, torch.float32, "cuda")
     plan = host.geom.plan
     print(f"[huge] mknap.t50 float32 (seed {MKNAP_SEED}): buckets (P, H, B) "
-          f"{[tuple(s) for s in plan.shapes]}, {plan.nr_l2} on the L2 body ({plan.l2_split} "
-          f"blocks a column), the run {plan.nr_run_l2} ({plan.run_l2_split}) {card}", flush=True)
+          f"{[tuple(s) for s in plan.shapes]}, {plan_text(plan)} {card}", flush=True)
     paths.append(counted_vs_plain("mknap.t50", host, mknap.objective(), card, errs, times))
     del host, mknap
     # the benchmark's mknap.t25.dual layout (float32, packed as the harness
@@ -1436,13 +1444,12 @@ def phase_huge(card, errs, times, flush):
     host = layout.from_native_host(mknap, torch.float32, "cuda")
     plan = host.geom.plan
     print(f"[huge] mknap.t25 float32 (seed {MKNAP_SEED}): buckets (P, H, B) "
-          f"{[tuple(s) for s in plan.shapes]}, {plan.nr_cluster} on the cluster body (clusters "
-          f"of {plan.cluster_size}), the run {plan.nr_run_l2} on the L2 body "
-          f"({plan.run_l2_split} blocks a column) {card}", flush=True)
-    if (plan.nr_cluster, plan.nr_run_l2, plan.nr_huge, plan.nr_l2) != (1, 1, 0, 0):
+          f"{[tuple(s) for s in plan.shapes]}, {plan_text(plan)} {card}", flush=True)
+    if ([(r.body, r.nr_buckets) for r in plan.sweeps + plan.runs]
+            != [(HUGE_CLUSTER, 1), (HUGE_L2, 1)]):
         fail(f"mknap.t25's rows {plan.shapes} do not take the cluster body by the route")
     kernel_vs_twin("mknap.t25", host, mknap.objective(), card, errs, times, flush,
-                   variants=({"huge_body": "huge"}, {"huge_body": "huge_l2"}),
+                   variants=({"body": "huge"}, {"body": "huge_l2"}),
                    suffix=HUGE_CLUSTER, run_suffix=HUGE_L2)
     paths.append(counted_vs_plain("mknap.t25", host, mknap.objective(), card, errs, times))
     del host, mknap
@@ -2538,9 +2545,7 @@ def learned_vs_twin(label, geom, state, alpha, omega, card, errs, times, flush):
     args_b = (geom, ref_f[0], ref_f[1], ref_f[3], omega, dl2, dh2)
     ref_b = uf.sweep_per_bucket(uf.bucket_backward_iteration, *args_b, alpha)
     entry = times.setdefault((label, dt), {})
-    plan = geom.plan
-    bodies = [body for body, blocks in (("", plan.nr_blocks), (WIDE, plan.wide_blocks),
-                                        (HUGE, plan.huge_blocks)) if blocks]
+    bodies = [r.body for r in geom.plan.sweeps]
     for name, wrapper, twin, args, ref, fwd in (
             ("uniform_forward", sk.forward_iteration_cuda, uf.bucket_forward_iteration, args_f,
              ref_f, True),
@@ -2573,9 +2578,7 @@ def learned_vs_twin(label, geom, state, alpha, omega, card, errs, times, flush):
 def per_body(geom, n: int) -> dict:
     """The half-sweep launch counts of n iterations on ``geom``: n of either
     kernel for each body the layout has."""
-    plan = geom.plan
-    return launch_counts(narrow=n * int(plan.nr_blocks > 0), wide=n * int(plan.wide_blocks > 0),
-                         huge=n * int(plan.huge_blocks > 0))
+    return {**launch_counts(), **{k + r.body: n for k in KERNELS for r in geom.plan.sweeps}}
 
 
 def rollout_syncs(trainer, inst, nr_rounds):
@@ -2827,9 +2830,7 @@ def rank_card(rank: int, size: int, backend: str) -> str:
 def expected_sweeps(geom, n: int) -> dict:
     """The half-sweep launches of n iterations on ``geom``: one a body that
     holds a bucket, per kernel and iteration."""
-    plan = geom.plan
-    return {**launch_counts(), **{k + body: n for k in KERNELS for body, blocks in (
-        ("", plan.nr_blocks), (WIDE, plan.wide_blocks), (HUGE, plan.huge_blocks)) if blocks}}
+    return per_body(geom, n)
 
 
 def collective_ms(comm, t, reps: int = COMM_REPS) -> float:
@@ -3632,8 +3633,8 @@ def sharded_dense(rank, collection, V, obj, card) -> dict:
 # replaced, built with the library's own flags and ``-Xptxas -v`` into
 # ``bdd_tpu_torch/build/variants/`` (all copies side by side) and loaded in
 # place of the library. A replacement whose text is no longer in the source
-# stops the run and names it. The runs of the L2 body (forced by the plan
-# with ``huge_body="huge_l2"``; at knapsack48's 132 columns the plan's G is
+# stops the run and names it. The runs of the L2 body (a plan built on it,
+# ``variant_plan``'s ``body="huge_l2"``; at knapsack48's 132 columns the plan's G is
 # 1, so both are the form of one block a column):
 #   l2            as the plan gives it;
 #   l2_one_block  G = 1 forced (``l2_split=1``);
@@ -3716,8 +3717,8 @@ SPLIT_PATCHES = {
     ],
 }
 # (variant, library, plan keywords, the layouts it runs on)
-SPLIT_RUNS = [("l2", None, {"huge_body": "huge_l2"}, ("knapsack48",)),
-              ("l2_one_block", None, {"huge_body": "huge_l2", "l2_split": 1}, ("knapsack48",)),
+SPLIT_RUNS = [("l2", None, {"body": "huge_l2"}, ("knapsack48",)),
+              ("l2_one_block", None, {"body": "huge_l2", "l2_split": 1}, ("knapsack48",)),
               ("smem", None, {}, ("knapsack48", "crossover")),
               ("smem_one_row", "smem_one_row", {}, ("knapsack48",)),
               ("smem_single", "smem_single", {}, ("knapsack48",)),
@@ -3884,8 +3885,8 @@ def split_table(card, flush) -> None:
     """The route's float32 rule on a whole huge table: layouts whose float32
     buckets below HUGE_FROM_F32_MANY the route once sent to the huge body one
     by one, timed as the plan runs them now (the wide body) and as they ran
-    before (``huge_from=HUGE_FROM``: every one in the huge table, at the
-    threads its columns leave a block). ROUTE_ROWS over 2,048 columns; and
+    before (a plan built on the huge body: every one in the huge table, at
+    the threads its columns leave a block). ROUTE_ROWS over 2,048 columns; and
     200 rows of 1,024 slots beside knapsack48's in one layout."""
     import torch
     from bdd_tpu_torch.native import NativeHost
@@ -3903,13 +3904,11 @@ def split_table(card, flush) -> None:
         geom = host.geom
         state, refs = split_state(host, nh.objective())
         now = geom.plan
-        before = layout.launch_plan(now.shapes, torch.float32, "cuda", huge_from=layout.HUGE_FROM)
+        before = variant_plan(now.shapes, torch.float32, "cuda", "huge")
         bounds = split_bounds(geom, 4)
         print(f"[split] route {label} float32: buckets {[tuple(x) for x in now.shapes]}, built in "
-              f"{time.perf_counter() - t0:.1f} s; now {now.nr_wide} wide, {now.nr_huge} huge at "
-              f"{now.huge_threads} threads, {now.huge_smem_forward} B a block; before "
-              f"{before.nr_wide} wide, {before.nr_huge} huge at {before.huge_threads} threads, "
-              f"{before.huge_smem_forward} B a block {card}", flush=True)
+              f"{time.perf_counter() - t0:.1f} s; now {plan_text(now)}; before "
+              f"{plan_text(before)} {card}", flush=True)
         for name, plan in (("before", before), ("now", now), ("now", now), ("before", before)):
             print(f"[split] route {label} float32 {name}: match; "
                   f"{split_row(split_times(geom, state, refs, plan, flush), bounds)} {card}",
@@ -4002,21 +4001,18 @@ def split_route(card, flush, widths=()) -> None:
             state, refs = split_state(host, nh.objective())
             bounds = split_bounds(geom, itemsize)
             shapes = geom.plan.shapes
-            cluster = layout.launch_plan(shapes, dtype, "cuda", huge_body="huge_cluster")
-            l2 = layout.launch_plan(shapes, dtype, "cuda", huge_body="huge_l2")
-            route = geom.plan
+            cluster = variant_plan(shapes, dtype, "cuda", "huge_cluster")
+            l2 = variant_plan(shapes, dtype, "cuda", "huge_l2")
             print(f"[split] route P={P} x{columns} {dt}: buckets {[tuple(x) for x in shapes]}, "
-                  f"{layout.solve_bytes(shapes, itemsize)} B to solve; cluster C = "
-                  f"{cluster.cluster_size}, {cluster.cluster_threads} threads, "
-                  f"{layout.cluster_code_bytes(cluster.cluster_pmax)}-byte codes; L2 G = "
-                  f"{l2.l2_split} ({l2.l2_blocks} blocks); the route: {route.nr_huge} huge, "
-                  f"{route.nr_cluster} cluster, {route.nr_l2} L2 bucket(s) {card}", flush=True)
+                  f"{layout.solve_bytes(shapes, itemsize)} B to solve; cluster "
+                  f"{plan_text(cluster)}; L2 {plan_text(l2)}; the route: "
+                  f"{plan_text(geom.plan)} {card}", flush=True)
             reps = 100 if columns <= 16 else 40
             turns = (("cluster", cluster), ("L2", l2), ("L2", l2), ("cluster", cluster))
-            if not cluster.nr_cluster:  # no cluster size holds these rows
+            if not buckets_of(cluster, HUGE_CLUSTER):  # no cluster size holds these rows
                 turns = turns[1:2]
             if layout.huge_fits(P, itemsize):
-                huge = layout.launch_plan(shapes, dtype, "cuda", huge_body="huge")
+                huge = variant_plan(shapes, dtype, "cuda", "huge")
                 turns = (("huge", huge), ("L2", l2), ("cluster", cluster), ("cluster", cluster),
                          ("L2", l2), ("huge", huge))
             for name, plan in turns:
@@ -4056,37 +4052,31 @@ def split_cluster(card, flush) -> None:
             bounds = split_bounds(geom, itemsize)
             plan = geom.plan
             print(f"[split] cluster {label} {dt}: buckets {[tuple(x) for x in plan.shapes]}; the "
-                  f"plan: clusters of {plan.cluster_size}, {plan.cluster_threads} threads, "
-                  f"{layout.cluster_code_bytes(plan.cluster_pmax)}-byte slot codes, rows "
-                  f"{[int(r[7]) for r in plan.cluster_table.tolist()]}, "
-                  f"{plan.cluster_smem_forward} / {plan.cluster_smem_backward} B {card}",
-                  flush=True)
+                  f"plan: {plan_text(plan)} {card}", flush=True)
             for split in (None, 1):
-                l2 = layout.launch_plan(plan.shapes, dtype, "cuda", huge_body="huge_l2",
-                                        l2_split=split)
-                reps = 100 if l2.l2_split > 1 or plan.shapes[0][0] < 262144 else 20
-                print(f"[split] cluster {label} {dt} L2 body, {l2.l2_split} blocks a column "
-                      f"({l2.l2_blocks} blocks): match; "
+                l2 = variant_plan(plan.shapes, dtype, "cuda", "huge_l2", l2_split=split)
+                G, _ = launch_of(l2, HUGE_L2).own
+                reps = 100 if G > 1 or plan.shapes[0][0] < 262144 else 20
+                print(f"[split] cluster {label} {dt} L2 body, {G} blocks a column "
+                      f"({blocks_of(l2, HUGE_L2)} blocks): match; "
                       f"{split_row(split_times(geom, state, refs, l2, flush, reps), bounds)} "
                       f"{card}", flush=True)
-                if l2.l2_split == 1:
+                if G == 1:
                     break
             for C, threads in sweep:
                 try:
-                    forced = layout.launch_plan(plan.shapes, dtype, "cuda",
-                                                huge_body="huge_cluster", cluster_size=C)
+                    forced = variant_plan(plan.shapes, dtype, "cuda", "huge_cluster",
+                                          threads or None, cluster_size=C)
                 except ValueError as exc:  # its share does not fit a block
                     print(f"[split] cluster {label} {dt} C={C}: {exc} {card}", flush=True)
                     continue
-                if threads:
-                    forced = dataclasses.replace(forced, cluster_threads=threads)
-                active = layout.cluster_occupancy(itemsize, C, forced.cluster_threads,
-                                                  forced.cluster_smem_forward, "cuda", 0,
-                                                  forced.cluster_pmax)
-                print(f"[split] cluster {label} {dt} C={C} {forced.cluster_threads} threads "
+                cl = launch_of(forced, HUGE_CLUSTER)
+                active = layout.cluster_occupancy(itemsize, C, cl.threads, cl.smem_forward,
+                                                  "cuda", 0, cl.own[1])
+                print(f"[split] cluster {label} {dt} C={C} {cl.threads} threads "
                       f"({active} clusters at once, rows "
-                      f"{[int(r[7]) for r in forced.cluster_table.tolist()]}, "
-                      f"{forced.cluster_smem_forward} / {forced.cluster_smem_backward} B): match; "
+                      f"{[int(r[7]) for r in cl.table.tolist()]}, "
+                      f"{cl.smem_forward} / {cl.smem_backward} B): match; "
                       f"{split_row(split_times(geom, state, refs, forced, flush), bounds)} "
                       f"{card}", flush=True)
             del host, geom, state, refs
@@ -4134,10 +4124,12 @@ def split_barrier(card, flush) -> None:
         for split, lib in ((None, None), (None, "l2_fenced"), (None, "l2_fenced"), (None, None),
                            (1, None)):
             _build._LIB = libs[lib]
-            plan = layout.launch_plan(geom.plan.shapes, torch.float64, "cuda", l2_split=split)
-            times = split_times(geom, state, refs, plan, flush, 100 if plan.l2_split > 1 else 20)
-            print(f"[split] barrier P={P} H={H} B={B} float64 {lib or 'source'}, {plan.l2_split} "
-                  f"blocks a column ({plan.l2_blocks} blocks), no node past the root: match; "
+            plan = variant_plan(geom.plan.shapes, torch.float64, "cuda", l2_split=split)
+            G, _ = launch_of(plan, HUGE_L2).own
+            times = split_times(geom, state, refs, plan, flush, 100 if G > 1 else 20)
+            print(f"[split] barrier P={P} H={H} B={B} float64 {lib or 'source'}, {G} "
+                  f"blocks a column ({blocks_of(plan, HUGE_L2)} blocks), no node past the root: "
+                  f"match; "
                   + "; ".join(f"{k} warm {w:.4f} ms ({1e3 * w / H:.2f} us a hop), cold {c:.4f} ms"
                               for k, (w, c) in times.items()) + f" {card}", flush=True)
         _build._LIB = None
@@ -4236,13 +4228,13 @@ def huge_split(parts=()) -> None:
                 if kind not in kinds:
                     continue
                 _build._LIB = libs[libname]
-                plan = layout.launch_plan(geom.plan.shapes, dtype, "cuda",
-                                          huge_from=layout.NARROW_P + 1, **force)
+                plan = variant_plan(geom.plan.shapes, dtype, "cuda", **{"body": "huge", **force})
                 if variant == "staged":  # two ring rows of cft beside the plan's block
                     cft_row = -(-geom.plan.shapes[0][0] * itemsize // 16) * 16
-                    plan = dataclasses.replace(
-                        plan, huge_smem_forward=plan.huge_smem_forward + 2 * cft_row)
-                    if 2 * (plan.huge_smem_forward + layout.BLOCK_SMEM_RESERVED) > layout.SM_SMEM:
+                    huge = launch_of(plan, HUGE)
+                    huge = dataclasses.replace(huge, smem_forward=huge.smem_forward + 2 * cft_row)
+                    plan = dataclasses.replace(plan, sweeps=(huge,), runs=(huge,))
+                    if 2 * (huge.smem_forward + layout.BLOCK_SMEM_RESERVED) > layout.SM_SMEM:
                         fail(f"{label} {dt}: a staged block does not leave room for two an SM")
                 launches = {
                     "uniform_forward": sk.prepare_fused_launch(
@@ -4264,13 +4256,8 @@ def huge_split(parts=()) -> None:
                     bound = 1e3 * bounds[kernel] / HBM_BYTES_PER_S
                     row.append(f"{kernel} warm {warm:.4f} ms ({100 * bound / warm:.1f}% of bound), "
                                f"cold {cold:.4f} ms")
-                body = (f"L2 body, {plan.l2_threads} threads, {plan.l2_split} a column"
-                        if plan.nr_l2 else
-                        f"shared-memory body, {plan.huge_threads} threads, backward rows "
-                        f"{[int(r[7]) for r in plan.huge_table.tolist()]}, smem "
-                        f"{plan.huge_smem_forward} / {plan.huge_smem_backward} B")
-                print(f"[split] {label} {dt} {variant} ({body}): match; {'; '.join(row)} "
-                      f"{card}", flush=True)
+                print(f"[split] {label} {dt} {variant} ({plan_text(plan)}): match; "
+                      f"{'; '.join(row)} {card}", flush=True)
             del host, geom, st, ref_f, ref_b, ref_r
             torch.cuda.empty_cache()
     _build._LIB = None

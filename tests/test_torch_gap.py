@@ -79,8 +79,7 @@ def _port_against_reference(seed: int, precision: str) -> dict:
     cell.set_up()
     plan = cell.host.geom.plan
     assert plan.shapes == ((2, SMALL["agents"], SMALL["jobs"]), (1024, SMALL["jobs"], 8))
-    assert (plan.nr_buckets, plan.nr_huge, plan.nr_wide, plan.nr_cluster, plan.nr_l2) == (
-        1, 1, 0, 0, 0)
+    assert [r.body for r in plan.sweeps] == [r.body for r in plan.runs] == ["", "_huge"]
     lb, n = cell.solve()
     assert n == ITERATIONS and math.isfinite(lb)
     out = cell.outputs(lb)
@@ -110,12 +109,11 @@ def test_d60900_plans_huge_and_narrow_blocks_alone(dtype):
     shapes = [(2, 60, 1024), (1024, 900, 64)]
     itemsize = torch.finfo(dtype).bits // 8
     assert [layout.body_of(P, itemsize, B) for P, _, B in shapes] == ["narrow", "huge"]
+    assert layout.route(shapes, itemsize, "cpu") == (("narrow", "huge"), ("narrow", "huge"))
     plan = layout.launch_plan(shapes, dtype, "cpu")
-    assert (plan.nr_buckets, plan.nr_blocks) == (1, 32)
-    assert (plan.nr_huge, plan.huge_blocks, plan.huge_threads) == (1, 64, 1024)
-    assert plan.wide_blocks == plan.cluster_blocks == plan.run_cluster_blocks == 0
-    assert plan.l2_blocks == plan.run_l2_blocks == 0
-    assert layout.huge_scratch(plan, dtype, "cpu") is None
+    assert [(r.body, r.nr_buckets, r.blocks) for r in plan.sweeps] == [("", 1, 32), ("_huge", 1, 64)]
+    assert plan.launch("huge").threads == 1024 and plan.runs == plan.sweeps
+    assert layout.huge_scratch(plan, "cpu") is None
 
 
 def ring_layout_bytes(P: int, itemsize: int, hops: int, forward: bool) -> int:
@@ -140,30 +138,35 @@ D60900 = {"d60900": [(2, 60, 1024), (1024, 900, 64)],
 def test_gap_capacity_rows_take_the_ring_form(size, dtype):
     """The capacity rows (1,024 slots at 1,024 threads: one slot a thread)
     take the huge body's ring form at HUGE_RING_HOPS, its shared memory the
-    kernel's layout; ``huge_ring=False`` keeps the grouped body on the same
-    table, and ``huge_ring`` forces the depth (1 to HUGE_RING_MAX)."""
+    kernel's layout; a plan built with ``ring_hops=0`` keeps the grouped body
+    on the same table, and ``ring_hops`` forces the depth (1 to
+    HUGE_RING_MAX)."""
     itemsize = torch.finfo(dtype).bits // 8
     shapes = D60900[size]
     plan = layout.launch_plan(shapes, dtype, "cpu")
     S = layout.HUGE_RING_HOPS
-    assert (plan.nr_huge, plan.huge_pmax, plan.huge_threads) == (1, 1024, 1024)
-    assert plan.huge_hops == plan.huge_ring_hops == S
-    assert plan.huge_smem_forward == ring_layout_bytes(1024, itemsize, S, True) == (
+    huge = plan.launch("huge")
+    assert (huge.nr_buckets, huge.own, huge.threads) == (1, (1024, S), 1024)
+    assert huge.smem_forward == ring_layout_bytes(1024, itemsize, S, True) == (
         layout.huge_smem_bytes(1024, itemsize, ring=S))
-    assert plan.huge_smem_backward == ring_layout_bytes(1024, itemsize, S, False) == (
+    assert huge.smem_backward == ring_layout_bytes(1024, itemsize, S, False) == (
         layout.huge_smem_bytes(1024, itemsize, two_rows=True, ring=S))
-    grouped = layout.launch_plan(shapes, dtype, "cpu", huge_ring=False)
-    assert (grouped.huge_hops, grouped.huge_ring_hops, grouped.huge_threads) == (0, 0, 1024)
-    assert grouped.huge_smem_forward == layout.huge_smem_bytes(1024, itemsize)
-    assert grouped.huge_smem_backward == layout.huge_smem_bytes(1024, itemsize, two_rows=True)
-    assert torch.equal(grouped.huge_table, plan.huge_table)
+
+    def forced(hops):
+        return layout.build_plan(shapes, dtype, "cpu", ["narrow", "huge"], ring_hops=hops)
+
+    grouped = forced(0).launch("huge")
+    assert (grouped.own, grouped.threads) == ((1024, 0), 1024)
+    assert grouped.smem_forward == layout.huge_smem_bytes(1024, itemsize)
+    assert grouped.smem_backward == layout.huge_smem_bytes(1024, itemsize, two_rows=True)
+    assert torch.equal(grouped.table, huge.table)
     for hops in range(1, layout.HUGE_RING_MAX + 1):
-        deep = layout.launch_plan(shapes, dtype, "cpu", huge_ring=hops)
-        assert deep.huge_hops == hops
-        assert deep.huge_smem_backward == ring_layout_bytes(1024, itemsize, hops, False)
-        assert deep.huge_smem_backward <= layout.MAX_DYNAMIC_SMEM
+        deep = forced(hops).launch("huge")
+        assert deep.own == (1024, hops)
+        assert deep.smem_backward == ring_layout_bytes(1024, itemsize, hops, False)
+        assert deep.smem_backward <= layout.MAX_DYNAMIC_SMEM
     with pytest.raises(ValueError, match="ring"):
-        layout.launch_plan(shapes, dtype, "cpu", huge_ring=layout.HUGE_RING_MAX + 1)
+        forced(layout.HUGE_RING_MAX + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -184,16 +187,18 @@ def test_ring_form_exactly_where_no_bucket_is_wider_than_the_threads(shapes, thr
     """The plan gives the huge launch the ring form exactly where its
     widest bucket is no wider than its threads (huge_pmax <= huge_threads),
     the grouped body elsewhere: knapsack48, knapsack32 and their mixed table
-    of 388 columns keep it. Every bucket forced onto the huge body
-    (``huge_from``); the run takes the same form."""
+    of 388 columns keep it. Every bucket on the huge body (a plan built so);
+    the run takes the same form."""
     itemsize = torch.finfo(dtype).bits // 8
-    plan = layout.launch_plan(shapes, dtype, "cpu", huge_from=layout.NARROW_P + 1)
-    assert plan.nr_huge == len(shapes) and plan.huge_threads == threads
-    assert plan.huge_hops == hops == (layout.HUGE_RING_HOPS if plan.huge_pmax <= threads else 0)
+    plan = layout.build_plan(shapes, dtype, "cpu", ["huge"] * len(shapes))
+    huge = plan.launch("huge")
+    assert plan.runs == plan.sweeps == (huge,)
+    assert huge.nr_buckets == len(shapes) and huge.threads == threads
+    assert huge.own[1] == hops == (layout.HUGE_RING_HOPS if huge.own[0] <= threads else 0)
     if hops:
         widest = max(P for P, _, _ in shapes)
-        assert plan.huge_smem_forward == ring_layout_bytes(widest, itemsize, hops, True)
+        assert huge.smem_forward == ring_layout_bytes(widest, itemsize, hops, True)
         # the blocks the grouped body's plan lets reside fit with the ring's stages
         resident = layout.HUGE_THREADS // threads
-        assert resident * (plan.huge_smem_backward + layout.BLOCK_SMEM_RESERVED) <= (
+        assert resident * (huge.smem_backward + layout.BLOCK_SMEM_RESERVED) <= (
             layout.SM_SMEM)

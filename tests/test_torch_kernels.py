@@ -180,16 +180,15 @@ def test_iterations_through_kernels_equal_twins(cuda_device, precision):
 def test_unsupported_width_raises_on_card():
     """No arc record refuses a width any more: a bucket past the wide body's
     8,192 slots builds with four-byte arcs and goes to the L2 body's table
-    (over its 8 columns, G = 16) or, where the plan is told so, the huge
+    (over its 8 columns, G = 16) or, where a plan is built so, the huge
     body's. What no kernel takes is a narrow width that is no power of two
     (no layout builds one): the launch refuses it before anything runs."""
     b = random_bucket(2 * layout.WIDE_P, 2, 8, np.random.RandomState(0))
     host = layout._build_host([b], np.ones(4, np.int64), 4, 4, 8, torch.float32, "cpu")
     plan = host.geom.plan
-    assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.nr_l2, plan.l2_blocks) == (
-        0, 0, 0, 1, 8 * 16)
-    forced = layout.launch_plan(plan.shapes, torch.float32, "cpu", huge_body="huge")
-    assert (forced.nr_huge, forced.nr_l2, forced.huge_blocks) == (1, 0, 8)
+    assert counts(plan) == (0, 0, 0, 0, 1) and plan.launch("huge_l2").blocks == 8 * 16
+    forced = layout.build_plan(plan.shapes, torch.float32, "cpu", ["huge"])
+    assert counts(forced) == (0, 0, 1, 0, 0) and forced.launch("huge").blocks == 8
     assert plan.arc_bytes == 2 * 8 * layout.record_bytes(2 * layout.WIDE_P) == 2 * 8 * 8 * 16384
     odd, (lo, hi, fr, dl, dh) = synthetic_host([(3, 2, 8)], torch.float32, "cpu")
     with pytest.raises(ValueError, match="P=3"):
@@ -250,6 +249,43 @@ def synthetic_host(shapes, dtype, device, seed=0, packed=True, padded=False):
             b["depths"][-1] = 0
     host = layout._build_host(buckets, np.ones(4, np.int64), 4, 4, len(buckets), dtype, device)
     return host, random_costs(host.geom, rng, device)
+
+
+def routed_plan(shapes, dtype, device, **tunables):
+    """``layout.build_plan`` on the bodies of the route, with ``tunables``."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    bodies = layout.route(layout._shapes(shapes), itemsize, str(torch.device(device)))
+    return layout.build_plan(shapes, dtype, device, *bodies, **tunables)
+
+
+def with_threads(plan, body, threads):
+    """``plan`` with ``threads`` threads a block in both entries' launches
+    of ``body``, as timing variants set them; a huge launch whose widest
+    bucket is wider than the threads takes the grouped body (the ring form's
+    shared memory covers the grouped body's)."""
+    suffix = layout.SUFFIXES[layout.BODIES.index(body)]
+
+    def one(launch):
+        if launch.body != suffix:
+            return launch
+        hops = launch.own[1] if body != "huge" or launch.own[0] <= threads else 0
+        return dataclasses.replace(launch, threads=threads, own=(launch.own[0], hops))
+
+    return dataclasses.replace(plan, sweeps=tuple(map(one, plan.sweeps)),
+                               runs=tuple(map(one, plan.runs)))
+
+
+def counts(plan, run=False):
+    """The buckets of each body of ``layout.BODIES`` (narrow, wide, huge,
+    cluster, L2) in ``plan``'s launches of the half-sweeps (``run``: of the
+    run-only entry)."""
+    return tuple(getattr(plan.launch(body, run), "nr_buckets", 0) for body in layout.BODIES)
+
+
+def table_rows(launch, columns=3):
+    """The first ``columns`` columns of each row of a launch's table (None:
+    no rows)."""
+    return [] if launch is None else [tuple(r[:columns]) for r in launch.table.tolist()]
 
 
 def twins_bucket_by_bucket(twin, geom, lo, hi, frontier, omega, dl, dh, alpha=None):
@@ -350,8 +386,7 @@ def test_fused_launch_over_all_shapes_equals_twins(cuda_device, precision, stage
     dtype = torch.float32 if precision == "float" else torch.float64
     host, (lo, hi, fr, dl, dh) = synthetic_host(SHAPES, dtype, cuda_device, seed=7)
     geom = host.geom
-    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, stages=stages,
-                              wide_stages=stages)
+    plan = routed_plan(geom.plan.shapes, dtype, cuda_device, stages=stages, wide_stages=stages)
     om = torch.rand(geom.plan.E, dtype=dtype, device=cuda_device)
     for omega in (0.5, om):
         for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
@@ -392,42 +427,42 @@ def test_plan_splits_narrow_and_wide_buckets():
     shapes = [(2, 3, 40), (128, 5, 8), (4, 2, 9), (256, 3, 7)]
     host, _ = synthetic_host(shapes, torch.float64, "cpu")
     plan = host.geom.plan
-    assert plan.shapes == tuple(shapes)
-    assert [tuple(r[:3]) for r in plan.table.tolist()] == [shapes[0], shapes[2]]
-    assert [tuple(r[:3]) for r in plan.wide_table.tolist()] == [shapes[1], shapes[3]]
-    assert (plan.nr_buckets, plan.nr_wide, plan.pmax, plan.wide_pmax) == (2, 2, 4, 256)
+    narrow, wide = plan.sweeps
+    assert plan.shapes == tuple(shapes) and plan.runs == plan.sweeps
+    assert table_rows(narrow) == [shapes[0], shapes[2]]
+    assert table_rows(wide) == [shapes[1], shapes[3]]
+    assert (narrow.body, narrow.own[1], wide.body) == ("", 4, "_wide")
     # offsets run over all buckets in order, whichever table a bucket is in
-    rows = sorted(plan.table.tolist() + plan.wide_table.tolist(), key=lambda r: r[4])
+    rows = sorted(narrow.table.tolist() + wide.table.tolist(), key=lambda r: r[4])
     e = n = 0
     for (P, H, B), r in zip(shapes, rows):
         assert (r[4], r[5]) == (e, n) and r[6] % layout.ARC_ALIGN == 0
         e, n = e + H * B, n + H * P * B
     # 15 columns in all: one warp a block, so that they spread over the SMs
-    assert plan.wide_warps == 1 and plan.wide_blocks == 15
-    assert [r[7] for r in plan.wide_table.tolist()] == [layout.WIDE_STAGES] * 2
-    assert plan.wide_warp_bytes == layout.wide_warp_bytes(256, 8, layout.WIDE_STAGES)
-    assert plan.wide_smem_bytes == plan.wide_warps * plan.wide_warp_bytes
+    assert (wide.own[0], wide.blocks, wide.threads) == (1, 15, 32)
+    assert [r[7] for r in wide.table.tolist()] == [layout.WIDE_STAGES] * 2
+    assert wide.own[1] == layout.wide_warp_bytes(256, 8, layout.WIDE_STAGES)
+    assert wide.smem_forward == wide.smem_backward == wide.own[0] * wide.own[1]
     # many columns: eight warps a block
-    knap = layout.launch_plan([(256, 40, 2048)], torch.float32, "cpu")
-    assert (knap.wide_warps, knap.wide_blocks) == (layout.WIDE_WARPS, 256)
-    assert knap.wide_smem_bytes == 8 * (2 * 1024 + 2 * (1024 + 1024 + 32))
+    knap = layout.launch_plan([(256, 40, 2048)], torch.float32, "cpu").launch("wide")
+    assert (knap.own[0], knap.blocks, knap.threads) == (layout.WIDE_WARPS, 256, 256)
+    assert knap.smem_forward == 8 * (2 * 1024 + 2 * (1024 + 1024 + 32))
     # forced variants, for timing
-    forced = layout.launch_plan([(256, 40, 2048)], torch.float32, "cpu", wide_stages=0,
-                                wide_warps=4)
-    assert (forced.wide_warps, int(forced.wide_table[0, 7])) == (4, 0)
-    assert forced.wide_warp_bytes == layout.wide_warp_bytes(256, 4, 0)
-    deep = layout.launch_plan([(256, 40, 2048)], torch.float32, "cpu", wide_stages=4)
-    assert int(deep.wide_table[0, 7]) == 4 and deep.wide_smem_bytes <= layout.MAX_DYNAMIC_SMEM
+    forced = layout.build_plan([(256, 40, 2048)], torch.float32, "cpu", ["wide"],
+                               wide_stages=0, wide_warps=4).launch("wide")
+    assert (forced.own, int(forced.table[0, 7])) == ((4, layout.wide_warp_bytes(256, 4, 0)), 0)
+    deep = layout.build_plan([(256, 40, 2048)], torch.float32, "cpu", ["wide"],
+                             wide_stages=4).launch("wide")
+    assert int(deep.table[0, 7]) == 4 and deep.smem_forward <= layout.MAX_DYNAMIC_SMEM
     # the widest bucket fits a block in either precision: one warp, in
     # float64 without a ring
     for dtype, depth in ((torch.float32, 1), (torch.float64, 0)):
-        widest = layout.launch_plan([(layout.WIDE_P, 2, 8)], dtype, "cpu",
-                                    huge_from=layout.WIDE_P + 1)
-        assert widest.wide_warps == 1 and widest.wide_smem_bytes <= layout.MAX_DYNAMIC_SMEM
-        assert int(widest.wide_table[0, 7]) == depth
-        # by default the plan routes it to the huge body
+        widest = layout.build_plan([(layout.WIDE_P, 2, 8)], dtype, "cpu", ["wide"]).launch("wide")
+        assert widest.own[0] == 1 and widest.smem_forward <= layout.MAX_DYNAMIC_SMEM
+        assert int(widest.table[0, 7]) == depth
+        # the route sends it to the huge body
         routed = layout.launch_plan([(layout.WIDE_P, 2, 8)], dtype, "cpu")
-        assert (routed.nr_wide, routed.nr_huge, routed.huge_blocks) == (0, 1, 8)
+        assert counts(routed) == (0, 0, 1, 0, 0) and routed.launch("huge").blocks == 8
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["float", "double"])
@@ -493,16 +528,13 @@ def test_nan_and_signed_zeros_equal_twins_bit_for_bit(cuda_device, shape, zero_c
     itemsize = lo.element_size()
     plans, suffix = [], sk.HUGE
     if layout.NARROW_P < g.P <= layout.HUGE_THREADS:  # the ring form, the grouped body beside it
-        plans = [layout.launch_plan(geom.plan.shapes, dtype, cuda_device,
-                                    huge_from=layout.NARROW_P + 1, huge_ring=ring)
-                 for ring in (None, False)]
-        assert [p.huge_hops for p in plans] == [layout.HUGE_RING_HOPS, 0]
+        plans = [layout.build_plan(geom.plan.shapes, dtype, cuda_device, ["huge"], ring_hops=ring)
+                 for ring in (None, 0)]
+        assert [p.launch("huge").own[1] for p in plans] == [layout.HUGE_RING_HOPS, 0]
     elif g.P > layout.WIDE_P and layout.cluster_fits(g.P, itemsize):
         force, suffix = (("huge", sk.HUGE) if layout.huge_fits(g.P, itemsize)
                          else ("huge_cluster", sk.HUGE_CLUSTER))
-        plans = [layout.launch_plan(geom.plan.shapes, dtype, cuda_device, huge_body=force)]
-        assert plans[0].nr_huge + plans[0].nr_cluster == 1
-        assert plans[0].nr_l2 == plans[0].nr_run_l2 == 0
+        plans = [layout.build_plan(geom.plan.shapes, dtype, cuda_device, [force])]
     for plan in plans:
         for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
                              ("uniform_backward", uf.bucket_backward_iteration)):
@@ -560,10 +592,8 @@ def test_one_bucket_run_equals_plain_run(cuda_device, shape, precision):
     out = sk.bucket_backward_run_cuda(g, lo.view(g.H, g.B), hi.view(g.H, g.B))
     torch.cuda.synchronize()
     plan = layout.launch_plan([shape], dtype, cuda_device)  # the route: by width and columns
-    body = sk.HUGE_L2 if plan.nr_run_l2 else {
-        "narrow": "", "wide": sk.WIDE, "huge": sk.HUGE}[
-            layout.body_of(shape[0], 4 if precision == "float" else 8, shape[2])]
-    assert sk.LAUNCHES == {**launches(), sk.RUN + body: 1}
+    (run,) = plan.runs
+    assert sk.LAUNCHES == {**launches(), sk.RUN + run.body: 1}
     assert_same_bits([out], [uf.bucket_backward_run(g, lo.view(g.H, g.B), hi.view(g.H, g.B))])
 
 
@@ -577,7 +607,7 @@ def test_fused_run_over_all_shapes_equals_plain_run(cuda_device, precision, stag
     dtype = torch.float32 if precision == "float" else torch.float64
     host, (lo, hi, *_) = synthetic_host(SHAPES, dtype, cuda_device, seed=7)
     geom = host.geom
-    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, wide_stages=stages)
+    plan = routed_plan(geom.plan.shapes, dtype, cuda_device, wide_stages=stages)
     launch, out = sk.prepare_run_launch(geom, lo, hi, plan)
     launch()
     torch.cuda.synchronize()
@@ -602,10 +632,11 @@ def test_wide_body_variants_equal_twins(cuda_device, precision, warps, stages):
     dtype = torch.float32 if precision == "float" else torch.float64
     host, (lo, hi, fr, dl, dh) = synthetic_host(WIDE_SHAPES[:10], dtype, cuda_device, seed=11)
     geom = host.geom
-    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, wide_stages=stages,
-                              wide_warps=warps)
-    assert plan.wide_warps <= warps and max(plan.wide_table[:, 7].tolist()) <= stages
-    assert plan.wide_smem_bytes <= layout.MAX_DYNAMIC_SMEM
+    plan = routed_plan(geom.plan.shapes, dtype, cuda_device, wide_stages=stages,
+                       wide_warps=warps)
+    wide = plan.launch("wide")
+    assert wide.own[0] <= warps and max(wide.table[:, 7].tolist()) <= stages
+    assert wide.smem_forward <= layout.MAX_DYNAMIC_SMEM
     for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
                          ("uniform_backward", uf.bucket_backward_iteration)):
         launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
@@ -620,44 +651,45 @@ def test_plan_puts_huge_buckets_in_a_third_table():
               (320000, 2, 2)]
     host, _ = synthetic_host(shapes, torch.float32, "cpu")
     plan = host.geom.plan
-    assert [tuple(r[:3]) for r in plan.huge_table.tolist()] == [shapes[1], shapes[3]]
+    huge, cluster, l2 = (plan.launch(b) for b in ("huge", "huge_cluster", "huge_l2"))
+    assert table_rows(huge) == [shapes[1], shapes[3]]
     # past a block's shared memory: the 130 columns of 30,000 slots stay on
     # the cluster body (with them the L2 table's G would be 1), the rows past
     # a cluster's take the L2 body; the rows a block holds stay on the huge
     # body (with either, G would be 3)
-    assert [tuple(r[:3]) for r in plan.cluster_table.tolist()] == [shapes[4]]
-    assert [tuple(r[:3]) for r in plan.l2_table.tolist()] == [shapes[5]]
-    assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.nr_cluster, plan.nr_l2) == (
-        1, 1, 2, 1, 1)
+    assert table_rows(cluster) == [shapes[4]]
+    assert table_rows(l2) == [shapes[5]]
+    assert counts(plan) == (1, 1, 2, 1, 1)
     # a block a column; the huge table's last column: the rows the backward
     # keeps in shared memory (two: one block an SM)
-    assert plan.huge_blocks == 80 and [r[3] for r in plan.huge_table.tolist()] == [0, 40]
+    assert huge.blocks == 80 and [r[3] for r in huge.table.tolist()] == [0, 40]
     # the L2 body: its two columns spread over the 132 SMs, 66 blocks each
-    assert (plan.l2_split, plan.l2_columns) == (66, 2)
-    assert plan.l2_blocks == 2 * 66 and [r[3] for r in plan.l2_table.tolist()] == [0]
-    assert [r[7] for r in plan.huge_table.tolist()] == [2, 2]
-    assert plan.huge_threads == plan.l2_threads == layout.HUGE_THREADS == 1024
-    assert plan.huge_pmax == 16384
+    assert l2.own == (66, 2)
+    assert l2.blocks == 2 * 66 and [r[3] for r in l2.table.tolist()] == [0]
+    assert [r[7] for r in huge.table.tolist()] == [2, 2]
+    assert huge.threads == l2.threads == layout.HUGE_THREADS == 1024
+    assert huge.own == (16384, 0)  # wider than its threads: the grouped body
     # a cluster of C blocks a column (130 columns over 132 SMs: two waves of
     # the card's 66 clusters of two), two backward rows
-    assert plan.cluster_size == 2 and plan.cluster_blocks == 2 * 130
-    assert [r[3] for r in plan.cluster_table.tolist()] == [0]
-    assert [r[7] for r in plan.cluster_table.tolist()] == [2]
-    assert plan.cluster_pmax == 30000 and plan.cluster_threads == 1024
+    assert cluster.own == (2, 30000) and cluster.blocks == 2 * 130
+    assert [r[3] for r in cluster.table.tolist()] == [0]
+    assert [r[7] for r in cluster.table.tolist()] == [2]
+    assert cluster.threads == 1024
     # the L2 table's last column: the bucket's offset into the scratch rows,
     # which only the L2 body's buckets get (not the cluster body's)
-    assert [r[7] for r in plan.l2_table.tolist()] == [0]
-    assert plan.huge_scratch_values == 2 * 320000 * 2
+    assert [r[7] for r in l2.table.tolist()] == [0]
+    assert plan.scratch_bytes[0] == 2 * 320000 * 2 * 4
     # the run-only entry: the cluster bucket on the L2 body beside the L2
     # bucket, 132 columns at one block each
-    assert plan.run_cluster_blocks == 0
-    assert [tuple(r[:3]) for r in plan.run_l2_table.tolist()] == [shapes[4], shapes[5]]
-    assert (plan.run_l2_split, plan.run_l2_columns, plan.run_l2_blocks) == (1, 132, 132)
-    assert [r[3] for r in plan.run_l2_table.tolist()] == [0, 130]
-    assert [r[7] for r in plan.run_l2_table.tolist()] == [0, 0]  # the run reads no key rows
+    assert counts(plan, run=True) == (1, 1, 2, 0, 2)
+    run = plan.launch("huge_l2", run=True)
+    assert table_rows(run) == [shapes[4], shapes[5]]
+    assert (run.own, run.blocks) == ((1, 132), 132)
+    assert [r[3] for r in run.table.tolist()] == [0, 130]
+    assert [r[7] for r in run.table.tolist()] == [0, 0]  # the run reads no key rows
     # the rows belong to the layout, allocated on the card only
     assert host.geom.huge_scratch is None
-    assert layout.huge_scratch(plan, torch.float32, "cpu") is None
+    assert layout.huge_scratch(plan, "cpu") is None
     assert layout.arc_bytes(8192) == 2 and layout.arc_bytes(8193) == 4
     assert layout.record_bytes(8193) == 8 * 8193
     # the bytes a solve works in, the number a layout too large for the card
@@ -682,12 +714,13 @@ def test_l2_split_follows_the_columns(columns, sms, split):
     once for every column together (one block of 1,024 threads an SM off the
     card), at least 1; on 132 SMs the plan's own for tables of that many
     columns of 320,000 slots, its blocks G a column."""
-    assert layout.l2_occupancy(8, layout.HUGE_THREADS, "cpu") == 1
+    assert layout.block_occupancy(8, sk.HUGE_L2, layout.HUGE_THREADS, "cpu") == 1
     assert layout.choose_l2_split(columns, 320000, layout.HUGE_THREADS, sms) == split
     if sms == layout.SM_COUNT:
         plan = layout.launch_plan([(320000, 2, columns)], torch.float64, "cpu")
-        assert (plan.nr_l2, plan.l2_split, plan.l2_columns) == (1, split, columns)
-        assert plan.l2_blocks == split * columns and plan.l2_threads == layout.HUGE_THREADS
+        (l2,) = plan.sweeps
+        assert (l2.body, l2.nr_buckets, l2.own) == (sk.HUGE_L2, 1, (split, columns))
+        assert l2.blocks == split * columns and l2.threads == layout.HUGE_THREADS
 
 
 def test_l2_split_is_capped_and_forced():
@@ -698,16 +731,17 @@ def test_l2_split_is_capped_and_forced():
     assert layout.choose_l2_split(1, 8193, 1024, 132) == 9
     assert layout.choose_l2_split(1, 1 << 20, 32, 132 * 32) == layout.L2_MAX_SPLIT == 256
     assert layout.choose_l2_split(0, 320000, 1024, 132) == 1
-    assert layout.l2_occupancy(4, 256, "cpu") == 4
-    # forced to the L2 body, a bucket of 9,000 slots over 3 columns: 9 a column
-    plan = layout.launch_plan([(9000, 2, 3)], torch.float32, "cpu", huge_body="huge_l2")
-    assert (plan.l2_split, plan.l2_blocks) == (9, 27)
+    assert layout.block_occupancy(4, sk.HUGE_L2, 256, "cpu") == 4
+    # on the L2 body, a bucket of 9,000 slots over 3 columns: 9 a column
+    plan = layout.build_plan([(9000, 2, 3)], torch.float32, "cpu", ["huge_l2"])
+    assert (plan.launch("huge_l2").own[0], plan.launch("huge_l2").blocks) == (9, 27)
     for split in (1, 2, 7, 256):
-        forced = layout.launch_plan([(320000, 2, 2)], torch.float32, "cpu", l2_split=split)
-        assert (forced.l2_split, forced.l2_blocks) == (split, 2 * split)
+        forced = routed_plan([(320000, 2, 2)], torch.float32, "cpu", l2_split=split)
+        assert (forced.launch("huge_l2").own[0], forced.launch("huge_l2").blocks) == (
+            split, 2 * split)
     for split in (0, 257):
         with pytest.raises(ValueError, match="1 to 256 blocks a column"):
-            layout.launch_plan([(320000, 2, 2)], torch.float32, "cpu", l2_split=split)
+            routed_plan([(320000, 2, 2)], torch.float32, "cpu", l2_split=split)
 
 
 @pytest.mark.parametrize("split", [None, 5, 1])
@@ -716,14 +750,15 @@ def test_l2_first_block_counts_in_units_of_the_split(split):
     its last column the bucket's offset into the key rows; three buckets of
     different H and B in one table (6 columns: G = 22 on 132 SMs)."""
     shapes = [(320000, 2, 3), (330000, 4, 2), (400000, 3, 1)]
-    plan = layout.launch_plan(shapes, torch.float64, "cpu", l2_split=split)
+    plan = routed_plan(shapes, torch.float64, "cpu", l2_split=split)
     G = split or 22
-    assert plan.l2_split == G and plan.l2_columns == 6
-    assert [r[3] for r in plan.l2_table.tolist()] == [0, 3 * G, 5 * G]
-    assert plan.l2_blocks == 6 * G
-    assert [r[7] for r in plan.l2_table.tolist()] == [0, 2 * 320000 * 3,
-                                                     2 * 320000 * 3 + 2 * 330000 * 2]
-    assert plan.huge_scratch_values == 2 * (320000 * 3 + 330000 * 2 + 400000)
+    l2 = plan.launch("huge_l2")
+    assert l2.own == (G, 6)
+    assert [r[3] for r in l2.table.tolist()] == [0, 3 * G, 5 * G]
+    assert l2.blocks == 6 * G
+    assert [r[7] for r in l2.table.tolist()] == [0, 2 * 320000 * 3,
+                                                2 * 320000 * 3 + 2 * 330000 * 2]
+    assert plan.scratch_bytes[0] == 8 * 2 * (320000 * 3 + 330000 * 2 + 400000)
 
 
 @pytest.mark.parametrize("P,G,threads", [
@@ -758,13 +793,13 @@ def test_l2_scratch_holds_rows_partials_and_counters(precision):
     itemsize = 4 if precision == "float" else 8
     rows = 2 * 320000 * 2 * itemsize
     plan = layout.launch_plan([(320000, 48, 2)], dtype, "cpu")
-    assert (plan.l2_split, plan.l2_columns) == (66, 2)
-    parts, counters, total = layout.plan_scratch_bytes(plan, itemsize)
+    assert plan.launch("huge_l2").own == (66, 2)
+    parts, counters, total = plan.scratch_bytes
     assert parts == rows and counters == rows + -(-2 * 66 * 2 * itemsize // 16) * 16
     assert total == counters + 4 * 2
-    one = layout.launch_plan([(320000, 48, 2)], dtype, "cpu", l2_split=1)
-    assert layout.plan_scratch_bytes(one, itemsize) == (rows, rows, rows)
-    assert layout.huge_scratch(plan, dtype, "cpu") is None  # the twins need none
+    one = routed_plan([(320000, 48, 2)], dtype, "cpu", l2_split=1)
+    assert one.scratch_bytes == (rows, rows, rows)
+    assert layout.huge_scratch(plan, "cpu") is None  # the twins need none
     E, N = 48 * 2, 48 * 320000 * 2
     base = layout.record_bytes(320000) * E + E * (9 * itemsize + 24) + 2 * N * itemsize
     most = layout.l2_scratch_bytes(2 * 320000 * 2, layout.L2_MAX_SPLIT, 2, itemsize)[2]
@@ -772,17 +807,40 @@ def test_l2_scratch_holds_rows_partials_and_counters(precision):
 
 
 class _Recorder:
-    """A stand-in for the kernel library: every entry records its arguments."""
+    """A stand-in for the kernel library: every entry records its name and
+    its arguments, the records of a sweep entry copied (a launch sets their
+    accumulators anew each call)."""
 
     def __init__(self):
         self.calls = []
 
     def __getattr__(self, name):
-        def entry(*args):
-            self.calls.append((name, args))
+        def entry(records, n, buffers, stream, failed):
+            self.calls.append((name, [Record.of(r) for r in records[:n]], buffers._obj, stream))
             return 0
 
         return entry
+
+
+@dataclasses.dataclass(frozen=True)
+class Record:
+    """The fields of a library record (``_build.Launch``), the body by its
+    suffix."""
+
+    body: str
+    nr_buckets: int
+    blocks: int
+    threads: int
+    smem: tuple  # forward, backward and run
+    own: tuple
+    scratch: tuple  # rows, partials, counters
+    acc: int
+
+    @staticmethod
+    def of(r):
+        return Record(sk.BODIES[r.body], r.nr_buckets, r.blocks, r.threads,
+                      (r.smem_forward, r.smem_backward), tuple(r.own),
+                      (r.rows, r.partials, r.counters), r.acc)
 
 
 @pytest.mark.parametrize("split", [None, 1])
@@ -800,9 +858,9 @@ def test_l2_launch_hands_every_entry_its_scratch(monkeypatch, split):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
     host, (lo, hi, fr, dl, dh) = synthetic_host([(320000, 2, 2)], torch.float32, "cpu")
     geom = host.geom
-    plan = layout.launch_plan(geom.plan.shapes, torch.float32, "cpu", l2_split=split)
+    plan = routed_plan(geom.plan.shapes, torch.float32, "cpu", l2_split=split)
     G = split or 66
-    parts, counters, total = layout.plan_scratch_bytes(plan, 4)
+    parts, counters, total = plan.scratch_bytes
     scratch = torch.empty(total, dtype=torch.uint8)
     base = scratch.data_ptr()
     for kernel, frontier in (("uniform_forward", fr), ("uniform_backward", fr), (sk.RUN, None)):
@@ -813,10 +871,13 @@ def test_l2_launch_hands_every_entry_its_scratch(monkeypatch, split):
                               scratch)
         assert launch.counts == (kernel + sk.HUGE_L2,)
         launch()
-        name, args = rec.calls[-1]
-        assert name == kernel + sk.HUGE_L2 + "_f32"
-        assert args[2:6] == (2 * G, layout.HUGE_THREADS, G, 2)
-        assert args[-4:-1] == (base, base + parts, base + counters)
+        name, (record,), buffers, stream = rec.calls[-1]
+        assert (name, stream) == (kernel + "_f32", 0)
+        assert (record.body, record.blocks, record.threads, record.own) == (
+            sk.HUGE_L2, 2 * G, layout.HUGE_THREADS, (G, 2))
+        assert record.scratch == (base, base + parts, base + counters) and record.acc is None
+        assert (buffers.lo, buffers.frontier) == (
+            lo.data_ptr(), None if frontier is None else fr.data_ptr())
         assert base + counters + (4 * 2 if G > 1 else 0) <= base + total
         with pytest.raises(ValueError, match="needs its scratch"):
             sk._launcher(kernel, plan, geom.arcs, lo, hi, None, None, None, 0.5, frontier, outs)
@@ -847,7 +908,7 @@ def test_plan_sends_each_width_to_its_body(P, itemsize, body):
     holds to the cluster body, 5 clusters of 16), over 132 (G = 1) to the
     body of its width, where the cluster body's run takes the L2 body and
     the huge body's its own; ``body_of`` gives the width's body whatever the
-    columns, and only the plan holds the route."""
+    columns, and only ``route`` holds the route."""
     dtype = torch.float32 if itemsize == 4 else torch.float64
     assert layout.body_of(P, itemsize) == body
     assert layout.huge_fits(P, itemsize) == (body not in ("huge_cluster", "huge_l2"))
@@ -860,51 +921,52 @@ def test_plan_sends_each_width_to_its_body(P, itemsize, body):
         routed = "huge_cluster"
     assert layout.body_of(P, itemsize, 5) == body
     plan = layout.launch_plan([(P, 3, 5)], dtype, "cpu")
-    assert (plan.nr_buckets, plan.nr_wide, plan.nr_huge, plan.nr_cluster, plan.nr_l2) == tuple(
-        int(routed == b) for b in ("narrow", "wide", "huge", "huge_cluster", "huge_l2"))
+    assert counts(plan) == tuple(int(routed == b) for b in layout.BODIES)
     # no bucket but the L2 body's has scratch rows
-    assert plan.huge_scratch_values == (2 * P * 5 if routed == "huge_l2" else 0)
+    rows = -(-2 * P * 5 * itemsize // 16) * 16
+    assert plan.scratch_bytes[0] == (rows if routed == "huge_l2" else 0)
     if routed == "huge_l2":
-        assert plan.l2_split == layout.choose_l2_split(5, P, 1024, 132) >= layout.L2_FROM_SPLIT
-        assert (plan.nr_run_l2, plan.run_l2_split) == (1, plan.l2_split)
+        G = plan.launch("huge_l2").own[0]
+        assert G == layout.choose_l2_split(5, P, 1024, 132) >= layout.L2_FROM_SPLIT
+        assert counts(plan, run=True) == counts(plan)
+        assert plan.launch("huge_l2", run=True).own == (G, 5)
     if routed == "huge_cluster":  # clusters of 16; the run on the L2 body
-        assert (plan.cluster_size, plan.nr_run_l2, plan.run_cluster_blocks) == (16, 1, 0)
+        assert plan.launch("huge_cluster").own[0] == 16
+        assert counts(plan, run=True) == (0, 0, 0, 0, 1)
     if held and P > layout.WIDE_P:
         many = layout.launch_plan([(P, 3, 132)], dtype, "cpu")
         assert layout.body_of(P, itemsize, 132) == body
-        assert (many.nr_huge, many.nr_cluster, many.nr_l2) == tuple(
-            int(body == b) for b in ("huge", "huge_cluster", "huge_l2"))
-        assert (many.nr_run_l2, many.run_cluster_blocks) == (int(body != "huge"), 0)
-        # the cluster body where the plan is told so, over the same 5 columns
-        plan = layout.launch_plan([(P, 3, 5)], dtype, "cpu", huge_body="huge_cluster")
-        assert (plan.nr_cluster, plan.nr_l2, plan.nr_run_l2) == (1, 0, 0)
-        assert plan.run_cluster_blocks == plan.cluster_blocks
-        assert plan.cluster_pmax == P and plan.cluster_blocks == 5 * plan.cluster_size
-        assert plan.cluster_size in layout.CLUSTER_SIZES
-        assert max(plan.cluster_smem_forward, plan.cluster_smem_backward) <= (
-            layout.MAX_DYNAMIC_SMEM)
+        assert counts(many) == tuple(int(body == b) for b in layout.BODIES)
+        assert counts(many, run=True) == (0, 0, int(body == "huge"), 0, int(body != "huge"))
+        # the cluster body where a plan is built so, over the same 5 columns
+        plan = layout.build_plan([(P, 3, 5)], dtype, "cpu", ["huge_cluster"])
+        cluster = plan.launch("huge_cluster")
+        assert counts(plan) == counts(plan, run=True) == (0, 0, 0, 1, 0)
+        C = cluster.own[0]
+        assert cluster.own[1] == P and cluster.blocks == 5 * C and C in layout.CLUSTER_SIZES
+        assert max(cluster.smem_forward, cluster.smem_backward) <= layout.MAX_DYNAMIC_SMEM
         # the slot codes: four bytes up to CLUSTER_MAX_P, eight past it
         code = 4 if P <= layout.CLUSTER_MAX_P else 8
         assert layout.cluster_code_bytes(P) == code
-        S = -(-P // plan.cluster_size)
-        assert plan.cluster_smem_forward == (-(-S * itemsize // 16) * 16 + -(-code * S // 16) * 16
-                                             + (64 + 32 + 2 * layout.HUGE_SCALARS) * itemsize)
-        # the L2 body where the plan is told so
-        forced = layout.launch_plan([(P, 3, 5)], dtype, "cpu", huge_body="huge_l2")
-        assert (forced.nr_cluster, forced.nr_l2) == (0, 1)
+        S = -(-P // C)
+        assert cluster.smem_forward == (-(-S * itemsize // 16) * 16 + -(-code * S // 16) * 16
+                                        + (64 + 32 + 2 * layout.HUGE_SCALARS) * itemsize)
+        # the L2 body where a plan is built so
+        forced = layout.build_plan([(P, 3, 5)], dtype, "cpu", ["huge_l2"])
+        assert counts(forced) == (0, 0, 0, 0, 1)
     assert layout.arc_bytes(P) == (1 if P <= layout.NARROW_P else 2 if P <= layout.WIDE_P else 4)
     assert layout.lane_pad(132, P) == (132 if P > layout.WIDE_P else 256)
     if body == "huge":  # on the huge body: over 5 columns up to WIDE_P, over 132 past it
-        on = plan if P <= layout.WIDE_P else many
-        assert on.huge_pmax == P and on.huge_threads == layout.HUGE_THREADS
-        assert max(on.huge_smem_forward, on.huge_smem_backward) <= layout.MAX_DYNAMIC_SMEM
-        # the huge body over the 5 columns where the plan is told so, all three entries
-        forced = layout.launch_plan([(P, 3, 5)], dtype, "cpu", huge_body="huge")
-        assert (forced.nr_huge, forced.nr_l2, forced.nr_run_l2) == (1, 0, 0)
-    # the wide body still takes every wide bucket where the plan is told so
+        on = (plan if P <= layout.WIDE_P else many).launch("huge")
+        assert on.own[0] == P and on.threads == layout.HUGE_THREADS
+        assert max(on.smem_forward, on.smem_backward) <= layout.MAX_DYNAMIC_SMEM
+        # the huge body over the 5 columns where a plan is built so, all three entries
+        forced = layout.build_plan([(P, 3, 5)], dtype, "cpu", ["huge"])
+        assert counts(forced) == counts(forced, run=True) == (0, 0, 1, 0, 0)
+    # the wide body still takes every wide bucket where a plan is built so
     if P <= layout.WIDE_P and body == "huge":
-        forced = layout.launch_plan([(P, 3, 5)], dtype, "cpu", huge_from=layout.WIDE_P + 1)
-        assert (forced.nr_wide, forced.nr_huge) == (1, 0)
+        forced = layout.build_plan([(P, 3, 5)], dtype, "cpu", ["wide"])
+        assert counts(forced) == (0, 1, 0, 0, 0)
 
 
 # -------------------------------- the cluster-or-L2 route by columns
@@ -939,14 +1001,14 @@ def test_route_sends_few_columns_to_the_l2_body(P, columns, itemsizes, G):
         body = "huge_l2" if G >= layout.L2_FROM_SPLIT or not routed else "huge_cluster"
         assert layout.body_of(P, itemsize, columns) == (  # the width's
             "huge_cluster" if routed else "huge_l2")
-        assert layout.run_body_of(body) == "huge_l2"
+        assert layout.route([(P, 48, columns)], itemsize, "cpu") == ((body,), ("huge_l2",))
         plan = layout.launch_plan([(P, 48, columns)], dtype, "cpu")
-        assert (plan.nr_cluster, plan.nr_l2) == ((0, 1) if body == "huge_l2" else (1, 0))
+        assert counts(plan) == ((0, 0, 0, 0, 1) if body == "huge_l2" else (0, 0, 0, 1, 0))
         if body == "huge_l2":  # by its columns, or past the route's clusters by its width
-            assert plan.l2_split == G and (G >= layout.L2_FROM_SPLIT or not routed)
-        assert (plan.nr_run_l2, plan.run_cluster_blocks) == (1, 0)
-        assert (plan.run_l2_split, plan.run_l2_columns, plan.run_l2_blocks) == (
-            G, columns, G * columns)
+            assert plan.launch("huge_l2").own[0] == G and (G >= layout.L2_FROM_SPLIT or not routed)
+        assert counts(plan, run=True) == (0, 0, 0, 0, 1)
+        run = plan.launch("huge_l2", run=True)
+        assert (run.own, run.blocks) == ((G, columns), G * columns)
 
 
 @pytest.mark.parametrize("itemsize,shapes,cluster,G", [
@@ -974,15 +1036,16 @@ def test_route_moves_the_widest_first_and_keeps_g(itemsize, shapes, cluster, G):
     bucket past a block's shared memory."""
     dtype = torch.float32 if itemsize == 4 else torch.float64
     plan = layout.launch_plan(shapes, dtype, "cpu")
-    assert [tuple(r[:3]) for r in plan.cluster_table.tolist()] == cluster
+    assert table_rows(plan.launch("huge_cluster")) == cluster
     moved = [s for s in shapes if s not in cluster]
-    assert [tuple(r[:3]) for r in plan.l2_table.tolist()] == moved
-    assert plan.l2_split == G >= layout.L2_FROM_SPLIT
-    assert plan.l2_split == layout.choose_l2_split(
-        plan.l2_columns, max(P for P, _, _ in moved), layout.HUGE_THREADS, 132)
-    assert [tuple(r[:3]) for r in plan.run_l2_table.tolist()] == list(shapes)
-    assert plan.run_cluster_blocks == 0
-    assert plan.run_l2_columns == sum(B for _, H, B in shapes if H > 0)
+    l2 = plan.launch("huge_l2")
+    assert table_rows(l2) == moved
+    assert l2.own[0] == G >= layout.L2_FROM_SPLIT
+    assert l2.own[0] == layout.choose_l2_split(
+        l2.own[1], max(P for P, _, _ in moved), layout.HUGE_THREADS, 132)
+    (run,) = plan.runs
+    assert table_rows(run) == list(shapes) and run.body == sk.HUGE_L2
+    assert run.own[1] == sum(B for _, H, B in shapes if H > 0)
 
 
 # ------------------------------ rows a block holds, routed by their columns
@@ -1021,29 +1084,31 @@ def test_route_sends_block_held_rows_by_their_columns(P, itemsize, columns, G):
     assert layout.cluster_occupancy(itemsize, 16, layout.HUGE_THREADS,
                                     layout.cluster_smem_bytes(P, 16, itemsize), "cpu", 132, P) == 7
     plan = layout.launch_plan([(P, 48, columns)], dtype, "cpu")
+    run = plan.launch("huge_l2", run=True)
     if G >= layout.L2_FROM_SPLIT and itemsize == 4 and columns <= 7:
-        assert (plan.nr_huge, plan.nr_l2, plan.nr_cluster) == (0, 0, 1)
-        assert (plan.cluster_size, plan.cluster_blocks, plan.cluster_threads) == (
+        cluster = plan.launch("huge_cluster")
+        assert counts(plan) == (0, 0, 0, 1, 0)
+        assert (cluster.own[0], cluster.blocks, cluster.threads) == (
             16, 16 * columns, layout.HUGE_THREADS)
-        assert plan.huge_scratch_values == 0
-        assert (plan.nr_run_l2, plan.run_l2_split, plan.run_cluster_blocks) == (1, G, 0)
+        assert plan.scratch_bytes[0] == 0
+        assert counts(plan, run=True) == (0, 0, 0, 0, 1) and run.own[0] == G
     elif G >= layout.L2_FROM_SPLIT:
-        assert (plan.nr_huge, plan.nr_l2, plan.nr_cluster) == (0, 1, 0)
-        assert (plan.l2_split, plan.l2_columns, plan.l2_blocks) == (G, columns, G * columns)
-        assert plan.huge_scratch_values == 2 * P * columns
-        assert (plan.nr_run_l2, plan.run_l2_split, plan.run_l2_blocks) == (1, G, G * columns)
+        l2 = plan.launch("huge_l2")
+        assert counts(plan) == (0, 0, 0, 0, 1)
+        assert (l2.own, l2.blocks) == ((G, columns), G * columns)
+        assert plan.scratch_bytes[0] == -(-2 * P * columns * itemsize // 16) * 16
+        assert counts(plan, run=True) == (0, 0, 0, 0, 1)
+        assert (run.own, run.blocks) == ((G, columns), G * columns)
     else:
-        assert (plan.nr_huge, plan.nr_l2, plan.nr_cluster) == (1, 0, 0)
-        assert (plan.huge_blocks, plan.huge_pmax, plan.huge_threads) == (
-            columns, P, layout.HUGE_THREADS)
-        assert (plan.nr_run_l2, plan.huge_scratch_values) == (0, 0)
-    # each body where the plan is told so, all three entries
-    for force, counts in (("huge", (1, 0, 0)), ("huge_l2", (0, 0, 1)),
-                          ("huge_cluster", (0, 1, 0))):
-        forced = layout.launch_plan([(P, 48, columns)], dtype, "cpu", huge_body=force)
-        assert (forced.nr_huge, forced.nr_cluster, forced.nr_l2) == counts
-        assert forced.nr_run_l2 == counts[2] and forced.run_cluster_blocks == (
-            forced.cluster_blocks)
+        huge = plan.launch("huge")
+        assert counts(plan) == counts(plan, run=True) == (0, 0, 1, 0, 0)
+        assert (huge.blocks, huge.own[0], huge.threads) == (columns, P, layout.HUGE_THREADS)
+        assert plan.scratch_bytes[0] == 0
+    # each body where a plan is built so, all three entries
+    for force in ("huge", "huge_l2", "huge_cluster"):
+        forced = layout.build_plan([(P, 48, columns)], dtype, "cpu", [force])
+        assert counts(forced) == counts(forced, run=True) == tuple(
+            int(b == force) for b in layout.BODIES)
 
 
 @pytest.mark.parametrize("itemsize,shapes,bodies,G", [
@@ -1087,19 +1152,18 @@ def test_route_by_columns_over_a_mixed_table(itemsize, shapes, bodies, G):
     buckets, the huge body for its own."""
     dtype = torch.float32 if itemsize == 4 else torch.float64
     plan = layout.launch_plan(shapes, dtype, "cpu")
-    for table, body in ((plan.huge_table, "huge"), (plan.cluster_table, "huge_cluster"),
-                        (plan.l2_table, "huge_l2"), (plan.wide_table, "wide")):
-        assert [tuple(r[:3]) for r in table.tolist()] == [
-            s for s, b in zip(shapes, bodies) if b == body]
-    assert plan.l2_split == G >= layout.L2_FROM_SPLIT
+    assert layout.route(shapes, itemsize, "cpu")[0] == tuple(bodies)
+    for body in ("huge", "huge_cluster", "huge_l2", "wide"):
+        assert table_rows(plan.launch(body)) == [s for s, b in zip(shapes, bodies) if b == body]
+    assert plan.launch("huge_l2").own[0] == G >= layout.L2_FROM_SPLIT
     huge = [s for s, b in zip(shapes, bodies) if b == "huge"]
     if huge:
-        assert plan.huge_smem_forward == max(layout.huge_smem_bytes(P, itemsize)
-                                             for P, _, _ in huge)
-        assert plan.huge_threads == layout._huge_plan(huge, itemsize, 132)[0]
-    assert [tuple(r[:3]) for r in plan.run_l2_table.tolist()] == [
+        assert plan.launch("huge").smem_forward == max(layout.huge_smem_bytes(P, itemsize)
+                                                       for P, _, _ in huge)
+        assert plan.launch("huge").threads == layout._huge_plan(huge, itemsize, 132)[0]
+    assert table_rows(plan.launch("huge_l2", run=True)) == [
         s for s, b in zip(shapes, bodies) if b in ("huge_l2", "huge_cluster")]
-    assert plan.run_cluster_blocks == 0
+    assert plan.launch("huge_cluster", run=True) is None
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
@@ -1118,10 +1182,11 @@ def test_scratch_holds_the_runs_partials_and_counters(itemsize):
     # table: 42 columns, G = 3
     shapes = [(320000, 2, 2), (30000, 2, 40)]
     plan = layout.launch_plan(shapes, dtype, "cpu")
-    assert (plan.l2_split, plan.l2_columns, plan.nr_cluster) == (66, 2, 1)
-    assert (plan.run_l2_split, plan.run_l2_columns, plan.run_l2_blocks) == (3, 42, 126)
+    assert plan.launch("huge_l2").own == (66, 2) and counts(plan)[3] == 1
+    run = plan.launch("huge_l2", run=True)
+    assert (run.own, run.blocks) == ((3, 42), 126)
     rows = 2 * 320000 * 2 * itemsize
-    parts, counters, total = layout.plan_scratch_bytes(plan, itemsize)
+    parts, counters, total = plan.scratch_bytes
     assert parts == rows  # the key rows, of the half-sweeps' L2 bucket alone
     assert counters == rows + pad(max(2 * 66 * 2, 2 * 3 * 42) * itemsize)
     assert total == counters + 4 * 42  # the run's 42 counters
@@ -1129,13 +1194,13 @@ def test_scratch_holds_the_runs_partials_and_counters(itemsize):
     # counters alone (33 columns of 32,768 slots on the cluster body at 132
     # SMs would be G = 4, so 40 columns: G = 3)
     plan = layout.launch_plan([(32768, 48, 40)], dtype, "cpu")
-    assert (plan.nr_l2, plan.nr_cluster, plan.run_l2_split) == (0, 1, 3)
-    assert layout.plan_scratch_bytes(plan, itemsize) == (
+    assert counts(plan) == (0, 0, 0, 1, 0) and plan.launch("huge_l2", run=True).own[0] == 3
+    assert plan.scratch_bytes == (
         0, pad(2 * 3 * 40 * itemsize), pad(2 * 3 * 40 * itemsize) + 4 * 40)
-    assert layout.huge_scratch(plan, dtype, "cpu") is None  # the twins need none
+    assert layout.huge_scratch(plan, "cpu") is None  # the twins need none
     # a G of 1 for both: nothing but the key rows (here none)
     plan = layout.launch_plan([(32768, 48, 132)], dtype, "cpu")
-    assert layout.plan_scratch_bytes(plan, itemsize) == (0, 0, 0)
+    assert plan.scratch_bytes == (0, 0, 0)
     # the bytes a solve works in: key rows of every bucket past a block's
     # shared memory, partials and counters of all their columns at
     # L2_MAX_SPLIT, above the plan's own
@@ -1144,21 +1209,21 @@ def test_scratch_holds_the_runs_partials_and_counters(itemsize):
     most = layout.l2_scratch_bytes(2 * 32768 * 40, layout.L2_MAX_SPLIT, 40, itemsize)[2]
     assert layout.solve_bytes([(32768, 48, 40)], itemsize) == base + most
     plan = layout.launch_plan([(32768, 48, 40)], dtype, "cpu")
-    assert most >= layout.plan_scratch_bytes(plan, itemsize)[2]
+    assert most >= plan.scratch_bytes[2]
 
 
 @pytest.mark.parametrize("force,sweeps,run", [
     ({}, sk.HUGE_CLUSTER, sk.HUGE_L2),
-    ({"huge_body": "huge_cluster"}, sk.HUGE_CLUSTER, sk.HUGE_CLUSTER),
-    ({"huge_body": "huge_l2"}, sk.HUGE_L2, sk.HUGE_L2),
-    ({"huge_body": "huge_l2", "l2_split": 2}, sk.HUGE_L2, sk.HUGE_L2),
+    ({"bodies": ["huge_cluster"]}, sk.HUGE_CLUSTER, sk.HUGE_CLUSTER),
+    ({"bodies": ["huge_l2"]}, sk.HUGE_L2, sk.HUGE_L2),
+    ({"bodies": ["huge_l2"], "l2_split": 2}, sk.HUGE_L2, sk.HUGE_L2),
     ({"l2_split": 2}, sk.HUGE_CLUSTER, sk.HUGE_L2),
 ])
 def test_each_entry_launches_the_body_of_its_route(monkeypatch, force, sweeps, run):
     """What each entry launches (the library replaced by a recorder), on 40
     columns of 30,000 slots: by the route the half-sweeps on the cluster
     body (an L2 table's G would be 3) and the run on the L2 body at G = 3;
-    the forcing of ``huge_body`` holds for all three entries, and a forced
+    the bodies a plan is built on hold for all three entries, and a forced
     ``l2_split`` for the run's L2 table too."""
     rec = _Recorder()
     monkeypatch.setattr(sk._build, "load", lambda: rec)
@@ -1169,8 +1234,12 @@ def test_each_entry_launches_the_body_of_its_route(monkeypatch, force, sweeps, r
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
     host, (lo, hi, fr, dl, dh) = synthetic_host([(30000, 2, 40)], torch.float32, "cpu")
     geom = host.geom
-    plan = layout.launch_plan(geom.plan.shapes, torch.float32, "cpu", **force)
-    scratch = torch.empty(layout.plan_scratch_bytes(plan, 4)[2], dtype=torch.uint8)
+    if "bodies" in force:
+        plan = layout.build_plan(geom.plan.shapes, torch.float32, "cpu", force["bodies"],
+                                 l2_split=force.get("l2_split"))
+    else:
+        plan = routed_plan(geom.plan.shapes, torch.float32, "cpu", l2_split=force.get("l2_split"))
+    scratch = torch.empty(plan.scratch_bytes[2], dtype=torch.uint8)
     G = force.get("l2_split", 3)
     for kernel, frontier in (("uniform_forward", fr), ("uniform_backward", fr), (sk.RUN, None)):
         outs = (None, None, None, torch.empty_like(fr)) if kernel == sk.RUN else (
@@ -1181,12 +1250,74 @@ def test_each_entry_launches_the_body_of_its_route(monkeypatch, force, sweeps, r
         body = run if kernel == sk.RUN else sweeps
         assert launch.counts == (kernel + body,)
         launch()
-        name, args = rec.calls[-1]
-        assert name == kernel + body + "_f32"
+        name, (record,), _, _ = rec.calls[-1]
+        assert (name, record.body) == (kernel + "_f32", body)
         if body == sk.HUGE_L2:  # blocks, threads, G, columns
-            assert args[2:6] == (40 * G, layout.HUGE_THREADS, G, 40)
+            assert (record.blocks, record.threads, record.own) == (
+                40 * G, layout.HUGE_THREADS, (G, 40))
         else:  # blocks, threads, C
-            assert args[2:5] == (plan.cluster_blocks, plan.cluster_threads, plan.cluster_size)
+            cluster = plan.launch("huge_cluster")
+            assert (record.blocks, record.threads, record.own) == (
+                cluster.blocks, cluster.threads, cluster.own)
+
+
+# rows like the benchmark's three cells in float32 (mknap.t50.dual's five
+# rows of 32,768 slots, mknap.t25.dual's of 16,384, gap_d60900.dual's 900
+# assignment and 60 capacity rows), and their plans as the route gave them
+# when the plan kept fields of each body: the route's bodies of the
+# half-sweeps and of the run, each entry's launches (body, table, blocks,
+# threads, shared memory of the forward and the backward, own integers)
+# and the L2 scratch's bytes
+CELL_PLANS = {
+    "mknap.t50.dual": (
+        [(32768, 100, 5)], ("huge_l2",), ("huge_l2",),
+        [(sk.HUGE_L2, [[32768, 100, 5, 0, 0, 0, 0, 0]], 130, 1024, 0, 0, (26, 5))],
+        [(sk.HUGE_L2, [[32768, 100, 5, 0, 0, 0, 0, 0]], 130, 1024, 0, 0, (26, 5))],
+        (1310720, 1311760, 1311780)),
+    "mknap.t25.dual": (
+        [(16384, 100, 5)], ("huge_cluster",), ("huge_l2",),
+        [(sk.HUGE_CLUSTER, [[16384, 100, 5, 0, 0, 0, 0, 2]], 80, 1024, 8640, 12736, (16, 16384))],
+        [(sk.HUGE_L2, [[16384, 100, 5, 0, 0, 0, 0, 0]], 80, 1024, 0, 0, (16, 5))],
+        (0, 640, 660)),
+    "gap_d60900.dual": (
+        [(2, 60, 1024), (1024, 900, 64)], ("narrow", "huge"), ("narrow", "huge"),
+        [("", [[2, 60, 1024, 0, 0, 0, 0, 8]], 32, 32, 10368, 10368, (32, 2)),
+         (sk.HUGE, [[1024, 900, 64, 0, 61440, 122880, 245760, 2]], 64, 1024, 37248, 41344,
+          (1024, layout.HUGE_RING_HOPS))],
+        None, (0, 0, 0)),
+}
+
+
+@pytest.mark.parametrize("cell", list(CELL_PLANS))
+def test_cells_rows_keep_their_plans(cell):
+    """The route and the records give rows like each cell's the launches
+    they had before the records: the same bodies, tables, grids, shared
+    memory, own integers and scratch (the gap cell's run the same launches
+    as its half-sweeps)."""
+    shapes, bodies, run_bodies, sweeps, runs, scratch = CELL_PLANS[cell]
+    assert layout.route(shapes, 4, "cpu") == (bodies, run_bodies)
+    plan = layout.launch_plan(shapes, torch.float32, "cpu")
+
+    def fields(launches):
+        return [(r.body, r.table.tolist(), r.blocks, r.threads, r.smem_forward, r.smem_backward,
+                 r.own) for r in launches]
+
+    assert fields(plan.sweeps) == sweeps
+    assert fields(plan.runs) == (sweeps if runs is None else runs)
+    assert plan.scratch_bytes == scratch
+
+
+@pytest.mark.cuda
+def test_library_records_are_laid_out_as_their_mirrors(cuda_device):
+    """The sizes and field offsets of the library's record and buffers
+    structs, which it exports, are those of their ctypes mirrors."""
+    import ctypes
+
+    ours = [n for struct in (sk._build.Launch, sk._build.Buffers)
+            for n in (ctypes.sizeof(struct), *(getattr(struct, f).offset
+                                               for f, _ in struct._fields_))]
+    theirs = (ctypes.c_longlong * len(ours)).in_dll(sk._build.load(), "uniform_record_layout")
+    assert list(theirs) == ours
 
 
 @pytest.mark.parametrize("P,itemsize,columns,body", [
@@ -1198,16 +1329,16 @@ def test_route_follows_the_columns_in_float32(P, itemsize, columns, body):
     """float32 buckets below HUGE_FROM_F32_MANY slots take the huge body only
     while their columns are at most HUGE_F32_BLOCKS_SM an SM (more would
     give a huge block 128 threads or fewer, where the wide body is faster);
-    float64 and wider buckets whatever their columns. A forced ``huge_from``
-    replaces the route, and the plan follows it with the card's SMs."""
+    float64 and wider buckets whatever their columns. A plan built on the
+    huge body takes it whatever the route, and the route follows the card's
+    SMs."""
     dtype = torch.float32 if itemsize == 4 else torch.float64
     assert layout.HUGE_F32_BLOCKS_SM == 4
     assert layout.body_of(P, itemsize, columns) == body
     plan = layout.launch_plan([(P, 2, columns)], dtype, "cpu")
-    assert (plan.nr_wide, plan.nr_huge) == ((1, 0) if body == "wide" else (0, 1))
-    assert layout.body_of(P, itemsize, columns, huge_from=layout.NARROW_P + 1) == "huge"
-    forced = layout.launch_plan([(P, 2, columns)], dtype, "cpu", huge_from=layout.NARROW_P + 1)
-    assert (forced.nr_wide, forced.nr_huge) == (0, 1)
+    assert counts(plan) == ((0, 1, 0, 0, 0) if body == "wide" else (0, 0, 1, 0, 0))
+    forced = layout.build_plan([(P, 2, columns)], dtype, "cpu", ["huge"])
+    assert counts(forced) == (0, 0, 1, 0, 0)
     # on a card of fewer SMs the same columns are more an SM
     assert layout.body_of(P, itemsize, 4 * 66 + 1, sms=66) == layout.body_of(
         P, itemsize, 4 * 132 + 1, sms=132)
@@ -1230,46 +1361,49 @@ def test_huge_plan_shared_memory_is_the_kernels(itemsize):
         return (row * (1 + two_rows) + -(-4 * P // 16) * 16 + 64 * itemsize
                 + 2 * layout.HUGE_SCALARS * itemsize)
 
-    def rows(plan):
-        return [int(r[7]) for r in plan.huge_table.tolist()]
+    def huge(shapes):  # the huge launch of the route's plan, and its rows
+        plan = layout.launch_plan(shapes, dtype, "cpu")
+        launch = plan.launch("huge")
+        assert counts(plan) == (0, 0, len(shapes), 0, 0)
+        return launch, [int(r[7]) for r in launch.table.tolist()]
 
     # knapsack48: 132 columns of 16,384 slots, one block of 1,024 threads an
     # SM; float32 keeps two backward rows, float64 one
     two = itemsize == 4
-    plan = layout.launch_plan([(16384, 48, 132)], dtype, "cpu")
-    assert (plan.huge_threads, plan.huge_blocks) == (1024, 132)
-    assert plan.huge_smem_forward == carved(16384, False) == layout.huge_smem_bytes(
+    launch, rows = huge([(16384, 48, 132)])
+    assert (launch.threads, launch.blocks) == (1024, 132)
+    assert launch.smem_forward == carved(16384, False) == layout.huge_smem_bytes(
         16384, itemsize)
-    assert plan.huge_smem_backward == carved(16384, two)
-    assert rows(plan) == [1 + two]
+    assert launch.smem_backward == carved(16384, two)
+    assert rows == [1 + two]
     # routed rows of 8,192 slots over 256 columns: two blocks an SM of 512
     # threads each, as the SM's shared memory allows
-    plan = layout.launch_plan([(layout.WIDE_P, 32, 256)], dtype, "cpu")
-    assert (plan.huge_threads, plan.huge_blocks) == (512, 256)
-    assert plan.huge_smem_forward == carved(layout.WIDE_P, False)
-    assert plan.huge_smem_backward == carved(layout.WIDE_P, two)
-    assert rows(plan) == [1 + two]
+    launch, rows = huge([(layout.WIDE_P, 32, 256)])
+    assert (launch.threads, launch.blocks) == (512, 256)
+    assert launch.smem_forward == carved(layout.WIDE_P, False)
+    assert launch.smem_backward == carved(layout.WIDE_P, two)
+    assert rows == [1 + two]
     # both in one table (388 columns, three an SM): a block of the launch
     # carves knapsack48's shared memory, so one resides an SM, at 1,024
     # threads, not at the 320 that three blocks would share
-    plan = layout.launch_plan([(16384, 48, 132), (layout.WIDE_P, 32, 256)], dtype, "cpu")
-    assert (plan.huge_threads, plan.huge_blocks) == (1024, 388)
-    assert plan.huge_smem_forward == carved(16384, False)
-    assert rows(plan) == [1 + two, 2]
-    assert plan.huge_smem_backward == max(carved(16384, two), carved(layout.WIDE_P, True))
+    launch, rows = huge([(16384, 48, 132), (layout.WIDE_P, 32, 256)])
+    assert (launch.threads, launch.blocks) == (1024, 388)
+    assert launch.smem_forward == carved(16384, False)
+    assert rows == [1 + two, 2]
+    assert launch.smem_backward == max(carved(16384, two), carved(layout.WIDE_P, True))
     # few columns of 4,096 slots: two rows in either precision
-    plan = layout.launch_plan([(4096, 3, 8)], dtype, "cpu")
-    assert rows(plan) == [2] and plan.huge_threads == 1024
-    assert plan.huge_smem_forward == carved(4096, False)
-    assert plan.huge_smem_backward == carved(4096, True)
+    launch, rows = huge([(4096, 3, 8)])
+    assert rows == [2] and launch.threads == 1024
+    assert launch.smem_forward == carved(4096, False)
+    assert launch.smem_backward == carved(4096, True)
     # 2,048 columns of 1,024 slots (the huge body forced in float32): 16
     # blocks an SM of 64 threads; in float64 16 blocks fit only on one row
     # each
-    plan = layout.launch_plan([(layout.HUGE_FROM, 32, 2048)], dtype, "cpu",
-                              huge_from=layout.HUGE_FROM)
-    assert (plan.huge_threads, plan.huge_blocks) == (64, 2048)
-    assert rows(plan) == [1 + two]
-    assert 16 * (plan.huge_smem_backward + layout.BLOCK_SMEM_RESERVED) <= layout.SM_SMEM
+    launch = layout.build_plan([(layout.HUGE_FROM, 32, 2048)], dtype, "cpu",
+                               ["huge"]).launch("huge")
+    assert (launch.threads, launch.blocks, launch.own) == (64, 2048, (layout.HUGE_FROM, 0))
+    assert [int(r[7]) for r in launch.table.tolist()] == [1 + two]
+    assert 16 * (launch.smem_backward + layout.BLOCK_SMEM_RESERVED) <= layout.SM_SMEM
 
 
 # shapes that the route sends to the huge body one by one (float32, below
@@ -1296,31 +1430,32 @@ def test_huge_table_holds_the_route_as_a_whole(case):
     SM) holds for the table as a whole: a routed float32 bucket below
     HUGE_FROM_F32_MANY slots goes back to the wide body where the table's
     columns are more an SM than that, or than its widest block lets reside.
-    float64 buckets stay, and a forced ``huge_from`` still replaces the
-    route (where every one of these ran before, but those the route by
-    columns sends to another body)."""
+    float64 buckets stay; a plan built with the huge body in place of the
+    wide one takes the launch every one of these ran on before (but those
+    the route by columns sends to another body)."""
     shapes, bodies, on_l2 = ROUTE_TABLES[case]
     assert all(layout.body_of(P, 4, B) == "huge" for P, _, B in shapes)
+    assert layout.route(shapes, 4, "cpu")[0] == tuple(bodies)
     plan = layout.launch_plan(shapes, torch.float32, "cpu")
-    for table, body in ((plan.wide_table, "wide"), (plan.huge_table, "huge"),
-                        (plan.cluster_table, "huge_cluster"), (plan.l2_table, "huge_l2")):
-        assert [tuple(r[:3]) for r in table.tolist()] == [
-            s for s, b in zip(shapes, bodies) if b == body]
+    for body in ("wide", "huge", "huge_cluster", "huge_l2"):
+        assert table_rows(plan.launch(body)) == [s for s, b in zip(shapes, bodies) if b == body]
     cols = sum(B for _, _, B in shapes if _ < layout.HUGE_FROM_F32_MANY)
+    huge = plan.launch("huge")
     if any(b == "huge" and P < layout.HUGE_FROM_F32_MANY for (P, _, _), b in zip(shapes, bodies)):
-        assert plan.huge_threads >= layout.HUGE_THREADS // layout.HUGE_F32_BLOCKS_SM
-        assert -(-plan.huge_blocks // layout.SM_COUNT) * (
-            plan.huge_smem_forward + layout.BLOCK_SMEM_RESERVED) <= layout.SM_SMEM
-    if plan.nr_huge:  # the ring form's where one slot a thread (1,024 slots few columns)
-        assert plan.huge_smem_forward == max(layout.huge_smem_bytes(P, 4, ring=plan.huge_hops)
-                                             for (P, _, _), b in zip(shapes, bodies) if b == "huge")
+        assert huge.threads >= layout.HUGE_THREADS // layout.HUGE_F32_BLOCKS_SM
+        assert -(-huge.blocks // layout.SM_COUNT) * (
+            huge.smem_forward + layout.BLOCK_SMEM_RESERVED) <= layout.SM_SMEM
+    if huge:  # the ring form's where one slot a thread (1,024 slots few columns)
+        assert huge.smem_forward == max(layout.huge_smem_bytes(P, 4, ring=huge.own[1])
+                                        for (P, _, _), b in zip(shapes, bodies) if b == "huge")
     moved = len(shapes) - bodies.count("wide") - bodies.count("huge")
-    forced = layout.launch_plan(shapes, torch.float32, "cpu", huge_from=layout.HUGE_FROM)
-    assert (forced.nr_wide, forced.nr_huge) == (0, len(shapes) - moved)
+    forced = layout.build_plan(shapes, torch.float32, "cpu",
+                               ["huge" if b == "wide" else b for b in bodies])
+    assert counts(forced)[1:3] == (0, len(shapes) - moved)
     if case == "2000-columns":  # the launch the four buckets got before
-        assert cols == 2000 and forced.huge_threads == 64
+        assert cols == 2000 and forced.launch("huge").threads == 64
     f64 = layout.launch_plan(shapes, torch.float64, "cpu")
-    assert (f64.nr_wide, f64.nr_huge, f64.nr_l2) == (0, len(shapes) - on_l2, on_l2)
+    assert counts(f64)[1:] == (0, len(shapes) - on_l2, 0, on_l2)
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
@@ -1342,74 +1477,74 @@ def test_cluster_plan_shared_memory_is_the_kernels(itemsize):
         return (row * (1 + two_rows) + -(-code * S // 16) * 16
                 + (64 + 32 + 2 * layout.HUGE_SCALARS) * itemsize)
 
-    def rows(plan):
-        return [int(r[7]) for r in plan.cluster_table.tolist()]
+    def cluster(shapes, size=None):  # the cluster launch of a plan built on the cluster body
+        plan = layout.build_plan(shapes, dtype, "cpu", ["huge_cluster"] * len(shapes),
+                                 cluster_size=size)
+        launch = plan.launch("huge_cluster")
+        assert counts(plan) == (0, 0, 0, len(shapes), 0)
+        return launch, [int(r[7]) for r in launch.table.tolist()]
 
     assert layout.CLUSTER_SIZES == (2, 4, 8, 16)
     # knapsack48's L2 rows (P = 32,768 over 132 columns): a block of a
     # cluster of two holds 16,384 slots, one block an SM at 1,024 threads
-    plan = layout.launch_plan([(32768, 48, 132)], dtype, "cpu")
-    assert (plan.cluster_size, plan.cluster_threads, plan.cluster_blocks) == (2, 1024, 264)
-    assert plan.cluster_smem_forward == carved(32768, 2, False) == layout.cluster_smem_bytes(
+    routed = layout.launch_plan([(32768, 48, 132)], dtype, "cpu").launch("huge_cluster")
+    launch, rows = cluster([(32768, 48, 132)])
+    assert (launch.own, launch.threads, launch.blocks) == ((2, 32768), 1024, 264)
+    assert (routed.own, routed.threads, routed.smem_backward) == (
+        launch.own, launch.threads, launch.smem_backward)
+    assert launch.smem_forward == carved(32768, 2, False) == layout.cluster_smem_bytes(
         32768, 2, itemsize)
     two = itemsize == 4  # float64: two rows of 16,384 values do not fit a block
-    assert rows(plan) == [1 + two]
-    assert plan.cluster_smem_backward == carved(32768, 2, two)
+    assert rows == [1 + two]
+    assert launch.smem_backward == carved(32768, 2, two)
     # every cluster size, forced: the block's share and the blocks an SM
     for C, threads in ((2, 1024), (4, 1024 // 3 // 32 * 32 if two else 512),
                        (8, 1024 // 6 // 32 * 32 if two else 256), (16, 64 if two else 128)):
-        plan = layout.launch_plan([(32768, 48, 132)], dtype, "cpu", cluster_size=C)
-        assert (plan.cluster_size, plan.cluster_blocks) == (C, 132 * C)
-        assert plan.cluster_smem_forward == carved(32768, C, False)
-        resident = min(C, layout.SM_SMEM // (plan.cluster_smem_forward
-                                             + layout.BLOCK_SMEM_RESERVED))
-        assert plan.cluster_threads == threads == 1024 // resident // 32 * 32
-        assert plan.cluster_smem_backward == carved(32768, C, rows(plan)[0] == 2)
-        assert resident * (plan.cluster_smem_backward + layout.BLOCK_SMEM_RESERVED) <= (
+        launch, rows = cluster([(32768, 48, 132)], C)
+        assert (launch.own[0], launch.blocks) == (C, 132 * C)
+        assert launch.smem_forward == carved(32768, C, False)
+        resident = min(C, layout.SM_SMEM // (launch.smem_forward + layout.BLOCK_SMEM_RESERVED))
+        assert launch.threads == threads == 1024 // resident // 32 * 32
+        assert launch.smem_backward == carved(32768, C, rows[0] == 2)
+        assert resident * (launch.smem_backward + layout.BLOCK_SMEM_RESERVED) <= (
             layout.SM_SMEM)
     # one column and a ragged width: the largest cluster, its last block
     # holding fewer slots; two buckets in one table share the widest's block
-    plan = layout.launch_plan([(30001, 2, 1), (20001, 3, 2)], dtype, "cpu",
-                              huge_body="huge_cluster")
-    assert (plan.nr_cluster, plan.cluster_size, plan.cluster_threads) == (2, 16, 1024)
-    assert [r[3] for r in plan.cluster_table.tolist()] == [0, 16]
-    assert plan.cluster_blocks == 16 * 3 and plan.cluster_pmax == 30001
-    assert plan.cluster_smem_forward == carved(30001, 16, False)
-    assert rows(plan) == [2, 2] and plan.cluster_smem_backward == carved(30001, 16, True)
+    launch, rows = cluster([(30001, 2, 1), (20001, 3, 2)])
+    assert (launch.nr_buckets, launch.own, launch.threads) == (2, (16, 30001), 1024)
+    assert [r[3] for r in launch.table.tolist()] == [0, 16]
+    assert launch.blocks == 16 * 3
+    assert launch.smem_forward == carved(30001, 16, False)
+    assert rows == [2, 2] and launch.smem_backward == carved(30001, 16, True)
     # rows of 65,536 slots over 8 columns (knapsack L2 wide), which the route
-    # gives the L2 body, told to take the cluster body: eight-byte codes,
-    # clusters of 8 at one block an SM, two backward rows: the card holds 15
-    # such clusters at once but only 7 of 16 (two waves of 16, a tie broken
-    # to the smaller C)
-    assert layout.launch_plan([(65536, 48, 8)], dtype, "cpu").nr_cluster == 0
-    plan = layout.launch_plan([(65536, 48, 8)], dtype, "cpu", huge_body="huge_cluster")
-    assert (plan.nr_cluster, plan.nr_l2, plan.cluster_size) == (1, 0, 8)
-    assert (plan.cluster_threads, plan.cluster_blocks) == (1024, 64)
-    assert plan.cluster_smem_forward == carved(65536, 8, False, 8) == layout.cluster_smem_bytes(
+    # gives the L2 body, on the cluster body: eight-byte codes, clusters of 8
+    # at one block an SM, two backward rows: the card holds 15 such clusters
+    # at once but only 7 of 16 (two waves of 16, a tie broken to the smaller
+    # C)
+    assert counts(layout.launch_plan([(65536, 48, 8)], dtype, "cpu"))[3] == 0
+    launch, rows = cluster([(65536, 48, 8)])
+    assert (launch.own, launch.threads, launch.blocks) == ((8, 65536), 1024, 64)
+    assert launch.smem_forward == carved(65536, 8, False, 8) == layout.cluster_smem_bytes(
         65536, 8, itemsize)
-    assert rows(plan) == [2] and plan.cluster_smem_backward == carved(65536, 8, True, 8)
+    assert rows == [2] and launch.smem_backward == carved(65536, 8, True, 8)
     # forced to clusters of 16 (128 blocks); of 4 only in float32 (a float64
     # block of 16,384 slots with eight-byte codes does not fit)
-    plan = layout.launch_plan([(65536, 48, 8)], dtype, "cpu", huge_body="huge_cluster",
-                              cluster_size=16)
-    assert (plan.cluster_size, plan.cluster_blocks, plan.cluster_threads) == (16, 128, 1024)
-    assert plan.cluster_smem_forward == carved(65536, 16, False, 8)
-    assert rows(plan) == [2] and plan.cluster_smem_backward == carved(65536, 16, True, 8)
+    launch, rows = cluster([(65536, 48, 8)], 16)
+    assert (launch.own[0], launch.blocks, launch.threads) == (16, 128, 1024)
+    assert launch.smem_forward == carved(65536, 16, False, 8)
+    assert rows == [2] and launch.smem_backward == carved(65536, 16, True, 8)
     if two:
-        plan = layout.launch_plan([(65536, 48, 8)], dtype, "cpu", huge_body="huge_cluster",
-                                  cluster_size=4)
-        assert plan.cluster_smem_forward == carved(65536, 4, False, 8)
-        assert rows(plan) == [1] and plan.cluster_smem_backward == carved(65536, 4, False, 8)
+        launch, rows = cluster([(65536, 48, 8)], 4)
+        assert launch.smem_forward == carved(65536, 4, False, 8)
+        assert rows == [1] and launch.smem_backward == carved(65536, 4, False, 8)
     else:
         with pytest.raises(ValueError, match="no cluster of 4 blocks holds a bucket of 65536"):
-            layout.launch_plan([(65536, 48, 8)], dtype, "cpu", huge_body="huge_cluster",
-                               cluster_size=4)
+            cluster([(65536, 48, 8)], 4)
     # a narrower bucket beside a wider one takes the widest's eight-byte codes
-    plan = layout.launch_plan([(65536, 2, 1), (30000, 3, 2)], dtype, "cpu",
-                              huge_body="huge_cluster")
-    assert (plan.nr_cluster, plan.cluster_size, plan.cluster_pmax) == (2, 16, 65536)
-    assert plan.cluster_smem_forward == carved(65536, 16, False, 8)
-    assert rows(plan) == [2, 2] and plan.cluster_smem_backward == carved(65536, 16, True, 8)
+    launch, rows = cluster([(65536, 2, 1), (30000, 3, 2)])
+    assert (launch.nr_buckets, launch.own) == (2, (16, 65536))
+    assert launch.smem_forward == carved(65536, 16, False, 8)
+    assert rows == [2, 2] and launch.smem_backward == carved(65536, 16, True, 8)
     assert layout.cluster_smem_bytes(30000, 16, itemsize, True, pmax=65536) == carved(
         30000, 16, True, 8)
     # a width no block of the largest cluster holds is refused
@@ -1509,11 +1644,10 @@ def test_eight_byte_codes_find_every_block_on_the_card(cuda_device):
     host = layout._build_host([b], np.ones(4, np.int64), 4, 4, 1, torch.float32, cuda_device)
     lo, hi, fr, dl, dh = random_costs(host.geom, rng, cuda_device)
     geom = host.geom
-    assert geom.plan.nr_l2 == 1  # one column: the route's L2 body
-    plan = layout.launch_plan(geom.plan.shapes, torch.float32, cuda_device,
-                              huge_body="huge_cluster")
-    assert (plan.nr_cluster, plan.cluster_size) == (1, C)
-    assert layout.cluster_code_bytes(plan.cluster_pmax) == 8
+    assert counts(geom.plan) == (0, 0, 0, 0, 1)  # one column: the route's L2 body
+    plan = layout.build_plan(geom.plan.shapes, torch.float32, cuda_device, ["huge_cluster"])
+    assert counts(plan) == (0, 0, 0, 1, 0) and plan.launch("huge_cluster").own[0] == C
+    assert layout.cluster_code_bytes(plan.launch("huge_cluster").own[1]) == 8
     for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
                          ("uniform_backward", uf.bucket_backward_iteration)):
         launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
@@ -1633,26 +1767,19 @@ def test_huge_body_thread_counts_equal_twins(cuda_device, precision, threads):
     fits = WIDE_SHAPES + HUGE_SHAPES + ROUTED_SHAPES
     four = HUGE_SHAPES + [s for s in CLUSTER_SHAPES if s[0] <= layout.CLUSTER_MAX_P]
     eight = HUGE_SHAPES + CLUSTER_SHAPES
-    for shapes, force in ((fits, {"huge_from": layout.NARROW_P + 1, "huge_body": "huge"}),
-                          (eight + L2_SHAPES, {"huge_body": "huge_l2"}),
-                          *((four, {"huge_body": "huge_cluster", "cluster_size": C})
-                            for C in layout.CLUSTER_SIZES),
-                          *((eight, {"huge_body": "huge_cluster", "cluster_size": C})
-                            for C in (8, 16))):
+    for shapes, body, C in ((fits, "huge", None), (eight + L2_SHAPES, "huge_l2", None),
+                            *((four, "huge_cluster", C) for C in layout.CLUSTER_SIZES),
+                            *((eight, "huge_cluster", C) for C in (8, 16))):
         host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=13)
         geom = host.geom
-        plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, **force)
-        if force.get("huge_body") == "huge_l2":
-            assert plan.nr_huge == plan.nr_cluster == 0 and plan.nr_l2 == len(shapes)
-            plan = dataclasses.replace(plan, l2_threads=threads)
-        elif force.get("huge_body") == "huge_cluster":
-            assert plan.nr_huge == plan.nr_l2 == 0 and plan.nr_cluster == len(shapes)
-            assert plan.cluster_size == force["cluster_size"]
-            assert layout.cluster_code_bytes(plan.cluster_pmax) == (8 if shapes is eight else 4)
-            plan = dataclasses.replace(plan, cluster_threads=threads)
-        else:
-            assert plan.nr_huge == len(shapes) and plan.nr_wide == plan.nr_l2 == 0
-            plan = dataclasses.replace(plan, huge_threads=threads)
+        plan = layout.build_plan(geom.plan.shapes, dtype, cuda_device, [body] * len(shapes),
+                                 cluster_size=C)
+        assert counts(plan) == tuple(len(shapes) * (b == body) for b in layout.BODIES)
+        if body == "huge_cluster":
+            assert plan.launch(body).own[0] == C
+            assert layout.cluster_code_bytes(plan.launch(body).own[1]) == (
+                8 if shapes is eight else 4)
+        plan = with_threads(plan, body, threads)
         for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
                              ("uniform_backward", uf.bucket_backward_iteration)):
             launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
@@ -1672,7 +1799,7 @@ def test_huge_body_thread_counts_equal_twins(cuda_device, precision, threads):
 def test_huge_body_shared_memory_rows_equal_twins(cuda_device, precision):
     """The shared-memory huge body with its backward on one row and on two in
     one launch, as the plan's fit gives them: over the huge, routed, cluster
-    and L2 shapes with the body of each width forced (the route would give
+    and L2 shapes with the body of each width (``body_of``; the route would give
     the L2 body every one past WIDE_P: their few columns), one row where two
     do not fit a block (float32 at 20,001 slots, float64 at 16,384), and the
     cluster and the L2 body beside them.
@@ -1682,18 +1809,21 @@ def test_huge_body_shared_memory_rows_equal_twins(cuda_device, precision):
     dtype = torch.float32 if precision == "float" else torch.float64
     two_row_shapes = [(40000, 2, 2), (30000, 3, 1)] if precision == "float" else [
         (30000, 2, 2), (20001, 3, 1)]
-    for shapes, force in ((HUGE_SHAPES + ROUTED_SHAPES + CLUSTER_SHAPES + L2_SHAPES,
-                           {"huge_body": "huge"}),
-                          (two_row_shapes, {"huge_body": "huge_cluster", "cluster_size": 2})):
+    itemsize = 4 if precision == "float" else 8
+    for shapes, cluster in ((HUGE_SHAPES + ROUTED_SHAPES + CLUSTER_SHAPES + L2_SHAPES, None),
+                            (two_row_shapes, 2)):
         host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=17)
         geom = host.geom
-        plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, **force)
-        if force["huge_body"] == "huge_cluster":
-            assert plan.nr_cluster == 2 and plan.cluster_size == 2
-            assert [int(r[7]) for r in plan.cluster_table.tolist()] == [1, 2]
+        bodies = ["huge_cluster"] * len(shapes) if cluster else [
+            layout.body_of(P, itemsize, B) for P, _, B in shapes]
+        plan = layout.build_plan(geom.plan.shapes, dtype, cuda_device, bodies,
+                                 cluster_size=cluster)
+        if cluster:
+            assert counts(plan)[3] == 2 and plan.launch("huge_cluster").own[0] == 2
+            assert [int(r[7]) for r in plan.launch("huge_cluster").table.tolist()] == [1, 2]
         else:  # float32 holds 20,001 slots in a block, float64 in a cluster
-            assert sorted(set(int(r[7]) for r in plan.huge_table.tolist())) == [1, 2]
-            assert (plan.nr_cluster, plan.nr_l2) == ((3, 1) if precision == "float" else (4, 1))
+            assert sorted(set(int(r[7]) for r in plan.launch("huge").table.tolist())) == [1, 2]
+            assert counts(plan)[3:] == ((3, 1) if precision == "float" else (4, 1))
         for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
                              ("uniform_backward", uf.bucket_backward_iteration)):
             launch, out = sk.prepare_fused_launch(kernel, geom, lo, hi, fr, 0.5, dl, dh, plan)
@@ -1740,8 +1870,9 @@ def test_ring_form_equals_twins_and_the_grouped_body(cuda_device, monkeypatch, t
                                                      precision):
     """The shared-memory huge body's ring form over RING_TABLES: both
     half-sweeps and the run, plain and counting forms (every profiled launch
-    counted where the counting entries hold as many blocks an SM), bit for bit the twins' and the grouped body's forced on the
-    same table and threads (``huge_ring=False``), with restart flags (packed
+    counted where the counting entries hold as many blocks an SM), bit for
+    bit the twins' and the grouped body's on the same table and threads (a
+    plan built with ``ring_hops=0``), with restart flags (packed
     roots) and a padding column in every bucket of more than one; with
     ``learned`` the learned path's per-layer alpha and omega arrays."""
     from torch.profiler import ProfilerActivity, profile
@@ -1751,13 +1882,12 @@ def test_ring_form_equals_twins_and_the_grouped_body(cuda_device, monkeypatch, t
     host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=len(table),
                                                 padded=True)
     geom = host.geom
-    plans = [layout.launch_plan(geom.plan.shapes, dtype, cuda_device,
-                                huge_from=layout.NARROW_P + 1, huge_ring=ring)
-             for ring in (None, False)]
+    plans = [layout.build_plan(geom.plan.shapes, dtype, cuda_device, ["huge"] * len(shapes),
+                               ring_hops=ring) for ring in (None, 0)]
     if threads:
-        plans = [dataclasses.replace(p, huge_threads=threads) for p in plans]
-    assert [p.nr_huge for p in plans] == [len(shapes)] * 2
-    assert [p.huge_hops for p in plans] == [layout.HUGE_RING_HOPS, 0]
+        plans = [with_threads(p, "huge", threads) for p in plans]
+    assert [counts(p) for p in plans] == [(0, 0, len(shapes), 0, 0)] * 2
+    assert [p.launch("huge").own[1] for p in plans] == [layout.HUGE_RING_HOPS, 0]
     omega, alpha = 0.5, None
     if weights == "learned":
         rng = np.random.RandomState(5)
@@ -1770,13 +1900,11 @@ def test_ring_form_equals_twins_and_the_grouped_body(cuda_device, monkeypatch, t
         "uniform_backward": twins_bucket_by_bucket(uf.bucket_backward_iteration, geom, lo, hi,
                                                    fr, omega, dl, dh, alpha),
         sk.RUN: [run_ref(geom, lo, hi)]}
-    monkeypatch.setattr(sk, "HUGE_COUNT_EVERY", 1)
+    monkeypatch.setitem(sk.COUNT_EVERY, sk.HUGE, 1)
     for plan in plans:
         # the counting entries where they hold as many blocks an SM (at 1,024
         # threads always: one block an SM)
-        fits = all(sk._counting_fits(layout.huge_occupancy, lo.element_size(), plan.huge_threads,
-                                     smem, cuda_device, hops=plan.huge_hops)
-                   for smem in (plan.huge_smem_forward, plan.huge_smem_backward))
+        fits = sk._counting_fits(plan.launch("huge"), lo.element_size(), cuda_device)
         assert fits or threads
         for kernel, ref in refs.items():
             if kernel == sk.RUN:
@@ -1790,11 +1918,11 @@ def test_ring_form_equals_twins_and_the_grouped_body(cuda_device, monkeypatch, t
             assert_same_bits(out, ref)
             for o in out:
                 o.fill_(7.0)
-            counted, cycles = sk.HUGE_PROFILED[kernel], sk.huge_wait_cycles()[kernel][1]
+            counted, cycles = sk.COUNTED[sk.HUGE, kernel], sk.huge_wait_cycles()[kernel][1]
             with profile(activities=[ProfilerActivity.CPU]):
                 launch()
                 torch.cuda.synchronize()
-            assert sk.HUGE_PROFILED[kernel] == counted + fits
+            assert sk.COUNTED[sk.HUGE, kernel] == counted + fits
             assert (sk.huge_wait_cycles()[kernel][1] > cycles) == fits  # the counting form ran
             assert_same_bits(out, ref)
 
@@ -1817,35 +1945,44 @@ def test_split_variants_still_patch_the_grouped_body():
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["float", "double"])
 def test_ring_form_refuses_a_bucket_wider_than_its_threads(cuda_device, precision):
-    """The ring form's entry refuses (code -2) a table whose widest bucket is
-    wider than its threads, and (-1) less shared memory than its layout's;
-    the wrapper hands a plan whose threads were cut below its widest bucket
-    to the grouped body, which then runs it bit for bit."""
+    """The ring form refuses (code -2) a record whose widest bucket is wider
+    than its threads, and (-1) less shared memory than its layout's, and the
+    entry names the record that failed; a plan whose threads were cut below
+    its widest bucket takes the grouped body, which then runs it bit for
+    bit."""
+    import ctypes
+
     dtype = torch.float32 if precision == "float" else torch.float64
-    host, (lo, hi, fr, dl, dh) = synthetic_host([(1024, 3, 2)], dtype, cuda_device, seed=3)
+    host, (lo, hi, fr, dl, dh) = synthetic_host([(2, 3, 8), (1024, 3, 2)], dtype, cuda_device,
+                                                seed=3)
     geom = host.geom
-    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, huge_from=layout.NARROW_P + 1)
-    assert plan.huge_hops == layout.HUGE_RING_HOPS
-    cut = dataclasses.replace(plan, huge_threads=512)
-    assert cut.huge_hops == 0 and cut.huge_ring_hops == layout.HUGE_RING_HOPS
+    plan = layout.build_plan(geom.plan.shapes, dtype, cuda_device, ["narrow", "huge"])
+    huge = plan.launch("huge")
+    assert huge.own == (1024, layout.HUGE_RING_HOPS)
+    cut = with_threads(plan, "huge", 512)
+    assert cut.launch("huge").own == (1024, 0)
     launch, out = sk.prepare_fused_launch("uniform_forward", geom, lo, hi, fr, 0.5, dl, dh, cut)
     launch()
     torch.cuda.synchronize()
     assert_same_bits(out, twins_bucket_by_bucket(uf.bucket_forward_iteration, geom, lo, hi, fr,
                                                  0.5, dl, dh))
-    short = dataclasses.replace(plan, huge_smem_forward=plan.huge_smem_forward - 16)
+    short = dataclasses.replace(plan, sweeps=(plan.sweeps[0], dataclasses.replace(
+        huge, smem_forward=huge.smem_forward - 16)))
     launch, _ = sk.prepare_fused_launch("uniform_forward", geom, lo, hi, fr, 0.5, dl, dh, short)
-    with pytest.raises(RuntimeError, match="code -1"):
+    with pytest.raises(RuntimeError, match="uniform_forward_huge_f.. launch failed .code -1"):
         launch()
-    lib = sk._build.load()
     suffix = "f32" if precision == "float" else "f64"
-    rc = getattr(lib, f"uniform_forward_huge_{suffix}")(
-        plan.huge_table.data_ptr(), plan.nr_huge, plan.huge_blocks, 512, 1024,
-        plan.huge_smem_forward, layout.HUGE_RING_HOPS, geom.arcs.data_ptr(), lo.data_ptr(),
-        hi.data_ptr(), dl.data_ptr(), dh.data_ptr(), geom.alpha.data_ptr(), None, 0.5,
-        fr.data_ptr(), *(torch.empty_like(x).data_ptr() for x in (lo, lo, lo, fr)),
-        torch.cuda.current_stream().cuda_stream)
-    assert rc == -2
+    records = (sk._build.Launch * 2)(*sk._records(plan, False, None))
+    records[1].threads = 512  # the ring form at 512 threads over 1,024 slots
+    buffers = sk._build.Buffers(
+        geom.arcs.data_ptr(), lo.data_ptr(), hi.data_ptr(), dl.data_ptr(), dh.data_ptr(),
+        geom.alpha.data_ptr(), None, 0.5, fr.data_ptr(),
+        *(torch.empty_like(x).data_ptr() for x in (lo, lo, lo, fr)))
+    failed = ctypes.c_int(-1)
+    rc = getattr(sk._build.load(), f"uniform_forward_{suffix}")(
+        records, 2, ctypes.byref(buffers), torch.cuda.current_stream().cuda_stream,
+        ctypes.byref(failed))
+    assert (rc, failed.value) == (-2, 1)
 
 
 @pytest.mark.cuda
@@ -1861,13 +1998,14 @@ def test_l2_body_at_each_split_equals_twins_bit_for_bit(cuda_device, precision, 
     itemsize = 4 if precision == "float" else 8
     host, costs = synthetic_host(L2_SHAPES + [(250000, 3, 2)], dtype, cuda_device, seed=23)
     geom = host.geom
-    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, huge_body="huge_l2",
-                              l2_split=split)
-    resident = layout.l2_occupancy(itemsize, layout.HUGE_THREADS, cuda_device) * layout.sm_count(
-        cuda_device)
-    assert (plan.nr_l2, plan.l2_columns) == (2, 3)
-    assert plan.l2_split == (split or layout.choose_l2_split(3, 320000, 1024, resident))
-    assert plan.l2_blocks == 3 * plan.l2_split
+    plan = layout.build_plan(geom.plan.shapes, dtype, cuda_device, ["huge_l2"] * 2,
+                             l2_split=split)
+    resident = layout.block_occupancy(itemsize, sk.HUGE_L2, layout.HUGE_THREADS,
+                                      cuda_device) * layout.sm_count(cuda_device)
+    l2 = plan.launch("huge_l2")
+    assert (l2.nr_buckets, l2.own[1]) == (2, 3)
+    assert l2.own[0] == (split or layout.choose_l2_split(3, 320000, 1024, resident))
+    assert l2.blocks == 3 * l2.own[0]
     assert any(bool(g.roots[1:].any()) for g in geom.buckets)  # restarts past hop 0
     for zero_costs in (None, False, True):
         lo, hi, fr, dl, dh = costs if zero_costs is None else nan_and_zero_costs(costs, zero_costs)
@@ -1929,11 +2067,11 @@ def test_l2_body_restarts_a_rootless_root_row_at_each_split(cuda_device, precisi
     assert all(torch.equal(x, y) for x, y in zip(costs, same_costs))
     assert torch.equal(plain.geom.arcs, packed.geom.arcs)  # one bucket to the kernels
     assert not plain.geom.buckets[0].packed and packed.geom.buckets[0].packed
-    plan = layout.launch_plan(plain.geom.plan.shapes, dtype, cuda_device, huge_body="huge_l2",
-                              l2_split=split)
-    resident = layout.l2_occupancy(itemsize, layout.HUGE_THREADS, cuda_device) * layout.sm_count(
-        cuda_device)
-    assert plan.nr_l2 == 1 and plan.l2_split == (
+    plan = layout.build_plan(plain.geom.plan.shapes, dtype, cuda_device, ["huge_l2"],
+                             l2_split=split)
+    resident = layout.block_occupancy(itemsize, sk.HUGE_L2, layout.HUGE_THREADS,
+                                      cuda_device) * layout.sm_count(cuda_device)
+    assert counts(plan) == (0, 0, 0, 0, 1) and plan.launch("huge_l2").own[0] == (
         split or layout.choose_l2_split(2, 262144, layout.HUGE_THREADS, resident))
     for kernel, twin in (("uniform_forward", uf.bucket_forward_iteration),
                          ("uniform_backward", uf.bucket_backward_iteration)):
@@ -1969,11 +2107,11 @@ def test_l2_split_past_the_cards_residency_raises(cuda_device, precision):
     itemsize = 4 if precision == "float" else 8
     host, (lo, hi, fr, dl, dh) = synthetic_host([(320000, 2, 2)], dtype, cuda_device, seed=29)
     geom = host.geom
-    resident = layout.l2_occupancy(itemsize, layout.HUGE_THREADS, cuda_device) * layout.sm_count(
-        cuda_device)
+    resident = layout.block_occupancy(itemsize, sk.HUGE_L2, layout.HUGE_THREADS,
+                                      cuda_device) * layout.sm_count(cuda_device)
     too_many = resident // 2 + 1
     assert too_many <= layout.L2_MAX_SPLIT
-    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, l2_split=too_many)
+    plan = routed_plan(geom.plan.shapes, dtype, cuda_device, l2_split=too_many)
     sk.reset_launch_counts()
     calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
     for launch, _ in (sk.prepare_fused_launch("uniform_forward", geom, lo, hi, fr, 0.5, dl, dh,
@@ -1985,7 +2123,7 @@ def test_l2_split_past_the_cards_residency_raises(cuda_device, precision):
             launch()
     torch.cuda.synchronize()
     assert {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS} == calls
-    assert geom.plan.l2_split == min(resident // 2, layout.L2_MAX_SPLIT)
+    assert geom.plan.launch("huge_l2").own[0] == min(resident // 2, layout.L2_MAX_SPLIT)
     out = sk.forward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)
     run = sk.backward_run_cuda(geom, lo, hi)
     torch.cuda.synchronize()
@@ -2010,9 +2148,10 @@ def test_run_on_its_own_route_equals_the_twin(cuda_device, precision, columns, G
     host, (lo, hi, fr, dl, dh) = synthetic_host([(P, 3, columns)], dtype, cuda_device, seed=31)
     geom = host.geom
     plan = geom.plan
-    assert (plan.nr_cluster, plan.nr_l2, plan.run_cluster_blocks) == (1, 0, 0)
-    assert (plan.nr_run_l2, plan.run_l2_split, plan.run_l2_blocks) == (1, G, G * columns)
-    assert geom.huge_scratch.numel() == layout.plan_scratch_bytes(plan, lo.element_size())[2]
+    assert counts(plan) == (0, 0, 0, 1, 0) and counts(plan, run=True) == (0, 0, 0, 0, 1)
+    run = plan.launch("huge_l2", run=True)
+    assert (run.own, run.blocks) == ((G, columns), G * columns)
+    assert geom.huge_scratch.numel() == plan.scratch_bytes[2]
     sk.reset_launch_counts()
     calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
     run = sk.backward_run_cuda(geom, lo, hi)
@@ -2029,8 +2168,8 @@ def test_run_on_its_own_route_equals_the_twin(cuda_device, precision, columns, G
         uf.bucket_forward_iteration, geom, lo, hi, fr, 0.5, dl, dh))
     assert_same_bits(out_b, twins_bucket_by_bucket(
         uf.bucket_backward_iteration, geom, lo, hi, fr, 0.5, dl, dh))
-    # the cluster body's run where the plan is told so: the same bits
-    forced = layout.launch_plan(plan.shapes, dtype, cuda_device, huge_body="huge_cluster")
+    # the cluster body's run where a plan is built so: the same bits
+    forced = layout.build_plan(plan.shapes, dtype, cuda_device, ["huge_cluster"])
     launch, out = sk.prepare_run_launch(geom, lo, hi, forced)
     assert launch.counts == (sk.RUN + sk.HUGE_CLUSTER,)
     launch()
@@ -2052,7 +2191,7 @@ def test_float32_solve_of_the_widest_row_launches_only_the_l2_body(cuda_device):
     nh = NativeHost(lp, "input")
     host = layout.from_native_host(nh, torch.float32, cuda_device, pack=False)
     assert [(g.P, g.B) for g in host.geom.buckets] == [(262144, 1)]
-    assert (host.geom.plan.nr_l2, host.geom.plan.nr_cluster) == (1, 0)
+    assert counts(host.geom.plan) == (0, 0, 0, 0, 1)
     del host
     n = 20
     sk.reset_launch_counts()
@@ -2095,13 +2234,9 @@ def test_mknap_t25_rows_launch_the_body_of_their_route(cuda_device, precision):
     plan = geom.plan
     assert plan.shapes == ((16384, 100 if precision == "float" else 112, 5),)
     body = sk.HUGE_CLUSTER if precision == "float" else sk.HUGE_L2
-    if body == sk.HUGE_CLUSTER:
-        assert (plan.nr_huge, plan.nr_cluster, plan.nr_l2) == (0, 1, 0)
-        assert (plan.cluster_size, plan.cluster_blocks) == (16, 80)
-    else:
-        assert (plan.nr_huge, plan.nr_cluster, plan.nr_l2) == (0, 0, 1)
-        assert (plan.l2_split, plan.l2_blocks) == (16, 80)
-    assert (plan.nr_run_l2, plan.run_l2_split, plan.run_cluster_blocks) == (1, 16, 0)
+    (sweep,), (run,) = plan.sweeps, plan.runs
+    assert (sweep.body, sweep.own[0], sweep.blocks) == (body, 16, 80)
+    assert (run.body, run.own[0], run.blocks) == (sk.HUGE_L2, 16, 80)
     st = uf.iterations(geom, uf.init_uniform_state(host, nh.objective()), 5,
                        sweeps=uf.TWIN_SWEEPS)
     lo, hi, _, fr = st.flat
@@ -2148,13 +2283,14 @@ def test_mixed_layout_counts_one_launch_per_body(cuda_device, precision):
               L2_SHAPES[0]]
     host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, dtype, cuda_device, seed=5)
     geom = host.geom
-    assert (geom.plan.nr_huge, geom.plan.nr_cluster, geom.plan.nr_l2) == (2, 1, 1)
+    assert counts(geom.plan)[2:] == (2, 1, 1)
     # the L2 body's scratch: its key rows, and the partials and counter of
     # its one column, split over the plan's G blocks
-    assert geom.plan.huge_scratch_values == 2 * L2_SHAPES[0][0] * 1
-    assert geom.plan.l2_columns == 1 and geom.plan.l2_split > 1
-    assert (geom.plan.run_l2_columns, geom.plan.run_l2_split) == (132, 1)
-    assert geom.huge_scratch.numel() == layout.plan_scratch_bytes(geom.plan, lo.element_size())[2]
+    assert geom.plan.scratch_bytes[0] == 2 * L2_SHAPES[0][0] * 1 * lo.element_size()
+    G, columns = geom.plan.launch("huge_l2").own
+    assert columns == 1 and G > 1
+    assert geom.plan.launch("huge_l2", run=True).own == (1, 132)
+    assert geom.huge_scratch.numel() == geom.plan.scratch_bytes[2]
     sk.reset_launch_counts()
     calls = {**uf.TWIN_SWEEP_CALLS, **uf.PLAIN_RUN_CALLS}
     out_f = sk.forward_iteration_cuda(geom, lo, hi, fr, 0.5, dl, dh)
@@ -2293,9 +2429,8 @@ def test_learned_weights_through_the_fused_launch_equal_the_twins(cuda_device, n
     assert_same_bits([run], [geom.flatten_nodes([
         uf.bucket_backward_run(g, a, b)
         for g, a, b in zip(geom.buckets, geom.per_bucket(bwd[0]), geom.per_bucket(bwd[1]))])])
-    wide = int(geom.plan.wide_blocks > 0)
-    assert sk.LAUNCHES == launches(narrow=int(geom.plan.nr_blocks > 0), wide=wide, run=1,
-                                   run_wide=wide)
+    narrow, wide = (int(n > 0) for n in counts(geom.plan)[:2])
+    assert sk.LAUNCHES == launches(narrow=narrow, wide=wide, run=1, run_wide=wide)
 
 
 @pytest.mark.cuda
@@ -2323,8 +2458,8 @@ def test_learned_gradients_on_the_card_equal_plain_autograd(cuda_device, name):
             forward_launches = {k: v for k, v in sk.LAUNCHES.items() if not k.startswith(sk.RUN)}
         grads.append(torch.autograd.grad(loss, (a, o, lo, hi)))
     torch.cuda.synchronize()
-    wide = int(geom.plan.wide_blocks > 0)
-    want = {k: v for k, v in launches(narrow=n * int(geom.plan.nr_blocks > 0),
+    narrow, wide = (int(k > 0) for k in counts(geom.plan)[:2])
+    want = {k: v for k, v in launches(narrow=n * narrow,
                                       wide=n * wide).items() if not k.startswith(sk.RUN)}
     assert forward_launches == want
     for x, y in zip(*grads):

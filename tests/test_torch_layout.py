@@ -102,7 +102,7 @@ def test_routed_wide_rows_keep_the_jax_layout(precision):
     g = port.geom.buckets[0]
     assert g.arcs.shape[2] == layout.record_bytes(layout.WIDE_P) == 4 * layout.WIDE_P
     plan = port.geom.plan
-    assert (plan.nr_wide, plan.nr_huge, plan.huge_blocks) == (0, 1, g.B)
+    assert [(r.body, r.nr_buckets, r.blocks) for r in plan.sweeps] == [("_huge", 1, g.B)]
     assert layout.arc_bytes(layout.WIDE_P) == 2 and layout.lane_pad(132, layout.WIDE_P) == 256
 
 
@@ -252,8 +252,11 @@ def test_launch_plan_table_and_flat_views():
     host = layout.from_native_host(PortNativeHost(wide_lp(), "input"), dtype=torch.float64,
                                    device="cpu")
     geom, plan = host.geom, host.geom.plan
-    table = plan.table.numpy()
+    (narrow,) = plan.sweeps
+    assert narrow.body == "" and plan.runs == plan.sweeps
+    table = narrow.table.numpy()
     assert table.shape == (len(geom.buckets), layout.TABLE_COLUMNS)
+    tile, pmax = narrow.own
     e = n = blocks = 0
     for row, g in zip(table, geom.buckets):
         P, H, B, first, row_off, node_off, arc_off, stages = (int(x) for x in row)
@@ -262,10 +265,11 @@ def test_launch_plan_table_and_flat_views():
         assert g.arcs.data_ptr() == geom.arcs.data_ptr() + arc_off
         assert g.alpha.data_ptr() == geom.alpha.data_ptr() + e * geom.alpha.element_size()
         assert 1 <= stages <= layout.MAX_STAGES
-        assert (stages + 1) * layout.slot_bytes(P, 8, plan.tile) <= plan.smem_bytes
-        e, n, blocks = e + H * B, n + H * P * B, blocks + -(-B // plan.tile)
-    assert (plan.E, plan.N, plan.nr_blocks) == (e, n, blocks)
-    assert plan.smem_bytes <= layout.SMEM_BUDGET and plan.pmax == 32
+        assert (stages + 1) * layout.slot_bytes(P, 8, tile) <= narrow.smem_forward
+        e, n, blocks = e + H * B, n + H * P * B, blocks + -(-B // tile)
+    assert (plan.E, plan.N, narrow.blocks) == (e, n, blocks)
+    assert narrow.smem_forward == narrow.smem_backward <= layout.SMEM_BUDGET
+    assert narrow.threads == tile and pmax == 32
     assert layout.launch_plan(plan.shapes, torch.float64, "cpu") is plan  # built once
 
 

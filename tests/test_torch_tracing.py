@@ -10,6 +10,7 @@ one with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_tracing.py
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -183,11 +184,12 @@ def test_learned_round_spans_record_under_a_profiler_and_not_without(monkeypatch
     assert [len(by_name(ev, name)) for name in tr.SPANS] == [2, 2, 2, 4]
 
 
-# ------------------------------------------------ the L2 body's wait counter
-def _recorded_launcher(rec, monkeypatch, kernel, shapes, **forced):
+# ------------------------------------- the L2 and the huge body's wait counters
+def _recorded_launcher(rec, monkeypatch, kernel, shapes, bodies=None, **tunables):
     """``sk._launcher`` of ``kernel`` over synthetic float32 buckets of
-    ``shapes`` on the CPU, by the layout's plan or one with ``forced``
-    keywords, with the library replaced by the recorder ``rec`` (stream 7)."""
+    ``shapes`` on the CPU, by the layout's plan or one built on ``bodies``
+    with ``tunables``, with the library replaced by the recorder ``rec``
+    (stream 7)."""
     monkeypatch.setattr(sk._build, "load", lambda: rec)
 
     class _Stream:
@@ -196,11 +198,9 @@ def _recorded_launcher(rec, monkeypatch, kernel, shapes, **forced):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
     host, (lo, hi, fr, dl, dh) = synthetic_host(shapes, torch.float32, "cpu")
     geom = host.geom
-    plan = layout.launch_plan(geom.plan.shapes, torch.float32, "cpu", **forced) if forced \
-        else geom.plan
-    scratch = None
-    if plan.l2_blocks:
-        scratch = torch.empty(layout.plan_scratch_bytes(plan, 4)[2], dtype=torch.uint8)
+    plan = geom.plan if bodies is None else layout.build_plan(
+        geom.plan.shapes, torch.float32, "cpu", bodies, **tunables)
+    scratch = torch.empty(plan.scratch_bytes[2], dtype=torch.uint8)
     run = kernel == sk.RUN
     outs = (None, None, None, torch.empty_like(fr)) if run else (
         torch.empty_like(lo), torch.empty_like(lo), torch.empty_like(lo), torch.empty_like(fr))
@@ -209,195 +209,168 @@ def _recorded_launcher(rec, monkeypatch, kernel, shapes, **forced):
                               scratch)
 
 
-def _l2_launcher(rec, monkeypatch, kernel, split=None):
-    return _recorded_launcher(rec, monkeypatch, kernel, [(320000, 2, 2)], l2_split=split)[1]
+# by body with a counting form: a layout of one such bucket and the sums
+# its counting form adds into (the L2 body: 320,000 slots over two columns;
+# the huge body beside a narrow bucket: 1,024 slots, the ring form)
+COUNTING = {sk.HUGE_L2: ([(320000, 2, 2)], "L2_WAIT"),
+            sk.HUGE: ([(2, 3, 8), (1024, 4, 8)], "HUGE_WAIT")}
 
 
-@pytest.mark.parametrize("kernel", sk.L2_ENTRIES)
-def test_l2_launch_counts_only_while_a_profiler_records(monkeypatch, kernel):
-    """The library replaced by a recorder: outside a profiler the L2 entry,
-    under one its counting form with the same arguments and, before the
-    stream, the address of the entry's row of the device's L2_WAIT."""
-    rec = _Recorder()
-    launch = _l2_launcher(rec, monkeypatch, kernel)
-    monkeypatch.setattr(sk, "L2_COUNTED", {k: 0 for k in sk.L2_ENTRIES})
-    launch()
-    plain_name, plain_args = rec.calls[-1]
-    assert plain_name == kernel + sk.HUGE_L2 + "_f32" and plain_args[-1] == 7
-    with profile(activities=[ProfilerActivity.CPU]):
-        launch()
-    name, args = rec.calls[-1]
-    acc = sk.L2_WAIT[torch.device("cpu")]
-    assert name == kernel + sk.HUGE_L2 + "_count_f32"
-    assert args == plain_args[:-1] + (acc[sk.L2_ENTRIES.index(kernel)].data_ptr(), 7)
-    assert launch.counts == (kernel + sk.HUGE_L2,)
-    assert sk.L2_COUNTED == {k: int(k == kernel) for k in sk.L2_ENTRIES}
-    launch()
-    assert rec.calls[-1] == (plain_name, plain_args)
-    assert sk.L2_COUNTED[kernel] == 1
-
-
-def test_l2_launch_stays_uncounted_where_the_counting_form_holds_fewer_blocks(monkeypatch):
-    def occupancy(itemsize, threads, device, counting=False):
-        return 1 if counting else 2
-
-    monkeypatch.setattr(sk, "l2_occupancy", occupancy)
-    monkeypatch.setattr(sk, "_COUNTING_FITS", {})
-    rec = _Recorder()
-    launch = _l2_launcher(rec, monkeypatch, "uniform_forward")
-    with profile(activities=[ProfilerActivity.CPU]):
-        launch()
-    assert rec.calls[-1][0] == "uniform_forward" + sk.HUGE_L2 + "_f32"
-
-
-def test_l2_wait_cycles_sum_the_devices_and_reset_zeroes_them(monkeypatch):
-    monkeypatch.setattr(sk, "L2_WAIT", {
-        torch.device("cpu"): torch.tensor([[1, 10], [2, 20], [0, 5]]),
-        torch.device("cuda", 1): torch.tensor([[3, 30], [0, 0], [0, 0]])})
-    assert sk.l2_wait_cycles() == {"uniform_forward": (4, 40), "uniform_backward": (2, 20),
-                                   sk.RUN: (0, 5)}
-    monkeypatch.setattr(sk, "L2_COUNTED", {k: 3 for k in sk.L2_ENTRIES})
-    sk.reset_launch_counts()
-    assert sk.l2_wait_cycles() == {k: (0, 0) for k in sk.L2_ENTRIES}
-    assert sk.L2_COUNTED == {k: 0 for k in sk.L2_ENTRIES}
-
-
-# ------------------------------------------- the huge body's wait counter
-def _huge_row(kernel):
-    acc = sk.HUGE_WAIT[torch.device("cpu")]
+def _wait_row(body, kernel):
+    acc = getattr(sk, COUNTING[body][1])[torch.device("cpu")]
     return acc[sk.L2_ENTRIES.index(kernel)].data_ptr()
 
 
+@pytest.fixture
+def counters(monkeypatch):
+    """Fresh counters and sums of the counting forms for one test."""
+    for name in ("L2_WAIT", "HUGE_WAIT"):
+        monkeypatch.setattr(sk, name, {})
+    for name in ("PROFILED", "COUNTED"):
+        monkeypatch.setattr(sk, name, dict.fromkeys(sk.PROFILED, 0))
+
+
 @pytest.mark.parametrize("kernel", sk.L2_ENTRIES)
-def test_huge_launch_counts_only_while_a_profiler_records(monkeypatch, kernel):
-    """A layout with a narrow and a huge bucket: outside a profiler both
-    entries as they are; under one the huge body's counting entry with the
-    same arguments and, before the stream, the address of the entry's row of
-    the device's HUGE_WAIT; the narrow launch unchanged."""
+@pytest.mark.parametrize("body", list(COUNTING))
+def test_launch_counts_only_while_a_profiler_records(monkeypatch, counters, body, kernel):
+    """The library replaced by a recorder: outside a profiler every record
+    as the plan made it, no accumulator; under one the body's record takes
+    the address of the entry's row of the device's sums (``L2_WAIT``,
+    ``HUGE_WAIT``), its other fields and the narrow launch's unchanged;
+    PROFILED and COUNTED count it by (body, entry); after the profiler the
+    plain records again."""
     rec = _Recorder()
-    monkeypatch.setattr(sk, "HUGE_WAIT", {})
-    monkeypatch.setattr(sk, "HUGE_PROFILED", {k: 0 for k in sk.L2_ENTRIES})
-    plan, launch = _recorded_launcher(rec, monkeypatch, kernel, [(2, 3, 8), (1024, 4, 8)])
-    assert (plan.nr_blocks, plan.huge_blocks, plan.l2_blocks) == (1, 8, 0)
+    shapes, _ = COUNTING[body]
+    _, launch = _recorded_launcher(rec, monkeypatch, kernel, shapes)
     launch()
-    plain = rec.calls[-2:]
-    assert [name for name, _ in plain] == [kernel + "_f32", kernel + sk.HUGE + "_f32"]
+    name, plain, _, stream = rec.calls[-1]
+    assert (name, stream) == (kernel + "_f32", 7)
+    assert [r.body for r in plain] == [r for r in ("", body) if kernel + r in launch.counts]
+    assert launch.counts == tuple(kernel + r.body for r in plain)
+    assert all(r.acc is None for r in plain)
     with profile(activities=[ProfilerActivity.CPU]):
         launch()
-    (narrow, narrow_args), (name, args) = rec.calls[-2:]
-    assert (narrow, narrow_args) == plain[0]
-    assert name == kernel + sk.HUGE + "_count_f32"
-    assert args == plain[1][1][:-1] + (_huge_row(kernel), 7)
-    assert launch.counts == (kernel, kernel + sk.HUGE)
-    assert sk.HUGE_PROFILED == {k: int(k == kernel) for k in sk.L2_ENTRIES}
+    counted = rec.calls[-1][1]
+    assert counted[:-1] == plain[:-1]
+    assert counted[-1] == dataclasses.replace(plain[-1], acc=_wait_row(body, kernel))
+    want = {k: int(k == (body, kernel)) for k in sk.PROFILED}
+    assert sk.PROFILED == sk.COUNTED == want
     launch()
-    assert rec.calls[-2:] == plain
+    assert rec.calls[-1][1] == plain
+    assert sk.COUNTED == want
 
 
-def test_huge_launch_counts_one_in_every_huge_count_every_under_a_profiler(monkeypatch):
-    """Under a profiler the huge launch takes its counting entry at the
-    first profiled launch of its entry and then once in every
-    HUGE_COUNT_EVERY; reset_launch_counts starts over."""
+@pytest.mark.parametrize("body", list(COUNTING))
+def test_launch_counts_as_count_every_says_under_a_profiler(monkeypatch, counters, body):
+    """Under a profiler a launch takes its body's counting form at the first
+    profiled launch of its entry and then once in every COUNT_EVERY of that
+    body (the L2 body's 1, every launch; the huge body's HUGE_COUNT_EVERY,
+    here 3); launches outside a profiler are not seen; reset_launch_counts
+    starts over."""
+    assert sk.COUNT_EVERY == {sk.HUGE_L2: 1, sk.HUGE: sk.HUGE_COUNT_EVERY}
+    monkeypatch.setitem(sk.COUNT_EVERY, sk.HUGE, 3)
+    every = sk.COUNT_EVERY[body]
     rec = _Recorder()
-    monkeypatch.setattr(sk, "HUGE_WAIT", {})
-    monkeypatch.setattr(sk, "HUGE_PROFILED", {k: 0 for k in sk.L2_ENTRIES})
-    monkeypatch.setattr(sk, "HUGE_COUNT_EVERY", 3)
-    _, launch = _recorded_launcher(rec, monkeypatch, "uniform_forward", [(1024, 4, 8)])
+    _, launch = _recorded_launcher(rec, monkeypatch, "uniform_forward", COUNTING[body][0])
 
     def counted(n):
         with profile(activities=[ProfilerActivity.CPU]):
             for _ in range(n):
                 launch()
-        return [name.endswith("_count_f32") for name, _ in rec.calls[-n:]]
+        return [call[1][-1].acc is not None for call in rec.calls[-n:]]
 
-    assert counted(4) == [True, False, False, True]
+    assert counted(4) == [k % every == 0 for k in range(4)]
     launch()  # no profiler: neither counted nor seen
-    assert counted(3) == [False, False, True]
-    assert sk.HUGE_PROFILED["uniform_forward"] == 7
+    assert counted(3) == [k % every == 0 for k in range(4, 7)]
+    assert sk.PROFILED[body, "uniform_forward"] == 7
+    assert sk.COUNTED[body, "uniform_forward"] == sum(k % every == 0 for k in range(7))
     sk.reset_launch_counts()
-    assert sk.HUGE_PROFILED == {k: 0 for k in sk.L2_ENTRIES}
-    assert counted(2) == [True, False]
+    assert set(sk.PROFILED.values()) == set(sk.COUNTED.values()) == {0}
+    assert counted(2) == [True, every == 1]
 
 
-def test_huge_launch_stays_uncounted_where_the_counting_form_does_not_fit(monkeypatch):
+@pytest.mark.parametrize("body", list(COUNTING))
+def test_launch_stays_uncounted_where_the_counting_form_does_not_fit(monkeypatch, counters,
+                                                                     body):
     """Where the card holds fewer blocks an SM of the counting entries than
-    of the body's own (rows whose shared memory leaves no room for the
-    counting form's static tallies: none at all), the huge launch keeps its
-    own entry under a profiler."""
-    def occupancy(itemsize, threads, smem, device, counting=False, hops=0):
-        return 0 if counting else 1
+    of the body's own (the L2 body: one against two; the huge body: rows
+    whose shared memory leaves no room for the counting form's static
+    tallies, none at all), the launch keeps its own entry under a profiler
+    and adds into no sums."""
+    def occupancy(itemsize, which, threads, device, smem=0, own=(0, 0), counting=False):
+        assert which == body
+        return (0 if body == sk.HUGE else 1) if counting else (1 if body == sk.HUGE else 2)
 
-    monkeypatch.setattr(sk, "huge_occupancy", occupancy)
+    monkeypatch.setattr(sk, "block_occupancy", occupancy)
     monkeypatch.setattr(sk, "_COUNTING_FITS", {})
     rec = _Recorder()
-    monkeypatch.setattr(sk, "HUGE_WAIT", {})
-    plan, launch = _recorded_launcher(rec, monkeypatch, "uniform_forward", [(29016, 2, 1)],
-                                      huge_body="huge")
-    assert plan.huge_blocks == 1
+    shapes, bodies = ([(29016, 2, 1)], ["huge"]) if body == sk.HUGE else ([(320000, 2, 2)], None)
+    _, launch = _recorded_launcher(rec, monkeypatch, "uniform_forward", shapes, bodies)
     with profile(activities=[ProfilerActivity.CPU]):
         launch()
-    assert rec.calls[-1][0] == "uniform_forward" + sk.HUGE + "_f32"
-    assert sk.HUGE_WAIT == {}
+    (record,) = rec.calls[-1][1]
+    assert (record.body, record.acc) == (body, None)
+    assert getattr(sk, COUNTING[body][1]) == {}
 
 
-def test_huge_and_l2_launches_both_count_under_a_profiler(monkeypatch):
+@pytest.mark.parametrize("body", list(COUNTING))
+def test_wait_cycles_sum_the_devices_and_reset_zeroes_them(monkeypatch, counters, body):
+    name = COUNTING[body][1]
+    cycles = sk.l2_wait_cycles if body == sk.HUGE_L2 else sk.huge_wait_cycles
+    monkeypatch.setattr(sk, name, {
+        torch.device("cpu"): torch.tensor([[1, 10], [2, 20], [0, 5]]),
+        torch.device("cuda", 1): torch.tensor([[3, 30], [0, 0], [0, 0]])})
+    assert cycles() == {"uniform_forward": (4, 40), "uniform_backward": (2, 20), sk.RUN: (0, 5)}
+    assert sk.l2_wait_cycles() != sk.huge_wait_cycles()
+    monkeypatch.setattr(sk, "COUNTED", dict.fromkeys(sk.COUNTED, 3))
+    sk.reset_launch_counts()
+    assert cycles() == {k: (0, 0) for k in sk.L2_ENTRIES}
+    assert set(sk.COUNTED.values()) == {0}
+
+
+def test_huge_and_l2_launches_both_count_under_a_profiler(monkeypatch, counters):
     """A layout with a huge and an L2 bucket: under a profiler both take
-    their counting entries, each into its own accumulators."""
+    their counting forms, each into its own accumulators, in one call."""
     rec = _Recorder()
-    monkeypatch.setattr(sk, "HUGE_WAIT", {})
-    monkeypatch.setattr(sk, "L2_WAIT", {})
-    monkeypatch.setattr(sk, "L2_COUNTED", {k: 0 for k in sk.L2_ENTRIES})
-    monkeypatch.setattr(sk, "HUGE_PROFILED", {k: 0 for k in sk.L2_ENTRIES})
     kernel = "uniform_backward"
     plan, launch = _recorded_launcher(rec, monkeypatch, kernel, [(1024, 4, 8), (320000, 2, 2)])
-    assert plan.huge_blocks and plan.l2_blocks
+    assert [r.body for r in plan.sweeps] == [sk.HUGE, sk.HUGE_L2]
     launch()
-    plain = rec.calls[-2:]
+    plain = rec.calls[-1][1]
     with profile(activities=[ProfilerActivity.CPU]):
         launch()
-    (huge, huge_args), (l2, l2_args) = rec.calls[-2:]
-    assert (huge, l2) == (kernel + sk.HUGE + "_count_f32", kernel + sk.HUGE_L2 + "_count_f32")
-    assert huge_args == plain[0][1][:-1] + (_huge_row(kernel), 7)
-    l2_row = sk.L2_WAIT[torch.device("cpu")][sk.L2_ENTRIES.index(kernel)].data_ptr()
-    assert l2_args == plain[1][1][:-1] + (l2_row, 7)
-    assert sk.L2_COUNTED == {k: int(k == kernel) for k in sk.L2_ENTRIES}
+    assert len(rec.calls) == 2
+    huge, l2 = rec.calls[-1][1]
+    assert huge == dataclasses.replace(plain[0], acc=_wait_row(sk.HUGE, kernel))
+    assert l2 == dataclasses.replace(plain[1], acc=_wait_row(sk.HUGE_L2, kernel))
+    assert sk.COUNTED == {k: int(k[1] == kernel) for k in sk.COUNTED}
 
 
 @pytest.mark.parametrize("kernel", sk.L2_ENTRIES)
 def test_huge_ring_counts_the_ring_forms_launches_by_entry(monkeypatch, kernel):
     """HUGE_RING counts by entry the counted launches that take the huge
-    body's ring form (1,024 slots at 1,024 threads), which hand the library
-    their hops after the shared memory, and none of the grouped body's (the
-    same table with ``huge_ring=False``; 16,384 slots); both count under
-    ``_huge`` in LAUNCHES, and reset_launch_counts clears HUGE_RING with the
-    other counters."""
+    body's ring form (1,024 slots at 1,024 threads), whose record holds its
+    hops, and none of the grouped body's (the same table built with
+    ``ring_hops=0``; 16,384 slots); both count under ``_huge`` in LAUNCHES,
+    and reset_launch_counts clears HUGE_RING with the other counters."""
     rec = _Recorder()
     monkeypatch.setattr(sk, "HUGE_RING", {k: 0 for k in sk.L2_ENTRIES})
     monkeypatch.setattr(sk, "LAUNCHES", dict.fromkeys(sk.LAUNCHES, 0))
-    smem = "huge_smem_forward" if kernel == "uniform_forward" else "huge_smem_backward"
-    for shapes, forced, hops in (([(2, 3, 8), (1024, 4, 8)], {}, layout.HUGE_RING_HOPS),
-                                 ([(2, 3, 8), (1024, 4, 8)], {"huge_ring": False}, 0),
-                                 ([(16384, 2, 2)], {"huge_body": "huge"}, 0)):
-        plan, launch = _recorded_launcher(rec, monkeypatch, kernel, shapes, **forced)
+    for shapes, bodies, ring, hops in (
+            ([(2, 3, 8), (1024, 4, 8)], None, None, layout.HUGE_RING_HOPS),
+            ([(2, 3, 8), (1024, 4, 8)], ["narrow", "huge"], 0, 0),
+            ([(16384, 2, 2)], ["huge"], None, 0)):
+        plan, launch = _recorded_launcher(rec, monkeypatch, kernel, shapes, bodies,
+                                          ring_hops=ring)
         sk._launch_counted(launch)
-        name, args = rec.calls[-1]
-        assert name == kernel + sk.HUGE + "_f32"
-        assert args[5:7] == (getattr(plan, smem), hops) and plan.huge_hops == hops
+        record = rec.calls[-1][1][-1]
+        huge = plan.launch("huge", run=kernel == sk.RUN)
+        assert record.body == sk.HUGE and record.own == huge.own == (huge.own[0], hops)
+        assert record.smem == (huge.smem_forward, huge.smem_backward)
     assert sk.HUGE_RING == {k: int(k == kernel) for k in sk.L2_ENTRIES}
     assert sk.LAUNCHES[kernel + sk.HUGE] == 3
     sk.reset_launch_counts()
     assert sk.HUGE_RING == {k: 0 for k in sk.L2_ENTRIES}
-
-
-def test_huge_wait_cycles_sum_the_devices_and_reset_zeroes_them(monkeypatch):
-    monkeypatch.setattr(sk, "HUGE_WAIT", {
-        torch.device("cpu"): torch.tensor([[1, 10], [2, 20], [0, 5]]),
-        torch.device("cuda", 1): torch.tensor([[3, 30], [0, 0], [0, 0]])})
-    assert sk.huge_wait_cycles() == {"uniform_forward": (4, 40), "uniform_backward": (2, 20),
-                                     sk.RUN: (0, 5)}
-    assert sk.l2_wait_cycles() != sk.huge_wait_cycles()
-    sk.reset_launch_counts()
-    assert sk.huge_wait_cycles() == {k: (0, 0) for k in sk.L2_ENTRIES}
 
 
 # ------------------------------------------------------------- on the card
@@ -452,11 +425,12 @@ def test_l2_wait_counter_on_forced_plans(cuda_device, precision, split):
     itemsize = 4 if precision == "float" else 8
     host, (lo, hi, fr, dl, dh) = synthetic_host([(320000, 8, 2)], dtype, cuda_device, seed=37)
     geom = host.geom
-    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, huge_body="huge_l2",
-                              l2_split=split)
-    assert plan.l2_blocks and (plan.l2_split == split if split else plan.l2_split > 2)
-    assert layout.l2_occupancy(itemsize, plan.l2_threads, cuda_device, counting=True) >= \
-        layout.l2_occupancy(itemsize, plan.l2_threads, cuda_device)
+    plan = layout.build_plan(geom.plan.shapes, dtype, cuda_device, ["huge_l2"], l2_split=split)
+    l2 = plan.launch("huge_l2")
+    assert l2.own[0] == split if split else l2.own[0] > 2
+    assert layout.block_occupancy(itemsize, sk.HUGE_L2, l2.threads, cuda_device,
+                                  counting=True) >= \
+        layout.block_occupancy(itemsize, sk.HUGE_L2, l2.threads, cuda_device)
     for kernel, (launch, out) in (
             ("uniform_forward", sk.prepare_fused_launch("uniform_forward", geom, lo, hi, fr, 0.5,
                                                         dl, dh, plan)),
@@ -467,14 +441,14 @@ def test_l2_wait_counter_on_forced_plans(cuda_device, precision, split):
         launch()
         torch.cuda.synchronize()
         plain = [o.clone() for o in outs]
-        launched = sk.L2_COUNTED[kernel]
+        launched = sk.COUNTED[sk.HUGE_L2, kernel]
         counts = _counted(launch)
-        assert sk.L2_COUNTED[kernel] == launched + 1
+        assert sk.COUNTED[sk.HUGE_L2, kernel] == launched + 1
         assert_same_bits(outs, plain)
         wait, cycles = counts[kernel]
         assert all(v == (0, 0) for k, v in counts.items() if k != kernel)
         assert cycles > 0
-        if plan.l2_split == 1:
+        if l2.own[0] == 1:
             assert wait == 0
         else:
             assert 0 < wait < cycles
@@ -506,12 +480,10 @@ def test_huge_counting_fits_beside_the_plans_blocks(cuda_device, shape, dtype, f
     """The card's answer: the counting entries, with their static tallies,
     hold as many blocks an SM as the body's own, except where the plan's
     blocks leave less shared memory than the tallies take."""
-    plan = layout.launch_plan([shape], dtype, cuda_device, huge_body="huge")
+    huge = layout.build_plan([shape], dtype, cuda_device, ["huge"]).launch("huge")
     itemsize = torch.empty((), dtype=dtype).element_size()
-    assert plan.huge_blocks == shape[2]
-    assert all(sk._counting_fits(layout.huge_occupancy, itemsize, plan.huge_threads, smem,
-                                 cuda_device)
-               for smem in (plan.huge_smem_forward, plan.huge_smem_backward)) == fits
+    assert huge.blocks == shape[2]
+    assert sk._counting_fits(huge, itemsize, cuda_device) == fits
 
 
 @pytest.mark.cuda
@@ -522,13 +494,13 @@ def test_huge_wait_counter_equals_the_uncounted_body(cuda_device, precision, mon
     in the backward's shared memory) and 16,384 (one in float64), and count
     a wait at the block barriers below the blocks' cycles; without a
     profiler nothing is counted."""
-    monkeypatch.setattr(sk, "HUGE_COUNT_EVERY", 1)  # every profiled launch counts
+    monkeypatch.setitem(sk.COUNT_EVERY, sk.HUGE, 1)  # every profiled launch counts
     dtype = torch.float32 if precision == "float" else torch.float64
     host, (lo, hi, fr, dl, dh) = synthetic_host([(1024, 12, 8), (16384, 6, 3)], dtype,
                                                 cuda_device, seed=41)
     geom = host.geom
-    plan = layout.launch_plan(geom.plan.shapes, dtype, cuda_device, huge_body="huge")
-    assert (plan.nr_huge, plan.huge_blocks, plan.nr_cluster, plan.nr_l2) == (2, 11, 0, 0)
+    plan = layout.build_plan(geom.plan.shapes, dtype, cuda_device, ["huge"] * 2)
+    assert [(r.body, r.nr_buckets, r.blocks) for r in plan.sweeps] == [(sk.HUGE, 2, 11)]
     for kernel, (launch, out) in (
             ("uniform_forward", sk.prepare_fused_launch("uniform_forward", geom, lo, hi, fr, 0.5,
                                                         dl, dh, plan)),

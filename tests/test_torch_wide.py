@@ -30,7 +30,7 @@ from bdd_tpu.solver import uniform as uf
 from bdd_tpu_torch import api
 from bdd_tpu_torch.solver import layout
 from bdd_tpu_torch.solver import uniform as tuf
-from tests.test_torch_kernels import random_bucket, synthetic_host
+from tests.test_torch_kernels import counts, random_bucket, synthetic_host
 from tests.test_torch_sweep import assert_same, jax_setup
 
 
@@ -67,7 +67,7 @@ def test_instances_have_wide_buckets():
         assert widths[-1] == widest and widest > layout.NARROW_P
         if name == "mixed":
             assert widths[0] <= layout.NARROW_P
-            assert port.geom.plan.nr_buckets >= 1 and port.geom.plan.nr_wide >= 1
+            assert min(counts(port.geom.plan)[:2]) >= 1
 
 
 @pytest.mark.parametrize("pack", [False, True], ids=["unpacked", "packed"])
@@ -174,14 +174,14 @@ def test_two_byte_record_round_trip(P):
 def test_narrow_buckets_keep_their_one_byte_records(P):
     assert layout.arc_bytes(P) == 1 and layout.record_bytes(P) == max(4, 2 * P)
     plan = layout.launch_plan([(P, 4, 40)], torch.float32, "cpu")
-    assert (plan.nr_buckets, plan.nr_wide, plan.wide_blocks) == (1, 0, 0)
+    assert counts(plan) == (1, 0, 0, 0, 0)
     assert plan.arc_bytes == 4 * 40 * max(4, 2 * P)
 
 
 def test_widest_bucket_builds_and_sweeps_and_wider_is_refused():
     """The widest bucket of the wide body sweeps, and a wider one is no longer
     refused: it builds with four-byte arcs into the L2 body's table (its 8
-    columns: G = 16) or, where the plan is told so, the huge body's."""
+    columns: G = 16) or, where a plan is built so, the huge body's."""
     P = layout.WIDE_P
     host, (lo, hi, fr, dl, dh) = synthetic_host([(P, 2, 8)], torch.float64, "cpu")
     g = host.geom.buckets[0]
@@ -194,9 +194,9 @@ def test_widest_bucket_builds_and_sweeps_and_wider_is_refused():
     host = layout._build_host([wider], np.ones(4, np.int64), 4, 4, 8, torch.float32, "cpu")
     assert host.geom.buckets[0].arcs.shape == (1, 8, 8 * 2 * P)
     plan = layout.launch_plan([(2 * P, 1, 8)], torch.float32, "cpu")
-    assert (plan.nr_wide, plan.nr_huge, plan.nr_l2, plan.l2_split) == (0, 0, 1, 16)
-    plan = layout.launch_plan([(2 * P, 1, 8)], torch.float32, "cpu", huge_body="huge")
-    assert (plan.nr_wide, plan.nr_huge, plan.huge_blocks) == (0, 1, 8)
+    assert counts(plan) == (0, 0, 0, 0, 1) and plan.launch("huge_l2").own[0] == 16
+    plan = layout.build_plan([(2 * P, 1, 8)], torch.float32, "cpu", ["huge"])
+    assert counts(plan) == (0, 0, 1, 0, 0) and plan.launch("huge").blocks == 8
 
 
 @pytest.mark.parametrize("P", [layout.WIDE_P + 1, 16384])
@@ -303,19 +303,19 @@ def test_huge_bucket_matches_jax_f64(P, monkeypatch):
     assert layout.arc_bytes(pg.P) == (4 if P > layout.WIDE_P else 2)
     plan = port.geom.plan
     # past WIDE_P one column takes the L2 body (its G is 9 and more), and the
-    # body of its width where the plan is told so: the huge body where a
+    # body of its width where a plan is built so: the huge body where a
     # block holds the rows, else the cluster body
     body = "huge_l2" if P > layout.WIDE_P else "huge"
     assert layout.body_of(P, 8, B) == ("huge_cluster" if P > 19316 else "huge")  # the width's
-    assert plan.nr_wide == plan.nr_cluster == 0
-    assert (plan.nr_huge, plan.nr_l2) == ((1, 0) if body == "huge" else (0, 1))
+    assert counts(plan) == ((0, 0, 1, 0, 0) if body == "huge" else (0, 0, 0, 0, 1))
     if layout.WIDE_P < P <= 19316:
-        forced = layout.launch_plan(plan.shapes, torch.float64, "cpu", huge_body="huge")
-        assert (forced.nr_huge, forced.nr_l2, forced.nr_run_l2) == (1, 0, 0)
+        forced = layout.build_plan(plan.shapes, torch.float64, "cpu", ["huge"])
+        assert counts(forced) == counts(forced, run=True) == (0, 0, 1, 0, 0)
     if P > 19316:  # the cluster launch's slot codes: four bytes below 65,533 slots
-        forced = layout.launch_plan(plan.shapes, torch.float64, "cpu", huge_body="huge_cluster")
-        assert forced.nr_cluster == 1
-        assert layout.cluster_code_bytes(forced.cluster_pmax) == (8 if P > 65533 else 4)
+        forced = layout.build_plan(plan.shapes, torch.float64, "cpu", ["huge_cluster"])
+        assert counts(forced) == (0, 0, 0, 1, 0)
+        assert layout.cluster_code_bytes(forced.launch("huge_cluster").own[1]) == (
+            8 if P > 65533 else 4)
     dl, dh = rng.randn(H, B), rng.randn(H, B)
     dl[0, 0] = np.inf
     tl, th = torch.from_numpy(dl), torch.from_numpy(dh)
